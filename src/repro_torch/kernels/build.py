@@ -1,0 +1,115 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/*.cu`` file has a plain C interface and compiles with ``nvcc``
+into its own shared library, loaded with ``ctypes`` (no PyTorch headers, so
+a build takes seconds).  Libraries go to ``build/repro_torch_kernels/`` at
+the repository root, named by a hash of the source and the flags, so an
+edited source is rebuilt and an unchanged one is reused.  Nothing builds at
+import time: :func:`load` builds on first use, and :func:`build_all` starts
+one ``nvcc`` per source at once (what ``chip_smoke.py`` times).
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Tuple
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+#: source stem -> {C function: argtypes}; every function returns a cudaError_t
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+SOURCES: Dict[str, Dict[str, Tuple]] = {
+    "quant_exchange": {
+        # x, deq, scales, n, d, fmt, qinv, threads, stream
+        "repro_quant_dequant": (_P, _P, _P, _I, _I, _I, _F, _I, _P),
+        # x, deq, scales, stats, n, d, fmt, qinv, threads, stream
+        "repro_quant_dequant_stats": (_P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
+    },
+}
+
+_LOADED: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels build only where the "
+                       "CUDA toolkit is installed")
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def _tmp_path(name: str) -> Path:
+    return library_path(name).with_suffix(f".{os.getpid()}.tmp")
+
+
+def _start(name: str) -> subprocess.Popen:
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(_tmp_path(name)),
+           str(CSRC / f"{name}.cu")]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+
+
+def _finish(name: str, proc: subprocess.Popen) -> None:
+    """Wait for one build; move the library into place only once complete,
+    so a build cut short never leaves a library that looks finished."""
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {name}.cu (exit {proc.returncode}):\n{log}")
+    out = library_path(name)
+    out.with_suffix(".log").write_text(log)
+    os.replace(_tmp_path(name), out)
+
+
+def build_all() -> Dict[str, str]:
+    """Build every source that has no library yet, one ``nvcc`` each, all
+    started together.  Returns {name: compiler log} (ptxas register and
+    shared-memory report) for every source, built now or before."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {name: _start(name) for name in SOURCES
+             if not library_path(name).exists()}
+    try:
+        for name, proc in procs.items():
+            _finish(name, proc)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return {name: library_path(name).with_suffix(".log").read_text()
+            for name in SOURCES}
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    lib = _LOADED.get(name)
+    if lib is not None:
+        return lib
+    if not library_path(name).exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        _finish(name, _start(name))
+    lib = ctypes.CDLL(str(library_path(name)))
+    for fn, argtypes in SOURCES[name].items():
+        f = getattr(lib, fn)
+        f.argtypes = list(argtypes)
+        f.restype = ctypes.c_int
+    _LOADED[name] = lib
+    return lib
+
+
+__all__ = ["BUILD_DIR", "SOURCES", "build_all", "library_path", "load"]

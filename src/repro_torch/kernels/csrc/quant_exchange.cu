@@ -1,0 +1,199 @@
+// Per-row symmetric quantize -> dequantize of the cut-layer wire, for
+// Hopper (sm_90a), bound to Python through a plain C interface (ctypes).
+//
+// Replaces the TPU kernels of src/repro/kernels/quant_exchange.py:
+//   quant_dequant       (_quant_kernel)       -> qdq_kernel
+//   quant_dequant_stats (_quant_stats_kernel) -> qdq_stats_kernel
+//
+// What bounds them on this card: bytes, and in practice launches.  A
+// cut-layer message on the main path is (B, d_c) = (64, 256) f32.  qdq reads
+// 4*N*D bytes and writes 4*N*D + 4*N: 131,328 B, 0.04 us at 3.35 TB/s, far
+// below the few microseconds a launch costs.  So the design spends nothing
+// on bandwidth: one block per row, a loop over the columns with a masked
+// tail (any D), the row's amax by warp shuffles plus shared memory.
+//
+// qdq_stats runs the whole message in ONE block: the messages on the path
+// are one batch (N = 64 rows), so the batch mean needs neither a second
+// launch nor a cross-block reduction.  Pass 1 quantizes each row as qdq does
+// and accumulates the column sums in shared memory; each thread owns fixed
+// columns, so every column sum is taken in row order.  Pass 2 reads the
+// dequantized rows back and accumulates the distances to the mean and the
+// norms.  Every reduction runs in a fixed order with no float atomics, so
+// the bits repeat from run to run.  One block is one SM: a multi-block,
+// two-launch design for large N is later work.
+//
+// Bits.  deq and scales must equal the reference's bit for bit, so:
+//   * scale = max(amax, 1e-12) * f32(1/qmax): under jit XLA rewrites the
+//     reference's division by qmax into this multiply;
+//   * a / scale is an IEEE division (__fdiv_rn; the file is built without
+//     --use_fast_math);
+//   * int8 rounds half to even (rintf) and clips to +-127; fp8 clips to
+//     +-448 and converts with __nv_cvt_float_to_fp8(.., __NV_SATFINITE,
+//     __NV_E4M3), which rounds to nearest even;
+//   * the products are __fmul_rn, so nvcc cannot contract them into FMAs.
+
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr float kEps = 1e-12f;
+constexpr int kFmtInt8 = 0;
+constexpr int kFmtFp8E4M3 = 1;
+
+// Butterfly reductions: every lane ends with the same bits, since IEEE
+// addition and max are commutative.
+__device__ __forceinline__ float warp_max(float v) {
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Block-wide max (of non-negative values) or sum in a fixed order; every
+// thread gets the result.  blockDim.x is a multiple of 32; `red` holds 32
+// floats and is free again when this returns.
+template <bool kMax>
+__device__ __forceinline__ float block_reduce(float v, float* red) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  v = kMax ? warp_max(v) : warp_sum(v);
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  float r = lane < nwarps ? red[lane] : 0.f;
+  r = kMax ? warp_max(r) : warp_sum(r);
+  __syncthreads();
+  return r;
+}
+
+__device__ __forceinline__ float row_scale(float amax, float qinv) {
+  return __fmul_rn(fmaxf(amax, kEps), qinv);
+}
+
+template <int kFmt>
+__device__ __forceinline__ float qdq(float a, float scale) {
+  float v = __fdiv_rn(a, scale);
+  if (kFmt == kFmtInt8) {
+    v = fminf(fmaxf(rintf(v), -127.f), 127.f);
+  } else {
+    v = fminf(fmaxf(v, -448.f), 448.f);
+    const __nv_fp8_storage_t q = __nv_cvt_float_to_fp8(v, __NV_SATFINITE, __NV_E4M3);
+    v = __half2float(__half(__nv_cvt_fp8_to_halfraw(q, __NV_E4M3)));
+  }
+  return __fmul_rn(v, scale);
+}
+
+template <int kFmt>
+__global__ void qdq_kernel(const float* __restrict__ x, float* __restrict__ deq,
+                           float* __restrict__ scales, int d, float qinv) {
+  __shared__ float red[32];
+  const int64_t row = blockIdx.x;
+  const float* xr = x + row * d;
+  float* dr = deq + row * d;
+  float amax = 0.f;
+  for (int j = threadIdx.x; j < d; j += blockDim.x) amax = fmaxf(amax, fabsf(xr[j]));
+  const float scale = row_scale(block_reduce<true>(amax, red), qinv);
+  if (threadIdx.x == 0) scales[row] = scale;
+  for (int j = threadIdx.x; j < d; j += blockDim.x) dr[j] = qdq<kFmt>(xr[j], scale);
+}
+
+// stats = [dispersion, support_residual] of the dequantized message, as
+// core.split.message_stats defines them.
+template <int kFmt>
+__global__ void qdq_stats_kernel(const float* __restrict__ x, float* __restrict__ deq,
+                                 float* __restrict__ scales, float* __restrict__ stats,
+                                 int n, int d, float qinv) {
+  extern __shared__ float colsum[];  // d floats; column j belongs to thread j % blockDim.x
+  __shared__ float red[32];
+  for (int j = threadIdx.x; j < d; j += blockDim.x) colsum[j] = 0.f;
+
+  // pass 1: quantize each row, column sums in row order
+  for (int r = 0; r < n; ++r) {
+    const float* xr = x + static_cast<int64_t>(r) * d;
+    float* dr = deq + static_cast<int64_t>(r) * d;
+    float amax = 0.f;
+    for (int j = threadIdx.x; j < d; j += blockDim.x) amax = fmaxf(amax, fabsf(xr[j]));
+    const float scale = row_scale(block_reduce<true>(amax, red), qinv);
+    if (threadIdx.x == 0) scales[r] = scale;
+    for (int j = threadIdx.x; j < d; j += blockDim.x) {
+      const float v = qdq<kFmt>(xr[j], scale);
+      dr[j] = v;
+      colsum[j] += v;
+    }
+  }
+
+  // pass 2: mean, distances to it, norms.  A thread reads back only the
+  // columns it wrote, so it needs no barrier before reading them.
+  const float nt = static_cast<float>(n);
+  float mu_sq = 0.f;
+  for (int j = threadIdx.x; j < d; j += blockDim.x) {
+    const float mu = __fdiv_rn(colsum[j], nt);
+    colsum[j] = mu;
+    mu_sq += mu * mu;
+  }
+  float dist_sum = 0.f;  // meaningful in thread 0
+  float neg_sq = 0.f;
+  float tot_sq = 0.f;
+  for (int r = 0; r < n; ++r) {
+    const float* dr = deq + static_cast<int64_t>(r) * d;
+    float dev_sq = 0.f;
+    for (int j = threadIdx.x; j < d; j += blockDim.x) {
+      const float v = dr[j];
+      const float dev = v - colsum[j];
+      const float neg = fminf(v, 0.f);
+      dev_sq += dev * dev;
+      neg_sq += neg * neg;
+      tot_sq += v * v;
+    }
+    dist_sum += sqrtf(block_reduce<false>(dev_sq, red));
+  }
+  mu_sq = block_reduce<false>(mu_sq, red);
+  neg_sq = block_reduce<false>(neg_sq, red);
+  tot_sq = block_reduce<false>(tot_sq, red);
+  if (threadIdx.x == 0) {
+    const float mu_norm = fmaxf(sqrtf(mu_sq), kEps);
+    const float total = fmaxf(sqrtf(tot_sq), kEps);
+    stats[0] = __fdiv_rn(__fdiv_rn(dist_sum, nt), mu_norm);
+    stats[1] = __fdiv_rn(sqrtf(neg_sq), total);
+  }
+}
+
+}  // namespace
+
+// C interface.  Each function launches on `stream` and returns
+// cudaGetLastError() (0 = launched); the caller validates shapes, types and
+// devices and allocates every output.
+
+extern "C" int repro_quant_dequant(const float* x, float* deq, float* scales, int n,
+                                   int d, int fmt, float qinv, int threads, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (fmt == kFmtInt8) {
+    qdq_kernel<kFmtInt8><<<n, threads, 0, s>>>(x, deq, scales, d, qinv);
+  } else if (fmt == kFmtFp8E4M3) {
+    qdq_kernel<kFmtFp8E4M3><<<n, threads, 0, s>>>(x, deq, scales, d, qinv);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int repro_quant_dequant_stats(const float* x, float* deq, float* scales,
+                                         float* stats, int n, int d, int fmt, float qinv,
+                                         int threads, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t smem = static_cast<size_t>(d) * sizeof(float);
+  if (fmt == kFmtInt8) {
+    qdq_stats_kernel<kFmtInt8><<<1, threads, smem, s>>>(x, deq, scales, stats, n, d, qinv);
+  } else if (fmt == kFmtFp8E4M3) {
+    qdq_stats_kernel<kFmtFp8E4M3><<<1, threads, smem, s>>>(x, deq, scales, stats, n, d, qinv);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,192 @@
+"""Quantize -> dequantize of the cut-layer wire: the CUDA kernels
+(``csrc/quant_exchange.cu``) and their plain PyTorch versions.
+
+Per-row (per-sample) symmetric quantization to int8 or fp8-e4m3 with one f32
+scale per row, immediately dequantized, so the receiver consumes exactly the
+message it would reconstruct from ``1 byte/element + 4 bytes/row``.
+
+  * :func:`quant_dequant` — (N, D) f32 -> (deq (N, D), scales (N,)).
+  * :func:`quant_dequant_stats` — the same plus the
+    :func:`message_stats` ``[dispersion, support_residual]`` of the
+    dequantized message, in one launch.
+
+These two launch the kernels and accept only CUDA tensors; the plain
+versions (:func:`quant_dequant_plain`, :func:`quant_dequant_stats_plain`)
+repeat the arithmetic in PyTorch for the CPU and for comparison on the card.
+``kernels/ops.py`` picks between them by the tensor's device.  Each launcher
+counts its launches in :data:`LAUNCHES`.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+INT8 = "int8"
+FP8_E4M3 = "fp8_e4m3"
+QUANT_FORMATS = (INT8, FP8_E4M3)
+
+#: symmetric clip range per format (int8: +-127; fp8-e4m3: +-448)
+QMAX = {INT8: 127.0, FP8_E4M3: 448.0}
+
+#: 1/qmax rounded to f32.  The scale is ``max(amax, eps) * QINV``: under jit
+#: XLA rewrites the reference's ``max(amax, eps) / qmax`` into this multiply,
+#: and a division here would differ from it in the last bit in most rows.
+QINV = {fmt: float(np.float32(1.0) / np.float32(q)) for fmt, q in QMAX.items()}
+
+_EPS = 1e-12
+_FMT_CODE = {INT8: 0, FP8_E4M3: 1}
+
+#: widest message the one-block stats kernel takes (its column sums live in
+#: shared memory: 4 bytes a column, within the 48 KB a block gets by default)
+MAX_STATS_D = 8192
+
+#: kernel launches per launcher; reset with :func:`reset_launches`
+LAUNCHES: Dict[str, int] = {"quant_dequant": 0, "quant_dequant_stats": 0}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def fp8_supported() -> bool:
+    """fp8-e4m3 needs a torch build exposing ``torch.float8_e4m3fn``."""
+    return hasattr(torch, "float8_e4m3fn")
+
+
+def check_format(fmt: str) -> None:
+    if fmt not in QUANT_FORMATS:
+        raise ValueError(f"quant format {fmt!r} must be one of {QUANT_FORMATS}")
+    if fmt == FP8_E4M3 and not fp8_supported():
+        raise NotImplementedError(
+            "fp8_e4m3 quantization needs a torch build with "
+            "torch.float8_e4m3fn; use quant='int8'")
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+def quant_dequant_plain(x: torch.Tensor, fmt: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch per-row quantize->dequantize of an (N, D) f32 block.
+    Returns (dequantized block, per-row scales); the round trip through the
+    narrow dtype is explicit."""
+    check_format(fmt)
+    qmax = QMAX[fmt]
+    amax = x.abs().amax(dim=1)
+    scale = torch.clamp_min(amax, _EPS) * QINV[fmt]
+    s = scale[:, None]
+    if fmt == INT8:
+        q = torch.clamp(torch.round(x / s), -qmax, qmax).to(torch.int8)
+    else:
+        q = torch.clamp(x / s, -qmax, qmax).to(torch.float8_e4m3fn)
+    return q.to(torch.float32) * s, scale
+
+
+def message_stats(acts_sent: torch.Tensor) -> torch.Tensor:
+    """Per-batch anomaly statistics of a transmitted cut-activation message
+    (leading axis = batch), from exactly what the AP observes:
+
+      * ``dispersion`` — mean distance of the samples from the batch mean,
+        relative to the mean's norm (a replayed message has dispersion 0);
+      * ``support_residual`` — norm fraction of the message below zero (the
+        CNN cut layers are ReLU, so honest messages are non-negative).
+
+    Returns a (2,) f32 tensor."""
+    flat = acts_sent.reshape(acts_sent.shape[0], -1).to(torch.float32)
+    mu = flat.mean(dim=0, keepdim=True)
+    mu_norm = torch.clamp_min(torch.linalg.vector_norm(mu), _EPS)
+    disp = torch.linalg.vector_norm(flat - mu, dim=1).mean() / mu_norm
+    total = torch.clamp_min(torch.linalg.vector_norm(flat), _EPS)
+    support = torch.linalg.vector_norm(torch.clamp_max(flat, 0.0)) / total
+    return torch.stack([disp, support])
+
+
+def quant_dequant_stats_plain(x: torch.Tensor, fmt: str
+                              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`quant_dequant_stats`."""
+    deq, scale = quant_dequant_plain(x, fmt)
+    return deq, scale, message_stats(deq)
+
+
+# ---------------------------------------------------------------------------
+# kernel launchers
+# ---------------------------------------------------------------------------
+
+def _check_input(x: torch.Tensor, fmt: str) -> None:
+    check_format(fmt)
+    if x.device.type != "cuda":
+        raise ValueError(f"the quant kernels take CUDA tensors, got {x.device}")
+    if x.device.index != torch.cuda.current_device():
+        raise ValueError(f"message on {x.device} but the current device is "
+                         f"cuda:{torch.cuda.current_device()}")
+    if x.dtype != torch.float32:
+        raise TypeError(f"the quant kernels take float32, got {x.dtype}")
+    if x.dim() != 2 or x.shape[0] == 0 or x.shape[1] == 0:
+        raise ValueError(f"the quant kernels take a non-empty (N, D) message, "
+                         f"got shape {tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError("the quant kernels take a contiguous message")
+    if x.numel() >= 2 ** 31:
+        raise ValueError(f"message of {x.numel()} elements exceeds the "
+                         f"kernels' int32 indexing")
+
+
+def _threads(d: int, cap: int) -> int:
+    """Threads per block: the row width rounded up to whole warps, at most
+    ``cap`` (a block loops over wider rows)."""
+    return min(cap, (d + 31) // 32 * 32)
+
+
+def _raise_on(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
+
+
+def quant_dequant(x: torch.Tensor, fmt: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the quant->dequant kernel on an (N, D) f32 CUDA message.
+    Returns (deq (N, D) f32, scales (N,) f32)."""
+    from .build import load
+    _check_input(x, fmt)
+    n, d = x.shape
+    deq = torch.empty_like(x)
+    scales = torch.empty((n,), dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = load("quant_exchange").repro_quant_dequant(
+        x.data_ptr(), deq.data_ptr(), scales.data_ptr(), n, d, _FMT_CODE[fmt],
+        QINV[fmt], _threads(d, 256), stream)
+    _raise_on(err, "quant_dequant")
+    LAUNCHES["quant_dequant"] += 1
+    return deq, scales
+
+
+def quant_dequant_stats(x: torch.Tensor, fmt: str
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the fused quant->dequant + message-stats kernel on an (N, D)
+    f32 CUDA message.  Returns (deq, scales, stats (2,) f32), where stats ==
+    :func:`message_stats` of deq."""
+    from .build import load
+    _check_input(x, fmt)
+    n, d = x.shape
+    if d > MAX_STATS_D:
+        raise ValueError(f"quant_dequant_stats takes messages up to "
+                         f"{MAX_STATS_D} wide (column sums in shared memory), "
+                         f"got {d}")
+    deq = torch.empty_like(x)
+    scales = torch.empty((n,), dtype=torch.float32, device=x.device)
+    stats = torch.empty((2,), dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = load("quant_exchange").repro_quant_dequant_stats(
+        x.data_ptr(), deq.data_ptr(), scales.data_ptr(), stats.data_ptr(), n, d,
+        _FMT_CODE[fmt], QINV[fmt], _threads(d, 1024), stream)
+    _raise_on(err, "quant_dequant_stats")
+    LAUNCHES["quant_dequant_stats"] += 1
+    return deq, scales, stats
+
+
+__all__ = ["INT8", "FP8_E4M3", "QUANT_FORMATS", "QMAX", "QINV", "LAUNCHES",
+           "MAX_STATS_D", "check_format", "fp8_supported", "message_stats",
+           "quant_dequant", "quant_dequant_plain", "quant_dequant_stats",
+           "quant_dequant_stats_plain", "reset_launches"]
