@@ -7,16 +7,16 @@ bridged through :meth:`ThreatModel.from_legacy` (every listed client gets the
 same always-on attack), so existing call sites keep working unchanged.
 
 The sequential round asks :meth:`attack_for` per (client, round) and applies
-the returned frozen spec through the static hooks of
-:mod:`.registry`.  (The vectorised ``AttackVec`` compilation the batched
-round needs is not ported yet.)
+the returned frozen spec through the static hooks of :mod:`.registry`; the
+batched round compiles the same specs into an ``AttackVec``
+(:meth:`ThreatModel.attack_vec_for_clusters`).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, FrozenSet, Mapping, Optional, Set, Union
+from typing import Dict, FrozenSet, Mapping, Optional, Sequence, Set, Union
 
-from .registry import get, scale_attack
+from .registry import AttackVec, attack_vec_grid, get, scale_attack
 from .schedule import ALWAYS, Schedule
 from .specs import HONEST, NONE, Attack
 
@@ -125,6 +125,14 @@ class ThreatModel:
             return None
         a = scale_attack(threat.attack, threat.schedule.strength(t))
         return None if a.kind == NONE else a
+
+    def attack_vec_for_clusters(self, clusters: Sequence[Sequence[int]],
+                                t: int) -> AttackVec:
+        """(R, M_bar)-laned AttackVec for round t's cluster partition,
+        compiled from exactly the specs ``attack_for`` hands the sequential
+        engine."""
+        return attack_vec_grid([[self.attack_for(c, t) for c in cluster]
+                                for cluster in clusters])
 
 
 def resolve_threat_model(malicious: Optional[Set[int]], attack: Attack,

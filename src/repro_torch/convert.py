@@ -9,15 +9,20 @@ The reference keeps the split CNN's parameters as pytrees of arrays::
 Here they arrive and leave as numpy arrays (any array type ``np.asarray``
 takes).  Convolution kernels go HWIO <-> OIHW; dense kernels keep their
 (d_in, d_out) layout.  The round trip is exact.
+
+The batched round's cluster-stacked halves hold R such parameter sets:
+:func:`stack_reference` stacks R converted reference sets and
+:func:`slot_to_reference` takes slot r back out.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from .models.cnn import APHead, ClientCNN, CNNConfig
+from .models.cnn import (APHead, ClientCNN, CNNConfig, StackedAPHead,
+                         StackedClientCNN)
 
 Tree = Dict[str, Any]
 
@@ -59,4 +64,28 @@ def to_reference(gamma: ClientCNN, phi: APHead) -> Tuple[Tree, Tree]:
     return g, p
 
 
-__all__ = ["from_reference", "to_reference"]
+@torch.no_grad()
+def stack_reference(cfg: CNNConfig, trees: Sequence[Tuple[Tree, Tree]]
+                    ) -> Tuple[StackedClientCNN, StackedAPHead]:
+    """R reference (gamma, phi) pytree pairs -> the port's cluster-stacked
+    halves, slot r holding pair r, on the CPU."""
+    sg, sp = StackedClientCNN(cfg, len(trees)), StackedAPHead(cfg, len(trees))
+    plain = [from_reference(cfg, g, p) for g, p in trees]
+    for stacked, i in ((sg, 0), (sp, 1)):
+        for big, *slots in zip(stacked.parameters(),
+                               *(pair[i].parameters() for pair in plain)):
+            big.copy_(torch.stack(slots))
+    return sg, sp
+
+
+def slot_to_reference(cfg: CNNConfig, gamma: StackedClientCNN, phi: StackedAPHead,
+                      r: int) -> Tuple[Tree, Tree]:
+    """Slot ``r`` of cluster-stacked halves -> reference-layout numpy
+    pytrees."""
+    from .core.split import unstack_slot
+    return to_reference(unstack_slot(ClientCNN(cfg), gamma, r),
+                        unstack_slot(APHead(cfg), phi, r))
+
+
+__all__ = ["from_reference", "slot_to_reference", "stack_reference",
+           "to_reference"]

@@ -1,4 +1,6 @@
-"""Protocol drivers: Pigeon-SL (Algorithm 1) and Pigeon-SL+, sequential.
+"""Protocol drivers: Pigeon-SL (Algorithm 1) and Pigeon-SL+, on the
+sequential engine (one client turn at a time) or the batched engine
+(``engine.py``: the R clusters of a round as one stacked program).
 
 Every driver returns a ``History`` whose per-round records include test
 accuracy, per-cluster validation losses, the selected cluster, whether that
@@ -10,8 +12,13 @@ Randomness: the numpy streams (clustering, batch sampling) are consumed in
 exactly the reference's order, so cluster lists and batches match it bit for
 bit.  The initial parameters are drawn on a CPU ``torch.Generator`` seeded
 from ``pcfg.seed`` and then moved to the device, so a CPU run and a card run
-start from the same parameters; stochastic attacks draw on a generator on
-the run's device.
+start from the same parameters.  Noise follows one discipline in both
+engines: each round draws one seed per (cluster, client) slot from the run's
+CPU seed generator, cluster-major (:func:`round_client_seeds`), and each
+client turn draws its attack noise, step by step, from a generator on the
+run's device seeded with its slot's seed — so the two engines consume
+identical noise.  The host selector's handoff-tampering noise comes from a
+separate generator on the device.
 """
 from __future__ import annotations
 
@@ -31,9 +38,15 @@ from .comm import FLOAT_BYTES, CommConfig, message_bytes
 from .split import SplitModule, client_update, client_update_stats
 from .validation import validation_loss
 
-#: where the parts of the reference this slice does not run will come from
-BATCHED_SLICE = "the batched-round slice (core/runner.py, core/engine.py)"
+#: where the parts of the reference the port does not run yet will come from
 MULTI_ROUND_SLICE = "the multi-round slice (checkpoint/, telemetry/)"
+PIPELINE_SLICE = "the host-pipeline slice (data/pipeline.py RoundFeeder)"
+DRIVERS_SLICE = "a later slice of the protocol drivers"
+MULTI_CARD_SLICE = ("a multi-card slice (the cluster axis over several cards "
+                    "with torch.distributed)")
+
+ENGINES = ("sequential", "batched")
+PLACEMENTS = ("vmap", "sharded")
 
 
 def _not_ported(what: str, where: str):
@@ -129,6 +142,21 @@ def sample_batch_idx(rng: np.random.Generator, n: int, e: int, b: int) -> np.nda
     return rng.integers(0, n, size=(e, b))
 
 
+def round_client_seeds(gen: torch.Generator,
+                       clusters: Sequence[Sequence[int]]) -> np.ndarray:
+    """One noise seed per (cluster, client) slot of a round, (R, M_bar)
+    int64, drawn from the run's CPU seed generator in cluster-major order —
+    the counterpart of the reference's per-turn key splits, shared by both
+    engines."""
+    shape = (len(clusters), len(clusters[0]))
+    return torch.randint(0, 2 ** 62, shape, generator=gen).numpy()
+
+
+def turn_generator(seed, device: torch.device) -> torch.Generator:
+    """The generator one client turn draws its attack noise from."""
+    return torch.Generator(device=device).manual_seed(int(seed))
+
+
 def _sample_batches(rng: np.random.Generator, x: np.ndarray, y: np.ndarray,
                     e: int, b: int, device: torch.device
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -203,12 +231,14 @@ def evaluate(module: SplitModule, gamma: nn.Module, phi: nn.Module,
 def train_cluster(module: SplitModule, gamma: nn.Module, phi: nn.Module,
                   cluster: Sequence[int], data: ClientData, pcfg: ProtocolConfig,
                   tm: ThreatModel, t: int, rng: np.random.Generator,
-                  gen: torch.Generator, meter: CommMeter, d_c: int,
+                  seeds: Sequence[int], meter: CommMeter, d_c: int,
                   collect_stats: bool = False):
     """One cluster's within-cluster client chain, on copies of (gamma, phi):
-    theta^t stays as it was for the other clusters.  With ``collect_stats``
-    additionally returns the (M_bar, S) per-client transmitted-message
-    statistics; the parameter/loss arithmetic is the same either way."""
+    theta^t stays as it was for the other clusters.  ``seeds`` holds one
+    noise seed per client (:func:`round_client_seeds`).  With
+    ``collect_stats`` additionally returns the (M_bar, S) per-client
+    transmitted-message statistics; the parameter/loss arithmetic is the
+    same either way."""
     gamma, phi = copy.deepcopy(gamma), copy.deepcopy(phi)
     device = next(gamma.parameters()).device
     d_cl = _count_params(gamma)
@@ -216,6 +246,7 @@ def train_cluster(module: SplitModule, gamma: nn.Module, phi: nn.Module,
     for j, client in enumerate(cluster):
         xs, ys = _sample_batches(rng, data.x[client], data.y[client], pcfg.E,
                                  pcfg.B, device)
+        gen = turn_generator(seeds[j], device)
         a = tm.attack_for(client, t)
         if collect_stats:
             gamma, phi, loss, st = client_update_stats(
@@ -243,17 +274,40 @@ def cut_width(module: SplitModule, gamma: nn.Module, x0: torch.Tensor) -> int:
 # Pigeon-SL / Pigeon-SL+
 # ---------------------------------------------------------------------------
 
+def res_params(res: Dict[str, Any]) -> Tuple[nn.Module, nn.Module]:
+    """(gamma, phi) of one cluster result.  The batched engine's results are
+    views into its stacked candidates; only the clusters the selector
+    inspects are taken out as plain modules."""
+    if "gamma" not in res:
+        from .split import unstack_slot
+        theta, gs, ps, _, r = res["_stacked"]
+        res["gamma"] = unstack_slot(theta[0], gs, r)
+        res["phi"] = unstack_slot(theta[1], ps, r)
+    return res["gamma"], res["phi"]
+
+
+def res_vacts(res: Dict[str, Any]) -> torch.Tensor:
+    """The cluster's validation-time cut activations (for the handoff
+    check)."""
+    if "vacts" not in res:
+        _, _, _, vacts, r = res["_stacked"]
+        res["vacts"] = vacts[r]
+    return res["vacts"]
+
+
 def _train_round(module: SplitModule, theta, clusters, data: ClientData,
                  pcfg: ProtocolConfig, tm: ThreatModel, t: int,
-                 rng: np.random.Generator, gen: torch.Generator,
+                 rng: np.random.Generator, seed_gen: torch.Generator,
                  meter: CommMeter, d_c: int, x0: torch.Tensor, y0: torch.Tensor,
                  with_stats: bool = False) -> List[Dict[str, Any]]:
-    """Train all R clusters of round t from the same theta^t.  results[r]
-    holds gamma/phi/vloss/vacts/cluster/train_loss (and msg_stats)."""
+    """Train all R clusters of round t from the same theta^t, one after
+    another.  results[r] holds gamma/phi/vloss/vacts/cluster/train_loss (and
+    msg_stats)."""
+    seeds = round_client_seeds(seed_gen, clusters)
     results = []
-    for cluster in clusters:
+    for cluster, row in zip(clusters, seeds):
         out = train_cluster(module, theta[0], theta[1], cluster, data, pcfg,
-                            tm, t, rng, gen, meter, d_c, collect_stats=with_stats)
+                            tm, t, rng, row, meter, d_c, collect_stats=with_stats)
         g, p, train_loss = out[:3]
         vloss, vacts = validation_loss(module, g, p, x0, y0)
         res = dict(gamma=g, phi=p, vloss=float(vloss), vacts=vacts,
@@ -264,40 +318,79 @@ def _train_round(module: SplitModule, theta, clusters, data: ClientData,
     return results
 
 
-def _attack_generator(init_gen: torch.Generator, device: torch.device) -> torch.Generator:
-    """The run's generator for stochastic attacks, on its device, seeded
-    from the init stream after the parameters were drawn."""
-    seed = int(torch.randint(0, 2 ** 62, (1,), generator=init_gen))
-    return torch.Generator(device=device).manual_seed(seed)
+def _noise_generators(init_gen: torch.Generator, device: torch.device
+                      ) -> Tuple[torch.Generator, torch.Generator]:
+    """The run's noise streams, seeded from the init stream after the
+    parameters were drawn: the CPU generator of the per-turn seeds (drawn on
+    the host, so no engine waits on the device for them) and the device
+    generator of the host selector's handoff-tampering noise."""
+    seeds = [int(torch.randint(0, 2 ** 62, (1,), generator=init_gen))
+             for _ in range(2)]
+    return (torch.Generator().manual_seed(seeds[0]),
+            torch.Generator(device=device).manual_seed(seeds[1]))
+
+
+def _check_engine(engine: str, placement: str = "vmap", prefetch: int = 0,
+                  block: int = 1) -> None:
+    """Validate the execution knobs as the reference does, then refuse the
+    ones the port does not run yet."""
+    from .runner import ROUND_BLOCK_SLICE
+    if engine not in ENGINES:
+        raise ValueError(f"engine={engine!r} must be one of {ENGINES}")
+    if placement not in PLACEMENTS:
+        raise ValueError(f"placement={placement!r} must be one of {PLACEMENTS}")
+    if placement != "vmap" and engine != "batched":
+        raise ValueError(f"placement={placement!r} requires engine='batched' "
+                         f"(the sequential engine has no cluster axis to place)")
+    if prefetch > 0 and engine != "batched":
+        raise ValueError(f"prefetch={prefetch} requires engine='batched' "
+                         f"(the sequential engine assembles per client turn)")
+    if block < 1:
+        raise ValueError(f"block={block} must be >= 1")
+    if block > 1 and engine != "batched":
+        raise ValueError(f"block={block} requires engine='batched' (the "
+                         f"sequential engine cannot chain rounds)")
+    if placement == "sharded":
+        _not_ported('placement="sharded"', MULTI_CARD_SLICE)
+    if prefetch > 0:
+        _not_ported("prefetch", PIPELINE_SLICE)
+    if block > 1:
+        _not_ported("block", ROUND_BLOCK_SLICE)
 
 
 def run_pigeon(module: SplitModule, data: ClientData, pcfg: ProtocolConfig,
                malicious: Optional[Set[int]] = None, attack: Attack = HONEST,
                plus: bool = False, *, engine: str = "sequential",
+               placement: str = "vmap", prefetch: int = 0, block: int = 1,
                threat_model: Optional[ThreatModel] = None,
                selection="argmin", quant: Optional[str] = None,
                device: DeviceLike = None, verbose: bool = False,
                checkpoint_path: Optional[str] = None, resume: bool = False,
                telemetry=None) -> History:
-    """Pigeon-SL (Algorithm 1), sequential: each round trains the R clusters
-    one after another from theta^t, validates them on the shared set, and
-    runs the host cascade (rank -> handoff check -> commit or roll back).
+    """Pigeon-SL (Algorithm 1): each round trains the R clusters from
+    theta^t, validates them on the shared set, and runs the acceptance
+    cascade (rank -> handoff check -> commit or roll back).
 
+    * ``engine`` — ``"sequential"`` (one client turn at a time, host
+      cascade) or ``"batched"`` (the R clusters as one stacked program; the
+      whole cascade runs on the device and the round reads back one vector,
+      except for param-tamper threat models, which take the host cascade).
+      Both select the same clusters and count bit-identical messages.
+    * ``placement`` — batched engine only: ``"vmap"`` (one card).
     * ``device`` — the CUDA card by default (raises without one); ``"cpu"``
       on request.
     * ``quant`` — cut-layer wire format shorthand (``"int8"`` /
       ``"fp8_e4m3"``; ``None`` keeps ``pcfg.comm``).
     * ``selection`` — ``"argmin"`` (the paper's rule),
-      ``"loss_plus_distance"``, ``"trimmed"`` or a policy instance.
+      ``"median_of_means"``, ``"loss_plus_distance"``, ``"trimmed"`` or a
+      policy instance.
     * ``plus`` — Pigeon-SL+: R-1 extra sub-rounds on the selected cluster
       after an accepted round.
 
-    ``engine="batched"``, ``checkpoint_path``/``resume`` and
-    ``telemetry``/``verbose`` are not ported yet and raise."""
-    if engine == "batched":
-        _not_ported('engine="batched"', BATCHED_SLICE)
-    if engine != "sequential":
-        raise ValueError(f"engine={engine!r} must be 'sequential' or 'batched'")
+    ``placement="sharded"``, ``prefetch``, ``block``,
+    ``checkpoint_path``/``resume`` and ``telemetry``/``verbose`` are not
+    ported yet and raise."""
+    _check_engine(engine, placement, prefetch, block)
     if checkpoint_path is not None or resume:
         _not_ported("checkpoint_path/resume", MULTI_ROUND_SLICE)
     if telemetry is not None or verbose:
@@ -310,25 +403,44 @@ def run_pigeon(module: SplitModule, data: ClientData, pcfg: ProtocolConfig,
     rng = np.random.default_rng(pcfg.seed)
     init_gen = torch.Generator().manual_seed(pcfg.seed)
     theta = tuple(copy.deepcopy(m).to(dev) for m in module.init(init_gen))
-    gen = _attack_generator(init_gen, dev)
+    seed_gen, param_gen = _noise_generators(init_gen, dev)
     x0 = torch.from_numpy(data.x0).to(dev)
     y0 = torch.from_numpy(data.y0).to(dev)
     d_o = data.x0.shape[0]
     d_cl = _count_params(theta[0])
     d_c = cut_width(module, theta[0], x0)
     hist = History()
+    # The fused on-device cascade covers every message-level threat model;
+    # handoff (param-tamper) attacks draw their noise per visited candidate
+    # on the host, so they pin selection to the host cascade.
+    fused = engine == "batched" and not tm.has_param_tamper
+    if engine == "batched":
+        from .engine import (pigeon_round_accept, train_cluster_batched,
+                             train_round_batched)
 
     for t in range(pcfg.T):
         meter = CommMeter()
         clusters = make_clusters(rng, pcfg.M, pcfg.R)
-        results = _train_round(module, theta, clusters, data, pcfg, tm, t, rng,
-                               gen, meter, d_c, x0, y0,
-                               with_stats=policy.needs_message_stats)
-        outcome = select_host(policy, module, results, theta, tm, t, gen, pcfg,
-                              meter, x0, d_c)
-        theta = outcome.theta
-        selected, accepted = outcome.selected, outcome.accepted
-        sel_cluster = results[selected]["cluster"]
+        if fused:
+            theta, sel_rec = pigeon_round_accept(
+                module, theta, clusters, data, pcfg, tm, t, rng, seed_gen,
+                meter, d_c, x0, y0, policy)
+            selected, accepted = sel_rec["selected"], sel_rec["accepted"]
+            detections = sel_rec["detections"]
+            val_losses, train_losses = sel_rec["val_losses"], sel_rec["train_losses"]
+        else:
+            train = train_round_batched if engine == "batched" else _train_round
+            results = train(module, theta, clusters, data, pcfg, tm, t, rng,
+                            seed_gen, meter, d_c, x0, y0,
+                            with_stats=policy.needs_message_stats)
+            outcome = select_host(policy, module, results, theta, tm, t,
+                                  param_gen, pcfg, meter, x0, y0, d_c)
+            theta = outcome.theta
+            selected, accepted = outcome.selected, outcome.accepted
+            detections = outcome.detections
+            val_losses = [res["vloss"] for res in results]
+            train_losses = [res["train_loss"] for res in results]
+        sel_cluster = clusters[selected]
         for _ in clusters:
             account_validation(meter, d_o, d_c)
         if accepted:
@@ -341,22 +453,29 @@ def run_pigeon(module: SplitModule, data: ClientData, pcfg: ProtocolConfig,
         # from theta^t would hand a detected attacker R-1 free extra turns.
         if plus and accepted:
             for _ in range(pcfg.R - 1):
-                g, p, _ = train_cluster(module, theta[0], theta[1], sel_cluster,
-                                        data, pcfg, tm, t, rng, gen, meter, d_c)
+                if engine == "batched":
+                    g, p, _ = train_cluster_batched(module, theta, sel_cluster,
+                                                    data, pcfg, tm, t, rng,
+                                                    seed_gen, meter, d_c)
+                else:
+                    seeds = round_client_seeds(seed_gen, [sel_cluster])[0]
+                    g, p, _ = train_cluster(module, theta[0], theta[1],
+                                            sel_cluster, data, pcfg, tm, t,
+                                            rng, seeds, meter, d_c)
                 theta = (g, p)
                 account_param_transfer(meter, _count_params(g))  # subround handoff
 
         rec = dict(
             round=t,
             clusters=clusters,
-            val_losses=[res["vloss"] for res in results],
-            train_losses=[res["train_loss"] for res in results],
+            val_losses=val_losses,
+            train_losses=train_losses,
             selected=selected,
             accepted=accepted,
             selected_honest=cluster_is_honest(sel_cluster, tm.malicious),
             honest_cluster_exists=any(cluster_is_honest(c, tm.malicious)
                                       for c in clusters),
-            detections=outcome.detections,
+            detections=detections,
             comm=dataclasses.asdict(meter),
         )
         if t % pcfg.eval_every == 0 or t == pcfg.T - 1:
@@ -376,16 +495,24 @@ def run_pigeon_plus(module: SplitModule, data: ClientData, pcfg: ProtocolConfig,
 
 def run_vanilla_sl(*args, **kwargs) -> History:
     """Vanilla SL (the paper's baseline): not ported yet."""
-    _not_ported("run_vanilla_sl", "a later slice of the sequential drivers")
+    _not_ported("run_vanilla_sl", DRIVERS_SLICE)
 
 
 def run_splitfed(*args, **kwargs) -> History:
     """Clustered SplitFed (Section V baseline): not ported yet."""
-    _not_ported("run_splitfed", "a later slice of the sequential drivers")
+    _not_ported("run_splitfed", DRIVERS_SLICE)
 
 
-__all__ = ["ClientData", "CommMeter", "History", "ProtocolConfig",
+def run_pigeon_sweep(*args, **kwargs) -> History:
+    """S seeded protocol replicas in lockstep: not ported yet."""
+    from .runner import SWEEP_SLICE
+    _not_ported("run_pigeon_sweep", SWEEP_SLICE)
+
+
+__all__ = ["ClientData", "CommMeter", "ENGINES", "History", "ProtocolConfig",
            "account_client_turn", "account_handoff_recheck",
            "account_param_transfer", "account_validation", "cut_width",
-           "evaluate", "run_pigeon", "run_pigeon_plus", "run_splitfed",
-           "run_vanilla_sl", "sample_batch_idx", "train_cluster"]
+           "evaluate", "res_params", "res_vacts", "round_client_seeds",
+           "run_pigeon", "run_pigeon_plus", "run_pigeon_sweep", "run_splitfed",
+           "run_vanilla_sl", "sample_batch_idx", "train_cluster",
+           "turn_generator"]

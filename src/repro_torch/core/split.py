@@ -12,18 +12,28 @@ The client backward starts from its own cut activations with exactly the
 
 gamma and phi are ``nn.Module``s (``ClientCNN`` / ``APHead`` for the CNNs);
 an SGD step updates their parameters in place.
+
+The batched round runs the same exchange on cluster-stacked halves
+(:class:`StackedSplit`): messages carry a leading R axis, the attack hooks
+are the ``AttackVec`` dispatchers, and the AP differentiates the *sum over
+clusters* of the per-cluster mean losses — the clusters share no parameter,
+so each receives exactly its own gradients.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
+import math
 from functools import partial
-from typing import Callable, List, Optional, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
-from ..adversary import (Attack, flip_labels, poison_inputs,
-                         tamper_activation, tamper_gradient)
+from ..adversary import (Attack, AttackVec, flip_labels, flip_labels_vec,
+                         poison_inputs, poison_inputs_vec, tamper_activation,
+                         tamper_activation_vec, tamper_gradient,
+                         tamper_gradient_vec)
 from ..adversary.families import Noise
 from ..kernels import ops as kops
 from ..kernels.quant_exchange import message_stats
@@ -33,20 +43,33 @@ N_MESSAGE_STATS = len(MESSAGE_STAT_NAMES)
 
 
 @dataclasses.dataclass(frozen=True)
+class StackedSplit:
+    """The cluster-stacked form of a split model, for the batched round.
+    ``make(r)`` builds zeroed halves for R clusters on the current default
+    device, whose ``parameters()`` follow the plain halves' order with a
+    leading R axis each."""
+    make: Callable[[int], Tuple[nn.Module, nn.Module]]
+    client_forward: Callable[[nn.Module, torch.Tensor], torch.Tensor]  # (R, B, ...) -> (R, B, d_c)
+    ap_losses: Callable[[nn.Module, torch.Tensor, torch.Tensor], torch.Tensor]  # -> (R,)
+
+
+@dataclasses.dataclass(frozen=True)
 class SplitModule:
     """Functional view of a split model: ``init`` builds (gamma, phi) on the
     CPU from a CPU ``torch.Generator``; the rest are plain functions of the
-    modules and tensors."""
+    modules and tensors.  ``stacked`` is the cluster-stacked form the batched
+    round needs (None: the model runs on the sequential engine only)."""
     init: Callable[[torch.Generator], Tuple[nn.Module, nn.Module]]
     client_forward: Callable[[nn.Module, torch.Tensor], torch.Tensor]
     ap_loss: Callable[[nn.Module, torch.Tensor, torch.Tensor], torch.Tensor]
     predict: Callable[[nn.Module, nn.Module, torch.Tensor], torch.Tensor]
     n_classes: int = 10
+    stacked: Optional[StackedSplit] = None
 
 
 def from_cnn(cfg) -> SplitModule:
     from ..models import cnn as cnn_mod
-    from ..models.blocks import cross_entropy
+    from ..models.blocks import cross_entropy, cross_entropy_stacked
 
     return SplitModule(
         init=lambda gen: cnn_mod.cnn_init(gen, cfg),
@@ -54,7 +77,47 @@ def from_cnn(cfg) -> SplitModule:
         ap_loss=lambda p, a, y: cross_entropy(p(a), y),
         predict=lambda g, p, x: p(g(x)),
         n_classes=cfg.n_classes,
+        stacked=StackedSplit(
+            make=lambda r: cnn_mod.cnn_stacked(cfg, r),
+            client_forward=lambda g, x: g(x),
+            ap_losses=lambda p, a, y: cross_entropy_stacked(p(a), y)),
     )
+
+
+# ---------------------------------------------------------------------------
+# cluster-stacked parameters
+# ---------------------------------------------------------------------------
+
+def _stacked(module: SplitModule) -> StackedSplit:
+    if module.stacked is None:
+        raise NotImplementedError("this split model has no cluster-stacked "
+                                  "form, so it runs on the sequential engine "
+                                  "only")
+    return module.stacked
+
+
+@torch.no_grad()
+def stack_params(module: SplitModule, gamma: nn.Module, phi: nn.Module,
+                 r: int) -> Tuple[nn.Module, nn.Module]:
+    """Cluster-stacked halves holding ``(gamma, phi)`` in each of R slots,
+    on gamma's device (built there: no host->device copy)."""
+    device = next(gamma.parameters()).device
+    with torch.device(device):
+        sg, sp = _stacked(module).make(r)
+    for stacked, plain in ((sg, gamma), (sp, phi)):
+        for big, p in zip(stacked.parameters(), plain.parameters()):
+            big.copy_(p.expand_as(big))
+    return sg, sp
+
+
+@torch.no_grad()
+def unstack_slot(template: nn.Module, stacked: nn.Module, r: int) -> nn.Module:
+    """Slot ``r`` of a stacked half as a plain module (a copy of
+    ``template``, the plain half it was stacked from)."""
+    out = copy.deepcopy(template)
+    for p, big in zip(out.parameters(), stacked.parameters()):
+        p.copy_(big[r])
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -64,10 +127,16 @@ def from_cnn(cfg) -> SplitModule:
 def _sl_exchange(module: SplitModule, gamma: nn.Module, phi: nn.Module,
                  x: torch.Tensor, y: torch.Tensor, noise: Optional[Noise],
                  poison, send_labels, send_acts, recv_grad,
-                 with_stats: bool = False, quant: Optional[str] = None):
+                 with_stats: bool = False, quant: Optional[str] = None,
+                 lead: int = 1):
     """One FwdProp/BackProp exchange.  Returns (g_gamma, g_phi, loss) — the
     gradients as lists in ``parameters()`` order — plus the transmitted
     message's :func:`message_stats` when ``with_stats``.
+
+    ``lead`` is the number of leading sample axes: 1 for one cluster's batch
+    on the plain halves, 2 for R clusters' batches ``(R, B, ...)`` on the
+    cluster-stacked halves, where ``loss`` and the stats come per cluster,
+    ``(R,)`` and ``(R, 2)``.
 
     The attack hooks sit where the taxonomy places them: ``poison`` on the
     client's inputs, ``send_labels`` / ``send_acts`` on the messages before
@@ -83,29 +152,36 @@ def _sl_exchange(module: SplitModule, gamma: nn.Module, phi: nn.Module,
     applies *after* the cut gradient is dequantized.  Under ``with_stats``
     the fused kernel emits the stats of that dequantized uplink message.
     """
+    if lead == 1:
+        forward, ap_loss = module.client_forward, module.ap_loss
+    else:
+        forward, ap_loss = _stacked(module).client_forward, _stacked(module).ap_losses
     x_used = poison(x)
     y_sent = send_labels(y)
     gamma_params = list(gamma.parameters())
     phi_params = list(phi.parameters())
 
-    acts = module.client_forward(gamma, x_used)
+    acts = forward(gamma, x_used)
     acts_sent = send_acts(acts.detach(), noise)
+    rows = math.prod(acts_sent.shape[:lead])      # one wire row per sample
     stats = None
     if quant is not None:
-        flat = acts_sent.reshape(acts_sent.shape[0], -1).to(torch.float32).contiguous()
+        msgs = acts_sent.reshape(acts_sent.shape[:lead] + (-1,))
+        msgs = msgs.to(torch.float32).contiguous()
         if with_stats:
-            deq, _, stats = kops.quant_roundtrip_stats(flat, quant)
+            deq, _, stats = kops.quant_roundtrip_stats(msgs, quant)
         else:
-            deq, _ = kops.quant_roundtrip(flat, quant)
+            deq, _ = kops.quant_roundtrip(msgs.reshape(rows, -1), quant)
         acts_sent = deq.reshape(acts_sent.shape).to(acts_sent.dtype)
 
-    # The AP differentiates w.r.t. phi and the message it received.
+    # The AP differentiates w.r.t. phi and the message it received (for R
+    # stacked clusters: the sum of their independent mean losses).
     acts_recv = acts_sent.detach().requires_grad_(True)
-    loss = module.ap_loss(phi, acts_recv, y_sent)
-    *g_phi, g_acts = torch.autograd.grad(loss, phi_params + [acts_recv])
+    loss = ap_loss(phi, acts_recv, y_sent)
+    *g_phi, g_acts = torch.autograd.grad(loss.sum(), phi_params + [acts_recv])
 
     if quant is not None:
-        gflat = g_acts.reshape(g_acts.shape[0], -1).to(torch.float32).contiguous()
+        gflat = g_acts.reshape(rows, -1).to(torch.float32).contiguous()
         gdeq, _ = kops.quant_roundtrip(gflat, quant)
         g_acts = gdeq.reshape(g_acts.shape).to(g_acts.dtype)
     g_acts_recv = recv_grad(g_acts, noise)
@@ -115,7 +191,8 @@ def _sl_exchange(module: SplitModule, gamma: nn.Module, phi: nn.Module,
     loss = loss.detach()
     if with_stats:
         if stats is None:
-            stats = message_stats(acts_sent)
+            stats = (message_stats(acts_sent) if lead == 1
+                     else torch.stack([message_stats(a) for a in acts_sent]))
         return g_gamma, list(g_phi), loss, stats
     return g_gamma, list(g_phi), loss
 
@@ -134,6 +211,23 @@ def sl_minibatch_grads(module: SplitModule, attack: Attack, gamma: nn.Module,
         with_stats=with_stats, quant=quant)
 
 
+def sl_minibatch_grads_vec(module: SplitModule, av: AttackVec, gamma: nn.Module,
+                           phi: nn.Module, x: torch.Tensor, y: torch.Tensor,
+                           noise, with_stats: bool = False,
+                           quant: Optional[str] = None):
+    """The exchange of R stacked clusters, one client position each:
+    ``av`` holds that position's ``(R,)`` lanes, ``x``/``y`` are
+    ``(R, B, ...)``/``(R, B)``, and ``noise`` is one generator per slot (or
+    the drawn noise).  Returns per-cluster losses ``(R,)``."""
+    return _sl_exchange(
+        module, gamma, phi, x, y, noise,
+        lambda x_: poison_inputs_vec(av, x_),
+        lambda y_: flip_labels_vec(av, y_, module.n_classes),
+        lambda a, n: tamper_activation_vec(av, a, n),
+        lambda g, n: tamper_gradient_vec(av, g, n),
+        with_stats=with_stats, quant=quant, lead=2)
+
+
 def sgd_update(params: nn.Module, grads: List[torch.Tensor], lr: float) -> nn.Module:
     """``p - lr * g`` for every parameter, written in place (the reference
     returns new arrays; nothing here keeps the old values)."""
@@ -148,9 +242,10 @@ def _client_update(grads_fn, gamma: nn.Module, phi: nn.Module,
                    gen: Optional[torch.Generator], with_stats: bool = False):
     """E mini-batch SGD updates for one client (lines 10-18 of Algorithm 1),
     generic over the exchange implementation.  data = (xs, ys) with
-    xs: (E, B, ...), ys: (E, B).  Updates gamma and phi in place; with
-    ``with_stats`` additionally returns the client's mean per-batch
-    :func:`message_stats` vector."""
+    xs: (E, B, ...), ys: (E, B) — or (E, R, B, ...), (E, R, B) for R stacked
+    clusters, whose losses and stats then come per cluster.  Updates gamma
+    and phi in place; with ``with_stats`` additionally returns the client's
+    mean per-batch :func:`message_stats` vector."""
     xs, ys = data
     losses, stats = [], []
     for x, y in zip(xs, ys):
@@ -161,7 +256,7 @@ def _client_update(grads_fn, gamma: nn.Module, phi: nn.Module,
         losses.append(loss)
         if with_stats:
             stats.append(out[3])
-    loss = torch.mean(torch.stack(losses))
+    loss = torch.mean(torch.stack(losses), dim=0)
     if with_stats:
         return gamma, phi, loss, torch.mean(torch.stack(stats), dim=0)
     return gamma, phi, loss
@@ -188,6 +283,32 @@ def client_update_stats(module: SplitModule, attack: Attack, gamma: nn.Module,
         gamma, phi, data, lr, gen, with_stats=True)
 
 
+def client_update_vec_impl(module: SplitModule, av: AttackVec, gamma: nn.Module,
+                           phi: nn.Module, data: Tuple[torch.Tensor, torch.Tensor],
+                           lr: float, noise: Optional[Sequence[torch.Generator]], *,
+                           quant: Optional[str] = None):
+    """One client position's turn in each of R stacked clusters: ``data`` is
+    (xs (E, R, B, ...), ys (E, R, B)), ``noise`` one generator per slot.
+    Returns (gamma, phi, per-cluster mean losses (R,)), updated in place."""
+    return _client_update(partial(sl_minibatch_grads_vec, module, av, quant=quant),
+                          gamma, phi, data, lr, noise)
+
+
+def client_update_vec_stats_impl(module: SplitModule, av: AttackVec,
+                                 gamma: nn.Module, phi: nn.Module,
+                                 data: Tuple[torch.Tensor, torch.Tensor],
+                                 lr: float, noise: Optional[Sequence[torch.Generator]], *,
+                                 quant: Optional[str] = None):
+    """:func:`client_update_vec_impl` + each cluster's mean message
+    statistics ``(R, S)``."""
+    return _client_update(
+        partial(sl_minibatch_grads_vec, module, av, with_stats=True, quant=quant),
+        gamma, phi, data, lr, noise, with_stats=True)
+
+
 __all__ = ["MESSAGE_STAT_NAMES", "N_MESSAGE_STATS", "SplitModule",
-           "client_update", "client_update_stats", "from_cnn", "message_stats",
-           "sgd_update", "sl_minibatch_grads"]
+           "StackedSplit", "client_update", "client_update_stats",
+           "client_update_vec_impl", "client_update_vec_stats_impl",
+           "from_cnn", "message_stats", "sgd_update",
+           "sl_minibatch_grads", "sl_minibatch_grads_vec", "stack_params",
+           "unstack_slot"]

@@ -7,6 +7,10 @@ the repository root, named by a hash of the source and the flags, so an
 edited source is rebuilt and an unchanged one is reused.  Nothing builds at
 import time: :func:`load` builds on first use, and :func:`build_all` starts
 one ``nvcc`` per source at once (what ``chip_smoke.py`` times).
+
+Every launcher reports its launch through :func:`record_launch`, which raises
+on a CUDA error and otherwise adds one to the launcher's count in
+:data:`LAUNCHES`: one reset and one read cover every kernel of a path.
 """
 from __future__ import annotations
 
@@ -24,17 +28,39 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 #: source stem -> {C function: argtypes}; every function returns a cudaError_t
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 SOURCES: Dict[str, Dict[str, Tuple]] = {
     "quant_exchange": {
         # x, deq, scales, n, d, fmt, qinv, threads, stream
         "repro_quant_dequant": (_P, _P, _P, _I, _I, _I, _F, _I, _P),
-        # x, deq, scales, stats, n, d, fmt, qinv, threads, stream
-        "repro_quant_dequant_stats": (_P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
+        # x, deq, scales, stats, m, n, d, fmt, qinv, threads, stream
+        "repro_quant_dequant_stats": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
+    },
+    "tamper_check": {
+        "repro_tamper_check_chunk": (),
+        # ref, recv, partial, out, r, n_elem, p, stream
+        "repro_tamper_check_sums": (_P, _P, _P, _P, _I, _L, _I, _P),
     },
 }
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
+
+#: kernel launches per launcher; reset with :func:`reset_launches`
+LAUNCHES: Dict[str, int] = {"quant_dequant": 0, "quant_dequant_stats": 0,
+                            "tamper_check_sums": 0}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def record_launch(err: int, name: str) -> None:
+    """After launcher ``name`` called its C function: raise on the returned
+    ``cudaError_t``, else count the launch."""
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
+    LAUNCHES[name] += 1
 
 
 def _nvcc() -> str:
@@ -112,4 +138,5 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-__all__ = ["BUILD_DIR", "SOURCES", "build_all", "library_path", "load"]
+__all__ = ["BUILD_DIR", "LAUNCHES", "SOURCES", "build_all", "library_path", "load",
+           "record_launch", "reset_launches"]

@@ -12,9 +12,10 @@
 // on bandwidth: one block per row, a loop over the columns with a masked
 // tail (any D), the row's amax by warp shuffles plus shared memory.
 //
-// qdq_stats runs the whole message in ONE block: the messages on the path
-// are one batch (N = 64 rows), so the batch mean needs neither a second
-// launch nor a cross-block reduction.  Pass 1 quantizes each row as qdq does
+// qdq_stats runs each message in ONE block: a message on the path is one
+// batch (N = 64 rows), so the batch mean needs neither a second launch nor a
+// cross-block reduction.  One launch takes M messages, one block each (the
+// batched round sends R clusters' messages in one launch).  Pass 1 quantizes each row as qdq does
 // and accumulates the column sums in shared memory; each thread owns fixed
 // columns, so every column sum is taken in row order.  Pass 2 reads the
 // dequantized rows back and accumulates the distances to the mean and the
@@ -111,6 +112,12 @@ __global__ void qdq_stats_kernel(const float* __restrict__ x, float* __restrict_
                                  int n, int d, float qinv) {
   extern __shared__ float colsum[];  // d floats; column j belongs to thread j % blockDim.x
   __shared__ float red[32];
+  // this block's message
+  const int64_t msg = blockIdx.x;
+  x += msg * n * d;
+  deq += msg * n * d;
+  scales += msg * n;
+  stats += msg * 2;
   for (int j = threadIdx.x; j < d; j += blockDim.x) colsum[j] = 0.f;
 
   // pass 1: quantize each row, column sums in row order
@@ -184,14 +191,14 @@ extern "C" int repro_quant_dequant(const float* x, float* deq, float* scales, in
 }
 
 extern "C" int repro_quant_dequant_stats(const float* x, float* deq, float* scales,
-                                         float* stats, int n, int d, int fmt, float qinv,
-                                         int threads, void* stream) {
+                                         float* stats, int m, int n, int d, int fmt,
+                                         float qinv, int threads, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t smem = static_cast<size_t>(d) * sizeof(float);
   if (fmt == kFmtInt8) {
-    qdq_stats_kernel<kFmtInt8><<<1, threads, smem, s>>>(x, deq, scales, stats, n, d, qinv);
+    qdq_stats_kernel<kFmtInt8><<<m, threads, smem, s>>>(x, deq, scales, stats, n, d, qinv);
   } else if (fmt == kFmtFp8E4M3) {
-    qdq_stats_kernel<kFmtFp8E4M3><<<1, threads, smem, s>>>(x, deq, scales, stats, n, d, qinv);
+    qdq_stats_kernel<kFmtFp8E4M3><<<m, threads, smem, s>>>(x, deq, scales, stats, n, d, qinv);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -11,6 +11,7 @@ from typing import Tuple
 import torch
 
 from . import quant_exchange as _qx
+from . import tamper_check as _tc
 
 
 def quant_roundtrip(x: torch.Tensor, fmt: str) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -32,4 +33,25 @@ def quant_roundtrip_stats(x: torch.Tensor, fmt: str
     return _qx.quant_dequant_stats(x, fmt)
 
 
-__all__ = ["quant_roundtrip", "quant_roundtrip_stats"]
+def largest_divisor(n: int, cap: int) -> int:
+    """Largest divisor of n at most ``cap`` (the median-of-means shard count
+    clamp, ``selection.selector.effective_shards``)."""
+    cap = max(1, min(cap, n))
+    while n % cap:
+        cap -= 1
+    return cap
+
+
+def tamper_distance(ref: torch.Tensor, recv: torch.Tensor) -> torch.Tensor:
+    """Relative L2 distance ``||ref - recv|| / ||ref||`` per candidate:
+    ref/recv (R, N, D) -> (R,) in one kernel call over all candidates (the
+    fused cascade's verify stage), or (N, D) -> a scalar."""
+    if ref.device.type == "cpu":
+        sums = _tc.tamper_check_sums_plain(ref, recv)
+    else:
+        sums = _tc.tamper_check_sums(ref, recv)
+    return torch.sqrt(sums[..., 0]) / torch.clamp_min(torch.sqrt(sums[..., 1]), 1e-12)
+
+
+__all__ = ["largest_divisor", "quant_roundtrip", "quant_roundtrip_stats",
+           "tamper_distance"]

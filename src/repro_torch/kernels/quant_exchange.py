@@ -8,17 +8,19 @@ message it would reconstruct from ``1 byte/element + 4 bytes/row``.
   * :func:`quant_dequant` — (N, D) f32 -> (deq (N, D), scales (N,)).
   * :func:`quant_dequant_stats` — the same plus the
     :func:`message_stats` ``[dispersion, support_residual]`` of the
-    dequantized message, in one launch.
+    dequantized message, in one launch.  It also takes M messages at once,
+    ``(M, N, D)`` -> stats ``(M, 2)`` (the batched round's R clusters, one
+    block per message).
 
 These two launch the kernels and accept only CUDA tensors; the plain
 versions (:func:`quant_dequant_plain`, :func:`quant_dequant_stats_plain`)
 repeat the arithmetic in PyTorch for the CPU and for comparison on the card.
 ``kernels/ops.py`` picks between them by the tensor's device.  Each launcher
-counts its launches in :data:`LAUNCHES`.
+counts its launches in ``build.LAUNCHES``.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -41,14 +43,6 @@ _FMT_CODE = {INT8: 0, FP8_E4M3: 1}
 #: widest message the one-block stats kernel takes (its column sums live in
 #: shared memory: 4 bytes a column, within the 48 KB a block gets by default)
 MAX_STATS_D = 8192
-
-#: kernel launches per launcher; reset with :func:`reset_launches`
-LAUNCHES: Dict[str, int] = {"quant_dequant": 0, "quant_dequant_stats": 0}
-
-
-def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
 
 
 def fp8_supported() -> bool:
@@ -106,7 +100,11 @@ def message_stats(acts_sent: torch.Tensor) -> torch.Tensor:
 
 def quant_dequant_stats_plain(x: torch.Tensor, fmt: str
                               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain version of :func:`quant_dequant_stats`."""
+    """Plain version of :func:`quant_dequant_stats`: an (N, D) message, or
+    (M, N, D) messages, each taken exactly as a message of its own."""
+    if x.dim() == 3:
+        outs = [quant_dequant_stats_plain(m, fmt) for m in x]
+        return tuple(torch.stack(parts) for parts in zip(*outs))
     deq, scale = quant_dequant_plain(x, fmt)
     return deq, scale, message_stats(deq)
 
@@ -115,7 +113,7 @@ def quant_dequant_stats_plain(x: torch.Tensor, fmt: str
 # kernel launchers
 # ---------------------------------------------------------------------------
 
-def _check_input(x: torch.Tensor, fmt: str) -> None:
+def _check_input(x: torch.Tensor, fmt: str, dims=(2,)) -> None:
     check_format(fmt)
     if x.device.type != "cuda":
         raise ValueError(f"the quant kernels take CUDA tensors, got {x.device}")
@@ -124,9 +122,10 @@ def _check_input(x: torch.Tensor, fmt: str) -> None:
                          f"cuda:{torch.cuda.current_device()}")
     if x.dtype != torch.float32:
         raise TypeError(f"the quant kernels take float32, got {x.dtype}")
-    if x.dim() != 2 or x.shape[0] == 0 or x.shape[1] == 0:
-        raise ValueError(f"the quant kernels take a non-empty (N, D) message, "
-                         f"got shape {tuple(x.shape)}")
+    if x.dim() not in dims or x.numel() == 0:
+        raise ValueError(f"the quant kernels take a non-empty (N, D) message "
+                         f"(or (M, N, D) messages for the stats kernel), got "
+                         f"shape {tuple(x.shape)}")
     if not x.is_contiguous():
         raise ValueError("the quant kernels take a contiguous message")
     if x.numel() >= 2 ** 31:
@@ -140,15 +139,10 @@ def _threads(d: int, cap: int) -> int:
     return min(cap, (d + 31) // 32 * 32)
 
 
-def _raise_on(err: int, name: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
-
-
 def quant_dequant(x: torch.Tensor, fmt: str) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the quant->dequant kernel on an (N, D) f32 CUDA message.
     Returns (deq (N, D) f32, scales (N,) f32)."""
-    from .build import load
+    from .build import load, record_launch
     _check_input(x, fmt)
     n, d = x.shape
     deq = torch.empty_like(x)
@@ -157,36 +151,35 @@ def quant_dequant(x: torch.Tensor, fmt: str) -> Tuple[torch.Tensor, torch.Tensor
     err = load("quant_exchange").repro_quant_dequant(
         x.data_ptr(), deq.data_ptr(), scales.data_ptr(), n, d, _FMT_CODE[fmt],
         QINV[fmt], _threads(d, 256), stream)
-    _raise_on(err, "quant_dequant")
-    LAUNCHES["quant_dequant"] += 1
+    record_launch(err, "quant_dequant")
     return deq, scales
 
 
 def quant_dequant_stats(x: torch.Tensor, fmt: str
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch the fused quant->dequant + message-stats kernel on an (N, D)
-    f32 CUDA message.  Returns (deq, scales, stats (2,) f32), where stats ==
-    :func:`message_stats` of deq."""
-    from .build import load
-    _check_input(x, fmt)
-    n, d = x.shape
+    f32 CUDA message, or on M messages (M, N, D) in one launch.  Returns
+    (deq, scales (N,) or (M, N), stats (2,) or (M, 2) f32), where each
+    message's stats == :func:`message_stats` of its deq."""
+    from .build import load, record_launch
+    _check_input(x, fmt, dims=(2, 3))
+    m, n, d = (1,) * (3 - x.dim()) + tuple(x.shape)
     if d > MAX_STATS_D:
         raise ValueError(f"quant_dequant_stats takes messages up to "
                          f"{MAX_STATS_D} wide (column sums in shared memory), "
                          f"got {d}")
     deq = torch.empty_like(x)
-    scales = torch.empty((n,), dtype=torch.float32, device=x.device)
-    stats = torch.empty((2,), dtype=torch.float32, device=x.device)
+    scales = torch.empty(x.shape[:-1], dtype=torch.float32, device=x.device)
+    stats = torch.empty(x.shape[:-2] + (2,), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = load("quant_exchange").repro_quant_dequant_stats(
-        x.data_ptr(), deq.data_ptr(), scales.data_ptr(), stats.data_ptr(), n, d,
-        _FMT_CODE[fmt], QINV[fmt], _threads(d, 1024), stream)
-    _raise_on(err, "quant_dequant_stats")
-    LAUNCHES["quant_dequant_stats"] += 1
+        x.data_ptr(), deq.data_ptr(), scales.data_ptr(), stats.data_ptr(), m, n,
+        d, _FMT_CODE[fmt], QINV[fmt], _threads(d, 1024), stream)
+    record_launch(err, "quant_dequant_stats")
     return deq, scales, stats
 
 
-__all__ = ["INT8", "FP8_E4M3", "QUANT_FORMATS", "QMAX", "QINV", "LAUNCHES",
-           "MAX_STATS_D", "check_format", "fp8_supported", "message_stats",
-           "quant_dequant", "quant_dequant_plain", "quant_dequant_stats",
-           "quant_dequant_stats_plain", "reset_launches"]
+__all__ = ["INT8", "FP8_E4M3", "QUANT_FORMATS", "QMAX", "QINV", "MAX_STATS_D",
+           "check_format", "fp8_supported", "message_stats", "quant_dequant",
+           "quant_dequant_plain", "quant_dequant_stats",
+           "quant_dequant_stats_plain"]

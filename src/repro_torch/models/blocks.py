@@ -23,4 +23,14 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return torch.mean(lse - picked)
 
 
-__all__ = ["cross_entropy", "dense_init"]
+def cross_entropy_stacked(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Per-cluster mean cross-entropy of cluster-stacked logits (R, B, n):
+    (R,) f32.  ``labels`` is (R, B), or (B,) shared by every cluster."""
+    logits = logits.to(torch.float32)
+    labels = labels.expand(logits.shape[:-1])
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return torch.mean(lse - picked, dim=-1)
+
+
+__all__ = ["cross_entropy", "cross_entropy_stacked", "dense_init"]

@@ -11,6 +11,14 @@ reference; the convolutions run NCHW inside the module, and the features are
 flattened back in NHWC order before ``cut_fc`` so that the reference's
 ``cut_fc`` weights load unchanged.  Dense kernels keep the reference's
 (d_in, d_out) layout.
+
+The batched round trains R clusters at once on cluster-stacked halves
+(:class:`StackedClientCNN`, :class:`StackedAPHead`): every parameter carries
+a leading R axis, the convolutions are grouped (``groups=R`` over
+``(B, R*C, H, W)``) and the dense layers are batched products, so cluster r
+computes exactly what a plain module holding slot r computes.  Their
+``parameters()`` come in the plain modules' order, one stacked tensor per
+plain parameter.
 """
 from __future__ import annotations
 
@@ -119,6 +127,77 @@ class APHead(nn.Module):
         return x
 
 
+class StackedConv(nn.Module):
+    """R stride-1 convolutions as one grouped convolution: kernels
+    (R, C_out, C_in, k, k), input (B, R*C_in, H, W)."""
+
+    def __init__(self, r: int, c_in: int, c_out: int, k: int, padding: int):
+        super().__init__()
+        self.padding = padding
+        self.w = nn.Parameter(torch.zeros((r, c_out, c_in, k, k)))
+        self.b = nn.Parameter(torch.zeros((r, c_out)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        r, c_out = self.b.shape
+        return F.conv2d(x, self.w.reshape((r * c_out,) + self.w.shape[2:]),
+                        self.b.reshape(r * c_out), padding=self.padding,
+                        groups=r)
+
+
+class StackedDense(nn.Module):
+    """R dense layers as one batched product: (R, B, d_in) -> (R, B, d_out)."""
+
+    def __init__(self, r: int, d_in: int, d_out: int):
+        super().__init__()
+        self.w = nn.Parameter(torch.zeros((r, d_in, d_out)))
+        self.b = nn.Parameter(torch.zeros((r, d_out)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.baddbmm(self.b[:, None, :], x, self.w)
+
+
+class StackedClientCNN(nn.Module):
+    """R clusters' gamma.  (R, B, H, W, C) -> (R, B, d_c)."""
+
+    def __init__(self, cfg: CNNConfig, r: int):
+        super().__init__()
+        convs, c_in = [], cfg.in_channels
+        for c_out in cfg.conv_channels:
+            convs.append(StackedConv(r, c_in, c_out, cfg.kernel, cfg.padding))
+            c_in = c_out
+        self.convs = nn.ModuleList(convs)
+        self.cut_fc = StackedDense(r, cfg.flat_dim, cfg.d_cut)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        r, b, h, w, c = x.shape
+        x = x.permute(1, 0, 4, 2, 3).reshape(b, r * c, h, w)
+        for conv in self.convs:
+            # VALID 2x2 max-pool, as the reference's reduce_window
+            x = F.max_pool2d(F.relu(conv(x)), 2)
+        _, rc, h, w = x.shape
+        # back to (R, B, H, W, C): the reference's NHWC flatten per cluster
+        x = x.reshape(b, r, rc // r, h, w).permute(1, 0, 3, 4, 2).reshape(r, b, -1)
+        return F.relu(self.cut_fc(x))
+
+
+class StackedAPHead(nn.Module):
+    """R clusters' phi.  (R, B, d_c) -> logits (R, B, n_classes)."""
+
+    def __init__(self, cfg: CNNConfig, r: int):
+        super().__init__()
+        dims = (cfg.d_cut,) + tuple(cfg.fc_sizes[1:]) + (cfg.n_classes,)
+        self.fcs = nn.ModuleList(StackedDense(r, a, b)
+                                 for a, b in zip(dims[:-1], dims[1:]))
+
+    def forward(self, acts: torch.Tensor) -> torch.Tensor:
+        x = acts
+        for i, fc in enumerate(self.fcs):
+            x = fc(x)
+            if i < len(self.fcs) - 1:
+                x = F.relu(x)
+        return x
+
+
 def cnn_init(generator: torch.Generator, cfg: CNNConfig) -> Tuple[ClientCNN, APHead]:
     """(gamma, phi) with the reference's initialisers (truncated normal,
     fan-in scaled; zero biases), drawn in the reference's order on
@@ -139,5 +218,12 @@ def cnn_init(generator: torch.Generator, cfg: CNNConfig) -> Tuple[ClientCNN, APH
     return gamma, phi
 
 
+def cnn_stacked(cfg: CNNConfig, r: int) -> Tuple[StackedClientCNN, StackedAPHead]:
+    """Zeroed cluster-stacked halves for R clusters (the batched round loads
+    theta into every slot, :func:`repro_torch.core.split.stack_params`)."""
+    return StackedClientCNN(cfg, r), StackedAPHead(cfg, r)
+
+
 __all__ = ["APHead", "CIFAR_CNN", "CNNConfig", "ClientCNN", "Conv", "Dense",
-           "MNIST_CNN", "cnn_init"]
+           "MNIST_CNN", "StackedAPHead", "StackedClientCNN", "StackedConv",
+           "StackedDense", "cnn_init", "cnn_stacked"]

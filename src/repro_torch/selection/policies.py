@@ -3,21 +3,24 @@ and beyond).
 
 A :class:`SelectionPolicy` owns the *score* and *eligibility* stages of the
 round-acceptance cascade (score -> rank -> verify -> commit) as plain tensor
-functions of a :class:`ScoreContext`; the host-side selector
-(:mod:`.selector`) runs the cascade.
+functions of a :class:`ScoreContext`.  They run on the host's tensors in the
+host selector (:mod:`.selector`) and on the device inside the batched
+round's fused cascade (``core/runner.py``), so they are device-agnostic and
+never branch in Python on a tensor's value (no host sync).
 
 Registered policies (``selection=`` on the protocol drivers):
 
   * ``argmin``             — the paper's rule: argmin shared-set validation loss.
+  * ``median_of_means``    — score each cluster by the median of its
+                             per-shard mean losses over ``shards`` equal D_o
+                             slices.
   * ``loss_plus_distance`` — validation-loss z-score composited with the
                              cluster's worst activation-message anomaly, both
                              robust-z-scored across the round's clients.
   * ``trimmed``            — drop clusters whose validation loss is a robust
                              z-score outlier before argmin.
 
-``median_of_means`` needs per-shard validation losses, which come with the
-batched round; it is not ported yet.  Scores follow the loss convention:
-lower is better.
+Scores follow the loss convention: lower is better.
 """
 from __future__ import annotations
 
@@ -50,9 +53,11 @@ def _median(x: torch.Tensor, dim: Optional[int] = None,
 
 @dataclasses.dataclass(frozen=True)
 class ScoreContext:
-    """Per-round features a policy may score.  ``message_stats`` is present
-    only when the policy declares ``needs_message_stats``."""
+    """Per-round features a policy may score.  ``shard_losses`` and
+    ``message_stats`` are present only when the policy declares it needs
+    them (``shard_count`` / ``needs_message_stats``)."""
     vlosses: torch.Tensor                          # (R,) shared-set val losses
+    shard_losses: Optional[torch.Tensor] = None    # (R, K) per-shard losses
     message_stats: Optional[torch.Tensor] = None   # (R, M_bar, S) train-message stats
 
 
@@ -74,6 +79,11 @@ class SelectionPolicy:
     name: str = "argmin"
 
     @property
+    def shard_count(self) -> int:
+        """> 0: the round validates in this many D_o shards."""
+        return 0
+
+    @property
     def needs_message_stats(self) -> bool:
         """True: the round surfaces per-client transmitted-message
         statistics from the training phase."""
@@ -85,7 +95,23 @@ class SelectionPolicy:
 
     def eligible(self, ctx: ScoreContext, scores: torch.Tensor) -> torch.Tensor:
         """(R,) bool mask of clusters the cascade may visit/select."""
-        return torch.ones(scores.shape, dtype=torch.bool)
+        return torch.ones_like(scores, dtype=torch.bool)
+
+
+@dataclasses.dataclass(frozen=True)
+class MedianOfMeansPolicy(SelectionPolicy):
+    """Median over ``shards`` equal D_o slices of the per-shard mean loss."""
+    name: str = "median_of_means"
+    shards: int = 4
+
+    @property
+    def shard_count(self) -> int:
+        return self.shards
+
+    def score(self, ctx: ScoreContext) -> torch.Tensor:
+        if ctx.shard_losses is None:
+            raise ValueError(f"{self.name} needs per-shard validation losses")
+        return _median(ctx.shard_losses.to(torch.float32), dim=1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -139,10 +165,6 @@ class TrimmedPolicy(SelectionPolicy):
 
 SELECTION_REGISTRY: Dict[str, SelectionPolicy] = {}
 
-#: registered in the reference, not ported yet: name -> what it waits for
-NOT_PORTED = {"median_of_means": "per-shard validation losses, which come "
-                                 "with the batched round (core/runner.py)"}
-
 
 def register_policy(policy: SelectionPolicy) -> SelectionPolicy:
     if policy.name in SELECTION_REGISTRY:
@@ -152,6 +174,7 @@ def register_policy(policy: SelectionPolicy) -> SelectionPolicy:
 
 
 ARGMIN = register_policy(SelectionPolicy())
+MEDIAN_OF_MEANS = register_policy(MedianOfMeansPolicy())
 LOSS_PLUS_DISTANCE = register_policy(LossPlusDistancePolicy())
 TRIMMED = register_policy(TrimmedPolicy())
 
@@ -166,10 +189,6 @@ def resolve_policy(selection: Union[str, SelectionPolicy, None]) -> SelectionPol
         return ARGMIN
     if isinstance(selection, SelectionPolicy):
         return selection
-    if selection in NOT_PORTED:
-        raise NotImplementedError(
-            f"selection={selection!r} needs {NOT_PORTED[selection]}; it is "
-            f"not ported yet")
     try:
         return SELECTION_REGISTRY[selection]
     except KeyError:
@@ -178,7 +197,8 @@ def resolve_policy(selection: Union[str, SelectionPolicy, None]) -> SelectionPol
             f"{sorted(SELECTION_REGISTRY)}") from None
 
 
-__all__ = ["ARGMIN", "LOSS_PLUS_DISTANCE", "TRIMMED", "LossPlusDistancePolicy",
-           "ScoreContext", "SelectionPolicy", "TrimmedPolicy",
+__all__ = ["ARGMIN", "LOSS_PLUS_DISTANCE", "MEDIAN_OF_MEANS", "TRIMMED",
+           "LossPlusDistancePolicy", "MedianOfMeansPolicy", "ScoreContext",
+           "SelectionPolicy", "TrimmedPolicy",
            "register_policy", "resolve_policy", "robust_z",
            "selection_policies"]

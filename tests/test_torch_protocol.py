@@ -128,10 +128,11 @@ def test_policies_score_and_rank_like_reference(seed):
 
 def test_unported_paths_raise(port):
     data, module, pcfg = port
-    for kw in (dict(engine="batched"), dict(checkpoint_path="ckpt"),
-               dict(telemetry=object()), dict(selection="median_of_means")):
+    for kw in (dict(engine="batched", placement="sharded"),
+               dict(engine="batched", prefetch=1), dict(engine="batched", block=2),
+               dict(checkpoint_path="ckpt"), dict(telemetry=object())):
         with pytest.raises(NotImplementedError):
             tcore.run_pigeon(module, data, pcfg, device="cpu", **kw)
-    for driver in (tcore.run_vanilla_sl, tcore.run_splitfed):
+    for driver in (tcore.run_vanilla_sl, tcore.run_splitfed, tcore.run_pigeon_sweep):
         with pytest.raises(NotImplementedError):
             driver(module, data, pcfg)
