@@ -6,7 +6,8 @@
 from the repository root.  Phases, in order; any failure exits non-zero:
 
   0. set-up: require CUDA (no CPU fallback), print the card's name and power
-     limit, the torch/CUDA/TF32 settings, and build every kernel (timed);
+     limit, the torch/CUDA/TF32 settings, and build every kernel (timed; one
+     ``nvcc`` per source, all started together);
   1. every kernel against its plain PyTorch version on the card, at the
      shapes the main paths give it and a few edge shapes: the wire kernels'
      deq/scales bit-equal, stats within rtol 1e-5, two runs bit-identical
@@ -14,9 +15,15 @@ from the repository root.  Phases, in order; any failure exits non-zero:
      R messages in one launch); the tamper
      check's sums within rtol 1e-5 of the plain version and of a float64
      sum, bit-identical from run to run, exactly 0 on identical inputs and
-     above the tolerance only for a tampered candidate; each kernel's time
+     above the tolerance only for a tampered candidate; the attention
+     kernels (B5 flash attention, B6 decode attention) within atol 2e-5
+     (f32) and 2e-2 (bf16) of their plain versions at the serve path's
+     shapes and edge shapes (MQA, groups 1, windows, head dims 64/80/256,
+     ragged S, index 0), bit-identical from run to run; each kernel's time
      (eager, graph-replayed with the L2 warm, one call with it cold) beside
-     its plain version's and its bound;
+     its plain version's, its bound and, for B5/B6, the time of PyTorch's
+     ``scaled_dot_product_attention`` on the same inputs (a yardstick the
+     port never calls), also at two long-context shapes;
   2. the sequential main path at full width: the CIFAR-10 split CNN (convs
      32/64/128, d_c = 256, FC 128/64/10) at the paper's Table II sizes
      through ``run_pigeon(engine="sequential", quant="int8",
@@ -32,10 +39,19 @@ from the repository root.  Phases, in order; any failure exits non-zero:
      attack;
   4. the same tiny runs on the CPU and on the card, from the same init, on
      both engines: equal discrete outcomes, validation losses within rtol
-     1e-3;
+     1e-3; and a tiny LM (``reduce_config`` of Qwen3-8B, f32) served on both
+     from one init: equal greedy tokens, logits within atol 1e-4;
   5. where the time goes (torch.profiler): one CIFAR client turn of the
      sequential engine and one batched CIFAR round step — device busy
-     share, launches, the top kernels and the host ops.
+     share, launches, the top kernels and the host ops;
+  6. the serve path: Qwen3-8B at full width and depth (36 layers, bf16,
+     8.19 B parameters drawn on the card from a seed) prefills 4 prompts of
+     480 tokens through ``make_prefill_step`` (36 B5 launches), then runs the
+     reference serve loop through ``make_serve_step`` (the prompt stepped,
+     then 32 greedy tokens: 512 steps, 18,432 B6 launches); prefill and
+     decode logits at the prompt's last position agree (bf16 bound, and at
+     f32 with 4 layers a tight one); prefill seconds, ms per decode step,
+     tokens/s, peak memory and the profile of one warm decode step.
 
 The last lines are one JSON object per kernel set (``{"kernels": [...]}``),
 the card's ``nvidia-smi`` name and power limit, and
@@ -45,13 +61,14 @@ package.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-DEVICE = "cuda"                 # where phase 1 makes its inputs
+DEVICE = "cuda"                 # where phases 1, 4 (LM) and 6 run the card's side
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM memory rate (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12           # H100 SXM f32 rate outside the tensor cores
@@ -69,6 +86,34 @@ STATS_RTOL = 1e-5
 TAMPER_RTOL = 1e-5
 TAMPER_TOL = 1e-4               # ProtocolConfig.tamper_tol
 
+BF16_OPS_PER_S = 989e12         # H100 SXM dense bf16 tensor-core rate
+# attention: (B, S, H, Hkv, D, window) for B5, (..., index) for B6; the serve
+# path's shapes first (Qwen3-8B: 32 query and 8 KV heads of 128; a 480-token
+# prompt, a 512-position cache), then MQA, groups 1, windows, head dims
+# 64/80/256 and ragged S
+FLASH_SHAPES = ((4, 480, 32, 8, 128, 0), (2, 128, 8, 1, 64, 0), (2, 96, 4, 4, 64, 0),
+                (1, 480, 8, 2, 128, 64), (2, 37, 4, 2, 80, 0), (1, 300, 16, 8, 256, 128),
+                (1, 1, 4, 2, 64, 0))
+DECODE_SHAPES = ((4, 512, 32, 8, 128, 0, 479), (4, 512, 32, 8, 128, 0, 511),
+                 (2, 300, 8, 1, 64, 0, 0), (2, 256, 4, 4, 64, 0, 255),
+                 (1, 1000, 4, 2, 80, 100, 999), (2, 257, 16, 8, 256, 1024, 200),
+                 (1, 37, 8, 2, 128, 0, 36), (1, 100, 32, 1, 128, 0, 50))
+# long context at Qwen3-8B widths: one 8k prompt; one layer of decode_32k at
+# 8 of its 128 sequences
+FLASH_LONG = (1, 8192, 32, 8, 128, 0)
+DECODE_LONG = (8, 32768, 32, 8, 128, 0, 32767)
+ATTN_ATOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# phase 6: Qwen3-8B served at B = 4, 480 prompt tokens, 32 new ones
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 480, 32
+# prefill vs decode logits at the prompt's last position, the largest
+# difference relative to the largest |logit|.  bf16: each path rounds every
+# activation to 8 significant bits (2^-9 = 2e-3 relative) at different
+# points of 36 residual layers, and the two add up like a random walk
+# (sqrt(2 * 36) * 2e-3 = 1.7e-2); the bound leaves 3x above that.  f32 at
+# 4 layers: only the summation order differs (~1e-6 relative).
+SERVE_BF16_REL = 5e-2
+SERVE_F32_REL = 1e-3
+
 
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
@@ -82,6 +127,12 @@ def check(cond: bool, msg: str) -> None:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def want_launches(**counts) -> dict:
+    """``build.LAUNCHES`` as a path should leave it: ``counts``, else 0."""
+    from repro_torch.kernels import build
+    return {**dict.fromkeys(build.LAUNCHES, 0), **counts}
 
 
 def card_line() -> str:
@@ -253,6 +304,7 @@ def phase_kernels():
             f"(int8, fp8_e4m3){' and R messages at ' + str(BATCHED_MESSAGES) if stats else ''}; "
             f"max_abs_err={max_err:.3e}")
     results["tamper_check_sums"] = _phase_tamper()
+    results.update(_phase_attention())
     return results
 
 
@@ -351,6 +403,138 @@ def _phase_tamper():
     return dict(max_abs_err=max_err, shape=list(TAMPER_SHAPES[0]), **timing)
 
 
+def _attention_args(name: str, shape, dtype: str, seed: int):
+    """(args, kwargs) of one B5 or B6 call: q, k, v (and the index) drawn on
+    the card in ``dtype``, the window as a keyword."""
+    import torch
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    b, s, h, hkv, d, window = shape[:6]
+    sq = 1 if name == "decode_attention" else s
+    dt = getattr(torch, dtype)
+    q = torch.randn((b, sq, h, d), generator=g, device=DEVICE).to(dt)
+    k = torch.randn((b, s, hkv, d), generator=g, device=DEVICE).to(dt)
+    v = torch.randn((b, s, hkv, d), generator=g, device=DEVICE).to(dt)
+    args = (q, k, v) if name == "flash_attention" else (q, k, v, shape[6])
+    return args, {"window": window}
+
+
+def _attention_library(name: str, args, window: int):
+    """The one PyTorch call that computes the same function (no window):
+    ``scaled_dot_product_attention`` over (B, H, S, D) views, for B6 over
+    the live cache ``k[:, :index + 1]``.  Timed for the record only."""
+    if window:
+        return None
+    import torch.nn.functional as F
+    q, k, v = args[:3]
+    if name == "decode_attention":
+        k, v = k[:, :args[3] + 1], v[:, :args[3] + 1]
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    causal = name == "flash_attention"
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                                  enable_gqa=True)
+
+
+def _attention_bound_us(name: str, shape, dtype: str):
+    """(bound in us, what sets it): each input read once, the output written
+    once, over 3.35 TB/s; 4 * D flops per live (query, key) pair and head
+    (scores and values), over the dtype's peak (bf16 tensor cores; f32 FMA
+    units, TF32 off)."""
+    from repro_torch.kernels.decode_attention import live_range
+    b, s, h, hkv, d, window = shape[:6]
+    elt = 4 if dtype == "float32" else 2
+    if name == "flash_attention":
+        pairs = sum(min(i + 1, window) if window else i + 1 for i in range(s))
+        n_bytes = elt * (2 * b * s * h * d + 2 * b * s * hkv * d)
+    else:
+        begin, end = live_range(shape[6], window)
+        pairs = end - begin
+        n_bytes = elt * (2 * b * h * d + 2 * b * pairs * hkv * d)
+    n_ops = 4 * d * pairs * b * h
+    bytes_us = n_bytes / HBM_BYTES_PER_S * 1e6
+    ops_us = n_ops / (F32_OPS_PER_S if dtype == "float32" else BF16_OPS_PER_S) * 1e6
+    return max(bytes_us, ops_us), ("bytes" if bytes_us >= ops_us else "operations")
+
+
+def _attention_timing(name: str, kernel, plain, shape, long: bool):
+    """Times of one B5/B6 call at ``shape`` in bf16: the kernel eager,
+    graph-replayed (L2 warm) and L2-cold; the plain version eager (and
+    replayed, at the serve shapes); SDPA eager; the bound."""
+    import torch
+    args, kw = _attention_args(name, shape, "bfloat16", seed=99)
+    lib = _attention_library(name, args, kw["window"])
+    if lib is not None:
+        with torch.inference_mode():
+            want = plain(*args, **kw).float()
+            got = lib().transpose(1, 2).float()
+        check(float((got - want).abs().max()) <= ATTN_ATOL["bfloat16"],
+              f"{name} {shape}: SDPA disagrees with the plain version")
+    few = dict(reps=5, samples=5) if long else {}
+    call = lambda: kernel(*args, **kw)               # noqa: E731
+    plain_call = lambda: plain(*args, **kw)          # noqa: E731
+    timing = dict(kernel_us=_time_us(call, **few),
+                  kernel_dev_us=_graph_time_us(call, reps=5 if long else 100,
+                                               samples=5 if long else 15),
+                  kernel_cold_us=_cold_time_us(call, reps=5 if long else 50),
+                  plain_us=_time_us(plain_call, **(dict(reps=2, samples=3) if long else {})),
+                  plain_dev_us=None if long else _graph_time_us(plain_call),
+                  library_us=None if lib is None else _time_us(lib, **few))
+    timing["bound_us"], timing["bound_by"] = _attention_bound_us(name, shape, "bfloat16")
+    plain_dev = ("not timed" if timing["plain_dev_us"] is None
+                 else f"{timing['plain_dev_us']:.3f}")
+    lib_us = "none" if lib is None else f"{timing['library_us']:.3f}"
+    log(f"phase1 {name} at {shape} bf16: kernel_us={timing['kernel_us']:.3f} "
+        f"plain_us={timing['plain_us']:.3f} sdpa_us={lib_us} "
+        f"bound_us={timing['bound_us']:.4f} ({timing['bound_by']}); graph-replayed "
+        f"device time (L2 warm): kernel_us={timing['kernel_dev_us']:.3f} "
+        f"plain_us={plain_dev}; one call with the L2 cold: "
+        f"kernel_us={timing['kernel_cold_us']:.3f}")
+    return dict(shape=list(shape), dtype="bfloat16", **timing)
+
+
+def _phase_attention():
+    """B5 and B6 against their plain versions at the serve path's shapes and
+    the edge shapes, in f32 and bf16, bit-identical run to run; timed at the
+    serve shapes and at the long-context shapes."""
+    import torch
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+
+    results = {}
+    for name, kernel, plain, shapes, long_shape in (
+            ("flash_attention", fa.flash_attention, fa.flash_attention_plain,
+             FLASH_SHAPES, FLASH_LONG),
+            ("decode_attention", da.decode_attention, da.decode_attention_plain,
+             DECODE_SHAPES, DECODE_LONG)):
+        max_err = {}
+        for dtype in ("float32", "bfloat16"):
+            for i, shape in enumerate(shapes):
+                args, kw = _attention_args(name, shape, dtype, seed=i)
+                with torch.inference_mode():
+                    out1 = kernel(*args, **kw)
+                    out2 = kernel(*args, **kw)
+                    ref = plain(*args, **kw)
+                torch.cuda.synchronize()
+                check(torch.equal(out1, out2), f"{name} {dtype} {shape}: two runs differ")
+                check(out1.shape == ref.shape and out1.dtype == ref.dtype,
+                      f"{name} {dtype} {shape}: {out1.shape} {out1.dtype} vs plain "
+                      f"{ref.shape} {ref.dtype}")
+                check(bool(torch.isfinite(out1).all()), f"{name} {dtype} {shape}: not finite")
+                err = float((out1.float() - ref.float()).abs().max())
+                check(err <= ATTN_ATOL[dtype],
+                      f"{name} {dtype} {shape}: max |kernel - plain| {err:.3e} > "
+                      f"{ATTN_ATOL[dtype]}")
+                max_err[dtype] = max(max_err.get(dtype, 0.0), err)
+                if i == 0 and dtype == "bfloat16":
+                    main_err = err
+        log(f"phase1 {name}: within atol {ATTN_ATOL} of plain at {list(shapes)} in f32 "
+            f"and bf16, bit-identical run to run; max_abs_err {max_err}")
+        main = _attention_timing(name, kernel, plain, shapes[0], long=False)
+        results[name] = dict(max_abs_err=main_err, max_abs_err_by_dtype=max_err, **main,
+                             long_context=_attention_timing(name, kernel, plain,
+                                                            long_shape, long=True))
+    return results
+
+
 # ---------------------------------------------------------------------------
 # phases 2-4: the protocol
 # ---------------------------------------------------------------------------
@@ -413,8 +597,7 @@ def phase_cifar(main):
     data, cfg, module, pcfg, kw = main
     hist, launches, seconds = _run("phase2 cifar", module, data, pcfg, **kw)
     want = pcfg.T * pcfg.M * pcfg.E
-    check(launches == {"quant_dequant": want, "quant_dequant_stats": want,
-                       "tamper_check_sums": 0},
+    check(launches == want_launches(quant_dequant=want, quant_dequant_stats=want),
           f"phase2: launches {launches}, want {want} of each wire kernel")
     _check_exchange_bytes("phase2", hist, pcfg, cfg.d_cut, "int8")
     return hist, launches, seconds / pcfg.T
@@ -452,8 +635,8 @@ def phase_cifar_batched(main, seq_hist, seq_s_per_round):
     m_bar = pcfg.M // pcfg.R
     want = pcfg.T * m_bar * pcfg.E
     check(len(steps) == pcfg.T, f"phase2b: {len(steps)} fused steps, want {pcfg.T}")
-    check(launches == {"quant_dequant": want, "quant_dequant_stats": want,
-                       "tamper_check_sums": pcfg.T},
+    check(launches == want_launches(quant_dequant=want, quant_dequant_stats=want,
+                                    tamper_check_sums=pcfg.T),
           f"phase2b: launches {launches}, want {want} of each wire kernel and "
           f"{pcfg.T} tamper checks")
     _check_exchange_bytes("phase2b", hist, pcfg, cfg.d_cut, "int8")
@@ -488,8 +671,7 @@ def phase_mnist():
         "phase3 mnist", from_cnn(cfg), data, pcfg, malicious={0, 4, 8},
         attack=Attack(GRADIENT), quant="fp8_e4m3", device="cuda")
     want = 2 * pcfg.M * pcfg.E * pcfg.T
-    check(launches == {"quant_dequant": want, "quant_dequant_stats": 0,
-                       "tamper_check_sums": 0},
+    check(launches == want_launches(quant_dequant=want),
           f"phase3: launches {launches}, want {want} quant_dequant")
     _check_exchange_bytes("phase3", hist, pcfg, cfg.d_cut, "fp8_e4m3")
 
@@ -521,6 +703,63 @@ def phase_cpu_vs_card():
                       f"phase4: val_losses {a}={ra['val_losses']} {b}={rb['val_losses']}")
         log(f"phase4: {a} and {b} agree over {pcfg.T} rounds; val_losses "
             f"{runs[a].rounds[-1]['val_losses']} vs {runs[b].rounds[-1]['val_losses']}")
+
+
+def _serve(model, prompts, new_tokens: int):
+    """The serve path on ``model``: the prefill step's last-position logits,
+    then the reference serve loop.  Returns (prefill logits, greedy tokens,
+    the loop's logits at the prompt's last position, prefill s, loop s)."""
+    import torch
+    from repro_torch.launch.serve import greedy_decode
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+
+    b, p = prompts.shape
+    cache = model.init_cache(b, p + new_tokens)
+    sync = torch.cuda.synchronize if prompts.is_cuda else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    prefill = make_prefill_step(model)({"tokens": prompts})
+    sync()
+    t1 = time.perf_counter()
+    gen, last = greedy_decode(make_serve_step(model), cache, prompts, new_tokens)
+    sync()
+    return prefill, gen, last, t1 - t0, time.perf_counter() - t1
+
+
+def phase_lm_cpu_vs_card():
+    """A tiny LM (reduce_config of Qwen3-8B, f32) served on the CPU and on
+    the card from one init: equal greedy tokens, logits within atol 1e-4."""
+    import copy
+
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import build
+    from repro_torch.launch.serve import make_prompts
+    from repro_torch.models import build_model
+
+    cfg = get_smoke_config("qwen3-8b")
+    cpu = build_model(cfg, "cpu").init(torch.Generator().manual_seed(0))
+    card = copy.deepcopy(cpu).to(DEVICE)
+    prompts = torch.from_numpy(make_prompts(0, cfg.vocab, 4, 16))
+    new = 16
+    runs = {}
+    for where, model in (("cpu", cpu), ("card", card)):
+        torch.cuda.synchronize()
+        build.reset_launches()
+        pre, gen, last, _, _ = _serve(model, prompts.to(model.device), new)
+        runs[where] = (pre.cpu(), gen.cpu(), last.cpu(), dict(build.LAUNCHES))
+    (pre_c, gen_c, last_c, l_c), (pre_g, gen_g, last_g, l_g) = runs["cpu"], runs["card"]
+    check(l_c == want_launches(), f"phase4 lm: the CPU run launched {l_c}")
+    steps = prompts.shape[1] + new
+    check(l_g == want_launches(flash_attention=cfg.n_layers,
+                               decode_attention=cfg.n_layers * steps),
+          f"phase4 lm: card launches {l_g}")
+    check(torch.equal(gen_c, gen_g), f"phase4 lm: greedy tokens differ:\n{gen_c}\n{gen_g}")
+    err = max(float((pre_c - pre_g).abs().max()), float((last_c - last_g).abs().max()))
+    check(err <= 1e-4, f"phase4 lm: logits differ by {err:.3e} between CPU and card")
+    log(f"phase4 lm {cfg.name} (f32, {cfg.n_layers} layers, d {cfg.d_model}): CPU and card "
+        f"agree on {gen_g.numel()} greedy tokens; logits max |diff| {err:.3e}; card "
+        f"launches {l_g}")
 
 
 def _profile_report(name: str, fn, wall_us: float, steps: int) -> None:
@@ -654,6 +893,108 @@ def phase_profile():
                     wall_us, e)
 
 
+def phase_serve():
+    """Qwen3-8B at full width and depth, bf16, weights drawn on the card:
+    prefill and the serve loop, with B5/B6 launch counts, the prefill/decode
+    agreement, timings, peak memory and one warm decode step's profile;
+    then the agreement at f32 with 4 layers."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.launch.serve import make_prompts, serve_config
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import build_model
+
+    def agreement(pre, last):
+        rel = float((pre - last).abs().max()) / float(pre.abs().max())
+        argmax = float((pre.argmax(-1) == last.argmax(-1)).float().mean())
+        return rel, argmax
+
+    cfg = serve_config("qwen3-8b", full=True)
+    b, p, new = SERVE_BATCH, SERVE_PROMPT, SERVE_NEW
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, DEVICE).init(torch.Generator(device=DEVICE).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in model.parameters())
+    log(f"phase6 {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, heads "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} x {cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab}, {cfg.dtype}: {n_params:,} parameters "
+        f"({n_params * model.embedding.element_size() / 1e9:.2f} GB), drawn on the card "
+        f"in {time.perf_counter() - t0:.2f} s")
+    prompts = torch.from_numpy(make_prompts(0, cfg.vocab, b, p)).to(DEVICE)
+    make_prefill_step(model)({"tokens": prompts})          # warm-up, not counted
+    torch.cuda.synchronize()
+    build.reset_launches()
+    pre, gen, last, prefill_s, loop_s = _serve(model, prompts, new)
+    launches = dict(build.LAUNCHES)
+    steps = p + new
+    check(launches == want_launches(flash_attention=cfg.n_layers,
+                                    decode_attention=cfg.n_layers * steps),
+          f"phase6: launches {launches}, want {cfg.n_layers} flash_attention and "
+          f"{cfg.n_layers * steps} decode_attention")
+    check(pre.shape == (b, 1, cfg.vocab) and last.shape == pre.shape,
+          f"phase6: logits {tuple(pre.shape)} / {tuple(last.shape)}")
+    check(bool(torch.isfinite(pre).all()) and bool(torch.isfinite(last).all()),
+          "phase6: non-finite logits")
+    check(gen.shape == (b, new) and int(gen.min()) >= 0 and int(gen.max()) < cfg.vocab,
+          f"phase6: generated tokens {tuple(gen.shape)}")
+    rel, argmax = agreement(pre, last)
+    check(rel <= SERVE_BF16_REL, f"phase6: prefill vs decode logits differ by {rel:.3e} "
+                                 f"of max |logit| > {SERVE_BF16_REL}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ms_step = loop_s / steps * 1e3
+    log(f"phase6 launches {launches}")
+    log(f"phase6 prefill (B {b} x {p} tokens, warm): {prefill_s:.4f} s; serve loop "
+        f"{steps} steps in {loop_s:.3f} s: {ms_step:.3f} ms/step, "
+        f"{b * steps / loop_s:.1f} tokens/s; peak device memory {peak_gb:.2f} GB")
+    log(f"phase6 prefill vs decode logits at position {p - 1}: max |diff| / max |logit| = "
+        f"{rel:.4e} (bound {SERVE_BF16_REL}, bf16); argmax agreement {argmax:.3f}; "
+        f"max |logit| {float(pre.abs().max()):.4f}")
+    log(f"phase6 greedy tokens[0]: {gen[0].tolist()}")
+
+    # one warm decode step, profiled, at the loop's last position
+    serve_step = make_serve_step(model)
+    cache = model.init_cache(b, steps)
+    tok = gen[:, -1:].contiguous()
+
+    def step():
+        return serve_step(cache, tok, steps - 1)[0]
+
+    step()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    _profile_report(f"phase6 {cfg.name} decode step (B {b}, index {steps - 1}, bf16)", step,
+                    sorted(walls)[2] * 1e6, 1)
+    serve = dict(launches=launches, prefill_s=prefill_s, ms_per_step=ms_step,
+                 tokens_per_s=b * steps / loop_s, peak_gb=peak_gb, rel=rel, argmax=argmax)
+    del model, cache, serve_step
+    torch.cuda.empty_cache()
+
+    # the same agreement at full width in f32, 4 layers
+    cfg4 = dataclasses.replace(get_config("qwen3-8b"), n_layers=4)
+    model = build_model(cfg4, DEVICE).init(torch.Generator(device=DEVICE).manual_seed(1))
+    pre, _, last, _, _ = _serve(model, prompts, 1)
+    rel4, argmax4 = agreement(pre, last)
+    check(rel4 <= SERVE_F32_REL, f"phase6 f32: prefill vs decode logits differ by "
+                                 f"{rel4:.3e} of max |logit| > {SERVE_F32_REL}")
+    log(f"phase6 {cfg4.name} f32, 4 layers, full width: prefill vs decode logits at "
+        f"position {p - 1}: max |diff| / max |logit| = {rel4:.4e} (bound {SERVE_F32_REL}); "
+        f"argmax agreement {argmax4:.3f}")
+    del model
+    torch.cuda.empty_cache()
+    serve.update(rel_f32=rel4, argmax_f32=argmax4)
+    return serve
+
+
 # ---------------------------------------------------------------------------
 
 def main() -> None:
@@ -680,43 +1021,68 @@ def main() -> None:
     logs = build_all()
     log(f"phase0: built {sorted(logs)} in {time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
-        for line in text.splitlines():
-            if "registers" in line or "Compiling entry" in line:
-                log(f"  ptxas {name}: {line.strip()}")
+        regs = [int(n) for n in re.findall(r"Used (\d+) registers", text)]
+        spills = sum(int(n) for n in re.findall(r"(\d+) bytes spill stores", text))
+        log(f"  ptxas {name}: {len(regs)} kernels, {min(regs)}-{max(regs)} registers a "
+            f"thread, {spills} bytes of spill stores")
 
     kernels = phase_kernels()
+    torch.cuda.reset_peak_memory_stats()    # phase 5's peak: the protocol phases only
     main_path = _cifar_main_path()
     seq_hist, seq_launches, s_per_round = phase_cifar(main_path)
     launches, b_per_round = phase_cifar_batched(main_path, seq_hist, s_per_round)
     phase_mnist()
     phase_cpu_vs_card()
+    phase_lm_cpu_vs_card()
     phase_profile()
     phase_profile_batched(main_path)
+    del main_path
+    serve = phase_serve()
 
     sources = {"quant_dequant": ("src/repro/kernels/quant_exchange.py:85",
                                  "src/repro_torch/kernels/csrc/quant_exchange.cu"),
                "quant_dequant_stats": ("src/repro/kernels/quant_exchange.py:144",
                                        "src/repro_torch/kernels/csrc/quant_exchange.cu"),
                "tamper_check_sums": ("src/repro/kernels/tamper_check.py:42",
-                                     "src/repro_torch/kernels/csrc/tamper_check.cu")}
-    # launches: the batched main path's run (this slice's path, the only one
-    # that reaches all three kernels); both paths' counts ride beside them.
-    # Device times: graph replays back to back, which find inputs of up to
-    # the 50 MB L2 still there (l2_warm), and one call after an L2 flush
-    # (l2_cold), the figure to hold against bound_ms (HBM traffic).
-    entries = [dict(name=name, route="cuda", source=sources[name][1],
-                    replaces=sources[name][0], launches=launches[name],
-                    launches_by_path={"sequential": seq_launches[name],
-                                      "batched": launches[name]},
-                    shape=k["shape"], max_abs_err=k["max_abs_err"],
-                    ms=k["kernel_us"] / 1e3,
-                    device_ms_l2_warm=k["kernel_dev_us"] / 1e3,
-                    device_ms_l2_cold=k["kernel_cold_us"] / 1e3,
-                    plain_ms=k["plain_us"] / 1e3, bound_ms=k["bound_us"] / 1e3,
-                    bound_by=k["bound_by"], library_ms=None)
-               for name, k in kernels.items()]
+                                     "src/repro_torch/kernels/csrc/tamper_check.cu"),
+               "flash_attention": ("src/repro/kernels/flash_attention.py:82",
+                                   "src/repro_torch/kernels/csrc/flash_attention.cu"),
+               "decode_attention": ("src/repro/kernels/decode_attention.py:66",
+                                    "src/repro_torch/kernels/csrc/decode_attention.cu")}
+    # launches: each kernel's own path, driven with the counts reset just
+    # before it: the batched round for B1-B3 (the only path that reaches all
+    # three), the Qwen3-8B serve run for B5/B6; every path's counts ride
+    # beside them.  Device times: graph replays back to back, which find
+    # inputs of up to the 50 MB L2 still there (l2_warm), and one call after
+    # an L2 flush (l2_cold), the figure to hold against bound_ms.
+    by_path = {"sequential": seq_launches, "batched": launches, "serve": serve["launches"]}
+    own = {name: ("serve" if name in ("flash_attention", "decode_attention") else "batched")
+           for name in kernels}
+
+    def ms(us):
+        return None if us is None else us / 1e3
+
+    entries = []
+    for name, k in kernels.items():
+        entry = dict(name=name, route="cuda", source=sources[name][1],
+                     replaces=sources[name][0], launches=by_path[own[name]][name],
+                     launches_by_path={path: counts[name] for path, counts in by_path.items()},
+                     shape=k["shape"], max_abs_err=k["max_abs_err"],
+                     ms=ms(k["kernel_us"]), device_ms_l2_warm=ms(k["kernel_dev_us"]),
+                     device_ms_l2_cold=ms(k["kernel_cold_us"]), plain_ms=ms(k["plain_us"]),
+                     bound_ms=ms(k["bound_us"]), bound_by=k["bound_by"],
+                     library_ms=ms(k.get("library_us")))
+        if "long_context" in k:
+            lc = k["long_context"]
+            entry["long_context"] = dict(
+                shape=lc["shape"], ms=ms(lc["kernel_us"]),
+                device_ms_l2_warm=ms(lc["kernel_dev_us"]),
+                device_ms_l2_cold=ms(lc["kernel_cold_us"]), plain_ms=ms(lc["plain_us"]),
+                bound_ms=ms(lc["bound_us"]), bound_by=lc["bound_by"],
+                library_ms=ms(lc["library_us"]))
+        entries.append(entry)
     log(f"phase2 seconds_per_round={s_per_round:.3f}; phase2b (batched) "
-        f"seconds_per_round={b_per_round:.3f}")
+        f"seconds_per_round={b_per_round:.3f}; phase6 serve {serve}")
     log(json.dumps({"kernels": entries}))
     log(card)
     log(json.dumps({"ok": True, "device": {

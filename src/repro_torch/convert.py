@@ -13,16 +13,32 @@ takes).  Convolution kernels go HWIO <-> OIHW; dense kernels keep their
 The batched round's cluster-stacked halves hold R such parameter sets:
 :func:`stack_reference` stacks R converted reference sets and
 :func:`slot_to_reference` takes slot r back out.
+
+The dense LM's parameters are the pytree of the reference's ``Model.init``::
+
+    {"embed": (V, d), "final_norm": {"scale": (d,)}, "head": {"w": (d, V)},
+     "stacks": ({"ln1": {"scale": (n, d)}, "ln2": ...,
+                 "attn": {"wq": {"w": (n, d, H*D), "b"?}, "wk", "wv", "wo",
+                          "q_norm"?: {"scale": (n, D)}, "k_norm"?},
+                 "mlp": {"gate": {"w"}, "up": {"w"}, "down": {"w"}}},)}
+
+A stack's leaves carry the layer axis first; :func:`lm_from_reference` maps
+it onto the stack's ``nn.ModuleList`` (a layer's parameter names are the
+pytree's paths, joined by dots) and :func:`lm_to_reference` stacks it back.
+Values travel as f32 (numpy has no bf16); a bf16 model's round trip is
+exact all the same.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Sequence, Tuple
+from typing import Any, Dict, Iterator, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from .models.cnn import (APHead, ClientCNN, CNNConfig, StackedAPHead,
                          StackedClientCNN)
+from .models.config import ModelConfig
+from .models.model import Model, build_model
 
 Tree = Dict[str, Any]
 
@@ -87,5 +103,65 @@ def slot_to_reference(cfg: CNNConfig, gamma: StackedClientCNN, phi: StackedAPHea
                         unstack_slot(APHead(cfg), phi, r))
 
 
-__all__ = ["from_reference", "slot_to_reference", "stack_reference",
-           "to_reference"]
+def _paths(tree: Tree, prefix: str = "") -> Iterator[str]:
+    for key, sub in tree.items():
+        if isinstance(sub, dict):
+            yield from _paths(sub, f"{prefix}{key}.")
+        else:
+            yield f"{prefix}{key}"
+
+
+def _leaf(tree: Tree, path: str):
+    for key in path.split("."):
+        tree = tree[key]
+    return tree
+
+
+@torch.no_grad()
+def lm_from_reference(cfg: ModelConfig, params: Tree) -> Model:
+    """The reference's dense-LM parameter pytree -> the port's
+    :class:`Model`, on the CPU."""
+    model = build_model(cfg, "cpu")
+    if len(params["stacks"]) != len(model.stacks):
+        raise ValueError(f"{len(params['stacks'])} stacks in the tree, {len(model.stacks)} "
+                         f"in {cfg.name}")
+    model.embedding.copy_(_tensor(params["embed"]))
+    for stack, tree in zip(model.stacks, params["stacks"]):
+        names = sorted(name for name, _ in stack.layers[0].named_parameters())
+        if sorted(_paths(tree)) != names:
+            raise ValueError(f"stack leaves {sorted(_paths(tree))} != {names}")
+        for name in names:
+            leaf = _tensor(_leaf(tree, name))
+            if leaf.shape[0] != stack.n:
+                raise ValueError(f"{name}: {leaf.shape[0]} layers in the tree, {stack.n} "
+                                 f"in the stack")
+            for layer, value in zip(stack.layers, leaf):
+                layer.get_parameter(name).copy_(value)
+    model.final_norm.scale.copy_(_tensor(params["final_norm"]["scale"]))
+    model.head.w.copy_(_tensor(params["head"]["w"]))
+    return model
+
+
+def lm_to_reference(model: Model) -> Tree:
+    """The port's :class:`Model` -> the reference's parameter pytree (numpy
+    f32)."""
+    def arr(t: torch.Tensor) -> np.ndarray:
+        return t.detach().to("cpu", torch.float32).numpy().copy()
+
+    stacks = []
+    for stack in model.stacks:
+        tree: Tree = {}
+        for name, _ in stack.layers[0].named_parameters():
+            *parents, last = name.split(".")
+            node = tree
+            for key in parents:
+                node = node.setdefault(key, {})
+            node[last] = np.stack([arr(layer.get_parameter(name)) for layer in stack.layers])
+        stacks.append(tree)
+    return {"embed": arr(model.embedding), "stacks": tuple(stacks),
+            "final_norm": {"scale": arr(model.final_norm.scale)},
+            "head": {"w": arr(model.head.w)}}
+
+
+__all__ = ["from_reference", "lm_from_reference", "lm_to_reference",
+           "slot_to_reference", "stack_reference", "to_reference"]

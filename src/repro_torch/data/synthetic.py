@@ -1,8 +1,9 @@
-"""Synthetic image-classification data (numpy; copied from the reference
+"""Synthetic data (numpy; copied from the reference
 ``repro/data/synthetic.py`` so that the same seed gives the same arrays).
 
-Each class c has a fixed smooth template image t_c; a sample is
-``a * t_c + sigma * noise`` with per-sample amplitude jitter.
+Images: each class c has a fixed smooth template image t_c; a sample is
+``a * t_c + sigma * noise`` with per-sample amplitude jitter.  Tokens: a
+random, strongly peaked Markov chain over the vocabulary.
 """
 from __future__ import annotations
 
@@ -55,3 +56,30 @@ def make_classification_data(seed: int, n_classes: int, size: int, channels: int
     x0, y0 = sample_images(rng, templates, d_o, noise)
     xt, yt = sample_images(rng, templates, n_test, noise)
     return (np.stack(xs), np.stack(ys), x0, y0, xt, yt)
+
+
+# ---------------------------------------------------------------------------
+# token data (Markov language)
+# ---------------------------------------------------------------------------
+
+def make_markov_tokens(seed: int, vocab: int, n_seqs: int, seq_len: int,
+                       order_bias: float = 6.0) -> np.ndarray:
+    """Sequences from a random but strongly-peaked Markov chain: next-token
+    prediction is learnable well above uniform.  Builds a dense (vocab,
+    vocab) transition matrix, so it suits small vocabularies only."""
+    rng = np.random.default_rng(seed)
+    logits = rng.normal(0, 1, (vocab, vocab)) * order_bias
+    probs = np.exp(logits - logits.max(axis=1, keepdims=True))
+    probs /= probs.sum(axis=1, keepdims=True)
+    out = np.empty((n_seqs, seq_len), np.int32)
+    state = rng.integers(0, vocab, size=n_seqs)
+    for t in range(seq_len):
+        out[:, t] = state
+        u = rng.random((n_seqs, 1))
+        state = (probs[state].cumsum(axis=1) > u).argmax(axis=1)
+    return out
+
+
+def lm_batch(tokens: np.ndarray):
+    """tokens (N, S+1) -> inputs/labels for next-token prediction."""
+    return {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}

@@ -41,13 +41,24 @@ SOURCES: Dict[str, Dict[str, Tuple]] = {
         # ref, recv, partial, out, r, n_elem, p, stream
         "repro_tamper_check_sums": (_P, _P, _P, _P, _I, _L, _I, _P),
     },
+    "flash_attention": {
+        # q, k, v, out, b, sq, sk, h, hkv, d, window, scale, dtype, stream
+        "repro_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P),
+    },
+    "decode_attention": {
+        # q, k, v, out, ws, b, s, h, hkv, d, k_begin, k_end, chunk, splits,
+        # scale, dtype, stream
+        "repro_decode_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                                   _I, _F, _I, _P),
+    },
 }
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 
 #: kernel launches per launcher; reset with :func:`reset_launches`
 LAUNCHES: Dict[str, int] = {"quant_dequant": 0, "quant_dequant_stats": 0,
-                            "tamper_check_sums": 0}
+                            "tamper_check_sums": 0, "flash_attention": 0,
+                            "decode_attention": 0}
 
 
 def reset_launches() -> None:

@@ -1,0 +1,118 @@
+"""Causal GQA attention over a whole sequence (the prefill's attention): the
+CUDA kernel (``csrc/flash_attention.cu``) and its plain PyTorch version.
+
+Layout, as the model holds it: q (B, Sq, H, D); k, v (B, Sk, Hkv, D) with
+H % Hkv == 0; out (B, Sq, H, D) in q's dtype.  Query head h reads KV head
+``h // (H // Hkv)``.  Query i attends to key j where ``j <= i`` (causal) and,
+with ``window > 0``, ``i - j < window``; scores are scaled by 1/sqrt(D).
+
+  * :func:`flash_attention` — launches the kernel on CUDA tensors (f32 or
+    bf16, head_dim in :data:`HEAD_DIMS`, contiguous, 1 <= Sq <= Sk); f32
+    accumulation, no tensor cores.
+  * :func:`flash_attention_plain` — what ``repro/kernels/ref.py::
+    mha_reference`` computes: the scores materialised in f32, GQA by
+    repeating the KV heads, masked with -1e30, softmax in f32.  The CPU
+    path and the comparisons on the card use it.
+
+``kernels/ops.py`` picks between them by the tensor's device.  The launcher
+counts its launches in ``build.LAUNCHES``.  Neither keeps a graph: a call
+that would need a gradient raises (the backward comes with training).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+NEG_INF = -1e30
+#: head dims the kernels are built for
+HEAD_DIMS = (32, 64, 80, 128, 256)
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def causal_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, window: int = 0) -> torch.Tensor:
+    """(q, k) boolean mask, True = attend (the reference's ``causal_mask``)."""
+    diff = q_pos[:, None] - k_pos[None, :]
+    mask = diff >= 0
+    if window > 0:
+        mask = mask & (diff < window)
+    return mask
+
+
+def attend_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 mask: torch.Tensor) -> torch.Tensor:
+    """Softmax attention with materialised f32 scores.  q (B, Sq, H, D); k, v
+    (B, Sk, Hkv, D); mask (Sq, Sk).  Returns (B, Sq, H, D) in q's dtype."""
+    groups = q.shape[2] // k.shape[2]
+    kf = k.to(torch.float32).repeat_interleave(groups, dim=2)
+    vf = v.to(torch.float32).repeat_interleave(groups, dim=2)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32), kf) * scale
+    s = torch.where(mask, s, torch.full((), NEG_INF, device=s.device))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, vf).to(q.dtype)
+
+
+def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"attention takes q (B, Sq, H, D) and k, v (B, Sk, Hkv, D); got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    if q.shape[0] != k.shape[0] or q.shape[3] != k.shape[3] or q.shape[2] % k.shape[2]:
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} disagree on batch or "
+                         f"head_dim, or H is not a multiple of Hkv")
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                          window: int = 0) -> torch.Tensor:
+    """Plain version of :func:`flash_attention` (``ref.mha_reference``)."""
+    check_shapes(q, k, v)
+    mask = causal_mask(torch.arange(q.shape[1], device=q.device),
+                       torch.arange(k.shape[1], device=q.device), window)
+    return attend_plain(q, k, v, mask)
+
+
+def check_cuda_inputs(name: str, *tensors: torch.Tensor) -> None:
+    """What both attention launchers require of their tensors."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"the {name} kernel has no backward yet: call it under "
+                           f"torch.inference_mode() or torch.no_grad()")
+    for t in tensors:
+        if t.device.type != "cuda":
+            raise ValueError(f"the {name} kernel takes CUDA tensors, got {t.device}")
+        if t.device.index != torch.cuda.current_device():
+            raise ValueError(f"tensor on {t.device} but the current device is "
+                             f"cuda:{torch.cuda.current_device()}")
+        if t.dtype not in DTYPE_CODES or t.dtype != tensors[0].dtype:
+            raise TypeError(f"the {name} kernel takes float32 or bfloat16 tensors of "
+                            f"one dtype, got {[x.dtype for x in tensors]}")
+        if not t.is_contiguous():
+            raise ValueError(f"the {name} kernel takes contiguous tensors")
+    if tensors[0].shape[-1] not in HEAD_DIMS:
+        raise ValueError(f"the {name} kernel is built for head_dim in {HEAD_DIMS}, got "
+                         f"{tensors[0].shape[-1]}")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    window: int = 0) -> torch.Tensor:
+    """Launch the flash-attention kernel: q (B, Sq, H, D), k, v (B, Sk, Hkv,
+    D) -> (B, Sq, H, D)."""
+    from .build import load, record_launch
+    check_cuda_inputs("flash_attention", q, k, v)
+    check_shapes(q, k, v)
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    if not 1 <= sq <= sk or window < 0:
+        raise ValueError(f"the flash_attention kernel takes 1 <= Sq <= Sk and window >= 0 "
+                         f"(a query past the last key has no key); got Sq {sq}, Sk {sk}, "
+                         f"window {window}")
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = load("flash_attention").repro_flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, sk, h, hkv, d,
+        window, 1.0 / math.sqrt(d), DTYPE_CODES[q.dtype], stream)
+    record_launch(err, "flash_attention")
+    return out
+
+
+__all__ = ["HEAD_DIMS", "NEG_INF", "attend_plain", "causal_mask", "flash_attention",
+           "flash_attention_plain"]

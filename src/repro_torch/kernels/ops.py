@@ -10,6 +10,8 @@ from typing import Tuple
 
 import torch
 
+from . import decode_attention as _da
+from . import flash_attention as _fa
 from . import quant_exchange as _qx
 from . import tamper_check as _tc
 
@@ -53,5 +55,25 @@ def tamper_distance(ref: torch.Tensor, recv: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(sums[..., 0]) / torch.clamp_min(torch.sqrt(sums[..., 1]), 1e-12)
 
 
-__all__ = ["largest_divisor", "quant_roundtrip", "quant_roundtrip_stats",
-           "tamper_distance"]
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    window: int = 0) -> torch.Tensor:
+    """Causal multi-head attention over a sequence.  q (B, Sq, H, D); k, v
+    (B, Sk, Hkv, D), GQA when Hkv < H; ``window > 0`` a sliding window.
+    Returns (B, Sq, H, D)."""
+    if q.device.type == "cpu":
+        return _fa.flash_attention_plain(q, k, v, window=window)
+    return _fa.flash_attention(q, k, v, window=window)
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, index: int, *,
+                     window: int = 0) -> torch.Tensor:
+    """Single-token decode attention.  q (B, 1, H, D); the cache's k, v (B,
+    S, Hkv, D); ``index`` the new token's position (host int).  Returns (B,
+    1, H, D)."""
+    if q.device.type == "cpu":
+        return _da.decode_attention_plain(q, k, v, index, window=window)
+    return _da.decode_attention(q, k, v, index, window=window)
+
+
+__all__ = ["decode_attention", "flash_attention", "largest_divisor", "quant_roundtrip",
+           "quant_roundtrip_stats", "tamper_distance"]

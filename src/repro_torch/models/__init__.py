@@ -1,6 +1,9 @@
-"""The paper's split CNNs."""
+"""The paper's split CNNs and the dense decoder LM."""
 from .cnn import (CIFAR_CNN, MNIST_CNN, APHead, ClientCNN, CNNConfig,
                   StackedAPHead, StackedClientCNN, cnn_init, cnn_stacked)
+from .config import ModelConfig, reduce_config
+from .model import Model, build_model, build_plan
 
-__all__ = ["APHead", "CIFAR_CNN", "CNNConfig", "ClientCNN", "MNIST_CNN",
-           "StackedAPHead", "StackedClientCNN", "cnn_init", "cnn_stacked"]
+__all__ = ["APHead", "CIFAR_CNN", "CNNConfig", "ClientCNN", "MNIST_CNN", "Model",
+           "ModelConfig", "StackedAPHead", "StackedClientCNN", "build_model",
+           "build_plan", "cnn_init", "cnn_stacked", "reduce_config"]

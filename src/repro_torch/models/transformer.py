@@ -1,0 +1,126 @@
+"""Decoder assembly: the reference's ``repro/models/transformer.py`` for the
+dense family (``arch_type="dense"``, the ``attn_mlp`` stack kind).
+
+The model is an ordered list of homogeneous :class:`BlockStack`\\ s.  Where
+the reference stacks a stack's layers on a leading axis and runs them under
+``lax.scan``, a port stack keeps them in an ``nn.ModuleList`` and loops;
+``convert.py`` maps the one onto the other.  A stack's per-layer sliding
+windows (gemma3's local:global pattern) ride in ``meta["window"]`` as ints
+and reach the attention kernels as a runtime argument.
+
+The decode cache of an ``attn_mlp`` stack is {"k", "v"} of (n, B, max_seq,
+Hkv, D), the reference's layout; layer i writes its slice in place.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from .attention import GQA, AttnConfig, init_kv_cache
+from .blocks import DTYPES, RMSNorm, SwiGLU
+from .config import ModelConfig
+
+#: where each unported arch_type comes (ROADMAP.md, Queue A item 10)
+UNPORTED = {
+    "moe": "the MLA/MoE slice",
+    "ssm": "the xLSTM slice (with B7) and the SSM slice",
+    "hybrid": "the SSM slice",
+    "encdec": "the encdec slice",
+    "audio": "the encdec slice",
+    "vlm": "the MLA/MoE, SSM and encdec slice (the vlm patch prefix)",
+}
+
+
+def not_ported(arch_type: str) -> NotImplementedError:
+    where = UNPORTED.get(arch_type, "no slice: unknown arch_type")
+    return NotImplementedError(
+        f"arch_type {arch_type!r} is not ported yet: ROADMAP.md Queue A item 10, {where}; "
+        f"the port builds arch_type='dense'")
+
+
+def attn_cfg(cfg: ModelConfig) -> AttnConfig:
+    """The attention's widths; each layer's window comes from
+    :func:`_layer_windows`."""
+    return AttnConfig(
+        d_model=cfg.d_model, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+        head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
+        qkv_bias=cfg.qkv_bias, qk_norm=cfg.qk_norm)
+
+
+class AttnMLPLayer(nn.Module):
+    """Pre-norm decoder layer: ``x + attn(ln1(x))``, then ``x + mlp(ln2(x))``."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        kw = dict(dtype=DTYPES[cfg.dtype], device=device)
+        self.ln1 = RMSNorm(cfg.d_model, **kw)
+        self.attn = GQA(attn_cfg(cfg), **kw)
+        self.ln2 = RMSNorm(cfg.d_model, **kw)
+        self.mlp = SwiGLU(cfg.d_model, cfg.d_ff, **kw)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        for mod in (self.ln1, self.attn, self.ln2, self.mlp):
+            mod.reset_parameters(generator)
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor, window: int) -> torch.Tensor:
+        x = x + self.attn(self.ln1(x), positions, window)
+        return x + self.mlp(self.ln2(x))
+
+    def decode(self, x: torch.Tensor, cache: Dict[str, torch.Tensor], index: int,
+               window: int) -> torch.Tensor:
+        x = x + self.attn.decode(self.ln1(x), cache, index, window)
+        return x + self.mlp(self.ln2(x))
+
+
+class BlockStack(nn.Module):
+    """``n`` layers of one ``kind``, with per-layer metadata in ``meta``."""
+
+    def __init__(self, kind: str, layers: List[nn.Module], meta: Optional[Dict[str, Any]] = None):
+        super().__init__()
+        self.kind = kind
+        self.n = len(layers)
+        self.layers = nn.ModuleList(layers)
+        self.meta = dict(meta or {})
+
+
+def _layer_windows(cfg: ModelConfig) -> Tuple[int, ...]:
+    """Per-layer sliding window sizes (0 = global)."""
+    if cfg.global_every:
+        return tuple(0 if (i + 1) % cfg.global_every == 0 else cfg.sliding_window
+                     for i in range(cfg.n_layers))
+    return (cfg.sliding_window,) * cfg.n_layers
+
+
+def build_stacks(cfg: ModelConfig, plan, device=None) -> List[BlockStack]:
+    """The stacks of ``plan`` (``model.build_plan(cfg)``), parameters
+    allocated uninitialised on ``device``."""
+    return [BlockStack(sp.kind, [AttnMLPLayer(cfg, device) for _ in range(sp.n)], sp.meta)
+            for sp in plan]
+
+
+def run_stack(stack: BlockStack, x: torch.Tensor,
+              positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (x, aux_loss_sum); a dense stack has no auxiliary loss."""
+    for layer, window in zip(stack.layers, stack.meta["window"]):
+        x = layer(x, positions, window)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def init_stack_cache(cfg: ModelConfig, stack: BlockStack, batch: int, max_seq: int,
+                     dtype: torch.dtype, device=None) -> Dict[str, torch.Tensor]:
+    return init_kv_cache(stack.n, batch, max_seq, attn_cfg(cfg), dtype, device)
+
+
+def decode_stack(stack: BlockStack, x: torch.Tensor, cache: Dict[str, torch.Tensor],
+                 index: int) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One decode step through a stack.  x: (B, 1, d_model); the cache is
+    written in place and returned."""
+    for i, (layer, window) in enumerate(zip(stack.layers, stack.meta["window"])):
+        x = layer.decode(x, {"k": cache["k"][i], "v": cache["v"][i]}, index, window)
+    return x, cache
+
+
+__all__ = ["AttnMLPLayer", "BlockStack", "attn_cfg", "build_stacks", "decode_stack",
+           "init_stack_cache", "not_ported", "run_stack"]

@@ -55,8 +55,7 @@ def _no_kernel_on_cpu(monkeypatch):
     monkeypatch.setattr(tbuild, "_start", refuse)
     tbuild.reset_launches()
     yield
-    assert tbuild.LAUNCHES == {"quant_dequant": 0, "quant_dequant_stats": 0,
-                            "tamper_check_sums": 0}
+    assert not any(tbuild.LAUNCHES.values()), tbuild.LAUNCHES
 
 
 @pytest.mark.parametrize("fmt", FORMATS)
