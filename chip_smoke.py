@@ -23,7 +23,17 @@ from the repository root.  Phases, in order; any failure exits non-zero:
      (eager, graph-replayed with the L2 warm, one call with it cold) beside
      its plain version's, its bound and, for B5/B6, the time of PyTorch's
      ``scaled_dot_product_attention`` on the same inputs (a yardstick the
-     port never calls), also at two long-context shapes;
+     port never calls), also at two long-context shapes; B4 (fused
+     cross-entropy) forward within atol 1e-5 (f32) and 3e-2 (bf16) of its
+     plain version, loss and lse, and its backward (dh, dW) and B5's
+     backward (dq, dk, dv) within rel 1e-4 (f32) and 3e-2 (bf16) of
+     autograd of the plain versions, at the train shapes (T 2,048 through
+     Qwen3-8B's 4,096 x 151,936 head; B 4, S 512, 32/8 heads of 128) and
+     edges (T and V tails, labels on panel edges and out of range; GQA
+     groups 1/2/4/8, MQA, windows, head dims 64/80/256, S = 1), all
+     bit-identical run to run, timed beside their plain versions, bounds
+     and yardsticks (``F.cross_entropy(h @ W)``, two calls; autograd of
+     SDPA);
   2. the sequential main path at full width: the CIFAR-10 split CNN (convs
      32/64/128, d_c = 256, FC 128/64/10) at the paper's Table II sizes
      through ``run_pigeon(engine="sequential", quant="int8",
@@ -40,7 +50,10 @@ from the repository root.  Phases, in order; any failure exits non-zero:
   4. the same tiny runs on the CPU and on the card, from the same init, on
      both engines: equal discrete outcomes, validation losses within rtol
      1e-3; and a tiny LM (``reduce_config`` of Qwen3-8B, f32) served on both
-     from one init: equal greedy tokens, logits within atol 1e-4;
+     from one init: equal greedy tokens, logits within atol 1e-4; and the
+     same LM through a Pigeon-SL run over ``from_lm`` (sequential, label
+     flip) on both from one init: equal discrete outcomes, validation
+     losses within rtol 1e-3;
   5. where the time goes (torch.profiler): one CIFAR client turn of the
      sequential engine and one batched CIFAR round step — device busy
      share, launches, the top kernels and the host ops;
@@ -51,7 +64,21 @@ from the repository root.  Phases, in order; any failure exits non-zero:
      then 32 greedy tokens: 512 steps, 18,432 B6 launches); prefill and
      decode logits at the prompt's last position agree (bf16 bound, and at
      f32 with 4 layers a tight one); prefill seconds, ms per decode step,
-     tokens/s, peak memory and the profile of one warm decode step.
+     tokens/s, peak memory and the profile of one warm decode step;
+  7. the train step: Qwen3-8B at full width and depth (36 layers, bf16,
+     remat: the reference's train_4k settings with the sequence cut to
+     512), three ``make_train_step`` calls on one (4, 512) batch of
+     ``build_lm_task`` tokens: the loss finite and falling, per step 72 B5
+     forwards (remat recomputes each), 36 B5 backwards, one B4 forward and
+     one backward; seconds and tokens per step, peak memory, one step's
+     profile with B4's and B5's shares; at 4 layers in f32 the kernel
+     path's loss and every gradient within rel 1e-4 of the plain path's;
+  8. the Pigeon-SL round over ``from_lm`` at Qwen3-8B's width, depth cut
+     to 12 layers (9 client + 3 AP): ``run_pigeon`` (argmin, label flip on
+     client 0, Pigeon-SL+, T = 2) without the wire and with int8 through
+     B2; finite losses, ``selected == argmin(val_losses)``, the launches
+     the round's structure predicts, exchange bytes, seconds per round and
+     peak memory.
 
 The last lines are one JSON object per kernel set (``{"kernels": [...]}``),
 the card's ``nvidia-smi`` name and power limit, and
@@ -113,6 +140,25 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 480, 32
 # 4 layers: only the summation order differs (~1e-6 relative).
 SERVE_BF16_REL = 5e-2
 SERVE_F32_REL = 1e-3
+# B4: (T, D, V), the train shape first (T = B * S = 4 * 512 tokens through
+# Qwen3-8B's 4,096 x 151,936 head), then T and V tails at full vocab and
+# small edges; tolerances of the reference's kernel test (atol) and of
+# the gradients (relative to the call's largest plain-version value)
+XENT_SHAPES = ((2048, 4096, 151936), (333, 1024, 151936), (129, 256, 151937),
+               (37, 80, 1000), (1, 64, 7))
+XENT_ATOL = {"float32": 1e-5, "bfloat16": 3e-2}
+GRAD_REL = {"float32": 1e-4, "bfloat16": 3e-2}
+# phases 7 and 8: Qwen3-8B trained at B 4 x S 512 (the train_4k settings,
+# the sequence cut from 4,096), tokens of build_lm_task's vocabulary 2,048
+# (the head stays 151,936 wide); SGD lr 0.1 moves bf16 weights (a smaller
+# step rounds away in bf16); the round's depth cut to 12 layers
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_VOCAB, TRAIN_LR = 4, 512, 2048, 0.1
+TRAIN_F32_REL = 1e-4
+ROUND_LAYERS = 12
+# B5's backward: the train shape (B 4, S 512, Qwen3-8B's heads), then GQA
+# group 8, the forward's edge shapes (MQA, group 1, windows, head dims
+# 64/80/256, ragged S, S = 1)
+ATTN_BWD_SHAPES = ((4, 512, 32, 8, 128, 0), (2, 64, 16, 2, 128, 0)) + FLASH_SHAPES[1:]
 
 
 def fail(msg: str) -> None:
@@ -304,7 +350,9 @@ def phase_kernels():
             f"(int8, fp8_e4m3){' and R messages at ' + str(BATCHED_MESSAGES) if stats else ''}; "
             f"max_abs_err={max_err:.3e}")
     results["tamper_check_sums"] = _phase_tamper()
+    results.update(_phase_xent())
     results.update(_phase_attention())
+    results.update(_phase_attention_bwd())
     return results
 
 
@@ -501,7 +549,8 @@ def _phase_attention():
 
     results = {}
     for name, kernel, plain, shapes, long_shape in (
-            ("flash_attention", fa.flash_attention, fa.flash_attention_plain,
+            ("flash_attention", lambda *a, **kw: fa.flash_attention(*a, **kw)[0],
+             fa.flash_attention_plain,
              FLASH_SHAPES, FLASH_LONG),
             ("decode_attention", da.decode_attention, da.decode_attention_plain,
              DECODE_SHAPES, DECODE_LONG)):
@@ -533,6 +582,258 @@ def _phase_attention():
                              long_context=_attention_timing(name, kernel, plain,
                                                             long_shape, long=True))
     return results
+
+
+def _rel_err(got, want, zero_scale: float = 0.0) -> float:
+    """max |got - want| over max |want|, each tensor on its own scale.  A
+    reference that is identically 0 (dq with a single key) is held against
+    ``zero_scale``, the largest |value| among the call's other outputs."""
+    scale = float(want.abs().max()) if want.numel() else 0.0
+    if scale == 0.0:
+        scale = zero_scale
+    return float((got.float() - want.float()).abs().max()) / max(scale, 1e-30)
+
+
+def _xent_grad_err(dh, dw, ref_dh, ref_dw, labels) -> float:
+    """The B4 backward's error, as the worst of four parts each on its own
+    scale: dh's rows with an in-range label and the rest, dW's columns some
+    in-range label hits and the rest.  The one-hot term dominates the hit
+    rows and columns by four orders of magnitude at the train shape, so only
+    the other parts, which are the softmax term alone, can see that term."""
+    import torch
+    v = ref_dw.shape[1]
+    inside = (labels >= 0) & (labels < v)
+    hit = torch.zeros(v, dtype=torch.bool, device=labels.device)
+    hit[labels[inside].long()] = True
+    parts = ((dh[inside], ref_dh[inside]), (dh[~inside], ref_dh[~inside]),
+             (dw[:, hit], ref_dw[:, hit]), (dw[:, ~hit], ref_dw[:, ~hit]))
+    return max(_rel_err(a, r) for a, r in parts if r.numel())
+
+
+def _xent_grad_mutants(h, w, labels, gup, dh, dw):
+    """Wrong backwards the check must refuse: dh of zeros, and dh and dW with
+    the softmax term dropped (the one-hot term alone)."""
+    import torch
+    inside = (labels >= 0) & (labels < w.shape[1])
+    rows, lab = torch.nonzero(inside)[:, 0], labels[inside].long()
+    onehot_dh = torch.zeros_like(dh, dtype=torch.float32)
+    onehot_dh[rows] = -(gup[rows, None] * w[:, lab].t().float())
+    onehot_dw = torch.zeros_like(dw, dtype=torch.float32)
+    onehot_dw.index_add_(1, lab, -(h[rows].float() * gup[rows, None]).t())
+    return (("a zero dh", torch.zeros_like(dh), dw),
+            ("dh without the softmax term", onehot_dh, dw),
+            ("dW without the softmax term", dh, onehot_dw))
+
+
+def _xent_args(shape, dtype: str, seed: int):
+    """hidden (T, D) ~ N(0, 1) (a final norm's output), weights (D, V) at
+    the LM head's init scale 0.02, int32 labels with panel edges (0, 127,
+    128, V - 1) and out-of-range labels (-1, V, -100) in front, and an
+    upstream gradient (T,) f32."""
+    import torch
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    t, d, v = shape
+    dt = getattr(torch, dtype)
+    h = torch.randn((t, d), generator=g, device=DEVICE).to(dt)
+    w = (torch.randn((d, v), generator=g, device=DEVICE) * 0.02).to(dt)
+    labels = torch.randint(0, v, (t,), generator=g, device=DEVICE, dtype=torch.int32)
+    edges = torch.tensor([0, 127, 128, v - 1, -1, v, -100], dtype=torch.int32,
+                         device=DEVICE)[:t]
+    labels[:edges.numel()] = edges
+    gup = torch.randn((t,), generator=g, device=DEVICE)
+    return h, w, labels, gup
+
+
+def _phase_xent():
+    """B4 forward (loss and lse) and backward (dh, dW) against the plain
+    version and its autograd at the train shape and the edges, f32 and
+    bf16, bit-identical run to run; timed at the train shape in bf16."""
+    import torch
+    from repro_torch.kernels import fused_xent as fx
+
+    fwd_err, bwd_err, mutant_err = {}, {}, {}
+    for dtype in ("float32", "bfloat16"):
+        for i, shape in enumerate(XENT_SHAPES):
+            h, w, labels, gup = _xent_args(shape, dtype, seed=i)
+            loss1, lse1 = fx.fused_xent(h, w, labels)
+            loss2, lse2 = fx.fused_xent(h, w, labels)
+            dh1, dw1 = fx.fused_xent_bwd(h, w, labels, lse1, gup)
+            dh2, dw2 = fx.fused_xent_bwd(h, w, labels, lse1, gup)
+            torch.cuda.synchronize()
+            check(torch.equal(loss1, loss2) and torch.equal(lse1, lse2),
+                  f"fused_xent {dtype} {shape}: two runs differ")
+            check(torch.equal(dh1, dh2) and torch.equal(dw1, dw2),
+                  f"fused_xent_bwd {dtype} {shape}: two runs differ")
+            hh, ww = h.clone().requires_grad_(), w.clone().requires_grad_()
+            ref = fx.fused_xent_plain(hh, ww, labels)
+            ref_dh, ref_dw = torch.autograd.grad((ref * gup).sum(), (hh, ww))
+            with torch.no_grad():
+                ref_lse = torch.logsumexp(h.float() @ w.float(), dim=-1)
+            err = max(float((loss1 - ref.detach()).abs().max()),
+                      float((lse1 - ref_lse).abs().max()))
+            check(bool(torch.isfinite(loss1).all()), f"fused_xent {dtype} {shape}: not finite")
+            check(err <= XENT_ATOL[dtype], f"fused_xent {dtype} {shape}: max |kernel - plain| "
+                                           f"{err:.3e} > {XENT_ATOL[dtype]}")
+            gerr = _xent_grad_err(dh1, dw1, ref_dh, ref_dw, labels)
+            check(dh1.dtype == h.dtype and dw1.dtype == w.dtype and gerr <= GRAD_REL[dtype],
+                  f"fused_xent_bwd {dtype} {shape}: rel err {gerr:.3e} > {GRAD_REL[dtype]}")
+            if i == 0:
+                for what, bad_dh, bad_dw in _xent_grad_mutants(h, w, labels, gup, dh1, dw1):
+                    bad = _xent_grad_err(bad_dh, bad_dw, ref_dh, ref_dw, labels)
+                    check(bad > GRAD_REL[dtype], f"fused_xent_bwd {dtype} {shape}: the "
+                                                 f"check passes {what} (rel err {bad:.3e})")
+                    mutant_err.setdefault(dtype, {})[what] = bad
+            fwd_err[dtype] = max(fwd_err.get(dtype, 0.0), err)
+            bwd_err[dtype] = max(bwd_err.get(dtype, 0.0), gerr)
+            if i == 0 and dtype == "bfloat16":
+                main_err, main_gerr = err, gerr
+                main_gabs = max(float((dh1.float() - ref_dh.float()).abs().max()),
+                                float((dw1.float() - ref_dw.float()).abs().max()))
+            del h, w, hh, ww, ref, ref_dh, ref_dw, dh1, dw1, dh2, dw2
+            torch.cuda.empty_cache()
+    log(f"phase1 fused_xent: loss and lse within atol {XENT_ATOL} of plain at "
+        f"{list(XENT_SHAPES)} (labels on panel edges and out of range), bit-identical run "
+        f"to run; max_abs_err {fwd_err}")
+    log(f"phase1 fused_xent_bwd: dh, dW within rel {GRAD_REL} of autograd of the plain "
+        f"version at the same shapes (dh's rows with and without an in-range label, dW's "
+        f"columns hit and not hit by one, each on its own scale), bit-identical run to run; "
+        f"max rel err {bwd_err}; at {XENT_SHAPES[0]} the check refuses {mutant_err}")
+
+    # timings at the train shape in bf16
+    import torch.nn.functional as F
+    t, d, v = XENT_SHAPES[0]
+    h, w, labels, gup = _xent_args(XENT_SHAPES[0], "bfloat16", seed=99)
+    labels = labels.abs() % v                   # in range: F.cross_entropy takes no other
+    loss, lse = fx.fused_xent(h, w, labels)
+    # the yardstick rounds its logits to bf16 (as the reference's bf16 loss
+    # does): held to 3e-2 of the largest loss
+    lib_want = F.cross_entropy((h @ w).float(), labels.long(), reduction="none")
+    check(float((lib_want - loss).abs().max()) <= 3e-2 * float(loss.abs().max()),
+          "fused_xent: F.cross_entropy disagrees with the kernel")
+    few = dict(reps=2, samples=3)
+    hh, ww = h.clone().requires_grad_(), w.clone().requires_grad_()
+    plain_loss = (fx.fused_xent_plain(hh, ww, labels) * gup).sum()
+    lib_loss = (F.cross_entropy(hh @ ww, labels.long(), reduction="none") * gup).sum()
+    elt = 2
+    results = {}
+    for name, call, plain, lib, n_bytes, n_ops in (
+            ("fused_xent", lambda: fx.fused_xent(h, w, labels),
+             lambda: fx.fused_xent_plain(h, w, labels),
+             lambda: F.cross_entropy(h @ w, labels.long(), reduction="none"),
+             elt * (t * d + d * v) + 4 * t * 3, 2 * t * d * v),
+            ("fused_xent_bwd", lambda: fx.fused_xent_bwd(h, w, labels, lse, gup),
+             lambda: torch.autograd.grad(plain_loss, (hh, ww), retain_graph=True),
+             lambda: torch.autograd.grad(lib_loss, (hh, ww), retain_graph=True),
+             2 * elt * (t * d + d * v) + 4 * t * 3, 3 * 2 * t * d * v)):
+        bytes_us = n_bytes / HBM_BYTES_PER_S * 1e6
+        ops_us = n_ops / BF16_OPS_PER_S * 1e6
+        timing = dict(kernel_us=_time_us(call, **few),
+                      kernel_dev_us=_graph_time_us(call, **few),
+                      kernel_cold_us=_cold_time_us(call, reps=3),
+                      plain_us=_time_us(plain, **few), plain_dev_us=None,
+                      library_us=_time_us(lib, **few),
+                      bound_us=max(bytes_us, ops_us),
+                      bound_by="bytes" if bytes_us >= ops_us else "operations")
+        log(f"phase1 {name} at (T, D, V) = {XENT_SHAPES[0]} bf16: kernel_us="
+            f"{timing['kernel_us']:.1f} plain_us={timing['plain_us']:.1f} library_us="
+            f"{timing['library_us']:.1f} (F.cross_entropy(h @ W): two calls{'' if name == 'fused_xent' else ', through autograd'}) "
+            f"bound_us={timing['bound_us']:.1f} ({timing['bound_by']}; {n_ops / 1e12:.3f} "
+            f"TFLOP, {n_bytes / 1e9:.3f} GB); graph-replayed device time: kernel_us="
+            f"{timing['kernel_dev_us']:.1f}; one call with the L2 cold: kernel_us="
+            f"{timing['kernel_cold_us']:.1f}; achieved "
+            f"{n_ops / timing['kernel_dev_us'] / 1e6:.2f} TFLOP/s")
+        errs = (dict(max_abs_err=main_err) if name == "fused_xent"
+                else dict(max_abs_err=main_gabs, max_rel_err=main_gerr))
+        results[name] = dict(shape=list(XENT_SHAPES[0]), dtype="bfloat16", **errs, **timing)
+    del h, w, hh, ww, plain_loss, lib_loss
+    torch.cuda.empty_cache()
+    return results
+
+
+def _phase_attention_bwd():
+    """The B5 backward (dq, dk, dv) against autograd of the plain version at
+    the train shape and the edges (GQA groups 1/2/4/8, MQA, windows, head
+    dims 64/80/128/256, ragged S), f32 and bf16, bit-identical run to run;
+    timed at the train shape in bf16 beside the plain backward and SDPA's."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+
+    def grads_of(shape, dtype, seed):
+        args, kw = _attention_args("flash_attention", shape, dtype, seed)
+        g = torch.Generator(device=DEVICE).manual_seed(seed + 1000)
+        dout = torch.randn(args[0].shape, generator=g, device=DEVICE).to(args[0].dtype)
+        return args, kw["window"], dout
+
+    errs = {}
+    for dtype in ("float32", "bfloat16"):
+        for i, shape in enumerate(ATTN_BWD_SHAPES):
+            (q, k, v), window, dout = grads_of(shape, dtype, i)
+            out, lse = fa.flash_attention(q, k, v, window=window)
+            d1 = fa.flash_attention_bwd(q, k, v, out, dout, lse, window=window)
+            d2 = fa.flash_attention_bwd(q, k, v, out, dout, lse, window=window)
+            qq, kk, vv = (x.clone().requires_grad_() for x in (q, k, v))
+            ref = torch.autograd.grad(fa.flash_attention_plain(qq, kk, vv, window=window),
+                                      (qq, kk, vv), grad_outputs=dout)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(d1, d2)),
+                  f"flash_attention_bwd {dtype} {shape}: two runs differ")
+            scale = max(float(r.abs().max()) for r in ref)
+            err = max(_rel_err(a, r, scale) for a, r in zip(d1, ref))
+            check(all(a.dtype == q.dtype and a.shape == r.shape for a, r in zip(d1, ref))
+                  and err <= GRAD_REL[dtype],
+                  f"flash_attention_bwd {dtype} {shape}: rel err {err:.3e} > {GRAD_REL[dtype]}")
+            errs[dtype] = max(errs.get(dtype, 0.0), err)
+            if i == 0 and dtype == "bfloat16":
+                main_err = err
+                main_abs = max(float((a.float() - r.float()).abs().max())
+                               for a, r in zip(d1, ref))
+    log(f"phase1 flash_attention_bwd: dq, dk, dv within rel {GRAD_REL} of autograd of the "
+        f"plain version at {list(ATTN_BWD_SHAPES)}, bit-identical run to run; max rel err "
+        f"{errs}")
+
+    shape = ATTN_BWD_SHAPES[0]
+    (q, k, v), window, dout = grads_of(shape, "bfloat16", 99)
+    out, lse = fa.flash_attention(q, k, v, window=window)
+    qq, kk, vv = (x.clone().requires_grad_() for x in (q, k, v))
+    plain_out = fa.flash_attention_plain(qq, kk, vv, window=window)
+    qt, kt, vt = (x.transpose(1, 2) for x in (qq, kk, vv))
+    lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+    lib_ref = torch.autograd.grad(lib_out, (qq, kk, vv), grad_outputs=dout.transpose(1, 2),
+                                  retain_graph=True)
+    mine = fa.flash_attention_bwd(q, k, v, out, dout, lse, window=window)
+    scale = max(float(r.abs().max()) for r in lib_ref)
+    check(max(_rel_err(a, r, scale) for a, r in zip(mine, lib_ref)) <= GRAD_REL["bfloat16"],
+          "flash_attention_bwd: SDPA's backward disagrees with the kernel")
+    call = lambda: fa.flash_attention_bwd(q, k, v, out, dout, lse, window=window)  # noqa: E731
+    plain = lambda: torch.autograd.grad(plain_out, (qq, kk, vv), grad_outputs=dout,  # noqa: E731
+                                        retain_graph=True)
+    lib = lambda: torch.autograd.grad(lib_out, (qq, kk, vv),  # noqa: E731
+                                      grad_outputs=dout.transpose(1, 2), retain_graph=True)
+    b, s, h, hkv, d, _ = shape
+    pairs = s * (s + 1) // 2
+    n_ops = 10 * d * pairs * b * h
+    # q, out, dout, dq (B, S, H, D); k, v, dk, dv (B, S, Hkv, D); lse
+    n_bytes = 2 * (4 * b * s * h * d + 4 * b * s * hkv * d) + 4 * b * h * s
+    bytes_us = n_bytes / HBM_BYTES_PER_S * 1e6
+    ops_us = n_ops / BF16_OPS_PER_S * 1e6
+    timing = dict(kernel_us=_time_us(call, reps=20, samples=5),
+                  kernel_dev_us=_graph_time_us(call, reps=20, samples=5),
+                  kernel_cold_us=_cold_time_us(call, reps=10),
+                  plain_us=_time_us(plain, reps=5, samples=3), plain_dev_us=None,
+                  library_us=_time_us(lib, reps=20, samples=5),
+                  bound_us=max(bytes_us, ops_us),
+                  bound_by="bytes" if bytes_us >= ops_us else "operations")
+    log(f"phase1 flash_attention_bwd at {shape} bf16: kernel_us={timing['kernel_us']:.1f} "
+        f"plain_us={timing['plain_us']:.1f} sdpa_backward_us={timing['library_us']:.1f} "
+        f"bound_us={timing['bound_us']:.2f} ({timing['bound_by']}; {n_ops / 1e9:.2f} GFLOP, "
+        f"{n_bytes / 1e6:.1f} MB); graph-replayed device time: kernel_us="
+        f"{timing['kernel_dev_us']:.1f}; one call with the L2 cold: kernel_us="
+        f"{timing['kernel_cold_us']:.1f}; achieved "
+        f"{n_ops / timing['kernel_dev_us'] / 1e6:.2f} TFLOP/s")
+    return {"flash_attention_bwd": dict(shape=list(shape), dtype="bfloat16",
+                                        max_abs_err=main_abs, max_rel_err=main_err,
+                                        **timing)}
 
 
 # ---------------------------------------------------------------------------
@@ -762,10 +1063,272 @@ def phase_lm_cpu_vs_card():
         f"launches {l_g}")
 
 
-def _profile_report(name: str, fn, wall_us: float, steps: int) -> None:
+def phase_lm_round_cpu_vs_card():
+    """A tiny LM (reduce_config of Qwen3-8B, f32) through one Pigeon-SL run
+    (sequential engine, label flip on one client) on the CPU and on the card
+    from one init: equal discrete outcomes, validation losses within rtol
+    1e-3; the card run went through B4 and B5, forward and backward."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import LABEL_FLIP, Attack, ProtocolConfig, from_lm, run_pigeon
+    from repro_torch.data import build_lm_task
+    from repro_torch.kernels import build
+    from repro_torch.models import build_model
+
+    cfg = get_smoke_config("qwen3-8b")
+    module = from_lm(build_model(cfg, "cpu"))       # the CPU template: one init for both
+    data = build_lm_task(vocab=cfg.vocab, seq_len=32, m_clients=4, d_m=16, d_o=8, n_test=8)
+    pcfg = ProtocolConfig(M=4, N=1, T=2, E=2, B=4, lr=5e-2, seed=0)
+    runs, launches = {}, {}
+    for dev in ("cpu", DEVICE):
+        torch.cuda.synchronize()
+        build.reset_launches()
+        runs[dev] = run_pigeon(module, data, pcfg, malicious={1}, attack=Attack(LABEL_FLIP),
+                               device=dev)
+        torch.cuda.synchronize()
+        launches[dev] = dict(build.LAUNCHES)
+    check(launches["cpu"] == want_launches(), f"phase4 lm round: the CPU run launched "
+                                              f"{launches['cpu']}")
+    check(all(launches[DEVICE][k] > 0 for k in ("fused_xent", "fused_xent_bwd",
+                                                 "flash_attention", "flash_attention_bwd")),
+          f"phase4 lm round: card launches {launches[DEVICE]}")
+    for ra, rb in zip(runs["cpu"].rounds, runs[DEVICE].rounds):
+        for k in ("clusters", "selected", "accepted", "detections", "comm"):
+            check(ra[k] == rb[k], f"phase4 lm round {ra['round']}: {k} cpu={ra[k]} "
+                                  f"card={rb[k]}")
+        check(np.allclose(ra["val_losses"], rb["val_losses"], rtol=1e-3, atol=0),
+              f"phase4 lm round: val_losses cpu={ra['val_losses']} card={rb['val_losses']}")
+    log(f"phase4 lm round {cfg.name} (f32, sequential, label flip): CPU and card agree over "
+        f"{pcfg.T} rounds; val_losses {runs['cpu'].rounds[-1]['val_losses']} vs "
+        f"{runs[DEVICE].rounds[-1]['val_losses']}; card launches {launches[DEVICE]}")
+
+
+def _train_batch(b: int, s: int, seed: int = 0):
+    """(B, S) tokens and next-token labels on the card from
+    ``build_lm_task`` (vocab TRAIN_VOCAB: its Markov chain holds a dense
+    (vocab, vocab) matrix)."""
+    import torch
+    from repro_torch.data import build_lm_task
+    data = build_lm_task(vocab=TRAIN_VOCAB, seq_len=s, m_clients=1, d_m=b, d_o=0,
+                         n_test=0, seed=seed)
+    return {"tokens": torch.from_numpy(data.x[0]).to(DEVICE),
+            "labels": torch.from_numpy(data.y[0]).to(DEVICE)}
+
+
+class _PlainPath:
+    """Within the block, the attention and the loss of CUDA tensors that
+    need a gradient take the plain versions through autograd instead of
+    the B4/B5 functions (what phase 7 holds the kernel path against)."""
+
+    def __enter__(self):
+        from repro_torch.kernels import flash_attention as fa
+        from repro_torch.kernels import fused_xent as fx
+        self.saved = (fa.FlashAttention.apply, fx.FusedXent.apply)
+        fa.FlashAttention.apply = staticmethod(
+            lambda q, k, v, window: fa.flash_attention_plain(q, k, v, window=window))
+        fx.FusedXent.apply = staticmethod(fx.fused_xent_plain)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import flash_attention as fa
+        from repro_torch.kernels import fused_xent as fx
+        fa.FlashAttention.apply, fx.FusedXent.apply = self.saved
+
+
+def phase_train():
+    """Qwen3-8B at full width and depth, the reference's train_4k settings
+    (bf16, remat) with the sequence cut to 512: three make_train_step calls
+    on one (4, 512) batch, the loss finite and falling, B5 and B4 launches
+    per step, seconds and tokens per step, peak memory, one step's profile;
+    then at 4 layers in f32 the kernel path's loss and every gradient
+    against the plain path's on the card."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.launch.shapes import SHAPES, shape_settings
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_config("qwen3-8b"), **shape_settings(SHAPES["train_4k"]))
+    b, s = TRAIN_BATCH, TRAIN_SEQ
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, DEVICE).init(torch.Generator(device=DEVICE).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in model.parameters())
+    log(f"phase7 {cfg.name}: {cfg.n_layers} layers, {cfg.dtype}, remat={cfg.remat}, "
+        f"{n_params:,} parameters drawn on the card in {time.perf_counter() - t0:.2f} s; "
+        f"batch ({b}, {s}), lr {TRAIN_LR}")
+    batch = _train_batch(b, s)
+    step = make_train_step(model, TRAIN_LR)
+    per_step = want_launches(flash_attention=cfg.n_layers * (2 if cfg.remat else 1),
+                             flash_attention_bwd=cfg.n_layers, fused_xent=1, fused_xent_bwd=1)
+    losses, secs = [], []
+    for i in range(3):
+        torch.cuda.synchronize()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        losses.append(float(step(batch)))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        launches = dict(build.LAUNCHES)
+        check(launches == per_step, f"phase7 step {i}: launches {launches}, want {per_step} "
+                                    f"(remat recomputes each layer's forward)")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(all(x == x and abs(x) < 1e4 for x in losses), f"phase7: losses {losses}")
+    check(losses[1] < losses[0] and losses[2] < losses[1], f"phase7: loss not falling {losses}")
+    warm = min(secs[1:])
+    log(f"phase7 losses {losses}; seconds per step {[round(x, 4) for x in secs]} (the first "
+        f"with set-up); warm {warm:.4f} s, {b * s / warm:.1f} tokens/s; peak device memory "
+        f"{peak_gb:.2f} GB; launches a step {launches}")
+    walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    _profile_report(f"phase7 {cfg.name} train step (B {b}, S {s}, bf16, remat)",
+                    lambda: step(batch), min(walls) * 1e6, 1,
+                    shares={"B4 forward": ("xent_fwd_kernel", "xent_combine_kernel"),
+                            # the step's only f32 products are B4's logits
+                            # (its two bf16 products share cuBLAS's kernels
+                            # with the layers')
+                            "B4 backward: xent_grad and the f32 logits product":
+                                ("xent_grad_kernel", "sgemm"),
+                            "B5 forward": ("flash_fwd_kernel",),
+                            "B5 backward": ("dkdv_kernel", "dq_kernel", "delta_kernel")})
+    train = dict(launches=launches, losses=losses, seconds=secs, warm_s=warm,
+                 tokens_per_s=b * s / warm, peak_gb=peak_gb)
+    del model, step
+    torch.cuda.empty_cache()
+
+    # the kernel path against the plain path at full width, 4 layers, f32
+    cfg4 = dataclasses.replace(cfg, n_layers=4, dtype="float32")
+    model = build_model(cfg4, DEVICE).init(torch.Generator(device=DEVICE).manual_seed(1))
+    params = list(model.parameters())
+    results = {}
+    for name in ("kernel", "plain"):
+        build.reset_launches()
+        if name == "plain":
+            with _PlainPath():
+                loss, _ = model.loss(batch)
+                grads = torch.autograd.grad(loss, params)
+            check(build.LAUNCHES["fused_xent"] == build.LAUNCHES["flash_attention"] == 0,
+                  f"phase7 f32: the plain path launched {build.LAUNCHES}")
+        else:
+            loss, _ = model.loss(batch)
+            grads = torch.autograd.grad(loss, params)
+        results[name] = (loss.detach(), grads)
+    (lk, gk), (lp, gp) = results["kernel"], results["plain"]
+    loss_rel = abs(float(lk) - float(lp)) / abs(float(lp))
+    worst = max((_rel_err(a, r), n)
+                for (n, _), a, r in zip(model.named_parameters(), gk, gp))
+    check(loss_rel <= TRAIN_F32_REL and worst[0] <= TRAIN_F32_REL,
+          f"phase7 f32: loss rel {loss_rel:.3e}, worst gradient {worst}")
+    log(f"phase7 {cfg4.name} f32, 4 layers, full width: loss {float(lk):.6f} (kernel) vs "
+        f"{float(lp):.6f} (plain), rel {loss_rel:.3e}; every gradient within rel "
+        f"{TRAIN_F32_REL}, the worst {worst[0]:.3e} ({worst[1]})")
+    train.update(f32_loss_rel=loss_rel, f32_grad_rel=worst[0])
+    del model, params, results, gk, gp
+    torch.cuda.empty_cache()
+    return train
+
+
+def _round_launches(cfg, pcfg, hist, quant, n_test):
+    """The kernel launches a sequential run_pigeon over from_lm makes, from
+    the round structure: each client step runs the client's and the AP's
+    layers forward (twice with remat: the backward recomputes them) and
+    backward, and B4 forward and backward; each validation, handoff check
+    and evaluation runs layers forward (and B4 for a validation); the cut
+    width is read once.  The int8 wire quantizes each step's two messages."""
+    import math
+    n = cfg.n_layers
+    cut = min(cfg.cut_layer, n)
+    fwd = 2 if cfg.remat else 1
+    m_bar = pcfg.M // pcfg.R
+    steps = vals = handoffs = evals = 0
+    for r in hist.rounds:
+        steps += pcfg.R * m_bar * pcfg.E + (pcfg.R - 1) * m_bar * pcfg.E * r["accepted"]
+        vals += pcfg.R
+        handoffs += r["detections"] + int(r["accepted"])
+        evals += math.ceil(n_test / pcfg.eval_batch) if "test_acc" in r else 0
+    return want_launches(
+        fused_xent=steps + vals, fused_xent_bwd=steps,
+        flash_attention=steps * fwd * n + vals * n + handoffs * cut + evals * n + cut,
+        flash_attention_bwd=steps * n, quant_dequant=2 * steps if quant else 0)
+
+
+def phase_round():
+    """The Pigeon-SL round over from_lm at Qwen3-8B's full width, depth cut
+    to 12 layers (9 client + 3 AP), the train_4k settings (bf16, remat):
+    run_pigeon(argmin, label flip on client 0, Pigeon-SL+) without the wire
+    and with int8 through B2.  Finite losses, selected == argmin(val_losses),
+    launches as the round's structure predicts, exchange bytes, seconds per
+    round and peak memory."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import (LABEL_FLIP, Attack, ProtocolConfig, from_lm,
+                                  message_bytes)
+    from repro_torch.data import build_lm_task
+    from repro_torch.launch.shapes import SHAPES, shape_settings
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_config("qwen3-8b"), n_layers=ROUND_LAYERS,
+                              **shape_settings(SHAPES["train_4k"]))
+    t0 = time.perf_counter()
+    data = build_lm_task(vocab=TRAIN_VOCAB, seq_len=TRAIN_SEQ, m_clients=4, d_m=16, d_o=8,
+                         n_test=8)
+    log(f"phase8 data: build_lm_task(vocab={TRAIN_VOCAB}, seq_len={TRAIN_SEQ}, m_clients=4, "
+        f"d_m=16, d_o=8, n_test=8) in {time.perf_counter() - t0:.1f} s")
+    model = build_model(cfg, DEVICE)        # the template: from_lm draws the init on the card
+    n_params = sum(x.numel() for x in model.parameters())
+    log(f"phase8 {cfg.name}: {cfg.n_layers} layers (cut {cfg.cut_layer}), {cfg.dtype}, "
+        f"remat={cfg.remat}: {n_params:,} parameters "
+        f"({n_params * model.embedding.element_size() / 1e9:.2f} GB a copy)")
+    pcfg = ProtocolConfig(M=4, N=1, T=2, E=2, B=4, lr=1e-3)
+    out = {}
+    for quant in (None, "int8"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        name = f"phase8 round quant={quant}"
+        hist, launches, seconds = _run(name, from_lm(model), data, pcfg, malicious={0},
+                                       attack=Attack(LABEL_FLIP), plus=True,
+                                       selection="argmin", quant=quant, device=DEVICE)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        want = _round_launches(cfg, pcfg, hist, quant, data.x_test.shape[0])
+        check(launches == want, f"{name}: launches {launches}, want {want}")
+        d_c = TRAIN_SEQ * cfg.d_model
+        m_bar = pcfg.M // pcfg.R
+        for r in hist.rounds:
+            check(r["selected"] == int(np.argmin(r["val_losses"])),
+                  f"{name} round {r['round']}: selected {r['selected']} is not the argmin of "
+                  f"{r['val_losses']}")
+            steps = pcfg.R * m_bar * pcfg.E + (pcfg.R - 1) * m_bar * pcfg.E * r["accepted"]
+            wire = steps * message_bytes(quant, pcfg.B, d_c)
+            check(r["comm"]["activation_bytes"] == wire == r["comm"]["gradient_bytes"],
+                  f"{name} round {r['round']}: exchange bytes {r['comm']} != {wire}")
+        log(f"{name}: {seconds / pcfg.T:.2f} s/round (init and first-call set-up "
+            f"included); peak device memory {peak_gb:.2f} GB; d_c {d_c:,}")
+        out[str(quant)] = dict(launches=launches, s_per_round=seconds / pcfg.T,
+                               peak_gb=peak_gb)
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def _profile_report(name: str, fn, wall_us: float, steps: int, shares=None) -> None:
     """Run ``fn`` once under torch.profiler and log the device busy share
     against the unprofiled wall time, the launches, the top device kernels
-    and the top host ops."""
+    and the top host ops; ``shares`` {label: name fragments} adds the share
+    of the busy time taken by the kernels whose names hold a fragment."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -791,6 +1354,10 @@ def _profile_report(name: str, fn, wall_us: float, steps: int) -> None:
             f"unprofiled wall: idle share {1.0 - busy_us / wall_us:.3f}")
     for ev in sorted(kernels, key=dev_us, reverse=True)[:8]:
         log(f"  kernel {dev_us(ev) / 1e3:8.3f} ms x{ev.count:5d}  {ev.key[:90]}")
+    for label, frags in (shares or {}).items():
+        part = sum(dev_us(ev) for ev in kernels if any(f in ev.key for f in frags))
+        log(f"  share {label}: {part / 1e3:.3f} ms, "
+            f"{part / busy_us if busy_us else float('nan'):.3f} of the busy time")
     host = [ev for ev in events if not str(ev.device_type).endswith("CUDA")]
     for ev in sorted(host, key=lambda ev: ev.self_cpu_time_total, reverse=True)[:8]:
         log(f"  host   {ev.self_cpu_time_total / 1e3:8.3f} ms x{ev.count:5d}  {ev.key[:90]}")
@@ -1034,10 +1601,13 @@ def main() -> None:
     phase_mnist()
     phase_cpu_vs_card()
     phase_lm_cpu_vs_card()
+    phase_lm_round_cpu_vs_card()
     phase_profile()
     phase_profile_batched(main_path)
     del main_path
     serve = phase_serve()
+    train = phase_train()
+    rounds = phase_round()
 
     sources = {"quant_dequant": ("src/repro/kernels/quant_exchange.py:85",
                                  "src/repro_torch/kernels/csrc/quant_exchange.cu"),
@@ -1045,18 +1615,31 @@ def main() -> None:
                                        "src/repro_torch/kernels/csrc/quant_exchange.cu"),
                "tamper_check_sums": ("src/repro/kernels/tamper_check.py:42",
                                      "src/repro_torch/kernels/csrc/tamper_check.cu"),
+               "fused_xent": ("src/repro/kernels/fused_xent.py:62",
+                              "src/repro_torch/kernels/csrc/fused_xent.cu"),
+               # no TPU kernel: the reference's training path leaves both
+               # backwards to XLA's autodiff, of its plain cross-entropy
+               # (chunked: models/model.py:258) and of attend
+               "fused_xent_bwd": ("none; XLA autodiff of src/repro/models/model.py:258",
+                                  "src/repro_torch/kernels/csrc/fused_xent.cu"),
                "flash_attention": ("src/repro/kernels/flash_attention.py:82",
                                    "src/repro_torch/kernels/csrc/flash_attention.cu"),
+               "flash_attention_bwd": ("none; XLA autodiff of src/repro/models/attention.py:82",
+                                       "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"),
                "decode_attention": ("src/repro/kernels/decode_attention.py:66",
                                     "src/repro_torch/kernels/csrc/decode_attention.cu")}
     # launches: each kernel's own path, driven with the counts reset just
     # before it: the batched round for B1-B3 (the only path that reaches all
-    # three), the Qwen3-8B serve run for B5/B6; every path's counts ride
-    # beside them.  Device times: graph replays back to back, which find
+    # three), the Qwen3-8B serve run for B5/B6, the last Qwen3-8B train step
+    # for B4 and B5's backward; every path's counts ride beside them.  Device times: graph replays back to back, which find
     # inputs of up to the 50 MB L2 still there (l2_warm), and one call after
     # an L2 flush (l2_cold), the figure to hold against bound_ms.
-    by_path = {"sequential": seq_launches, "batched": launches, "serve": serve["launches"]}
-    own = {name: ("serve" if name in ("flash_attention", "decode_attention") else "batched")
+    by_path = {"sequential": seq_launches, "batched": launches, "serve": serve["launches"],
+               "train": train["launches"],
+               **{f"round_{q}": r["launches"] for q, r in rounds.items()}}
+    own = {name: ("serve" if name in ("flash_attention", "decode_attention") else
+                  "train" if name in ("fused_xent", "fused_xent_bwd", "flash_attention_bwd")
+                  else "batched")
            for name in kernels}
 
     def ms(us):
@@ -1068,6 +1651,7 @@ def main() -> None:
                      replaces=sources[name][0], launches=by_path[own[name]][name],
                      launches_by_path={path: counts[name] for path, counts in by_path.items()},
                      shape=k["shape"], max_abs_err=k["max_abs_err"],
+                     **({"max_rel_err": k["max_rel_err"]} if "max_rel_err" in k else {}),
                      ms=ms(k["kernel_us"]), device_ms_l2_warm=ms(k["kernel_dev_us"]),
                      device_ms_l2_cold=ms(k["kernel_cold_us"]), plain_ms=ms(k["plain_us"]),
                      bound_ms=ms(k["bound_us"]), bound_by=k["bound_by"],
@@ -1082,7 +1666,8 @@ def main() -> None:
                 library_ms=ms(lc["library_us"]))
         entries.append(entry)
     log(f"phase2 seconds_per_round={s_per_round:.3f}; phase2b (batched) "
-        f"seconds_per_round={b_per_round:.3f}; phase6 serve {serve}")
+        f"seconds_per_round={b_per_round:.3f}; phase6 serve {serve}; phase7 train {train}; "
+        f"phase8 rounds {rounds}")
     log(json.dumps({"kernels": entries}))
     log(card)
     log(json.dumps({"ok": True, "device": {

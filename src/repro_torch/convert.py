@@ -25,6 +25,9 @@ The dense LM's parameters are the pytree of the reference's ``Model.init``::
 A stack's leaves carry the layer axis first; :func:`lm_from_reference` maps
 it onto the stack's ``nn.ModuleList`` (a layer's parameter names are the
 pytree's paths, joined by dots) and :func:`lm_to_reference` stacks it back.
+The split view travels the same way: :func:`lm_split_from_reference` takes
+the reference's ``split_params`` pair ``(gamma, phi)`` to the port's
+``(ClientLM, APLM)`` and :func:`lm_split_to_reference` back.
 Values travel as f32 (numpy has no bf16); a bf16 model's round trip is
 exact all the same.
 """
@@ -38,7 +41,7 @@ import torch
 from .models.cnn import (APHead, ClientCNN, CNNConfig, StackedAPHead,
                          StackedClientCNN)
 from .models.config import ModelConfig
-from .models.model import Model, build_model
+from .models.model import APLM, ClientLM, Model, build_model
 
 Tree = Dict[str, Any]
 
@@ -163,5 +166,57 @@ def lm_to_reference(model: Model) -> Tree:
             "head": {"w": arr(model.head.w)}}
 
 
-__all__ = ["from_reference", "lm_from_reference", "lm_to_reference",
-           "slot_to_reference", "stack_reference", "to_reference"]
+def _concat_stacks(a: Tree, b: Tree) -> Tree:
+    return {k: (_concat_stacks(v, b[k]) if isinstance(v, dict)
+                else np.concatenate([np.asarray(v), np.asarray(b[k])]))
+            for k, v in a.items()}
+
+
+def _slice_tree(tree: Tree, lo: int, hi: int) -> Tree:
+    return {k: (_slice_tree(v, lo, hi) if isinstance(v, dict) else np.asarray(v)[lo:hi])
+            for k, v in tree.items()}
+
+
+def lm_split_from_reference(cfg: ModelConfig, gamma: Tree, phi: Tree
+                            ) -> Tuple[ClientLM, APLM]:
+    """A reference split ``(gamma, phi)`` (its ``Model.split_params``) -> the
+    port's halves (``ClientLM``, ``APLM``), on the CPU: merged as the
+    reference's ``merge_params`` does, converted, and split again."""
+    model = build_model(cfg, "cpu")
+    _, _, slices = model.split_plans()
+    stacks, ci, ai = [], 0, 0
+    for _, take, total in slices:
+        if take == total:
+            stacks.append(gamma["stacks"][ci]); ci += 1
+        elif take == 0:
+            stacks.append(phi["stacks"][ai]); ai += 1
+        else:
+            stacks.append(_concat_stacks(gamma["stacks"][ci], phi["stacks"][ai]))
+            ci += 1; ai += 1
+    params = {"embed": gamma["embed"], "stacks": tuple(stacks),
+              "final_norm": phi["final_norm"], "head": phi["head"]}
+    return lm_from_reference(cfg, params).split_params()
+
+
+def lm_split_to_reference(model: Model, gamma: ClientLM, phi: APLM) -> Tuple[Tree, Tree]:
+    """The port's halves -> the reference's split ``(gamma, phi)`` pytrees
+    (numpy f32), as its ``split_params`` lays them out; ``model`` gives the
+    plan."""
+    tree = lm_to_reference(model.merge_params(gamma, phi))
+    _, _, slices = model.split_plans()
+    client, ap = [], []
+    for (_, take, total), st in zip(slices, tree["stacks"]):
+        if take == total:
+            client.append(st)
+        elif take == 0:
+            ap.append(st)
+        else:
+            client.append(_slice_tree(st, 0, take))
+            ap.append(_slice_tree(st, take, total))
+    return ({"embed": tree["embed"], "stacks": tuple(client)},
+            {"stacks": tuple(ap), "final_norm": tree["final_norm"], "head": tree["head"]})
+
+
+__all__ = ["from_reference", "lm_from_reference", "lm_split_from_reference",
+           "lm_split_to_reference", "lm_to_reference", "slot_to_reference",
+           "stack_reference", "to_reference"]

@@ -10,7 +10,7 @@ from .protocol import (ClientData, CommMeter, History, ProtocolConfig,
                        run_splitfed, run_vanilla_sl, train_cluster)
 from .runner import RoundRunner, RoundSpec, VerifyConfig
 from .split import (SplitModule, client_update, client_update_stats, from_cnn,
-                    message_stats, sgd_update)
+                    from_lm, message_stats, sgd_update)
 from .validation import check_handoff, handoff_activations, validation_loss
 
 __all__ = [
@@ -18,7 +18,7 @@ __all__ = [
     "LABEL_FLIP", "NONE", "PARAM_TAMPER", "REPLAY", "STEALTH", "Attack",
     "ClientData", "CommConfig", "CommMeter", "History", "ProtocolConfig",
     "SplitModule", "check_handoff", "client_update", "client_update_stats",
-    "cluster_is_honest", "evaluate", "from_cnn", "handoff_activations",
+    "cluster_is_honest", "evaluate", "from_cnn", "from_lm", "handoff_activations",
     "has_honest_cluster", "make_clusters", "message_bytes", "message_stats",
     "resolve_quant", "run_pigeon", "run_pigeon_plus", "run_pigeon_sweep",
     "run_splitfed", "run_vanilla_sl", "sgd_update", "train_cluster",

@@ -391,6 +391,9 @@ def run_pigeon(module: SplitModule, data: ClientData, pcfg: ProtocolConfig,
     ``checkpoint_path``/``resume`` and ``telemetry``/``verbose`` are not
     ported yet and raise."""
     _check_engine(engine, placement, prefetch, block)
+    if engine == "batched":
+        from .split import _stacked
+        _stacked(module)                 # raises for a model with no stacked form
     if checkpoint_path is not None or resume:
         _not_ported("checkpoint_path/resume", MULTI_ROUND_SLICE)
     if telemetry is not None or verbose:
@@ -440,6 +443,9 @@ def run_pigeon(module: SplitModule, data: ClientData, pcfg: ProtocolConfig,
             detections = outcome.detections
             val_losses = [res["vloss"] for res in results]
             train_losses = [res["train_loss"] for res in results]
+            # the candidates are done with: free them before the sub-rounds
+            # and the next round train (an LM's candidate is gigabytes)
+            del results, outcome
         sel_cluster = clusters[selected]
         for _ in clusters:
             account_validation(meter, d_o, d_c)

@@ -10,8 +10,9 @@ hooks at each tampering point:
 The client backward starts from its own cut activations with exactly the
 (possibly tampered) cut gradient it received — no gradient bypasses the cut.
 
-gamma and phi are ``nn.Module``s (``ClientCNN`` / ``APHead`` for the CNNs);
-an SGD step updates their parameters in place.
+gamma and phi are ``nn.Module``s (``ClientCNN`` / ``APHead`` for the CNNs,
+``ClientLM`` / ``APLM`` for an LM via :func:`from_lm`); an SGD step updates
+their parameters in place.
 
 The batched round runs the same exchange on cluster-stacked halves
 (:class:`StackedSplit`): messages carry a leading R axis, the attack hooks
@@ -84,15 +85,44 @@ def from_cnn(cfg) -> SplitModule:
     )
 
 
+def from_lm(model) -> SplitModule:
+    """Adapt a ``repro_torch.models.Model`` (token batches) to the
+    SplitModule interface: x = tokens (B, S); y = labels (B, S).  gamma and
+    phi are the model's ``split_params`` halves (``ClientLM``, ``APLM``);
+    the AP's loss goes through B4.  ``init`` draws the parameters on the
+    model's device, from a seed taken from the generator it is given: a
+    model built on the card is drawn there (a CPU draw of an 8 B model takes
+    minutes), one built on the CPU on the CPU, so runs on either device from
+    one template start alike.  No cluster-stacked form: an LM runs on the
+    sequential engine."""
+
+    def init(gen: torch.Generator):
+        seed = int(torch.randint(0, 2 ** 62, (1,), generator=gen))
+        model.init(torch.Generator(device=model.device).manual_seed(seed))
+        return model.split_params()
+
+    def ap_loss(phi, acts, labels):
+        return model.ap_forward(phi, acts, {"tokens": labels, "labels": labels})[0]
+
+    def predict(gamma, phi, tokens):
+        return model.merge_params(gamma, phi).logits({"tokens": tokens})
+
+    return SplitModule(init=init,
+                       client_forward=lambda g, tokens: model.client_forward(
+                           g, {"tokens": tokens}),
+                       ap_loss=ap_loss, predict=predict, n_classes=model.cfg.vocab)
+
+
 # ---------------------------------------------------------------------------
 # cluster-stacked parameters
 # ---------------------------------------------------------------------------
 
 def _stacked(module: SplitModule) -> StackedSplit:
     if module.stacked is None:
-        raise NotImplementedError("this split model has no cluster-stacked "
-                                  "form, so it runs on the sequential engine "
-                                  "only")
+        from ..models.model import STACKED_LM_SLICE
+        raise NotImplementedError(f"this split model has no cluster-stacked form, so it "
+                                  f"runs on the sequential engine only (an LM's comes "
+                                  f"with {STACKED_LM_SLICE})")
     return module.stacked
 
 
@@ -309,6 +339,6 @@ def client_update_vec_stats_impl(module: SplitModule, av: AttackVec,
 __all__ = ["MESSAGE_STAT_NAMES", "N_MESSAGE_STATS", "SplitModule",
            "StackedSplit", "client_update", "client_update_stats",
            "client_update_vec_impl", "client_update_vec_stats_impl",
-           "from_cnn", "message_stats", "sgd_update",
+           "from_cnn", "from_lm", "message_stats", "sgd_update",
            "sl_minibatch_grads", "sl_minibatch_grads_vec", "stack_params",
            "unstack_slot"]

@@ -42,8 +42,22 @@ SOURCES: Dict[str, Dict[str, Tuple]] = {
         "repro_tamper_check_sums": (_P, _P, _P, _P, _I, _L, _I, _P),
     },
     "flash_attention": {
-        # q, k, v, out, b, sq, sk, h, hkv, d, window, scale, dtype, stream
-        "repro_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P),
+        # q, k, v, out, lse, b, sq, sk, h, hkv, d, window, scale, dtype, stream
+        "repro_flash_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I,
+                                  _P),
+    },
+    "flash_attention_bwd": {
+        # q, k, v, out, dout, lse, delta, dq, dk, dv, b, sq, sk, h, hkv, d,
+        # window, scale, dtype, stream
+        "repro_flash_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                      _I, _I, _I, _I, _F, _I, _P),
+    },
+    "fused_xent": {
+        # h, w, labels, part, picked, loss, lse, t, d, v, panels_per_block,
+        # nsplit, dtype, stream
+        "repro_fused_xent": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+        # logits, lse, labels, g, rows, v, stream
+        "repro_xent_grad": (_P, _P, _P, _P, _I, _I, _P),
     },
     "decode_attention": {
         # q, k, v, out, ws, b, s, h, hkv, d, k_begin, k_end, chunk, splits,
@@ -57,7 +71,8 @@ _LOADED: Dict[str, ctypes.CDLL] = {}
 
 #: kernel launches per launcher; reset with :func:`reset_launches`
 LAUNCHES: Dict[str, int] = {"quant_dequant": 0, "quant_dequant_stats": 0,
-                            "tamper_check_sums": 0, "flash_attention": 0,
+                            "tamper_check_sums": 0, "fused_xent": 0, "fused_xent_bwd": 0,
+                            "flash_attention": 0, "flash_attention_bwd": 0,
                             "decode_attention": 0}
 
 

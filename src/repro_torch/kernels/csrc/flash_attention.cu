@@ -83,8 +83,8 @@ __device__ __forceinline__ float group8_sum(float v) {
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ out, int sq, int sk, int h, int hkv, int window,
-                 float scale) {
+                 T* __restrict__ out, float* __restrict__ lse, int sq, int sk, int h,
+                 int hkv, int window, float scale) {
   using C = Tile<D>;
   extern __shared__ float smem[];
   float* qs = smem;                    // BQ x LD
@@ -204,12 +204,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     T* o = out + (static_cast<int64_t>(b) * sq * h + head) * D + qi * q_step;
 #pragma unroll
     for (int c = 0; c < C::DC; ++c) o[tx + 8 * c] = from_f32<T>(acc[i][c] / denom);
+    // the row's log-sum-exp of the scaled scores, for the backward
+    if (tx == 0)
+      lse[(static_cast<int64_t>(b) * h + head) * sq + qi] = m[i] + logf(denom);
   }
 }
 
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* out, int b, int sq, int sk,
-           int h, int hkv, int window, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out, float* lse, int b, int sq,
+           int sk, int h, int hkv, int window, float scale, cudaStream_t stream) {
   using C = Tile<D>;
   auto kernel = flash_fwd_kernel<T, D>;
   // Raise the dynamic shared memory cap once, on the first call (before any
@@ -224,19 +227,19 @@ int launch(const void* q, const void* k, const void* v, void* out, int b, int sq
   const dim3 grid((sq + C::BQ - 1) / C::BQ, h, b);
   kernel<<<grid, kThreads, C::kSmem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), sq, sk, h, hkv, window, scale);
+      static_cast<T*>(out), lse, sq, sk, h, hkv, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int dispatch(int d, const void* q, const void* k, const void* v, void* out, int b, int sq,
-             int sk, int h, int hkv, int window, float scale, cudaStream_t stream) {
+int dispatch(int d, const void* q, const void* k, const void* v, void* out, float* lse, int b,
+             int sq, int sk, int h, int hkv, int window, float scale, cudaStream_t stream) {
   switch (d) {
-    case 32: return launch<T, 32>(q, k, v, out, b, sq, sk, h, hkv, window, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, out, b, sq, sk, h, hkv, window, scale, stream);
-    case 80: return launch<T, 80>(q, k, v, out, b, sq, sk, h, hkv, window, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, out, b, sq, sk, h, hkv, window, scale, stream);
-    case 256: return launch<T, 256>(q, k, v, out, b, sq, sk, h, hkv, window, scale, stream);
+    case 32: return launch<T, 32>(q, k, v, out, lse, b, sq, sk, h, hkv, window, scale, stream);
+    case 64: return launch<T, 64>(q, k, v, out, lse, b, sq, sk, h, hkv, window, scale, stream);
+    case 80: return launch<T, 80>(q, k, v, out, lse, b, sq, sk, h, hkv, window, scale, stream);
+    case 128: return launch<T, 128>(q, k, v, out, lse, b, sq, sk, h, hkv, window, scale, stream);
+    case 256: return launch<T, 256>(q, k, v, out, lse, b, sq, sk, h, hkv, window, scale, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -245,17 +248,21 @@ int dispatch(int d, const void* q, const void* k, const void* v, void* out, int 
 
 // C interface.  Launches one kernel on `stream` and returns its
 // cudaError_t (0 = launched).  The caller validates devices, dtypes,
-// shapes and contiguity and allocates `out` (B, Sq, H, D).  dtype: 0 = f32,
-// 1 = bf16.  head_dim one of 32, 64, 80, 128, 256; 1 <= Sq <= Sk.
+// shapes and contiguity and allocates `out` (B, Sq, H, D) and `lse`
+// (B, H, Sq) f32, the rows' log-sum-exp that the backward reads.
+// dtype: 0 = f32, 1 = bf16.  head_dim one of 32, 64, 80, 128, 256;
+// 1 <= Sq <= Sk.
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v, void* out,
-                                     int b, int sq, int sk, int h, int hkv, int d, int window,
-                                     float scale, int dtype, void* stream) {
+                                     float* lse, int b, int sq, int sk, int h, int hkv, int d,
+                                     int window, float scale, int dtype, void* stream) {
   if (b <= 0 || b > 65535 || sq <= 0 || sq > sk || h <= 0 || h > 65535 || hkv <= 0 ||
       h % hkv != 0 || window < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch<float>(d, q, k, v, out, b, sq, sk, h, hkv, window, scale, s);
-  if (dtype == 1) return dispatch<__nv_bfloat16>(d, q, k, v, out, b, sq, sk, h, hkv, window, scale, s);
+  if (dtype == 0)
+    return dispatch<float>(d, q, k, v, out, lse, b, sq, sk, h, hkv, window, scale, s);
+  if (dtype == 1)
+    return dispatch<__nv_bfloat16>(d, q, k, v, out, lse, b, sq, sk, h, hkv, window, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -8,19 +8,28 @@ with ``window > 0``, ``i - j < window``; scores are scaled by 1/sqrt(D).
 
   * :func:`flash_attention` — launches the kernel on CUDA tensors (f32 or
     bf16, head_dim in :data:`HEAD_DIMS`, contiguous, 1 <= Sq <= Sk); f32
-    accumulation, no tensor cores.
+    accumulation, no tensor cores.  Returns the output and the rows'
+    log-sum-exp (B, H, Sq) f32, which the backward reads.
+  * :func:`flash_attention_bwd` — launches the backward kernels
+    (``csrc/flash_attention_bwd.cu``): (dq, dk, dv) from the forward's
+    inputs, output and lse and the output's gradient.
+  * :class:`FlashAttention` — the ``autograd.Function`` over the two, the
+    path of a CUDA call that needs a gradient.
   * :func:`flash_attention_plain` — what ``repro/kernels/ref.py::
     mha_reference`` computes: the scores materialised in f32, GQA by
     repeating the KV heads, masked with -1e30, softmax in f32.  The CPU
-    path and the comparisons on the card use it.
+    path and the comparisons on the card use it; its autograd is the
+    plain backward.
 
-``kernels/ops.py`` picks between them by the tensor's device.  The launcher
-counts its launches in ``build.LAUNCHES``.  Neither keeps a graph: a call
-that would need a gradient raises (the backward comes with training).
+``kernels/ops.py`` picks between them by the tensor's device and by
+whether a gradient is needed.  The launchers count their launches in
+``build.LAUNCHES`` (``flash_attention``, ``flash_attention_bwd``); the
+launchers themselves record no graph.
 """
 from __future__ import annotations
 
 import math
+from typing import Tuple
 
 import torch
 
@@ -74,8 +83,9 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def check_cuda_inputs(name: str, *tensors: torch.Tensor) -> None:
     """What both attention launchers require of their tensors."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError(f"the {name} kernel has no backward yet: call it under "
-                           f"torch.inference_mode() or torch.no_grad()")
+        raise RuntimeError(f"the {name} launcher has no backward of its own: call it "
+                           f"under torch.no_grad() (kernels.ops.flash_attention is the "
+                           f"differentiable attention)")
     for t in tensors:
         if t.device.type != "cuda":
             raise ValueError(f"the {name} kernel takes CUDA tensors, got {t.device}")
@@ -92,27 +102,83 @@ def check_cuda_inputs(name: str, *tensors: torch.Tensor) -> None:
                          f"{tensors[0].shape[-1]}")
 
 
+def _check_launch(q: torch.Tensor, k: torch.Tensor, window: int) -> None:
+    sq, sk = q.shape[1], k.shape[1]
+    if not 1 <= sq <= sk or window < 0:
+        raise ValueError(f"the flash_attention kernels take 1 <= Sq <= Sk and window >= 0 "
+                         f"(a query past the last key has no key); got Sq {sq}, Sk {sk}, "
+                         f"window {window}")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    window: int = 0) -> torch.Tensor:
+                    window: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the flash-attention kernel: q (B, Sq, H, D), k, v (B, Sk, Hkv,
-    D) -> (B, Sq, H, D)."""
+    D) -> (out (B, Sq, H, D), lse (B, H, Sq) f32)."""
     from .build import load, record_launch
     check_cuda_inputs("flash_attention", q, k, v)
     check_shapes(q, k, v)
+    _check_launch(q, k, window)
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
-    if not 1 <= sq <= sk or window < 0:
-        raise ValueError(f"the flash_attention kernel takes 1 <= Sq <= Sk and window >= 0 "
-                         f"(a query past the last key has no key); got Sq {sq}, Sk {sk}, "
-                         f"window {window}")
     out = torch.empty_like(q)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = load("flash_attention").repro_flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, sk, h, hkv, d,
-        window, 1.0 / math.sqrt(d), DTYPE_CODES[q.dtype], stream)
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), b, sq, sk, h, hkv, d, window,
+        1.0 / math.sqrt(d), DTYPE_CODES[q.dtype], stream)
     record_launch(err, "flash_attention")
-    return out
+    return out, lse
 
 
-__all__ = ["HEAD_DIMS", "NEG_INF", "attend_plain", "causal_mask", "flash_attention",
-           "flash_attention_plain"]
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, dout: torch.Tensor, lse: torch.Tensor, *,
+                        window: int = 0
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the backward kernels: the forward's q, k, v, out and lse and
+    the output's gradient ``dout`` -> (dq, dk, dv) in q's dtype."""
+    from .build import load, record_launch
+    check_cuda_inputs("flash_attention_bwd", q, k, v, out, dout)
+    check_shapes(q, k, v)
+    _check_launch(q, k, window)
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    if out.shape != q.shape or dout.shape != q.shape:
+        raise ValueError(f"out {tuple(out.shape)} and dout {tuple(dout.shape)} must be q's "
+                         f"shape {tuple(q.shape)}")
+    if (lse.shape != (b, h, sq) or lse.dtype != torch.float32 or lse.device != q.device
+            or not lse.is_contiguous()):
+        raise ValueError(f"lse must be a contiguous ({b}, {h}, {sq}) f32 tensor on "
+                         f"{q.device}")
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = load("flash_attention_bwd").repro_flash_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b,
+        sq, sk, h, hkv, d, window, 1.0 / math.sqrt(d), DTYPE_CODES[q.dtype], stream)
+    record_launch(err, "flash_attention_bwd")
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention of CUDA tensors through the B5 kernels, with its backward:
+    ``FlashAttention.apply(q, k, v, window)`` -> (B, Sq, H, D)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window):
+        out, lse = flash_attention(q, k, v, window=window)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.window = window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout.contiguous(), lse,
+                                         window=ctx.window)
+        return dq, dk, dv, None
+
+
+__all__ = ["FlashAttention", "HEAD_DIMS", "NEG_INF", "attend_plain", "causal_mask",
+           "flash_attention", "flash_attention_bwd", "flash_attention_plain"]

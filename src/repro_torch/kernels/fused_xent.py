@@ -1,0 +1,211 @@
+"""Fused softmax cross-entropy (B4): the CUDA kernels
+(``csrc/fused_xent.cu``), their plain PyTorch versions, and the autograd
+function that trains through them.
+
+Layout, as the reference's ``repro/kernels/fused_xent.py``: hidden (T, D)
+f32 or bf16, weights (D, V) of the same dtype, labels (T,) int; the
+per-token loss ``logsumexp(h @ W) - (h @ W)[label]`` comes out as (T,) f32.
+A label outside [0, V) picks 0 (the loss is then the bare logsumexp), as
+the reference's kernel, whose vocab panels never hit it.
+
+  * :func:`fused_xent` — launches the forward kernel on CUDA tensors: the
+    product h @ W computed panel by panel inside the kernel, a running
+    (max, sum of exp) per row, no (T, V) logits in device memory.  Returns
+    (loss, lse), lse being what the backward needs.
+  * :func:`fused_xent_bwd` — the backward on CUDA tensors, in chunks of T
+    rows: ``logits_c = h_c @ W`` (cuBLAS, f32), the ``xent_grad`` kernel
+    turns them into ``dlogits_c = (softmax - onehot(label)) * g`` in place,
+    then ``dh_c = dlogits_c @ W.T`` and ``dW += h_c.T @ dlogits_c`` (cuBLAS,
+    in the inputs' dtype).  The reference's kernel is forward only: its
+    training path differentiates the plain cross-entropy through XLA, which
+    leaves these two products to the matrix unit too.  A chunk holds
+    :data:`CHUNK_BYTES` of f32 logits.
+  * :class:`FusedXent` — the ``autograd.Function`` over the two.
+  * :func:`fused_xent_plain` — what ``repro/kernels/ref.py::xent_reference``
+    computes (the logits materialised in f32), with the out-of-range rule
+    above; the CPU path and the comparisons on the card use it, and its
+    autograd is the plain backward.
+
+``kernels/ops.py::fused_cross_entropy`` picks between them by the tensor's
+device.  The forward launcher counts its launches as ``fused_xent`` and the
+backward as ``fused_xent_bwd`` (one a call, whatever its chunks) in
+``build.LAUNCHES``.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from .flash_attention import DTYPE_CODES
+
+#: f32 logits a backward chunk holds (chunk rows = CHUNK_BYTES // (4 V))
+CHUNK_BYTES = 512 * 2 ** 20
+#: rows of h and vocab columns a forward block owns (csrc/fused_xent.cu)
+BLOCK_T, PANEL_V = 128, 128
+
+
+def _picked(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """logits[t, label[t]], 0 where the label is outside [0, V)."""
+    v = logits.shape[-1]
+    inside = (labels >= 0) & (labels < v)
+    idx = torch.where(inside, labels, torch.zeros_like(labels)).long()
+    got = torch.gather(logits, -1, idx[:, None])[:, 0]
+    return torch.where(inside, got, torch.zeros_like(got))
+
+
+def fused_xent_plain(hidden: torch.Tensor, weights: torch.Tensor,
+                     labels: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`fused_xent`'s loss (``ref.xent_reference``):
+    (T,) f32."""
+    check_shapes(hidden, weights, labels)
+    logits = hidden.to(torch.float32) @ weights.to(torch.float32)
+    return torch.logsumexp(logits, dim=-1) - _picked(logits, labels)
+
+
+def check_shapes(hidden: torch.Tensor, weights: torch.Tensor, labels: torch.Tensor) -> None:
+    if hidden.dim() != 2 or weights.dim() != 2 or labels.dim() != 1:
+        raise ValueError(f"fused_xent takes hidden (T, D), weights (D, V) and labels (T,); "
+                         f"got {tuple(hidden.shape)}, {tuple(weights.shape)}, "
+                         f"{tuple(labels.shape)}")
+    if hidden.shape[1] != weights.shape[0] or hidden.shape[0] != labels.shape[0]:
+        raise ValueError(f"hidden {tuple(hidden.shape)}, weights {tuple(weights.shape)} and "
+                         f"labels {tuple(labels.shape)} disagree")
+
+
+def xent_splits(t: int, v: int, sms: int) -> Tuple[int, int]:
+    """(panels a block, blocks along V) of the forward grid: enough blocks
+    for four waves of two blocks an SM, every block at least one panel."""
+    n_panels = -(-v // PANEL_V)
+    row_blocks = -(-t // BLOCK_T)
+    want = max(1, min(n_panels, -(-8 * sms // row_blocks)))
+    per_block = -(-n_panels // want)
+    return per_block, -(-n_panels // per_block)
+
+
+def chunk_rows(v: int) -> int:
+    """Rows of a backward chunk: :data:`CHUNK_BYTES` of f32 logits."""
+    return max(1, min(65535, CHUNK_BYTES // (4 * v)))
+
+
+def _check_cuda(hidden: torch.Tensor, weights: torch.Tensor, labels: torch.Tensor) -> None:
+    check_shapes(hidden, weights, labels)
+    for x in (hidden, weights, labels):
+        if x.device.type != "cuda":
+            raise ValueError(f"the fused_xent kernels take CUDA tensors, got {x.device}")
+        if x.device.index != torch.cuda.current_device():
+            raise ValueError(f"tensor on {x.device} but the current device is "
+                             f"cuda:{torch.cuda.current_device()}")
+        if not x.is_contiguous():
+            raise ValueError("the fused_xent kernels take contiguous tensors")
+    if hidden.dtype not in DTYPE_CODES or weights.dtype != hidden.dtype:
+        raise TypeError(f"the fused_xent kernels take float32 or bfloat16 hidden and weights "
+                        f"of one dtype, got {hidden.dtype}, {weights.dtype}")
+    if labels.dtype != torch.int32:
+        raise TypeError(f"the fused_xent kernels take int32 labels, got {labels.dtype}")
+    if hidden.numel() == 0 or weights.numel() == 0:
+        raise ValueError(f"fused_xent: empty hidden {tuple(hidden.shape)} or weights "
+                         f"{tuple(weights.shape)}")
+
+
+def fused_xent(hidden: torch.Tensor, weights: torch.Tensor, labels: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the forward kernel: hidden (T, D), weights (D, V), int32
+    labels (T,) -> (loss (T,) f32, lse (T,) f32).  Records no graph (see
+    :class:`FusedXent`)."""
+    from .build import load, record_launch
+    if torch.is_grad_enabled() and (hidden.requires_grad or weights.requires_grad):
+        raise RuntimeError("the fused_xent launcher has no backward: train through "
+                           "kernels.ops.fused_cross_entropy (FusedXent)")
+    _check_cuda(hidden, weights, labels)
+    t, d = hidden.shape
+    v = weights.shape[1]
+    sms = torch.cuda.get_device_properties(hidden.device).multi_processor_count
+    per_block, nsplit = xent_splits(t, v, sms)
+    f32 = dict(dtype=torch.float32, device=hidden.device)
+    part = torch.empty((t, nsplit, 2), **f32)
+    picked = torch.zeros((t,), **f32)
+    loss = torch.empty((t,), **f32)
+    lse = torch.empty((t,), **f32)
+    stream = torch.cuda.current_stream(hidden.device).cuda_stream
+    err = load("fused_xent").repro_fused_xent(
+        hidden.data_ptr(), weights.data_ptr(), labels.data_ptr(), part.data_ptr(),
+        picked.data_ptr(), loss.data_ptr(), lse.data_ptr(), t, d, v, per_block, nsplit,
+        DTYPE_CODES[hidden.dtype], stream)
+    record_launch(err, "fused_xent")
+    return loss, lse
+
+
+def _xent_grad(logits: torch.Tensor, lse: torch.Tensor, labels: torch.Tensor,
+               g: torch.Tensor) -> int:
+    """Launch ``xent_grad`` on one chunk, in place on its (C, V) f32 logits:
+    ``(exp(logits - lse) - onehot(label)) * g``; returns its cudaError_t."""
+    from .build import load
+    stream = torch.cuda.current_stream(logits.device).cuda_stream
+    return load("fused_xent").repro_xent_grad(
+        logits.data_ptr(), lse.data_ptr(), labels.data_ptr(), g.data_ptr(),
+        logits.shape[0], logits.shape[1], stream)
+
+
+def xent_backward(hidden: torch.Tensor, weights: torch.Tensor, labels: torch.Tensor,
+                  lse: torch.Tensor, g: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """The chunked backward of CUDA tensors: (dh (T, D), dW (D, V), the
+    first cudaError_t of the ``xent_grad`` launches)."""
+    t = hidden.shape[0]
+    rows = chunk_rows(weights.shape[1])
+    w32 = weights.to(torch.float32)
+    dh = torch.empty_like(hidden)
+    dw = torch.empty_like(weights)
+    err = 0
+    for c0 in range(0, t, rows):
+        c1 = min(t, c0 + rows)
+        hc = hidden[c0:c1]
+        logits = hc.to(torch.float32) @ w32
+        err = err or _xent_grad(logits, lse[c0:c1], labels[c0:c1], g[c0:c1])
+        dl = logits.to(weights.dtype)
+        torch.mm(dl, weights.t(), out=dh[c0:c1])
+        if c0 == 0:
+            torch.mm(hc.t(), dl, out=dw)
+        else:
+            dw.addmm_(hc.t(), dl)
+    return dh, dw, err
+
+
+def fused_xent_bwd(hidden: torch.Tensor, weights: torch.Tensor, labels: torch.Tensor,
+                   lse: torch.Tensor, g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The backward on CUDA tensors: g (T,) f32, the upstream gradient of
+    the per-token loss -> (dh, dW) in the inputs' dtype."""
+    from .build import record_launch
+    _check_cuda(hidden, weights, labels)
+    for x in (lse, g):
+        if x.device != hidden.device or x.dtype != torch.float32 or x.shape != labels.shape \
+                or not x.is_contiguous():
+            raise ValueError("fused_xent_bwd takes lse and g as contiguous (T,) f32 on "
+                             "hidden's device")
+    dh, dw, err = xent_backward(hidden, weights, labels, lse, g)
+    record_launch(err, "fused_xent_bwd")
+    return dh, dw
+
+
+class FusedXent(torch.autograd.Function):
+    """Per-token loss of CUDA tensors through the B4 kernels, with its
+    backward: ``FusedXent.apply(hidden, weights, labels)`` -> (T,) f32."""
+
+    @staticmethod
+    def forward(ctx, hidden, weights, labels):
+        loss, lse = fused_xent(hidden, weights, labels)
+        ctx.save_for_backward(hidden, weights, labels, lse)
+        return loss
+
+    @staticmethod
+    def backward(ctx, g):
+        hidden, weights, labels, lse = ctx.saved_tensors
+        dh, dw = fused_xent_bwd(hidden, weights, labels, lse,
+                                g.to(torch.float32).contiguous())
+        return dh, dw, None
+
+
+__all__ = ["CHUNK_BYTES", "FusedXent", "check_shapes", "chunk_rows",
+           "fused_xent", "fused_xent_bwd", "fused_xent_plain", "xent_backward",
+           "xent_splits"]

@@ -6,14 +6,19 @@ plain version).
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from . import decode_attention as _da
 from . import flash_attention as _fa
+from . import fused_xent as _fx
 from . import quant_exchange as _qx
 from . import tamper_check as _tc
+
+
+def _needs_grad(*tensors: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def quant_roundtrip(x: torch.Tensor, fmt: str) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -59,10 +64,69 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     window: int = 0) -> torch.Tensor:
     """Causal multi-head attention over a sequence.  q (B, Sq, H, D); k, v
     (B, Sk, Hkv, D), GQA when Hkv < H; ``window > 0`` a sliding window.
-    Returns (B, Sq, H, D)."""
+    Returns (B, Sq, H, D), differentiable: on CUDA tensors that need a
+    gradient through the B5 forward and backward kernels."""
     if q.device.type == "cpu":
         return _fa.flash_attention_plain(q, k, v, window=window)
-    return _fa.flash_attention(q, k, v, window=window)
+    if _needs_grad(q, k, v):
+        return _fa.FlashAttention.apply(q, k, v, window)
+    return _fa.flash_attention(q, k, v, window=window)[0]
+
+
+def fused_cross_entropy(hidden: torch.Tensor, weights: torch.Tensor, labels: torch.Tensor,
+                        mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean softmax cross-entropy of ``hidden (..., D) @ weights (D, V)``
+    against ``labels (...)`` without the logits in device memory (B4), in
+    f32: ``mean(loss)``, or with a ``mask`` of the labels' shape
+    ``sum(loss * mask) / max(sum(mask), 1)`` (``blocks.cross_entropy``).
+    Differentiable: on CUDA tensors that need a gradient through the B4
+    forward and backward kernels."""
+    h2 = hidden.reshape(-1, hidden.shape[-1])
+    l2 = labels.reshape(-1)
+    if hidden.device.type == "cpu":
+        per_tok = _fx.fused_xent_plain(h2, weights, l2)
+    else:
+        l2 = l2.to(torch.int32).contiguous()
+        if _needs_grad(hidden, weights):
+            per_tok = _fx.FusedXent.apply(h2.contiguous(), weights, l2)
+        else:
+            per_tok = _fx.fused_xent(h2.contiguous(), weights, l2)[0]
+    if mask is None:
+        return torch.mean(per_tok)
+    m = mask.reshape(-1).to(torch.float32)
+    return torch.sum(per_tok * m) / torch.clamp_min(torch.sum(m), 1.0)
+
+
+class _QuantCutExchange(torch.autograd.Function):
+    """The straight-through wire: the forward quantizes the uplink
+    activation message, the backward the downlink cut gradient, each per
+    sample through :func:`quant_roundtrip`."""
+
+    @staticmethod
+    def _qdq(x: torch.Tensor, fmt: str) -> torch.Tensor:
+        flat = x.reshape(x.shape[0], -1).to(torch.float32).contiguous()
+        deq, _ = quant_roundtrip(flat, fmt)
+        return deq.reshape(x.shape).to(x.dtype)
+
+    @staticmethod
+    def forward(ctx, x, fmt):
+        ctx.fmt = fmt
+        return _QuantCutExchange._qdq(x, fmt)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _QuantCutExchange._qdq(g, ctx.fmt), None
+
+
+def quant_cut_exchange(x: torch.Tensor, fmt: Optional[str]) -> torch.Tensor:
+    """Apply the quantized cut-layer wire to an activation tensor (leading
+    batch axis, any trailing shape): one differentiable call sees exactly
+    the two messages a client/AP pair exchange.  ``fmt=None`` is the
+    identity."""
+    if fmt is None:
+        return x
+    _qx.check_format(fmt)
+    return _QuantCutExchange.apply(x, fmt)
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, index: int, *,
@@ -75,5 +139,6 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, index: i
     return _da.decode_attention(q, k, v, index, window=window)
 
 
-__all__ = ["decode_attention", "flash_attention", "largest_divisor", "quant_roundtrip",
-           "quant_roundtrip_stats", "tamper_distance"]
+__all__ = ["decode_attention", "flash_attention", "fused_cross_entropy", "largest_divisor",
+           "quant_cut_exchange", "quant_roundtrip", "quant_roundtrip_stats",
+           "tamper_distance"]

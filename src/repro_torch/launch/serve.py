@@ -50,6 +50,7 @@ def make_prompts(seed: int, vocab: int, batch: int, prompt_len: int) -> np.ndarr
     return rng.integers(0, vocab, size=(batch, prompt_len)).astype(np.int32)
 
 
+@torch.inference_mode()
 def greedy_decode(serve_step: Callable, cache, prompts: torch.Tensor, new_tokens: int
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The reference's serve loop: step the prompt (B, P) through

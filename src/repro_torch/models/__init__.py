@@ -2,8 +2,8 @@
 from .cnn import (CIFAR_CNN, MNIST_CNN, APHead, ClientCNN, CNNConfig,
                   StackedAPHead, StackedClientCNN, cnn_init, cnn_stacked)
 from .config import ModelConfig, reduce_config
-from .model import Model, build_model, build_plan
+from .model import APLM, ClientLM, Model, build_model, build_plan
 
-__all__ = ["APHead", "CIFAR_CNN", "CNNConfig", "ClientCNN", "MNIST_CNN", "Model",
-           "ModelConfig", "StackedAPHead", "StackedClientCNN", "build_model",
+__all__ = ["APHead", "APLM", "CIFAR_CNN", "CNNConfig", "ClientCNN", "ClientLM", "MNIST_CNN",
+           "Model", "ModelConfig", "StackedAPHead", "StackedClientCNN", "build_model",
            "build_plan", "cnn_init", "cnn_stacked", "reduce_config"]

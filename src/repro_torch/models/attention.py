@@ -1,11 +1,12 @@
 """Grouped-query attention (GQA) with RoPE, QK-norm, QKV bias and a sliding
 window: the reference's ``repro/models/attention.py``, GQA part.
 
-Prefill runs :func:`kernels.ops.flash_attention` (B5) over the sequence and
-each decode step :func:`kernels.ops.decode_attention` (B6) over the KV
-cache; on a CPU tensor both take their plain versions, which compute the
-reference's ``attend`` (scores materialised, GQA by repeating the KV heads,
-masked with -1e30, softmax in f32).  The window is an argument of each call
+The forward over a sequence (prefill and training) runs
+:func:`kernels.ops.flash_attention` (B5, with its backward when a gradient
+is recorded) and each decode step :func:`kernels.ops.decode_attention` (B6)
+over the KV cache; on a CPU tensor both take their plain versions, which
+compute the reference's ``attend`` (scores materialised, GQA by repeating
+the KV heads, masked with -1e30, softmax in f32).  The window is an argument of each call
 (0 = full attention), so one module serves a local or a global layer.
 
 The decode cache of a layer is a pair of (B, max_seq, Hkv, D) tensors; a

@@ -9,32 +9,44 @@ pytree become methods:
   * ``init(generator)``                 — parameter initialisation, in place
   * ``forward(batch)``                  — final hidden states (B, S, D), aux
   * ``logits(batch)``                   — (B, S, V)
+  * ``loss(batch)``                     — scalar LM loss (+ aux), metrics
+  * ``split_params()``                  — (client gamma, AP phi) at
+                                          cfg.cut_layer, as modules that
+                                          share this model's parameters
+  * ``merge_params(gamma, phi)``        — the model over gamma's and phi's
+                                          parameters
+  * ``client_forward(gamma, batch)``    — cut-layer activations (B, S, D)
+  * ``ap_forward(phi, acts, batch)``    — loss from cut activations
   * ``init_cache(batch_size, max_seq)`` — zeroed decode cache
   * ``decode_step(cache, tokens, i)``   — one-token decode -> (logits, cache)
 
-Forward and decode run under ``torch.inference_mode()``: the attention
-kernels have no backward yet.  ``loss`` and the split-learning view
-(``split_params``, ``client_forward``, ``ap_forward``) come with the
-training slice and raise until then.
+Forward, loss and the split view are differentiable: the attention runs
+through B5 and its backward, the loss through B4 (``ops.
+fused_cross_entropy``, forward and backward) on the card.  ``cfg.remat``
+checkpoints each layer.  The serve path (``decode_step``, the prefill step)
+runs under ``torch.inference_mode()``.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Sequence, Tuple
 
 import torch
 from torch import nn
 
 from .. import DeviceLike, resolve_device
+from ..kernels import ops
 from . import transformer as tfm
 from .blocks import DTYPES, Linear, RMSNorm, embed_init
 from .config import ModelConfig
 
 Cache = Tuple[Dict[str, torch.Tensor], ...]
+Batch = Dict[str, torch.Tensor]
 
-_TRAINING = ("ROADMAP.md Queue A item 10, the training slice (Model.loss with B4 "
-             "fused_xent and its backward, core/split.py::from_lm)")
+#: where the cluster-stacked LM (the batched engine's form of it) comes from
+STACKED_LM_SLICE = ("ROADMAP.md Queue A item 10, a cluster-stacked LM (engine='batched' "
+                    "over core.split.from_lm)")
 
 
 @dataclasses.dataclass
@@ -44,10 +56,71 @@ class StackPlan:
     meta: Dict[str, Any]
 
 
+def _embed_tokens(cfg: ModelConfig, table: torch.Tensor, tokens: torch.Tensor
+                  ) -> torch.Tensor:
+    sqrt_d = torch.tensor(math.sqrt(float(cfg.d_model)), dtype=table.dtype,
+                          device=table.device)
+    return table[tokens] * sqrt_d
+
+
+def _run_stacks(cfg: ModelConfig, stacks: Sequence[tfm.BlockStack], x: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    positions = torch.arange(x.shape[1], device=x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for stack in stacks:
+        x, a = tfm.run_stack(stack, x, positions, cfg.remat)
+        aux = aux + a
+    return x, aux
+
+
+def _lm_loss(head: Linear, h: torch.Tensor, aux: torch.Tensor, batch: Batch
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The reference's loss tail, both of its branches (full logits or
+    chunked): the mean (or masked mean) cross-entropy through B4."""
+    lm = ops.fused_cross_entropy(h, head.w, batch["labels"], batch.get("mask"))
+    return lm + aux, {"lm_loss": lm, "aux_loss": aux}
+
+
+class ClientLM(nn.Module):
+    """gamma, the client's half: the embedding and the first
+    ``cfg.cut_layer`` layers.  ``forward(batch)`` -> cut-layer activations
+    (B, S, d_model), the split-learning "smashed data"."""
+
+    def __init__(self, cfg: ModelConfig, embedding: nn.Parameter,
+                 stacks: Sequence[tfm.BlockStack]):
+        super().__init__()
+        self.cfg = cfg
+        self.embedding = embedding
+        self.stacks = nn.ModuleList(stacks)
+
+    def forward(self, batch: Batch) -> torch.Tensor:
+        x = _embed_tokens(self.cfg, self.embedding, batch["tokens"])
+        return _run_stacks(self.cfg, self.stacks, x)[0]
+
+
+class APLM(nn.Module):
+    """phi, the access point's half: the remaining layers, the final norm
+    and the head.  ``forward(acts, batch)`` -> (loss, metrics)."""
+
+    def __init__(self, cfg: ModelConfig, stacks: Sequence[tfm.BlockStack],
+                 final_norm: RMSNorm, head: Linear):
+        super().__init__()
+        self.cfg = cfg
+        self.stacks = nn.ModuleList(stacks)
+        self.final_norm = final_norm
+        self.head = head
+
+    def forward(self, acts: torch.Tensor, batch: Batch
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        x, aux = _run_stacks(self.cfg, self.stacks, acts)
+        return _lm_loss(self.head, self.final_norm(x), aux, batch)
+
+
 class Model(nn.Module):
     def __init__(self, cfg: ModelConfig, plan: List[StackPlan], device=None):
         super().__init__()
         self.cfg = cfg
+        self.plan = plan
         dt = DTYPES[cfg.dtype]
         self.embedding = nn.Parameter(torch.empty((cfg.vocab, cfg.d_model), dtype=dt,
                                                   device=device))
@@ -79,43 +152,95 @@ class Model(nn.Module):
         return self
 
     # -- embedding ----------------------------------------------------------
-    def embed(self, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+    def embed(self, batch: Batch) -> Tuple[torch.Tensor, torch.Tensor]:
         """Returns (x, positions)."""
-        x = self._embed_tokens(batch["tokens"])
+        x = _embed_tokens(self.cfg, self.embedding, batch["tokens"])
         return x, torch.arange(x.shape[1], device=x.device)
 
-    def _embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
-        sqrt_d = torch.tensor(math.sqrt(float(self.cfg.d_model)), dtype=self.dtype,
-                              device=self.device)
-        return self.embedding[tokens] * sqrt_d
-
-    # -- forward --------------------------------------------------------------
-    @torch.inference_mode()
-    def forward(self, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+    # -- forward / loss -------------------------------------------------------
+    def forward(self, batch: Batch) -> Tuple[torch.Tensor, torch.Tensor]:
         """Full forward to final hidden states.  Returns (hidden, aux)."""
-        x, positions = self.embed(batch)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for stack in self.stacks:
-            x, a = tfm.run_stack(stack, x, positions)
-            aux = aux + a
+        x, aux = _run_stacks(self.cfg, self.stacks, self.embed(batch)[0])
         return self.final_norm(x), aux
 
-    @torch.inference_mode()
-    def logits(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    def logits(self, batch: Batch) -> torch.Tensor:
         h, _ = self.forward(batch)
         return self.head(h)
 
-    def loss(self, batch):
-        raise NotImplementedError(f"Model.loss: {_TRAINING}")
+    def loss(self, batch: Batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """(loss, {"lm_loss", "aux_loss"}) of ``batch`` {"tokens", "labels",
+        optional "mask"}; the cross-entropy through B4."""
+        h, aux = self.forward(batch)
+        return _lm_loss(self.head, h, aux, batch)
 
-    def split_params(self):
-        raise NotImplementedError(f"Model.split_params: {_TRAINING}")
+    # -- split-learning view ------------------------------------------------
+    def split_plans(self) -> Tuple[List[StackPlan], List[StackPlan], List[Tuple[int, int, int]]]:
+        """Split the plan at cfg.cut_layer blocks.  Returns (client_plan,
+        ap_plan, slices) where slices[i] = (stack_idx, client_n, total_n)."""
+        cut = self.cfg.cut_layer
+        client, ap, slices = [], [], []
+        seen = 0
+        for idx, sp in enumerate(self.plan):
+            take = max(0, min(sp.n, cut - seen))
+            if take == sp.n:
+                client.append(sp)
+            elif take == 0:
+                ap.append(sp)
+            else:
+                client.append(StackPlan(sp.kind, take, _slice_meta(sp.meta, 0, take)))
+                ap.append(StackPlan(sp.kind, sp.n - take, _slice_meta(sp.meta, take, sp.n)))
+            slices.append((idx, take, sp.n))
+            seen += sp.n
+        return client, ap, slices
 
-    def client_forward(self, gamma, batch):
-        raise NotImplementedError(f"Model.client_forward: {_TRAINING}")
+    def split_params(self) -> Tuple[ClientLM, APLM]:
+        """(gamma, phi): the client's and the AP's halves, sharing this
+        model's parameters (a cut stack is sliced, its layers shared)."""
+        _, _, slices = self.split_plans()
+        client_stacks, ap_stacks = [], []
+        for (idx, take, total), stack in zip(slices, self.stacks):
+            if take == total:
+                client_stacks.append(stack)
+            elif take == 0:
+                ap_stacks.append(stack)
+            else:
+                client_stacks.append(tfm.slice_stack(stack, 0, take))
+                ap_stacks.append(tfm.slice_stack(stack, take, total))
+        return (ClientLM(self.cfg, self.embedding, client_stacks),
+                APLM(self.cfg, ap_stacks, self.final_norm, self.head))
 
-    def ap_forward(self, phi, acts, batch):
-        raise NotImplementedError(f"Model.ap_forward: {_TRAINING}")
+    def merge_params(self, gamma: ClientLM, phi: APLM) -> "Model":
+        """The model whose parameters are gamma's and phi's (shared, not
+        copied)."""
+        _, _, slices = self.split_plans()
+        stacks, ci, ai = [], 0, 0
+        for idx, take, total in slices:
+            if take == total:
+                stacks.append(gamma.stacks[ci]); ci += 1
+            elif take == 0:
+                stacks.append(phi.stacks[ai]); ai += 1
+            else:
+                c, a = gamma.stacks[ci], phi.stacks[ai]
+                meta = {k: tuple(c.meta[k]) + tuple(a.meta[k]) for k in c.meta}
+                stacks.append(tfm.BlockStack(c.kind, [*c.layers, *a.layers], meta))
+                ci += 1; ai += 1
+        model = Model(self.cfg, self.plan, device="meta")    # a shell: nothing allocated
+        model.embedding = gamma.embedding
+        model.stacks = nn.ModuleList(stacks)
+        model.final_norm = phi.final_norm
+        model.head = phi.head
+        return model
+
+    def client_forward(self, gamma: ClientLM, batch: Batch) -> torch.Tensor:
+        """Client-side NN g(x, gamma): embedding + first cut_layer blocks ->
+        cut-layer activations (B, S, d_model)."""
+        return gamma(batch)
+
+    def ap_forward(self, phi: APLM, acts: torch.Tensor, batch: Batch
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """AP-side NN h(a, phi): remaining blocks + head -> (loss, metrics),
+        the cross-entropy through B4."""
+        return phi(acts, batch)
 
     # -- decode -----------------------------------------------------------------
     def init_cache(self, batch_size: int, max_seq: int) -> Cache:
@@ -129,10 +254,14 @@ class Model(nn.Module):
                     ) -> Tuple[torch.Tensor, Cache]:
         """tokens: (B, 1) int; index: the tokens' position (host int).
         Writes the cache in place; returns (logits (B, 1, V), cache)."""
-        x = self._embed_tokens(tokens)
+        x = _embed_tokens(self.cfg, self.embedding, tokens)
         for stack, c in zip(self.stacks, cache):
             x, _ = tfm.decode_stack(stack, x, c, index)
         return self.head(self.final_norm(x)), cache
+
+
+def _slice_meta(meta: Dict[str, Any], lo: int, hi: int) -> Dict[str, Any]:
+    return {k: v[lo:hi] for k, v in meta.items()}
 
 
 def build_plan(cfg: ModelConfig) -> List[StackPlan]:
@@ -150,4 +279,5 @@ def build_model(cfg: ModelConfig, device: DeviceLike = None) -> Model:
     return Model(cfg, plan, resolve_device(device))
 
 
-__all__ = ["Model", "StackPlan", "build_model", "build_plan"]
+__all__ = ["APLM", "ClientLM", "Model", "STACKED_LM_SLICE", "StackPlan", "build_model",
+           "build_plan"]

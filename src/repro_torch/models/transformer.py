@@ -9,7 +9,9 @@ windows (gemma3's local:global pattern) ride in ``meta["window"]`` as ints
 and reach the attention kernels as a runtime argument.
 
 The decode cache of an ``attn_mlp`` stack is {"k", "v"} of (n, B, max_seq,
-Hkv, D), the reference's layout; layer i writes its slice in place.
+Hkv, D), the reference's layout; layer i writes its slice in place.  A stack
+splits at the split-learning cut by slicing its layer list
+(:func:`slice_stack`), which shares the layers.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .attention import GQA, AttnConfig, init_kv_cache
 from .blocks import DTYPES, RMSNorm, SwiGLU
@@ -100,12 +103,27 @@ def build_stacks(cfg: ModelConfig, plan, device=None) -> List[BlockStack]:
             for sp in plan]
 
 
-def run_stack(stack: BlockStack, x: torch.Tensor,
-              positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (x, aux_loss_sum); a dense stack has no auxiliary loss."""
+def run_stack(stack: BlockStack, x: torch.Tensor, positions: torch.Tensor,
+              remat: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (x, aux_loss_sum); a dense stack has no auxiliary loss.  With
+    ``remat`` (``cfg.remat``) each layer is checkpointed when a gradient is
+    being recorded: its activations are recomputed in the backward, as the
+    reference's ``jax.checkpoint`` of the scanned layer body does."""
+    ckpt = remat and torch.is_grad_enabled()
     for layer, window in zip(stack.layers, stack.meta["window"]):
-        x = layer(x, positions, window)
+        if ckpt:
+            x = checkpoint(layer, x, positions, window, use_reentrant=False)
+        else:
+            x = layer(x, positions, window)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def slice_stack(stack: BlockStack, lo: int, hi: int) -> BlockStack:
+    """Layers [lo, hi) of ``stack`` as a stack of their own, sharing the
+    layer modules (the reference's ``_slice_meta`` of the plan plus the
+    params slice)."""
+    meta = {k: v[lo:hi] for k, v in stack.meta.items()}
+    return BlockStack(stack.kind, list(stack.layers[lo:hi]), meta)
 
 
 def init_stack_cache(cfg: ModelConfig, stack: BlockStack, batch: int, max_seq: int,
@@ -123,4 +141,4 @@ def decode_stack(stack: BlockStack, x: torch.Tensor, cache: Dict[str, torch.Tens
 
 
 __all__ = ["AttnMLPLayer", "BlockStack", "attn_cfg", "build_stacks", "decode_stack",
-           "init_stack_cache", "not_ported", "run_stack"]
+           "init_stack_cache", "not_ported", "run_stack", "slice_stack"]

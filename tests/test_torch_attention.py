@@ -5,10 +5,12 @@ tensor takes, against the JAX Pallas kernels in interpret mode and the
 
 Tolerances: atol 2e-5 in f32 (the two frameworks sum the score and value
 products in different orders), 2e-2 in bf16, as the JAX kernel tests hold
-their kernels.  The CUDA kernels themselves run only on the card
+their kernels; the plain version's gradients (dq, dk, dv, what a CPU
+tensor trains through) atol 1e-5 against ``jax.grad`` of the oracle.  The CUDA kernels themselves run only on the card
 (``chip_smoke.py`` phase 1 holds them against these plain versions); here
 the Python around them is checked: dispatch, argument checks, the decode
 split."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -22,6 +24,7 @@ from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops as tops
 
 ATOL = {"float32": 2e-5, "bfloat16": 2e-2}
+GRAD_ATOL = 1e-5
 # (B, S, H, Hkv, D, window), tests/test_kernels.py's flash cases
 FLASH_CASES = {
     "gqa": (2, 128, 4, 2, 64, 0),
@@ -191,3 +194,42 @@ def test_ops_take_the_plain_versions_on_the_cpu():
                        tfa.flash_attention_plain(q, k, v, window=4))
     assert torch.equal(tops.decode_attention(q[:, 5:6], k, v, 5),
                        tda.decode_attention_plain(q[:, 5:6], k, v, 5))
+
+
+# (B, Sq, Sk, H, Hkv, D, window): GQA groups 1/2/4, MQA, windows, ragged S,
+# fewer queries than keys
+GRAD_CASES = {
+    "gqa": (2, 32, 32, 4, 2, 64, 0),
+    "groups1_window8": (1, 40, 40, 2, 2, 32, 8),
+    "mqa": (2, 24, 24, 4, 1, 32, 0),
+    "group4_ragged": (1, 37, 37, 8, 2, 80, 0),
+    "sq_lt_sk_window5": (1, 20, 30, 4, 2, 32, 5),
+}
+
+
+@pytest.mark.parametrize("case", sorted(GRAD_CASES))
+def test_flash_attention_gradients_match_jax_grad_of_the_oracle(case):
+    b, sq, sk, h, hkv, d, win = GRAD_CASES[case]
+    q, k, v = _qkv(10, b, sq, sk, h, hkv, d)
+    g = np.random.default_rng(11).normal(size=(b, sq, h, d)).astype(np.float32)
+
+    def jloss(q_, k_, v_):
+        out = _heads_last(ref.mha_reference(_heads_first(q_), _heads_first(k_),
+                                            _heads_first(v_), window=win), b)
+        return jnp.sum(out * g)
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    tq, tk, tv = (_t(x).requires_grad_() for x in (q, k, v))
+    loss = torch.sum(tops.flash_attention(tq, tk, tv, window=win) * _t(g))
+    got = torch.autograd.grad(loss, (tq, tk, tv))
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        assert a.shape == w.shape, name
+        np.testing.assert_allclose(a.numpy(), np.asarray(w), atol=GRAD_ATOL, err_msg=name)
+
+
+def test_backward_launcher_refuses_cpu_tensors():
+    q = torch.zeros((1, 8, 4, 64))
+    kv = torch.zeros((1, 8, 2, 64))
+    lse = torch.zeros((1, 4, 8))
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa.flash_attention_bwd(q, kv, kv, q, q, lse)

@@ -123,7 +123,7 @@ def test_forward_and_prefill_match_reference(pair):
     jh, _ = jax.jit(jmodel.forward)(params, {"tokens": jnp.asarray(tokens)})
     th, aux = tmodel({"tokens": torch.from_numpy(tokens)})
     assert float(aux) == 0.0
-    np.testing.assert_allclose(th.numpy(), np.asarray(jh), atol=FORWARD_ATOL, rtol=0)
+    np.testing.assert_allclose(th.detach().numpy(), np.asarray(jh), atol=FORWARD_ATOL, rtol=0)
     jl = jax.jit(jax_prefill_step(jmodel))(params, {"tokens": jnp.asarray(tokens)})
     tl = make_prefill_step(tmodel)({"tokens": torch.from_numpy(tokens)})
     assert tl.shape == (B, 1, jmodel.cfg.vocab) and tl.dtype == torch.float32
@@ -184,13 +184,21 @@ def test_build_model_needs_the_card_unless_asked_for_the_cpu(monkeypatch):
         tserve.main(["--batch", "1", "--prompt-len", "2", "--new-tokens", "1"])
 
 
-def test_training_entry_points_raise():
-    model = build_model(tconfigs.get_smoke_config("qwen3-8b"), "cpu")
-    for call in (lambda: model.loss({}), model.split_params,
-                 lambda: model.client_forward(None, {}),
-                 lambda: model.ap_forward(None, None, {})):
-        with pytest.raises(NotImplementedError, match="training slice"):
-            call()
+def test_training_entry_points_run():
+    """``loss``, ``split_params``, ``client_forward`` and ``ap_forward`` run
+    (``tests/test_torch_train.py`` holds them against the reference)."""
+    cfg = tconfigs.get_smoke_config("qwen3-8b")
+    model = build_model(cfg, "cpu").init(torch.Generator().manual_seed(0))
+    tokens = torch.from_numpy(make_markov_tokens(1, cfg.vocab, B, S + 1))
+    batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+    loss, metrics = model.loss(batch)
+    assert loss.requires_grad and bool(torch.isfinite(loss))
+    assert set(metrics) == {"lm_loss", "aux_loss"}
+    gamma, phi = model.split_params()
+    acts = model.client_forward(gamma, batch)
+    assert acts.shape == (B, S, cfg.d_model)
+    ap_loss, _ = model.ap_forward(phi, acts, batch)
+    assert torch.allclose(ap_loss, loss)
 
 
 def test_init_is_seeded_and_drawn_as_the_reference_draws():
