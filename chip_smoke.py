@@ -33,7 +33,11 @@ from the repository root.  Phases, in order; any failure exits non-zero:
      groups 1/2/4/8, MQA, windows, head dims 64/80/256, S = 1), all
      bit-identical run to run, timed beside their plain versions, bounds
      and yardsticks (``F.cross_entropy(h @ W)``, two calls; autograd of
-     SDPA);
+     SDPA); B7 (the sLSTM time scan) within atol 1e-4 (f32) and 8e-3 (bf16)
+     of its plain version at the xLSTM prefill shape (T 512, B 4, d 2,048,
+     H 4) and edges (H 1 and 2, dh 40, ragged units, B 1/3/5, T 1),
+     bit-identical run to run, timed (no PyTorch call computes the scan),
+     also at T 4,096;
   2. the sequential main path at full width: the CIFAR-10 split CNN (convs
      32/64/128, d_c = 256, FC 128/64/10) at the paper's Table II sizes
      through ``run_pigeon(engine="sequential", quant="int8",
@@ -49,9 +53,9 @@ from the repository root.  Phases, in order; any failure exits non-zero:
      attack;
   4. the same tiny runs on the CPU and on the card, from the same init, on
      both engines: equal discrete outcomes, validation losses within rtol
-     1e-3; and a tiny LM (``reduce_config`` of Qwen3-8B, f32) served on both
-     from one init: equal greedy tokens, logits within atol 1e-4; and the
-     same LM through a Pigeon-SL run over ``from_lm`` (sequential, label
+     1e-3; tiny LMs (``reduce_config`` of Qwen3-8B, and of xLSTM-1.3B, one
+     B7 launch) served on both from one init: equal greedy tokens, logits
+     within atol 1e-4; and the Qwen3-8B one through a Pigeon-SL run over ``from_lm`` (sequential, label
      flip) on both from one init: equal discrete outcomes, validation
      losses within rtol 1e-3;
   5. where the time goes (torch.profiler): one CIFAR client turn of the
@@ -78,7 +82,19 @@ from the repository root.  Phases, in order; any failure exits non-zero:
      client 0, Pigeon-SL+, T = 2) without the wire and with int8 through
      B2; finite losses, ``selected == argmin(val_losses)``, the launches
      the round's structure predicts, exchange bytes, seconds per round and
-     peak memory.
+     peak memory;
+  9. the xLSTM serve path: xLSTM-1.3B at full width and depth (48 blocks,
+     (mLSTM 7, sLSTM 1) x 6, bf16, 3,529,644,368 parameters drawn on the
+     card) prefills 4 prompts of 512 tokens through ``make_prefill_step``
+     (6 B7 launches, 3,072 step kernels), then runs the reference serve
+     loop through ``make_serve_step`` (544 steps, no kernel of the port);
+     the same weights widened to f32 and served again: prefill and decode
+     logits agree within 1e-3 in f32, and the bf16 ones within 0.6 of each
+     other and of the f32 logits (bf16 rounding compounds over 48 blocks
+     at random init); prefill seconds, ms per decode step, tokens/s, peak
+     memory, one warm decode step's profile; a longer prefill at
+     prefill_32k's settings (B 4 x 2,048 tokens), profiled, with B7's
+     step kernels counted and its share beside the mLSTM products'.
 
 The last lines are one JSON object per kernel set (``{"kernels": [...]}``),
 the card's ``nvidia-smi`` name and power limit, and
@@ -155,6 +171,43 @@ GRAD_REL = {"float32": 1e-4, "bfloat16": 3e-2}
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_VOCAB, TRAIN_LR = 4, 512, 2048, 0.1
 TRAIN_F32_REL = 1e-4
 ROUND_LAYERS = 12
+# B7 (the sLSTM scan): (T, B, d, H), the prefill shape first (xLSTM-1.3B: a
+# 512-token prompt at B 4, d 2,048, 4 heads of 512), then H 1 and 2, dh 40
+# with a ragged unit block and 3 rows, B 5 (two row blocks), B 1, T 1; the
+# long shape (a 4,096-token sequence) is timed only
+SLSTM_SHAPES = ((512, 4, 2048, 4), (64, 4, 2048, 1), (64, 4, 2048, 2), (33, 3, 80, 2),
+                (20, 5, 96, 2), (40, 1, 2048, 4), (1, 4, 2048, 4))
+SLSTM_LONG = (4096, 4, 2048, 4)
+# h is bounded by 1 and the state never goes through bf16, so the error does
+# not compound: in bf16 the outputs differ by their last roundings, two bf16
+# ulps at |h| <= 1 (2 * 2^-8); f32 by the dot products' summation order
+SLSTM_ATOL = {"float32": 1e-4, "bfloat16": 8e-3}
+# phase 9: xLSTM-1.3B served at B 4, 512-token prompts (two mLSTM chunks of
+# 256), 32 new tokens; the reference's layer counts 3,529,644,368 parameters.
+# Prefill vs decode logits at the prompt's last position.  The tight check
+# runs the same weights widened to f32 at full depth (6 B7 launches): the
+# chunked and the recurrent form of the same f32 math, 1e-3.  In bf16 the
+# rounding does not stay a random walk as in Qwen3-8B (SERVE_BF16_REL): at
+# this random init the 48 blocks compound it, stack after stack, so each
+# bf16 path lands some 0.3 of max |logit| from the f32 logits (a first
+# run read 0.277 between the two bf16 paths).  The reference does the same:
+# at d_model 64 and full depth on the CPU its own bf16 logits lie 0.54 of
+# max |logit| from its f32 logits, and the port's as far from theirs
+# (tests/test_torch_xlstm.py's full-depth bf16 tests).  The bf16 paths are held
+# within 0.6 of each other and of the f32 logits: the sum of two such
+# errors; a path that computed another function (another gate layout, a
+# lost chunk carry) moves the logits by their own scale.  The longer
+# prefill takes prefill_32k's settings (ssm_chunk 2,048), its 32 x 32,768
+# tokens cut to 4 x 2,048.
+XLSTM_BATCH, XLSTM_PROMPT, XLSTM_NEW = 4, 512, 32
+XLSTM_PARAMS = 3_529_644_368
+XLSTM_BF16_REL = 0.6
+XLSTM_F32_REL = 1e-3
+XLSTM_LONG_PROMPT = 2048
+# the xLSTM prefills' device time, by kernel name
+PREFILL_SHARES = {"B7 (slstm_step)": ["slstm_step"],
+                  "f32 products (the mLSTM einsums)": ["sgemm", "f32f32", "f32_f32"],
+                  "bf16 products (projections, head)": ["bf16", "nvjet"]}
 # B5's backward: the train shape (B 4, S 512, Qwen3-8B's heads), then GQA
 # group 8, the forward's edge shapes (MQA, group 1, windows, head dims
 # 64/80/256, ragged S, S = 1)
@@ -192,11 +245,11 @@ def card_line() -> str:
 # phase 1: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def _time_us(fn, *args, reps: int = 200, samples: int = 15) -> float:
+def _time_us(fn, *args, reps: int = 200, samples: int = 15, warmup: int = 10) -> float:
     """Median over ``samples`` of the mean time of ``reps`` back-to-back
-    calls, by CUDA events (after a warm-up)."""
+    calls, by CUDA events (after ``warmup`` calls)."""
     import torch
-    for _ in range(10):
+    for _ in range(warmup):
         fn(*args)
     torch.cuda.synchronize()
     times = []
@@ -353,6 +406,7 @@ def phase_kernels():
     results.update(_phase_xent())
     results.update(_phase_attention())
     results.update(_phase_attention_bwd())
+    results["slstm_scan"] = _phase_slstm()
     return results
 
 
@@ -836,6 +890,96 @@ def _phase_attention_bwd():
                                         **timing)}
 
 
+def _slstm_args(shape, dtype: str, seed: int):
+    """(pre (T, B, 4d), r (H, dh, 4dh), H) of one B7 call, drawn on the card
+    in ``dtype``: pre ~ N(0, 1) (the pre-activations of a normed input), r
+    ~ N(0, 1) / sqrt(dh) (the model's init)."""
+    import math
+
+    import torch
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    t, b, d, h = shape
+    dh = d // h
+    dt = getattr(torch, dtype)
+    pre = torch.randn((t, b, 4 * d), generator=g, device=DEVICE).to(dt)
+    r = (torch.randn((h, dh, 4 * dh), generator=g, device=DEVICE) / math.sqrt(dh)).to(dt)
+    return pre, r, h
+
+
+def _slstm_bound_us(shape, dtype: str):
+    """(bound in us, what sets it): pre read once, out written once and r
+    read once, over 3.35 TB/s; 2 * dh flops per (step, row, gate column),
+    over the f32 FMA rate (h is an f32 state)."""
+    t, b, d, h = shape
+    dh = d // h
+    elt = 4 if dtype == "float32" else 2
+    n_bytes = elt * (t * b * 4 * d + t * b * d + h * dh * 4 * dh)
+    n_ops = 2 * t * b * 4 * d * dh
+    bytes_us = n_bytes / HBM_BYTES_PER_S * 1e6
+    ops_us = n_ops / F32_OPS_PER_S * 1e6
+    return max(bytes_us, ops_us), ("bytes" if bytes_us >= ops_us else "operations")
+
+
+def _slstm_timing(shape, long: bool):
+    """Times of one B7 call at ``shape`` in bf16: the kernel eager,
+    graph-replayed (L2 warm) and L2-cold, the plain version eager, the
+    bound, and the time a step (the scan's dependency chain)."""
+    import torch
+    from repro_torch.kernels import slstm_scan as ss
+    pre, r, h = _slstm_args(shape, "bfloat16", seed=99)
+    call = lambda: ss.slstm_scan(pre, r, h)             # noqa: E731
+    plain = lambda: ss.slstm_scan_plain(pre, r, h)      # noqa: E731
+    with torch.inference_mode():
+        timing = dict(kernel_us=_time_us(call, reps=2 if long else 10, samples=5, warmup=2),
+                      kernel_dev_us=_graph_time_us(call, reps=1 if long else 5, samples=5),
+                      kernel_cold_us=_cold_time_us(call, reps=5),
+                      plain_us=_time_us(plain, reps=1, samples=3, warmup=1),
+                      plain_dev_us=None, library_us=None)
+    timing["bound_us"], timing["bound_by"] = _slstm_bound_us(shape, "bfloat16")
+    timing["step_us"] = timing["kernel_dev_us"] / shape[0]
+    log(f"phase1 slstm_scan at {shape} bf16: kernel_us={timing['kernel_us']:.3f} "
+        f"plain_us={timing['plain_us']:.3f} library none "
+        f"bound_us={timing['bound_us']:.4f} ({timing['bound_by']}); graph-replayed "
+        f"device time (L2 warm): kernel_us={timing['kernel_dev_us']:.3f} "
+        f"({timing['step_us']:.3f} us a step over T = {shape[0]}); one call with the L2 "
+        f"cold: kernel_us={timing['kernel_cold_us']:.3f}")
+    return dict(shape=list(shape), dtype="bfloat16", **timing)
+
+
+def _phase_slstm():
+    """B7 against its plain version at the prefill shape and the edge shapes,
+    in f32 and bf16, bit-identical run to run; timed at the prefill shape
+    and at the long shape."""
+    import torch
+    from repro_torch.kernels import slstm_scan as ss
+
+    max_err = {}
+    for dtype in ("float32", "bfloat16"):
+        for i, shape in enumerate(SLSTM_SHAPES):
+            pre, r, h = _slstm_args(shape, dtype, seed=i)
+            with torch.inference_mode():
+                out1 = ss.slstm_scan(pre, r, h)
+                out2 = ss.slstm_scan(pre, r, h)
+                ref = ss.slstm_scan_plain(pre, r, h)
+            torch.cuda.synchronize()
+            check(torch.equal(out1, out2), f"slstm_scan {dtype} {shape}: two runs differ")
+            check(out1.shape == ref.shape and out1.dtype == ref.dtype,
+                  f"slstm_scan {dtype} {shape}: {out1.shape} {out1.dtype} vs plain "
+                  f"{ref.shape} {ref.dtype}")
+            check(bool(torch.isfinite(out1).all()), f"slstm_scan {dtype} {shape}: not finite")
+            err = float((out1.float() - ref.float()).abs().max())
+            check(err <= SLSTM_ATOL[dtype], f"slstm_scan {dtype} {shape}: max |kernel - "
+                                            f"plain| {err:.3e} > {SLSTM_ATOL[dtype]}")
+            max_err[dtype] = max(max_err.get(dtype, 0.0), err)
+            if i == 0 and dtype == "bfloat16":
+                main_err = err
+    log(f"phase1 slstm_scan: within atol {SLSTM_ATOL} of plain at {list(SLSTM_SHAPES)} in "
+        f"f32 and bf16, bit-identical run to run; max_abs_err {max_err}")
+    main = _slstm_timing(SLSTM_SHAPES[0], long=False)
+    return dict(max_abs_err=main_err, max_abs_err_by_dtype=max_err, **main,
+                long_context=_slstm_timing(SLSTM_LONG, long=True))
+
+
 # ---------------------------------------------------------------------------
 # phases 2-4: the protocol
 # ---------------------------------------------------------------------------
@@ -1028,8 +1172,9 @@ def _serve(model, prompts, new_tokens: int):
 
 
 def phase_lm_cpu_vs_card():
-    """A tiny LM (reduce_config of Qwen3-8B, f32) served on the CPU and on
-    the card from one init: equal greedy tokens, logits within atol 1e-4."""
+    """Tiny LMs (reduce_config of Qwen3-8B and of xLSTM-1.3B, f32) served on
+    the CPU and on the card from one init: equal greedy tokens, logits
+    within atol 1e-4."""
     import copy
 
     import torch
@@ -1038,29 +1183,33 @@ def phase_lm_cpu_vs_card():
     from repro_torch.launch.serve import make_prompts
     from repro_torch.models import build_model
 
-    cfg = get_smoke_config("qwen3-8b")
-    cpu = build_model(cfg, "cpu").init(torch.Generator().manual_seed(0))
-    card = copy.deepcopy(cpu).to(DEVICE)
-    prompts = torch.from_numpy(make_prompts(0, cfg.vocab, 4, 16))
-    new = 16
-    runs = {}
-    for where, model in (("cpu", cpu), ("card", card)):
-        torch.cuda.synchronize()
-        build.reset_launches()
-        pre, gen, last, _, _ = _serve(model, prompts.to(model.device), new)
-        runs[where] = (pre.cpu(), gen.cpu(), last.cpu(), dict(build.LAUNCHES))
-    (pre_c, gen_c, last_c, l_c), (pre_g, gen_g, last_g, l_g) = runs["cpu"], runs["card"]
-    check(l_c == want_launches(), f"phase4 lm: the CPU run launched {l_c}")
-    steps = prompts.shape[1] + new
-    check(l_g == want_launches(flash_attention=cfg.n_layers,
-                               decode_attention=cfg.n_layers * steps),
-          f"phase4 lm: card launches {l_g}")
-    check(torch.equal(gen_c, gen_g), f"phase4 lm: greedy tokens differ:\n{gen_c}\n{gen_g}")
-    err = max(float((pre_c - pre_g).abs().max()), float((last_c - last_g).abs().max()))
-    check(err <= 1e-4, f"phase4 lm: logits differ by {err:.3e} between CPU and card")
-    log(f"phase4 lm {cfg.name} (f32, {cfg.n_layers} layers, d {cfg.d_model}): CPU and card "
-        f"agree on {gen_g.numel()} greedy tokens; logits max |diff| {err:.3e}; card "
-        f"launches {l_g}")
+    prompt_len, new = 16, 16
+    steps = prompt_len + new
+    for arch in ("qwen3-8b", "xlstm-1.3b"):
+        cfg = get_smoke_config(arch)
+        cpu = build_model(cfg, "cpu").init(torch.Generator().manual_seed(0))
+        want = (want_launches(flash_attention=cfg.n_layers,
+                              decode_attention=cfg.n_layers * steps)
+                if cfg.arch_type == "dense" else
+                want_launches(slstm_scan=sum(s.kind == "slstm" for s in cpu.stacks)))
+        card = copy.deepcopy(cpu).to(DEVICE)
+        prompts = torch.from_numpy(make_prompts(0, cfg.vocab, 4, prompt_len))
+        runs = {}
+        for where, model in (("cpu", cpu), ("card", card)):
+            torch.cuda.synchronize()
+            build.reset_launches()
+            pre, gen, last, _, _ = _serve(model, prompts.to(model.device), new)
+            runs[where] = (pre.cpu(), gen.cpu(), last.cpu(), dict(build.LAUNCHES))
+        (pre_c, gen_c, last_c, l_c), (pre_g, gen_g, last_g, l_g) = runs["cpu"], runs["card"]
+        check(l_c == want_launches(), f"phase4 lm {arch}: the CPU run launched {l_c}")
+        check(l_g == want, f"phase4 lm {arch}: card launches {l_g}, want {want}")
+        check(torch.equal(gen_c, gen_g),
+              f"phase4 lm {arch}: greedy tokens differ:\n{gen_c}\n{gen_g}")
+        err = max(float((pre_c - pre_g).abs().max()), float((last_c - last_g).abs().max()))
+        check(err <= 1e-4, f"phase4 lm {arch}: logits differ by {err:.3e} between CPU and card")
+        log(f"phase4 lm {cfg.name} (f32, {cfg.n_layers} layers, d {cfg.d_model}): CPU and "
+            f"card agree on {gen_g.numel()} greedy tokens; logits max |diff| {err:.3e}; card "
+            f"launches {l_g}")
 
 
 def phase_lm_round_cpu_vs_card():
@@ -1328,7 +1477,8 @@ def _profile_report(name: str, fn, wall_us: float, steps: int, shares=None) -> N
     """Run ``fn`` once under torch.profiler and log the device busy share
     against the unprofiled wall time, the launches, the top device kernels
     and the top host ops; ``shares`` {label: name fragments} adds the share
-    of the busy time taken by the kernels whose names hold a fragment."""
+    of the busy time taken by the kernels whose names hold a fragment.
+    Returns the device kernels' profiler events."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1361,6 +1511,7 @@ def _profile_report(name: str, fn, wall_us: float, steps: int, shares=None) -> N
     host = [ev for ev in events if not str(ev.device_type).endswith("CUDA")]
     for ev in sorted(host, key=lambda ev: ev.self_cpu_time_total, reverse=True)[:8]:
         log(f"  host   {ev.self_cpu_time_total / 1e3:8.3f} ms x{ev.count:5d}  {ev.key[:90]}")
+    return kernels
 
 
 def phase_profile_batched(main):
@@ -1473,6 +1624,7 @@ def phase_serve():
     from repro_torch.launch.serve import make_prompts, serve_config
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
     from repro_torch.models import build_model
+    from repro_torch.models.transformer import run_stack
 
     def agreement(pre, last):
         rel = float((pre - last).abs().max()) / float(pre.abs().max())
@@ -1562,6 +1714,205 @@ def phase_serve():
     return serve
 
 
+def phase_xlstm():
+    """xLSTM-1.3B at full width and depth, bf16, weights drawn on the card:
+    the prefill (6 B7 launches) and the serve loop (none), timings, peak
+    memory and one warm decode step's profile; the same weights widened to
+    f32, served again: prefill and decode logits agree tightly in f32, and
+    the bf16 paths within XLSTM_BF16_REL of each other and of f32, with
+    the bf16 error read stack by stack; both prefills (the serve one and a
+    longer one at prefill_32k's settings) profiled, with the B7 step
+    kernels counted."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.launch.serve import greedy_decode, make_prompts, serve_config
+    from repro_torch.launch.shapes import SHAPES, shape_settings
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import run_stack
+
+    def agreement(pre, last):
+        rel = float((pre - last).abs().max()) / float(pre.abs().max())
+        argmax = float((pre.argmax(-1) == last.argmax(-1)).float().mean())
+        return rel, argmax
+
+    def stack_states(model, tokens):
+        """The prefill path's embedding and each stack's output."""
+        with torch.inference_mode():
+            x, positions = model.embed({"tokens": tokens})
+            states = [x]
+            for stack in model.stacks:
+                x = run_stack(stack, x, positions)[0]
+                states.append(x)
+        return states
+
+    def timed(fn):
+        """(fn(), seconds, the launches it made), the counts reset just
+        before it."""
+        torch.cuda.synchronize()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, dict(build.LAUNCHES)
+
+    t_phase = time.perf_counter()
+    cfg = serve_config("xlstm-1.3b", full=True)
+    b, p, new = XLSTM_BATCH, XLSTM_PROMPT, XLSTM_NEW
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, DEVICE).init(torch.Generator(device=DEVICE).manual_seed(0))
+    torch.cuda.synchronize()
+    n_slstm = sum(1 for s in model.stacks if s.kind == "slstm")
+    n_params = sum(x.numel() for x in model.parameters())
+    check(n_params == XLSTM_PARAMS, f"phase9: {n_params:,} parameters, want {XLSTM_PARAMS:,}")
+    log(f"phase9 {cfg.name}: {cfg.n_layers} blocks in {len(model.stacks)} stacks "
+        f"{[(s.kind, s.n) for s in model.stacks[:2]]} x {len(model.stacks) // 2}, d "
+        f"{cfg.d_model}, {cfg.n_heads} heads, vocab {cfg.vocab}, ssm_chunk {cfg.ssm_chunk}, "
+        f"{cfg.dtype}: {n_params:,} parameters "
+        f"({n_params * model.embedding.element_size() / 1e9:.2f} GB), drawn on the card "
+        f"in {time.perf_counter() - t0:.2f} s")
+    prompts = torch.from_numpy(make_prompts(0, cfg.vocab, b, p)).to(DEVICE)
+    prefill_step, serve_step = make_prefill_step(model), make_serve_step(model)
+    prefill_step({"tokens": prompts})                      # warm-up, not counted
+    pre, prefill_s, prefill_launches = timed(lambda: prefill_step({"tokens": prompts}))
+    check(prefill_launches == want_launches(slstm_scan=n_slstm),
+          f"phase9: prefill launches {prefill_launches}, want {n_slstm} slstm_scan")
+    cache = model.init_cache(b, p + new)
+    (gen, last), loop_s, loop_launches = timed(
+        lambda: greedy_decode(serve_step, cache, prompts, new))
+    check(loop_launches == want_launches(), f"phase9: the serve loop launched {loop_launches}")
+    steps = p + new
+    check(pre.shape == (b, 1, cfg.vocab) and last.shape == pre.shape,
+          f"phase9: logits {tuple(pre.shape)} / {tuple(last.shape)}")
+    check(bool(torch.isfinite(pre).all()) and bool(torch.isfinite(last).all()),
+          "phase9: non-finite logits")
+    check(gen.shape == (b, new) and int(gen.min()) >= 0 and int(gen.max()) < cfg.vocab,
+          f"phase9: generated tokens {tuple(gen.shape)}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    state_gb = sum(t.numel() * t.element_size() for c in cache for t in c.values()) / 1e9
+    ms_step = loop_s / steps * 1e3
+    prefill_kernels = _profile_report(
+        f"phase9 prefill (B {b} x {p})", lambda: prefill_step({"tokens": prompts}),
+        prefill_s * 1e6, 1, shares=PREFILL_SHARES)
+    step_kernels = sum(ev.count for ev in prefill_kernels if "slstm_step" in ev.key)
+    check(step_kernels == n_slstm * p, f"phase9 prefill: the profiler saw {step_kernels} B7 "
+                                       f"step kernels, want {n_slstm * p}")
+    log(f"phase9 prefill launches {prefill_launches}: {n_slstm} B7 scans of T = {p}, "
+        f"{step_kernels} step kernels under the profiler; serve loop launches "
+        f"{loop_launches}")
+    log(f"phase9 prefill (B {b} x {p} tokens, warm): {prefill_s:.4f} s; serve loop "
+        f"{steps} steps in {loop_s:.3f} s: {ms_step:.3f} ms/step, "
+        f"{b * steps / loop_s:.1f} tokens/s; peak device memory {peak_gb:.2f} GB (decode "
+        f"state {state_gb:.2f} GB)")
+    log(f"phase9 greedy tokens[0]: {gen[0].tolist()}")
+
+    # one warm decode step, profiled (the state's size does not depend on
+    # the position)
+    tok = gen[:, -1:].contiguous()
+
+    def step():
+        return serve_step(cache, tok, steps - 1)[0]
+
+    step()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    _profile_report(f"phase9 {cfg.name} decode step (B {b}, bf16)", step,
+                    sorted(walls)[2] * 1e6, 1)
+    states16 = stack_states(model, prompts)
+    out = dict(prefill_launches=prefill_launches, loop_launches=loop_launches,
+               step_kernels=step_kernels, prefill_s=prefill_s, ms_per_step=ms_step,
+               tokens_per_s=b * steps / loop_s, peak_gb=peak_gb)
+    del cache, prefill_step, serve_step
+    torch.cuda.empty_cache()
+
+    # the same weights widened to f32, at full depth: prefill and decode
+    # held tightly, and each bf16 path against them
+    model.float()
+    build.reset_launches()
+    pre32, _, last32, _, _ = _serve(model, prompts, 1)
+    launches32 = dict(build.LAUNCHES)
+    check(launches32 == want_launches(slstm_scan=n_slstm), f"phase9 f32: launches {launches32}")
+    rel32, argmax32 = agreement(pre32, last32)
+    check(rel32 <= XLSTM_F32_REL, f"phase9 f32: prefill vs decode logits differ by "
+                                  f"{rel32:.3e} of max |logit| > {XLSTM_F32_REL}")
+    rel, argmax = agreement(pre, last)
+    pre_err, dec_err = agreement(pre, pre32)[0], agreement(last, last32)[0]
+    for what, value in (("prefill vs decode", rel), ("prefill vs f32", pre_err),
+                        ("decode vs f32", dec_err)):
+        check(value <= XLSTM_BF16_REL, f"phase9 bf16: {what} logits differ by {value:.3e} of "
+                                       f"max |logit| > {XLSTM_BF16_REL}")
+    log(f"phase9 f32 (the bf16 weights widened), {cfg.n_layers} blocks: prefill vs decode "
+        f"logits at position {p - 1}: max |diff| / max |logit| = {rel32:.4e} (bound "
+        f"{XLSTM_F32_REL}); argmax agreement {argmax32:.3f}; launches {launches32}")
+    log(f"phase9 bf16 logits at position {p - 1}, max |diff| / max |logit| (bound "
+        f"{XLSTM_BF16_REL}): prefill vs decode {rel:.4e} (argmax agreement {argmax:.3f}), "
+        f"prefill vs f32 {pre_err:.4e}, decode vs f32 {dec_err:.4e}; max |logit| "
+        f"{float(pre.abs().max()):.4f}")
+    # where the bf16 error grows: each stack's bf16 output on the prefill
+    # path against the f32 run (free) and against the f32 stack fed the same
+    # bf16 input (that stack's own error), over max |x| of the f32 run
+    states32 = stack_states(model, prompts)
+    positions = torch.arange(p, device=DEVICE)
+    log("phase9 bf16 vs f32 on the prefill path, by stack: kind, max |x| (f32), the "
+        "stack's own error (fed the bf16 input), the free run's error")
+    for k, stack in enumerate(model.stacks):
+        with torch.inference_mode():
+            own = run_stack(stack, states16[k].float(), positions)[0]
+        scale = float(states32[k + 1].abs().max())
+        log(f"  stack {k:2d} {stack.kind} {scale:8.3f} "
+            f"{float((own - states16[k + 1].float()).abs().max()) / scale:.3e} "
+            f"{float((states32[k + 1] - states16[k + 1].float()).abs().max()) / scale:.3e}")
+    del model, states16, states32, own
+    torch.cuda.empty_cache()
+    out.update(rel=rel, argmax=argmax, rel_prefill_f32=pre_err, rel_decode_f32=dec_err,
+               rel_f32=rel32, argmax_f32=argmax32)
+
+    # a longer prefill at prefill_32k's settings (ssm_chunk 2,048)
+    cfg_long = dataclasses.replace(get_config("xlstm-1.3b"),
+                                   **shape_settings(SHAPES["prefill_32k"]))
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg_long, DEVICE).init(torch.Generator(device=DEVICE).manual_seed(0))
+    tokens = torch.from_numpy(make_prompts(1, cfg.vocab, b, XLSTM_LONG_PROMPT)).to(DEVICE)
+    prefill_step = make_prefill_step(model)
+
+    def long_prefill():
+        return prefill_step({"tokens": tokens})
+
+    long_prefill()                                         # warm-up, not counted
+    logits, long_s, long_launches = timed(long_prefill)
+    check(long_launches == want_launches(slstm_scan=n_slstm),
+          f"phase9 long prefill: launches {long_launches}")
+    check(bool(torch.isfinite(logits).all()), "phase9 long prefill: non-finite logits")
+    long_peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"phase9 long prefill ({cfg_long.dtype}, ssm_chunk {cfg_long.ssm_chunk}, B {b} x "
+        f"{XLSTM_LONG_PROMPT} tokens, warm): {long_s:.4f} s, "
+        f"{b * XLSTM_LONG_PROMPT / long_s:.0f} tokens/s; peak device memory "
+        f"{long_peak:.2f} GB")
+    kernels = _profile_report(
+        f"phase9 long prefill (B {b} x {XLSTM_LONG_PROMPT})", long_prefill, long_s * 1e6, 1,
+        shares=PREFILL_SHARES)
+    step_kernels = sum(ev.count for ev in kernels if "slstm_step" in ev.key)
+    check(step_kernels == n_slstm * XLSTM_LONG_PROMPT,
+          f"phase9 long prefill: the profiler saw {step_kernels} B7 step kernels, want "
+          f"{n_slstm * XLSTM_LONG_PROMPT}")
+    del model, prefill_step, logits
+    torch.cuda.empty_cache()
+    out.update(long_prefill_s=long_s, long_peak_gb=long_peak, long_step_kernels=step_kernels,
+               seconds=time.perf_counter() - t_phase)
+    log(f"phase9 took {out['seconds']:.1f} s")
+    return out
+
+
 # ---------------------------------------------------------------------------
 
 def main() -> None:
@@ -1608,6 +1959,7 @@ def main() -> None:
     serve = phase_serve()
     train = phase_train()
     rounds = phase_round()
+    xlstm = phase_xlstm()
 
     sources = {"quant_dequant": ("src/repro/kernels/quant_exchange.py:85",
                                  "src/repro_torch/kernels/csrc/quant_exchange.cu"),
@@ -1627,19 +1979,24 @@ def main() -> None:
                "flash_attention_bwd": ("none; XLA autodiff of src/repro/models/attention.py:82",
                                        "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"),
                "decode_attention": ("src/repro/kernels/decode_attention.py:66",
-                                    "src/repro_torch/kernels/csrc/decode_attention.cu")}
+                                    "src/repro_torch/kernels/csrc/decode_attention.cu"),
+               "slstm_scan": ("src/repro/kernels/slstm_scan.py:67",
+                              "src/repro_torch/kernels/csrc/slstm_scan.cu")}
     # launches: each kernel's own path, driven with the counts reset just
     # before it: the batched round for B1-B3 (the only path that reaches all
     # three), the Qwen3-8B serve run for B5/B6, the last Qwen3-8B train step
-    # for B4 and B5's backward; every path's counts ride beside them.  Device times: graph replays back to back, which find
-    # inputs of up to the 50 MB L2 still there (l2_warm), and one call after
-    # an L2 flush (l2_cold), the figure to hold against bound_ms.
+    # for B4 and B5's backward, the xLSTM-1.3B prefill for B7; every path's
+    # counts ride beside them.  Device times: graph replays back to back,
+    # which find inputs of up to the 50 MB L2 still there (l2_warm), and one
+    # call after an L2 flush (l2_cold), the figure to hold against bound_ms.
     by_path = {"sequential": seq_launches, "batched": launches, "serve": serve["launches"],
                "train": train["launches"],
-               **{f"round_{q}": r["launches"] for q, r in rounds.items()}}
+               **{f"round_{q}": r["launches"] for q, r in rounds.items()},
+               "xlstm_prefill": xlstm["prefill_launches"],
+               "xlstm_decode": xlstm["loop_launches"]}
     own = {name: ("serve" if name in ("flash_attention", "decode_attention") else
                   "train" if name in ("fused_xent", "fused_xent_bwd", "flash_attention_bwd")
-                  else "batched")
+                  else "xlstm_prefill" if name == "slstm_scan" else "batched")
            for name in kernels}
 
     def ms(us):
@@ -1656,6 +2013,10 @@ def main() -> None:
                      device_ms_l2_cold=ms(k["kernel_cold_us"]), plain_ms=ms(k["plain_us"]),
                      bound_ms=ms(k["bound_us"]), bound_by=k["bound_by"],
                      library_ms=ms(k.get("library_us")))
+        if "step_us" in k:
+            # B7 launches T step kernels a call (the scan's dependency chain),
+            # counted by the profiler over one prefill of the path
+            entry.update(step_kernels=xlstm["step_kernels"], device_ms_a_step=ms(k["step_us"]))
         if "long_context" in k:
             lc = k["long_context"]
             entry["long_context"] = dict(
@@ -1667,7 +2028,7 @@ def main() -> None:
         entries.append(entry)
     log(f"phase2 seconds_per_round={s_per_round:.3f}; phase2b (batched) "
         f"seconds_per_round={b_per_round:.3f}; phase6 serve {serve}; phase7 train {train}; "
-        f"phase8 rounds {rounds}")
+        f"phase8 rounds {rounds}; phase9 xlstm {xlstm}")
     log(json.dumps({"kernels": entries}))
     log(card)
     log(json.dumps({"ok": True, "device": {

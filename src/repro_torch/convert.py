@@ -14,13 +14,18 @@ The batched round's cluster-stacked halves hold R such parameter sets:
 :func:`stack_reference` stacks R converted reference sets and
 :func:`slot_to_reference` takes slot r back out.
 
-The dense LM's parameters are the pytree of the reference's ``Model.init``::
+The LM's parameters are the pytree of the reference's ``Model.init``::
 
     {"embed": (V, d), "final_norm": {"scale": (d,)}, "head": {"w": (d, V)},
      "stacks": ({"ln1": {"scale": (n, d)}, "ln2": ...,
                  "attn": {"wq": {"w": (n, d, H*D), "b"?}, "wk", "wv", "wo",
                           "q_norm"?: {"scale": (n, D)}, "k_norm"?},
                  "mlp": {"gate": {"w"}, "up": {"w"}, "down": {"w"}}},)}
+
+An xLSTM model's stacks hold ``{"ln": {"scale"}, "mixer": {...}}`` the same
+way: an mLSTM layer's mixer ``up``, ``wq``, ``wk``, ``wv``, ``w_if`` (+ ``b``),
+``out_norm`` and ``down``; an sLSTM layer's ``w_in`` (+ ``b``), the bare
+array ``r`` (n, H, dh, 4dh), ``out_norm`` and ``down``.
 
 A stack's leaves carry the layer axis first; :func:`lm_from_reference` maps
 it onto the stack's ``nn.ModuleList`` (a layer's parameter names are the
@@ -122,7 +127,7 @@ def _leaf(tree: Tree, path: str):
 
 @torch.no_grad()
 def lm_from_reference(cfg: ModelConfig, params: Tree) -> Model:
-    """The reference's dense-LM parameter pytree -> the port's
+    """The reference's LM parameter pytree (dense or xLSTM) -> the port's
     :class:`Model`, on the CPU."""
     model = build_model(cfg, "cpu")
     if len(params["stacks"]) != len(model.stacks):

@@ -65,6 +65,10 @@ SOURCES: Dict[str, Dict[str, Tuple]] = {
         "repro_decode_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                                    _I, _F, _I, _P),
     },
+    "slstm_scan": {
+        # pre, r, out, ws, t, b, d, heads, dtype, stream
+        "repro_slstm_scan": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    },
 }
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
@@ -73,7 +77,7 @@ _LOADED: Dict[str, ctypes.CDLL] = {}
 LAUNCHES: Dict[str, int] = {"quant_dequant": 0, "quant_dequant_stats": 0,
                             "tamper_check_sums": 0, "fused_xent": 0, "fused_xent_bwd": 0,
                             "flash_attention": 0, "flash_attention_bwd": 0,
-                            "decode_attention": 0}
+                            "decode_attention": 0, "slstm_scan": 0}
 
 
 def reset_launches() -> None:

@@ -14,6 +14,7 @@ from . import decode_attention as _da
 from . import flash_attention as _fa
 from . import fused_xent as _fx
 from . import quant_exchange as _qx
+from . import slstm_scan as _ss
 from . import tamper_check as _tc
 
 
@@ -139,6 +140,21 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, index: i
     return _da.decode_attention(q, k, v, index, window=window)
 
 
+def slstm_scan(pre: torch.Tensor, r: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """The sLSTM time scan (B7): pre (T, B, 4d) input pre-activations, r
+    (H, dh, 4dh) recurrent weights -> hidden states (T, B, d) in pre's
+    dtype, f32 state.  A CPU tensor takes the plain version, which autograd
+    differentiates; on the card the kernel has no backward yet, so a CUDA
+    tensor that needs a gradient raises."""
+    if pre.device.type == "cpu":
+        return _ss.slstm_scan_plain(pre, r, n_heads)
+    if _needs_grad(pre, r):
+        raise NotImplementedError("slstm_scan on the card with a gradient needs B7's "
+                                  "backward: the xLSTM training slice (ROADMAP Queue A "
+                                  "item 10)")
+    return _ss.slstm_scan(pre.contiguous(), r.contiguous(), n_heads)
+
+
 __all__ = ["decode_attention", "flash_attention", "fused_cross_entropy", "largest_divisor",
-           "quant_cut_exchange", "quant_roundtrip", "quant_roundtrip_stats",
+           "quant_cut_exchange", "quant_roundtrip", "quant_roundtrip_stats", "slstm_scan",
            "tamper_distance"]

@@ -1,5 +1,5 @@
 """Top-level LM: the reference's ``repro/models/model.py`` for the dense
-family, as an ``nn.Module`` that holds its parameters.
+family and xLSTM, as an ``nn.Module`` that holds its parameters.
 
 ``build_model(cfg, device)`` allocates the parameters uninitialised on the
 device (the card unless ``device="cpu"``); :meth:`Model.init` draws them
@@ -22,9 +22,11 @@ pytree become methods:
 
 Forward, loss and the split view are differentiable: the attention runs
 through B5 and its backward, the loss through B4 (``ops.
-fused_cross_entropy``, forward and backward) on the card.  ``cfg.remat``
-checkpoints each layer.  The serve path (``decode_step``, the prefill step)
-runs under ``torch.inference_mode()``.
+fused_cross_entropy``, forward and backward) on the card.  An xLSTM model
+differentiates on the CPU only: B7 has no backward kernel yet, so its scan
+raises on the card when a gradient is recorded.  ``cfg.remat`` checkpoints
+each layer.  The serve path (``decode_step``, the prefill step) runs under
+``torch.inference_mode()``.
 """
 from __future__ import annotations
 
@@ -244,7 +246,8 @@ class Model(nn.Module):
 
     # -- decode -----------------------------------------------------------------
     def init_cache(self, batch_size: int, max_seq: int) -> Cache:
-        """Zeroed KV caches in the model's dtype, one per stack."""
+        """Zeroed decode caches, one per stack: KV caches in the model's
+        dtype, the xLSTM kinds' recurrent state in f32."""
         return tuple(tfm.init_stack_cache(self.cfg, stack, batch_size, max_seq, self.dtype,
                                           self.device)
                      for stack in self.stacks)
@@ -266,10 +269,24 @@ def _slice_meta(meta: Dict[str, Any], lo: int, hi: int) -> Dict[str, Any]:
 
 def build_plan(cfg: ModelConfig) -> List[StackPlan]:
     """Static stack layout, which ``tfm.build_stacks`` builds: one
-    ``attn_mlp`` stack with each layer's sliding window (0 = global)."""
-    if cfg.arch_type != "dense":
+    ``attn_mlp`` stack with each layer's sliding window (0 = global) for
+    the dense family; for xLSTM, ``slstm_every - 1`` mLSTM blocks then one
+    sLSTM block, repeated over ``n_layers``."""
+    if cfg.arch_type == "dense":
+        return [StackPlan("attn_mlp", cfg.n_layers, {"window": tfm._layer_windows(cfg)})]
+    if cfg.arch_type != "ssm" or not cfg.slstm_every:
         raise tfm.not_ported(cfg.arch_type)
-    return [StackPlan("attn_mlp", cfg.n_layers, {"window": tfm._layer_windows(cfg)})]
+    plan: List[StackPlan] = []
+    remaining = cfg.n_layers
+    while remaining > 0:
+        n_m = min(cfg.slstm_every - 1, remaining)
+        if n_m > 0:
+            plan.append(StackPlan("mlstm", n_m, {}))
+            remaining -= n_m
+        if remaining > 0:
+            plan.append(StackPlan("slstm", 1, {}))
+            remaining -= 1
+    return plan
 
 
 def build_model(cfg: ModelConfig, device: DeviceLike = None) -> Model:

@@ -1,15 +1,20 @@
 """Decoder assembly: the reference's ``repro/models/transformer.py`` for the
-dense family (``arch_type="dense"``, the ``attn_mlp`` stack kind).
+dense family (``arch_type="dense"``, the ``attn_mlp`` stack kind) and xLSTM
+(``arch_type="ssm"`` with ``slstm_every``, the ``mlstm`` and ``slstm``
+kinds).
 
 The model is an ordered list of homogeneous :class:`BlockStack`\\ s.  Where
 the reference stacks a stack's layers on a leading axis and runs them under
 ``lax.scan``, a port stack keeps them in an ``nn.ModuleList`` and loops;
 ``convert.py`` maps the one onto the other.  A stack's per-layer sliding
 windows (gemma3's local:global pattern) ride in ``meta["window"]`` as ints
-and reach the attention kernels as a runtime argument.
+and reach the attention kernels as a runtime argument; the xLSTM kinds have
+no meta.
 
-The decode cache of an ``attn_mlp`` stack is {"k", "v"} of (n, B, max_seq,
-Hkv, D), the reference's layout; layer i writes its slice in place.  A stack
+A stack's decode cache is a dict of tensors with the layer axis first, the
+reference's layout: {"k", "v"} of (n, B, max_seq, Hkv, D) for ``attn_mlp``,
+the mixers' recurrent state for ``mlstm`` and ``slstm``
+(``xlstm.init_*_cache``); layer i updates its slice in place.  A stack
 splits at the split-learning cut by slicing its layer list
 (:func:`slice_stack`), which shares the layers.
 """
@@ -21,6 +26,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from . import xlstm
 from .attention import GQA, AttnConfig, init_kv_cache
 from .blocks import DTYPES, RMSNorm, SwiGLU
 from .config import ModelConfig
@@ -28,7 +34,7 @@ from .config import ModelConfig
 #: where each unported arch_type comes (ROADMAP.md, Queue A item 10)
 UNPORTED = {
     "moe": "the MLA/MoE slice",
-    "ssm": "the xLSTM slice (with B7) and the SSM slice",
+    "ssm": "the SSM slice (Mamba2, slstm_every = 0; xLSTM is ported)",
     "hybrid": "the SSM slice",
     "encdec": "the encdec slice",
     "audio": "the encdec slice",
@@ -40,7 +46,7 @@ def not_ported(arch_type: str) -> NotImplementedError:
     where = UNPORTED.get(arch_type, "no slice: unknown arch_type")
     return NotImplementedError(
         f"arch_type {arch_type!r} is not ported yet: ROADMAP.md Queue A item 10, {where}; "
-        f"the port builds arch_type='dense'")
+        f"the port builds arch_type='dense' and xLSTM (arch_type='ssm' with slstm_every)")
 
 
 def attn_cfg(cfg: ModelConfig) -> AttnConfig:
@@ -50,6 +56,12 @@ def attn_cfg(cfg: ModelConfig) -> AttnConfig:
         d_model=cfg.d_model, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
         head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
         qkv_bias=cfg.qkv_bias, qk_norm=cfg.qk_norm)
+
+
+def xlstm_cfg(cfg: ModelConfig) -> xlstm.XLSTMConfig:
+    return xlstm.XLSTMConfig(
+        d_model=cfg.d_model, n_heads=cfg.n_heads, chunk=cfg.ssm_chunk,
+        state_dtype=("bfloat16" if "mlstm_bf16_state" in cfg.optimizations else "float32"))
 
 
 class AttnMLPLayer(nn.Module):
@@ -77,6 +89,28 @@ class AttnMLPLayer(nn.Module):
         return x + self.mlp(self.ln2(x))
 
 
+class XLSTMBlock(nn.Module):
+    """Pre-norm xLSTM block of kind ``mlstm`` or ``slstm``: ``x + mixer(ln(x))``."""
+
+    MIXERS = {"mlstm": xlstm.MLSTM, "slstm": xlstm.SLSTM}
+
+    def __init__(self, cfg: ModelConfig, kind: str, device=None):
+        super().__init__()
+        kw = dict(dtype=DTYPES[cfg.dtype], device=device)
+        self.ln = RMSNorm(cfg.d_model, **kw)
+        self.mixer = self.MIXERS[kind](xlstm_cfg(cfg), **kw)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        self.ln.reset_parameters()
+        self.mixer.reset_parameters(generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x + self.mixer(self.ln(x))
+
+    def decode(self, x: torch.Tensor, cache: Dict[str, torch.Tensor]) -> torch.Tensor:
+        return x + self.mixer.decode(self.ln(x), cache)
+
+
 class BlockStack(nn.Module):
     """``n`` layers of one ``kind``, with per-layer metadata in ``meta``."""
 
@@ -96,11 +130,23 @@ def _layer_windows(cfg: ModelConfig) -> Tuple[int, ...]:
     return (cfg.sliding_window,) * cfg.n_layers
 
 
+def _layer(cfg: ModelConfig, kind: str, device) -> nn.Module:
+    return AttnMLPLayer(cfg, device) if kind == "attn_mlp" else XLSTMBlock(cfg, kind, device)
+
+
 def build_stacks(cfg: ModelConfig, plan, device=None) -> List[BlockStack]:
     """The stacks of ``plan`` (``model.build_plan(cfg)``), parameters
     allocated uninitialised on ``device``."""
-    return [BlockStack(sp.kind, [AttnMLPLayer(cfg, device) for _ in range(sp.n)], sp.meta)
+    return [BlockStack(sp.kind, [_layer(cfg, sp.kind, device) for _ in range(sp.n)], sp.meta)
             for sp in plan]
+
+
+def _layer_args(stack: BlockStack, *head) -> List[tuple]:
+    """Each layer's arguments after x (and its cache): ``head`` and the
+    layer's window for an ``attn_mlp`` stack, nothing for the xLSTM kinds."""
+    if stack.kind == "attn_mlp":
+        return [(*head, window) for window in stack.meta["window"]]
+    return [()] * stack.n
 
 
 def run_stack(stack: BlockStack, x: torch.Tensor, positions: torch.Tensor,
@@ -110,11 +156,11 @@ def run_stack(stack: BlockStack, x: torch.Tensor, positions: torch.Tensor,
     being recorded: its activations are recomputed in the backward, as the
     reference's ``jax.checkpoint`` of the scanned layer body does."""
     ckpt = remat and torch.is_grad_enabled()
-    for layer, window in zip(stack.layers, stack.meta["window"]):
+    for layer, args in zip(stack.layers, _layer_args(stack, positions)):
         if ckpt:
-            x = checkpoint(layer, x, positions, window, use_reentrant=False)
+            x = checkpoint(layer, x, *args, use_reentrant=False)
         else:
-            x = layer(x, positions, window)
+            x = layer(x, *args)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
@@ -128,6 +174,12 @@ def slice_stack(stack: BlockStack, lo: int, hi: int) -> BlockStack:
 
 def init_stack_cache(cfg: ModelConfig, stack: BlockStack, batch: int, max_seq: int,
                      dtype: torch.dtype, device=None) -> Dict[str, torch.Tensor]:
+    """A stack's zeroed decode cache: the KV cache in ``dtype``, or the
+    xLSTM kinds' recurrent state (f32, independent of ``max_seq``)."""
+    if stack.kind == "mlstm":
+        return xlstm.init_mlstm_cache(batch, xlstm_cfg(cfg), device, stack.n)
+    if stack.kind == "slstm":
+        return xlstm.init_slstm_cache(batch, xlstm_cfg(cfg), device, stack.n)
     return init_kv_cache(stack.n, batch, max_seq, attn_cfg(cfg), dtype, device)
 
 
@@ -135,10 +187,11 @@ def decode_stack(stack: BlockStack, x: torch.Tensor, cache: Dict[str, torch.Tens
                  index: int) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One decode step through a stack.  x: (B, 1, d_model); the cache is
     written in place and returned."""
-    for i, (layer, window) in enumerate(zip(stack.layers, stack.meta["window"])):
-        x = layer.decode(x, {"k": cache["k"][i], "v": cache["v"][i]}, index, window)
+    for i, (layer, args) in enumerate(zip(stack.layers, _layer_args(stack, index))):
+        x = layer.decode(x, {name: t[i] for name, t in cache.items()}, *args)
     return x, cache
 
 
-__all__ = ["AttnMLPLayer", "BlockStack", "attn_cfg", "build_stacks", "decode_stack",
-           "init_stack_cache", "not_ported", "run_stack", "slice_stack"]
+__all__ = ["AttnMLPLayer", "BlockStack", "XLSTMBlock", "attn_cfg", "build_stacks",
+           "decode_stack", "init_stack_cache", "not_ported", "run_stack", "slice_stack",
+           "xlstm_cfg"]
