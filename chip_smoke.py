@@ -12,20 +12,26 @@ from the repository root.  Phases, in order; any failure exits non-zero:
      shapes the main paths give it and a few edge shapes: the wire kernels'
      deq/scales bit-equal, stats within rtol 1e-5, two runs bit-identical
      (B2 also over the batched path's R*B rows, the stats kernel also with
-     R messages in one launch); the tamper
+     R messages in one launch; both at an LM's cut message (4, 2,097,152),
+     which B3 runs on its wide path, and B3 also on (2, 4, 12,288), timed
+     beside their bytes bound); the tamper
      check's sums within rtol 1e-5 of the plain version and of a float64
      sum, bit-identical from run to run, exactly 0 on identical inputs and
      above the tolerance only for a tampered candidate; the attention
      kernels (B5 flash attention, B6 decode attention) within atol 2e-5
      (f32) and 2e-2 (bf16) of their plain versions at the serve path's
      shapes and edge shapes (MQA, groups 1, windows, head dims 64/80/256,
-     ragged S, index 0), bit-identical from run to run; each kernel's time
+     ragged S, index 0), bit-identical from run to run, B5's forward on both
+     routes (the tensor-core kernel, wgmma with TMA loads, and the f32-FMA
+     kernel) wherever it takes the tensor cores; each kernel's time
      (eager, graph-replayed with the L2 warm, one call with it cold) beside
      its plain version's, its bound and, for B5/B6, the time of PyTorch's
      ``scaled_dot_product_attention`` on the same inputs (a yardstick the
-     port never calls), also at two long-context shapes; B4 (fused
-     cross-entropy) forward within atol 1e-5 (f32) and 3e-2 (bf16) of its
-     plain version, loss and lse, and its backward (dh, dW) and B5's
+     port never calls), also at two long-context shapes, B5's f32-FMA route
+     timed beside its tensor-core route; B4 (fused cross-entropy) forward
+     within atol 1e-5 (f32) and 3e-2 (bf16) of its plain version, loss and
+     lse, on both routes wherever it takes the tensor cores (both timed),
+     and its backward (dh, dW) and B5's
      backward (dq, dk, dv) within rel 1e-4 (f32) and 3e-2 (bf16) of
      autograd of the plain versions, at the train shapes (T 2,048 through
      Qwen3-8B's 4,096 x 151,936 head; B 4, S 512, 32/8 heads of 128) and
@@ -37,7 +43,8 @@ from the repository root.  Phases, in order; any failure exits non-zero:
      of its plain version at the xLSTM prefill shape (T 512, B 4, d 2,048,
      H 4) and edges (H 1 and 2, dh 40, ragged units, B 1/3/5, T 1),
      bit-identical run to run, timed (no PyTorch call computes the scan),
-     also at T 4,096;
+     also at T 4,096; the tensor-core routes' libraries hold HGMMA and
+     UTMALDG instructions in their SASS (cuobjdump), the f32-FMA ones none;
   2. the sequential main path at full width: the CIFAR-10 split CNN (convs
      32/64/128, d_c = 256, FC 128/64/10) at the paper's Table II sizes
      through ``run_pigeon(engine="sequential", quant="int8",
@@ -63,7 +70,8 @@ from the repository root.  Phases, in order; any failure exits non-zero:
      share, launches, the top kernels and the host ops;
   6. the serve path: Qwen3-8B at full width and depth (36 layers, bf16,
      8.19 B parameters drawn on the card from a seed) prefills 4 prompts of
-     480 tokens through ``make_prefill_step`` (36 B5 launches), then runs the
+     480 tokens through ``make_prefill_step`` (36 B5 launches, all on the
+     tensor-core route), then runs the
      reference serve loop through ``make_serve_step`` (the prompt stepped,
      then 32 greedy tokens: 512 steps, 18,432 B6 launches); prefill and
      decode logits at the prompt's last position agree (bf16 bound, and at
@@ -73,16 +81,18 @@ from the repository root.  Phases, in order; any failure exits non-zero:
      remat: the reference's train_4k settings with the sequence cut to
      512), three ``make_train_step`` calls on one (4, 512) batch of
      ``build_lm_task`` tokens: the loss finite and falling, per step 72 B5
-     forwards (remat recomputes each), 36 B5 backwards, one B4 forward and
-     one backward; seconds and tokens per step, peak memory, one step's
-     profile with B4's and B5's shares; at 4 layers in f32 the kernel
-     path's loss and every gradient within rel 1e-4 of the plain path's;
+     forwards (remat recomputes each) and one B4 forward, all on the
+     tensor-core route, 36 B5 backwards and one B4 backward; seconds and
+     tokens per step, peak memory, one step's profile with B4's and B5's
+     shares; at 4 layers in f32 the kernel path (the f32-FMA route) holds
+     its loss and every gradient within rel 1e-4 of the plain path's;
   8. the Pigeon-SL round over ``from_lm`` at Qwen3-8B's width, depth cut
      to 12 layers (9 client + 3 AP): ``run_pigeon`` (argmin, label flip on
      client 0, Pigeon-SL+, T = 2) without the wire and with int8 through
-     B2; finite losses, ``selected == argmin(val_losses)``, the launches
-     the round's structure predicts, exchange bytes, seconds per round and
-     peak memory;
+     B2, then with int8 and ``selection="loss_plus_distance"`` (B3 on its
+     wide path for every client step's uplink); finite losses, the
+     selection the policy's scores give, the launches the round's
+     structure predicts, exchange bytes, seconds per round and peak memory;
   9. the xLSTM serve path: xLSTM-1.3B at full width and depth (48 blocks,
      (mLSTM 7, sLSTM 1) x 6, bf16, 3,529,644,368 parameters drawn on the
      card) prefills 4 prompts of 512 tokens through ``make_prefill_step``
@@ -118,10 +128,15 @@ F32_OPS_PER_S = 67e12           # H100 SXM f32 rate outside the tensor cores
 # the batched round's messages: R = 5 clusters of (B, d_c) = (64, 256)
 BATCHED_MESSAGES = (5, 64, 256)
 TIMED_SHAPE = (64, 256)         # (B, d_c) of the CIFAR cut layer at B = 64
+# an LM's cut message: B 4 x (S 512 * d_model 4,096) (phase 8), which B3
+# takes on its wide path (wider than quant_exchange.MAX_STATS_D); and R = 2
+# wide messages in one stats call
+LM_MESSAGE = (4, 2_097_152)
+WIDE_BATCHED = (2, 4, 12_288)
 # the wire kernels' checks: the batched path's R*B rows (one B2 launch a
-# step), the sequential path's one message, then edge shapes
+# step), the sequential path's one message, then edge shapes and the LM's
 KERNEL_SHAPES = ((BATCHED_MESSAGES[0] * BATCHED_MESSAGES[1], BATCHED_MESSAGES[2]),
-                 TIMED_SHAPE, (64, 32), (37, 200), (1, 256), (1024, 4096))
+                 TIMED_SHAPE, (64, 32), (37, 200), (1, 256), (1024, 4096), LM_MESSAGE)
 # the tamper check's (R, D_o, d_c): CIFAR, MNIST, ragged, tiny, large
 TAMPER_SHAPES = ((5, 3000, 256), (4, 3000, 32), (3, 37, 200), (1, 1, 256),
                  (2, 4096, 4096))
@@ -232,6 +247,35 @@ def want_launches(**counts) -> dict:
     """``build.LAUNCHES`` as a path should leave it: ``counts``, else 0."""
     from repro_torch.kernels import build
     return {**dict.fromkeys(build.LAUNCHES, 0), **counts}
+
+
+#: the libraries of each route of B5's and B4's forwards
+TC_LIBRARIES = ("flash_attention_tc", "fused_xent_tc")
+FMA_LIBRARIES = ("flash_attention", "fused_xent")
+
+
+def phase_sass() -> dict:
+    """Count the Hopper instructions in each built library's SASS
+    (``cuobjdump --dump-sass``): the tensor-core routes must hold wgmma
+    (HGMMA) and TMA loads (UTMALDG), the f32-FMA routes neither."""
+    import shutil
+
+    from repro_torch.kernels import build
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    counts = {}
+    for name in build.SOURCES:
+        sass = subprocess.run([tool, "--dump-sass", str(build.library_path(name))],
+                              capture_output=True, text=True, timeout=300, check=True).stdout
+        counts[name] = {op: len(re.findall(rf"\b{op}\b", sass))
+                        for op in ("HGMMA", "UTMALDG")}
+    for name in TC_LIBRARIES:
+        check(all(counts[name].values()), f"phase0: {name}'s SASS lacks wgmma or TMA: "
+                                          f"{counts[name]}")
+    for name in FMA_LIBRARIES:
+        check(not any(counts[name].values()), f"phase0: the f32-FMA route {name} holds "
+                                              f"Hopper tensor-core instructions {counts[name]}")
+    log(f"phase0 SASS instruction counts (HGMMA: wgmma, UTMALDG: TMA loads): {counts}")
+    return counts
 
 
 def card_line() -> str:
@@ -370,17 +414,19 @@ def phase_kernels():
         if stats:
             max_err = max(max_err, _check_batched_stats())
         # the batched main path's shape (R*B rows, or R messages), then the
-        # sequential path's (one message)
+        # sequential path's (one message), then the LM round's
         m, n, d = BATCHED_MESSAGES
         main_shape = (m, n, d) if stats else (m * n, d)
-        for shape in (main_shape, TIMED_SHAPE):
+        for shape in (main_shape, TIMED_SHAPE, LM_MESSAGE):
             x = _message(shape, seed=99)
+            n, d = shape[-2:]
             rows = x.numel() // d
-            kernel_us = _time_us(kernel, x, "int8")
-            plain_us = _time_us(plain, x, "int8")
-            kernel_dev_us = _graph_time_us(kernel, x, "int8")
-            plain_dev_us = _graph_time_us(plain, x, "int8")
-            kernel_cold_us = _cold_time_us(kernel, x, "int8")
+            few = dict(reps=20, samples=5) if shape == LM_MESSAGE else {}
+            kernel_us = _time_us(kernel, x, "int8", **few)
+            plain_us = _time_us(plain, x, "int8", **few)
+            kernel_dev_us = _graph_time_us(kernel, x, "int8", **few)
+            plain_dev_us = _graph_time_us(plain, x, "int8", **few)
+            kernel_cold_us = _cold_time_us(kernel, x, "int8", reps=10 if few else 50)
             msgs = rows // n if stats else 1
             # each input read once, each output written once
             n_bytes = 4 * rows * d + 4 * rows * d + 4 * rows + (8 * msgs if stats else 0)
@@ -394,13 +440,16 @@ def phase_kernels():
                           bound_by="bytes" if bytes_us >= ops_us else "operations")
             if shape == main_shape:
                 results[name] = dict(max_abs_err=max_err, shape=list(shape), **timing)
+            if shape == LM_MESSAGE:
+                results[name]["lm_message"] = dict(shape=list(shape), **timing)
             log(f"phase1 {name} at {shape} int8: kernel_us={kernel_us:.3f} "
                 f"plain_us={plain_us:.3f} bound_us={timing['bound_us']:.4f} "
                 f"({timing['bound_by']}); graph-replayed device time (L2 warm): "
                 f"kernel_us={kernel_dev_us:.3f} plain_us={plain_dev_us:.3f}; one "
                 f"call with the L2 cold: kernel_us={kernel_cold_us:.3f}")
+        batched = f" and R messages at {[BATCHED_MESSAGES, WIDE_BATCHED]}"
         log(f"phase1 {name}: bit-equal to plain at {list(KERNEL_SHAPES)} "
-            f"(int8, fp8_e4m3){' and R messages at ' + str(BATCHED_MESSAGES) if stats else ''}; "
+            f"(int8, fp8_e4m3){batched if stats else ''}; "
             f"max_abs_err={max_err:.3e}")
     results["tamper_check_sums"] = _phase_tamper()
     results.update(_phase_xent())
@@ -411,23 +460,26 @@ def phase_kernels():
 
 
 def _check_batched_stats() -> float:
-    """R messages through one stats launch: each slot bit-equal to the plain
-    version's (deq, scales, and stats as one message's)."""
+    """R messages through one stats call, narrow and wide: each slot
+    bit-equal to the plain version's (deq, scales, and stats as one
+    message's)."""
     import torch
     from repro_torch.kernels import quant_exchange as qx
     max_err = 0.0
-    for fmt in qx.QUANT_FORMATS:
-        x = _message(BATCHED_MESSAGES, seed=7)
+    for fmt, shape in ((f, sh) for f in qx.QUANT_FORMATS
+                       for sh in (BATCHED_MESSAGES, WIDE_BATCHED)):
+        x = _message(shape, seed=7)
         out1 = qx.quant_dequant_stats(x, fmt)
         out2 = qx.quant_dequant_stats(x, fmt)
         ref = qx.quant_dequant_stats_plain(x, fmt)
         torch.cuda.synchronize()
         for a, b in zip(out1, out2):
-            check(torch.equal(a, b), f"batched stats {fmt}: two runs differ")
+            check(torch.equal(a, b), f"batched stats {fmt} {shape}: two runs differ")
         check(torch.equal(out1[0], ref[0]) and torch.equal(out1[1], ref[1]),
-              f"batched stats {fmt}: deq/scales differ from the plain version")
+              f"batched stats {fmt} {shape}: deq/scales differ from the plain version")
         check(torch.allclose(out1[2], ref[2], rtol=STATS_RTOL, atol=1e-7),
-              f"batched stats {fmt}: {out1[2].tolist()} vs plain {ref[2].tolist()}")
+              f"batched stats {fmt} {shape}: {out1[2].tolist()} vs plain "
+              f"{ref[2].tolist()}")
         for a, b in zip(out1, ref):
             max_err = max(max_err, float((a - b).abs().max()))
     return max_err
@@ -557,9 +609,10 @@ def _attention_bound_us(name: str, shape, dtype: str):
     return max(bytes_us, ops_us), ("bytes" if bytes_us >= ops_us else "operations")
 
 
-def _attention_timing(name: str, kernel, plain, shape, long: bool):
+def _attention_timing(name: str, kernel, plain, shape, long: bool, old=None):
     """Times of one B5/B6 call at ``shape`` in bf16: the kernel eager,
-    graph-replayed (L2 warm) and L2-cold; the plain version eager (and
+    graph-replayed (L2 warm) and L2-cold; with ``old``, the same of the
+    kernel it replaced (B5's f32-FMA route); the plain version eager (and
     replayed, at the serve shapes); SDPA eager; the bound."""
     import torch
     args, kw = _attention_args(name, shape, "bfloat16", seed=99)
@@ -581,6 +634,16 @@ def _attention_timing(name: str, kernel, plain, shape, long: bool):
                   plain_dev_us=None if long else _graph_time_us(plain_call),
                   library_us=None if lib is None else _time_us(lib, **few))
     timing["bound_us"], timing["bound_by"] = _attention_bound_us(name, shape, "bfloat16")
+    if old is not None:
+        old_call = lambda: old(*args, **kw)          # noqa: E731
+        timing["f32_fma_route"] = dict(
+            kernel_us=_time_us(old_call, **few),
+            kernel_dev_us=_graph_time_us(old_call, reps=3 if long else 20, samples=3),
+            kernel_cold_us=_cold_time_us(old_call, reps=3 if long else 10))
+        log(f"phase1 {name} at {shape} bf16, the f32-FMA route (redesigned): kernel_us="
+            f"{timing['f32_fma_route']['kernel_us']:.3f}; graph-replayed device time: "
+            f"kernel_us={timing['f32_fma_route']['kernel_dev_us']:.3f}; L2 cold: "
+            f"kernel_us={timing['f32_fma_route']['kernel_cold_us']:.3f}")
     plain_dev = ("not timed" if timing["plain_dev_us"] is None
                  else f"{timing['plain_dev_us']:.3f}")
     lib_us = "none" if lib is None else f"{timing['library_us']:.3f}"
@@ -601,40 +664,52 @@ def _phase_attention():
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
 
+    def flash(route=None):
+        return lambda *a, **kw: fa.flash_attention(*a, **kw, route=route)[0]
+
     results = {}
-    for name, kernel, plain, shapes, long_shape in (
-            ("flash_attention", lambda *a, **kw: fa.flash_attention(*a, **kw)[0],
-             fa.flash_attention_plain,
+    for name, kernel, old, plain, shapes, long_shape in (
+            ("flash_attention", flash(), flash(fa.F32_FMA), fa.flash_attention_plain,
              FLASH_SHAPES, FLASH_LONG),
-            ("decode_attention", da.decode_attention, da.decode_attention_plain,
+            ("decode_attention", da.decode_attention, None, da.decode_attention_plain,
              DECODE_SHAPES, DECODE_LONG)):
-        max_err = {}
+        max_err, routes = {}, {}
         for dtype in ("float32", "bfloat16"):
             for i, shape in enumerate(shapes):
                 args, kw = _attention_args(name, shape, dtype, seed=i)
+                route = fa.attention_route(*args[:3]) if old else "cuda"
+                routes.setdefault(route, []).append((dtype, shape[:6]))
+                # B5 on its own route and, where that is the tensor cores', on
+                # the f32-FMA route it replaced
+                calls = [(route, kernel)]
+                if route == fa.TENSOR_CORES:
+                    calls.append((fa.F32_FMA, old))
                 with torch.inference_mode():
-                    out1 = kernel(*args, **kw)
-                    out2 = kernel(*args, **kw)
                     ref = plain(*args, **kw)
-                torch.cuda.synchronize()
-                check(torch.equal(out1, out2), f"{name} {dtype} {shape}: two runs differ")
-                check(out1.shape == ref.shape and out1.dtype == ref.dtype,
-                      f"{name} {dtype} {shape}: {out1.shape} {out1.dtype} vs plain "
-                      f"{ref.shape} {ref.dtype}")
-                check(bool(torch.isfinite(out1).all()), f"{name} {dtype} {shape}: not finite")
-                err = float((out1.float() - ref.float()).abs().max())
-                check(err <= ATTN_ATOL[dtype],
-                      f"{name} {dtype} {shape}: max |kernel - plain| {err:.3e} > "
-                      f"{ATTN_ATOL[dtype]}")
-                max_err[dtype] = max(max_err.get(dtype, 0.0), err)
-                if i == 0 and dtype == "bfloat16":
-                    main_err = err
+                for how, call in calls:
+                    with torch.inference_mode():
+                        out1 = call(*args, **kw)
+                        out2 = call(*args, **kw)
+                    torch.cuda.synchronize()
+                    what = f"{name} ({how}) {dtype} {shape}"
+                    check(torch.equal(out1, out2), f"{what}: two runs differ")
+                    check(out1.shape == ref.shape and out1.dtype == ref.dtype,
+                          f"{what}: {out1.shape} {out1.dtype} vs plain {ref.shape} "
+                          f"{ref.dtype}")
+                    check(bool(torch.isfinite(out1).all()), f"{what}: not finite")
+                    err = float((out1.float() - ref.float()).abs().max())
+                    check(err <= ATTN_ATOL[dtype],
+                          f"{what}: max |kernel - plain| {err:.3e} > {ATTN_ATOL[dtype]}")
+                    key = f"{how} {dtype}"
+                    max_err[key] = max(max_err.get(key, 0.0), err)
+                    if i == 0 and dtype == "bfloat16" and how == route:
+                        main_err = err
         log(f"phase1 {name}: within atol {ATTN_ATOL} of plain at {list(shapes)} in f32 "
-            f"and bf16, bit-identical run to run; max_abs_err {max_err}")
-        main = _attention_timing(name, kernel, plain, shapes[0], long=False)
-        results[name] = dict(max_abs_err=main_err, max_abs_err_by_dtype=max_err, **main,
+            f"and bf16, bit-identical run to run; routes {routes}; max_abs_err {max_err}")
+        main = _attention_timing(name, kernel, plain, shapes[0], long=False, old=old)
+        results[name] = dict(max_abs_err=main_err, max_abs_err_by_route=max_err, **main,
                              long_context=_attention_timing(name, kernel, plain,
-                                                            long_shape, long=True))
+                                                            long_shape, long=True, old=old))
     return results
 
 
@@ -705,29 +780,40 @@ def _phase_xent():
     import torch
     from repro_torch.kernels import fused_xent as fx
 
-    fwd_err, bwd_err, mutant_err = {}, {}, {}
+    fwd_err, bwd_err, mutant_err, routes = {}, {}, {}, {}
     for dtype in ("float32", "bfloat16"):
         for i, shape in enumerate(XENT_SHAPES):
             h, w, labels, gup = _xent_args(shape, dtype, seed=i)
-            loss1, lse1 = fx.fused_xent(h, w, labels)
-            loss2, lse2 = fx.fused_xent(h, w, labels)
-            dh1, dw1 = fx.fused_xent_bwd(h, w, labels, lse1, gup)
-            dh2, dw2 = fx.fused_xent_bwd(h, w, labels, lse1, gup)
-            torch.cuda.synchronize()
-            check(torch.equal(loss1, loss2) and torch.equal(lse1, lse2),
-                  f"fused_xent {dtype} {shape}: two runs differ")
-            check(torch.equal(dh1, dh2) and torch.equal(dw1, dw2),
-                  f"fused_xent_bwd {dtype} {shape}: two runs differ")
+            route = fx.xent_route(h, w)
+            routes.setdefault(route, []).append((dtype, shape))
             hh, ww = h.clone().requires_grad_(), w.clone().requires_grad_()
             ref = fx.fused_xent_plain(hh, ww, labels)
             ref_dh, ref_dw = torch.autograd.grad((ref * gup).sum(), (hh, ww))
             with torch.no_grad():
                 ref_lse = torch.logsumexp(h.float() @ w.float(), dim=-1)
-            err = max(float((loss1 - ref.detach()).abs().max()),
-                      float((lse1 - ref_lse).abs().max()))
-            check(bool(torch.isfinite(loss1).all()), f"fused_xent {dtype} {shape}: not finite")
-            check(err <= XENT_ATOL[dtype], f"fused_xent {dtype} {shape}: max |kernel - plain| "
-                                           f"{err:.3e} > {XENT_ATOL[dtype]}")
+            # the forward on its own route and, where that is the tensor
+            # cores', on the f32-FMA route it replaced
+            for how in [route] + ([fx.F32_FMA] if route == fx.TENSOR_CORES else []):
+                loss1, lse1 = fx.fused_xent(h, w, labels, route=how)
+                loss2, lse2 = fx.fused_xent(h, w, labels, route=how)
+                torch.cuda.synchronize()
+                what = f"fused_xent ({how}) {dtype} {shape}"
+                check(torch.equal(loss1, loss2) and torch.equal(lse1, lse2),
+                      f"{what}: two runs differ")
+                err = max(float((loss1 - ref.detach()).abs().max()),
+                          float((lse1 - ref_lse).abs().max()))
+                check(bool(torch.isfinite(loss1).all()), f"{what}: not finite")
+                check(err <= XENT_ATOL[dtype], f"{what}: max |kernel - plain| {err:.3e} > "
+                                               f"{XENT_ATOL[dtype]}")
+                fwd_err[f"{how} {dtype}"] = max(fwd_err.get(f"{how} {dtype}", 0.0), err)
+                if how == route:
+                    route_err, route_lse = err, lse1
+            err, lse1 = route_err, route_lse
+            dh1, dw1 = fx.fused_xent_bwd(h, w, labels, lse1, gup)
+            dh2, dw2 = fx.fused_xent_bwd(h, w, labels, lse1, gup)
+            torch.cuda.synchronize()
+            check(torch.equal(dh1, dh2) and torch.equal(dw1, dw2),
+                  f"fused_xent_bwd {dtype} {shape}: two runs differ")
             gerr = _xent_grad_err(dh1, dw1, ref_dh, ref_dw, labels)
             check(dh1.dtype == h.dtype and dw1.dtype == w.dtype and gerr <= GRAD_REL[dtype],
                   f"fused_xent_bwd {dtype} {shape}: rel err {gerr:.3e} > {GRAD_REL[dtype]}")
@@ -737,7 +823,6 @@ def _phase_xent():
                     check(bad > GRAD_REL[dtype], f"fused_xent_bwd {dtype} {shape}: the "
                                                  f"check passes {what} (rel err {bad:.3e})")
                     mutant_err.setdefault(dtype, {})[what] = bad
-            fwd_err[dtype] = max(fwd_err.get(dtype, 0.0), err)
             bwd_err[dtype] = max(bwd_err.get(dtype, 0.0), gerr)
             if i == 0 and dtype == "bfloat16":
                 main_err, main_gerr = err, gerr
@@ -747,7 +832,7 @@ def _phase_xent():
             torch.cuda.empty_cache()
     log(f"phase1 fused_xent: loss and lse within atol {XENT_ATOL} of plain at "
         f"{list(XENT_SHAPES)} (labels on panel edges and out of range), bit-identical run "
-        f"to run; max_abs_err {fwd_err}")
+        f"to run; routes {routes}; max_abs_err {fwd_err}")
     log(f"phase1 fused_xent_bwd: dh, dW within rel {GRAD_REL} of autograd of the plain "
         f"version at the same shapes (dh's rows with and without an in-range label, dW's "
         f"columns hit and not hit by one, each on its own scale), bit-identical run to run; "
@@ -788,6 +873,16 @@ def _phase_xent():
                       library_us=_time_us(lib, **few),
                       bound_us=max(bytes_us, ops_us),
                       bound_by="bytes" if bytes_us >= ops_us else "operations")
+        if name == "fused_xent":
+            old = lambda: fx.fused_xent(h, w, labels, route=fx.F32_FMA)  # noqa: E731
+            timing["f32_fma_route"] = dict(kernel_us=_time_us(old, **few),
+                                           kernel_dev_us=_graph_time_us(old, **few),
+                                           kernel_cold_us=_cold_time_us(old, reps=3))
+            log(f"phase1 fused_xent at {XENT_SHAPES[0]} bf16, the f32-FMA route "
+                f"(redesigned): kernel_us={timing['f32_fma_route']['kernel_us']:.1f}; "
+                f"graph-replayed device time: kernel_us="
+                f"{timing['f32_fma_route']['kernel_dev_us']:.1f}; L2 cold: kernel_us="
+                f"{timing['f32_fma_route']['kernel_cold_us']:.1f}")
         log(f"phase1 {name} at (T, D, V) = {XENT_SHAPES[0]} bf16: kernel_us="
             f"{timing['kernel_us']:.1f} plain_us={timing['plain_us']:.1f} library_us="
             f"{timing['library_us']:.1f} (F.cross_entropy(h @ W): two calls{'' if name == 'fused_xent' else ', through autograd'}) "
@@ -1314,8 +1409,9 @@ def phase_train():
         f"batch ({b}, {s}), lr {TRAIN_LR}")
     batch = _train_batch(b, s)
     step = make_train_step(model, TRAIN_LR)
-    per_step = want_launches(flash_attention=cfg.n_layers * (2 if cfg.remat else 1),
-                             flash_attention_bwd=cfg.n_layers, fused_xent=1, fused_xent_bwd=1)
+    per_step = want_launches(flash_attention_tc=cfg.n_layers * (2 if cfg.remat else 1),
+                             flash_attention_bwd=cfg.n_layers, fused_xent_tc=1,
+                             fused_xent_bwd=1)
     losses, secs = [], []
     for i in range(3):
         torch.cuda.synchronize()
@@ -1343,13 +1439,13 @@ def phase_train():
         walls.append(time.perf_counter() - t0)
     _profile_report(f"phase7 {cfg.name} train step (B {b}, S {s}, bf16, remat)",
                     lambda: step(batch), min(walls) * 1e6, 1,
-                    shares={"B4 forward": ("xent_fwd_kernel", "xent_combine_kernel"),
+                    shares={"B4 forward": ("xent_fwd_tc_kernel", "xent_combine_kernel"),
                             # the step's only f32 products are B4's logits
                             # (its two bf16 products share cuBLAS's kernels
                             # with the layers')
                             "B4 backward: xent_grad and the f32 logits product":
                                 ("xent_grad_kernel", "sgemm"),
-                            "B5 forward": ("flash_fwd_kernel",),
+                            "B5 forward": ("flash_fwd_tc_kernel",),
                             "B5 backward": ("dkdv_kernel", "dq_kernel", "delta_kernel")})
     train = dict(launches=launches, losses=losses, seconds=secs, warm_s=warm,
                  tokens_per_s=b * s / warm, peak_gb=peak_gb)
@@ -1372,6 +1468,12 @@ def phase_train():
         else:
             loss, _ = model.loss(batch)
             grads = torch.autograd.grad(loss, params)
+            # f32 keeps exact f32 products: the f32-FMA routes, no tensor cores
+            check(build.LAUNCHES["flash_attention"] == cfg4.n_layers * (2 if cfg4.remat else 1)
+                  and build.LAUNCHES["fused_xent"] == 1
+                  and build.LAUNCHES["flash_attention_tc"] == build.LAUNCHES["fused_xent_tc"]
+                  == 0, f"phase7 f32: the kernel path launched {build.LAUNCHES}")
+            f32_launches = dict(build.LAUNCHES)
         results[name] = (loss.detach(), grads)
     (lk, gk), (lp, gp) = results["kernel"], results["plain"]
     loss_rel = abs(float(lk) - float(lp)) / abs(float(lp))
@@ -1381,44 +1483,55 @@ def phase_train():
           f"phase7 f32: loss rel {loss_rel:.3e}, worst gradient {worst}")
     log(f"phase7 {cfg4.name} f32, 4 layers, full width: loss {float(lk):.6f} (kernel) vs "
         f"{float(lp):.6f} (plain), rel {loss_rel:.3e}; every gradient within rel "
-        f"{TRAIN_F32_REL}, the worst {worst[0]:.3e} ({worst[1]})")
-    train.update(f32_loss_rel=loss_rel, f32_grad_rel=worst[0])
+        f"{TRAIN_F32_REL}, the worst {worst[0]:.3e} ({worst[1]}); the kernel path's "
+        f"launches {f32_launches} (the f32-FMA routes)")
+    train.update(f32_loss_rel=loss_rel, f32_grad_rel=worst[0], f32_launches=f32_launches)
     del model, params, results, gk, gp
     torch.cuda.empty_cache()
     return train
 
 
-def _round_launches(cfg, pcfg, hist, quant, n_test):
+def _round_launches(cfg, pcfg, hist, quant, n_test, stats=False):
     """The kernel launches a sequential run_pigeon over from_lm makes, from
     the round structure: each client step runs the client's and the AP's
     layers forward (twice with remat: the backward recomputes them) and
     backward, and B4 forward and backward; each validation, handoff check
     and evaluation runs layers forward (and B4 for a validation); the cut
-    width is read once.  The int8 wire quantizes each step's two messages."""
+    width is read once.  The int8 wire quantizes each step's two messages;
+    under a policy that scores message statistics the uplink of each step
+    of the round's R clusters goes through B3 (the Pigeon-SL+ sub-rounds'
+    steps collect none).  bf16 forwards of B4 and B5 count on the
+    tensor-core route."""
     import math
     n = cfg.n_layers
     cut = min(cfg.cut_layer, n)
     fwd = 2 if cfg.remat else 1
     m_bar = pcfg.M // pcfg.R
-    steps = vals = handoffs = evals = 0
+    steps = vals = handoffs = evals = main = 0
     for r in hist.rounds:
+        main += pcfg.R * m_bar * pcfg.E
         steps += pcfg.R * m_bar * pcfg.E + (pcfg.R - 1) * m_bar * pcfg.E * r["accepted"]
         vals += pcfg.R
         handoffs += r["detections"] + int(r["accepted"])
         evals += math.ceil(n_test / pcfg.eval_batch) if "test_acc" in r else 0
-    return want_launches(
-        fused_xent=steps + vals, fused_xent_bwd=steps,
-        flash_attention=steps * fwd * n + vals * n + handoffs * cut + evals * n + cut,
-        flash_attention_bwd=steps * n, quant_dequant=2 * steps if quant else 0)
+    tc = "_tc" if cfg.dtype == "bfloat16" else ""
+    stats_launches = main if quant and stats else 0
+    return want_launches(**{
+        "fused_xent" + tc: steps + vals, "fused_xent_bwd": steps,
+        "flash_attention" + tc: steps * fwd * n + vals * n + handoffs * cut + evals * n + cut,
+        "flash_attention_bwd": steps * n,
+        "quant_dequant": 2 * steps - stats_launches if quant else 0,
+        "quant_dequant_stats": stats_launches})
 
 
 def phase_round():
     """The Pigeon-SL round over from_lm at Qwen3-8B's full width, depth cut
     to 12 layers (9 client + 3 AP), the train_4k settings (bf16, remat):
     run_pigeon(argmin, label flip on client 0, Pigeon-SL+) without the wire
-    and with int8 through B2.  Finite losses, selected == argmin(val_losses),
-    launches as the round's structure predicts, exchange bytes, seconds per
-    round and peak memory."""
+    and with int8 through B2, then with int8 under loss_plus_distance (B3 on
+    its wide path).  Finite losses, the selection the policy's scores give
+    (argmin(val_losses) under argmin), launches as the round's structure
+    predicts, exchange bytes, seconds per round and peak memory."""
     import dataclasses
 
     import numpy as np
@@ -1429,6 +1542,7 @@ def phase_round():
     from repro_torch.data import build_lm_task
     from repro_torch.launch.shapes import SHAPES, shape_settings
     from repro_torch.models import build_model
+    from repro_torch.selection import selector
 
     cfg = dataclasses.replace(get_config("qwen3-8b"), n_layers=ROUND_LAYERS,
                               **shape_settings(SHAPES["train_4k"]))
@@ -1444,30 +1558,54 @@ def phase_round():
         f"({n_params * model.embedding.element_size() / 1e9:.2f} GB a copy)")
     pcfg = ProtocolConfig(M=4, N=1, T=2, E=2, B=4, lr=1e-3)
     out = {}
-    for quant in (None, "int8"):
+    for quant, selection in ((None, "argmin"), ("int8", "argmin"),
+                             ("int8", "loss_plus_distance")):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        name = f"phase8 round quant={quant}"
-        hist, launches, seconds = _run(name, from_lm(model), data, pcfg, malicious={0},
-                                       attack=Attack(LABEL_FLIP), plus=True,
-                                       selection="argmin", quant=quant, device=DEVICE)
+        name = f"phase8 round quant={quant} selection={selection}"
+        ranked = []                             # the host selector's (scores, elig, order)
+
+        def recorded(policy, ctx, _rank=selector.score_and_rank):
+            ranked.append(_rank(policy, ctx))
+            return ranked[-1]
+
+        selector.score_and_rank = recorded
+        try:
+            hist, launches, seconds = _run(name, from_lm(model), data, pcfg, malicious={0},
+                                           attack=Attack(LABEL_FLIP), plus=True,
+                                           selection=selection, quant=quant, device=DEVICE)
+        finally:
+            selector.score_and_rank = recorded.__defaults__[0]
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        want = _round_launches(cfg, pcfg, hist, quant, data.x_test.shape[0])
+        stats = selection != "argmin"
+        want = _round_launches(cfg, pcfg, hist, quant, data.x_test.shape[0], stats=stats)
         check(launches == want, f"{name}: launches {launches}, want {want}")
         d_c = TRAIN_SEQ * cfg.d_model
         m_bar = pcfg.M // pcfg.R
-        for r in hist.rounds:
-            check(r["selected"] == int(np.argmin(r["val_losses"])),
-                  f"{name} round {r['round']}: selected {r['selected']} is not the argmin of "
-                  f"{r['val_losses']}")
+        check(len(ranked) == len(hist.rounds), f"{name}: {len(ranked)} selections scored")
+        for r, (scores, elig, order) in zip(hist.rounds, ranked):
+            # the cascade visits the eligible candidates in score order; each
+            # detection passes one over
+            visit = [int(c) for c in order if elig[c]]
+            check(all(x == x for x in scores) and (not r["accepted"] or
+                                                   r["selected"] == visit[r["detections"]]),
+                  f"{name} round {r['round']}: selected {r['selected']}, the policy's scores "
+                  f"{scores.tolist()} (eligible {elig.tolist()}), detections "
+                  f"{r['detections']}")
+            if not stats:
+                check(r["selected"] == int(np.argmin(r["val_losses"])),
+                      f"{name} round {r['round']}: selected {r['selected']} is not the argmin "
+                      f"of {r['val_losses']}")
+            log(f"{name} round {r['round']}: the policy's scores {scores.tolist()} -> "
+                f"selected {r['selected']}")
             steps = pcfg.R * m_bar * pcfg.E + (pcfg.R - 1) * m_bar * pcfg.E * r["accepted"]
             wire = steps * message_bytes(quant, pcfg.B, d_c)
             check(r["comm"]["activation_bytes"] == wire == r["comm"]["gradient_bytes"],
                   f"{name} round {r['round']}: exchange bytes {r['comm']} != {wire}")
         log(f"{name}: {seconds / pcfg.T:.2f} s/round (init and first-call set-up "
             f"included); peak device memory {peak_gb:.2f} GB; d_c {d_c:,}")
-        out[str(quant)] = dict(launches=launches, s_per_round=seconds / pcfg.T,
-                               peak_gb=peak_gb)
+        out[f"{quant}_{selection}"] = dict(launches=launches, s_per_round=seconds / pcfg.T,
+                                           peak_gb=peak_gb)
     del model
     torch.cuda.empty_cache()
     return out
@@ -1651,10 +1789,11 @@ def phase_serve():
     pre, gen, last, prefill_s, loop_s = _serve(model, prompts, new)
     launches = dict(build.LAUNCHES)
     steps = p + new
-    check(launches == want_launches(flash_attention=cfg.n_layers,
+    check(launches == want_launches(flash_attention_tc=cfg.n_layers,
                                     decode_attention=cfg.n_layers * steps),
-          f"phase6: launches {launches}, want {cfg.n_layers} flash_attention and "
-          f"{cfg.n_layers * steps} decode_attention")
+          f"phase6: launches {launches}, want {cfg.n_layers} flash_attention_tc (every "
+          f"bf16 prefill attention on the tensor cores) and {cfg.n_layers * steps} "
+          f"decode_attention")
     check(pre.shape == (b, 1, cfg.vocab) and last.shape == pre.shape,
           f"phase6: logits {tuple(pre.shape)} / {tuple(last.shape)}")
     check(bool(torch.isfinite(pre).all()) and bool(torch.isfinite(last).all()),
@@ -1674,6 +1813,12 @@ def phase_serve():
         f"{rel:.4e} (bound {SERVE_BF16_REL}, bf16); argmax agreement {argmax:.3f}; "
         f"max |logit| {float(pre.abs().max()):.4f}")
     log(f"phase6 greedy tokens[0]: {gen[0].tolist()}")
+    # the warm prefill, profiled: its device time and B5's share of it
+    prefill_step = make_prefill_step(model)
+    _profile_report(f"phase6 {cfg.name} prefill (B {b} x {p}, bf16)",
+                    lambda: prefill_step({"tokens": prompts}), prefill_s * 1e6, 1,
+                    shares={"B5 forward": ("flash_fwd_tc_kernel",)})
+    del prefill_step
 
     # one warm decode step, profiled, at the loop's last position
     serve_step = make_serve_step(model)
@@ -1943,6 +2088,10 @@ def main() -> None:
         spills = sum(int(n) for n in re.findall(r"(\d+) bytes spill stores", text))
         log(f"  ptxas {name}: {len(regs)} kernels, {min(regs)}-{max(regs)} registers a "
             f"thread, {spills} bytes of spill stores")
+        for line in text.splitlines():
+            if "C7517" in line or "C7508" in line:
+                log(f"  ptxas {name}: {line.strip()[:160]}")
+    sass = phase_sass()
 
     kernels = phase_kernels()
     torch.cuda.reset_peak_memory_stats()    # phase 5's peak: the protocol phases only
@@ -1968,14 +2117,14 @@ def main() -> None:
                "tamper_check_sums": ("src/repro/kernels/tamper_check.py:42",
                                      "src/repro_torch/kernels/csrc/tamper_check.cu"),
                "fused_xent": ("src/repro/kernels/fused_xent.py:62",
-                              "src/repro_torch/kernels/csrc/fused_xent.cu"),
+                              "src/repro_torch/kernels/csrc/fused_xent_tc.cu"),
                # no TPU kernel: the reference's training path leaves both
                # backwards to XLA's autodiff, of its plain cross-entropy
                # (chunked: models/model.py:258) and of attend
                "fused_xent_bwd": ("none; XLA autodiff of src/repro/models/model.py:258",
                                   "src/repro_torch/kernels/csrc/fused_xent.cu"),
                "flash_attention": ("src/repro/kernels/flash_attention.py:82",
-                                   "src/repro_torch/kernels/csrc/flash_attention.cu"),
+                                   "src/repro_torch/kernels/csrc/flash_attention_tc.cu"),
                "flash_attention_bwd": ("none; XLA autodiff of src/repro/models/attention.py:82",
                                        "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"),
                "decode_attention": ("src/repro/kernels/decode_attention.py:66",
@@ -1994,6 +2143,9 @@ def main() -> None:
                **{f"round_{q}": r["launches"] for q, r in rounds.items()},
                "xlstm_prefill": xlstm["prefill_launches"],
                "xlstm_decode": xlstm["loop_launches"]}
+    # B5's and B4's forwards: the entry is the tensor-core route, which the
+    # bf16 paths take; the f32-FMA route it replaced rides beside it
+    route_key = {"flash_attention": "flash_attention_tc", "fused_xent": "fused_xent_tc"}
     own = {name: ("serve" if name in ("flash_attention", "decode_attention") else
                   "train" if name in ("fused_xent", "fused_xent_bwd", "flash_attention_bwd")
                   else "xlstm_prefill" if name == "slstm_scan" else "batched")
@@ -2004,9 +2156,10 @@ def main() -> None:
 
     entries = []
     for name, k in kernels.items():
+        key = route_key.get(name, name)
         entry = dict(name=name, route="cuda", source=sources[name][1],
-                     replaces=sources[name][0], launches=by_path[own[name]][name],
-                     launches_by_path={path: counts[name] for path, counts in by_path.items()},
+                     replaces=sources[name][0], launches=by_path[own[name]][key],
+                     launches_by_path={path: counts[key] for path, counts in by_path.items()},
                      shape=k["shape"], max_abs_err=k["max_abs_err"],
                      **({"max_rel_err": k["max_rel_err"]} if "max_rel_err" in k else {}),
                      ms=ms(k["kernel_us"]), device_ms_l2_warm=ms(k["kernel_dev_us"]),
@@ -2017,6 +2170,24 @@ def main() -> None:
             # B7 launches T step kernels a call (the scan's dependency chain),
             # counted by the profiler over one prefill of the path
             entry.update(step_kernels=xlstm["step_kernels"], device_ms_a_step=ms(k["step_us"]))
+        if name in route_key:
+            entry["kernel_route"] = "tensor_cores"
+            entry["sass"] = sass[key]
+            old = k["f32_fma_route"]
+            entry["f32_fma_route"] = dict(
+                source=sources[name][1].replace("_tc.cu", ".cu"), sass=sass[name],
+                launches_by_path={path: counts[name] for path, counts in by_path.items()},
+                ms=ms(old["kernel_us"]), device_ms_l2_warm=ms(old["kernel_dev_us"]),
+                device_ms_l2_cold=ms(old["kernel_cold_us"]))
+        if "lm_message" in k:
+            # the LM round's cut message (B3's wide path)
+            lm = k["lm_message"]
+            entry["lm_message"] = dict(
+                shape=lm["shape"], ms=ms(lm["kernel_us"]),
+                device_ms_l2_warm=ms(lm["kernel_dev_us"]),
+                device_ms_l2_cold=ms(lm["kernel_cold_us"]), plain_ms=ms(lm["plain_us"]),
+                plain_device_ms=ms(lm["plain_dev_us"]), bound_ms=ms(lm["bound_us"]),
+                bound_by=lm["bound_by"])
         if "long_context" in k:
             lc = k["long_context"]
             entry["long_context"] = dict(
@@ -2025,6 +2196,11 @@ def main() -> None:
                 device_ms_l2_cold=ms(lc["kernel_cold_us"]), plain_ms=ms(lc["plain_us"]),
                 bound_ms=ms(lc["bound_us"]), bound_by=lc["bound_by"],
                 library_ms=ms(lc["library_us"]))
+            if "f32_fma_route" in lc:
+                entry["long_context"]["f32_fma_route"] = dict(
+                    ms=ms(lc["f32_fma_route"]["kernel_us"]),
+                    device_ms_l2_warm=ms(lc["f32_fma_route"]["kernel_dev_us"]),
+                    device_ms_l2_cold=ms(lc["f32_fma_route"]["kernel_cold_us"]))
         entries.append(entry)
     log(f"phase2 seconds_per_round={s_per_round:.3f}; phase2b (batched) "
         f"seconds_per_round={b_per_round:.3f}; phase6 serve {serve}; phase7 train {train}; "

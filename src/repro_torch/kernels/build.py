@@ -3,10 +3,11 @@
 Each ``csrc/*.cu`` file has a plain C interface and compiles with ``nvcc``
 into its own shared library, loaded with ``ctypes`` (no PyTorch headers, so
 a build takes seconds).  Libraries go to ``build/repro_torch_kernels/`` at
-the repository root, named by a hash of the source and the flags, so an
-edited source is rebuilt and an unchanged one is reused.  Nothing builds at
-import time: :func:`load` builds on first use, and :func:`build_all` starts
-one ``nvcc`` per source at once (what ``chip_smoke.py`` times).
+the repository root, named by a hash of the source, the ``csrc/*.cuh``
+headers it includes and the flags, so an edited source or header is rebuilt
+and an unchanged one is reused.  Nothing builds at import time: :func:`load`
+builds on first use, and :func:`build_all` starts one ``nvcc`` per source at
+once (what ``chip_smoke.py`` times).
 
 Every launcher reports its launch through :func:`record_launch`, which raises
 on a CUDA error and otherwise adds one to the launcher's count in
@@ -17,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -33,8 +35,12 @@ SOURCES: Dict[str, Dict[str, Tuple]] = {
     "quant_exchange": {
         # x, deq, scales, n, d, fmt, qinv, threads, stream
         "repro_quant_dequant": (_P, _P, _P, _I, _I, _I, _F, _I, _P),
+        # x, deq, scales, scratch, n, d, fmt, qinv, stream
+        "repro_quant_dequant_wide": (_P, _P, _P, _P, _I, _I, _I, _F, _P),
         # x, deq, scales, stats, m, n, d, fmt, qinv, threads, stream
         "repro_quant_dequant_stats": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
+        # x, deq, scales, stats, scratch, m, n, d, fmt, qinv, stream
+        "repro_quant_dequant_stats_wide": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
     },
     "tamper_check": {
         "repro_tamper_check_chunk": (),
@@ -45,6 +51,10 @@ SOURCES: Dict[str, Dict[str, Tuple]] = {
         # q, k, v, out, lse, b, sq, sk, h, hkv, d, window, scale, dtype, stream
         "repro_flash_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I,
                                   _P),
+    },
+    "flash_attention_tc": {
+        # q, k, v, out, lse, b, sq, sk, h, hkv, d, window, scale, stream
+        "repro_flash_attention_tc": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P),
     },
     "flash_attention_bwd": {
         # q, k, v, out, dout, lse, delta, dq, dk, dv, b, sq, sk, h, hkv, d,
@@ -58,6 +68,11 @@ SOURCES: Dict[str, Dict[str, Tuple]] = {
         "repro_fused_xent": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
         # logits, lse, labels, g, rows, v, stream
         "repro_xent_grad": (_P, _P, _P, _P, _I, _I, _P),
+    },
+    "fused_xent_tc": {
+        # h, w, labels, part, picked, loss, lse, t, d, v, panels_per_block,
+        # nsplit, stream
+        "repro_fused_xent_tc": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     },
     "decode_attention": {
         # q, k, v, out, ws, b, s, h, hkv, d, k_begin, k_end, chunk, splits,
@@ -73,10 +88,14 @@ SOURCES: Dict[str, Dict[str, Tuple]] = {
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 
-#: kernel launches per launcher; reset with :func:`reset_launches`
+#: kernel launches per launcher; reset with :func:`reset_launches`.  B5's and
+#: B4's forwards count by route: ``flash_attention`` and ``fused_xent`` the
+#: f32-FMA kernels, ``flash_attention_tc`` and ``fused_xent_tc`` the
+#: tensor-core ones
 LAUNCHES: Dict[str, int] = {"quant_dequant": 0, "quant_dequant_stats": 0,
-                            "tamper_check_sums": 0, "fused_xent": 0, "fused_xent_bwd": 0,
-                            "flash_attention": 0, "flash_attention_bwd": 0,
+                            "tamper_check_sums": 0, "fused_xent": 0, "fused_xent_tc": 0,
+                            "fused_xent_bwd": 0, "flash_attention": 0,
+                            "flash_attention_tc": 0, "flash_attention_bwd": 0,
                             "decode_attention": 0, "slstm_scan": 0}
 
 
@@ -104,10 +123,24 @@ def _nvcc() -> str:
                        "CUDA toolkit is installed")
 
 
-def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+\.cuh)"', re.MULTILINE)
+
+
+def library_path(name: str, csrc: Path = CSRC) -> Path:
+    """Where ``csrc/<name>.cu``'s library goes: named by a hash of the flags,
+    the source and every ``csrc`` header it includes (directly or through
+    another header), so an edited header rebuilds its sources."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    todo, seen = [f"{name}.cu"], set()
+    while todo:
+        file = todo.pop(0)
+        if file in seen:
+            continue
+        seen.add(file)
+        text = (csrc / file).read_bytes()
+        digest.update(file.encode() + b"\0" + text)
+        todo.extend(inc.decode() for inc in _INCLUDE.findall(text))
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def _tmp_path(name: str) -> Path:

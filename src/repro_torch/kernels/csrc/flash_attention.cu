@@ -7,7 +7,10 @@
 // written in the model's own layout through strides (no transposes).  Query
 // head h of batch b reads KV head h / (H / Hkv) of batch b, the reference's
 // index map.  f32 or bf16 in and out; every product and sum in f32 FMA, no
-// tensor cores (so f32 stays within 2e-5 of the plain version).
+// tensor cores (so f32 stays within 2e-5 of the plain version).  This is
+// the f32 route: f32 tensors, head dims 32 and 80, and whatever TMA cannot
+// read; bf16 at head dims 64/128/256 takes flash_attention_tc.cu
+// (kernels/flash_attention.py::attention_route).
 //
 // What bounds it on this card: at the serve prefill shape (B 4, S 480, H 32,
 // Hkv 8, D 128, bf16) the function moves 39.3 MB (11.7 us at 3.35 TB/s) and
@@ -16,7 +19,8 @@
 // it: the design keeps every score and probability on chip, reads Q, K and V
 // once per (query tile, key tile) pair, and blocks the two products in
 // registers (a thread owns TM query rows x TN keys of the score tile, then
-// TM rows x D/8 output columns).  wgmma and TMA are later work.
+// TM rows x D/8 output columns).  flash_attention_tc.cu is the wgmma/TMA
+// design.
 //
 //   * grid (ceil(Sq / BQ), H, B); 128 threads; BQ = 16 * TM query rows.
 //   * The block walks the key tiles that hold a live key, in ascending order:

@@ -17,15 +17,17 @@
 // double-buffered shared memory), and each thread folds its 8 columns into
 // a running (max, sum of exp) for each of its 8 rows.  At the end of its
 // panels a block merges its 16 threads' states per row and writes one
-// partial (m, l) per (row, block); a second, tiny kernel merges the partials
-// of a row in block order.  No (T, V) logits in device memory, no atomics,
-// so the bits repeat from run to run.
+// partial (m, l) per (row, block); a second, tiny kernel (xent_combine.cuh)
+// merges the partials of a row in block order.  No (T, V) logits in device
+// memory, no atomics, so the bits repeat from run to run.
 //
 // What bounds it on this card: at the training shape (T 2,048, D 4,096,
 // V 151,936, bf16) the function needs 2.55 TFLOP of products (2.58 ms on
 // the bf16 tensor cores) and moves 1.26 GB (0.38 ms at 3.35 TB/s), so
-// operations bound it.  This first kernel runs its math on the f32 FMA units
-// (67 TFLOP/s peak, 38 ms at best): wgmma and TMA are later work.
+// operations bound it.  This kernel runs its math on the f32 FMA units (67
+// TFLOP/s peak, 38 ms at best): it is the f32 route (f32, and D or V not a
+// multiple of 8); bf16 takes the wgmma/TMA kernel of fused_xent_tc.cu
+// (kernels/fused_xent.py::xent_route).
 //
 //   * Tails: rows past T load as 0 and are not written; columns past V are
 //     masked out of the max and the sum; D needs no divisibility.  Labels
@@ -40,6 +42,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "xent_combine.cuh"
 
 namespace {
 
@@ -189,23 +193,6 @@ xent_fwd_kernel(const T* __restrict__ h, const T* __restrict__ w,
       out[1] = l[i];
     }
   }
-}
-
-// One thread per row: merge the row's nsplit partials in block order.
-__global__ void xent_combine_kernel(const float* __restrict__ part,
-                                    const float* __restrict__ picked,
-                                    float* __restrict__ loss, float* __restrict__ lse,
-                                    int t, int nsplit) {
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= t) return;
-  const float* pr = part + static_cast<int64_t>(row) * nsplit * 2;
-  float mx = kNegBig;
-  for (int s = 0; s < nsplit; ++s) mx = fmaxf(mx, pr[2 * s]);
-  float sum = 0.f;
-  for (int s = 0; s < nsplit; ++s) sum += pr[2 * s + 1] * expf(pr[2 * s] - mx);
-  const float r = mx + logf(fmaxf(sum, 1e-30f));
-  lse[row] = r;
-  loss[row] = r - picked[row];
 }
 
 // logits (rows, V) f32, in place: (exp(logit - lse[row]) - [col == label]) * g[row].

@@ -6,10 +6,14 @@ H % Hkv == 0; out (B, Sq, H, D) in q's dtype.  Query head h reads KV head
 ``h // (H // Hkv)``.  Query i attends to key j where ``j <= i`` (causal) and,
 with ``window > 0``, ``i - j < window``; scores are scaled by 1/sqrt(D).
 
-  * :func:`flash_attention` — launches the kernel on CUDA tensors (f32 or
-    bf16, head_dim in :data:`HEAD_DIMS`, contiguous, 1 <= Sq <= Sk); f32
-    accumulation, no tensor cores.  Returns the output and the rows'
-    log-sum-exp (B, H, Sq) f32, which the backward reads.
+  * :func:`flash_attention` — launches a forward kernel on CUDA tensors
+    (f32 or bf16, head_dim in :data:`HEAD_DIMS`, contiguous, 1 <= Sq <= Sk)
+    by the route :func:`attention_route` picks: ``tensor_cores``
+    (``csrc/flash_attention_tc.cu``: wgmma with TMA loads; bf16, head_dim in
+    :data:`TC_HEAD_DIMS`, 16-byte aligned) or ``f32_fma``
+    (``csrc/flash_attention.cu``: every product in f32 FMA, no tensor cores;
+    everything else).  Returns the output and the rows' log-sum-exp (B, H,
+    Sq) f32, which the backward reads.
   * :func:`flash_attention_bwd` — launches the backward kernels
     (``csrc/flash_attention_bwd.cu``): (dq, dk, dv) from the forward's
     inputs, output and lse and the output's gradient.
@@ -23,20 +27,43 @@ with ``window > 0``, ``i - j < window``; scores are scaled by 1/sqrt(D).
 
 ``kernels/ops.py`` picks between them by the tensor's device and by
 whether a gradient is needed.  The launchers count their launches in
-``build.LAUNCHES`` (``flash_attention``, ``flash_attention_bwd``); the
-launchers themselves record no graph.
+``build.LAUNCHES``, the forward by route (``flash_attention`` the f32-FMA
+kernel, ``flash_attention_tc`` the tensor-core one), and
+``flash_attention_bwd``; the launchers themselves record no graph.
 """
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 NEG_INF = -1e30
 #: head dims the kernels are built for
 HEAD_DIMS = (32, 64, 80, 128, 256)
+#: head dims of the tensor-core route: whole 64-column (128-byte) TMA boxes
+TC_HEAD_DIMS = (64, 128, 256)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: the forward's routes (see :func:`attention_route`)
+TENSOR_CORES, F32_FMA = "tensor_cores", "f32_fma"
+
+
+def tma_ok(t: torch.Tensor) -> bool:
+    """Whether TMA can describe ``t``: a 16-byte aligned base address, unit
+    stride in the last dim and every other stride a multiple of 16 bytes."""
+    return (t.data_ptr() % 16 == 0 and t.stride(-1) == 1
+            and all(st * t.element_size() % 16 == 0 for st in t.stride()[:-1]))
+
+
+def attention_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The forward's route for these tensors: :data:`TENSOR_CORES` for bf16
+    at a head_dim of :data:`TC_HEAD_DIMS` that TMA can read, else
+    :data:`F32_FMA` (f32 keeps exact f32 products; head dims 32 and 80 do
+    not fill a 128-byte box; a misaligned view is not a TMA tensor)."""
+    if (q.dtype == torch.bfloat16 and q.shape[-1] in TC_HEAD_DIMS
+            and all(tma_ok(t) for t in (q, k, v))):
+        return TENSOR_CORES
+    return F32_FMA
 
 
 def causal_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, window: int = 0) -> torch.Tensor:
@@ -111,9 +138,12 @@ def _check_launch(q: torch.Tensor, k: torch.Tensor, window: int) -> None:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    window: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the flash-attention kernel: q (B, Sq, H, D), k, v (B, Sk, Hkv,
-    D) -> (out (B, Sq, H, D), lse (B, H, Sq) f32)."""
+                    window: int = 0, route: Optional[str] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch a flash-attention forward kernel, by :func:`attention_route`
+    (``route=F32_FMA`` forces the f32-FMA kernel, to time it beside the
+    other): q (B, Sq, H, D), k, v (B, Sk, Hkv, D) -> (out (B, Sq, H, D), lse
+    (B, H, Sq) f32)."""
     from .build import load, record_launch
     check_cuda_inputs("flash_attention", q, k, v)
     check_shapes(q, k, v)
@@ -123,11 +153,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = load("flash_attention").repro_flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), b, sq, sk, h, hkv, d, window,
-        1.0 / math.sqrt(d), DTYPE_CODES[q.dtype], stream)
-    record_launch(err, "flash_attention")
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(), b, sq,
+            sk, h, hkv, d, window, 1.0 / math.sqrt(d))
+    chosen = attention_route(q, k, v)
+    if route not in (None, chosen, F32_FMA):
+        raise ValueError(f"route {route!r}: these tensors take {chosen!r} or {F32_FMA!r}")
+    if (route or chosen) == TENSOR_CORES:
+        err = load("flash_attention_tc").repro_flash_attention_tc(*args, stream)
+        record_launch(err, "flash_attention_tc")
+    else:
+        err = load("flash_attention").repro_flash_attention(*args, DTYPE_CODES[q.dtype],
+                                                            stream)
+        record_launch(err, "flash_attention")
     return out, lse
 
 
@@ -180,5 +217,6 @@ class FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None
 
 
-__all__ = ["FlashAttention", "HEAD_DIMS", "NEG_INF", "attend_plain", "causal_mask",
-           "flash_attention", "flash_attention_bwd", "flash_attention_plain"]
+__all__ = ["F32_FMA", "FlashAttention", "HEAD_DIMS", "NEG_INF", "TC_HEAD_DIMS",
+           "TENSOR_CORES", "attend_plain", "attention_route", "causal_mask",
+           "flash_attention", "flash_attention_bwd", "flash_attention_plain", "tma_ok"]

@@ -8,10 +8,13 @@ per-token loss ``logsumexp(h @ W) - (h @ W)[label]`` comes out as (T,) f32.
 A label outside [0, V) picks 0 (the loss is then the bare logsumexp), as
 the reference's kernel, whose vocab panels never hit it.
 
-  * :func:`fused_xent` — launches the forward kernel on CUDA tensors: the
+  * :func:`fused_xent` — launches a forward kernel on CUDA tensors: the
     product h @ W computed panel by panel inside the kernel, a running
     (max, sum of exp) per row, no (T, V) logits in device memory.  Returns
-    (loss, lse), lse being what the backward needs.
+    (loss, lse), lse being what the backward needs.  :func:`xent_route`
+    picks the kernel: ``tensor_cores`` (``csrc/fused_xent_tc.cu``: wgmma
+    with TMA loads; bf16, D and V multiples of 8, 16-byte aligned) or
+    ``f32_fma`` (``csrc/fused_xent.cu``: f32 FMA; everything else).
   * :func:`fused_xent_bwd` — the backward on CUDA tensors, in chunks of T
     rows: ``logits_c = h_c @ W`` (cuBLAS, f32), the ``xent_grad`` kernel
     turns them into ``dlogits_c = (softmax - onehot(label)) * g`` in place,
@@ -27,22 +30,24 @@ the reference's kernel, whose vocab panels never hit it.
     autograd is the plain backward.
 
 ``kernels/ops.py::fused_cross_entropy`` picks between them by the tensor's
-device.  The forward launcher counts its launches as ``fused_xent`` and the
-backward as ``fused_xent_bwd`` (one a call, whatever its chunks) in
+device.  The forward launcher counts its launches by route as
+``fused_xent`` (f32 FMA) or ``fused_xent_tc`` (tensor cores), and the
+backward as ``fused_xent_bwd`` (one a call, whatever its chunks), in
 ``build.LAUNCHES``.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
-from .flash_attention import DTYPE_CODES
+from .flash_attention import DTYPE_CODES, F32_FMA, TENSOR_CORES, tma_ok
 
 #: f32 logits a backward chunk holds (chunk rows = CHUNK_BYTES // (4 V))
 CHUNK_BYTES = 512 * 2 ** 20
-#: rows of h and vocab columns a forward block owns (csrc/fused_xent.cu)
-BLOCK_T, PANEL_V = 128, 128
+#: rows of h and vocab columns a forward block owns: csrc/fused_xent.cu
+#: (two blocks an SM) and, PANEL_V_TC, csrc/fused_xent_tc.cu (one)
+BLOCK_T, PANEL_V, PANEL_V_TC = 128, 128, 256
 
 
 def _picked(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -73,12 +78,23 @@ def check_shapes(hidden: torch.Tensor, weights: torch.Tensor, labels: torch.Tens
                          f"labels {tuple(labels.shape)} disagree")
 
 
-def xent_splits(t: int, v: int, sms: int) -> Tuple[int, int]:
+def xent_route(hidden: torch.Tensor, weights: torch.Tensor) -> str:
+    """The forward's route: :data:`TENSOR_CORES` for bf16 where TMA can read
+    both operands (D and V multiples of 8, so each row stride is a multiple
+    of 16 bytes, and 16-byte aligned bases), else :data:`F32_FMA`."""
+    if hidden.dtype == torch.bfloat16 and tma_ok(hidden) and tma_ok(weights):
+        return TENSOR_CORES
+    return F32_FMA
+
+
+def xent_splits(t: int, v: int, sms: int, panel: int = PANEL_V,
+                blocks_per_sm: int = 2) -> Tuple[int, int]:
     """(panels a block, blocks along V) of the forward grid: enough blocks
-    for four waves of two blocks an SM, every block at least one panel."""
-    n_panels = -(-v // PANEL_V)
+    for four waves of ``blocks_per_sm`` blocks an SM, every block at least
+    one ``panel``-wide vocab panel."""
+    n_panels = -(-v // panel)
     row_blocks = -(-t // BLOCK_T)
-    want = max(1, min(n_panels, -(-8 * sms // row_blocks)))
+    want = max(1, min(n_panels, -(-4 * blocks_per_sm * sms // row_blocks)))
     per_block = -(-n_panels // want)
     return per_block, -(-n_panels // per_block)
 
@@ -108,11 +124,12 @@ def _check_cuda(hidden: torch.Tensor, weights: torch.Tensor, labels: torch.Tenso
                          f"{tuple(weights.shape)}")
 
 
-def fused_xent(hidden: torch.Tensor, weights: torch.Tensor, labels: torch.Tensor
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the forward kernel: hidden (T, D), weights (D, V), int32
-    labels (T,) -> (loss (T,) f32, lse (T,) f32).  Records no graph (see
-    :class:`FusedXent`)."""
+def fused_xent(hidden: torch.Tensor, weights: torch.Tensor, labels: torch.Tensor, *,
+               route: Optional[str] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch a forward kernel, by :func:`xent_route` (``route=F32_FMA``
+    forces the f32-FMA kernel, to time it beside the other): hidden (T, D),
+    weights (D, V), int32 labels (T,) -> (loss (T,) f32, lse (T,) f32).
+    Records no graph (see :class:`FusedXent`)."""
     from .build import load, record_launch
     if torch.is_grad_enabled() and (hidden.requires_grad or weights.requires_grad):
         raise RuntimeError("the fused_xent launcher has no backward: train through "
@@ -121,18 +138,26 @@ def fused_xent(hidden: torch.Tensor, weights: torch.Tensor, labels: torch.Tensor
     t, d = hidden.shape
     v = weights.shape[1]
     sms = torch.cuda.get_device_properties(hidden.device).multi_processor_count
-    per_block, nsplit = xent_splits(t, v, sms)
+    chosen = xent_route(hidden, weights)
+    if route not in (None, chosen, F32_FMA):
+        raise ValueError(f"route {route!r}: these tensors take {chosen!r} or {F32_FMA!r}")
+    tc = (route or chosen) == TENSOR_CORES
+    per_block, nsplit = (xent_splits(t, v, sms, PANEL_V_TC, 1) if tc
+                         else xent_splits(t, v, sms))
     f32 = dict(dtype=torch.float32, device=hidden.device)
     part = torch.empty((t, nsplit, 2), **f32)
     picked = torch.zeros((t,), **f32)
     loss = torch.empty((t,), **f32)
     lse = torch.empty((t,), **f32)
     stream = torch.cuda.current_stream(hidden.device).cuda_stream
-    err = load("fused_xent").repro_fused_xent(
-        hidden.data_ptr(), weights.data_ptr(), labels.data_ptr(), part.data_ptr(),
-        picked.data_ptr(), loss.data_ptr(), lse.data_ptr(), t, d, v, per_block, nsplit,
-        DTYPE_CODES[hidden.dtype], stream)
-    record_launch(err, "fused_xent")
+    args = (hidden.data_ptr(), weights.data_ptr(), labels.data_ptr(), part.data_ptr(),
+            picked.data_ptr(), loss.data_ptr(), lse.data_ptr(), t, d, v, per_block, nsplit)
+    if tc:
+        err = load("fused_xent_tc").repro_fused_xent_tc(*args, stream)
+        record_launch(err, "fused_xent_tc")
+    else:
+        err = load("fused_xent").repro_fused_xent(*args, DTYPE_CODES[hidden.dtype], stream)
+        record_launch(err, "fused_xent")
     return loss, lse
 
 
@@ -208,4 +233,4 @@ class FusedXent(torch.autograd.Function):
 
 __all__ = ["CHUNK_BYTES", "FusedXent", "check_shapes", "chunk_rows",
            "fused_xent", "fused_xent_bwd", "fused_xent_plain", "xent_backward",
-           "xent_splits"]
+           "xent_route", "xent_splits"]

@@ -5,12 +5,16 @@ Per-row (per-sample) symmetric quantization to int8 or fp8-e4m3 with one f32
 scale per row, immediately dequantized, so the receiver consumes exactly the
 message it would reconstruct from ``1 byte/element + 4 bytes/row``.
 
-  * :func:`quant_dequant` — (N, D) f32 -> (deq (N, D), scales (N,)).
+  * :func:`quant_dequant` — (N, D) f32 -> (deq (N, D), scales (N,)); rows
+    wider than :data:`MAX_STATS_D` take a grid of (column chunk, row)
+    blocks (two launches behind the same call).
   * :func:`quant_dequant_stats` — the same plus the
     :func:`message_stats` ``[dispersion, support_residual]`` of the
-    dequantized message, in one launch.  It also takes M messages at once,
+    dequantized message, in one C call.  It also takes M messages at once,
     ``(M, N, D)`` -> stats ``(M, 2)`` (the batched round's R clusters, one
-    block per message).
+    block per message).  A message wider than :data:`MAX_STATS_D` (an LM's
+    cut activations) takes the wide path: three launches over (message,
+    column chunk) blocks behind the same call.
 
 These two launch the kernels and accept only CUDA tensors; the plain
 versions (:func:`quant_dequant_plain`, :func:`quant_dequant_stats_plain`)
@@ -40,9 +44,12 @@ QINV = {fmt: float(np.float32(1.0) / np.float32(q)) for fmt, q in QMAX.items()}
 _EPS = 1e-12
 _FMT_CODE = {INT8: 0, FP8_E4M3: 1}
 
-#: widest message the one-block stats kernel takes (its column sums live in
-#: shared memory: 4 bytes a column, within the 48 KB a block gets by default)
+#: where the kernels switch paths: a stats message up to this wide runs in
+#: one block (its column sums in shared memory: 4 bytes a column, within the
+#: 48 KB a block gets by default) and a row of B2 in one block; wider ones
+#: take the wide path's grid of WIDE_COLS-column chunks (any width)
 MAX_STATS_D = 8192
+WIDE_COLS = 2048
 
 
 def fp8_supported() -> bool:
@@ -148,9 +155,17 @@ def quant_dequant(x: torch.Tensor, fmt: str) -> Tuple[torch.Tensor, torch.Tensor
     deq = torch.empty_like(x)
     scales = torch.empty((n,), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = load("quant_exchange").repro_quant_dequant(
-        x.data_ptr(), deq.data_ptr(), scales.data_ptr(), n, d, _FMT_CODE[fmt],
-        QINV[fmt], _threads(d, 256), stream)
+    lib = load("quant_exchange")
+    if d <= MAX_STATS_D:
+        err = lib.repro_quant_dequant(
+            x.data_ptr(), deq.data_ptr(), scales.data_ptr(), n, d, _FMT_CODE[fmt],
+            QINV[fmt], _threads(d, 256), stream)
+    else:
+        # the rows' partial maxima, one per (row, chunk)
+        pmax = torch.empty((n * -(-d // WIDE_COLS),), dtype=torch.float32, device=x.device)
+        err = lib.repro_quant_dequant_wide(
+            x.data_ptr(), deq.data_ptr(), scales.data_ptr(), pmax.data_ptr(), n, d,
+            _FMT_CODE[fmt], QINV[fmt], stream)
     record_launch(err, "quant_dequant")
     return deq, scales
 
@@ -164,22 +179,33 @@ def quant_dequant_stats(x: torch.Tensor, fmt: str
     from .build import load, record_launch
     _check_input(x, fmt, dims=(2, 3))
     m, n, d = (1,) * (3 - x.dim()) + tuple(x.shape)
-    if d > MAX_STATS_D:
-        raise ValueError(f"quant_dequant_stats takes messages up to "
-                         f"{MAX_STATS_D} wide (column sums in shared memory), "
-                         f"got {d}")
     deq = torch.empty_like(x)
     scales = torch.empty(x.shape[:-1], dtype=torch.float32, device=x.device)
     stats = torch.empty(x.shape[:-2] + (2,), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = load("quant_exchange").repro_quant_dequant_stats(
-        x.data_ptr(), deq.data_ptr(), scales.data_ptr(), stats.data_ptr(), m, n,
-        d, _FMT_CODE[fmt], QINV[fmt], _threads(d, 1024), stream)
+    lib = load("quant_exchange")
+    if d <= MAX_STATS_D:
+        err = lib.repro_quant_dequant_stats(
+            x.data_ptr(), deq.data_ptr(), scales.data_ptr(), stats.data_ptr(), m, n,
+            d, _FMT_CODE[fmt], QINV[fmt], _threads(d, 1024), stream)
+    else:
+        if m > 65535:
+            raise ValueError(f"quant_dequant_stats takes at most 65,535 messages wider "
+                             f"than {MAX_STATS_D} a call, got {m}")
+        chunks = -(-d // WIDE_COLS)
+        # per (row, chunk): partial max, partial sum (v - mu)^2; per (message,
+        # chunk): partial sums of mu^2, min(v, 0)^2, v^2
+        scratch = torch.empty(((2 * m * n + 3 * m) * chunks,), dtype=torch.float32,
+                              device=x.device)
+        err = lib.repro_quant_dequant_stats_wide(
+            x.data_ptr(), deq.data_ptr(), scales.data_ptr(), stats.data_ptr(),
+            scratch.data_ptr(), m, n, d, _FMT_CODE[fmt], QINV[fmt], stream)
     record_launch(err, "quant_dequant_stats")
     return deq, scales, stats
 
 
 __all__ = ["INT8", "FP8_E4M3", "QUANT_FORMATS", "QMAX", "QINV", "MAX_STATS_D",
+           "WIDE_COLS",
            "check_format", "fp8_supported", "message_stats", "quant_dequant",
            "quant_dequant_plain", "quant_dequant_stats",
            "quant_dequant_stats_plain"]

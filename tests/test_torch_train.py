@@ -3,7 +3,8 @@ CPU: ``Model.loss`` and every parameter's gradient, the split view
 (``split_params``/``merge_params``, ``client_forward``/``ap_forward``),
 ``make_train_step`` with and without the int8 wire, the straight-through
 wire itself, and the Pigeon-SL round over ``from_lm`` on the fixture of
-``tests/test_system.py::test_e2e_protocol_over_transformer_lm``; remat on
+``tests/test_system.py::test_e2e_protocol_over_transformer_lm`` (also with
+the int8 wire under ``loss_plus_distance``); remat on
 and off; the train CLI.
 
 Tolerances, f32 throughout: loss, gradients and the train step's new
@@ -239,7 +240,11 @@ def test_lm_task_arrays_bit_equal(lm_round):
         np.testing.assert_array_equal(a, b)
 
 
-ROUND_CASES = {"honest": dict(), "label_flip": dict(malicious={1}, attack=jcore.LABEL_FLIP)}
+# "stats_int8": the int8 wire under a policy that scores the transmitted
+# messages' statistics (B3 on every client step's uplink)
+ROUND_CASES = {"honest": dict(), "label_flip": dict(malicious={1}, attack=jcore.LABEL_FLIP),
+               "stats_int8": dict(malicious={1}, attack=jcore.LABEL_FLIP,
+                                  selection="loss_plus_distance", quant="int8")}
 
 
 @pytest.mark.parametrize("case", sorted(ROUND_CASES))
