@@ -33,7 +33,9 @@ from the repository root.  Phases, in order; any failure exits non-zero:
      lse, on both routes wherever it takes the tensor cores (both timed),
      and its backward (dh, dW) and B5's
      backward (dq, dk, dv) within rel 1e-4 (f32) and 3e-2 (bf16) of
-     autograd of the plain versions, at the train shapes (T 2,048 through
+     autograd of the plain versions, each on both routes wherever it takes
+     the tensor cores (timed side by side at the train shape, where the
+     tensor cores must be the faster), at the train shapes (T 2,048 through
      Qwen3-8B's 4,096 x 151,936 head; B 4, S 512, 32/8 heads of 128) and
      edges (T and V tails, labels on panel edges and out of range; GQA
      groups 1/2/4/8, MQA, windows, head dims 64/80/256, S = 1), all
@@ -81,10 +83,10 @@ from the repository root.  Phases, in order; any failure exits non-zero:
      remat: the reference's train_4k settings with the sequence cut to
      512), three ``make_train_step`` calls on one (4, 512) batch of
      ``build_lm_task`` tokens: the loss finite and falling, per step 72 B5
-     forwards (remat recomputes each) and one B4 forward, all on the
-     tensor-core route, 36 B5 backwards and one B4 backward; seconds and
+     forwards (remat recomputes each) and one B4 forward, 36 B5 backwards
+     and one B4 backward, all on the tensor-core routes; seconds and
      tokens per step, peak memory, one step's profile with B4's and B5's
-     shares; at 4 layers in f32 the kernel path (the f32-FMA route) holds
+     shares; at 4 layers in f32 the kernel path (the f32-FMA routes) holds
      its loss and every gradient within rel 1e-4 of the plain path's;
   8. the Pigeon-SL round over ``from_lm`` at Qwen3-8B's width, depth cut
      to 12 layers (9 client + 3 AP): ``run_pigeon`` (argmin, label flip on
@@ -249,9 +251,11 @@ def want_launches(**counts) -> dict:
     return {**dict.fromkeys(build.LAUNCHES, 0), **counts}
 
 
-#: the libraries of each route of B5's and B4's forwards
-TC_LIBRARIES = ("flash_attention_tc", "fused_xent_tc")
-FMA_LIBRARIES = ("flash_attention", "fused_xent")
+#: the libraries of each route of B5's and B4's forwards and backwards
+#: (fused_xent.cu holds the f32 route's forward and its xent_grad)
+TC_LIBRARIES = ("flash_attention_tc", "fused_xent_tc", "flash_attention_bwd_tc",
+                "fused_xent_bwd_tc")
+FMA_LIBRARIES = ("flash_attention", "fused_xent", "flash_attention_bwd")
 
 
 def phase_sass() -> dict:
@@ -780,7 +784,7 @@ def _phase_xent():
     import torch
     from repro_torch.kernels import fused_xent as fx
 
-    fwd_err, bwd_err, mutant_err, routes = {}, {}, {}, {}
+    fwd_err, bwd_err, mutant_err, routes, bwd_routes = {}, {}, {}, {}, {}
     for dtype in ("float32", "bfloat16"):
         for i, shape in enumerate(XENT_SHAPES):
             h, w, labels, gup = _xent_args(shape, dtype, seed=i)
@@ -809,34 +813,44 @@ def _phase_xent():
                 if how == route:
                     route_err, route_lse = err, lse1
             err, lse1 = route_err, route_lse
-            dh1, dw1 = fx.fused_xent_bwd(h, w, labels, lse1, gup)
-            dh2, dw2 = fx.fused_xent_bwd(h, w, labels, lse1, gup)
-            torch.cuda.synchronize()
-            check(torch.equal(dh1, dh2) and torch.equal(dw1, dw2),
-                  f"fused_xent_bwd {dtype} {shape}: two runs differ")
-            gerr = _xent_grad_err(dh1, dw1, ref_dh, ref_dw, labels)
-            check(dh1.dtype == h.dtype and dw1.dtype == w.dtype and gerr <= GRAD_REL[dtype],
-                  f"fused_xent_bwd {dtype} {shape}: rel err {gerr:.3e} > {GRAD_REL[dtype]}")
-            if i == 0:
-                for what, bad_dh, bad_dw in _xent_grad_mutants(h, w, labels, gup, dh1, dw1):
-                    bad = _xent_grad_err(bad_dh, bad_dw, ref_dh, ref_dw, labels)
-                    check(bad > GRAD_REL[dtype], f"fused_xent_bwd {dtype} {shape}: the "
-                                                 f"check passes {what} (rel err {bad:.3e})")
-                    mutant_err.setdefault(dtype, {})[what] = bad
-            bwd_err[dtype] = max(bwd_err.get(dtype, 0.0), gerr)
-            if i == 0 and dtype == "bfloat16":
-                main_err, main_gerr = err, gerr
-                main_gabs = max(float((dh1.float() - ref_dh.float()).abs().max()),
-                                float((dw1.float() - ref_dw.float()).abs().max()))
-            del h, w, hh, ww, ref, ref_dh, ref_dw, dh1, dw1, dh2, dw2
+            # the backward on its own route and, where that is the tensor
+            # cores', on the f32-FMA route it replaced; the mutants are held
+            # against the first
+            bwd_route = fx.xent_bwd_route(h, w)
+            bwd_routes.setdefault(bwd_route, []).append((dtype, shape))
+            for how in [bwd_route] + ([fx.F32_FMA] if bwd_route == fx.TENSOR_CORES else []):
+                dh1, dw1 = fx.fused_xent_bwd(h, w, labels, lse1, gup, route=how)
+                dh2, dw2 = fx.fused_xent_bwd(h, w, labels, lse1, gup, route=how)
+                torch.cuda.synchronize()
+                what = f"fused_xent_bwd ({how}) {dtype} {shape}"
+                check(torch.equal(dh1, dh2) and torch.equal(dw1, dw2), f"{what}: two runs differ")
+                gerr = _xent_grad_err(dh1, dw1, ref_dh, ref_dw, labels)
+                check(dh1.dtype == h.dtype and dw1.dtype == w.dtype and gerr <= GRAD_REL[dtype],
+                      f"{what}: rel err {gerr:.3e} > {GRAD_REL[dtype]}")
+                if i == 0 and how == bwd_route:
+                    for bad_what, bad_dh, bad_dw in _xent_grad_mutants(h, w, labels, gup, dh1,
+                                                                       dw1):
+                        bad = _xent_grad_err(bad_dh, bad_dw, ref_dh, ref_dw, labels)
+                        check(bad > GRAD_REL[dtype], f"{what}: the check passes {bad_what} "
+                                                     f"(rel err {bad:.3e})")
+                        mutant_err.setdefault(dtype, {})[bad_what] = bad
+                key = f"{how} {dtype}"
+                bwd_err[key] = max(bwd_err.get(key, 0.0), gerr)
+                if i == 0 and dtype == "bfloat16" and how == bwd_route:
+                    main_err, main_gerr = err, gerr
+                    main_gabs = max(float((dh1.float() - ref_dh.float()).abs().max()),
+                                    float((dw1.float() - ref_dw.float()).abs().max()))
+                del dh1, dw1, dh2, dw2
+            del h, w, hh, ww, ref, ref_dh, ref_dw
             torch.cuda.empty_cache()
     log(f"phase1 fused_xent: loss and lse within atol {XENT_ATOL} of plain at "
         f"{list(XENT_SHAPES)} (labels on panel edges and out of range), bit-identical run "
         f"to run; routes {routes}; max_abs_err {fwd_err}")
     log(f"phase1 fused_xent_bwd: dh, dW within rel {GRAD_REL} of autograd of the plain "
         f"version at the same shapes (dh's rows with and without an in-range label, dW's "
-        f"columns hit and not hit by one, each on its own scale), bit-identical run to run; "
-        f"max rel err {bwd_err}; at {XENT_SHAPES[0]} the check refuses {mutant_err}")
+        f"columns hit and not hit by one, each on its own scale), bit-identical run to run, "
+        f"on every route a shape takes; routes {bwd_routes}; max rel err {bwd_err}; at "
+        f"{XENT_SHAPES[0]} the check refuses {mutant_err}")
 
     # timings at the train shape in bf16
     import torch.nn.functional as F
@@ -855,6 +869,9 @@ def _phase_xent():
     lib_loss = (F.cross_entropy(hh @ ww, labels.long(), reduction="none") * gup).sum()
     elt = 2
     results = {}
+    old_route = {"fused_xent": lambda: fx.fused_xent(h, w, labels, route=fx.F32_FMA),
+                 "fused_xent_bwd": lambda: fx.fused_xent_bwd(h, w, labels, lse, gup,
+                                                             route=fx.F32_FMA)}
     for name, call, plain, lib, n_bytes, n_ops in (
             ("fused_xent", lambda: fx.fused_xent(h, w, labels),
              lambda: fx.fused_xent_plain(h, w, labels),
@@ -873,16 +890,20 @@ def _phase_xent():
                       library_us=_time_us(lib, **few),
                       bound_us=max(bytes_us, ops_us),
                       bound_by="bytes" if bytes_us >= ops_us else "operations")
-        if name == "fused_xent":
-            old = lambda: fx.fused_xent(h, w, labels, route=fx.F32_FMA)  # noqa: E731
-            timing["f32_fma_route"] = dict(kernel_us=_time_us(old, **few),
-                                           kernel_dev_us=_graph_time_us(old, **few),
-                                           kernel_cold_us=_cold_time_us(old, reps=3))
-            log(f"phase1 fused_xent at {XENT_SHAPES[0]} bf16, the f32-FMA route "
-                f"(redesigned): kernel_us={timing['f32_fma_route']['kernel_us']:.1f}; "
-                f"graph-replayed device time: kernel_us="
-                f"{timing['f32_fma_route']['kernel_dev_us']:.1f}; L2 cold: kernel_us="
-                f"{timing['f32_fma_route']['kernel_cold_us']:.1f}")
+        # the f32-FMA route it replaced, in the same call; the tensor cores
+        # must beat it (by over 5x predicted: a kernel that silently lost
+        # its tensor cores fails here)
+        old = old_route[name]
+        timing["f32_fma_route"] = dict(kernel_us=_time_us(old, **few),
+                                       kernel_dev_us=_graph_time_us(old, **few),
+                                       kernel_cold_us=_cold_time_us(old, reps=3))
+        log(f"phase1 {name} at {XENT_SHAPES[0]} bf16, the f32-FMA route (redesigned): "
+            f"kernel_us={timing['f32_fma_route']['kernel_us']:.1f}; graph-replayed device "
+            f"time: kernel_us={timing['f32_fma_route']['kernel_dev_us']:.1f}; L2 cold: "
+            f"kernel_us={timing['f32_fma_route']['kernel_cold_us']:.1f}")
+        check(timing["kernel_dev_us"] < timing["f32_fma_route"]["kernel_dev_us"],
+              f"{name}: the tensor-core route ({timing['kernel_dev_us']:.1f} us) is not faster "
+              f"than the f32-FMA route ({timing['f32_fma_route']['kernel_dev_us']:.1f} us)")
         log(f"phase1 {name} at (T, D, V) = {XENT_SHAPES[0]} bf16: kernel_us="
             f"{timing['kernel_us']:.1f} plain_us={timing['plain_us']:.1f} library_us="
             f"{timing['library_us']:.1f} (F.cross_entropy(h @ W): two calls{'' if name == 'fused_xent' else ', through autograd'}) "
@@ -914,32 +935,38 @@ def _phase_attention_bwd():
         dout = torch.randn(args[0].shape, generator=g, device=DEVICE).to(args[0].dtype)
         return args, kw["window"], dout
 
-    errs = {}
+    errs, routes = {}, {}
     for dtype in ("float32", "bfloat16"):
         for i, shape in enumerate(ATTN_BWD_SHAPES):
             (q, k, v), window, dout = grads_of(shape, dtype, i)
             out, lse = fa.flash_attention(q, k, v, window=window)
-            d1 = fa.flash_attention_bwd(q, k, v, out, dout, lse, window=window)
-            d2 = fa.flash_attention_bwd(q, k, v, out, dout, lse, window=window)
             qq, kk, vv = (x.clone().requires_grad_() for x in (q, k, v))
             ref = torch.autograd.grad(fa.flash_attention_plain(qq, kk, vv, window=window),
                                       (qq, kk, vv), grad_outputs=dout)
-            torch.cuda.synchronize()
-            check(all(torch.equal(a, b) for a, b in zip(d1, d2)),
-                  f"flash_attention_bwd {dtype} {shape}: two runs differ")
             scale = max(float(r.abs().max()) for r in ref)
-            err = max(_rel_err(a, r, scale) for a, r in zip(d1, ref))
-            check(all(a.dtype == q.dtype and a.shape == r.shape for a, r in zip(d1, ref))
-                  and err <= GRAD_REL[dtype],
-                  f"flash_attention_bwd {dtype} {shape}: rel err {err:.3e} > {GRAD_REL[dtype]}")
-            errs[dtype] = max(errs.get(dtype, 0.0), err)
-            if i == 0 and dtype == "bfloat16":
-                main_err = err
-                main_abs = max(float((a.float() - r.float()).abs().max())
-                               for a, r in zip(d1, ref))
+            # on its own route and, where that is the tensor cores', on the
+            # f32-FMA route it replaced
+            route = fa.attention_bwd_route(q, k, v, out, dout)
+            routes.setdefault(route, []).append((dtype, shape))
+            for how in [route] + ([fa.F32_FMA] if route == fa.TENSOR_CORES else []):
+                d1 = fa.flash_attention_bwd(q, k, v, out, dout, lse, window=window, route=how)
+                d2 = fa.flash_attention_bwd(q, k, v, out, dout, lse, window=window, route=how)
+                torch.cuda.synchronize()
+                what = f"flash_attention_bwd ({how}) {dtype} {shape}"
+                check(all(torch.equal(a, b) for a, b in zip(d1, d2)), f"{what}: two runs differ")
+                err = max(_rel_err(a, r, scale) for a, r in zip(d1, ref))
+                check(all(a.dtype == q.dtype and a.shape == r.shape for a, r in zip(d1, ref))
+                      and err <= GRAD_REL[dtype],
+                      f"{what}: rel err {err:.3e} > {GRAD_REL[dtype]}")
+                key = f"{how} {dtype}"
+                errs[key] = max(errs.get(key, 0.0), err)
+                if i == 0 and dtype == "bfloat16" and how == route:
+                    main_err = err
+                    main_abs = max(float((a.float() - r.float()).abs().max())
+                                   for a, r in zip(d1, ref))
     log(f"phase1 flash_attention_bwd: dq, dk, dv within rel {GRAD_REL} of autograd of the "
-        f"plain version at {list(ATTN_BWD_SHAPES)}, bit-identical run to run; max rel err "
-        f"{errs}")
+        f"plain version at {list(ATTN_BWD_SHAPES)}, bit-identical run to run, on every route "
+        f"a shape takes; routes {routes}; max rel err {errs}")
 
     shape = ATTN_BWD_SHAPES[0]
     (q, k, v), window, dout = grads_of(shape, "bfloat16", 99)
@@ -966,13 +993,30 @@ def _phase_attention_bwd():
     n_bytes = 2 * (4 * b * s * h * d + 4 * b * s * hkv * d) + 4 * b * h * s
     bytes_us = n_bytes / HBM_BYTES_PER_S * 1e6
     ops_us = n_ops / BF16_OPS_PER_S * 1e6
+    old = lambda: fa.flash_attention_bwd(q, k, v, out, dout, lse, window=window,  # noqa: E731
+                                         route=fa.F32_FMA)
     timing = dict(kernel_us=_time_us(call, reps=20, samples=5),
                   kernel_dev_us=_graph_time_us(call, reps=20, samples=5),
                   kernel_cold_us=_cold_time_us(call, reps=10),
                   plain_us=_time_us(plain, reps=5, samples=3), plain_dev_us=None,
                   library_us=_time_us(lib, reps=20, samples=5),
                   bound_us=max(bytes_us, ops_us),
-                  bound_by="bytes" if bytes_us >= ops_us else "operations")
+                  bound_by="bytes" if bytes_us >= ops_us else "operations",
+                  f32_fma_route=dict(kernel_us=_time_us(old, reps=5, samples=3),
+                                     kernel_dev_us=_graph_time_us(old, reps=5, samples=3),
+                                     kernel_cold_us=_cold_time_us(old, reps=5)))
+    # this design's own bound: S and dP recomputed in the dQ pass (14 D
+    # flops a live pair and head)
+    own_us = 14 * d * pairs * b * h / BF16_OPS_PER_S * 1e6
+    old_t = timing["f32_fma_route"]
+    log(f"phase1 flash_attention_bwd at {shape} bf16, the f32-FMA route (redesigned): "
+        f"kernel_us={old_t['kernel_us']:.1f}; graph-replayed device time: kernel_us="
+        f"{old_t['kernel_dev_us']:.1f}; L2 cold: kernel_us={old_t['kernel_cold_us']:.1f}")
+    check(timing["kernel_dev_us"] < old_t["kernel_dev_us"],
+          f"flash_attention_bwd: the tensor-core route ({timing['kernel_dev_us']:.1f} us) is "
+          f"not faster than the f32-FMA route ({old_t['kernel_dev_us']:.1f} us)")
+    log(f"phase1 flash_attention_bwd at {shape} bf16: the design's own bound (14 D flops a "
+        f"pair) {own_us:.2f} us")
     log(f"phase1 flash_attention_bwd at {shape} bf16: kernel_us={timing['kernel_us']:.1f} "
         f"plain_us={timing['plain_us']:.1f} sdpa_backward_us={timing['library_us']:.1f} "
         f"bound_us={timing['bound_us']:.2f} ({timing['bound_by']}; {n_ops / 1e9:.2f} GFLOP, "
@@ -1410,8 +1454,8 @@ def phase_train():
     batch = _train_batch(b, s)
     step = make_train_step(model, TRAIN_LR)
     per_step = want_launches(flash_attention_tc=cfg.n_layers * (2 if cfg.remat else 1),
-                             flash_attention_bwd=cfg.n_layers, fused_xent_tc=1,
-                             fused_xent_bwd=1)
+                             flash_attention_bwd_tc=cfg.n_layers, fused_xent_tc=1,
+                             fused_xent_bwd_tc=1)
     losses, secs = [], []
     for i in range(3):
         torch.cuda.synchronize()
@@ -1422,7 +1466,8 @@ def phase_train():
         secs.append(time.perf_counter() - t0)
         launches = dict(build.LAUNCHES)
         check(launches == per_step, f"phase7 step {i}: launches {launches}, want {per_step} "
-                                    f"(remat recomputes each layer's forward)")
+                                    f"(remat recomputes each layer's forward; bf16 takes the "
+                                    f"tensor-core routes, backwards too)")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     check(all(x == x and abs(x) < 1e4 for x in losses), f"phase7: losses {losses}")
     check(losses[1] < losses[0] and losses[2] < losses[1], f"phase7: loss not falling {losses}")
@@ -1440,13 +1485,16 @@ def phase_train():
     _profile_report(f"phase7 {cfg.name} train step (B {b}, S {s}, bf16, remat)",
                     lambda: step(batch), min(walls) * 1e6, 1,
                     shares={"B4 forward": ("xent_fwd_tc_kernel", "xent_combine_kernel"),
-                            # the step's only f32 products are B4's logits
-                            # (its two bf16 products share cuBLAS's kernels
-                            # with the layers')
-                            "B4 backward: xent_grad and the f32 logits product":
-                                ("xent_grad_kernel", "sgemm"),
+                            # B4's two bf16 products share cuBLAS's kernels
+                            # with the layers'
+                            "B4 backward: the logit gradient (xent_dlogits_tc)":
+                                ("xent_bwd_tc_kernel",),
                             "B5 forward": ("flash_fwd_tc_kernel",),
-                            "B5 backward": ("dkdv_kernel", "dq_kernel", "delta_kernel")})
+                            "B5 backward": ("flash_bwd_dkdv_tc_kernel", "flash_bwd_dq_tc_kernel",
+                                            "flash_bwd_delta_kernel"),
+                            # none is left in a bf16 step: B4's f32 route
+                            # made the only ones
+                            "f32 products (SIMT SGEMM)": ("sgemm",)})
     train = dict(launches=launches, losses=losses, seconds=secs, warm_s=warm,
                  tokens_per_s=b * s / warm, peak_gb=peak_gb)
     del model, step
@@ -1468,11 +1516,12 @@ def phase_train():
         else:
             loss, _ = model.loss(batch)
             grads = torch.autograd.grad(loss, params)
-            # f32 keeps exact f32 products: the f32-FMA routes, no tensor cores
-            check(build.LAUNCHES["flash_attention"] == cfg4.n_layers * (2 if cfg4.remat else 1)
-                  and build.LAUNCHES["fused_xent"] == 1
-                  and build.LAUNCHES["flash_attention_tc"] == build.LAUNCHES["fused_xent_tc"]
-                  == 0, f"phase7 f32: the kernel path launched {build.LAUNCHES}")
+            # f32 keeps exact f32 products: the f32-FMA routes, forward and
+            # backward, no tensor cores
+            check(build.LAUNCHES == want_launches(
+                flash_attention=cfg4.n_layers * (2 if cfg4.remat else 1),
+                flash_attention_bwd=cfg4.n_layers, fused_xent=1, fused_xent_bwd=1),
+                  f"phase7 f32: the kernel path launched {build.LAUNCHES}")
             f32_launches = dict(build.LAUNCHES)
         results[name] = (loss.detach(), grads)
     (lk, gk), (lp, gp) = results["kernel"], results["plain"]
@@ -1500,8 +1549,8 @@ def _round_launches(cfg, pcfg, hist, quant, n_test, stats=False):
     width is read once.  The int8 wire quantizes each step's two messages;
     under a policy that scores message statistics the uplink of each step
     of the round's R clusters goes through B3 (the Pigeon-SL+ sub-rounds'
-    steps collect none).  bf16 forwards of B4 and B5 count on the
-    tensor-core route."""
+    steps collect none).  bf16 forwards and backwards of B4 and B5 count on
+    the tensor-core routes."""
     import math
     n = cfg.n_layers
     cut = min(cfg.cut_layer, n)
@@ -1517,9 +1566,9 @@ def _round_launches(cfg, pcfg, hist, quant, n_test, stats=False):
     tc = "_tc" if cfg.dtype == "bfloat16" else ""
     stats_launches = main if quant and stats else 0
     return want_launches(**{
-        "fused_xent" + tc: steps + vals, "fused_xent_bwd": steps,
+        "fused_xent" + tc: steps + vals, "fused_xent_bwd" + tc: steps,
         "flash_attention" + tc: steps * fwd * n + vals * n + handoffs * cut + evals * n + cut,
-        "flash_attention_bwd": steps * n,
+        "flash_attention_bwd" + tc: steps * n,
         "quant_dequant": 2 * steps - stats_launches if quant else 0,
         "quant_dequant_stats": stats_launches})
 
@@ -2122,11 +2171,11 @@ def main() -> None:
                # backwards to XLA's autodiff, of its plain cross-entropy
                # (chunked: models/model.py:258) and of attend
                "fused_xent_bwd": ("none; XLA autodiff of src/repro/models/model.py:258",
-                                  "src/repro_torch/kernels/csrc/fused_xent.cu"),
+                                  "src/repro_torch/kernels/csrc/fused_xent_bwd_tc.cu"),
                "flash_attention": ("src/repro/kernels/flash_attention.py:82",
                                    "src/repro_torch/kernels/csrc/flash_attention_tc.cu"),
                "flash_attention_bwd": ("none; XLA autodiff of src/repro/models/attention.py:82",
-                                       "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"),
+                                       "src/repro_torch/kernels/csrc/flash_attention_bwd_tc.cu"),
                "decode_attention": ("src/repro/kernels/decode_attention.py:66",
                                     "src/repro_torch/kernels/csrc/decode_attention.cu"),
                "slstm_scan": ("src/repro/kernels/slstm_scan.py:67",
@@ -2143,9 +2192,14 @@ def main() -> None:
                **{f"round_{q}": r["launches"] for q, r in rounds.items()},
                "xlstm_prefill": xlstm["prefill_launches"],
                "xlstm_decode": xlstm["loop_launches"]}
-    # B5's and B4's forwards: the entry is the tensor-core route, which the
-    # bf16 paths take; the f32-FMA route it replaced rides beside it
-    route_key = {"flash_attention": "flash_attention_tc", "fused_xent": "fused_xent_tc"}
+    # B5's and B4's forwards and backwards: the entry is the tensor-core
+    # route, which the bf16 paths take; the f32-FMA route it replaced (its
+    # library and counter) rides beside it
+    route_key = {"flash_attention": "flash_attention_tc", "fused_xent": "fused_xent_tc",
+                 "flash_attention_bwd": "flash_attention_bwd_tc",
+                 "fused_xent_bwd": "fused_xent_bwd_tc"}
+    fma_library = {"flash_attention": "flash_attention", "fused_xent": "fused_xent",
+                   "flash_attention_bwd": "flash_attention_bwd", "fused_xent_bwd": "fused_xent"}
     own = {name: ("serve" if name in ("flash_attention", "decode_attention") else
                   "train" if name in ("fused_xent", "fused_xent_bwd", "flash_attention_bwd")
                   else "xlstm_prefill" if name == "slstm_scan" else "batched")
@@ -2175,7 +2229,8 @@ def main() -> None:
             entry["sass"] = sass[key]
             old = k["f32_fma_route"]
             entry["f32_fma_route"] = dict(
-                source=sources[name][1].replace("_tc.cu", ".cu"), sass=sass[name],
+                source=f"src/repro_torch/kernels/csrc/{fma_library[name]}.cu",
+                sass=sass[fma_library[name]],
                 launches_by_path={path: counts[name] for path, counts in by_path.items()},
                 ms=ms(old["kernel_us"]), device_ms_l2_warm=ms(old["kernel_dev_us"]),
                 device_ms_l2_cold=ms(old["kernel_cold_us"]))

@@ -62,6 +62,12 @@ SOURCES: Dict[str, Dict[str, Tuple]] = {
         "repro_flash_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                       _I, _I, _I, _I, _F, _I, _P),
     },
+    "flash_attention_bwd_tc": {
+        # q, k, v, out, dout, lse, delta, dq, dk, dv, b, sq, sk, h, hkv, d,
+        # window, scale, stream
+        "repro_flash_attention_bwd_tc": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                         _I, _I, _I, _I, _I, _F, _P),
+    },
     "fused_xent": {
         # h, w, labels, part, picked, loss, lse, t, d, v, panels_per_block,
         # nsplit, dtype, stream
@@ -73,6 +79,10 @@ SOURCES: Dict[str, Dict[str, Tuple]] = {
         # h, w, labels, part, picked, loss, lse, t, d, v, panels_per_block,
         # nsplit, stream
         "repro_fused_xent_tc": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    },
+    "fused_xent_bwd_tc": {
+        # h, w, labels, lse, g, dl, t, d, v, panels_per_block, nsplit, stream
+        "repro_xent_dlogits_tc": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     },
     "decode_attention": {
         # q, k, v, out, ws, b, s, h, hkv, d, k_begin, k_end, chunk, splits,
@@ -89,13 +99,14 @@ SOURCES: Dict[str, Dict[str, Tuple]] = {
 _LOADED: Dict[str, ctypes.CDLL] = {}
 
 #: kernel launches per launcher; reset with :func:`reset_launches`.  B5's and
-#: B4's forwards count by route: ``flash_attention`` and ``fused_xent`` the
-#: f32-FMA kernels, ``flash_attention_tc`` and ``fused_xent_tc`` the
-#: tensor-core ones
+#: B4's forwards and backwards count by route: ``flash_attention``,
+#: ``fused_xent`` and their ``_bwd`` the f32-FMA kernels, the same names with
+#: ``_tc`` the tensor-core ones
 LAUNCHES: Dict[str, int] = {"quant_dequant": 0, "quant_dequant_stats": 0,
                             "tamper_check_sums": 0, "fused_xent": 0, "fused_xent_tc": 0,
-                            "fused_xent_bwd": 0, "flash_attention": 0,
-                            "flash_attention_tc": 0, "flash_attention_bwd": 0,
+                            "fused_xent_bwd": 0, "fused_xent_bwd_tc": 0,
+                            "flash_attention": 0, "flash_attention_tc": 0,
+                            "flash_attention_bwd": 0, "flash_attention_bwd_tc": 0,
                             "decode_attention": 0, "slstm_scan": 0}
 
 

@@ -14,9 +14,12 @@ with ``window > 0``, ``i - j < window``; scores are scaled by 1/sqrt(D).
     (``csrc/flash_attention.cu``: every product in f32 FMA, no tensor cores;
     everything else).  Returns the output and the rows' log-sum-exp (B, H,
     Sq) f32, which the backward reads.
-  * :func:`flash_attention_bwd` — launches the backward kernels
-    (``csrc/flash_attention_bwd.cu``): (dq, dk, dv) from the forward's
-    inputs, output and lse and the output's gradient.
+  * :func:`flash_attention_bwd` — launches the backward kernels, (dq, dk,
+    dv) from the forward's inputs, output and lse and the output's
+    gradient, by the route :func:`attention_bwd_route` picks:
+    ``tensor_cores`` (``csrc/flash_attention_bwd_tc.cu``: wgmma with TMA
+    loads; bf16, head_dim in :data:`TC_BWD_HEAD_DIMS`, 16-byte aligned) or
+    ``f32_fma`` (``csrc/flash_attention_bwd.cu``; everything else).
   * :class:`FlashAttention` — the ``autograd.Function`` over the two, the
     path of a CUDA call that needs a gradient.
   * :func:`flash_attention_plain` — what ``repro/kernels/ref.py::
@@ -26,10 +29,10 @@ with ``window > 0``, ``i - j < window``; scores are scaled by 1/sqrt(D).
     plain backward.
 
 ``kernels/ops.py`` picks between them by the tensor's device and by
-whether a gradient is needed.  The launchers count their launches in
-``build.LAUNCHES``, the forward by route (``flash_attention`` the f32-FMA
-kernel, ``flash_attention_tc`` the tensor-core one), and
-``flash_attention_bwd``; the launchers themselves record no graph.
+whether a gradient is needed.  The launchers count their launches by route
+in ``build.LAUNCHES`` (``flash_attention`` and ``flash_attention_bwd`` the
+f32-FMA kernels, ``flash_attention_tc`` and ``flash_attention_bwd_tc`` the
+tensor-core ones); the launchers themselves record no graph.
 """
 from __future__ import annotations
 
@@ -44,8 +47,16 @@ HEAD_DIMS = (32, 64, 80, 128, 256)
 #: head dims of the tensor-core route: whole 64-column (128-byte) TMA boxes
 TC_HEAD_DIMS = (64, 128, 256)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-#: the forward's routes (see :func:`attention_route`)
+#: head dims of the backward's tensor-core route: at 256 the dK and dV
+#: accumulators of a warpgroup's 64 keys (256 f32 a thread) overflow the
+#: registers, so D 256 stays on the f32-FMA route
+TC_BWD_HEAD_DIMS = (64, 128)
+#: the routes (see :func:`attention_route`, :func:`attention_bwd_route`)
 TENSOR_CORES, F32_FMA = "tensor_cores", "f32_fma"
+#: tiles of the backward's tensor-core kernels: the dK/dV kernel's keys a
+#: block and queries a step, the dQ kernel's query rows a block and keys a
+#: step; a warpgroup owns 64 keys or rows (csrc/flash_attention_bwd_tc.cu)
+BWD_KEYS, BWD_QUERIES, DQ_ROWS, DQ_KEYS, WG_ROWS = 128, 64, 128, 64, 64
 
 
 def tma_ok(t: torch.Tensor) -> bool:
@@ -64,6 +75,56 @@ def attention_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
             and all(tma_ok(t) for t in (q, k, v))):
         return TENSOR_CORES
     return F32_FMA
+
+
+def attention_bwd_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, dout: torch.Tensor) -> str:
+    """The backward's route: :data:`TENSOR_CORES` for bf16 at a head_dim of
+    :data:`TC_BWD_HEAD_DIMS` where TMA can read q, k, v, out and dout, else
+    :data:`F32_FMA` (f32 keeps exact f32 products; head dims 32 and 80 do
+    not fill a 128-byte box, and 256 does not fit the registers; a
+    misaligned view is not a TMA tensor)."""
+    if (q.dtype == torch.bfloat16 and q.shape[-1] in TC_BWD_HEAD_DIMS
+            and all(tma_ok(t) for t in (q, k, v, out, dout))):
+        return TENSOR_CORES
+    return F32_FMA
+
+
+def _tile_live(q0: int, q1: int, k0: int, k1: int, sq: int, sk: int, window: int) -> bool:
+    """Whether queries [q0, q1] and keys [k0, k1] hold a live pair (the
+    kernels' skip rule: their largest query sees their first key, and the
+    window reaches from their first query to their last key)."""
+    q1, k1 = min(q1, sq - 1), min(k1, sk - 1)
+    return q0 < sq and k0 < sk and k0 <= q1 and (window <= 0 or q0 - k1 < window)
+
+
+def bwd_tc_walks(sq: int, sk: int, window: int = 0):
+    """The tile walks of the backward's tensor-core kernels, per head, as
+    they compute them: ``(dkdv, dq)``, each {(block, warpgroup): [(first
+    query, first key) of each tile the warpgroup computes]}.  dK/dV: block
+    ``k0`` (:data:`BWD_KEYS` keys, a warpgroup's 64 from ``k0 + 64 wg``)
+    walks the :data:`BWD_QUERIES`-query tiles from ``k0`` to Sq (to ``k0 +
+    BWD_KEYS - 1 + window`` with a window).  dQ: block ``q0``
+    (:data:`DQ_ROWS` rows, 64 a warpgroup) walks :data:`DQ_KEYS`-key tiles
+    from ``max(0, q0 - window + 1)`` (0 without a window) to ``min(Sk, q0 +
+    DQ_ROWS)``.  A warpgroup skips a tile with no live pair."""
+    dkdv, dq = {}, {}
+    for k0 in range(0, sk, BWD_KEYS):
+        q_end = min(sq, k0 + BWD_KEYS - 1 + window) if window > 0 else sq
+        for wg in range(BWD_KEYS // WG_ROWS):
+            kw0 = k0 + WG_ROWS * wg
+            dkdv[k0, wg] = [(qt, kw0) for qt in range(k0, q_end, BWD_QUERIES)
+                            if _tile_live(qt, qt + BWD_QUERIES - 1, kw0, kw0 + WG_ROWS - 1,
+                                          sq, sk, window)]
+    for q0 in range(0, sq, DQ_ROWS):
+        k_begin = max(0, q0 - window + 1) if window > 0 else 0
+        k_end = min(sk, q0 + DQ_ROWS)
+        for wg in range(DQ_ROWS // WG_ROWS):
+            qw0 = q0 + WG_ROWS * wg
+            dq[q0, wg] = [(qw0, kt) for kt in range(k_begin, k_end, DQ_KEYS)
+                          if _tile_live(qw0, qw0 + WG_ROWS - 1, kt, kt + DQ_KEYS - 1,
+                                        sq, sk, window)]
+    return dkdv, dq
 
 
 def causal_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, window: int = 0) -> torch.Tensor:
@@ -170,10 +231,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         out: torch.Tensor, dout: torch.Tensor, lse: torch.Tensor, *,
-                        window: int = 0
+                        window: int = 0, route: Optional[str] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch the backward kernels: the forward's q, k, v, out and lse and
-    the output's gradient ``dout`` -> (dq, dk, dv) in q's dtype."""
+    """Launch the backward kernels, by :func:`attention_bwd_route`
+    (``route=F32_FMA`` forces the f32-FMA kernels, to time them beside the
+    others): the forward's q, k, v, out and lse and the output's gradient
+    ``dout`` -> (dq, dk, dv) in q's dtype."""
     from .build import load, record_launch
     check_cuda_inputs("flash_attention_bwd", q, k, v, out, dout)
     check_shapes(q, k, v)
@@ -190,11 +253,19 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = load("flash_attention_bwd").repro_flash_attention_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b,
-        sq, sk, h, hkv, d, window, 1.0 / math.sqrt(d), DTYPE_CODES[q.dtype], stream)
-    record_launch(err, "flash_attention_bwd")
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b,
+            sq, sk, h, hkv, d, window, 1.0 / math.sqrt(d))
+    chosen = attention_bwd_route(q, k, v, out, dout)
+    if route not in (None, chosen, F32_FMA):
+        raise ValueError(f"route {route!r}: these tensors take {chosen!r} or {F32_FMA!r}")
+    if (route or chosen) == TENSOR_CORES:
+        err = load("flash_attention_bwd_tc").repro_flash_attention_bwd_tc(*args, stream)
+        record_launch(err, "flash_attention_bwd_tc")
+    else:
+        err = load("flash_attention_bwd").repro_flash_attention_bwd(
+            *args, DTYPE_CODES[q.dtype], stream)
+        record_launch(err, "flash_attention_bwd")
     return dq, dk, dv
 
 
@@ -217,6 +288,7 @@ class FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None
 
 
-__all__ = ["F32_FMA", "FlashAttention", "HEAD_DIMS", "NEG_INF", "TC_HEAD_DIMS",
-           "TENSOR_CORES", "attend_plain", "attention_route", "causal_mask",
-           "flash_attention", "flash_attention_bwd", "flash_attention_plain", "tma_ok"]
+__all__ = ["F32_FMA", "FlashAttention", "HEAD_DIMS", "NEG_INF", "TC_BWD_HEAD_DIMS",
+           "TC_HEAD_DIMS", "TENSOR_CORES", "attend_plain", "attention_bwd_route",
+           "attention_route", "bwd_tc_walks", "causal_mask", "flash_attention",
+           "flash_attention_bwd", "flash_attention_plain", "tma_ok"]

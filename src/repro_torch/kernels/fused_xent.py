@@ -16,13 +16,18 @@ the reference's kernel, whose vocab panels never hit it.
     with TMA loads; bf16, D and V multiples of 8, 16-byte aligned) or
     ``f32_fma`` (``csrc/fused_xent.cu``: f32 FMA; everything else).
   * :func:`fused_xent_bwd` — the backward on CUDA tensors, in chunks of T
-    rows: ``logits_c = h_c @ W`` (cuBLAS, f32), the ``xent_grad`` kernel
-    turns them into ``dlogits_c = (softmax - onehot(label)) * g`` in place,
-    then ``dh_c = dlogits_c @ W.T`` and ``dW += h_c.T @ dlogits_c`` (cuBLAS,
-    in the inputs' dtype).  The reference's kernel is forward only: its
-    training path differentiates the plain cross-entropy through XLA, which
-    leaves these two products to the matrix unit too.  A chunk holds
-    :data:`CHUNK_BYTES` of f32 logits.
+    rows, by the route :func:`xent_bwd_route` picks.  ``tensor_cores``
+    (:func:`xent_backward_tc`): the ``xent_dlogits_tc`` kernel
+    (``csrc/fused_xent_bwd_tc.cu``) recomputes the chunk's logits on wgmma
+    and writes ``dlogits_c = bf16((softmax - onehot(label)) * g)``; a chunk
+    holds :data:`CHUNK_BYTES` of bf16 dlogits.  ``f32_fma``
+    (:func:`xent_backward`): ``logits_c = h_c @ W`` (cuBLAS, f32), the
+    ``xent_grad`` kernel turns them into dlogits in place; a chunk holds
+    :data:`CHUNK_BYTES` of f32 logits.  Both then run ``dh_c = dlogits_c @
+    W.T`` and ``dW += h_c.T @ dlogits_c`` (cuBLAS, in the inputs' dtype).
+    The reference's kernel is forward only: its training path
+    differentiates the plain cross-entropy through XLA, which leaves these
+    two products to the matrix unit too.
   * :class:`FusedXent` — the ``autograd.Function`` over the two.
   * :func:`fused_xent_plain` — what ``repro/kernels/ref.py::xent_reference``
     computes (the logits materialised in f32), with the out-of-range rule
@@ -30,10 +35,10 @@ the reference's kernel, whose vocab panels never hit it.
     autograd is the plain backward.
 
 ``kernels/ops.py::fused_cross_entropy`` picks between them by the tensor's
-device.  The forward launcher counts its launches by route as
-``fused_xent`` (f32 FMA) or ``fused_xent_tc`` (tensor cores), and the
-backward as ``fused_xent_bwd`` (one a call, whatever its chunks), in
-``build.LAUNCHES``.
+device.  The launchers count their launches by route, in
+``build.LAUNCHES``: the forward as ``fused_xent`` (f32 FMA) or
+``fused_xent_tc`` (tensor cores), the backward as ``fused_xent_bwd`` or
+``fused_xent_bwd_tc`` (one a call, whatever its chunks).
 """
 from __future__ import annotations
 
@@ -43,7 +48,8 @@ import torch
 
 from .flash_attention import DTYPE_CODES, F32_FMA, TENSOR_CORES, tma_ok
 
-#: f32 logits a backward chunk holds (chunk rows = CHUNK_BYTES // (4 V))
+#: logits a backward chunk holds: f32 on the f32-FMA route, bf16 dlogits on
+#: the tensor cores' (chunk rows = CHUNK_BYTES // (4 V), or // (2 V))
 CHUNK_BYTES = 512 * 2 ** 20
 #: rows of h and vocab columns a forward block owns: csrc/fused_xent.cu
 #: (two blocks an SM) and, PANEL_V_TC, csrc/fused_xent_tc.cu (one)
@@ -87,6 +93,14 @@ def xent_route(hidden: torch.Tensor, weights: torch.Tensor) -> str:
     return F32_FMA
 
 
+def xent_bwd_route(hidden: torch.Tensor, weights: torch.Tensor) -> str:
+    """The backward's route: :data:`TENSOR_CORES` (the logits recomputed on
+    wgmma, bf16 dlogits, bf16 products) where the forward's holds, by the
+    same rule (bf16, D and V multiples of 8, 16-byte aligned bases), else
+    :data:`F32_FMA` (cuBLAS f32 logits and ``xent_grad``)."""
+    return xent_route(hidden, weights)
+
+
 def xent_splits(t: int, v: int, sms: int, panel: int = PANEL_V,
                 blocks_per_sm: int = 2) -> Tuple[int, int]:
     """(panels a block, blocks along V) of the forward grid: enough blocks
@@ -99,9 +113,11 @@ def xent_splits(t: int, v: int, sms: int, panel: int = PANEL_V,
     return per_block, -(-n_panels // per_block)
 
 
-def chunk_rows(v: int) -> int:
-    """Rows of a backward chunk: :data:`CHUNK_BYTES` of f32 logits."""
-    return max(1, min(65535, CHUNK_BYTES // (4 * v)))
+def chunk_rows(v: int, elt: int = 4) -> int:
+    """Rows of a backward chunk: :data:`CHUNK_BYTES` of logits of ``elt``
+    bytes (4: the f32-FMA route's f32 logits; 2: the tensor cores' bf16
+    dlogits)."""
+    return max(1, min(65535, CHUNK_BYTES // (elt * v)))
 
 
 def _check_cuda(hidden: torch.Tensor, weights: torch.Tensor, labels: torch.Tensor) -> None:
@@ -175,8 +191,8 @@ def _xent_grad(logits: torch.Tensor, lse: torch.Tensor, labels: torch.Tensor,
 def xent_backward(hidden: torch.Tensor, weights: torch.Tensor, labels: torch.Tensor,
                   lse: torch.Tensor, g: torch.Tensor
                   ) -> Tuple[torch.Tensor, torch.Tensor, int]:
-    """The chunked backward of CUDA tensors: (dh (T, D), dW (D, V), the
-    first cudaError_t of the ``xent_grad`` launches)."""
+    """The f32-FMA route's chunked backward of CUDA tensors: (dh (T, D), dW
+    (D, V), the first cudaError_t of the ``xent_grad`` launches)."""
     t = hidden.shape[0]
     rows = chunk_rows(weights.shape[1])
     w32 = weights.to(torch.float32)
@@ -197,10 +213,56 @@ def xent_backward(hidden: torch.Tensor, weights: torch.Tensor, labels: torch.Ten
     return dh, dw, err
 
 
+def _xent_dlogits_tc(hc: torch.Tensor, weights: torch.Tensor, labels: torch.Tensor,
+                     lse: torch.Tensor, g: torch.Tensor, dl: torch.Tensor) -> int:
+    """Launch ``xent_dlogits_tc`` on one chunk of C rows: ``dl`` (C, V) bf16
+    = ``bf16((exp(hc @ W - lse) - onehot(label)) * g)``; returns its
+    cudaError_t."""
+    from .build import load
+    c, d = hc.shape
+    v = weights.shape[1]
+    sms = torch.cuda.get_device_properties(hc.device).multi_processor_count
+    per_block, nsplit = xent_splits(c, v, sms, PANEL_V_TC, 1)
+    stream = torch.cuda.current_stream(hc.device).cuda_stream
+    return load("fused_xent_bwd_tc").repro_xent_dlogits_tc(
+        hc.data_ptr(), weights.data_ptr(), labels.data_ptr(), lse.data_ptr(), g.data_ptr(),
+        dl.data_ptr(), c, d, v, per_block, nsplit, stream)
+
+
+def xent_backward_tc(hidden: torch.Tensor, weights: torch.Tensor, labels: torch.Tensor,
+                     lse: torch.Tensor, g: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """The tensor cores' chunked backward of bf16 CUDA tensors: per chunk
+    the ``xent_dlogits_tc`` kernel, then ``dh_c = dl @ W.T`` and ``dW +=
+    h_c.T @ dl`` on cuBLAS in bf16.  Returns (dh (T, D), dW (D, V), the
+    first cudaError_t of the kernel's launches)."""
+    t = hidden.shape[0]
+    v = weights.shape[1]
+    rows = chunk_rows(v, 2)
+    dh = torch.empty_like(hidden)
+    dw = torch.empty_like(weights)
+    dl_buf = torch.empty((min(t, rows), v), dtype=weights.dtype, device=weights.device)
+    err = 0
+    for c0 in range(0, t, rows):
+        c1 = min(t, c0 + rows)
+        hc = hidden[c0:c1]
+        dl = dl_buf[:c1 - c0]
+        err = err or _xent_dlogits_tc(hc, weights, labels[c0:c1], lse[c0:c1], g[c0:c1], dl)
+        torch.mm(dl, weights.t(), out=dh[c0:c1])
+        if c0 == 0:
+            torch.mm(hc.t(), dl, out=dw)
+        else:
+            dw.addmm_(hc.t(), dl)
+    return dh, dw, err
+
+
 def fused_xent_bwd(hidden: torch.Tensor, weights: torch.Tensor, labels: torch.Tensor,
-                   lse: torch.Tensor, g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The backward on CUDA tensors: g (T,) f32, the upstream gradient of
-    the per-token loss -> (dh, dW) in the inputs' dtype."""
+                   lse: torch.Tensor, g: torch.Tensor, *, route: Optional[str] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The backward on CUDA tensors, by :func:`xent_bwd_route`
+    (``route=F32_FMA`` forces the f32-FMA route, to time it beside the
+    other): g (T,) f32, the upstream gradient of the per-token loss -> (dh,
+    dW) in the inputs' dtype."""
     from .build import record_launch
     _check_cuda(hidden, weights, labels)
     for x in (lse, g):
@@ -208,8 +270,15 @@ def fused_xent_bwd(hidden: torch.Tensor, weights: torch.Tensor, labels: torch.Te
                 or not x.is_contiguous():
             raise ValueError("fused_xent_bwd takes lse and g as contiguous (T,) f32 on "
                              "hidden's device")
-    dh, dw, err = xent_backward(hidden, weights, labels, lse, g)
-    record_launch(err, "fused_xent_bwd")
+    chosen = xent_bwd_route(hidden, weights)
+    if route not in (None, chosen, F32_FMA):
+        raise ValueError(f"route {route!r}: these tensors take {chosen!r} or {F32_FMA!r}")
+    if (route or chosen) == TENSOR_CORES:
+        dh, dw, err = xent_backward_tc(hidden, weights, labels, lse, g)
+        record_launch(err, "fused_xent_bwd_tc")
+    else:
+        dh, dw, err = xent_backward(hidden, weights, labels, lse, g)
+        record_launch(err, "fused_xent_bwd")
     return dh, dw
 
 
@@ -233,4 +302,4 @@ class FusedXent(torch.autograd.Function):
 
 __all__ = ["CHUNK_BYTES", "FusedXent", "check_shapes", "chunk_rows",
            "fused_xent", "fused_xent_bwd", "fused_xent_plain", "xent_backward",
-           "xent_route", "xent_splits"]
+           "xent_backward_tc", "xent_bwd_route", "xent_route", "xent_splits"]

@@ -246,7 +246,8 @@ def test_tensor_core_numerics_stay_within_the_bf16_bound(case):
 
 def test_library_path_follows_the_included_headers(tmp_path, monkeypatch):
     """Editing a header (sm90.cuh, xent_combine.cuh) renames the libraries
-    of the sources that include it, and only theirs; nothing is compiled."""
+    of the sources that include it (the four tensor-core sources include
+    sm90.cuh), and only theirs; nothing is compiled."""
     monkeypatch.setattr(tbuild, "_nvcc", lambda: pytest.fail("nvcc was called"))
     csrc = tmp_path / "csrc"
     shutil.copytree(tbuild.CSRC, csrc)
@@ -256,7 +257,8 @@ def test_library_path_follows_the_included_headers(tmp_path, monkeypatch):
         f.write("\n// edited\n")
     after = {name: tbuild.library_path(name, csrc) for name in tbuild.SOURCES}
     changed = {name for name in tbuild.SOURCES if after[name] != before[name]}
-    assert changed == {"flash_attention_tc", "fused_xent_tc"}
+    assert changed == {"flash_attention_tc", "fused_xent_tc", "flash_attention_bwd_tc",
+                       "fused_xent_bwd_tc"}
     with open(csrc / "xent_combine.cuh", "a") as f:
         f.write("\n// edited\n")
     again = {name: tbuild.library_path(name, csrc) for name in tbuild.SOURCES}
