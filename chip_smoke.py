@@ -11,8 +11,11 @@ from the repository root.  Phases, in order; any failure exits non-zero:
   1. every kernel against its plain PyTorch version on the card, at the
      shapes the main paths give it and a few edge shapes: the wire kernels'
      deq/scales bit-equal, stats within rtol 1e-5, two runs bit-identical
-     (B2 also over the batched path's R*B rows, the stats kernel also with
-     R messages in one launch; both at an LM's cut message (4, 2,097,152),
+     (B2 also over the batched path's R*B rows, the stats kernel (one
+     thread-block cluster a message up to 8,192 wide) also with R messages
+     in one launch, at the sequential (1, 64, 256) and batched (5, 64, 256)
+     layouts and at n 1 and 3, D 1,000 and 8,192; both at an LM's cut
+     message (4, 2,097,152),
      which B3 runs on its wide path, and B3 also on (2, 4, 12,288), timed
      beside their bytes bound); the tamper
      check's sums within rtol 1e-5 of the plain version and of a float64
@@ -21,14 +24,19 @@ from the repository root.  Phases, in order; any failure exits non-zero:
      kernels (B5 flash attention, B6 decode attention) within atol 2e-5
      (f32) and 2e-2 (bf16) of their plain versions at the serve path's
      shapes and edge shapes (MQA, groups 1, windows, head dims 64/80/256,
-     ragged S, index 0), bit-identical from run to run, B5's forward on both
-     routes (the tensor-core kernel, wgmma with TMA loads, and the f32-FMA
-     kernel) wherever it takes the tensor cores; each kernel's time
-     (eager, graph-replayed with the L2 warm, one call with it cold) beside
-     its plain version's, its bound and, for B5/B6, the time of PyTorch's
-     ``scaled_dot_product_attention`` on the same inputs (a yardstick the
-     port never calls), also at two long-context shapes, B5's f32-FMA route
-     timed beside its tensor-core route; B4 (fused cross-entropy) forward
+     ragged S, index 0; B6 also with windows on its tensor-core route and
+     at its 32k shape, where the bf16 bound is 2e-2 of the largest |plain|
+     value), bit-identical from run
+     to run, on both routes wherever a shape takes the tensor cores (B5's
+     forward: wgmma with TMA loads; B6: mma.sync with cp.async loads and a
+     cluster combine; and the f32-FMA kernel beside each), B6 also with
+     ``index`` as a device scalar, each route's choice printed; each
+     kernel's time (eager, graph-replayed with the L2 warm, one call with
+     it cold) beside its plain version's, its bound and, for B5/B6, the
+     time of PyTorch's ``scaled_dot_product_attention`` on the same inputs,
+     eager and replayed (a yardstick the port never calls), also at two
+     long-context shapes, the f32-FMA route timed beside the tensor-core
+     route; B4 (fused cross-entropy) forward
      within atol 1e-5 (f32) and 3e-2 (bf16) of its plain version, loss and
      lse, on both routes wherever it takes the tensor cores (both timed),
      and its backward (dh, dW) and B5's
@@ -45,8 +53,9 @@ from the repository root.  Phases, in order; any failure exits non-zero:
      of its plain version at the xLSTM prefill shape (T 512, B 4, d 2,048,
      H 4) and edges (H 1 and 2, dh 40, ragged units, B 1/3/5, T 1),
      bit-identical run to run, timed (no PyTorch call computes the scan),
-     also at T 4,096; the tensor-core routes' libraries hold HGMMA and
-     UTMALDG instructions in their SASS (cuobjdump), the f32-FMA ones none;
+     also at T 4,096; the wgmma routes' libraries hold HGMMA and UTMALDG
+     instructions in their SASS (cuobjdump), B6's tensor-core library HMMA
+     and LDGSTS (mma.sync, cp.async), the f32-FMA ones none of the four;
   2. the sequential main path at full width: the CIFAR-10 split CNN (convs
      32/64/128, d_c = 256, FC 128/64/10) at the paper's Table II sizes
      through ``run_pigeon(engine="sequential", quant="int8",
@@ -75,7 +84,8 @@ from the repository root.  Phases, in order; any failure exits non-zero:
      480 tokens through ``make_prefill_step`` (36 B5 launches, all on the
      tensor-core route), then runs the
      reference serve loop through ``make_serve_step`` (the prompt stepped,
-     then 32 greedy tokens: 512 steps, 18,432 B6 launches); prefill and
+     then 32 greedy tokens: 512 steps, 18,432 B6 launches, all on the
+     tensor-core route); prefill and
      decode logits at the prompt's last position agree (bf16 bound, and at
      f32 with 4 layers a tight one); prefill seconds, ms per decode step,
      tokens/s, peak memory and the profile of one warm decode step;
@@ -138,7 +148,11 @@ WIDE_BATCHED = (2, 4, 12_288)
 # the wire kernels' checks: the batched path's R*B rows (one B2 launch a
 # step), the sequential path's one message, then edge shapes and the LM's
 KERNEL_SHAPES = ((BATCHED_MESSAGES[0] * BATCHED_MESSAGES[1], BATCHED_MESSAGES[2]),
-                 TIMED_SHAPE, (64, 32), (37, 200), (1, 256), (1024, 4096), LM_MESSAGE)
+                 TIMED_SHAPE, (64, 32), (37, 200), (1, 256), (1, 1000), (3, 1000),
+                 (1, 8192), (3, 8192), (1024, 4096), LM_MESSAGE)
+# R messages in one stats call: the batched round's, the sequential path's
+# one message in the batched layout, and wide ones (B3's wide path)
+STATS_BATCHED = (BATCHED_MESSAGES, (1,) + TIMED_SHAPE, WIDE_BATCHED)
 # the tamper check's (R, D_o, d_c): CIFAR, MNIST, ragged, tiny, large
 TAMPER_SHAPES = ((5, 3000, 256), (4, 3000, 32), (3, 37, 200), (1, 1, 256),
                  (2, 4096, 4096))
@@ -150,19 +164,26 @@ BF16_OPS_PER_S = 989e12         # H100 SXM dense bf16 tensor-core rate
 # attention: (B, S, H, Hkv, D, window) for B5, (..., index) for B6; the serve
 # path's shapes first (Qwen3-8B: 32 query and 8 KV heads of 128; a 480-token
 # prompt, a 512-position cache), then MQA, groups 1, windows, head dims
-# 64/80/256 and ragged S
+# 64/80/256 and ragged S; B6's last three take windows on the tensor-core
+# route (bf16 at head dims 128 and 64, a window wider than the live range)
 FLASH_SHAPES = ((4, 480, 32, 8, 128, 0), (2, 128, 8, 1, 64, 0), (2, 96, 4, 4, 64, 0),
                 (1, 480, 8, 2, 128, 64), (2, 37, 4, 2, 80, 0), (1, 300, 16, 8, 256, 128),
                 (1, 1, 4, 2, 64, 0))
 DECODE_SHAPES = ((4, 512, 32, 8, 128, 0, 479), (4, 512, 32, 8, 128, 0, 511),
                  (2, 300, 8, 1, 64, 0, 0), (2, 256, 4, 4, 64, 0, 255),
                  (1, 1000, 4, 2, 80, 100, 999), (2, 257, 16, 8, 256, 1024, 200),
-                 (1, 37, 8, 2, 128, 0, 36), (1, 100, 32, 1, 128, 0, 50))
+                 (1, 37, 8, 2, 128, 0, 36), (1, 100, 32, 1, 128, 0, 50),
+                 (1, 1000, 8, 2, 128, 100, 999), (2, 256, 8, 2, 64, 16, 200),
+                 (1, 300, 16, 4, 128, 256, 100))
 # long context at Qwen3-8B widths: one 8k prompt; one layer of decode_32k at
 # 8 of its 128 sequences
 FLASH_LONG = (1, 8192, 32, 8, 128, 0)
 DECODE_LONG = (8, 32768, 32, 8, 128, 0, 32767)
 ATTN_ATOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# at DECODE_LONG a typical |out| is about sqrt(e / 32,768) = 0.009 (N(0, 1)
+# inputs over 32k live keys), under the bf16 atol itself: there the bf16
+# bound is this share of the call's largest |plain| value (~5 bf16 ulps of it)
+LONG_BF16_REL = 2e-2
 # phase 6: Qwen3-8B served at B = 4, 480 prompt tokens, 32 new ones
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 480, 32
 # prefill vs decode logits at the prompt's last position, the largest
@@ -251,17 +272,23 @@ def want_launches(**counts) -> dict:
     return {**dict.fromkeys(build.LAUNCHES, 0), **counts}
 
 
-#: the libraries of each route of B5's and B4's forwards and backwards
-#: (fused_xent.cu holds the f32 route's forward and its xent_grad)
+#: the libraries of each route of B5's and B4's forwards and backwards and
+#: of B6 (fused_xent.cu holds the f32 route's forward and its xent_grad):
+#: the wgmma ones, B6's mma.sync one, the f32-FMA ones
 TC_LIBRARIES = ("flash_attention_tc", "fused_xent_tc", "flash_attention_bwd_tc",
                 "fused_xent_bwd_tc")
-FMA_LIBRARIES = ("flash_attention", "fused_xent", "flash_attention_bwd")
+MMA_LIBRARIES = ("decode_attention_tc",)
+FMA_LIBRARIES = ("flash_attention", "fused_xent", "flash_attention_bwd", "decode_attention")
+#: SASS opcodes counted: wgmma, TMA loads, mma.sync, cp.async
+SASS_OPS = ("HGMMA", "UTMALDG", "HMMA", "LDGSTS")
 
 
 def phase_sass() -> dict:
     """Count the Hopper instructions in each built library's SASS
-    (``cuobjdump --dump-sass``): the tensor-core routes must hold wgmma
-    (HGMMA) and TMA loads (UTMALDG), the f32-FMA routes neither."""
+    (``cuobjdump --dump-sass``): the wgmma routes must hold wgmma (HGMMA) and
+    TMA loads (UTMALDG), B6's tensor-core route tensor-core products (HMMA or
+    HGMMA) and asynchronous copies (LDGSTS or UTMALDG), the f32-FMA routes
+    none of the four."""
     import shutil
 
     from repro_torch.kernels import build
@@ -270,15 +297,19 @@ def phase_sass() -> dict:
     for name in build.SOURCES:
         sass = subprocess.run([tool, "--dump-sass", str(build.library_path(name))],
                               capture_output=True, text=True, timeout=300, check=True).stdout
-        counts[name] = {op: len(re.findall(rf"\b{op}\b", sass))
-                        for op in ("HGMMA", "UTMALDG")}
+        counts[name] = {op: len(re.findall(rf"\b{op}\b", sass)) for op in SASS_OPS}
     for name in TC_LIBRARIES:
-        check(all(counts[name].values()), f"phase0: {name}'s SASS lacks wgmma or TMA: "
-                                          f"{counts[name]}")
+        check(counts[name]["HGMMA"] and counts[name]["UTMALDG"],
+              f"phase0: {name}'s SASS lacks wgmma or TMA: {counts[name]}")
+    for name in MMA_LIBRARIES:
+        c = counts[name]
+        check((c["HMMA"] or c["HGMMA"]) and (c["LDGSTS"] or c["UTMALDG"]),
+              f"phase0: {name}'s SASS lacks tensor-core products or asynchronous copies: {c}")
     for name in FMA_LIBRARIES:
         check(not any(counts[name].values()), f"phase0: the f32-FMA route {name} holds "
                                               f"Hopper tensor-core instructions {counts[name]}")
-    log(f"phase0 SASS instruction counts (HGMMA: wgmma, UTMALDG: TMA loads): {counts}")
+    log(f"phase0 SASS instruction counts (HGMMA: wgmma, UTMALDG: TMA loads, HMMA: mma.sync, "
+        f"LDGSTS: cp.async): {counts}")
     return counts
 
 
@@ -314,33 +345,49 @@ def _time_us(fn, *args, reps: int = 200, samples: int = 15, warmup: int = 10) ->
     return times[len(times) // 2]
 
 
-def _graph_time_us(fn, *args, reps: int = 100, samples: int = 15) -> float:
-    """Device time per call: ``reps`` calls captured in one CUDA graph and
-    replayed, so the host's per-call cost drops out."""
+def _graph_times_us(fns, reps: int = 100, samples: int = 15):
+    """Device time per call of each of ``fns``: ``reps`` calls of each
+    captured in a CUDA graph of its own, so the host's per-call cost drops
+    out, and the graphs replayed in turn ``samples`` times, so a change in
+    the card's speed during the run falls on all of them alike.  The sorted
+    per-call times of each."""
     import torch
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        for _ in range(3):
-            fn(*args)
+        for fn in fns:
+            for _ in range(3):
+                fn()
     torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn(*args)
-    graph.replay()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(samples):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
+    graphs = []
+    for fn in fns:
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                fn()
         graph.replay()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) * 1e3 / reps)
-    times.sort()
+        graphs.append(graph)
+    torch.cuda.synchronize()
+    times = [[] for _ in graphs]
+    for _ in range(samples):
+        for graph, got in zip(graphs, times):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            graph.replay()
+            end.record()
+            end.synchronize()
+            got.append(start.elapsed_time(end) * 1e3 / reps)
+    return [sorted(got) for got in times]
+
+
+def _median(times) -> float:
     return times[len(times) // 2]
+
+
+def _graph_time_us(fn, *args, reps: int = 100, samples: int = 15) -> float:
+    """Device time per call (the median of :func:`_graph_times_us`)."""
+    return _median(_graph_times_us([lambda: fn(*args)], reps=reps, samples=samples)[0])
 
 
 def _cold_time_us(fn, *args, reps: int = 50) -> float:
@@ -451,7 +498,7 @@ def phase_kernels():
                 f"({timing['bound_by']}); graph-replayed device time (L2 warm): "
                 f"kernel_us={kernel_dev_us:.3f} plain_us={plain_dev_us:.3f}; one "
                 f"call with the L2 cold: kernel_us={kernel_cold_us:.3f}")
-        batched = f" and R messages at {[BATCHED_MESSAGES, WIDE_BATCHED]}"
+        batched = f" and R messages at {list(STATS_BATCHED)}"
         log(f"phase1 {name}: bit-equal to plain at {list(KERNEL_SHAPES)} "
             f"(int8, fp8_e4m3){batched if stats else ''}; "
             f"max_abs_err={max_err:.3e}")
@@ -470,8 +517,7 @@ def _check_batched_stats() -> float:
     import torch
     from repro_torch.kernels import quant_exchange as qx
     max_err = 0.0
-    for fmt, shape in ((f, sh) for f in qx.QUANT_FORMATS
-                       for sh in (BATCHED_MESSAGES, WIDE_BATCHED)):
+    for fmt, shape in ((f, sh) for f in qx.QUANT_FORMATS for sh in STATS_BATCHED):
         x = _message(shape, seed=7)
         out1 = qx.quant_dequant_stats(x, fmt)
         out2 = qx.quant_dequant_stats(x, fmt)
@@ -616,8 +662,10 @@ def _attention_bound_us(name: str, shape, dtype: str):
 def _attention_timing(name: str, kernel, plain, shape, long: bool, old=None):
     """Times of one B5/B6 call at ``shape`` in bf16: the kernel eager,
     graph-replayed (L2 warm) and L2-cold; with ``old``, the same of the
-    kernel it replaced (B5's f32-FMA route); the plain version eager (and
-    replayed, at the serve shapes); SDPA eager; the bound."""
+    f32-FMA route beside it; the plain version eager (and replayed, at the
+    serve shapes); SDPA eager and replayed (the kernels' replayed times are
+    held against the replayed SDPA, like for like: the kernel's, SDPA's and
+    the f32-FMA route's graphs are replayed in turn); the bound."""
     import torch
     args, kw = _attention_args(name, shape, "bfloat16", seed=99)
     lib = _attention_library(name, args, kw["window"])
@@ -630,27 +678,40 @@ def _attention_timing(name: str, kernel, plain, shape, long: bool, old=None):
     few = dict(reps=5, samples=5) if long else {}
     call = lambda: kernel(*args, **kw)               # noqa: E731
     plain_call = lambda: plain(*args, **kw)          # noqa: E731
-    timing = dict(kernel_us=_time_us(call, **few),
-                  kernel_dev_us=_graph_time_us(call, reps=5 if long else 100,
-                                               samples=5 if long else 15),
-                  kernel_cold_us=_cold_time_us(call, reps=5 if long else 50),
-                  plain_us=_time_us(plain_call, **(dict(reps=2, samples=3) if long else {})),
-                  plain_dev_us=None if long else _graph_time_us(plain_call),
-                  library_us=None if lib is None else _time_us(lib, **few))
-    timing["bound_us"], timing["bound_by"] = _attention_bound_us(name, shape, "bfloat16")
+    old_call = None if old is None else (lambda: old(*args, **kw))   # noqa: E731
+    # the kernel, SDPA and the f32-FMA route replayed in turn, each from its
+    # own graph: their replayed times are taken alike and at the same time
+    replayed = [fn for fn in (call, lib, old_call) if fn is not None]
+    with torch.inference_mode():
+        dev = dict(zip(replayed, _graph_times_us(
+            replayed, **(dict(reps=5, samples=9) if long else {}))))
+        timing = dict(kernel_us=_time_us(call, **few),
+                      kernel_dev_us=_median(dev[call]),
+                      kernel_cold_us=_cold_time_us(call, reps=5 if long else 50),
+                      plain_us=_time_us(plain_call,
+                                        **(dict(reps=2, samples=3) if long else {})),
+                      plain_dev_us=None if long else _graph_time_us(plain_call),
+                      library_us=None if lib is None else _time_us(lib, **few),
+                      library_dev_us=None if lib is None else _median(dev[lib]))
+        timing["bound_us"], timing["bound_by"] = _attention_bound_us(name, shape, "bfloat16")
+        if old is not None:
+            timing["f32_fma_route"] = dict(
+                kernel_us=_time_us(old_call, **few), kernel_dev_us=_median(dev[old_call]),
+                kernel_cold_us=_cold_time_us(old_call, reps=3 if long else 10))
+    spread = ", ".join(f"{what} {dev[fn][0]:.3f}-{dev[fn][-1]:.3f}" for what, fn in
+                       (("kernel", call), ("sdpa", lib), ("f32-FMA route", old_call))
+                       if fn is not None)
+    log(f"phase1 {name} at {shape} bf16, graph replays taken in turn: per-call us from "
+        f"the fastest to the slowest replay: {spread}")
     if old is not None:
-        old_call = lambda: old(*args, **kw)          # noqa: E731
-        timing["f32_fma_route"] = dict(
-            kernel_us=_time_us(old_call, **few),
-            kernel_dev_us=_graph_time_us(old_call, reps=3 if long else 20, samples=3),
-            kernel_cold_us=_cold_time_us(old_call, reps=3 if long else 10))
-        log(f"phase1 {name} at {shape} bf16, the f32-FMA route (redesigned): kernel_us="
+        log(f"phase1 {name} at {shape} bf16, the f32-FMA route: kernel_us="
             f"{timing['f32_fma_route']['kernel_us']:.3f}; graph-replayed device time: "
             f"kernel_us={timing['f32_fma_route']['kernel_dev_us']:.3f}; L2 cold: "
             f"kernel_us={timing['f32_fma_route']['kernel_cold_us']:.3f}")
     plain_dev = ("not timed" if timing["plain_dev_us"] is None
                  else f"{timing['plain_dev_us']:.3f}")
-    lib_us = "none" if lib is None else f"{timing['library_us']:.3f}"
+    lib_us = ("none" if lib is None else
+              f"{timing['library_us']:.3f} eager, {timing['library_dev_us']:.3f} replayed")
     log(f"phase1 {name} at {shape} bf16: kernel_us={timing['kernel_us']:.3f} "
         f"plain_us={timing['plain_us']:.3f} sdpa_us={lib_us} "
         f"bound_us={timing['bound_us']:.4f} ({timing['bound_by']}); graph-replayed "
@@ -662,8 +723,11 @@ def _attention_timing(name: str, kernel, plain, shape, long: bool, old=None):
 
 def _phase_attention():
     """B5 and B6 against their plain versions at the serve path's shapes and
-    the edge shapes, in f32 and bf16, bit-identical run to run; timed at the
-    serve shapes and at the long-context shapes."""
+    the edge shapes (B6 also at its long-context shape), in f32 and bf16,
+    on every route a shape takes (the tensor-core route and the f32-FMA one
+    beside it), B6 also with ``index`` as a device scalar; bit-identical run
+    to run; timed at the serve shapes and at the long-context shapes, both
+    routes side by side."""
     import torch
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
@@ -671,25 +735,41 @@ def _phase_attention():
     def flash(route=None):
         return lambda *a, **kw: fa.flash_attention(*a, **kw, route=route)[0]
 
+    def decode(route=None, device_index=False):
+        def call(q, k, v, index, **kw):
+            if device_index:
+                index = torch.tensor(index, dtype=torch.int32, device=q.device)
+            return da.decode_attention(q, k, v, index, **kw, route=route)
+        return call
+
     results = {}
-    for name, kernel, old, plain, shapes, long_shape in (
+    for name, kernel, old, plain, shapes, long_shape, route_of in (
             ("flash_attention", flash(), flash(fa.F32_FMA), fa.flash_attention_plain,
-             FLASH_SHAPES, FLASH_LONG),
-            ("decode_attention", da.decode_attention, None, da.decode_attention_plain,
-             DECODE_SHAPES, DECODE_LONG)):
+             FLASH_SHAPES, FLASH_LONG, fa.attention_route),
+            ("decode_attention", decode(), decode(fa.F32_FMA), da.decode_attention_plain,
+             DECODE_SHAPES + (DECODE_LONG,), DECODE_LONG, da.decode_route)):
         max_err, routes = {}, {}
         for dtype in ("float32", "bfloat16"):
             for i, shape in enumerate(shapes):
                 args, kw = _attention_args(name, shape, dtype, seed=i)
-                route = fa.attention_route(*args[:3]) if old else "cuda"
-                routes.setdefault(route, []).append((dtype, shape[:6]))
-                # B5 on its own route and, where that is the tensor cores', on
-                # the f32-FMA route it replaced
+                route = route_of(*args[:3])
+                routes.setdefault(route, []).append((dtype, shape))
+                # each kernel on its own route and, where that is the tensor
+                # cores', on the f32-FMA route beside it; B6 also with the
+                # index on the device
                 calls = [(route, kernel)]
                 if route == fa.TENSOR_CORES:
                     calls.append((fa.F32_FMA, old))
+                if name == "decode_attention":
+                    calls += [(f"{how} device index", decode(how, device_index=True))
+                              for how, _ in list(calls)]
                 with torch.inference_mode():
                     ref = plain(*args, **kw)
+                bound = ATTN_ATOL[dtype]
+                long_bf16 = shape == long_shape and dtype == "bfloat16"
+                if long_bf16:
+                    bound = LONG_BF16_REL * float(ref.float().abs().max())
+                    long_errs = {"bound": bound}
                 for how, call in calls:
                     with torch.inference_mode():
                         out1 = call(*args, **kw)
@@ -702,18 +782,34 @@ def _phase_attention():
                           f"{ref.dtype}")
                     check(bool(torch.isfinite(out1).all()), f"{what}: not finite")
                     err = float((out1.float() - ref.float()).abs().max())
-                    check(err <= ATTN_ATOL[dtype],
-                          f"{what}: max |kernel - plain| {err:.3e} > {ATTN_ATOL[dtype]}")
+                    check(err <= bound, f"{what}: max |kernel - plain| {err:.3e} > {bound:.3e}")
                     key = f"{how} {dtype}"
                     max_err[key] = max(max_err.get(key, 0.0), err)
                     if i == 0 and dtype == "bfloat16" and how == route:
                         main_err = err
+                    if long_bf16:
+                        long_errs[how] = err
+                del args, ref
+        for route, cases in routes.items():
+            log(f"phase1 {name}: {route} route takes {cases}")
         log(f"phase1 {name}: within atol {ATTN_ATOL} of plain at {list(shapes)} in f32 "
-            f"and bf16, bit-identical run to run; routes {routes}; max_abs_err {max_err}")
+            f"and bf16 on every route{' and index form' if name == 'decode_attention' else ''}, "
+            f"bit-identical run to run; max_abs_err {max_err}")
+        if long_shape in shapes:
+            log(f"phase1 {name} at {long_shape} bf16: max |kernel - plain| by route "
+                f"{long_errs}, the bound {LONG_BF16_REL} x max |plain|")
         main = _attention_timing(name, kernel, plain, shapes[0], long=False, old=old)
+        long_context = _attention_timing(name, kernel, plain, long_shape, long=True, old=old)
+        if name == "decode_attention":
+            # B6's tensor-core route must beat the f32-FMA one in the same call
+            for timing in (main, long_context):
+                fma = timing["f32_fma_route"]["kernel_dev_us"]
+                check(timing["kernel_dev_us"] < fma,
+                      f"{name} {timing['shape']}: the tensor-core route "
+                      f"({timing['kernel_dev_us']:.2f} us replayed) is not faster than the "
+                      f"f32-FMA route ({fma:.2f} us)")
         results[name] = dict(max_abs_err=main_err, max_abs_err_by_route=max_err, **main,
-                             long_context=_attention_timing(name, kernel, plain,
-                                                            long_shape, long=True, old=old))
+                             long_context=long_context)
     return results
 
 
@@ -1839,10 +1935,10 @@ def phase_serve():
     launches = dict(build.LAUNCHES)
     steps = p + new
     check(launches == want_launches(flash_attention_tc=cfg.n_layers,
-                                    decode_attention=cfg.n_layers * steps),
-          f"phase6: launches {launches}, want {cfg.n_layers} flash_attention_tc (every "
-          f"bf16 prefill attention on the tensor cores) and {cfg.n_layers * steps} "
-          f"decode_attention")
+                                    decode_attention_tc=cfg.n_layers * steps),
+          f"phase6: launches {launches}, want {cfg.n_layers} flash_attention_tc and "
+          f"{cfg.n_layers * steps} decode_attention_tc (every bf16 prefill and decode "
+          f"attention on the tensor cores)")
     check(pre.shape == (b, 1, cfg.vocab) and last.shape == pre.shape,
           f"phase6: logits {tuple(pre.shape)} / {tuple(last.shape)}")
     check(bool(torch.isfinite(pre).all()) and bool(torch.isfinite(last).all()),
@@ -2177,7 +2273,7 @@ def main() -> None:
                "flash_attention_bwd": ("none; XLA autodiff of src/repro/models/attention.py:82",
                                        "src/repro_torch/kernels/csrc/flash_attention_bwd_tc.cu"),
                "decode_attention": ("src/repro/kernels/decode_attention.py:66",
-                                    "src/repro_torch/kernels/csrc/decode_attention.cu"),
+                                    "src/repro_torch/kernels/csrc/decode_attention_tc.cu"),
                "slstm_scan": ("src/repro/kernels/slstm_scan.py:67",
                               "src/repro_torch/kernels/csrc/slstm_scan.cu")}
     # launches: each kernel's own path, driven with the counts reset just
@@ -2192,14 +2288,16 @@ def main() -> None:
                **{f"round_{q}": r["launches"] for q, r in rounds.items()},
                "xlstm_prefill": xlstm["prefill_launches"],
                "xlstm_decode": xlstm["loop_launches"]}
-    # B5's and B4's forwards and backwards: the entry is the tensor-core
-    # route, which the bf16 paths take; the f32-FMA route it replaced (its
-    # library and counter) rides beside it
+    # B5's and B4's forwards and backwards and B6: the entry is the
+    # tensor-core route, which the bf16 paths take; the f32-FMA route it
+    # replaced (its library and counter) rides beside it
     route_key = {"flash_attention": "flash_attention_tc", "fused_xent": "fused_xent_tc",
                  "flash_attention_bwd": "flash_attention_bwd_tc",
-                 "fused_xent_bwd": "fused_xent_bwd_tc"}
+                 "fused_xent_bwd": "fused_xent_bwd_tc",
+                 "decode_attention": "decode_attention_tc"}
     fma_library = {"flash_attention": "flash_attention", "fused_xent": "fused_xent",
-                   "flash_attention_bwd": "flash_attention_bwd", "fused_xent_bwd": "fused_xent"}
+                   "flash_attention_bwd": "flash_attention_bwd", "fused_xent_bwd": "fused_xent",
+                   "decode_attention": "decode_attention"}
     own = {name: ("serve" if name in ("flash_attention", "decode_attention") else
                   "train" if name in ("fused_xent", "fused_xent_bwd", "flash_attention_bwd")
                   else "xlstm_prefill" if name == "slstm_scan" else "batched")
@@ -2219,7 +2317,8 @@ def main() -> None:
                      ms=ms(k["kernel_us"]), device_ms_l2_warm=ms(k["kernel_dev_us"]),
                      device_ms_l2_cold=ms(k["kernel_cold_us"]), plain_ms=ms(k["plain_us"]),
                      bound_ms=ms(k["bound_us"]), bound_by=k["bound_by"],
-                     library_ms=ms(k.get("library_us")))
+                     library_ms=ms(k.get("library_us")),
+                     library_device_ms=ms(k.get("library_dev_us")))
         if "step_us" in k:
             # B7 launches T step kernels a call (the scan's dependency chain),
             # counted by the profiler over one prefill of the path
@@ -2250,7 +2349,7 @@ def main() -> None:
                 device_ms_l2_warm=ms(lc["kernel_dev_us"]),
                 device_ms_l2_cold=ms(lc["kernel_cold_us"]), plain_ms=ms(lc["plain_us"]),
                 bound_ms=ms(lc["bound_us"]), bound_by=lc["bound_by"],
-                library_ms=ms(lc["library_us"]))
+                library_ms=ms(lc["library_us"]), library_device_ms=ms(lc.get("library_dev_us")))
             if "f32_fma_route" in lc:
                 entry["long_context"]["f32_fma_route"] = dict(
                     ms=ms(lc["f32_fma_route"]["kernel_us"]),

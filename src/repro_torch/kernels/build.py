@@ -22,7 +22,7 @@ import re
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, Set, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -37,10 +37,14 @@ SOURCES: Dict[str, Dict[str, Tuple]] = {
         "repro_quant_dequant": (_P, _P, _P, _I, _I, _I, _F, _I, _P),
         # x, deq, scales, scratch, n, d, fmt, qinv, stream
         "repro_quant_dequant_wide": (_P, _P, _P, _P, _I, _I, _I, _F, _P),
-        # x, deq, scales, stats, m, n, d, fmt, qinv, threads, stream
-        "repro_quant_dequant_stats": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
+        # x, deq, scales, stats, m, n, d, fmt, qinv, row_blocks, col_blocks,
+        # segs, rows, vec, stream
+        "repro_quant_dequant_stats": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I,
+                                      _P),
         # x, deq, scales, stats, scratch, m, n, d, fmt, qinv, stream
         "repro_quant_dequant_stats_wide": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
+        # out (int*): the stats kernel's layout constants
+        "repro_quant_exchange_constants": (_P,),
     },
     "tamper_check": {
         "repro_tamper_check_chunk": (),
@@ -85,10 +89,20 @@ SOURCES: Dict[str, Dict[str, Tuple]] = {
         "repro_xent_dlogits_tc": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     },
     "decode_attention": {
-        # q, k, v, out, ws, b, s, h, hkv, d, k_begin, k_end, chunk, splits,
-        # scale, dtype, stream
-        "repro_decode_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+        # q, k, v, out, ws, index_dev, index_host, b, s, h, hkv, d, window,
+        # chunk, splits, scale, dtype, stream
+        "repro_decode_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                                    _I, _F, _I, _P),
+    },
+    "decode_attention_tc": {
+        # q, k, v, out, index_dev, index_host, b, s, h, hkv, d, window, chunk,
+        # splits, scale, stream
+        "repro_decode_attention_tc": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                                      _I, _F, _P),
+        # d, splits, out (int*)
+        "repro_decode_attention_tc_clusters": (_I, _I, _P),
+        # out (int*): the tile and cluster constants
+        "repro_decode_attention_tc_constants": (_P,),
     },
     "slstm_scan": {
         # pre, r, out, ws, t, b, d, heads, dtype, stream
@@ -97,17 +111,19 @@ SOURCES: Dict[str, Dict[str, Tuple]] = {
 }
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
+_CHECKED: Set[str] = set()
 
 #: kernel launches per launcher; reset with :func:`reset_launches`.  B5's and
-#: B4's forwards and backwards count by route: ``flash_attention``,
-#: ``fused_xent`` and their ``_bwd`` the f32-FMA kernels, the same names with
-#: ``_tc`` the tensor-core ones
+#: B4's forwards and backwards and B6 count by route: ``flash_attention``,
+#: ``fused_xent``, their ``_bwd`` and ``decode_attention`` the f32-FMA
+#: kernels, the same names with ``_tc`` the tensor-core ones
 LAUNCHES: Dict[str, int] = {"quant_dequant": 0, "quant_dequant_stats": 0,
                             "tamper_check_sums": 0, "fused_xent": 0, "fused_xent_tc": 0,
                             "fused_xent_bwd": 0, "fused_xent_bwd_tc": 0,
                             "flash_attention": 0, "flash_attention_tc": 0,
                             "flash_attention_bwd": 0, "flash_attention_bwd_tc": 0,
-                            "decode_attention": 0, "slstm_scan": 0}
+                            "decode_attention": 0, "decode_attention_tc": 0,
+                            "slstm_scan": 0}
 
 
 def reset_launches() -> None:
@@ -212,5 +228,22 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-__all__ = ["BUILD_DIR", "LAUNCHES", "SOURCES", "build_all", "library_path", "load",
-           "record_launch", "reset_launches"]
+def check_constants(name: str, expected: Dict[str, int]) -> None:
+    """Raise unless the constants that ``csrc/<name>.cu``'s C function
+    ``repro_<name>_constants`` writes, in the order of ``expected``'s keys
+    (the source's names), equal the values in ``expected``: the Python
+    module's copies, which its split or layout policy and the CPU tests'
+    models of the kernel use.  Checked once a process per library."""
+    if name in _CHECKED:
+        return
+    out = (ctypes.c_int * len(expected))()
+    err = getattr(load(name), f"repro_{name}_constants")(ctypes.addressof(out))
+    got = dict(zip(expected, out))
+    if err != 0 or got != expected:
+        raise RuntimeError(f"{name}.cu's constants {got} (error {err}) differ from the "
+                           f"launcher's copies {expected}")
+    _CHECKED.add(name)
+
+
+__all__ = ["BUILD_DIR", "LAUNCHES", "SOURCES", "build_all", "check_constants",
+           "library_path", "load", "record_launch", "reset_launches"]

@@ -7,14 +7,17 @@
 // the model's own layout.  The new token at position `index` attends to the
 // cache positions k_pos <= index, and with a window only to
 // index - k_pos < window; positions past `index` hold stale or zero cache
-// and are never read.  `index` is a host int: the live key range
-// [k_begin, k_end) arrives as two ints and sets the grid.
+// and are never read.  `index` is a host int, or (index_dev != nullptr) an
+// int32 the kernel reads on the device; each block computes the live range
+// [begin, end) from it and the window.
 //
 // What bounds it on this card: bytes.  Each live K and V row is read once
 // and costs 4 * D flops per query head, so at the serve shape (B 4, Hkv 8,
 // D 128, 512 live keys, bf16) the kernel must move 8.4 MB: 2.5 us at
 // 3.35 TB/s.  The design reads each K and V row once per KV head and splits
-// the key range across blocks to cover the 132 SMs:
+// the key range across blocks to cover the 132 SMs.  This is the f32-FMA
+// route of B6 (f32, head dims 32, 80 and 256, rows TMA cannot read);
+// decode_attention_tc.cu takes bf16 at head dims 64 and 128:
 //
 //   * pass 1: a grid of (splits, Hkv * head chunks, B).  A block takes one
 //     KV head, up to 8 of its H / Hkv query heads (one warp each) and one
@@ -28,8 +31,10 @@
 //
 // Masked entries contribute exactly 0 (a masked score is -inf and the
 // running max is finite), every sum runs in a fixed order (no atomics), and
-// the split depends on the shape and the live range alone, so the bits
-// repeat from run to run.  The window is a runtime argument.
+// the split depends on the shape and the live range (host index) or the
+// cache length (device index) alone, so the bits repeat from run to run.  A
+// split past the live range leaves (m, l, acc) = (-1e30, 0, 0), which the
+// combine weighs by exp(-1e30 - M) = 0.  The window is a runtime argument.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -73,9 +78,10 @@ template <int D> struct Shape {
 template <typename T, int D>
 __global__ void __launch_bounds__(kMaxHeads * 32)
 decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, float* __restrict__ ws, int s, int h,
-                      int hkv, int head_chunks, int k_begin, int k_end, int chunk,
-                      int splits, float scale) {
+                      const T* __restrict__ v, float* __restrict__ ws,
+                      const int* __restrict__ index_dev, int index_host, int s, int h,
+                      int hkv, int head_chunks, int window, int chunk, int splits,
+                      float scale) {
   using C = Shape<D>;
   extern __shared__ float smem[];
   const int heads = blockDim.x >> 5;             // warps = query heads this block
@@ -103,6 +109,9 @@ decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ k,
     qs[i] = h0 + i / D < h_end ? to_f32(qb[i]) : 0.f;
   }
 
+  const int index = index_dev != nullptr ? __ldg(index_dev) : index_host;
+  const int k_end = min(index + 1, s);
+  const int k_begin = window > 0 ? max(0, index - window + 1) : 0;
   const int lo = k_begin + split * chunk;
   const int hi = min(k_end, lo + chunk);
   float m = kNegBig, l = 0.f;
@@ -183,9 +192,9 @@ decode_combine_kernel(const float* __restrict__ ws, T* __restrict__ out, int h, 
 }
 
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* out, float* ws, int b, int s,
-           int h, int hkv, int k_begin, int k_end, int chunk, int splits, float scale,
-           cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out, float* ws,
+           const int* index_dev, int index_host, int b, int s, int h, int hkv, int window,
+           int chunk, int splits, float scale, cudaStream_t stream) {
   using C = Shape<D>;
   auto kernel = decode_partial_kernel<T, D>;
   // Raise the dynamic shared memory cap once, on the first call (before any
@@ -203,8 +212,8 @@ int launch(const void* q, const void* k, const void* v, void* out, float* ws, in
   const dim3 grid(splits, hkv * head_chunks, b);
   const int smem = (heads * D + kKeyTile * C::LD + kKeyTile * D) * 4;
   kernel<<<grid, heads * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), ws, s, h,
-      hkv, head_chunks, k_begin, k_end, chunk, splits, scale);
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), ws,
+      index_dev, index_host, s, h, hkv, head_chunks, window, chunk, splits, scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   decode_combine_kernel<T><<<dim3(h, b), kCombineThreads, 0, stream>>>(
@@ -213,45 +222,50 @@ int launch(const void* q, const void* k, const void* v, void* out, float* ws, in
 }
 
 template <typename T>
-int dispatch(int d, const void* q, const void* k, const void* v, void* out, float* ws, int b,
-             int s, int h, int hkv, int k_begin, int k_end, int chunk, int splits,
-             float scale, cudaStream_t stream) {
+int dispatch(int d, const void* q, const void* k, const void* v, void* out, float* ws,
+             const int* index_dev, int index_host, int b, int s, int h, int hkv, int window,
+             int chunk, int splits, float scale, cudaStream_t stream) {
+#define REPRO_DECODE_CASE(D)                                                               \
+  case D:                                                                                  \
+    return launch<T, D>(q, k, v, out, ws, index_dev, index_host, b, s, h, hkv, window,     \
+                        chunk, splits, scale, stream);
   switch (d) {
-    case 32: return launch<T, 32>(q, k, v, out, ws, b, s, h, hkv, k_begin, k_end, chunk, splits, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, out, ws, b, s, h, hkv, k_begin, k_end, chunk, splits, scale, stream);
-    case 80: return launch<T, 80>(q, k, v, out, ws, b, s, h, hkv, k_begin, k_end, chunk, splits, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, out, ws, b, s, h, hkv, k_begin, k_end, chunk, splits, scale, stream);
-    case 256: return launch<T, 256>(q, k, v, out, ws, b, s, h, hkv, k_begin, k_end, chunk, splits, scale, stream);
+    REPRO_DECODE_CASE(32)
+    REPRO_DECODE_CASE(64)
+    REPRO_DECODE_CASE(80)
+    REPRO_DECODE_CASE(128)
+    REPRO_DECODE_CASE(256)
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef REPRO_DECODE_CASE
 }
 
 }  // namespace
 
 // C interface.  Launches both passes on `stream` and returns
 // cudaGetLastError() (0 = launched).  The caller validates devices, dtypes,
-// shapes and contiguity, computes the live range [k_begin, k_end) from
-// `index` and the window and its split into `splits` chunks of `chunk` keys
-// (splits * chunk >= k_end - k_begin > (splits - 1) * chunk), and allocates
+// shapes and contiguity, picks the split into `splits` chunks of `chunk`
+// keys that cover the live range of a host `index_host` (or, with
+// `index_dev`, every live range the cache length allows), and allocates
 // `ws` (B * H * splits * (D + 2) floats) and `out` (B, 1, H, D).  dtype: 0 =
 // f32, 1 = bf16.  head_dim one of 32, 64, 80, 128, 256.
 extern "C" int repro_decode_attention(const void* q, const void* k, const void* v, void* out,
-                                      float* ws, int b, int s, int h, int hkv, int d,
-                                      int k_begin, int k_end, int chunk, int splits,
-                                      float scale, int dtype, void* stream) {
-  if (b <= 0 || b > 65535 || h <= 0 || h > 65535 || hkv <= 0 || h % hkv != 0 ||
-      k_begin < 0 || k_end > s || k_begin >= k_end || chunk <= 0 || splits <= 0 ||
-      splits > 65535 || static_cast<int64_t>(splits) * chunk < k_end - k_begin ||
-      static_cast<int64_t>(splits - 1) * chunk >= k_end - k_begin) {
+                                      float* ws, const int* index_dev, int index_host, int b,
+                                      int s, int h, int hkv, int d, int window, int chunk,
+                                      int splits, float scale, int dtype, void* stream) {
+  if (b <= 0 || b > 65535 || s <= 0 || h <= 0 || h > 65535 || hkv <= 0 || h % hkv != 0 ||
+      window < 0 || chunk <= 0 || splits <= 0 || splits > 65535 ||
+      (index_dev == nullptr && (index_host < 0 || index_host >= s))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return dispatch<float>(d, q, k, v, out, ws, b, s, h, hkv, k_begin, k_end, chunk, splits, scale, st);
+    return dispatch<float>(d, q, k, v, out, ws, index_dev, index_host, b, s, h, hkv, window,
+                           chunk, splits, scale, st);
   }
   if (dtype == 1) {
-    return dispatch<__nv_bfloat16>(d, q, k, v, out, ws, b, s, h, hkv, k_begin, k_end, chunk,
-                                   splits, scale, st);
+    return dispatch<__nv_bfloat16>(d, q, k, v, out, ws, index_dev, index_host, b, s, h, hkv,
+                                   window, chunk, splits, scale, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

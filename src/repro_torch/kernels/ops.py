@@ -6,7 +6,7 @@ plain version).
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -130,11 +130,12 @@ def quant_cut_exchange(x: torch.Tensor, fmt: Optional[str]) -> torch.Tensor:
     return _QuantCutExchange.apply(x, fmt)
 
 
-def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, index: int, *,
-                     window: int = 0) -> torch.Tensor:
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     index: Union[int, torch.Tensor], *, window: int = 0) -> torch.Tensor:
     """Single-token decode attention.  q (B, 1, H, D); the cache's k, v (B,
-    S, Hkv, D); ``index`` the new token's position (host int).  Returns (B,
-    1, H, D)."""
+    S, Hkv, D); ``index`` the new token's position: a host int, or a 0-d
+    int32 tensor on q's device, as the reference takes it (read on the
+    device by the kernels).  Returns (B, 1, H, D)."""
     if q.device.type == "cpu":
         return _da.decode_attention_plain(q, k, v, index, window=window)
     return _da.decode_attention(q, k, v, index, window=window)

@@ -12,9 +12,10 @@ message it would reconstruct from ``1 byte/element + 4 bytes/row``.
     :func:`message_stats` ``[dispersion, support_residual]`` of the
     dequantized message, in one C call.  It also takes M messages at once,
     ``(M, N, D)`` -> stats ``(M, 2)`` (the batched round's R clusters, one
-    block per message).  A message wider than :data:`MAX_STATS_D` (an LM's
-    cut activations) takes the wide path: three launches over (message,
-    column chunk) blocks behind the same call.
+    thread-block cluster per message, laid out by :func:`stats_layout`).  A
+    message wider than :data:`MAX_STATS_D` (an LM's cut activations), or
+    with more than :data:`MAX_STATS_ROWS` rows, takes the wide path: three
+    launches over (message, column chunk) blocks behind the same call.
 
 These two launch the kernels and accept only CUDA tensors; the plain
 versions (:func:`quant_dequant_plain`, :func:`quant_dequant_stats_plain`)
@@ -44,12 +45,27 @@ QINV = {fmt: float(np.float32(1.0) / np.float32(q)) for fmt, q in QMAX.items()}
 _EPS = 1e-12
 _FMT_CODE = {INT8: 0, FP8_E4M3: 1}
 
-#: where the kernels switch paths: a stats message up to this wide runs in
-#: one block (its column sums in shared memory: 4 bytes a column, within the
-#: 48 KB a block gets by default) and a row of B2 in one block; wider ones
-#: take the wide path's grid of WIDE_COLS-column chunks (any width)
+#: where the kernels switch paths: a stats message up to this wide (and up
+#: to MAX_STATS_ROWS rows) runs in one cluster of at most STATS_MAX_BLOCKS
+#: blocks, and a row of B2 in one block; wider ones take the wide path's
+#: grid of WIDE_COLS-column chunks (any width)
 MAX_STATS_D = 8192
 WIDE_COLS = 2048
+#: the stats kernel's shared memory holds two floats a row
+MAX_STATS_ROWS = 8192
+#: the stats kernel's layout: a block owns 1, 2 or 4 segments of
+#: STATS_SEG_COLS columns (8 a lane) and a chunk of about
+#: STATS_ROWS_PER_BLOCK rows, a cluster at most STATS_MAX_BLOCKS blocks, and
+#: a block's STATS_WARPS warps take its rows warp, warp + 16, ...  With
+#: MAX_STATS_ROWS they are kSegCols, kMaxStatsBlocks, kStatsWarps and
+#: kMaxStatsRows of csrc/quant_exchange.cu, which the launcher checks against
+#: the library's own on first use (:func:`build.check_constants`)
+STATS_SEG_COLS = 256
+STATS_MAX_BLOCKS = 8
+STATS_WARPS = 16
+STATS_ROWS_PER_BLOCK = 8
+_STATS_CONSTANTS = {"kSegCols": STATS_SEG_COLS, "kMaxStatsBlocks": STATS_MAX_BLOCKS,
+                    "kStatsWarps": STATS_WARPS, "kMaxStatsRows": MAX_STATS_ROWS}
 
 
 def fp8_supported() -> bool:
@@ -140,6 +156,25 @@ def _check_input(x: torch.Tensor, fmt: str, dims=(2,)) -> None:
                          f"kernels' int32 indexing")
 
 
+def stats_layout(n: int, d: int) -> Tuple[int, int, int, int]:
+    """(row_blocks, col_blocks, segs, rows) of the stats kernel's cluster for
+    an (n, d) message: the fewest segments a block (1, 2 or 4) that let at
+    most :data:`STATS_MAX_BLOCKS` column chunks cover the columns, then as
+    many row chunks of ``rows`` rows (about :data:`STATS_ROWS_PER_BLOCK`) as
+    the rest of the cluster takes.  Block ``rrank * col_blocks + crank``
+    owns rows ``[rrank * rows, + rows)`` and the ``segs * 256`` columns from
+    ``crank * segs * 256``."""
+    if not 0 < d <= MAX_STATS_D or not 0 < n <= MAX_STATS_ROWS:
+        raise ValueError(f"the stats kernel takes 1 to {MAX_STATS_D} columns and 1 to "
+                         f"{MAX_STATS_ROWS} rows, got ({n}, {d})")
+    segs = -(-d // (STATS_SEG_COLS * STATS_MAX_BLOCKS))
+    segs = 4 if segs == 3 else segs
+    col_blocks = -(-d // (segs * STATS_SEG_COLS))
+    row_blocks = max(1, min(STATS_MAX_BLOCKS // col_blocks, -(-n // STATS_ROWS_PER_BLOCK)))
+    rows = -(-n // row_blocks)
+    return -(-n // rows), col_blocks, segs, rows
+
+
 def _threads(d: int, cap: int) -> int:
     """Threads per block: the row width rounded up to whole warps, at most
     ``cap`` (a block loops over wider rows)."""
@@ -176,7 +211,7 @@ def quant_dequant_stats(x: torch.Tensor, fmt: str
     f32 CUDA message, or on M messages (M, N, D) in one launch.  Returns
     (deq, scales (N,) or (M, N), stats (2,) or (M, 2) f32), where each
     message's stats == :func:`message_stats` of its deq."""
-    from .build import load, record_launch
+    from .build import check_constants, load, record_launch
     _check_input(x, fmt, dims=(2, 3))
     m, n, d = (1,) * (3 - x.dim()) + tuple(x.shape)
     deq = torch.empty_like(x)
@@ -184,10 +219,17 @@ def quant_dequant_stats(x: torch.Tensor, fmt: str
     stats = torch.empty(x.shape[:-2] + (2,), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     lib = load("quant_exchange")
-    if d <= MAX_STATS_D:
+    if d <= MAX_STATS_D and n <= MAX_STATS_ROWS:
+        check_constants("quant_exchange", _STATS_CONSTANTS)
+        row_blocks, col_blocks, segs, rows = stats_layout(n, d)
+        if m * row_blocks * col_blocks >= 2 ** 31:
+            raise ValueError(f"quant_dequant_stats takes fewer than 2**31 blocks a call, "
+                             f"got {m} messages of {row_blocks * col_blocks}")
+        vec = d % 4 == 0 and x.data_ptr() % 16 == 0
         err = lib.repro_quant_dequant_stats(
             x.data_ptr(), deq.data_ptr(), scales.data_ptr(), stats.data_ptr(), m, n,
-            d, _FMT_CODE[fmt], QINV[fmt], _threads(d, 1024), stream)
+            d, _FMT_CODE[fmt], QINV[fmt], row_blocks, col_blocks, segs, rows, int(vec),
+            stream)
     else:
         if m > 65535:
             raise ValueError(f"quant_dequant_stats takes at most 65,535 messages wider "
@@ -205,7 +247,9 @@ def quant_dequant_stats(x: torch.Tensor, fmt: str
 
 
 __all__ = ["INT8", "FP8_E4M3", "QUANT_FORMATS", "QMAX", "QINV", "MAX_STATS_D",
-           "WIDE_COLS",
+           "MAX_STATS_ROWS", "STATS_MAX_BLOCKS", "STATS_ROWS_PER_BLOCK", "STATS_SEG_COLS",
+           "STATS_WARPS",
+           "WIDE_COLS", "stats_layout",
            "check_format", "fp8_supported", "message_stats", "quant_dequant",
            "quant_dequant_plain", "quant_dequant_stats",
            "quant_dequant_stats_plain"]

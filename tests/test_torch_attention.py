@@ -141,6 +141,21 @@ def test_decode_attention_matches_pallas_and_oracle(case):
         np.testing.assert_allclose(_np(got), np.asarray(want), atol=ATOL["float32"])
 
 
+@pytest.mark.parametrize("case", ["full", "window", "index0_window"])
+def test_decode_attention_plain_takes_a_device_scalar_index(case):
+    """``index`` as the reference takes it, a 0-d int32 tensor: the plain
+    version (what a CPU tensor takes) gives the host int's bits and matches
+    the Pallas kernel fed a jnp scalar."""
+    b, s, h, hkv, d, win, idx = DECODE_CASES[case]
+    q, k, v = _qkv(9, b, 1, s, h, hkv, d)
+    index = torch.tensor(idx, dtype=torch.int32)
+    got = tops.decode_attention(_t(q), _t(k), _t(v), index, window=win)
+    assert torch.equal(got, tops.decode_attention(_t(q), _t(k), _t(v), idx, window=win))
+    want = jops.decode_attention(q, k, v, jnp.int32(idx), window=win, block_k=128,
+                                 interpret=True)
+    np.testing.assert_allclose(_np(got), np.asarray(want), atol=ATOL["float32"])
+
+
 @pytest.mark.parametrize("win", [0, 5])
 def test_decode_attention_is_flash_attention_at_the_index_row(win):
     """A decode step at ``index`` computes row ``index`` of the prefill's
