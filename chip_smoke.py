@@ -10,13 +10,14 @@ from the repository root.  Phases, in order; any failure exits non-zero:
      ``nvcc`` per source, all started together);
   1. every kernel against its plain PyTorch version on the card, at the
      shapes the main paths give it and a few edge shapes: the wire kernels'
-     deq/scales bit-equal, stats within rtol 1e-5, two runs bit-identical
+     deq/scales bit-equal (also where D % 4 != 0, narrow and wide), stats
+     within rtol 1e-5, two runs bit-identical
      (B2 also over the batched path's R*B rows, the stats kernel (one
      thread-block cluster a message up to 8,192 wide) also with R messages
      in one launch, at the sequential (1, 64, 256) and batched (5, 64, 256)
      layouts and at n 1 and 3, D 1,000 and 8,192; both at an LM's cut
-     message (4, 2,097,152),
-     which B3 runs on its wide path, and B3 also on (2, 4, 12,288), timed
+     message (4, 2,097,152), which both run on their wide paths (B2 in one
+     cooperative launch), and B3 also on (2, 4, 12,288), timed
      beside their bytes bound); the tamper
      check's sums within rtol 1e-5 of the plain version and of a float64
      sum, bit-identical from run to run, exactly 0 on identical inputs and
@@ -49,11 +50,15 @@ from the repository root.  Phases, in order; any failure exits non-zero:
      groups 1/2/4/8, MQA, windows, head dims 64/80/256, S = 1), all
      bit-identical run to run, timed beside their plain versions, bounds
      and yardsticks (``F.cross_entropy(h @ W)``, two calls; autograd of
-     SDPA); B7 (the sLSTM time scan) within atol 1e-4 (f32) and 8e-3 (bf16)
-     of its plain version at the xLSTM prefill shape (T 512, B 4, d 2,048,
-     H 4) and edges (H 1 and 2, dh 40, ragged units, B 1/3/5, T 1),
-     bit-identical run to run, timed (no PyTorch call computes the scan),
-     also at T 4,096; the wgmma routes' libraries hold HGMMA and UTMALDG
+     SDPA); B7 (the sLSTM time scan) on the route ``slstm_route`` picks
+     (held against ``SLSTM_ROUTES``: the persistent kernel wherever R fits
+     the co-resident grid, else the step kernel) and on the step route,
+     within atol 1e-4 (f32) and 8e-3 (bf16) of its plain version at the
+     xLSTM prefill shape (T 512, B 4, d 2,048, H 4) and edges (H 1 and 2,
+     dh 40 and 30, a ragged unit block, B 1/3/5/9, T 1), bit-identical run
+     to run, both routes timed (no PyTorch call computes the scan; eager,
+     replayed in turn, L2-cold) also at T 4,096, with the persistent step's
+     clock split by phase; the wgmma routes' libraries hold HGMMA and UTMALDG
      instructions in their SASS (cuobjdump), B6's tensor-core library HMMA
      and LDGSTS (mma.sync, cp.async), the f32-FMA ones none of the four;
   2. the sequential main path at full width: the CIFAR-10 split CNN (convs
@@ -108,7 +113,8 @@ from the repository root.  Phases, in order; any failure exits non-zero:
   9. the xLSTM serve path: xLSTM-1.3B at full width and depth (48 blocks,
      (mLSTM 7, sLSTM 1) x 6, bf16, 3,529,644,368 parameters drawn on the
      card) prefills 4 prompts of 512 tokens through ``make_prefill_step``
-     (6 B7 launches, 3,072 step kernels), then runs the reference serve
+     (6 B7 launches on the persistent route: 6 persistent kernels and no
+     step kernel in the profile), then runs the reference serve
      loop through ``make_serve_step`` (544 steps, no kernel of the port);
      the same weights widened to f32 and served again: prefill and decode
      logits agree within 1e-3 in f32, and the bf16 ones within 0.6 of each
@@ -116,7 +122,8 @@ from the repository root.  Phases, in order; any failure exits non-zero:
      at random init); prefill seconds, ms per decode step, tokens/s, peak
      memory, one warm decode step's profile; a longer prefill at
      prefill_32k's settings (B 4 x 2,048 tokens), profiled, with B7's
-     step kernels counted and its share beside the mLSTM products'.
+     persistent and step kernels counted and its share beside the mLSTM
+     products'.
 
 The last lines are one JSON object per kernel set (``{"kernels": [...]}``),
 the card's ``nvidia-smi`` name and power limit, and
@@ -146,10 +153,11 @@ TIMED_SHAPE = (64, 256)         # (B, d_c) of the CIFAR cut layer at B = 64
 LM_MESSAGE = (4, 2_097_152)
 WIDE_BATCHED = (2, 4, 12_288)
 # the wire kernels' checks: the batched path's R*B rows (one B2 launch a
-# step), the sequential path's one message, then edge shapes and the LM's
+# step), the sequential path's one message, then edge shapes (D % 4 != 0:
+# no 16-byte loads, narrow and wide) and the LM's
 KERNEL_SHAPES = ((BATCHED_MESSAGES[0] * BATCHED_MESSAGES[1], BATCHED_MESSAGES[2]),
                  TIMED_SHAPE, (64, 32), (37, 200), (1, 256), (1, 1000), (3, 1000),
-                 (1, 8192), (3, 8192), (1024, 4096), LM_MESSAGE)
+                 (5, 1001), (1, 8192), (3, 8192), (1024, 4096), (3, 20001), LM_MESSAGE)
 # R messages in one stats call: the batched round's, the sequential path's
 # one message in the batched layout, and wide ones (B3's wide path)
 STATS_BATCHED = (BATCHED_MESSAGES, (1,) + TIMED_SHAPE, WIDE_BATCHED)
@@ -211,11 +219,22 @@ TRAIN_F32_REL = 1e-4
 ROUND_LAYERS = 12
 # B7 (the sLSTM scan): (T, B, d, H), the prefill shape first (xLSTM-1.3B: a
 # 512-token prompt at B 4, d 2,048, 4 heads of 512), then H 1 and 2, dh 40
-# with a ragged unit block and 3 rows, B 5 (two row blocks), B 1, T 1; the
-# long shape (a 4,096-token sequence) is timed only
+# with 3 rows, B 5 (8 rows on the persistent route, two row blocks on the
+# step route), B 1, T 1, a ragged last unit block (612 units in blocks of 8),
+# B 9 and dh 30; the long shape (a 4,096-token sequence) is timed only
 SLSTM_SHAPES = ((512, 4, 2048, 4), (64, 4, 2048, 1), (64, 4, 2048, 2), (33, 3, 80, 2),
-                (20, 5, 96, 2), (40, 1, 2048, 4), (1, 4, 2048, 4))
+                (20, 5, 96, 2), (40, 1, 2048, 4), (1, 4, 2048, 4), (24, 2, 612, 3),
+                (17, 9, 256, 4), (13, 2, 90, 3))
 SLSTM_LONG = (4096, 4, 2048, 4)
+# the route slstm_route picks for each shape in (f32, bf16) on an H100 SXM
+# (132 SMs, 227 KB a block): the persistent kernel wherever R's slice and h
+# fit a block of the co-resident grid; the step kernel for R of 256 KB or
+# more a block (dh 2,048; dh 1,024 in f32), B 9 and dh 30 (% 4 != 0)
+SLSTM_ROUTES = dict(zip(SLSTM_SHAPES, (
+    ("persistent", "persistent"), ("step", "step"), ("step", "persistent"),
+    ("persistent", "persistent"), ("persistent", "persistent"), ("persistent", "persistent"),
+    ("persistent", "persistent"), ("persistent", "persistent"), ("step", "step"),
+    ("step", "step"))))
 # h is bounded by 1 and the state never goes through bf16, so the error does
 # not compound: in bf16 the outputs differ by their last roundings, two bf16
 # ulps at |h| <= 1 (2 * 2^-8); f32 by the dot products' summation order
@@ -243,7 +262,7 @@ XLSTM_BF16_REL = 0.6
 XLSTM_F32_REL = 1e-3
 XLSTM_LONG_PROMPT = 2048
 # the xLSTM prefills' device time, by kernel name
-PREFILL_SHARES = {"B7 (slstm_step)": ["slstm_step"],
+PREFILL_SHARES = {"B7 (slstm_scan_persistent)": ["slstm_scan_persistent"],
                   "f32 products (the mLSTM einsums)": ["sgemm", "f32f32", "f32_f32"],
                   "bf16 products (projections, head)": ["bf16", "nvjet"]}
 # B5's backward: the train shape (B 4, S 512, Qwen3-8B's heads), then GQA
@@ -1156,35 +1175,46 @@ def _slstm_bound_us(shape, dtype: str):
 
 
 def _slstm_timing(shape, long: bool):
-    """Times of one B7 call at ``shape`` in bf16: the kernel eager,
-    graph-replayed (L2 warm) and L2-cold, the plain version eager, the
-    bound, and the time a step (the scan's dependency chain)."""
+    """Times of one B7 call at ``shape`` in bf16 on both routes (the
+    persistent kernel and the step kernel): eager, graph-replayed in turn
+    (L2 warm) and L2-cold; the plain version eager, the bound, and the time
+    a step (the scan's dependency chain)."""
     import torch
     from repro_torch.kernels import slstm_scan as ss
     pre, r, h = _slstm_args(shape, "bfloat16", seed=99)
-    call = lambda: ss.slstm_scan(pre, r, h)             # noqa: E731
-    plain = lambda: ss.slstm_scan_plain(pre, r, h)      # noqa: E731
+    check(ss.slstm_route(pre, r) == ss.PERSISTENT, f"slstm_scan {shape}: the timed shape "
+                                                   f"takes {ss.slstm_route(pre, r)!r}")
+    call = lambda: ss.slstm_scan(pre, r, h)                        # noqa: E731
+    step = lambda: ss.slstm_scan(pre, r, h, route=ss.STEP)         # noqa: E731
+    plain = lambda: ss.slstm_scan_plain(pre, r, h)                 # noqa: E731
+    eager = dict(reps=2 if long else 10, samples=5, warmup=2)
     with torch.inference_mode():
-        timing = dict(kernel_us=_time_us(call, reps=2 if long else 10, samples=5, warmup=2),
-                      kernel_dev_us=_graph_time_us(call, reps=1 if long else 5, samples=5),
+        replays = _graph_times_us([call, step], reps=1 if long else 5, samples=5)
+        timing = dict(kernel_us=_time_us(call, **eager), kernel_dev_us=_median(replays[0]),
                       kernel_cold_us=_cold_time_us(call, reps=5),
                       plain_us=_time_us(plain, reps=1, samples=3, warmup=1),
                       plain_dev_us=None, library_us=None)
+        old = dict(kernel_us=_time_us(step, **eager), kernel_dev_us=_median(replays[1]),
+                   kernel_cold_us=_cold_time_us(step, reps=5))
     timing["bound_us"], timing["bound_by"] = _slstm_bound_us(shape, "bfloat16")
-    timing["step_us"] = timing["kernel_dev_us"] / shape[0]
-    log(f"phase1 slstm_scan at {shape} bf16: kernel_us={timing['kernel_us']:.3f} "
-        f"plain_us={timing['plain_us']:.3f} library none "
-        f"bound_us={timing['bound_us']:.4f} ({timing['bound_by']}); graph-replayed "
-        f"device time (L2 warm): kernel_us={timing['kernel_dev_us']:.3f} "
-        f"({timing['step_us']:.3f} us a step over T = {shape[0]}); one call with the L2 "
-        f"cold: kernel_us={timing['kernel_cold_us']:.3f}")
-    return dict(shape=list(shape), dtype="bfloat16", **timing)
+    t = shape[0]
+    timing["step_us"] = timing["kernel_dev_us"] / t
+    old["step_us"] = old["kernel_dev_us"] / t
+    log(f"phase1 slstm_scan at {shape} bf16: bound_us={timing['bound_us']:.4f} "
+        f"({timing['bound_by']}); plain_us={timing['plain_us']:.3f}; library none")
+    for name, tm, times in (("persistent", timing, replays[0]), ("step", old, replays[1])):
+        log(f"  {name} route: kernel_us={tm['kernel_us']:.3f} eager; graph-replayed device "
+            f"time (L2 warm, in turn) kernel_us={tm['kernel_dev_us']:.3f} (replays "
+            f"{times[0]:.3f}-{times[-1]:.3f}; {tm['step_us']:.3f} us a step over T = {t}); "
+            f"one call with the L2 cold: kernel_us={tm['kernel_cold_us']:.3f}")
+    return dict(shape=list(shape), dtype="bfloat16", step_route=old, **timing)
 
 
 def _phase_slstm():
-    """B7 against its plain version at the prefill shape and the edge shapes,
-    in f32 and bf16, bit-identical run to run; timed at the prefill shape
-    and at the long shape."""
+    """B7 against its plain version at every shape, in f32 and bf16, on the
+    route ``slstm_route`` picks (checked against SLSTM_ROUTES) and, where
+    that is the persistent kernel, on the step kernel too; bit-identical run
+    to run; both routes timed at the prefill shape and at the long shape."""
     import torch
     from repro_torch.kernels import slstm_scan as ss
 
@@ -1192,27 +1222,38 @@ def _phase_slstm():
     for dtype in ("float32", "bfloat16"):
         for i, shape in enumerate(SLSTM_SHAPES):
             pre, r, h = _slstm_args(shape, dtype, seed=i)
+            chosen = ss.slstm_route(pre, r)
+            want = SLSTM_ROUTES[shape][dtype == "bfloat16"]
+            check(chosen == want,
+                  f"slstm_scan {dtype} {shape}: route {chosen!r}, want {want!r}")
             with torch.inference_mode():
-                out1 = ss.slstm_scan(pre, r, h)
-                out2 = ss.slstm_scan(pre, r, h)
                 ref = ss.slstm_scan_plain(pre, r, h)
-            torch.cuda.synchronize()
-            check(torch.equal(out1, out2), f"slstm_scan {dtype} {shape}: two runs differ")
-            check(out1.shape == ref.shape and out1.dtype == ref.dtype,
-                  f"slstm_scan {dtype} {shape}: {out1.shape} {out1.dtype} vs plain "
-                  f"{ref.shape} {ref.dtype}")
-            check(bool(torch.isfinite(out1).all()), f"slstm_scan {dtype} {shape}: not finite")
-            err = float((out1.float() - ref.float()).abs().max())
-            check(err <= SLSTM_ATOL[dtype], f"slstm_scan {dtype} {shape}: max |kernel - "
-                                            f"plain| {err:.3e} > {SLSTM_ATOL[dtype]}")
-            max_err[dtype] = max(max_err.get(dtype, 0.0), err)
-            if i == 0 and dtype == "bfloat16":
-                main_err = err
+            for route in dict.fromkeys((chosen, ss.STEP)):
+                what = f"slstm_scan {dtype} {shape} on the {route} route"
+                with torch.inference_mode():
+                    out1 = ss.slstm_scan(pre, r, h, route=route)
+                    out2 = ss.slstm_scan(pre, r, h, route=route)
+                torch.cuda.synchronize()
+                check(torch.equal(out1, out2), f"{what}: two runs differ")
+                check(out1.shape == ref.shape and out1.dtype == ref.dtype,
+                      f"{what}: {out1.shape} {out1.dtype} vs plain {ref.shape} {ref.dtype}")
+                check(bool(torch.isfinite(out1).all()), f"{what}: not finite")
+                err = float((out1.float() - ref.float()).abs().max())
+                check(err <= SLSTM_ATOL[dtype], f"{what}: max |kernel - plain| {err:.3e} > "
+                                                f"{SLSTM_ATOL[dtype]}")
+                key = (dtype, route)
+                max_err[key] = max(max_err.get(key, 0.0), err)
+                if i == 0 and dtype == "bfloat16" and route == chosen:
+                    main_err = err
+        log(f"phase1 slstm_scan {dtype} routes: "
+            f"{[(shape, SLSTM_ROUTES[shape][dtype == 'bfloat16']) for shape in SLSTM_SHAPES]}")
     log(f"phase1 slstm_scan: within atol {SLSTM_ATOL} of plain at {list(SLSTM_SHAPES)} in "
-        f"f32 and bf16, bit-identical run to run; max_abs_err {max_err}")
+        f"f32 and bf16 on the route each takes and on the step route, bit-identical run to "
+        f"run; max_abs_err by (dtype, route) {max_err}")
     main = _slstm_timing(SLSTM_SHAPES[0], long=False)
-    return dict(max_abs_err=main_err, max_abs_err_by_dtype=max_err, **main,
-                long_context=_slstm_timing(SLSTM_LONG, long=True))
+    return dict(max_abs_err=main_err,
+                max_abs_err_by_route={f"{d}/{r}": e for (d, r), e in max_err.items()},
+                **main, long_context=_slstm_timing(SLSTM_LONG, long=True))
 
 
 # ---------------------------------------------------------------------------
@@ -1426,7 +1467,8 @@ def phase_lm_cpu_vs_card():
         want = (want_launches(flash_attention=cfg.n_layers,
                               decode_attention=cfg.n_layers * steps)
                 if cfg.arch_type == "dense" else
-                want_launches(slstm_scan=sum(s.kind == "slstm" for s in cpu.stacks)))
+                want_launches(slstm_scan_persistent=sum(s.kind == "slstm"
+                                                        for s in cpu.stacks)))
         card = copy.deepcopy(cpu).to(DEVICE)
         prompts = torch.from_numpy(make_prompts(0, cfg.vocab, 4, prompt_len))
         runs = {}
@@ -2004,6 +2046,13 @@ def phase_serve():
     return serve
 
 
+def _b7_kernels(kernels):
+    """(persistent scans, step kernels) of B7 among a profile's device
+    kernels."""
+    count = lambda frag: sum(ev.count for ev in kernels if frag in ev.key)   # noqa: E731
+    return count("slstm_scan_persistent"), count("slstm_step")
+
+
 def phase_xlstm():
     """xLSTM-1.3B at full width and depth, bf16, weights drawn on the card:
     the prefill (6 B7 launches) and the serve loop (none), timings, peak
@@ -2070,8 +2119,9 @@ def phase_xlstm():
     prefill_step, serve_step = make_prefill_step(model), make_serve_step(model)
     prefill_step({"tokens": prompts})                      # warm-up, not counted
     pre, prefill_s, prefill_launches = timed(lambda: prefill_step({"tokens": prompts}))
-    check(prefill_launches == want_launches(slstm_scan=n_slstm),
-          f"phase9: prefill launches {prefill_launches}, want {n_slstm} slstm_scan")
+    check(prefill_launches == want_launches(slstm_scan_persistent=n_slstm),
+          f"phase9: prefill launches {prefill_launches}, want {n_slstm} "
+          f"slstm_scan_persistent")
     cache = model.init_cache(b, p + new)
     (gen, last), loop_s, loop_launches = timed(
         lambda: greedy_decode(serve_step, cache, prompts, new))
@@ -2089,12 +2139,13 @@ def phase_xlstm():
     prefill_kernels = _profile_report(
         f"phase9 prefill (B {b} x {p})", lambda: prefill_step({"tokens": prompts}),
         prefill_s * 1e6, 1, shares=PREFILL_SHARES)
-    step_kernels = sum(ev.count for ev in prefill_kernels if "slstm_step" in ev.key)
-    check(step_kernels == n_slstm * p, f"phase9 prefill: the profiler saw {step_kernels} B7 "
-                                       f"step kernels, want {n_slstm * p}")
+    scans, step_kernels = _b7_kernels(prefill_kernels)
+    check((scans, step_kernels) == (n_slstm, 0),
+          f"phase9 prefill: the profiler saw {scans} persistent B7 kernels and "
+          f"{step_kernels} step kernels, want {n_slstm} and 0")
     log(f"phase9 prefill launches {prefill_launches}: {n_slstm} B7 scans of T = {p}, "
-        f"{step_kernels} step kernels under the profiler; serve loop launches "
-        f"{loop_launches}")
+        f"{scans} persistent kernels and {step_kernels} step kernels under the profiler; "
+        f"serve loop launches {loop_launches}")
     log(f"phase9 prefill (B {b} x {p} tokens, warm): {prefill_s:.4f} s; serve loop "
         f"{steps} steps in {loop_s:.3f} s: {ms_step:.3f} ms/step, "
         f"{b * steps / loop_s:.1f} tokens/s; peak device memory {peak_gb:.2f} GB (decode "
@@ -2120,8 +2171,8 @@ def phase_xlstm():
                     sorted(walls)[2] * 1e6, 1)
     states16 = stack_states(model, prompts)
     out = dict(prefill_launches=prefill_launches, loop_launches=loop_launches,
-               step_kernels=step_kernels, prefill_s=prefill_s, ms_per_step=ms_step,
-               tokens_per_s=b * steps / loop_s, peak_gb=peak_gb)
+               persistent_kernels=scans, step_kernels=step_kernels, prefill_s=prefill_s,
+               ms_per_step=ms_step, tokens_per_s=b * steps / loop_s, peak_gb=peak_gb)
     del cache, prefill_step, serve_step
     torch.cuda.empty_cache()
 
@@ -2131,7 +2182,8 @@ def phase_xlstm():
     build.reset_launches()
     pre32, _, last32, _, _ = _serve(model, prompts, 1)
     launches32 = dict(build.LAUNCHES)
-    check(launches32 == want_launches(slstm_scan=n_slstm), f"phase9 f32: launches {launches32}")
+    check(launches32 == want_launches(slstm_scan_persistent=n_slstm),
+          f"phase9 f32: launches {launches32}")
     rel32, argmax32 = agreement(pre32, last32)
     check(rel32 <= XLSTM_F32_REL, f"phase9 f32: prefill vs decode logits differ by "
                                   f"{rel32:.3e} of max |logit| > {XLSTM_F32_REL}")
@@ -2180,7 +2232,7 @@ def phase_xlstm():
 
     long_prefill()                                         # warm-up, not counted
     logits, long_s, long_launches = timed(long_prefill)
-    check(long_launches == want_launches(slstm_scan=n_slstm),
+    check(long_launches == want_launches(slstm_scan_persistent=n_slstm),
           f"phase9 long prefill: launches {long_launches}")
     check(bool(torch.isfinite(logits).all()), "phase9 long prefill: non-finite logits")
     long_peak = torch.cuda.max_memory_allocated() / 1e9
@@ -2191,13 +2243,14 @@ def phase_xlstm():
     kernels = _profile_report(
         f"phase9 long prefill (B {b} x {XLSTM_LONG_PROMPT})", long_prefill, long_s * 1e6, 1,
         shares=PREFILL_SHARES)
-    step_kernels = sum(ev.count for ev in kernels if "slstm_step" in ev.key)
-    check(step_kernels == n_slstm * XLSTM_LONG_PROMPT,
-          f"phase9 long prefill: the profiler saw {step_kernels} B7 step kernels, want "
-          f"{n_slstm * XLSTM_LONG_PROMPT}")
+    scans, step_kernels = _b7_kernels(kernels)
+    check((scans, step_kernels) == (n_slstm, 0),
+          f"phase9 long prefill: the profiler saw {scans} persistent B7 kernels and "
+          f"{step_kernels} step kernels, want {n_slstm} and 0")
     del model, prefill_step, logits
     torch.cuda.empty_cache()
-    out.update(long_prefill_s=long_s, long_peak_gb=long_peak, long_step_kernels=step_kernels,
+    out.update(long_prefill_s=long_s, long_peak_gb=long_peak, long_persistent_kernels=scans,
+               long_step_kernels=step_kernels,
                seconds=time.perf_counter() - t_phase)
     log(f"phase9 took {out['seconds']:.1f} s")
     return out
@@ -2275,7 +2328,13 @@ def main() -> None:
                "decode_attention": ("src/repro/kernels/decode_attention.py:66",
                                     "src/repro_torch/kernels/csrc/decode_attention_tc.cu"),
                "slstm_scan": ("src/repro/kernels/slstm_scan.py:67",
-                              "src/repro_torch/kernels/csrc/slstm_scan.cu")}
+                              "src/repro_torch/kernels/csrc/slstm_scan_persistent.cu")}
+    # the kernels of each wire entry (one library): B2's row kernel and its
+    # wide cooperative kernel; B3's cluster kernel and its three-launch wide
+    # path
+    wire_kernels = {"quant_dequant": ["qdq_rows_kernel", "qdq_wide_kernel"],
+                    "quant_dequant_stats": ["qdq_stats_kernel", "wide_rowmax_kernel",
+                                            "wide_qdq_kernel", "wide_finish_kernel"]}
     # launches: each kernel's own path, driven with the counts reset just
     # before it: the batched round for B1-B3 (the only path that reaches all
     # three), the Qwen3-8B serve run for B5/B6, the last Qwen3-8B train step
@@ -2294,7 +2353,8 @@ def main() -> None:
     route_key = {"flash_attention": "flash_attention_tc", "fused_xent": "fused_xent_tc",
                  "flash_attention_bwd": "flash_attention_bwd_tc",
                  "fused_xent_bwd": "fused_xent_bwd_tc",
-                 "decode_attention": "decode_attention_tc"}
+                 "decode_attention": "decode_attention_tc",
+                 "slstm_scan": "slstm_scan_persistent"}
     fma_library = {"flash_attention": "flash_attention", "fused_xent": "fused_xent",
                    "flash_attention_bwd": "flash_attention_bwd", "fused_xent_bwd": "fused_xent",
                    "decode_attention": "decode_attention"}
@@ -2319,11 +2379,24 @@ def main() -> None:
                      bound_ms=ms(k["bound_us"]), bound_by=k["bound_by"],
                      library_ms=ms(k.get("library_us")),
                      library_device_ms=ms(k.get("library_dev_us")))
+        if name in wire_kernels:
+            entry["kernels"] = wire_kernels[name]
         if "step_us" in k:
-            # B7 launches T step kernels a call (the scan's dependency chain),
-            # counted by the profiler over one prefill of the path
-            entry.update(step_kernels=xlstm["step_kernels"], device_ms_a_step=ms(k["step_us"]))
-        if name in route_key:
+            # B7: one persistent launch a scan (the profiler's count over one
+            # prefill of the path beside it); the step kernel it replaced on
+            # the path (T launches a scan, its own counter) rides beside it
+            old = k["step_route"]
+            entry.update(
+                kernel_route="persistent",
+                persistent_kernels=xlstm["persistent_kernels"],
+                step_kernels=xlstm["step_kernels"], device_ms_a_step=ms(k["step_us"]),
+                step_route=dict(
+                    source="src/repro_torch/kernels/csrc/slstm_scan.cu",
+                    launches_by_path={path: counts[name] for path, counts in by_path.items()},
+                    ms=ms(old["kernel_us"]), device_ms_l2_warm=ms(old["kernel_dev_us"]),
+                    device_ms_l2_cold=ms(old["kernel_cold_us"]),
+                    device_ms_a_step=ms(old["step_us"])))
+        elif name in route_key:
             entry["kernel_route"] = "tensor_cores"
             entry["sass"] = sass[key]
             old = k["f32_fma_route"]
@@ -2350,11 +2423,12 @@ def main() -> None:
                 device_ms_l2_cold=ms(lc["kernel_cold_us"]), plain_ms=ms(lc["plain_us"]),
                 bound_ms=ms(lc["bound_us"]), bound_by=lc["bound_by"],
                 library_ms=ms(lc["library_us"]), library_device_ms=ms(lc.get("library_dev_us")))
-            if "f32_fma_route" in lc:
-                entry["long_context"]["f32_fma_route"] = dict(
-                    ms=ms(lc["f32_fma_route"]["kernel_us"]),
-                    device_ms_l2_warm=ms(lc["f32_fma_route"]["kernel_dev_us"]),
-                    device_ms_l2_cold=ms(lc["f32_fma_route"]["kernel_cold_us"]))
+            for other in ("f32_fma_route", "step_route"):
+                if other in lc:
+                    entry["long_context"][other] = dict(
+                        ms=ms(lc[other]["kernel_us"]),
+                        device_ms_l2_warm=ms(lc[other]["kernel_dev_us"]),
+                        device_ms_l2_cold=ms(lc[other]["kernel_cold_us"]))
         entries.append(entry)
     log(f"phase2 seconds_per_round={s_per_round:.3f}; phase2b (batched) "
         f"seconds_per_round={b_per_round:.3f}; phase6 serve {serve}; phase7 train {train}; "

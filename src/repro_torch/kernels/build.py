@@ -16,6 +16,7 @@ on a CUDA error and otherwise adds one to the launcher's count in
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import re
@@ -33,17 +34,17 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 SOURCES: Dict[str, Dict[str, Tuple]] = {
     "quant_exchange": {
-        # x, deq, scales, n, d, fmt, qinv, threads, stream
-        "repro_quant_dequant": (_P, _P, _P, _I, _I, _I, _F, _I, _P),
-        # x, deq, scales, scratch, n, d, fmt, qinv, stream
-        "repro_quant_dequant_wide": (_P, _P, _P, _P, _I, _I, _I, _F, _P),
+        # x, deq, scales, n, d, fmt, qinv, warps, vals, vec, stream
+        "repro_quant_dequant": (_P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _P),
+        # x, deq, scales, scratch, n, d, fmt, qinv, per, vec, stream
+        "repro_quant_dequant_wide": (_P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P),
         # x, deq, scales, stats, m, n, d, fmt, qinv, row_blocks, col_blocks,
         # segs, rows, vec, stream
         "repro_quant_dequant_stats": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I,
                                       _P),
         # x, deq, scales, stats, scratch, m, n, d, fmt, qinv, stream
         "repro_quant_dequant_stats_wide": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
-        # out (int*): the stats kernel's layout constants
+        # out (int*): the stats kernel's and B2's layout constants
         "repro_quant_exchange_constants": (_P,),
     },
     "tamper_check": {
@@ -108,6 +109,12 @@ SOURCES: Dict[str, Dict[str, Tuple]] = {
         # pre, r, out, ws, t, b, d, heads, dtype, stream
         "repro_slstm_scan": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     },
+    "slstm_scan_persistent": {
+        # pre, r, out, ws, t, b, d, heads, units, wide_r, dtype, stream
+        "repro_slstm_scan_persistent": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+        # out (int*): the kernel's block and row constants
+        "repro_slstm_scan_persistent_constants": (_P,),
+    },
 }
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
@@ -116,14 +123,16 @@ _CHECKED: Set[str] = set()
 #: kernel launches per launcher; reset with :func:`reset_launches`.  B5's and
 #: B4's forwards and backwards and B6 count by route: ``flash_attention``,
 #: ``fused_xent``, their ``_bwd`` and ``decode_attention`` the f32-FMA
-#: kernels, the same names with ``_tc`` the tensor-core ones
+#: kernels, the same names with ``_tc`` the tensor-core ones; B7 counts
+#: ``slstm_scan_persistent`` (one cooperative launch a scan) and
+#: ``slstm_scan`` (the step kernel, T launches a scan) a call each
 LAUNCHES: Dict[str, int] = {"quant_dequant": 0, "quant_dequant_stats": 0,
                             "tamper_check_sums": 0, "fused_xent": 0, "fused_xent_tc": 0,
                             "fused_xent_bwd": 0, "fused_xent_bwd_tc": 0,
                             "flash_attention": 0, "flash_attention_tc": 0,
                             "flash_attention_bwd": 0, "flash_attention_bwd_tc": 0,
                             "decode_attention": 0, "decode_attention_tc": 0,
-                            "slstm_scan": 0}
+                            "slstm_scan": 0, "slstm_scan_persistent": 0}
 
 
 def reset_launches() -> None:
@@ -137,6 +146,16 @@ def record_launch(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
     LAUNCHES[name] += 1
+
+
+@functools.lru_cache(maxsize=None)
+def device_limits(device_index: int) -> Tuple[int, int]:
+    """(SMs, shared memory bytes a block may use) of a CUDA device: what the
+    persistent kernels' grid policies size their grids by."""
+    import torch
+    props = torch.cuda.get_device_properties(device_index)
+    return (props.multi_processor_count,
+            int(getattr(props, "shared_memory_per_block_optin", 232448)))
 
 
 def _nvcc() -> str:
@@ -246,4 +265,4 @@ def check_constants(name: str, expected: Dict[str, int]) -> None:
 
 
 __all__ = ["BUILD_DIR", "LAUNCHES", "SOURCES", "build_all", "check_constants",
-           "library_path", "load", "record_launch", "reset_launches"]
+           "device_limits", "library_path", "load", "record_launch", "reset_launches"]

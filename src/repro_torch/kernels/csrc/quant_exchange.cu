@@ -2,20 +2,28 @@
 // Hopper (sm_90a), bound to Python through a plain C interface (ctypes).
 //
 // Replaces the TPU kernels of src/repro/kernels/quant_exchange.py:
-//   quant_dequant       (_quant_kernel)       -> qdq_kernel (rows up to 8,192
-//                                                wide), wide_rowmax_kernel +
-//                                                wide_qdq_rows_kernel (wider)
+//   quant_dequant       (_quant_kernel)       -> qdq_rows_kernel (rows up to
+//                                                8,192 wide), qdq_wide_kernel
+//                                                (wider: one cooperative launch)
 //   quant_dequant_stats (_quant_stats_kernel) -> qdq_stats_kernel (up to
 //                                                8,192 columns and 8,192 rows),
 //                                                the wide path (wider, or more
 //                                                rows)
 //
-// What bounds them on this card: bytes, and in practice launches.  A
-// cut-layer message on the main path is (B, d_c) = (64, 256) f32.  qdq reads
-// 4*N*D bytes and writes 4*N*D + 4*N: 131,328 B, 0.04 us at 3.35 TB/s, far
-// below the few microseconds a launch costs.  So the design spends nothing
-// on bandwidth: one block per row, a loop over the columns with a masked
-// tail (any D), the row's amax by warp shuffles plus shared memory.
+// What bounds them on this card: bytes, and at the CNN's messages launches.
+// A cut-layer message on the main path is (B, d_c) = (64, 256) f32 (the
+// batched round's (320, 256)).  qdq reads 4*N*D bytes and writes 4*N*D +
+// 4*N: 131,328 B, 0.04 us at 3.35 TB/s, far below the few microseconds a
+// launch costs.  qdq_rows_kernel reads x once: rows up to 256 wide at one
+// column a lane over 1 to 8 warps (each value is an IEEE division: the
+// fewer a lane holds, the shorter its chain), wider ones over the block's 8
+// warps at up to 32 values a lane (16-byte loads where D % 4 == 0), the
+// row's values in registers from its |x| max (warp shuffles, and shared
+// memory across a row's warps) to its quantize.  The LM round's
+// (4, 2,097,152) (33.5 MB, 20 us of bytes) runs qdq_wide_kernel, one
+// cooperative launch with one grid barrier between the partial maxima and
+// the quantize, most of x kept in shared memory between the two passes
+// (below).
 //
 // qdq_stats runs each message in ONE launch with no cross-launch state: a
 // message on the path is one batch (N = 64 rows), so the batch mean needs
@@ -58,7 +66,7 @@
 //   1. wide_rowmax_kernel: one partial |x| max per (row, chunk);
 //   2. wide_qdq_kernel: a block owns one chunk of one message and walks its
 //      rows in order: the row's scale from its partial maxima (a max, exact
-//      in any order, so the scales and deq are qdq_kernel's bits),
+//      in any order, so the scales and deq are qdq_rows_kernel's bits),
 //      deq, the column sums in row order (8 columns a thread, in
 //      registers), their mean, then per-(row, chunk) partials of
 //      sum (v - mu)^2 and per-chunk partials of sum mu^2, sum min(v, 0)^2
@@ -68,9 +76,7 @@
 //      order and finishes [dispersion, support_residual] as qdq_stats_kernel
 //      does.
 // No float atomics, so reruns are bit-identical; the caller allocates the
-// partials' scratch.  One block a row would leave an LM's four rows of 2 M
-// columns on four SMs, so B2 takes kernels 1 and the quantize of 2 over the
-// same grid for rows wider than 8,192 (two launches behind one C call).
+// partials' scratch.
 //
 // Bits.  deq and scales must equal the reference's bit for bit, so:
 //   * scale = max(amax, 1e-12) * f32(1/qmax): under jit XLA rewrites the
@@ -87,6 +93,8 @@
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "grid_sync.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -142,18 +150,128 @@ __device__ __forceinline__ float qdq(float a, float scale) {
   return __fmul_rn(v, scale);
 }
 
-template <int kFmt>
-__global__ void qdq_kernel(const float* __restrict__ x, float* __restrict__ deq,
-                           float* __restrict__ scales, int d, float qinv) {
-  __shared__ float red[32];
-  const int64_t row = blockIdx.x;
-  const float* xr = x + row * d;
-  float* dr = deq + row * d;
+// ---------------------------------------------------------------------------
+// B2 up to 8,192 columns: a warp or a few warps a row, the row in registers
+// ---------------------------------------------------------------------------
+
+constexpr int kRowThreads = 256;                 // 8 warps a block
+constexpr int kRowVals = 32;                     // values a lane at most
+
+// Lane `lane` of the row's warp `wr` (of `warps`) holds value i (< kVals) of
+// the row at this column: with `vec` (D % 4 == 0, rows 16-byte aligned)
+// values 4c .. 4c + 3 are one float4, the row's 4-column chunk (c * warps +
+// wr) * 32 + lane; without, the lanes stride by one column.
+__device__ __forceinline__ int row_col(int i, int wr, int warps, int lane, bool vec) {
+  return vec ? (((i >> 2) * warps + wr) * 32 + lane) * 4 + (i & 3)
+             : (i * warps + wr) * 32 + lane;
+}
+
+// A lane's kVals values of a row (0 past D), 16-byte loads with `vec` (kVals
+// >= 4); and their quantized values written back the same way.
+template <int kVals>
+__device__ __forceinline__ void load_row(const float* row, int d, int wr, int warps, int lane,
+                                         bool vec, float (&v)[kVals]) {
+  if constexpr (kVals >= 4) {
+    if (vec) {
+#pragma unroll
+      for (int i = 0; i < kVals; i += 4) {
+        const int c = row_col(i, wr, warps, lane, true);
+        const float4 f = c < d ? *reinterpret_cast<const float4*>(row + c)
+                               : make_float4(0.f, 0.f, 0.f, 0.f);
+        v[i] = f.x;
+        v[i + 1] = f.y;
+        v[i + 2] = f.z;
+        v[i + 3] = f.w;
+      }
+      return;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kVals; ++i) {
+    const int c = row_col(i, wr, warps, lane, false);
+    v[i] = c < d ? row[c] : 0.f;
+  }
+}
+
+template <int kFmt, int kVals>
+__device__ __forceinline__ void store_row(float* row, int d, int wr, int warps, int lane,
+                                          bool vec, const float (&v)[kVals], float scale) {
+  if constexpr (kVals >= 4) {
+    if (vec) {
+#pragma unroll
+      for (int i = 0; i < kVals; i += 4) {
+        const int c = row_col(i, wr, warps, lane, true);
+        if (c < d) {
+          *reinterpret_cast<float4*>(row + c) =
+              make_float4(qdq<kFmt>(v[i], scale), qdq<kFmt>(v[i + 1], scale),
+                          qdq<kFmt>(v[i + 2], scale), qdq<kFmt>(v[i + 3], scale));
+        }
+      }
+      return;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kVals; ++i) {
+    const int c = row_col(i, wr, warps, lane, false);
+    if (c < d) row[c] = qdq<kFmt>(v[i], scale);
+  }
+}
+
+// Grid: ceil(N / (8 / warps)) blocks; warp w takes row blockIdx.x * (8 /
+// warps) + w / warps with its `warps` - 1 neighbours.  x is read once: the
+// row's values stay in registers between its max and its quantize.  kVals
+// values a lane: 1 for rows up to 256 wide (the CNN's messages, which
+// spread over 1 to 8 warps), else 32 over 8 warps (up to 8,192 columns),
+// the values past D masked (no division issued for them).  Two counts, not
+// one: the masked values' loads and maxima would lengthen every lane of the
+// CNN's rows, and a count between would only shorten untimed widths.
+template <int kFmt, int kVals>
+__global__ void __launch_bounds__(kRowThreads)
+qdq_rows_kernel(const float* __restrict__ x, float* __restrict__ deq,
+                float* __restrict__ scales, int n, int d, float qinv, int warps,
+                int vec_rows) {
+  __shared__ float wmax[kRowThreads / 32];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int shift = __ffs(warps) - 1;            // warps is a power of two
+  const int wr = warp & (warps - 1);
+  const int64_t row = (static_cast<int64_t>(blockIdx.x) << (3 - shift)) + (warp >> shift);
+  const bool live = row < n;
+  float v[kVals];
+  if (live) {
+    load_row(x + row * d, d, wr, warps, lane, vec_rows != 0, v);
+  } else {
+#pragma unroll
+    for (int i = 0; i < kVals; ++i) v[i] = 0.f;
+  }
   float amax = 0.f;
-  for (int j = threadIdx.x; j < d; j += blockDim.x) amax = fmaxf(amax, fabsf(xr[j]));
-  const float scale = row_scale(block_reduce<true>(amax, red), qinv);
-  if (threadIdx.x == 0) scales[row] = scale;
-  for (int j = threadIdx.x; j < d; j += blockDim.x) dr[j] = qdq<kFmt>(xr[j], scale);
+#pragma unroll
+  for (int i = 0; i < kVals; ++i) amax = fmaxf(amax, fabsf(v[i]));
+  amax = warp_max(amax);
+  if (warps > 1) {                               // the same for the whole block
+    if (lane == 0) wmax[warp] = amax;
+    __syncthreads();
+    amax = warp_max(lane < warps ? wmax[warp - wr + lane] : 0.f);
+  }
+  if (!live) return;
+  const float scale = row_scale(amax, qinv);
+  if (wr == 0 && lane == 0) scales[row] = scale;
+  store_row<kFmt>(deq + row * d, d, wr, warps, lane, vec_rows != 0, v, scale);
+}
+
+template <int kFmt>
+int launch_rows(const float* x, float* deq, float* scales, int n, int d, float qinv, int warps,
+                int vals, int vec, cudaStream_t s) {
+  const int rows = kRowThreads / 32 / warps;
+  const unsigned blocks = static_cast<unsigned>((static_cast<int64_t>(n) + rows - 1) / rows);
+  if (vals == 1) {
+    qdq_rows_kernel<kFmt, 1><<<blocks, kRowThreads, 0, s>>>(x, deq, scales, n, d, qinv, warps,
+                                                            vec);
+  } else {
+    qdq_rows_kernel<kFmt, kRowVals><<<blocks, kRowThreads, 0, s>>>(x, deq, scales, n, d, qinv,
+                                                                   warps, vec);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------------------
@@ -530,26 +648,129 @@ __global__ void wide_rowmax_kernel(const float* __restrict__ x, float* __restric
   }
 }
 
-// B2 on wide rows: one block per (chunk, row), the row's scale from its
-// partial maxima (the same bits as qdq_kernel's), then the chunk's deq.
+// B2 on wide rows: ONE cooperative launch.  The message is cut into tiles
+// of kTileCols columns of one row (tile j = row j / tpr, columns from (j %
+// tpr) * kTileCols), and block b walks tiles [b * per, + per).  Pass 1
+// copies the block's first kKeptTiles tiles into shared memory with
+// cp.async, all issued at once (224 KB in flight an SM: the copy runs at the
+// memory's rate), reads any further tile into registers meanwhile, and
+// writes each tile's warps' |x| maxima to `pmax` (a thread reads back only
+// what it copied: no block barrier); one grid barrier; pass 2 takes each
+// row's max from its tiles' partial maxima (a max, exact in any order:
+// qdq_rows_kernel's bits), quantizes the kept tiles from shared memory and
+// the rest read again from x, and writes deq.  At (4, 2,097,152): 1,024
+// tiles over 128 blocks, 7 of a block's 8 kept (29 MB of the 33.5 MB).
+constexpr int kTileWarps = 32;
+constexpr int kTileThreads = kTileWarps * 32;
+constexpr int kTileVals = 8;                             // values a thread of a tile
+constexpr int kTileCols = 8192;
+static_assert(kTileCols == kTileThreads * kTileVals, "a tile is one value set of the block");
+constexpr int kKeptTiles = 7;                            // 224 KB of shared memory
+
+// A tile is a row segment that the block's 32 warps hold as qdq_rows_kernel
+// holds a row (row_col with 32 warps: value i of thread tid at column i *
+// 1,024 + tid, or element i % 4 of float4 (i / 4) * 1,024 + tid with
+// `vec`).  Shared memory keeps it at float (k * 8 + i) * 1,024 + tid of
+// kept tile k without `vec`, with `vec` at float ((k * 2 + i / 4) * 1,024 +
+// tid) * 4 + i % 4 (a thread's float4s whole).
+__device__ __forceinline__ int kept_at(int k, int i, int tid, bool vec) {
+  return vec ? ((k * 2 + i / 4) * kTileThreads + tid) * 4 + i % 4
+             : (k * kTileVals + i) * kTileThreads + tid;
+}
+
+// cp.async of `bytes` (4 or 16) from src, zeros past the row (src_bytes 0)
+__device__ __forceinline__ void cp_async(float* dst, const float* src, bool in, int bytes) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  if (bytes == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+                 "r"(in ? 16 : 0) : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
+                 "r"(in ? 4 : 0) : "memory");
+  }
+}
+
 template <int kFmt>
-__global__ void wide_qdq_rows_kernel(const float* __restrict__ x, float* __restrict__ deq,
-                                     float* __restrict__ scales,
-                                     const float* __restrict__ pmax, int rows, int d,
-                                     int nchunks, float qinv) {
+__global__ void __launch_bounds__(kTileThreads, 1)
+qdq_wide_kernel(const float* __restrict__ x, float* __restrict__ deq,
+                float* __restrict__ scales, float* __restrict__ pmax,
+                unsigned int* __restrict__ arrived, int d, int tpr, int tiles, int per,
+                float qinv, int vec_rows) {
+  extern __shared__ float4 kept4[];                // kKeptTiles tiles, laid out by kept_at
+  float* kept = reinterpret_cast<float*>(kept4);
   __shared__ float red[32];
-  const int chunk = blockIdx.x;
-  const int c0 = chunk * kWideCols;
-  const int c1 = min(d, c0 + kWideCols);
-  for (int64_t row = blockIdx.y; row < rows; row += gridDim.y) {
-    const float* pr = pmax + row * nchunks;
-    float amax = 0.f;
-    for (int c = threadIdx.x; c < nchunks; c += blockDim.x) amax = fmaxf(amax, pr[c]);
-    const float scale = row_scale(block_reduce<true>(amax, red), qinv);
-    if (chunk == 0 && threadIdx.x == 0) scales[row] = scale;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const bool vec = vec_rows != 0;
+  const int j0 = blockIdx.x * per;
+  const int j1 = min(tiles, j0 + per);
+  const int n_kept = min(j1 - j0, kKeptTiles);
+  auto tile_max = [&](int j, const float (&v)[kTileVals]) {
+    float a = 0.f;
+#pragma unroll
+    for (int i = 0; i < kTileVals; ++i) a = fmaxf(a, fabsf(v[i]));
+    a = warp_max(a);
+    if (lane == 0) pmax[static_cast<int64_t>(j) * kTileWarps + warp] = a;
+  };
+
+  // pass 1: the kept tiles' copies all in flight, the rest read meanwhile
+  for (int k = 0; k < n_kept; ++k) {
+    const int64_t row = (j0 + k) / tpr;
+    const int c0 = static_cast<int>(j0 + k - row * tpr) * kTileCols;
     const float* xr = x + row * d;
-    float* dr = deq + row * d;
-    for (int j = c0 + threadIdx.x; j < c1; j += blockDim.x) dr[j] = qdq<kFmt>(xr[j], scale);
+    if (vec) {
+#pragma unroll
+      for (int i = 0; i < kTileVals; i += 4) {
+        const int c = c0 + row_col(i, warp, kTileWarps, lane, true);
+        cp_async(kept + kept_at(k, i, tid, true), xr + (c < d ? c : 0), c < d, 16);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < kTileVals; ++i) {
+        const int c = c0 + row_col(i, warp, kTileWarps, lane, false);
+        cp_async(kept + kept_at(k, i, tid, false), xr + (c < d ? c : 0), c < d, 4);
+      }
+    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  for (int j = j0 + n_kept; j < j1; ++j) {
+    const int64_t row = j / tpr;
+    const int c0 = static_cast<int>(j - row * tpr) * kTileCols;
+    float v[kTileVals];
+    load_row(x + row * d + c0, d - c0, warp, kTileWarps, lane, vec, v);
+    tile_max(j, v);
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  for (int k = 0; k < n_kept; ++k) {
+    float v[kTileVals];
+#pragma unroll
+    for (int i = 0; i < kTileVals; ++i) v[i] = kept[kept_at(k, i, tid, vec)];
+    tile_max(j0 + k, v);
+  }
+  grid_sync::barrier(arrived, gridDim.x);
+
+  int64_t cached = -1;
+  float scale = 0.f;
+  for (int j = j0; j < j1; ++j) {
+    const int64_t row = j / tpr;
+    if (row != cached) {                           // the same for the whole block
+      const float* pr = pmax + row * tpr * kTileWarps;
+      float a = 0.f;
+      for (int c = tid; c < tpr * kTileWarps; c += kTileThreads) a = fmaxf(a, __ldcg(pr + c));
+      scale = row_scale(block_reduce<true>(a, red), qinv);
+      cached = row;
+    }
+    const int c0 = static_cast<int>(j - row * tpr) * kTileCols;
+    if (c0 == 0 && tid == 0) scales[row] = scale;
+    float v[kTileVals];
+    if (j - j0 < kKeptTiles) {
+#pragma unroll
+      for (int i = 0; i < kTileVals; ++i) v[i] = kept[kept_at(j - j0, i, tid, vec)];
+    } else {
+      load_row(x + row * d + c0, d - c0, warp, kTileWarps, lane, vec, v);
+    }
+    store_row<kFmt>(deq + row * d + c0, d - c0, warp, kTileWarps, lane, vec, v, scale);
   }
 }
 
@@ -671,16 +892,27 @@ __global__ void wide_finish_kernel(const float* __restrict__ pdev,
 }
 
 template <int kFmt>
-int launch_wide_qdq(const float* x, float* deq, float* scales, float* pmax, int n, int d,
-                    float qinv, cudaStream_t s) {
-  const int nchunks = (d + kWideCols - 1) / kWideCols;
-  const dim3 grid(nchunks, n < 65535 ? n : 65535);
-  wide_rowmax_kernel<<<grid, kWideThreads, 0, s>>>(x, pmax, n, d, nchunks);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  wide_qdq_rows_kernel<kFmt><<<grid, kWideThreads, 0, s>>>(x, deq, scales, pmax, n, d, nchunks,
-                                                           qinv);
-  return static_cast<int>(cudaGetLastError());
+int launch_qdq_wide(const float* x, float* deq, float* scales, float* scratch, int n, int d,
+                    int per, float qinv, int vec, cudaStream_t s) {
+  auto kernel = qdq_wide_kernel<kFmt>;
+  constexpr size_t kSmem = static_cast<size_t>(kKeptTiles) * kTileCols * sizeof(float);
+  // raise the shared-memory cap once, before any CUDA-graph capture
+  static bool configured = false;
+  cudaError_t err = cudaSuccess;
+  if (!configured) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(kSmem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = true;
+  }
+  const int tpr = (d + kTileCols - 1) / kTileCols;
+  const int64_t tiles = static_cast<int64_t>(n) * tpr;
+  if (tiles > 0x7fffffff / kTileWarps) return static_cast<int>(cudaErrorInvalidValue);
+  const int blocks = static_cast<int>((tiles + per - 1) / per);
+  unsigned int* arrived = reinterpret_cast<unsigned int*>(scratch + tiles * kTileWarps);
+  return static_cast<int>(grid_sync::launch(kernel, blocks, kTileThreads, kSmem, s, arrived, x,
+                                            deq, scales, scratch, arrived, d, tpr,
+                                            static_cast<int>(tiles), per, qinv, vec));
 }
 
 template <int kFmt>
@@ -710,27 +942,42 @@ int launch_wide(const float* x, float* deq, float* scales, float* stats, float* 
 // cudaGetLastError() (0 = launched); the caller validates shapes, types and
 // devices and allocates every output.
 
-extern "C" int repro_quant_dequant(const float* x, float* deq, float* scales, int n,
-                                   int d, int fmt, float qinv, int threads, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (fmt == kFmtInt8) {
-    qdq_kernel<kFmtInt8><<<n, threads, 0, s>>>(x, deq, scales, d, qinv);
-  } else if (fmt == kFmtFp8E4M3) {
-    qdq_kernel<kFmtFp8E4M3><<<n, threads, 0, s>>>(x, deq, scales, d, qinv);
-  } else {
+// B2 up to 8,192 columns: `warps` (1, 2, 4 or 8) warps a row, `vals` (1, or
+// 32 with 8 warps) values a lane, warps * vals * 32 >= D (the caller's
+// layout); `vec` (only with 32 values) = D % 4 == 0 and x 16-byte aligned.
+extern "C" int repro_quant_dequant(const float* x, float* deq, float* scales, int n, int d,
+                                   int fmt, float qinv, int warps, int vals, int vec,
+                                   void* stream) {
+  if (n <= 0 || d <= 0 || (warps != 1 && warps != 2 && warps != 4 && warps != 8) ||
+      (vals != 1 && (vals != kRowVals || warps != 8)) || (vec && vals == 1) ||
+      warps * vals * 32 < d) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (fmt == kFmtInt8) {
+    return launch_rows<kFmtInt8>(x, deq, scales, n, d, qinv, warps, vals, vec, s);
+  }
+  if (fmt == kFmtFp8E4M3) {
+    return launch_rows<kFmtFp8E4M3>(x, deq, scales, n, d, qinv, warps, vals, vec, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// out[0..3] <- kSegCols, kMaxStatsBlocks, kStatsWarps, kMaxStatsRows: the
-// stats kernel's layout constants, of which quant_exchange.py's layout
-// policy keeps copies and checks them against these on first use.
+// out[0..8] <- kSegCols, kMaxStatsBlocks, kStatsWarps, kMaxStatsRows (the
+// stats kernel's layout), kRowThreads, kRowVals (B2's row layout),
+// kTileCols, kTileWarps, kKeptTiles (B2's wide tiles): the constants of
+// which quant_exchange.py's layout policies keep copies and check them
+// against these on first use.
 extern "C" int repro_quant_exchange_constants(int* out) {
   out[0] = kSegCols;
   out[1] = kMaxStatsBlocks;
   out[2] = kStatsWarps;
   out[3] = kMaxStatsRows;
+  out[4] = kRowThreads;
+  out[5] = kRowVals;
+  out[6] = kTileCols;
+  out[7] = kTileWarps;
+  out[8] = kKeptTiles;
   return 0;
 }
 
@@ -764,16 +1011,22 @@ extern "C" int repro_quant_dequant_stats(const float* x, float* deq, float* scal
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// B2's wide path (rows wider than 8,192): two launches.  scratch holds
-// N * ceil(D / 2,048) floats.
+// B2's wide path (rows wider than 8,192): a memset of the barrier's
+// counter and one cooperative launch of ceil(N * ceil(D / 8,192) / per)
+// blocks, which must fit the card at once (else
+// cudaErrorCooperativeLaunchTooLarge).  scratch holds N * ceil(D / 8,192)
+// * 32 floats of partial maxima, then the 4-byte counter.
 extern "C" int repro_quant_dequant_wide(const float* x, float* deq, float* scales,
                                         float* scratch, int n, int d, int fmt, float qinv,
-                                        void* stream) {
-  if (n <= 0 || d <= 0) return static_cast<int>(cudaErrorInvalidValue);
+                                        int per, int vec, void* stream) {
+  if (n <= 0 || d <= 0 || per <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (fmt == kFmtInt8) return launch_wide_qdq<kFmtInt8>(x, deq, scales, scratch, n, d, qinv, s);
-  if (fmt == kFmtFp8E4M3) return launch_wide_qdq<kFmtFp8E4M3>(x, deq, scales, scratch, n, d,
-                                                              qinv, s);
+  if (fmt == kFmtInt8) {
+    return launch_qdq_wide<kFmtInt8>(x, deq, scales, scratch, n, d, per, qinv, vec, s);
+  }
+  if (fmt == kFmtFp8E4M3) {
+    return launch_qdq_wide<kFmtFp8E4M3>(x, deq, scales, scratch, n, d, per, qinv, vec, s);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -28,10 +28,11 @@
 // B 4, d 2,048, H 4), 256 us at 67 TFLOP/s, against 50 MB of pre, out and r
 // (15 us at 3.35 TB/s).  But the scan is a chain: step t needs all of step
 // t - 1's h, so T steps each pay one grid-wide dependency (here a kernel
-// boundary), a floor the roofline does not see.  This first design is
-// simple and right; the persistent form (R and the state in shared memory
-// across all T, one cooperative grid with a grid barrier a step) is later
-// work.
+// boundary), a floor the roofline does not see.  This kernel is the simple
+// route: slstm_scan_persistent.cu keeps R and the state on chip across all
+// T steps in one cooperative launch and takes every shape whose R fits the
+// co-resident grid; this one takes the rest (kernels/slstm_scan.py::
+// slstm_route).
 //
 //   * one launch a step, on the caller's stream; R (8.4 MB in bf16 at the
 //     prefill shape) is read from the 50 MB L2 from the second step on;
@@ -56,31 +57,18 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "slstm_gates.cuh"
+
 namespace {
+
+using slstm::from_f32;
+using slstm::to_f32;
 
 constexpr int kUnits = 32;                       // units a block: one a lane
 constexpr int kGates = 4;
 constexpr int kParts = 8;                        // fixed k partition of a dot product
 constexpr int kRows = 4;                         // batch rows a block
 constexpr int kThreads = kGates * kParts * 32;   // 1,024: warp w = (part, gate)
-constexpr float kMInit = -1e30f;                 // the reference kernel's start of m
-
-template <typename T> __device__ __forceinline__ float to_f32(T x);
-template <> __device__ __forceinline__ float to_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-__device__ __forceinline__ float log_sigmoid(float x) {
-  return fminf(x, 0.f) - log1pf(expf(-fabsf(x)));
-}
-
-__device__ __forceinline__ float sigmoid(float x) { return 1.f / (1.f + expf(-x)); }
 
 // One step.  pre_t, out_t point at step t's (B, 4d) and (B, d) rows;
 // h_prev/h_next are the two h buffers; first = (t == 0) reads no state.
@@ -152,19 +140,13 @@ slstm_step_kernel(const T* __restrict__ pre_t, const T* __restrict__ r,
     z[gg] = to_f32(pre_t[row * 4 * d + gg * d + unit]) + rec;
   }
   const int64_t s = row * d + unit;
-  const float m_prev = first ? kMInit : m[s];
-  const float c_prev = first ? 0.f : c[s];
-  const float n_prev = first ? 0.f : n[s];
-  const float lf = log_sigmoid(z[1]);
-  const float m_new = fmaxf(lf + m_prev, z[0]);
-  const float ig = expf(z[0] - m_new);
-  const float fg = expf(lf + m_prev - m_new);
-  const float c_new = fg * c_prev + ig * tanhf(z[2]);
-  const float n_new = fg * n_prev + ig;
-  const float h = sigmoid(z[3]) * c_new / fmaxf(n_new, 1.f);
-  c[s] = c_new;
-  n[s] = n_new;
-  m[s] = m_new;
+  float c_s = first ? 0.f : c[s];
+  float n_s = first ? 0.f : n[s];
+  float m_s = first ? slstm::kMInit : m[s];
+  const float h = slstm::gate(z, c_s, n_s, m_s);
+  c[s] = c_s;
+  n[s] = n_s;
+  m[s] = m_s;
   h_next[s] = h;
   out_t[s] = from_f32<T>(h);
 }

@@ -75,11 +75,6 @@ def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, in
 
 
 @functools.lru_cache(maxsize=None)
-def _sm_count(device_index: int) -> int:
-    return torch.cuda.get_device_properties(device_index).multi_processor_count
-
-
-@functools.lru_cache(maxsize=None)
 def _tc_clusters(device_index: int, d: int, splits: int) -> int:
     """How many clusters of ``splits`` tensor-core blocks at head_dim ``d``
     the card holds at once (``cudaOccupancyMaxActiveClusters``)."""
@@ -171,7 +166,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, index: I
     int or a 0-d int32 tensor on the card -> (B, 1, H, D).  With a tensor
     the split covers the whole cache (or window), and blocks past the live
     range contribute nothing."""
-    from .build import check_constants, load, record_launch
+    from .build import check_constants, device_limits, load, record_launch
     check_cuda_inputs("decode_attention", q, k, v)
     check_shapes(q, k, v)
     b, one, h, d = q.shape
@@ -195,7 +190,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, index: I
         lib = load("decode_attention_tc")
         check_constants("decode_attention_tc", _TC_CONSTANTS)
         clusters = b * hkv * -(-(h // hkv) // TC_HEADS)
-        chunk, splits = decode_tc_splits(n_keys, clusters, _sm_count(q.device.index),
+        chunk, splits = decode_tc_splits(n_keys, clusters, device_limits(q.device.index)[0],
                                          functools.partial(_tc_clusters, q.device.index, d))
         err = lib.repro_decode_attention_tc(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), index_ptr, index_host,
@@ -203,7 +198,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, index: I
         record_launch(err, "decode_attention_tc")
         return out
     head_chunks = -(-(h // hkv) // HEADS_PER_BLOCK)
-    chunk, splits = decode_splits(n_keys, b * hkv * head_chunks, _sm_count(q.device.index))
+    chunk, splits = decode_splits(n_keys, b * hkv * head_chunks,
+                                  device_limits(q.device.index)[0])
     ws = torch.empty((b, h, splits, d + 2), dtype=torch.float32, device=q.device)
     err = load("decode_attention").repro_decode_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), ws.data_ptr(), index_ptr,

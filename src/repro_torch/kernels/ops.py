@@ -145,14 +145,14 @@ def slstm_scan(pre: torch.Tensor, r: torch.Tensor, n_heads: int) -> torch.Tensor
     """The sLSTM time scan (B7): pre (T, B, 4d) input pre-activations, r
     (H, dh, 4dh) recurrent weights -> hidden states (T, B, d) in pre's
     dtype, f32 state.  A CPU tensor takes the plain version, which autograd
-    differentiates; on the card the kernel has no backward yet, so a CUDA
-    tensor that needs a gradient raises."""
+    differentiates; on the card the kernels (by ``slstm_scan.slstm_route``)
+    have no backward yet, so a CUDA tensor that needs a gradient raises."""
     if pre.device.type == "cpu":
         return _ss.slstm_scan_plain(pre, r, n_heads)
     if _needs_grad(pre, r):
         raise NotImplementedError("slstm_scan on the card with a gradient needs B7's "
                                   "backward: the xLSTM training slice (ROADMAP Queue A "
-                                  "item 10)")
+                                  "item 6)")
     return _ss.slstm_scan(pre.contiguous(), r.contiguous(), n_heads)
 
 

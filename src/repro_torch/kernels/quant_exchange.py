@@ -5,9 +5,10 @@ Per-row (per-sample) symmetric quantization to int8 or fp8-e4m3 with one f32
 scale per row, immediately dequantized, so the receiver consumes exactly the
 message it would reconstruct from ``1 byte/element + 4 bytes/row``.
 
-  * :func:`quant_dequant` — (N, D) f32 -> (deq (N, D), scales (N,)); rows
-    wider than :data:`MAX_STATS_D` take a grid of (column chunk, row)
-    blocks (two launches behind the same call).
+  * :func:`quant_dequant` — (N, D) f32 -> (deq (N, D), scales (N,)) in one
+    launch: rows up to :data:`MAX_STATS_D` wide by a warp or a few (laid
+    out by :func:`row_layout`), wider ones by one cooperative grid over
+    tiles of :data:`TILE_COLS` columns (laid out by :func:`wide_layout`).
   * :func:`quant_dequant_stats` — the same plus the
     :func:`message_stats` ``[dispersion, support_residual]`` of the
     dequantized message, in one C call.  It also takes M messages at once,
@@ -47,8 +48,8 @@ _FMT_CODE = {INT8: 0, FP8_E4M3: 1}
 
 #: where the kernels switch paths: a stats message up to this wide (and up
 #: to MAX_STATS_ROWS rows) runs in one cluster of at most STATS_MAX_BLOCKS
-#: blocks, and a row of B2 in one block; wider ones take the wide path's
-#: grid of WIDE_COLS-column chunks (any width)
+#: blocks, and a row of B2 in at most 8 warps; wider ones take the wide
+#: paths (any width): B3's grid of WIDE_COLS-column chunks, B2's tiles
 MAX_STATS_D = 8192
 WIDE_COLS = 2048
 #: the stats kernel's shared memory holds two floats a row
@@ -64,8 +65,19 @@ STATS_SEG_COLS = 256
 STATS_MAX_BLOCKS = 8
 STATS_WARPS = 16
 STATS_ROWS_PER_BLOCK = 8
-_STATS_CONSTANTS = {"kSegCols": STATS_SEG_COLS, "kMaxStatsBlocks": STATS_MAX_BLOCKS,
-                    "kStatsWarps": STATS_WARPS, "kMaxStatsRows": MAX_STATS_ROWS}
+#: B2's row layout: a block of ROW_THREADS threads takes 8 / warps rows, a
+#: lane at most ROW_VALS values of its row (kRowThreads, kRowVals).  Past
+#: MAX_STATS_D, tiles of TILE_COLS columns of one row, TILE_WARPS warps a
+#: block, of which a block keeps KEPT_TILES in shared memory between its
+#: two passes (kTileCols, kTileWarps, kKeptTiles)
+ROW_THREADS, ROW_VALS = 256, 32
+TILE_COLS, TILE_WARPS, KEPT_TILES = 8192, 32, 7
+#: the Python copies of csrc/quant_exchange.cu's layout constants, in the
+#: order its repro_quant_exchange_constants writes them
+_CONSTANTS = {"kSegCols": STATS_SEG_COLS, "kMaxStatsBlocks": STATS_MAX_BLOCKS,
+              "kStatsWarps": STATS_WARPS, "kMaxStatsRows": MAX_STATS_ROWS,
+              "kRowThreads": ROW_THREADS, "kRowVals": ROW_VALS, "kTileCols": TILE_COLS,
+              "kTileWarps": TILE_WARPS, "kKeptTiles": KEPT_TILES}
 
 
 def fp8_supported() -> bool:
@@ -175,32 +187,64 @@ def stats_layout(n: int, d: int) -> Tuple[int, int, int, int]:
     return -(-n // rows), col_blocks, segs, rows
 
 
-def _threads(d: int, cap: int) -> int:
-    """Threads per block: the row width rounded up to whole warps, at most
-    ``cap`` (a block loops over wider rows)."""
-    return min(cap, (d + 31) // 32 * 32)
+def row_layout(d: int, aligned: bool) -> Tuple[int, int, bool]:
+    """(warps, vals, vec) of B2's row kernel for rows ``d`` wide (up to
+    :data:`MAX_STATS_D`): the fewer values a lane holds, the shorter its
+    chain of IEEE divisions, so a row up to :data:`ROW_THREADS` wide takes
+    one column a lane over as few warps as hold it (1 to 8, a power of two),
+    and a wider row the block's 8 warps at :data:`ROW_VALS` values a lane,
+    those past ``d`` masked (the kernel's two template counts), read as
+    16-byte chunks (``vec``) where D % 4 == 0 and ``aligned``.  Lane ``l``
+    of the row's warp ``w`` holds value ``i`` at column ``((i // 4 * warps +
+    w) * 32 + l) * 4 + i % 4`` with ``vec``, else ``(i * warps + w) * 32 +
+    l``."""
+    if not 0 < d <= MAX_STATS_D:
+        raise ValueError(f"B2's row kernel takes 1 to {MAX_STATS_D} columns, got {d}")
+    if d > ROW_THREADS:
+        return ROW_THREADS // 32, ROW_VALS, aligned and d % 4 == 0
+    warps = 1
+    while warps * 32 < d:
+        warps *= 2
+    return warps, 1, False
+
+
+def wide_layout(n: int, d: int, sms: int) -> Tuple[int, int, int, int]:
+    """(tiles a row, tiles, tiles a block, blocks) of B2's wide kernel on a
+    card of ``sms`` SMs: rows cut into tiles of :data:`TILE_COLS` columns,
+    tile ``j`` = (row ``j // tpr``, columns from ``(j % tpr) * TILE_COLS``),
+    block ``b`` walks tiles ``[b * per, + per)`` and keeps the first
+    :data:`KEPT_TILES` in shared memory; one block an SM at most, so the
+    cooperative grid is co-resident."""
+    tpr = -(-d // TILE_COLS)
+    tiles = n * tpr
+    per = -(-tiles // sms)
+    return tpr, tiles, per, -(-tiles // per)
 
 
 def quant_dequant(x: torch.Tensor, fmt: str) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the quant->dequant kernel on an (N, D) f32 CUDA message.
     Returns (deq (N, D) f32, scales (N,) f32)."""
-    from .build import load, record_launch
+    from .build import check_constants, device_limits, load, record_launch
     _check_input(x, fmt)
     n, d = x.shape
     deq = torch.empty_like(x)
     scales = torch.empty((n,), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     lib = load("quant_exchange")
+    check_constants("quant_exchange", _CONSTANTS)
+    aligned = x.data_ptr() % 16 == 0
     if d <= MAX_STATS_D:
+        warps, vals, vec = row_layout(d, aligned)
         err = lib.repro_quant_dequant(
             x.data_ptr(), deq.data_ptr(), scales.data_ptr(), n, d, _FMT_CODE[fmt],
-            QINV[fmt], _threads(d, 256), stream)
+            QINV[fmt], warps, vals, int(vec), stream)
     else:
-        # the rows' partial maxima, one per (row, chunk)
-        pmax = torch.empty((n * -(-d // WIDE_COLS),), dtype=torch.float32, device=x.device)
+        _, tiles, per, _ = wide_layout(n, d, device_limits(x.device.index)[0])
+        # each tile's warps' |x| maxima, then the grid barrier's counter
+        scratch = torch.empty((tiles * TILE_WARPS + 4,), dtype=torch.float32, device=x.device)
         err = lib.repro_quant_dequant_wide(
-            x.data_ptr(), deq.data_ptr(), scales.data_ptr(), pmax.data_ptr(), n, d,
-            _FMT_CODE[fmt], QINV[fmt], stream)
+            x.data_ptr(), deq.data_ptr(), scales.data_ptr(), scratch.data_ptr(), n, d,
+            _FMT_CODE[fmt], QINV[fmt], per, int(aligned and d % 4 == 0), stream)
     record_launch(err, "quant_dequant")
     return deq, scales
 
@@ -220,7 +264,7 @@ def quant_dequant_stats(x: torch.Tensor, fmt: str
     stream = torch.cuda.current_stream(x.device).cuda_stream
     lib = load("quant_exchange")
     if d <= MAX_STATS_D and n <= MAX_STATS_ROWS:
-        check_constants("quant_exchange", _STATS_CONSTANTS)
+        check_constants("quant_exchange", _CONSTANTS)
         row_blocks, col_blocks, segs, rows = stats_layout(n, d)
         if m * row_blocks * col_blocks >= 2 ** 31:
             raise ValueError(f"quant_dequant_stats takes fewer than 2**31 blocks a call, "
@@ -246,10 +290,10 @@ def quant_dequant_stats(x: torch.Tensor, fmt: str
     return deq, scales, stats
 
 
-__all__ = ["INT8", "FP8_E4M3", "QUANT_FORMATS", "QMAX", "QINV", "MAX_STATS_D",
-           "MAX_STATS_ROWS", "STATS_MAX_BLOCKS", "STATS_ROWS_PER_BLOCK", "STATS_SEG_COLS",
-           "STATS_WARPS",
-           "WIDE_COLS", "stats_layout",
+__all__ = ["INT8", "FP8_E4M3", "QUANT_FORMATS", "QMAX", "QINV", "KEPT_TILES", "MAX_STATS_D",
+           "MAX_STATS_ROWS", "ROW_THREADS", "ROW_VALS", "STATS_MAX_BLOCKS",
+           "STATS_ROWS_PER_BLOCK", "STATS_SEG_COLS", "STATS_WARPS", "TILE_COLS", "TILE_WARPS",
+           "WIDE_COLS", "row_layout", "stats_layout", "wide_layout",
            "check_format", "fp8_supported", "message_stats", "quant_dequant",
            "quant_dequant_plain", "quant_dequant_stats",
            "quant_dequant_stats_plain"]

@@ -420,10 +420,11 @@ def test_stats_order_matches_the_pallas_kernel(case, fmt):
 
 
 # the Python copies of each library's constants (what decode_tc_splits,
-# stats_layout and the emulations above use): the launcher checks them
+# stats_layout, B2's row_layout and wide_layout (tests/test_torch_routes.py)
+# and the emulations above use): the launcher checks them
 # against the library's repro_<name>_constants on the card; here they are
 # held against the sources' constexpr lines
-CONSTANTS = {"decode_attention_tc": tda._TC_CONSTANTS, "quant_exchange": tqx._STATS_CONSTANTS}
+CONSTANTS = {"decode_attention_tc": tda._TC_CONSTANTS, "quant_exchange": tqx._CONSTANTS}
 
 
 @pytest.mark.parametrize("name", sorted(CONSTANTS))

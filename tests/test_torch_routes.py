@@ -245,9 +245,10 @@ def test_tensor_core_numerics_stay_within_the_bf16_bound(case):
 
 
 def test_library_path_follows_the_included_headers(tmp_path, monkeypatch):
-    """Editing a header (sm90.cuh, xent_combine.cuh) renames the libraries
-    of the sources that include it (the four tensor-core sources include
-    sm90.cuh), and only theirs; nothing is compiled."""
+    """Editing a header (sm90.cuh, xent_combine.cuh, slstm_gates.cuh) renames
+    the libraries of the sources that include it (the four tensor-core
+    sources include sm90.cuh, B7's two kernels slstm_gates.cuh), and only
+    theirs; nothing is compiled."""
     monkeypatch.setattr(tbuild, "_nvcc", lambda: pytest.fail("nvcc was called"))
     csrc = tmp_path / "csrc"
     shutil.copytree(tbuild.CSRC, csrc)
@@ -264,6 +265,120 @@ def test_library_path_follows_the_included_headers(tmp_path, monkeypatch):
     again = {name: tbuild.library_path(name, csrc) for name in tbuild.SOURCES}
     assert {name for name in tbuild.SOURCES if again[name] != after[name]} == {
         "fused_xent", "fused_xent_tc"}
+    with open(csrc / "slstm_gates.cuh", "a") as f:
+        f.write("\n// edited\n")
+    gates = {name: tbuild.library_path(name, csrc) for name in tbuild.SOURCES}
+    assert {name for name in tbuild.SOURCES if gates[name] != again[name]} == {
+        "slstm_scan", "slstm_scan_persistent"}
+    with open(csrc / "grid_sync.cuh", "a") as f:
+        f.write("\n// edited\n")
+    synced = {name: tbuild.library_path(name, csrc) for name in tbuild.SOURCES}
+    assert {name for name in tbuild.SOURCES if synced[name] != gates[name]} == {
+        "quant_exchange", "slstm_scan_persistent"}
     with open(csrc / "flash_attention.cu", "a") as f:
         f.write("\n// edited\n")
     assert tbuild.library_path("flash_attention", csrc) != before["flash_attention"]
+
+
+# ---------------------------------------------------------------------------
+# B2's row and tile layouts
+# ---------------------------------------------------------------------------
+
+def _row_cols(d, aligned):
+    """The columns of a row that B2's row kernel loads (the kernel's
+    row_col), over the row's warps, lanes and values a lane."""
+    warps, vals, vec = tqx.row_layout(d, aligned)
+    wr, lane, i = np.meshgrid(np.arange(warps), np.arange(32), np.arange(vals), indexing="ij")
+    if vec:
+        return (((i // 4 * warps + wr) * 32 + lane) * 4 + i % 4).ravel()
+    return ((i * warps + wr) * 32 + lane).ravel()
+
+
+ROW_CASES = [(d, aligned) for d in (1, 31, 32, 200, 256, 260, 1000, 1001, 1024, 1025, 4096,
+                                    8191, 8192) for aligned in (True, False)]
+
+
+@pytest.mark.parametrize("d,aligned", ROW_CASES)
+def test_row_layout_covers_every_column_once(d, aligned):
+    warps, vals, vec = tqx.row_layout(d, aligned)
+    cols = _row_cols(d, aligned)
+    np.testing.assert_array_equal(np.sort(cols[cols < d]), np.arange(d))
+    assert vec == (aligned and d % 4 == 0 and d > 256)   # one column a lane up to 256
+    assert warps in (1, 2, 4, 8) and (tqx.ROW_THREADS // 32) % warps == 0  # whole rows a block
+    if d <= tqx.ROW_THREADS:                          # one value a lane, the fewest warps
+        assert vals == 1 and (warps == 1 or warps // 2 * 32 < d)
+    else:                                             # the block's 8 warps, the rest masked
+        assert (warps, vals) == (tqx.ROW_THREADS // 32, tqx.ROW_VALS)
+
+
+def test_row_layout_refuses_what_the_wide_kernel_takes():
+    with pytest.raises(ValueError, match="8192"):
+        tqx.row_layout(tqx.MAX_STATS_D + 1, True)
+
+
+def _tile_cols(vec):
+    """A tile's columns as the wide kernel's threads hold them (row_col over
+    the block's 32 warps)."""
+    threads = tqx.TILE_WARPS * 32
+    tid, i = np.meshgrid(np.arange(threads), np.arange(tqx.TILE_COLS // threads),
+                         indexing="ij")
+    return (((i // 4) * tqx.TILE_WARPS * 32 + tid) * 4 + i % 4 if vec
+            else i * tqx.TILE_WARPS * 32 + tid).ravel()
+
+
+@pytest.mark.parametrize("n,d,sms", [(4, 2_097_152, 132), (3, 20001, 132), (8, 8193, 132),
+                                     (1024, 16384, 132), (5, 100_000, 7), (1, 8193, 114)])
+def test_wide_layout_covers_every_tile_once(n, d, sms):
+    tpr, tiles, per, blocks = tqx.wide_layout(n, d, sms)
+    assert tiles == n * tpr and (tpr - 1) * tqx.TILE_COLS < d <= tpr * tqx.TILE_COLS
+    assert blocks <= sms and (blocks - 1) * per < tiles <= blocks * per
+    for vec in (True, False):
+        np.testing.assert_array_equal(np.sort(_tile_cols(vec)), np.arange(tqx.TILE_COLS))
+
+
+def test_wide_layout_of_the_lm_message():
+    """(4, 2,097,152) on an H100: 1,024 tiles over 128 blocks of 8, each
+    keeping 7 in shared memory (29 MB of the 33.5 MB)."""
+    tpr, tiles, per, blocks = tqx.wide_layout(4, 2_097_152, 132)
+    assert (tpr, tiles, per, blocks) == (256, 1024, 8, 128)
+    kept = blocks * min(per, tqx.KEPT_TILES) * tqx.TILE_COLS * 4
+    assert kept == 7 * 128 * 32768
+
+
+def _b2_emulation(x, fmt, sms=132):
+    """B2 as its kernels compute it, in f32 numpy: each row's |x| max from
+    the per-lane maxima of the layout (row kernel up to 8,192 columns; else
+    the wide kernel's per-(tile, warp) partial maxima), then the plain
+    version's quantize and scale."""
+    n, d = x.shape
+    vec = d % 4 == 0
+    if d <= tqx.MAX_STATS_D:
+        cols = _row_cols(d, True)
+        live = cols < d
+        amax = np.abs(np.where(live, x[:, np.minimum(cols, d - 1)], 0)).max(axis=1)
+    else:
+        tpr, tiles, _, _ = tqx.wide_layout(n, d, sms)
+        tcols = _tile_cols(vec).reshape(tqx.TILE_WARPS, -1)       # a warp's columns
+        pmax = np.zeros((tiles, tqx.TILE_WARPS), np.float32)
+        for j in range(tiles):
+            c = (j % tpr) * tqx.TILE_COLS + tcols
+            pmax[j] = np.abs(np.where(c < d, x[j // tpr, np.minimum(c, d - 1)], 0)).max(axis=1)
+        amax = pmax.reshape(n, -1).max(axis=1)
+    scale = np.maximum(amax, np.float32(1e-12)) * np.float32(tqx.QINV[fmt])
+    deq, _ = tqx.quant_dequant_plain(torch.from_numpy(x), fmt)
+    return deq.numpy(), scale.astype(np.float32)
+
+
+@pytest.mark.parametrize("fmt", FORMATS)
+@pytest.mark.parametrize("shape", [(37, 200), (5, 1001), (3, 8192), (3, 20001), (4, 12288)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_b2_layout_emulation_matches_the_pallas_kernel(shape, fmt):
+    """Each row's largest |x| sits in a random column: the layouts' maxima
+    find it, so deq and scales are the Pallas kernel's bits."""
+    x = _wide_message(shape, seed=shape[-1])
+    rng = np.random.default_rng(shape[0])
+    x[np.arange(shape[0]), rng.integers(0, shape[1], shape[0])] = 50.0 + rng.random(shape[0])
+    deq, scale = _b2_emulation(x, fmt)
+    jd, js = jops.quant_roundtrip(jnp.asarray(x), fmt, interpret=True)
+    np.testing.assert_array_equal(scale, np.asarray(js))
+    np.testing.assert_array_equal(deq, np.asarray(jd))

@@ -158,11 +158,12 @@ def test_scan_first_step_and_minus_inf_input_gate():
 
 def test_scan_dispatch_raises_off_the_cpu():
     """A tensor off the CPU takes the kernel or raises: with a gradient it
-    names B7's backward slice, without one the launcher refuses a tensor
-    that is not on the card."""
+    names B7's backward slice (ROADMAP Queue A item 6), without one the
+    launcher refuses a tensor that is not on the card."""
     pre = torch.empty((4, 2, 64), device="meta", requires_grad=True)
     r = torch.empty((2, 8, 32), device="meta")
-    with pytest.raises(NotImplementedError, match="xLSTM training slice"):
+    with pytest.raises(NotImplementedError, match=r"xLSTM training slice \(ROADMAP Queue A "
+                                                  r"item 6\)"):
         tops.slstm_scan(pre, r, 2)
     with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
         tops.slstm_scan(pre, r, 2)
