@@ -18,10 +18,16 @@ from the repository root.  Phases, in order; any failure exits non-zero:
      layouts and at n 1 and 3, D 1,000 and 8,192; both at an LM's cut
      message (4, 2,097,152), which both run on their wide paths (B2 in one
      cooperative launch), and B3 also on (2, 4, 12,288), timed
-     beside their bytes bound); the tamper
-     check's sums within rtol 1e-5 of the plain version and of a float64
-     sum, bit-identical from run to run, exactly 0 on identical inputs and
-     above the tolerance only for a tampered candidate; the attention
+     beside their bytes bound; B2 also at SplitFed's (1,280, 256) rows and
+     B3 at its (20, 64, 256) messages); the tamper check (B1, one launch a
+     call) at every shape on distinct inputs and on the aliased call the
+     fused round makes (ref is recv): sums within rtol 1e-5 of the plain
+     version and of a float64 sum, bit-identical from run to run, distances
+     bit-equal to the plain formula on the kernel's sums, verdicts, exactly
+     0 on identical finite inputs, NaN where an input holds an inf or a NaN,
+     and above the tolerance only for a tampered candidate; timed distinct
+     and aliased beside a calibration read of the same bytes
+     (``torch.sum``), L2-cold after a 128 MB buffer is read; the attention
      kernels (B5 flash attention, B6 decode attention) within atol 2e-5
      (f32) and 2e-2 (bf16) of their plain versions at the serve path's
      shapes and edge shapes (MQA, groups 1, windows, head dims 64/80/256,
@@ -71,7 +77,18 @@ from the repository root.  Phases, in order; any failure exits non-zero:
      fused cascade (``RoundRunner.accept``) under
      ``torch.cuda.set_sync_debug_mode("error")`` so that a hidden host sync
      fails the run; launches of all three kernels, exchange bytes equal to
-     the sequential run's, selections and losses beside it;
+     the sequential run's, selections and losses beside it; one more round
+     step with its verify stage profiled alone: one device operation, B1's
+     kernel;
+  2c. the paper's baselines: tiny vanilla SL and SplitFed (both engines)
+     on the CPU and on the card from one init (equal comm and selections,
+     losses within rtol 1e-3), then the Table II CIFAR configuration (T = 2)
+     through ``run_vanilla_sl`` and ``run_splitfed`` sequential and batched
+     (argmin) and batched under ``loss_plus_distance``: the B2 and B3
+     launches each path's structure gives (SplitFed's batched round sends
+     all 20 clients' messages in one call), exchange bytes, SplitFed's comm
+     equal across its runs and its selections on both engines, seconds a
+     round;
   3. the MNIST split CNN at Table II sizes, fp8-e4m3 wire, argmin, gradient
      attack;
   4. the same tiny runs on the CPU and on the card, from the same init, on
@@ -152,15 +169,21 @@ TIMED_SHAPE = (64, 256)         # (B, d_c) of the CIFAR cut layer at B = 64
 # wide messages in one stats call
 LM_MESSAGE = (4, 2_097_152)
 WIDE_BATCHED = (2, 4, 12_288)
+# SplitFed's batched round sends every client's message at once: M = 20
+# messages of (B, d_c), one a client (B3), or their M * B rows (B2)
+SPLITFED_MESSAGES = (20, 64, 256)
 # the wire kernels' checks: the batched path's R*B rows (one B2 launch a
-# step), the sequential path's one message, then edge shapes (D % 4 != 0:
-# no 16-byte loads, narrow and wide) and the LM's
+# step), the sequential path's one message, SplitFed's batched M*B rows,
+# then edge shapes (D % 4 != 0: no 16-byte loads, narrow and wide) and the
+# LM's
 KERNEL_SHAPES = ((BATCHED_MESSAGES[0] * BATCHED_MESSAGES[1], BATCHED_MESSAGES[2]),
-                 TIMED_SHAPE, (64, 32), (37, 200), (1, 256), (1, 1000), (3, 1000),
+                 TIMED_SHAPE, (SPLITFED_MESSAGES[0] * SPLITFED_MESSAGES[1],
+                               SPLITFED_MESSAGES[2]), (64, 32), (37, 200), (1, 256), (1, 1000), (3, 1000),
                  (5, 1001), (1, 8192), (3, 8192), (1024, 4096), (3, 20001), LM_MESSAGE)
 # R messages in one stats call: the batched round's, the sequential path's
-# one message in the batched layout, and wide ones (B3's wide path)
-STATS_BATCHED = (BATCHED_MESSAGES, (1,) + TIMED_SHAPE, WIDE_BATCHED)
+# one message in the batched layout, SplitFed's batched round's, and wide
+# ones (B3's wide path)
+STATS_BATCHED = (BATCHED_MESSAGES, (1,) + TIMED_SHAPE, SPLITFED_MESSAGES, WIDE_BATCHED)
 # the tamper check's (R, D_o, d_c): CIFAR, MNIST, ragged, tiny, large
 TAMPER_SHAPES = ((5, 3000, 256), (4, 3000, 32), (3, 37, 200), (1, 1, 256),
                  (2, 4096, 4096))
@@ -411,17 +434,19 @@ def _graph_time_us(fn, *args, reps: int = 100, samples: int = 15) -> float:
 
 def _cold_time_us(fn, *args, reps: int = 50) -> float:
     """Median device time of one call that finds the L2 cache cold: a
-    128 MB buffer (over the 50 MB L2) is rewritten before each call, outside
-    the timed events.  A spin kernel ahead of them keeps the card busy while
-    the host enqueues the events and the call, so the events time the
-    call's device work and not the host's wrapper latency."""
+    128 MB buffer (over the 50 MB L2), written once, is read before each
+    call, outside the timed events, so the L2 holds only clean lines and
+    the call pays no write-back.  A spin kernel ahead of them keeps the card
+    busy while the host enqueues the events and the call, so the events
+    time the call's device work and not the host's wrapper latency."""
     import torch
-    flush = torch.empty(32 * 2 ** 20, dtype=torch.float32, device=DEVICE)
+    buf = torch.ones(32 * 2 ** 20, dtype=torch.float32, device=DEVICE)
+    sink = torch.empty((), dtype=torch.float32, device=DEVICE)
     fn(*args)
     times = []
     for _ in range(reps):
         torch.cuda._sleep(2_000_000)            # ~1 ms of spinning
-        flush.zero_()
+        torch.sum(buf, dim=0, out=sink)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -564,66 +589,151 @@ def _activations(shape, seed: int):
     return ref.contiguous(), recv.contiguous()
 
 
-def _phase_tamper():
-    """B1 against its plain version and a float64 sum, its determinism, its
-    exact zero and its verdict on a tampered candidate; timed at the main
-    path's (R, D_o, d_c)."""
+def _same_bits(a, b) -> bool:
+    """Equal values, NaN where the other is NaN."""
     import torch
-    from repro_torch.kernels import ops
+    return bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+def _tamper_checks(ref, other, exact, label: str) -> float:
+    """One B1 case: one launch a call, two runs bit-identical, the sums
+    within rtol of the plain version and of ``exact`` (float64), the
+    distances bit-equal to the plain formula on the kernel's sums and the
+    verdicts ``distance <= tol``.  Returns max |distance - plain distance|."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels import tamper_check as tc
+    build.reset_launches()
+    s1, d1, p1 = tc.tamper_check(ref, other, TAMPER_TOL)
+    check(build.LAUNCHES == want_launches(tamper_check_sums=1),
+          f"tamper {label}: a call launched {build.LAUNCHES}")
+    s2, d2, p2 = tc.tamper_check(ref, other, TAMPER_TOL)
+    plain = tc.tamper_check_sums_plain(ref, other)
+    torch.cuda.synchronize()
+    check(_same_bits(s1, s2) and _same_bits(d1, d2) and torch.equal(p1, p2),
+          f"tamper {label}: two runs differ")
+    check(torch.allclose(s1, plain, rtol=TAMPER_RTOL, atol=0, equal_nan=True),
+          f"tamper {label}: {s1.tolist()} vs plain {plain.tolist()}")
+    check(torch.allclose(s1.double(), exact, rtol=TAMPER_RTOL, atol=0, equal_nan=True),
+          f"tamper {label}: {s1.tolist()} vs float64 {exact.tolist()}")
+    check(_same_bits(d1, tc.distance_from_sums(s1)),
+          f"tamper {label}: distances {d1.tolist()} are not the plain formula's on the "
+          f"kernel's sums {tc.distance_from_sums(s1).tolist()}")
+    check(torch.equal(p1, d1 <= TAMPER_TOL), f"tamper {label}: verdicts {p1.tolist()} "
+                                             f"for distances {d1.tolist()}")
+    diff = (d1 - tc.tamper_distance_plain(ref, other)).abs()
+    return float(torch.nan_to_num(diff, nan=0.0).max())
+
+
+def _tamper_timing(fn, *args, plain=None) -> dict:
+    """Eager, replayed and L2-cold times of one call."""
+    timing = dict(kernel_us=_time_us(fn, *args), kernel_dev_us=_graph_time_us(fn, *args),
+                  kernel_cold_us=_cold_time_us(fn, *args))
+    if plain is not None:
+        timing.update(plain_us=_time_us(plain, *args), plain_dev_us=_graph_time_us(plain, *args))
+    return timing
+
+
+def _phase_tamper():
+    """B1 at every TAMPER_SHAPES entry, on distinct inputs and on the
+    aliased call the fused round makes (ref, ref): one launch a call, the
+    sums against the plain version and a float64 sum, bit-identical runs,
+    the distances bit-equal to the plain formula on the kernel's sums, the
+    numerator exactly 0 on identical finite inputs and NaN where an input
+    holds an inf or a NaN, the verdict on a tampered candidate; timed at
+    the main path's (R, D_o, d_c), distinct and aliased, beside a
+    calibration read of the same bytes (``torch.sum``)."""
+    import torch
+    from repro_torch.kernels import build, ops
     from repro_torch.kernels import tamper_check as tc
 
     max_err = 0.0
     for i, shape in enumerate(TAMPER_SHAPES):
         ref, recv = _activations(shape, seed=i)
-        s1 = tc.tamper_check_sums(ref, recv)
-        s2 = tc.tamper_check_sums(ref, recv)
-        plain = tc.tamper_check_sums_plain(ref, recv)
         a, b = ref.double().reshape(shape[0], -1), recv.double().reshape(shape[0], -1)
-        exact = torch.stack([((a - b) ** 2).sum(1), (a * a).sum(1)], dim=1)
-        same = tc.tamper_check_sums(ref, ref)
-        torch.cuda.synchronize()
-        check(torch.equal(s1, s2), f"tamper {shape}: two runs differ")
-        check(torch.allclose(s1, plain, rtol=TAMPER_RTOL, atol=0),
-              f"tamper {shape}: {s1.tolist()} vs plain {plain.tolist()}")
-        check(torch.allclose(s1.double(), exact, rtol=TAMPER_RTOL, atol=0),
-              f"tamper {shape}: {s1.tolist()} vs float64 {exact.tolist()}")
-        check(bool((same[:, 0] == 0.0).all()),
-              f"tamper {shape}: identical inputs give {same[:, 0].tolist()}, not 0")
-        check(torch.equal(same[:, 1], s1[:, 1]), f"tamper {shape}: den depends on recv")
-        d_k = ops.tamper_distance(ref, recv)
-        d_p = torch.sqrt(plain[:, 0]) / torch.clamp_min(torch.sqrt(plain[:, 1]), 1e-12)
-        max_err = max(max_err, float((d_k - d_p).abs().max()))
+        den = (a * a).sum(1)
+        max_err = max(max_err, _tamper_checks(
+            ref, recv, torch.stack([((a - b) ** 2).sum(1), den], dim=1), f"{shape}"))
+        max_err = max(max_err, _tamper_checks(
+            ref, ref, torch.stack([torch.zeros_like(den), den], dim=1), f"{shape} aliased"))
+        aliased, distinct = tc.tamper_check_sums(ref, ref), tc.tamper_check_sums(ref, recv)
+        check(bool((aliased[:, 0] == 0.0).all()),
+              f"tamper {shape}: identical inputs give {aliased[:, 0].tolist()}, not 0")
+        check(torch.equal(aliased[:, 1], distinct[:, 1]),
+              f"tamper {shape}: den depends on recv or on the route")
+    # an inf and a NaN: NaN numerators (inf - inf, NaN - NaN) on both
+    # routes, an inf one where only recv holds an inf; those candidates fail
+    ref, _ = _activations(TAMPER_SHAPES[0], seed=60)
+    ref[1, 7, 3], ref[3, 100, 5] = float("inf"), float("nan")
+    recv = ref.clone()
+    recv[4, 9, 9] = float("inf")
+    for other, label in ((ref, "aliased, inf and NaN"), (recv, "inf and NaN")):
+        a, b = ref.double().reshape(ref.shape[0], -1), other.double().reshape(ref.shape[0], -1)
+        _tamper_checks(ref, other, torch.stack([((a - b) ** 2).sum(1), (a * a).sum(1)], dim=1),
+                       label)
+    sums, dists, passed = tc.tamper_check(ref, ref, TAMPER_TOL)
+    want_nan = [False, True, False, True, False]
+    check(sums[:, 0].isnan().tolist() == want_nan and (sums[[0, 2, 4], 0] == 0).all(),
+          f"tamper: aliased numerators with an inf and a NaN {sums[:, 0].tolist()}")
+    check(passed.tolist() == [not w for w in want_nan],
+          f"tamper: aliased verdicts with an inf and a NaN {passed.tolist()}")
+    check(tc.tamper_check(ref, recv, TAMPER_TOL)[2].tolist() == [True, False, True, False,
+                                                                 False],
+          "tamper: the candidate whose recv holds an inf passed")
     # one tampered candidate among identical ones
     ref, _ = _activations(TAMPER_SHAPES[0], seed=50)
     recv = ref.clone()
     recv[2] += 1e-3 * torch.randn_like(recv[2])
+    build.reset_launches()
     dist = ops.tamper_distance(ref, recv).tolist()
+    check(build.LAUNCHES == want_launches(tamper_check_sums=1),
+          f"tamper: ops.tamper_distance launched {build.LAUNCHES}")
     check(dist[2] > TAMPER_TOL and all(d == 0.0 for j, d in enumerate(dist) if j != 2),
           f"tamper: tampered candidate 2 gives distances {dist}")
-    log(f"phase1 tamper_check_sums: within rtol {TAMPER_RTOL} of plain and float64 "
-        f"at {list(TAMPER_SHAPES)}, bit-identical run to run, exactly 0 on "
-        f"identical inputs; tampered candidate 2: distances {dist}; "
-        f"distance max_abs_err={max_err:.3e}")
+    check(ops.tamper_verdict(ref, recv, TAMPER_TOL)[0].tolist() == [True, True, False,
+                                                                     True, True],
+          "tamper: the verdict on tampered candidate 2")
+    log(f"phase1 tamper_check_sums: one launch a call; within rtol {TAMPER_RTOL} of plain "
+        f"and float64 at {list(TAMPER_SHAPES)}, distinct and aliased, bit-identical run "
+        f"to run, distances bit-equal to the plain formula on the kernel's sums, exactly "
+        f"0 on identical inputs, NaN numerators where an input holds an inf or a NaN; "
+        f"tampered candidate 2: distances {dist}; distance max_abs_err={max_err:.3e}")
 
     r, n, d = TAMPER_SHAPES[0]
     ref, recv = _activations(TAMPER_SHAPES[0], seed=99)
-    timing = dict(kernel_us=_time_us(tc.tamper_check_sums, ref, recv),
-                  plain_us=_time_us(tc.tamper_check_sums_plain, ref, recv),
-                  kernel_dev_us=_graph_time_us(tc.tamper_check_sums, ref, recv),
-                  plain_dev_us=_graph_time_us(tc.tamper_check_sums_plain, ref, recv),
-                  kernel_cold_us=_cold_time_us(tc.tamper_check_sums, ref, recv))
-    # both inputs read once, (R, 2) written; 5 flops an element
-    bytes_us = (2 * r * n * d * 4 + r * 2 * 4) / HBM_BYTES_PER_S * 1e6
-    ops_us = 5 * r * n * d / F32_OPS_PER_S * 1e6
-    timing.update(bound_us=max(bytes_us, ops_us),
-                  bound_by="bytes" if bytes_us >= ops_us else "operations")
-    log(f"phase1 tamper_check_sums at {TAMPER_SHAPES[0]}: kernel_us="
-        f"{timing['kernel_us']:.3f} plain_us={timing['plain_us']:.3f} "
-        f"bound_us={timing['bound_us']:.4f} ({timing['bound_by']}); graph-replayed "
-        f"device time: kernel_us={timing['kernel_dev_us']:.3f} "
-        f"plain_us={timing['plain_dev_us']:.3f} (inputs in the 50 MB L2 between "
-        f"replays); one call with the L2 cold: kernel_us={timing['kernel_cold_us']:.3f}")
-    return dict(max_abs_err=max_err, shape=list(TAMPER_SHAPES[0]), **timing)
+    sink = torch.empty((), dtype=torch.float32, device=DEVICE)
+
+    def calibration(x):
+        return torch.sum(x, dim=0, out=sink)
+
+    timing = _tamper_timing(tc.tamper_check_sums, ref, ref, plain=tc.tamper_check_sums_plain)
+    distinct = _tamper_timing(tc.tamper_check_sums, ref, recv,
+                              plain=tc.tamper_check_sums_plain)
+    results = {}
+    for label, t, n_in in (("aliased", timing, 1), ("distinct", distinct, 2)):
+        # the inputs read once, the sums, distances and verdicts written; 5
+        # flops an element
+        bytes_us = (n_in * r * n * d * 4 + r * 13) / HBM_BYTES_PER_S * 1e6
+        ops_us = 5 * r * n * d / F32_OPS_PER_S * 1e6
+        t.update(bound_us=max(bytes_us, ops_us),
+                 bound_by="bytes" if bytes_us >= ops_us else "operations")
+        # a read of the same bytes (a yardstick of the timers, not B1)
+        t["calibration"] = _tamper_timing(calibration, torch.ones(n_in * r * n * d,
+                                                                  device=DEVICE))
+        results[label] = t
+        log(f"phase1 tamper_check_sums at {TAMPER_SHAPES[0]} {label}: kernel_us="
+            f"{t['kernel_us']:.3f} plain_us={t['plain_us']:.3f} bound_us="
+            f"{t['bound_us']:.4f} ({t['bound_by']}); graph-replayed device time: "
+            f"kernel_us={t['kernel_dev_us']:.3f} plain_us={t['plain_dev_us']:.3f} (inputs "
+            f"in the 50 MB L2 between replays); one call with the L2 cold: kernel_us="
+            f"{t['kernel_cold_us']:.3f}; calibration read of "
+            f"{n_in * r * n * d * 4 / 1e6:.2f} MB (torch.sum): eager "
+            f"{t['calibration']['kernel_us']:.3f}, replayed "
+            f"{t['calibration']['kernel_dev_us']:.3f}, cold "
+            f"{t['calibration']['kernel_cold_us']:.3f}")
+    timing["distinct"] = dict(shape=list(TAMPER_SHAPES[0]), **distinct)
+    return dict(max_abs_err=max_err, shape=list(TAMPER_SHAPES[0]), call="aliased (ref, ref)",
+                **timing)
 
 
 def _attention_args(name: str, shape, dtype: str, seed: int):
@@ -1260,7 +1370,9 @@ def _phase_slstm():
 # phases 2-4: the protocol
 # ---------------------------------------------------------------------------
 
-def _run(name, module, data, pcfg, **kw):
+def _run(name, module, data, pcfg, driver=None, **kw):
+    """``driver`` (``run_pigeon`` by default) on the card with the launch
+    counts reset just before it: (history, launches, seconds)."""
     import torch
     from repro_torch.core import run_pigeon
     from repro_torch.kernels import build
@@ -1268,18 +1380,20 @@ def _run(name, module, data, pcfg, **kw):
     torch.cuda.synchronize()
     build.reset_launches()
     t0 = time.perf_counter()
-    hist = run_pigeon(module, data, pcfg, **kw)
+    hist = (driver or run_pigeon)(module, data, pcfg, **kw)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = dict(build.LAUNCHES)
     for r in hist.rounds:
-        check(all(v == v and abs(v) < 1e6 for v in r["val_losses"]),
-              f"{name}: non-finite validation loss {r['val_losses']}")
+        losses = r.get("val_losses", [r.get("train_loss")])
+        check(all(v == v and abs(v) < 1e6 for v in losses),
+              f"{name}: non-finite loss {losses}")
         check(0.0 <= r["test_acc"] <= 1.0, f"{name}: test_acc {r['test_acc']}")
-        log(f"{name} round {r['round']}: selected={r['selected']} "
-            f"selected_honest={r['selected_honest']} accepted={r['accepted']} "
-            f"detections={r['detections']} "
-            f"val_losses={[round(v, 6) for v in r['val_losses']]} "
+        fields = " ".join(f"{k}={r[k]}" for k in ("selected", "selected_honest", "accepted",
+                                                  "detections") if k in r)
+        log(f"{name} round {r['round']}: {fields} "
+            f"{'val_losses' if 'val_losses' in r else 'train_loss'}="
+            f"{[round(v, 6) for v in losses]} "
             f"test_acc={r['test_acc']:.4f} "
             f"exchange_bytes={r['comm']['activation_bytes'] + r['comm']['gradient_bytes']}")
     log(f"{name}: {pcfg.T} rounds in {seconds:.2f} s "
@@ -1373,10 +1487,96 @@ def phase_cifar_batched(main, seq_hist, seq_s_per_round):
             f"val_losses={rs['val_losses']} | comm equal: {rs['comm'] == rb['comm']}")
     log(f"phase2b fused step (RoundRunner.accept, sync-debug error) seconds: "
         f"{[round(x, 3) for x in steps]}")
+    ops = _verify_stage_ops(main)
+    check(sum(ev.count for ev in ops) == 1 and "tamper_check_kernel" in ops[0].key,
+          f"phase2b: the verify stage ran {[(ev.key[:60], ev.count) for ev in ops]}, want "
+          f"one tamper_check_kernel a round")
+    log(f"phase2b verify stage, one round profiled alone: {sum(ev.count for ev in ops)} "
+        f"device operation a round ({ops[0].key[:80]})")
     log(f"phase2b seconds_per_round={seconds / pcfg.T:.3f} (batched) vs "
         f"{seq_s_per_round:.3f} (sequential, phase2); Python-issued client steps "
         f"a round: {m_bar * pcfg.E} vs {pcfg.M * pcfg.E}")
     return launches, seconds / pcfg.T
+
+
+def phase_baselines(main):
+    """The paper's baselines.  (a) Tiny vanilla SL and SplitFed (both
+    engines) on the CPU and on the card from one init (int8, label flip):
+    equal comm and selections, losses within rtol 1e-3, and SplitFed's two
+    engines equal on the card.  (b) The Table II CIFAR configuration (phase
+    2's, T = 2) through run_vanilla_sl, run_splitfed sequential and batched
+    (argmin), and batched under loss_plus_distance: the wire launches each
+    path's structure gives, exchange bytes, comm equal across SplitFed's
+    runs, the same selections on its two engines, seconds a round."""
+    import numpy as np
+    from repro_torch.core import (LABEL_FLIP, Attack, ProtocolConfig, from_cnn, run_splitfed,
+                                  run_vanilla_sl)
+    from repro_torch.data import build_image_task
+
+    data, cfg = build_image_task("mnist", m_clients=4, d_m=120, d_o=60, n_test=200, seed=0)
+    pcfg = ProtocolConfig(M=4, N=1, T=2, E=2, B=16, lr=0.05, seed=0)
+    kw = dict(malicious={1}, attack=Attack(LABEL_FLIP), quant="int8")
+    module = from_cnn(cfg)
+    runs = {}
+    for dev in ("cpu", DEVICE):
+        runs["vanilla", dev] = run_vanilla_sl(module, data, pcfg, device=dev, **kw)
+        for engine in ("sequential", "batched"):
+            runs[engine, dev] = run_splitfed(module, data, pcfg, engine=engine, device=dev,
+                                             **kw)
+    for ra, rb in zip(runs["vanilla", "cpu"].rounds, runs["vanilla", DEVICE].rounds):
+        check(ra["comm"] == rb["comm"] and np.allclose(ra["train_loss"], rb["train_loss"],
+                                                       rtol=1e-3, atol=0),
+              f"phase2c vanilla round {ra['round']}: cpu {ra} card {rb}")
+    for a, b, losses_too in ((("sequential", "cpu"), ("sequential", DEVICE), True),
+                             (("batched", "cpu"), ("batched", DEVICE), True),
+                             (("sequential", DEVICE), ("batched", DEVICE), False)):
+        for ra, rb in zip(runs[a].rounds, runs[b].rounds):
+            for k in ("selected", "selected_honest", "comm"):
+                check(ra[k] == rb[k], f"phase2c splitfed round {ra['round']}: {k} {a}={ra[k]} "
+                                      f"{b}={rb[k]}")
+            if losses_too:
+                check(np.allclose(ra["val_losses"], rb["val_losses"], rtol=1e-3, atol=0),
+                      f"phase2c splitfed: val_losses {a}={ra['val_losses']} "
+                      f"{b}={rb['val_losses']}")
+    log(f"phase2c: tiny vanilla SL (train losses "
+        f"{[r['train_loss'] for r in runs['vanilla', DEVICE].rounds]}) and SplitFed on both "
+        f"engines agree between the CPU and the card over {pcfg.T} rounds; SplitFed's "
+        f"engines select {[r['selected'] for r in runs['batched', DEVICE].rounds]} on both")
+
+    data, cfg, module, pcfg, kw = main
+    base = dict(malicious=kw["malicious"], attack=kw["attack"], quant="int8",
+                device=kw["device"])
+    steps = pcfg.T * pcfg.E
+    paths = {"vanilla": (run_vanilla_sl, {}, dict(quant_dequant=2 * pcfg.M * steps)),
+             "splitfed_sequential": (run_splitfed, dict(engine="sequential"),
+                                     dict(quant_dequant=2 * pcfg.M * steps)),
+             "splitfed_batched": (run_splitfed, dict(engine="batched"),
+                                  dict(quant_dequant=2 * steps)),
+             "splitfed_batched_lpd": (run_splitfed, dict(engine="batched",
+                                                         selection="loss_plus_distance"),
+                                      dict(quant_dequant=steps, quant_dequant_stats=steps))}
+    out, hists = {}, {}
+    for name, (driver, extra, want) in paths.items():
+        hist, launches, seconds = _run(f"phase2c cifar {name}", module, data, pcfg,
+                                       driver=driver, **base, **extra)
+        check(launches == want_launches(**want),
+              f"phase2c {name}: launches {launches}, want {want}")
+        _check_exchange_bytes(f"phase2c {name}", hist, pcfg, cfg.d_cut, "int8")
+        hists[name] = hist
+        out[name] = dict(launches=launches, seconds_per_round=seconds / pcfg.T)
+    sfl = [hists[n] for n in paths if n.startswith("splitfed")]
+    for rounds in zip(*(h.rounds for h in sfl)):
+        check(all(r["comm"] == rounds[0]["comm"] for r in rounds),
+              f"phase2c round {rounds[0]['round']}: SplitFed's comm differs between runs")
+    for rs, rb in zip(hists["splitfed_sequential"].rounds, hists["splitfed_batched"].rounds):
+        check(rs["selected"] == rb["selected"],
+              f"phase2c round {rs['round']}: SplitFed selects {rs['selected']} sequential, "
+              f"{rb['selected']} batched (val_losses {rs['val_losses']} vs "
+              f"{rb['val_losses']})")
+    log(f"phase2c cifar seconds_per_round: "
+        f"{ {n: round(v['seconds_per_round'], 3) for n, v in out.items()} }; SplitFed's comm "
+        f"equal across its runs, its selections equal on both engines")
+    return out
 
 
 def phase_mnist():
@@ -1839,10 +2039,10 @@ def _profile_report(name: str, fn, wall_us: float, steps: int, shares=None) -> N
     return kernels
 
 
-def phase_profile_batched(main):
-    """One warm batched CIFAR round step as phase 2b runs it: the fused
-    RoundRunner.accept over R = 5 clusters x M_bar = 4 clients x E = 40
-    stacked steps, validation, scores, the tamper check and the commit."""
+def _batched_round_step(main):
+    """One fused batched CIFAR round step as phase 2b runs it, on a round
+    assembled once: (step, payload, assembly ms).  ``step()`` runs
+    RoundRunner.accept from a fresh copy of theta and returns its fetch."""
     import copy
     import dataclasses
 
@@ -1876,6 +2076,47 @@ def phase_profile_batched(main):
         fresh = tuple(copy.deepcopy(m) for m in theta)
         return runner.accept(fresh, payload, (x0, y0))[1]
 
+    return step, payload, assemble_ms
+
+
+def _verify_stage_ops(main):
+    """The device operations of one round's verify stage: one fused batched
+    step with ``RoundRunner._verify_passed`` alone under torch.profiler, the
+    card synchronised on both sides of it, so the window holds that stage's
+    work and nothing else.  Returns the profiler's device events."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.runner import RoundRunner
+
+    verify = RoundRunner._verify_passed
+    found = []
+
+    def profiled(self, vaux):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            out = verify(self, vaux)
+            torch.cuda.synchronize()
+        found.extend(ev for ev in prof.key_averages() if str(ev.device_type).endswith("CUDA"))
+        return out
+
+    step = _batched_round_step(main)[0]
+    RoundRunner._verify_passed = profiled
+    try:
+        step()
+    finally:
+        RoundRunner._verify_passed = verify
+    torch.cuda.synchronize()
+    return found
+
+
+def phase_profile_batched(main):
+    """One warm batched CIFAR round step as phase 2b runs it: the fused
+    RoundRunner.accept over R = 5 clusters x M_bar = 4 clients x E = 40
+    stacked steps, validation, scores, the tamper check and the commit."""
+    import torch
+
+    data, cfg, module, pcfg, kw = main
+    step, payload, assemble_ms = _batched_round_step(main)
     step()
     torch.cuda.synchronize()
     walls = []
@@ -2296,6 +2537,7 @@ def main() -> None:
     main_path = _cifar_main_path()
     seq_hist, seq_launches, s_per_round = phase_cifar(main_path)
     launches, b_per_round = phase_cifar_batched(main_path, seq_hist, s_per_round)
+    baselines = phase_baselines(main_path)
     phase_mnist()
     phase_cpu_vs_card()
     phase_lm_cpu_vs_card()
@@ -2342,7 +2584,9 @@ def main() -> None:
     # counts ride beside them.  Device times: graph replays back to back,
     # which find inputs of up to the 50 MB L2 still there (l2_warm), and one
     # call after an L2 flush (l2_cold), the figure to hold against bound_ms.
-    by_path = {"sequential": seq_launches, "batched": launches, "serve": serve["launches"],
+    by_path = {"sequential": seq_launches, "batched": launches,
+               **{name: b["launches"] for name, b in baselines.items()},
+               "serve": serve["launches"],
                "train": train["launches"],
                **{f"round_{q}": r["launches"] for q, r in rounds.items()},
                "xlstm_prefill": xlstm["prefill_launches"],
@@ -2381,6 +2625,22 @@ def main() -> None:
                      library_device_ms=ms(k.get("library_dev_us")))
         if name in wire_kernels:
             entry["kernels"] = wire_kernels[name]
+        if name == "tamper_check_sums":
+            # the path's aliased call above; distinct inputs and the
+            # calibration reads (torch.sum of the same bytes) beside it
+            def dev_times(t):
+                return dict(device_ms_l2_warm=ms(t["kernel_dev_us"]),
+                            device_ms_l2_cold=ms(t["kernel_cold_us"]))
+            dist = k["distinct"]
+            entry.update(call=k["call"], kernels=["tamper_check_kernel"],
+                         calibration=dict(ms=ms(k["calibration"]["kernel_us"]),
+                                          **dev_times(k["calibration"])),
+                         distinct=dict(shape=dist["shape"], ms=ms(dist["kernel_us"]),
+                                       plain_ms=ms(dist["plain_us"]),
+                                       bound_ms=ms(dist["bound_us"]),
+                                       bound_by=dist["bound_by"], **dev_times(dist),
+                                       calibration=dict(ms=ms(dist["calibration"]["kernel_us"]),
+                                                        **dev_times(dist["calibration"]))))
         if "step_us" in k:
             # B7: one persistent launch a scan (the profiler's count over one
             # prefill of the path beside it); the step kernel it replaced on
@@ -2431,7 +2691,8 @@ def main() -> None:
                         device_ms_l2_cold=ms(lc[other]["kernel_cold_us"]))
         entries.append(entry)
     log(f"phase2 seconds_per_round={s_per_round:.3f}; phase2b (batched) "
-        f"seconds_per_round={b_per_round:.3f}; phase6 serve {serve}; phase7 train {train}; "
+        f"seconds_per_round={b_per_round:.3f}; phase2c baselines {baselines}; "
+        f"phase6 serve {serve}; phase7 train {train}; "
         f"phase8 rounds {rounds}; phase9 xlstm {xlstm}")
     log(json.dumps({"kernels": entries}))
     log(card)

@@ -80,6 +80,11 @@ class AttackVec:
         """The ``(R,)`` lanes of client position ``j`` of every cluster."""
         return self._map(lambda a: a[:, j], lambda h: h[:, j])
 
+    def flat(self) -> "AttackVec":
+        """The ``(R * M_bar,)`` lanes of a round's grid, cluster-major: one
+        lane a client (SplitFed trains every client at once)."""
+        return self._map(lambda a: a.reshape(-1), lambda h: h.reshape(-1))
+
 
 @dataclasses.dataclass(frozen=True)
 class AttackFamily:

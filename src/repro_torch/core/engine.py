@@ -15,10 +15,18 @@ are ``torch.where``-masked versions of the same arithmetic, and the
 CommMeter accounting goes through the same helpers.  Seeded runs therefore
 select the same clusters, with validation losses equal within float
 tolerance and bit-identical message counts.
+
+SplitFed (the Section V baseline) binds the same runner to its own round:
+every client of every cluster trains at once, as one lane of an (R *
+M_bar)-stacked model, from the cluster's incoming theta, and the
+``combine`` hook (FedAvg) averages each cluster's M_bar lanes into its
+model before validation.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, List, Sequence, Tuple
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -27,8 +35,10 @@ from ..adversary import ThreatModel
 from .protocol import (ClientData, CommMeter, ProtocolConfig, _count_params,
                        account_client_turn, account_handoff_recheck,
                        round_client_seeds, sample_batch_idx)
-from .runner import protocol_accept_runner, protocol_runner
-from .split import SplitModule, unstack_slot
+from .runner import (RoundRunner, RoundSpec, VerifyConfig, protocol_accept_runner,
+                     protocol_round_spec, protocol_runner)
+from .split import (SplitModule, _stacked, client_update_vec_impl,
+                    client_update_vec_stats_impl, stack_params, unstack_slot)
 
 
 # ---------------------------------------------------------------------------
@@ -166,5 +176,128 @@ def train_cluster_batched(module: SplitModule, theta, cluster, data: ClientData,
             float(np.mean(losses[0].cpu().numpy())))
 
 
-__all__ = ["assemble_round", "assemble_round_batches", "pigeon_round_accept",
-           "round_client_seeds", "train_cluster_batched", "train_round_batched"]
+# ---------------------------------------------------------------------------
+# SplitFed: all M clients update in parallel (no within-cluster chain)
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def fedavg(module: SplitModule, lanes, r: int):
+    """FedAvg of each cluster's clients: (R * M_bar)-stacked halves, lanes
+    cluster-major, -> R-stacked halves holding each cluster's mean over its
+    M_bar lanes."""
+    gl, pl = lanes
+    device = next(gl.parameters()).device
+    with torch.device(device):
+        out = _stacked(module).make(r)
+    for src, dst in zip((gl, pl), out):
+        for big, mean in zip(src.parameters(), dst.parameters()):
+            mean.copy_(big.reshape((r, -1) + tuple(big.shape[1:])).mean(dim=1))
+    return out
+
+
+def splitfed_round_spec(module: SplitModule, lr: float, with_stats: bool = False,
+                        quant=None) -> RoundSpec:
+    """SplitFed's round as a RoundRunner binding: the train phase runs every
+    client of every cluster as one lane of an (R * M_bar)-stacked model
+    (one E-step turn for all of them, from the cluster's incoming theta),
+    the ``combine`` hook averages each cluster's lanes (:func:`fedavg`), and
+    validation is the Pigeon round's.  ``inputs`` are the Pigeon round's
+    (``assemble_round``).  Its wire messages are (R * M_bar * B, d_c) for B2
+    and (R * M_bar, B, d_c) for B3."""
+    from .protocol import turn_generator
+
+    def train_cluster(theta, inputs):
+        xs, ys, avec, seeds = inputs
+        r, m_bar = ys.shape[:2]
+        lanes = r * m_bar
+        device = ys.device
+        g, p = stack_params(module, theta[0], theta[1], lanes)
+        gens = [turn_generator(s, device) for s in seeds.reshape(-1)]
+        data = (xs.reshape((lanes,) + tuple(xs.shape[2:])).transpose(0, 1),
+                ys.reshape((lanes,) + tuple(ys.shape[2:])).transpose(0, 1))
+        if with_stats:
+            g, p, loss, st = client_update_vec_stats_impl(
+                module, avec.flat(), g, p, data, lr, gens, quant=quant)
+            return (g, p), (loss.reshape(r, m_bar), st.reshape(r, m_bar, -1))
+        g, p, loss = client_update_vec_impl(module, avec.flat(), g, p, data, lr, gens,
+                                            quant=quant)
+        return (g, p), loss.reshape(r, m_bar)
+
+    def combine(lanes, inputs):
+        return fedavg(module, lanes, inputs[1].shape[0])
+
+    return dataclasses.replace(protocol_round_spec(module, lr, with_stats, quant),
+                               train_cluster=train_cluster, combine=combine)
+
+
+def splitfed_runner(module: SplitModule, lr: float, with_stats: bool = False,
+                    quant=None) -> RoundRunner:
+    """The candidates runner of SplitFed's host-selected batched path."""
+    return RoundRunner(splitfed_round_spec(module, lr, with_stats, quant))
+
+
+def splitfed_accept_runner(module: SplitModule, lr: float, select, quant=None
+                           ) -> RoundRunner:
+    """SplitFed's fused-selection runner: the policy cascade with the verify
+    stage off (no chained handoff to tamper with)."""
+    spec = splitfed_round_spec(module, lr, with_stats=select.needs_message_stats,
+                               quant=quant)
+    return RoundRunner(spec, select=select, verify=VerifyConfig(enabled=False))
+
+
+#: SplitFed's payload is the Pigeon round's: the batches in the sequential
+#: loop's order and one noise seed a client, (R, M_bar), drawn cluster-major
+#: from the run's seed generator (the reference's per-client key splits)
+assemble_splitfed_round = assemble_round
+
+
+def splitfed_round_batched(module: SplitModule, theta, clusters, data: ClientData,
+                           pcfg: ProtocolConfig, tm: ThreatModel, t: int,
+                           rng: np.random.Generator, seed_gen: torch.Generator,
+                           x0: torch.Tensor, y0: torch.Tensor,
+                           with_stats: bool = False) -> List[Dict[str, Any]]:
+    """Batched SplitFed round, selection left to the caller (the host
+    path).  Each result holds a view into the stacked cluster models;
+    ``protocol.res_params`` takes out only the selected one."""
+    payload = assemble_splitfed_round(rng, seed_gen, data, clusters, pcfg, tm, t,
+                                      x0.device)
+    (g_avg, p_avg), aux, vlosses, vacts = splitfed_runner(
+        module, pcfg.lr, with_stats, quant=pcfg.comm.quant).candidates(
+        theta, payload, (x0, y0))
+    vlosses = vlosses.cpu().numpy()
+    stats = aux[1].cpu().numpy() if with_stats else None
+    results = []
+    for r, cluster in enumerate(clusters):
+        res = dict(vloss=float(vlosses[r]), cluster=cluster,
+                   _stacked=(theta, g_avg, p_avg, vacts, r))
+        if stats is not None:
+            res["msg_stats"] = stats[r]
+        results.append(res)
+    return results
+
+
+def splitfed_round_accept(module: SplitModule, theta, clusters, data: ClientData,
+                          pcfg: ProtocolConfig, tm: ThreatModel, t: int,
+                          rng: np.random.Generator, seed_gen: torch.Generator,
+                          x0: torch.Tensor, y0: torch.Tensor, policy):
+    """SplitFed's default batched round: FedAvg per cluster and the policy
+    selection cascade on the device, then the round's one fetch.  Returns
+    ``(theta', record)`` like :func:`pigeon_round_accept` (``detections``
+    always 0 and ``accepted`` always True: no handoff verify stage)."""
+    from ..selection import unpack_fetch
+    payload = assemble_splitfed_round(rng, seed_gen, data, clusters, pcfg, tm, t,
+                                      x0.device)
+    runner = splitfed_accept_runner(module, pcfg.lr, policy, quant=pcfg.comm.quant)
+    theta, fetch = runner.accept(theta, payload, (x0, y0))
+    vlosses, tlosses, selected, detections, accepted = unpack_fetch(
+        fetch.cpu().numpy(), len(clusters))          # the round's one host sync
+    record = dict(val_losses=[float(v) for v in vlosses],
+                  train_losses=[float(v) for v in tlosses],
+                  selected=selected, detections=detections, accepted=accepted)
+    return theta, record
+
+
+__all__ = ["assemble_round", "assemble_round_batches", "assemble_splitfed_round", "fedavg",
+           "pigeon_round_accept", "round_client_seeds", "splitfed_accept_runner",
+           "splitfed_round_accept", "splitfed_round_batched", "splitfed_round_spec",
+           "splitfed_runner", "train_cluster_batched", "train_round_batched"]

@@ -1,6 +1,9 @@
 """Protocol drivers: Pigeon-SL (Algorithm 1) and Pigeon-SL+, on the
 sequential engine (one client turn at a time) or the batched engine
-(``engine.py``: the R clusters of a round as one stacked program).
+(``engine.py``: the R clusters of a round as one stacked program), and the
+paper's baselines: vanilla SL (one chain of all M clients) and clustered
+SplitFed (each cluster's clients in parallel, FedAvg, selection by the
+shared-set loss), SplitFed on both engines.
 
 Every driver returns a ``History`` whose per-round records include test
 accuracy, per-cluster validation losses, the selected cluster, whether that
@@ -32,7 +35,7 @@ from torch import nn
 
 from .. import DeviceLike, resolve_device
 from ..adversary import HONEST, Attack, ThreatModel, resolve_threat_model
-from ..selection import resolve_policy, select_host
+from ..selection import host_score_context, resolve_policy, score_and_rank, select_host
 from .clustering import cluster_is_honest, make_clusters
 from .comm import FLOAT_BYTES, CommConfig, message_bytes
 from .split import SplitModule, client_update, client_update_stats
@@ -41,7 +44,6 @@ from .validation import validation_loss
 #: where the parts of the reference the port does not run yet will come from
 MULTI_ROUND_SLICE = "the multi-round slice (checkpoint/, telemetry/)"
 PIPELINE_SLICE = "the host-pipeline slice (data/pipeline.py RoundFeeder)"
-DRIVERS_SLICE = "a later slice of the protocol drivers"
 MULTI_CARD_SLICE = ("a multi-card slice (the cluster axis over several cards "
                     "with torch.distributed)")
 
@@ -205,6 +207,21 @@ def account_handoff_recheck(meter: CommMeter, pcfg: ProtocolConfig, d_o: int,
     meter.validation_floats += visited * pcfg.R * d_o * d_c
     meter.validation_bytes += visited * pcfg.R * d_o * d_c * FLOAT_BYTES
     meter.client_passes += visited * pcfg.R * d_o
+
+
+def account_splitfed_round(meter: CommMeter, pcfg: ProtocolConfig, clusters,
+                           d_o: int, d_c: int, d_cl: int) -> None:
+    """One SplitFed round's message accounting, analytic and so the same on
+    both engines: every client runs its E x B exchanges from the same
+    incoming params and uploads its client-side params for the FedAvg
+    combine; each cluster pushes one shared-set validation; the selected
+    cluster's client params broadcast to all M clients for the next
+    round."""
+    for cluster in clusters:
+        for _ in cluster:
+            account_client_turn(meter, pcfg, d_c, d_cl, handoff=True)
+        account_validation(meter, d_o, d_c)
+    account_param_transfer(meter, sum(len(c) for c in clusters) * d_cl)
 
 
 @torch.no_grad()
@@ -499,14 +516,172 @@ def run_pigeon_plus(module: SplitModule, data: ClientData, pcfg: ProtocolConfig,
     return run_pigeon(module, data, pcfg, malicious, attack, plus=True, **kwargs)
 
 
-def run_vanilla_sl(*args, **kwargs) -> History:
-    """Vanilla SL (the paper's baseline): not ported yet."""
-    _not_ported("run_vanilla_sl", DRIVERS_SLICE)
+# ---------------------------------------------------------------------------
+# vanilla SL (the paper's baseline)
+# ---------------------------------------------------------------------------
+
+def run_vanilla_sl(module: SplitModule, data: ClientData, pcfg: ProtocolConfig,
+                   malicious: Optional[Set[int]] = None, attack: Attack = HONEST,
+                   verbose: bool = False, threat_model: Optional[ThreatModel] = None,
+                   quant: Optional[str] = None, telemetry=None, *,
+                   device: DeviceLike = None) -> History:
+    """Vanilla SL: each round one chain of all M clients in a random order
+    (no clusters, no selection, no check), its last client handing off to
+    the next round.  ``telemetry``/``verbose`` are not ported yet and
+    raise."""
+    if telemetry is not None or verbose:
+        _not_ported("telemetry/verbose", MULTI_ROUND_SLICE)
+    dev = resolve_device(device)
+    if quant is not None:
+        pcfg = dataclasses.replace(pcfg, comm=CommConfig(quant=quant))
+    tm = resolve_threat_model(malicious, attack, threat_model)
+    rng = np.random.default_rng(pcfg.seed)
+    init_gen = torch.Generator().manual_seed(pcfg.seed)
+    gamma, phi = (copy.deepcopy(m).to(dev) for m in module.init(init_gen))
+    seed_gen, _ = _noise_generators(init_gen, dev)
+    d_c = cut_width(module, gamma, torch.from_numpy(data.x0[:1]).to(dev))
+    hist = History()
+    for t in range(pcfg.T):
+        meter = CommMeter()
+        order = rng.permutation(pcfg.M).tolist()
+        seeds = round_client_seeds(seed_gen, [order])[0]
+        gamma, phi, train_loss = train_cluster(module, gamma, phi, order, data, pcfg,
+                                               tm, t, rng, seeds, meter, d_c)
+        account_param_transfer(meter, _count_params(gamma))   # hand-off to round t+1
+        rec = dict(round=t, train_loss=train_loss, comm=dataclasses.asdict(meter))
+        if t % pcfg.eval_every == 0 or t == pcfg.T - 1:
+            rec["test_acc"] = evaluate(module, gamma, phi, data.x_test, data.y_test,
+                                       pcfg.eval_batch)
+        hist.rounds.append(rec)
+    return hist
 
 
-def run_splitfed(*args, **kwargs) -> History:
-    """Clustered SplitFed (Section V baseline): not ported yet."""
-    _not_ported("run_splitfed", DRIVERS_SLICE)
+# ---------------------------------------------------------------------------
+# SplitFed baseline (Section V: SFL + our clustering & validation selection)
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def _average(modules: Sequence[nn.Module]) -> nn.Module:
+    """FedAvg of plain halves: each parameter the mean of the clients'."""
+    out = copy.deepcopy(modules[0])
+    for p, *ps in zip(out.parameters(), *(m.parameters() for m in modules)):
+        p.copy_(torch.stack(ps).mean(dim=0))
+    return out
+
+
+def _splitfed_round(module: SplitModule, theta, clusters, data: ClientData,
+                    pcfg: ProtocolConfig, tm: ThreatModel, t: int,
+                    rng: np.random.Generator, seed_gen: torch.Generator,
+                    x0: torch.Tensor, y0: torch.Tensor, with_stats: bool
+                    ) -> List[Dict[str, Any]]:
+    """SplitFed's round on the sequential engine: every client of every
+    cluster trains from theta^t, one turn after another (cluster-major, the
+    batched engine's stream order), and each cluster's model is the mean of
+    its clients'."""
+    device = x0.device
+    seeds = round_client_seeds(seed_gen, clusters)
+    results = []
+    for cluster, row in zip(clusters, seeds):
+        gs, ps, sts = [], [], []
+        for client, seed in zip(cluster, row):
+            xs, ys = _sample_batches(rng, data.x[client], data.y[client], pcfg.E,
+                                     pcfg.B, device)
+            gen = turn_generator(seed, device)
+            a = tm.attack_for(client, t)
+            g, p = copy.deepcopy(theta[0]), copy.deepcopy(theta[1])
+            if with_stats:
+                g, p, _, st = client_update_stats(module, a, g, p, (xs, ys), pcfg.lr,
+                                                  gen, quant=pcfg.comm.quant)
+                sts.append(st.cpu().numpy())
+            else:
+                g, p, _ = client_update(module, a, g, p, (xs, ys), pcfg.lr, gen,
+                                        quant=pcfg.comm.quant)
+            gs.append(g)
+            ps.append(p)
+        g_avg, p_avg = _average(gs), _average(ps)
+        vloss, vacts = validation_loss(module, g_avg, p_avg, x0, y0)
+        res = dict(gamma=g_avg, phi=p_avg, vacts=vacts, vloss=float(vloss),
+                   cluster=cluster)
+        if sts:
+            res["msg_stats"] = np.stack(sts)
+        results.append(res)
+    return results
+
+
+def run_splitfed(module: SplitModule, data: ClientData, pcfg: ProtocolConfig,
+                 malicious: Optional[Set[int]] = None, attack: Attack = HONEST,
+                 verbose: bool = False, engine: str = "sequential",
+                 placement: str = "vmap", prefetch: int = 0, block: int = 1,
+                 threat_model: Optional[ThreatModel] = None, selection="argmin",
+                 quant: Optional[str] = None, telemetry=None,
+                 _force_host_selection: bool = False, *,
+                 device: DeviceLike = None) -> History:
+    """Clustered SplitFed: clients inside a cluster train *in parallel* from
+    the same incoming params; the cluster model is the FedAvg of its
+    clients, and the policy (``selection``) picks a cluster by its
+    shared-set validation.  No handoff check, no sub-round.
+
+    * ``engine`` — ``"sequential"`` (one client turn at a time) or
+      ``"batched"`` (all R * M_bar clients as one stacked program; the
+      FedAvg combine, validation and the selection cascade on the device,
+      one fetch a round; ``_force_host_selection`` keeps the batched
+      training and selects on the host instead).  Both engines select the
+      same clusters and count bit-identical messages.
+    * ``device``, ``quant``, ``selection`` — as :func:`run_pigeon`.
+
+    ``placement="sharded"``, ``prefetch``, ``block`` and
+    ``telemetry``/``verbose`` are not ported yet and raise."""
+    _check_engine(engine, placement, prefetch, block)
+    if engine == "batched":
+        from .split import _stacked
+        _stacked(module)                 # raises for a model with no stacked form
+    if telemetry is not None or verbose:
+        _not_ported("telemetry/verbose", MULTI_ROUND_SLICE)
+    dev = resolve_device(device)
+    if quant is not None:
+        pcfg = dataclasses.replace(pcfg, comm=CommConfig(quant=quant))
+    policy = resolve_policy(selection)
+    fused = engine == "batched" and not _force_host_selection
+    tm = resolve_threat_model(malicious, attack, threat_model)
+    rng = np.random.default_rng(pcfg.seed)
+    init_gen = torch.Generator().manual_seed(pcfg.seed)
+    theta = tuple(copy.deepcopy(m).to(dev) for m in module.init(init_gen))
+    seed_gen, _ = _noise_generators(init_gen, dev)
+    x0 = torch.from_numpy(data.x0).to(dev)
+    y0 = torch.from_numpy(data.y0).to(dev)
+    d_o = data.x0.shape[0]
+    d_cl = _count_params(theta[0])
+    d_c = cut_width(module, theta[0], x0)
+    hist = History()
+    if engine == "batched":
+        from .engine import splitfed_round_accept, splitfed_round_batched
+
+    for t in range(pcfg.T):
+        meter = CommMeter()
+        clusters = make_clusters(rng, pcfg.M, pcfg.R)
+        if fused:
+            theta, sel_rec = splitfed_round_accept(module, theta, clusters, data, pcfg,
+                                                   tm, t, rng, seed_gen, x0, y0, policy)
+            selected, val_losses = sel_rec["selected"], sel_rec["val_losses"]
+        else:
+            train = splitfed_round_batched if engine == "batched" else _splitfed_round
+            results = train(module, theta, clusters, data, pcfg, tm, t, rng, seed_gen,
+                            x0, y0, policy.needs_message_stats)
+            ctx = host_score_context(policy, module, results, y0)
+            _, elig, order = score_and_rank(policy, ctx)
+            selected = int(next(c for c in order if elig[c]))
+            theta = res_params(results[selected])
+            val_losses = [res["vloss"] for res in results]
+            del results
+        account_splitfed_round(meter, pcfg, clusters, d_o, d_c, d_cl)
+        rec = dict(round=t, selected=selected, val_losses=val_losses,
+                   selected_honest=cluster_is_honest(clusters[selected], tm.malicious),
+                   comm=dataclasses.asdict(meter))
+        if t % pcfg.eval_every == 0 or t == pcfg.T - 1:
+            rec["test_acc"] = evaluate(module, theta[0], theta[1], data.x_test,
+                                       data.y_test, pcfg.eval_batch)
+        hist.rounds.append(rec)
+    return hist
 
 
 def run_pigeon_sweep(*args, **kwargs) -> History:
@@ -517,7 +692,8 @@ def run_pigeon_sweep(*args, **kwargs) -> History:
 
 __all__ = ["ClientData", "CommMeter", "ENGINES", "History", "ProtocolConfig",
            "account_client_turn", "account_handoff_recheck",
-           "account_param_transfer", "account_validation", "cut_width",
+           "account_param_transfer", "account_splitfed_round", "account_validation",
+           "cut_width",
            "evaluate", "res_params", "res_vacts", "round_client_seeds",
            "run_pigeon", "run_pigeon_plus", "run_pigeon_sweep", "run_splitfed",
            "run_vanilla_sl", "sample_batch_idx", "train_cluster",

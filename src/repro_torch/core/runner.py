@@ -11,7 +11,7 @@ that passes the handoff check.  :class:`RoundRunner` runs that round over a
     models, whose handoff noise is drawn per visited candidate);
   * :meth:`RoundRunner.accept` — the fused cascade on the device: train,
     validate, policy score, rank, handoff verify (the ``tamper_check`` kernel
-    over all R candidates in one call) and commit, with nothing read back
+    over all R candidates in one launch) and commit, with nothing read back
     to the host; the caller fetches the one ``(2R + 3,)`` vector.
 
 The reference maps its per-cluster program over the cluster axis with
@@ -73,12 +73,19 @@ class RoundSpec:
     shared-set validation forward (Section III-C); ``val_aux`` holds the
     (R, D_o, d_c) cut activations the tamper check compares against.
 
+    ``combine(stacked_params, inputs) -> stacked_params`` — applied between
+    train and validate when set: SplitFed's FedAvg, which turns the train
+    phase's per-client lanes into the per-cluster models (the reference's
+    ``combine`` runs inside its vmap over clusters; here the cluster axis is
+    written out, so the hook reads the (R, M_bar) layout off ``inputs``).
+
     Selection hooks, for the policies that need them:
     ``validate_sharded(stacked_params, val, k) -> (vlosses, (R, k') shard
     losses, val_aux)``, ``train_summary(train_aux) -> (R,)`` and
     ``message_stats(train_aux) -> (R, M_bar, S)``."""
     train_cluster: Callable[[Any, Any], Tuple[Any, Any]]
     validate: Callable[[Any, Any], Tuple[torch.Tensor, Any]]
+    combine: Optional[Callable[[Any, Any], Any]] = None
     validate_sharded: Optional[Callable] = None
     train_summary: Optional[Callable[[Any], torch.Tensor]] = None
     message_stats: Optional[Callable[[Any], torch.Tensor]] = None
@@ -101,10 +108,18 @@ class VerifyConfig:
     tol: float = 1e-4
 
 
+def _train(spec: RoundSpec, params, inputs):
+    """Every cluster's training phase, then the ``combine`` hook."""
+    new_p, aux = spec.train_cluster(params, inputs)
+    if spec.combine is not None:
+        new_p = spec.combine(new_p, inputs)
+    return new_p, aux
+
+
 def cluster_map(spec: RoundSpec, params, inputs, val):
     """Train + validate every cluster: ``(stacked_params, train_aux,
     vlosses (R,), val_aux)`` — the one copy of the round math."""
-    new_p, aux = spec.train_cluster(params, inputs)
+    new_p, aux = _train(spec, params, inputs)
     vloss, vaux = spec.validate(new_p, val)
     return new_p, aux, vloss, vaux
 
@@ -117,7 +132,7 @@ def select_map(spec: RoundSpec, policy, params, inputs, val):
     if spec.validate_sharded is None:
         raise ValueError(f"selection policy {policy.name!r} needs sharded "
                          f"validation, which this RoundSpec does not provide")
-    new_p, aux = spec.train_cluster(params, inputs)
+    new_p, aux = _train(spec, params, inputs)
     vloss, shard_l, vaux = spec.validate_sharded(new_p, val, policy.shard_count)
     return new_p, aux, vloss, vaux, shard_l
 
@@ -178,11 +193,11 @@ class RoundRunner:
         """Per-candidate handoff verification: the transmission (the
         validation activations, see :class:`VerifyConfig`) against the
         validation-time activations, all R candidates in one
-        ``tamper_distance`` call.  Returns the (R,) bool pass mask and the
-        distances."""
-        from ..kernels.ops import tamper_distance
-        dists = tamper_distance(vaux, vaux)
-        return dists <= self.verify.tol, dists
+        ``tamper_verdict`` call (one launch of B1 on the card, which reads
+        the aliased activations once).  Returns the (R,) bool pass mask and
+        the distances."""
+        from ..kernels.ops import tamper_verdict
+        return tamper_verdict(vaux, vaux, self.verify.tol)
 
     def accept(self, params, inputs, val):
         """The fused round acceptance: ``(committed theta, fetch)``.  The

@@ -2,7 +2,8 @@
 
 At the end of a round the *last* client of each cluster pushes the cut-layer
 activations of the shared dataset D_o and the AP finishes the forward pass
-to obtain the cluster validation loss.  ``check_handoff`` is the
+to obtain the cluster validation loss; ``select_cluster`` is the argmin
+rule on host data.  ``check_handoff`` is the
 tamper-resilience check: the first clients of the next round each transmit
 g(x_0, gamma_received), and the AP compares them with the activations the
 selected cluster reported at validation time.
@@ -11,6 +12,7 @@ from __future__ import annotations
 
 from typing import Sequence, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -25,6 +27,13 @@ def validation_loss(module: SplitModule, gamma: nn.Module, phi: nn.Module,
     client actually transmits — kept so the AP can cross-check handoffs."""
     acts = module.client_forward(gamma, x0)
     return module.ap_loss(phi, acts, y0), acts
+
+
+def select_cluster(losses: Sequence[float]) -> int:
+    """argmin_r l_bar_r (ties broken towards the lower index), on host data:
+    the argmin policy's rule for external callers (the drivers select
+    through ``repro_torch.selection``)."""
+    return int(np.argmin(np.asarray(losses)))
 
 
 @torch.no_grad()
@@ -49,4 +58,4 @@ def check_handoff(reference_acts: torch.Tensor, received: Sequence[torch.Tensor]
     return max_d <= tol, max_d
 
 
-__all__ = ["check_handoff", "handoff_activations", "validation_loss"]
+__all__ = ["check_handoff", "handoff_activations", "select_cluster", "validation_loss"]

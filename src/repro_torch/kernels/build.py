@@ -48,9 +48,11 @@ SOURCES: Dict[str, Dict[str, Tuple]] = {
         "repro_quant_exchange_constants": (_P,),
     },
     "tamper_check": {
-        "repro_tamper_check_chunk": (),
-        # ref, recv, partial, out, r, n_elem, p, stream
-        "repro_tamper_check_sums": (_P, _P, _P, _P, _I, _L, _I, _P),
+        # ref, recv, partial, sums, dists, passed, ticket, r, n_elem, chunk, p,
+        # tol, aliased, stream
+        "repro_tamper_check": (_P, _P, _P, _P, _P, _P, _P, _I, _L, _L, _I, _F, _I, _P),
+        # out (int*): the block and chunk constants
+        "repro_tamper_check_constants": (_P,),
     },
     "flash_attention": {
         # q, k, v, out, lse, b, sq, sk, h, hkv, d, window, scale, dtype, stream

@@ -6,6 +6,7 @@ plain version).
 """
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple, Union
 
 import torch
@@ -51,14 +52,22 @@ def largest_divisor(n: int, cap: int) -> int:
 
 
 def tamper_distance(ref: torch.Tensor, recv: torch.Tensor) -> torch.Tensor:
-    """Relative L2 distance ``||ref - recv|| / ||ref||`` per candidate:
-    ref/recv (R, N, D) -> (R,) in one kernel call over all candidates (the
-    fused cascade's verify stage), or (N, D) -> a scalar."""
+    """Relative L2 distance ``||ref - recv|| / max(||ref||, 1e-12)`` per
+    candidate: ref/recv (R, N, D) -> (R,), or (N, D) -> a scalar: the
+    distances of :func:`tamper_verdict`."""
+    return tamper_verdict(ref, recv, math.inf)[1]
+
+
+def tamper_verdict(ref: torch.Tensor, recv: torch.Tensor, tol: float
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The fused cascade's verify stage: (passed ``distance <= tol`` (R,)
+    bool, distances (R,)) for ref/recv (R, N, D); on CUDA tensors both come
+    out of one launch of B1."""
     if ref.device.type == "cpu":
-        sums = _tc.tamper_check_sums_plain(ref, recv)
-    else:
-        sums = _tc.tamper_check_sums(ref, recv)
-    return torch.sqrt(sums[..., 0]) / torch.clamp_min(torch.sqrt(sums[..., 1]), 1e-12)
+        dists = _tc.tamper_distance_plain(ref, recv)
+        return dists <= tol, dists
+    _, dists, passed = _tc.tamper_check(ref, recv, tol)
+    return passed, dists
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -158,4 +167,4 @@ def slstm_scan(pre: torch.Tensor, r: torch.Tensor, n_heads: int) -> torch.Tensor
 
 __all__ = ["decode_attention", "flash_attention", "fused_cross_entropy", "largest_divisor",
            "quant_cut_exchange", "quant_roundtrip", "quant_roundtrip_stats", "slstm_scan",
-           "tamper_distance"]
+           "tamper_distance", "tamper_verdict"]

@@ -1,29 +1,66 @@
-"""The handoff tamper check's sums: the CUDA kernel
-(``csrc/tamper_check.cu``) and its plain PyTorch version.
+"""The handoff tamper check: the CUDA kernel (``csrc/tamper_check.cu``) and
+its plain PyTorch versions.
 
 Section III-C compares the cut activations that the next round's first
 clients re-transmit with the activations the selected cluster reported at
 validation time.  For each candidate the check needs two sums over its
-(N, D) activation set: ``[sum (ref - recv)^2, sum ref^2]``.
+(N, D) activation set, ``[sum (ref - recv)^2, sum ref^2]``, and from them
+the relative distance ``sqrt(num) / max(sqrt(den), 1e-12)``.
 
-  * :func:`tamper_check_sums` — launches the kernel on CUDA tensors: ref and
-    recv (R, N, D) -> (R, 2) f32, all R candidates in one call (or (N, D) ->
-    (2,)).
-  * :func:`tamper_check_sums_plain` — the same sums in PyTorch, for the CPU
-    and for comparison on the card.
+  * :func:`tamper_check` — launches the kernel on CUDA tensors: ref and recv
+    (R, N, D) -> sums (R, 2), distances (R,) and the verdicts
+    ``distances <= tol`` (R,), all R candidates in ONE launch (or (N, D) ->
+    (2,), a scalar and a 0-d verdict).  When ref and recv are the same
+    storage (the fused round's verify stage) it reads them once.
+  * :func:`tamper_check_sums` — the sums alone, through the same launch.
+  * :func:`tamper_check_sums_plain`, :func:`tamper_distance_plain` — the same
+    in PyTorch, for the CPU and for comparison on the card.
 
-``kernels/ops.py::tamper_distance`` picks between them by the tensor's
-device and takes the relative distance.  The launcher counts its launches in
+``kernels/ops.py::tamper_verdict`` (and ``tamper_distance`` through it)
+picks between them by the tensor's device.  The launcher counts its launches in
 ``build.LAUNCHES``.
 """
 from __future__ import annotations
 
+import math
+from typing import Dict, Tuple
+
 import torch
+
+#: csrc/tamper_check.cu's kThreads, kUnroll and kMinChunk: a block's
+#: threads, the 16-byte loads a thread issues a group an input, and the
+#: fewest elements a block takes (so a small input runs on few blocks)
+TAMPER_THREADS, TAMPER_UNROLL = 256, 4
+TAMPER_MIN_CHUNK = TAMPER_THREADS * 4 * TAMPER_UNROLL
+#: the fewest blocks an SM the layout aims for, to keep loads in flight
+TAMPER_BLOCKS_PER_SM = 4
+#: the guard on the distance's denominator (``ops.tamper_distance``)
+DEN_FLOOR = 1e-12
+_CONSTANTS = {"kThreads": TAMPER_THREADS, "kUnroll": TAMPER_UNROLL,
+              "kMinChunk": TAMPER_MIN_CHUNK}
+
+#: the kernel's ticket counters, one int32 per (device, stream): 0 between
+#: launches (the last block of a launch wraps it back)
+_TICKETS: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
 def _as_candidates(x: torch.Tensor) -> torch.Tensor:
     """(N, D) -> (1, N*D); (R, ...) -> (R, n_elem)."""
     return x.reshape(1, -1) if x.dim() == 2 else x.reshape(x.shape[0], -1)
+
+
+def tamper_layout(r: int, n_elem: int, sms: int) -> Tuple[int, int]:
+    """(P, chunk) of the kernel's (P, R) grid on a card of ``sms`` SMs:
+    block (p, r) takes elements ``[p * chunk, (p + 1) * chunk)`` of
+    candidate r.  P * R is a multiple of ``sms`` with at least
+    :data:`TAMPER_BLOCKS_PER_SM` blocks an SM, so every SM streams the same
+    bytes; the chunk is a multiple of 4 elements (16-byte loads) and at
+    least :data:`TAMPER_MIN_CHUNK`, and P chunks just cover ``n_elem``."""
+    g = math.gcd(r, sms)
+    per_cand, per_sm = sms // g, r // g          # P * R = sms * per_sm at P = per_cand
+    p = per_cand * -(-TAMPER_BLOCKS_PER_SM // per_sm)
+    chunk = max(4 * -(-n_elem // (4 * p)), TAMPER_MIN_CHUNK)
+    return -(-n_elem // chunk), chunk
 
 
 def tamper_check_sums_plain(ref: torch.Tensor, recv: torch.Tensor) -> torch.Tensor:
@@ -39,36 +76,76 @@ def tamper_check_sums_plain(ref: torch.Tensor, recv: torch.Tensor) -> torch.Tens
                                         _as_candidates(recv)[:, None])])
 
 
-def tamper_check_sums(ref: torch.Tensor, recv: torch.Tensor) -> torch.Tensor:
-    """Launch the two-pass sums kernel on f32 CUDA tensors: (R, N, D) ->
-    (R, 2), or (N, D) -> (2,)."""
-    from .build import load, record_launch
+def distance_from_sums(sums: torch.Tensor) -> torch.Tensor:
+    """``sqrt(num) / max(sqrt(den), 1e-12)`` over the last axis of (..., 2)
+    sums: a NaN stays NaN, as in the reference."""
+    return torch.sqrt(sums[..., 0]) / torch.clamp_min(torch.sqrt(sums[..., 1]), DEN_FLOOR)
+
+
+def tamper_distance_plain(ref: torch.Tensor, recv: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`tamper_check`'s distances."""
+    return distance_from_sums(tamper_check_sums_plain(ref, recv))
+
+
+def _check_input(x: torch.Tensor) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"the tamper-check kernel takes CUDA tensors, got {x.device}")
+    if x.device.index != torch.cuda.current_device():
+        raise ValueError(f"activations on {x.device} but the current device "
+                         f"is cuda:{torch.cuda.current_device()}")
+    if x.dtype != torch.float32:
+        raise TypeError(f"the tamper-check kernel takes float32, got {x.dtype}")
+    if x.dim() < 2 or x.numel() == 0:
+        raise ValueError(f"the tamper-check kernel takes non-empty (N, D) or "
+                         f"(R, N, D) activations, got {tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError("the tamper-check kernel takes contiguous activations")
+
+
+def _ticket(device: torch.device, stream: int) -> torch.Tensor:
+    key = (device.index, stream)
+    if key not in _TICKETS:
+        _TICKETS[key] = torch.zeros((1,), dtype=torch.int32, device=device)
+    return _TICKETS[key]
+
+
+def tamper_check(ref: torch.Tensor, recv: torch.Tensor, tol: float
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the one-launch tamper check on f32 CUDA tensors: (R, N, D) ->
+    (sums (R, 2), distances (R,), verdicts ``distances <= tol`` (R,) bool);
+    (N, D) -> ((2,), 0-d, 0-d)."""
+    from .build import check_constants, device_limits, load, record_launch
     if ref.shape != recv.shape:
         raise ValueError(f"ref {tuple(ref.shape)} and recv {tuple(recv.shape)} differ")
     for x in (ref, recv):
-        if x.device.type != "cuda":
-            raise ValueError(f"the tamper-check kernel takes CUDA tensors, got {x.device}")
-        if x.device.index != torch.cuda.current_device():
-            raise ValueError(f"activations on {x.device} but the current device "
-                             f"is cuda:{torch.cuda.current_device()}")
-        if x.dtype != torch.float32:
-            raise TypeError(f"the tamper-check kernel takes float32, got {x.dtype}")
-        if x.dim() < 2 or x.numel() == 0:
-            raise ValueError(f"the tamper-check kernel takes non-empty (N, D) or "
-                             f"(R, N, D) activations, got {tuple(x.shape)}")
-        if not x.is_contiguous():
-            raise ValueError("the tamper-check kernel takes contiguous activations")
+        _check_input(x)
     a, b = _as_candidates(ref), _as_candidates(recv)
     r, n_elem = a.shape
     lib = load("tamper_check")
-    p = -(-n_elem // lib.repro_tamper_check_chunk())
-    partial = torch.empty((r, p, 2), dtype=torch.float32, device=ref.device)
-    out = torch.empty((r, 2), dtype=torch.float32, device=ref.device)
+    check_constants("tamper_check", _CONSTANTS)
+    p, chunk = tamper_layout(r, n_elem, device_limits(ref.device.index)[0])
+    # the partials, then the sums and the distances
+    out = torch.empty((r * (2 * p + 3),), dtype=torch.float32, device=ref.device)
+    sums = out[r * 2 * p: r * (2 * p + 2)].view(r, 2)
+    dists = out[r * (2 * p + 2):]
+    passed = torch.empty((r,), dtype=torch.bool, device=ref.device)
     stream = torch.cuda.current_stream(ref.device).cuda_stream
-    err = lib.repro_tamper_check_sums(a.data_ptr(), b.data_ptr(), partial.data_ptr(),
-                                      out.data_ptr(), r, n_elem, p, stream)
+    err = lib.repro_tamper_check(
+        a.data_ptr(), b.data_ptr(), out.data_ptr(), sums.data_ptr(), dists.data_ptr(),
+        passed.data_ptr(), _ticket(ref.device, stream).data_ptr(), r, n_elem, chunk, p,
+        tol, int(a.data_ptr() == b.data_ptr()), stream)
     record_launch(err, "tamper_check_sums")
-    return out[0] if ref.dim() == 2 else out
+    if ref.dim() == 2:
+        return sums[0], dists[0], passed[0]
+    return sums, dists, passed
 
 
-__all__ = ["tamper_check_sums", "tamper_check_sums_plain"]
+def tamper_check_sums(ref: torch.Tensor, recv: torch.Tensor) -> torch.Tensor:
+    """The sums of :func:`tamper_check` (one launch): (R, N, D) -> (R, 2), or
+    (N, D) -> (2,)."""
+    return tamper_check(ref, recv, math.inf)[0]
+
+
+__all__ = ["DEN_FLOOR", "TAMPER_BLOCKS_PER_SM", "TAMPER_MIN_CHUNK", "TAMPER_THREADS",
+           "TAMPER_UNROLL", "distance_from_sums", "tamper_check", "tamper_check_sums",
+           "tamper_check_sums_plain", "tamper_distance_plain", "tamper_layout"]

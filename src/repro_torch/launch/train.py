@@ -5,13 +5,16 @@
         --malicious 1 --rounds 3
     PYTHONPATH=src python -m repro_torch.launch.train --task mnist \\
         --protocol pigeon+ --attack label_flip --malicious 2 --rounds 10
+    PYTHONPATH=src python -m repro_torch.launch.train --task cifar10 \\
+        --protocol sfl --engine batched --attack label_flip --malicious 1
 
 The reference's ``repro/launch/train.py``, with the same flags, on the CUDA
 card by default (``--device cpu`` asks for the CPU).  An ``--arch`` runs its
 reduced config (``reduce_config``), as the reference does, on the
-sequential engine.  Not ported, each raising: ``--protocol vanilla|sfl``
-(the baselines), ``--trace`` and ``--profile-dir`` (telemetry), ``--block >
-1`` (multi-round execution) and ``--compile-cache`` (JAX's persistent
+sequential engine.  ``--protocol vanilla`` runs vanilla SL, ``sfl``
+clustered SplitFed (either engine for the CNNs).  Not ported, each raising:
+``--trace`` and ``--profile-dir`` (telemetry), ``--block > 1``
+(multi-round execution) and ``--compile-cache`` (JAX's persistent
 compilation cache, which has no counterpart: PyTorch runs eagerly and the
 kernels are built once into ``build/``).
 """
@@ -26,17 +29,16 @@ import torch
 
 from .. import resolve_device
 from ..configs import get_smoke_config, list_archs
-from ..core import HONEST, Attack, ProtocolConfig, from_cnn, from_lm, run_pigeon
+from ..core import (HONEST, Attack, ProtocolConfig, from_cnn, from_lm, run_pigeon,
+                    run_splitfed, run_vanilla_sl)
 from ..data import build_image_task, build_lm_task
 from ..models import build_model
 
 #: why each unported option raises
 NOT_PORTED = {
-    "vanilla": "--protocol vanilla: run_vanilla_sl is ROADMAP.md Queue A item 5",
-    "sfl": "--protocol sfl: run_splitfed is ROADMAP.md Queue A item 5",
-    "trace": "--trace: telemetry is ROADMAP.md Queue A item 8",
-    "profile_dir": "--profile-dir: telemetry is ROADMAP.md Queue A item 8",
-    "block": "--block > 1: multi-round execution is ROADMAP.md Queue A item 8",
+    "trace": "--trace: telemetry is ROADMAP.md Queue A item 3",
+    "profile_dir": "--profile-dir: telemetry is ROADMAP.md Queue A item 3",
+    "block": "--block > 1: multi-round execution is ROADMAP.md Queue A item 3",
     "compile_cache": ("--compile-cache: JAX's persistent compilation cache has no "
                       "counterpart (PyTorch runs eagerly; the kernels build once into "
                       "build/)"),
@@ -44,8 +46,6 @@ NOT_PORTED = {
 
 
 def _refuse(args) -> None:
-    if args.protocol in ("vanilla", "sfl"):
-        raise NotImplementedError(NOT_PORTED[args.protocol])
     for flag in ("trace", "profile_dir", "compile_cache"):
         if getattr(args, flag) is not None:
             raise NotImplementedError(NOT_PORTED[flag])
@@ -114,16 +114,23 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     malicious = set(range(args.malicious))
 
     t0 = time.perf_counter()
-    hist = run_pigeon(module, data, pcfg, malicious, attack,
-                      plus=args.protocol == "pigeon+", engine=engine, device=device)
+    if args.protocol == "vanilla":
+        hist = run_vanilla_sl(module, data, pcfg, malicious, attack, device=device)
+    elif args.protocol == "sfl":
+        hist = run_splitfed(module, data, pcfg, malicious, attack, engine=engine,
+                            device=device)
+    else:
+        hist = run_pigeon(module, data, pcfg, malicious, attack,
+                          plus=args.protocol == "pigeon+", engine=engine, device=device)
     if device.type == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     for r in hist.rounds:
-        print(f"round {r['round']}: selected={r['selected']} accepted={r['accepted']} "
-              f"selected_honest={r['selected_honest']} detections={r['detections']} "
-              f"val_losses={[round(v, 4) for v in r['val_losses']]} "
-              f"test_acc={r.get('test_acc')}")
+        fields = " ".join(f"{k}={r[k]}" for k in ("selected", "accepted", "selected_honest",
+                                                  "detections", "train_loss") if k in r)
+        losses = (f" val_losses={[round(v, 4) for v in r['val_losses']]}"
+                  if "val_losses" in r else "")
+        print(f"round {r['round']}: {fields}{losses} test_acc={r.get('test_acc')}")
     final = hist.rounds[-1].get("test_acc")
     where = torch.cuda.get_device_name(device) if device.type == "cuda" else "CPU"
     print(f"done: {args.protocol} rounds={args.rounds} "

@@ -155,26 +155,28 @@ def test_batched_and_sequential_engines_agree(case, histories):
 
 def test_fused_path_runs_the_tamper_check_once_per_round(port, monkeypatch):
     """Without param tamperers the batched round never enters the host
-    cascade; its verify stage takes all R candidates in one tamper_distance
+    cascade; its verify stage takes all R candidates in one tamper_verdict
     call, which sees identical inputs and returns exactly 0."""
     data, module, pcfg = port
     seen = []
-    real = tops.tamper_distance
+    real = tops.tamper_verdict
 
-    def spy(ref, recv):
-        out = real(ref, recv)
-        seen.append((tuple(ref.shape[:2]), ref is recv, out.tolist()))
-        return out
+    def spy(ref, recv, tol):
+        passed, dists = real(ref, recv, tol)
+        seen.append((tuple(ref.shape[:2]), ref is recv, tol, passed.tolist(),
+                     dists.tolist()))
+        return passed, dists
 
     def refuse(*_a, **_k):
         raise AssertionError("the fused path entered the host cascade")
 
-    monkeypatch.setattr(tops, "tamper_distance", spy)
+    monkeypatch.setattr(tops, "tamper_verdict", spy)
     monkeypatch.setattr(tcore.protocol, "select_host", refuse)
     tcore.run_pigeon(module, data, pcfg, malicious={1},
                      attack=tcore.Attack(tcore.LABEL_FLIP), engine="batched",
                      device="cpu")
-    assert seen == [((pcfg.R, TASK["d_o"]), True, [0.0] * pcfg.R)] * pcfg.T
+    assert seen == [((pcfg.R, TASK["d_o"]), True, pcfg.tamper_tol, [True] * pcfg.R,
+                     [0.0] * pcfg.R)] * pcfg.T
 
 
 def test_fused_cascade_rejects_a_diverged_candidate(port):

@@ -4,10 +4,14 @@ import isolation.
 
 Quant wire: deq and scales must be bit-equal; the fused message stats agree
 to a relative 2e-6, the f32 summation-order difference between the two.
-Tamper check: the sums agree at rtol 1e-6 (f32 sums of at most 1e5 terms in
-two orders), and identical inputs give exactly 0."""
+Tamper check: the sums and distances agree at rtol 1e-6 (f32 sums of at
+most 1e5 terms in two orders), the verdicts exactly, identical finite inputs
+give exactly 0 and an inf or a NaN a NaN numerator; the kernel's grid
+layout (``tamper_layout``) covers every element exactly once."""
 import ast
+import importlib.util
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -22,6 +26,7 @@ import jax
 from repro.core.split import message_stats as jax_message_stats
 from repro.kernels import ops as jops
 from repro.kernels.ref import tamper_sums_reference
+from repro.kernels.tamper_check import tamper_check_sums as jax_tamper_check_sums
 from repro_torch.kernels import build as tbuild
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import quant_exchange as tqx
@@ -140,15 +145,113 @@ def test_tamper_sums_and_distance_match_reference(case):
     want = np.stack([np.asarray(tamper_sums_reference(jnp.asarray(a), jnp.asarray(b)))
                      for a, b in zip(ref, recv)])
     np.testing.assert_allclose(sums.numpy(), want, rtol=1e-6, atol=0)
-    dist = tops.tamper_distance(torch.from_numpy(ref), torch.from_numpy(recv))
-    jdist = jax.vmap(lambda a, b: jops.tamper_distance(a, b, interpret=True))(
-        jnp.asarray(ref), jnp.asarray(recv))
-    np.testing.assert_allclose(dist.numpy(), np.asarray(jdist), rtol=1e-6, atol=0)
+    jdist = np.asarray(jax.vmap(lambda a, b: jops.tamper_distance(a, b, interpret=True))(
+        jnp.asarray(ref), jnp.asarray(recv)))
+    for dist in (tops.tamper_distance(torch.from_numpy(ref), torch.from_numpy(recv)),
+                 ttc.tamper_distance_plain(torch.from_numpy(ref), torch.from_numpy(recv))):
+        np.testing.assert_allclose(dist.numpy(), jdist, rtol=1e-6, atol=0)
+    # the verify stage's verdicts: the reference's dists <= f32(tol)
+    passed, dist = tops.tamper_verdict(torch.from_numpy(ref), torch.from_numpy(recv), 1e-4)
+    assert passed.dtype == torch.bool
+    np.testing.assert_array_equal(passed.numpy(), jdist <= np.float32(1e-4))
+    np.testing.assert_allclose(dist.numpy(), jdist, rtol=1e-6, atol=0)
     # the (N, D) form of one candidate gives the same sums and distance
     one = ttc.tamper_check_sums_plain(torch.from_numpy(ref[0]), torch.from_numpy(recv[0]))
     np.testing.assert_allclose(one.numpy(), want[0], rtol=1e-6, atol=0)
     if case == "tampered":
         assert dist[1] > 1e-4 and dist[0] == 0.0 and dist[2] == 0.0
+        assert passed.tolist() == [True, False, True]
+
+
+def test_tamper_aliased_inf_and_nan_give_a_nan_numerator():
+    """ref is recv (the fused round's aliased call): where a candidate holds
+    an inf or a NaN, x - x is NaN, so the numerator and the distance are
+    NaN and the candidate fails, as in the Pallas kernel; the others give
+    exactly 0."""
+    ref, _ = _activations("batch4")
+    ref[1, 3, 4], ref[2, 0, 0] = np.inf, np.nan
+    t = torch.from_numpy(ref)
+    sums = ttc.tamper_check_sums_plain(t, t)
+    jsums = np.stack([np.asarray(jax_tamper_check_sums(jnp.asarray(a), jnp.asarray(a),
+                                                       block_n=32, interpret=True))
+                      for a in ref])
+    assert np.isnan(jsums[1:3, 0]).all() and (jsums[[0, 3], 0] == 0).all()
+    np.testing.assert_array_equal(np.isnan(sums[:, 0].numpy()), np.isnan(jsums[:, 0]))
+    np.testing.assert_allclose(sums.numpy(), jsums, rtol=1e-6, atol=0)
+    jdist = np.asarray(jax.vmap(lambda a: jops.tamper_distance(a, a, interpret=True))(
+        jnp.asarray(ref)))
+    passed, dist = tops.tamper_verdict(t, t, 1e-4)
+    np.testing.assert_array_equal(np.isnan(dist.numpy()), np.isnan(jdist))
+    assert passed.tolist() == [True, False, False, True]
+    assert torch.equal(ttc.distance_from_sums(sums)[[0, 3]], torch.zeros(2))
+
+
+def _chip_smoke():
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_kernels", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _cover(n_elem: int, p: int, chunk: int, aligned: bool) -> np.ndarray:
+    """How often csrc/tamper_check.cu's blocks of one candidate read each
+    element: block b takes [b * chunk, min((b + 1) * chunk, n)); where its
+    start is 16-byte aligned, thread t reads vector i = t + T (u + U k)
+    (u < U) of its whole vectors, then every thread the scalar tail from t
+    in steps of T."""
+    t_, u_ = ttc.TAMPER_THREADS, ttc.TAMPER_UNROLL
+    counts = np.zeros(n_elem, dtype=np.int64)
+    for b in range(p):
+        start, end = b * chunk, min((b + 1) * chunk, n_elem)
+        tail = start
+        if aligned:
+            nvec = (end - start) // 4
+            k = np.arange(-(-nvec // (t_ * u_)))
+            i = (np.arange(t_)[:, None, None]
+                 + t_ * (np.arange(u_)[None, :, None] + u_ * k[None, None, :])).ravel()
+            i = i[i < nvec]
+            np.add.at(counts, (start + 4 * i[:, None] + np.arange(4)).ravel(), 1)
+            tail = start + 4 * nvec
+        np.add.at(counts, np.arange(tail, end), 1)
+    return counts
+
+
+@pytest.mark.parametrize("sms", [132, 114, 78])
+@pytest.mark.parametrize("shape", _chip_smoke().TAMPER_SHAPES + ((3, 7, 5), (7, 1001, 3),
+                                                                (13, 64, 256), (1, 3, 1)),
+                         ids=lambda s: "x".join(map(str, s)))
+def test_tamper_layout_covers_every_element_once(shape, sms):
+    """``tamper_layout`` (the launcher's Python copy of the grid sizing):
+    chunks of a multiple of 4 elements that P chunks just cover; every SM
+    the same number of blocks (P * R a multiple of the SM count, at least
+    TAMPER_BLOCKS_PER_SM an SM) unless an input is too small to spread; and
+    the kernel's loops read each element once, with aligned bases and
+    without."""
+    r, n_elem = shape[0], int(np.prod(shape[1:]))
+    p, chunk = ttc.tamper_layout(r, n_elem, sms)
+    assert chunk % 4 == 0 and chunk >= ttc.TAMPER_MIN_CHUNK
+    assert p * chunk >= n_elem > (p - 1) * chunk
+    if chunk > ttc.TAMPER_MIN_CHUNK:
+        assert (p * r) % sms == 0 and p * r >= ttc.TAMPER_BLOCKS_PER_SM * sms
+    if n_elem <= 1 << 20:
+        for aligned in (True, False):
+            assert (_cover(n_elem, p, chunk, aligned) == 1).all(), aligned
+
+
+def test_tamper_layout_at_the_cifar_round():
+    """(5, 3000, 256) on 132 SMs: 132 chunks of 5,820 elements a candidate,
+    660 blocks, 5 an SM."""
+    assert ttc.tamper_layout(5, 3000 * 256, 132) == (132, 5820)
+
+
+def test_tamper_constants_equal_the_source():
+    text = (tbuild.CSRC / "tamper_check.cu").read_text()
+    for const, value in (("kThreads", ttc.TAMPER_THREADS), ("kUnroll", ttc.TAMPER_UNROLL)):
+        assert re.findall(rf"constexpr int {const} = (\d+);", text) == [str(value)], const
+    assert "kMinChunk = static_cast<int64_t>(kThreads) * 4 * kUnroll;" in text
+    assert ttc._CONSTANTS == {"kThreads": ttc.TAMPER_THREADS, "kUnroll": ttc.TAMPER_UNROLL,
+                              "kMinChunk": ttc.TAMPER_THREADS * 4 * ttc.TAMPER_UNROLL}
 
 
 def test_tamper_distance_identical_is_exactly_zero():
@@ -157,6 +260,7 @@ def test_tamper_distance_identical_is_exactly_zero():
     t = torch.from_numpy(ref)
     assert torch.equal(ttc.tamper_check_sums_plain(t, t)[:, 0], torch.zeros(4))
     assert torch.equal(tops.tamper_distance(t, t), torch.zeros(4))
+    assert torch.equal(ttc.tamper_distance_plain(t, t), torch.zeros(4))
     assert float(tops.tamper_distance(t[0], t[0])) == 0.0
 
 
@@ -164,6 +268,8 @@ def test_tamper_launcher_refuses_cpu_tensors_and_bad_shapes():
     x = torch.zeros((2, 4, 8))
     with pytest.raises(ValueError, match="CUDA"):
         ttc.tamper_check_sums(x, x)
+    with pytest.raises(ValueError, match="CUDA"):
+        ttc.tamper_check(x, x, 1e-4)
     with pytest.raises(ValueError, match="differ"):
         ttc.tamper_check_sums_plain(x, x[:1])
 

@@ -133,6 +133,6 @@ def test_unported_paths_raise(port):
                dict(checkpoint_path="ckpt"), dict(telemetry=object())):
         with pytest.raises(NotImplementedError):
             tcore.run_pigeon(module, data, pcfg, device="cpu", **kw)
-    for driver in (tcore.run_vanilla_sl, tcore.run_splitfed, tcore.run_pigeon_sweep):
+    for driver in (tcore.run_pigeon_sweep,):
         with pytest.raises(NotImplementedError):
             driver(module, data, pcfg)

@@ -288,10 +288,23 @@ def test_train_cli_on_the_cpu(capsys):
     assert "round 0: selected=" in out and "done: pigeon+ rounds=1" in out and "(CPU)" in out
 
 
+@pytest.mark.parametrize("flags,want", [
+    (["--protocol", "vanilla"], "round 1: train_loss="),
+    (["--protocol", "sfl"], "round 1: selected="),
+    (["--protocol", "sfl", "--engine", "batched"], "round 1: selected="),
+    (["--protocol", "vanilla", "--arch", "qwen3-8b", "--smoke", "--batch", "4"],
+     "round 1: train_loss=")])
+def test_train_cli_runs_the_baselines(flags, want, capsys):
+    ttrain.main(["--device", "cpu", "--rounds", "2", "--local-steps", "2",
+                 "--attack", "label_flip", "--malicious", "1",
+                 *(["--task", "mnist"] if "--arch" not in flags else []), *flags])
+    out = capsys.readouterr().out
+    assert want in out and f"done: {flags[1]} rounds=2" in out and "(CPU)" in out
+
+
 @pytest.mark.parametrize("flags,match", [
-    (["--protocol", "vanilla"], "item 5"), (["--protocol", "sfl"], "item 5"),
-    (["--trace", "t.jsonl"], "item 8"), (["--profile-dir", "p"], "item 8"),
-    (["--block", "2"], "item 8"), (["--compile-cache", "c"], "no counterpart")])
+    (["--trace", "t.jsonl"], "item 3"), (["--profile-dir", "p"], "item 3"),
+    (["--block", "2"], "item 3"), (["--compile-cache", "c"], "no counterpart")])
 def test_train_cli_names_what_is_not_ported(flags, match):
     with pytest.raises(NotImplementedError, match=match):
         ttrain.main(["--device", "cpu", *flags])
