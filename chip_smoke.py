@@ -89,6 +89,16 @@ from the repository root.  Phases, in order; any failure exits non-zero:
      all 20 clients' messages in one call), exchange bytes, SplitFed's comm
      equal across its runs and its selections on both engines, seconds a
      round;
+  2d. multi-round execution on the batched main path (2b's configuration,
+     T = 5, eval_every 5): block 1 and 4, each with prefetch 0 and 1, and a
+     repeat, under the main path's cuDNN (the same decisions; the losses'
+     spread and test_acc printed), then the four under deterministic cuDNN
+     (decisions and test_acc equal, losses within rtol 1e-6); 800 B2, 800
+     B3 and 5 B1 launches in each, ``RoundRunner.accept_block`` under
+     sync-debug "error", one ``block.fetch`` span a block; seconds a round,
+     span totals, peak memory; resume (T = 2 in blocks of 2, resumed to 4,
+     equal to the uninterrupted run); ``launch.train --trace --profile-dir``
+     on the card (its provenance names the card and its power limit);
   3. the MNIST split CNN at Table II sizes, fp8-e4m3 wire, argmin, gradient
      attack;
   4. the same tiny runs on the CPU and on the card, from the same init, on
@@ -1579,6 +1589,239 @@ def phase_baselines(main):
     return out
 
 
+#: phase 2d's four runs of the batched engine: (block, prefetch)
+MULTIROUND_RUNS = ((1, 0), (1, 1), (4, 0), (4, 1))
+MULTIROUND_T = 5                 # eval_every 5: rounds 0 and 4 are sync rounds
+MULTIROUND_RTOL = 1e-6           # floats across the runs under deterministic cuDNN
+
+
+def _span_totals(sink) -> dict:
+    """{span name: [count, seconds]} over a MemorySink's spans."""
+    out = {}
+    for e in sink.of("span"):
+        n, s = out.get(e["name"], (0, 0.0))
+        out[e["name"]] = (n + 1, s + e["dur_s"])
+    return {k: [n, round(v, 4)] for k, (n, v) in sorted(out.items())}
+
+
+#: the History fields phase 2d holds exactly: the protocol's decisions
+MULTIROUND_DECISIONS = ("round", "clusters", "selected", "detections", "accepted",
+                        "selected_honest", "comm")
+
+
+def _multiround_compare(ref, hist, exact=MULTIROUND_DECISIONS):
+    """Phase 2d's comparison of two Histories: (the fields of ``exact`` that
+    differ, as messages; the losses' largest relative difference, 0.0 when
+    bit-equal; the number of rounds whose test_acc differs)."""
+    import numpy as np
+    if len(ref.rounds) != len(hist.rounds):
+        return [f"{len(hist.rounds)} rounds, want {len(ref.rounds)}"], float("inf"), 0
+    diffs, worst, acc = [], 0.0, 0
+    for ra, rb in zip(ref.rounds, hist.rounds):
+        diffs += [f"round {ra['round']}: {k} {rb.get(k)} != {ra.get(k)}"
+                  for k in exact if ra.get(k) != rb.get(k)]
+        acc += ra.get("test_acc") != rb.get("test_acc")
+        for k in ("val_losses", "train_losses"):
+            a, b = np.asarray(ra[k], np.float64), np.asarray(rb[k], np.float64)
+            worst = max(worst, float(np.max(np.abs(a - b) / np.abs(a))))
+    return diffs, worst, acc
+
+
+class _deterministic_cudnn:
+    """cuDNN restricted to deterministic algorithms inside the block."""
+
+    def __enter__(self):
+        import torch
+        self.saved = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+
+    def __exit__(self, *exc):
+        import torch
+        torch.backends.cudnn.deterministic = self.saved
+
+
+def phase_multiround(main):
+    """Phase 2d: multi-round execution on the batched main path (phase 2b's
+    configuration, T = 5, eval_every = 5).  Four runs — block 1 and 4, each
+    with prefetch 0 and 1 — and a repeat of the first, under the main path's
+    cuDNN settings: each makes T*M_bar*E B2 and B3 launches and T B1
+    launches, every RoundRunner.accept_block runs under sync-debug "error",
+    a block run makes one block.fetch span a block, and all make the same
+    decisions (clusters, selections, detections, acceptance, comm); their
+    losses' spread and test_acc are printed (cuDNN's default algorithms need
+    not repeat bit for bit).  The four again under deterministic cuDNN: the
+    decisions and test_acc exactly, the losses within MULTIROUND_RTOL
+    (bit-equality reported).  Prints each
+    timed run's seconds a round, span totals and peak device memory.  Then
+    resume at Table II (deterministic cuDNN; T = 2 with block 2 and
+    checkpoint_every 2, resumed to T = 4: the tail equals an uninterrupted
+    T = 4 run), and a --trace/--profile-dir run of launch/train.py on the
+    card (provenance names the card and its power limit, the JSONL reads
+    back, the profile directory holds a trace)."""
+    import dataclasses
+    import os
+    import tempfile
+
+    import torch
+    from repro_torch.core import run_pigeon
+    from repro_torch.core.runner import RoundRunner
+    from repro_torch.data import plan_blocks
+    from repro_torch.kernels import build
+    from repro_torch.telemetry import MemorySink, Telemetry, read_jsonl
+
+    data, cfg, module, pcfg, kw = main
+    pcfg = dataclasses.replace(pcfg, T=MULTIROUND_T, eval_every=MULTIROUND_T)
+    m_bar = pcfg.M // pcfg.R
+    want = want_launches(quant_dequant=pcfg.T * m_bar * pcfg.E,
+                         quant_dequant_stats=pcfg.T * m_bar * pcfg.E,
+                         tamper_check_sums=pcfg.T)
+    accept_block = RoundRunner.accept_block
+    blocks = []
+
+    def strict_accept_block(self, params, block_inputs, val):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = accept_block(self, params, block_inputs, val)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        blocks.append(len(block_inputs))
+        return out
+
+    def run(name, block, prefetch):
+        sink = MemorySink()
+        blocks.clear()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        hist = run_pigeon(module, data, pcfg, engine="batched", block=block,
+                          prefetch=prefetch, telemetry=Telemetry(sinks=(sink,)), **kw)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dict(build.LAUNCHES)
+        check(launches == want, f"phase2d {name}: launches {launches}, want {want}")
+        spans = _span_totals(sink)
+        segments = plan_blocks(0, pcfg.T, block,
+                               lambda t: t % pcfg.eval_every == 0 or t == pcfg.T - 1)
+        if block > 1:
+            check(blocks == [k for _, k in segments],
+                  f"phase2d {name}: accept_block ran blocks {blocks}, want "
+                  f"{[k for _, k in segments]}")
+            check(spans["block.fetch"][0] == len(segments),
+                  f"phase2d {name}: {spans['block.fetch'][0]} block.fetch spans, want one "
+                  f"a block ({len(segments)})")
+        else:
+            check(not blocks, f"phase2d {name}: accept_block ran at block 1")
+        rec = dict(seconds_per_round=seconds / pcfg.T, seconds=seconds,
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9, spans=spans)
+        log(f"phase2d {name}: {pcfg.T} rounds in {seconds:.3f} s "
+            f"({seconds / pcfg.T:.3f} s/round, warm); peak {rec['peak_gb']:.2f} GB; "
+            f"B2/B3/B1 launches {launches['quant_dequant']}/"
+            f"{launches['quant_dequant_stats']}/{launches['tamper_check_sums']}; spans "
+            f"[count, seconds] {spans}")
+        return hist, rec
+
+    run_pigeon(module, data, dataclasses.replace(pcfg, T=1), engine="batched", **kw)
+    torch.cuda.synchronize()                   # warm: the runs below start alike
+    out, hists, det = {}, {}, {}
+    RoundRunner.accept_block = strict_accept_block
+    try:
+        for block, prefetch in MULTIROUND_RUNS + ((1, 0),):
+            name = f"block{block}_prefetch{prefetch}"
+            name += "_repeat" if name in out else ""
+            hists[name], out[name] = run(name, block, prefetch)
+        with _deterministic_cudnn():
+            for block, prefetch in MULTIROUND_RUNS:
+                name = f"block{block}_prefetch{prefetch}"
+                det[name], out[name]["deterministic"] = run(f"{name} deterministic",
+                                                            block, prefetch)
+    finally:
+        RoundRunner.accept_block = accept_block
+    # the main path's cuDNN: the decisions exactly; the losses' spread and
+    # test_acc reported (cuDNN's default algorithms need not repeat bit for
+    # bit: the repeat shows the spread of one mode run twice).  Deterministic
+    # cuDNN: everything exactly, test_acc included, losses within rtol.
+    found = {}
+    for label, runs, exact in (("", hists, MULTIROUND_DECISIONS),
+                               (" deterministic", det, MULTIROUND_DECISIONS + ("test_acc",))):
+        ref = runs["block1_prefetch0"]
+        for name, hist in runs.items():
+            diffs, worst, acc = _multiround_compare(ref, hist, exact)
+            found[name + label] = (diffs, worst)
+            rec = out[name]["deterministic"] if label else out[name]
+            rec.update(max_rel_diff=worst, test_acc_rounds_differing=acc)
+            log(f"phase2d {name}{label} vs block1_prefetch0{label}: losses' largest "
+                f"relative difference {worst!r} (0.0: bit-equal), test_acc differs in "
+                f"{acc} of its evaluated rounds, decisions differ: {diffs}")
+    for r in hists["block1_prefetch0"].rounds:
+        log(f"phase2d round {r['round']}: selected={r['selected']} "
+            f"accepted={r['accepted']} detections={r['detections']} "
+            f"test_acc={r.get('test_acc')}")
+    for name, (diffs, worst) in found.items():
+        check(not diffs, f"phase2d {name}: {diffs}")
+        check(not name.endswith("deterministic") or worst <= MULTIROUND_RTOL,
+              f"phase2d {name}: losses differ by {worst} > rtol {MULTIROUND_RTOL}")
+    log(f"phase2d: the runs agree in every decision (and, under deterministic cuDNN, "
+        f"in test_acc and the losses within rtol {MULTIROUND_RTOL}); seconds_per_round "
+        f"{ {n: round(v['seconds_per_round'], 3) for n, v in out.items()} }, "
+        f"deterministic { {n: round(v['deterministic']['seconds_per_round'], 3) for n, v in out.items() if 'deterministic' in v} }")
+
+    # resume at Table II: T = 2 in blocks of 2 with a checkpoint, resumed to T = 4
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp, _deterministic_cudnn():
+        path = os.path.join(tmp, "ck")
+        full_cfg = dataclasses.replace(pcfg, T=4)
+        full = run_pigeon(module, data, full_cfg, engine="batched", **kw)
+        run_pigeon(module, data, dataclasses.replace(pcfg, T=2), engine="batched", block=2,
+                   checkpoint_path=path, checkpoint_every=2, **kw)
+        t0 = time.perf_counter()
+        resumed = run_pigeon(module, data, full_cfg, engine="batched", block=2,
+                             checkpoint_path=path, checkpoint_every=2, resume=True, **kw)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        diffs, worst, _ = _multiround_compare(type(full)(rounds=full.rounds[2:]), resumed,
+                                              MULTIROUND_DECISIONS + ("test_acc",))
+        out["resume"] = dict(max_rel_diff=worst, seconds=seconds)
+    check(not diffs and worst <= MULTIROUND_RTOL,
+          f"phase2d resume: the tail differs from the uninterrupted run: {diffs}, losses "
+          f"by {worst}")
+    log(f"phase2d resume: T=2 (block 2, checkpoint_every 2) resumed to T=4 equals the "
+        f"uninterrupted run's rounds 2-3 (deterministic cuDNN; losses' largest relative "
+        f"difference {worst!r})")
+
+    # the launch script's trace and profile on the card
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        trace, prof = os.path.join(tmp, "run.jsonl"), os.path.join(tmp, "prof")
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", "--task", "cifar10",
+               "--smoke", "--protocol", "pigeon", "--engine", "batched", "--block", "2",
+               "--trace", trace, "--profile-dir", prof]
+        env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600, env=env,
+                              cwd=ROOT)
+        check(proc.returncode == 0, f"phase2d train --trace exited {proc.returncode}: "
+                                    f"{proc.stderr[-2000:]}")
+        events = read_jsonl(trace)
+        stamp = events[0].get("provenance", {})
+        card = card_line()
+        gpus = stamp.get("gpus") or []
+        check(events[0]["event"] == "run_start" and gpus
+              and f"{gpus[0]['name']}, {gpus[0]['power_limit']}" == card
+              and stamp.get("device_kind") == torch.cuda.get_device_name(0),
+              f"phase2d trace: run_start provenance {stamp} does not name the card "
+              f"({card})")
+        rounds = [e for e in events if e["event"] == "round"]
+        check([e["t"] for e in rounds] == list(range(5)),
+              f"phase2d trace: round events {[e['t'] for e in rounds]}")
+        files = os.listdir(prof) if os.path.isdir(prof) else []
+        check(len(files) == 1 and files[0].endswith(".json"),
+              f"phase2d profile dir holds {files}")
+        out["train_trace"] = dict(events=len(events), profile_files=files,
+                                  seconds=time.perf_counter() - t0)
+    log(f"phase2d train --trace --profile-dir: {len(events)} events read back, "
+        f"provenance names {gpus}, profile {files}")
+    return out
+
+
 def phase_mnist():
     from repro_torch.core import GRADIENT, Attack, ProtocolConfig, from_cnn
     from repro_torch.data import build_image_task
@@ -2091,10 +2334,10 @@ def _verify_stage_ops(main):
     verify = RoundRunner._verify_passed
     found = []
 
-    def profiled(self, vaux):
+    def profiled(self, new_p, vaux, val):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            out = verify(self, vaux)
+            out = verify(self, new_p, vaux, val)
             torch.cuda.synchronize()
         found.extend(ev for ev in prof.key_averages() if str(ev.device_type).endswith("CUDA"))
         return out
@@ -2538,6 +2781,7 @@ def main() -> None:
     seq_hist, seq_launches, s_per_round = phase_cifar(main_path)
     launches, b_per_round = phase_cifar_batched(main_path, seq_hist, s_per_round)
     baselines = phase_baselines(main_path)
+    multiround = phase_multiround(main_path)
     phase_mnist()
     phase_cpu_vs_card()
     phase_lm_cpu_vs_card()
@@ -2692,6 +2936,7 @@ def main() -> None:
         entries.append(entry)
     log(f"phase2 seconds_per_round={s_per_round:.3f}; phase2b (batched) "
         f"seconds_per_round={b_per_round:.3f}; phase2c baselines {baselines}; "
+        f"phase2d multiround {multiround}; "
         f"phase6 serve {serve}; phase7 train {train}; "
         f"phase8 rounds {rounds}; phase9 xlstm {xlstm}")
     log(json.dumps({"kernels": entries}))

@@ -73,8 +73,8 @@ class AttackVec:
         return AttackVec(**{name: fn(getattr(self, name)) for name in LANES},
                          host_code=host_fn(self.host_code))
 
-    def to(self, device) -> "AttackVec":
-        return self._map(lambda a: a.to(device), lambda h: h)
+    def to(self, device, non_blocking: bool = False) -> "AttackVec":
+        return self._map(lambda a: a.to(device, non_blocking=non_blocking), lambda h: h)
 
     def client(self, j: int) -> "AttackVec":
         """The ``(R,)`` lanes of client position ``j`` of every cluster."""

@@ -21,17 +21,24 @@ every client of every cluster trains at once, as one lane of an (R *
 M_bar)-stacked model, from the cluster's incoming theta, and the
 ``combine`` hook (FedAvg) averages each cluster's M_bar lanes into its
 model before validation.
+
+Round blocks: :func:`assemble_block` gathers K rounds' batches into one
+``(K, R, M_bar, E, B, ...)`` host buffer (one host-to-device copy a block),
+consuming the streams exactly as K per-round assemblies would, and
+:func:`pigeon_block_accept` / :func:`splitfed_block_accept` run the K
+rounds through ``RoundRunner.accept_block`` with one fetch a block.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Sequence, Tuple
-
 import dataclasses
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..adversary import ThreatModel
+from ..telemetry import NULL_SESSION
+from .clustering import make_clusters
 from .protocol import (ClientData, CommMeter, ProtocolConfig, _count_params,
                        account_client_turn, account_handoff_recheck,
                        round_client_seeds, sample_batch_idx)
@@ -47,35 +54,66 @@ from .split import (SplitModule, _stacked, client_update_vec_impl,
 
 def assemble_round_batches(rng: np.random.Generator, data: ClientData,
                            clusters: Sequence[Sequence[int]],
-                           pcfg: ProtocolConfig, device: torch.device
-                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+                           pcfg: ProtocolConfig, device: Optional[torch.device],
+                           out: Optional[Tuple[np.ndarray, np.ndarray]] = None):
     """Sample every client's (E, B) mini-batches for the round, consuming the
     numpy RNG in the sequential engine's order (cluster-major, then client),
     gathered straight into one (R, M_bar, E, B, ...) host buffer and moved
-    to ``device`` in one copy."""
+    to ``device`` in one copy.  ``out=(xs, ys)`` gathers into those host
+    buffers instead (views of a block's buffer, pinned staging) and returns
+    them unmoved."""
     r, m_bar = len(clusters), len(clusters[0])
-    xs = np.empty((r, m_bar, pcfg.E, pcfg.B) + data.x.shape[2:], dtype=data.x.dtype)
-    ys = np.empty((r, m_bar, pcfg.E, pcfg.B) + data.y.shape[2:], dtype=data.y.dtype)
+    if out is None:
+        xs = np.empty((r, m_bar, pcfg.E, pcfg.B) + data.x.shape[2:], dtype=data.x.dtype)
+        ys = np.empty((r, m_bar, pcfg.E, pcfg.B) + data.y.shape[2:], dtype=data.y.dtype)
+    else:
+        xs, ys = out
     for i, cluster in enumerate(clusters):
         for j, client in enumerate(cluster):
             idx = sample_batch_idx(rng, data.x[client].shape[0], pcfg.E, pcfg.B)
             np.take(data.x[client], idx, axis=0, out=xs[i, j])
             np.take(data.y[client], idx, axis=0, out=ys[i, j])
+    if out is not None:
+        return xs, ys
     return torch.from_numpy(xs).to(device), torch.from_numpy(ys).to(device)
 
 
 def assemble_round(rng: np.random.Generator, seed_gen: torch.Generator,
                    data: ClientData, clusters: Sequence[Sequence[int]],
                    pcfg: ProtocolConfig, tm: ThreatModel, t: int,
-                   device: torch.device):
+                   device: Optional[torch.device],
+                   out: Optional[Tuple[np.ndarray, np.ndarray]] = None):
     """One round's payload ``(xs, ys, avec, seeds)``: the stacked batches and
     AttackVec on ``device``, and the (R, M_bar) host array of per-turn noise
     seeds (:func:`~repro_torch.core.protocol.round_client_seeds`).  The one
-    copy of the stream consumption order of the batched engine."""
-    xs, ys = assemble_round_batches(rng, data, clusters, pcfg, device)
+    copy of the stream consumption order of the batched engine: the
+    synchronous path, the round feeder's thread and the block assembler all
+    call it.  With ``out`` the batches land in those host buffers and
+    nothing moves (the AttackVec stays on the CPU)."""
+    xs, ys = assemble_round_batches(rng, data, clusters, pcfg, device, out=out)
     seeds = round_client_seeds(seed_gen, clusters)
-    avec = tm.attack_vec_for_clusters(clusters, t).to(device)
-    return xs, ys, avec, seeds
+    avec = tm.attack_vec_for_clusters(clusters, t)
+    return xs, ys, avec if out is not None else avec.to(device), seeds
+
+
+def staged_round(stager, rng: np.random.Generator, seed_gen: torch.Generator,
+                 data: ClientData, clusters: Sequence[Sequence[int]],
+                 pcfg: ProtocolConfig, tm: ThreatModel, t: int):
+    """:func:`assemble_round` through a
+    :class:`~repro_torch.data.pipeline.DeviceStager`: the batches gathered
+    into its pinned buffers and copied without blocking; returns the
+    ``Staged`` payload the consumer adopts."""
+    r, m_bar = len(clusters), len(clusters[0])
+    xs, ys = stager.host_buffers(_batch_specs(data, pcfg, (r, m_bar)))
+    xs, ys, avec, seeds = assemble_round(rng, seed_gen, data, clusters, pcfg, tm, t,
+                                         None, out=(xs, ys))
+    return stager.copy(xs, ys, avec, (seeds,))
+
+
+def _batch_specs(data: ClientData, pcfg: ProtocolConfig, lead: Tuple[int, ...]):
+    tail = (pcfg.E, pcfg.B)
+    return (((*lead, *tail, *data.x.shape[2:]), data.x.dtype),
+            ((*lead, *tail, *data.y.shape[2:]), data.y.dtype))
 
 
 def _account_turns(meter: CommMeter, pcfg: ProtocolConfig, clusters, d_c: int,
@@ -93,17 +131,23 @@ def train_round_batched(module: SplitModule, theta, clusters, data: ClientData,
                         pcfg: ProtocolConfig, tm: ThreatModel, t: int,
                         rng: np.random.Generator, seed_gen: torch.Generator,
                         meter: CommMeter, d_c: int, x0: torch.Tensor,
-                        y0: torch.Tensor, with_stats: bool = False
-                        ) -> List[Dict[str, Any]]:
+                        y0: torch.Tensor, with_stats: bool = False, prefetched=None,
+                        telemetry=None) -> List[Dict[str, Any]]:
     """All R candidates of round t in one stacked pass, selection left to
     the host selector (``selection.select_host``, the param-tamper path; the
     default path is :func:`pigeon_round_accept`).  Each result holds a view
     into the stacked candidates; ``protocol.res_params`` / ``res_vacts``
-    take out only the ones the selector visits."""
-    payload = assemble_round(rng, seed_gen, data, clusters, pcfg, tm, t, x0.device)
-    (gs, ps), aux, vlosses, vacts = protocol_runner(
-        module, pcfg.lr, with_stats, quant=pcfg.comm.quant).candidates(
-        theta, payload, (x0, y0))
+    take out only the ones the selector visits.  ``prefetched`` is the
+    round's payload when the round feeder assembled it (the streams are
+    then already consumed, in this order)."""
+    tel = NULL_SESSION if telemetry is None else telemetry
+    payload = _payload(prefetched, tel, t, rng, seed_gen, data, clusters, pcfg, tm,
+                       x0.device)
+    with tel.span("round.step", round=t) as sp:
+        (gs, ps), aux, vlosses, vacts = protocol_runner(
+            module, pcfg.lr, with_stats, quant=pcfg.comm.quant).candidates(
+            theta, payload, (x0, y0))
+        sp.fence(vlosses)
     losses, stats = aux if with_stats else (aux, None)
     _account_turns(meter, pcfg, clusters, d_c, _count_params(theta[0]))
 
@@ -125,36 +169,61 @@ def pigeon_round_accept(module: SplitModule, theta, clusters, data: ClientData,
                         pcfg: ProtocolConfig, tm: ThreatModel, t: int,
                         rng: np.random.Generator, seed_gen: torch.Generator,
                         meter: CommMeter, d_c: int, x0: torch.Tensor,
-                        y0: torch.Tensor, policy):
+                        y0: torch.Tensor, policy, prefetched=None, telemetry=None):
     """The default batched round: training, validation and the whole
     acceptance cascade (policy score -> rank -> handoff verify -> commit) on
     the device, then the round's one fetch.  Returns ``(theta', record)``,
     theta' being theta's modules updated in place; ``record`` carries the
     History fields (val_losses / train_losses / selected / detections /
     accepted).  Only for threat models without handoff (param-tamper)
-    attacks: those draw noise per visited candidate on the host."""
+    attacks: those draw noise per visited candidate on the host.
+    ``prefetched`` as in :func:`train_round_batched`."""
     from ..selection import unpack_fetch
     if tm.has_param_tamper:
         raise ValueError("param-tamper threat models must use the host "
                          "selection cascade")
-    payload = assemble_round(rng, seed_gen, data, clusters, pcfg, tm, t, x0.device)
+    tel = NULL_SESSION if telemetry is None else telemetry
+    payload = _payload(prefetched, tel, t, rng, seed_gen, data, clusters, pcfg, tm,
+                       x0.device)
     runner = protocol_accept_runner(module, pcfg.lr, policy,
                                     pcfg.tamper_check, pcfg.tamper_tol,
                                     quant=pcfg.comm.quant)
-    theta, fetch = runner.accept(theta, payload, (x0, y0))
+    with tel.span("round.step", round=t) as sp:
+        theta, fetch = runner.accept(theta, payload, (x0, y0))
+        sp.fence(fetch)
     _account_turns(meter, pcfg, clusters, d_c, _count_params(theta[0]))
-
-    vlosses, tlosses, selected, detections, accepted = unpack_fetch(
-        fetch.cpu().numpy(), len(clusters))          # the round's one host sync
+    with tel.span("round.fetch", round=t):
+        vlosses, tlosses, selected, detections, accepted = unpack_fetch(
+            fetch.cpu().numpy(), len(clusters))      # the round's one host sync
     if pcfg.tamper_check:
-        # one R-recipient re-transmission per visited candidate, as the host
-        # cascade charges per visit (the failures + the accepted one)
         account_handoff_recheck(meter, pcfg, int(x0.shape[0]), d_c,
-                                detections + (1 if accepted else 0))
-    record = dict(val_losses=[float(v) for v in vlosses],
-                  train_losses=[float(v) for v in tlosses],
-                  selected=selected, detections=detections, accepted=accepted)
-    return theta, record
+                                visited_candidates(detections, accepted))
+    return theta, _record(vlosses, tlosses, selected, detections, accepted)
+
+
+def visited_candidates(detections: int, accepted: bool) -> int:
+    """The candidates the cascade inspected, each one R-recipient handoff
+    re-transmission as the host cascade charges it: the failures and the
+    accepted one."""
+    return detections + (1 if accepted else 0)
+
+
+def _record(vlosses, tlosses, selected, detections, accepted) -> Dict[str, Any]:
+    """The History fields of one fetched round."""
+    return dict(val_losses=[float(v) for v in vlosses],
+                train_losses=[float(v) for v in tlosses],
+                selected=selected, detections=detections, accepted=accepted)
+
+
+def _payload(prefetched, tel, t, rng, seed_gen, data, clusters, pcfg, tm, device):
+    """The round's payload: the feeder's (adopted onto the current stream)
+    or assembled here, inside a ``round.assemble`` span (SplitFed's payload
+    is the Pigeon round's)."""
+    from ..data.pipeline import DeviceStager
+    if prefetched is not None:
+        return DeviceStager.adopt(prefetched)
+    with tel.span("round.assemble", round=t):
+        return assemble_round(rng, seed_gen, data, clusters, pcfg, tm, t, device)
 
 
 def train_cluster_batched(module: SplitModule, theta, cluster, data: ClientData,
@@ -255,15 +324,19 @@ def splitfed_round_batched(module: SplitModule, theta, clusters, data: ClientDat
                            pcfg: ProtocolConfig, tm: ThreatModel, t: int,
                            rng: np.random.Generator, seed_gen: torch.Generator,
                            x0: torch.Tensor, y0: torch.Tensor,
-                           with_stats: bool = False) -> List[Dict[str, Any]]:
+                           with_stats: bool = False, prefetched=None,
+                           telemetry=None) -> List[Dict[str, Any]]:
     """Batched SplitFed round, selection left to the caller (the host
     path).  Each result holds a view into the stacked cluster models;
     ``protocol.res_params`` takes out only the selected one."""
-    payload = assemble_splitfed_round(rng, seed_gen, data, clusters, pcfg, tm, t,
-                                      x0.device)
-    (g_avg, p_avg), aux, vlosses, vacts = splitfed_runner(
-        module, pcfg.lr, with_stats, quant=pcfg.comm.quant).candidates(
-        theta, payload, (x0, y0))
+    tel = NULL_SESSION if telemetry is None else telemetry
+    payload = _payload(prefetched, tel, t, rng, seed_gen, data, clusters, pcfg, tm,
+                       x0.device)
+    with tel.span("round.step", round=t) as sp:
+        (g_avg, p_avg), aux, vlosses, vacts = splitfed_runner(
+            module, pcfg.lr, with_stats, quant=pcfg.comm.quant).candidates(
+            theta, payload, (x0, y0))
+        sp.fence(vlosses)
     vlosses = vlosses.cpu().numpy()
     stats = aux[1].cpu().numpy() if with_stats else None
     results = []
@@ -279,25 +352,127 @@ def splitfed_round_batched(module: SplitModule, theta, clusters, data: ClientDat
 def splitfed_round_accept(module: SplitModule, theta, clusters, data: ClientData,
                           pcfg: ProtocolConfig, tm: ThreatModel, t: int,
                           rng: np.random.Generator, seed_gen: torch.Generator,
-                          x0: torch.Tensor, y0: torch.Tensor, policy):
+                          x0: torch.Tensor, y0: torch.Tensor, policy,
+                          prefetched=None, telemetry=None):
     """SplitFed's default batched round: FedAvg per cluster and the policy
     selection cascade on the device, then the round's one fetch.  Returns
     ``(theta', record)`` like :func:`pigeon_round_accept` (``detections``
     always 0 and ``accepted`` always True: no handoff verify stage)."""
     from ..selection import unpack_fetch
-    payload = assemble_splitfed_round(rng, seed_gen, data, clusters, pcfg, tm, t,
-                                      x0.device)
+    tel = NULL_SESSION if telemetry is None else telemetry
+    payload = _payload(prefetched, tel, t, rng, seed_gen, data, clusters, pcfg, tm,
+                       x0.device)
     runner = splitfed_accept_runner(module, pcfg.lr, policy, quant=pcfg.comm.quant)
-    theta, fetch = runner.accept(theta, payload, (x0, y0))
-    vlosses, tlosses, selected, detections, accepted = unpack_fetch(
-        fetch.cpu().numpy(), len(clusters))          # the round's one host sync
-    record = dict(val_losses=[float(v) for v in vlosses],
-                  train_losses=[float(v) for v in tlosses],
-                  selected=selected, detections=detections, accepted=accepted)
-    return theta, record
+    with tel.span("round.step", round=t) as sp:
+        theta, fetch = runner.accept(theta, payload, (x0, y0))
+        sp.fence(fetch)
+    with tel.span("round.fetch", round=t):
+        fetched = unpack_fetch(fetch.cpu().numpy(), len(clusters))  # the one host sync
+    return theta, _record(*fetched)
 
 
-__all__ = ["assemble_round", "assemble_round_batches", "assemble_splitfed_round", "fedavg",
-           "pigeon_round_accept", "round_client_seeds", "splitfed_accept_runner",
-           "splitfed_round_accept", "splitfed_round_batched", "splitfed_round_spec",
-           "splitfed_runner", "train_cluster_batched", "train_round_batched"]
+# ---------------------------------------------------------------------------
+# round blocks: K host-assembled rounds, one fetch
+# ---------------------------------------------------------------------------
+
+def assemble_block(rng: np.random.Generator, seed_gen: torch.Generator,
+                   data: ClientData, pcfg: ProtocolConfig, tm: ThreatModel, t0: int,
+                   k: int, device: Optional[torch.device], out=None, stager=None):
+    """The payload of the block of rounds ``t0 .. t0+k-1``: for each round
+    in turn the cluster draw, then that round's :func:`assemble_round` —
+    exactly the per-round order, so after it the streams stand where K
+    per-round assemblies leave them (the fused path draws nothing after
+    assembly, so this is the end-of-block state a checkpoint stores) — with
+    every round's batches gathered into ONE ``(K, R, M_bar, E, B, ...)``
+    host buffer (per-round ``out=`` views), moved in one copy.
+
+    ``out=(xs_k, ys_k)`` gathers into the caller's buffers and returns the
+    rest raw (the K AttackVecs on the CPU, the seeds) without moving
+    anything; ``stager`` gathers into its pinned buffers and copies without
+    blocking (a ``Staged`` block the consumer adopts).  Returns
+    ``(clusters_k, block)`` with ``block = (xs_k, ys_k, avecs, seeds_k)``."""
+    m_bar = pcfg.M // pcfg.R
+    if out is not None:
+        xs_k, ys_k = out
+    elif stager is not None:
+        xs_k, ys_k = stager.host_buffers(_batch_specs(data, pcfg, (k, pcfg.R, m_bar)))
+    else:
+        (xshape, xdt), (yshape, ydt) = _batch_specs(data, pcfg, (k, pcfg.R, m_bar))
+        xs_k, ys_k = np.empty(xshape, xdt), np.empty(yshape, ydt)
+    clusters_k, avecs, seeds = [], [], []
+    for i in range(k):
+        clusters = make_clusters(rng, pcfg.M, pcfg.R)
+        _, _, avec, seed = assemble_round(rng, seed_gen, data, clusters, pcfg, tm, t0 + i,
+                                          None, out=(xs_k[i], ys_k[i]))
+        clusters_k.append(clusters)
+        avecs.append(avec)
+        seeds.append(seed)
+    seeds_k = np.stack(seeds)
+    if out is not None:
+        return clusters_k, (xs_k, ys_k, avecs, seeds_k)
+    if stager is not None:
+        return clusters_k, stager.copy(xs_k, ys_k, tuple(avecs), (seeds_k,))
+    return clusters_k, (torch.from_numpy(xs_k).to(device),
+                        torch.from_numpy(ys_k).to(device),
+                        tuple(a.to(device) for a in avecs), seeds_k)
+
+
+#: SplitFed's block is the Pigeon block (its round payload is the Pigeon
+#: round's)
+assemble_splitfed_block = assemble_block
+
+
+def block_rounds(block) -> List[Tuple]:
+    """The K per-round ``accept`` inputs of a block payload (views)."""
+    xs_k, ys_k, avecs, seeds_k = block
+    return [(xs_k[i], ys_k[i], avecs[i], seeds_k[i]) for i in range(len(avecs))]
+
+
+def _block_accept(runner, theta, clusters_k, t0: int, block, x0, y0, tel):
+    from ..data.pipeline import DeviceStager
+    from ..selection import unpack_block_fetch
+    k = len(clusters_k)
+    block = DeviceStager.adopt(block)
+    with tel.span("block.step", round=t0, k=k) as sp:
+        theta, fetches = runner.accept_block(theta, block_rounds(block), (x0, y0))
+        sp.fence(fetches)
+    with tel.span("block.fetch", round=t0, k=k):
+        fetched = fetches.cpu().numpy()              # the block's one host sync
+    return theta, [_record(*row) for row in unpack_block_fetch(fetched,
+                                                               len(clusters_k[0]))]
+
+
+def pigeon_block_accept(module: SplitModule, theta, clusters_k, pcfg: ProtocolConfig,
+                        tm: ThreatModel, t0: int, block, x0: torch.Tensor,
+                        y0: torch.Tensor, policy, telemetry=None):
+    """K consecutive fused acceptance rounds with one ``(K, 2R+3)`` fetch,
+    the block form of :func:`pigeon_round_accept`: ``(theta', records)``,
+    one History record a round.  No CommMeter accounting here: the driver
+    replays each round's charges from the records and ``clusters_k``.  The
+    same precondition as the per-round accept: no param-tamper families."""
+    if tm.has_param_tamper:
+        raise ValueError("param-tamper threat models must use the host "
+                         "selection cascade")
+    runner = protocol_accept_runner(module, pcfg.lr, policy, pcfg.tamper_check,
+                                    pcfg.tamper_tol, quant=pcfg.comm.quant)
+    return _block_accept(runner, theta, clusters_k, t0, block, x0, y0,
+                         NULL_SESSION if telemetry is None else telemetry)
+
+
+def splitfed_block_accept(module: SplitModule, theta, clusters_k, pcfg: ProtocolConfig,
+                          t0: int, block, x0: torch.Tensor, y0: torch.Tensor, policy,
+                          telemetry=None):
+    """SplitFed's round block: K FedAvg and selection-cascade rounds, one
+    fetch — the block form of :func:`splitfed_round_accept`."""
+    runner = splitfed_accept_runner(module, pcfg.lr, policy, quant=pcfg.comm.quant)
+    return _block_accept(runner, theta, clusters_k, t0, block, x0, y0,
+                         NULL_SESSION if telemetry is None else telemetry)
+
+
+__all__ = ["assemble_block", "assemble_round", "assemble_round_batches",
+           "assemble_splitfed_block", "assemble_splitfed_round", "block_rounds", "fedavg",
+           "pigeon_block_accept", "pigeon_round_accept", "round_client_seeds",
+           "splitfed_accept_runner", "splitfed_block_accept", "splitfed_round_accept",
+           "splitfed_round_batched", "splitfed_round_spec", "splitfed_runner",
+           "staged_round", "train_cluster_batched", "train_round_batched",
+           "visited_candidates"]

@@ -22,6 +22,14 @@ client turn draws its attack noise, step by step, from a generator on the
 run's device seeded with its slot's seed — so the two engines consume
 identical noise.  The host selector's handoff-tampering noise comes from a
 separate generator on the device.
+
+Multi-round execution (batched engine): ``prefetch`` assembles round t+1 on
+the round feeder's thread while the card runs round t, ``block=K`` runs up
+to K rounds with one fetch, and ``checkpoint_path``/``resume`` save and
+restore theta and all three random streams.  Each gives the History of the
+plain per-round run: the assembly consumes the streams in the same order,
+and the per-round records and CommMeter charges are replayed from the
+fetched vectors.
 """
 from __future__ import annotations
 
@@ -36,14 +44,13 @@ from torch import nn
 from .. import DeviceLike, resolve_device
 from ..adversary import HONEST, Attack, ThreatModel, resolve_threat_model
 from ..selection import host_score_context, resolve_policy, score_and_rank, select_host
+from ..telemetry import NULL_SESSION, Telemetry, resolve_telemetry
 from .clustering import cluster_is_honest, make_clusters
 from .comm import FLOAT_BYTES, CommConfig, message_bytes
 from .split import SplitModule, client_update, client_update_stats
 from .validation import validation_loss
 
 #: where the parts of the reference the port does not run yet will come from
-MULTI_ROUND_SLICE = "the multi-round slice (checkpoint/, telemetry/)"
-PIPELINE_SLICE = "the host-pipeline slice (data/pipeline.py RoundFeeder)"
 MULTI_CARD_SLICE = ("a multi-card slice (the cluster axis over several cards "
                     "with torch.distributed)")
 
@@ -69,6 +76,9 @@ class ProtocolConfig:
     eval_every: int = 1
     eval_batch: int = 500
     comm: CommConfig = CommConfig()
+    # observability (spans, sinks, profiler windows; see repro_torch.telemetry);
+    # None = off.  A driver's ``telemetry=`` argument takes precedence.
+    telemetry: Optional[Telemetry] = None
 
     @property
     def R(self) -> int:
@@ -316,22 +326,24 @@ def _train_round(module: SplitModule, theta, clusters, data: ClientData,
                  pcfg: ProtocolConfig, tm: ThreatModel, t: int,
                  rng: np.random.Generator, seed_gen: torch.Generator,
                  meter: CommMeter, d_c: int, x0: torch.Tensor, y0: torch.Tensor,
-                 with_stats: bool = False) -> List[Dict[str, Any]]:
+                 with_stats: bool = False, telemetry=None) -> List[Dict[str, Any]]:
     """Train all R clusters of round t from the same theta^t, one after
     another.  results[r] holds gamma/phi/vloss/vacts/cluster/train_loss (and
     msg_stats)."""
+    tel = NULL_SESSION if telemetry is None else telemetry
     seeds = round_client_seeds(seed_gen, clusters)
     results = []
-    for cluster, row in zip(clusters, seeds):
-        out = train_cluster(module, theta[0], theta[1], cluster, data, pcfg,
-                            tm, t, rng, row, meter, d_c, collect_stats=with_stats)
-        g, p, train_loss = out[:3]
-        vloss, vacts = validation_loss(module, g, p, x0, y0)
-        res = dict(gamma=g, phi=p, vloss=float(vloss), vacts=vacts,
-                   cluster=cluster, train_loss=train_loss)
-        if with_stats:
-            res["msg_stats"] = out[3]
-        results.append(res)
+    with tel.span("round.step", round=t):
+        for cluster, row in zip(clusters, seeds):
+            out = train_cluster(module, theta[0], theta[1], cluster, data, pcfg,
+                                tm, t, rng, row, meter, d_c, collect_stats=with_stats)
+            g, p, train_loss = out[:3]
+            vloss, vacts = validation_loss(module, g, p, x0, y0)
+            res = dict(gamma=g, phi=p, vloss=float(vloss), vacts=vacts,
+                       cluster=cluster, train_loss=train_loss)
+            if with_stats:
+                res["msg_stats"] = out[3]
+            results.append(res)
     return results
 
 
@@ -347,11 +359,9 @@ def _noise_generators(init_gen: torch.Generator, device: torch.device
             torch.Generator(device=device).manual_seed(seeds[1]))
 
 
-def _check_engine(engine: str, placement: str = "vmap", prefetch: int = 0,
-                  block: int = 1) -> None:
+def _check_engine(engine: str, placement: str = "vmap", prefetch: int = 0) -> None:
     """Validate the execution knobs as the reference does, then refuse the
-    ones the port does not run yet."""
-    from .runner import ROUND_BLOCK_SLICE
+    placement the port does not run."""
     if engine not in ENGINES:
         raise ValueError(f"engine={engine!r} must be one of {ENGINES}")
     if placement not in PLACEMENTS:
@@ -362,28 +372,129 @@ def _check_engine(engine: str, placement: str = "vmap", prefetch: int = 0,
     if prefetch > 0 and engine != "batched":
         raise ValueError(f"prefetch={prefetch} requires engine='batched' "
                          f"(the sequential engine assembles per client turn)")
-    if block < 1:
-        raise ValueError(f"block={block} must be >= 1")
-    if block > 1 and engine != "batched":
-        raise ValueError(f"block={block} requires engine='batched' (the "
-                         f"sequential engine cannot chain rounds)")
     if placement == "sharded":
         _not_ported('placement="sharded"', MULTI_CARD_SLICE)
-    if prefetch > 0:
-        _not_ported("prefetch", PIPELINE_SLICE)
-    if block > 1:
-        _not_ported("block", ROUND_BLOCK_SLICE)
+
+
+def check_block(block: int, engine: str = "batched", *, plus: bool = False,
+                has_param_tamper: bool = False, force_host_selection: bool = False,
+                eval_every: int = 1, checkpoint_path: Optional[str] = None,
+                checkpoint_every: int = 1) -> int:
+    """Validate the round-block knobs and return the block size that runs.
+
+    Impossible combinations raise.  Where round t+1's data depends on round
+    t's selection — Pigeon-SL+'s sub-rounds, param-tamper handoff noise, the
+    host cascade — the block is forced to 1 with a warning, so callers can
+    pass ``block=`` unconditionally (``prefetch`` falls back the same way).
+    ``eval_every=1`` and ``checkpoint_every=1`` make every round a sync
+    round: the block is kept, with a warning that it degrades to per-round
+    execution."""
+    import warnings
+    if block < 1:
+        raise ValueError(f"block={block} must be >= 1")
+    if checkpoint_every < 1:
+        raise ValueError(f"checkpoint_every={checkpoint_every} must be >= 1")
+    if block == 1:
+        return 1
+    if engine != "batched":
+        raise ValueError(f"block={block} requires engine='batched' (the sequential "
+                         f"engine runs one client turn at a time and cannot chain rounds)")
+    if plus:
+        warnings.warn(f"block={block} forced to 1: Pigeon-SL+ sub-rounds sample the "
+                      f"previous round's selected cluster, so round t+1's host "
+                      f"assembly cannot run before round t's selection", stacklevel=3)
+        return 1
+    if has_param_tamper:
+        warnings.warn(f"block={block} forced to 1: param-tamper threat models draw "
+                      f"handoff noise per visited candidate during host-side "
+                      f"selection, which is per-round", stacklevel=3)
+        return 1
+    if force_host_selection:
+        warnings.warn(f"block={block} forced to 1: the host-side cascade needs every "
+                      f"round's candidates on the host", stacklevel=3)
+        return 1
+    if eval_every == 1:
+        warnings.warn(f"block={block} degrades to per-round execution: eval_every=1 "
+                      f"makes every round an eval sync point — raise pcfg.eval_every "
+                      f"to let rounds fuse", stacklevel=3)
+    elif checkpoint_path is not None and checkpoint_every == 1:
+        warnings.warn(f"block={block} degrades to per-round execution: "
+                      f"checkpoint_every=1 checkpoints every round — raise "
+                      f"checkpoint_every to let rounds fuse", stacklevel=3)
+    return block
+
+
+def _stager(dev: torch.device, prefetch: int):
+    """The pinned staging of the feeder and block paths on a CUDA device
+    (``prefetch + 1`` slots); None on the CPU, where a payload is the host
+    buffer itself."""
+    if dev.type != "cuda":
+        return None
+    from ..data.pipeline import DeviceStager
+    return DeviceStager(dev, slots=prefetch + 1)
+
+
+def _eval_round(t: int, pcfg: ProtocolConfig) -> bool:
+    return t % pcfg.eval_every == 0 or t == pcfg.T - 1
+
+
+def _evaluate_into(rec, module, theta, data: ClientData, pcfg: ProtocolConfig, t: int,
+                   tel) -> None:
+    if _eval_round(t, pcfg):
+        with tel.span("round.eval", round=t):
+            rec["test_acc"] = evaluate(module, theta[0], theta[1], data.x_test,
+                                       data.y_test, pcfg.eval_batch)
+
+
+def _pigeon_record(t: int, clusters, tm: ThreatModel, meter: CommMeter,
+                   sel: Dict[str, Any]) -> Dict[str, Any]:
+    """One round's History record out of its selection outcome."""
+    return dict(
+        round=t,
+        clusters=clusters,
+        val_losses=sel["val_losses"],
+        train_losses=sel["train_losses"],
+        selected=sel["selected"],
+        accepted=sel["accepted"],
+        selected_honest=cluster_is_honest(clusters[sel["selected"]], tm.malicious),
+        honest_cluster_exists=any(cluster_is_honest(c, tm.malicious) for c in clusters),
+        detections=sel["detections"],
+        comm=dataclasses.asdict(meter),
+    )
+
+
+def _resume(checkpoint_path: str, theta, rng: np.random.Generator,
+            seed_gen: torch.Generator, param_gen: torch.Generator) -> int:
+    """Restore theta (in place) and the three streams from a checkpoint;
+    returns the first round still to run (0 with no checkpoint, and with a
+    corrupt one, after a warning)."""
+    import warnings
+    from ..checkpoint import (CorruptCheckpointError, load_checkpoint,
+                              restore_protocol_state, restore_pytree)
+    try:
+        _, meta = load_checkpoint(checkpoint_path)
+        if "rng_state" not in meta:
+            raise CorruptCheckpointError("no random-stream snapshot in its manifest")
+        restore_pytree(checkpoint_path, theta)
+        restore_protocol_state(rng, seed_gen, param_gen, meta)
+        return int(meta.get("round", -1)) + 1
+    except FileNotFoundError:
+        return 0
+    except CorruptCheckpointError as e:
+        warnings.warn(f"ignoring corrupt checkpoint {checkpoint_path!r} ({e}); "
+                      f"starting from round 0", stacklevel=3)
+        return 0
 
 
 def run_pigeon(module: SplitModule, data: ClientData, pcfg: ProtocolConfig,
                malicious: Optional[Set[int]] = None, attack: Attack = HONEST,
                plus: bool = False, *, engine: str = "sequential",
                placement: str = "vmap", prefetch: int = 0, block: int = 1,
-               threat_model: Optional[ThreatModel] = None,
+               checkpoint_every: int = 1, threat_model: Optional[ThreatModel] = None,
                selection="argmin", quant: Optional[str] = None,
                device: DeviceLike = None, verbose: bool = False,
                checkpoint_path: Optional[str] = None, resume: bool = False,
-               telemetry=None) -> History:
+               telemetry=None, _force_host_selection: bool = False) -> History:
     """Pigeon-SL (Algorithm 1): each round trains the R clusters from
     theta^t, validates them on the shared set, and runs the acceptance
     cascade (rank -> handoff check -> commit or roll back).
@@ -391,8 +502,9 @@ def run_pigeon(module: SplitModule, data: ClientData, pcfg: ProtocolConfig,
     * ``engine`` — ``"sequential"`` (one client turn at a time, host
       cascade) or ``"batched"`` (the R clusters as one stacked program; the
       whole cascade runs on the device and the round reads back one vector,
-      except for param-tamper threat models, which take the host cascade).
-      Both select the same clusters and count bit-identical messages.
+      except for param-tamper threat models, which take the host cascade,
+      as does ``_force_host_selection``).  Both select the same clusters and
+      count bit-identical messages.
     * ``placement`` — batched engine only: ``"vmap"`` (one card).
     * ``device`` — the CUDA card by default (raises without one); ``"cpu"``
       on request.
@@ -403,108 +515,252 @@ def run_pigeon(module: SplitModule, data: ClientData, pcfg: ProtocolConfig,
       policy instance.
     * ``plus`` — Pigeon-SL+: R-1 extra sub-rounds on the selected cluster
       after an accepted round.
-
-    ``placement="sharded"``, ``prefetch``, ``block``,
-    ``checkpoint_path``/``resume`` and ``telemetry``/``verbose`` are not
-    ported yet and raise."""
-    _check_engine(engine, placement, prefetch, block)
+    * ``prefetch`` — batched engine only: assemble up to ``prefetch``
+      rounds ahead on the round feeder's thread
+      (``data/pipeline.py::RoundFeeder``; on a CUDA card through pinned
+      staging buffers and a copy stream), consuming the streams in the
+      synchronous order.  Synchronous for Pigeon-SL+ and param-tamper
+      threat models, whose round t+1 depends on round t's selection.
+    * ``block`` — batched engine only: run up to ``block`` consecutive
+      rounds through ``RoundRunner.accept_block`` with one ``(K, 2R+3)``
+      fetch, the per-round History and CommMeter replayed from it.  Blocks
+      end at eval and checkpoint rounds; :func:`check_block` forces 1 where
+      rounds cannot chain.
+    * ``checkpoint_path`` / ``checkpoint_every`` / ``resume`` — after round
+      t with ``(t+1) % checkpoint_every == 0`` (and after the last), save
+      theta and the three random streams atomically; ``resume`` continues
+      from the last checkpoint on-stream, reproducing the uninterrupted run.
+      A corrupt checkpoint is skipped with a warning.
+    * ``telemetry`` — a :class:`~repro_torch.telemetry.Telemetry` config or
+      an open session (borrowed, not closed); overrides
+      ``pcfg.telemetry``.  ``verbose=True`` adds the console sink.  The
+      History is the same with it on or off.
+    """
+    _check_engine(engine, placement, prefetch)
     if engine == "batched":
         from .split import _stacked
         _stacked(module)                 # raises for a model with no stacked form
-    if checkpoint_path is not None or resume:
-        _not_ported("checkpoint_path/resume", MULTI_ROUND_SLICE)
-    if telemetry is not None or verbose:
-        _not_ported("telemetry/verbose", MULTI_ROUND_SLICE)
     dev = resolve_device(device)
     if quant is not None:
         pcfg = dataclasses.replace(pcfg, comm=CommConfig(quant=quant))
     policy = resolve_policy(selection)
     tm = resolve_threat_model(malicious, attack, threat_model)
+    block = check_block(block, engine, plus=plus, has_param_tamper=tm.has_param_tamper,
+                        force_host_selection=_force_host_selection,
+                        eval_every=pcfg.eval_every, checkpoint_path=checkpoint_path,
+                        checkpoint_every=checkpoint_every)
+    # The fused on-device cascade covers every message-level threat model;
+    # handoff (param-tamper) attacks draw their noise per visited candidate
+    # on the host, so they pin selection to the host cascade.
+    fused = engine == "batched" and not tm.has_param_tamper and not _force_host_selection
     rng = np.random.default_rng(pcfg.seed)
     init_gen = torch.Generator().manual_seed(pcfg.seed)
     theta = tuple(copy.deepcopy(m).to(dev) for m in module.init(init_gen))
     seed_gen, param_gen = _noise_generators(init_gen, dev)
+    start_round = 0
+    if resume and checkpoint_path is not None:
+        start_round = _resume(checkpoint_path, theta, rng, seed_gen, param_gen)
+    if start_round >= pcfg.T:
+        # the checkpoint already covers the last round: return its state
+        # rather than an empty History
+        import warnings
+        warnings.warn(f"resume: checkpoint {checkpoint_path!r} is at round "
+                      f"{start_round - 1} >= T-1 = {pcfg.T - 1}; nothing left to train "
+                      f"— returning the restored final state", stacklevel=2)
+        hist = History()
+        hist.rounds.append(dict(round=start_round - 1, resumed_terminal=True,
+                                test_acc=evaluate(module, theta[0], theta[1], data.x_test,
+                                                  data.y_test, pcfg.eval_batch)))
+        return hist
     x0 = torch.from_numpy(data.x0).to(dev)
     y0 = torch.from_numpy(data.y0).to(dev)
     d_o = data.x0.shape[0]
     d_cl = _count_params(theta[0])
     d_c = cut_width(module, theta[0], x0)
     hist = History()
-    # The fused on-device cascade covers every message-level threat model;
-    # handoff (param-tamper) attacks draw their noise per visited candidate
-    # on the host, so they pin selection to the host cascade.
-    fused = engine == "batched" and not tm.has_param_tamper
+    tel = resolve_telemetry(
+        telemetry if telemetry is not None else pcfg.telemetry, verbose=verbose,
+        run=f"pigeon{'+' if plus else ''}", engine=engine, placement=placement,
+        prefetch=prefetch, block=block, T=pcfg.T, M=pcfg.M, R=pcfg.R,
+        selection=policy.name, fused_selection=fused, device=str(dev))
+
+    def _ckpt_due(t: int) -> bool:
+        return checkpoint_path is not None and (
+            (t + 1) % checkpoint_every == 0 or t == pcfg.T - 1)
+
+    def _snapshot():
+        from ..checkpoint import protocol_state_metadata
+        return (protocol_state_metadata(rng, seed_gen, param_gen)
+                if checkpoint_path is not None else None)
+
+    def _checkpoint(t: int, snap) -> None:
+        if _ckpt_due(t):
+            from ..checkpoint import save_checkpoint
+            with tel.span("round.checkpoint", round=t):
+                save_checkpoint(checkpoint_path, theta,
+                                {"round": t, **(snap if snap is not None else _snapshot())})
+
+    if block > 1:
+        # Round blocks (check_block leaves only the fused path here): K
+        # rounds with one fetch, the records and CommMeter charges replayed
+        # per round.  Blocks end at sync rounds, since theta surfaces only
+        # after a block's last round; the K-round assembly goes through the
+        # feeder (block-indexed), so prefetch overlaps block b+1's assembly
+        # with block b on the card.
+        from ..data.pipeline import RoundFeeder, plan_blocks
+        from .engine import assemble_block, pigeon_block_accept, visited_candidates
+
+        segments = plan_blocks(start_round, pcfg.T, block,
+                               lambda t: _eval_round(t, pcfg) or _ckpt_due(t))
+        stager = _stager(dev, prefetch)
+
+        def _make_block(b):
+            t0, k = segments[b]
+            clusters_k, payload = assemble_block(rng, seed_gen, data, pcfg, tm, t0, k,
+                                                 dev, stager=stager)
+            # the fused path draws nothing after assembly: the streams'
+            # state now is the synchronous state at the block's end
+            return clusters_k, payload, _snapshot()
+
+        feeder = RoundFeeder(_make_block, 0, len(segments), depth=prefetch, telemetry=tel)
+        try:
+            for b, (t0, k) in enumerate(segments):
+                tel.profile_tick(t0)
+                wait = (tel.span("round.feeder_wait", round=t0, depth=feeder.qsize())
+                        if prefetch > 0 else tel.span("block.assemble", round=t0, k=k))
+                with wait:
+                    clusters_k, payload, snap = feeder.get(b)
+                theta, records = pigeon_block_accept(module, theta, clusters_k, pcfg, tm,
+                                                     t0, payload, x0, y0, policy,
+                                                     telemetry=tel)
+                for i, sel in enumerate(records):
+                    t, clusters = t0 + i, clusters_k[i]
+                    meter = CommMeter()
+                    # the per-round charges: client turns, handoff re-checks,
+                    # validation pushes, the winner's broadcast
+                    for cluster in clusters:
+                        for j in range(len(cluster)):
+                            account_client_turn(meter, pcfg, d_c, d_cl,
+                                                handoff=j < len(cluster) - 1)
+                    if pcfg.tamper_check:
+                        account_handoff_recheck(meter, pcfg, d_o, d_c, visited_candidates(
+                            sel["detections"], sel["accepted"]))
+                    for _ in clusters:
+                        account_validation(meter, d_o, d_c)
+                    if sel["accepted"]:
+                        account_param_transfer(meter, pcfg.R * d_cl)
+                    rec = _pigeon_record(t, clusters, tm, meter, sel)
+                    # an eval round ends its block, so theta is round t's
+                    _evaluate_into(rec, module, theta, data, pcfg, t, tel)
+                    hist.rounds.append(rec)
+                    _checkpoint(t, snap)
+                    tel.record_round(t, rec, feeder_depth=(feeder.qsize()
+                                                           if prefetch > 0 else None))
+        finally:
+            feeder.close()
+            tel.close()
+        return hist
+
+    # The round feeder: round t+1's assembly overlaps round t on the card.
+    # Synchronous where sampling depends on round t's outcome: Pigeon-SL+
+    # sub-rounds sample the selected cluster, and param-tamper threat models
+    # draw handoff noise during selection.
+    feeder = None
+    if engine == "batched" and prefetch > 0 and not plus and not tm.has_param_tamper:
+        from ..data.pipeline import RoundFeeder
+        from .engine import assemble_round, staged_round
+        stager = _stager(dev, prefetch)
+
+        def _make_round(t):
+            clusters = make_clusters(rng, pcfg.M, pcfg.R)
+            if stager is not None:
+                payload = staged_round(stager, rng, seed_gen, data, clusters, pcfg, tm, t)
+            else:
+                payload = assemble_round(rng, seed_gen, data, clusters, pcfg, tm, t, dev)
+            # the streams' state right after round t's assembly is the
+            # synchronous end-of-round-t state (no sub-rounds, no handoff
+            # noise on this path): round t's checkpoint stores it
+            return clusters, payload, _snapshot()
+
+        feeder = RoundFeeder(_make_round, start_round, pcfg.T, depth=prefetch,
+                             telemetry=tel)
     if engine == "batched":
         from .engine import (pigeon_round_accept, train_cluster_batched,
                              train_round_batched)
 
-    for t in range(pcfg.T):
-        meter = CommMeter()
-        clusters = make_clusters(rng, pcfg.M, pcfg.R)
-        if fused:
-            theta, sel_rec = pigeon_round_accept(
-                module, theta, clusters, data, pcfg, tm, t, rng, seed_gen,
-                meter, d_c, x0, y0, policy)
-            selected, accepted = sel_rec["selected"], sel_rec["accepted"]
-            detections = sel_rec["detections"]
-            val_losses, train_losses = sel_rec["val_losses"], sel_rec["train_losses"]
-        else:
-            train = train_round_batched if engine == "batched" else _train_round
-            results = train(module, theta, clusters, data, pcfg, tm, t, rng,
-                            seed_gen, meter, d_c, x0, y0,
-                            with_stats=policy.needs_message_stats)
-            outcome = select_host(policy, module, results, theta, tm, t,
-                                  param_gen, pcfg, meter, x0, y0, d_c)
-            theta = outcome.theta
-            selected, accepted = outcome.selected, outcome.accepted
-            detections = outcome.detections
-            val_losses = [res["vloss"] for res in results]
-            train_losses = [res["train_loss"] for res in results]
-            # the candidates are done with: free them before the sub-rounds
-            # and the next round train (an LM's candidate is gigabytes)
-            del results, outcome
-        sel_cluster = clusters[selected]
-        for _ in clusters:
-            account_validation(meter, d_o, d_c)
-        if accepted:
-            # broadcast to next first clients (no broadcast happens when
-            # every cluster failed the tamper check and theta^t is kept)
-            account_param_transfer(meter, pcfg.R * d_cl)
-
-        # Pigeon-SL+: R-1 extra sub-rounds on the selected cluster — only
-        # when the round was accepted: re-training a tamper-flagged cluster
-        # from theta^t would hand a detected attacker R-1 free extra turns.
-        if plus and accepted:
-            for _ in range(pcfg.R - 1):
+    try:
+        for t in range(start_round, pcfg.T):
+            tel.profile_tick(t)
+            meter = CommMeter()
+            if feeder is not None:
+                with tel.span("round.feeder_wait", round=t, depth=feeder.qsize()):
+                    clusters, prefetched, snap = feeder.get(t)
+            else:
+                clusters, prefetched, snap = make_clusters(rng, pcfg.M, pcfg.R), None, None
+            if fused:
+                theta, sel = pigeon_round_accept(
+                    module, theta, clusters, data, pcfg, tm, t, rng, seed_gen,
+                    meter, d_c, x0, y0, policy, prefetched=prefetched, telemetry=tel)
+            else:
                 if engine == "batched":
-                    g, p, _ = train_cluster_batched(module, theta, sel_cluster,
-                                                    data, pcfg, tm, t, rng,
-                                                    seed_gen, meter, d_c)
+                    results = train_round_batched(
+                        module, theta, clusters, data, pcfg, tm, t, rng, seed_gen, meter,
+                        d_c, x0, y0, with_stats=policy.needs_message_stats,
+                        prefetched=prefetched, telemetry=tel)
                 else:
-                    seeds = round_client_seeds(seed_gen, [sel_cluster])[0]
-                    g, p, _ = train_cluster(module, theta[0], theta[1],
-                                            sel_cluster, data, pcfg, tm, t,
-                                            rng, seeds, meter, d_c)
-                theta = (g, p)
-                account_param_transfer(meter, _count_params(g))  # subround handoff
+                    results = _train_round(module, theta, clusters, data, pcfg, tm, t,
+                                           rng, seed_gen, meter, d_c, x0, y0,
+                                           with_stats=policy.needs_message_stats,
+                                           telemetry=tel)
+                with tel.span("round.select", round=t):
+                    outcome = select_host(policy, module, results, theta, tm, t,
+                                          param_gen, pcfg, meter, x0, y0, d_c)
+                theta = outcome.theta
+                sel = dict(selected=outcome.selected, accepted=outcome.accepted,
+                           detections=outcome.detections,
+                           val_losses=[res["vloss"] for res in results],
+                           train_losses=[res["train_loss"] for res in results])
+                # the candidates are done with: free them before the
+                # sub-rounds and the next round train (an LM's candidate is
+                # gigabytes)
+                del results, outcome
+            sel_cluster = clusters[sel["selected"]]
+            for _ in clusters:
+                account_validation(meter, d_o, d_c)
+            if sel["accepted"]:
+                # broadcast to next first clients (no broadcast happens when
+                # every cluster failed the tamper check and theta^t is kept)
+                account_param_transfer(meter, pcfg.R * d_cl)
 
-        rec = dict(
-            round=t,
-            clusters=clusters,
-            val_losses=val_losses,
-            train_losses=train_losses,
-            selected=selected,
-            accepted=accepted,
-            selected_honest=cluster_is_honest(sel_cluster, tm.malicious),
-            honest_cluster_exists=any(cluster_is_honest(c, tm.malicious)
-                                      for c in clusters),
-            detections=detections,
-            comm=dataclasses.asdict(meter),
-        )
-        if t % pcfg.eval_every == 0 or t == pcfg.T - 1:
-            rec["test_acc"] = evaluate(module, theta[0], theta[1], data.x_test,
-                                       data.y_test, pcfg.eval_batch)
-        hist.rounds.append(rec)
+            # Pigeon-SL+: R-1 extra sub-rounds on the selected cluster — only
+            # when the round was accepted: re-training a tamper-flagged
+            # cluster from theta^t would hand a detected attacker R-1 free
+            # extra turns.
+            if plus and sel["accepted"]:
+                with tel.span("round.subrounds", round=t, n=pcfg.R - 1):
+                    for _ in range(pcfg.R - 1):
+                        if engine == "batched":
+                            g, p, _ = train_cluster_batched(module, theta, sel_cluster,
+                                                            data, pcfg, tm, t, rng,
+                                                            seed_gen, meter, d_c)
+                        else:
+                            seeds = round_client_seeds(seed_gen, [sel_cluster])[0]
+                            g, p, _ = train_cluster(module, theta[0], theta[1],
+                                                    sel_cluster, data, pcfg, tm, t,
+                                                    rng, seeds, meter, d_c)
+                        theta = (g, p)
+                        account_param_transfer(meter, _count_params(g))  # subround handoff
+
+            rec = _pigeon_record(t, clusters, tm, meter, sel)
+            _evaluate_into(rec, module, theta, data, pcfg, t, tel)
+            hist.rounds.append(rec)
+            _checkpoint(t, snap)
+            tel.record_round(t, rec, feeder_depth=(feeder.qsize()
+                                                   if feeder is not None else None))
+    finally:
+        if feeder is not None:
+            feeder.close()
+        tel.close()
     return hist
 
 
@@ -527,10 +783,7 @@ def run_vanilla_sl(module: SplitModule, data: ClientData, pcfg: ProtocolConfig,
                    device: DeviceLike = None) -> History:
     """Vanilla SL: each round one chain of all M clients in a random order
     (no clusters, no selection, no check), its last client handing off to
-    the next round.  ``telemetry``/``verbose`` are not ported yet and
-    raise."""
-    if telemetry is not None or verbose:
-        _not_ported("telemetry/verbose", MULTI_ROUND_SLICE)
+    the next round.  ``telemetry``/``verbose`` as in :func:`run_pigeon`."""
     dev = resolve_device(device)
     if quant is not None:
         pcfg = dataclasses.replace(pcfg, comm=CommConfig(quant=quant))
@@ -541,18 +794,25 @@ def run_vanilla_sl(module: SplitModule, data: ClientData, pcfg: ProtocolConfig,
     seed_gen, _ = _noise_generators(init_gen, dev)
     d_c = cut_width(module, gamma, torch.from_numpy(data.x0[:1]).to(dev))
     hist = History()
-    for t in range(pcfg.T):
-        meter = CommMeter()
-        order = rng.permutation(pcfg.M).tolist()
-        seeds = round_client_seeds(seed_gen, [order])[0]
-        gamma, phi, train_loss = train_cluster(module, gamma, phi, order, data, pcfg,
-                                               tm, t, rng, seeds, meter, d_c)
-        account_param_transfer(meter, _count_params(gamma))   # hand-off to round t+1
-        rec = dict(round=t, train_loss=train_loss, comm=dataclasses.asdict(meter))
-        if t % pcfg.eval_every == 0 or t == pcfg.T - 1:
-            rec["test_acc"] = evaluate(module, gamma, phi, data.x_test, data.y_test,
-                                       pcfg.eval_batch)
-        hist.rounds.append(rec)
+    tel = resolve_telemetry(telemetry if telemetry is not None else pcfg.telemetry,
+                            verbose=verbose, run="vanilla", T=pcfg.T, M=pcfg.M,
+                            device=str(dev))
+    try:
+        for t in range(pcfg.T):
+            tel.profile_tick(t)
+            meter = CommMeter()
+            order = rng.permutation(pcfg.M).tolist()
+            seeds = round_client_seeds(seed_gen, [order])[0]
+            with tel.span("round.step", round=t):
+                gamma, phi, train_loss = train_cluster(module, gamma, phi, order, data,
+                                                       pcfg, tm, t, rng, seeds, meter, d_c)
+            account_param_transfer(meter, _count_params(gamma))   # hand-off to round t+1
+            rec = dict(round=t, train_loss=train_loss, comm=dataclasses.asdict(meter))
+            _evaluate_into(rec, module, (gamma, phi), data, pcfg, t, tel)
+            hist.rounds.append(rec)
+            tel.record_round(t, rec)
+    finally:
+        tel.close()
     return hist
 
 
@@ -627,21 +887,23 @@ def run_splitfed(module: SplitModule, data: ClientData, pcfg: ProtocolConfig,
       one fetch a round; ``_force_host_selection`` keeps the batched
       training and selects on the host instead).  Both engines select the
       same clusters and count bit-identical messages.
-    * ``device``, ``quant``, ``selection`` — as :func:`run_pigeon`.
-
-    ``placement="sharded"``, ``prefetch``, ``block`` and
-    ``telemetry``/``verbose`` are not ported yet and raise."""
-    _check_engine(engine, placement, prefetch, block)
+    * ``device``, ``quant``, ``selection``, ``telemetry``, ``verbose`` — as
+      :func:`run_pigeon`.
+    * ``prefetch``, ``block`` — as :func:`run_pigeon`.  SplitFed's sampling
+      never depends on the previous round's selection, so the feeder runs at
+      full depth and blocks chain under every threat model; blocks end only
+      at eval rounds."""
+    _check_engine(engine, placement, prefetch)
     if engine == "batched":
         from .split import _stacked
         _stacked(module)                 # raises for a model with no stacked form
-    if telemetry is not None or verbose:
-        _not_ported("telemetry/verbose", MULTI_ROUND_SLICE)
     dev = resolve_device(device)
     if quant is not None:
         pcfg = dataclasses.replace(pcfg, comm=CommConfig(quant=quant))
     policy = resolve_policy(selection)
     fused = engine == "batched" and not _force_host_selection
+    block = check_block(block, engine, force_host_selection=_force_host_selection,
+                        eval_every=pcfg.eval_every)
     tm = resolve_threat_model(malicious, attack, threat_model)
     rng = np.random.default_rng(pcfg.seed)
     init_gen = torch.Generator().manual_seed(pcfg.seed)
@@ -653,34 +915,112 @@ def run_splitfed(module: SplitModule, data: ClientData, pcfg: ProtocolConfig,
     d_cl = _count_params(theta[0])
     d_c = cut_width(module, theta[0], x0)
     hist = History()
-    if engine == "batched":
-        from .engine import splitfed_round_accept, splitfed_round_batched
+    tel = resolve_telemetry(
+        telemetry if telemetry is not None else pcfg.telemetry, verbose=verbose,
+        run="sfl", engine=engine, placement=placement, prefetch=prefetch, block=block,
+        T=pcfg.T, M=pcfg.M, R=pcfg.R, selection=policy.name, fused_selection=fused,
+        device=str(dev))
 
-    for t in range(pcfg.T):
+    def _record(t, clusters, selected, val_losses):
         meter = CommMeter()
-        clusters = make_clusters(rng, pcfg.M, pcfg.R)
-        if fused:
-            theta, sel_rec = splitfed_round_accept(module, theta, clusters, data, pcfg,
-                                                   tm, t, rng, seed_gen, x0, y0, policy)
-            selected, val_losses = sel_rec["selected"], sel_rec["val_losses"]
-        else:
-            train = splitfed_round_batched if engine == "batched" else _splitfed_round
-            results = train(module, theta, clusters, data, pcfg, tm, t, rng, seed_gen,
-                            x0, y0, policy.needs_message_stats)
-            ctx = host_score_context(policy, module, results, y0)
-            _, elig, order = score_and_rank(policy, ctx)
-            selected = int(next(c for c in order if elig[c]))
-            theta = res_params(results[selected])
-            val_losses = [res["vloss"] for res in results]
-            del results
         account_splitfed_round(meter, pcfg, clusters, d_o, d_c, d_cl)
         rec = dict(round=t, selected=selected, val_losses=val_losses,
                    selected_honest=cluster_is_honest(clusters[selected], tm.malicious),
                    comm=dataclasses.asdict(meter))
-        if t % pcfg.eval_every == 0 or t == pcfg.T - 1:
-            rec["test_acc"] = evaluate(module, theta[0], theta[1], data.x_test,
-                                       data.y_test, pcfg.eval_batch)
+        _evaluate_into(rec, module, theta, data, pcfg, t, tel)
         hist.rounds.append(rec)
+        return rec
+
+    if block > 1:
+        # K FedAvg and selection-cascade rounds, one fetch a block; the
+        # accounting is analytic, so the per-round replay is exact
+        from ..data.pipeline import RoundFeeder, plan_blocks
+        from .engine import assemble_splitfed_block, splitfed_block_accept
+
+        segments = plan_blocks(0, pcfg.T, block, lambda t: _eval_round(t, pcfg))
+        stager = _stager(dev, prefetch)
+
+        def _make_block(b):
+            t0, k = segments[b]
+            return assemble_splitfed_block(rng, seed_gen, data, pcfg, tm, t0, k, dev,
+                                           stager=stager)
+
+        feeder = RoundFeeder(_make_block, 0, len(segments), depth=prefetch, telemetry=tel)
+        try:
+            for b, (t0, k) in enumerate(segments):
+                tel.profile_tick(t0)
+                wait = (tel.span("round.feeder_wait", round=t0, depth=feeder.qsize())
+                        if prefetch > 0 else tel.span("block.assemble", round=t0, k=k))
+                with wait:
+                    clusters_k, payload = feeder.get(b)
+                theta, records = splitfed_block_accept(module, theta, clusters_k, pcfg,
+                                                       t0, payload, x0, y0, policy,
+                                                       telemetry=tel)
+                for i, sel in enumerate(records):
+                    rec = _record(t0 + i, clusters_k[i], sel["selected"],
+                                  sel["val_losses"])
+                    tel.record_round(t0 + i, rec, feeder_depth=(feeder.qsize()
+                                                                if prefetch > 0 else None))
+        finally:
+            feeder.close()
+            tel.close()
+        return hist
+
+    feeder = None
+    if engine == "batched" and prefetch > 0:
+        from ..data.pipeline import RoundFeeder
+        from .engine import assemble_splitfed_round, staged_round
+        stager = _stager(dev, prefetch)
+
+        def _make_round(t):
+            clusters = make_clusters(rng, pcfg.M, pcfg.R)
+            if stager is not None:
+                return clusters, staged_round(stager, rng, seed_gen, data, clusters,
+                                              pcfg, tm, t)
+            return clusters, assemble_splitfed_round(rng, seed_gen, data, clusters, pcfg,
+                                                     tm, t, dev)
+
+        feeder = RoundFeeder(_make_round, 0, pcfg.T, depth=prefetch, telemetry=tel)
+    if engine == "batched":
+        from .engine import splitfed_round_accept, splitfed_round_batched
+
+    try:
+        for t in range(pcfg.T):
+            tel.profile_tick(t)
+            if feeder is not None:
+                with tel.span("round.feeder_wait", round=t, depth=feeder.qsize()):
+                    clusters, prefetched = feeder.get(t)
+            else:
+                clusters, prefetched = make_clusters(rng, pcfg.M, pcfg.R), None
+            if fused:
+                theta, sel = splitfed_round_accept(module, theta, clusters, data, pcfg,
+                                                   tm, t, rng, seed_gen, x0, y0, policy,
+                                                   prefetched=prefetched, telemetry=tel)
+                selected, val_losses = sel["selected"], sel["val_losses"]
+            else:
+                if engine == "batched":
+                    results = splitfed_round_batched(
+                        module, theta, clusters, data, pcfg, tm, t, rng, seed_gen, x0, y0,
+                        policy.needs_message_stats, prefetched=prefetched, telemetry=tel)
+                else:
+                    with tel.span("round.step", round=t):
+                        results = _splitfed_round(module, theta, clusters, data, pcfg, tm,
+                                                  t, rng, seed_gen, x0, y0,
+                                                  policy.needs_message_stats)
+                with tel.span("round.select", round=t):
+                    ctx = host_score_context(policy, module, results, y0)
+                    _, elig, order = score_and_rank(policy, ctx)
+                    selected = int(next(c for c in order if elig[c]))
+                    theta = res_params(results[selected])
+                val_losses = [res["vloss"] for res in results]
+                del results
+            rec = _record(t, clusters, selected, val_losses)
+            tel.record_round(t, rec, feeder_depth=(feeder.qsize()
+                                                   if feeder is not None else None))
+    finally:
+        if feeder is not None:
+            feeder.close()
+        tel.close()
     return hist
 
 
@@ -690,8 +1030,8 @@ def run_pigeon_sweep(*args, **kwargs) -> History:
     _not_ported("run_pigeon_sweep", SWEEP_SLICE)
 
 
-__all__ = ["ClientData", "CommMeter", "ENGINES", "History", "ProtocolConfig",
-           "account_client_turn", "account_handoff_recheck",
+__all__ = ["ClientData", "CommMeter", "ENGINES", "History", "PLACEMENTS", "ProtocolConfig",
+           "account_client_turn", "check_block", "account_handoff_recheck",
            "account_param_transfer", "account_splitfed_round", "account_validation",
            "cut_width",
            "evaluate", "res_params", "res_vacts", "round_client_seeds",

@@ -12,7 +12,10 @@ that passes the handoff check.  :class:`RoundRunner` runs that round over a
   * :meth:`RoundRunner.accept` — the fused cascade on the device: train,
     validate, policy score, rank, handoff verify (the ``tamper_check`` kernel
     over all R candidates in one launch) and commit, with nothing read back
-    to the host; the caller fetches the one ``(2R + 3,)`` vector.
+    to the host; the caller fetches the one ``(2R + 3,)`` vector;
+  * :meth:`RoundRunner.accept_block` — K ``accept`` rounds back to back on
+    the device, their K vectors stacked into one ``(K, 2R + 3)`` tensor the
+    caller fetches once.
 
 The reference maps its per-cluster program over the cluster axis with
 ``jax.vmap`` (``placement="vmap"``) or lays the axis over a device mesh
@@ -30,13 +33,14 @@ from torch import nn
 
 from .protocol import _not_ported
 
-#: where the parts of the reference's runner this slice does not run will
-#: come from
-ROUND_BLOCK_SLICE = ("the round-block slice (RoundRunner.accept_block, "
-                     "engine.assemble_block)")
-SWEEP_SLICE = "the multi-seed sweep slice (RoundRunner.sweep, run_pigeon_sweep)"
-LAUNCH_SLICE = "the launch-layer slice (RoundRunner.round, launch/steps.py)"
-JOB_POOL_SLICE = "the job-pool slice (RoundRunner.pool_accept_block, jobs/)"
+#: where the parts of the reference's runner the port does not run yet will
+#: come from (ROADMAP.md Queue A)
+SWEEP_SLICE = ("ROADMAP.md Queue A item 4, the sweep and the job pool "
+               "(RoundRunner.sweep, run_pigeon_sweep)")
+LAUNCH_SLICE = ("ROADMAP.md Queue A item 5, the LM round and the launch layer "
+                "(RoundRunner.round, launch/steps.py)")
+JOB_POOL_SLICE = ("ROADMAP.md Queue A item 4, the sweep and the job pool "
+                  "(RoundRunner.pool_accept_block, jobs/)")
 
 
 # ---------------------------------------------------------------------------
@@ -82,11 +86,17 @@ class RoundSpec:
     Selection hooks, for the policies that need them:
     ``validate_sharded(stacked_params, val, k) -> (vlosses, (R, k') shard
     losses, val_aux)``, ``train_summary(train_aux) -> (R,)`` and
-    ``message_stats(train_aux) -> (R, M_bar, S)``."""
+    ``message_stats(train_aux) -> (R, M_bar, S)``.
+
+    ``handoff_acts(stacked_params, val) -> (R, D_o, d_c)`` — the
+    re-transmission the next round's first clients would produce from each
+    candidate's handed-off parameters, which the verify stage holds against
+    ``val_aux`` under ``VerifyConfig(recompute=True)``."""
     train_cluster: Callable[[Any, Any], Tuple[Any, Any]]
     validate: Callable[[Any, Any], Tuple[torch.Tensor, Any]]
     combine: Optional[Callable[[Any, Any], Any]] = None
     validate_sharded: Optional[Callable] = None
+    handoff_acts: Optional[Callable[[Any, Any], torch.Tensor]] = None
     train_summary: Optional[Callable[[Any], torch.Tensor]] = None
     message_stats: Optional[Callable[[Any], torch.Tensor]] = None
 
@@ -97,15 +107,18 @@ class VerifyConfig:
     handoff transmission with its validation-time activations (the
     ``tamper_check`` kernel) and reject candidates beyond ``tol``.
 
-    The fused path runs only without param-tamper families (those take the
-    host cascade), where the re-transmission from the handed-off parameters
-    equals the validation activations by construction; the stage therefore
-    holds the validation activations against themselves (the reference's
-    ``recompute=False``), the kernel sees identical inputs and returns
-    exactly 0.  The masked cascade, the kernel and the Table I
-    re-transmission accounting stay live all the same."""
+    ``recompute`` says where the transmission comes from: True re-derives
+    it from the handed-off parameters (``RoundSpec.handoff_acts``, one
+    batched client forward; B1 then reads two distinct tensors), False
+    reuses the validation activations (B1's aliased route, one read).  The
+    drivers' fused path runs with False: it runs only without param-tamper
+    families (those take the host cascade), where the re-transmission
+    equals the validation activations by construction, so the kernel sees
+    identical inputs and returns exactly 0.  The masked cascade, the kernel
+    and the Table I re-transmission accounting stay live either way."""
     enabled: bool = True
     tol: float = 1e-4
+    recompute: bool = True
 
 
 def _train(spec: RoundSpec, params, inputs):
@@ -189,14 +202,24 @@ class RoundRunner:
         ``params``, which stays as it was."""
         return cluster_map(self.spec, params, inputs, val)
 
-    def _verify_passed(self, vaux):
-        """Per-candidate handoff verification: the transmission (the
-        validation activations, see :class:`VerifyConfig`) against the
-        validation-time activations, all R candidates in one
-        ``tamper_verdict`` call (one launch of B1 on the card, which reads
-        the aliased activations once).  Returns the (R,) bool pass mask and
-        the distances."""
+    def _check_verify(self) -> None:
+        if (self.verify.enabled and self.verify.recompute
+                and self.spec.handoff_acts is None):
+            raise ValueError("verify.enabled with recompute needs the RoundSpec "
+                             "handoff_acts hook")
+
+    def _verify_passed(self, new_p, vaux, val):
+        """Per-candidate handoff verification: the transmission (re-derived
+        from the handed-off parameters under ``verify.recompute``, else the
+        validation activations themselves, see :class:`VerifyConfig`)
+        against the validation-time activations, all R candidates in one
+        ``tamper_verdict`` call (one launch of B1 on the card; the aliased
+        call reads the activations once).  Returns the (R,) bool pass mask
+        and the distances."""
         from ..kernels.ops import tamper_verdict
+        if self.verify.recompute:
+            return tamper_verdict(vaux, self.spec.handoff_acts(new_p, val),
+                                  self.verify.tol)
         return tamper_verdict(vaux, vaux, self.verify.tol)
 
     def accept(self, params, inputs, val):
@@ -205,13 +228,14 @@ class RoundRunner:
         were when every candidate fails); ``fetch`` is the
         ``selection.pack_fetch`` vector, still on the device."""
         from ..selection import masked_first_accept, pack_fetch
+        self._check_verify()
         spec, policy = self.spec, self.select
         new_p, aux, vlosses, vaux, shard_l = select_map(spec, policy, params,
                                                         inputs, val)
         ctx = policy_context(spec, policy, aux, vlosses, shard_l)
         scores, elig = policy_scores(policy, ctx)
         if self.verify.enabled:
-            passed, _ = self._verify_passed(vaux)
+            passed, _ = self._verify_passed(new_p, vaux, val)
         else:
             passed = torch.ones_like(elig)
         sel, det, acc = masked_first_accept(scores, elig, passed)
@@ -227,8 +251,20 @@ class RoundRunner:
     def sweep(self, *args):
         _not_ported("RoundRunner.sweep", SWEEP_SLICE)
 
-    def accept_block(self, *args):
-        _not_ported("RoundRunner.accept_block", ROUND_BLOCK_SLICE)
+    def accept_block(self, params, block_inputs, val):
+        """K fused acceptance rounds back to back: ``(committed theta,
+        fetches)``.  ``block_inputs`` holds the K rounds' ``accept`` inputs
+        in round order; each round commits its winner into ``params``'
+        modules in place before the next one trains from them, and the K
+        ``pack_fetch`` vectors stack into one ``(K, 2R + 3)`` tensor on the
+        device — the block's one fetch is the caller's.  Nothing here reads
+        the device back."""
+        self._check_verify()
+        fetches = []
+        for inputs in block_inputs:
+            params, fetch = self.accept(params, inputs, val)
+            fetches.append(fetch)
+        return params, torch.stack(fetches)
 
     def pool_accept_block(self, *args):
         _not_ported("RoundRunner.pool_accept_block", JOB_POOL_SLICE)
@@ -302,6 +338,10 @@ def protocol_round_spec(module, lr: float, with_stats: bool = False,
         return stacked.client_forward(g, x0.expand((r,) + tuple(x0.shape)))
 
     @torch.no_grad()
+    def handoff_acts(theta, val):
+        return _acts(theta[0], val[0])
+
+    @torch.no_grad()
     def validate(theta, val):
         (g, p), (x0, y0) = theta, val
         acts = _acts(g, x0)
@@ -317,6 +357,7 @@ def protocol_round_spec(module, lr: float, with_stats: bool = False,
     return RoundSpec(
         train_cluster, validate,
         validate_sharded=validate_sharded,
+        handoff_acts=handoff_acts,
         train_summary=make_train_summary(with_stats),
         message_stats=(lambda aux: aux[1]) if with_stats else None)
 
@@ -333,12 +374,15 @@ def protocol_accept_runner(module, lr: float, select, tamper_check: bool,
                            quant: Optional[str] = None) -> RoundRunner:
     """The fused-acceptance runner of the default batched path.  It runs
     only without param-tamper families (``engine.pigeon_round_accept``
-    checks it); see :class:`VerifyConfig`."""
+    checks it), where the re-transmission equals the validation activations
+    by construction: ``recompute=False``, B1's aliased route (see
+    :class:`VerifyConfig`)."""
     spec = protocol_round_spec(module, lr,
                                with_stats=select.needs_message_stats,
                                quant=quant)
     return RoundRunner(spec, select=select,
-                       verify=VerifyConfig(enabled=tamper_check, tol=tamper_tol))
+                       verify=VerifyConfig(enabled=tamper_check, tol=tamper_tol,
+                                           recompute=False))
 
 
 __all__ = ["RoundRunner", "RoundSpec", "VerifyConfig", "cluster_map", "commit", "make_train_summary",

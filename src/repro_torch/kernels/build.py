@@ -22,6 +22,7 @@ import os
 import re
 import shutil
 import subprocess
+import time
 from pathlib import Path
 from typing import Dict, Set, Tuple
 
@@ -121,6 +122,11 @@ SOURCES: Dict[str, Dict[str, Tuple]] = {
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 _CHECKED: Set[str] = set()
+_STARTED: Dict[str, float] = {}
+
+#: seconds each library built in this process took (``nvcc`` start to the
+#: library in place); a library built before is not listed
+BUILD_SECONDS: Dict[str, float] = {}
 
 #: kernel launches per launcher; reset with :func:`reset_launches`.  B5's and
 #: B4's forwards and backwards and B6 count by route: ``flash_attention``,
@@ -198,6 +204,7 @@ def _tmp_path(name: str) -> Path:
 def _start(name: str) -> subprocess.Popen:
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(_tmp_path(name)),
            str(CSRC / f"{name}.cu")]
+    _STARTED[name] = time.perf_counter()
     return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                             text=True)
 
@@ -211,6 +218,7 @@ def _finish(name: str, proc: subprocess.Popen) -> None:
     out = library_path(name)
     out.with_suffix(".log").write_text(log)
     os.replace(_tmp_path(name), out)
+    BUILD_SECONDS[name] = time.perf_counter() - _STARTED.pop(name)
 
 
 def build_all() -> Dict[str, str]:
@@ -266,5 +274,5 @@ def check_constants(name: str, expected: Dict[str, int]) -> None:
     _CHECKED.add(name)
 
 
-__all__ = ["BUILD_DIR", "LAUNCHES", "SOURCES", "build_all", "check_constants",
+__all__ = ["BUILD_DIR", "BUILD_SECONDS", "LAUNCHES", "SOURCES", "build_all", "check_constants",
            "device_limits", "library_path", "load", "record_launch", "reset_launches"]

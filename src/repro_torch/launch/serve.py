@@ -8,7 +8,9 @@ config (``reduce_config``) is the default, as in the reference; ``--full``
 serves the published config at the decode shape's settings (bf16), with
 its weights drawn on the card.  As in the reference, the prompt is stepped
 through the decode path one position at a time, then ``--new-tokens``
-tokens are decoded greedily.
+tokens are decoded greedily.  ``--trace PATH`` writes a JSONL telemetry
+trace: a provenance stamp and one span a decode step, fenced on the step's
+outputs.
 """
 from __future__ import annotations
 
@@ -26,7 +28,8 @@ from ..data import make_markov_tokens
 from ..models import build_model
 from ..models.config import ModelConfig
 from .shapes import SHAPES, shape_settings
-from .steps import make_serve_step
+from ..telemetry import Telemetry
+from .steps import instrument_step, make_serve_step
 
 #: largest vocabulary whose prompts come from the Markov chain, which holds
 #: a dense (vocab, vocab) f64 matrix (128 MB here; 185 GB at Qwen3's vocab)
@@ -81,10 +84,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     ap.add_argument("--trace", default=None, metavar="PATH",
-                    help="a JSONL span trace of every decode step (not ported yet)")
+                    help="write a JSONL span trace of every decode step to PATH")
     args = ap.parse_args(argv)
-    if args.trace:
-        raise NotImplementedError("serve --trace: telemetry is ROADMAP.md Queue A item 8")
 
     device = resolve_device(args.device)
     cfg = serve_config(args.arch, args.full)
@@ -93,17 +94,29 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     max_seq = args.prompt_len + args.new_tokens
     cache = model.init_cache(args.batch, max_seq)
     prompts = make_prompts(args.seed, cfg.vocab, args.batch, args.prompt_len)
+    tel = None
+    if args.trace:
+        tel = Telemetry(jsonl=args.trace).session(
+            "serve", arch=cfg.name, batch=args.batch, prompt_len=args.prompt_len,
+            new_tokens=args.new_tokens, device=str(device))
+    step = instrument_step(make_serve_step(model), tel, "serve.decode")
 
     t0 = time.perf_counter()
-    gen, _ = greedy_decode(make_serve_step(model), cache,
-                           torch.from_numpy(prompts).to(device), args.new_tokens)
-    gen = gen.cpu().numpy()                  # waits for the device
+    try:
+        gen, _ = greedy_decode(step, cache, torch.from_numpy(prompts).to(device),
+                               args.new_tokens)
+        gen = gen.cpu().numpy()              # waits for the device
+    finally:
+        if tel is not None:
+            tel.close()
     elapsed = time.perf_counter() - t0
     total_tokens = args.batch * max_seq
     where = torch.cuda.get_device_name(device) if device.type == "cuda" else "CPU"
     print(f"arch={cfg.name} batch={args.batch} prompt={args.prompt_len} "
           f"new={args.new_tokens} dtype={cfg.dtype}")
     print(f"throughput: {total_tokens / elapsed:.1f} tok/s ({where})")
+    if args.trace:
+        print(f"telemetry trace: {args.trace}")
     for b in range(min(args.batch, 2)):
         print(f"  sample[{b}]: prompt={prompts[b].tolist()} -> {gen[b][:16].tolist()}...")
 

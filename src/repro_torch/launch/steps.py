@@ -13,8 +13,9 @@ The model holds its parameters, so a step takes none and the train step
 updates them in place.  The reference's round programs
 (``launch_round_spec``, ``make_pigeon_round_step``,
 ``make_pigeon_plus_round_step``) need a cluster-stacked LM and come with it
-(ROADMAP.md Queue A item 10); its sharded (mesh) programs have no
-single-card counterpart.
+(ROADMAP.md Queue A item 5); its sharded (mesh) programs have no
+single-card counterpart.  :func:`instrument_step` wraps any step so that
+each call emits one telemetry span.
 """
 from __future__ import annotations
 
@@ -64,6 +65,24 @@ def make_prefill_step(model: Model) -> Callable:
     return prefill_step
 
 
+def instrument_step(fn: Callable, telemetry, name: str) -> Callable:
+    """``fn`` wrapped so that every call emits one span ``name`` (with its
+    call index) into ``telemetry``, fenced on the step's outputs, so the
+    span covers the card's work; ``fn`` itself when telemetry is None or
+    disabled."""
+    if telemetry is None or not getattr(telemetry, "enabled", False):
+        return fn
+    calls = iter(range(1 << 62))
+
+    def traced(*args, **kwargs):
+        with telemetry.span(name, call=next(calls)) as sp:
+            out = fn(*args, **kwargs)
+            sp.fence(out)
+            return out
+
+    return traced
+
+
 def make_serve_step(model: Model) -> Callable:
     def serve_step(cache, tokens: torch.Tensor, index: int):
         logits, cache = model.decode_step(cache, tokens, index)
@@ -71,4 +90,4 @@ def make_serve_step(model: Model) -> Callable:
     return serve_step
 
 
-__all__ = ["make_prefill_step", "make_serve_step"]
+__all__ = ["instrument_step", "make_prefill_step", "make_serve_step", "make_train_step"]

@@ -8,21 +8,26 @@
     PYTHONPATH=src python -m repro_torch.launch.train --task cifar10 \\
         --protocol sfl --engine batched --attack label_flip --malicious 1
 
+    PYTHONPATH=src python -m repro_torch.launch.train --task cifar10 --smoke \
+        --protocol pigeon --engine batched --block 2 --trace run.jsonl \
+        --profile-dir prof
+
 The reference's ``repro/launch/train.py``, with the same flags, on the CUDA
 card by default (``--device cpu`` asks for the CPU).  An ``--arch`` runs its
 reduced config (``reduce_config``), as the reference does, on the
 sequential engine.  ``--protocol vanilla`` runs vanilla SL, ``sfl``
-clustered SplitFed (either engine for the CNNs).  Not ported, each raising:
-``--trace`` and ``--profile-dir`` (telemetry), ``--block > 1``
-(multi-round execution) and ``--compile-cache`` (JAX's persistent
-compilation cache, which has no counterpart: PyTorch runs eagerly and the
-kernels are built once into ``build/``).
+clustered SplitFed (either engine for the CNNs).  ``--trace`` writes a JSONL
+telemetry trace (spans, per-round records, a provenance stamp with the
+card's name and power limit), ``--profile-dir`` a ``torch.profiler`` trace
+of round 1, and ``--block K`` runs K rounds a fetch (the batched engine by
+default then; ``pigeon+`` and ``param_tamper`` force 1).  ``--compile-cache``
+raises: JAX's persistent compilation cache has no counterpart (PyTorch runs
+eagerly and the kernels are built once into ``build/``).
 """
 from __future__ import annotations
 
 import argparse
 import json
-import time
 from typing import Optional, Sequence
 
 import torch
@@ -33,24 +38,14 @@ from ..core import (HONEST, Attack, ProtocolConfig, from_cnn, from_lm, run_pigeo
                     run_splitfed, run_vanilla_sl)
 from ..data import build_image_task, build_lm_task
 from ..models import build_model
+from ..telemetry import Stopwatch, Telemetry
 
-#: why each unported option raises
+#: why an option raises
 NOT_PORTED = {
-    "trace": "--trace: telemetry is ROADMAP.md Queue A item 3",
-    "profile_dir": "--profile-dir: telemetry is ROADMAP.md Queue A item 3",
-    "block": "--block > 1: multi-round execution is ROADMAP.md Queue A item 3",
     "compile_cache": ("--compile-cache: JAX's persistent compilation cache has no "
                       "counterpart (PyTorch runs eagerly; the kernels build once into "
                       "build/)"),
 }
-
-
-def _refuse(args) -> None:
-    for flag in ("trace", "profile_dir", "compile_cache"):
-        if getattr(args, flag) is not None:
-            raise NotImplementedError(NOT_PORTED[flag])
-    if args.block > 1:
-        raise NotImplementedError(NOT_PORTED["block"])
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
@@ -77,21 +72,25 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None)
     ap.add_argument("--trace", default=None, metavar="PATH",
-                    help="a JSONL telemetry trace (not ported)")
+                    help="write a JSONL telemetry trace (spans, per-round records, "
+                         "provenance) to PATH")
     ap.add_argument("--profile-dir", default=None, metavar="DIR",
-                    help="a profiler trace of round 1 (not ported)")
+                    help="write a torch.profiler trace of round 1 into DIR")
     ap.add_argument("--engine", default=None, choices=["sequential", "batched"],
-                    help="round engine (default: sequential; an LM runs on the "
-                         "sequential engine only)")
+                    help="round engine (default: batched when --block > 1, else "
+                         "sequential; an LM runs on the sequential engine only)")
     ap.add_argument("--block", type=int, default=1,
-                    help="round-block size (only 1 is ported)")
+                    help="round-block size: this many rounds a host fetch "
+                         "(pigeon/sfl on the batched engine; pigeon+ and "
+                         "param_tamper force 1)")
     ap.add_argument("--compile-cache", default=None, metavar="DIR",
                     help="JAX's persistent compilation cache (no counterpart)")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    _refuse(args)
+    if args.compile_cache is not None:
+        raise NotImplementedError(NOT_PORTED["compile_cache"])
     device = resolve_device(args.device)
-    engine = args.engine or "sequential"
+    engine = args.engine or ("batched" if args.block > 1 else "sequential")
 
     if args.task:
         data, cnn_cfg = build_image_task(args.task, m_clients=args.clients,
@@ -112,19 +111,24 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                           seed=args.seed)
     attack = HONEST if args.attack == "none" else Attack(args.attack)
     malicious = set(range(args.malicious))
+    telemetry = None
+    if args.trace or args.profile_dir:
+        telemetry = Telemetry(jsonl=args.trace, profile_dir=args.profile_dir)
 
-    t0 = time.perf_counter()
-    if args.protocol == "vanilla":
-        hist = run_vanilla_sl(module, data, pcfg, malicious, attack, device=device)
-    elif args.protocol == "sfl":
-        hist = run_splitfed(module, data, pcfg, malicious, attack, engine=engine,
-                            device=device)
-    else:
-        hist = run_pigeon(module, data, pcfg, malicious, attack,
-                          plus=args.protocol == "pigeon+", engine=engine, device=device)
-    if device.type == "cuda":
-        torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with Stopwatch() as sw:
+        if args.protocol == "vanilla":
+            hist = run_vanilla_sl(module, data, pcfg, malicious, attack,
+                                  telemetry=telemetry, device=device)
+        elif args.protocol == "sfl":
+            hist = run_splitfed(module, data, pcfg, malicious, attack, engine=engine,
+                                block=args.block, telemetry=telemetry, device=device)
+        else:
+            hist = run_pigeon(module, data, pcfg, malicious, attack,
+                              plus=args.protocol == "pigeon+", engine=engine,
+                              block=args.block, telemetry=telemetry, device=device)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+    wall = sw.elapsed
     for r in hist.rounds:
         fields = " ".join(f"{k}={r[k]}" for k in ("selected", "accepted", "selected_honest",
                                                   "detections", "train_loss") if k in r)
@@ -135,6 +139,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     where = torch.cuda.get_device_name(device) if device.type == "cuda" else "CPU"
     print(f"done: {args.protocol} rounds={args.rounds} "
           f"final_test_acc={final} wall={wall:.1f}s ({where})")
+    if args.trace:
+        print(f"telemetry trace: {args.trace}")
     if args.out:
         with open(args.out, "w") as f:
             json.dump(hist.rounds, f, indent=1, default=str)

@@ -72,4 +72,15 @@ def unpack_fetch(fetched: np.ndarray, r: int):
             int(fetched[2 * r + 1]), bool(fetched[2 * r + 2]))
 
 
-__all__ = ["N_FETCH_TAIL", "masked_first_accept", "pack_fetch", "unpack_fetch"]
+def unpack_block_fetch(fetched: np.ndarray, r: int):
+    """Per-round views of a round block's stacked ``(K, 2R+3)`` fetch (K
+    rounds, one host copy): one :func:`unpack_fetch` tuple a round, in round
+    order.  Row i is the vector round ``t0 + i`` would have fetched alone."""
+    if fetched.ndim != 2:
+        raise ValueError(f"block fetch must be (K, 2R+3), got {fetched.shape}")
+    for row in fetched:
+        yield unpack_fetch(row, r)
+
+
+__all__ = ["N_FETCH_TAIL", "masked_first_accept", "pack_fetch", "unpack_block_fetch",
+           "unpack_fetch"]

@@ -211,16 +211,26 @@ def test_minibatches_and_select_cluster_bit_equal():
         assert select_cluster(losses) == jax_select_cluster(losses)
 
 
-def test_baselines_refuse_what_is_not_ported(port):
+def test_baselines_refuse_what_is_not_ported(port, capsys):
+    """The sharded placement still raises; SplitFed's prefetch, block,
+    telemetry and verbose, and vanilla SL's telemetry and verbose, run and
+    leave the History as it was."""
+    from repro_torch.telemetry import MemorySink, Telemetry
     data, module, pcfg = port
-    for kw in (dict(engine="batched", placement="sharded"),
-               dict(engine="batched", prefetch=1), dict(engine="batched", block=2),
-               dict(telemetry=object()), dict(verbose=True)):
-        with pytest.raises(NotImplementedError):
-            tcore.run_splitfed(module, data, pcfg, device="cpu", **kw)
-    for kw in (dict(telemetry=object()), dict(verbose=True)):
-        with pytest.raises(NotImplementedError):
-            tcore.run_vanilla_sl(module, data, pcfg, device="cpu", **kw)
+    with pytest.raises(NotImplementedError):
+        tcore.run_splitfed(module, data, pcfg, device="cpu", engine="batched",
+                           placement="sharded")
+    plain = tcore.run_splitfed(module, data, pcfg, device="cpu", engine="batched")
+    for kw in (dict(prefetch=1), dict(block=2), dict(telemetry=Telemetry(sinks=(MemorySink(),))),
+               dict(verbose=True)):
+        assert tcore.run_splitfed(module, data, pcfg, device="cpu", engine="batched",
+                                  **kw).rounds == plain.rounds, kw
+    plain = tcore.run_vanilla_sl(module, data, pcfg, device="cpu")
+    for kw in (dict(telemetry=Telemetry(sinks=(MemorySink(),))), dict(verbose=True)):
+        assert tcore.run_vanilla_sl(module, data, pcfg, device="cpu", **kw).rounds == \
+            plain.rounds, kw
+    out = capsys.readouterr().out
+    assert "[sfl] t=  0" in out and "[vanilla] t=  0" in out
     with pytest.raises(ValueError):
         tcore.run_splitfed(module, data, pcfg, engine="sequential", block=2, device="cpu")
     # the card by default: without one the drivers raise, never fall back

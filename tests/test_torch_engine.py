@@ -210,3 +210,105 @@ def test_fused_cascade_rejects_a_diverged_candidate(port):
     assert (selected, detections, accepted) == (1, 1, True)
     assert committed[0] is theta[0]             # committed in place
     assert not all(torch.equal(a, b) for a, b in zip(before, theta[0].parameters()))
+
+
+# ---------------------------------------------------------------------------
+# the verify stage's recompute (VerifyConfig.recompute, RoundSpec.handoff_acts)
+# ---------------------------------------------------------------------------
+
+def _recompute_round(pkg, port, tiny_task, tiny_pcfg, shift, monkeypatch=None):
+    """One fused round whose verify stage re-derives the handoff through
+    ``handoff_acts`` (``recompute=True``, the default), the re-transmission
+    shifted by ``shift``: ((selected, detections, accepted), theta moved)."""
+    from repro.core import engine as jengine
+    from repro.core import runner as jrunner
+    from repro.selection import unpack_fetch as jax_unpack_fetch
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(tiny_pcfg.seed)
+    clusters = tcore.make_clusters(rng, tiny_pcfg.M, tiny_pcfg.R)
+    if pkg == "jax":
+        jdata, jmod = tiny_task
+        _, payload = jengine.assemble_round(rng, jax.random.PRNGKey(0), jdata, clusters,
+                                            tiny_pcfg, jadv.ThreatModel(), 0)
+        spec = jrunner.protocol_round_spec(jmod, tiny_pcfg.lr)
+        real = spec.handoff_acts
+        spec = dataclasses.replace(spec, handoff_acts=lambda th, val: real(th, val) + shift)
+        runner = jrunner.RoundRunner(spec, verify=jrunner.VerifyConfig(
+            tol=tiny_pcfg.tamper_tol))
+        _, k0 = jax.random.split(jax.random.PRNGKey(tiny_pcfg.seed))
+        theta = jmod.init(k0)
+        before = [np.array(a) for a in jax.tree.leaves(theta)]   # accept donates theta
+        committed, fetch = runner.accept(theta, payload, (jnp.asarray(jdata.x0),
+                                                          jnp.asarray(jdata.y0)))
+        moved = not all(np.array_equal(a, b) for a, b in zip(
+            jax.tree.leaves(committed), before))
+        return jax_unpack_fetch(np.asarray(fetch), tiny_pcfg.R)[2:], moved
+    data, module, pcfg = port
+    payload = tengine.assemble_round(rng, torch.Generator().manual_seed(0), data,
+                                     clusters, pcfg, tadv.ThreatModel(), 0,
+                                     torch.device("cpu"))
+    spec = trunner.protocol_round_spec(module, pcfg.lr)
+    real = spec.handoff_acts
+    spec = dataclasses.replace(spec, handoff_acts=lambda th, val: real(th, val) + shift)
+    runner = trunner.RoundRunner(spec, verify=trunner.VerifyConfig(tol=pcfg.tamper_tol))
+    theta = tuple(copy.deepcopy(m) for m in module.init(None))
+    before = [p.clone() for m in theta for p in m.parameters()]
+    _, fetch = runner.accept(theta, payload, (torch.from_numpy(data.x0),
+                                              torch.from_numpy(data.y0)))
+    moved = not all(torch.equal(a, b) for a, b in zip(
+        before, [p for m in theta for p in m.parameters()]))
+    return unpack_fetch(fetch.numpy(), pcfg.R)[2:], moved
+
+
+@pytest.mark.parametrize("shift", [0.0, 0.5], ids=["faithful", "diverged"])
+def test_recompute_verify_matches_reference(port, tiny_task, tiny_pcfg, shift,
+                                            monkeypatch):
+    """With ``recompute`` the verify stage holds the re-derived handoff
+    against the validation activations (B1's distinct route): a faithful
+    re-transmission passes every candidate; one shifted beyond ``tol`` is
+    rejected for every candidate and theta is kept — on both packages, with
+    the same selected, detections and accepted."""
+    routes = []
+    real = tops.tamper_verdict
+
+    def spy(ref, recv, tol):
+        routes.append(ref is recv)
+        return real(ref, recv, tol)
+
+    monkeypatch.setattr(tops, "tamper_verdict", spy)
+    got = _recompute_round("torch", port, tiny_task, tiny_pcfg, shift)
+    want = _recompute_round("jax", port, tiny_task, tiny_pcfg, shift)
+    assert got == want
+    assert routes == [False]                   # one call, distinct inputs
+    (_, detections, accepted), moved = got
+    if shift:
+        assert (detections, accepted, moved) == (tiny_pcfg.R, False, False)
+    else:
+        assert (detections, accepted, moved) == (0, True, True)
+
+
+def test_recompute_without_the_hook_raises_on_both_packages(port, tiny_task, tiny_pcfg):
+    """``recompute=True`` (the default) with no ``handoff_acts`` raises
+    ``ValueError`` when the round runs, not when the runner is built."""
+    from repro.core import runner as jrunner
+    import jax.numpy as jnp
+
+    jdata, jmod = tiny_task
+    jspec = dataclasses.replace(jrunner.protocol_round_spec(jmod, tiny_pcfg.lr),
+                                handoff_acts=None)
+    jr = jrunner.RoundRunner(jspec)
+    with pytest.raises(ValueError, match="handoff_acts"):
+        jr.accept(jmod.init(jax.random.PRNGKey(0)), None,
+                  (jnp.asarray(jdata.x0), jnp.asarray(jdata.y0)))
+    data, module, pcfg = port
+    tspec = dataclasses.replace(trunner.protocol_round_spec(module, pcfg.lr),
+                                handoff_acts=None)
+    tr = trunner.RoundRunner(tspec)
+    for entry in (tr.accept, tr.accept_block):
+        with pytest.raises(ValueError, match="handoff_acts"):
+            entry(None, None, None)
+    off = trunner.RoundRunner(tspec, verify=trunner.VerifyConfig(recompute=False))
+    assert off.verify.recompute is False and trunner.VerifyConfig().recompute is True
+    assert trunner.protocol_accept_runner(module, pcfg.lr, resolve_policy("argmin"), True,
+                                          pcfg.tamper_tol).verify.recompute is False

@@ -221,13 +221,22 @@ def test_init_is_seeded_and_drawn_as_the_reference_draws():
     assert torch.equal(layer.attn.q_norm.scale, torch.ones_like(layer.attn.q_norm.scale))
 
 
-def test_serve_cli_on_the_cpu(capsys):
+def test_serve_cli_on_the_cpu(capsys, tmp_path):
     tserve.main(["--device", "cpu", "--arch", "gemma3-12b", "--batch", "2",
                  "--prompt-len", "4", "--new-tokens", "3"])
     out = capsys.readouterr().out
     assert "arch=gemma3-12b-smoke batch=2 prompt=4 new=3" in out and "(CPU)" in out
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tserve.main(["--device", "cpu", "--trace", "t.jsonl"])
+    # --trace: a provenance stamp and one span a decode step (prompt + new)
+    from repro_torch.telemetry import read_jsonl
+    trace = str(tmp_path / "t.jsonl")
+    tserve.main(["--device", "cpu", "--batch", "2", "--prompt-len", "4",
+                 "--new-tokens", "3", "--trace", trace])
+    assert f"telemetry trace: {trace}" in capsys.readouterr().out
+    events = read_jsonl(trace)
+    assert events[0]["event"] == "run_start" and "gpus" in events[0]["provenance"]
+    spans = [e for e in events if e["event"] == "span"]
+    assert [s["call"] for s in spans] == list(range(4 + 3))
+    assert {s["name"] for s in spans} == {"serve.decode"}
 
 
 def test_full_vocab_prompts_are_seeded_without_the_markov_matrix():

@@ -308,7 +308,34 @@ def test_runner_refuses_unported_entries():
         tprotocol._check_engine("batched", placement="mesh")
     spec = trunner.RoundSpec(train_cluster=None, validate=None)
     runner = trunner.RoundRunner(spec)
-    for entry in (runner.round, runner.sweep, runner.accept_block,
-                  runner.pool_accept_block):
+    for entry in (runner.round, runner.sweep, runner.pool_accept_block):
         with pytest.raises(NotImplementedError):
             entry()
+
+    # accept_block runs: K accepts in turn, their fetches stacked
+    class Stacked(torch.nn.Module):
+        def __init__(self, w):
+            super().__init__()
+            self.w = torch.nn.Parameter(w)
+
+    def train(params, shifts):
+        return (Stacked(params[0].weight.detach()[None] + shifts[:, None, None]),), shifts
+
+    def validate(new_p, val):
+        return (new_p[0].w ** 2).sum(dim=(1, 2)), None
+
+    runner = trunner.RoundRunner(trunner.RoundSpec(train, validate),
+                                 verify=trunner.VerifyConfig(enabled=False))
+    block = [torch.tensor([0.5, -1.0, 2.0]), torch.tensor([1.0, -0.25, 3.0])]
+    theta = (torch.nn.Linear(2, 1, bias=False),)
+    with torch.no_grad():
+        theta[0].weight.copy_(torch.tensor([[0.75, 1.0]]))
+    twin = (torch.nn.Linear(2, 1, bias=False),)
+    twin[0].load_state_dict(theta[0].state_dict())
+    committed, fetches = runner.accept_block(theta, block, None)
+    assert committed[0] is theta[0] and fetches.shape == (2, 2 * 3 + 3)
+    for i, shifts in enumerate(block):
+        twin, fetch = runner.accept(twin, shifts, None)
+        assert torch.equal(fetch, fetches[i])
+    assert torch.equal(theta[0].weight, twin[0].weight)
+    assert torch.equal(theta[0].weight, torch.tensor([[-0.5, -0.25]]))
