@@ -99,6 +99,18 @@ from the repository root.  Phases, in order; any failure exits non-zero:
      span totals, peak memory; resume (T = 2 in blocks of 2, resumed to 4,
      equal to the uninterrupted run); ``launch.train --trace --profile-dir``
      on the card (its provenance names the card and its power limit);
+  2e. the multi-seed sweep and the job pool on the batched main path (2b's
+     configuration): ``run_pigeon_sweep`` over seeds 0-2 (T = 3, block 1
+     and 2) and ``run_job_pool`` over 4 jobs (T = 2, 2, 3, 3; two threat
+     models) on 2 lanes with block 2 and prefetch 1, each replica and job
+     held against its solo batched run (decisions exactly, losses within
+     rtol 1e-4, test_acc within 5/7,000), a job's pool checkpoint resumed
+     under ``run_pigeon``; ``sweep_block`` and ``pool_accept_block`` under
+     sync-debug "error"; 160 B2 and B3 a round, one B1 a pool round, one
+     fetch span a block; seconds a round and peak memory beside the solo
+     runs'; then again under deterministic cuDNN (the bit-equal float fields
+     reported); phase 1 holds B1 at (10, 3000, 256) aliased, B2 at (960,
+     256) and (640, 256) and B3 at (15, 64, 256) and (10, 64, 256);
   3. the MNIST split CNN at Table II sizes, fp8-e4m3 wire, argmin, gradient
      attack;
   4. the same tiny runs on the CPU and on the card, from the same init, on
@@ -197,6 +209,12 @@ STATS_BATCHED = (BATCHED_MESSAGES, (1,) + TIMED_SHAPE, SPLITFED_MESSAGES, WIDE_B
 # the tamper check's (R, D_o, d_c): CIFAR, MNIST, ragged, tiny, large
 TAMPER_SHAPES = ((5, 3000, 256), (4, 3000, 32), (3, 37, 200), (1, 1, 256),
                  (2, 4096, 4096))
+# phase 2e's replica form: S * R = 15 slots (the sweep's three seeds), J * R
+# = 10 (the pool's two lanes): B1 over the pool's candidates, B2 over the
+# S*R*B and J*R*B rows, B3 over the S*R and J*R messages
+REPLICA_TAMPER = (10, 3000, 256)
+REPLICA_ROWS = ((15 * 64, 256), (10 * 64, 256))
+REPLICA_MESSAGES = ((15, 64, 256), (10, 64, 256))
 STATS_RTOL = 1e-5
 TAMPER_RTOL = 1e-5
 TAMPER_TOL = 1e-4               # ProtocolConfig.tamper_tol
@@ -557,11 +575,91 @@ def phase_kernels():
             f"(int8, fp8_e4m3){batched if stats else ''}; "
             f"max_abs_err={max_err:.3e}")
     results["tamper_check_sums"] = _phase_tamper()
+    for name, shapes in _phase_replica_kernels().items():
+        results[name]["replica_shapes"] = shapes
     results.update(_phase_xent())
     results.update(_phase_attention())
     results.update(_phase_attention_bwd())
     results["slstm_scan"] = _phase_slstm()
     return results
+
+
+def _wire_bound(rows: int, d: int, msgs: int, stats: bool):
+    """(bound µs, what bounds it) of one B2 (or, with ``stats``, B3) call:
+    the message read once, the dequantized message and the row scales
+    written once (and two stats a message); 4 operations an element (divide,
+    round, clamp, multiply), 5 more for the stats."""
+    n_bytes = 4 * rows * d + 4 * rows * d + 4 * rows + (8 * msgs if stats else 0)
+    bytes_us = n_bytes / HBM_BYTES_PER_S * 1e6
+    ops_us = rows * d * (4 + (5 if stats else 0)) / F32_OPS_PER_S * 1e6
+    return max(bytes_us, ops_us), "bytes" if bytes_us >= ops_us else "operations"
+
+
+def _phase_replica_kernels() -> dict:
+    """Phase 2e's new shapes in phase 1: B1 aliased at the pool's J * R
+    candidates (one launch a call, bit-identical runs, the sums within rtol
+    of the plain version and of float64, numerators exactly 0), B2 on the
+    sweep's and the pool's rows and B3 on their messages (deq and scales
+    bit-equal to the plain version, stats within STATS_RTOL, both formats),
+    each timed eager, replayed (L2-warm) and L2-cold beside its plain
+    version and its bound.  {kernel: [one dict a shape]}."""
+    import torch
+    from repro_torch.kernels import quant_exchange as qx
+    from repro_torch.kernels import tamper_check as tc
+
+    out = {"tamper_check_sums": [], "quant_dequant": [], "quant_dequant_stats": []}
+    ref, _ = _activations(REPLICA_TAMPER, seed=11)
+    a = ref.double().reshape(REPLICA_TAMPER[0], -1)
+    err = _tamper_checks(ref, ref, torch.stack([torch.zeros_like(a[:, 0]), (a * a).sum(1)],
+                                               dim=1), f"{REPLICA_TAMPER} aliased")
+    check(bool((tc.tamper_check_sums(ref, ref)[:, 0] == 0.0).all()),
+          f"tamper {REPLICA_TAMPER}: identical inputs give a nonzero numerator")
+    r, n, d = REPLICA_TAMPER
+    t = _tamper_timing(tc.tamper_check_sums, ref, ref, plain=tc.tamper_check_sums_plain)
+    bytes_us = (r * n * d * 4 + r * 13) / HBM_BYTES_PER_S * 1e6
+    ops_us = 5 * r * n * d / F32_OPS_PER_S * 1e6
+    t.update(shape=list(REPLICA_TAMPER), call="aliased (ref, ref)", max_abs_err=err,
+             bound_us=max(bytes_us, ops_us),
+             bound_by="bytes" if bytes_us >= ops_us else "operations")
+    out["tamper_check_sums"].append(t)
+    for name, kernel, plain, shapes in (
+            ("quant_dequant", qx.quant_dequant, qx.quant_dequant_plain, REPLICA_ROWS),
+            ("quant_dequant_stats", qx.quant_dequant_stats, qx.quant_dequant_stats_plain,
+             REPLICA_MESSAGES)):
+        for i, shape in enumerate(shapes):
+            x = _message(shape, seed=30 + i)
+            max_err = 0.0
+            for fmt in qx.QUANT_FORMATS:
+                out1, out2, ref_out = kernel(x, fmt), kernel(x, fmt), plain(x, fmt)
+                torch.cuda.synchronize()
+                check(all(torch.equal(p, q) for p, q in zip(out1, out2)),
+                      f"{name} {fmt} {shape}: two runs differ")
+                check(torch.equal(out1[0], ref_out[0]) and torch.equal(out1[1], ref_out[1]),
+                      f"{name} {fmt} {shape}: deq/scales differ from the plain version")
+                if len(out1) == 3:
+                    check(torch.allclose(out1[2], ref_out[2], rtol=STATS_RTOL, atol=1e-7),
+                          f"{name} {fmt} {shape}: stats differ from the plain version")
+                max_err = max([max_err] + [float((p - q).abs().max())
+                                           for p, q in zip(out1, ref_out)])
+            rows = x.numel() // shape[-1]
+            bound_us, bound_by = _wire_bound(rows, shape[-1], shape[0] if len(shape) == 3
+                                             else 1, len(shape) == 3)
+            t = dict(shape=list(shape), max_abs_err=max_err,
+                     kernel_us=_time_us(kernel, x, "int8"), plain_us=_time_us(plain, x, "int8"),
+                     kernel_dev_us=_graph_time_us(kernel, x, "int8"),
+                     plain_dev_us=_graph_time_us(plain, x, "int8"),
+                     kernel_cold_us=_cold_time_us(kernel, x, "int8"),
+                     bound_us=bound_us, bound_by=bound_by)
+            out[name].append(t)
+    for name, shapes in out.items():
+        for t in shapes:
+            log(f"phase1 {name} at {tuple(t['shape'])} (phase 2e's replica form): equal to "
+                f"plain (max_abs_err={t['max_abs_err']:.3e}); kernel_us={t['kernel_us']:.3f} "
+                f"plain_us={t['plain_us']:.3f} bound_us={t['bound_us']:.4f} "
+                f"({t['bound_by']}); replayed (L2 warm): kernel_us={t['kernel_dev_us']:.3f} "
+                f"plain_us={t['plain_dev_us']:.3f}; one call L2-cold: "
+                f"kernel_us={t['kernel_cold_us']:.3f}")
+    return out
 
 
 def _check_batched_stats() -> float:
@@ -1822,6 +1920,251 @@ def phase_multiround(main):
     return out
 
 
+#: phase 2e: the sweep's seeds and horizon (rounds 0 and T - 1 always
+#: evaluate, so T = 3 is the least at which a block of 2 fuses two rounds),
+#: the pool's jobs' horizons and lanes, and the tolerances against the solo
+#: runs (a replica's slots take other reduction layouts on the card)
+SWEEP_SEEDS = (0, 1, 2)
+SWEEP_T = 3
+POOL_T = (2, 2, 3, 3)
+POOL_LANES = 2
+REPLICA_RTOL = 1e-4
+REPLICA_ACC_TOL = 5 / 7000
+REPLICA_FLOATS = ("val_losses", "train_losses", "test_acc")
+
+
+def _replica_compare(solo, hist):
+    """A sweep replica's or pooled job's History against its solo run's:
+    (the decisions that differ, as messages — a field the replica does not
+    record, the sweep's ``accepted`` and ``detections``, is skipped; the
+    losses' largest relative gap; test_acc's largest gap; the float fields
+    bit-equal in every round)."""
+    import numpy as np
+    if len(solo.rounds) != len(hist.rounds):
+        return [f"{len(hist.rounds)} rounds, want {len(solo.rounds)}"], float("inf"), 1.0, []
+    diffs, worst, acc = [], 0.0, 0.0
+    for rs, rh in zip(solo.rounds, hist.rounds):
+        diffs += [f"round {rs['round']}: {k} {rh[k]} != {rs[k]}"
+                  for k in MULTIROUND_DECISIONS + ("honest_cluster_exists",)
+                  if k in rh and rh[k] != rs[k]]
+        for k in ("val_losses", "train_losses"):
+            a, b = np.asarray(rs[k], np.float64), np.asarray(rh[k], np.float64)
+            worst = max(worst, float(np.max(np.abs(a - b) / np.abs(a))))
+        if ("test_acc" in rs) != ("test_acc" in rh):
+            diffs.append(f"round {rs['round']}: test_acc recorded in one run only")
+        elif "test_acc" in rs:
+            acc = max(acc, abs(rs["test_acc"] - rh["test_acc"]))
+    equal = [k for k in REPLICA_FLOATS
+             if all(rs.get(k) == rh.get(k) for rs, rh in zip(solo.rounds, hist.rounds))]
+    return diffs, worst, acc, equal
+
+
+def _sweep_pool_pass(main, label: str, sweep_blocks, tmp: str) -> dict:
+    """One pass of phase 2e (see :func:`phase_sweep_pool`); ``label`` names
+    the cuDNN mode in the log."""
+    import dataclasses
+    import os
+
+    import torch
+    from repro_torch.core import LABEL_FLIP, Attack, run_pigeon, run_pigeon_sweep
+    from repro_torch.core.jobs import JobSpec, run_job_pool
+    from repro_torch.data import plan_blocks
+    from repro_torch.kernels import build
+    from repro_torch.telemetry import MemorySink, Telemetry
+
+    data, cfg, module, pcfg, kw = main
+    m_bar = pcfg.M // pcfg.R
+    out, found = {}, []
+
+    def timed(name, fn, want):
+        sink = MemorySink()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        result = fn(Telemetry(sinks=(sink,)))
+        torch.cuda.synchronize()
+        rec = dict(seconds=time.perf_counter() - t0, launches=dict(build.LAUNCHES),
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9, spans=_span_totals(sink))
+        if want is not None:
+            check(rec["launches"] == want_launches(**want),
+                  f"phase2e{label} {name}: launches {rec['launches']}, want {want}")
+        return result, rec, sink
+
+    def held(name, solo, hist):
+        diffs, worst, acc, equal = _replica_compare(solo, hist)
+        found.append((name, diffs, worst, acc))
+        log(f"phase2e{label} {name} vs its solo run: decisions differ {diffs}; losses' "
+            f"largest relative gap {worst!r}; test_acc's largest gap {acc!r}; bit-equal "
+            f"float fields {equal}")
+        return dict(max_rel_diff=worst, test_acc_gap=acc, bit_equal=equal)
+
+    def wire(rounds):
+        return dict(quant_dequant=rounds * m_bar * pcfg.E,
+                    quant_dequant_stats=rounds * m_bar * pcfg.E)
+
+    # the sweep against three solo runs
+    sweep_cfg = dataclasses.replace(pcfg, T=SWEEP_T, eval_every=SWEEP_T)
+    solos, solo_s = {}, 0.0
+    for seed in SWEEP_SEEDS:
+        solos[seed], rec, _ = timed(
+            f"solo seed {seed}", lambda tel, seed=seed: run_pigeon(
+                module, data, dataclasses.replace(sweep_cfg, seed=seed), engine="batched",
+                telemetry=tel, **kw), dict(**wire(SWEEP_T), tamper_check_sums=SWEEP_T))
+        solo_s += rec["seconds"]
+    out["solo_seconds_per_round"] = solo_s / (SWEEP_T * len(SWEEP_SEEDS))
+    for block in sweep_blocks:
+        name = f"sweep block {block}"
+        STRICT.clear()
+        hists, rec, sink = timed(name, lambda tel, block=block: run_pigeon_sweep(
+            module, data, sweep_cfg, seeds=SWEEP_SEEDS, block=block, telemetry=tel, **kw),
+            wire(SWEEP_T))
+        segments = plan_blocks(0, SWEEP_T, block, lambda t: t % SWEEP_T == 0
+                               or t == SWEEP_T - 1)
+        kind = "block" if block > 1 else "round"
+        check(STRICT.get("sweep_block") == len(segments),
+              f"phase2e{label} {name}: {STRICT} sync-debug sweep_block calls, want "
+              f"{len(segments)}")
+        check(rec["spans"][f"{kind}.fetch"][0] == len(segments),
+              f"phase2e{label} {name}: {rec['spans'][f'{kind}.fetch'][0]} {kind}.fetch "
+              f"spans, want one a block ({len(segments)})")
+        rec.update(seconds_per_round=rec["seconds"] / SWEEP_T,
+                   replicas={seed: held(f"{name} seed {seed}", solos[seed], h)
+                             for seed, h in zip(SWEEP_SEEDS, hists)})
+        log(f"phase2e{label} {name}: {SWEEP_T} rounds of {len(SWEEP_SEEDS)} seeds in "
+            f"{rec['seconds']:.3f} s ({rec['seconds_per_round']:.3f} s a round; three solo "
+            f"runs {3 * out['solo_seconds_per_round']:.3f} s a round); peak "
+            f"{rec['peak_gb']:.2f} GB; launches {rec['launches']}; spans {rec['spans']}")
+        out[f"sweep_block{block}"] = rec
+
+    # the pool against each job's solo run; job1 checkpoints
+    def spec(i):
+        bad = {0, 1, 2, 3} if i % 2 == 0 else {4, 5, 6, 7}
+        return JobSpec(name=f"job{i}", module=module, data=data,
+                       pcfg=dataclasses.replace(pcfg, seed=i, T=POOL_T[i], eval_every=POOL_T[i]),
+                       malicious=bad, attack=Attack(LABEL_FLIP), quant=kw["quant"],
+                       selection=kw["selection"],
+                       **(dict(checkpoint_path=os.path.join(tmp, f"job{i}{label.strip()}"),
+                               checkpoint_every=2) if i == 1 else {}))
+
+    specs = [spec(i) for i in range(len(POOL_T))]
+    STRICT.clear()
+    pooled, rec, sink = timed("pool", lambda tel: run_job_pool(
+        specs, block=2, lanes=POOL_LANES, prefetch=1, telemetry=tel, device=kw["device"]),
+        None)
+    steps = [e for e in sink.of("span") if e["name"] == "pool.step"]
+    pool_rounds = sum(e["k"] for e in steps)
+    blocks = sink.of("pool_block")
+    want = dict(**wire(pool_rounds), tamper_check_sums=pool_rounds)
+    check(rec["launches"] == want_launches(**want),
+          f"phase2e{label} pool: launches {rec['launches']} over {pool_rounds} pool rounds, "
+          f"want {want} (one B1 a pool round)")
+    check(STRICT.get("pool_accept_block") == len(blocks) == len(steps)
+          and rec["spans"]["pool.fetch"][0] == len(blocks),
+          f"phase2e{label} pool: {STRICT} sync-debug calls, {len(steps)} pool.step and "
+          f"{rec['spans'].get('pool.fetch')} pool.fetch spans for {len(blocks)} blocks")
+    job_rounds = sum(POOL_T)
+    solo_s = 0.0
+    rec["jobs"] = {}
+    for sp in specs:
+        solo, srec, _ = timed(f"solo {sp.name}", lambda tel, sp=sp: run_pigeon(
+            module, data, sp.pcfg, engine="batched", block=2, prefetch=1, telemetry=tel,
+            **{**kw, "malicious": sp.malicious}), dict(**wire(sp.pcfg.T),
+                                                       tamper_check_sums=sp.pcfg.T))
+        solo_s += srec["seconds"]
+        rec["jobs"][sp.name] = held(f"pool {sp.name}", solo, pooled[sp.name])
+    rec.update(pool_rounds=pool_rounds, blocks=len(blocks),
+               seconds_per_job_round=rec["seconds"] / job_rounds,
+               solo_seconds_per_round=solo_s / job_rounds)
+    log(f"phase2e{label} pool: {len(specs)} jobs ({job_rounds} job-rounds) on "
+        f"{POOL_LANES} lanes in {len(blocks)} blocks, {pool_rounds} pool rounds, "
+        f"{rec['seconds']:.3f} s ({rec['seconds_per_job_round']:.3f} s a job-round; solo "
+        f"block 2/prefetch 1 {rec['solo_seconds_per_round']:.3f} s a round); peak "
+        f"{rec['peak_gb']:.2f} GB; launches {rec['launches']}; spans {rec['spans']}")
+    out["pool"] = rec
+
+    # job1's checkpoint (round 1) resumed under run_pigeon to T = 3
+    cont = dataclasses.replace(specs[1].pcfg, T=3, eval_every=3)
+    solo_kw = {**kw, "malicious": specs[1].malicious}
+    full = run_pigeon(module, data, cont, engine="batched", **solo_kw)
+    resumed = run_pigeon(module, data, cont, engine="batched", block=2,
+                         checkpoint_path=specs[1].checkpoint_path, checkpoint_every=2,
+                         resume=True, **solo_kw)
+    check([r["round"] for r in resumed.rounds] == [2],
+          f"phase2e{label} resume: rounds {[r['round'] for r in resumed.rounds]}, want [2]")
+    out["resume"] = held("pool checkpoint resumed solo", type(full)(rounds=full.rounds[2:]),
+                         resumed)
+    for name, diffs, worst, acc in found:
+        check(not diffs, f"phase2e{label} {name}: decisions differ from the solo run: {diffs}")
+        check(worst <= REPLICA_RTOL, f"phase2e{label} {name}: losses {worst} apart > rtol "
+                                     f"{REPLICA_RTOL}")
+        check(acc <= REPLICA_ACC_TOL, f"phase2e{label} {name}: test_acc {acc} apart > "
+                                      f"{REPLICA_ACC_TOL}")
+    out["largest_gap"] = dict(losses=max(w for _, _, w, _ in found),
+                              test_acc=max(a for _, _, _, a in found))
+    return out
+
+
+#: RoundRunner entries phase 2e ran under sync-debug "error", by name
+STRICT: dict = {}
+
+
+def phase_sweep_pool(main):
+    """Phase 2e: the multi-seed sweep and the job pool on the batched main
+    path (phase 2b's configuration).  The sweep: seeds 0-2, T = 3 (eval at
+    rounds 0 and 2), block 1 and 2, each replica held against a solo
+    ``run_pigeon(engine="batched")`` of its seed.  The pool: 4 jobs (T = 2,
+    2, 3, 3; label flip on clients 0-3 or 4-7) on 2 lanes (a lane refilled),
+    block 2, prefetch 1, each job held against its solo run; job1 checkpoints
+    in the pool and resumes under ``run_pigeon`` (the tail against the
+    uninterrupted run).  Decisions exactly, losses within REPLICA_RTOL,
+    test_acc within REPLICA_ACC_TOL; every ``sweep_block`` and
+    ``pool_accept_block`` under sync-debug "error"; B2 and B3 160 a round
+    (M_bar * E) whatever the slots, B1 one a pool round and none in the sweep;
+    one ``block.fetch`` (``round.fetch`` at block 1) a sweep block and one
+    ``pool.fetch`` a pool block; seconds a round and peak memory beside the
+    solo runs'.  Then the sweep at block 2 and the pool again under
+    deterministic cuDNN, the same checks, with the float fields bit-equal to
+    the solo runs' reported."""
+    import tempfile
+
+    import torch
+    from repro_torch.core.runner import RoundRunner
+
+    originals = {name: getattr(RoundRunner, name) for name in ("sweep_block",
+                                                              "pool_accept_block")}
+
+    def strict(name):
+        def entry(self, *args):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                result = originals[name](self, *args)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            STRICT[name] = STRICT.get(name, 0) + 1
+            return result
+        return entry
+
+    for name in originals:
+        setattr(RoundRunner, name, strict(name))
+    try:
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+            out = _sweep_pool_pass(main, "", (1, 2), tmp)
+            with _deterministic_cudnn():
+                out["deterministic"] = _sweep_pool_pass(main, " deterministic", (2,), tmp)
+    finally:
+        for name, fn in originals.items():
+            setattr(RoundRunner, name, fn)
+    log(f"phase2e: decisions equal to the solo runs; largest gaps {out['largest_gap']} "
+        f"(deterministic cuDNN {out['deterministic']['largest_gap']}); sweep s a round "
+        f"{out['sweep_block1']['seconds_per_round']:.3f} (block 1), "
+        f"{out['sweep_block2']['seconds_per_round']:.3f} (block 2) vs three solo runs "
+        f"{3 * out['solo_seconds_per_round']:.3f}; pool s a job-round "
+        f"{out['pool']['seconds_per_job_round']:.3f} vs solo "
+        f"{out['pool']['solo_seconds_per_round']:.3f}")
+    return out
+
+
 def phase_mnist():
     from repro_torch.core import GRADIENT, Attack, ProtocolConfig, from_cnn
     from repro_torch.data import build_image_task
@@ -2782,6 +3125,7 @@ def main() -> None:
     launches, b_per_round = phase_cifar_batched(main_path, seq_hist, s_per_round)
     baselines = phase_baselines(main_path)
     multiround = phase_multiround(main_path)
+    sweep_pool = phase_sweep_pool(main_path)
     phase_mnist()
     phase_cpu_vs_card()
     phase_lm_cpu_vs_card()
@@ -2830,6 +3174,8 @@ def main() -> None:
     # call after an L2 flush (l2_cold), the figure to hold against bound_ms.
     by_path = {"sequential": seq_launches, "batched": launches,
                **{name: b["launches"] for name, b in baselines.items()},
+               "sweep": sweep_pool["sweep_block2"]["launches"],
+               "pool": sweep_pool["pool"]["launches"],
                "serve": serve["launches"],
                "train": train["launches"],
                **{f"round_{q}": r["launches"] for q, r in rounds.items()},
@@ -2869,6 +3215,14 @@ def main() -> None:
                      library_device_ms=ms(k.get("library_dev_us")))
         if name in wire_kernels:
             entry["kernels"] = wire_kernels[name]
+        if "replica_shapes" in k:
+            # phase 2e's shapes: the sweep's S * R and the pool's J * R slots
+            entry["replica_shapes"] = [dict(
+                shape=t["shape"], max_abs_err=t["max_abs_err"], ms=ms(t["kernel_us"]),
+                device_ms_l2_warm=ms(t["kernel_dev_us"]),
+                device_ms_l2_cold=ms(t["kernel_cold_us"]), plain_ms=ms(t["plain_us"]),
+                plain_device_ms=ms(t["plain_dev_us"]), bound_ms=ms(t["bound_us"]),
+                bound_by=t["bound_by"]) for t in k["replica_shapes"]]
         if name == "tamper_check_sums":
             # the path's aliased call above; distinct inputs and the
             # calibration reads (torch.sum of the same bytes) beside it
@@ -2936,7 +3290,7 @@ def main() -> None:
         entries.append(entry)
     log(f"phase2 seconds_per_round={s_per_round:.3f}; phase2b (batched) "
         f"seconds_per_round={b_per_round:.3f}; phase2c baselines {baselines}; "
-        f"phase2d multiround {multiround}; "
+        f"phase2d multiround {multiround}; phase2e sweep and pool {sweep_pool}; "
         f"phase6 serve {serve}; phase7 train {train}; "
         f"phase8 rounds {rounds}; phase9 xlstm {xlstm}")
     log(json.dumps({"kernels": entries}))

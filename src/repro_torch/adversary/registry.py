@@ -85,6 +85,15 @@ class AttackVec:
         lane a client (SplitFed trains every client at once)."""
         return self._map(lambda a: a.reshape(-1), lambda h: h.reshape(-1))
 
+    @staticmethod
+    def cat(avecs: Sequence["AttackVec"]) -> "AttackVec":
+        """L round grids, each ``(R, M_bar)``, as one ``(L * R, M_bar)``
+        grid, replica-major: the lanes of the replica form (the sweep's
+        seeds, the pool's jobs) in one stacked round."""
+        return AttackVec(**{name: torch.cat([getattr(a, name) for a in avecs])
+                            for name in LANES},
+                         host_code=np.concatenate([a.host_code for a in avecs]))
+
 
 @dataclasses.dataclass(frozen=True)
 class AttackFamily:

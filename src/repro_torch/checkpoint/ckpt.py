@@ -160,5 +160,19 @@ def restore_protocol_state(rng: np.random.Generator, seed_gen: torch.Generator,
     param_gen.set_state(torch.tensor(metadata["param_gen"], dtype=torch.uint8))
 
 
-__all__ = ["CorruptCheckpointError", "load_checkpoint", "protocol_state_metadata",
-           "restore_protocol_state", "restore_pytree", "save_checkpoint"]
+def job_checkpoint_metadata(t: int, stream_snap: Dict[str, Any],
+                            job: Optional[str] = None) -> Dict[str, Any]:
+    """Checkpoint metadata for one protocol run's round ``t``: the round
+    index and the :func:`protocol_state_metadata` snapshot a solo run
+    stores, plus (for a job of the pool) the job's name — the layout is a
+    solo run's, so a job checkpointed in the pool resumes under
+    ``run_pigeon`` and the other way round."""
+    meta = {"round": t, **stream_snap}
+    if job is not None:
+        meta["job"] = job
+    return meta
+
+
+__all__ = ["CorruptCheckpointError", "job_checkpoint_metadata", "load_checkpoint",
+           "protocol_state_metadata", "restore_protocol_state", "restore_pytree",
+           "save_checkpoint"]

@@ -14,13 +14,14 @@ from .attacks import (ACTIVATION, GRADIENT, HONEST, KINDS, LABEL_FLIP, NONE, PAR
                       Attack, AttackVec, attack_vec, attack_vec_for_clusters)
 from .clustering import cluster_is_honest, has_honest_cluster, make_clusters
 from .comm import QUANT_FORMATS, CommConfig, fp8_supported, message_bytes, resolve_quant
-from .engine import train_round_batched
+from .engine import run_pigeon_sweep, train_round_batched
+from .jobs import JobPool, JobSpec, run_job_pool
 from .protocol import (ENGINES, PLACEMENTS, ClientData, CommMeter, History,
                        ProtocolConfig, check_block, evaluate, run_pigeon, run_pigeon_plus,
-                       run_pigeon_sweep, run_splitfed, run_vanilla_sl, train_cluster)
+                       run_splitfed, run_vanilla_sl, train_cluster)
 from .runner import (RoundRunner, RoundSpec, VerifyConfig, cluster_map, onehot_select,
                      protocol_accept_runner, protocol_round_spec, protocol_runner,
-                     select_map)
+                     select_map, sweep_map)
 from .split import (SplitModule, client_update, client_update_stats, from_cnn, from_lm,
                     message_stats, sgd_update, sl_minibatch_grads, sl_minibatch_grads_vec)
 from .validation import (check_handoff, handoff_activations, select_cluster,
@@ -40,7 +41,8 @@ __all__ = [
     "run_pigeon", "run_pigeon_plus", "run_splitfed", "run_vanilla_sl",
     "run_pigeon_sweep", "train_round_batched", "onehot_select",
     "PLACEMENTS", "RoundRunner", "RoundSpec", "VerifyConfig", "cluster_map",
-    "select_map", "protocol_round_spec", "protocol_runner", "protocol_accept_runner",
+    "select_map", "sweep_map", "protocol_round_spec", "protocol_runner",
+    "protocol_accept_runner", "JobSpec", "JobPool", "run_job_pool",
     "SelectionPolicy", "MedianOfMeansPolicy", "LossPlusDistancePolicy",
     "TrimmedPolicy", "resolve_policy", "selection_policies",
     "SplitModule", "client_update", "client_update_stats", "from_cnn", "from_lm",

@@ -27,21 +27,28 @@ Round blocks: :func:`assemble_block` gathers K rounds' batches into one
 consuming the streams exactly as K per-round assemblies would, and
 :func:`pigeon_block_accept` / :func:`splitfed_block_accept` run the K
 rounds through ``RoundRunner.accept_block`` with one fetch a block.
+
+The multi-seed sweep (:func:`run_pigeon_sweep`): S whole Pigeon-SL replicas
+in lockstep, each seed's streams those of its solo ``run_pigeon(engine=
+"batched")``, trained as one stacked program of S * R slots
+(``RoundRunner.sweep``, the replica form), each seed selecting its own
+winner; one fetch a round or a block.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 import torch
 
-from ..adversary import ThreatModel
+from .. import DeviceLike, resolve_device
+from ..adversary import HONEST, Attack, AttackVec, ThreatModel, resolve_threat_model
 from ..telemetry import NULL_SESSION
-from .clustering import make_clusters
-from .protocol import (ClientData, CommMeter, ProtocolConfig, _count_params,
+from .clustering import cluster_is_honest, make_clusters
+from .protocol import (ClientData, CommMeter, History, ProtocolConfig, _count_params,
                        account_client_turn, account_handoff_recheck,
-                       round_client_seeds, sample_batch_idx)
+                       round_client_seeds, sample_batch_idx, visited_candidates)
 from .runner import (RoundRunner, RoundSpec, VerifyConfig, protocol_accept_runner,
                      protocol_round_spec, protocol_runner)
 from .split import (SplitModule, _stacked, client_update_vec_impl,
@@ -199,13 +206,6 @@ def pigeon_round_accept(module: SplitModule, theta, clusters, data: ClientData,
         account_handoff_recheck(meter, pcfg, int(x0.shape[0]), d_c,
                                 visited_candidates(detections, accepted))
     return theta, _record(vlosses, tlosses, selected, detections, accepted)
-
-
-def visited_candidates(detections: int, accepted: bool) -> int:
-    """The candidates the cascade inspected, each one R-recipient handoff
-    re-transmission as the host cascade charges it: the failures and the
-    accepted one."""
-    return detections + (1 if accepted else 0)
 
 
 def _record(vlosses, tlosses, selected, detections, accepted) -> Dict[str, Any]:
@@ -469,10 +469,186 @@ def splitfed_block_accept(module: SplitModule, theta, clusters_k, pcfg: Protocol
                          NULL_SESSION if telemetry is None else telemetry)
 
 
+# ---------------------------------------------------------------------------
+# the multi-seed sweep: S whole protocol replicas in lockstep
+# ---------------------------------------------------------------------------
+
+def sweep_round(module: SplitModule, lr: float, thetas, inputs, val, policy=None,
+                quant: Optional[str] = None):
+    """One global round of S independent protocol replicas through
+    ``RoundRunner.sweep``: per seed the cluster-parallel round, the
+    policy's selection and the winner's carry, all S * R clusters as one
+    stacked program.  ``thetas`` is the list of S thetas (updated in
+    place); ``inputs`` the replica round payload
+    (``runner.protocol_round_spec``).  Returns ``(thetas, train_aux (S, R,
+    ...), vlosses (S, R), sels (S,))``, on the device."""
+    with_stats = policy is not None and policy.needs_message_stats
+    return protocol_runner(module, lr, with_stats, policy, quant).sweep(thetas, inputs, val)
+
+
+@torch.no_grad()
+def evaluate_sweep(module: SplitModule, gammas, phis, x_test: np.ndarray,
+                   y_test: np.ndarray, batch: int = 500) -> np.ndarray:
+    """Per-seed test accuracy: each seed's ``module.predict`` over the test
+    set in :func:`~repro_torch.core.protocol.evaluate`'s chunks (so each
+    count is its solo run's), the correct counts kept on the device in one
+    ``(S,)`` vector and fetched once."""
+    if x_test.shape[0] == 0:
+        return np.zeros(len(gammas))
+    device = next(gammas[0].parameters()).device
+    correct = torch.zeros(len(gammas), dtype=torch.int64, device=device)
+    for i in range(0, x_test.shape[0], batch):
+        xb = torch.from_numpy(x_test[i : i + batch]).to(device)
+        yb = torch.from_numpy(y_test[i : i + batch]).to(device)
+        correct += torch.stack([torch.sum(torch.argmax(module.predict(g, p, xb), dim=-1) == yb)
+                                for g, p in zip(gammas, phis)])
+    return correct.cpu().numpy() / float(np.prod(y_test.shape))   # the one fetch
+
+
+def assemble_sweep_block(rngs, seed_gens, data: ClientData, pcfg: ProtocolConfig,
+                         tm: ThreatModel, t0: int, k: int, device: Optional[torch.device]):
+    """The sweep's rounds ``t0 .. t0+k-1``: per seed, :func:`assemble_block`
+    on that seed's own streams (its solo run's order), all gathered into
+    one ``(K, S, R, M_bar, E, B, ...)`` host buffer and moved in one copy.
+    Returns ``(clusters (per seed, K partitions), the K replica round
+    payloads)``."""
+    s, m_bar = len(rngs), pcfg.M // pcfg.R
+    (xshape, xdt), (yshape, ydt) = _batch_specs(data, pcfg, (k, s, pcfg.R, m_bar))
+    xs, ys = np.empty(xshape, xdt), np.empty(yshape, ydt)
+    clusters, avecs, seeds = [], [], []
+    for i, (rng, gen) in enumerate(zip(rngs, seed_gens)):
+        clusters_k, (_, _, avecs_k, seeds_k) = assemble_block(
+            rng, gen, data, pcfg, tm, t0, k, None, out=(xs[:, i], ys[:, i]))
+        clusters.append(clusters_k)
+        avecs.append(avecs_k)
+        seeds.append(seeds_k)
+    xs_d, ys_d = torch.from_numpy(xs).to(device), torch.from_numpy(ys).to(device)
+    seeds = np.stack(seeds, axis=1)                          # (K, S, R, M_bar)
+    return clusters, [(xs_d[i], ys_d[i], AttackVec.cat([a[i] for a in avecs]).to(device),
+                       seeds[i]) for i in range(k)]
+
+
+def run_pigeon_sweep(module: SplitModule, data: ClientData, pcfg: ProtocolConfig,
+                     malicious: Optional[Set[int]] = None, attack: Attack = HONEST,
+                     seeds: Sequence[int] = (0, 1, 2), verbose: bool = False,
+                     placement: str = "vmap", threat_model: Optional[ThreatModel] = None,
+                     selection="argmin", quant: Optional[str] = None, telemetry=None,
+                     block: int = 1, *, device: DeviceLike = None) -> List[History]:
+    """S whole Pigeon-SL replicas (one a seed) advanced in lockstep: each
+    round trains the S * R clusters as one stacked program and selects each
+    seed's winner on the device (``selection``, per seed; no verify stage,
+    no rollback), one fetch a round.  Each seed's streams are its solo
+    ``run_pigeon(engine="batched")``'s (numpy, the init, the noise seeds),
+    so its History holds the solo run's clusters, selections and losses;
+    the records carry no ``accepted`` or ``detections`` (the winner always
+    carries; the CommMeter charges one handoff re-check a round).
+
+    * ``block`` — up to ``block`` rounds through ``RoundRunner.sweep_block``
+      with one fetch; blocks end at eval rounds.
+    * ``placement`` — ``"vmap"`` (one card); ``device``, ``quant``,
+      ``threat_model``, ``telemetry`` as in ``run_pigeon``.  Param-tamper
+      threat models raise: the handoff check is not modelled here."""
+    from ..data.pipeline import plan_blocks
+    from ..selection import resolve_policy
+    from ..telemetry import resolve_telemetry
+    from .comm import CommConfig
+    from .protocol import (_check_engine, _eval_round, _run_state, check_block, cut_width,
+                           replayed_meter)
+
+    _check_engine("batched", placement)
+    _stacked(module)                     # raises for a model with no stacked form
+    dev = resolve_device(device)
+    block = check_block(block, "batched", eval_every=pcfg.eval_every)
+    if quant is not None:
+        pcfg = dataclasses.replace(pcfg, comm=CommConfig(quant=quant))
+    policy = resolve_policy(selection)
+    tm = resolve_threat_model(malicious, attack, threat_model)
+    if tm.has_param_tamper:
+        raise ValueError("run_pigeon_sweep does not model the param-tamper handoff "
+                         "check; use run_pigeon(engine=...) per seed")
+    seeds = tuple(int(s) for s in seeds)
+    rngs, seed_gens, thetas = [], [], []
+    for s in seeds:                      # each seed's preamble: its solo run's
+        rng, theta, seed_gen, _, _ = _run_state(module, dataclasses.replace(pcfg, seed=s),
+                                                dev)
+        rngs.append(rng)
+        thetas.append(theta)
+        seed_gens.append(seed_gen)
+    x0 = torch.from_numpy(data.x0).to(dev)
+    y0 = torch.from_numpy(data.y0).to(dev)
+    d_o = data.x0.shape[0]
+    d_cl = _count_params(thetas[0][0])
+    d_c = cut_width(module, thetas[0][0], x0)
+    hists = [History() for _ in seeds]
+    tel = resolve_telemetry(telemetry if telemetry is not None else pcfg.telemetry,
+                            run="sweep", placement=placement, block=block, T=pcfg.T,
+                            M=pcfg.M, R=pcfg.R, seeds=list(seeds), selection=policy.name,
+                            device=str(dev))
+    runner = protocol_runner(module, pcfg.lr, policy.needs_message_stats, policy,
+                             pcfg.comm.quant)
+    segments = plan_blocks(0, pcfg.T, block, lambda t: _eval_round(t, pcfg))
+    kind = "block" if block > 1 else "round"
+    carried = dict(detections=0, accepted=True)       # the winner always carries
+    try:
+        for t0, k in segments:
+            tel.profile_tick(t0)
+            at = dict(round=t0, k=k) if block > 1 else dict(round=t0)
+            with tel.span(f"{kind}.assemble", **at):
+                clusters_sk, rounds = assemble_sweep_block(rngs, seed_gens, data, pcfg, tm,
+                                                           t0, k, dev)
+            with tel.span(f"{kind}.step", **at) as sp:
+                thetas, (vl_k, tl_k, sels_k) = runner.sweep_block(thetas, rounds, (x0, y0))
+                sp.fence(sels_k)
+            with tel.span(f"{kind}.fetch", **at):      # the round's or block's one sync
+                fetched = torch.cat([vl_k.flatten(), tl_k.flatten(),
+                                     sels_k.flatten().to(torch.float32)]).cpu().numpy()
+            n = vl_k.numel()
+            vl_k = fetched[:n].reshape(vl_k.shape)
+            tl_k = fetched[n:2 * n].reshape(vl_k.shape)
+            sels_k = fetched[2 * n:].reshape(sels_k.shape).astype(np.int64)
+            for i in range(k):
+                t = t0 + i
+                # accounting is analytic and the same for every seed
+                meter = dataclasses.asdict(replayed_meter(pcfg, clusters_sk[0][i], carried,
+                                                          d_o, d_c, d_cl))
+                accs = None
+                if _eval_round(t, pcfg):
+                    # an eval round ends its block: thetas are round t's
+                    with tel.span("round.eval", round=t):
+                        accs = evaluate_sweep(module, [th[0] for th in thetas],
+                                              [th[1] for th in thetas], data.x_test,
+                                              data.y_test, pcfg.eval_batch)
+                for j, seed in enumerate(seeds):
+                    clusters, sel = clusters_sk[j][i], int(sels_k[i, j])
+                    rec = dict(
+                        round=t,
+                        clusters=clusters,
+                        val_losses=[float(v) for v in vl_k[i, j]],
+                        train_losses=[float(v) for v in tl_k[i, j]],
+                        selected=sel,
+                        selected_honest=cluster_is_honest(clusters[sel], tm.malicious),
+                        honest_cluster_exists=any(cluster_is_honest(c, tm.malicious)
+                                                  for c in clusters),
+                        comm=dict(meter),
+                    )
+                    if accs is not None:
+                        rec["test_acc"] = float(accs[j])
+                    hists[j].rounds.append(rec)
+                    tel.record_round(t, rec, seed=seed)
+                if verbose:
+                    acc_str = "" if accs is None else " acc=" + "/".join(
+                        f"{a:.3f}" for a in accs)
+                    print(f"[sweep] t={t:3d} sel={sels_k[i].tolist()}{acc_str}")
+    finally:
+        tel.close()
+    return hists
+
+
 __all__ = ["assemble_block", "assemble_round", "assemble_round_batches",
-           "assemble_splitfed_block", "assemble_splitfed_round", "block_rounds", "fedavg",
-           "pigeon_block_accept", "pigeon_round_accept", "round_client_seeds",
+           "assemble_splitfed_block", "assemble_splitfed_round", "assemble_sweep_block",
+           "block_rounds", "evaluate_sweep", "fedavg", "pigeon_block_accept",
+           "pigeon_round_accept", "round_client_seeds", "run_pigeon_sweep",
            "splitfed_accept_runner", "splitfed_block_accept", "splitfed_round_accept",
            "splitfed_round_batched", "splitfed_round_spec", "splitfed_runner",
-           "staged_round", "train_cluster_batched", "train_round_batched",
+           "staged_round", "sweep_round", "train_cluster_batched", "train_round_batched",
            "visited_candidates"]

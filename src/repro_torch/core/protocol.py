@@ -446,6 +446,33 @@ def _evaluate_into(rec, module, theta, data: ClientData, pcfg: ProtocolConfig, t
                                        data.y_test, pcfg.eval_batch)
 
 
+def visited_candidates(detections: int, accepted: bool) -> int:
+    """The candidates the cascade inspected, each one R-recipient handoff
+    re-transmission as the host cascade charges it: the failures and the
+    accepted one."""
+    return detections + (1 if accepted else 0)
+
+
+def replayed_meter(pcfg: ProtocolConfig, clusters, sel: Dict[str, Any], d_o: int,
+                   d_c: int, d_cl: int) -> CommMeter:
+    """One fused round's charges, replayed on the host from its fetched
+    record (the block path, the sweep, the job pool): the client turns, the
+    handoff re-checks of the visited candidates, the validation pushes and
+    the winner's broadcast — what the per-round path charges as it goes."""
+    meter = CommMeter()
+    for cluster in clusters:
+        for j in range(len(cluster)):
+            account_client_turn(meter, pcfg, d_c, d_cl, handoff=j < len(cluster) - 1)
+    if pcfg.tamper_check:
+        account_handoff_recheck(meter, pcfg, d_o, d_c,
+                                visited_candidates(sel["detections"], sel["accepted"]))
+    for _ in clusters:
+        account_validation(meter, d_o, d_c)
+    if sel["accepted"]:
+        account_param_transfer(meter, pcfg.R * d_cl)
+    return meter
+
+
 def _pigeon_record(t: int, clusters, tm: ThreatModel, meter: CommMeter,
                    sel: Dict[str, Any]) -> Dict[str, Any]:
     """One round's History record out of its selection outcome."""
@@ -484,6 +511,40 @@ def _resume(checkpoint_path: str, theta, rng: np.random.Generator,
         warnings.warn(f"ignoring corrupt checkpoint {checkpoint_path!r} ({e}); "
                       f"starting from round 0", stacklevel=3)
         return 0
+
+
+def _run_state(module: SplitModule, pcfg: ProtocolConfig, dev: torch.device,
+               checkpoint_path: Optional[str] = None, resume: bool = False):
+    """A Pigeon-SL run's preamble (``run_pigeon``'s, and each job's of the
+    pool): the numpy stream, theta drawn from the CPU init stream and moved
+    to ``dev``, the two noise generators seeded from the init stream, and
+    with ``resume`` theta and the three streams restored from the
+    checkpoint.  Returns ``(rng, theta, seed_gen, param_gen, start_round)``."""
+    rng = np.random.default_rng(pcfg.seed)
+    init_gen = torch.Generator().manual_seed(pcfg.seed)
+    theta = tuple(copy.deepcopy(m).to(dev) for m in module.init(init_gen))
+    seed_gen, param_gen = _noise_generators(init_gen, dev)
+    start_round = 0
+    if resume and checkpoint_path is not None:
+        start_round = _resume(checkpoint_path, theta, rng, seed_gen, param_gen)
+    return rng, theta, seed_gen, param_gen, start_round
+
+
+def _terminal_history(module: SplitModule, theta, data: ClientData, pcfg: ProtocolConfig,
+                      checkpoint_path: Optional[str], start_round: int,
+                      who: str = "resume") -> History:
+    """The History of a resume whose checkpoint already covers the last
+    round: its restored state's test accuracy, rather than an empty
+    History."""
+    import warnings
+    warnings.warn(f"{who}: checkpoint {checkpoint_path!r} is at round "
+                  f"{start_round - 1} >= T-1 = {pcfg.T - 1}; nothing left to train "
+                  f"— returning the restored final state", stacklevel=3)
+    hist = History()
+    hist.rounds.append(dict(round=start_round - 1, resumed_terminal=True,
+                            test_acc=evaluate(module, theta[0], theta[1], data.x_test,
+                                              data.y_test, pcfg.eval_batch)))
+    return hist
 
 
 def run_pigeon(module: SplitModule, data: ClientData, pcfg: ProtocolConfig,
@@ -553,25 +614,10 @@ def run_pigeon(module: SplitModule, data: ClientData, pcfg: ProtocolConfig,
     # handoff (param-tamper) attacks draw their noise per visited candidate
     # on the host, so they pin selection to the host cascade.
     fused = engine == "batched" and not tm.has_param_tamper and not _force_host_selection
-    rng = np.random.default_rng(pcfg.seed)
-    init_gen = torch.Generator().manual_seed(pcfg.seed)
-    theta = tuple(copy.deepcopy(m).to(dev) for m in module.init(init_gen))
-    seed_gen, param_gen = _noise_generators(init_gen, dev)
-    start_round = 0
-    if resume and checkpoint_path is not None:
-        start_round = _resume(checkpoint_path, theta, rng, seed_gen, param_gen)
+    rng, theta, seed_gen, param_gen, start_round = _run_state(module, pcfg, dev,
+                                                              checkpoint_path, resume)
     if start_round >= pcfg.T:
-        # the checkpoint already covers the last round: return its state
-        # rather than an empty History
-        import warnings
-        warnings.warn(f"resume: checkpoint {checkpoint_path!r} is at round "
-                      f"{start_round - 1} >= T-1 = {pcfg.T - 1}; nothing left to train "
-                      f"— returning the restored final state", stacklevel=2)
-        hist = History()
-        hist.rounds.append(dict(round=start_round - 1, resumed_terminal=True,
-                                test_acc=evaluate(module, theta[0], theta[1], data.x_test,
-                                                  data.y_test, pcfg.eval_batch)))
-        return hist
+        return _terminal_history(module, theta, data, pcfg, checkpoint_path, start_round)
     x0 = torch.from_numpy(data.x0).to(dev)
     y0 = torch.from_numpy(data.y0).to(dev)
     d_o = data.x0.shape[0]
@@ -595,10 +641,10 @@ def run_pigeon(module: SplitModule, data: ClientData, pcfg: ProtocolConfig,
 
     def _checkpoint(t: int, snap) -> None:
         if _ckpt_due(t):
-            from ..checkpoint import save_checkpoint
+            from ..checkpoint import job_checkpoint_metadata, save_checkpoint
             with tel.span("round.checkpoint", round=t):
-                save_checkpoint(checkpoint_path, theta,
-                                {"round": t, **(snap if snap is not None else _snapshot())})
+                save_checkpoint(checkpoint_path, theta, job_checkpoint_metadata(
+                    t, snap if snap is not None else _snapshot()))
 
     if block > 1:
         # Round blocks (check_block leaves only the fused path here): K
@@ -608,7 +654,7 @@ def run_pigeon(module: SplitModule, data: ClientData, pcfg: ProtocolConfig,
         # feeder (block-indexed), so prefetch overlaps block b+1's assembly
         # with block b on the card.
         from ..data.pipeline import RoundFeeder, plan_blocks
-        from .engine import assemble_block, pigeon_block_accept, visited_candidates
+        from .engine import assemble_block, pigeon_block_accept
 
         segments = plan_blocks(start_round, pcfg.T, block,
                                lambda t: _eval_round(t, pcfg) or _ckpt_due(t))
@@ -635,20 +681,7 @@ def run_pigeon(module: SplitModule, data: ClientData, pcfg: ProtocolConfig,
                                                      telemetry=tel)
                 for i, sel in enumerate(records):
                     t, clusters = t0 + i, clusters_k[i]
-                    meter = CommMeter()
-                    # the per-round charges: client turns, handoff re-checks,
-                    # validation pushes, the winner's broadcast
-                    for cluster in clusters:
-                        for j in range(len(cluster)):
-                            account_client_turn(meter, pcfg, d_c, d_cl,
-                                                handoff=j < len(cluster) - 1)
-                    if pcfg.tamper_check:
-                        account_handoff_recheck(meter, pcfg, d_o, d_c, visited_candidates(
-                            sel["detections"], sel["accepted"]))
-                    for _ in clusters:
-                        account_validation(meter, d_o, d_c)
-                    if sel["accepted"]:
-                        account_param_transfer(meter, pcfg.R * d_cl)
+                    meter = replayed_meter(pcfg, clusters, sel, d_o, d_c, d_cl)
                     rec = _pigeon_record(t, clusters, tm, meter, sel)
                     # an eval round ends its block, so theta is round t's
                     _evaluate_into(rec, module, theta, data, pcfg, t, tel)
@@ -1024,17 +1057,11 @@ def run_splitfed(module: SplitModule, data: ClientData, pcfg: ProtocolConfig,
     return hist
 
 
-def run_pigeon_sweep(*args, **kwargs) -> History:
-    """S seeded protocol replicas in lockstep: not ported yet."""
-    from .runner import SWEEP_SLICE
-    _not_ported("run_pigeon_sweep", SWEEP_SLICE)
-
-
 __all__ = ["ClientData", "CommMeter", "ENGINES", "History", "PLACEMENTS", "ProtocolConfig",
            "account_client_turn", "check_block", "account_handoff_recheck",
            "account_param_transfer", "account_splitfed_round", "account_validation",
            "cut_width",
            "evaluate", "res_params", "res_vacts", "round_client_seeds",
-           "run_pigeon", "run_pigeon_plus", "run_pigeon_sweep", "run_splitfed",
+           "replayed_meter", "run_pigeon", "run_pigeon_plus", "run_splitfed",
            "run_vanilla_sl", "sample_batch_idx", "train_cluster",
-           "turn_generator"]
+           "turn_generator", "visited_candidates"]

@@ -15,7 +15,22 @@ that passes the handoff check.  :class:`RoundRunner` runs that round over a
     to the host; the caller fetches the one ``(2R + 3,)`` vector;
   * :meth:`RoundRunner.accept_block` — K ``accept`` rounds back to back on
     the device, their K vectors stacked into one ``(K, 2R + 3)`` tensor the
-    caller fetches once.
+    caller fetches once;
+  * :meth:`RoundRunner.sweep` / :meth:`RoundRunner.sweep_block` — S whole
+    protocol replicas (seeds) a round, each selecting its own winner, no
+    verify stage (the multi-seed sweep);
+  * :meth:`RoundRunner.pool_accept_block` — J jobs' ``accept_block`` in
+    one program, with a lane mask, one ``(J, K, 2R + 3)`` tensor a block
+    (the job pool).
+
+The sweep and the pool run the **replica form**: L thetas (``split.replicas``)
+trained as one stacked program of L * R slots, replica-major.  Every
+stacked layer and wire kernel works per slot (a replica's convolutions run
+at its solo round's shapes, ``models/cnn.py::StackedConv``), and the AP
+differentiates the sum of the slots' independent losses, so each slot gets
+exactly its own gradients: a replica computes what its solo R-slot round
+computes.  The policy and the cascade then run on each replica's own R
+rows.
 
 The reference maps its per-cluster program over the cluster axis with
 ``jax.vmap`` (``placement="vmap"``) or lays the axis over a device mesh
@@ -26,21 +41,18 @@ stacked model, which is the single-card counterpart of the vmap placement;
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Optional, Tuple
+from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
 
 from .protocol import _not_ported
+from .split import replicas
 
 #: where the parts of the reference's runner the port does not run yet will
 #: come from (ROADMAP.md Queue A)
-SWEEP_SLICE = ("ROADMAP.md Queue A item 4, the sweep and the job pool "
-               "(RoundRunner.sweep, run_pigeon_sweep)")
 LAUNCH_SLICE = ("ROADMAP.md Queue A item 5, the LM round and the launch layer "
                 "(RoundRunner.round, launch/steps.py)")
-JOB_POOL_SLICE = ("ROADMAP.md Queue A item 4, the sweep and the job pool "
-                  "(RoundRunner.pool_accept_block, jobs/)")
 
 
 # ---------------------------------------------------------------------------
@@ -66,12 +78,36 @@ def commit(plain: nn.Module, stacked: nn.Module, sel: torch.Tensor,
     return plain
 
 
+class LaneVal(NamedTuple):
+    """Validation sets one per replica, ``x0 (L, D_o, ...)`` and ``y0 (L,
+    D_o)`` (the pool's jobs each bring their own); a plain ``(x0, y0)``
+    pair is shared by every slot."""
+    x0: torch.Tensor
+    y0: torch.Tensor
+
+
+def slot_val(val, n: int):
+    """``(x0, y0)`` for an n-slot stack: a shared set broadcast to every
+    slot (x0 a view, y0 as it is), or a :class:`LaneVal` repeated over each
+    replica's n / L slots."""
+    x0, y0 = val
+    if not isinstance(val, LaneVal):
+        return x0.expand((n,) + tuple(x0.shape)), y0
+
+    def per_slot(a):
+        lanes, rest = a.shape[0], tuple(a.shape[1:])
+        return a[:, None].expand((lanes, n // lanes) + rest).reshape((n,) + rest)
+
+    return per_slot(x0), per_slot(y0)
+
+
 @dataclasses.dataclass(frozen=True)
 class RoundSpec:
     """The programs of one Pigeon round over the cluster-stacked model.
 
     ``train_cluster(theta, inputs) -> (stacked_params, train_aux)`` — every
-    cluster's training phase from theta, all R at once.
+    cluster's training phase from theta, all R at once; in the replica form
+    (``theta`` a list of L thetas, the sweep and the pool) all L * R.
 
     ``validate(stacked_params, val) -> (vlosses (R,), val_aux)`` — the
     shared-set validation forward (Section III-C); ``val_aux`` holds the
@@ -184,11 +220,64 @@ def _spec_train_summary(spec: RoundSpec, aux, vlosses):
     return spec.train_summary(aux).to(torch.float32)
 
 
+def _rows(tree, rows: slice):
+    """Rows ``rows`` of every tensor of a train aux (a tensor or a tuple)."""
+    if isinstance(tree, tuple):
+        return tuple(_rows(t, rows) for t in tree)
+    return tree[rows]
+
+
+def _by_replica(tree, n: int):
+    """(n * R, ...) -> (n, R, ...) for every tensor of a train aux."""
+    if isinstance(tree, tuple):
+        return tuple(_by_replica(t, n) for t in tree)
+    return tree.reshape((n, -1) + tuple(tree.shape[1:]))
+
+
+def replica_scores(spec: RoundSpec, policy, aux, vlosses, shard_losses, n: int):
+    """Each of n replicas' ``(rows, scores, eligibility)``: the policy on
+    that replica's own R rows of the stacked round's outcome, so its scores
+    are the ones its solo round computes (a policy's robust z-scores run
+    across the round's clusters and clients)."""
+    r = vlosses.shape[0] // n
+    out = []
+    for l in range(n):
+        rows = slice(l * r, (l + 1) * r)
+        ctx = policy_context(spec, policy, _rows(aux, rows), vlosses[rows],
+                             None if shard_losses is None else shard_losses[rows])
+        out.append((rows, *policy_scores(policy, ctx)))
+    return out
+
+
+def sweep_map(spec: RoundSpec, params, inputs, val, policy=None):
+    """One global round of S independent protocol replicas as one stacked
+    program of S * R slots: per replica, the policy's winner over its own R
+    scores (:func:`masked_argmin`; no verify stage and no rollback — the
+    winner always carries), written into that replica's theta in place.
+    ``params`` is the list of S thetas; ``inputs`` the replica round
+    payload (``protocol_round_spec``).  Returns ``(params, train_aux (S, R,
+    ...), vlosses (S, R), sels (S,))``, all on the device: nothing is read
+    back."""
+    from ..selection import ARGMIN
+    policy = ARGMIN if policy is None else policy
+    thetas = replicas(params)
+    new_p, aux, vlosses, _, shard_l = select_map(spec, policy, thetas, inputs, val)
+    scored = replica_scores(spec, policy, aux, vlosses, shard_l, len(thetas))
+    sels = torch.stack([masked_argmin(scores, elig) for _, scores, elig in scored])
+    carry = torch.ones((), dtype=torch.bool, device=vlosses.device)
+    for (rows, _, _), sel, theta in zip(scored, sels, thetas):
+        for plain, stacked in zip(theta, new_p):
+            commit(plain, stacked, rows.start + sel, carry)
+    n = len(thetas)
+    return thetas, _by_replica(aux, n), vlosses.reshape(n, -1), sels
+
+
 class RoundRunner:
     """Runs a :class:`RoundSpec` on one card; see the module docstring for
-    the two entries.  ``select`` binds a
+    the entries.  ``select`` binds a
     :class:`~repro_torch.selection.SelectionPolicy` (default argmin);
-    ``verify`` configures :meth:`accept`'s tamper-check stage."""
+    ``verify`` configures the tamper-check stage of :meth:`accept` and of
+    the entries built on it."""
 
     def __init__(self, spec: RoundSpec, *, select=None,
                  verify: Optional[VerifyConfig] = None):
@@ -212,44 +301,73 @@ class RoundRunner:
         """Per-candidate handoff verification: the transmission (re-derived
         from the handed-off parameters under ``verify.recompute``, else the
         validation activations themselves, see :class:`VerifyConfig`)
-        against the validation-time activations, all R candidates in one
-        ``tamper_verdict`` call (one launch of B1 on the card; the aliased
-        call reads the activations once).  Returns the (R,) bool pass mask
-        and the distances."""
+        against the validation-time activations, all candidates of the
+        stack (R, or L * R in the replica form) in one ``tamper_verdict``
+        call (one launch of B1 on the card; the aliased call reads the
+        activations once).  Returns the bool pass mask and the distances."""
         from ..kernels.ops import tamper_verdict
         if self.verify.recompute:
             return tamper_verdict(vaux, self.spec.handoff_acts(new_p, val),
                                   self.verify.tol)
         return tamper_verdict(vaux, vaux, self.verify.tol)
 
+    def _accept_lanes(self, params, inputs, val, active=None):
+        """The fused cascade over one theta or the replica form: train and
+        validate every slot, verify every candidate in one call, then per
+        replica score, rank and commit its winner into its theta in place
+        (kept where every candidate fails, and where ``active``, an (L,)
+        bool device mask, is False).  Returns ``(thetas, fetches (L, 2R +
+        3))``, the fetches on the device."""
+        from ..selection import masked_first_accept, pack_fetch
+        self._check_verify()
+        spec, policy = self.spec, self.select
+        thetas = replicas(params)
+        new_p, aux, vlosses, vaux, shard_l = select_map(spec, policy, params, inputs,
+                                                        val)
+        if self.verify.enabled:
+            passed, _ = self._verify_passed(new_p, vaux, val)
+        else:
+            passed = torch.ones_like(vlosses, dtype=torch.bool)
+        summary = _spec_train_summary(spec, aux, vlosses)
+        fetches = []
+        for l, (rows, scores, elig) in enumerate(
+                replica_scores(spec, policy, aux, vlosses, shard_l, len(thetas))):
+            sel, det, acc = masked_first_accept(scores, elig, passed[rows])
+            keep = acc if active is None else acc & active[l]
+            for plain, stacked in zip(thetas[l], new_p):
+                commit(plain, stacked, rows.start + sel, keep)
+            fetches.append(pack_fetch(vlosses[rows], summary[rows], sel, det, acc))
+        return thetas, torch.stack(fetches)
+
     def accept(self, params, inputs, val):
         """The fused round acceptance: ``(committed theta, fetch)``.  The
         winner is written into ``params``' modules in place (kept as they
         were when every candidate fails); ``fetch`` is the
         ``selection.pack_fetch`` vector, still on the device."""
-        from ..selection import masked_first_accept, pack_fetch
-        self._check_verify()
-        spec, policy = self.spec, self.select
-        new_p, aux, vlosses, vaux, shard_l = select_map(spec, policy, params,
-                                                        inputs, val)
-        ctx = policy_context(spec, policy, aux, vlosses, shard_l)
-        scores, elig = policy_scores(policy, ctx)
-        if self.verify.enabled:
-            passed, _ = self._verify_passed(new_p, vaux, val)
-        else:
-            passed = torch.ones_like(elig)
-        sel, det, acc = masked_first_accept(scores, elig, passed)
-        committed = tuple(commit(plain, stacked, sel, acc)
-                          for plain, stacked in zip(params, new_p))
-        fetch = pack_fetch(vlosses, _spec_train_summary(spec, aux, vlosses),
-                           sel, det, acc)
-        return committed, fetch
+        thetas, fetches = self._accept_lanes(params, inputs, val)
+        return thetas[0], fetches[0]
 
     def round(self, *args):
         _not_ported("RoundRunner.round", LAUNCH_SLICE)
 
-    def sweep(self, *args):
-        _not_ported("RoundRunner.sweep", SWEEP_SLICE)
+    def sweep(self, params, inputs, val):
+        """One round of S replicas: :func:`sweep_map` under this runner's
+        policy."""
+        return sweep_map(self.spec, params, inputs, val, self.select)
+
+    def sweep_block(self, params, block_inputs, val):
+        """K :meth:`sweep` rounds back to back: ``(params, (vlosses (K, S,
+        R), train losses (K, S, R), sels (K, S)))``, the train losses each
+        cluster's mean client loss (the spec's ``train_summary``).  The
+        caller fetches the three once; nothing here reads the device
+        back."""
+        vls, tls, sels = [], [], []
+        for inputs in block_inputs:
+            params, aux, vlosses, sel = self.sweep(params, inputs, val)
+            vls.append(vlosses)
+            tls.append(_spec_train_summary(self.spec, aux, vlosses))
+            sels.append(sel)
+        return params, (torch.stack(vls), torch.stack(tls), torch.stack(sels))
 
     def accept_block(self, params, block_inputs, val):
         """K fused acceptance rounds back to back: ``(committed theta,
@@ -266,8 +384,26 @@ class RoundRunner:
             fetches.append(fetch)
         return params, torch.stack(fetches)
 
-    def pool_accept_block(self, *args):
-        _not_ported("RoundRunner.pool_accept_block", JOB_POOL_SLICE)
+    def pool_accept_block(self, params_j, block_inputs, val_j, active_j):
+        """J jobs' round blocks as one program: K rounds of the fused
+        cascade over the replica form, one lane a job.  ``params_j`` is the
+        list of J thetas (updated in place); ``block_inputs`` the K rounds'
+        replica payloads in round order (``jobs.pool_rounds``); ``val_j =
+        (x0 (J, D_o, ...), y0 (J, D_o))``, each job's own validation set
+        (:class:`LaneVal`); ``active_j`` a (J,) bool device mask.  Each round
+        verifies all J * R candidates in one ``tamper_verdict`` call (one B1
+        launch) and runs selection and the cascade per lane; a lane's
+        commit is masked by its acceptance and ``active_j``, so an idle
+        lane's placeholder payload changes nothing.  Returns ``(params_j,
+        fetches (J, K, 2R + 3))``; nothing here reads the device back.  At
+        J = 1 this is the solo R-slot ``accept_block`` program."""
+        self._check_verify()
+        val = LaneVal(*val_j)
+        fetches = []
+        for inputs in block_inputs:
+            params_j, fetch = self._accept_lanes(params_j, inputs, val, active_j)
+            fetches.append(fetch)
+        return params_j, torch.stack(fetches, dim=1)
 
 
 # ---------------------------------------------------------------------------
@@ -277,15 +413,16 @@ class RoundRunner:
 def sharded_validation_losses(ap_loss, phi, acts: torch.Tensor, y0: torch.Tensor,
                               k: int) -> torch.Tensor:
     """Per-shard shared-set losses over ``effective_shards(k, D_o)`` equal
-    slices of the sample axis (second to last of ``acts``): ``(k',)`` for a
-    plain ``ap_loss``, ``(R, k')`` for a stacked one — the one copy of the
-    median-of-means shard arithmetic, shared by the fused spec and the host
-    selector."""
+    slices of the sample axis (second to last of ``acts``, last of ``y0``):
+    ``(k',)`` for a plain ``ap_loss``, ``(R, k')`` for a stacked one — the
+    one copy of the median-of-means shard arithmetic, shared by the fused
+    spec and the host selector."""
     from ..selection import effective_shards
-    kk = effective_shards(k, y0.shape[0])
-    n = y0.shape[0] // kk
+    d_o = y0.shape[-1]
+    kk = effective_shards(k, d_o)
+    n = d_o // kk
     return torch.stack([ap_loss(phi, acts[..., i * n:(i + 1) * n, :],
-                                y0[i * n:(i + 1) * n]) for i in range(kk)], dim=-1)
+                                y0[..., i * n:(i + 1) * n]) for i in range(kk)], dim=-1)
 
 
 def make_train_summary(with_stats: bool):
@@ -304,23 +441,31 @@ def protocol_round_spec(module, lr: float, with_stats: bool = False,
     ``inputs = (xs (R, M_bar, E, B, ...), ys (R, M_bar, E, B), avec, seeds)``
     with an (R, M_bar)-laned AttackVec and the (R, M_bar) host array of
     per-turn noise seeds; ``val = (x0, y0)``.  Client positions run in
-    chain order, each one an E-step turn in all R clusters at once."""
+    chain order, each one an E-step turn in all R clusters at once.
+
+    The replica form (``theta`` a list of L thetas) takes ``xs (L, R,
+    M_bar, E, B, ...)``, ``ys (L, R, M_bar, E, B)``, an ``(L * R,
+    M_bar)``-laned AttackVec (``AttackVec.cat``) and ``seeds (L, R,
+    M_bar)``, and trains the L * R slots as one stack; ``val`` is shared or
+    a :class:`LaneVal`."""
     from .protocol import turn_generator
     from .split import (client_update_vec_impl, client_update_vec_stats_impl,
-                        stack_params)
+                        stack_replicas)
 
     stacked = module.stacked
 
     def train_cluster(theta, inputs):
         xs, ys, avec, seeds = inputs
-        gamma, phi = theta
-        r, m_bar = ys.shape[:2]
+        lead = seeds.ndim - 1                  # (R,) or, in the replica form, (L, R)
+        m_bar = seeds.shape[-1]
         device = ys.device
-        g, p = stack_params(module, gamma, phi, r)
+        g, p = stack_replicas(module, replicas(theta), seeds.shape[-2])
+        seeds = seeds.reshape(-1, m_bar)
         losses, stats = [], []
         for j in range(m_bar):
             gens = [turn_generator(s, device) for s in seeds[:, j]]
-            data = (xs[:, j].transpose(0, 1), ys[:, j].transpose(0, 1))
+            data = tuple(a.select(lead, j).flatten(0, lead - 1).transpose(0, 1)
+                         for a in (xs, ys))
             if with_stats:
                 g, p, loss, st = client_update_vec_stats_impl(
                     module, avec.client(j), g, p, data, lr, gens, quant=quant)
@@ -329,29 +474,34 @@ def protocol_round_spec(module, lr: float, with_stats: bool = False,
                 g, p, loss = client_update_vec_impl(
                     module, avec.client(j), g, p, data, lr, gens, quant=quant)
             losses.append(loss)
-        losses = torch.stack(losses, dim=1)                       # (R, M_bar)
+        losses = torch.stack(losses, dim=1)                       # (slots, M_bar)
         return (g, p), ((losses, torch.stack(stats, dim=1)) if with_stats
                         else losses)
 
-    def _acts(g, x0):
-        r = next(g.parameters()).shape[0]            # the stacked R axis
-        return stacked.client_forward(g, x0.expand((r,) + tuple(x0.shape)))
+    def _slots(g) -> int:
+        return next(g.parameters()).shape[0]          # the stacked slot axis
 
     @torch.no_grad()
     def handoff_acts(theta, val):
-        return _acts(theta[0], val[0])
+        x0, _ = slot_val(val, _slots(theta[0]))
+        return stacked.client_forward(theta[0], x0)
+
+    def _validate(theta, val):
+        (g, p) = theta
+        x0, y0 = slot_val(val, _slots(g))
+        acts = stacked.client_forward(g, x0)
+        return stacked.ap_losses(p, acts, y0), acts, y0
 
     @torch.no_grad()
     def validate(theta, val):
-        (g, p), (x0, y0) = theta, val
-        acts = _acts(g, x0)
-        return stacked.ap_losses(p, acts, y0), acts
+        vloss, acts, _ = _validate(theta, val)
+        return vloss, acts
 
     @torch.no_grad()
     def validate_sharded(theta, val, k):
-        vloss, acts = validate(theta, val)
+        vloss, acts, y0 = _validate(theta, val)
         shard_losses = sharded_validation_losses(stacked.ap_losses, theta[1],
-                                                 acts, val[1], k)
+                                                 acts, y0, k)
         return vloss, shard_losses, acts
 
     return RoundSpec(
@@ -385,7 +535,8 @@ def protocol_accept_runner(module, lr: float, select, tamper_check: bool,
                                            recompute=False))
 
 
-__all__ = ["RoundRunner", "RoundSpec", "VerifyConfig", "cluster_map", "commit", "make_train_summary",
-           "masked_argmin", "onehot_select", "policy_context",
+__all__ = ["LaneVal", "RoundRunner", "RoundSpec", "VerifyConfig", "cluster_map", "commit",
+           "make_train_summary", "masked_argmin", "onehot_select", "policy_context",
            "policy_scores", "protocol_accept_runner", "protocol_round_spec",
-           "protocol_runner", "select_map", "sharded_validation_losses"]
+           "protocol_runner", "replica_scores", "select_map", "sharded_validation_losses",
+           "slot_val", "sweep_map"]

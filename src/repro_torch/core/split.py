@@ -46,10 +46,11 @@ N_MESSAGE_STATS = len(MESSAGE_STAT_NAMES)
 @dataclasses.dataclass(frozen=True)
 class StackedSplit:
     """The cluster-stacked form of a split model, for the batched round.
-    ``make(r)`` builds zeroed halves for R clusters on the current default
-    device, whose ``parameters()`` follow the plain halves' order with a
-    leading R axis each."""
-    make: Callable[[int], Tuple[nn.Module, nn.Module]]
+    ``make(r, replicas=1)`` builds zeroed halves for R clusters (L * R
+    slots, replica-major, for ``replicas`` L: the replica form) on the
+    current default device, whose ``parameters()`` follow the plain halves'
+    order with a leading slot axis each."""
+    make: Callable[..., Tuple[nn.Module, nn.Module]]
     client_forward: Callable[[nn.Module, torch.Tensor], torch.Tensor]  # (R, B, ...) -> (R, B, d_c)
     ap_losses: Callable[[nn.Module, torch.Tensor, torch.Tensor], torch.Tensor]  # -> (R,)
 
@@ -79,7 +80,7 @@ def from_cnn(cfg) -> SplitModule:
         predict=lambda g, p, x: p(g(x)),
         n_classes=cfg.n_classes,
         stacked=StackedSplit(
-            make=lambda r: cnn_mod.cnn_stacked(cfg, r),
+            make=lambda r, replicas=1: cnn_mod.cnn_stacked(cfg, r, replicas),
             client_forward=lambda g, x: g(x),
             ap_losses=lambda p, a, y: cross_entropy_stacked(p(a), y)),
     )
@@ -126,18 +127,36 @@ def _stacked(module: SplitModule) -> StackedSplit:
     return module.stacked
 
 
+def replicas(theta) -> List[Tuple[nn.Module, nn.Module]]:
+    """``theta`` as a list of ``(gamma, phi)`` pairs: one plain theta, or
+    the L thetas of the replica form (the sweep's seeds, the pool's jobs),
+    which a stacked round trains in L * R slots."""
+    return [theta] if isinstance(theta[0], nn.Module) else list(theta)
+
+
 @torch.no_grad()
+def stack_replicas(module: SplitModule, thetas: Sequence[Tuple[nn.Module, nn.Module]],
+                   r: int) -> Tuple[nn.Module, nn.Module]:
+    """Cluster-stacked halves of L * R slots, replica-major: slots
+    ``l * R .. l * R + R - 1`` hold ``thetas[l]``.  Built on the thetas'
+    device (no host->device copy).  Every stacked layer works per slot (a
+    batched product; a grouped convolution a replica), so a slot computes
+    what it would in an R-slot stack."""
+    device = next(thetas[0][0].parameters()).device
+    with torch.device(device):
+        sg, sp = _stacked(module).make(r, replicas=len(thetas))
+    for half, stacked in enumerate((sg, sp)):
+        for l, theta in enumerate(thetas):
+            for big, p in zip(stacked.parameters(), theta[half].parameters()):
+                slots = big[l * r:(l + 1) * r]
+                slots.copy_(p.expand_as(slots))
+    return sg, sp
+
+
 def stack_params(module: SplitModule, gamma: nn.Module, phi: nn.Module,
                  r: int) -> Tuple[nn.Module, nn.Module]:
-    """Cluster-stacked halves holding ``(gamma, phi)`` in each of R slots,
-    on gamma's device (built there: no host->device copy)."""
-    device = next(gamma.parameters()).device
-    with torch.device(device):
-        sg, sp = _stacked(module).make(r)
-    for stacked, plain in ((sg, gamma), (sp, phi)):
-        for big, p in zip(stacked.parameters(), plain.parameters()):
-            big.copy_(p.expand_as(big))
-    return sg, sp
+    """Cluster-stacked halves holding ``(gamma, phi)`` in each of R slots."""
+    return stack_replicas(module, [(gamma, phi)], r)
 
 
 @torch.no_grad()
@@ -340,5 +359,5 @@ __all__ = ["MESSAGE_STAT_NAMES", "N_MESSAGE_STATS", "SplitModule",
            "StackedSplit", "client_update", "client_update_stats",
            "client_update_vec_impl", "client_update_vec_stats_impl",
            "from_cnn", "from_lm", "message_stats", "sgd_update",
-           "sl_minibatch_grads", "sl_minibatch_grads_vec", "stack_params",
-           "unstack_slot"]
+           "replicas", "sl_minibatch_grads", "sl_minibatch_grads_vec", "stack_params",
+           "stack_replicas", "unstack_slot"]

@@ -129,19 +129,36 @@ class APHead(nn.Module):
 
 class StackedConv(nn.Module):
     """R stride-1 convolutions as one grouped convolution: kernels
-    (R, C_out, C_in, k, k), input (B, R*C_in, H, W)."""
+    (R, C_out, C_in, k, k), input (B, R*C_in, H, W).
 
-    def __init__(self, r: int, c_in: int, c_out: int, k: int, padding: int):
+    With ``replicas`` L > 1 (the replica form of the sweep and the job
+    pool: L * R slots, replica-major) each replica's R slots take one
+    grouped convolution of their own, at the solo round's shapes: a
+    grouped convolution's weight gradient is not invariant in the group
+    count (oneDNN on the CPU, cuDNN's algorithm choice on the card), and a
+    replica must compute what its solo round does."""
+
+    def __init__(self, r: int, c_in: int, c_out: int, k: int, padding: int,
+                 replicas: int = 1):
         super().__init__()
         self.padding = padding
-        self.w = nn.Parameter(torch.zeros((r, c_out, c_in, k, k)))
-        self.b = nn.Parameter(torch.zeros((r, c_out)))
+        self.replicas = replicas
+        self.w = nn.Parameter(torch.zeros((replicas * r, c_out, c_in, k, k)))
+        self.b = nn.Parameter(torch.zeros((replicas * r, c_out)))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        r, c_out = self.b.shape
-        return F.conv2d(x, self.w.reshape((r * c_out,) + self.w.shape[2:]),
-                        self.b.reshape(r * c_out), padding=self.padding,
-                        groups=r)
+        if self.replicas == 1:
+            return self._conv(x, self.w, self.b)
+        xs = x.split(x.shape[1] // self.replicas, dim=1)
+        ws = self.w.split(self.w.shape[0] // self.replicas)
+        bs = self.b.split(self.b.shape[0] // self.replicas)
+        return torch.cat([self._conv(xi.contiguous(), w, b)
+                          for xi, w, b in zip(xs, ws, bs)], dim=1)
+
+    def _conv(self, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        r, c_out = b.shape
+        return F.conv2d(x, w.reshape((r * c_out,) + w.shape[2:]), b.reshape(r * c_out),
+                        padding=self.padding, groups=r)
 
 
 class StackedDense(nn.Module):
@@ -157,16 +174,17 @@ class StackedDense(nn.Module):
 
 
 class StackedClientCNN(nn.Module):
-    """R clusters' gamma.  (R, B, H, W, C) -> (R, B, d_c)."""
+    """R clusters' gamma (L * R with ``replicas`` L, see
+    :class:`StackedConv`).  (R, B, H, W, C) -> (R, B, d_c)."""
 
-    def __init__(self, cfg: CNNConfig, r: int):
+    def __init__(self, cfg: CNNConfig, r: int, replicas: int = 1):
         super().__init__()
         convs, c_in = [], cfg.in_channels
         for c_out in cfg.conv_channels:
-            convs.append(StackedConv(r, c_in, c_out, cfg.kernel, cfg.padding))
+            convs.append(StackedConv(r, c_in, c_out, cfg.kernel, cfg.padding, replicas))
             c_in = c_out
         self.convs = nn.ModuleList(convs)
-        self.cut_fc = StackedDense(r, cfg.flat_dim, cfg.d_cut)
+        self.cut_fc = StackedDense(replicas * r, cfg.flat_dim, cfg.d_cut)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         r, b, h, w, c = x.shape
@@ -218,10 +236,12 @@ def cnn_init(generator: torch.Generator, cfg: CNNConfig) -> Tuple[ClientCNN, APH
     return gamma, phi
 
 
-def cnn_stacked(cfg: CNNConfig, r: int) -> Tuple[StackedClientCNN, StackedAPHead]:
-    """Zeroed cluster-stacked halves for R clusters (the batched round loads
-    theta into every slot, :func:`repro_torch.core.split.stack_params`)."""
-    return StackedClientCNN(cfg, r), StackedAPHead(cfg, r)
+def cnn_stacked(cfg: CNNConfig, r: int,
+                replicas: int = 1) -> Tuple[StackedClientCNN, StackedAPHead]:
+    """Zeroed cluster-stacked halves for R clusters, or for ``replicas`` L
+    replicas of R (the batched round loads theta into every slot,
+    :func:`repro_torch.core.split.stack_replicas`)."""
+    return StackedClientCNN(cfg, r, replicas), StackedAPHead(cfg, replicas * r)
 
 
 __all__ = ["APHead", "CIFAR_CNN", "CNNConfig", "ClientCNN", "Conv", "Dense",

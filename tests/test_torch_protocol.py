@@ -128,15 +128,15 @@ def test_policies_score_and_rank_like_reference(seed):
 
 
 def test_unported_paths_raise(port, tmp_path):
-    """The sharded placement and the sweep still raise; prefetch, block,
-    checkpointing and telemetry run and leave the History as it was."""
+    """The sharded placement still raises, for ``run_pigeon`` and the
+    sweep; prefetch, block, checkpointing and telemetry run and leave the
+    History as it was."""
     data, module, pcfg = port
     with pytest.raises(NotImplementedError):
         tcore.run_pigeon(module, data, pcfg, device="cpu", engine="batched",
                          placement="sharded")
-    for driver in (tcore.run_pigeon_sweep,):
-        with pytest.raises(NotImplementedError):
-            driver(module, data, pcfg)
+    with pytest.raises(NotImplementedError):
+        tcore.run_pigeon_sweep(module, data, pcfg, placement="sharded", device="cpu")
     from repro_torch.telemetry import MemorySink
     plain = tcore.run_pigeon(module, data, pcfg, device="cpu", engine="batched")
     for kw in (dict(prefetch=1), dict(block=2), dict(checkpoint_path=str(tmp_path / "ckpt")),
@@ -146,20 +146,18 @@ def test_unported_paths_raise(port, tmp_path):
     assert os.path.exists(tmp_path / "ckpt.npz")
 
 
-#: names of the reference's package surfaces that later slices port (ROADMAP.md
-#: Queue A): the job pool and the sweep (item 4), the mesh placements (no
-#: single-card counterpart), the compile cache (none: PyTorch runs eagerly),
-#: the jitted round and the vmapped client update (the stacked model writes
-#: the cluster axis out instead)
+#: names of the reference's package surfaces the port does not carry: the
+#: mesh placements (no single-card counterpart), the compile cache (none:
+#: PyTorch runs eagerly), the jitted round and the vmapped client update (the
+#: stacked model writes the cluster axis out instead)
 NOT_YET_PORTED = {
-    "core": {"JobSpec", "JobPool", "run_job_pool", "batched_round", "client_update_vec",
-             "cluster_mesh", "sweep_map", "sweep_mesh", "check_partial_auto_backend",
-             "enable_compile_cache", "compile_cache_stats"},
+    "core": {"batched_round", "client_update_vec", "cluster_mesh", "sweep_mesh",
+             "check_partial_auto_backend", "enable_compile_cache", "compile_cache_stats"},
     "core.attacks": set(),
     "selection": set(),
     "data": set(),
     "telemetry": set(),
-    "checkpoint": {"job_checkpoint_metadata"},
+    "checkpoint": set(),
 }
 
 

@@ -308,9 +308,8 @@ def test_runner_refuses_unported_entries():
         tprotocol._check_engine("batched", placement="mesh")
     spec = trunner.RoundSpec(train_cluster=None, validate=None)
     runner = trunner.RoundRunner(spec)
-    for entry in (runner.round, runner.sweep, runner.pool_accept_block):
-        with pytest.raises(NotImplementedError):
-            entry()
+    with pytest.raises(NotImplementedError):
+        runner.round()
 
     # accept_block runs: K accepts in turn, their fetches stacked
     class Stacked(torch.nn.Module):
@@ -339,3 +338,42 @@ def test_runner_refuses_unported_entries():
         assert torch.equal(fetch, fetches[i])
     assert torch.equal(theta[0].weight, twin[0].weight)
     assert torch.equal(theta[0].weight, torch.tensor([[-0.5, -0.25]]))
+
+    # sweep and pool_accept_block run, on the replica form: L thetas in L *
+    # R slots, each replica selecting among its own R rows
+    def train_replicas(params, shifts):
+        thetas = tsplit.replicas(params)
+        r = shifts.shape[-1]
+        w = torch.cat([th[0].weight.detach()[None].expand(r, -1, -1) for th in thetas])
+        flat = shifts.reshape(-1)
+        return (Stacked(w + flat[:, None, None]),), flat
+
+    def linear(*w):
+        lin = torch.nn.Linear(2, 1, bias=False)
+        with torch.no_grad():
+            lin.weight.copy_(torch.tensor([w]))
+        return (lin,)
+
+    runner = trunner.RoundRunner(trunner.RoundSpec(train_replicas, validate),
+                                 verify=trunner.VerifyConfig(enabled=False))
+    shifts = torch.tensor([[0.5, -1.0, 2.0], [1.0, -0.25, 3.0]])
+    thetas, aux, vlosses, sels = runner.sweep([linear(0.75, 1.0), linear(-0.5, 0.25)],
+                                              shifts, None)
+    assert sels.tolist() == [1, 1] and vlosses.shape == aux.shape == (2, 3)
+    assert torch.equal(vlosses[1], torch.tensor([1.8125, 0.5625, 16.8125]))
+    assert [th[0].weight.tolist() for th in thetas] == [[[-0.25, 0.0]], [[-0.75, 0.0]]]
+    thetas, (vl_k, tl_k, sels_k) = runner.sweep_block(
+        [linear(0.75, 1.0), linear(-0.5, 0.25)], [shifts, shifts], None)
+    assert vl_k.shape == tl_k.shape == (2, 2, 3) and sels_k.tolist() == [[1, 1], [0, 0]]
+    assert torch.equal(vl_k[0], vlosses)
+    assert [th[0].weight.tolist() for th in thetas] == [[[0.25, 0.5]], [[0.25, 1.0]]]
+    lanes = [linear(0.75, 1.0), linear(-0.5, 0.25)]
+    lanes, fetches = runner.pool_accept_block(lanes, [shifts, shifts],
+                                              (torch.zeros(2, 1), torch.zeros(2, 1)),
+                                              torch.tensor([True, False]))
+    assert fetches.shape == (2, 2, 2 * 3 + 3)
+    assert fetches[:, :, 6].tolist() == [[1.0, 0.0], [1.0, 1.0]]     # selected
+    assert fetches[:, :, 8].tolist() == [[1.0, 1.0], [1.0, 1.0]]     # accepted
+    assert torch.equal(fetches[:, 0, :3], vlosses)
+    assert lanes[0][0].weight.tolist() == [[0.25, 0.5]]      # two commits
+    assert lanes[1][0].weight.tolist() == [[-0.5, 0.25]]     # idle: none
