@@ -27,8 +27,13 @@ from the repository root.  Phases, in order; any failure exits non-zero:
      0 on identical finite inputs, NaN where an input holds an inf or a NaN,
      and above the tolerance only for a tampered candidate; timed distinct
      and aliased beside a calibration read of the same bytes
-     (``torch.sum``), L2-cold after a 128 MB buffer is read; the attention
-     kernels (B5 flash attention, B6 decode attention) within atol 2e-5
+     (``torch.sum``), L2-cold after a 128 MB buffer is read; B1's bf16 route
+     (an LM's activations read as they lie, summed in f32) the same way at
+     the batched LM round's (2, 4,096, 4,096) and an edge whose element
+     count is not a multiple of 8, timed there; B2, B3, and B5's forward
+     and backward also at the batched LM round's shapes ((8, 2,097,152),
+     (2, 4, 2,097,152), (8, 512, 32, 128)), timed beside their bounds; the
+     attention kernels (B5 flash attention, B6 decode attention) within atol 2e-5
      (f32) and 2e-2 (bf16) of their plain versions at the serve path's
      shapes and edge shapes (MQA, groups 1, windows, head dims 64/80/256,
      ragged S, index 0; B6 also with windows on its tensor-core route and
@@ -149,6 +154,18 @@ from the repository root.  Phases, in order; any failure exits non-zero:
      wide path for every client step's uplink); finite losses, the
      selection the policy's scores give, the launches the round's
      structure predicts, exchange bytes, seconds per round and peak memory;
+  8b. the batched engine over from_lm at phase 8's configuration (12
+     layers): ``run_pigeon(engine="batched")`` over the cluster-stacked LM
+     with no wire, int8, and int8 under ``loss_plus_distance``, each from
+     phase 8's init: decisions equal to phase 8's sequential runs (the
+     largest float gap reported), the launches the round's structure
+     predicts (B5 over both slots in one launch a layer, B4 a slot, one B1
+     a round on the bf16 route), seconds a round and peak memory; the
+     launch layer's ``make_pigeon_round_step`` on a 2-slot stacked model at
+     12 layers (block 1, block 2, Pigeon-SL+, int8: sel the argmin, every
+     slot bit-equal to the winner, launches as predicted, seconds a round);
+     batched SplitFed over the LM at 4 layers (cut 3: its 4 lanes at 12
+     layers would not fit), decisions equal to the sequential run;
   9. the xLSTM serve path: xLSTM-1.3B at full width and depth (48 blocks,
      (mLSTM 7, sLSTM 1) x 6, bf16, 3,529,644,368 parameters drawn on the
      card) prefills 4 prompts of 512 tokens through ``make_prefill_step``
@@ -191,6 +208,12 @@ TIMED_SHAPE = (64, 256)         # (B, d_c) of the CIFAR cut layer at B = 64
 # wide messages in one stats call
 LM_MESSAGE = (4, 2_097_152)
 WIDE_BATCHED = (2, 4, 12_288)
+# the batched LM round's (phase 8b) wire and attention: R * B = 8 cut
+# messages of 2,097,152 (B2's rows; B3's R = 2 messages of B = 4 rows) and
+# R * B = 8 sequences folded into B5's batch (Qwen3-8B's heads, S 512)
+LM_BATCHED_ROWS = (8, 2_097_152)
+LM_BATCHED_MESSAGES = (2, 4, 2_097_152)
+LM_BATCHED_ATTN = (8, 512, 32, 8, 128, 0)
 # SplitFed's batched round sends every client's message at once: M = 20
 # messages of (B, d_c), one a client (B3), or their M * B rows (B2)
 SPLITFED_MESSAGES = (20, 64, 256)
@@ -213,6 +236,10 @@ TAMPER_SHAPES = ((5, 3000, 256), (4, 3000, 32), (3, 37, 200), (1, 1, 256),
 # = 10 (the pool's two lanes): B1 over the pool's candidates, B2 over the
 # S*R*B and J*R*B rows, B3 over the S*R and J*R messages
 REPLICA_TAMPER = (10, 3000, 256)
+# B1's bf16 route: the batched LM round's validation activations (phase 8b:
+# R 2 x D_o 8 x S 512 x d_model 4,096, 67.1 MB, over the 50 MB L2), then an
+# edge whose element count is not a multiple of 8 (a bf16 16-byte load)
+TAMPER_BF16_SHAPES = ((2, 4096, 4096), (3, 37, 201))
 REPLICA_ROWS = ((15 * 64, 256), (10 * 64, 256))
 REPLICA_MESSAGES = ((15, 64, 256), (10, 64, 256))
 STATS_RTOL = 1e-5
@@ -268,6 +295,16 @@ GRAD_REL = {"float32": 1e-4, "bfloat16": 3e-2}
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_VOCAB, TRAIN_LR = 4, 512, 2048, 0.1
 TRAIN_F32_REL = 1e-4
 ROUND_LAYERS = 12
+# phases 8 and 8b: (quant, selection) of the three runs, and the task
+ROUND_RUNS = ((None, "argmin"), ("int8", "argmin"), ("int8", "loss_plus_distance"))
+ROUND_TASK = dict(vocab=TRAIN_VOCAB, seq_len=TRAIN_SEQ, m_clients=4, d_m=16, d_o=8, n_test=8)
+ROUND_DECISIONS = ("clusters", "selected", "accepted", "detections", "selected_honest",
+                   "honest_cluster_exists", "comm")
+# phase 8b's batched SplitFed trains R * M_bar = 4 lanes of the LM at once:
+# at 12 layers theta, 4 lanes, their gradients and 2 FedAvg slots are 78 GB
+# before activations; at 6 layers it peaked at 72.45 GB on an H100 80GB HBM3
+# (700 W), so it runs at 4 layers (3 client + 1 AP), 2,016,449,536 parameters
+SPLITFED_LAYERS, SPLITFED_CUT = 4, 3
 # B7 (the sLSTM scan): (T, B, d, H), the prefill shape first (xLSTM-1.3B: a
 # 512-token prompt at B 4, d 2,048, 4 heads of 512), then H 1 and 2, dh 40
 # with 3 rows, B 5 (8 rows on the persistent route, two row blocks on the
@@ -575,11 +612,14 @@ def phase_kernels():
             f"(int8, fp8_e4m3){batched if stats else ''}; "
             f"max_abs_err={max_err:.3e}")
     results["tamper_check_sums"] = _phase_tamper()
+    results["tamper_check_sums"]["bf16"] = _phase_tamper_bf16()
     for name, shapes in _phase_replica_kernels().items():
         results[name]["replica_shapes"] = shapes
     results.update(_phase_xent())
     results.update(_phase_attention())
     results.update(_phase_attention_bwd())
+    for name, t in _phase_lm_batched_shapes().items():
+        results[name]["lm_batched"] = t
     results["slstm_scan"] = _phase_slstm()
     return results
 
@@ -593,6 +633,87 @@ def _wire_bound(rows: int, d: int, msgs: int, stats: bool):
     bytes_us = n_bytes / HBM_BYTES_PER_S * 1e6
     ops_us = rows * d * (4 + (5 if stats else 0)) / F32_OPS_PER_S * 1e6
     return max(bytes_us, ops_us), "bytes" if bytes_us >= ops_us else "operations"
+
+
+def _phase_lm_batched_shapes() -> dict:
+    """Phase 8b's new shapes in phase 1: B2 on the batched LM round's R * B
+    = 8 wide rows and B3 on its R = 2 messages (int8, bit-equal to the plain
+    version), B5's forward and backward on its R * B = 8 folded sequences
+    in bf16 (within ATTN_ATOL and GRAD_REL of the plain version); each
+    timed eager, replayed (L2-warm) and one call L2-cold, beside its bound
+    and the plain version's eager time."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import quant_exchange as qx
+
+    few = dict(reps=10, samples=5)
+    out = {}
+    for name, kernel, plain, shape in (
+            ("quant_dequant", qx.quant_dequant, qx.quant_dequant_plain, LM_BATCHED_ROWS),
+            ("quant_dequant_stats", qx.quant_dequant_stats, qx.quant_dequant_stats_plain,
+             LM_BATCHED_MESSAGES)):
+        x = _message(shape, seed=120)
+        got, want = kernel(x, "int8"), plain(x, "int8")
+        torch.cuda.synchronize()
+        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+              f"{name} at {shape}: differs from the plain version")
+        if len(got) == 3:
+            check(torch.allclose(got[2], want[2], rtol=STATS_RTOL, atol=1e-7),
+                  f"{name} at {shape}: stats {got[2].tolist()} vs {want[2].tolist()}")
+        d = shape[-1]
+        rows = x.numel() // d
+        bound, by = _wire_bound(rows, d, rows // shape[-2] if len(shape) == 3 else 1,
+                                len(got) == 3)
+        out[name] = dict(shape=list(shape), kernel_us=_time_us(kernel, x, "int8", **few),
+                         kernel_dev_us=_graph_time_us(kernel, x, "int8", **few),
+                         kernel_cold_us=_cold_time_us(kernel, x, "int8", reps=10),
+                         plain_us=_time_us(plain, x, "int8", reps=3, samples=3),
+                         bound_us=bound, bound_by=by)
+    b, s, h, hkv, d, window = LM_BATCHED_ATTN
+    (q, k, v), kw = _attention_args("flash_attention", LM_BATCHED_ATTN, "bfloat16", seed=121)
+    with torch.inference_mode():
+        got, _ = fa.flash_attention(q, k, v, **kw)
+        want = fa.flash_attention_plain(q, k, v, **kw)
+    err = float((got.float() - want.float()).abs().max())
+    check(err <= ATTN_ATOL["bfloat16"], f"flash_attention at {LM_BATCHED_ATTN}: {err:.3e}")
+    call = lambda: fa.flash_attention(q, k, v, **kw)          # noqa: E731
+    bound, by = _attention_bound_us("flash_attention", LM_BATCHED_ATTN, "bfloat16")
+    with torch.inference_mode():
+        out["flash_attention"] = dict(
+            shape=list(LM_BATCHED_ATTN), max_abs_err=err, kernel_us=_time_us(call, **few),
+            kernel_dev_us=_graph_time_us(call, **few),
+            kernel_cold_us=_cold_time_us(call, reps=10),
+            plain_us=_time_us(lambda: fa.flash_attention_plain(q, k, v, **kw), reps=3,
+                              samples=3),
+            bound_us=bound, bound_by=by)
+    g = torch.Generator(device=DEVICE).manual_seed(122)
+    dout = torch.randn(q.shape, generator=g, device=DEVICE).to(q.dtype)
+    o, lse = fa.flash_attention(q, k, v, **kw)
+    qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+    plain_out = fa.flash_attention_plain(qq, kk, vv, **kw)
+    ref = torch.autograd.grad(plain_out, (qq, kk, vv), grad_outputs=dout, retain_graph=True)
+    mine = fa.flash_attention_bwd(q, k, v, o, dout, lse, **kw)
+    scale = max(float(r.abs().max()) for r in ref)
+    err = max(_rel_err(a, r, scale) for a, r in zip(mine, ref))
+    check(err <= GRAD_REL["bfloat16"], f"flash_attention_bwd at {LM_BATCHED_ATTN}: {err:.3e}")
+    call = lambda: fa.flash_attention_bwd(q, k, v, o, dout, lse, **kw)   # noqa: E731
+    pairs = s * (s + 1) // 2
+    n_bytes = 2 * (4 * b * s * h * d + 4 * b * s * hkv * d) + 4 * b * h * s
+    bytes_us = n_bytes / HBM_BYTES_PER_S * 1e6
+    ops_us = 10 * d * pairs * b * h / BF16_OPS_PER_S * 1e6
+    out["flash_attention_bwd"] = dict(
+        shape=list(LM_BATCHED_ATTN), max_rel_err=err, kernel_us=_time_us(call, **few),
+        kernel_dev_us=_graph_time_us(call, **few), kernel_cold_us=_cold_time_us(call, reps=10),
+        plain_us=_time_us(lambda: torch.autograd.grad(plain_out, (qq, kk, vv),
+                                                      grad_outputs=dout, retain_graph=True),
+                          reps=3, samples=3),
+        bound_us=max(bytes_us, ops_us), bound_by="bytes" if bytes_us >= ops_us else "operations")
+    for name, t in out.items():
+        log(f"phase1 {name} at {t['shape']} (the batched LM round): kernel_us="
+            f"{t['kernel_us']:.3f} plain_us={t['plain_us']:.3f} bound_us={t['bound_us']:.4f} "
+            f"({t['bound_by']}); replayed kernel_us={t['kernel_dev_us']:.3f}; L2-cold "
+            f"kernel_us={t['kernel_cold_us']:.3f}")
+    return out
 
 
 def _phase_replica_kernels() -> dict:
@@ -703,17 +824,18 @@ def _same_bits(a, b) -> bool:
     return bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
 
 
-def _tamper_checks(ref, other, exact, label: str) -> float:
-    """One B1 case: one launch a call, two runs bit-identical, the sums
-    within rtol of the plain version and of ``exact`` (float64), the
-    distances bit-equal to the plain formula on the kernel's sums and the
-    verdicts ``distance <= tol``.  Returns max |distance - plain distance|."""
+def _tamper_checks(ref, other, exact, label: str, key: str = "tamper_check_sums") -> float:
+    """One B1 case: one launch a call (counted under ``key``, the route's),
+    two runs bit-identical, the sums within rtol of the plain version and
+    of ``exact`` (float64), the distances bit-equal to the plain formula on
+    the kernel's sums and the verdicts ``distance <= tol``.  Returns max
+    |distance - plain distance|."""
     import torch
     from repro_torch.kernels import build
     from repro_torch.kernels import tamper_check as tc
     build.reset_launches()
     s1, d1, p1 = tc.tamper_check(ref, other, TAMPER_TOL)
-    check(build.LAUNCHES == want_launches(tamper_check_sums=1),
+    check(build.LAUNCHES == want_launches(**{key: 1}),
           f"tamper {label}: a call launched {build.LAUNCHES}")
     s2, d2, p2 = tc.tamper_check(ref, other, TAMPER_TOL)
     plain = tc.tamper_check_sums_plain(ref, other)
@@ -842,6 +964,77 @@ def _phase_tamper():
     timing["distinct"] = dict(shape=list(TAMPER_SHAPES[0]), **distinct)
     return dict(max_abs_err=max_err, shape=list(TAMPER_SHAPES[0]), call="aliased (ref, ref)",
                 **timing)
+
+
+def _phase_tamper_bf16():
+    """B1's bf16 route at every TAMPER_BF16_SHAPES entry, distinct and
+    aliased: one launch a call (``tamper_check_sums_bf16``), the sums within
+    rtol of the plain version (which widens to f32) and of a float64 sum of
+    the same bf16 values, bit-identical runs, the distances bit-equal to the
+    plain formula on the kernel's sums, 0 on identical inputs, NaN where an
+    input holds an inf or a NaN; timed at the LM round's shape, aliased (the
+    path's call) and distinct, eager, replayed (L2-warm) and one call
+    L2-cold, beside the plain version and a calibration read of the same
+    bytes."""
+    import torch
+    from repro_torch.kernels import tamper_check as tc
+
+    key = "tamper_check_sums_bf16"
+    max_err = 0.0
+    for i, shape in enumerate(TAMPER_BF16_SHAPES):
+        ref, recv = (x.to(torch.bfloat16) for x in _activations(shape, seed=70 + i))
+        a, b = ref.double().reshape(shape[0], -1), recv.double().reshape(shape[0], -1)
+        den = (a * a).sum(1)
+        max_err = max(max_err, _tamper_checks(
+            ref, recv, torch.stack([((a - b) ** 2).sum(1), den], dim=1), f"bf16 {shape}",
+            key))
+        max_err = max(max_err, _tamper_checks(
+            ref, ref, torch.stack([torch.zeros_like(den), den], dim=1),
+            f"bf16 {shape} aliased", key))
+        aliased, distinct = tc.tamper_check_sums(ref, ref), tc.tamper_check_sums(ref, recv)
+        check(bool((aliased[:, 0] == 0.0).all()) and torch.equal(aliased[:, 1], distinct[:, 1]),
+              f"tamper bf16 {shape}: aliased sums {aliased.tolist()}, distinct "
+              f"{distinct.tolist()}")
+    ref, _ = _activations(TAMPER_BF16_SHAPES[1], seed=80)
+    ref = ref.to(torch.bfloat16)
+    ref[1, 7, 3], ref[2, 30, 200] = float("inf"), float("nan")
+    sums = tc.tamper_check_sums(ref, ref)
+    check(sums[:, 0].isnan().tolist() == [False, True, True] and float(sums[0, 0]) == 0.0,
+          f"tamper bf16: aliased numerators with an inf and a NaN {sums[:, 0].tolist()}")
+    log(f"phase1 tamper_check_sums bf16: one launch a call; within rtol {TAMPER_RTOL} of "
+        f"plain and float64 at {list(TAMPER_BF16_SHAPES)}, distinct and aliased, "
+        f"bit-identical run to run, NaN numerators where an input holds an inf or a NaN; "
+        f"distance max_abs_err={max_err:.3e}")
+
+    shape = TAMPER_BF16_SHAPES[0]
+    numel = shape[0] * shape[1] * shape[2]
+    ref, recv = (x.to(torch.bfloat16) for x in _activations(shape, seed=99))
+    sink = torch.empty((), dtype=torch.bfloat16, device=DEVICE)
+
+    def calibration(x):
+        return torch.sum(x, dim=0, out=sink)
+
+    out = dict(max_abs_err=max_err, shape=list(shape), dtype="bfloat16",
+               call="aliased (ref, ref)")
+    for label, other, n_in in (("aliased", ref, 1), ("distinct", recv, 2)):
+        t = _tamper_timing(tc.tamper_check_sums, ref, other, plain=tc.tamper_check_sums_plain)
+        bytes_us = (n_in * numel * 2 + shape[0] * 13) / HBM_BYTES_PER_S * 1e6
+        ops_us = 5 * numel / F32_OPS_PER_S * 1e6
+        t.update(bound_us=max(bytes_us, ops_us),
+                 bound_by="bytes" if bytes_us >= ops_us else "operations",
+                 calibration=_tamper_timing(calibration, torch.ones(
+                     n_in * numel, dtype=torch.bfloat16, device=DEVICE)))
+        log(f"phase1 tamper_check_sums bf16 at {shape} {label}: kernel_us="
+            f"{t['kernel_us']:.3f} plain_us={t['plain_us']:.3f} bound_us="
+            f"{t['bound_us']:.4f} ({t['bound_by']}); replayed: kernel_us="
+            f"{t['kernel_dev_us']:.3f} plain_us={t['plain_dev_us']:.3f}; L2-cold: "
+            f"kernel_us={t['kernel_cold_us']:.3f}; calibration read of "
+            f"{n_in * numel * 2 / 1e6:.2f} MB (torch.sum): eager "
+            f"{t['calibration']['kernel_us']:.3f}, replayed "
+            f"{t['calibration']['kernel_dev_us']:.3f}, cold "
+            f"{t['calibration']['kernel_cold_us']:.3f}")
+        out[label] = t
+    return out
 
 
 def _attention_args(name: str, shape, dtype: str, seed: int):
@@ -2504,7 +2697,9 @@ def phase_round():
     and with int8 through B2, then with int8 under loss_plus_distance (B3 on
     its wide path).  Finite losses, the selection the policy's scores give
     (argmin(val_losses) under argmin), launches as the round's structure
-    predicts, exchange bytes, seconds per round and peak memory."""
+    predicts, exchange bytes, seconds per round and peak memory.  Returns
+    (the figures, the runs' histories, which phase 8b holds its batched runs
+    against)."""
     import dataclasses
 
     import numpy as np
@@ -2520,19 +2715,16 @@ def phase_round():
     cfg = dataclasses.replace(get_config("qwen3-8b"), n_layers=ROUND_LAYERS,
                               **shape_settings(SHAPES["train_4k"]))
     t0 = time.perf_counter()
-    data = build_lm_task(vocab=TRAIN_VOCAB, seq_len=TRAIN_SEQ, m_clients=4, d_m=16, d_o=8,
-                         n_test=8)
-    log(f"phase8 data: build_lm_task(vocab={TRAIN_VOCAB}, seq_len={TRAIN_SEQ}, m_clients=4, "
-        f"d_m=16, d_o=8, n_test=8) in {time.perf_counter() - t0:.1f} s")
+    data = build_lm_task(**ROUND_TASK)
+    log(f"phase8 data: build_lm_task({ROUND_TASK}) in {time.perf_counter() - t0:.1f} s")
     model = build_model(cfg, DEVICE)        # the template: from_lm draws the init on the card
     n_params = sum(x.numel() for x in model.parameters())
     log(f"phase8 {cfg.name}: {cfg.n_layers} layers (cut {cfg.cut_layer}), {cfg.dtype}, "
         f"remat={cfg.remat}: {n_params:,} parameters "
         f"({n_params * model.embedding.element_size() / 1e9:.2f} GB a copy)")
     pcfg = ProtocolConfig(M=4, N=1, T=2, E=2, B=4, lr=1e-3)
-    out = {}
-    for quant, selection in ((None, "argmin"), ("int8", "argmin"),
-                             ("int8", "loss_plus_distance")):
+    out, hists = {}, {}
+    for quant, selection in ROUND_RUNS:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         name = f"phase8 round quant={quant} selection={selection}"
@@ -2579,9 +2771,266 @@ def phase_round():
             f"included); peak device memory {peak_gb:.2f} GB; d_c {d_c:,}")
         out[f"{quant}_{selection}"] = dict(launches=launches, s_per_round=seconds / pcfg.T,
                                            peak_gb=peak_gb)
+        hists[f"{quant}_{selection}"] = hist
     del model
     torch.cuda.empty_cache()
+    return out, hists
+
+
+def _batched_round_launches(cfg, pcfg, hist, quant, n_test, stats=False):
+    """The kernel launches a batched run_pigeon over from_lm makes, from the
+    round structure: each of the M_bar * E stacked client steps runs every
+    layer of all R slots forward (twice with remat) and backward, one B5
+    launch a layer over the R * B folded batch, and B4 forward and backward
+    once a slot; the validation runs the layers forward once and B4 once a
+    slot; the verify stage one B1 on the bf16 route (the validation
+    activations against themselves); each accepted round's R - 1 Pigeon-SL+
+    sub-rounds train a stack of one (and validate it on one sample); each
+    evaluation runs the layers forward; the cut width is read once.  The
+    int8 wire quantizes each step's two messages over all slots' rows in
+    one call each; under a policy that scores message statistics the main
+    steps' uplinks go through B3."""
+    import math
+    n = cfg.n_layers
+    cut = min(cfg.cut_layer, n)
+    fwd = 2 if cfg.remat else 1
+    steps = (pcfg.M // pcfg.R) * pcfg.E
+    b5f, b5b, b4f, b4b, b1, b2, b3 = cut, 0, 0, 0, 0, 0, 0
+    for r in hist.rounds:
+        sub = (pcfg.R - 1) * int(r["accepted"])
+        evals = math.ceil(n_test / pcfg.eval_batch) if "test_acc" in r else 0
+        b5f += (1 + sub) * (steps * fwd * n + n) + evals * n
+        b5b += (1 + sub) * steps * n
+        b4f += pcfg.R * (steps + 1) + sub * (steps + 1)
+        b4b += pcfg.R * steps + sub * steps
+        b1 += 1
+        if quant:
+            b2 += (1 if stats else 2) * steps + 2 * sub * steps
+            b3 += steps if stats else 0
+    tc = "_tc" if cfg.dtype == "bfloat16" else ""
+    return want_launches(**{
+        "fused_xent" + tc: b4f, "fused_xent_bwd" + tc: b4b,
+        "flash_attention" + tc: b5f, "flash_attention_bwd" + tc: b5b,
+        "tamper_check_sums" + ("_bf16" if cfg.dtype == "bfloat16" else ""): b1,
+        "quant_dequant": b2, "quant_dequant_stats": b3})
+
+
+def _round_float_gap(got, want) -> float:
+    """The largest relative gap of the loss fields (and absolute of
+    test_acc) between two histories."""
+    import numpy as np
+    gap = 0.0
+    for rg, rw in zip(got.rounds, want.rounds):
+        for k in ("val_losses", "train_losses"):
+            if k not in rg or k not in rw:
+                continue
+            a, b = np.asarray(rg[k], float), np.asarray(rw[k], float)
+            gap = max(gap, float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-30))))
+        gap = max(gap, abs(rg["test_acc"] - rw["test_acc"]))
+    return gap
+
+
+def phase_round_batched(seq_hists):
+    """Phase 8b: the batched engine over from_lm at phase 8's configuration
+    (Qwen3-8B's width, 12 layers: 9 client + 3 AP, train_4k settings; M 4,
+    N 1, T 2, E 2, B 4, label flip on client 0, Pigeon-SL+): run_pigeon(
+    engine="batched") with no wire, int8, and int8 under loss_plus_distance,
+    each from phase 8's init.  Its decisions equal phase 8's sequential
+    runs', the largest float gap reported; launches as the round's
+    structure predicts (B5 over the R slots in one launch a layer, B4 a
+    slot, one B1 a round on the bf16 route); seconds a round and peak
+    memory.  Then the launch layer's round steps on a 2-slot stacked model
+    at the same depth (:func:`_phase_round_steps`) and batched SplitFed over
+    the LM at SPLITFED_LAYERS (:func:`_phase_splitfed_lm`)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import LABEL_FLIP, Attack, ProtocolConfig, from_lm
+    from repro_torch.data import build_lm_task
+    from repro_torch.launch.shapes import SHAPES, shape_settings
+    from repro_torch.models import build_model
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config("qwen3-8b"), n_layers=ROUND_LAYERS,
+                              **shape_settings(SHAPES["train_4k"]))
+    data = build_lm_task(**ROUND_TASK)
+    model = build_model(cfg, DEVICE)
+    pcfg = ProtocolConfig(M=4, N=1, T=2, E=2, B=4, lr=1e-3)
+    out = {}
+    for quant, selection in ROUND_RUNS:
+        key = f"{quant}_{selection}"
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        name = f"phase8b batched round quant={quant} selection={selection}"
+        hist, launches, seconds = _run(name, from_lm(model), data, pcfg, malicious={0},
+                                       attack=Attack(LABEL_FLIP), plus=True,
+                                       selection=selection, quant=quant, engine="batched",
+                                       device=DEVICE)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        stats = selection != "argmin"
+        want = _batched_round_launches(cfg, pcfg, hist, quant, data.x_test.shape[0], stats)
+        check(launches == want, f"{name}: launches {launches}, want {want}")
+        seq = seq_hists[key]
+        for rb, rs in zip(hist.rounds, seq.rounds):
+            for k in ROUND_DECISIONS:
+                check(rb[k] == rs[k], f"{name} round {rb['round']}: {k} batched={rb[k]} "
+                                      f"sequential={rs[k]}")
+            if not stats and rb["accepted"]:
+                check(rb["selected"] == int(np.argmin(rb["val_losses"])),
+                      f"{name} round {rb['round']}: selected {rb['selected']} is not the "
+                      f"argmin of {rb['val_losses']}")
+        gap = _round_float_gap(hist, seq)
+        log(f"{name}: decisions equal to phase 8's sequential run; largest float gap "
+            f"{gap:.3e} (losses relative, test_acc absolute); {seconds / pcfg.T:.2f} "
+            f"s/round (init and first-call set-up included); peak device memory "
+            f"{peak_gb:.2f} GB")
+        out[key] = dict(launches=launches, s_per_round=seconds / pcfg.T, peak_gb=peak_gb,
+                        float_gap=gap)
+    del model
+    torch.cuda.empty_cache()
+    out["round_steps"] = _phase_round_steps(cfg)
+    out["splitfed"] = _phase_splitfed_lm(cfg, data)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase8b took {out['seconds']:.1f} s")
     return out
+
+
+def _step_launches(cfg, r: int, rounds: int, quant=None, plus: bool = False):
+    """The launches of ``rounds`` calls of a round step over an r-slot
+    stacked model: each round one train step over all slots (every layer
+    forward twice under remat and backward, one B5 launch a layer; B4 once
+    a slot each way; with int8 one B2 call each way over the slots' rows)
+    and one validation (the layers forward once, B4 once a slot); a
+    Pigeon-SL+ round one train step more."""
+    n = cfg.n_layers
+    fwd = 2 if cfg.remat else 1
+    trains = rounds + int(plus)
+    return want_launches(
+        flash_attention_tc=trains * fwd * n + rounds * n, flash_attention_bwd_tc=trains * n,
+        fused_xent_tc=r * (trains + rounds), fused_xent_bwd_tc=r * trains,
+        quant_dequant=2 * trains if quant else 0)
+
+
+def _phase_round_steps(cfg):
+    """make_pigeon_round_step on a 2-slot StackedModel of ``cfg`` (two inits
+    drawn on the card), batches (2, 4, 512) of build_lm_task tokens and a (8,
+    512) validation set: block 1, block 2, Pigeon-SL+ and int8 once each.
+    Each: finite losses, sel the argmin of the round's vlosses, every slot
+    bit-equal to the winner, the launches the structure predicts; seconds a
+    step (the first call's set-up included) and peak memory."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.launch.steps import make_pigeon_plus_round_step, make_pigeon_round_step
+    from repro_torch.models import build_model, build_stacked_model
+
+    r, b, s = 2, TRAIN_BATCH, TRAIN_SEQ
+    stacked = build_stacked_model(cfg, r, device=DEVICE)
+    plain = build_model(cfg, DEVICE)
+    for slot in range(r):
+        stacked.load_slot(slot, plain.init(torch.Generator(device=DEVICE).manual_seed(slot)))
+    del plain
+    torch.cuda.empty_cache()
+
+    def batches(k: int, seed: int):
+        parts = [_train_batch(b, s, seed=seed + i) for i in range(k * r)]
+        return {name: torch.stack([p[name] for p in parts]).view(k, r, b, s)
+                for name in ("tokens", "labels")}
+
+    val = _train_batch(8, s, seed=90)
+    out = {}
+    for label, kw, k, plus in (("block1", {}, 1, False), ("block2", dict(block=2), 2, False),
+                               ("plus", {}, 1, True), ("int8", dict(quant="int8"), 1, False)):
+        inputs = batches(k, seed=10 * len(out))
+        if k == 1:
+            inputs = {name: v[0] for name, v in inputs.items()}
+        step = (make_pigeon_plus_round_step(stacked, TRAIN_LR) if plus
+                else make_pigeon_round_step(stacked, TRAIN_LR, **kw))
+        args = (inputs, val)
+        if plus:
+            args += ({name: v[0] for name, v in batches(1, seed=80).items()},)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        vlosses, sel = step(*args)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dict(build.LAUNCHES)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        name = f"phase8b round step {label}"
+        vl = vlosses.reshape(k, r)
+        check(bool(torch.isfinite(vl).all()), f"{name}: vlosses {vl.tolist()}")
+        check(sel.reshape(k).tolist() == torch.argmin(vl, dim=1).tolist(),
+              f"{name}: sel {sel.tolist()} for vlosses {vl.tolist()}")
+        check(all(torch.equal(p[0], p[i]) for p in stacked.parameters() for i in range(1, r)),
+              f"{name}: the slots differ after the winner's broadcast")
+        want = _step_launches(cfg, r, k, kw.get("quant"), plus)
+        check(launches == want, f"{name}: launches {launches}, want {want}")
+        log(f"{name}: vlosses {vl.tolist()} sel {sel.reshape(k).tolist()}; every slot "
+            f"bit-equal to the winner; {seconds / k:.3f} s a round ({k} in {seconds:.3f} s, "
+            f"first call included); peak {peak_gb:.2f} GB; launches {launches}")
+        out[label] = dict(s_per_round=seconds / k, peak_gb=peak_gb, launches=launches)
+    del stacked
+    torch.cuda.empty_cache()
+    return out
+
+
+def _phase_splitfed_lm(cfg, data):
+    """Batched SplitFed over from_lm at SPLITFED_LAYERS (cut SPLITFED_CUT):
+    its R * M_bar = 4 lanes trained as one stacked model, FedAvg a cluster,
+    argmin; held against the sequential SplitFed run from the same init
+    (equal decisions), the launches the structure predicts (each of E steps
+    runs every layer of all lanes forward, twice under remat, and backward,
+    B4 once a lane; the validation once, B4 once a cluster; no verify
+    stage); seconds a round and peak memory."""
+    import dataclasses
+    import math
+
+    import torch
+    from repro_torch.core import LABEL_FLIP, Attack, ProtocolConfig, from_lm, run_splitfed
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(cfg, n_layers=SPLITFED_LAYERS, cut_layer=SPLITFED_CUT)
+    model = build_model(cfg, DEVICE)
+    n_params = sum(x.numel() for x in model.parameters())
+    pcfg = ProtocolConfig(M=4, N=1, T=2, E=2, B=4, lr=1e-3)
+    runs = {}
+    for engine in ("batched", "sequential"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        name = f"phase8b splitfed {engine} ({cfg.n_layers} layers, cut {cfg.cut_layer})"
+        hist, launches, seconds = _run(name, from_lm(model), data, pcfg, driver=run_splitfed,
+                                       malicious={0}, attack=Attack(LABEL_FLIP),
+                                       engine=engine, device=DEVICE)
+        runs[engine] = (hist, launches, seconds, torch.cuda.max_memory_allocated() / 1e9)
+    hist, launches, seconds, peak_gb = runs["batched"]
+    n, fwd, lanes = cfg.n_layers, 2 if cfg.remat else 1, pcfg.M
+    evals = sum(math.ceil(data.x_test.shape[0] / pcfg.eval_batch)
+                for r in hist.rounds if "test_acc" in r)
+    want = want_launches(
+        flash_attention_tc=min(cfg.cut_layer, n) + pcfg.T * (pcfg.E * fwd * n + n) + evals * n,
+        flash_attention_bwd_tc=pcfg.T * pcfg.E * n,
+        fused_xent_tc=pcfg.T * (lanes * pcfg.E + pcfg.R),
+        fused_xent_bwd_tc=pcfg.T * lanes * pcfg.E)
+    check(launches == want, f"phase8b splitfed batched: launches {launches}, want {want}")
+    for rb, rs in zip(hist.rounds, runs["sequential"][0].rounds):
+        for k in (k for k in ROUND_DECISIONS if k in rs):
+            check(rb[k] == rs[k], f"phase8b splitfed round {rb['round']}: {k} "
+                                  f"batched={rb[k]} sequential={rs[k]}")
+    gap = _round_float_gap(hist, runs["sequential"][0])
+    log(f"phase8b splitfed over {cfg.name} at {cfg.n_layers} layers ({n_params:,} "
+        f"parameters): decisions equal to the sequential run, largest float gap "
+        f"{gap:.3e}; batched "
+        f"{seconds / pcfg.T:.2f} s/round, peak {peak_gb:.2f} GB; sequential "
+        f"{runs['sequential'][2] / pcfg.T:.2f} s/round, peak {runs['sequential'][3]:.2f} GB")
+    del model
+    torch.cuda.empty_cache()
+    return dict(layers=cfg.n_layers, cut=cfg.cut_layer, launches=launches,
+                s_per_round=seconds / pcfg.T, peak_gb=peak_gb, float_gap=gap,
+                sequential_s_per_round=runs["sequential"][2] / pcfg.T,
+                sequential_peak_gb=runs["sequential"][3])
 
 
 def _profile_report(name: str, fn, wall_us: float, steps: int, shares=None) -> None:
@@ -3135,7 +3584,9 @@ def main() -> None:
     del main_path
     serve = phase_serve()
     train = phase_train()
-    rounds = phase_round()
+    rounds, round_hists = phase_round()
+    batched_lm = phase_round_batched(round_hists)
+    del round_hists
     xlstm = phase_xlstm()
 
     sources = {"quant_dequant": ("src/repro/kernels/quant_exchange.py:85",
@@ -3179,6 +3630,11 @@ def main() -> None:
                "serve": serve["launches"],
                "train": train["launches"],
                **{f"round_{q}": r["launches"] for q, r in rounds.items()},
+               **{f"round_batched_{q}": batched_lm[q]["launches"]
+                  for q in rounds},
+               **{f"round_step_{q}": r["launches"]
+                  for q, r in batched_lm["round_steps"].items()},
+               "splitfed_lm_batched": batched_lm["splitfed"]["launches"],
                "xlstm_prefill": xlstm["prefill_launches"],
                "xlstm_decode": xlstm["loop_launches"]}
     # B5's and B4's forwards and backwards and B6: the entry is the
@@ -3230,6 +3686,21 @@ def main() -> None:
                 return dict(device_ms_l2_warm=ms(t["kernel_dev_us"]),
                             device_ms_l2_cold=ms(t["kernel_cold_us"]))
             dist = k["distinct"]
+            # the bf16 route, on the batched LM round's validation activations
+            bf = k["bf16"]
+            entry["bf16"] = dict(
+                shape=bf["shape"], dtype=bf["dtype"], call=bf["call"],
+                launches=by_path["round_batched_None_argmin"]["tamper_check_sums_bf16"],
+                launches_by_path={path: counts["tamper_check_sums_bf16"]
+                                  for path, counts in by_path.items()},
+                max_abs_err=bf["max_abs_err"], ms=ms(bf["aliased"]["kernel_us"]),
+                **dev_times(bf["aliased"]), plain_ms=ms(bf["aliased"]["plain_us"]),
+                bound_ms=ms(bf["aliased"]["bound_us"]), bound_by=bf["aliased"]["bound_by"],
+                library_ms=None,
+                distinct=dict(ms=ms(bf["distinct"]["kernel_us"]), **dev_times(bf["distinct"]),
+                              plain_ms=ms(bf["distinct"]["plain_us"]),
+                              bound_ms=ms(bf["distinct"]["bound_us"]),
+                              bound_by=bf["distinct"]["bound_by"]))
             entry.update(call=k["call"], kernels=["tamper_check_kernel"],
                          calibration=dict(ms=ms(k["calibration"]["kernel_us"]),
                                           **dev_times(k["calibration"])),
@@ -3264,6 +3735,16 @@ def main() -> None:
                 launches_by_path={path: counts[name] for path, counts in by_path.items()},
                 ms=ms(old["kernel_us"]), device_ms_l2_warm=ms(old["kernel_dev_us"]),
                 device_ms_l2_cold=ms(old["kernel_cold_us"]))
+        if "lm_batched" in k:
+            # the batched LM round's shape (phase 8b), its launches there
+            lb = k["lm_batched"]
+            path = ("round_batched_int8_loss_plus_distance" if name == "quant_dequant_stats"
+                    else "round_batched_int8_argmin")
+            entry["lm_batched"] = dict(
+                shape=lb["shape"], path=path, launches=by_path[path][key],
+                ms=ms(lb["kernel_us"]), device_ms_l2_warm=ms(lb["kernel_dev_us"]),
+                device_ms_l2_cold=ms(lb["kernel_cold_us"]), plain_ms=ms(lb["plain_us"]),
+                bound_ms=ms(lb["bound_us"]), bound_by=lb["bound_by"])
         if "lm_message" in k:
             # the LM round's cut message (B3's wide path)
             lm = k["lm_message"]
@@ -3292,7 +3773,7 @@ def main() -> None:
         f"seconds_per_round={b_per_round:.3f}; phase2c baselines {baselines}; "
         f"phase2d multiround {multiround}; phase2e sweep and pool {sweep_pool}; "
         f"phase6 serve {serve}; phase7 train {train}; "
-        f"phase8 rounds {rounds}; phase9 xlstm {xlstm}")
+        f"phase8 rounds {rounds}; phase8b batched LM {batched_lm}; phase9 xlstm {xlstm}")
     log(json.dumps({"kernels": entries}))
     log(card)
     log(json.dumps({"ok": True, "device": {

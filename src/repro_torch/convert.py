@@ -32,7 +32,10 @@ it onto the stack's ``nn.ModuleList`` (a layer's parameter names are the
 pytree's paths, joined by dots) and :func:`lm_to_reference` stacks it back.
 The split view travels the same way: :func:`lm_split_from_reference` takes
 the reference's ``split_params`` pair ``(gamma, phi)`` to the port's
-``(ClientLM, APLM)`` and :func:`lm_split_to_reference` back.
+``(ClientLM, APLM)`` and :func:`lm_split_to_reference` back; the
+cluster-stacked LM (``StackedModel``) takes R parameter trees
+(:func:`lm_stack_from_reference`) and gives one slot's back
+(:func:`lm_slot_to_reference`).
 Values travel as f32 (numpy has no bf16); a bf16 model's round trip is
 exact all the same.
 """
@@ -46,7 +49,7 @@ import torch
 from .models.cnn import (APHead, ClientCNN, CNNConfig, StackedAPHead,
                          StackedClientCNN)
 from .models.config import ModelConfig
-from .models.model import APLM, ClientLM, Model, build_model
+from .models.model import APLM, ClientLM, Model, StackedModel, build_model, build_plan
 
 Tree = Dict[str, Any]
 
@@ -171,6 +174,22 @@ def lm_to_reference(model: Model) -> Tree:
             "head": {"w": arr(model.head.w)}}
 
 
+@torch.no_grad()
+def lm_stack_from_reference(cfg: ModelConfig, trees: Sequence[Tree]) -> StackedModel:
+    """R reference LM parameter pytrees -> the port's
+    :class:`StackedModel`, slot r holding tree r, on the CPU."""
+    stacked = StackedModel(cfg, build_plan(cfg), len(trees), torch.device("cpu"))
+    for r, tree in enumerate(trees):
+        stacked.load_slot(r, lm_from_reference(cfg, tree))
+    return stacked
+
+
+def lm_slot_to_reference(stacked: StackedModel, r: int) -> Tree:
+    """Slot ``r`` of a :class:`StackedModel` -> the reference's parameter
+    pytree (numpy f32)."""
+    return lm_to_reference(stacked.slot_model(r))
+
+
 def _concat_stacks(a: Tree, b: Tree) -> Tree:
     return {k: (_concat_stacks(v, b[k]) if isinstance(v, dict)
                 else np.concatenate([np.asarray(v), np.asarray(b[k])]))
@@ -222,6 +241,6 @@ def lm_split_to_reference(model: Model, gamma: ClientLM, phi: APLM) -> Tuple[Tre
             {"stacks": tuple(ap), "final_norm": tree["final_norm"], "head": tree["head"]})
 
 
-__all__ = ["from_reference", "lm_from_reference", "lm_split_from_reference",
-           "lm_split_to_reference", "lm_to_reference", "slot_to_reference",
-           "stack_reference", "to_reference"]
+__all__ = ["from_reference", "lm_from_reference", "lm_slot_to_reference",
+           "lm_split_from_reference", "lm_split_to_reference", "lm_stack_from_reference",
+           "lm_to_reference", "slot_to_reference", "stack_reference", "to_reference"]

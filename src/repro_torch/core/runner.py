@@ -21,7 +21,14 @@ that passes the handoff check.  :class:`RoundRunner` runs that round over a
     verify stage (the multi-seed sweep);
   * :meth:`RoundRunner.pool_accept_block` — J jobs' ``accept_block`` in
     one program, with a lane mask, one ``(J, K, 2R + 3)`` tensor a block
-    (the job pool).
+    (the job pool);
+  * :meth:`RoundRunner.round` / :meth:`RoundRunner.round_block` — the
+    launch layer's round: train, validate, the policy's winner
+    (:func:`masked_argmin`) and :func:`broadcast_winner` into every slot,
+    ``(vlosses, sel)`` left on the device; K of them with one stacked
+    ``(vlosses (K, R), sels (K,))`` for one fetch.  Under
+    ``params_stacked`` the parameters are the stacked model itself, each
+    slot training its own (``launch/steps.py``).
 
 The sweep and the pool run the **replica form**: L thetas (``split.replicas``)
 trained as one stacked program of L * R slots, replica-major.  Every
@@ -46,13 +53,7 @@ from typing import Any, Callable, NamedTuple, Optional, Tuple
 import torch
 from torch import nn
 
-from .protocol import _not_ported
 from .split import replicas
-
-#: where the parts of the reference's runner the port does not run yet will
-#: come from (ROADMAP.md Queue A)
-LAUNCH_SLICE = ("ROADMAP.md Queue A item 5, the LM round and the launch layer "
-                "(RoundRunner.round, launch/steps.py)")
 
 
 # ---------------------------------------------------------------------------
@@ -76,6 +77,17 @@ def commit(plain: nn.Module, stacked: nn.Module, sel: torch.Tensor,
     for p, w in zip(plain.parameters(), onehot_select(stacked, sel)):
         p.copy_(torch.where(accepted, w, p))
     return plain
+
+
+@torch.no_grad()
+def broadcast_winner(stacked, sel: torch.Tensor):
+    """The paper's winner hand-off on stacked halves (a module or a tuple of
+    them), in place: every slot of each parameter takes slot ``sel`` (0-d
+    int64 on the device; never read on the host).  Returns ``stacked``."""
+    for half in (stacked if isinstance(stacked, (tuple, list)) else (stacked,)):
+        for p, w in zip(half.parameters(), onehot_select(half, sel)):
+            p.copy_(w.expand_as(p))
+    return stacked
 
 
 class LaneVal(NamedTuple):
@@ -173,14 +185,32 @@ def cluster_map(spec: RoundSpec, params, inputs, val):
     return new_p, aux, vloss, vaux
 
 
+def _check_shards(spec: RoundSpec, policy) -> None:
+    if policy.shard_count > 0 and spec.validate_sharded is None:
+        raise ValueError(f"selection policy {policy.name!r} needs sharded "
+                         f"validation, which this RoundSpec does not provide")
+
+
+def _check_stats(spec: RoundSpec, policy) -> None:
+    if policy.needs_message_stats and spec.message_stats is None:
+        raise ValueError(f"selection policy {policy.name!r} needs "
+                         f"transmitted-message statistics, which this "
+                         f"RoundSpec does not surface")
+
+
+def check_policy(spec: RoundSpec, policy) -> None:
+    """Raise, before any work, the error a round over ``spec`` would raise
+    for a feature ``policy`` scores that the spec lacks."""
+    _check_shards(spec, policy)
+    _check_stats(spec, policy)
+
+
 def select_map(spec: RoundSpec, policy, params, inputs, val):
     """:func:`cluster_map` + the per-shard losses ``(R, K)`` when ``policy``
     shards the shared set (else None)."""
+    _check_shards(spec, policy)
     if policy.shard_count <= 0:
         return (*cluster_map(spec, params, inputs, val), None)
-    if spec.validate_sharded is None:
-        raise ValueError(f"selection policy {policy.name!r} needs sharded "
-                         f"validation, which this RoundSpec does not provide")
     new_p, aux = _train(spec, params, inputs)
     vloss, shard_l, vaux = spec.validate_sharded(new_p, val, policy.shard_count)
     return new_p, aux, vloss, vaux, shard_l
@@ -189,13 +219,8 @@ def select_map(spec: RoundSpec, policy, params, inputs, val):
 def policy_context(spec: RoundSpec, policy, aux, vlosses, shard_losses):
     """The in-program :class:`~repro_torch.selection.ScoreContext`."""
     from ..selection import ScoreContext
-    stats = None
-    if policy.needs_message_stats:
-        if spec.message_stats is None:
-            raise ValueError(f"selection policy {policy.name!r} needs "
-                             f"transmitted-message statistics, which this "
-                             f"RoundSpec does not surface")
-        stats = spec.message_stats(aux)
+    _check_stats(spec, policy)
+    stats = spec.message_stats(aux) if policy.needs_message_stats else None
     return ScoreContext(vlosses=vlosses, shard_losses=shard_losses,
                         message_stats=stats)
 
@@ -277,14 +302,18 @@ class RoundRunner:
     the entries.  ``select`` binds a
     :class:`~repro_torch.selection.SelectionPolicy` (default argmin);
     ``verify`` configures the tamper-check stage of :meth:`accept` and of
-    the entries built on it."""
+    the entries built on it.  ``params_stacked`` says the parameters are
+    already cluster-stacked, each slot training its own (the launch
+    layer's layout, :meth:`round` and :meth:`round_block` only); otherwise
+    one theta goes into every slot (the protocol layout)."""
 
     def __init__(self, spec: RoundSpec, *, select=None,
-                 verify: Optional[VerifyConfig] = None):
+                 verify: Optional[VerifyConfig] = None, params_stacked: bool = False):
         from ..selection import ARGMIN
         self.spec = spec
         self.select = ARGMIN if select is None else select
         self.verify = VerifyConfig() if verify is None else verify
+        self.params_stacked = params_stacked
 
     def candidates(self, params, inputs, val):
         """(stacked_params, train_aux, vlosses (R,), val_aux) for theta =
@@ -292,6 +321,10 @@ class RoundRunner:
         return cluster_map(self.spec, params, inputs, val)
 
     def _check_verify(self) -> None:
+        if self.params_stacked:
+            raise ValueError("the acceptance cascade requires the protocol layout "
+                             "(params_stacked=False): the commit stage resolves the R "
+                             "candidates back to one theta")
         if (self.verify.enabled and self.verify.recompute
                 and self.spec.handoff_acts is None):
             raise ValueError("verify.enabled with recompute needs the RoundSpec "
@@ -347,8 +380,34 @@ class RoundRunner:
         thetas, fetches = self._accept_lanes(params, inputs, val)
         return thetas[0], fetches[0]
 
-    def round(self, *args):
-        _not_ported("RoundRunner.round", LAUNCH_SLICE)
+    def round(self, params, inputs, val):
+        """One launch-layer round: every slot trained and validated, the
+        policy's winner (:func:`masked_argmin` over its scores) broadcast
+        into every slot in place.  Returns ``(stacked_params, vlosses (R,),
+        sel)``, ``sel`` a 0-d tensor on the device; nothing is read back.
+        The stacked parameters are ``params`` under ``params_stacked``,
+        else the halves the round built from theta = ``params``."""
+        spec, policy = self.spec, self.select
+        new_p, aux, vlosses, _, shard_l = select_map(spec, policy, params, inputs, val)
+        scores, elig = policy_scores(policy, policy_context(spec, policy, aux, vlosses,
+                                                            shard_l))
+        sel = masked_argmin(scores, elig)
+        return broadcast_winner(new_p, sel), vlosses, sel
+
+    def round_block(self, params, block_inputs, val):
+        """K :meth:`round` rounds back to back over stacked parameters, each
+        round training from the winner the one before broadcast:
+        ``(params, (vlosses (K, R), sels (K,)))`` for the caller's one
+        fetch; nothing here reads the device back."""
+        if not self.params_stacked:
+            raise ValueError("round_block carries the stacked parameters from round "
+                             "to round: it needs params_stacked=True")
+        vls, sels = [], []
+        for inputs in block_inputs:
+            params, vlosses, sel = self.round(params, inputs, val)
+            vls.append(vlosses)
+            sels.append(sel)
+        return params, (torch.stack(vls), torch.stack(sels))
 
     def sweep(self, params, inputs, val):
         """One round of S replicas: :func:`sweep_map` under this runner's
@@ -411,18 +470,19 @@ class RoundRunner:
 # ---------------------------------------------------------------------------
 
 def sharded_validation_losses(ap_loss, phi, acts: torch.Tensor, y0: torch.Tensor,
-                              k: int) -> torch.Tensor:
+                              k: int, lead: int = 0) -> torch.Tensor:
     """Per-shard shared-set losses over ``effective_shards(k, D_o)`` equal
-    slices of the sample axis (second to last of ``acts``, last of ``y0``):
-    ``(k',)`` for a plain ``ap_loss``, ``(R, k')`` for a stacked one — the
-    one copy of the median-of-means shard arithmetic, shared by the fused
-    spec and the host selector."""
+    slices of the sample axis, axis ``lead`` of ``acts`` and of ``y0``:
+    ``(k',)`` for a plain ``ap_loss`` (``lead`` 0), ``(R, k')`` for a
+    stacked one (``lead`` 1, ``y0`` a label set a slot) — the one copy of
+    the median-of-means shard arithmetic, shared by the fused spec and the
+    host selector."""
     from ..selection import effective_shards
-    d_o = y0.shape[-1]
+    d_o = acts.shape[lead]
     kk = effective_shards(k, d_o)
     n = d_o // kk
-    return torch.stack([ap_loss(phi, acts[..., i * n:(i + 1) * n, :],
-                                y0[..., i * n:(i + 1) * n]) for i in range(kk)], dim=-1)
+    return torch.stack([ap_loss(phi, acts.narrow(lead, i * n, n), y0.narrow(lead, i * n, n))
+                        for i in range(kk)], dim=-1)
 
 
 def make_train_summary(with_stats: bool):
@@ -500,8 +560,10 @@ def protocol_round_spec(module, lr: float, with_stats: bool = False,
     @torch.no_grad()
     def validate_sharded(theta, val, k):
         vloss, acts, y0 = _validate(theta, val)
+        if not isinstance(val, LaneVal):            # the shared set, a view a slot
+            y0 = y0.expand(acts.shape[:1] + tuple(y0.shape))
         shard_losses = sharded_validation_losses(stacked.ap_losses, theta[1],
-                                                 acts, y0, k)
+                                                 acts, y0, k, lead=1)
         return vloss, shard_losses, acts
 
     return RoundSpec(
@@ -535,8 +597,8 @@ def protocol_accept_runner(module, lr: float, select, tamper_check: bool,
                                            recompute=False))
 
 
-__all__ = ["LaneVal", "RoundRunner", "RoundSpec", "VerifyConfig", "cluster_map", "commit",
-           "make_train_summary", "masked_argmin", "onehot_select", "policy_context",
-           "policy_scores", "protocol_accept_runner", "protocol_round_spec",
-           "protocol_runner", "replica_scores", "select_map", "sharded_validation_losses",
-           "slot_val", "sweep_map"]
+__all__ = ["LaneVal", "RoundRunner", "RoundSpec", "VerifyConfig", "broadcast_winner",
+           "check_policy", "cluster_map", "commit", "make_train_summary", "masked_argmin",
+           "onehot_select", "policy_context", "policy_scores", "protocol_accept_runner",
+           "protocol_round_spec", "protocol_runner", "replica_scores", "select_map",
+           "sharded_validation_losses", "slot_val", "sweep_map"]

@@ -11,8 +11,8 @@ The client backward starts from its own cut activations with exactly the
 (possibly tampered) cut gradient it received — no gradient bypasses the cut.
 
 gamma and phi are ``nn.Module``s (``ClientCNN`` / ``APHead`` for the CNNs,
-``ClientLM`` / ``APLM`` for an LM via :func:`from_lm`); an SGD step updates
-their parameters in place.
+``ClientLM`` / ``APLM`` for an LM via :func:`from_lm`, and their stacked
+forms); an SGD step updates their parameters in place.
 
 The batched round runs the same exchange on cluster-stacked halves
 (:class:`StackedSplit`): messages carry a leading R axis, the attack hooks
@@ -94,8 +94,14 @@ def from_lm(model) -> SplitModule:
     model's device, from a seed taken from the generator it is given: a
     model built on the card is drawn there (a CPU draw of an 8 B model takes
     minutes), one built on the CPU on the CPU, so runs on either device from
-    one template start alike.  No cluster-stacked form: an LM runs on the
-    sequential engine."""
+    one template start alike.  The cluster-stacked form is the
+    ``models.StackedModel`` of the model's config (dense only): x (R, B, S)
+    tokens, y (R, B, S) labels, a shared (D_o, S) label set broadcast to
+    every slot."""
+    from ..models.model import StackedModel
+
+    def make(r: int, replicas: int = 1):
+        return StackedModel(model.cfg, model.plan, replicas * r).split_params()
 
     def init(gen: torch.Generator):
         seed = int(torch.randint(0, 2 ** 62, (1,), generator=gen))
@@ -111,7 +117,9 @@ def from_lm(model) -> SplitModule:
     return SplitModule(init=init,
                        client_forward=lambda g, tokens: model.client_forward(
                            g, {"tokens": tokens}),
-                       ap_loss=ap_loss, predict=predict, n_classes=model.cfg.vocab)
+                       ap_loss=ap_loss, predict=predict, n_classes=model.cfg.vocab,
+                       stacked=StackedSplit(make=make, client_forward=lambda g, x: g(x),
+                                            ap_losses=lambda p, a, y: p(a, y)))
 
 
 # ---------------------------------------------------------------------------
@@ -120,10 +128,8 @@ def from_lm(model) -> SplitModule:
 
 def _stacked(module: SplitModule) -> StackedSplit:
     if module.stacked is None:
-        from ..models.model import STACKED_LM_SLICE
-        raise NotImplementedError(f"this split model has no cluster-stacked form, so it "
-                                  f"runs on the sequential engine only (an LM's comes "
-                                  f"with {STACKED_LM_SLICE})")
+        raise NotImplementedError("this split model has no cluster-stacked form, so it "
+                                  "runs on the sequential engine only")
     return module.stacked
 
 

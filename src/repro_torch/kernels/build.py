@@ -50,8 +50,8 @@ SOURCES: Dict[str, Dict[str, Tuple]] = {
     },
     "tamper_check": {
         # ref, recv, partial, sums, dists, passed, ticket, r, n_elem, chunk, p,
-        # tol, aliased, stream
-        "repro_tamper_check": (_P, _P, _P, _P, _P, _P, _P, _I, _L, _L, _I, _F, _I, _P),
+        # tol, aliased, dtype (0 f32, 1 bf16), stream
+        "repro_tamper_check": (_P, _P, _P, _P, _P, _P, _P, _I, _L, _L, _I, _F, _I, _I, _P),
         # out (int*): the block and chunk constants
         "repro_tamper_check_constants": (_P,),
     },
@@ -133,9 +133,12 @@ BUILD_SECONDS: Dict[str, float] = {}
 #: ``fused_xent``, their ``_bwd`` and ``decode_attention`` the f32-FMA
 #: kernels, the same names with ``_tc`` the tensor-core ones; B7 counts
 #: ``slstm_scan_persistent`` (one cooperative launch a scan) and
-#: ``slstm_scan`` (the step kernel, T launches a scan) a call each
+#: ``slstm_scan`` (the step kernel, T launches a scan) a call each; B1 counts
+#: ``tamper_check_sums`` (f32 inputs) and ``tamper_check_sums_bf16`` (its
+#: bf16 route)
 LAUNCHES: Dict[str, int] = {"quant_dequant": 0, "quant_dequant_stats": 0,
-                            "tamper_check_sums": 0, "fused_xent": 0, "fused_xent_tc": 0,
+                            "tamper_check_sums": 0, "tamper_check_sums_bf16": 0,
+                            "fused_xent": 0, "fused_xent_tc": 0,
                             "fused_xent_bwd": 0, "fused_xent_bwd_tc": 0,
                             "flash_attention": 0, "flash_attention_tc": 0,
                             "flash_attention_bwd": 0, "flash_attention_bwd_tc": 0,

@@ -110,33 +110,35 @@ def fused_cross_entropy(hidden: torch.Tensor, weights: torch.Tensor, labels: tor
 class _QuantCutExchange(torch.autograd.Function):
     """The straight-through wire: the forward quantizes the uplink
     activation message, the backward the downlink cut gradient, each per
-    sample through :func:`quant_roundtrip`."""
+    sample (a row a sample over the ``lead`` leading axes) through
+    :func:`quant_roundtrip`."""
 
     @staticmethod
-    def _qdq(x: torch.Tensor, fmt: str) -> torch.Tensor:
-        flat = x.reshape(x.shape[0], -1).to(torch.float32).contiguous()
+    def _qdq(x: torch.Tensor, fmt: str, lead: int) -> torch.Tensor:
+        flat = x.reshape(math.prod(x.shape[:lead]), -1).to(torch.float32).contiguous()
         deq, _ = quant_roundtrip(flat, fmt)
         return deq.reshape(x.shape).to(x.dtype)
 
     @staticmethod
-    def forward(ctx, x, fmt):
-        ctx.fmt = fmt
-        return _QuantCutExchange._qdq(x, fmt)
+    def forward(ctx, x, fmt, lead):
+        ctx.fmt, ctx.lead = fmt, lead
+        return _QuantCutExchange._qdq(x, fmt, lead)
 
     @staticmethod
     def backward(ctx, g):
-        return _QuantCutExchange._qdq(g, ctx.fmt), None
+        return _QuantCutExchange._qdq(g, ctx.fmt, ctx.lead), None, None
 
 
-def quant_cut_exchange(x: torch.Tensor, fmt: Optional[str]) -> torch.Tensor:
-    """Apply the quantized cut-layer wire to an activation tensor (leading
-    batch axis, any trailing shape): one differentiable call sees exactly
-    the two messages a client/AP pair exchange.  ``fmt=None`` is the
-    identity."""
+def quant_cut_exchange(x: torch.Tensor, fmt: Optional[str], lead: int = 1) -> torch.Tensor:
+    """Apply the quantized cut-layer wire to an activation tensor (``lead``
+    leading sample axes: 1 for a batch, 2 for n slots' batches (n, B, ...);
+    any trailing shape): one differentiable call sees exactly the two
+    messages a client/AP pair exchange, a row a sample.  ``fmt=None`` is
+    the identity."""
     if fmt is None:
         return x
     _qx.check_format(fmt)
-    return _QuantCutExchange.apply(x, fmt)
+    return _QuantCutExchange.apply(x, fmt, lead)
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

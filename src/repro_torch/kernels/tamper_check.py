@@ -7,8 +7,10 @@ validation time.  For each candidate the check needs two sums over its
 (N, D) activation set, ``[sum (ref - recv)^2, sum ref^2]``, and from them
 the relative distance ``sqrt(num) / max(sqrt(den), 1e-12)``.
 
-  * :func:`tamper_check` — launches the kernel on CUDA tensors: ref and recv
-    (R, N, D) -> sums (R, 2), distances (R,) and the verdicts
+  * :func:`tamper_check` — launches the kernel on f32 or bf16 CUDA tensors
+    (bf16 read as it lies, summed in f32, as the reference's kernel casts
+    each block): ref and recv (R, N, D) -> sums (R, 2), distances (R,) and
+    the verdicts
     ``distances <= tol`` (R,), all R candidates in ONE launch (or (N, D) ->
     (2,), a scalar and a 0-d verdict).  When ref and recv are the same
     storage (the fused round's verify stage) it reads them once.
@@ -18,7 +20,8 @@ the relative distance ``sqrt(num) / max(sqrt(den), 1e-12)``.
 
 ``kernels/ops.py::tamper_verdict`` (and ``tamper_distance`` through it)
 picks between them by the tensor's device.  The launcher counts its launches in
-``build.LAUNCHES``.
+``build.LAUNCHES`` (``tamper_check_sums``, ``tamper_check_sums_bf16`` for the
+bf16 route).
 """
 from __future__ import annotations
 
@@ -34,6 +37,10 @@ TAMPER_THREADS, TAMPER_UNROLL = 256, 4
 TAMPER_MIN_CHUNK = TAMPER_THREADS * 4 * TAMPER_UNROLL
 #: the fewest blocks an SM the layout aims for, to keep loads in flight
 TAMPER_BLOCKS_PER_SM = 4
+#: the elements of one 16-byte load, by input dtype (the chunk's multiple)
+TAMPER_VEC = {torch.float32: 4, torch.bfloat16: 8}
+#: the kernel's dtype flag
+_DTYPE_FLAG = {torch.float32: 0, torch.bfloat16: 1}
 #: the guard on the distance's denominator (``ops.tamper_distance``)
 DEN_FLOOR = 1e-12
 _CONSTANTS = {"kThreads": TAMPER_THREADS, "kUnroll": TAMPER_UNROLL,
@@ -49,17 +56,18 @@ def _as_candidates(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(1, -1) if x.dim() == 2 else x.reshape(x.shape[0], -1)
 
 
-def tamper_layout(r: int, n_elem: int, sms: int) -> Tuple[int, int]:
+def tamper_layout(r: int, n_elem: int, sms: int, vec: int = 4) -> Tuple[int, int]:
     """(P, chunk) of the kernel's (P, R) grid on a card of ``sms`` SMs:
     block (p, r) takes elements ``[p * chunk, (p + 1) * chunk)`` of
     candidate r.  P * R is a multiple of ``sms`` with at least
     :data:`TAMPER_BLOCKS_PER_SM` blocks an SM, so every SM streams the same
-    bytes; the chunk is a multiple of 4 elements (16-byte loads) and at
-    least :data:`TAMPER_MIN_CHUNK`, and P chunks just cover ``n_elem``."""
+    bytes; the chunk is a multiple of ``vec`` elements (a 16-byte load's:
+    :data:`TAMPER_VEC`) and at least :data:`TAMPER_MIN_CHUNK`, and P chunks
+    just cover ``n_elem``."""
     g = math.gcd(r, sms)
     per_cand, per_sm = sms // g, r // g          # P * R = sms * per_sm at P = per_cand
     p = per_cand * -(-TAMPER_BLOCKS_PER_SM // per_sm)
-    chunk = max(4 * -(-n_elem // (4 * p)), TAMPER_MIN_CHUNK)
+    chunk = max(vec * -(-n_elem // (vec * p)), TAMPER_MIN_CHUNK)
     return -(-n_elem // chunk), chunk
 
 
@@ -93,8 +101,8 @@ def _check_input(x: torch.Tensor) -> None:
     if x.device.index != torch.cuda.current_device():
         raise ValueError(f"activations on {x.device} but the current device "
                          f"is cuda:{torch.cuda.current_device()}")
-    if x.dtype != torch.float32:
-        raise TypeError(f"the tamper-check kernel takes float32, got {x.dtype}")
+    if x.dtype not in TAMPER_VEC:
+        raise TypeError(f"the tamper-check kernel takes float32 or bfloat16, got {x.dtype}")
     if x.dim() < 2 or x.numel() == 0:
         raise ValueError(f"the tamper-check kernel takes non-empty (N, D) or "
                          f"(R, N, D) activations, got {tuple(x.shape)}")
@@ -111,19 +119,23 @@ def _ticket(device: torch.device, stream: int) -> torch.Tensor:
 
 def tamper_check(ref: torch.Tensor, recv: torch.Tensor, tol: float
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch the one-launch tamper check on f32 CUDA tensors: (R, N, D) ->
-    (sums (R, 2), distances (R,), verdicts ``distances <= tol`` (R,) bool);
-    (N, D) -> ((2,), 0-d, 0-d)."""
+    """Launch the one-launch tamper check on f32 or bf16 CUDA tensors (both
+    of one dtype): (R, N, D) -> (sums (R, 2), distances (R,), verdicts
+    ``distances <= tol`` (R,) bool), all f32 sums; (N, D) -> ((2,), 0-d,
+    0-d)."""
     from .build import check_constants, device_limits, load, record_launch
     if ref.shape != recv.shape:
         raise ValueError(f"ref {tuple(ref.shape)} and recv {tuple(recv.shape)} differ")
+    if ref.dtype != recv.dtype:
+        raise TypeError(f"ref {ref.dtype} and recv {recv.dtype} differ")
     for x in (ref, recv):
         _check_input(x)
     a, b = _as_candidates(ref), _as_candidates(recv)
     r, n_elem = a.shape
     lib = load("tamper_check")
     check_constants("tamper_check", _CONSTANTS)
-    p, chunk = tamper_layout(r, n_elem, device_limits(ref.device.index)[0])
+    p, chunk = tamper_layout(r, n_elem, device_limits(ref.device.index)[0],
+                             TAMPER_VEC[ref.dtype])
     # the partials, then the sums and the distances
     out = torch.empty((r * (2 * p + 3),), dtype=torch.float32, device=ref.device)
     sums = out[r * 2 * p: r * (2 * p + 2)].view(r, 2)
@@ -133,8 +145,9 @@ def tamper_check(ref: torch.Tensor, recv: torch.Tensor, tol: float
     err = lib.repro_tamper_check(
         a.data_ptr(), b.data_ptr(), out.data_ptr(), sums.data_ptr(), dists.data_ptr(),
         passed.data_ptr(), _ticket(ref.device, stream).data_ptr(), r, n_elem, chunk, p,
-        tol, int(a.data_ptr() == b.data_ptr()), stream)
-    record_launch(err, "tamper_check_sums")
+        tol, int(a.data_ptr() == b.data_ptr()), _DTYPE_FLAG[ref.dtype], stream)
+    record_launch(err, "tamper_check_sums_bf16" if ref.dtype == torch.bfloat16
+                  else "tamper_check_sums")
     if ref.dim() == 2:
         return sums[0], dists[0], passed[0]
     return sums, dists, passed
@@ -147,5 +160,6 @@ def tamper_check_sums(ref: torch.Tensor, recv: torch.Tensor) -> torch.Tensor:
 
 
 __all__ = ["DEN_FLOOR", "TAMPER_BLOCKS_PER_SM", "TAMPER_MIN_CHUNK", "TAMPER_THREADS",
-           "TAMPER_UNROLL", "distance_from_sums", "tamper_check", "tamper_check_sums",
-           "tamper_check_sums_plain", "tamper_distance_plain", "tamper_layout"]
+           "TAMPER_UNROLL", "TAMPER_VEC", "distance_from_sums", "tamper_check",
+           "tamper_check_sums", "tamper_check_sums_plain", "tamper_distance_plain",
+           "tamper_layout"]

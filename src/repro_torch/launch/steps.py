@@ -1,34 +1,57 @@
-"""The step functions (the reference's ``repro/launch/steps.py``).
+"""The step functions and their input specs (the reference's
+``repro/launch/steps.py``).
 
   * ``train_step(batch)``               — one SL mini-batch update of the
                                           split network (client and AP
                                           halves in one differentiation)
-                                          -> loss.
+                                          -> loss; over a ``StackedModel``
+                                          every slot's update at once ->
+                                          (R,) losses.
   * ``prefill_step(batch)``             — full-sequence forward, last-token
                                           logits (B, 1, V) f32.
   * ``serve_step(cache, tokens, index)`` — ONE new token against the KV
                                           cache -> (logits f32, cache).
+  * ``pigeon_round_step(batches, val_batch)`` — the paper's global round over
+                                          R cluster slots of a
+                                          ``StackedModel``: every slot's
+                                          train step, the shared-set
+                                          validation loss, the policy's
+                                          winner and its broadcast into
+                                          every slot -> (vlosses, sel).
 
-The model holds its parameters, so a step takes none and the train step
-updates them in place.  The reference's round programs
-(``launch_round_spec``, ``make_pigeon_round_step``,
-``make_pigeon_plus_round_step``) need a cluster-stacked LM and come with it
-(ROADMAP.md Queue A item 5); its sharded (mesh) programs have no
-single-card counterpart.  :func:`instrument_step` wraps any step so that
-each call emits one telemetry span.
+The model holds its parameters, so a step takes none and updates them in
+place.  The round makers are thin adapters over
+``core.runner.RoundRunner.round`` (``params_stacked``): this module only
+supplies the model-level binding (:func:`launch_round_spec`).  The
+reference's sharded (mesh) programs have no single-card counterpart:
+:func:`make_pigeon_round_step_shardmap` raises, as ``run_pigeon``'s
+``placement="sharded"`` does.
+
+:func:`input_specs` builds one (architecture x input shape) step with its
+arguments as tensors on the ``meta`` device (shapes and dtypes, nothing
+allocated), the reference's ``ShapeDtypeStruct`` stand-ins; the shardings
+have no single-card meaning and are left out.  :func:`instrument_step`
+wraps any step so that each call emits one telemetry span.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+import dataclasses
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
+from torch import nn
 
+from ..core.protocol import MULTI_CARD_SLICE, _not_ported
+from ..core.runner import RoundRunner, RoundSpec, check_policy
 from ..core.split import sgd_update
 from ..kernels import ops as kops
-from ..models.model import Model
+from ..models.blocks import DTYPES
+from ..models.config import ModelConfig
+from ..models.model import Model, StackedModel, build_plan
+from .shapes import SHAPES, InputShape, shape_settings
 
 
-def make_train_step(model: Model, lr: float = 1e-3,
+def make_train_step(model: nn.Module, lr: float = 1e-3,
                     quant: Optional[str] = None) -> Callable:
     """One train step: ``loss = train_step(batch)`` differentiates the loss
     with respect to every parameter and applies ``p -= lr * g`` in place,
@@ -36,21 +59,31 @@ def make_train_step(model: Model, lr: float = 1e-3,
     the loss routes through the model's gamma/phi cut and
     :func:`kernels.ops.quant_cut_exchange`, a straight-through wire whose
     forward quantizes the uplink activations and whose backward quantizes
-    the downlink cut gradient (B2 both ways on the card).  ``quant=None``
-    is the plain ``model.loss`` path."""
+    the downlink cut gradient (B2 both ways on the card), a row a sample.
+    ``quant=None`` is the plain ``model.loss`` path.
+
+    Over a :class:`StackedModel` the batch is n slots' ``(n, B, S)`` and the
+    step returns the (n,) losses: each slot takes its own step (the slots
+    share no parameter, so the gradient of the losses' sum is each slot's
+    own), the reference's train step under its vmap over clusters."""
+    stacked = isinstance(model, StackedModel)
     params = list(model.parameters())
     halves = model.split_params() if quant is not None else None
 
     def loss_of(batch):
         if halves is None:
-            return model.loss(batch)
+            return model.loss(batch) if stacked else model.loss(batch)[0]
         gamma, phi = halves
+        if stacked:
+            acts = kops.quant_cut_exchange(model.client_forward(gamma, batch["tokens"]),
+                                           quant, lead=2)
+            return model.ap_losses(phi, acts, batch["labels"], batch.get("mask"))
         acts = kops.quant_cut_exchange(model.client_forward(gamma, batch), quant)
-        return model.ap_forward(phi, acts, batch)
+        return model.ap_forward(phi, acts, batch)[0]
 
     def train_step(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        loss, _ = loss_of(batch)
-        sgd_update(model, torch.autograd.grad(loss, params), lr)
+        loss = loss_of(batch)
+        sgd_update(model, torch.autograd.grad(loss.sum(), params), lr)
         return loss.detach()
 
     return train_step
@@ -90,4 +123,223 @@ def make_serve_step(model: Model) -> Callable:
     return serve_step
 
 
-__all__ = ["instrument_step", "make_prefill_step", "make_serve_step", "make_train_step"]
+# ---------------------------------------------------------------------------
+# the round programs over a cluster-stacked LM
+# ---------------------------------------------------------------------------
+
+def _every_slot(model: StackedModel, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The shared batch as every slot's (views)."""
+    return {k: v.expand((model.n,) + tuple(v.shape)) for k, v in batch.items()}
+
+
+def launch_round_spec(model: StackedModel, lr: float = 1e-3,
+                      quant: Optional[str] = None) -> RoundSpec:
+    """The launch-layer binding of the RoundRunner's RoundSpec: one train
+    step a slot (:func:`make_train_step` over the stacked model, in place)
+    and the shared-set validation loss.  ``params`` is ``model`` itself.
+
+    ``validate_sharded`` slices the validation batch into (up to) k equal
+    shards for the median-of-means selection family; there is no
+    ``message_stats`` hook — the launch layer runs plain train steps, not
+    the SL message exchange — so anomaly-scoring policies
+    (loss_plus_distance) are rejected when a round step is built.
+
+    ``quant`` applies the straight-through quantized cut-layer wire to the
+    train steps only; the shared-set validation forward stays exact."""
+    from ..selection import effective_shards
+    train = make_train_step(model, lr, quant=quant)
+
+    def train_cluster(params, batches):
+        return params, train(batches)           # (R,) train losses
+
+    @torch.no_grad()
+    def validate(params, val_batch):
+        return params.loss(_every_slot(params, val_batch)), None
+
+    @torch.no_grad()
+    def validate_sharded(params, val_batch, k):
+        b = val_batch["tokens"].shape[0]
+        kk = effective_shards(k, b)
+        n = b // kk
+        losses = torch.stack([params.loss(_every_slot(
+            params, {name: v[i * n:(i + 1) * n] for name, v in val_batch.items()}))
+            for i in range(kk)], dim=-1)
+        # the reported vloss stays the exact full-batch loss (a masked mean
+        # of per-shard means would over-weight padding-light shards); the
+        # shards feed only the median-of-means score
+        return params.loss(_every_slot(params, val_batch)), losses, None
+
+    return RoundSpec(train_cluster, validate, validate_sharded=validate_sharded,
+                     train_summary=lambda aux: aux)
+
+
+def make_pigeon_round_step(model: StackedModel, lr: float = 1e-3,
+                           selection: str = "argmin", quant: Optional[str] = None,
+                           block: int = 1) -> Callable:
+    """One Pigeon-SL global round over the R slots of ``model``:
+    ``round_step(batches, val_batch) -> (vlosses (R,), sel)`` with
+    ``batches`` {"tokens", "labels"} of (R, B, S) per-slot batches and
+    ``val_batch`` the shared (D_o, S) set every slot evaluates (Section
+    III-C).  Afterwards every slot holds the winner; ``sel`` stays on the
+    device.  ``selection`` names any loss-based policy (argmin /
+    median_of_means / trimmed).
+
+    ``block > 1`` returns the round-block step: ``batches`` lead with the K
+    rounds' axis (K, R, B, S), and the step runs K rounds, each from the
+    winner of the one before, returning ``(vlosses (K, R), sels (K,))``."""
+    from ..selection import resolve_policy
+    if block < 1:
+        raise ValueError(f"block={block} must be >= 1")
+    policy = resolve_policy(selection)
+    spec = launch_round_spec(model, lr, quant=quant)
+    check_policy(spec, policy)
+    runner = RoundRunner(spec, select=policy, params_stacked=True)
+
+    def round_step(batches, val_batch):
+        _, vlosses, sel = runner.round(model, batches, val_batch)
+        return vlosses, sel
+
+    def round_block_step(block_batches, val_batch):
+        k = block_batches["tokens"].shape[0]
+        if k != block:
+            raise ValueError(f"{k} rounds of batches for a block of {block}")
+        rounds = [{name: v[i] for name, v in block_batches.items()} for i in range(k)]
+        return runner.round_block(model, rounds, val_batch)[1]
+
+    return round_block_step if block > 1 else round_step
+
+
+def make_pigeon_plus_round_step(model: StackedModel, lr: float = 1e-3,
+                                quant: Optional[str] = None) -> Callable:
+    """The Pigeon-SL+ round over the slots:
+    ``plus_round(batches, val_batch, plus_batches) -> (vlosses, sel)``.
+    After the round (every slot holds the winner), the winner trains on
+    every slot's ``plus_batches`` at once, one step a slot, and the slots'
+    f32 mean is broadcast back into every slot: the extra updates flow
+    into the winning cluster's parameters only."""
+    base = make_pigeon_round_step(model, lr, quant=quant)
+    train = make_train_step(model, lr, quant=quant)
+
+    def plus_round(batches, val_batch, plus_batches):
+        vlosses, sel = base(batches, val_batch)
+        train(plus_batches)
+        with torch.no_grad():
+            for p in model.parameters():
+                p.copy_(p.to(torch.float32).mean(dim=0).to(p.dtype).expand_as(p))
+        return vlosses, sel
+
+    return plus_round
+
+
+def make_pigeon_round_step_shardmap(model: StackedModel, mesh=None, lr: float = 1e-3,
+                                    **kwargs) -> Callable:
+    """The reference's cluster axis over a device mesh: no single-card
+    counterpart."""
+    _not_ported("make_pigeon_round_step_shardmap (the cluster axis over a mesh)",
+                MULTI_CARD_SLICE)
+
+
+# ---------------------------------------------------------------------------
+# input_specs — one (arch, shape) step and its arguments on the meta device
+# ---------------------------------------------------------------------------
+
+_META = torch.device("meta")
+
+
+def _meta(shape: Tuple[int, ...], dtype: torch.dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device=_META)
+
+
+def batch_struct(cfg: ModelConfig, shape: InputShape, cluster_dim: int = 0
+                 ) -> Dict[str, torch.Tensor]:
+    """One training/prefill batch as meta tensors (``cluster_dim`` R > 0
+    adds a leading slot axis)."""
+    b, s = shape.global_batch, shape.seq_len
+    lead = (cluster_dim,) if cluster_dim else ()
+    dt = DTYPES[cfg.dtype]
+    if cfg.arch_type == "vlm":
+        npx = cfg.n_prefix_tokens
+        return {"patches": _meta(lead + (b, npx, cfg.d_model), dt),
+                "tokens": _meta(lead + (b, s - npx), torch.int32),
+                "labels": _meta(lead + (b, s - npx), torch.int32)}
+    if cfg.arch_type in ("audio", "encdec"):
+        s_half = s // 2
+        return {"frames": _meta(lead + (b, s_half, cfg.d_model), dt),
+                "tokens": _meta(lead + (b, s_half), torch.int32),
+                "labels": _meta(lead + (b, s_half), torch.int32)}
+    return {"tokens": _meta(lead + (b, s), torch.int32),
+            "labels": _meta(lead + (b, s), torch.int32)}
+
+
+def decode_structs(cfg: ModelConfig, model: Model, shape: InputShape):
+    """(tokens, index, cache) of ``serve_step`` as meta tensors; ``model``
+    lives on the meta device."""
+    b, s = shape.global_batch, shape.seq_len
+    return _meta((b, 1), torch.int32), _meta((), torch.int32), model.init_cache(b, s)
+
+
+@dataclasses.dataclass
+class LoweringSpec:
+    """A step, its arguments (meta tensors) and the model whose parameters
+    it holds (on the meta device)."""
+    fn: Callable
+    args: Tuple
+    model: nn.Module
+
+
+def apply_shape_settings(cfg: ModelConfig, shape: InputShape) -> ModelConfig:
+    return dataclasses.replace(cfg, **shape_settings(shape))
+
+
+def input_specs(cfg: ModelConfig, shape_name: str, *, pigeon_clusters: int = 0,
+                lr: float = 1e-3, optimizations: Tuple[str, ...] = (),
+                selection: str = "argmin", quant: Optional[str] = None) -> LoweringSpec:
+    """The step and its meta-tensor arguments for one (architecture x
+    input shape): train (or, with ``pigeon_clusters`` R, the Pigeon-SL
+    round over an R-slot :class:`StackedModel`; ``pigeon_batch_split``
+    gives each slot global_batch / R, ``pigeon_plus`` the Pigeon-SL+
+    round, ``pigeon_shardmap`` raises), prefill or decode.  ``selection``
+    names the round's policy, ``quant`` the train steps' wire."""
+    shape = SHAPES[shape_name]
+    cfg = apply_shape_settings(cfg, shape)
+    if optimizations:
+        cfg = dataclasses.replace(
+            cfg, optimizations=tuple(cfg.optimizations) + tuple(optimizations))
+    plan = build_plan(cfg)
+
+    if shape.kind == "train" and pigeon_clusters:
+        r = pigeon_clusters
+        model = StackedModel(cfg, plan, r, _META)
+        # "pigeon_batch_split": each cluster trains global_batch/R, so the
+        # robust round costs the same tokens a step as plain data parallelism
+        per_cluster_b = (shape.global_batch // r
+                         if "pigeon_batch_split" in cfg.optimizations else shape.global_batch)
+        batches = batch_struct(cfg, dataclasses.replace(shape, global_batch=per_cluster_b),
+                               cluster_dim=r)
+        val_batch = batch_struct(cfg, dataclasses.replace(
+            shape, global_batch=max(16, shape.global_batch // 8)))
+        if "pigeon_plus" in cfg.optimizations:
+            plus_batches = batch_struct(cfg, dataclasses.replace(
+                shape, global_batch=per_cluster_b), cluster_dim=r)
+            return LoweringSpec(make_pigeon_plus_round_step(model, lr, quant=quant),
+                                (batches, val_batch, plus_batches), model)
+        if "pigeon_shardmap" in cfg.optimizations:
+            make_pigeon_round_step_shardmap(model, lr=lr, selection=selection, quant=quant)
+        fn = make_pigeon_round_step(model, lr, selection=selection, quant=quant)
+        return LoweringSpec(fn, (batches, val_batch), model)
+
+    model = Model(cfg, plan, _META)
+    if shape.kind == "train":
+        return LoweringSpec(make_train_step(model, lr, quant=quant),
+                            (batch_struct(cfg, shape),), model)
+    if shape.kind == "prefill":
+        return LoweringSpec(make_prefill_step(model), (batch_struct(cfg, shape),), model)
+    tokens, index, cache = decode_structs(cfg, model, shape)
+    return LoweringSpec(make_serve_step(model), (cache, tokens, index), model)
+
+
+__all__ = ["LoweringSpec", "apply_shape_settings", "batch_struct", "decode_structs",
+           "input_specs", "instrument_step", "launch_round_spec",
+           "make_pigeon_plus_round_step", "make_pigeon_round_step",
+           "make_pigeon_round_step_shardmap", "make_prefill_step", "make_serve_step",
+           "make_train_step"]

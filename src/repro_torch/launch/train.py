@@ -14,9 +14,10 @@
 
 The reference's ``repro/launch/train.py``, with the same flags, on the CUDA
 card by default (``--device cpu`` asks for the CPU).  An ``--arch`` runs its
-reduced config (``reduce_config``), as the reference does, on the
-sequential engine.  ``--protocol vanilla`` runs vanilla SL, ``sfl``
-clustered SplitFed (either engine for the CNNs).  ``--trace`` writes a JSONL
+reduced config (``reduce_config``), as the reference does, on either
+engine (``--engine batched``: the cluster-stacked LM, dense only).
+``--protocol vanilla`` runs vanilla SL, ``sfl`` clustered SplitFed (either
+engine).  ``--trace`` writes a JSONL
 telemetry trace (spans, per-round records, a provenance stamp with the
 card's name and power limit), ``--profile-dir`` a ``torch.profiler`` trace
 of round 1, and ``--block K`` runs K rounds a fetch (the batched engine by
@@ -78,7 +79,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                     help="write a torch.profiler trace of round 1 into DIR")
     ap.add_argument("--engine", default=None, choices=["sequential", "batched"],
                     help="round engine (default: batched when --block > 1, else "
-                         "sequential; an LM runs on the sequential engine only)")
+                         "sequential; both run the CNNs and a dense LM, the batched one "
+                         "over its cluster-stacked form)")
     ap.add_argument("--block", type=int, default=1,
                     help="round-block size: this many rounds a host fetch "
                          "(pigeon/sfl on the batched engine; pigeon+ and "

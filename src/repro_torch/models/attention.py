@@ -9,6 +9,12 @@ compute the reference's ``attend`` (scores materialised, GQA by repeating
 the KV heads, masked with -1e30, softmax in f32).  The window is an argument of each call
 (0 = full attention), so one module serves a local or a global layer.
 
+:class:`StackedGQA` is the cluster-stacked form (n slots) the batched
+round trains: its projections run a product a slot, and the slot axis is
+folded into the batch axis for the norms' arithmetic, the rotary embedding
+and B5, which then takes all n slots' attention in one launch a layer (and
+its backward in one more).
+
 The decode cache of a layer is a pair of (B, max_seq, Hkv, D) tensors; a
 step writes the new token's key and value in place at ``index`` (the
 reference's ``dynamic_update_slice``, without copying the cache).  MLA
@@ -22,7 +28,7 @@ import torch
 from torch import nn
 
 from ..kernels import ops
-from .blocks import Linear, RMSNorm, apply_rope
+from .blocks import Linear, RMSNorm, StackedLinear, StackedRMSNorm, apply_rope
 
 
 class AttnConfig(NamedTuple):
@@ -96,6 +102,40 @@ class GQA(nn.Module):
         return self.wo(out.reshape(b, 1, cfg.n_heads * cfg.head_dim))
 
 
+class StackedGQA(nn.Module):
+    """n slots' :class:`GQA` (the same parameters, each with a leading slot
+    axis): x (n, B, S, d_model) -> (n, B, S, d_model), causal over S."""
+
+    def __init__(self, cfg: AttnConfig, n: int, *, dtype: torch.dtype = torch.float32,
+                 device=None):
+        super().__init__()
+        self.cfg = cfg
+        kw = dict(dtype=dtype, device=device)
+        hd = cfg.head_dim
+        self.wq = StackedLinear(n, cfg.d_model, cfg.n_heads * hd, bias=cfg.qkv_bias, **kw)
+        self.wk = StackedLinear(n, cfg.d_model, cfg.n_kv_heads * hd, bias=cfg.qkv_bias, **kw)
+        self.wv = StackedLinear(n, cfg.d_model, cfg.n_kv_heads * hd, bias=cfg.qkv_bias, **kw)
+        self.wo = StackedLinear(n, cfg.n_heads * hd, cfg.d_model, **kw)
+        if cfg.qk_norm:
+            self.q_norm = StackedRMSNorm(n, hd, **kw)
+            self.k_norm = StackedRMSNorm(n, hd, **kw)
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor, window: int) -> torch.Tensor:
+        cfg = self.cfg
+        n, b, s, _ = x.shape
+        hd = cfg.head_dim
+        q = self.wq(x).view(n, b, s, cfg.n_heads, hd)
+        k = self.wk(x).view(n, b, s, cfg.n_kv_heads, hd)
+        v = self.wv(x).view(n * b, s, cfg.n_kv_heads, hd)
+        if cfg.qk_norm:
+            q = self.q_norm(q)
+            k = self.k_norm(k)
+        q = apply_rope(q.view(n * b, s, cfg.n_heads, hd), positions, cfg.rope_theta)
+        k = apply_rope(k.view(n * b, s, cfg.n_kv_heads, hd), positions, cfg.rope_theta)
+        out = ops.flash_attention(q, k, v, window=window)
+        return self.wo(out.reshape(n, b, s, cfg.n_heads * hd))
+
+
 def init_kv_cache(layers: int, batch: int, max_seq: int, cfg: AttnConfig,
                   dtype: torch.dtype, device=None) -> Dict[str, torch.Tensor]:
     """Zeroed decode cache {"k", "v"} of ``layers`` layers, each (B,
@@ -105,4 +145,4 @@ def init_kv_cache(layers: int, batch: int, max_seq: int, cfg: AttnConfig,
     return {name: torch.zeros(shape, dtype=dtype, device=device) for name in ("k", "v")}
 
 
-__all__ = ["AttnConfig", "GQA", "init_kv_cache"]
+__all__ = ["AttnConfig", "GQA", "StackedGQA", "init_kv_cache"]

@@ -1,7 +1,8 @@
 """Building blocks: the dense initialiser and the mean cross-entropy (the
 split CNNs), and the dense decoder's layers (``repro/models/blocks.py``):
 embedding init, :class:`Linear`, :class:`RMSNorm`, :class:`SwiGLU` and the
-rotary embedding.
+rotary embedding; and their cluster-stacked forms for the batched round
+(:class:`StackedLinear`, :class:`StackedRMSNorm`, :class:`StackedSwiGLU`).
 
 The decoder's modules allocate their parameters uninitialised on the
 device and dtype they are given; ``reset_parameters(generator)`` draws them
@@ -117,6 +118,64 @@ class SwiGLU(nn.Module):
         return self.down(F.silu(self.gate(x)) * self.up(x))
 
 
+def _slot_view(p: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A stacked (n, dim) parameter shaped to broadcast over x (n, ..., dim)."""
+    return p.view((p.shape[0],) + (1,) * (x.dim() - 2) + (p.shape[-1],))
+
+
+class StackedLinear(nn.Module):
+    """n slots' :class:`Linear`: w (n, d_in, d_out), b (n, d_out).  x (n,
+    ..., d_in) -> (n, ..., d_out), one product a slot over views of the
+    stacked weight (not one batched product), so that slot r computes what
+    its plain layer computes."""
+
+    def __init__(self, n: int, d_in: int, d_out: int, bias: bool = False, *,
+                 dtype: torch.dtype = torch.float32, device=None):
+        super().__init__()
+        self.w = nn.Parameter(torch.zeros((n, d_in, d_out), dtype=dtype, device=device))
+        self.b = (nn.Parameter(torch.zeros((n, d_out), dtype=dtype, device=device))
+                  if bias else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.b is None:
+            return torch.stack([xi @ wi for xi, wi in zip(x, self.w)])
+        return torch.stack([xi @ wi + bi for xi, wi, bi in zip(x, self.w, self.b)])
+
+
+class StackedRMSNorm(nn.Module):
+    """n slots' :class:`RMSNorm`: scale (n, dim) over x (n, ..., dim).  The
+    normalisation runs over all slots at once, each slot then scaled by its
+    own row."""
+
+    def __init__(self, n: int, dim: int, *, dtype: torch.dtype = torch.float32,
+                 device=None, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.zeros((n, dim), dtype=dtype, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.to(torch.float32)
+        var = torch.mean(xf * xf, dim=-1, keepdim=True)
+        y = xf * torch.rsqrt(var + self.eps)
+        return (y * _slot_view(self.scale, x).to(torch.float32)).to(x.dtype)
+
+
+class StackedSwiGLU(nn.Module):
+    """n slots' :class:`SwiGLU`: the products a slot, SiLU and the gate's
+    product over all slots at once."""
+
+    def __init__(self, n: int, d_model: int, d_ff: int, *,
+                 dtype: torch.dtype = torch.float32, device=None):
+        super().__init__()
+        kw = dict(dtype=dtype, device=device)
+        self.gate = StackedLinear(n, d_model, d_ff, **kw)
+        self.up = StackedLinear(n, d_model, d_ff, **kw)
+        self.down = StackedLinear(n, d_ff, d_model, **kw)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.down(F.silu(self.gate(x)) * self.up(x))
+
+
 def rope_frequencies(head_dim: int, theta: float = 10000.0, device=None) -> torch.Tensor:
     exponent = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
     return 1.0 / (theta ** exponent)
@@ -135,5 +194,6 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0
     return out.to(x.dtype)
 
 
-__all__ = ["DTYPES", "Linear", "RMSNorm", "SwiGLU", "apply_rope", "cross_entropy",
-           "cross_entropy_stacked", "dense_init", "embed_init", "rope_frequencies"]
+__all__ = ["DTYPES", "Linear", "RMSNorm", "StackedLinear", "StackedRMSNorm", "StackedSwiGLU",
+           "SwiGLU", "apply_rope", "cross_entropy", "cross_entropy_stacked", "dense_init",
+           "embed_init", "rope_frequencies"]

@@ -20,6 +20,23 @@ pytree become methods:
   * ``init_cache(batch_size, max_seq)`` — zeroed decode cache
   * ``decode_step(cache, tokens, i)``   — one-token decode -> (logits, cache)
 
+The batched round's form of it is :class:`StackedModel`
+(``build_stacked_model(cfg, r, replicas, device)``): n = L * R slots of the
+same parameters, each with a leading slot axis, split into
+:class:`StackedClientLM` and :class:`StackedAPLM`, whose ``parameters()``
+follow the plain halves' order.  Its entry points take n slots' batches:
+
+  * ``client_forward(g, tokens (n, B, S))`` — cut activations (n, B, S, D)
+  * ``ap_losses(p, acts, labels)``          — per-slot losses (n,) f32 (B4
+                                              once a slot); labels (n, B, S),
+                                              or (B, S) shared by every slot
+  * ``loss(batches)``                       — per-slot LM losses (n,)
+
+Each slot's products run on views of the stacked weights, one a slot; the
+parameter-free work (the norms' arithmetic, rotary, SiLU, attention) runs
+over all slots at once, the slot axis folded into the batch axis.  Dense
+only: a stacked xLSTM raises (its training on the card needs B7's backward).
+
 Forward, loss and the split view are differentiable: the attention runs
 through B5 and its backward, the loss through B4 (``ops.
 fused_cross_entropy``, forward and backward) on the card.  An xLSTM model
@@ -40,15 +57,15 @@ from torch import nn
 from .. import DeviceLike, resolve_device
 from ..kernels import ops
 from . import transformer as tfm
-from .blocks import DTYPES, Linear, RMSNorm, embed_init
+from .blocks import DTYPES, Linear, RMSNorm, StackedLinear, StackedRMSNorm, embed_init
 from .config import ModelConfig
 
 Cache = Tuple[Dict[str, torch.Tensor], ...]
 Batch = Dict[str, torch.Tensor]
 
-#: where the cluster-stacked LM (the batched engine's form of it) comes from
-STACKED_LM_SLICE = ("ROADMAP.md Queue A item 10, a cluster-stacked LM (engine='batched' "
-                    "over core.split.from_lm)")
+#: why a stacked xLSTM raises
+STACKED_XLSTM_SLICE = ("ROADMAP.md Queue A item 6, xLSTM training (B7 has no backward on "
+                       "the card yet)")
 
 
 @dataclasses.dataclass
@@ -179,35 +196,12 @@ class Model(nn.Module):
     def split_plans(self) -> Tuple[List[StackPlan], List[StackPlan], List[Tuple[int, int, int]]]:
         """Split the plan at cfg.cut_layer blocks.  Returns (client_plan,
         ap_plan, slices) where slices[i] = (stack_idx, client_n, total_n)."""
-        cut = self.cfg.cut_layer
-        client, ap, slices = [], [], []
-        seen = 0
-        for idx, sp in enumerate(self.plan):
-            take = max(0, min(sp.n, cut - seen))
-            if take == sp.n:
-                client.append(sp)
-            elif take == 0:
-                ap.append(sp)
-            else:
-                client.append(StackPlan(sp.kind, take, _slice_meta(sp.meta, 0, take)))
-                ap.append(StackPlan(sp.kind, sp.n - take, _slice_meta(sp.meta, take, sp.n)))
-            slices.append((idx, take, sp.n))
-            seen += sp.n
-        return client, ap, slices
+        return split_plans(self.cfg, self.plan)
 
     def split_params(self) -> Tuple[ClientLM, APLM]:
         """(gamma, phi): the client's and the AP's halves, sharing this
         model's parameters (a cut stack is sliced, its layers shared)."""
-        _, _, slices = self.split_plans()
-        client_stacks, ap_stacks = [], []
-        for (idx, take, total), stack in zip(slices, self.stacks):
-            if take == total:
-                client_stacks.append(stack)
-            elif take == 0:
-                ap_stacks.append(stack)
-            else:
-                client_stacks.append(tfm.slice_stack(stack, 0, take))
-                ap_stacks.append(tfm.slice_stack(stack, take, total))
+        client_stacks, ap_stacks = _split_stacks(self.cfg, self.plan, self.stacks)
         return (ClientLM(self.cfg, self.embedding, client_stacks),
                 APLM(self.cfg, ap_stacks, self.final_norm, self.head))
 
@@ -267,6 +261,189 @@ def _slice_meta(meta: Dict[str, Any], lo: int, hi: int) -> Dict[str, Any]:
     return {k: v[lo:hi] for k, v in meta.items()}
 
 
+def split_plans(cfg: ModelConfig, plan: Sequence[StackPlan]
+                ) -> Tuple[List[StackPlan], List[StackPlan], List[Tuple[int, int, int]]]:
+    """:meth:`Model.split_plans` of ``(cfg, plan)``."""
+    cut = cfg.cut_layer
+    client, ap, slices = [], [], []
+    seen = 0
+    for idx, sp in enumerate(plan):
+        take = max(0, min(sp.n, cut - seen))
+        if take == sp.n:
+            client.append(sp)
+        elif take == 0:
+            ap.append(sp)
+        else:
+            client.append(StackPlan(sp.kind, take, _slice_meta(sp.meta, 0, take)))
+            ap.append(StackPlan(sp.kind, sp.n - take, _slice_meta(sp.meta, take, sp.n)))
+        slices.append((idx, take, sp.n))
+        seen += sp.n
+    return client, ap, slices
+
+
+def _split_stacks(cfg: ModelConfig, plan: Sequence[StackPlan],
+                  stacks: Sequence[tfm.BlockStack]
+                  ) -> Tuple[List[tfm.BlockStack], List[tfm.BlockStack]]:
+    """A model's stacks cut at cfg.cut_layer: (client stacks, AP stacks),
+    sharing the layers."""
+    client_stacks, ap_stacks = [], []
+    for (_, take, total), stack in zip(split_plans(cfg, plan)[2], stacks):
+        if take == total:
+            client_stacks.append(stack)
+        elif take == 0:
+            ap_stacks.append(stack)
+        else:
+            client_stacks.append(tfm.slice_stack(stack, 0, take))
+            ap_stacks.append(tfm.slice_stack(stack, take, total))
+    return client_stacks, ap_stacks
+
+
+# ---------------------------------------------------------------------------
+# the cluster-stacked LM (the batched round's form)
+# ---------------------------------------------------------------------------
+
+def _run_stacked(cfg: ModelConfig, stacks: Sequence[tfm.BlockStack], x: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`_run_stacks` over n slots' activations (n, B, S, D)."""
+    positions = torch.arange(x.shape[2], device=x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for stack in stacks:
+        x, a = tfm.run_stack(stack, x, positions, cfg.remat)
+        aux = aux + a
+    return x, aux
+
+
+def _slot_losses(head: StackedLinear, h: torch.Tensor, aux: torch.Tensor,
+                 labels: torch.Tensor, mask=None) -> torch.Tensor:
+    """Each slot's :func:`_lm_loss` (B4 once a slot, each with its own
+    head): (n,) f32.  ``labels`` (and ``mask``) are (n, B, S), or (B, S)
+    shared by every slot."""
+    labels = labels.expand(h.shape[:-1])
+    masks = [None] * h.shape[0] if mask is None else mask.expand(h.shape[:-1])
+    return torch.stack([ops.fused_cross_entropy(hi, wi, li, mi) + aux
+                        for hi, wi, li, mi in zip(h, head.w, labels, masks)])
+
+
+def _embed_slots(cfg: ModelConfig, tables: torch.Tensor, tokens: torch.Tensor
+                 ) -> torch.Tensor:
+    """:func:`_embed_tokens` a slot: the lookup in each slot's own table
+    (and its gradient into that table alone), the scale over all slots."""
+    x = torch.stack([table[t] for table, t in zip(tables, tokens)])
+    return x * torch.tensor(math.sqrt(float(cfg.d_model)), dtype=x.dtype, device=x.device)
+
+
+class StackedClientLM(nn.Module):
+    """n slots' gamma: embedding (n, V, D) and the first ``cfg.cut_layer``
+    stacked layers.  ``forward(tokens (n, B, S))`` -> (n, B, S, D)."""
+
+    def __init__(self, cfg: ModelConfig, embedding: nn.Parameter,
+                 stacks: Sequence[tfm.BlockStack]):
+        super().__init__()
+        self.cfg = cfg
+        self.embedding = embedding
+        self.stacks = nn.ModuleList(stacks)
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        return _run_stacked(self.cfg, self.stacks,
+                            _embed_slots(self.cfg, self.embedding, tokens))[0]
+
+
+class StackedAPLM(nn.Module):
+    """n slots' phi: the remaining stacked layers, the final norm and the
+    head.  ``forward(acts (n, B, S, D), labels, mask=None)`` -> per-slot
+    losses (n,) f32."""
+
+    def __init__(self, cfg: ModelConfig, stacks: Sequence[tfm.BlockStack],
+                 final_norm: StackedRMSNorm, head: StackedLinear):
+        super().__init__()
+        self.cfg = cfg
+        self.stacks = nn.ModuleList(stacks)
+        self.final_norm = final_norm
+        self.head = head
+
+    def forward(self, acts: torch.Tensor, labels: torch.Tensor, mask=None) -> torch.Tensor:
+        x, aux = _run_stacked(self.cfg, self.stacks, acts)
+        return _slot_losses(self.head, self.final_norm(x), aux, labels, mask)
+
+
+class StackedModel(nn.Module):
+    """n slots of one dense :class:`Model` (see the module docstring):
+    ``parameters()`` follow :class:`Model`'s order with a leading slot axis
+    each.  Built zeroed on ``device`` (None: the current default device);
+    :meth:`load_slot` writes a plain model into a slot."""
+
+    def __init__(self, cfg: ModelConfig, plan: List[StackPlan], n: int, device=None):
+        super().__init__()
+        if any(sp.kind != "attn_mlp" for sp in plan):
+            raise NotImplementedError(f"a cluster-stacked {cfg.name} (arch_type "
+                                      f"{cfg.arch_type!r}) comes with {STACKED_XLSTM_SLICE}")
+        self.cfg = cfg
+        self.plan = plan
+        self.n = n
+        dt = DTYPES[cfg.dtype]
+        self.embedding = nn.Parameter(torch.zeros((n, cfg.vocab, cfg.d_model), dtype=dt,
+                                                  device=device))
+        self.stacks = nn.ModuleList(tfm.build_stacked_stacks(cfg, plan, n, device))
+        self.final_norm = StackedRMSNorm(n, cfg.d_model, dtype=dt, device=device)
+        self.head = StackedLinear(n, cfg.d_model, cfg.vocab, dtype=dt, device=device)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embedding.device
+
+    @torch.no_grad()
+    def load_slot(self, r: int, model: Model) -> "StackedModel":
+        """Write ``model``'s parameters into slot ``r``; returns self."""
+        for big, p in zip(self.parameters(), model.parameters()):
+            big[r].copy_(p)
+        return self
+
+    @torch.no_grad()
+    def slot_model(self, r: int) -> Model:
+        """Slot ``r`` as a plain :class:`Model` (a copy, on this device)."""
+        model = Model(self.cfg, self.plan, self.device)
+        for p, big in zip(model.parameters(), self.parameters()):
+            p.copy_(big[r])
+        return model
+
+    def split_params(self) -> Tuple[StackedClientLM, StackedAPLM]:
+        """(gamma, phi) over all n slots, sharing this model's parameters."""
+        client_stacks, ap_stacks = _split_stacks(self.cfg, self.plan, self.stacks)
+        return (StackedClientLM(self.cfg, self.embedding, client_stacks),
+                StackedAPLM(self.cfg, ap_stacks, self.final_norm, self.head))
+
+    def client_forward(self, gamma: StackedClientLM, tokens: torch.Tensor) -> torch.Tensor:
+        """tokens (n, B, S) -> cut activations (n, B, S, D)."""
+        return gamma(tokens)
+
+    def ap_losses(self, phi: StackedAPLM, acts: torch.Tensor, labels: torch.Tensor,
+                  mask=None) -> torch.Tensor:
+        """Per-slot losses (n,) f32 from cut activations (n, B, S, D);
+        ``labels`` (n, B, S), or (B, S) shared by every slot."""
+        return phi(acts, labels, mask)
+
+    def forward(self, tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """tokens (n, B, S) -> (final hidden states (n, B, S, D), aux)."""
+        x, aux = _run_stacked(self.cfg, self.stacks,
+                              _embed_slots(self.cfg, self.embedding, tokens))
+        return self.final_norm(x), aux
+
+    def loss(self, batches: Batch) -> torch.Tensor:
+        """Per-slot LM losses (n,) f32 of ``batches`` {"tokens", "labels"
+        (n, B, S), optional "mask"}; "labels" and "mask" may be (B, S),
+        shared by every slot."""
+        h, aux = self.forward(batches["tokens"])
+        return _slot_losses(self.head, h, aux, batches["labels"], batches.get("mask"))
+
+
+def build_stacked_model(cfg: ModelConfig, r: int, replicas: int = 1,
+                        device: DeviceLike = None) -> StackedModel:
+    """A zeroed :class:`StackedModel` of ``replicas * r`` slots (the replica
+    form's L * R, replica-major) on ``device`` (the card unless
+    ``device="cpu"``)."""
+    return StackedModel(cfg, build_plan(cfg), replicas * r, resolve_device(device))
+
+
 def build_plan(cfg: ModelConfig) -> List[StackPlan]:
     """Static stack layout, which ``tfm.build_stacks`` builds: one
     ``attn_mlp`` stack with each layer's sliding window (0 = global) for
@@ -296,5 +473,6 @@ def build_model(cfg: ModelConfig, device: DeviceLike = None) -> Model:
     return Model(cfg, plan, resolve_device(device))
 
 
-__all__ = ["APLM", "ClientLM", "Model", "STACKED_LM_SLICE", "StackPlan", "build_model",
-           "build_plan"]
+__all__ = ["APLM", "ClientLM", "Model", "STACKED_XLSTM_SLICE", "StackPlan", "StackedAPLM",
+           "StackedClientLM", "StackedModel", "build_model", "build_plan",
+           "build_stacked_model", "split_plans"]

@@ -17,6 +17,10 @@ the mixers' recurrent state for ``mlstm`` and ``slstm``
 (``xlstm.init_*_cache``); layer i updates its slice in place.  A stack
 splits at the split-learning cut by slicing its layer list
 (:func:`slice_stack`), which shares the layers.
+
+The batched round's cluster-stacked LM (``model.StackedModel``) builds its
+stacks of :class:`StackedAttnMLPLayer`\\ s by :func:`build_stacked_stacks`
+and runs them through the same :func:`run_stack` (dense only).
 """
 from __future__ import annotations
 
@@ -27,25 +31,29 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from . import xlstm
-from .attention import GQA, AttnConfig, init_kv_cache
-from .blocks import DTYPES, RMSNorm, SwiGLU
+from .attention import GQA, AttnConfig, StackedGQA, init_kv_cache
+from .blocks import DTYPES, RMSNorm, StackedRMSNorm, StackedSwiGLU, SwiGLU
 from .config import ModelConfig
 
-#: where each unported arch_type comes (ROADMAP.md, Queue A item 10)
+#: where each unported arch_type comes: its ROADMAP.md Queue A item and slice
 UNPORTED = {
-    "moe": "the MLA/MoE slice",
-    "ssm": "the SSM slice (Mamba2, slstm_every = 0; xLSTM is ported)",
-    "hybrid": "the SSM slice",
-    "encdec": "the encdec slice",
-    "audio": "the encdec slice",
-    "vlm": "the MLA/MoE, SSM and encdec slice (the vlm patch prefix)",
+    "vlm": (7, "the vlm slice (the patch prefix on the dense stack)"),
+    "moe": (8, "the MLA/MoE slice"),
+    "ssm": (9, "the SSM slice (Mamba2, slstm_every = 0; xLSTM is ported)"),
+    "hybrid": (9, "the SSM slice"),
+    "encdec": (10, "the encdec slice"),
+    "audio": (10, "the encdec slice"),
 }
 
 
 def not_ported(arch_type: str) -> NotImplementedError:
-    where = UNPORTED.get(arch_type, "no slice: unknown arch_type")
+    if arch_type in UNPORTED:
+        item, where = UNPORTED[arch_type]
+        where = f"ROADMAP.md Queue A item {item}, {where}"
+    else:
+        where = "no slice: unknown arch_type"
     return NotImplementedError(
-        f"arch_type {arch_type!r} is not ported yet: ROADMAP.md Queue A item 10, {where}; "
+        f"arch_type {arch_type!r} is not ported yet: {where}; "
         f"the port builds arch_type='dense' and xLSTM (arch_type='ssm' with slstm_every)")
 
 
@@ -86,6 +94,23 @@ class AttnMLPLayer(nn.Module):
     def decode(self, x: torch.Tensor, cache: Dict[str, torch.Tensor], index: int,
                window: int) -> torch.Tensor:
         x = x + self.attn.decode(self.ln1(x), cache, index, window)
+        return x + self.mlp(self.ln2(x))
+
+
+class StackedAttnMLPLayer(nn.Module):
+    """n slots' :class:`AttnMLPLayer` (the same parameters, each with a
+    leading slot axis): x (n, B, S, d_model)."""
+
+    def __init__(self, cfg: ModelConfig, n: int, device=None):
+        super().__init__()
+        kw = dict(dtype=DTYPES[cfg.dtype], device=device)
+        self.ln1 = StackedRMSNorm(n, cfg.d_model, **kw)
+        self.attn = StackedGQA(attn_cfg(cfg), n, **kw)
+        self.ln2 = StackedRMSNorm(n, cfg.d_model, **kw)
+        self.mlp = StackedSwiGLU(n, cfg.d_model, cfg.d_ff, **kw)
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor, window: int) -> torch.Tensor:
+        x = x + self.attn(self.ln1(x), positions, window)
         return x + self.mlp(self.ln2(x))
 
 
@@ -141,6 +166,13 @@ def build_stacks(cfg: ModelConfig, plan, device=None) -> List[BlockStack]:
             for sp in plan]
 
 
+def build_stacked_stacks(cfg: ModelConfig, plan, n: int, device=None) -> List[BlockStack]:
+    """The stacks of ``plan`` with n slots a layer (zeroed parameters on
+    ``device``); ``plan`` holds ``attn_mlp`` stacks only."""
+    return [BlockStack(sp.kind, [StackedAttnMLPLayer(cfg, n, device) for _ in range(sp.n)],
+                       sp.meta) for sp in plan]
+
+
 def _layer_args(stack: BlockStack, *head) -> List[tuple]:
     """Each layer's arguments after x (and its cache): ``head`` and the
     layer's window for an ``attn_mlp`` stack, nothing for the xLSTM kinds."""
@@ -192,6 +224,6 @@ def decode_stack(stack: BlockStack, x: torch.Tensor, cache: Dict[str, torch.Tens
     return x, cache
 
 
-__all__ = ["AttnMLPLayer", "BlockStack", "XLSTMBlock", "attn_cfg", "build_stacks",
-           "decode_stack", "init_stack_cache", "not_ported", "run_stack", "slice_stack",
-           "xlstm_cfg"]
+__all__ = ["AttnMLPLayer", "BlockStack", "StackedAttnMLPLayer", "XLSTMBlock", "attn_cfg",
+           "build_stacked_stacks", "build_stacks", "decode_stack", "init_stack_cache",
+           "not_ported", "run_stack", "slice_stack", "xlstm_cfg"]

@@ -194,25 +194,25 @@ def _chip_smoke():
     return module
 
 
-def _cover(n_elem: int, p: int, chunk: int, aligned: bool) -> np.ndarray:
+def _cover(n_elem: int, p: int, chunk: int, aligned: bool, vec: int = 4) -> np.ndarray:
     """How often csrc/tamper_check.cu's blocks of one candidate read each
     element: block b takes [b * chunk, min((b + 1) * chunk, n)); where its
     start is 16-byte aligned, thread t reads vector i = t + T (u + U k)
-    (u < U) of its whole vectors, then every thread the scalar tail from t
-    in steps of T."""
+    (u < U) of its whole vectors of ``vec`` elements (4 f32, 8 bf16), then
+    every thread the scalar tail from t in steps of T."""
     t_, u_ = ttc.TAMPER_THREADS, ttc.TAMPER_UNROLL
     counts = np.zeros(n_elem, dtype=np.int64)
     for b in range(p):
         start, end = b * chunk, min((b + 1) * chunk, n_elem)
         tail = start
         if aligned:
-            nvec = (end - start) // 4
+            nvec = (end - start) // vec
             k = np.arange(-(-nvec // (t_ * u_)))
             i = (np.arange(t_)[:, None, None]
                  + t_ * (np.arange(u_)[None, :, None] + u_ * k[None, None, :])).ravel()
             i = i[i < nvec]
-            np.add.at(counts, (start + 4 * i[:, None] + np.arange(4)).ravel(), 1)
-            tail = start + 4 * nvec
+            np.add.at(counts, (start + vec * i[:, None] + np.arange(vec)).ravel(), 1)
+            tail = start + vec * nvec
         np.add.at(counts, np.arange(tail, end), 1)
     return counts
 
@@ -237,6 +237,29 @@ def test_tamper_layout_covers_every_element_once(shape, sms):
     if n_elem <= 1 << 20:
         for aligned in (True, False):
             assert (_cover(n_elem, p, chunk, aligned) == 1).all(), aligned
+
+
+@pytest.mark.parametrize("sms", [132, 78])
+@pytest.mark.parametrize("shape", ((2, 8, 512, 4096), (5, 3000, 256), (3, 37, 201),
+                                   (1, 3, 1), (2, 1001, 7)),
+                         ids=lambda s: "x".join(map(str, s)))
+def test_tamper_layout_covers_every_bf16_element_once(shape, sms):
+    """The bf16 route's layout: chunks of a multiple of 8 elements (one
+    16-byte load of 8 bf16), so every aligned block start stays 16-byte
+    aligned; each element read once (the LM round's (2, 8, 512, 4,096)
+    activations and edges whose element count is not a multiple of 8)."""
+    r, n_elem = shape[0], int(np.prod(shape[1:]))
+    vec = ttc.TAMPER_VEC[torch.bfloat16]
+    p, chunk = ttc.tamper_layout(r, n_elem, sms, vec)
+    assert vec == 8 and chunk % vec == 0 and chunk >= ttc.TAMPER_MIN_CHUNK
+    assert p * chunk >= n_elem > (p - 1) * chunk
+    if chunk > ttc.TAMPER_MIN_CHUNK:
+        assert (p * r) % sms == 0 and p * r >= ttc.TAMPER_BLOCKS_PER_SM * sms
+    if n_elem <= 1 << 24:
+        for aligned in (True, False):
+            assert (_cover(n_elem, p, chunk, aligned, vec) == 1).all(), aligned
+    assert ttc.tamper_layout(r, n_elem, sms) == ttc.tamper_layout(
+        r, n_elem, sms, ttc.TAMPER_VEC[torch.float32])
 
 
 def test_tamper_layout_at_the_cifar_round():

@@ -306,10 +306,13 @@ def test_runner_refuses_unported_entries():
         tprotocol._check_engine("batched", placement="sharded")
     with pytest.raises(ValueError):
         tprotocol._check_engine("batched", placement="mesh")
+    # round and round_block run (tests/test_torch_lm_steps.py); each
+    # refuses the layout it does not take
     spec = trunner.RoundSpec(train_cluster=None, validate=None)
-    runner = trunner.RoundRunner(spec)
-    with pytest.raises(NotImplementedError):
-        runner.round()
+    with pytest.raises(ValueError, match="params_stacked=True"):
+        trunner.RoundRunner(spec).round_block(None, [None], None)
+    with pytest.raises(ValueError, match="protocol layout"):
+        trunner.RoundRunner(spec, params_stacked=True).accept(None, None, None)
 
     # accept_block runs: K accepts in turn, their fetches stacked
     class Stacked(torch.nn.Module):

@@ -265,12 +265,6 @@ def test_run_pigeon_over_from_lm_matches_reference(case, lm_round):
                                        err_msg=f"{case} round {rj['round']} {k}")
 
 
-def test_batched_engine_over_an_lm_names_its_slice(lm_round):
-    _, _, _, tmodule, data, pcfg = lm_round
-    with pytest.raises(NotImplementedError, match="cluster-stacked LM"):
-        tcore.run_pigeon(tmodule, data, pcfg, engine="batched", device="cpu")
-
-
 def test_from_lm_draws_one_init_from_one_seed():
     cfg = _port_cfg(JModelConfig(**TINY))
     module = tcore.from_lm(build_model(cfg, "cpu"))
@@ -294,7 +288,11 @@ def test_train_cli_on_the_cpu(capsys):
     (["--protocol", "sfl"], "round 1: selected="),
     (["--protocol", "sfl", "--engine", "batched"], "round 1: selected="),
     (["--protocol", "vanilla", "--arch", "qwen3-8b", "--smoke", "--batch", "4"],
-     "round 1: train_loss=")])
+     "round 1: train_loss="),
+    (["--protocol", "sfl", "--engine", "batched", "--arch", "qwen3-8b", "--smoke",
+      "--batch", "4"], "round 1: selected="),
+    (["--protocol", "pigeon+", "--engine", "batched", "--arch", "qwen3-8b", "--smoke",
+      "--batch", "4"], "round 1: selected=")])
 def test_train_cli_runs_the_baselines(flags, want, capsys):
     ttrain.main(["--device", "cpu", "--rounds", "2", "--local-steps", "2",
                  "--attack", "label_flip", "--malicious", "1",

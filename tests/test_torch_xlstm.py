@@ -487,7 +487,7 @@ def test_serve_cli_on_the_cpu(capsys):
 
 def test_mamba_still_names_the_ssm_slice():
     cfg = dataclasses.replace(tconfigs.get_smoke_config("xlstm-1.3b"), slstm_every=0)
-    with pytest.raises(NotImplementedError, match="Queue A item 10, the SSM slice"):
+    with pytest.raises(NotImplementedError, match="Queue A item 9, the SSM slice"):
         build_model(cfg, "cpu")
 
 
