@@ -69,7 +69,15 @@ from the repository root.  Phases, in order; any failure exits non-zero:
      dh 40 and 30, a ragged unit block, B 1/3/5/9, T 1), bit-identical run
      to run, both routes timed (no PyTorch call computes the scan; eager,
      replayed in turn, L2-cold) also at T 4,096, with the persistent step's
-     clock split by phase; the wgmma routes' libraries hold HGMMA and UTMALDG
+     clock split by phase; B7's backward (the reverse-time scan,
+     ``csrc/slstm_scan_bwd.cu``) from the saves of both forward routes
+     against autograd of the plain version at every B7 shape, f32 and bf16
+     (dpre and dR within rel 1e-4 and 3e-2 of each tensor's largest value),
+     the saving forward's h bit-equal to the plain launch's, bit-identical
+     run to run, the autograd path once (one forward and one backward
+     launch), timed at the prefill shape beside the plain autograd's
+     backward, the dR product and the saving forward; SDPA's forward and
+     backward timed at B5's batched-LM shapes; the wgmma routes' libraries hold HGMMA and UTMALDG
      instructions in their SASS (cuobjdump), B6's tensor-core library HMMA
      and LDGSTS (mma.sync, cp.async), the f32-FMA ones none of the four;
   2. the sequential main path at full width: the CIFAR-10 split CNN (convs
@@ -123,8 +131,8 @@ from the repository root.  Phases, in order; any failure exits non-zero:
      1e-3; tiny LMs (``reduce_config`` of Qwen3-8B, and of xLSTM-1.3B, one
      B7 launch) served on both from one init: equal greedy tokens, logits
      within atol 1e-4; and the Qwen3-8B one through a Pigeon-SL run over ``from_lm`` (sequential, label
-     flip) on both from one init: equal discrete outcomes, validation
-     losses within rtol 1e-3;
+     flip) on both from one init, the xLSTM one on both engines: equal
+     discrete outcomes, validation losses within rtol 1e-3;
   5. where the time goes (torch.profiler): one CIFAR client turn of the
      sequential engine and one batched CIFAR round step — device busy
      share, launches, the top kernels and the host ops;
@@ -179,7 +187,22 @@ from the repository root.  Phases, in order; any failure exits non-zero:
      memory, one warm decode step's profile; a longer prefill at
      prefill_32k's settings (B 4 x 2,048 tokens), profiled, with B7's
      persistent and step kernels counted and its share beside the mLSTM
-     products'.
+     products';
+ 10. the xLSTM train step: xLSTM-1.3B at full width and depth (train_4k's
+     settings: bf16, remat, ssm_chunk 512; the sequence cut to 512), three
+     ``make_train_step`` calls on one (4, 512) batch: the loss finite and
+     falling, per step 12 B7 forwards (remat recomputes each sLSTM block),
+     6 B7 backwards, one B4 forward and backward; seconds and tokens a
+     step, peak memory, one step's profile; at one (mLSTM 7, sLSTM 1) unit
+     in f32 the kernel path's loss and every gradient within rel 1e-4 of
+     the plain path's (B4 and B7 through autograd of their plain versions);
+ 11. the Pigeon-SL round over ``from_lm`` at xLSTM-1.3B's full width and
+     depth (cut 12: one sLSTM block on the client's side, five on the
+     AP's), phase 8's protocol, no wire and int8 under
+     ``loss_plus_distance``, each on the sequential and the batched engine
+     (the cluster-stacked xLSTM, B7 once a slot) from one init: decisions
+     equal, the largest float gap reported, B7's launches as the round's
+     cluster counts predict, seconds a round and peak memory.
 
 The last lines are one JSON object per kernel set (``{"kernels": [...]}``),
 the card's ``nvidia-smi`` name and power limit, and
@@ -353,6 +376,11 @@ XLSTM_LONG_PROMPT = 2048
 PREFILL_SHARES = {"B7 (slstm_scan_persistent)": ["slstm_scan_persistent"],
                   "f32 products (the mLSTM einsums)": ["sgemm", "f32f32", "f32_f32"],
                   "bf16 products (projections, head)": ["bf16", "nvjet"]}
+# phase 11: the Pigeon-SL round over xLSTM-1.3B at full depth (theta 7.06 GB
+# in bf16, as phase 8's 12-layer Qwen3-8B), no wire and int8 under
+# loss_plus_distance, each on both engines
+XLSTM_ROUND_LAYERS = 48
+XLSTM_ROUND_RUNS = ((None, "argmin"), ("int8", "loss_plus_distance"))
 # B5's backward: the train shape (B 4, S 512, Qwen3-8B's heads), then GQA
 # group 8, the forward's edge shapes (MQA, group 1, windows, head dims
 # 64/80/256, ragged S, S = 1)
@@ -621,6 +649,7 @@ def phase_kernels():
     for name, t in _phase_lm_batched_shapes().items():
         results[name]["lm_batched"] = t
     results["slstm_scan"] = _phase_slstm()
+    results["slstm_scan_bwd"] = _phase_slstm_bwd()
     return results
 
 
@@ -643,6 +672,7 @@ def _phase_lm_batched_shapes() -> dict:
     timed eager, replayed (L2-warm) and one call L2-cold, beside its bound
     and the plain version's eager time."""
     import torch
+    import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import quant_exchange as qx
 
@@ -677,14 +707,20 @@ def _phase_lm_batched_shapes() -> dict:
     err = float((got.float() - want.float()).abs().max())
     check(err <= ATTN_ATOL["bfloat16"], f"flash_attention at {LM_BATCHED_ATTN}: {err:.3e}")
     call = lambda: fa.flash_attention(q, k, v, **kw)          # noqa: E731
+    lib = _attention_library("flash_attention", (q, k, v), window)
     bound, by = _attention_bound_us("flash_attention", LM_BATCHED_ATTN, "bfloat16")
     with torch.inference_mode():
+        check(float((lib().transpose(1, 2).float() - want.float()).abs().max())
+              <= ATTN_ATOL["bfloat16"], f"SDPA at {LM_BATCHED_ATTN} disagrees with the plain "
+                                        f"version")
+        dev = _graph_times_us([call, lib], **few)
         out["flash_attention"] = dict(
             shape=list(LM_BATCHED_ATTN), max_abs_err=err, kernel_us=_time_us(call, **few),
-            kernel_dev_us=_graph_time_us(call, **few),
+            kernel_dev_us=_median(dev[0]),
             kernel_cold_us=_cold_time_us(call, reps=10),
             plain_us=_time_us(lambda: fa.flash_attention_plain(q, k, v, **kw), reps=3,
                               samples=3),
+            library_us=_time_us(lib, **few), library_dev_us=_median(dev[1]),
             bound_us=bound, bound_by=by)
     g = torch.Generator(device=DEVICE).manual_seed(122)
     dout = torch.randn(q.shape, generator=g, device=DEVICE).to(q.dtype)
@@ -697,6 +733,12 @@ def _phase_lm_batched_shapes() -> dict:
     err = max(_rel_err(a, r, scale) for a, r in zip(mine, ref))
     check(err <= GRAD_REL["bfloat16"], f"flash_attention_bwd at {LM_BATCHED_ATTN}: {err:.3e}")
     call = lambda: fa.flash_attention_bwd(q, k, v, o, dout, lse, **kw)   # noqa: E731
+    lib_out = F.scaled_dot_product_attention(*(x.transpose(1, 2) for x in (qq, kk, vv)),
+                                             is_causal=True, enable_gqa=True)
+    lib_bwd = lambda: torch.autograd.grad(lib_out, (qq, kk, vv),  # noqa: E731
+                                          grad_outputs=dout.transpose(1, 2), retain_graph=True)
+    check(max(_rel_err(a, r, scale) for a, r in zip(lib_bwd(), ref)) <= GRAD_REL["bfloat16"],
+          f"SDPA's backward at {LM_BATCHED_ATTN} disagrees with the plain autograd")
     pairs = s * (s + 1) // 2
     n_bytes = 2 * (4 * b * s * h * d + 4 * b * s * hkv * d) + 4 * b * h * s
     bytes_us = n_bytes / HBM_BYTES_PER_S * 1e6
@@ -707,12 +749,16 @@ def _phase_lm_batched_shapes() -> dict:
         plain_us=_time_us(lambda: torch.autograd.grad(plain_out, (qq, kk, vv),
                                                       grad_outputs=dout, retain_graph=True),
                           reps=3, samples=3),
+        library_us=_time_us(lib_bwd, reps=5, samples=5),
         bound_us=max(bytes_us, ops_us), bound_by="bytes" if bytes_us >= ops_us else "operations")
     for name, t in out.items():
+        lib_us = ("none" if "library_us" not in t else f"{t['library_us']:.3f} eager" + (
+            f", {t['library_dev_us']:.3f} replayed" if "library_dev_us" in t else ""))
         log(f"phase1 {name} at {t['shape']} (the batched LM round): kernel_us="
             f"{t['kernel_us']:.3f} plain_us={t['plain_us']:.3f} bound_us={t['bound_us']:.4f} "
             f"({t['bound_by']}); replayed kernel_us={t['kernel_dev_us']:.3f}; L2-cold "
-            f"kernel_us={t['kernel_cold_us']:.3f}")
+            f"kernel_us={t['kernel_cold_us']:.3f}; SDPA{' backward' if 'bwd' in name else ''} "
+            f"{lib_us}")
     return out
 
 
@@ -1667,6 +1713,133 @@ def _phase_slstm():
                 **main, long_context=_slstm_timing(SLSTM_LONG, long=True))
 
 
+def _slstm_bwd_bound_us(shape):
+    """(bound in us, what sets it) of B7's backward: dout (bf16), z and the
+    state (f32) read once, dz (f32) written once, r read once, over 3.35
+    TB/s; the per-step product with R^T, 2 * dh flops per (step, row, gate
+    column), over the f32 FMA rate."""
+    t, b, d, h = shape
+    dh = d // h
+    n_bytes = 2 * t * b * d + 4 * t * b * 4 * d + 4 * 4 * t * b * d + 4 * t * b * 4 * d \
+        + 2 * h * dh * 4 * dh
+    bytes_us = n_bytes / HBM_BYTES_PER_S * 1e6
+    ops_us = 2 * t * b * 4 * d * dh / F32_OPS_PER_S * 1e6
+    return max(bytes_us, ops_us), ("bytes" if bytes_us >= ops_us else "operations")
+
+
+def _phase_slstm_bwd():
+    """B7's backward (``csrc/slstm_scan_bwd.cu``, the reverse-time scan)
+    against autograd of the plain version at every SLSTM_SHAPES entry, f32
+    and bf16, from the saves of both forward routes (the route
+    ``slstm_route`` picks and the step route): dpre (dz in pre's dtype) and
+    dR (``recurrent_weight_grad``) within GRAD_REL of each tensor's largest
+    value, the saving forward's h bit-equal to the plain launch's, the
+    reverse scan bit-identical run to run.  In bf16 the reference is the
+    plain version's autograd on the same values widened to f32 (its bf16
+    autograd sums dR over T steps in bf16, each add rounded).  Then the
+    autograd path (``ops.slstm_scan``) once at the prefill shape: one saving
+    forward and one backward launch, the gradients of the direct calls bit
+    for bit.  Timed at the prefill shape in bf16: eager, replayed, L2-cold,
+    beside the plain autograd's backward, the dR product and the saving
+    forward."""
+    import torch
+    from repro_torch.kernels import build, ops
+    from repro_torch.kernels import slstm_scan as ss
+
+    def grads(pre, r, h, dout, route):
+        with torch.no_grad():
+            out, z, state = ss.slstm_scan(pre, r, h, route=route, save=True)
+            dz = ss.slstm_scan_bwd(dout, r, z, state, h)
+            return (out, dz, dz.to(pre.dtype),
+                    ss.recurrent_weight_grad(state[0], dz, h).to(r.dtype))
+
+    errs, main_err = {}, None
+    for dtype in ("float32", "bfloat16"):
+        for i, shape in enumerate(SLSTM_SHAPES):
+            pre, r, h = _slstm_args(shape, dtype, seed=200 + i)
+            g = torch.Generator(device=DEVICE).manual_seed(300 + i)
+            dout = torch.randn(shape[:3], generator=g, device=DEVICE).to(pre.dtype)
+            pp, rr = (x.float().requires_grad_() for x in (pre, r))
+            ref = torch.autograd.grad(ss.slstm_scan_plain(pp, rr, h), (pp, rr),
+                                      grad_outputs=dout.float())
+            for route in dict.fromkeys((ss.slstm_route(pre, r), ss.STEP)):
+                what = f"slstm_scan_bwd {dtype} {shape} from the {route} route's saves"
+                out, dz, dpre, dr = grads(pre, r, h, dout, route)
+                again = grads(pre, r, h, dout, route)[1]
+                with torch.no_grad():
+                    plain_launch = ss.slstm_scan(pre, r, h, route=route)
+                torch.cuda.synchronize()
+                check(torch.equal(out, plain_launch), f"{what}: the saving forward's h "
+                                                      f"differs from the plain launch's")
+                check(torch.equal(dz, again), f"{what}: two runs differ")
+                check(dpre.shape == pre.shape and dr.shape == r.shape and
+                      dpre.dtype == dr.dtype == pre.dtype, f"{what}: {dpre.shape} {dr.shape}")
+                check(bool(torch.isfinite(dz).all()), f"{what}: dz not finite")
+                err = max(_rel_err(dpre, ref[0]), _rel_err(dr, ref[1]))
+                check(err <= GRAD_REL[dtype], f"{what}: rel err {err:.3e} > {GRAD_REL[dtype]}")
+                key = f"{dtype}/{route}"
+                errs[key] = max(errs.get(key, 0.0), err)
+                if i == 0 and dtype == "bfloat16" and main_err is None:
+                    main_err = err
+                    main_abs = max(float((dpre.float() - ref[0]).abs().max()),
+                                   float((dr.float() - ref[1]).abs().max()))
+    log(f"phase1 slstm_scan_bwd: dpre and dR within rel {GRAD_REL} of autograd of the plain "
+        f"version at {list(SLSTM_SHAPES)} in f32 and bf16, from the saves of both forward "
+        f"routes, the saving forward's h bit-equal to the plain launch's, bit-identical run "
+        f"to run; max rel err by (dtype, route) {errs}")
+
+    # the autograd path: ops.slstm_scan on tensors that need a gradient
+    shape = SLSTM_SHAPES[0]
+    pre, r, h = _slstm_args(shape, "bfloat16", seed=99)
+    g = torch.Generator(device=DEVICE).manual_seed(98)
+    dout = torch.randn(shape[:3], generator=g, device=DEVICE).to(pre.dtype)
+    pp, rr = pre.clone().requires_grad_(), r.clone().requires_grad_()
+    torch.cuda.synchronize()
+    build.reset_launches()
+    got = torch.autograd.grad(ops.slstm_scan(pp, rr, h), (pp, rr), grad_outputs=dout)
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    check(launches == want_launches(slstm_scan_persistent=1, slstm_scan_bwd=1),
+          f"slstm_scan_bwd: ops.slstm_scan with a gradient launched {launches}")
+    _, dz, dpre, dr = grads(pre, r, h, dout, ss.PERSISTENT)
+    check(torch.equal(got[0], dpre) and torch.equal(got[1], dr),
+          "slstm_scan_bwd: the autograd path's gradients differ from the direct calls'")
+
+    # timing at the prefill shape, bf16
+    with torch.no_grad():
+        out, z, state = ss.slstm_scan(pre, r, h, save=True)
+    call = lambda: ss.slstm_scan_bwd(dout, r, z, state, h)                # noqa: E731
+    dr_call = lambda: ss.recurrent_weight_grad(state[0], dz, h)          # noqa: E731
+    fwd = lambda: ss.slstm_scan(pre, r, h)                               # noqa: E731
+    fwd_save = lambda: ss.slstm_scan(pre, r, h, save=True)               # noqa: E731
+    plain_out = ss.slstm_scan_plain(pp, rr, h)
+    plain = lambda: torch.autograd.grad(plain_out, (pp, rr), grad_outputs=dout,  # noqa: E731
+                                        retain_graph=True)
+    eager = dict(reps=5, samples=5, warmup=2)
+    with torch.no_grad():
+        replays = _graph_times_us([call, dr_call, fwd, fwd_save], reps=2, samples=5)
+        timing = dict(kernel_us=_time_us(call, **eager), kernel_dev_us=_median(replays[0]),
+                      kernel_cold_us=_cold_time_us(call, reps=5), library_us=None,
+                      dr_us=_time_us(dr_call, **eager), dr_dev_us=_median(replays[1]),
+                      fwd_dev_us=_median(replays[2]), fwd_save_dev_us=_median(replays[3]))
+    timing["plain_us"] = _time_us(plain, reps=1, samples=3, warmup=1)
+    timing["plain_dev_us"] = None
+    timing["bound_us"], timing["bound_by"] = _slstm_bwd_bound_us(shape)
+    timing["step_us"] = timing["kernel_dev_us"] / shape[0]
+    log(f"phase1 slstm_scan_bwd at {shape} bf16: kernel_us={timing['kernel_us']:.3f} eager; "
+        f"graph-replayed device time (L2 warm) kernel_us={timing['kernel_dev_us']:.3f} "
+        f"(replays {replays[0][0]:.3f}-{replays[0][-1]:.3f}; {timing['step_us']:.3f} us a "
+        f"step over T = {shape[0]}); one call with the L2 cold: kernel_us="
+        f"{timing['kernel_cold_us']:.3f}; bound_us={timing['bound_us']:.4f} "
+        f"({timing['bound_by']}); plain autograd backward plain_us={timing['plain_us']:.3f}; "
+        f"library none; the dR product (f32 einsum) {timing['dr_us']:.3f} eager, "
+        f"{timing['dr_dev_us']:.3f} replayed; the forward replayed without saves "
+        f"{timing['fwd_dev_us']:.3f}, with saves {timing['fwd_save_dev_us']:.3f}; launches "
+        f"through ops.slstm_scan {launches}")
+    return dict(shape=list(shape), dtype="bfloat16", max_abs_err=main_abs, max_rel_err=main_err,
+                max_rel_err_by_route=errs, **timing)
+
+
 # ---------------------------------------------------------------------------
 # phases 2-4: the protocol
 # ---------------------------------------------------------------------------
@@ -2469,10 +2642,12 @@ def phase_lm_cpu_vs_card():
 
 
 def phase_lm_round_cpu_vs_card():
-    """A tiny LM (reduce_config of Qwen3-8B, f32) through one Pigeon-SL run
-    (sequential engine, label flip on one client) on the CPU and on the card
-    from one init: equal discrete outcomes, validation losses within rtol
-    1e-3; the card run went through B4 and B5, forward and backward."""
+    """Tiny LMs (reduce_config of Qwen3-8B, and of xLSTM-1.3B, f32) through
+    one Pigeon-SL run (label flip on one client) on the CPU and on the card
+    from one init, Qwen3-8B on the sequential engine, the xLSTM on both:
+    equal discrete outcomes, validation losses within rtol 1e-3; the card
+    runs went through B4 and B5 (B7 for the xLSTM), forward and
+    backward."""
     import numpy as np
     import torch
     from repro_torch.configs import get_smoke_config
@@ -2481,32 +2656,40 @@ def phase_lm_round_cpu_vs_card():
     from repro_torch.kernels import build
     from repro_torch.models import build_model
 
-    cfg = get_smoke_config("qwen3-8b")
-    module = from_lm(build_model(cfg, "cpu"))       # the CPU template: one init for both
-    data = build_lm_task(vocab=cfg.vocab, seq_len=32, m_clients=4, d_m=16, d_o=8, n_test=8)
-    pcfg = ProtocolConfig(M=4, N=1, T=2, E=2, B=4, lr=5e-2, seed=0)
-    runs, launches = {}, {}
-    for dev in ("cpu", DEVICE):
-        torch.cuda.synchronize()
-        build.reset_launches()
-        runs[dev] = run_pigeon(module, data, pcfg, malicious={1}, attack=Attack(LABEL_FLIP),
-                               device=dev)
-        torch.cuda.synchronize()
-        launches[dev] = dict(build.LAUNCHES)
-    check(launches["cpu"] == want_launches(), f"phase4 lm round: the CPU run launched "
-                                              f"{launches['cpu']}")
-    check(all(launches[DEVICE][k] > 0 for k in ("fused_xent", "fused_xent_bwd",
-                                                 "flash_attention", "flash_attention_bwd")),
-          f"phase4 lm round: card launches {launches[DEVICE]}")
-    for ra, rb in zip(runs["cpu"].rounds, runs[DEVICE].rounds):
-        for k in ("clusters", "selected", "accepted", "detections", "comm"):
-            check(ra[k] == rb[k], f"phase4 lm round {ra['round']}: {k} cpu={ra[k]} "
-                                  f"card={rb[k]}")
-        check(np.allclose(ra["val_losses"], rb["val_losses"], rtol=1e-3, atol=0),
-              f"phase4 lm round: val_losses cpu={ra['val_losses']} card={rb['val_losses']}")
-    log(f"phase4 lm round {cfg.name} (f32, sequential, label flip): CPU and card agree over "
-        f"{pcfg.T} rounds; val_losses {runs['cpu'].rounds[-1]['val_losses']} vs "
-        f"{runs[DEVICE].rounds[-1]['val_losses']}; card launches {launches[DEVICE]}")
+    kernels = {"qwen3-8b": ("fused_xent", "fused_xent_bwd", "flash_attention",
+                            "flash_attention_bwd"),
+               "xlstm-1.3b": ("fused_xent", "fused_xent_bwd", "slstm_scan_persistent",
+                              "slstm_scan_bwd")}
+    for arch, engines in (("qwen3-8b", ("sequential",)),
+                          ("xlstm-1.3b", ("sequential", "batched"))):
+        cfg = get_smoke_config(arch)
+        module = from_lm(build_model(cfg, "cpu"))   # the CPU template: one init for both
+        data = build_lm_task(vocab=cfg.vocab, seq_len=32, m_clients=4, d_m=16, d_o=8,
+                             n_test=8)
+        pcfg = ProtocolConfig(M=4, N=1, T=2, E=2, B=4, lr=5e-2, seed=0)
+        for engine in engines:
+            what = f"phase4 lm round {arch} {engine}"
+            runs, launches = {}, {}
+            for dev in ("cpu", DEVICE):
+                torch.cuda.synchronize()
+                build.reset_launches()
+                runs[dev] = run_pigeon(module, data, pcfg, malicious={1},
+                                       attack=Attack(LABEL_FLIP), engine=engine, device=dev)
+                torch.cuda.synchronize()
+                launches[dev] = dict(build.LAUNCHES)
+            check(launches["cpu"] == want_launches(), f"{what}: the CPU run launched "
+                                                      f"{launches['cpu']}")
+            check(all(launches[DEVICE][k] > 0 for k in kernels[arch]),
+                  f"{what}: card launches {launches[DEVICE]}")
+            for ra, rb in zip(runs["cpu"].rounds, runs[DEVICE].rounds):
+                for k in ("clusters", "selected", "accepted", "detections", "comm"):
+                    check(ra[k] == rb[k], f"{what} round {ra['round']}: {k} cpu={ra[k]} "
+                                          f"card={rb[k]}")
+                check(np.allclose(ra["val_losses"], rb["val_losses"], rtol=1e-3, atol=0),
+                      f"{what}: val_losses cpu={ra['val_losses']} card={rb['val_losses']}")
+            log(f"{what} ({cfg.name}, f32, label flip): CPU and card agree over {pcfg.T} "
+                f"rounds; val_losses {runs['cpu'].rounds[-1]['val_losses']} vs "
+                f"{runs[DEVICE].rounds[-1]['val_losses']}; card launches {launches[DEVICE]}")
 
 
 def _train_batch(b: int, s: int, seed: int = 0):
@@ -2522,23 +2705,101 @@ def _train_batch(b: int, s: int, seed: int = 0):
 
 
 class _PlainPath:
-    """Within the block, the attention and the loss of CUDA tensors that
-    need a gradient take the plain versions through autograd instead of
-    the B4/B5 functions (what phase 7 holds the kernel path against)."""
+    """Within the block, the attention, the loss and the sLSTM scan of CUDA
+    tensors that need a gradient take the plain versions through autograd
+    instead of the B4/B5/B7 functions (what phases 7 and 10 hold the kernel
+    path against)."""
 
     def __enter__(self):
         from repro_torch.kernels import flash_attention as fa
         from repro_torch.kernels import fused_xent as fx
-        self.saved = (fa.FlashAttention.apply, fx.FusedXent.apply)
+        from repro_torch.kernels import slstm_scan as ss
+        self.saved = (fa.FlashAttention.apply, fx.FusedXent.apply, ss.SlstmScan.apply)
         fa.FlashAttention.apply = staticmethod(
             lambda q, k, v, window: fa.flash_attention_plain(q, k, v, window=window))
         fx.FusedXent.apply = staticmethod(fx.fused_xent_plain)
+        ss.SlstmScan.apply = staticmethod(
+            lambda pre, r, n_heads, *_: ss.slstm_scan_plain(pre, r, n_heads))
         return self
 
     def __exit__(self, *exc):
         from repro_torch.kernels import flash_attention as fa
         from repro_torch.kernels import fused_xent as fx
-        fa.FlashAttention.apply, fx.FusedXent.apply = self.saved
+        from repro_torch.kernels import slstm_scan as ss
+        fa.FlashAttention.apply, fx.FusedXent.apply, ss.SlstmScan.apply = self.saved
+
+
+def _three_steps(label: str, step, batch, per_step: dict):
+    """Three calls of a train ``step`` on ``batch``, each with the launches
+    ``per_step``; the loss finite and falling; then two more timed for the
+    profile's wall.  Returns (figures, the faster of the two walls in us)."""
+    import torch
+    from repro_torch.kernels import build
+    losses, secs = [], []
+    for i in range(3):
+        torch.cuda.synchronize()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        losses.append(float(step(batch)))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        launches = dict(build.LAUNCHES)
+        check(launches == per_step, f"{label} step {i}: launches {launches}, want {per_step} "
+                                    f"(remat recomputes each layer's forward; bf16 takes the "
+                                    f"tensor-core routes, backwards too)")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(all(x == x and abs(x) < 1e4 for x in losses), f"{label}: losses {losses}")
+    check(losses[1] < losses[0] and losses[2] < losses[1], f"{label}: loss not falling {losses}")
+    warm = min(secs[1:])
+    tokens = batch["tokens"].numel()
+    log(f"{label} losses {losses}; seconds per step {[round(x, 4) for x in secs]} (the first "
+        f"with set-up); warm {warm:.4f} s, {tokens / warm:.1f} tokens/s; peak device memory "
+        f"{peak_gb:.2f} GB; launches a step {launches}")
+    walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return dict(launches=launches, losses=losses, seconds=secs, warm_s=warm,
+                tokens_per_s=tokens / warm, peak_gb=peak_gb), min(walls) * 1e6
+
+
+def _kernel_vs_plain(label: str, model, batch, want: dict) -> dict:
+    """``model``'s loss and every gradient on the card through the kernels
+    (launches ``want``) against the plain path's (``_PlainPath``, which
+    launches none): the relative gaps, each gradient on its own scale,
+    within TRAIN_F32_REL."""
+    import torch
+    from repro_torch.kernels import build
+    params = list(model.parameters())
+    results = {}
+    for name in ("kernel", "plain"):
+        build.reset_launches()
+        if name == "plain":
+            with _PlainPath():
+                loss, _ = model.loss(batch)
+                grads = torch.autograd.grad(loss, params)
+            check(build.LAUNCHES == want_launches(),
+                  f"{label}: the plain path launched {build.LAUNCHES}")
+        else:
+            loss, _ = model.loss(batch)
+            grads = torch.autograd.grad(loss, params)
+            launches = dict(build.LAUNCHES)
+            check(launches == want, f"{label}: the kernel path launched {launches}, want {want}")
+        results[name] = (loss.detach(), grads)
+    (lk, gk), (lp, gp) = results["kernel"], results["plain"]
+    loss_rel = abs(float(lk) - float(lp)) / abs(float(lp))
+    rels = {n: _rel_err(a, r) for (n, _), a, r in zip(model.named_parameters(), gk, gp)}
+    worst = max((v, n) for n, v in rels.items())
+    check(loss_rel <= TRAIN_F32_REL and worst[0] <= TRAIN_F32_REL,
+          f"{label}: loss rel {loss_rel:.3e}, worst gradient {worst}")
+    log(f"{label}: loss {float(lk):.6f} (kernel) vs {float(lp):.6f} (plain), rel "
+        f"{loss_rel:.3e}; every gradient within rel {TRAIN_F32_REL}, the worst "
+        f"{worst[0]:.3e} ({worst[1]}); the kernel path's launches {launches}")
+    return dict(f32_loss_rel=loss_rel, f32_grad_rel=worst[0], f32_launches=launches,
+                f32_grad_rels=rels)
 
 
 def phase_train():
@@ -2552,7 +2813,6 @@ def phase_train():
 
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.kernels import build
     from repro_torch.launch.shapes import SHAPES, shape_settings
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import build_model
@@ -2573,34 +2833,9 @@ def phase_train():
     per_step = want_launches(flash_attention_tc=cfg.n_layers * (2 if cfg.remat else 1),
                              flash_attention_bwd_tc=cfg.n_layers, fused_xent_tc=1,
                              fused_xent_bwd_tc=1)
-    losses, secs = [], []
-    for i in range(3):
-        torch.cuda.synchronize()
-        build.reset_launches()
-        t0 = time.perf_counter()
-        losses.append(float(step(batch)))
-        torch.cuda.synchronize()
-        secs.append(time.perf_counter() - t0)
-        launches = dict(build.LAUNCHES)
-        check(launches == per_step, f"phase7 step {i}: launches {launches}, want {per_step} "
-                                    f"(remat recomputes each layer's forward; bf16 takes the "
-                                    f"tensor-core routes, backwards too)")
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    check(all(x == x and abs(x) < 1e4 for x in losses), f"phase7: losses {losses}")
-    check(losses[1] < losses[0] and losses[2] < losses[1], f"phase7: loss not falling {losses}")
-    warm = min(secs[1:])
-    log(f"phase7 losses {losses}; seconds per step {[round(x, 4) for x in secs]} (the first "
-        f"with set-up); warm {warm:.4f} s, {b * s / warm:.1f} tokens/s; peak device memory "
-        f"{peak_gb:.2f} GB; launches a step {launches}")
-    walls = []
-    for _ in range(2):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        step(batch)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
+    train, wall_us = _three_steps("phase7", step, batch, per_step)
     _profile_report(f"phase7 {cfg.name} train step (B {b}, S {s}, bf16, remat)",
-                    lambda: step(batch), min(walls) * 1e6, 1,
+                    lambda: step(batch), wall_us, 1,
                     shares={"B4 forward": ("xent_fwd_tc_kernel", "xent_combine_kernel"),
                             # B4's two bf16 products share cuBLAS's kernels
                             # with the layers'
@@ -2612,47 +2847,19 @@ def phase_train():
                             # none is left in a bf16 step: B4's f32 route
                             # made the only ones
                             "f32 products (SIMT SGEMM)": ("sgemm",)})
-    train = dict(launches=launches, losses=losses, seconds=secs, warm_s=warm,
-                 tokens_per_s=b * s / warm, peak_gb=peak_gb)
     del model, step
     torch.cuda.empty_cache()
 
-    # the kernel path against the plain path at full width, 4 layers, f32
+    # the kernel path against the plain path at full width, 4 layers, f32:
+    # exact f32 products take the f32-FMA routes, forward and backward
     cfg4 = dataclasses.replace(cfg, n_layers=4, dtype="float32")
     model = build_model(cfg4, DEVICE).init(torch.Generator(device=DEVICE).manual_seed(1))
-    params = list(model.parameters())
-    results = {}
-    for name in ("kernel", "plain"):
-        build.reset_launches()
-        if name == "plain":
-            with _PlainPath():
-                loss, _ = model.loss(batch)
-                grads = torch.autograd.grad(loss, params)
-            check(build.LAUNCHES["fused_xent"] == build.LAUNCHES["flash_attention"] == 0,
-                  f"phase7 f32: the plain path launched {build.LAUNCHES}")
-        else:
-            loss, _ = model.loss(batch)
-            grads = torch.autograd.grad(loss, params)
-            # f32 keeps exact f32 products: the f32-FMA routes, forward and
-            # backward, no tensor cores
-            check(build.LAUNCHES == want_launches(
-                flash_attention=cfg4.n_layers * (2 if cfg4.remat else 1),
-                flash_attention_bwd=cfg4.n_layers, fused_xent=1, fused_xent_bwd=1),
-                  f"phase7 f32: the kernel path launched {build.LAUNCHES}")
-            f32_launches = dict(build.LAUNCHES)
-        results[name] = (loss.detach(), grads)
-    (lk, gk), (lp, gp) = results["kernel"], results["plain"]
-    loss_rel = abs(float(lk) - float(lp)) / abs(float(lp))
-    worst = max((_rel_err(a, r), n)
-                for (n, _), a, r in zip(model.named_parameters(), gk, gp))
-    check(loss_rel <= TRAIN_F32_REL and worst[0] <= TRAIN_F32_REL,
-          f"phase7 f32: loss rel {loss_rel:.3e}, worst gradient {worst}")
-    log(f"phase7 {cfg4.name} f32, 4 layers, full width: loss {float(lk):.6f} (kernel) vs "
-        f"{float(lp):.6f} (plain), rel {loss_rel:.3e}; every gradient within rel "
-        f"{TRAIN_F32_REL}, the worst {worst[0]:.3e} ({worst[1]}); the kernel path's "
-        f"launches {f32_launches} (the f32-FMA routes)")
-    train.update(f32_loss_rel=loss_rel, f32_grad_rel=worst[0], f32_launches=f32_launches)
-    del model, params, results, gk, gp
+    f32 = _kernel_vs_plain(
+        f"phase7 {cfg4.name} f32, 4 layers, full width", model, batch,
+        want_launches(flash_attention=cfg4.n_layers * (2 if cfg4.remat else 1),
+                      flash_attention_bwd=cfg4.n_layers, fused_xent=1, fused_xent_bwd=1))
+    train.update({k: v for k, v in f32.items() if k != "f32_grad_rels"})
+    del model
     torch.cuda.empty_cache()
     return train
 
@@ -3532,6 +3739,188 @@ def phase_xlstm():
     return out
 
 
+def _slstm_counts(cfg):
+    """(sLSTM blocks of the model, sLSTM blocks on the client's side of the
+    cut) of an xLSTM config."""
+    from repro_torch.models.model import build_plan
+    kinds = [sp.kind for sp in build_plan(cfg) for _ in range(sp.n)]
+    return kinds.count("slstm"), kinds[:cfg.cut_layer].count("slstm")
+
+
+def phase_xlstm_train():
+    """Phase 10: xLSTM-1.3B at full width and depth, the reference's train_4k
+    settings (bf16, remat, ssm_chunk 512) with the sequence cut to 512:
+    three make_train_step calls on one (4, 512) batch, the loss finite and
+    falling, launches a step (B7's forward twice an sLSTM block under remat,
+    its backward once, B4 forward and backward once), seconds and tokens a
+    step, peak memory, one step's profile; then one (mLSTM 7, sLSTM 1) unit
+    at full width in f32: the kernel path's loss and every gradient against
+    the plain path's on the card (TRAIN_F32_REL)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.shapes import SHAPES, shape_settings
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build_model
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config("xlstm-1.3b"), **shape_settings(SHAPES["train_4k"]))
+    n_s, _ = _slstm_counts(cfg)
+    b, s = TRAIN_BATCH, TRAIN_SEQ
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, DEVICE).init(torch.Generator(device=DEVICE).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in model.parameters())
+    check(n_params == XLSTM_PARAMS, f"phase10: {n_params:,} parameters, want {XLSTM_PARAMS:,}")
+    log(f"phase10 {cfg.name}: {cfg.n_layers} blocks ({n_s} sLSTM), {cfg.dtype}, remat="
+        f"{cfg.remat}, ssm_chunk {cfg.ssm_chunk}, {n_params:,} parameters drawn on the card "
+        f"in {time.perf_counter() - t0:.2f} s; batch ({b}, {s}), lr {TRAIN_LR}")
+    batch = _train_batch(b, s)
+    step = make_train_step(model, TRAIN_LR)
+    per_step = want_launches(slstm_scan_persistent=n_s * (2 if cfg.remat else 1),
+                             slstm_scan_bwd=n_s, fused_xent_tc=1, fused_xent_bwd_tc=1)
+    train, wall_us = _three_steps("phase10", step, batch, per_step)
+    _profile_report(f"phase10 {cfg.name} train step (B {b}, S {s}, bf16, remat)",
+                    lambda: step(batch), wall_us, 1,
+                    shares={"B7 forward (slstm_scan_persistent)": ("slstm_scan_persistent",),
+                            "B7 backward (slstm_bwd_step)": ("slstm_bwd_step",),
+                            "B4 forward": ("xent_fwd_tc_kernel", "xent_combine_kernel"),
+                            "B4 backward: the logit gradient": ("xent_bwd_tc_kernel",),
+                            **{k: v for k, v in PREFILL_SHARES.items() if "B7" not in k}})
+    del model, step
+    torch.cuda.empty_cache()
+
+    # the kernel path against the plain path at full width, one unit, f32
+    cfg8 = dataclasses.replace(cfg, n_layers=cfg.slstm_every, dtype="float32")
+    n_s8, _ = _slstm_counts(cfg8)
+    model = build_model(cfg8, DEVICE).init(torch.Generator(device=DEVICE).manual_seed(1))
+    f32 = _kernel_vs_plain(
+        f"phase10 {cfg8.name} f32, one unit ({cfg8.n_layers} blocks), full width", model,
+        batch, want_launches(slstm_scan_persistent=n_s8 * (2 if cfg8.remat else 1),
+                             slstm_scan_bwd=n_s8, fused_xent=1, fused_xent_bwd=1))
+    rels = f32.pop("f32_grad_rels")
+    f32["f32_r_rel"] = max(v for n, v in rels.items() if n.endswith("mixer.r"))
+    log(f"phase10 f32: the sLSTM's r within rel {f32['f32_r_rel']:.3e} of the plain path's")
+    train.update(f32, seconds_phase=time.perf_counter() - t_phase)
+    del model
+    torch.cuda.empty_cache()
+    log(f"phase10 took {train['seconds_phase']:.1f} s")
+    return train
+
+
+def _xlstm_round_launches(cfg, pcfg, hist, quant, n_test, batched: bool, stats=False):
+    """B7's (and the wire's, B4's and B1's) launches of a run_pigeon over
+    from_lm(xLSTM), from the round structure, as ``_round_launches`` and
+    ``_batched_round_launches`` count B5, with B7 once an sLSTM block where
+    B5 runs once a layer, and once a slot in the batched engine's stacked
+    steps and validation (each slot has its own R): every client step runs
+    the sLSTM blocks forward (twice under remat) and backward; each
+    validation, handoff check and evaluation forward; the cut width is read
+    once through the client's sLSTM blocks."""
+    import math
+    n_s, cut_s = _slstm_counts(cfg)
+    fwd = 2 if cfg.remat else 1
+    m_bar = pcfg.M // pcfg.R
+    steps = m_bar * pcfg.E
+    b7f, b7b, b4f, b4b, b1, b2, b3 = cut_s, 0, 0, 0, 0, 0, 0
+    for r in hist.rounds:
+        sub = (pcfg.R - 1) * int(r["accepted"])
+        evals = math.ceil(n_test / pcfg.eval_batch) if "test_acc" in r else 0
+        if batched:
+            b7f += pcfg.R * (steps * fwd * n_s + n_s) + sub * (steps * fwd * n_s + n_s)
+            b7b += (pcfg.R + sub) * steps * n_s
+            b1 += 1
+            if quant:
+                b2 += (1 if stats else 2) * steps + 2 * sub * steps
+                b3 += steps if stats else 0
+        else:
+            handoffs = r["detections"] + int(r["accepted"])
+            b7f += (pcfg.R + sub) * steps * fwd * n_s + pcfg.R * n_s + handoffs * cut_s
+            b7b += (pcfg.R + sub) * steps * n_s
+            if quant:
+                main = pcfg.R * steps
+                b2 += 2 * (pcfg.R + sub) * steps - (main if stats else 0)
+                b3 += main if stats else 0
+        b7f += evals * n_s
+        b4f += (pcfg.R + sub) * (steps + 1) if batched else (pcfg.R + sub) * steps + pcfg.R
+        b4b += (pcfg.R + sub) * steps
+    tc = "_tc" if cfg.dtype == "bfloat16" else ""
+    return want_launches(**{
+        "slstm_scan_persistent": b7f, "slstm_scan_bwd": b7b,
+        "fused_xent" + tc: b4f, "fused_xent_bwd" + tc: b4b,
+        "tamper_check_sums" + ("_bf16" if cfg.dtype == "bfloat16" else ""): b1,
+        "quant_dequant": b2, "quant_dequant_stats": b3})
+
+
+def phase_xlstm_round():
+    """Phase 11: the Pigeon-SL round over from_lm(xLSTM-1.3B) at full width
+    and XLSTM_ROUND_LAYERS blocks (cut 12), the train_4k settings, phase 8's
+    protocol (M 4, N 1, T 2, E 2, B 4, label flip on client 0, Pigeon-SL+):
+    no wire, then int8 under loss_plus_distance, each on the sequential and
+    the batched engine (the cluster-stacked xLSTM) from one init.  Finite
+    losses, decisions equal across the engines (the largest float gap
+    reported), B7's launches from the round's cluster counts, seconds a
+    round and peak memory."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import LABEL_FLIP, Attack, ProtocolConfig, from_lm
+    from repro_torch.data import build_lm_task
+    from repro_torch.launch.shapes import SHAPES, shape_settings
+    from repro_torch.models import build_model
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config("xlstm-1.3b"), n_layers=XLSTM_ROUND_LAYERS,
+                              **shape_settings(SHAPES["train_4k"]))
+    data = build_lm_task(**ROUND_TASK)
+    model = build_model(cfg, DEVICE)        # the template: from_lm draws the init on the card
+    n_params = sum(x.numel() for x in model.parameters())
+    log(f"phase11 {cfg.name}: {cfg.n_layers} blocks (cut {cfg.cut_layer}; sLSTM blocks, "
+        f"client's: {_slstm_counts(cfg)}), {cfg.dtype}, remat={cfg.remat}: {n_params:,} "
+        f"parameters ({n_params * model.embedding.element_size() / 1e9:.2f} GB a copy)")
+    pcfg = ProtocolConfig(M=4, N=1, T=2, E=2, B=4, lr=1e-3)
+    out = {}
+    for quant, selection in XLSTM_ROUND_RUNS:
+        key = f"{quant}_{selection}"
+        stats = selection != "argmin"
+        hists = {}
+        for engine in ("sequential", "batched"):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            name = f"phase11 xlstm round {engine} quant={quant} selection={selection}"
+            hist, launches, seconds = _run(name, from_lm(model), data, pcfg, malicious={0},
+                                           attack=Attack(LABEL_FLIP), plus=True,
+                                           selection=selection, quant=quant, engine=engine,
+                                           device=DEVICE)
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            want = _xlstm_round_launches(cfg, pcfg, hist, quant, data.x_test.shape[0],
+                                         engine == "batched", stats)
+            check(launches == want, f"{name}: launches {launches}, want {want}")
+            hists[engine] = hist
+            out[f"{engine}_{key}"] = dict(launches=launches, s_per_round=seconds / pcfg.T,
+                                          peak_gb=peak_gb)
+            log(f"{name}: {seconds / pcfg.T:.2f} s/round (init and first-call set-up "
+                f"included); peak device memory {peak_gb:.2f} GB; launches {launches}")
+        for rb, rs in zip(hists["batched"].rounds, hists["sequential"].rounds):
+            for k in ROUND_DECISIONS:
+                check(rb[k] == rs[k], f"phase11 {key} round {rb['round']}: {k} "
+                                      f"batched={rb[k]} sequential={rs[k]}")
+        gap = _round_float_gap(hists["batched"], hists["sequential"])
+        out[f"batched_{key}"]["float_gap"] = gap
+        log(f"phase11 {key}: the batched engine's decisions equal the sequential one's over "
+            f"{pcfg.T} rounds; largest float gap {gap:.3e} (losses relative, test_acc "
+            f"absolute)")
+    del model
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase11 took {out['seconds']:.1f} s")
+    return out
+
+
 # ---------------------------------------------------------------------------
 
 def main() -> None:
@@ -3588,6 +3977,8 @@ def main() -> None:
     batched_lm = phase_round_batched(round_hists)
     del round_hists
     xlstm = phase_xlstm()
+    xlstm_train = phase_xlstm_train()
+    xlstm_rounds = phase_xlstm_round()
 
     sources = {"quant_dequant": ("src/repro/kernels/quant_exchange.py:85",
                                  "src/repro_torch/kernels/csrc/quant_exchange.cu"),
@@ -3609,7 +4000,11 @@ def main() -> None:
                "decode_attention": ("src/repro/kernels/decode_attention.py:66",
                                     "src/repro_torch/kernels/csrc/decode_attention_tc.cu"),
                "slstm_scan": ("src/repro/kernels/slstm_scan.py:67",
-                              "src/repro_torch/kernels/csrc/slstm_scan_persistent.cu")}
+                              "src/repro_torch/kernels/csrc/slstm_scan_persistent.cu"),
+               # no TPU kernel: the reference trains the sLSTM by XLA autodiff
+               # of its scan (_slstm_step under lax.scan)
+               "slstm_scan_bwd": ("none; XLA autodiff of src/repro/models/xlstm.py:214",
+                                  "src/repro_torch/kernels/csrc/slstm_scan_bwd.cu")}
     # the kernels of each wire entry (one library): B2's row kernel and its
     # wide cooperative kernel; B3's cluster kernel and its three-launch wide
     # path
@@ -3636,7 +4031,10 @@ def main() -> None:
                   for q, r in batched_lm["round_steps"].items()},
                "splitfed_lm_batched": batched_lm["splitfed"]["launches"],
                "xlstm_prefill": xlstm["prefill_launches"],
-               "xlstm_decode": xlstm["loop_launches"]}
+               "xlstm_decode": xlstm["loop_launches"],
+               "xlstm_train": xlstm_train["launches"],
+               **{f"xlstm_round_{q}": r["launches"] for q, r in xlstm_rounds.items()
+                  if isinstance(r, dict)}}
     # B5's and B4's forwards and backwards and B6: the entry is the
     # tensor-core route, which the bf16 paths take; the f32-FMA route it
     # replaced (its library and counter) rides beside it
@@ -3650,7 +4048,8 @@ def main() -> None:
                    "decode_attention": "decode_attention"}
     own = {name: ("serve" if name in ("flash_attention", "decode_attention") else
                   "train" if name in ("fused_xent", "fused_xent_bwd", "flash_attention_bwd")
-                  else "xlstm_prefill" if name == "slstm_scan" else "batched")
+                  else "xlstm_prefill" if name == "slstm_scan"
+                  else "xlstm_train" if name == "slstm_scan_bwd" else "batched")
            for name in kernels}
 
     def ms(us):
@@ -3710,7 +4109,14 @@ def main() -> None:
                                        bound_by=dist["bound_by"], **dev_times(dist),
                                        calibration=dict(ms=ms(dist["calibration"]["kernel_us"]),
                                                         **dev_times(dist["calibration"]))))
-        if "step_us" in k:
+        if name == "slstm_scan_bwd":
+            # B7's backward: T reverse step kernels a call; the dR product
+            # (cuBLAS, f32) and the saving forward beside it
+            entry.update(device_ms_a_step=ms(k["step_us"]),
+                         dr_product=dict(ms=ms(k["dr_us"]), device_ms_l2_warm=ms(k["dr_dev_us"])),
+                         forward_device_ms=dict(without_saves=ms(k["fwd_dev_us"]),
+                                                with_saves=ms(k["fwd_save_dev_us"])))
+        elif "step_us" in k:
             # B7: one persistent launch a scan (the profiler's count over one
             # prefill of the path beside it); the step kernel it replaced on
             # the path (T launches a scan, its own counter) rides beside it
@@ -3744,7 +4150,9 @@ def main() -> None:
                 shape=lb["shape"], path=path, launches=by_path[path][key],
                 ms=ms(lb["kernel_us"]), device_ms_l2_warm=ms(lb["kernel_dev_us"]),
                 device_ms_l2_cold=ms(lb["kernel_cold_us"]), plain_ms=ms(lb["plain_us"]),
-                bound_ms=ms(lb["bound_us"]), bound_by=lb["bound_by"])
+                bound_ms=ms(lb["bound_us"]), bound_by=lb["bound_by"],
+                library_ms=ms(lb.get("library_us")),
+                library_device_ms=ms(lb.get("library_dev_us")))
         if "lm_message" in k:
             # the LM round's cut message (B3's wide path)
             lm = k["lm_message"]
@@ -3773,7 +4181,8 @@ def main() -> None:
         f"seconds_per_round={b_per_round:.3f}; phase2c baselines {baselines}; "
         f"phase2d multiround {multiround}; phase2e sweep and pool {sweep_pool}; "
         f"phase6 serve {serve}; phase7 train {train}; "
-        f"phase8 rounds {rounds}; phase8b batched LM {batched_lm}; phase9 xlstm {xlstm}")
+        f"phase8 rounds {rounds}; phase8b batched LM {batched_lm}; phase9 xlstm {xlstm}; "
+        f"phase10 xlstm train {xlstm_train}; phase11 xlstm rounds {xlstm_rounds}")
     log(json.dumps({"kernels": entries}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -51,6 +51,11 @@
 //
 // Any (T, B, d, H) with d % H == 0 and d <= 13,504 (the h_prev staging in
 // shared memory) works, not only multiples of 32.
+//
+// Where a gradient is recorded the caller passes two f32 saves, and the
+// gating thread also writes its (row, unit)'s z = pre + rec (T, B, 4d) and
+// h, c, n, m (4, T, B, d): what slstm_scan_bwd.cu's reverse scan reads.
+// Null saves (the serve path) write nothing more.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -72,12 +77,17 @@ constexpr int kThreads = kGates * kParts * 32;   // 1,024: warp w = (part, gate)
 
 // One step.  pre_t, out_t point at step t's (B, 4d) and (B, d) rows;
 // h_prev/h_next are the two h buffers; first = (t == 0) reads no state.
+// z_save (step t's (B, 4d) row of z) and s_save (step t's (B, d) row of the
+// state's h plane, planes `plane` floats apart: h, c, n, m) are null unless a
+// gradient is recorded.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 slstm_step_kernel(const T* __restrict__ pre_t, const T* __restrict__ r,
                   T* __restrict__ out_t, const float* __restrict__ h_prev,
                   float* __restrict__ h_next, float* __restrict__ c, float* __restrict__ n,
-                  float* __restrict__ m, int b, int d, int dh, int first) {
+                  float* __restrict__ m, float* __restrict__ z_save,
+                  float* __restrict__ s_save, int64_t plane, int b, int d, int dh,
+                  int first) {
   extern __shared__ float4 h_s[];                       // (d): rows row0..row0+3
   __shared__ float red[kParts][kGates][kRows][kUnits];  // 16 KB of partial sums
   const int row0 = blockIdx.y * kRows;
@@ -149,6 +159,14 @@ slstm_step_kernel(const T* __restrict__ pre_t, const T* __restrict__ r,
   m[s] = m_s;
   h_next[s] = h;
   out_t[s] = from_f32<T>(h);
+  if (z_save != nullptr) {
+#pragma unroll
+    for (int gg = 0; gg < kGates; ++gg) z_save[row * 4 * d + gg * d + unit] = z[gg];
+    s_save[s] = h;
+    s_save[plane + s] = c_s;
+    s_save[2 * plane + s] = n_s;
+    s_save[3 * plane + s] = m_s;
+  }
 }
 
 // Raise the kernel's dynamic shared memory limit to `smem` once (not on
@@ -164,8 +182,8 @@ cudaError_t allow_smem(size_t smem) {
 }
 
 template <typename T>
-int scan(const T* pre, const T* r, T* out, float* ws, int t, int b, int d, int heads,
-         cudaStream_t stream) {
+int scan(const T* pre, const T* r, T* out, float* ws, float* z_save, float* s_save, int t,
+         int b, int d, int heads, cudaStream_t stream) {
   const int dh = d / heads;
   const size_t smem = static_cast<size_t>(d) * sizeof(float4);
   cudaError_t err = allow_smem<T>(smem);
@@ -175,11 +193,13 @@ int scan(const T* pre, const T* r, T* out, float* ws, int t, int b, int d, int h
   float* c = ws + 2 * bd;
   float* n = ws + 3 * bd;
   float* m = ws + 4 * bd;
+  const int64_t plane = static_cast<int64_t>(t) * bd;
   const dim3 grid((d + kUnits - 1) / kUnits, (b + kRows - 1) / kRows);
   for (int step = 0; step < t; ++step) {
     slstm_step_kernel<T><<<grid, kThreads, smem, stream>>>(
         pre + step * 4 * bd, r, out + step * bd, h_buf[step & 1], h_buf[(step + 1) & 1],
-        c, n, m, b, d, dh, step == 0);
+        c, n, m, z_save == nullptr ? nullptr : z_save + step * 4 * bd,
+        s_save == nullptr ? nullptr : s_save + step * bd, plane, b, d, dh, step == 0);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
@@ -192,8 +212,12 @@ int scan(const T* pre, const T* r, T* out, float* ws, int t, int b, int d, int h
 // cudaError_t (0 = launched).  The caller validates shapes, types and
 // devices and allocates `out` (T, B, d) in pre's dtype and the f32
 // workspace `ws` (5, B, d): h twice, c, n, m.  dtype: 0 = f32, 1 = bf16.
+// Where a gradient is recorded, z_save (T, B, 4d) and s_save (4, T, B, d),
+// both f32, take each step's z and its state h, c, n, m for
+// slstm_scan_bwd.cu; both null otherwise.
 extern "C" int repro_slstm_scan(const void* pre, const void* r, void* out, float* ws,
-                                int t, int b, int d, int heads, int dtype, void* stream) {
+                                float* z_save, float* s_save, int t, int b, int d, int heads,
+                                int dtype, void* stream) {
   if (t <= 0 || b <= 0 || d <= 0 || heads <= 0 || d % heads != 0 ||
       (b + kRows - 1) / kRows > 65535 ||
       static_cast<size_t>(d) * sizeof(float4) + sizeof(float) * kParts * kGates * kRows * kUnits >
@@ -201,13 +225,16 @@ extern "C" int repro_slstm_scan(const void* pre, const void* r, void* out, float
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if ((z_save == nullptr) != (s_save == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (dtype == 0) {
     return scan(static_cast<const float*>(pre), static_cast<const float*>(r),
-                static_cast<float*>(out), ws, t, b, d, heads, s);
+                static_cast<float*>(out), ws, z_save, s_save, t, b, d, heads, s);
   }
   if (dtype == 1) {
     return scan(static_cast<const __nv_bfloat16*>(pre), static_cast<const __nv_bfloat16*>(r),
-                static_cast<__nv_bfloat16*>(out), ws, t, b, d, heads, s);
+                static_cast<__nv_bfloat16*>(out), ws, z_save, s_save, t, b, d, heads, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

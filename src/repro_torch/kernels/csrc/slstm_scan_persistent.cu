@@ -56,6 +56,14 @@
 //     relaxed polls with one fence after them.
 // At t = 0 h is 0, so the products are skipped (pre + 0, as the plain
 // version adds).  T steps cost one launch, one memset and T - 1 barriers.
+//
+// Where a gradient is recorded the caller passes two f32 saves: the lane
+// that ends with a column's sum also writes z = pre + rec (T, B, 4d), and
+// the thread of each (row, unit) its h, c, n, m (4, T, B, d), what
+// slstm_scan_bwd.cu's reverse scan reads.  That is an instantiation of its
+// own (kSave): with null saves (the serve path) the kernel launched has no
+// save code at all (a runtime branch on the pointers read 1.5-1.9% slower,
+// parent and change timed in turns on one card).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -147,13 +155,17 @@ size_t smem_bytes(int d, int dh, int units, int row_groups) {
 
 // pre (T, B, 4d), r (H, dh, 4dh), out (T, B, d); hbuf [2][kRowGroups][d][4]
 // f32; `arrived` the barrier's counter, 0 at the launch.  S: R's type in
-// shared memory (f32 where it fits: no widening in the products).
-template <typename T, typename S, int kRowGroups>
+// shared memory (f32 where it fits: no widening in the products).  With
+// kSave, z_save (T, B, 4d) and s_save (4, T, B, d) take each step's z and
+// state for the backward (slstm_scan_bwd.cu); without it (the serve path)
+// the kernel is the one that saves nothing, not a branch in it.
+template <typename T, typename S, int kRowGroups, bool kSave>
 __global__ void __launch_bounds__(kThreads, 1)
 slstm_scan_persistent_kernel(const T* __restrict__ pre, const T* __restrict__ r,
                              T* __restrict__ out, float* __restrict__ hbuf,
-                             unsigned int* __restrict__ arrived, int t_len, int b, int d,
-                             int dh, int units) {
+                             unsigned int* __restrict__ arrived, float* __restrict__ z_save,
+                             float* __restrict__ s_save, int t_len, int b, int d, int dh,
+                             int units) {
   using Q = typename Quad<S>::type;
   constexpr int kRows = 4 * kRowGroups;
   constexpr int kSums = kRows * kGroupUnits;     // a lane's sums: [row][unit]
@@ -271,7 +283,13 @@ slstm_scan_persistent_kernel(const T* __restrict__ pre, const T* __restrict__ r,
       const float sum = reduce_scatter<kSums>(acc, lane);
       if (holds) {
         const float pz = to_f32(pre_s[(((t & 1) * 4 + g) * kRows + row) * units + uq + j]);
-        z_s[(g * units + uq + j) * kRows + row] = slstm::gate_input(g, pz + sum);
+        const float zv = pz + sum;
+        z_s[(g * units + uq + j) * kRows + row] = slstm::gate_input(g, zv);
+        if constexpr (kSave) {
+          if (row < b) {
+            z_save[(static_cast<int64_t>(t) * b + row) * 4 * d + g * d + u0 + uq + j] = zv;
+          }
+        }
       }
     }
     __syncthreads();                                 // z_s complete
@@ -284,7 +302,15 @@ slstm_scan_persistent_kernel(const T* __restrict__ pre, const T* __restrict__ r,
 #pragma unroll
         for (int g = 0; g < 4; ++g) a[g] = z_s[(g * units + ul) * kRows + erow];
         h = slstm::gate_state(a, c, n, m);
-        out[(static_cast<int64_t>(t) * b + erow) * d + eu] = from_f32<T>(h);
+        const int64_t so = (static_cast<int64_t>(t) * b + erow) * d + eu;
+        out[so] = from_f32<T>(h);
+        if constexpr (kSave) {
+          const int64_t plane = static_cast<int64_t>(t_len) * b * d;
+          s_save[so] = h;
+          s_save[plane + so] = c;
+          s_save[2 * plane + so] = n;
+          s_save[3 * plane + so] = m;
+        }
       }
       hbuf[((static_cast<int64_t>(t & 1) * kRowGroups + erow / 4) * d + eu) * 4 + erow % 4] = h;
     }
@@ -294,13 +320,13 @@ slstm_scan_persistent_kernel(const T* __restrict__ pre, const T* __restrict__ r,
   }
 }
 
-template <typename T, typename S, int kRowGroups>
-int launch(const T* pre, const T* r, T* out, float* ws, int t, int b, int d, int heads,
-           int units, cudaStream_t stream) {
+template <typename T, typename S, int kRowGroups, bool kSave>
+int launch(const T* pre, const T* r, T* out, float* ws, float* z_save, float* s_save, int t,
+           int b, int d, int heads, int units, cudaStream_t stream) {
   const int dh = d / heads;
   const size_t smem = smem_bytes<T, S>(d, dh, units, kRowGroups);
   if (smem > static_cast<size_t>(kMaxSmem)) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = slstm_scan_persistent_kernel<T, S, kRowGroups>;
+  auto kernel = slstm_scan_persistent_kernel<T, S, kRowGroups, kSave>;
   // raise the shared-memory cap once (before any CUDA-graph capture of the
   // launch), to the largest a call has asked for
   static size_t granted = 0;
@@ -315,18 +341,23 @@ int launch(const T* pre, const T* r, T* out, float* ws, int t, int b, int d, int
   unsigned int* arrived =
       reinterpret_cast<unsigned int*>(ws + static_cast<int64_t>(2) * kRowGroups * d * 4);
   return static_cast<int>(grid_sync::launch(kernel, (d + units - 1) / units, kThreads, smem,
-                                            stream, arrived, pre, r, out, hbuf, arrived, t, b,
-                                            d, dh, units));
+                                            stream, arrived, pre, r, out, hbuf, arrived,
+                                            z_save, s_save, t, b, d, dh, units));
 }
 
 template <typename T, typename S>
-int dispatch(const void* pre, const void* r, void* out, float* ws, int t, int b, int d,
-             int heads, int units, cudaStream_t s) {
+int dispatch(const void* pre, const void* r, void* out, float* ws, float* z_save,
+             float* s_save, int t, int b, int d, int heads, int units, cudaStream_t s) {
   const T* p = static_cast<const T*>(pre);
   const T* w = static_cast<const T*>(r);
   T* o = static_cast<T*>(out);
-  if (b <= 4) return launch<T, S, 1>(p, w, o, ws, t, b, d, heads, units, s);
-  return launch<T, S, 2>(p, w, o, ws, t, b, d, heads, units, s);
+  const bool save = z_save != nullptr;
+  if (b <= 4) {
+    return save ? launch<T, S, 1, true>(p, w, o, ws, z_save, s_save, t, b, d, heads, units, s)
+                : launch<T, S, 1, false>(p, w, o, ws, z_save, s_save, t, b, d, heads, units, s);
+  }
+  return save ? launch<T, S, 2, true>(p, w, o, ws, z_save, s_save, t, b, d, heads, units, s)
+              : launch<T, S, 2, false>(p, w, o, ws, z_save, s_save, t, b, d, heads, units, s);
 }
 
 }  // namespace
@@ -340,23 +371,31 @@ int dispatch(const void* pre, const void* r, void* out, float* ws, int t, int b,
 // then the barrier's 4-byte counter.  r's base is 16-byte aligned, dh % 4 ==
 // 0.
 // dtype: 0 = f32, 1 = bf16; `wide_r` holds a bf16 R as f32 in shared memory
-// (the caller's choice where that fits).
+// (the caller's choice where that fits).  Where a gradient is recorded,
+// z_save (T, B, 4d) and s_save (4, T, B, d), both f32, take each step's z
+// and its state h, c, n, m for slstm_scan_bwd.cu; both null otherwise.
 extern "C" int repro_slstm_scan_persistent(const void* pre, const void* r, void* out,
-                                           float* ws, int t, int b, int d, int heads,
-                                           int units, int wide_r, int dtype, void* stream) {
+                                           float* ws, float* z_save, float* s_save, int t,
+                                           int b, int d, int heads, int units, int wide_r,
+                                           int dtype, void* stream) {
   const int rows = b <= 4 ? 4 : kMaxRows;
   if (t <= 0 || b <= 0 || b > kMaxRows || d <= 0 || heads <= 0 || d % heads != 0 ||
       (d / heads) % kGroupUnits != 0 || units <= 0 || units % kGroupUnits != 0 ||
-      units * rows > kThreads || reinterpret_cast<uintptr_t>(r) % 16 != 0) {
+      units * rows > kThreads || reinterpret_cast<uintptr_t>(r) % 16 != 0 ||
+      (z_save == nullptr) != (s_save == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch<float, float>(pre, r, out, ws, t, b, d, heads, units, s);
+  if (dtype == 0) {
+    return dispatch<float, float>(pre, r, out, ws, z_save, s_save, t, b, d, heads, units, s);
+  }
   if (dtype == 1 && wide_r) {
-    return dispatch<__nv_bfloat16, float>(pre, r, out, ws, t, b, d, heads, units, s);
+    return dispatch<__nv_bfloat16, float>(pre, r, out, ws, z_save, s_save, t, b, d, heads,
+                                          units, s);
   }
   if (dtype == 1) {
-    return dispatch<__nv_bfloat16, __nv_bfloat16>(pre, r, out, ws, t, b, d, heads, units, s);
+    return dispatch<__nv_bfloat16, __nv_bfloat16>(pre, r, out, ws, z_save, s_save, t, b, d,
+                                                  heads, units, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

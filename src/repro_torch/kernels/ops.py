@@ -156,15 +156,16 @@ def slstm_scan(pre: torch.Tensor, r: torch.Tensor, n_heads: int) -> torch.Tensor
     """The sLSTM time scan (B7): pre (T, B, 4d) input pre-activations, r
     (H, dh, 4dh) recurrent weights -> hidden states (T, B, d) in pre's
     dtype, f32 state.  A CPU tensor takes the plain version, which autograd
-    differentiates; on the card the kernels (by ``slstm_scan.slstm_route``)
-    have no backward yet, so a CUDA tensor that needs a gradient raises."""
+    differentiates; a CUDA tensor the kernels (by
+    ``slstm_scan.slstm_route``), and one that needs a gradient goes through
+    ``SlstmScan``: the forward kernel saves its state, the backward runs the
+    reverse-scan kernel (``csrc/slstm_scan_bwd.cu``) and the dR product."""
     if pre.device.type == "cpu":
         return _ss.slstm_scan_plain(pre, r, n_heads)
+    pre, r = pre.contiguous(), r.contiguous()
     if _needs_grad(pre, r):
-        raise NotImplementedError("slstm_scan on the card with a gradient needs B7's "
-                                  "backward: the xLSTM training slice (ROADMAP Queue A "
-                                  "item 6)")
-    return _ss.slstm_scan(pre.contiguous(), r.contiguous(), n_heads)
+        return _ss.SlstmScan.apply(pre, r, n_heads, _ss.slstm_scan_saving, _ss.slstm_scan_bwd)
+    return _ss.slstm_scan(pre, r, n_heads)
 
 
 __all__ = ["decode_attention", "flash_attention", "fused_cross_entropy", "largest_divisor",

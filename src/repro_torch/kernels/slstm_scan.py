@@ -35,10 +35,22 @@ versions here follow the math.
   * :func:`slstm_scan_plain` — what ``ref.slstm_scan_reference`` computes,
     differentiable by autograd.
 
+**The backward** (no TPU counterpart: the reference trains by XLA autodiff
+of its scan).  With ``save=True`` both kernels also write each step's f32
+z = pre + rec (T, B, 4d) and its f32 state h, c, n, m (4, T, B, d);
+:func:`slstm_scan_bwd` (``csrc/slstm_scan_bwd.cu``, one launch a reverse
+step) runs the reverse-time scan from them into dz (T, B, 4d) f32, and
+:func:`slstm_scan_bwd_plain` is the same recurrence in PyTorch.  dpre is dz
+cast to pre's dtype; dR is one batched product over the T B rows after the
+scan (:func:`recurrent_weight_grad`).  :class:`SlstmScan` wires them into
+autograd, with the forward that saves and the reverse scan as arguments:
+the kernels on the card, the plain versions in the CPU tests.
+
 ``kernels/ops.py`` picks between them by the tensor's device.  The launcher
 counts one launch a scan call in ``build.LAUNCHES`` by route:
 ``slstm_scan_persistent`` for the persistent kernel, ``slstm_scan`` for the
-step kernel (T launches behind one call).
+step kernel (T launches behind one call), ``slstm_scan_bwd`` for the
+backward (T launches behind one call).
 """
 from __future__ import annotations
 
@@ -111,16 +123,136 @@ def check_shapes(pre: torch.Tensor, r: torch.Tensor, n_heads: int) -> Tuple[int,
 def slstm_scan_plain(pre: torch.Tensor, r: torch.Tensor, n_heads: int) -> torch.Tensor:
     """Plain version of :func:`slstm_scan` (``ref.slstm_scan_reference``):
     pre (T, B, 4d), r (H, dh, 4dh) -> h (T, B, d) in pre's dtype."""
+    return slstm_scan_saving_plain(pre, r, n_heads)[0]
+
+
+def slstm_scan_saving_plain(pre: torch.Tensor, r: torch.Tensor, n_heads: int
+                            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`slstm_scan` with ``save=True``: (h (T, B, d)
+    in pre's dtype, z (T, B, 4d) f32, the state (4, T, B, d) f32: h, c, n,
+    m after each step).  Differentiable by autograd through h alone."""
     t, b, d = check_shapes(pre, r, n_heads)
     zeros = torch.zeros((b, d), dtype=torch.float32, device=pre.device)
     h, c, n = zeros, zeros, zeros
     m = torch.full((b, d), M_INIT, dtype=torch.float32, device=pre.device)
-    outs = []
+    zs, states = [], []
     for step in range(t):
         z = pre[step].to(torch.float32) + recurrent(h, r)
         h, c, n, m = slstm_gates(z, c, n, m)
-        outs.append(h)
-    return torch.stack(outs).to(pre.dtype)
+        zs.append(z)
+        states.append((h, c, n, m))
+    with torch.no_grad():
+        z_all = torch.stack(zs)
+        state = torch.stack([torch.stack(plane) for plane in zip(*states)])
+    return torch.stack([st[0] for st in states]).to(pre.dtype), z_all, state
+
+
+def recurrent_grad(dz: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """dz (B, 4d) f32, r (H, dh, 4dh) -> dz's share of the gradient of the
+    previous step's h (B, d) f32: the per-head product with R^T, the
+    transpose of :func:`recurrent`."""
+    n_heads, dh, e4 = r.shape
+    b = dz.shape[0]
+    out = torch.einsum("bhe,hke->bhk", dz.reshape(b, n_heads, e4), r.to(torch.float32))
+    return out.reshape(b, n_heads * dh)
+
+
+def recurrent_weight_grad(h: torch.Tensor, dz: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """dR (H, dh, 4dh) f32 of a scan: sum over steps t and rows of
+    h_{t-1}[:, head]^T dz_t[:, head], with h_{-1} = 0, as one batched product
+    over the (T - 1) B rows.  h (T, B, d) is the saved f32 state, dz (T, B,
+    4d) the reverse scan's."""
+    t, b, d = h.shape
+    dh = d // n_heads
+    hp = h[:-1].reshape((t - 1) * b, n_heads, dh)
+    return torch.einsum("nhk,nhe->hke", hp, dz[1:].reshape((t - 1) * b, n_heads, 4 * dh))
+
+
+def check_saved(dout: torch.Tensor, r: torch.Tensor, z: torch.Tensor, state: torch.Tensor,
+                n_heads: int) -> Tuple[int, int, int]:
+    """(T, B, d) of a backward call; raises on saves that are not a scan's."""
+    t, b, d = check_shapes(z, r, n_heads)
+    if (tuple(dout.shape) != (t, b, d) or tuple(state.shape) != (4, t, b, d)
+            or z.dtype != torch.float32 or state.dtype != torch.float32):
+        raise ValueError(f"slstm_scan_bwd takes dout (T, B, d), z (T, B, 4d) f32 and the "
+                         f"state (4, T, B, d) f32, got {tuple(dout.shape)}, "
+                         f"{tuple(z.shape)} {z.dtype}, {tuple(state.shape)} {state.dtype}")
+    return t, b, d
+
+
+def slstm_scan_bwd_plain(dout: torch.Tensor, r: torch.Tensor, z: torch.Tensor,
+                         state: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """Plain version of :func:`slstm_scan_bwd`: the explicit reverse-time
+    recurrence (not autograd), as the kernel computes it.  dout (T, B, d),
+    r (H, dh, 4dh), z (T, B, 4d) f32 and the state (4, T, B, d) f32 the
+    forward saved -> dz (T, B, 4d) f32, the gradient of z = pre + rec.  The
+    derivative conventions are the plain version's autograd's: a tie of
+    ``torch.maximum`` splits evenly, ``clamp_min(n, 1)`` passes the whole
+    gradient where n >= 1, ``logsigmoid'(x) = sigmoid(-x)``; the path
+    through the stabilizer m is kept (``max(n, 1)`` breaks m's
+    invariance)."""
+    t, b, d = check_saved(dout, r, z, state, n_heads)
+    f32 = dict(dtype=torch.float32, device=z.device)
+    dz = torch.empty((t, b, 4 * d), **f32)
+    dc, dn, dm, dh_rec = (torch.zeros((b, d), **f32) for _ in range(4))
+    zeros = torch.zeros((b, d), **f32)
+    start = (zeros, zeros, torch.full((b, d), M_INIT, **f32))
+    for step in reversed(range(t)):
+        li, lf_raw, zz, oo = torch.chunk(z[step], 4, dim=-1)
+        _, c_t, n_t, m_t = state[:, step]
+        c_p, n_p, m_p = state[1:, step - 1] if step else start
+        dh = dout[step].to(torch.float32) + dh_rec
+        lf = F.logsigmoid(lf_raw)
+        tz, so = torch.tanh(zz), torch.sigmoid(oo)
+        a = lf + m_p
+        ig, fg = torch.exp(li - m_t), torch.exp(a - m_t)
+        q = torch.clamp_min(n_t, 1.0)
+        dp = dh / q
+        dq = -dh * (so * c_t) / (q * q)
+        dct = dc + dp * so
+        dnt = dn + torch.where(n_t >= 1.0, dq, 0.0)
+        doo = dp * c_t * so * (1.0 - so)
+        df = dct * c_p + dnt * n_p
+        di = dct * tz + dnt
+        dzz = dct * ig * (1.0 - tz * tz)
+        de_i, de_f = di * ig, df * fg
+        dmt = dm - de_i - de_f
+        half = 0.5 * dmt
+        to_a = torch.where(a < li, 0.0, torch.where(a == li, half, dmt))
+        to_li = torch.where(li < a, 0.0, torch.where(a == li, half, dmt))
+        da = de_f + to_a
+        dz[step] = torch.cat([de_i + to_li, da * torch.sigmoid(-lf_raw), dzz, doo], dim=-1)
+        dc, dn, dm = dct * fg, dnt * fg, da
+        dh_rec = recurrent_grad(dz[step], r)
+    return dz
+
+
+class SlstmScan(torch.autograd.Function):
+    """The scan with its backward: ``SlstmScan.apply(pre, r, n_heads, scan,
+    scan_bwd)``.  ``scan(pre, r, n_heads)`` is the forward that saves, ->
+    (h, z, state) (:func:`slstm_scan` with ``save=True`` on the card,
+    :func:`slstm_scan_saving_plain`); ``scan_bwd(dout, r, z, state,
+    n_heads)`` the reverse scan -> dz (:func:`slstm_scan_bwd`,
+    :func:`slstm_scan_bwd_plain`).  The backward casts dz to pre's dtype
+    for dpre and computes dR by :func:`recurrent_weight_grad` in f32, cast
+    to r's dtype.  z and the state go through ``save_for_backward``, so a
+    checkpointed layer drops them until its recomputation."""
+
+    @staticmethod
+    def forward(ctx, pre, r, n_heads, scan, scan_bwd):
+        out, z, state = scan(pre, r, n_heads)
+        ctx.save_for_backward(r, z, state)
+        ctx.n_heads, ctx.scan_bwd, ctx.pre_dtype = n_heads, scan_bwd, pre.dtype
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        r, z, state = ctx.saved_tensors
+        dz = ctx.scan_bwd(dout.contiguous(), r, z, state, ctx.n_heads)
+        dpre = dz.to(ctx.pre_dtype) if ctx.needs_input_grad[0] else None
+        dr = (recurrent_weight_grad(state[0], dz, ctx.n_heads).to(r.dtype)
+              if ctx.needs_input_grad[1] else None)
+        return dpre, dr, None, None, None
 
 
 def persistent_rows(b: int) -> int:
@@ -177,23 +309,33 @@ def slstm_route(pre: torch.Tensor, r: torch.Tensor) -> str:
     return PERSISTENT if plan is not None and aligned else STEP
 
 
-def slstm_scan(pre: torch.Tensor, r: torch.Tensor, n_heads: int, *,
-               route: Optional[str] = None) -> torch.Tensor:
-    """Launch the scan by :func:`slstm_route` (``route=STEP`` forces the step
-    kernel, to time it beside the other): pre (T, B, 4d), r (H, dh, 4dh) ->
-    h (T, B, d) in pre's dtype, on the current stream.  It records no
-    gradient: ``ops.slstm_scan`` refuses a tensor that needs one.  A launch
-    that fails, or a grid that does not fit the card, raises."""
-    from .build import check_constants, device_limits, load, record_launch
-    for x in (pre, r):
+def _check_card(*tensors: torch.Tensor) -> None:
+    for x in tensors:
         if x.device.type != "cuda" or x.device.index != torch.cuda.current_device():
             raise ValueError(f"the slstm_scan kernels take tensors on the current CUDA "
                              f"device, got {x.device}")
         if not x.is_contiguous():
             raise ValueError("the slstm_scan kernels take contiguous tensors")
-    if pre.dtype not in DTYPE_CODES or r.dtype != pre.dtype:
+
+
+def _check_dtypes(x: torch.Tensor, r: torch.Tensor) -> None:
+    if x.dtype not in DTYPE_CODES or r.dtype != x.dtype:
         raise TypeError(f"the slstm_scan kernels take float32 or bfloat16 pre and r of "
-                        f"one dtype, got {pre.dtype} and {r.dtype}")
+                        f"one dtype, got {x.dtype} and {r.dtype}")
+
+
+def slstm_scan(pre: torch.Tensor, r: torch.Tensor, n_heads: int, *,
+               route: Optional[str] = None, save: bool = False):
+    """Launch the scan by :func:`slstm_route` (``route=STEP`` forces the step
+    kernel, to time it beside the other): pre (T, B, 4d), r (H, dh, 4dh) ->
+    h (T, B, d) in pre's dtype, on the current stream.  With ``save`` it
+    returns (h, z (T, B, 4d) f32, state (4, T, B, d) f32), what
+    :func:`slstm_scan_bwd` reads; it records no gradient itself
+    (:class:`SlstmScan` does).  A launch that fails, or a grid that does not
+    fit the card, raises."""
+    from .build import check_constants, device_limits, load, record_launch
+    _check_card(pre, r)
+    _check_dtypes(pre, r)
     t, b, d = check_shapes(pre, r, n_heads)
     if t == 0 or b == 0:
         raise ValueError(f"the slstm_scan kernels take T, B >= 1; got T {t}, B {b}")
@@ -201,6 +343,11 @@ def slstm_scan(pre: torch.Tensor, r: torch.Tensor, n_heads: int, *,
     if route not in (None, chosen, STEP):
         raise ValueError(f"route {route!r}: these tensors take {chosen!r} or {STEP!r}")
     out = torch.empty((t, b, d), dtype=pre.dtype, device=pre.device)
+    z = state = None
+    if save:
+        z = torch.empty((t, b, 4 * d), dtype=torch.float32, device=pre.device)
+        state = torch.empty((4, t, b, d), dtype=torch.float32, device=pre.device)
+    saves = (0 if z is None else z.data_ptr(), 0 if state is None else state.data_ptr())
     stream = torch.cuda.current_stream(pre.device).cuda_stream
     if (route or chosen) == PERSISTENT:
         lib = load("slstm_scan_persistent")
@@ -211,20 +358,51 @@ def slstm_scan(pre: torch.Tensor, r: torch.Tensor, n_heads: int, *,
         ws = torch.empty((2 * persistent_rows(b) * d + 4,), dtype=torch.float32,
                          device=pre.device)
         err = lib.repro_slstm_scan_persistent(
-            pre.data_ptr(), r.data_ptr(), out.data_ptr(), ws.data_ptr(), t, b, d, n_heads,
-            units, int(r_elt > pre.element_size()), DTYPE_CODES[pre.dtype], stream)
+            pre.data_ptr(), r.data_ptr(), out.data_ptr(), ws.data_ptr(), *saves, t, b, d,
+            n_heads, units, int(r_elt > pre.element_size()), DTYPE_CODES[pre.dtype], stream)
         record_launch(err, "slstm_scan_persistent")
-        return out
+        return (out, z, state) if save else out
     if d > MAX_D:
         raise ValueError(f"the slstm_scan step kernel takes d <= {MAX_D}; got d {d}")
     ws = torch.empty((5, b, d), dtype=torch.float32, device=pre.device)   # h x2, c, n, m
     err = load("slstm_scan").repro_slstm_scan(
-        pre.data_ptr(), r.data_ptr(), out.data_ptr(), ws.data_ptr(), t, b, d, n_heads,
-        DTYPE_CODES[pre.dtype], stream)
+        pre.data_ptr(), r.data_ptr(), out.data_ptr(), ws.data_ptr(), *saves, t, b, d,
+        n_heads, DTYPE_CODES[pre.dtype], stream)
     record_launch(err, "slstm_scan")
-    return out
+    return (out, z, state) if save else out
 
 
-__all__ = ["M_INIT", "MAX_D", "PERSISTENT", "STEP", "check_shapes", "persistent_plan",
-           "persistent_rows", "persistent_smem", "recurrent", "slstm_gates", "slstm_route",
-           "slstm_scan", "slstm_scan_plain"]
+def slstm_scan_saving(pre: torch.Tensor, r: torch.Tensor, n_heads: int):
+    """:func:`slstm_scan` with ``save=True`` on the route it picks: (h, z,
+    state), the forward :class:`SlstmScan` runs on the card."""
+    return slstm_scan(pre, r, n_heads, save=True)
+
+
+def slstm_scan_bwd(dout: torch.Tensor, r: torch.Tensor, z: torch.Tensor,
+                   state: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """Launch the reverse-time scan (``csrc/slstm_scan_bwd.cu``, T step
+    kernels on the current stream): dout (T, B, d) and r (H, dh, 4dh) in
+    one dtype (f32 or bf16), the forward's saves z (T, B, 4d) and state (4,
+    T, B, d) f32 -> dz (T, B, 4d) f32.  Any (T, B, d, H) the forward takes;
+    anything else raises, as does a launch that fails."""
+    from .build import load, record_launch
+    _check_card(dout, r, z, state)
+    _check_dtypes(dout, r)
+    t, b, d = check_saved(dout, r, z, state, n_heads)
+    if t == 0 or b == 0:
+        raise ValueError(f"slstm_scan_bwd takes T, B >= 1; got T {t}, B {b}")
+    dz = torch.empty((t, b, 4 * d), dtype=torch.float32, device=z.device)
+    carry = torch.empty((3, b, d), dtype=torch.float32, device=z.device)   # dc, dn, dm
+    err = load("slstm_scan_bwd").repro_slstm_scan_bwd(
+        dout.data_ptr(), r.data_ptr(), z.data_ptr(), state.data_ptr(), dz.data_ptr(),
+        carry.data_ptr(), t, b, d, n_heads, DTYPE_CODES[dout.dtype],
+        torch.cuda.current_stream(z.device).cuda_stream)
+    record_launch(err, "slstm_scan_bwd")
+    return dz
+
+
+__all__ = ["M_INIT", "MAX_D", "PERSISTENT", "STEP", "SlstmScan", "check_saved",
+           "check_shapes", "persistent_plan", "persistent_rows", "persistent_smem",
+           "recurrent", "recurrent_grad", "recurrent_weight_grad", "slstm_gates",
+           "slstm_route", "slstm_scan", "slstm_scan_bwd", "slstm_scan_bwd_plain",
+           "slstm_scan_plain", "slstm_scan_saving", "slstm_scan_saving_plain"]

@@ -15,7 +15,8 @@
 The reference's ``repro/launch/train.py``, with the same flags, on the CUDA
 card by default (``--device cpu`` asks for the CPU).  An ``--arch`` runs its
 reduced config (``reduce_config``), as the reference does, on either
-engine (``--engine batched``: the cluster-stacked LM, dense only).
+engine (``--engine batched``: the cluster-stacked LM, dense or xLSTM; an
+xLSTM trains through B7 and its backward on the card).
 ``--protocol vanilla`` runs vanilla SL, ``sfl`` clustered SplitFed (either
 engine).  ``--trace`` writes a JSONL
 telemetry trace (spans, per-round records, a provenance stamp with the

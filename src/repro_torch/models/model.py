@@ -33,17 +33,17 @@ follow the plain halves' order.  Its entry points take n slots' batches:
   * ``loss(batches)``                       — per-slot LM losses (n,)
 
 Each slot's products run on views of the stacked weights, one a slot; the
-parameter-free work (the norms' arithmetic, rotary, SiLU, attention) runs
-over all slots at once, the slot axis folded into the batch axis.  Dense
-only: a stacked xLSTM raises (its training on the card needs B7's backward).
+parameter-free work (the norms' arithmetic, rotary, SiLU, attention, the
+mLSTM's chunked einsums) runs over all slots at once, the slot axis folded
+into the batch axis; the sLSTM's scan (B7) runs once a slot, each with its
+own R.  Dense and xLSTM plans both stack.
 
 Forward, loss and the split view are differentiable: the attention runs
 through B5 and its backward, the loss through B4 (``ops.
-fused_cross_entropy``, forward and backward) on the card.  An xLSTM model
-differentiates on the CPU only: B7 has no backward kernel yet, so its scan
-raises on the card when a gradient is recorded.  ``cfg.remat`` checkpoints
-each layer.  The serve path (``decode_step``, the prefill step) runs under
-``torch.inference_mode()``.
+fused_cross_entropy``, forward and backward), the sLSTM's scan through B7
+and its backward (``ops.slstm_scan``) on the card.  ``cfg.remat``
+checkpoints each layer.  The serve path (``decode_step``, the prefill step)
+runs under ``torch.inference_mode()``.
 """
 from __future__ import annotations
 
@@ -62,11 +62,6 @@ from .config import ModelConfig
 
 Cache = Tuple[Dict[str, torch.Tensor], ...]
 Batch = Dict[str, torch.Tensor]
-
-#: why a stacked xLSTM raises
-STACKED_XLSTM_SLICE = ("ROADMAP.md Queue A item 6, xLSTM training (B7 has no backward on "
-                       "the card yet)")
-
 
 @dataclasses.dataclass
 class StackPlan:
@@ -367,16 +362,13 @@ class StackedAPLM(nn.Module):
 
 
 class StackedModel(nn.Module):
-    """n slots of one dense :class:`Model` (see the module docstring):
-    ``parameters()`` follow :class:`Model`'s order with a leading slot axis
-    each.  Built zeroed on ``device`` (None: the current default device);
-    :meth:`load_slot` writes a plain model into a slot."""
+    """n slots of one :class:`Model`, dense or xLSTM (see the module
+    docstring): ``parameters()`` follow :class:`Model`'s order with a
+    leading slot axis each.  Built zeroed on ``device`` (None: the current
+    default device); :meth:`load_slot` writes a plain model into a slot."""
 
     def __init__(self, cfg: ModelConfig, plan: List[StackPlan], n: int, device=None):
         super().__init__()
-        if any(sp.kind != "attn_mlp" for sp in plan):
-            raise NotImplementedError(f"a cluster-stacked {cfg.name} (arch_type "
-                                      f"{cfg.arch_type!r}) comes with {STACKED_XLSTM_SLICE}")
         self.cfg = cfg
         self.plan = plan
         self.n = n
@@ -473,6 +465,6 @@ def build_model(cfg: ModelConfig, device: DeviceLike = None) -> Model:
     return Model(cfg, plan, resolve_device(device))
 
 
-__all__ = ["APLM", "ClientLM", "Model", "STACKED_XLSTM_SLICE", "StackPlan", "StackedAPLM",
+__all__ = ["APLM", "ClientLM", "Model", "StackPlan", "StackedAPLM",
            "StackedClientLM", "StackedModel", "build_model", "build_plan",
            "build_stacked_model", "split_plans"]

@@ -19,8 +19,9 @@ splits at the split-learning cut by slicing its layer list
 (:func:`slice_stack`), which shares the layers.
 
 The batched round's cluster-stacked LM (``model.StackedModel``) builds its
-stacks of :class:`StackedAttnMLPLayer`\\ s by :func:`build_stacked_stacks`
-and runs them through the same :func:`run_stack` (dense only).
+stacks of :class:`StackedAttnMLPLayer`\\ s and :class:`StackedXLSTMBlock`\\ s
+by :func:`build_stacked_stacks` and runs them through the same
+:func:`run_stack`.
 """
 from __future__ import annotations
 
@@ -136,6 +137,22 @@ class XLSTMBlock(nn.Module):
         return x + self.mixer.decode(self.ln(x), cache)
 
 
+class StackedXLSTMBlock(nn.Module):
+    """n slots' :class:`XLSTMBlock` (the same parameters, each with a
+    leading slot axis): x (n, B, S, d_model)."""
+
+    MIXERS = {"mlstm": xlstm.StackedMLSTM, "slstm": xlstm.StackedSLSTM}
+
+    def __init__(self, cfg: ModelConfig, kind: str, n: int, device=None):
+        super().__init__()
+        kw = dict(dtype=DTYPES[cfg.dtype], device=device)
+        self.ln = StackedRMSNorm(n, cfg.d_model, **kw)
+        self.mixer = self.MIXERS[kind](xlstm_cfg(cfg), n, **kw)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x + self.mixer(self.ln(x))
+
+
 class BlockStack(nn.Module):
     """``n`` layers of one ``kind``, with per-layer metadata in ``meta``."""
 
@@ -166,10 +183,16 @@ def build_stacks(cfg: ModelConfig, plan, device=None) -> List[BlockStack]:
             for sp in plan]
 
 
+def _stacked_layer(cfg: ModelConfig, kind: str, n: int, device) -> nn.Module:
+    if kind == "attn_mlp":
+        return StackedAttnMLPLayer(cfg, n, device)
+    return StackedXLSTMBlock(cfg, kind, n, device)
+
+
 def build_stacked_stacks(cfg: ModelConfig, plan, n: int, device=None) -> List[BlockStack]:
     """The stacks of ``plan`` with n slots a layer (zeroed parameters on
-    ``device``); ``plan`` holds ``attn_mlp`` stacks only."""
-    return [BlockStack(sp.kind, [StackedAttnMLPLayer(cfg, n, device) for _ in range(sp.n)],
+    ``device``): ``attn_mlp``, ``mlstm`` and ``slstm`` stacks."""
+    return [BlockStack(sp.kind, [_stacked_layer(cfg, sp.kind, n, device) for _ in range(sp.n)],
                        sp.meta) for sp in plan]
 
 
@@ -224,6 +247,7 @@ def decode_stack(stack: BlockStack, x: torch.Tensor, cache: Dict[str, torch.Tens
     return x, cache
 
 
-__all__ = ["AttnMLPLayer", "BlockStack", "StackedAttnMLPLayer", "XLSTMBlock", "attn_cfg",
+__all__ = ["AttnMLPLayer", "BlockStack", "StackedAttnMLPLayer", "StackedXLSTMBlock",
+           "XLSTMBlock", "attn_cfg",
            "build_stacked_stacks", "build_stacks", "decode_stack", "init_stack_cache",
            "not_ported", "run_stack", "slice_stack", "xlstm_cfg"]

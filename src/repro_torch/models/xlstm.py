@@ -14,6 +14,13 @@ pytree's paths (``up.w``, ``wq.w``, ``w_if.b``, ``r``, ...), so that
 ``convert.py`` carries them unchanged.  A decode cache is a dict of f32
 tensors, the reference's ``init_*_cache``; ``decode`` writes the new state
 into it in place and returns the output.
+
+:class:`StackedMLSTM` and :class:`StackedSLSTM` are the cluster-stacked
+forms (n slots, the same parameters with a leading slot axis) the batched
+round trains: x (n, B, S, d_model).  Their products run one a slot
+(``StackedLinear``); the mLSTM's chunked einsums, which hold no weights,
+run over the folded n * B batch, and the sLSTM's scan (B7, forward and
+backward) once a slot, each slot with its own R.
 """
 from __future__ import annotations
 
@@ -26,7 +33,7 @@ from torch import nn
 
 from ..kernels import ops
 from ..kernels.slstm_scan import recurrent, slstm_gates
-from .blocks import Linear, RMSNorm
+from .blocks import Linear, RMSNorm, StackedLinear, StackedRMSNorm
 
 Cache = Dict[str, torch.Tensor]
 STATE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -152,17 +159,20 @@ class MLSTM(nn.Module):
         return self.down(self.out_norm(hval) * F.silu(z))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """The reference's ``mlstm_forward``: x (B, S, d_model) -> (B, S,
-        d_model), chunk by chunk.  S must be a multiple of ``cfg.chunk``
-        when it exceeds it (the reference asserts; padding would change the
-        result)."""
+        """The reference's ``mlstm_forward``: x (..., S, d_model) -> (..., S,
+        d_model), chunk by chunk, the leading axes folded into one batch.
+        S must be a multiple of ``cfg.chunk`` when it exceeds it (the
+        reference asserts; padding would change the result)."""
         cfg = self.cfg
-        b, s, _ = x.shape
+        lead, s = x.shape[:-2], x.shape[-2]
         q, k, v, li, lf, z = self._project(x)
         qn = min(cfg.chunk, s)
         if s % qn:
             raise ValueError(f"mlstm_forward: the sequence length {s} is not a multiple of "
                              f"the chunk {cfg.chunk}")
+        q, k, v, li, lf = (t.reshape((-1, s) + t.shape[len(lead) + 1:])
+                           for t in (q, k, v, li, lf))
+        b = q.shape[0]
         sdt = STATE_DTYPES[cfg.state_dtype]
         h, pd = cfg.n_heads, cfg.head_dim
         carry = (torch.zeros((b, h, pd, pd), dtype=torch.float32, device=x.device),
@@ -175,7 +185,7 @@ class MLSTM(nn.Module):
             carry, hc = _mlstm_chunk(carry, q[:, part], k[:, part], v[:, part], lf[:, part],
                                      li[:, part], scale, sdt)
             hs.append(hc)
-        out = torch.cat(hs, dim=1).reshape(b, s, cfg.d_inner).to(x.dtype)
+        out = torch.cat(hs, dim=1).reshape(lead + (s, cfg.d_inner)).to(x.dtype)
         return self._out(out, z)
 
     def decode(self, x: torch.Tensor, cache: Cache) -> torch.Tensor:
@@ -200,6 +210,31 @@ class MLSTM(nn.Module):
         den = torch.maximum(torch.einsum("bhd,bhd->bh", q, n).abs(), torch.exp(-m_new))
         hval = (num / den[..., None]).reshape(b, cfg.d_inner).to(x.dtype)
         return self._out(hval, z)[:, None, :]
+
+
+class StackedMLSTM(nn.Module):
+    """n slots' :class:`MLSTM` (the same parameters, each with a leading
+    slot axis): x (n, B, S, d_model).  The projections run a product a slot;
+    the chunked einsums over the folded n * B batch (:meth:`MLSTM.forward`
+    folds the leading axes)."""
+
+    def __init__(self, cfg: XLSTMConfig, n: int, *, dtype: torch.dtype = torch.float32,
+                 device=None):
+        super().__init__()
+        self.cfg = cfg
+        di = cfg.d_inner
+        kw = dict(dtype=dtype, device=device)
+        self.up = StackedLinear(n, cfg.d_model, 2 * di, **kw)
+        self.wq = StackedLinear(n, di, di, **kw)
+        self.wk = StackedLinear(n, di, di, **kw)
+        self.wv = StackedLinear(n, di, di, **kw)
+        self.w_if = StackedLinear(n, di, 2 * cfg.n_heads, bias=True, **kw)
+        self.out_norm = StackedRMSNorm(n, di, **kw)
+        self.down = StackedLinear(n, di, cfg.d_model, **kw)
+
+    _project = MLSTM._project
+    _out = MLSTM._out
+    forward = MLSTM.forward
 
 
 def mlstm_forward_reference(mixer: MLSTM, x: torch.Tensor) -> torch.Tensor:
@@ -271,5 +306,34 @@ class SLSTM(nn.Module):
         return self.down(self.out_norm(new["h"].to(x.dtype)))[:, None, :]
 
 
-__all__ = ["MLSTM", "SLSTM", "XLSTMConfig", "init_mlstm_cache", "init_slstm_cache",
-           "mlstm_forward_reference"]
+class StackedSLSTM(nn.Module):
+    """n slots' :class:`SLSTM`: x (n, B, S, d), r (n, H, dh, 4dh).  The
+    projections run a product a slot, the norm over all slots, and the scan
+    (B7, forward and backward) once a slot, each with its own R, as B4 runs
+    once a slot."""
+
+    def __init__(self, cfg: XLSTMConfig, n: int, *, dtype: torch.dtype = torch.float32,
+                 device=None):
+        super().__init__()
+        self.cfg = cfg
+        d, h = cfg.d_model, cfg.n_heads
+        dh = d // h
+        kw = dict(dtype=dtype, device=device)
+        self.w_in = StackedLinear(n, d, 4 * d, bias=True, **kw)
+        self.r = nn.Parameter(torch.zeros((n, h, dh, 4 * dh), **kw))
+        self.out_norm = StackedRMSNorm(n, d, **kw)
+        self.down = StackedLinear(n, d, d, **kw)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # w_in's product and the scan a slot, each slot's pre-activations a
+        # tensor of their own: the gradient reaching w_in's bias then lies
+        # in memory as the plain mixer's does, and its sum over (B, S)
+        # rounds alike (a slice of one stacked (n, B, S, 4d) gradient sums
+        # in another order)
+        hs = torch.stack([ops.slstm_scan((xi @ w + b).transpose(0, 1), r, self.cfg.n_heads)
+                          for xi, w, b, r in zip(x, self.w_in.w, self.w_in.b, self.r)])
+        return self.down(self.out_norm(hs.transpose(1, 2).to(x.dtype)))   # hs (n,S,B,d)
+
+
+__all__ = ["MLSTM", "SLSTM", "StackedMLSTM", "StackedSLSTM", "XLSTMConfig",
+           "init_mlstm_cache", "init_slstm_cache", "mlstm_forward_reference"]

@@ -22,6 +22,7 @@ from repro_torch.kernels import build as tbuild
 from repro_torch.kernels import decode_attention as tda
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops as tops
+from _torch_threads import one_thread  # noqa: F401
 
 ATOL = {"float32": 2e-5, "bfloat16": 2e-2}
 GRAD_ATOL = 1e-5

@@ -32,6 +32,7 @@ from repro_torch.core.validation import select_cluster
 from repro_torch.data import build_image_task as torch_build_image_task
 from repro_torch.data import dirichlet_relabel, minibatches
 from repro_torch.models.cnn import MNIST_CNN
+from _torch_threads import one_thread  # noqa: F401
 
 TASK = dict(m_clients=4, d_m=120, d_o=60, n_test=200, seed=0)
 SFL_DISCRETE = ("selected", "selected_honest", "comm")

@@ -33,6 +33,7 @@ from repro.models import attention as jattn
 from repro_torch.kernels import build as tbuild
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import fused_xent as tfx
+from _torch_threads import one_thread  # noqa: F401
 
 GRAD_REL = 3e-2                  # chip_smoke.GRAD_REL["bfloat16"]
 LOG2E = math.log2(math.e)

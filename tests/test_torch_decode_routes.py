@@ -45,6 +45,7 @@ from repro_torch.kernels import build as tbuild
 from repro_torch.kernels import decode_attention as tda
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import quant_exchange as tqx
+from _torch_threads import one_thread  # noqa: F401
 
 ATTN_BF16_ATOL = 2e-2           # chip_smoke.ATTN_ATOL["bfloat16"]
 STATS_RTOL = 1e-5

@@ -31,6 +31,7 @@ from repro_torch.kernels import build as tbuild
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import quant_exchange as tqx
 from repro_torch.kernels import tamper_check as ttc
+from _torch_threads import one_thread  # noqa: F401
 
 FORMATS = ("int8", "fp8_e4m3")
 STATS_RTOL = 2e-6

@@ -32,6 +32,7 @@ from repro_torch.launch import serve as tserve
 from repro_torch.launch import shapes as tshapes
 from repro_torch.launch.steps import make_prefill_step, make_serve_step
 from repro_torch.models import build_model
+from _torch_threads import one_thread  # noqa: F401
 
 B, S = 2, 32
 PROMPT, NEW = 8, 8

@@ -26,6 +26,7 @@ from repro_torch.convert import lm_split_from_reference
 from repro_torch.data import build_lm_task
 from repro_torch.kernels import build as tbuild
 from repro_torch.models import ModelConfig, build_model
+from _torch_threads import one_thread  # noqa: F401
 
 ROUND_RTOL = 1e-4
 TINY = dict(name="tiny-lm", arch_type="dense", n_layers=2, d_model=64, n_heads=4,

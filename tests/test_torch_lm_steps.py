@@ -38,6 +38,7 @@ from repro_torch.kernels import build as tbuild
 from repro_torch.kernels import ops as tops
 from repro_torch.launch import steps as tsteps
 from repro_torch.models import ModelConfig, build_model, build_stacked_model
+from _torch_threads import one_thread  # noqa: F401
 
 B1_RTOL = 1e-6
 VLOSS_RTOL = 1e-5
@@ -147,15 +148,6 @@ def test_lm_stack_conversion_round_trip():
         assert torch.equal(a, b)
     assert jax.tree.structure(lm_to_reference(stacked.slot_model(0))) == \
         jax.tree.structure(trees[0])
-
-
-def test_stacked_xlstm_names_its_slice():
-    cfg = tconfigs.get_smoke_config("xlstm-1.3b")
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
-        build_stacked_model(cfg, 2, device="cpu")
-    module = tcore.from_lm(build_model(cfg, "cpu"))
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
-        module.stacked.make(2)
 
 
 def test_quant_cut_exchange_on_stacked_acts_is_a_row_a_sample():
@@ -373,10 +365,11 @@ def test_pigeon_batch_split_shapes():
 @pytest.mark.parametrize("shape", ["train_4k", "prefill_32k", "decode_32k", "pigeon",
                                    "pigeon_plus"])
 def test_input_specs_give_the_reference_shapes(arch, shape):
-    """Every kind of step for the ported arch types: the argument shapes
-    and dtypes of the reference's ``input_specs`` (its batch and val
-    structs; the decode step's tokens, index and cache), as meta tensors.
-    A cluster-stacked xLSTM raises (item 6); ``pigeon_shardmap`` raises."""
+    """Every kind of step for the ported arch types, the xLSTM round over a
+    cluster-stacked xLSTM among them: the argument shapes and dtypes of the
+    reference's ``input_specs`` (its batch and val structs; the decode
+    step's tokens, index and cache), as meta tensors.  ``pigeon_shardmap``
+    raises."""
     from repro.configs import get_config as jget_config
     from repro.launch.shapes import SHAPES as JSHAPES
     cfg = tconfigs.get_config(arch)
@@ -384,10 +377,6 @@ def test_input_specs_give_the_reference_shapes(arch, shape):
     if shape == "pigeon_plus":
         kw["optimizations"] = ("pigeon_plus",)
     name = "train_4k" if shape.startswith("pigeon") else shape
-    if kw and arch == "xlstm-1.3b":
-        with pytest.raises(NotImplementedError, match="Queue A item 6"):
-            tsteps.input_specs(cfg, name, **kw)
-        return
     spec = tsteps.input_specs(cfg, name, **kw)
     jcfg = jsteps.apply_shape_settings(jget_config(arch), JSHAPES[name])
     if name == "decode_32k":

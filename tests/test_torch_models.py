@@ -22,6 +22,7 @@ from repro_torch.core.split import client_update_stats as torch_client_update_st
 from repro_torch.core.split import from_cnn as torch_from_cnn
 from repro_torch.core.split import sl_minibatch_grads as torch_grads
 from repro_torch.models import cnn as tcnn
+from _torch_threads import one_thread  # noqa: F401
 
 # the packages export a ``families()`` function that shadows the submodule
 jfam = importlib.import_module("repro.adversary.families")

@@ -32,6 +32,7 @@ from repro_torch.core import runner as trunner
 from repro_torch.core.protocol import check_block
 from repro_torch.data import RoundFeeder, build_image_task, lane_block_len, plan_blocks
 from repro_torch.selection import resolve_policy, unpack_block_fetch
+from _torch_threads import one_thread  # noqa: F401
 
 TASK = dict(m_clients=4, d_m=120, d_o=60, n_test=200, seed=0)
 DISCRETE = ("clusters", "selected", "accepted", "detections", "selected_honest",

@@ -24,6 +24,7 @@ import repro_torch.selection as tsel
 from repro_torch.convert import from_reference
 from repro_torch.core.clustering import make_clusters as torch_make_clusters
 from repro_torch.data import build_image_task as torch_build_image_task
+from _torch_threads import one_thread  # noqa: F401
 
 TASK = dict(m_clients=4, d_m=120, d_o=60, n_test=200, seed=0)
 DISCRETE = ("clusters", "selected", "accepted", "detections", "selected_honest",

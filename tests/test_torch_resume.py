@@ -26,6 +26,7 @@ from repro_torch.checkpoint import (CorruptCheckpointError, load_checkpoint,
                                     restore_pytree, save_checkpoint)
 from repro_torch.convert import from_reference
 from repro_torch.data import build_image_task
+from _torch_threads import one_thread  # noqa: F401
 
 TASK = dict(m_clients=4, d_m=120, d_o=60, n_test=200, seed=0)
 LF = dict(malicious={1}, attack=tcore.Attack(tcore.LABEL_FLIP))

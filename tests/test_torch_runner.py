@@ -34,6 +34,7 @@ from repro_torch.core import runner as trunner
 from repro_torch.core import split as tsplit
 from repro_torch.models import cnn as tcnn
 import repro_torch.selection as tsel
+from _torch_threads import one_thread  # noqa: F401
 
 importlib.import_module("repro.adversary.families")      # populate the registry
 RTOL, ATOL = 1e-5, 5e-6

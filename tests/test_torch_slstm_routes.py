@@ -32,6 +32,7 @@ from repro.kernels import ops as jops
 from repro.kernels import ref
 from repro_torch.kernels import build as tbuild
 from repro_torch.kernels import slstm_scan as tss
+from _torch_threads import one_thread  # noqa: F401
 
 MODEL_ATOL = 1e-5
 H100 = (132, 232448)             # an H100 SXM's SMs and shared memory a block

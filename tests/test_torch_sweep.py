@@ -26,6 +26,7 @@ from repro_torch.core import engine as tengine
 from repro_torch.core import runner as trunner
 from repro_torch.data import build_image_task
 from repro_torch.telemetry import MemorySink, Telemetry
+from _torch_threads import one_thread  # noqa: F401
 
 TASK = dict(m_clients=4, d_m=120, d_o=60, n_test=200, seed=0)
 SEEDS = (0, 1)

@@ -28,6 +28,7 @@ from repro_torch.telemetry import (DISABLED, NULL_SESSION, ConsoleSink, JSONLSin
                                    pool_gauges, provenance, read_jsonl, resolve_telemetry,
                                    round_gauges)
 from repro_torch.telemetry.sinks import materialize
+from _torch_threads import one_thread  # noqa: F401
 
 TASK = dict(m_clients=4, d_m=120, d_o=60, n_test=200, seed=0)
 LF = dict(malicious={1}, attack=tcore.Attack(tcore.LABEL_FLIP))

@@ -40,6 +40,7 @@ from repro_torch.launch import train as ttrain
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models import build_model
 from repro_torch.models.config import ModelConfig
+from _torch_threads import one_thread  # noqa: F401
 
 ATOL = 1e-5
 ACTS_ATOL = 1e-4

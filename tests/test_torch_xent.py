@@ -22,6 +22,7 @@ from repro.models.blocks import cross_entropy as jax_cross_entropy
 from repro_torch.kernels import build as tbuild
 from repro_torch.kernels import fused_xent as tfx
 from repro_torch.kernels import ops as tops
+from _torch_threads import one_thread  # noqa: F401
 
 TOL = {"float32": 1e-5, "bfloat16": 3e-2}
 GRAD_ATOL = 1e-5

@@ -45,6 +45,7 @@ from repro_torch.models import build_model
 from repro_torch.models import xlstm as tx
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import Model, build_plan
+from _torch_threads import one_thread  # noqa: F401
 
 SCAN_ATOL = {"float32": 1e-5, "bfloat16": 8e-3}
 MIXER_ATOL = 1e-4
@@ -157,13 +158,12 @@ def test_scan_first_step_and_minus_inf_input_gate():
 
 
 def test_scan_dispatch_raises_off_the_cpu():
-    """A tensor off the CPU takes the kernel or raises: with a gradient it
-    names B7's backward slice (ROADMAP Queue A item 6), without one the
-    launcher refuses a tensor that is not on the card."""
+    """A tensor off the CPU takes the kernels or raises: with a gradient the
+    saving forward of B7's autograd Function, without one the plain
+    launcher; both refuse a tensor that is not on the card."""
     pre = torch.empty((4, 2, 64), device="meta", requires_grad=True)
     r = torch.empty((2, 8, 32), device="meta")
-    with pytest.raises(NotImplementedError, match=r"xLSTM training slice \(ROADMAP Queue A "
-                                                  r"item 6\)"):
+    with pytest.raises(ValueError, match="CUDA"):
         tops.slstm_scan(pre, r, 2)
     with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
         tops.slstm_scan(pre, r, 2)
