@@ -68,15 +68,19 @@ from the repository root.  Phases, in order; any failure exits non-zero:
      xLSTM prefill shape (T 512, B 4, d 2,048, H 4) and edges (H 1 and 2,
      dh 40 and 30, a ragged unit block, B 1/3/5/9, T 1), bit-identical run
      to run, both routes timed (no PyTorch call computes the scan; eager,
-     replayed in turn, L2-cold) also at T 4,096, with the persistent step's
-     clock split by phase; B7's backward (the reverse-time scan,
-     ``csrc/slstm_scan_bwd.cu``) from the saves of both forward routes
+     replayed in turn, L2-cold) also at T 4,096; B7's backward (the reverse-time scan) on the
+     route ``slstm_bwd_route`` picks (held against ``SLSTM_BWD_ROUTES``:
+     ``csrc/slstm_scan_bwd_persistent.cu``, one cooperative launch, wherever
+     R's rows and dz's slice fit the co-resident grid) and on the step route
+     (``csrc/slstm_scan_bwd.cu``), from the saves of both forward routes,
      against autograd of the plain version at every B7 shape, f32 and bf16
-     (dpre and dR within rel 1e-4 and 3e-2 of each tensor's largest value),
-     the saving forward's h bit-equal to the plain launch's, bit-identical
-     run to run, the autograd path once (one forward and one backward
-     launch), timed at the prefill shape beside the plain autograd's
-     backward, the dR product and the saving forward; SDPA's forward and
+     (dpre and dR within rel 1e-4 and 3e-2 of each tensor's largest value;
+     the two routes' dz as close to each other), the saving forward's h
+     bit-equal to the plain launch's, bit-identical run to run, the
+     autograd path once (one forward and one persistent backward launch),
+     both routes timed at the prefill shape and at T 4,096 (eager,
+     replayed in turn, L2-cold), beside the plain autograd's backward, the
+     dR product and the saving forward; SDPA's forward and
      backward timed at B5's batched-LM shapes; the wgmma routes' libraries hold HGMMA and UTMALDG
      instructions in their SASS (cuobjdump), B6's tensor-core library HMMA
      and LDGSTS (mma.sync, cp.async), the f32-FMA ones none of the four;
@@ -346,6 +350,13 @@ SLSTM_ROUTES = dict(zip(SLSTM_SHAPES, (
     ("persistent", "persistent"), ("persistent", "persistent"), ("persistent", "persistent"),
     ("persistent", "persistent"), ("persistent", "persistent"), ("step", "step"),
     ("step", "step"))))
+# the route slstm_bwd_route picks for each shape in (f32, bf16) on an H100
+# SXM: the persistent backward wherever R's rows and dz's slice of the heads
+# spanned fit a block of the co-resident grid (at the forward's shapes, the
+# same table: R's rows are the bytes of the forward's slice; (24, 2, 612, 3)
+# has blocks of 8 units straddling two heads of 204); the step route
+# elsewhere
+SLSTM_BWD_ROUTES = dict(SLSTM_ROUTES)
 # h is bounded by 1 and the state never goes through bf16, so the error does
 # not compound: in bf16 the outputs differ by their last roundings, two bf16
 # ulps at |h| <= 1 (2 * 2^-8); f32 by the dot products' summation order
@@ -1727,66 +1738,144 @@ def _slstm_bwd_bound_us(shape):
     return max(bytes_us, ops_us), ("bytes" if bytes_us >= ops_us else "operations")
 
 
+def _slstm_bwd_timing(shape, long: bool):
+    """Times of one B7 backward call at ``shape`` in bf16, from the
+    persistent forward's saves, on both routes (the persistent kernel and
+    the step kernel): eager, graph-replayed in turn (L2 warm) and L2-cold;
+    the bound and the time a reverse step.  At the prefill shape also the
+    plain autograd's backward, the dR product and the forward with and
+    without saves."""
+    import torch
+    from repro_torch.kernels import slstm_scan as ss
+    pre, r, h = _slstm_args(shape, "bfloat16", seed=99)
+    g = torch.Generator(device=DEVICE).manual_seed(98)
+    dout = torch.randn(shape[:3], generator=g, device=DEVICE).to(pre.dtype)
+    check(ss.slstm_bwd_route(dout, r) == ss.PERSISTENT,
+          f"slstm_scan_bwd {shape}: the timed shape takes {ss.slstm_bwd_route(dout, r)!r}")
+    with torch.no_grad():
+        _, z, state = ss.slstm_scan(pre, r, h, save=True)
+        dz = ss.slstm_scan_bwd(dout, r, z, state, h)
+    call = lambda: ss.slstm_scan_bwd(dout, r, z, state, h)                        # noqa: E731
+    step = lambda: ss.slstm_scan_bwd(dout, r, z, state, h, route=ss.STEP)         # noqa: E731
+    extra = [] if long else [lambda: ss.recurrent_weight_grad(state[0], dz, h),
+                             lambda: ss.slstm_scan(pre, r, h),
+                             lambda: ss.slstm_scan(pre, r, h, save=True)]
+    eager = dict(reps=2 if long else 5, samples=5, warmup=2)
+    with torch.no_grad():
+        replays = _graph_times_us([call, step, *extra], reps=1 if long else 2, samples=5)
+        timing = dict(kernel_us=_time_us(call, **eager), kernel_dev_us=_median(replays[0]),
+                      kernel_cold_us=_cold_time_us(call, reps=5), plain_us=None,
+                      plain_dev_us=None, library_us=None)
+        old = dict(kernel_us=_time_us(step, **eager), kernel_dev_us=_median(replays[1]),
+                   kernel_cold_us=_cold_time_us(step, reps=5))
+        if not long:
+            timing.update(dr_us=_time_us(extra[0], **eager), dr_dev_us=_median(replays[2]),
+                          fwd_dev_us=_median(replays[3]), fwd_save_dev_us=_median(replays[4]))
+    if not long:
+        pp, rr = pre.clone().requires_grad_(), r.clone().requires_grad_()
+        plain_out = ss.slstm_scan_plain(pp, rr, h)
+        plain = lambda: torch.autograd.grad(plain_out, (pp, rr),                  # noqa: E731
+                                            grad_outputs=dout, retain_graph=True)
+        timing["plain_us"] = _time_us(plain, reps=1, samples=3, warmup=1)
+    timing["bound_us"], timing["bound_by"] = _slstm_bwd_bound_us(shape)
+    t = shape[0]
+    timing["step_us"] = timing["kernel_dev_us"] / t
+    old["step_us"] = old["kernel_dev_us"] / t
+    plain_txt = "not timed" if long else f"plain autograd backward {timing['plain_us']:.3f}"
+    log(f"phase1 slstm_scan_bwd at {shape} bf16: bound_us={timing['bound_us']:.4f} "
+        f"({timing['bound_by']}); {plain_txt}; library none")
+    for name, tm, times in (("persistent", timing, replays[0]), ("step", old, replays[1])):
+        log(f"  {name} route: kernel_us={tm['kernel_us']:.3f} eager; graph-replayed device "
+            f"time (L2 warm, in turn) kernel_us={tm['kernel_dev_us']:.3f} (replays "
+            f"{times[0]:.3f}-{times[-1]:.3f}; {tm['step_us']:.3f} us a reverse step over T = "
+            f"{t}); one call with the L2 cold: kernel_us={tm['kernel_cold_us']:.3f}")
+    if not long:
+        log(f"  the dR product (f32 einsum) {timing['dr_us']:.3f} eager, "
+            f"{timing['dr_dev_us']:.3f} replayed; the forward replayed without saves "
+            f"{timing['fwd_dev_us']:.3f}, with saves {timing['fwd_save_dev_us']:.3f}")
+    return dict(shape=list(shape), dtype="bfloat16", step_route=old, **timing)
+
+
 def _phase_slstm_bwd():
-    """B7's backward (``csrc/slstm_scan_bwd.cu``, the reverse-time scan)
-    against autograd of the plain version at every SLSTM_SHAPES entry, f32
-    and bf16, from the saves of both forward routes (the route
-    ``slstm_route`` picks and the step route): dpre (dz in pre's dtype) and
-    dR (``recurrent_weight_grad``) within GRAD_REL of each tensor's largest
-    value, the saving forward's h bit-equal to the plain launch's, the
+    """B7's backward (the reverse-time scan) on the route ``slstm_bwd_route``
+    picks (checked against SLSTM_BWD_ROUTES) and on the step route
+    (``csrc/slstm_scan_bwd.cu``), against autograd of the plain version at
+    every SLSTM_SHAPES entry, f32 and bf16, from the saves of both forward
+    routes (the route ``slstm_route`` picks and the step route): dpre (dz in
+    pre's dtype) and dR (``recurrent_weight_grad``) within GRAD_REL of each
+    tensor's largest value, the two backward routes' dz within GRAD_REL of
+    each other, the saving forward's h bit-equal to the plain launch's, each
     reverse scan bit-identical run to run.  In bf16 the reference is the
     plain version's autograd on the same values widened to f32 (its bf16
     autograd sums dR over T steps in bf16, each add rounded).  Then the
     autograd path (``ops.slstm_scan``) once at the prefill shape: one saving
-    forward and one backward launch, the gradients of the direct calls bit
-    for bit.  Timed at the prefill shape in bf16: eager, replayed, L2-cold,
-    beside the plain autograd's backward, the dR product and the saving
-    forward."""
+    forward and one persistent backward launch, the gradients of the direct
+    calls bit for bit.  Both routes timed at the prefill shape and at
+    SLSTM_LONG in bf16: eager, replayed, L2-cold."""
     import torch
     from repro_torch.kernels import build, ops
     from repro_torch.kernels import slstm_scan as ss
 
-    def grads(pre, r, h, dout, route):
+    def grads(pre, r, h, dout, fwd_route, bwd_route=None):
         with torch.no_grad():
-            out, z, state = ss.slstm_scan(pre, r, h, route=route, save=True)
-            dz = ss.slstm_scan_bwd(dout, r, z, state, h)
+            out, z, state = ss.slstm_scan(pre, r, h, route=fwd_route, save=True)
+            dz = ss.slstm_scan_bwd(dout, r, z, state, h, route=bwd_route)
             return (out, dz, dz.to(pre.dtype),
                     ss.recurrent_weight_grad(state[0], dz, h).to(r.dtype))
 
-    errs, main_err = {}, None
+    errs, gaps, main_err = {}, {}, None
     for dtype in ("float32", "bfloat16"):
         for i, shape in enumerate(SLSTM_SHAPES):
             pre, r, h = _slstm_args(shape, dtype, seed=200 + i)
             g = torch.Generator(device=DEVICE).manual_seed(300 + i)
             dout = torch.randn(shape[:3], generator=g, device=DEVICE).to(pre.dtype)
+            chosen = ss.slstm_bwd_route(dout, r)
+            want = SLSTM_BWD_ROUTES[shape][dtype == "bfloat16"]
+            check(chosen == want,
+                  f"slstm_scan_bwd {dtype} {shape}: route {chosen!r}, want {want!r}")
             pp, rr = (x.float().requires_grad_() for x in (pre, r))
             ref = torch.autograd.grad(ss.slstm_scan_plain(pp, rr, h), (pp, rr),
                                       grad_outputs=dout.float())
             for route in dict.fromkeys((ss.slstm_route(pre, r), ss.STEP)):
-                what = f"slstm_scan_bwd {dtype} {shape} from the {route} route's saves"
-                out, dz, dpre, dr = grads(pre, r, h, dout, route)
-                again = grads(pre, r, h, dout, route)[1]
                 with torch.no_grad():
                     plain_launch = ss.slstm_scan(pre, r, h, route=route)
-                torch.cuda.synchronize()
-                check(torch.equal(out, plain_launch), f"{what}: the saving forward's h "
-                                                      f"differs from the plain launch's")
-                check(torch.equal(dz, again), f"{what}: two runs differ")
-                check(dpre.shape == pre.shape and dr.shape == r.shape and
-                      dpre.dtype == dr.dtype == pre.dtype, f"{what}: {dpre.shape} {dr.shape}")
-                check(bool(torch.isfinite(dz).all()), f"{what}: dz not finite")
-                err = max(_rel_err(dpre, ref[0]), _rel_err(dr, ref[1]))
-                check(err <= GRAD_REL[dtype], f"{what}: rel err {err:.3e} > {GRAD_REL[dtype]}")
-                key = f"{dtype}/{route}"
-                errs[key] = max(errs.get(key, 0.0), err)
-                if i == 0 and dtype == "bfloat16" and main_err is None:
-                    main_err = err
-                    main_abs = max(float((dpre.float() - ref[0]).abs().max()),
-                                   float((dr.float() - ref[1]).abs().max()))
+                dzs = {}
+                for bwd in dict.fromkeys((chosen, ss.STEP)):
+                    what = (f"slstm_scan_bwd {dtype} {shape} on the {bwd} route from the "
+                            f"{route} route's saves")
+                    out, dz, dpre, dr = grads(pre, r, h, dout, route, bwd)
+                    again = grads(pre, r, h, dout, route, bwd)[1]
+                    torch.cuda.synchronize()
+                    check(torch.equal(out, plain_launch), f"{what}: the saving forward's h "
+                                                          f"differs from the plain launch's")
+                    check(torch.equal(dz, again), f"{what}: two runs differ")
+                    check(dpre.shape == pre.shape and dr.shape == r.shape and
+                          dpre.dtype == dr.dtype == pre.dtype,
+                          f"{what}: {dpre.shape} {dr.shape}")
+                    check(bool(torch.isfinite(dz).all()), f"{what}: dz not finite")
+                    err = max(_rel_err(dpre, ref[0]), _rel_err(dr, ref[1]))
+                    check(err <= GRAD_REL[dtype],
+                          f"{what}: rel err {err:.3e} > {GRAD_REL[dtype]}")
+                    key = f"{dtype}/{route} saves/{bwd}"
+                    errs[key] = max(errs.get(key, 0.0), err)
+                    dzs[bwd] = dz
+                    if i == 0 and dtype == "bfloat16" and main_err is None:
+                        main_err = err
+                        main_abs = max(float((dpre.float() - ref[0]).abs().max()),
+                                       float((dr.float() - ref[1]).abs().max()))
+                if len(dzs) == 2:
+                    gap = _rel_err(dzs[ss.PERSISTENT], dzs[ss.STEP])
+                    check(gap <= GRAD_REL[dtype], f"slstm_scan_bwd {dtype} {shape}: the two "
+                                                  f"routes' dz differ by rel {gap:.3e}")
+                    gaps[dtype] = max(gaps.get(dtype, 0.0), gap)
+        log(f"phase1 slstm_scan_bwd {dtype} routes: "
+            f"{[(shape, SLSTM_BWD_ROUTES[shape][dtype == 'bfloat16']) for shape in SLSTM_SHAPES]}")
     log(f"phase1 slstm_scan_bwd: dpre and dR within rel {GRAD_REL} of autograd of the plain "
-        f"version at {list(SLSTM_SHAPES)} in f32 and bf16, from the saves of both forward "
-        f"routes, the saving forward's h bit-equal to the plain launch's, bit-identical run "
-        f"to run; max rel err by (dtype, route) {errs}")
+        f"version at {list(SLSTM_SHAPES)} in f32 and bf16, on the route each takes and on "
+        f"the step route, from the saves of both forward routes, the saving forward's h "
+        f"bit-equal to the plain launch's, bit-identical run to run; max rel err by (dtype, "
+        f"forward route, backward route) {errs}; the two backward routes' dz apart by rel "
+        f"{gaps}")
 
     # the autograd path: ops.slstm_scan on tensors that need a gradient
     shape = SLSTM_SHAPES[0]
@@ -1799,45 +1888,17 @@ def _phase_slstm_bwd():
     got = torch.autograd.grad(ops.slstm_scan(pp, rr, h), (pp, rr), grad_outputs=dout)
     torch.cuda.synchronize()
     launches = dict(build.LAUNCHES)
-    check(launches == want_launches(slstm_scan_persistent=1, slstm_scan_bwd=1),
+    check(launches == want_launches(slstm_scan_persistent=1, slstm_scan_bwd_persistent=1),
           f"slstm_scan_bwd: ops.slstm_scan with a gradient launched {launches}")
     _, dz, dpre, dr = grads(pre, r, h, dout, ss.PERSISTENT)
     check(torch.equal(got[0], dpre) and torch.equal(got[1], dr),
           "slstm_scan_bwd: the autograd path's gradients differ from the direct calls'")
+    log(f"phase1 slstm_scan_bwd: launches through ops.slstm_scan {launches}")
 
-    # timing at the prefill shape, bf16
-    with torch.no_grad():
-        out, z, state = ss.slstm_scan(pre, r, h, save=True)
-    call = lambda: ss.slstm_scan_bwd(dout, r, z, state, h)                # noqa: E731
-    dr_call = lambda: ss.recurrent_weight_grad(state[0], dz, h)          # noqa: E731
-    fwd = lambda: ss.slstm_scan(pre, r, h)                               # noqa: E731
-    fwd_save = lambda: ss.slstm_scan(pre, r, h, save=True)               # noqa: E731
-    plain_out = ss.slstm_scan_plain(pp, rr, h)
-    plain = lambda: torch.autograd.grad(plain_out, (pp, rr), grad_outputs=dout,  # noqa: E731
-                                        retain_graph=True)
-    eager = dict(reps=5, samples=5, warmup=2)
-    with torch.no_grad():
-        replays = _graph_times_us([call, dr_call, fwd, fwd_save], reps=2, samples=5)
-        timing = dict(kernel_us=_time_us(call, **eager), kernel_dev_us=_median(replays[0]),
-                      kernel_cold_us=_cold_time_us(call, reps=5), library_us=None,
-                      dr_us=_time_us(dr_call, **eager), dr_dev_us=_median(replays[1]),
-                      fwd_dev_us=_median(replays[2]), fwd_save_dev_us=_median(replays[3]))
-    timing["plain_us"] = _time_us(plain, reps=1, samples=3, warmup=1)
-    timing["plain_dev_us"] = None
-    timing["bound_us"], timing["bound_by"] = _slstm_bwd_bound_us(shape)
-    timing["step_us"] = timing["kernel_dev_us"] / shape[0]
-    log(f"phase1 slstm_scan_bwd at {shape} bf16: kernel_us={timing['kernel_us']:.3f} eager; "
-        f"graph-replayed device time (L2 warm) kernel_us={timing['kernel_dev_us']:.3f} "
-        f"(replays {replays[0][0]:.3f}-{replays[0][-1]:.3f}; {timing['step_us']:.3f} us a "
-        f"step over T = {shape[0]}); one call with the L2 cold: kernel_us="
-        f"{timing['kernel_cold_us']:.3f}; bound_us={timing['bound_us']:.4f} "
-        f"({timing['bound_by']}); plain autograd backward plain_us={timing['plain_us']:.3f}; "
-        f"library none; the dR product (f32 einsum) {timing['dr_us']:.3f} eager, "
-        f"{timing['dr_dev_us']:.3f} replayed; the forward replayed without saves "
-        f"{timing['fwd_dev_us']:.3f}, with saves {timing['fwd_save_dev_us']:.3f}; launches "
-        f"through ops.slstm_scan {launches}")
-    return dict(shape=list(shape), dtype="bfloat16", max_abs_err=main_abs, max_rel_err=main_err,
-                max_rel_err_by_route=errs, **timing)
+    main = _slstm_bwd_timing(shape, long=False)
+    return dict(max_abs_err=main_abs, max_rel_err=main_err, max_rel_err_by_route=errs,
+                routes_rel_gap=gaps, **main,
+                long_context=_slstm_bwd_timing(SLSTM_LONG, long=True))
 
 
 # ---------------------------------------------------------------------------
@@ -2659,7 +2720,7 @@ def phase_lm_round_cpu_vs_card():
     kernels = {"qwen3-8b": ("fused_xent", "fused_xent_bwd", "flash_attention",
                             "flash_attention_bwd"),
                "xlstm-1.3b": ("fused_xent", "fused_xent_bwd", "slstm_scan_persistent",
-                              "slstm_scan_bwd")}
+                              "slstm_scan_bwd_persistent")}
     for arch, engines in (("qwen3-8b", ("sequential",)),
                           ("xlstm-1.3b", ("sequential", "batched"))):
         cfg = get_smoke_config(arch)
@@ -3529,10 +3590,12 @@ def phase_serve():
     return serve
 
 
-def _b7_kernels(kernels):
-    """(persistent scans, step kernels) of B7 among a profile's device
-    kernels."""
+def _b7_kernels(kernels, backward: bool = False):
+    """(persistent scans, step kernels) of B7's forward, or of its backward,
+    among a profile's device kernels."""
     count = lambda frag: sum(ev.count for ev in kernels if frag in ev.key)   # noqa: E731
+    if backward:
+        return count("slstm_bwd_persistent"), count("slstm_bwd_step")
     return count("slstm_scan_persistent"), count("slstm_step")
 
 
@@ -3781,15 +3844,23 @@ def phase_xlstm_train():
     batch = _train_batch(b, s)
     step = make_train_step(model, TRAIN_LR)
     per_step = want_launches(slstm_scan_persistent=n_s * (2 if cfg.remat else 1),
-                             slstm_scan_bwd=n_s, fused_xent_tc=1, fused_xent_bwd_tc=1)
+                             slstm_scan_bwd_persistent=n_s, fused_xent_tc=1,
+                             fused_xent_bwd_tc=1)
     train, wall_us = _three_steps("phase10", step, batch, per_step)
-    _profile_report(f"phase10 {cfg.name} train step (B {b}, S {s}, bf16, remat)",
-                    lambda: step(batch), wall_us, 1,
-                    shares={"B7 forward (slstm_scan_persistent)": ("slstm_scan_persistent",),
-                            "B7 backward (slstm_bwd_step)": ("slstm_bwd_step",),
+    kernels = _profile_report(
+        f"phase10 {cfg.name} train step (B {b}, S {s}, bf16, remat)", lambda: step(batch),
+        wall_us, 1, shares={"B7 forward (slstm_scan_persistent)": ("slstm_scan_persistent",),
+                            "B7 backward (slstm_bwd_persistent)": ("slstm_bwd_persistent",),
                             "B4 forward": ("xent_fwd_tc_kernel", "xent_combine_kernel"),
                             "B4 backward: the logit gradient": ("xent_bwd_tc_kernel",),
                             **{k: v for k, v in PREFILL_SHARES.items() if "B7" not in k}})
+    scans, step_kernels = _b7_kernels(kernels, backward=True)
+    check((scans, step_kernels) == (n_s, 0),
+          f"phase10: the profiled train step ran {scans} persistent B7 backward kernels and "
+          f"{step_kernels} step kernels, want {n_s} and 0")
+    log(f"phase10 B7 backward under the profiler: {scans} persistent kernels, "
+        f"{step_kernels} step kernels a train step")
+    train.update(persistent_bwd_kernels=scans, step_bwd_kernels=step_kernels)
     del model, step
     torch.cuda.empty_cache()
 
@@ -3800,7 +3871,7 @@ def phase_xlstm_train():
     f32 = _kernel_vs_plain(
         f"phase10 {cfg8.name} f32, one unit ({cfg8.n_layers} blocks), full width", model,
         batch, want_launches(slstm_scan_persistent=n_s8 * (2 if cfg8.remat else 1),
-                             slstm_scan_bwd=n_s8, fused_xent=1, fused_xent_bwd=1))
+                             slstm_scan_bwd_persistent=n_s8, fused_xent=1, fused_xent_bwd=1))
     rels = f32.pop("f32_grad_rels")
     f32["f32_r_rel"] = max(v for n, v in rels.items() if n.endswith("mixer.r"))
     log(f"phase10 f32: the sLSTM's r within rel {f32['f32_r_rel']:.3e} of the plain path's")
@@ -3849,7 +3920,7 @@ def _xlstm_round_launches(cfg, pcfg, hist, quant, n_test, batched: bool, stats=F
         b4b += (pcfg.R + sub) * steps
     tc = "_tc" if cfg.dtype == "bfloat16" else ""
     return want_launches(**{
-        "slstm_scan_persistent": b7f, "slstm_scan_bwd": b7b,
+        "slstm_scan_persistent": b7f, "slstm_scan_bwd_persistent": b7b,
         "fused_xent" + tc: b4f, "fused_xent_bwd" + tc: b4b,
         "tamper_check_sums" + ("_bf16" if cfg.dtype == "bfloat16" else ""): b1,
         "quant_dequant": b2, "quant_dequant_stats": b3})
@@ -4004,7 +4075,7 @@ def main() -> None:
                # no TPU kernel: the reference trains the sLSTM by XLA autodiff
                # of its scan (_slstm_step under lax.scan)
                "slstm_scan_bwd": ("none; XLA autodiff of src/repro/models/xlstm.py:214",
-                                  "src/repro_torch/kernels/csrc/slstm_scan_bwd.cu")}
+                                  "src/repro_torch/kernels/csrc/slstm_scan_bwd_persistent.cu")}
     # the kernels of each wire entry (one library): B2's row kernel and its
     # wide cooperative kernel; B3's cluster kernel and its three-launch wide
     # path
@@ -4042,7 +4113,8 @@ def main() -> None:
                  "flash_attention_bwd": "flash_attention_bwd_tc",
                  "fused_xent_bwd": "fused_xent_bwd_tc",
                  "decode_attention": "decode_attention_tc",
-                 "slstm_scan": "slstm_scan_persistent"}
+                 "slstm_scan": "slstm_scan_persistent",
+                 "slstm_scan_bwd": "slstm_scan_bwd_persistent"}
     fma_library = {"flash_attention": "flash_attention", "fused_xent": "fused_xent",
                    "flash_attention_bwd": "flash_attention_bwd", "fused_xent_bwd": "fused_xent",
                    "decode_attention": "decode_attention"}
@@ -4110,12 +4182,24 @@ def main() -> None:
                                        calibration=dict(ms=ms(dist["calibration"]["kernel_us"]),
                                                         **dev_times(dist["calibration"]))))
         if name == "slstm_scan_bwd":
-            # B7's backward: T reverse step kernels a call; the dR product
-            # (cuBLAS, f32) and the saving forward beside it
-            entry.update(device_ms_a_step=ms(k["step_us"]),
-                         dr_product=dict(ms=ms(k["dr_us"]), device_ms_l2_warm=ms(k["dr_dev_us"])),
-                         forward_device_ms=dict(without_saves=ms(k["fwd_dev_us"]),
-                                                with_saves=ms(k["fwd_save_dev_us"])))
+            # B7's backward: one persistent launch a reverse scan (the
+            # profiler's count over one train step beside it); the step
+            # route (T launches a call, its own counter) rides beside it,
+            # the dR product (cuBLAS, f32) and the saving forward too
+            old = k["step_route"]
+            entry.update(
+                kernel_route="persistent",
+                persistent_kernels=xlstm_train["persistent_bwd_kernels"],
+                step_kernels=xlstm_train["step_bwd_kernels"], device_ms_a_step=ms(k["step_us"]),
+                step_route=dict(
+                    source="src/repro_torch/kernels/csrc/slstm_scan_bwd.cu",
+                    launches_by_path={path: counts[name] for path, counts in by_path.items()},
+                    ms=ms(old["kernel_us"]), device_ms_l2_warm=ms(old["kernel_dev_us"]),
+                    device_ms_l2_cold=ms(old["kernel_cold_us"]),
+                    device_ms_a_step=ms(old["step_us"])),
+                dr_product=dict(ms=ms(k["dr_us"]), device_ms_l2_warm=ms(k["dr_dev_us"])),
+                forward_device_ms=dict(without_saves=ms(k["fwd_dev_us"]),
+                                       with_saves=ms(k["fwd_save_dev_us"])))
         elif "step_us" in k:
             # B7: one persistent launch a scan (the profiler's count over one
             # prefill of the path beside it); the step kernel it replaced on

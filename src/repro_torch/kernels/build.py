@@ -124,6 +124,14 @@ SOURCES: Dict[str, Dict[str, Tuple]] = {
         # dout, r, z, state, dz, carry, t, b, d, heads, dtype, stream
         "repro_slstm_scan_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     },
+    "slstm_scan_bwd_persistent": {
+        # dout, r, z, state, dz, arrived, t, b, d, heads, units, wide_r,
+        # dtype, stream
+        "repro_slstm_scan_bwd_persistent": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                            _I, _P),
+        # out (int*): the kernel's block and row constants
+        "repro_slstm_scan_bwd_persistent_constants": (_P,),
+    },
 }
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
@@ -140,7 +148,9 @@ BUILD_SECONDS: Dict[str, float] = {}
 #: kernels, the same names with ``_tc`` the tensor-core ones; B7 counts
 #: ``slstm_scan_persistent`` (one cooperative launch a scan) and
 #: ``slstm_scan`` (the step kernel, T launches a scan) a call each, its
-#: backward ``slstm_scan_bwd`` (T reverse step kernels) a call; B1 counts
+#: backward ``slstm_scan_bwd_persistent`` (one cooperative launch a reverse
+#: scan) and ``slstm_scan_bwd`` (the step route, T reverse step kernels) a
+#: call each; B1 counts
 #: ``tamper_check_sums`` (f32 inputs) and ``tamper_check_sums_bf16`` (its
 #: bf16 route)
 LAUNCHES: Dict[str, int] = {"quant_dequant": 0, "quant_dequant_stats": 0,
@@ -151,7 +161,7 @@ LAUNCHES: Dict[str, int] = {"quant_dequant": 0, "quant_dequant_stats": 0,
                             "flash_attention_bwd": 0, "flash_attention_bwd_tc": 0,
                             "decode_attention": 0, "decode_attention_tc": 0,
                             "slstm_scan": 0, "slstm_scan_persistent": 0,
-                            "slstm_scan_bwd": 0}
+                            "slstm_scan_bwd": 0, "slstm_scan_bwd_persistent": 0}
 
 
 def reset_launches() -> None:

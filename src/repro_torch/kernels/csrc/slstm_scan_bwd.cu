@@ -35,11 +35,14 @@
 //
 // What bounds it on this card.  Operations, like the forward: the per-step
 // product is 2 B 4d dh f32 flops (33.5 MFLOP at the prefill shape T 512, B 4,
-// d 2,048, H 4; 17.2 GFLOP over T, 256 us at 67 TFLOP/s), against 84 MB of
-// dout, z, the state and dz.  But, as in the forward, step t - 1 needs all of
-// step t's dz, one grid-wide dependency a step.  This is the simple route:
-// one launch a step (as slstm_scan.cu runs the forward), R^T read through L2
-// every step (8.4 MB in bf16, a row of R a unit: R[j, k, :] is contiguous);
+// d 2,048, H 4; 17.2 GFLOP over T, 256 us at 67 TFLOP/s), against ~218 MB
+// read and written once (z, the state and dz 67.1 MB each in f32, dout and
+// R 8.4 MB each in bf16: 65 us at 3.35 TB/s).  But, as in the forward, step
+// t - 1 needs all of step t's dz, one grid-wide dependency a step.  This is
+// the step route: one launch a step (as slstm_scan.cu runs the forward), R^T
+// read through L2 every step (8.4 MB in bf16, a row of R a unit: R[j, k, :]
+// is contiguous); slstm_scan_bwd_persistent.cu runs the same scan as one
+// cooperative launch and takes every shape its plan fits;
 //
 //   * a block owns kUnits = 16 units of up to 4 batch rows (grid (d / 16,
 //     B / 4), both masked); warp w takes unit u0 + w: its lanes walk e over
@@ -128,13 +131,8 @@ slstm_bwd_step_kernel(const T* __restrict__ dout_t, const T* __restrict__ r,
   const int64_t bd = static_cast<int64_t>(b) * d;
   const int64_t s = row * d + unit;
   const float* zr = z_t + row * d4 + unit;
-  const float li = zr[0];
-  const float lf_raw = zr[d];
-  const float zz = zr[2 * static_cast<int64_t>(d)];
-  const float oo = zr[3 * static_cast<int64_t>(d)];
-  const float c_t = s_t[plane + s];
-  const float n_t = s_t[2 * plane + s];
-  const float m_t = s_t[3 * plane + s];
+  const float zv[4] = {zr[0], zr[d], zr[2 * static_cast<int64_t>(d)],
+                       zr[3 * static_cast<int64_t>(d)]};
   float c_p = 0.f, n_p = 0.f, m_p = slstm::kMInit;
   if (!first) {
     c_p = s_prev[plane + s];
@@ -148,37 +146,18 @@ slstm_bwd_step_kernel(const T* __restrict__ dout_t, const T* __restrict__ r,
     dm = carry[2 * bd + s];
     g_h += red[i][ul];
   }
-
-  const float lf = slstm::log_sigmoid(lf_raw);
-  const float tz = tanhf(zz);
-  const float so = slstm::sigmoid(oo);
-  const float a = lf + m_p;
-  const float ig = expf(li - m_t);
-  const float fg = expf(a - m_t);
-  const float q = fmaxf(n_t, 1.f);
-  const float p = so * c_t;
-  const float dp = g_h / q;
-  const float dq = -g_h * p / (q * q);
-  const float dct = dc + dp * so;
-  const float dnt = dn + (n_t >= 1.f ? dq : 0.f);
-  const float doo = dp * c_t * so * (1.f - so);
-  const float df = dct * c_p + dnt * n_p;
-  const float di = dct * tz + dnt;
-  const float dzz = dct * ig * (1.f - tz * tz);
-  const float de_i = di * ig;
-  const float de_f = df * fg;
-  const float dmt = dm - de_i - de_f;
-  const float to_a = a < li ? 0.f : (a == li ? 0.5f * dmt : dmt);
-  const float to_li = li < a ? 0.f : (a == li ? 0.5f * dmt : dmt);
-  const float da = de_f + to_a;
+  float dz[4];
+  slstm::gate_apply(slstm::gate_prep(zv, s_t[plane + s], s_t[2 * plane + s],
+                                     s_t[3 * plane + s], c_p, n_p, m_p),
+                    g_h, dc, dn, dm, dz);
   float* dzr = dz_t + row * d4 + unit;
-  dzr[0] = de_i + to_li;
-  dzr[d] = da * slstm::sigmoid(-lf_raw);
-  dzr[2 * static_cast<int64_t>(d)] = dzz;
-  dzr[3 * static_cast<int64_t>(d)] = doo;
-  carry[s] = dct * fg;
-  carry[bd + s] = dnt * fg;
-  carry[2 * bd + s] = da;
+  dzr[0] = dz[0];
+  dzr[d] = dz[1];
+  dzr[2 * static_cast<int64_t>(d)] = dz[2];
+  dzr[3 * static_cast<int64_t>(d)] = dz[3];
+  carry[s] = dc;
+  carry[bd + s] = dn;
+  carry[2 * bd + s] = dm;
 }
 
 template <typename T>

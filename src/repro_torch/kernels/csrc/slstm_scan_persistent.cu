@@ -71,10 +71,16 @@
 #include <stdint.h>
 
 #include "grid_sync.cuh"
+#include "persistent_scan.cuh"
 #include "slstm_gates.cuh"
 
 namespace {
 
+using scan::cp_async16;
+using scan::cp_async_wait_all;
+using scan::Quad;
+using scan::reduce_scatter;
+using scan::widen;
 using slstm::from_f32;
 using slstm::to_f32;
 
@@ -84,30 +90,6 @@ constexpr int kGroupUnits = 4;                   // units of a column group
 constexpr int kMaxRows = 8;                      // batch rows: one or two groups of 4
 constexpr int kMaxSmem = 232448;                 // shared memory a block may use (227 KB)
 
-// R's four consecutive entries of one k: float4 in f32, 4 x bf16 in bf16
-template <typename T> struct Quad;
-template <> struct Quad<float> { using type = float4; };
-template <> struct Quad<__nv_bfloat16> { using type = uint2; };
-
-__device__ __forceinline__ void widen(const float4 v, float (&w)[4]) {
-  w[0] = v.x;
-  w[1] = v.y;
-  w[2] = v.z;
-  w[3] = v.w;
-}
-
-__device__ __forceinline__ void widen(const uint2 v, float (&w)[4]) {
-  w[0] = __uint_as_float(v.x << 16);
-  w[1] = __uint_as_float(v.x & 0xffff0000u);
-  w[2] = __uint_as_float(v.y << 16);
-  w[3] = __uint_as_float(v.y & 0xffff0000u);
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
-}
-
 // cp.async of one quad of T (8 or 16 bytes), zeros where !in
 template <typename T>
 __device__ __forceinline__ void cp_async_quad(T* dst, const T* src, bool in) {
@@ -115,33 +97,6 @@ __device__ __forceinline__ void cp_async_quad(T* dst, const T* src, bool in) {
   const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(s), "l"(src),
                "n"(kBytes), "r"(in ? kBytes : 0) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
-}
-
-// The warp's kN sums (kN = 16 or 32, each split over the 32 lanes) reduced
-// in a fixed butterfly that halves the values a lane carries each round
-// (kCount of them, exchanged with lane ^ kOff): lane l ends with the whole
-// sum of value l / (32 / kN) (lane pairs alike at kN = 16).
-template <int kN, int kCount = kN, int kOff = 16>
-__device__ __forceinline__ float reduce_scatter(float (&v)[kN], int lane) {
-  if constexpr (kOff == 0) {
-    return v[0];
-  } else if constexpr (kCount > 1) {
-    const bool upper = (lane & kOff) != 0;
-#pragma unroll
-    for (int i = 0; i < kCount / 2; ++i) {
-      const float send = upper ? v[i] : v[i + kCount / 2];
-      const float keep = upper ? v[i + kCount / 2] : v[i];
-      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, kOff);
-    }
-    return reduce_scatter<kN, kCount / 2, kOff / 2>(v, lane);
-  } else {
-    v[0] += __shfl_xor_sync(0xffffffffu, v[0], kOff);
-    return reduce_scatter<kN, 1, kOff / 2>(v, lane);
-  }
 }
 
 // R's slice held as S, h, the activated gates, and pre of two steps

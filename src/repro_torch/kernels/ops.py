@@ -159,7 +159,9 @@ def slstm_scan(pre: torch.Tensor, r: torch.Tensor, n_heads: int) -> torch.Tensor
     differentiates; a CUDA tensor the kernels (by
     ``slstm_scan.slstm_route``), and one that needs a gradient goes through
     ``SlstmScan``: the forward kernel saves its state, the backward runs the
-    reverse-scan kernel (``csrc/slstm_scan_bwd.cu``) and the dR product."""
+    reverse-scan kernel (by ``slstm_scan.slstm_bwd_route``:
+    ``csrc/slstm_scan_bwd_persistent.cu`` or the step route
+    ``csrc/slstm_scan_bwd.cu``) and the dR product."""
     if pre.device.type == "cpu":
         return _ss.slstm_scan_plain(pre, r, n_heads)
     pre, r = pre.contiguous(), r.contiguous()

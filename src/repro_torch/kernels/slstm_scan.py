@@ -38,8 +38,12 @@ versions here follow the math.
 **The backward** (no TPU counterpart: the reference trains by XLA autodiff
 of its scan).  With ``save=True`` both kernels also write each step's f32
 z = pre + rec (T, B, 4d) and its f32 state h, c, n, m (4, T, B, d);
-:func:`slstm_scan_bwd` (``csrc/slstm_scan_bwd.cu``, one launch a reverse
-step) runs the reverse-time scan from them into dz (T, B, 4d) f32, and
+:func:`slstm_scan_bwd` runs the reverse-time scan from them into dz (T,
+B, 4d) f32 by the route :func:`slstm_bwd_route` picks: ``persistent``
+(``csrc/slstm_scan_bwd_persistent.cu``: one cooperative launch a reverse
+scan, each block's rows of R and its carry on chip, dz exchanged through
+L2 behind one grid barrier a step) where :func:`persistent_bwd_plan` fits,
+else ``step`` (``csrc/slstm_scan_bwd.cu``, one launch a reverse step);
 :func:`slstm_scan_bwd_plain` is the same recurrence in PyTorch.  dpre is dz
 cast to pre's dtype; dR is one batched product over the T B rows after the
 scan (:func:`recurrent_weight_grad`).  :class:`SlstmScan` wires them into
@@ -49,8 +53,9 @@ the kernels on the card, the plain versions in the CPU tests.
 ``kernels/ops.py`` picks between them by the tensor's device.  The launcher
 counts one launch a scan call in ``build.LAUNCHES`` by route:
 ``slstm_scan_persistent`` for the persistent kernel, ``slstm_scan`` for the
-step kernel (T launches behind one call), ``slstm_scan_bwd`` for the
-backward (T launches behind one call).
+step kernel (T launches behind one call); the backward's
+``slstm_scan_bwd_persistent`` and ``slstm_scan_bwd`` (its step route, T
+launches behind one call) alike.
 """
 from __future__ import annotations
 
@@ -80,6 +85,9 @@ PERSISTENT, STEP = "persistent", "step"
 PERSISTENT_THREADS, GROUP_UNITS, MAX_ROWS, MAX_SMEM = 512, 4, 8, 232448
 _PERSISTENT_CONSTANTS = {"kThreads": PERSISTENT_THREADS, "kGroupUnits": GROUP_UNITS,
                          "kMaxRows": MAX_ROWS, "kMaxSmem": MAX_SMEM}
+#: the same four of csrc/slstm_scan_bwd_persistent.cu (its group of 4
+#: units is one head's, a warp's work with one range of e)
+_BWD_PERSISTENT_CONSTANTS = dict(_PERSISTENT_CONSTANTS)
 
 
 def recurrent(h: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
@@ -269,18 +277,15 @@ def persistent_smem(d: int, dh: int, units: int, rows: int, elt: int, r_elt: int
             + 2 * 4 * units * rows * elt)
 
 
-def persistent_plan(b: int, d: int, n_heads: int, elt: int, sms: int, smem: int = MAX_SMEM
-                    ) -> Optional[Tuple[int, int, int, int]]:
-    """(units a block, blocks, shared memory bytes, bytes of an R entry in
-    shared memory) of the persistent kernel on a card of ``sms`` SMs with
-    ``smem`` bytes of shared memory a block, or None where it cannot run:
-    the fewest units a block (a multiple of :data:`GROUP_UNITS`) that put
-    one block on an SM at most, so that the cooperative grid is
-    co-resident; R held in f32 where that fits (a bf16 R is then widened
-    once, not every step), else in its own dtype; refused past
-    :data:`MAX_ROWS` rows, where dh % 4 != 0 (a column group would straddle
-    two heads), where a block's (unit, row) pairs outnumber its threads, or
-    where R's slice and h exceed the block's shared memory."""
+def _plan(b: int, d: int, n_heads: int, elt: int, sms: int, smem: int, need
+          ) -> Optional[Tuple[int, int, int, int]]:
+    """What both persistent kernels' plans share: the fewest units a block (a
+    multiple of :data:`GROUP_UNITS`) that put one block on an SM at most, so
+    that the cooperative grid is co-resident; R held in f32 where ``need(dh,
+    units, rows, r_elt)`` bytes fit ``smem`` (a bf16 R is then widened once,
+    not every step), else in its own dtype; refused past :data:`MAX_ROWS`
+    rows, where dh % 4 != 0 (a group of 4 units would straddle two heads) or
+    where a block's (unit, row) pairs outnumber its threads."""
     dh = d // n_heads
     if b > MAX_ROWS or dh % GROUP_UNITS or sms < 1:
         return None
@@ -289,10 +294,53 @@ def persistent_plan(b: int, d: int, n_heads: int, elt: int, sms: int, smem: int 
     if units * rows > PERSISTENT_THREADS:
         return None
     for r_elt in dict.fromkeys((4, elt)):
-        need = persistent_smem(d, dh, units, rows, elt, r_elt)
-        if need <= smem:
-            return units, -(-d // units), need, r_elt
+        size = need(dh, units, rows, r_elt)
+        if size <= smem:
+            return units, -(-d // units), size, r_elt
     return None
+
+
+def persistent_plan(b: int, d: int, n_heads: int, elt: int, sms: int, smem: int = MAX_SMEM
+                    ) -> Optional[Tuple[int, int, int, int]]:
+    """(units a block, blocks, shared memory bytes, bytes of an R entry in
+    shared memory) of the persistent kernel on a card of ``sms`` SMs with
+    ``smem`` bytes of shared memory a block, or None where it cannot run
+    (:func:`_plan`), or where R's slice and h exceed the block's shared
+    memory (:func:`persistent_smem`)."""
+    return _plan(b, d, n_heads, elt, sms, smem, lambda dh, units, rows, r_elt:
+                 persistent_smem(d, dh, units, rows, elt, r_elt))
+
+
+def persistent_bwd_span(d: int, dh: int, units: int) -> int:
+    """The most heads a block of the persistent backward spans: its units
+    [u0, u0 + units) need dz's 4dh columns of each head they fall in (two
+    where dh % units != 0 puts a head boundary inside a block)."""
+    return max((min(u0 + units, d) - 1) // dh - u0 // dh + 1 for u0 in range(0, d, units))
+
+
+def persistent_bwd_smem(dh: int, units: int, rows: int, span: int, r_elt: int) -> int:
+    """Shared memory of a persistent backward block that owns ``units``
+    units: their rows of R (units x 4dh entries of ``r_elt`` bytes), dz of
+    the ``span`` heads they fall in (rows x 4dh f32 a head), the warps' sums
+    (a group of 4 units and one of 16 / groups ranges of e a warp, rows x 4
+    sums each), and each (row, unit)'s inputs of two steps (z and the state
+    c, n, m: 7 f32)."""
+    groups = units // GROUP_UNITS
+    splits = max(1, PERSISTENT_THREADS // 32 // groups)
+    return (units * 4 * dh * r_elt + span * rows * 4 * dh * 4
+            + groups * splits * rows * GROUP_UNITS * 4 + 2 * 7 * units * rows * 4)
+
+
+def persistent_bwd_plan(b: int, d: int, n_heads: int, elt: int, sms: int,
+                        smem: int = MAX_SMEM) -> Optional[Tuple[int, int, int, int]]:
+    """(units a block, blocks, shared memory bytes, bytes of an R entry in
+    shared memory) of the persistent backward on a card of ``sms`` SMs with
+    ``smem`` bytes of shared memory a block, or None where it cannot run:
+    the forward's grid (:func:`_plan`), refused where R's rows and dz's
+    slice exceed the block's shared memory (:func:`persistent_bwd_smem`)."""
+    return _plan(b, d, n_heads, elt, sms, smem, lambda dh, units, rows, r_elt:
+                 persistent_bwd_smem(dh, units, rows, persistent_bwd_span(d, dh, units),
+                                     r_elt))
 
 
 def slstm_route(pre: torch.Tensor, r: torch.Tensor) -> str:
@@ -307,6 +355,19 @@ def slstm_route(pre: torch.Tensor, r: torch.Tensor) -> str:
     plan = persistent_plan(b, d, n_heads, pre.element_size(), sms, smem)
     aligned = r.data_ptr() % 16 == 0 and pre.data_ptr() % 16 == 0
     return PERSISTENT if plan is not None and aligned else STEP
+
+
+def slstm_bwd_route(dout: torch.Tensor, r: torch.Tensor) -> str:
+    """The backward's route for these tensors: :data:`PERSISTENT` where the
+    persistent backward's grid fits the card (:func:`persistent_bwd_plan`
+    with the device's SM count and shared memory) and r's base is 16-byte
+    aligned (its rows are read as quads), else :data:`STEP`."""
+    from .build import device_limits
+    n_heads = r.shape[0]
+    _, b, d = dout.shape
+    sms, smem = device_limits(dout.device.index)
+    plan = persistent_bwd_plan(b, d, n_heads, dout.element_size(), sms, smem)
+    return PERSISTENT if plan is not None and r.data_ptr() % 16 == 0 else STEP
 
 
 def _check_card(*tensors: torch.Tensor) -> None:
@@ -379,30 +440,52 @@ def slstm_scan_saving(pre: torch.Tensor, r: torch.Tensor, n_heads: int):
 
 
 def slstm_scan_bwd(dout: torch.Tensor, r: torch.Tensor, z: torch.Tensor,
-                   state: torch.Tensor, n_heads: int) -> torch.Tensor:
-    """Launch the reverse-time scan (``csrc/slstm_scan_bwd.cu``, T step
-    kernels on the current stream): dout (T, B, d) and r (H, dh, 4dh) in
-    one dtype (f32 or bf16), the forward's saves z (T, B, 4d) and state (4,
-    T, B, d) f32 -> dz (T, B, 4d) f32.  Any (T, B, d, H) the forward takes;
-    anything else raises, as does a launch that fails."""
-    from .build import load, record_launch
+                   state: torch.Tensor, n_heads: int, *, route: Optional[str] = None
+                   ) -> torch.Tensor:
+    """Launch the reverse-time scan on the current stream by
+    :func:`slstm_bwd_route` (``route=STEP`` forces the step kernel, to time
+    it beside the other): dout (T, B, d) and r (H, dh, 4dh) in one dtype
+    (f32 or bf16), the forward's saves z (T, B, 4d) and state (4, T, B, d)
+    f32 -> dz (T, B, 4d) f32.  Any (T, B, d, H) the forward takes; anything
+    else raises, as do an unknown route, a launch that fails and a grid that
+    does not fit the card."""
+    from .build import check_constants, device_limits, load, record_launch
+    if route not in (None, PERSISTENT, STEP):
+        raise ValueError(f"slstm_scan_bwd: unknown route {route!r}")
     _check_card(dout, r, z, state)
     _check_dtypes(dout, r)
     t, b, d = check_saved(dout, r, z, state, n_heads)
     if t == 0 or b == 0:
         raise ValueError(f"slstm_scan_bwd takes T, B >= 1; got T {t}, B {b}")
+    chosen = slstm_bwd_route(dout, r)
+    if route not in (None, chosen, STEP):
+        raise ValueError(f"route {route!r}: these tensors take {chosen!r} or {STEP!r}")
     dz = torch.empty((t, b, 4 * d), dtype=torch.float32, device=z.device)
+    stream = torch.cuda.current_stream(z.device).cuda_stream
+    if (route or chosen) == PERSISTENT:
+        lib = load("slstm_scan_bwd_persistent")
+        check_constants("slstm_scan_bwd_persistent", _BWD_PERSISTENT_CONSTANTS)
+        units, _, _, r_elt = persistent_bwd_plan(b, d, n_heads, dout.element_size(),
+                                                 *device_limits(z.device.index))
+        arrived = torch.empty((1,), dtype=torch.int32, device=z.device)   # the barrier's
+        err = lib.repro_slstm_scan_bwd_persistent(
+            dout.data_ptr(), r.data_ptr(), z.data_ptr(), state.data_ptr(), dz.data_ptr(),
+            arrived.data_ptr(), t, b, d, n_heads, units, int(r_elt > dout.element_size()),
+            DTYPE_CODES[dout.dtype], stream)
+        record_launch(err, "slstm_scan_bwd_persistent")
+        return dz
     carry = torch.empty((3, b, d), dtype=torch.float32, device=z.device)   # dc, dn, dm
     err = load("slstm_scan_bwd").repro_slstm_scan_bwd(
         dout.data_ptr(), r.data_ptr(), z.data_ptr(), state.data_ptr(), dz.data_ptr(),
-        carry.data_ptr(), t, b, d, n_heads, DTYPE_CODES[dout.dtype],
-        torch.cuda.current_stream(z.device).cuda_stream)
+        carry.data_ptr(), t, b, d, n_heads, DTYPE_CODES[dout.dtype], stream)
     record_launch(err, "slstm_scan_bwd")
     return dz
 
 
 __all__ = ["M_INIT", "MAX_D", "PERSISTENT", "STEP", "SlstmScan", "check_saved",
-           "check_shapes", "persistent_plan", "persistent_rows", "persistent_smem",
-           "recurrent", "recurrent_grad", "recurrent_weight_grad", "slstm_gates",
-           "slstm_route", "slstm_scan", "slstm_scan_bwd", "slstm_scan_bwd_plain",
-           "slstm_scan_plain", "slstm_scan_saving", "slstm_scan_saving_plain"]
+           "check_shapes", "persistent_bwd_plan", "persistent_bwd_smem",
+           "persistent_bwd_span", "persistent_plan", "persistent_rows", "persistent_smem",
+           "recurrent", "recurrent_grad", "recurrent_weight_grad",
+           "slstm_bwd_route", "slstm_gates", "slstm_route", "slstm_scan", "slstm_scan_bwd",
+           "slstm_scan_bwd_plain", "slstm_scan_plain", "slstm_scan_saving",
+           "slstm_scan_saving_plain"]

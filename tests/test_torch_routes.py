@@ -246,10 +246,11 @@ def test_tensor_core_numerics_stay_within_the_bf16_bound(case):
 
 
 def test_library_path_follows_the_included_headers(tmp_path, monkeypatch):
-    """Editing a header (sm90.cuh, xent_combine.cuh, slstm_gates.cuh) renames
-    the libraries of the sources that include it (the four tensor-core
-    sources include sm90.cuh, B7's two kernels slstm_gates.cuh), and only
-    theirs; nothing is compiled."""
+    """Editing a header (sm90.cuh, xent_combine.cuh, slstm_gates.cuh,
+    grid_sync.cuh, persistent_scan.cuh) renames the libraries of the sources
+    that include it (the four tensor-core sources include sm90.cuh, B7's
+    four kernels slstm_gates.cuh, its two persistent ones persistent_scan.cuh),
+    and only theirs; nothing is compiled."""
     monkeypatch.setattr(tbuild, "_nvcc", lambda: pytest.fail("nvcc was called"))
     csrc = tmp_path / "csrc"
     shutil.copytree(tbuild.CSRC, csrc)
@@ -270,12 +271,17 @@ def test_library_path_follows_the_included_headers(tmp_path, monkeypatch):
         f.write("\n// edited\n")
     gates = {name: tbuild.library_path(name, csrc) for name in tbuild.SOURCES}
     assert {name for name in tbuild.SOURCES if gates[name] != again[name]} == {
-        "slstm_scan", "slstm_scan_persistent", "slstm_scan_bwd"}
+        "slstm_scan", "slstm_scan_persistent", "slstm_scan_bwd", "slstm_scan_bwd_persistent"}
     with open(csrc / "grid_sync.cuh", "a") as f:
         f.write("\n// edited\n")
     synced = {name: tbuild.library_path(name, csrc) for name in tbuild.SOURCES}
     assert {name for name in tbuild.SOURCES if synced[name] != gates[name]} == {
-        "quant_exchange", "slstm_scan_persistent"}
+        "quant_exchange", "slstm_scan_persistent", "slstm_scan_bwd_persistent"}
+    with open(csrc / "persistent_scan.cuh", "a") as f:
+        f.write("\n// edited\n")
+    shared = {name: tbuild.library_path(name, csrc) for name in tbuild.SOURCES}
+    assert {name for name in tbuild.SOURCES if shared[name] != synced[name]} == {
+        "slstm_scan_persistent", "slstm_scan_bwd_persistent"}
     with open(csrc / "flash_attention.cu", "a") as f:
         f.write("\n// edited\n")
     assert tbuild.library_path("flash_attention", csrc) != before["flash_attention"]

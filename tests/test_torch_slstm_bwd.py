@@ -1,7 +1,9 @@
-"""B7's backward on the CPU: the reverse-time scan the kernel
-(``csrc/slstm_scan_bwd.cu``) computes, as its plain version
-``slstm_scan_bwd_plain``, and ``SlstmScan``'s wiring (the saving forward,
-the reverse scan, the dR product and the casts) run with the plain callees.
+"""B7's backward on the CPU: the reverse-time scan the kernels
+(``csrc/slstm_scan_bwd_persistent.cu`` and the step route
+``csrc/slstm_scan_bwd.cu``) compute, as their plain version
+``slstm_scan_bwd_plain``, ``SlstmScan``'s wiring (the saving forward, the
+reverse scan, the dR product and the casts) run with the plain callees, and
+the launcher's refusals on both routes.
 
 Tolerances: dpre and dR within atol 1e-5 of torch autograd of
 ``slstm_scan_plain`` and of ``jax.grad`` of ``ref.slstm_scan_reference``
@@ -224,6 +226,31 @@ def test_backward_launcher_refuses_what_it_does_not_take():
         tss.check_saved(dout, r, z, state[:3], h)
     with pytest.raises(ValueError, match="f32"):
         tss.check_saved(dout, r, z.double(), state, h)
+
+
+def _saves(device):
+    t, b, d, h = 4, 2, 16, 2
+    return (torch.zeros((t, b, d), device=device), torch.zeros((h, d // h, 4 * d // h),
+                                                               device=device),
+            torch.zeros((t, b, 4 * d), device=device), torch.zeros((4, t, b, d), device=device),
+            h)
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+@pytest.mark.parametrize("route", [None, tss.PERSISTENT, tss.STEP])
+def test_backward_launcher_refuses_a_tensor_off_the_card_on_each_route(route, device):
+    """A CPU or meta tensor raises before any build (the fixture refuses
+    ``build.load``), whatever the route asked for, and counts no launch."""
+    tbuild.reset_launches()
+    with pytest.raises(ValueError, match="CUDA"):
+        tss.slstm_scan_bwd(*_saves(device), route=route)
+    assert not any(tbuild.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("route", ["fast", "PERSISTENT", ""])
+def test_backward_launcher_refuses_an_unknown_route(route):
+    with pytest.raises(ValueError, match="unknown route"):
+        tss.slstm_scan_bwd(*_saves("cpu"), route=route)
 
 
 def test_ops_sends_a_gradient_through_the_function_off_the_cpu(monkeypatch):

@@ -1,4 +1,4 @@
-"""B7's routes and the persistent kernel's partition, on the CPU.
+"""B7's routes and the persistent kernels' partitions, on the CPU.
 
   * ``slstm_route``: the xLSTM-1.3B prefill shapes (T 512 and 2,048, B 4, d
     2,048, H 4, bf16 and the f32 check's f32), the smoke config's and
@@ -18,11 +18,24 @@
     ``slstm_scan_plain``, ``repro.kernels.ref.slstm_scan_reference`` and the
     Pallas kernel in interpret mode, T <= 40, d <= 96, H 1, 2 and 4, in f32,
     within 1e-5; every gate column is computed by exactly one warp.
+  * The backward's ``slstm_bwd_route`` and ``persistent_bwd_plan``: the
+    route ``chip_smoke``'s ``SLSTM_BWD_ROUTES`` names at every phase-1
+    shape, xLSTM-1.3B's train shape (bf16, the f32 unit's f32, a stacked
+    slot's r), a misaligned r; one block an SM, the heads a block spans
+    counted in its dz slice (blocks straddling two heads; a shape whose
+    forward fits and whose backward's dz slice does not); its constants.
+  * A CPU model of the persistent backward (blocks of ``units`` units, a
+    group of 4 units and one range of e a warp, lane l summing 4 e's at
+    c = lo + l + 32 j, the reduce-scatter butterfly, the ranges added in
+    order, the carry per (row, unit)) against ``slstm_scan_bwd_plain`` and
+    ``jax.grad`` of the reference, within 1e-5; every unit's recurrent
+    share computed by exactly one warp group.
 """
 import importlib.util
 import re
 from pathlib import Path
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -268,3 +281,225 @@ def test_butterfly_sums_every_lane_once():
         partial = (np.float64(2.0) ** np.arange(32))[:, None] * (1 + np.arange(n))[None, :]
         got = _butterfly(partial)
         np.testing.assert_array_equal(got, (2.0 ** 32 - 1) * (1 + np.arange(n)))
+
+
+# ---------------------------------------------------------------------------
+# the backward's route and the persistent backward's plan
+# ---------------------------------------------------------------------------
+
+def _meta_bwd(shape, dtype):
+    t, b, d, h = shape
+    dout = torch.empty((t, b, d), dtype=dtype, device="meta")
+    return dout, _meta(shape, dtype)[1]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", CS.SLSTM_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_slstm_bwd_route_of_phase_1_shapes(shape, dtype):
+    want = CS.SLSTM_BWD_ROUTES[shape][dtype == torch.bfloat16]
+    assert tss.slstm_bwd_route(*_meta_bwd(shape, dtype)) == want
+
+
+# xLSTM-1.3B trained (phase 10: 4 x 512 in bf16; the f32 unit) and the
+# timed long shape
+BWD_PATH_ROUTES = {"train_bf16": ((512, 4, 2048, 4), torch.bfloat16, tss.PERSISTENT),
+                   "train_f32_unit": ((512, 4, 2048, 4), torch.float32, tss.PERSISTENT),
+                   "smoke_f32": ((16, 4, 256, 4), torch.float32, tss.PERSISTENT),
+                   "timed_long_bf16": (CS.SLSTM_LONG, torch.bfloat16, tss.PERSISTENT)}
+
+
+@pytest.mark.parametrize("case", sorted(BWD_PATH_ROUTES))
+def test_slstm_bwd_route_of_the_main_paths(case):
+    shape, dtype, want = BWD_PATH_ROUTES[case]
+    assert tss.slstm_bwd_route(*_meta_bwd(shape, dtype)) == want
+
+
+def test_slstm_bwd_route_of_a_stacked_slot():
+    """The cluster-stacked xLSTM runs B7 a slot on r[i], a view into the
+    stacked (n, H, dh, 4dh) parameter at the train shape: its base stays
+    16-byte aligned, so every slot takes the persistent backward."""
+    dout = torch.empty((512, 4, 2048), dtype=torch.bfloat16, device="meta")
+    stacked = torch.empty((2, 4, 512, 2048), dtype=torch.bfloat16)
+    for i in range(2):
+        assert stacked[i].is_contiguous() and stacked[i].data_ptr() % 16 == 0
+        assert tss.slstm_bwd_route(dout, stacked[i]) == tss.PERSISTENT
+
+
+def test_slstm_bwd_route_of_a_misaligned_r():
+    dout = torch.zeros((4, 2, 80))
+    flat = torch.zeros(2 * 40 * 160 + 4)
+    off = next(i for i in range(1, 4) if (flat.data_ptr() + 4 * i) % 16)
+    r = flat[off:off + 2 * 40 * 160].view(2, 40, 160)
+    assert tss.slstm_bwd_route(dout, r) == tss.STEP
+    assert tss.slstm_bwd_route(dout, r.clone()) == tss.PERSISTENT
+
+
+@pytest.mark.parametrize("b,d,h,elt", [(4, 2048, 4, 2), (4, 2048, 4, 4), (4, 2048, 2, 2),
+                                       (5, 96, 2, 4), (2, 612, 3, 4), (8, 4096, 8, 2),
+                                       (3, 80, 2, 2), (4, 1536, 1, 2)])
+@pytest.mark.parametrize("sms", [132, 114, 7])
+def test_persistent_bwd_plan_fits_one_block_an_sm(b, d, h, elt, sms):
+    plan = tss.persistent_bwd_plan(b, d, h, elt, sms, H100[1])
+    if plan is None:
+        return
+    units, blocks, smem, r_elt = plan
+    rows, dh = tss.persistent_rows(b), d // h
+    assert (units, blocks) == tss.persistent_plan(b, d, h, elt, sms, 10 ** 9)[:2]
+    assert units % tss.GROUP_UNITS == 0 and units * rows <= tss.PERSISTENT_THREADS
+    assert blocks <= sms and (blocks - 1) * units < d <= blocks * units
+    span = tss.persistent_bwd_span(d, dh, units)
+    assert smem == tss.persistent_bwd_smem(dh, units, rows, span, r_elt) <= H100[1]
+    # R in f32 wherever that fits
+    assert r_elt == 4 or tss.persistent_bwd_smem(dh, units, rows, span, 4) > H100[1]
+
+
+def test_persistent_bwd_plan_counts_the_heads_a_block_spans():
+    """(24, 2, 612, 3): dh 204, blocks of 8 units, so the block of units
+    200-207 straddles heads 0 and 1 and holds both heads' dz (2 x 4 rows x
+    816 f32); at (4, 1536, 1) bf16 the forward fits but the backward's dz
+    slice (4 rows x 6,144 f32, 96 KB) does not fit beside R's rows."""
+    assert tss.persistent_bwd_span(612, 204, 8) == 2
+    assert tss.persistent_bwd_span(2048, 512, 16) == 1
+    assert tss.persistent_bwd_span(40, 20, 12) == 2
+    units, blocks, smem, r_elt = tss.persistent_bwd_plan(2, 612, 3, 4, 132)
+    assert (units, blocks, r_elt) == (8, 77, 4)
+    assert smem == 8 * 816 * 4 + 2 * 4 * 816 * 4 + 2 * 8 * 16 * 4 + 2 * 7 * 8 * 4 * 4
+    assert tss.persistent_plan(4, 1536, 1, 2, 132) is not None
+    assert tss.persistent_bwd_plan(4, 1536, 1, 2, 132) is None
+    rows_of_r, dz_slice = 12 * 4 * 1536 * 2, 4 * 4 * 1536 * 4
+    assert rows_of_r <= H100[1] < rows_of_r + dz_slice             # the slice decides
+    # the prefill shape: R's rows in f32 (128 KB) beside dz's 32 KB
+    assert tss.persistent_bwd_plan(4, 2048, 4, 2, 132) == (16, 128, 168448, 4)
+    assert tss.persistent_bwd_plan(4, 2048, 2, 2, 132)[3] == 2     # H 2: R kept in bf16
+    assert tss.persistent_bwd_plan(4, 2048, 2, 4, 132) is None
+    assert tss.persistent_bwd_plan(4, 2048, 1, 2, 132) is None
+    assert tss.persistent_bwd_plan(9, 256, 4, 4, 132) is None
+    assert tss.persistent_bwd_plan(2, 90, 3, 4, 132) is None
+
+
+def test_persistent_bwd_constants_equal_the_source():
+    text = (tbuild.CSRC / "slstm_scan_bwd_persistent.cu").read_text()
+    for const, value in tss._BWD_PERSISTENT_CONSTANTS.items():
+        assert re.findall(rf"constexpr int {const} = (\d+);", text) == [str(value)], const
+
+
+# ---------------------------------------------------------------------------
+# a CPU model of the persistent backward
+# ---------------------------------------------------------------------------
+
+def _gate_bwd(z, st, prev, g_h, carry):
+    """One reverse step of every (row, unit) in f32 numpy, as
+    slstm_gates.cuh's gate_prep and gate_apply compute it: z (4, B, d), the state (c,
+    n, m) at t and at t - 1, g_h (B, d), the carry (dc, dn, dm) -> (dz (4,
+    B, d), the carry of step t)."""
+    one = np.float32(1)
+    li, lf_raw, zz, oo = z
+    _, c_t, n_t, m_t = st
+    c_p, n_p, m_p = prev
+    dc, dn, dm = carry
+    lf = np.minimum(lf_raw, 0).astype(np.float32) - np.log1p(np.exp(-np.abs(lf_raw)))
+    tz, so = np.tanh(zz), one / (one + np.exp(-oo))
+    a = lf + m_p
+    ig, fg = np.exp(li - m_t), np.exp(a - m_t)
+    q = np.maximum(n_t, one)
+    dp = g_h / q
+    dq = -g_h * (so * c_t) / (q * q)
+    dct = dc + dp * so
+    dnt = dn + np.where(n_t >= one, dq, 0)
+    doo = dp * c_t * so * (one - so)
+    df = dct * c_p + dnt * n_p
+    di = dct * tz + dnt
+    dzz = dct * ig * (one - tz * tz)
+    de_i, de_f = di * ig, df * fg
+    dmt = dm - de_i - de_f
+    to_a = np.where(a < li, 0, np.where(a == li, np.float32(0.5) * dmt, dmt))
+    to_li = np.where(li < a, 0, np.where(a == li, np.float32(0.5) * dmt, dmt))
+    da = de_f + to_a
+    dz = np.stack([de_i + to_li, da / (one + np.exp(lf_raw)), dzz, doo]).astype(np.float32)
+    return dz, tuple(x.astype(np.float32) for x in (dct * fg, dnt * fg, da))
+
+
+def persistent_bwd_model(dout, r, z, state, n_heads, sms):
+    """What slstm_bwd_persistent_kernel computes, block by block and warp by
+    warp, in f32 numpy: dout (T, B, d), r (H, dh, 4dh), the forward's saves
+    z (T, B, 4d) and state (4, T, B, d) -> dz (T, B, 4d)."""
+    t_len, b, d = dout.shape
+    dh = d // n_heads
+    e4 = 4 * dh
+    units, blocks, _, _ = tss.persistent_bwd_plan(b, d, n_heads, 4, sms)
+    span = tss.persistent_bwd_span(d, dh, units)
+    rows = tss.persistent_rows(b)
+    groups = units // tss.GROUP_UNITS
+    splits = max(1, 16 // groups)
+    chunk = -(-dh // splits)
+    lanes = np.arange(32)
+    dz = np.zeros((t_len, b, 4 * d), np.float32)
+    carry = tuple(np.zeros((b, d), np.float32) for _ in range(3))
+    start = (np.zeros((b, d), np.float32), np.zeros((b, d), np.float32),
+             np.full((b, d), tss.M_INIT, np.float32))
+    for t in reversed(range(t_len)):
+        rec = np.zeros((b, d), np.float32)
+        if t < t_len - 1:
+            seen = np.zeros(d, int)
+            for blk in range(blocks):
+                u0 = blk * units
+                h_lo = u0 // dh
+                for g in range(groups):
+                    uq = u0 + g * tss.GROUP_UNITS
+                    if uq >= d:
+                        continue
+                    head = uq // dh
+                    assert head - h_lo < span                # within the block's dz slice
+                    assert (uq + 3) // dh == head            # one head a group
+                    zs = np.zeros((rows, e4), np.float32)
+                    zs[:b] = dz[t + 1][:, head * e4:(head + 1) * e4]
+                    w = r[head][uq - head * dh + np.arange(4)]          # (4 units, 4dh)
+                    total = np.zeros(rows * 4, np.float32)
+                    for s in range(splits):
+                        lo, hi = s * chunk, min(dh, (s + 1) * chunk)
+                        partial = np.zeros((32, rows, 4), np.float32)
+                        for c0 in range(lo, hi, 32):                    # lane l: c = c0 + l
+                            cs = c0 + lanes
+                            live = cs < hi
+                            for qd in range(4):                         # the chunk's 4 e's
+                                e = 4 * np.where(live, cs, 0) + qd
+                                term = zs[:, e].T[:, :, None] * w[:, e].T[:, None, :]
+                                partial += np.where(live[:, None, None], term, 0)
+                        total = total + _butterfly(partial.reshape(32, rows * 4))
+                    rec[:, uq:uq + 4] = total.reshape(rows, 4)[:b]
+                    seen[uq:uq + 4] += 1
+            assert (seen == 1).all()
+        g_h = dout[t] + rec
+        prev = tuple(state[1:, t - 1]) if t else start
+        dzt, carry = _gate_bwd(z[t].reshape(b, 4, d).transpose(1, 0, 2), state[:, t], prev,
+                               g_h, carry)
+        dz[t] = dzt.transpose(1, 0, 2).reshape(b, 4 * d)
+    return dz
+
+
+# (T, B, d, H, the stand-in's SMs): blocks straddling two heads (dh 24 in
+# blocks of 16; dh 20 in blocks of 12, a dead last group), 8 rows (B 5) with
+# 3 groups a block (5 ranges of e), one group a block (16 ranges), B 1, T 1
+BWD_MODEL_CASES = {"h4_b3_straddle": (12, 3, 96, 4, 7), "h2_b5_ragged": (10, 5, 80, 2, 9),
+                   "h1_b2": (8, 2, 64, 1, 132), "h2_b4_straddle_dead": (9, 4, 40, 2, 4),
+                   "h4_b1": (6, 1, 32, 4, 132), "t1": (1, 2, 32, 2, 132)}
+
+
+@pytest.mark.parametrize("case", sorted(BWD_MODEL_CASES))
+def test_persistent_bwd_model_matches_plain_and_reference(case):
+    t, b, d, h, sms = BWD_MODEL_CASES[case]
+    pre, r = _model_inputs(t, b, d, h, seed=100 + len(case))
+    w = np.random.default_rng(len(case)).normal(size=(t, b, d)).astype(np.float32)
+    tp, tr, tw = (torch.from_numpy(a) for a in (pre, r, w))
+    _, z, state = tss.slstm_scan_saving_plain(tp, tr, h)
+    got = persistent_bwd_model(w, r, z.numpy(), state.numpy(), h, sms)
+    plain = tss.slstm_scan_bwd_plain(tw, tr, z, state, h).numpy()
+    np.testing.assert_allclose(got, plain, atol=MODEL_ATOL, rtol=0)
+
+    def loss(p, rr):
+        return jnp.sum(ref.slstm_scan_reference(p, rr, n_heads=h) * w)
+
+    dpre, dr = jax.grad(loss, argnums=(0, 1))(jnp.asarray(pre), jnp.asarray(r))
+    np.testing.assert_allclose(got, np.asarray(dpre), atol=MODEL_ATOL, rtol=0)
+    got_dr = tss.recurrent_weight_grad(state[0], torch.from_numpy(got), h).numpy()
+    np.testing.assert_allclose(got_dr, np.asarray(dr), atol=MODEL_ATOL, rtol=0)
