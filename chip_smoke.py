@@ -48,7 +48,12 @@ from the repository root.  Phases, in order; any failure exits non-zero:
      time of PyTorch's ``scaled_dot_product_attention`` on the same inputs,
      eager and replayed (a yardstick the port never calls), also at two
      long-context shapes, the f32-FMA route timed beside the tensor-core
-     route; B4 (fused cross-entropy) forward
+     route; B5's non-causal mode (``causal=False``: only the window masks,
+     Sq may exceed Sk, a row with no live key takes the reference kernel's
+     value) on both forward routes, f32 and bf16, at ``NONCAUSAL_SHAPES``
+     (self, Sq < Sk, Sq > Sk, windows, dead rows), timed at (4, 512, 32/8,
+     128) beside SDPA's ``is_causal=False``, a call that needs its gradient
+     refused (Queue A item 10); B4 (fused cross-entropy) forward
      within atol 1e-5 (f32) and 3e-2 (bf16) of its plain version, loss and
      lse, on both routes wherever it takes the tensor cores (both timed),
      and its backward (dh, dW) and B5's
@@ -107,9 +112,9 @@ from the repository root.  Phases, in order; any failure exits non-zero:
      equal across its runs and its selections on both engines, seconds a
      round;
   2d. multi-round execution on the batched main path (2b's configuration,
-     T = 5, eval_every 5): block 1 and 4, each with prefetch 0 and 1, and a
-     repeat, under the main path's cuDNN (the same decisions; the losses'
-     spread and test_acc printed), then the four under deterministic cuDNN
+     T = 5, eval_every 5): block 1 and 4, each with prefetch 0 and 1, under
+     the main path's cuDNN (the same decisions; the losses' spread and
+     test_acc printed), then the four under deterministic cuDNN
      (decisions and test_acc equal, losses within rtol 1e-6); 800 B2, 800
      B3 and 5 B1 launches in each, ``RoundRunner.accept_block`` under
      sync-debug "error", one ``block.fetch`` span a block; seconds a round,
@@ -125,8 +130,7 @@ from the repository root.  Phases, in order; any failure exits non-zero:
      under ``run_pigeon``; ``sweep_block`` and ``pool_accept_block`` under
      sync-debug "error"; 160 B2 and B3 a round, one B1 a pool round, one
      fetch span a block; seconds a round and peak memory beside the solo
-     runs'; then again under deterministic cuDNN (the bit-equal float fields
-     reported); phase 1 holds B1 at (10, 3000, 256) aliased, B2 at (960,
+     runs' (the bit-equal float fields reported); phase 1 holds B1 at (10, 3000, 256) aliased, B2 at (960,
      256) and (640, 256) and B3 at (15, 64, 256) and (10, 64, 256);
   3. the MNIST split CNN at Table II sizes, fp8-e4m3 wire, argmin, gradient
      attack;
@@ -140,12 +144,12 @@ from the repository root.  Phases, in order; any failure exits non-zero:
   5. where the time goes (torch.profiler): one CIFAR client turn of the
      sequential engine and one batched CIFAR round step — device busy
      share, launches, the top kernels and the host ops;
-  6. the serve path: Qwen3-8B at full width and depth (36 layers, bf16,
-     8.19 B parameters drawn on the card from a seed) prefills 4 prompts of
-     480 tokens through ``make_prefill_step`` (36 B5 launches, all on the
-     tensor-core route), then runs the
+  6. the serve path: Qwen3-8B at full width, depth cut to SERVE_LAYERS (12
+     of 36 layers, bf16, weights drawn on the card from a seed) prefills 4
+     prompts of 480 tokens through ``make_prefill_step`` (12 B5 launches,
+     all on the tensor-core route), then runs the
      reference serve loop through ``make_serve_step`` (the prompt stepped,
-     then 32 greedy tokens: 512 steps, 18,432 B6 launches, all on the
+     then 32 greedy tokens: 512 steps, 6,144 B6 launches, all on the
      tensor-core route); prefill and
      decode logits at the prompt's last position agree (bf16 bound, and at
      f32 with 4 layers a tight one); prefill seconds, ms per decode step,
@@ -178,15 +182,16 @@ from the repository root.  Phases, in order; any failure exits non-zero:
      slot bit-equal to the winner, launches as predicted, seconds a round);
      batched SplitFed over the LM at 4 layers (cut 3: its 4 lanes at 12
      layers would not fit), decisions equal to the sequential run;
-  9. the xLSTM serve path: xLSTM-1.3B at full width and depth (48 blocks,
-     (mLSTM 7, sLSTM 1) x 6, bf16, 3,529,644,368 parameters drawn on the
-     card) prefills 4 prompts of 512 tokens through ``make_prefill_step``
-     (6 B7 launches on the persistent route: 6 persistent kernels and no
-     step kernel in the profile), then runs the reference serve
+  9. the xLSTM serve path: xLSTM-1.3B at full width, depth cut to
+     XLSTM_SERVE_LAYERS (16 of 48 blocks: (mLSTM 7, sLSTM 1) x 2, bf16,
+     drawn on the card) prefills 4 prompts of 512 tokens through
+     ``make_prefill_step`` (2 B7 launches on the persistent route: 2
+     persistent kernels and no step kernel in the profile), then runs the
+     reference serve
      loop through ``make_serve_step`` (544 steps, no kernel of the port);
      the same weights widened to f32 and served again: prefill and decode
      logits agree within 1e-3 in f32, and the bf16 ones within 0.6 of each
-     other and of the f32 logits (bf16 rounding compounds over 48 blocks
+     other and of the f32 logits (bf16 rounding compounds over the blocks
      at random init); prefill seconds, ms per decode step, tokens/s, peak
      memory, one warm decode step's profile; a longer prefill at
      prefill_32k's settings (B 4 x 2,048 tokens), profiled, with B7's
@@ -200,13 +205,38 @@ from the repository root.  Phases, in order; any failure exits non-zero:
      step, peak memory, one step's profile; at one (mLSTM 7, sLSTM 1) unit
      in f32 the kernel path's loss and every gradient within rel 1e-4 of
      the plain path's (B4 and B7 through autograd of their plain versions);
- 11. the Pigeon-SL round over ``from_lm`` at xLSTM-1.3B's full width and
-     depth (cut 12: one sLSTM block on the client's side, five on the
-     AP's), phase 8's protocol, no wire and int8 under
+ 11. the Pigeon-SL round over ``from_lm`` at xLSTM-1.3B's full width, depth
+     cut to XLSTM_ROUND_LAYERS (16 blocks, cut 12: one sLSTM block on each
+     side), phase 8's protocol, no wire and int8 under
      ``loss_plus_distance``, each on the sequential and the batched engine
      (the cluster-stacked xLSTM, B7 once a slot) from one init: decisions
      equal, the largest float gap reported, B7's launches as the round's
-     cluster counts predict, seconds a round and peak memory.
+     cluster counts predict, seconds a round and peak memory;
+ 12. the vlm patch prefix: InternVL2-26B at full width and depth (48
+     layers, bf16, 19,860,664,320 parameters drawn on the card) prefills 4
+     x (256 patch embeddings drawn from a seed + 224 text tokens), 48 B5
+     launches, profiled; the serve loop on text (a 32-token prompt stepped,
+     32 greedy tokens; 48 B6 launches a step) against a text prefill; the
+     train step at 24 of its 48 layers (theta and its gradient alone are 79
+     GB at 48) on 4 x (256 patches + 256 tokens), remat, three SGD steps
+     (48 B5 forwards, 24 backwards, one B4 each way a step), profiled; at 2
+     layers in f32 the card's loss and prefill logits with patches against
+     the CPU's;
+ 13. MLA and MoE: DeepSeek-V2-Lite (27 layers, 15,706,357,760 parameters;
+     MLA, no attention kernel) and Qwen3-30B-A3B (48 layers,
+     30,531,911,680; GQA through B5 and B6) served at full width and depth
+     (a 4 x 480 prefill, profiled; the serve loop as phase 12's, on the MLA
+     latent cache for DeepSeek); DeepSeek trained at full depth (4 x 512,
+     remat, three SGD steps, B4 each way a step), the (token, k) pairs
+     dropped past capacity at each MoE layer reported; at 3 and 2 layers
+     in f32 each one's loss, prefill logits and routing ids on the card
+     against the CPU's, and its prefill against its decode loop;
+ 14. the Pigeon-SL round over ``from_lm`` at DeepSeek-V2-Lite's width,
+     depth cut to 6 layers (1 dense + 5 MoE, cut 3), phase 8's task and
+     protocol, no wire and int8 under ``loss_plus_distance``, each on the
+     sequential and the batched engine (the cluster-stacked MoE, a slot
+     routed as its plain model) from one init: decisions equal, launches as
+     the rounds' structure predicts, seconds a round and peak memory.
 
 The last lines are one JSON object per kernel set (``{"kernels": [...]}``),
 the card's ``nvidia-smi`` name and power limit, and
@@ -293,17 +323,30 @@ DECODE_SHAPES = ((4, 512, 32, 8, 128, 0, 479), (4, 512, 32, 8, 128, 0, 511),
 FLASH_LONG = (1, 8192, 32, 8, 128, 0)
 DECODE_LONG = (8, 32768, 32, 8, 128, 0, 32767)
 ATTN_ATOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# B5's non-causal mode: (B, Sq, Sk, H, Hkv, D, window): self-attention at
+# the serve shape's heads (timed), a cross shape with Sq < Sk and one with
+# Sq > Sk, windows (keys ahead of the query live) with rows that see no key
+# (Sq > Sk + window - 1), head dims 64/80/256, ragged S
+NONCAUSAL_SHAPES = ((4, 512, 512, 32, 8, 128, 0), (2, 384, 640, 16, 4, 128, 0),
+                    (2, 640, 256, 16, 4, 64, 0), (2, 512, 256, 8, 2, 128, 64),
+                    (1, 200, 130, 4, 1, 256, 16), (1, 37, 5, 4, 2, 80, 0),
+                    (1, 300, 300, 8, 8, 64, 32))
+NONCAUSAL_TIMED = 4             # the first four are timed
 # at DECODE_LONG a typical |out| is about sqrt(e / 32,768) = 0.009 (N(0, 1)
 # inputs over 32k live keys), under the bf16 atol itself: there the bf16
 # bound is this share of the call's largest |plain| value (~5 bf16 ulps of it)
 LONG_BF16_REL = 2e-2
-# phase 6: Qwen3-8B served at B = 4, 480 prompt tokens, 32 new ones
+# phase 6: Qwen3-8B served at B = 4, 480 prompt tokens, 32 new ones, at 12
+# of its 36 layers (the serve loop steps every prompt token, so its time
+# grows with depth and the whole script must stay within its time limit)
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 480, 32
+SERVE_LAYERS = 12
 # prefill vs decode logits at the prompt's last position, the largest
 # difference relative to the largest |logit|.  bf16: each path rounds every
 # activation to 8 significant bits (2^-9 = 2e-3 relative) at different
 # points of 36 residual layers, and the two add up like a random walk
-# (sqrt(2 * 36) * 2e-3 = 1.7e-2); the bound leaves 3x above that.  f32 at
+# (sqrt(2 * 36) * 2e-3 = 1.7e-2 at Qwen3-8B's full depth); the bound
+# leaves 3x above that.  f32 at
 # 4 layers: only the summation order differs (~1e-6 relative).
 SERVE_BF16_REL = 5e-2
 SERVE_F32_REL = 1e-3
@@ -362,23 +405,27 @@ SLSTM_BWD_ROUTES = dict(SLSTM_ROUTES)
 # ulps at |h| <= 1 (2 * 2^-8); f32 by the dot products' summation order
 SLSTM_ATOL = {"float32": 1e-4, "bfloat16": 8e-3}
 # phase 9: xLSTM-1.3B served at B 4, 512-token prompts (two mLSTM chunks of
-# 256), 32 new tokens; the reference's layer counts 3,529,644,368 parameters.
-# Prefill vs decode logits at the prompt's last position.  The tight check
-# runs the same weights widened to f32 at full depth (6 B7 launches): the
+# 256), 32 new tokens, at 16 of its 48 blocks (two (mLSTM 7, sLSTM 1)
+# units; the serve loop steps every prompt token, so its time grows with
+# depth and the whole script must stay within its time limit); phase 10
+# holds the full model's 3,529,644,368 parameters (the reference's layer
+# count).  Prefill vs decode logits at the prompt's last position.  The
+# tight check runs the same weights widened to f32 (2 B7 launches): the
 # chunked and the recurrent form of the same f32 math, 1e-3.  In bf16 the
 # rounding does not stay a random walk as in Qwen3-8B (SERVE_BF16_REL): at
-# this random init the 48 blocks compound it, stack after stack, so each
-# bf16 path lands some 0.3 of max |logit| from the f32 logits (a first
-# run read 0.277 between the two bf16 paths).  The reference does the same:
+# this random init the blocks compound it, stack after stack, so at 48
+# blocks each bf16 path lands some 0.3 of max |logit| from the f32 logits
+# (a first run read 0.277 between the two bf16 paths).  The reference does the same:
 # at d_model 64 and full depth on the CPU its own bf16 logits lie 0.54 of
 # max |logit| from its f32 logits, and the port's as far from theirs
 # (tests/test_torch_xlstm.py's full-depth bf16 tests).  The bf16 paths are held
 # within 0.6 of each other and of the f32 logits: the sum of two such
 # errors; a path that computed another function (another gate layout, a
 # lost chunk carry) moves the logits by their own scale.  The longer
-# prefill takes prefill_32k's settings (ssm_chunk 2,048), its 32 x 32,768
-# tokens cut to 4 x 2,048.
+# prefill takes prefill_32k's settings (ssm_chunk 2,048) at full depth (one
+# call: 6 B7 launches), its 32 x 32,768 tokens cut to 4 x 2,048.
 XLSTM_BATCH, XLSTM_PROMPT, XLSTM_NEW = 4, 512, 32
+XLSTM_SERVE_LAYERS = 16
 XLSTM_PARAMS = 3_529_644_368
 XLSTM_BF16_REL = 0.6
 XLSTM_F32_REL = 1e-3
@@ -387,11 +434,63 @@ XLSTM_LONG_PROMPT = 2048
 PREFILL_SHARES = {"B7 (slstm_scan_persistent)": ["slstm_scan_persistent"],
                   "f32 products (the mLSTM einsums)": ["sgemm", "f32f32", "f32_f32"],
                   "bf16 products (projections, head)": ["bf16", "nvjet"]}
-# phase 11: the Pigeon-SL round over xLSTM-1.3B at full depth (theta 7.06 GB
-# in bf16, as phase 8's 12-layer Qwen3-8B), no wire and int8 under
-# loss_plus_distance, each on both engines
-XLSTM_ROUND_LAYERS = 48
+# phase 11: the Pigeon-SL round over xLSTM-1.3B at 16 of its 48 blocks (cut
+# 12: an sLSTM block on each side; the time limit, as phase 9), no wire and
+# int8 under loss_plus_distance, each on both engines
+XLSTM_ROUND_LAYERS = 16
 XLSTM_ROUND_RUNS = ((None, "argmin"), ("int8", "loss_plus_distance"))
+# phases 12-14.  InternVL2-26B (configs/internvl2_26b.py, arXiv:2404.16821):
+# served at full width and depth, its prefill 4 x (256 patch embeddings +
+# 224 text tokens) = 480 positions; trained at 24 of its 48 layers (theta
+# and its gradient alone are 79 GB at 48), 4 x (256 patches + 256 tokens);
+# its f32 check at 2 layers on 1 x (64 patches + 32 tokens).  DeepSeek-V2-Lite
+# (arXiv:2405.04434) and Qwen3-30B-A3B (hf:Qwen/Qwen3-30B-A3B) served at
+# full width and depth (4 x 480 prefills); DeepSeek trained at full depth
+# (theta and its gradient 63 GB); their f32 checks at 3 and 2 layers on 1 x
+# 128 tokens.  The serve loops step a SLICE_PROMPT-token text prompt and
+# decode SLICE_NEW greedy tokens.  The round over DeepSeek at 6 layers
+# (1 dense + 5 MoE; cut 3): 3,424,649,216 parameters besides the norms,
+# phase 8's 12-layer Qwen3-8B's size.
+VLM_ARCH, VLM_PARAMS, VLM_TEXT = "internvl2-26b", 19_860_664_320, 224
+VLM_TRAIN_LAYERS = 24
+VLM_F32_LAYERS, VLM_F32_PATCHES, VLM_F32_TEXT = 2, 64, 32
+DSV2_PARAMS, QMOE_PARAMS = 15_706_357_760, 30_531_911_680
+DSV2_TRAIN_LAYERS = 27
+DSV2_F32_LAYERS, QMOE_F32_LAYERS, MOE_F32_TOKENS = 3, 2, 128
+SLICE_PROMPT, SLICE_NEW = 32, 32
+MOE_ROUND_LAYERS, MOE_ROUND_CUT = 6, 3
+MOE_ROUND_RUNS = ((None, "argmin"), ("int8", "loss_plus_distance"))
+# bf16 prefill vs decode logits of a MoE differ by more than rounding: a
+# token whose k-th and (k+1)-th router probabilities lie within the two
+# paths' roundings of each other takes another expert on the other path,
+# and the prefill drops (token, k) pairs past its experts' capacity where
+# a decode step (B <= 8 tokens, capacity 8) drops none.  So the prefill is
+# rerun with each MoE layer's ids pinned to the decode loop's and every
+# pair kept (_Routing): the two paths then compute one function, held at
+# the dense bound (SERVE_BF16_REL); the flips and drops of the unpinned
+# prefill are counted and reported beside its gap.  f32 at full width and
+# a cut depth, card against CPU: the summation order only, and every
+# routing id and kept pair equal
+SLICE_F32_REL = 1e-3
+# phase 1 at the slice's own shapes (_phase_slice_shapes), bf16: B5 forward
+# and backward at InternVL2-26B's heads (48 query, 8 KV of 128) at its
+# prefill's 480 and its train step's 512 positions, and at Qwen3-30B-A3B's
+# (32 and 4) at its 480; B6 at both head layouts over the serve loops'
+# 64-slot caches (B 4, SLICE_PROMPT + SLICE_NEW) at the first, middle and
+# last index; B4 forward and backward at InternVL2-26B's train head (4 x
+# 256 text tokens: the loss drops the 256 patch positions; d 6,144, vocab
+# 92,553 on the f32-FMA route), the same at 2,048 rows, and at
+# DeepSeek-V2-Lite's (4 x 512 tokens, d 2,048, vocab 102,400, tensor cores).
+# Each names the path whose launches it stands for (None: on no path)
+SLICE_ATTN = (((4, 480, 48, 8, 128, 0), "vlm_prefill", None),
+              ((4, 512, 48, 8, 128, 0), "vlm_train", "vlm_train"),
+              ((4, 480, 32, 4, 128, 0), "qmoe_prefill", None))
+SLICE_DECODE = tuple(((4, SLICE_PROMPT + SLICE_NEW, h, hkv, 128, 0, i), path)
+                     for h, hkv, path in ((48, 8, "vlm_serve_loop"), (32, 4, "qmoe_loop"))
+                     for i in (0, (SLICE_PROMPT + SLICE_NEW) // 2 - 1,
+                               SLICE_PROMPT + SLICE_NEW - 1))
+SLICE_XENT = (((1024, 6144, 92553), "vlm_train"), ((2048, 6144, 92553), None),
+              ((2048, 2048, 102400), "dsv2_train"))
 # B5's backward: the train shape (B 4, S 512, Qwen3-8B's heads), then GQA
 # group 8, the forward's edge shapes (MQA, group 1, windows, head dims
 # 64/80/256, ragged S, S = 1)
@@ -656,9 +755,12 @@ def phase_kernels():
         results[name]["replica_shapes"] = shapes
     results.update(_phase_xent())
     results.update(_phase_attention())
+    results["flash_attention"]["non_causal"] = _phase_attention_non_causal()
     results.update(_phase_attention_bwd())
     for name, t in _phase_lm_batched_shapes().items():
         results[name]["lm_batched"] = t
+    for name, cases in _phase_slice_shapes().items():
+        results[name]["slice_shapes"] = cases
     results["slstm_scan"] = _phase_slstm()
     results["slstm_scan_bwd"] = _phase_slstm_bwd()
     return results
@@ -770,6 +872,92 @@ def _phase_lm_batched_shapes() -> dict:
             f"({t['bound_by']}); replayed kernel_us={t['kernel_dev_us']:.3f}; L2-cold "
             f"kernel_us={t['kernel_cold_us']:.3f}; SDPA{' backward' if 'bwd' in name else ''} "
             f"{lib_us}")
+    return out
+
+
+def _phase_slice_shapes() -> dict:
+    """Phases 12-14's own shapes in phase 1, bf16, each on the route its
+    path takes: B5's forward within ATTN_ATOL of the plain version and its
+    backward within GRAD_REL of autograd of it (SLICE_ATTN); B6 within
+    ATTN_ATOL (SLICE_DECODE); B4's loss and lse within XENT_ATOL and its
+    backward within GRAD_REL, on _xent_grad_err's four scales
+    (SLICE_XENT).  Each with its route, its error and one eager time."""
+    import torch
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused_xent as fx
+
+    few = dict(reps=3, samples=3)
+    out = {name: [] for name in ("flash_attention", "flash_attention_bwd", "decode_attention",
+                                 "fused_xent", "fused_xent_bwd")}
+
+    def note(name, shape, path, route, err, us, rel=False):
+        out[name].append(dict(shape=list(shape), path=path, route=route, kernel_us=us,
+                              **{"max_rel_err" if rel else "max_abs_err": err}))
+
+    for i, (shape, path, bwd_path) in enumerate(SLICE_ATTN):
+        (q, k, v), kw = _attention_args("flash_attention", shape, "bfloat16", seed=300 + i)
+        with torch.inference_mode():
+            got, lse = fa.flash_attention(q, k, v, **kw)
+            want = fa.flash_attention_plain(q, k, v, **kw)
+        err = float((got.float() - want.float()).abs().max())
+        check(err <= ATTN_ATOL["bfloat16"], f"flash_attention bf16 {shape}: max |kernel - "
+                                            f"plain| {err:.3e} > {ATTN_ATOL['bfloat16']}")
+        note("flash_attention", shape, path, fa.attention_route(q, k, v), err,
+             _time_us(lambda: fa.flash_attention(q, k, v, **kw), **few))
+        g = torch.Generator(device=DEVICE).manual_seed(310 + i)
+        dout = torch.randn(q.shape, generator=g, device=DEVICE).to(q.dtype)
+        qq, kk, vv = (x.clone().requires_grad_() for x in (q, k, v))
+        ref = torch.autograd.grad(fa.flash_attention_plain(qq, kk, vv, **kw), (qq, kk, vv),
+                                  grad_outputs=dout)
+        mine = fa.flash_attention_bwd(q, k, v, got, dout, lse, **kw)
+        scale = max(float(r.abs().max()) for r in ref)
+        err = max(_rel_err(a, r, scale) for a, r in zip(mine, ref))
+        check(err <= GRAD_REL["bfloat16"], f"flash_attention_bwd bf16 {shape}: rel err "
+                                           f"{err:.3e} > {GRAD_REL['bfloat16']}")
+        note("flash_attention_bwd", shape, bwd_path, fa.attention_bwd_route(q, k, v, got, dout),
+             err,
+             _time_us(lambda: fa.flash_attention_bwd(q, k, v, got, dout, lse, **kw), **few),
+             rel=True)
+        del q, k, v, qq, kk, vv, ref, mine
+    for i, (shape, path) in enumerate(SLICE_DECODE):
+        args, kw = _attention_args("decode_attention", shape, "bfloat16", seed=320 + i)
+        with torch.inference_mode():
+            got = da.decode_attention(*args, **kw)
+            want = da.decode_attention_plain(*args, **kw)
+        err = float((got.float() - want.float()).abs().max())
+        check(err <= ATTN_ATOL["bfloat16"], f"decode_attention bf16 {shape}: max |kernel - "
+                                            f"plain| {err:.3e} > {ATTN_ATOL['bfloat16']}")
+        note("decode_attention", shape, path, da.decode_route(*args[:3]), err,
+             _time_us(lambda: da.decode_attention(*args, **kw), **few))
+    for i, (shape, path) in enumerate(SLICE_XENT):
+        h, w, labels, gup = _xent_args(shape, "bfloat16", seed=330 + i)
+        hh, ww = h.clone().requires_grad_(), w.clone().requires_grad_()
+        ref = fx.fused_xent_plain(hh, ww, labels)
+        ref_dh, ref_dw = torch.autograd.grad((ref * gup).sum(), (hh, ww))
+        with torch.no_grad():
+            ref_lse = torch.logsumexp(h.float() @ w.float(), dim=-1)
+        loss, lse = fx.fused_xent(h, w, labels)
+        err = max(float((loss - ref.detach()).abs().max()), float((lse - ref_lse).abs().max()))
+        check(bool(torch.isfinite(loss).all()) and err <= XENT_ATOL["bfloat16"],
+              f"fused_xent bf16 {shape}: max |kernel - plain| {err:.3e} > "
+              f"{XENT_ATOL['bfloat16']}")
+        note("fused_xent", shape, path, fx.xent_route(h, w), err,
+             _time_us(lambda: fx.fused_xent(h, w, labels), **few))
+        dh, dw = fx.fused_xent_bwd(h, w, labels, lse, gup)
+        err = _xent_grad_err(dh, dw, ref_dh, ref_dw, labels)
+        check(dh.dtype == h.dtype and dw.dtype == w.dtype and err <= GRAD_REL["bfloat16"],
+              f"fused_xent_bwd bf16 {shape}: rel err {err:.3e} > {GRAD_REL['bfloat16']}")
+        note("fused_xent_bwd", shape, path, fx.xent_bwd_route(h, w), err,
+             _time_us(lambda: fx.fused_xent_bwd(h, w, labels, lse, gup), **few), rel=True)
+        del h, w, hh, ww, ref, ref_dh, ref_dw, dh, dw
+        torch.cuda.empty_cache()
+    for name, cases in out.items():
+        log(f"phase1 {name} at the slice's shapes (bf16): " + "; ".join(
+            f"{t['shape']} ({t['path'] or 'on no path'}) {t['route']} "
+            f"route, {'rel' if 'max_rel_err' in t else 'abs'} err "
+            f"{t.get('max_rel_err', t.get('max_abs_err')):.3e}, kernel_us {t['kernel_us']:.1f}"
+            for t in cases))
     return out
 
 
@@ -1298,6 +1486,131 @@ def _phase_attention():
         results[name] = dict(max_abs_err=main_err, max_abs_err_by_route=max_err, **main,
                              long_context=long_context)
     return results
+
+
+def _phase_attention_non_causal():
+    """B5's non-causal mode (``causal=False``: only the window masks; Sq may
+    exceed Sk; a row with no live key takes the reference kernel's value)
+    on both forward routes against the plain version at
+    :data:`NONCAUSAL_SHAPES`, f32 and bf16, bit-identical run to run; timed
+    at the self shape beside SDPA with ``is_causal=False`` (eager, replayed
+    in turn with the f32-FMA route, L2-cold); a call that needs a gradient
+    raises (its backward comes with the encoder, Queue A item 10)."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+
+    def draw(shape, dtype, seed):
+        b, sq, sk, h, hkv, d, _ = shape
+        g = torch.Generator(device=DEVICE).manual_seed(seed)
+        dt = getattr(torch, dtype)
+        return tuple(torch.randn(dims, generator=g, device=DEVICE).to(dt)
+                     for dims in ((b, sq, h, d), (b, sk, hkv, d), (b, sk, hkv, d)))
+
+    max_err, routes = {}, {}
+    for dtype in ("float32", "bfloat16"):
+        for i, shape in enumerate(NONCAUSAL_SHAPES):
+            q, k, v = draw(shape, dtype, 200 + i)
+            window = shape[6]
+            with torch.inference_mode():
+                ref = fa.flash_attention_plain(q, k, v, causal=False, window=window)
+            route = fa.attention_route(q, k, v)
+            routes.setdefault(route, []).append((dtype, shape))
+            for how in ([route, fa.F32_FMA] if route == fa.TENSOR_CORES else [route]):
+                with torch.inference_mode():
+                    out1 = fa.flash_attention(q, k, v, causal=False, window=window,
+                                              route=how)[0]
+                    out2 = fa.flash_attention(q, k, v, causal=False, window=window,
+                                              route=how)[0]
+                torch.cuda.synchronize()
+                what = f"flash_attention non-causal ({how}) {dtype} {shape}"
+                check(torch.equal(out1, out2), f"{what}: two runs differ")
+                check(out1.shape == ref.shape and bool(torch.isfinite(out1).all()),
+                      f"{what}: {tuple(out1.shape)} or not finite")
+                err = float((out1.float() - ref.float()).abs().max())
+                check(err <= ATTN_ATOL[dtype],
+                      f"{what}: max |kernel - plain| {err:.3e} > {ATTN_ATOL[dtype]}")
+                key = f"{how} {dtype}"
+                max_err[key] = max(max_err.get(key, 0.0), err)
+    for route, cases in routes.items():
+        log(f"phase1 flash_attention non-causal: {route} route takes {cases}")
+    log(f"phase1 flash_attention non-causal: within atol {ATTN_ATOL} of plain at "
+        f"{list(NONCAUSAL_SHAPES)} (Sq = Sk, Sq < Sk, Sq > Sk, windows, rows with no live "
+        f"key) on every route, bit-identical run to run; max_abs_err {max_err}")
+
+    # a call that needs a gradient is refused, naming the item that adds it
+    q, k, v = draw(NONCAUSAL_SHAPES[-1], "bfloat16", 299)
+    q.requires_grad_(True)
+    try:
+        ops.flash_attention(q, k, v, causal=False)
+        fail("flash_attention non-causal with a gradient did not raise")
+    except NotImplementedError as e:
+        check("Queue A item 10" in str(e), f"the refusal does not name item 10: {e}")
+    del q, k, v
+
+    timings = [_non_causal_timing(shape, draw(shape, "bfloat16", 250 + i))
+               for i, shape in enumerate(NONCAUSAL_SHAPES[:NONCAUSAL_TIMED])]
+    return dict(max_abs_err=max_err[f"{fa.TENSOR_CORES} bfloat16"],
+                max_abs_err_by_route=max_err, **timings[0], others=timings[1:])
+
+
+def _non_causal_timing(shape, qkv) -> dict:
+    """Times of one non-causal B5 call at ``shape`` in bf16: the kernel
+    eager, replayed (in turn with SDPA's ``is_causal=False`` and the
+    f32-FMA route) and L2-cold, the plain version eager, SDPA eager where
+    it computes the same function (no window), the bound: max of the bytes
+    over 3.35 TB/s and 4 D flops a live (query, key) pair and head over the
+    bf16 peak."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+
+    b, sq, sk, h, hkv, d, window = shape
+    q, k, v = qkv
+    call = lambda: fa.flash_attention(q, k, v, causal=False, window=window)[0]  # noqa: E731
+    old = lambda: fa.flash_attention(q, k, v, causal=False, window=window,      # noqa: E731
+                                     route=fa.F32_FMA)[0]
+    lib = None
+    if not window:
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=False,  # noqa: E731
+                                                     enable_gqa=True)
+    replayed = [fn for fn in (call, lib, old) if fn is not None]
+    with torch.inference_mode():
+        if lib is not None:
+            want = fa.flash_attention_plain(q, k, v, causal=False).float()
+            check(float((lib().transpose(1, 2).float() - want).abs().max())
+                  <= ATTN_ATOL["bfloat16"],
+                  f"{shape}: SDPA (is_causal=False) disagrees with the plain version")
+        dev = dict(zip(replayed, _graph_times_us(replayed)))
+        timing = dict(
+            shape=list(shape), dtype="bfloat16", kernel_us=_time_us(call),
+            kernel_dev_us=_median(dev[call]), kernel_cold_us=_cold_time_us(call),
+            plain_us=_time_us(lambda: fa.flash_attention_plain(q, k, v, causal=False,
+                                                               window=window),
+                              reps=3, samples=5),
+            library_us=None if lib is None else _time_us(lib),
+            library_dev_us=None if lib is None else _median(dev[lib]),
+            f32_fma_route=dict(kernel_us=_time_us(old), kernel_dev_us=_median(dev[old]),
+                               kernel_cold_us=_cold_time_us(old, reps=10)))
+    pairs = sum(sk - max(0, i - window + 1) if window else sk for i in range(sq)
+                if not window or i - window + 1 < sk)
+    n_bytes = 2 * (2 * b * sq * h * d + 2 * b * sk * hkv * d)
+    n_ops = 4 * b * h * pairs * d
+    bytes_us, ops_us = n_bytes / HBM_BYTES_PER_S * 1e6, n_ops / BF16_OPS_PER_S * 1e6
+    timing.update(bound_us=max(bytes_us, ops_us),
+                  bound_by="bytes" if bytes_us >= ops_us else "operations")
+    sdpa = ("none (a window)" if lib is None else
+            f"{timing['library_us']:.3f} eager, {timing['library_dev_us']:.3f} replayed "
+            f"({dev[lib][0]:.3f}-{dev[lib][-1]:.3f})")
+    log(f"phase1 flash_attention non-causal at {shape} bf16: kernel_us="
+        f"{timing['kernel_us']:.3f} plain_us={timing['plain_us']:.3f} sdpa_us={sdpa}; "
+        f"bound_us={timing['bound_us']:.4f} ({timing['bound_by']}); graph-replayed "
+        f"(L2 warm): kernel_us={timing['kernel_dev_us']:.3f} ({dev[call][0]:.3f}-"
+        f"{dev[call][-1]:.3f}), the f32-FMA route {timing['f32_fma_route']['kernel_dev_us']:.3f}; "
+        f"one call L2-cold: kernel_us={timing['kernel_cold_us']:.3f} (f32-FMA "
+        f"{timing['f32_fma_route']['kernel_cold_us']:.3f})")
+    return timing
 
 
 def _rel_err(got, want, zero_scale: float = 0.0) -> float:
@@ -2168,8 +2481,7 @@ class _deterministic_cudnn:
 def phase_multiround(main):
     """Phase 2d: multi-round execution on the batched main path (phase 2b's
     configuration, T = 5, eval_every = 5).  Four runs — block 1 and 4, each
-    with prefetch 0 and 1 — and a repeat of the first, under the main path's
-    cuDNN settings: each makes T*M_bar*E B2 and B3 launches and T B1
+    with prefetch 0 and 1 — under the main path's cuDNN settings: each makes T*M_bar*E B2 and B3 launches and T B1
     launches, every RoundRunner.accept_block runs under sync-debug "error",
     a block run makes one block.fetch span a block, and all make the same
     decisions (clusters, selections, detections, acceptance, comm); their
@@ -2251,9 +2563,8 @@ def phase_multiround(main):
     out, hists, det = {}, {}, {}
     RoundRunner.accept_block = strict_accept_block
     try:
-        for block, prefetch in MULTIROUND_RUNS + ((1, 0),):
+        for block, prefetch in MULTIROUND_RUNS:
             name = f"block{block}_prefetch{prefetch}"
-            name += "_repeat" if name in out else ""
             hists[name], out[name] = run(name, block, prefetch)
         with _deterministic_cudnn():
             for block, prefetch in MULTIROUND_RUNS:
@@ -2264,8 +2575,8 @@ def phase_multiround(main):
         RoundRunner.accept_block = accept_block
     # the main path's cuDNN: the decisions exactly; the losses' spread and
     # test_acc reported (cuDNN's default algorithms need not repeat bit for
-    # bit: the repeat shows the spread of one mode run twice).  Deterministic
-    # cuDNN: everything exactly, test_acc included, losses within rtol.
+    # bit).  Deterministic cuDNN: everything exactly, test_acc included,
+    # losses within rtol.
     found = {}
     for label, runs, exact in (("", hists, MULTIROUND_DECISIONS),
                                (" deterministic", det, MULTIROUND_DECISIONS + ("test_acc",))):
@@ -2550,9 +2861,8 @@ def phase_sweep_pool(main):
     (M_bar * E) whatever the slots, B1 one a pool round and none in the sweep;
     one ``block.fetch`` (``round.fetch`` at block 1) a sweep block and one
     ``pool.fetch`` a pool block; seconds a round and peak memory beside the
-    solo runs'.  Then the sweep at block 2 and the pool again under
-    deterministic cuDNN, the same checks, with the float fields bit-equal to
-    the solo runs' reported."""
+    solo runs', with the float fields bit-equal to the solo runs'
+    reported."""
     import tempfile
 
     import torch
@@ -2577,13 +2887,11 @@ def phase_sweep_pool(main):
     try:
         with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
             out = _sweep_pool_pass(main, "", (1, 2), tmp)
-            with _deterministic_cudnn():
-                out["deterministic"] = _sweep_pool_pass(main, " deterministic", (2,), tmp)
     finally:
         for name, fn in originals.items():
             setattr(RoundRunner, name, fn)
-    log(f"phase2e: decisions equal to the solo runs; largest gaps {out['largest_gap']} "
-        f"(deterministic cuDNN {out['deterministic']['largest_gap']}); sweep s a round "
+    log(f"phase2e: decisions equal to the solo runs; largest gaps {out['largest_gap']}; "
+        f"sweep s a round "
         f"{out['sweep_block1']['seconds_per_round']:.3f} (block 1), "
         f"{out['sweep_block2']['seconds_per_round']:.3f} (block 2) vs three solo runs "
         f"{3 * out['solo_seconds_per_round']:.3f}; pool s a job-round "
@@ -2790,6 +3098,56 @@ class _PlainPath:
         fa.FlashAttention.apply, fx.FusedXent.apply, ss.SlstmScan.apply = self.saved
 
 
+class _Routing:
+    """Within the block, every MoE layer's routing, in call order: ``own``
+    the ids (T, k) its router picks, ``ids`` the ids it takes and ``kept``
+    the (T * k,) pairs it keeps within capacity.  With ``pin`` (ids a call,
+    in call order) a layer takes the pinned ids, weighted by its own router
+    probabilities renormalised over them (as ``moe.route`` weights its
+    top-k); with ``keep_all`` an expert's capacity is the call's token
+    count, so no pair is dropped."""
+
+    def __init__(self, pin=None, keep_all: bool = False):
+        self.pin, self.keep_all = pin, keep_all
+        self.own, self.ids, self.kept = [], [], []
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import moe
+        self.saved = route, dispatch, _ = moe.route, moe.dispatch, moe.capacity
+
+        def routed(router, cfg, x_flat):
+            weights, ids, aux = route(router, cfg, x_flat)
+            self.own.append(ids)
+            if self.pin is not None:
+                ids = self.pin[len(self.ids)].to(ids.device)
+                probs = torch.softmax((x_flat @ router).to(torch.float32), dim=-1)
+                w = torch.gather(probs, 1, ids)
+                weights = (w / torch.clamp_min(w.sum(-1, keepdim=True), 1e-9)).to(x_flat.dtype)
+            self.ids.append(ids)
+            return weights, ids, aux
+
+        def dispatched(ids, cfg, cap):
+            slot, keep = dispatch(ids, cfg, cap)
+            self.kept.append(keep)
+            return slot, keep
+
+        moe.route, moe.dispatch = routed, dispatched
+        if self.keep_all:
+            moe.capacity = lambda n_tokens, cfg: n_tokens
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe.route, moe.dispatch, moe.capacity = self.saved
+
+
+def _flips(a, b) -> int:
+    """Tokens whose set of k experts differs between two ids (T, k)."""
+    import torch
+    return int((torch.sort(a.cpu(), -1)[0] != torch.sort(b.cpu(), -1)[0]).any(-1).sum())
+
+
 def _three_steps(label: str, step, batch, per_step: dict):
     """Three calls of a train ``step`` on ``batch``, each with the launches
     ``per_step``; the loss finite and falling; then two more timed for the
@@ -2831,7 +3189,10 @@ def _kernel_vs_plain(label: str, model, batch, want: dict) -> dict:
     """``model``'s loss and every gradient on the card through the kernels
     (launches ``want``) against the plain path's (``_PlainPath``, which
     launches none): the relative gaps, each gradient on its own scale,
-    within TRAIN_F32_REL."""
+    within TRAIN_F32_REL.  A MoE's plain path takes the kernel path's
+    routing (``_Routing``), so that a near tie that the two summation
+    orders break apart cannot move a gradient by an expert's share; the
+    tokens whose own experts differ are counted."""
     import torch
     from repro_torch.kernels import build
     params = list(model.parameters())
@@ -2839,28 +3200,34 @@ def _kernel_vs_plain(label: str, model, batch, want: dict) -> dict:
     for name in ("kernel", "plain"):
         build.reset_launches()
         if name == "plain":
-            with _PlainPath():
+            with _PlainPath(), _Routing(pin=routing.ids) as pinned:
                 loss, _ = model.loss(batch)
                 grads = torch.autograd.grad(loss, params)
             check(build.LAUNCHES == want_launches(),
                   f"{label}: the plain path launched {build.LAUNCHES}")
         else:
-            loss, _ = model.loss(batch)
-            grads = torch.autograd.grad(loss, params)
+            with _Routing() as routing:
+                loss, _ = model.loss(batch)
+                grads = torch.autograd.grad(loss, params)
             launches = dict(build.LAUNCHES)
             check(launches == want, f"{label}: the kernel path launched {launches}, want {want}")
         results[name] = (loss.detach(), grads)
+    check(len(pinned.ids) == len(routing.ids), f"{label}: {len(routing.ids)} MoE calls on the "
+                                               f"kernel path, {len(pinned.ids)} on the plain")
+    flips = sum(_flips(a, b) for a, b in zip(pinned.own, routing.ids))
     (lk, gk), (lp, gp) = results["kernel"], results["plain"]
     loss_rel = abs(float(lk) - float(lp)) / abs(float(lp))
     rels = {n: _rel_err(a, r) for (n, _), a, r in zip(model.named_parameters(), gk, gp)}
     worst = max((v, n) for n, v in rels.items())
     check(loss_rel <= TRAIN_F32_REL and worst[0] <= TRAIN_F32_REL,
           f"{label}: loss rel {loss_rel:.3e}, worst gradient {worst}")
+    moe = (f"; {len(routing.ids)} MoE calls, the plain path's own experts differ from the "
+           f"kernel path's at {flips} tokens" if routing.ids else "")
     log(f"{label}: loss {float(lk):.6f} (kernel) vs {float(lp):.6f} (plain), rel "
         f"{loss_rel:.3e}; every gradient within rel {TRAIN_F32_REL}, the worst "
-        f"{worst[0]:.3e} ({worst[1]}); the kernel path's launches {launches}")
+        f"{worst[0]:.3e} ({worst[1]}); the kernel path's launches {launches}{moe}")
     return dict(f32_loss_rel=loss_rel, f32_grad_rel=worst[0], f32_launches=launches,
-                f32_grad_rels=rels)
+                f32_grad_rels=rels, f32_route_flips=flips)
 
 
 def phase_train():
@@ -3481,10 +3848,10 @@ def phase_profile():
 
 
 def phase_serve():
-    """Qwen3-8B at full width and depth, bf16, weights drawn on the card:
-    prefill and the serve loop, with B5/B6 launch counts, the prefill/decode
-    agreement, timings, peak memory and one warm decode step's profile;
-    then the agreement at f32 with 4 layers."""
+    """Qwen3-8B at full width and SERVE_LAYERS layers, bf16, weights drawn
+    on the card: prefill and the serve loop, with B5/B6 launch counts, the
+    prefill/decode agreement, timings, peak memory and one warm decode
+    step's profile; then the agreement at f32 with 4 layers."""
     import dataclasses
 
     import torch
@@ -3495,12 +3862,7 @@ def phase_serve():
     from repro_torch.models import build_model
     from repro_torch.models.transformer import run_stack
 
-    def agreement(pre, last):
-        rel = float((pre - last).abs().max()) / float(pre.abs().max())
-        argmax = float((pre.argmax(-1) == last.argmax(-1)).float().mean())
-        return rel, argmax
-
-    cfg = serve_config("qwen3-8b", full=True)
+    cfg = dataclasses.replace(serve_config("qwen3-8b", full=True), n_layers=SERVE_LAYERS)
     b, p, new = SERVE_BATCH, SERVE_PROMPT, SERVE_NEW
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -3531,7 +3893,7 @@ def phase_serve():
           "phase6: non-finite logits")
     check(gen.shape == (b, new) and int(gen.min()) >= 0 and int(gen.max()) < cfg.vocab,
           f"phase6: generated tokens {tuple(gen.shape)}")
-    rel, argmax = agreement(pre, last)
+    rel, argmax = _agreement(pre, last)
     check(rel <= SERVE_BF16_REL, f"phase6: prefill vs decode logits differ by {rel:.3e} "
                                  f"of max |logit| > {SERVE_BF16_REL}")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -3578,7 +3940,7 @@ def phase_serve():
     cfg4 = dataclasses.replace(get_config("qwen3-8b"), n_layers=4)
     model = build_model(cfg4, DEVICE).init(torch.Generator(device=DEVICE).manual_seed(1))
     pre, _, last, _, _ = _serve(model, prompts, 1)
-    rel4, argmax4 = agreement(pre, last)
+    rel4, argmax4 = _agreement(pre, last)
     check(rel4 <= SERVE_F32_REL, f"phase6 f32: prefill vs decode logits differ by "
                                  f"{rel4:.3e} of max |logit| > {SERVE_F32_REL}")
     log(f"phase6 {cfg4.name} f32, 4 layers, full width: prefill vs decode logits at "
@@ -3600,8 +3962,9 @@ def _b7_kernels(kernels, backward: bool = False):
 
 
 def phase_xlstm():
-    """xLSTM-1.3B at full width and depth, bf16, weights drawn on the card:
-    the prefill (6 B7 launches) and the serve loop (none), timings, peak
+    """xLSTM-1.3B at full width and XLSTM_SERVE_LAYERS blocks, bf16, weights
+    drawn on the card: the prefill (a B7 launch an sLSTM block) and the
+    serve loop (none), timings, peak
     memory and one warm decode step's profile; the same weights widened to
     f32, served again: prefill and decode logits agree tightly in f32, and
     the bf16 paths within XLSTM_BF16_REL of each other and of f32, with
@@ -3618,11 +3981,6 @@ def phase_xlstm():
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
     from repro_torch.models import build_model
     from repro_torch.models.transformer import run_stack
-
-    def agreement(pre, last):
-        rel = float((pre - last).abs().max()) / float(pre.abs().max())
-        argmax = float((pre.argmax(-1) == last.argmax(-1)).float().mean())
-        return rel, argmax
 
     def stack_states(model, tokens):
         """The prefill path's embedding and each stack's output."""
@@ -3645,7 +4003,8 @@ def phase_xlstm():
         return out, time.perf_counter() - t0, dict(build.LAUNCHES)
 
     t_phase = time.perf_counter()
-    cfg = serve_config("xlstm-1.3b", full=True)
+    cfg = dataclasses.replace(serve_config("xlstm-1.3b", full=True),
+                              n_layers=XLSTM_SERVE_LAYERS)
     b, p, new = XLSTM_BATCH, XLSTM_PROMPT, XLSTM_NEW
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -3654,7 +4013,6 @@ def phase_xlstm():
     torch.cuda.synchronize()
     n_slstm = sum(1 for s in model.stacks if s.kind == "slstm")
     n_params = sum(x.numel() for x in model.parameters())
-    check(n_params == XLSTM_PARAMS, f"phase9: {n_params:,} parameters, want {XLSTM_PARAMS:,}")
     log(f"phase9 {cfg.name}: {cfg.n_layers} blocks in {len(model.stacks)} stacks "
         f"{[(s.kind, s.n) for s in model.stacks[:2]]} x {len(model.stacks) // 2}, d "
         f"{cfg.d_model}, {cfg.n_heads} heads, vocab {cfg.vocab}, ssm_chunk {cfg.ssm_chunk}, "
@@ -3722,7 +4080,7 @@ def phase_xlstm():
     del cache, prefill_step, serve_step
     torch.cuda.empty_cache()
 
-    # the same weights widened to f32, at full depth: prefill and decode
+    # the same weights widened to f32: prefill and decode
     # held tightly, and each bf16 path against them
     model.float()
     build.reset_launches()
@@ -3730,11 +4088,11 @@ def phase_xlstm():
     launches32 = dict(build.LAUNCHES)
     check(launches32 == want_launches(slstm_scan_persistent=n_slstm),
           f"phase9 f32: launches {launches32}")
-    rel32, argmax32 = agreement(pre32, last32)
+    rel32, argmax32 = _agreement(pre32, last32)
     check(rel32 <= XLSTM_F32_REL, f"phase9 f32: prefill vs decode logits differ by "
                                   f"{rel32:.3e} of max |logit| > {XLSTM_F32_REL}")
-    rel, argmax = agreement(pre, last)
-    pre_err, dec_err = agreement(pre, pre32)[0], agreement(last, last32)[0]
+    rel, argmax = _agreement(pre, last)
+    pre_err, dec_err = _agreement(pre, pre32)[0], _agreement(last, last32)[0]
     for what, value in (("prefill vs decode", rel), ("prefill vs f32", pre_err),
                         ("decode vs f32", dec_err)):
         check(value <= XLSTM_BF16_REL, f"phase9 bf16: {what} logits differ by {value:.3e} of "
@@ -3770,6 +4128,7 @@ def phase_xlstm():
                                    **shape_settings(SHAPES["prefill_32k"]))
     torch.cuda.reset_peak_memory_stats()
     model = build_model(cfg_long, DEVICE).init(torch.Generator(device=DEVICE).manual_seed(0))
+    n_slstm = sum(1 for s in model.stacks if s.kind == "slstm")
     tokens = torch.from_numpy(make_prompts(1, cfg.vocab, b, XLSTM_LONG_PROMPT)).to(DEVICE)
     prefill_step = make_prefill_step(model)
 
@@ -3994,6 +4353,408 @@ def phase_xlstm_round():
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phases 12-14: the vlm patch prefix and MLA/MoE (InternVL2-26B,
+# DeepSeek-V2-Lite, Qwen3-30B-A3B)
+# ---------------------------------------------------------------------------
+
+def _agreement(pre, last):
+    """(max |diff| / max |logit|, argmax agreement) of two logit tensors."""
+    rel = float((pre.float() - last.float()).abs().max()) / float(pre.float().abs().max())
+    argmax = float((pre.argmax(-1) == last.argmax(-1)).float().mean())
+    return rel, argmax
+
+
+def _attn_launches(cfg, prefills: int = 0, decode_steps: int = 0) -> dict:
+    """The launches of ``prefills`` bf16 prefills and ``decode_steps`` decode
+    steps of ``cfg``: B5 a layer a prefill and B6 a layer a step where the
+    attention is GQA; none for MLA (plain PyTorch, 192/128-wide heads)."""
+    if cfg.kv_lora_rank:
+        return want_launches()
+    return want_launches(flash_attention_tc=cfg.n_layers * prefills,
+                         decode_attention_tc=cfg.n_layers * decode_steps)
+
+
+def _xent_route(model) -> str:
+    """The route B4 takes over ``model``'s head for a (T, d_model) hidden in
+    the model's dtype (``fused_xent.xent_route``)."""
+    import torch
+    from repro_torch.kernels import fused_xent as fx
+    hidden = torch.empty((8, model.cfg.d_model), dtype=model.dtype, device=DEVICE)
+    return fx.xent_route(hidden, model.head.w)
+
+
+def _draw_model(label: str, cfg, seed: int = 0, want_params=None):
+    """``cfg``'s model drawn on the card from ``seed``; its parameter count
+    held against ``want_params``."""
+    import torch
+    from repro_torch.models import build_model
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, DEVICE).init(torch.Generator(device=DEVICE).manual_seed(seed))
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in model.parameters())
+    norms = sum(x.numel() for n, x in model.named_parameters() if n.endswith("scale"))
+    if want_params is not None:
+        check(n_params - norms == want_params == cfg.param_count(),
+              f"{label}: {n_params - norms:,} parameters besides the norms, want "
+              f"{want_params:,} (param_count {cfg.param_count():,})")
+    log(f"{label} {cfg.name}: {cfg.n_layers} layers {[(sp.kind, sp.n) for sp in model.plan]}, "
+        f"d {cfg.d_model}, {cfg.dtype}: {n_params:,} parameters "
+        f"({n_params * model.embedding.element_size() / 1e9:.2f} GB), drawn on the card in "
+        f"{time.perf_counter() - t0:.2f} s")
+    return model
+
+
+def _slice_serve(label: str, model, prefill_batch: dict, shares: dict) -> dict:
+    """The serve path of one of the slice's models: the bf16 prefill step on
+    ``prefill_batch`` (warm, timed, launches counted, profiled), then the
+    reference serve loop over a text prompt of SLICE_PROMPT tokens and
+    SLICE_NEW greedy tokens (launches counted), its prompt logits held
+    against a text prefill's within SERVE_BF16_REL.  For a MoE that prefill
+    is rerun with its routing pinned to the loop's (_Routing; see
+    SLICE_F32_REL's note), and the unpinned prefill's routing flips and
+    dropped pairs are reported beside its gap."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.launch.serve import make_prompts
+    from repro_torch.launch.steps import make_prefill_step
+
+    cfg = model.cfg
+    b = prefill_batch["tokens"].shape[0]
+    prefill = make_prefill_step(model)
+    prefill(prefill_batch)                                  # warm-up, not counted
+    torch.cuda.synchronize()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    logits = prefill(prefill_batch)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    prefill_launches = dict(build.LAUNCHES)
+    check(prefill_launches == _attn_launches(cfg, prefills=1),
+          f"{label} prefill: launches {prefill_launches}, want {_attn_launches(cfg, 1)}")
+    check(logits.shape == (b, 1, cfg.vocab) and bool(torch.isfinite(logits).all()),
+          f"{label} prefill: logits {tuple(logits.shape)} not finite or misshapen")
+    positions = prefill_batch["tokens"].shape[1] + (
+        prefill_batch["patches"].shape[1] if "patches" in prefill_batch else 0)
+    _profile_report(f"{label} {cfg.name} prefill (B {b} x {positions} positions, bf16)",
+                    lambda: prefill(prefill_batch), prefill_s * 1e6, 1, shares=shares)
+    prompts = torch.from_numpy(make_prompts(1, cfg.vocab, b, SLICE_PROMPT)).to(DEVICE)
+    build.reset_launches()
+    with _Routing() as routing:
+        pre, gen, last, _, loop_s = _serve(model, prompts, SLICE_NEW)
+    loop_launches = dict(build.LAUNCHES)
+    steps = SLICE_PROMPT + SLICE_NEW
+    want = _attn_launches(cfg, prefills=1, decode_steps=steps)
+    check(loop_launches == want, f"{label} serve loop: launches {loop_launches}, want {want}")
+    check(gen.shape == (b, SLICE_NEW) and int(gen.min()) >= 0 and int(gen.max()) < cfg.vocab,
+          f"{label}: generated tokens {tuple(gen.shape)}")
+    rel, argmax = _agreement(pre, last)
+    out = dict(rel=rel, argmax=argmax)
+    moe = ""
+    if routing.ids:
+        # the prefill's MoE calls, then each decode step's, layer by layer
+        n = len(routing.ids) // (1 + steps)
+        check(len(routing.ids) == n * (1 + steps) and n == sum(
+                  sp.n for sp in model.plan if sp.kind == "moe"),
+              f"{label}: {len(routing.ids)} MoE calls in the serve run, {n} layers")
+        check(all(bool(k.all()) for k in routing.kept[n:]),
+              f"{label}: a decode step dropped a (token, k) pair")
+        loop_ids = [torch.stack([routing.ids[n * (1 + t) + layer] for t in range(SLICE_PROMPT)],
+                                dim=1).reshape(b * SLICE_PROMPT, -1) for layer in range(n)]
+        flips = [_flips(a, c) for a, c in zip(routing.ids[:n], loop_ids)]
+        drops = [int((~k).sum()) for k in routing.kept[:n]]
+        with torch.no_grad(), _Routing(pin=loop_ids, keep_all=True) as pinned:
+            pinned_pre = prefill({"tokens": prompts})
+        check(len(pinned.ids) == n, f"{label}: {len(pinned.ids)} MoE calls in the pinned "
+                                    f"prefill, want {n}")
+        out.update(unpinned_rel=rel, unpinned_argmax=argmax, flips_by_layer=flips,
+                   drops_by_layer=drops)
+        moe = (f"; unpinned {rel:.4e} (argmax agreement {argmax:.3f}) with the prefill's "
+               f"routing against the loop's: tokens of {b * SLICE_PROMPT} whose experts "
+               f"differ by MoE layer {flips}, (token, k) pairs the prefill dropped past "
+               f"capacity {drops}; pinned to the loop's routing, every pair kept")
+        rel, argmax = _agreement(pinned_pre, last)
+        out.update(rel=rel, argmax=argmax)
+    check(rel <= SERVE_BF16_REL, f"{label}: text prefill vs decode logits differ by {rel:.3e} "
+                                 f"of max |logit| > {SERVE_BF16_REL}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ms_step = loop_s / steps * 1e3
+    log(f"{label} prefill (B {b} x {positions} positions, warm): {prefill_s:.4f} s, "
+        f"launches {prefill_launches}; serve loop {steps} steps ({SLICE_PROMPT} prompt + "
+        f"{SLICE_NEW} greedy) in {loop_s:.3f} s: {ms_step:.3f} ms/step, "
+        f"{b * steps / loop_s:.1f} tokens/s; text prefill vs decode logits max |diff| / "
+        f"max |logit| {rel:.4e} (bound {SERVE_BF16_REL}), argmax agreement {argmax:.3f}"
+        f"{moe}; peak device memory {peak_gb:.2f} GB; greedy tokens[0] {gen[0].tolist()}")
+    return dict(prefill_launches=prefill_launches, loop_launches=loop_launches,
+                prefill_s=prefill_s, ms_per_step=ms_step, tokens_per_s=b * steps / loop_s,
+                peak_gb=peak_gb, **out)
+
+
+def _f32_against_cpu(label: str, cfg, batch: dict, seed: int) -> dict:
+    """At full width and a cut depth in f32: the model drawn on the card,
+    its loss, prefill logits and (for a MoE) every layer's routing ids and
+    kept pairs on the card against the same weights and batch on the CPU
+    (plain versions; ids and pairs equal); the card's text prefill against
+    its decode loop; then the kernel path's loss and every gradient against
+    the plain path's on the card (``_kernel_vs_plain``)."""
+    import torch
+    from repro_torch.launch.steps import make_prefill_step
+
+    model = _draw_model(label, cfg, seed)
+
+    def run(m, dev):
+        bt = {k: v.to(dev) for k, v in batch.items()}
+        with torch.no_grad(), _Routing() as routing:
+            loss = float(m.loss(bt)[0])
+            logits = make_prefill_step(m)(bt).cpu()
+        return loss, logits, [x.cpu() for x in routing.ids], [x.cpu() for x in routing.kept]
+
+    loss_c, logits_c, ids_c, kept_c = run(model, DEVICE)
+    cpu = model.to("cpu")
+    loss_h, logits_h, ids_h, kept_h = run(cpu, "cpu")
+    model = cpu.to(DEVICE)
+    del cpu
+    loss_rel = abs(loss_c - loss_h) / abs(loss_h)
+    logit_rel = float((logits_c - logits_h).abs().max()) / float(logits_h.abs().max())
+    same = [float((a == b).float().mean()) for a, b in zip(ids_c, ids_h)]
+    drops = [int((~k).sum()) for k in kept_h]
+    check(loss_rel <= SLICE_F32_REL and logit_rel <= SLICE_F32_REL,
+          f"{label}: card vs CPU loss rel {loss_rel:.3e}, prefill logits rel {logit_rel:.3e} "
+          f"> {SLICE_F32_REL}")
+    check(len(ids_c) == len(ids_h) and all(torch.equal(a, b) for a, b in zip(ids_c, ids_h))
+          and all(torch.equal(a, b) for a, b in zip(kept_c, kept_h)),
+          f"{label}: card vs CPU routing ids equal by MoE call {same}; dropped pairs card "
+          f"{[int((~k).sum()) for k in kept_c]}, CPU {drops}")
+    text = batch["tokens"][:, :8].to(DEVICE)
+    pre, _, last, _, _ = _serve(model, text, 1)
+    rel, argmax = _agreement(pre, last)
+    check(rel <= SERVE_F32_REL, f"{label}: f32 prefill vs decode logits differ by {rel:.3e}")
+    log(f"{label} {cfg.name} f32, {cfg.n_layers} layers, full width: card vs CPU loss "
+        f"{loss_c:.6f} vs {loss_h:.6f} (rel {loss_rel:.3e}), prefill logits rel "
+        f"{logit_rel:.3e} (bound {SLICE_F32_REL}); routing ids and kept pairs equal at each "
+        f"of {len(ids_c)} MoE calls (the loss's, then the prefill's), (token, k) pairs "
+        f"dropped past capacity {drops}; text prefill vs decode on the card rel {rel:.3e} "
+        f"(bound {SERVE_F32_REL}), argmax agreement {argmax:.3f}")
+    attn = 0 if cfg.kv_lora_rank else cfg.n_layers
+    grads = _kernel_vs_plain(
+        f"{label} {cfg.name} f32, {cfg.n_layers} layers, full width, gradients", model,
+        {k: v.to(DEVICE) for k, v in batch.items()},
+        want_launches(flash_attention=attn * (2 if cfg.remat else 1), flash_attention_bwd=attn,
+                      fused_xent=1, fused_xent_bwd=1))
+    del model
+    torch.cuda.empty_cache()
+    return dict(f32_loss_rel=loss_rel, f32_logit_rel=logit_rel, f32_drops=drops,
+                f32_decode_rel=rel, f32_kernel_vs_plain_loss_rel=grads["f32_loss_rel"],
+                f32_grad_rel=grads["f32_grad_rel"], f32_launches=grads["f32_launches"],
+                f32_route_flips=grads["f32_route_flips"])
+
+
+def phase_vlm():
+    """Phase 12: InternVL2-26B (the vlm patch prefix on the dense stack).
+    Served at full width and depth (48 layers, bf16): a prefill of 4 x (256
+    patch embeddings drawn from a seed + 224 text tokens), 48 B5 launches;
+    the serve loop on text (48 B6 launches a step).  Trained at
+    VLM_TRAIN_LAYERS (48 layers: theta and its gradient alone are 79 GB) on
+    4 x (256 patches + 256 tokens), remat, three SGD steps.  At 2 layers in
+    f32, the card's loss and prefill logits with patches against the CPU's."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import make_prompts, serve_config
+    from repro_torch.launch.shapes import SHAPES, shape_settings
+    from repro_torch.launch.steps import make_train_step
+
+    t_phase = time.perf_counter()
+    cfg = serve_config(VLM_ARCH, full=True)
+    model = _draw_model("phase12", cfg, 0, VLM_PARAMS)
+    b, npx = SERVE_BATCH, cfg.n_prefix_tokens
+    g = torch.Generator(device=DEVICE).manual_seed(3)
+    patches = torch.randn((b, npx, cfg.d_model), generator=g, device=DEVICE).to(model.dtype)
+    text = torch.from_numpy(make_prompts(0, cfg.vocab, b, VLM_TEXT)).to(DEVICE)
+    serve = _slice_serve("phase12", model, {"tokens": text, "patches": patches},
+                         shares={"B5 forward": ("flash_fwd_tc_kernel",)})
+    del model
+    torch.cuda.empty_cache()
+
+    tcfg = dataclasses.replace(get_config(VLM_ARCH), n_layers=VLM_TRAIN_LAYERS,
+                               **shape_settings(SHAPES["train_4k"]))
+    model = _draw_model("phase12 train", tcfg, 1)
+    batch = _train_batch(TRAIN_BATCH, TRAIN_SEQ - npx)
+    batch["patches"] = torch.randn((TRAIN_BATCH, npx, tcfg.d_model), generator=g,
+                                   device=DEVICE).to(model.dtype)
+    step = make_train_step(model, TRAIN_LR)
+    # B4's route by its rule: InternVL2's vocab of 92,553 is no multiple of
+    # 8, so TMA cannot read the head and B4 takes its f32-FMA route
+    xent = "fused_xent" + ("_tc" if _xent_route(model) == "tensor_cores" else "")
+    per_step = want_launches(flash_attention_tc=tcfg.n_layers * 2,
+                             flash_attention_bwd_tc=tcfg.n_layers,
+                             **{xent: 1, xent.replace("xent", "xent_bwd"): 1})
+    train, wall_us = _three_steps("phase12 train", step, batch, per_step)
+    _profile_report(f"phase12 {tcfg.name} train step ({tcfg.n_layers} layers, B "
+                    f"{TRAIN_BATCH} x ({npx} patches + {TRAIN_SEQ - npx} tokens), bf16, remat)",
+                    lambda: step(batch), wall_us, 1,
+                    shares={"B5 forward": ("flash_fwd_tc_kernel",),
+                            "B5 backward": ("flash_bwd_dkdv_tc_kernel", "flash_bwd_dq_tc_kernel",
+                                            "flash_bwd_delta_kernel"),
+                            "B4 (f32-FMA route)": ("xent_fwd_kernel", "xent_combine_kernel",
+                                                   "xent_grad"),
+                            "f32 products (SIMT SGEMM)": ("sgemm",)})
+    del model, step, batch
+    torch.cuda.empty_cache()
+
+    fcfg = dataclasses.replace(get_config(VLM_ARCH), n_layers=VLM_F32_LAYERS)
+    rng = torch.Generator().manual_seed(4)
+    small = {"tokens": torch.randint(0, TRAIN_VOCAB, (1, VLM_F32_TEXT), generator=rng),
+             "labels": torch.randint(0, TRAIN_VOCAB, (1, VLM_F32_TEXT), generator=rng),
+             "patches": torch.randn((1, VLM_F32_PATCHES, fcfg.d_model), generator=rng)}
+    f32 = _f32_against_cpu("phase12 f32", fcfg, small, 5)
+    out = dict(serve=serve, train=train, **f32, seconds=time.perf_counter() - t_phase)
+    log(f"phase12 took {out['seconds']:.1f} s")
+    return out
+
+
+def phase_moe():
+    """Phase 13: MLA and MoE.  DeepSeek-V2-Lite and Qwen3-30B-A3B served at
+    full width and depth (bf16): a 4 x 480 prefill and the serve loop
+    (DeepSeek's on the MLA latent cache, no attention kernel; Qwen3's
+    through B5 and B6).  DeepSeek-V2-Lite trained at full depth (4 x 512,
+    remat, three SGD steps), with the (token, k) pairs dropped past capacity
+    at each MoE layer of the train batch; at a cut depth in f32, each model's
+    loss, prefill logits and routing on the card against the CPU's."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import make_prompts, serve_config
+    from repro_torch.launch.shapes import SHAPES, shape_settings
+    from repro_torch.launch.steps import make_train_step
+
+    t_phase = time.perf_counter()
+    out = {}
+    for arch, want_params, label in (("deepseek-v2-lite-16b", DSV2_PARAMS, "dsv2"),
+                                     ("qwen3-moe-30b-a3b", QMOE_PARAMS, "qmoe")):
+        cfg = serve_config(arch, full=True)
+        model = _draw_model(f"phase13 {label}", cfg, 0, want_params)
+        prompts = torch.from_numpy(make_prompts(0, cfg.vocab, SERVE_BATCH, SERVE_PROMPT))
+        shares = {"bf16 products (cuBLAS)": ("nvjet", "gemm", "bf16")}
+        if not cfg.kv_lora_rank:
+            shares["B5 forward"] = ("flash_fwd_tc_kernel",)
+        out[label] = _slice_serve(f"phase13 {label}", model, {"tokens": prompts.to(DEVICE)},
+                                  shares)
+        del model
+        torch.cuda.empty_cache()
+
+    tcfg = dataclasses.replace(get_config("deepseek-v2-lite-16b"), n_layers=DSV2_TRAIN_LAYERS,
+                               **shape_settings(SHAPES["train_4k"]))
+    model = _draw_model("phase13 dsv2 train", tcfg, 1)
+    batch = _train_batch(TRAIN_BATCH, TRAIN_SEQ)
+    step = make_train_step(model, TRAIN_LR)
+    with _Routing() as routing:
+        train, wall_us = _three_steps("phase13 dsv2 train", step, batch,
+                                      want_launches(fused_xent_tc=1, fused_xent_bwd_tc=1))
+    # the first step's forward: its MoE calls come first, layer by layer
+    n_moe = sum(sp.n for sp in model.plan if sp.kind == "moe")
+    drops = [int((~k).sum()) for k in routing.kept[:n_moe]]
+    _profile_report(f"phase13 {tcfg.name} train step ({tcfg.n_layers} layers, B {TRAIN_BATCH} "
+                    f"x {TRAIN_SEQ}, bf16, remat)", lambda: step(batch), wall_us, 1,
+                    shares={"B4": ("xent_fwd_tc_kernel", "xent_combine_kernel",
+                                   "xent_bwd_tc_kernel")})
+    log(f"phase13 dsv2 train batch: (token, k) pairs dropped past capacity by MoE layer "
+        f"{drops} of {TRAIN_BATCH * TRAIN_SEQ * tcfg.top_k} a layer (capacity "
+        f"{_capacity(tcfg, TRAIN_BATCH * TRAIN_SEQ)} an expert)")
+    train["drops_by_layer"] = drops
+    out["dsv2_train"] = train
+    del model, step, batch
+    torch.cuda.empty_cache()
+
+    for arch, layers, label in (("deepseek-v2-lite-16b", DSV2_F32_LAYERS, "dsv2"),
+                                ("qwen3-moe-30b-a3b", QMOE_F32_LAYERS, "qmoe")):
+        fcfg = dataclasses.replace(get_config(arch), n_layers=layers)
+        rng = torch.Generator().manual_seed(6)
+        small = {name: torch.randint(0, TRAIN_VOCAB, (1, MOE_F32_TOKENS), generator=rng)
+                 for name in ("tokens", "labels")}
+        out[label].update(_f32_against_cpu(f"phase13 {label} f32", fcfg, small, 7))
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase13 took {out['seconds']:.1f} s")
+    return out
+
+
+def _capacity(cfg, tokens: int) -> int:
+    from repro_torch.models.moe import capacity
+    from repro_torch.models.transformer import moe_cfg
+    return capacity(tokens, moe_cfg(cfg))
+
+
+def phase_moe_round():
+    """Phase 14: the Pigeon-SL round over from_lm at DeepSeek-V2-Lite's full
+    width, depth cut to MOE_ROUND_LAYERS (theta about phase 8's 12-layer
+    Qwen3-8B; R = 2 candidates and gradients), phase 8's task and protocol
+    (M 4, N 1, T 2, E 2, B 4, label flip on client 0, Pigeon-SL+): no wire,
+    and int8 under loss_plus_distance, each on the sequential and the
+    batched engine (the cluster-stacked MoE, each slot routed as its plain
+    model) from one init.  Decisions equal; launches as the rounds'
+    structure predicts (no attention kernel: MLA); seconds a round and peak
+    memory."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import LABEL_FLIP, Attack, ProtocolConfig, from_lm
+    from repro_torch.data import build_lm_task
+    from repro_torch.launch.shapes import SHAPES, shape_settings
+    from repro_torch.models import build_model
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config("deepseek-v2-lite-16b"), n_layers=MOE_ROUND_LAYERS,
+                              cut_layer=MOE_ROUND_CUT, **shape_settings(SHAPES["train_4k"]))
+    data = build_lm_task(**ROUND_TASK)
+    model = build_model(cfg, DEVICE)
+    n_params = sum(x.numel() for x in model.parameters())
+    log(f"phase14 {cfg.name}: {cfg.n_layers} layers (cut {cfg.cut_layer}) "
+        f"{[(sp.kind, sp.n) for sp in model.plan]}, {cfg.dtype}, remat={cfg.remat}: "
+        f"{n_params:,} parameters ({n_params * 2 / 1e9:.2f} GB a copy)")
+    pcfg = ProtocolConfig(M=4, N=1, T=2, E=2, B=4, lr=1e-3)
+    no_attn = dict.fromkeys(("flash_attention_tc", "flash_attention_bwd_tc"), 0)
+    out = {}
+    for quant, selection in MOE_ROUND_RUNS:
+        hists = {}
+        for engine in ("sequential", "batched"):
+            key = f"{engine}_{quant}_{selection}"
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            name = f"phase14 round {engine} quant={quant} selection={selection}"
+            hist, launches, seconds = _run(name, from_lm(model), data, pcfg, malicious={0},
+                                           attack=Attack(LABEL_FLIP), plus=True,
+                                           selection=selection, quant=quant, engine=engine,
+                                           device=DEVICE)
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            stats = selection != "argmin"
+            count = _batched_round_launches if engine == "batched" else _round_launches
+            want = {**count(cfg, pcfg, hist, quant, data.x_test.shape[0], stats=stats),
+                    **no_attn}
+            check(launches == want, f"{name}: launches {launches}, want {want}")
+            log(f"{name}: {seconds / pcfg.T:.2f} s/round (init and first-call set-up "
+                f"included); peak device memory {peak_gb:.2f} GB")
+            hists[engine] = hist
+            out[key] = dict(launches=launches, s_per_round=seconds / pcfg.T, peak_gb=peak_gb)
+        for rb, rs in zip(hists["batched"].rounds, hists["sequential"].rounds):
+            for k in ROUND_DECISIONS:
+                check(rb[k] == rs[k], f"phase14 quant={quant} round {rb['round']}: {k} "
+                                      f"batched={rb[k]} sequential={rs[k]}")
+        gap = _round_float_gap(hists["batched"], hists["sequential"])
+        out[f"batched_{quant}_{selection}"]["float_gap"] = gap
+        log(f"phase14 quant={quant} selection={selection}: decisions equal on both engines; "
+            f"largest float gap {gap:.3e}")
+    del model
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase14 took {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> None:
     if not (ROOT / "src" / "repro_torch").is_dir():
         fail(f"no src/repro_torch next to {Path(__file__).name}: run it from a "
@@ -4027,29 +4788,41 @@ def main() -> None:
                 log(f"  ptxas {name}: {line.strip()[:160]}")
     sass = phase_sass()
 
-    kernels = phase_kernels()
+    seconds = {"build": round(time.perf_counter() - t0, 1)}
+
+    def phase(name, fn, *args):
+        """fn(*args), its wall seconds kept under ``name``."""
+        t1 = time.perf_counter()
+        result = fn(*args)
+        seconds[name] = round(time.perf_counter() - t1, 1)
+        return result
+
+    kernels = phase("1", phase_kernels)
     torch.cuda.reset_peak_memory_stats()    # phase 5's peak: the protocol phases only
-    main_path = _cifar_main_path()
-    seq_hist, seq_launches, s_per_round = phase_cifar(main_path)
-    launches, b_per_round = phase_cifar_batched(main_path, seq_hist, s_per_round)
-    baselines = phase_baselines(main_path)
-    multiround = phase_multiround(main_path)
-    sweep_pool = phase_sweep_pool(main_path)
-    phase_mnist()
-    phase_cpu_vs_card()
-    phase_lm_cpu_vs_card()
-    phase_lm_round_cpu_vs_card()
-    phase_profile()
-    phase_profile_batched(main_path)
+    main_path = phase("2 data", _cifar_main_path)
+    seq_hist, seq_launches, s_per_round = phase("2", phase_cifar, main_path)
+    launches, b_per_round = phase("2b", phase_cifar_batched, main_path, seq_hist, s_per_round)
+    baselines = phase("2c", phase_baselines, main_path)
+    multiround = phase("2d", phase_multiround, main_path)
+    sweep_pool = phase("2e", phase_sweep_pool, main_path)
+    phase("3", phase_mnist)
+    phase("4", phase_cpu_vs_card)
+    phase("4 lm", phase_lm_cpu_vs_card)
+    phase("4 lm round", phase_lm_round_cpu_vs_card)
+    phase("5", phase_profile)
+    phase("5 batched", phase_profile_batched, main_path)
     del main_path
-    serve = phase_serve()
-    train = phase_train()
-    rounds, round_hists = phase_round()
-    batched_lm = phase_round_batched(round_hists)
+    serve = phase("6", phase_serve)
+    train = phase("7", phase_train)
+    rounds, round_hists = phase("8", phase_round)
+    batched_lm = phase("8b", phase_round_batched, round_hists)
     del round_hists
-    xlstm = phase_xlstm()
-    xlstm_train = phase_xlstm_train()
-    xlstm_rounds = phase_xlstm_round()
+    xlstm = phase("9", phase_xlstm)
+    xlstm_train = phase("10", phase_xlstm_train)
+    xlstm_rounds = phase("11", phase_xlstm_round)
+    vlm = phase("12", phase_vlm)
+    moe = phase("13", phase_moe)
+    moe_rounds = phase("14", phase_moe_round)
 
     sources = {"quant_dequant": ("src/repro/kernels/quant_exchange.py:85",
                                  "src/repro_torch/kernels/csrc/quant_exchange.cu"),
@@ -4105,6 +4878,14 @@ def main() -> None:
                "xlstm_decode": xlstm["loop_launches"],
                "xlstm_train": xlstm_train["launches"],
                **{f"xlstm_round_{q}": r["launches"] for q, r in xlstm_rounds.items()
+                  if isinstance(r, dict)},
+               "vlm_prefill": vlm["serve"]["prefill_launches"],
+               "vlm_serve_loop": vlm["serve"]["loop_launches"],
+               "vlm_train": vlm["train"]["launches"],
+               **{f"{m}_{what}": moe[m][f"{what}_launches"] for m in ("dsv2", "qmoe")
+                  for what in ("prefill", "loop")},
+               "dsv2_train": moe["dsv2_train"]["launches"],
+               **{f"moe_round_{q}": r["launches"] for q, r in moe_rounds.items()
                   if isinstance(r, dict)}}
     # B5's and B4's forwards and backwards and B6: the entry is the
     # tensor-core route, which the bf16 paths take; the f32-FMA route it
@@ -4237,6 +5018,15 @@ def main() -> None:
                 bound_ms=ms(lb["bound_us"]), bound_by=lb["bound_by"],
                 library_ms=ms(lb.get("library_us")),
                 library_device_ms=ms(lb.get("library_dev_us")))
+        if "slice_shapes" in k:
+            # phases 12-14's own shapes (phase 1), with the launches of the
+            # path each comes from
+            entry["slice_shapes"] = [dict(
+                shape=t["shape"], path=t["path"], route=t["route"],
+                launches=None if t["path"] is None else by_path[t["path"]][
+                    key if t["route"] == "tensor_cores" else name],
+                **{e: t[e] for e in ("max_abs_err", "max_rel_err") if e in t},
+                ms=ms(t["kernel_us"])) for t in k["slice_shapes"]]
         if "lm_message" in k:
             # the LM round's cut message (B3's wide path)
             lm = k["lm_message"]
@@ -4246,6 +5036,28 @@ def main() -> None:
                 device_ms_l2_cold=ms(lm["kernel_cold_us"]), plain_ms=ms(lm["plain_us"]),
                 plain_device_ms=ms(lm["plain_dev_us"]), bound_ms=ms(lm["bound_us"]),
                 bound_by=lm["bound_by"])
+        if "non_causal" in k:
+            # B5's non-causal mode (phase 1 only: no path of the port calls
+            # it before the encoder-decoder slice)
+            nc = k["non_causal"]
+            entry["non_causal"] = dict(
+                shape=nc["shape"], launches=0, max_abs_err=nc["max_abs_err"],
+                max_abs_err_by_route=nc["max_abs_err_by_route"], ms=ms(nc["kernel_us"]),
+                device_ms_l2_warm=ms(nc["kernel_dev_us"]),
+                device_ms_l2_cold=ms(nc["kernel_cold_us"]), plain_ms=ms(nc["plain_us"]),
+                bound_ms=ms(nc["bound_us"]), bound_by=nc["bound_by"],
+                library_ms=ms(nc["library_us"]), library_device_ms=ms(nc["library_dev_us"]),
+                f32_fma_route=dict(ms=ms(nc["f32_fma_route"]["kernel_us"]),
+                                   device_ms_l2_warm=ms(nc["f32_fma_route"]["kernel_dev_us"]),
+                                   device_ms_l2_cold=ms(nc["f32_fma_route"]["kernel_cold_us"])),
+                others=[dict(shape=t["shape"], ms=ms(t["kernel_us"]),
+                             device_ms_l2_warm=ms(t["kernel_dev_us"]),
+                             device_ms_l2_cold=ms(t["kernel_cold_us"]), plain_ms=ms(t["plain_us"]),
+                             bound_ms=ms(t["bound_us"]), bound_by=t["bound_by"],
+                             library_ms=ms(t["library_us"]),
+                             library_device_ms=ms(t["library_dev_us"]),
+                             f32_fma_route_device_ms=ms(t["f32_fma_route"]["kernel_dev_us"]))
+                        for t in nc["others"]])
         if "long_context" in k:
             lc = k["long_context"]
             entry["long_context"] = dict(
@@ -4266,7 +5078,9 @@ def main() -> None:
         f"phase2d multiround {multiround}; phase2e sweep and pool {sweep_pool}; "
         f"phase6 serve {serve}; phase7 train {train}; "
         f"phase8 rounds {rounds}; phase8b batched LM {batched_lm}; phase9 xlstm {xlstm}; "
-        f"phase10 xlstm train {xlstm_train}; phase11 xlstm rounds {xlstm_rounds}")
+        f"phase10 xlstm train {xlstm_train}; phase11 xlstm rounds {xlstm_rounds}; "
+        f"phase12 vlm {vlm}; phase13 moe {moe}; phase14 moe rounds {moe_rounds}")
+    log(f"phase seconds {seconds}; {time.perf_counter() - t0:.1f} s since the build began")
     log(json.dumps({"kernels": entries}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -22,7 +22,12 @@ The LM's parameters are the pytree of the reference's ``Model.init``::
                           "q_norm"?: {"scale": (n, D)}, "k_norm"?},
                  "mlp": {"gate": {"w"}, "up": {"w"}, "down": {"w"}}},)}
 
-An xLSTM model's stacks hold ``{"ln": {"scale"}, "mixer": {...}}`` the same
+A MoE's stacks hold ``dense_mlp`` layers (the dense layout above) and
+``moe`` layers: ``{"ln1", "attn", "ln2", "moe": {"router": (n, d, E), "gate":
+(n, E, d, F), "up", "down": (n, E, F, d), "shared"?: {"gate": {"w"}, "up",
+"down"}}}``; an MLA layer's ``attn`` is ``{"wq", "w_dkv", "kv_norm":
+{"scale"}, "w_uk", "w_uv", "wo"}`` (each ``{"w"}``).  A vlm's tree is the
+dense one.  An xLSTM model's stacks hold ``{"ln": {"scale"}, "mixer": {...}}`` the same
 way: an mLSTM layer's mixer ``up``, ``wq``, ``wk``, ``wv``, ``w_if`` (+ ``b``),
 ``out_norm`` and ``down``; an sLSTM layer's ``w_in`` (+ ``b``), the bare
 array ``r`` (n, H, dh, 4dh), ``out_norm`` and ``down``.
@@ -130,8 +135,8 @@ def _leaf(tree: Tree, path: str):
 
 @torch.no_grad()
 def lm_from_reference(cfg: ModelConfig, params: Tree) -> Model:
-    """The reference's LM parameter pytree (dense or xLSTM) -> the port's
-    :class:`Model`, on the CPU."""
+    """The reference's LM parameter pytree (dense, vlm, MoE or xLSTM) -> the
+    port's :class:`Model`, on the CPU."""
     model = build_model(cfg, "cpu")
     if len(params["stacks"]) != len(model.stacks):
         raise ValueError(f"{len(params['stacks'])} stacks in the tree, {len(model.stacks)} "

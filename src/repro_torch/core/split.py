@@ -95,9 +95,9 @@ def from_lm(model) -> SplitModule:
     model built on the card is drawn there (a CPU draw of an 8 B model takes
     minutes), one built on the CPU on the CPU, so runs on either device from
     one template start alike.  The cluster-stacked form is the
-    ``models.StackedModel`` of the model's config (dense or xLSTM): x (R, B, S)
-    tokens, y (R, B, S) labels, a shared (D_o, S) label set broadcast to
-    every slot."""
+    ``models.StackedModel`` of the model's config (dense, vlm, MoE or
+    xLSTM): x (R, B, S) tokens, y (R, B, S) labels, a shared (D_o, S) label
+    set broadcast to every slot."""
     from ..models.model import StackedModel
 
     def make(r: int, replicas: int = 1):

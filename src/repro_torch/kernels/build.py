@@ -56,13 +56,15 @@ SOURCES: Dict[str, Dict[str, Tuple]] = {
         "repro_tamper_check_constants": (_P,),
     },
     "flash_attention": {
-        # q, k, v, out, lse, b, sq, sk, h, hkv, d, window, scale, dtype, stream
-        "repro_flash_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I,
-                                  _P),
+        # q, k, v, out, lse, b, sq, sk, h, hkv, d, window, causal, scale, dtype,
+        # stream
+        "repro_flash_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
+                                  _I, _P),
     },
     "flash_attention_tc": {
-        # q, k, v, out, lse, b, sq, sk, h, hkv, d, window, scale, stream
-        "repro_flash_attention_tc": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P),
+        # q, k, v, out, lse, b, sq, sk, h, hkv, d, window, causal, scale, stream
+        "repro_flash_attention_tc": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
+                                     _P),
     },
     "flash_attention_bwd": {
         # q, k, v, out, dout, lse, delta, dq, dk, dv, b, sq, sk, h, hkv, d,

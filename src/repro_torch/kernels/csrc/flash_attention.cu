@@ -1,4 +1,4 @@
-// Causal GQA flash attention (prefill) for Hopper (sm_90a), bound to Python
+// GQA flash attention (prefill; causal, or not) for Hopper (sm_90a), bound to Python
 // through a plain C interface (ctypes).
 //
 // Replaces the TPU kernel of src/repro/kernels/flash_attention.py:
@@ -25,7 +25,11 @@
 //   * grid (ceil(Sq / BQ), H, B); 128 threads; BQ = 16 * TM query rows.
 //   * The block walks the key tiles that hold a live key, in ascending order:
 //     [max(0, q0 - window + 1), min(Sk, q0 + BQ)): query i sees keys j <= i,
-//     and with a window only i - j < window.
+//     and with a window only i - j < window.  With causal == 0 (a runtime
+//     argument; the reference kernel's `causal` flag) query i sees every key
+//     but for the window test, the walk runs to Sk, and Sq may exceed Sk; a
+//     row with no live key gets the reference kernel's value for it
+//     (attention_rows.cuh).
 //   * Masked entries contribute exactly 0 to the row sum and the
 //     accumulator: a masked score is -inf, and exp(-inf - m) == 0 for the
 //     finite running max m (which starts at -1e30, as the reference's).  So
@@ -36,6 +40,8 @@
 //   * The window is a runtime argument (0 = none), so one build serves every
 //     layer of a local/global stack.
 //   * Determinism: every sum runs in a fixed order (no atomics).
+
+#include "attention_rows.cuh"
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -88,7 +94,7 @@ template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  T* __restrict__ out, float* __restrict__ lse, int sq, int sk, int h,
-                 int hkv, int window, float scale) {
+                 int hkv, int window, int causal, float scale) {
   using C = Tile<D>;
   extern __shared__ float smem[];
   float* qs = smem;                    // BQ x LD
@@ -125,7 +131,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     for (int c = 0; c < C::DC; ++c) acc[i][c] = 0.f;
   }
 
-  const int k_end = min(sk, q0 + C::BQ);
+  const int k_end = causal ? min(sk, q0 + C::BQ) : sk;
   const int k_begin = window > 0 ? max(0, q0 - window + 1) : 0;
 
   for (int kt = k_begin; kt < k_end; kt += C::BK) {
@@ -166,7 +172,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 #pragma unroll
       for (int jj = 0; jj < C::TN; ++jj) {
         const int key = kt + tx + 8 * jj;
-        const bool live = key <= qi && key < k_end && (window <= 0 || qi - key < window);
+        const bool live = (!causal || key <= qi) && key < k_end &&
+                          (window <= 0 || qi - key < window);
         s[i][jj] = live ? s[i][jj] * scale : -INFINITY;
         mx = fmaxf(mx, s[i][jj]);
       }
@@ -204,6 +211,18 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   for (int i = 0; i < C::TM; ++i) {
     const int qi = q0 + ty * C::TM + i;
     if (qi >= sq) continue;
+    if (l[i] == 0.f) {
+      // no live key (only without causal): the reference kernel's value
+      const int kb = dead_row_begin(qi, sq, sk, window);
+      const float inv = kb < sk ? 1.f / static_cast<float>(sk - kb) : 0.f;
+#pragma unroll
+      for (int c = 0; c < C::DC; ++c) {
+        float a = 0.f;
+        for (int key = kb; key < sk; ++key) a += to_f32(vb[key * kv_step + tx + 8 * c]);
+        acc[i][c] = a * inv;
+      }
+      l[i] = 1.f;                    // acc holds the value itself
+    }
     const float denom = fmaxf(l[i], 1e-30f);
     T* o = out + (static_cast<int64_t>(b) * sq * h + head) * D + qi * q_step;
 #pragma unroll
@@ -216,7 +235,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* out, float* lse, int b, int sq,
-           int sk, int h, int hkv, int window, float scale, cudaStream_t stream) {
+           int sk, int h, int hkv, int window, int causal, float scale,
+           cudaStream_t stream) {
   using C = Tile<D>;
   auto kernel = flash_fwd_kernel<T, D>;
   // Raise the dynamic shared memory cap once, on the first call (before any
@@ -231,21 +251,25 @@ int launch(const void* q, const void* k, const void* v, void* out, float* lse, i
   const dim3 grid((sq + C::BQ - 1) / C::BQ, h, b);
   kernel<<<grid, kThreads, C::kSmem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), lse, sq, sk, h, hkv, window, scale);
+      static_cast<T*>(out), lse, sq, sk, h, hkv, window, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int dispatch(int d, const void* q, const void* k, const void* v, void* out, float* lse, int b,
-             int sq, int sk, int h, int hkv, int window, float scale, cudaStream_t stream) {
+             int sq, int sk, int h, int hkv, int window, int causal, float scale,
+             cudaStream_t stream) {
+#define REPRO_FLASH_CASE(D) \
+  case D: return launch<T, D>(q, k, v, out, lse, b, sq, sk, h, hkv, window, causal, scale, stream)
   switch (d) {
-    case 32: return launch<T, 32>(q, k, v, out, lse, b, sq, sk, h, hkv, window, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, out, lse, b, sq, sk, h, hkv, window, scale, stream);
-    case 80: return launch<T, 80>(q, k, v, out, lse, b, sq, sk, h, hkv, window, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, out, lse, b, sq, sk, h, hkv, window, scale, stream);
-    case 256: return launch<T, 256>(q, k, v, out, lse, b, sq, sk, h, hkv, window, scale, stream);
+    REPRO_FLASH_CASE(32);
+    REPRO_FLASH_CASE(64);
+    REPRO_FLASH_CASE(80);
+    REPRO_FLASH_CASE(128);
+    REPRO_FLASH_CASE(256);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef REPRO_FLASH_CASE
 }
 
 }  // namespace
@@ -255,18 +279,20 @@ int dispatch(int d, const void* q, const void* k, const void* v, void* out, floa
 // shapes and contiguity and allocates `out` (B, Sq, H, D) and `lse`
 // (B, H, Sq) f32, the rows' log-sum-exp that the backward reads.
 // dtype: 0 = f32, 1 = bf16.  head_dim one of 32, 64, 80, 128, 256;
-// 1 <= Sq <= Sk.
+// causal 1 (1 <= Sq <= Sk) or 0 (any Sq, Sk >= 1).
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v, void* out,
                                      float* lse, int b, int sq, int sk, int h, int hkv, int d,
-                                     int window, float scale, int dtype, void* stream) {
-  if (b <= 0 || b > 65535 || sq <= 0 || sq > sk || h <= 0 || h > 65535 || hkv <= 0 ||
-      h % hkv != 0 || window < 0) {
+                                     int window, int causal, float scale, int dtype,
+                                     void* stream) {
+  if (b <= 0 || b > 65535 || sq <= 0 || sk <= 0 || (causal && sq > sk) || h <= 0 ||
+      h > 65535 || hkv <= 0 || h % hkv != 0 || window < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch<float>(d, q, k, v, out, lse, b, sq, sk, h, hkv, window, scale, s);
+    return dispatch<float>(d, q, k, v, out, lse, b, sq, sk, h, hkv, window, causal, scale, s);
   if (dtype == 1)
-    return dispatch<__nv_bfloat16>(d, q, k, v, out, lse, b, sq, sk, h, hkv, window, scale, s);
+    return dispatch<__nv_bfloat16>(d, q, k, v, out, lse, b, sq, sk, h, hkv, window, causal,
+                                   scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,4 +1,4 @@
-// Causal GQA flash attention (prefill) on Hopper's tensor cores (sm_90a):
+// GQA flash attention (prefill; causal, or not) on Hopper's tensor cores (sm_90a):
 // the bf16 route of B5's forward, bound to Python through a plain C
 // interface (ctypes).  flash_attention.cu keeps the f32 route.
 //
@@ -36,15 +36,25 @@
 //
 // Semantics of the f32 route, kept:
 //   * causal (key <= query) and, with window > 0, query - key < window;
+//     with causal == 0 every key is live but for the window test (keys ahead
+//     of the query stay live) and Sq may exceed Sk: the reference kernel's
+//     `causal` flag, one runtime argument of the same kernel;
 //   * the running max starts at -1e30 and a masked score is -inf, so it
 //     contributes exactly 0; a warpgroup skips a tile none of its rows can
 //     see (which would change nothing);
 //   * the block walks only the key tiles that hold a live key,
-//     [max(0, q0 - window + 1), min(Sk, q0 + 128));
+//     [max(0, q0 - window + 1), min(Sk, q0 + 128)) (causal) or
+//     [max(0, q0 - window + 1), Sk);
+//   * a row with no live key (causal == 0, a window, a query at or past
+//     Sk + window - 1) gets what the reference kernel gives it: the mean of v
+//     over the keys of the 128-key tiles its 128-query tile finds live, or 0
+//     where there are none (dead_row_mean; kernels/flash_attention.py::
+//     dead_row_range);
 //   * tails in Sq and Sk need no divisibility: TMA fills rows outside the
 //     tensor with zeros (masked or not stored);
 //   * every sum runs in a fixed order, no atomics: reruns are bit-identical.
 
+#include "attention_rows.cuh"
 #include "sm90.cuh"
 
 #include <math.h>
@@ -86,9 +96,10 @@ __device__ __forceinline__ void mma_rs(float (&d)[N / 2], const uint32_t (&a)[4]
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-                    const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ out,
+                    const __grid_constant__ CUtensorMap tv,
+                    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
                     float* __restrict__ lse, int sq, int sk, int h, int hkv, int window,
-                    float scale_log2) {
+                    int causal, float scale_log2) {
   using C = TcTile<D>;
   constexpr int BK = C::BK;
   extern __shared__ uint8_t smem_raw[];
@@ -107,9 +118,9 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
   const int head = blockIdx.y;
   const int b = blockIdx.z;
   const int kvh = head / (h / hkv);
-  const int k_end = min(sk, q0 + BQ);
+  const int k_end = causal ? min(sk, q0 + BQ) : sk;
   const int k_begin = window > 0 ? max(0, q0 - window + 1) : 0;
-  const int n_tiles = (k_end - k_begin + BK - 1) / BK;
+  const int n_tiles = k_end > k_begin ? (k_end - k_begin + BK - 1) / BK : 0;
 
   auto load_kv = [&](int tile, int stage) {
     const int kt = k_begin + tile * BK;
@@ -133,7 +144,7 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
 #pragma unroll
     for (int j = 0; j < C::NB; ++j)
       sm90::tma_load_4d(qs + j * BQ * 128, &tq, &bars[0], 64 * j, head, q0, b);
-    load_kv(0, 0);
+    if (n_tiles > 0) load_kv(0, 0);
     if (n_tiles > 1) load_kv(1, 1);
   }
 
@@ -151,7 +162,8 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
     const int stage = i & 1;
     const int kt = k_begin + i * BK;
     sm90::mbar_wait(&bars[1 + stage], (i >> 1) & 1);
-    const bool seen = kt <= wg_first + 63 && (window <= 0 || kt + BK - 1 > wg_first - window);
+    const bool seen = (!causal || kt <= wg_first + 63) &&
+                      (window <= 0 || kt + BK - 1 > wg_first - window);
     if (seen) {
       // S = Q K^T
       float s[BK / 2];
@@ -184,7 +196,8 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
           for (int c = 0; c < 2; ++c) {
             const int idx = 4 * j8 + 2 * half + c;
             const int key = kt + 8 * j8 + 2 * quad + c;
-            const bool live = key <= row && key < k_end && (window <= 0 || row - key < window);
+            const bool live = (!causal || key <= row) && key < k_end &&
+                              (window <= 0 || row - key < window);
             s[idx] = live ? s[idx] * scale_log2 : -INFINITY;
             mx = fmaxf(mx, s[idx]);
           }
@@ -244,6 +257,24 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
   for (int half = 0; half < 2; ++half) {
     const int row = row0 + 8 * half;
     if (row >= sq) continue;
+    if (l[half] == 0.f) {
+      // no live key (only without causal): the reference kernel's value
+      const int kb = dead_row_begin(row, sq, sk, window);
+      const float inv = kb < sk ? 1.f / static_cast<float>(sk - kb) : 0.f;
+      const __nv_bfloat16* vb = v + (static_cast<int64_t>(b) * sk * hkv + kvh) * D;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        float a0 = 0.f, a1 = 0.f;
+        for (int key = kb; key < sk; ++key) {
+          const __nv_bfloat16* src = vb + static_cast<int64_t>(key) * hkv * D + 8 * j + 2 * quad;
+          a0 += __bfloat162float(src[0]);
+          a1 += __bfloat162float(src[1]);
+        }
+        o[4 * j + 2 * half] = a0 * inv;
+        o[4 * j + 2 * half + 1] = a1 * inv;
+      }
+      l[half] = 1.f;                 // o holds the value itself
+    }
     const float denom = fmaxf(l[half], 1e-30f);
     __nv_bfloat16* dst = out + (static_cast<int64_t>(b) * sq + row) * q_step +
                          static_cast<int64_t>(head) * D;
@@ -270,7 +301,7 @@ int encode_bshd(CUtensorMap* map, const void* base, int b, int s, int heads, int
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* out, float* lse, int b, int sq,
-           int sk, int h, int hkv, int window, float scale, cudaStream_t stream) {
+           int sk, int h, int hkv, int window, int causal, float scale, cudaStream_t stream) {
   using C = TcTile<D>;
   CUtensorMap tq, tk, tv;
   int err = encode_bshd(&tq, q, b, sq, h, D, BQ);
@@ -288,8 +319,9 @@ int launch(const void* q, const void* k, const void* v, void* out, float* lse, i
     configured = true;
   }
   const dim3 grid((sq + BQ - 1) / BQ, h, b);
-  kernel<<<grid, kThreads, C::kSmem, stream>>>(tq, tk, tv, static_cast<__nv_bfloat16*>(out),
-                                               lse, sq, sk, h, hkv, window, scale * kLog2e);
+  kernel<<<grid, kThreads, C::kSmem, stream>>>(
+      tq, tk, tv, static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), lse,
+      sq, sk, h, hkv, window, causal, scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -300,19 +332,20 @@ int launch(const void* q, const void* k, const void* v, void* out, float* lse, i
 // and alignment (bf16, contiguous, 16-byte aligned base addresses, which
 // with D % 8 == 0 makes every stride TMA needs a multiple of 16 bytes) and
 // allocates `out` (B, Sq, H, D) bf16 and `lse` (B, H, Sq) f32.  head_dim
-// one of 64, 128, 256; 1 <= Sq <= Sk.
+// one of 64, 128, 256; causal 1 (1 <= Sq <= Sk) or 0 (any Sq, Sk >= 1).
 extern "C" int repro_flash_attention_tc(const void* q, const void* k, const void* v, void* out,
                                         float* lse, int b, int sq, int sk, int h, int hkv,
-                                        int d, int window, float scale, void* stream) {
-  if (b <= 0 || b > 65535 || sq <= 0 || sq > sk || h <= 0 || h > 65535 || hkv <= 0 ||
-      h % hkv != 0 || window < 0) {
+                                        int d, int window, int causal, float scale,
+                                        void* stream) {
+  if (b <= 0 || b > 65535 || sq <= 0 || sk <= 0 || (causal && sq > sk) || h <= 0 ||
+      h > 65535 || hkv <= 0 || h % hkv != 0 || window < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 64: return launch<64>(q, k, v, out, lse, b, sq, sk, h, hkv, window, scale, s);
-    case 128: return launch<128>(q, k, v, out, lse, b, sq, sk, h, hkv, window, scale, s);
-    case 256: return launch<256>(q, k, v, out, lse, b, sq, sk, h, hkv, window, scale, s);
+    case 64: return launch<64>(q, k, v, out, lse, b, sq, sk, h, hkv, window, causal, scale, s);
+    case 128: return launch<128>(q, k, v, out, lse, b, sq, sk, h, hkv, window, causal, scale, s);
+    case 256: return launch<256>(q, k, v, out, lse, b, sq, sk, h, hkv, window, causal, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -1,13 +1,20 @@
-"""Causal GQA attention over a whole sequence (the prefill's attention): the
-CUDA kernel (``csrc/flash_attention.cu``) and its plain PyTorch version.
+"""GQA attention over a whole sequence (the prefill's attention), causal or
+not: the CUDA kernels (``csrc/flash_attention.cu``,
+``csrc/flash_attention_tc.cu``) and their plain PyTorch version.
 
 Layout, as the model holds it: q (B, Sq, H, D); k, v (B, Sk, Hkv, D) with
 H % Hkv == 0; out (B, Sq, H, D) in q's dtype.  Query head h reads KV head
 ``h // (H // Hkv)``.  Query i attends to key j where ``j <= i`` (causal) and,
 with ``window > 0``, ``i - j < window``; scores are scaled by 1/sqrt(D).
+With ``causal=False`` (the reference's ``causal`` flag) only the window
+masks, keys ahead of the query stay live, and Sq may exceed Sk.  A query
+row with no live key (``causal=False``, a window, a query at or past ``Sk
++ window - 1``) takes the reference kernel's value for it, not the
+oracle's (:func:`dead_row_begin`).
 
   * :func:`flash_attention` — launches a forward kernel on CUDA tensors
-    (f32 or bf16, head_dim in :data:`HEAD_DIMS`, contiguous, 1 <= Sq <= Sk)
+    (f32 or bf16, head_dim in :data:`HEAD_DIMS`, contiguous, 1 <= Sq <= Sk
+    when causal)
     by the route :func:`attention_route` picks: ``tensor_cores``
     (``csrc/flash_attention_tc.cu``: wgmma with TMA loads; bf16, head_dim in
     :data:`TC_HEAD_DIMS`, 16-byte aligned) or ``f32_fma``
@@ -21,12 +28,14 @@ with ``window > 0``, ``i - j < window``; scores are scaled by 1/sqrt(D).
     loads; bf16, head_dim in :data:`TC_BWD_HEAD_DIMS`, 16-byte aligned) or
     ``f32_fma`` (``csrc/flash_attention_bwd.cu``; everything else).
   * :class:`FlashAttention` — the ``autograd.Function`` over the two, the
-    path of a CUDA call that needs a gradient.
+    path of a CUDA call that needs a gradient (causal only: the backward's
+    non-causal form comes with the encoder, ROADMAP.md Queue A item 10).
   * :func:`flash_attention_plain` — what ``repro/kernels/ref.py::
     mha_reference`` computes: the scores materialised in f32, GQA by
     repeating the KV heads, masked with -1e30, softmax in f32.  The CPU
     path and the comparisons on the card use it; its autograd is the
-    plain backward.
+    plain backward.  Its rows with no live key follow the reference
+    kernel (:func:`dead_row_begin`).
 
 ``kernels/ops.py`` picks between them by the tensor's device and by
 whether a gradient is needed.  The launchers count their launches by route
@@ -90,12 +99,14 @@ def attention_bwd_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return F32_FMA
 
 
-def _tile_live(q0: int, q1: int, k0: int, k1: int, sq: int, sk: int, window: int) -> bool:
+def _tile_live(q0: int, q1: int, k0: int, k1: int, sq: int, sk: int, window: int,
+               causal: bool = True) -> bool:
     """Whether queries [q0, q1] and keys [k0, k1] hold a live pair (the
-    kernels' skip rule: their largest query sees their first key, and the
-    window reaches from their first query to their last key)."""
+    kernels' skip rule: causal, their largest query sees their first key;
+    and the window reaches from their first query to their last key)."""
     q1, k1 = min(q1, sq - 1), min(k1, sk - 1)
-    return q0 < sq and k0 < sk and k0 <= q1 and (window <= 0 or q0 - k1 < window)
+    return (q0 < sq and k0 < sk and (not causal or k0 <= q1)
+            and (window <= 0 or q0 - k1 < window))
 
 
 def bwd_tc_walks(sq: int, sk: int, window: int = 0):
@@ -127,13 +138,35 @@ def bwd_tc_walks(sq: int, sk: int, window: int = 0):
     return dkdv, dq
 
 
-def causal_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, window: int = 0) -> torch.Tensor:
-    """(q, k) boolean mask, True = attend (the reference's ``causal_mask``)."""
+def causal_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, window: int = 0,
+                causal: bool = True) -> torch.Tensor:
+    """(q, k) boolean mask, True = attend (the reference's ``causal_mask``;
+    with ``causal=False`` only the window masks, as its kernel does)."""
     diff = q_pos[:, None] - k_pos[None, :]
-    mask = diff >= 0
+    mask = diff >= 0 if causal else torch.ones_like(diff, dtype=torch.bool)
     if window > 0:
         mask = mask & (diff < window)
     return mask
+
+
+#: the reference op's tiles (``repro/kernels/ops.py::flash_attention``'s
+#: block_q and block_k), which decide a dead row's value
+REF_BLOCK = 128
+
+
+def dead_row_begin(q: int, sq: int, sk: int, window: int) -> int:
+    """The first key of the keys whose mean of v a query row with no live
+    key gets (``causal=False``, a window, ``q >= Sk + window - 1``): the
+    reference kernel masks such a row to -1e30 in every key tile its query
+    tile finds live, its running max stays -1e30 and each of those keys
+    weighs exp(0) = 1.  The live tiles of a query tile (:data:`REF_BLOCK`
+    rows and keys, fewer where Sq or Sk is shorter) are a suffix of the
+    keys; the row's value is the mean of v over [this, Sk), or 0 where
+    that is empty (``ref.mha_reference`` instead gives the mean over all
+    Sk keys).  ``csrc/attention_rows.cuh`` is the same rule."""
+    bq, bk = min(REF_BLOCK, sq), min(REF_BLOCK, sk)
+    x = (q // bq) * bq - window - bk + 1
+    return 0 if x < 0 else (x // bk + 1) * bk
 
 
 def attend_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -160,12 +193,26 @@ def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                          window: int = 0) -> torch.Tensor:
-    """Plain version of :func:`flash_attention` (``ref.mha_reference``)."""
+                          causal: bool = True, window: int = 0) -> torch.Tensor:
+    """Plain version of :func:`flash_attention` (``ref.mha_reference``, but
+    for the rows with no live key: those follow the reference kernel,
+    :func:`dead_row_begin`)."""
     check_shapes(q, k, v)
-    mask = causal_mask(torch.arange(q.shape[1], device=q.device),
-                       torch.arange(k.shape[1], device=q.device), window)
-    return attend_plain(q, k, v, mask)
+    sq, sk = q.shape[1], k.shape[1]
+    mask = causal_mask(torch.arange(sq, device=q.device), torch.arange(sk, device=q.device),
+                       window, causal)
+    out = attend_plain(q, k, v, mask)
+    dead = [i for i in range(max(0, sk + window - 1), sq)] if not causal and window > 0 else []
+    if dead:
+        groups = q.shape[2] // k.shape[2]
+        vf = v.to(torch.float32).repeat_interleave(groups, dim=2)
+        rows = []
+        for i in dead:
+            kb = dead_row_begin(i, sq, sk, window)
+            rows.append(vf[:, kb:].mean(dim=1) if kb < sk else torch.zeros_like(vf[:, 0]))
+        out = out.clone()
+        out[:, dead] = torch.stack(rows, dim=1).to(out.dtype)
+    return out
 
 
 def check_cuda_inputs(name: str, *tensors: torch.Tensor) -> None:
@@ -190,32 +237,32 @@ def check_cuda_inputs(name: str, *tensors: torch.Tensor) -> None:
                          f"{tensors[0].shape[-1]}")
 
 
-def _check_launch(q: torch.Tensor, k: torch.Tensor, window: int) -> None:
+def _check_launch(q: torch.Tensor, k: torch.Tensor, window: int, causal: bool = True) -> None:
     sq, sk = q.shape[1], k.shape[1]
-    if not 1 <= sq <= sk or window < 0:
-        raise ValueError(f"the flash_attention kernels take 1 <= Sq <= Sk and window >= 0 "
-                         f"(a query past the last key has no key); got Sq {sq}, Sk {sk}, "
-                         f"window {window}")
+    if sq < 1 or sk < 1 or (causal and sq > sk) or window < 0:
+        raise ValueError(f"the flash_attention kernels take Sq, Sk >= 1, Sq <= Sk when causal "
+                         f"(a query past the last key has no key) and window >= 0; got Sq "
+                         f"{sq}, Sk {sk}, window {window}, causal {causal}")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    window: int = 0, route: Optional[str] = None
+                    causal: bool = True, window: int = 0, route: Optional[str] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch a flash-attention forward kernel, by :func:`attention_route`
     (``route=F32_FMA`` forces the f32-FMA kernel, to time it beside the
     other): q (B, Sq, H, D), k, v (B, Sk, Hkv, D) -> (out (B, Sq, H, D), lse
-    (B, H, Sq) f32)."""
+    (B, H, Sq) f32).  ``causal`` is a runtime argument of both kernels."""
     from .build import load, record_launch
     check_cuda_inputs("flash_attention", q, k, v)
     check_shapes(q, k, v)
-    _check_launch(q, k, window)
+    _check_launch(q, k, window, causal)
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(), b, sq,
-            sk, h, hkv, d, window, 1.0 / math.sqrt(d))
+            sk, h, hkv, d, window, int(causal), 1.0 / math.sqrt(d))
     chosen = attention_route(q, k, v)
     if route not in (None, chosen, F32_FMA):
         raise ValueError(f"route {route!r}: these tensors take {chosen!r} or {F32_FMA!r}")
@@ -269,12 +316,21 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq, dk, dv
 
 
+#: why a CUDA call that needs a gradient must be causal
+NON_CAUSAL_BACKWARD = ("B5's backward is causal only: its non-causal form comes with the "
+                       "encoder-decoder slice, ROADMAP.md Queue A item 10 (the reference op "
+                       "has no VJP of its own); call it under torch.no_grad(), or on the CPU")
+
+
 class FlashAttention(torch.autograd.Function):
     """Attention of CUDA tensors through the B5 kernels, with its backward:
-    ``FlashAttention.apply(q, k, v, window)`` -> (B, Sq, H, D)."""
+    ``FlashAttention.apply(q, k, v, window)`` -> (B, Sq, H, D).  Causal
+    only (``causal=False`` raises :data:`NON_CAUSAL_BACKWARD`)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, window):
+    def forward(ctx, q, k, v, window, causal=True):
+        if not causal:
+            raise NotImplementedError(NON_CAUSAL_BACKWARD)
         out, lse = flash_attention(q, k, v, window=window)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.window = window
@@ -285,10 +341,11 @@ class FlashAttention(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, out, dout.contiguous(), lse,
                                          window=ctx.window)
-        return dq, dk, dv, None
+        return dq, dk, dv, None, None
 
 
-__all__ = ["F32_FMA", "FlashAttention", "HEAD_DIMS", "NEG_INF", "TC_BWD_HEAD_DIMS",
-           "TC_HEAD_DIMS", "TENSOR_CORES", "attend_plain", "attention_bwd_route",
-           "attention_route", "bwd_tc_walks", "causal_mask", "flash_attention",
-           "flash_attention_bwd", "flash_attention_plain", "tma_ok"]
+__all__ = ["F32_FMA", "FlashAttention", "HEAD_DIMS", "NEG_INF", "NON_CAUSAL_BACKWARD",
+           "REF_BLOCK", "TC_BWD_HEAD_DIMS", "TC_HEAD_DIMS", "TENSOR_CORES", "attend_plain",
+           "attention_bwd_route", "attention_route", "bwd_tc_walks", "causal_mask",
+           "dead_row_begin", "flash_attention", "flash_attention_bwd",
+           "flash_attention_plain", "tma_ok"]

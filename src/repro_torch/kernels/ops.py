@@ -71,16 +71,22 @@ def tamper_verdict(ref: torch.Tensor, recv: torch.Tensor, tol: float
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    window: int = 0) -> torch.Tensor:
-    """Causal multi-head attention over a sequence.  q (B, Sq, H, D); k, v
-    (B, Sk, Hkv, D), GQA when Hkv < H; ``window > 0`` a sliding window.
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """Multi-head attention over a sequence, causal unless ``causal=False``
+    (then only the window masks, and Sq may exceed Sk).  q (B, Sq, H, D); k,
+    v (B, Sk, Hkv, D), GQA when Hkv < H; ``window > 0`` a sliding window.
     Returns (B, Sq, H, D), differentiable: on CUDA tensors that need a
-    gradient through the B5 forward and backward kernels."""
+    gradient through the B5 forward and backward kernels (causal only: a
+    non-causal call that needs a gradient raises
+    ``flash_attention.NON_CAUSAL_BACKWARD``; the CPU path differentiates
+    both)."""
     if q.device.type == "cpu":
-        return _fa.flash_attention_plain(q, k, v, window=window)
+        return _fa.flash_attention_plain(q, k, v, causal=causal, window=window)
     if _needs_grad(q, k, v):
+        if not causal:
+            raise NotImplementedError(_fa.NON_CAUSAL_BACKWARD)
         return _fa.FlashAttention.apply(q, k, v, window)
-    return _fa.flash_attention(q, k, v, window=window)[0]
+    return _fa.flash_attention(q, k, v, causal=causal, window=window)[0]
 
 
 def fused_cross_entropy(hidden: torch.Tensor, weights: torch.Tensor, labels: torch.Tensor,

@@ -10,7 +10,10 @@ its weights drawn on the card.  As in the reference, the prompt is stepped
 through the decode path one position at a time, then ``--new-tokens``
 tokens are decoded greedily.  ``--trace PATH`` writes a JSONL telemetry
 trace: a provenance stamp and one span a decode step, fenced on the step's
-outputs.
+outputs.  Every ported arch serves: the dense family, xLSTM, the vlm
+(``internvl2-26b``: the loop steps text tokens only, as the reference's
+does) and the MoEs (``deepseek-v2-lite-16b`` on its MLA latent cache,
+``qwen3-moe-30b-a3b``).
 """
 from __future__ import annotations
 

@@ -1,4 +1,4 @@
-"""The paper's split CNNs and the dense decoder LM (and their cluster-stacked
+"""The paper's split CNNs and the decoder LMs (and their cluster-stacked
 forms)."""
 from .cnn import (CIFAR_CNN, MNIST_CNN, APHead, ClientCNN, CNNConfig,
                   StackedAPHead, StackedClientCNN, cnn_init, cnn_stacked)

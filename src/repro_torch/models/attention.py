@@ -17,18 +17,31 @@ its backward in one more).
 
 The decode cache of a layer is a pair of (B, max_seq, Hkv, D) tensors; a
 step writes the new token's key and value in place at ``index`` (the
-reference's ``dynamic_update_slice``, without copying the cache).  MLA
-comes with the MLA/MoE slice.
+reference's ``dynamic_update_slice``, without copying the cache).
+
+MLA (DeepSeek-V2's multi-head latent attention; the reference's
+``mla_init``, ``mla_forward``, ``init_mla_cache``, ``mla_decode``) stays
+plain PyTorch (B5's plain version, ``attend_plain``), as the reference's
+``attend`` is: its q/k head is
+``head_dim + rope_dim`` wide (192) and its v ``head_dim`` (128), which B5
+takes neither of.  The content path is rope-free, so a decode step caches
+the normalised latent (``kv_lora_rank``) and the shared rope key
+(``rope_dim``) and scores in the absorbed form ``q_c W_uk latent + q_r
+k_rope``.  :func:`mla_forward` and :func:`mla_decode` are functions of the
+weights, which :class:`MLA` and the cluster-stacked :class:`StackedMLA` (a
+call a slot, on views of its stacked weights) both call.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, NamedTuple, Tuple
 
 import torch
 from torch import nn
 
 from ..kernels import ops
-from .blocks import Linear, RMSNorm, StackedLinear, StackedRMSNorm, apply_rope
+from ..kernels.flash_attention import NEG_INF, attend_plain, causal_mask
+from .blocks import Linear, RMSNorm, StackedLinear, StackedRMSNorm, apply_rope, rms_norm
 
 
 class AttnConfig(NamedTuple):
@@ -145,4 +158,164 @@ def init_kv_cache(layers: int, batch: int, max_seq: int, cfg: AttnConfig,
     return {name: torch.zeros(shape, dtype=dtype, device=device) for name in ("k", "v")}
 
 
-__all__ = ["AttnConfig", "GQA", "StackedGQA", "init_kv_cache"]
+# ---------------------------------------------------------------------------
+# MLA
+# ---------------------------------------------------------------------------
+
+class MLAConfig(NamedTuple):
+    d_model: int
+    n_heads: int
+    head_dim: int
+    kv_lora_rank: int
+    rope_dim: int = 64            # the decoupled rope sub-dimension
+    rope_theta: float = 10000.0
+    q_chunk: int = 0
+
+
+class MLAWeights(NamedTuple):
+    """One layer's MLA kernels (and the latent's norm scale)."""
+    wq: torch.Tensor              # (D, H (hd + rd))
+    w_dkv: torch.Tensor           # (D, rank + rd)
+    kv_norm: torch.Tensor         # (rank,)
+    w_uk: torch.Tensor            # (rank, H hd)
+    w_uv: torch.Tensor            # (rank, H hd)
+    wo: torch.Tensor              # (H hd, D)
+
+
+def mla_forward(w: MLAWeights, cfg: MLAConfig, x: torch.Tensor, positions: torch.Tensor
+                ) -> torch.Tensor:
+    """Causal MLA over a sequence, x (B, S, d_model); query chunks of
+    ``cfg.q_chunk`` (the reference's ``attend_chunked``) when S exceeds
+    it."""
+    b, s, _ = x.shape
+    h, hd, rd, rank = cfg.n_heads, cfg.head_dim, cfg.rope_dim, cfg.kv_lora_rank
+    q_full = (x @ w.wq).view(b, s, h, hd + rd)
+    q_c, q_r = q_full[..., :hd], q_full[..., hd:]
+    dkv = x @ w.w_dkv
+    latent = rms_norm(dkv[..., :rank], w.kv_norm)
+    k_rope = dkv[..., rank:].reshape(b, s, 1, rd)
+    k_c = (latent @ w.w_uk).view(b, s, h, hd)
+    v = (latent @ w.w_uv).view(b, s, h, hd)
+    q_r = apply_rope(q_r, positions, cfg.rope_theta)
+    k_r = apply_rope(k_rope, positions, cfg.rope_theta).expand(b, s, h, rd)
+    q = torch.cat([q_c, q_r], dim=-1)
+    k = torch.cat([k_c, k_r], dim=-1)
+    # scores scaled by 1/sqrt(hd + rd), q's width
+    chunk = ops.largest_divisor(s, cfg.q_chunk) if cfg.q_chunk and s > cfg.q_chunk else s
+    outs = [attend_plain(q[:, i:i + chunk], k, v, causal_mask(positions[i:i + chunk], positions))
+            for i in range(0, s, chunk)]
+    out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+    return out.reshape(b, s, h * hd) @ w.wo
+
+
+def mla_decode(w: MLAWeights, cfg: MLAConfig, x: torch.Tensor,
+               cache: Dict[str, torch.Tensor], index: int) -> torch.Tensor:
+    """One decode step: x (B, 1, d_model) at position ``index`` (host int).
+    Writes the token's latent and rope key into ``cache`` ({"latent" (B,
+    max_seq, rank), "k_rope" (B, max_seq, rd)}) in place, and scores the
+    absorbed form over positions <= ``index``."""
+    b = x.shape[0]
+    h, hd, rd, rank = cfg.n_heads, cfg.head_dim, cfg.rope_dim, cfg.kv_lora_rank
+    pos = torch.full((1,), index, dtype=torch.int64, device=x.device)
+    q_full = (x @ w.wq).view(b, 1, h, hd + rd)
+    q_c, q_r = q_full[..., :hd], apply_rope(q_full[..., hd:], pos, cfg.rope_theta)
+    dkv = x @ w.w_dkv
+    latent_new = rms_norm(dkv[..., :rank], w.kv_norm)
+    k_rope_new = apply_rope(dkv[..., rank:].reshape(b, 1, 1, rd), pos, cfg.rope_theta)
+    latent, k_rope = cache["latent"], cache["k_rope"]
+    latent[:, index] = latent_new[:, 0].to(latent.dtype)
+    k_rope[:, index] = k_rope_new.reshape(b, rd).to(k_rope.dtype)
+    q_lat = torch.einsum("bqhd,rhd->bqhr", q_c, w.w_uk.view(rank, h, hd))
+    scores = (torch.einsum("bqhr,bkr->bhqk", q_lat, latent)
+              + torch.einsum("bqhd,bkd->bhqk", q_r, k_rope))
+    scores = scores.to(torch.float32) * (1.0 / math.sqrt(hd + rd))
+    valid = torch.arange(latent.shape[1], device=x.device) <= index
+    scores = torch.where(valid[None, None, None], scores,
+                         torch.full((), NEG_INF, device=x.device))
+    probs = torch.softmax(scores, dim=-1).to(latent.dtype)
+    ctx = torch.einsum("bhqk,bkr->bqhr", probs, latent)
+    out = torch.einsum("bqhr,rhd->bqhd", ctx, w.w_uv.view(rank, h, hd))
+    return out.reshape(b, 1, h * hd) @ w.wo
+
+
+def _no_window(window: int) -> None:
+    """MLA attends over every earlier position, as the reference's does."""
+    if window:
+        raise ValueError(f"MLA takes no sliding window (got {window})")
+
+
+class MLA(nn.Module):
+    """Multi-head latent attention: ``wq``, the joint KV compression
+    ``w_dkv`` (latent and the shared rope key), ``kv_norm`` on the latent,
+    the up-projections ``w_uk``, ``w_uv`` and ``wo``."""
+
+    def __init__(self, cfg: MLAConfig, *, dtype: torch.dtype = torch.float32, device=None):
+        super().__init__()
+        self.cfg = cfg
+        kw = dict(dtype=dtype, device=device)
+        h, hd, rd, rank = cfg.n_heads, cfg.head_dim, cfg.rope_dim, cfg.kv_lora_rank
+        self.wq = Linear(cfg.d_model, h * (hd + rd), **kw)
+        self.w_dkv = Linear(cfg.d_model, rank + rd, **kw)
+        self.kv_norm = RMSNorm(rank, **kw)
+        self.w_uk = Linear(rank, h * hd, **kw)
+        self.w_uv = Linear(rank, h * hd, **kw)
+        self.wo = Linear(h * hd, cfg.d_model, **kw)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        for mod in self.children():
+            mod.reset_parameters(generator)
+
+    def weights(self) -> MLAWeights:
+        return MLAWeights(self.wq.w, self.w_dkv.w, self.kv_norm.scale, self.w_uk.w,
+                          self.w_uv.w, self.wo.w)
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor, window: int = 0
+                ) -> torch.Tensor:
+        _no_window(window)
+        return mla_forward(self.weights(), self.cfg, x, positions)
+
+    def decode(self, x: torch.Tensor, cache: Dict[str, torch.Tensor], index: int,
+               window: int = 0) -> torch.Tensor:
+        _no_window(window)
+        return mla_decode(self.weights(), self.cfg, x, cache, index)
+
+
+class StackedMLA(nn.Module):
+    """n slots' :class:`MLA` (the same parameters, each with a leading slot
+    axis): x (n, B, S, d_model), one :func:`mla_forward` a slot over views
+    of the stacked weights."""
+
+    def __init__(self, cfg: MLAConfig, n: int, *, dtype: torch.dtype = torch.float32,
+                 device=None):
+        super().__init__()
+        self.cfg = cfg
+        kw = dict(dtype=dtype, device=device)
+        h, hd, rd, rank = cfg.n_heads, cfg.head_dim, cfg.rope_dim, cfg.kv_lora_rank
+        self.wq = StackedLinear(n, cfg.d_model, h * (hd + rd), **kw)
+        self.w_dkv = StackedLinear(n, cfg.d_model, rank + rd, **kw)
+        self.kv_norm = StackedRMSNorm(n, rank, **kw)
+        self.w_uk = StackedLinear(n, rank, h * hd, **kw)
+        self.w_uv = StackedLinear(n, rank, h * hd, **kw)
+        self.wo = StackedLinear(n, h * hd, cfg.d_model, **kw)
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor, window: int = 0
+                ) -> torch.Tensor:
+        _no_window(window)
+        return torch.stack([mla_forward(MLAWeights(
+            self.wq.w[r], self.w_dkv.w[r], self.kv_norm.scale[r], self.w_uk.w[r],
+            self.w_uv.w[r], self.wo.w[r]), self.cfg, xr, positions) for r, xr in enumerate(x)])
+
+
+def init_mla_cache(layers: int, batch: int, max_seq: int, cfg: MLAConfig,
+                   dtype: torch.dtype, device=None) -> Dict[str, torch.Tensor]:
+    """Zeroed MLA decode cache of ``layers`` layers: {"latent" (layers, B,
+    max_seq, rank), "k_rope" (layers, B, max_seq, rope_dim)}, rank + rope
+    wide instead of 2 H D."""
+    return {"latent": torch.zeros((layers, batch, max_seq, cfg.kv_lora_rank), dtype=dtype,
+                                  device=device),
+            "k_rope": torch.zeros((layers, batch, max_seq, cfg.rope_dim), dtype=dtype,
+                                  device=device)}
+
+
+__all__ = ["AttnConfig", "GQA", "MLA", "MLAConfig", "MLAWeights", "StackedGQA",
+           "StackedMLA", "init_kv_cache", "init_mla_cache", "mla_decode", "mla_forward"]

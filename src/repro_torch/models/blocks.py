@@ -93,10 +93,15 @@ class RMSNorm(nn.Module):
         self.scale.fill_(1.0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.to(torch.float32)
-        var = torch.mean(xf * xf, dim=-1, keepdim=True)
-        y = xf * torch.rsqrt(var + self.eps)
-        return (y * self.scale.to(torch.float32)).to(x.dtype)
+        return rms_norm(x, self.scale, self.eps)
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """:class:`RMSNorm` as a function of its scale."""
+    xf = x.to(torch.float32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * scale.to(torch.float32)).to(x.dtype)
 
 
 class SwiGLU(nn.Module):
@@ -196,4 +201,4 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0
 
 __all__ = ["DTYPES", "Linear", "RMSNorm", "StackedLinear", "StackedRMSNorm", "StackedSwiGLU",
            "SwiGLU", "apply_rope", "cross_entropy", "cross_entropy_stacked", "dense_init",
-           "embed_init", "rope_frequencies"]
+           "embed_init", "rms_norm", "rope_frequencies"]

@@ -4,8 +4,8 @@ the paper's CNNs).
 
 A copy of the reference's ``repro/models/config.py`` (pure data), so that
 the port imports nothing of the reference.  The port builds the dense
-family; ``models/model.py::build_model`` names the queue item that ports
-each other ``arch_type``."""
+family, the vlm, MoE (GQA or MLA) and xLSTM; ``models/model.py::
+build_model`` names the queue item that ports each other ``arch_type``."""
 from __future__ import annotations
 
 import dataclasses

@@ -1,5 +1,15 @@
 """Top-level LM: the reference's ``repro/models/model.py`` for the dense
-family and xLSTM, as an ``nn.Module`` that holds its parameters.
+family, the vlm, MoE (with GQA or MLA) and xLSTM, as an ``nn.Module`` that
+holds its parameters.
+
+A vlm (``arch_type="vlm"``, the dense stack) takes ``batch["patches"]`` (B,
+P, d_model), the stubbed vision tower's patch embeddings: they go before
+the scaled token embeddings, cast to the embedding's dtype and not scaled,
+rope positions run over the whole prefixed sequence, and the loss drops the
+P prefix positions before the head.  Without patches it is the dense LM
+(the serve loop and the LM round take tokens only, as the reference's do).
+A MoE's loss adds every ``moe`` layer's router loss; the client's half drops
+its own (the reference's ``client_forward``), the AP's adds its own.
 
 ``build_model(cfg, device)`` allocates the parameters uninitialised on the
 device (the card unless ``device="cpu"``); :meth:`Model.init` draws them
@@ -36,7 +46,10 @@ Each slot's products run on views of the stacked weights, one a slot; the
 parameter-free work (the norms' arithmetic, rotary, SiLU, attention, the
 mLSTM's chunked einsums) runs over all slots at once, the slot axis folded
 into the batch axis; the sLSTM's scan (B7) runs once a slot, each with its
-own R.  Dense and xLSTM plans both stack.
+own R; MLA and the MoE run a call a slot (``StackedMLA``, ``StackedMoE``),
+so that each slot routes and drops as its plain model does.  Dense, vlm
+(tokens only), MoE and xLSTM plans stack; a MoE slot's loss carries its
+own router loss.
 
 Forward, loss and the split view are differentiable: the attention runs
 through B5 and its backward, the loss through B4 (``ops.
@@ -59,6 +72,7 @@ from ..kernels import ops
 from . import transformer as tfm
 from .blocks import DTYPES, Linear, RMSNorm, StackedLinear, StackedRMSNorm, embed_init
 from .config import ModelConfig
+from .moe import check_config
 
 Cache = Tuple[Dict[str, torch.Tensor], ...]
 Batch = Dict[str, torch.Tensor]
@@ -75,6 +89,22 @@ def _embed_tokens(cfg: ModelConfig, table: torch.Tensor, tokens: torch.Tensor
     sqrt_d = torch.tensor(math.sqrt(float(cfg.d_model)), dtype=table.dtype,
                           device=table.device)
     return table[tokens] * sqrt_d
+
+
+def _embed(cfg: ModelConfig, table: torch.Tensor, batch: Batch) -> torch.Tensor:
+    """The tokens' scaled embeddings, after a vlm's patches (cast to the
+    table's dtype, not scaled) when the batch holds them."""
+    x = _embed_tokens(cfg, table, batch["tokens"])
+    if cfg.arch_type == "vlm" and "patches" in batch:
+        x = torch.cat([batch["patches"].to(x.dtype), x], dim=1)
+    return x
+
+
+def _text_positions(cfg: ModelConfig, h: torch.Tensor, batch: Batch) -> torch.Tensor:
+    """``h`` without a vlm's patch prefix: the loss runs over text only."""
+    if cfg.arch_type == "vlm" and "patches" in batch:
+        return h[:, batch["patches"].shape[1]:]
+    return h
 
 
 def _run_stacks(cfg: ModelConfig, stacks: Sequence[tfm.BlockStack], x: torch.Tensor
@@ -108,8 +138,7 @@ class ClientLM(nn.Module):
         self.stacks = nn.ModuleList(stacks)
 
     def forward(self, batch: Batch) -> torch.Tensor:
-        x = _embed_tokens(self.cfg, self.embedding, batch["tokens"])
-        return _run_stacks(self.cfg, self.stacks, x)[0]
+        return _run_stacks(self.cfg, self.stacks, _embed(self.cfg, self.embedding, batch))[0]
 
 
 class APLM(nn.Module):
@@ -127,7 +156,8 @@ class APLM(nn.Module):
     def forward(self, acts: torch.Tensor, batch: Batch
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         x, aux = _run_stacks(self.cfg, self.stacks, acts)
-        return _lm_loss(self.head, self.final_norm(x), aux, batch)
+        h = _text_positions(self.cfg, self.final_norm(x), batch)
+        return _lm_loss(self.head, h, aux, batch)
 
 
 class Model(nn.Module):
@@ -167,8 +197,8 @@ class Model(nn.Module):
 
     # -- embedding ----------------------------------------------------------
     def embed(self, batch: Batch) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Returns (x, positions)."""
-        x = _embed_tokens(self.cfg, self.embedding, batch["tokens"])
+        """Returns (x, positions); a vlm's patches lead x."""
+        x = _embed(self.cfg, self.embedding, batch)
         return x, torch.arange(x.shape[1], device=x.device)
 
     # -- forward / loss -------------------------------------------------------
@@ -183,9 +213,10 @@ class Model(nn.Module):
 
     def loss(self, batch: Batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """(loss, {"lm_loss", "aux_loss"}) of ``batch`` {"tokens", "labels",
-        optional "mask"}; the cross-entropy through B4."""
+        optional "mask", a vlm's optional "patches"}; the cross-entropy
+        through B4, over the text positions."""
         h, aux = self.forward(batch)
-        return _lm_loss(self.head, h, aux, batch)
+        return _lm_loss(self.head, _text_positions(self.cfg, h, batch), aux, batch)
 
     # -- split-learning view ------------------------------------------------
     def split_plans(self) -> Tuple[List[StackPlan], List[StackPlan], List[Tuple[int, int, int]]]:
@@ -299,7 +330,8 @@ def _split_stacks(cfg: ModelConfig, plan: Sequence[StackPlan],
 
 def _run_stacked(cfg: ModelConfig, stacks: Sequence[tfm.BlockStack], x: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """:func:`_run_stacks` over n slots' activations (n, B, S, D)."""
+    """:func:`_run_stacks` over n slots' activations (n, B, S, D); the aux
+    is a scalar 0, or (n,) where a ``moe`` stack ran."""
     positions = torch.arange(x.shape[2], device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for stack in stacks:
@@ -315,8 +347,9 @@ def _slot_losses(head: StackedLinear, h: torch.Tensor, aux: torch.Tensor,
     shared by every slot."""
     labels = labels.expand(h.shape[:-1])
     masks = [None] * h.shape[0] if mask is None else mask.expand(h.shape[:-1])
-    return torch.stack([ops.fused_cross_entropy(hi, wi, li, mi) + aux
-                        for hi, wi, li, mi in zip(h, head.w, labels, masks)])
+    return torch.stack([ops.fused_cross_entropy(hi, wi, li, mi) + ai
+                        for hi, wi, li, mi, ai in zip(h, head.w, labels, masks,
+                                                      aux.expand(h.shape[0]))])
 
 
 def _embed_slots(cfg: ModelConfig, tables: torch.Tensor, tokens: torch.Tensor
@@ -362,8 +395,8 @@ class StackedAPLM(nn.Module):
 
 
 class StackedModel(nn.Module):
-    """n slots of one :class:`Model`, dense or xLSTM (see the module
-    docstring): ``parameters()`` follow :class:`Model`'s order with a
+    """n slots of one :class:`Model`, dense, vlm, MoE or xLSTM (see the
+    module docstring): ``parameters()`` follow :class:`Model`'s order with a
     leading slot axis each.  Built zeroed on ``device`` (None: the current
     default device); :meth:`load_slot` writes a plain model into a slot."""
 
@@ -415,7 +448,8 @@ class StackedModel(nn.Module):
         return phi(acts, labels, mask)
 
     def forward(self, tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """tokens (n, B, S) -> (final hidden states (n, B, S, D), aux)."""
+        """tokens (n, B, S) -> (final hidden states (n, B, S, D), aux: 0, or
+        (n,) for a MoE)."""
         x, aux = _run_stacked(self.cfg, self.stacks,
                               _embed_slots(self.cfg, self.embedding, tokens))
         return self.final_norm(x), aux
@@ -439,10 +473,15 @@ def build_stacked_model(cfg: ModelConfig, r: int, replicas: int = 1,
 def build_plan(cfg: ModelConfig) -> List[StackPlan]:
     """Static stack layout, which ``tfm.build_stacks`` builds: one
     ``attn_mlp`` stack with each layer's sliding window (0 = global) for
-    the dense family; for xLSTM, ``slstm_every - 1`` mLSTM blocks then one
-    sLSTM block, repeated over ``n_layers``."""
-    if cfg.arch_type == "dense":
+    the dense family and the vlm; for a MoE, ``first_dense`` layers of the
+    ``dense_mlp`` kind, then the ``moe`` kind; for xLSTM, ``slstm_every -
+    1`` mLSTM blocks then one sLSTM block, repeated over ``n_layers``."""
+    if cfg.arch_type in ("dense", "vlm"):
         return [StackPlan("attn_mlp", cfg.n_layers, {"window": tfm._layer_windows(cfg)})]
+    if cfg.arch_type == "moe":
+        check_config(tfm.moe_cfg(cfg))          # "moe_shard" is multi-card
+        plan = [StackPlan("dense_mlp", cfg.first_dense, {})] if cfg.first_dense else []
+        return plan + [StackPlan("moe", cfg.n_layers - cfg.first_dense, {})]
     if cfg.arch_type != "ssm" or not cfg.slstm_every:
         raise tfm.not_ported(cfg.arch_type)
     plan: List[StackPlan] = []

@@ -1,27 +1,36 @@
 """Decoder assembly: the reference's ``repro/models/transformer.py`` for the
-dense family (``arch_type="dense"``, the ``attn_mlp`` stack kind) and xLSTM
-(``arch_type="ssm"`` with ``slstm_every``, the ``mlstm`` and ``slstm``
-kinds).
+dense family and the vlm (``arch_type="dense"``/``"vlm"``, the ``attn_mlp``
+stack kind), MoE (``arch_type="moe"``: ``first_dense`` layers of the
+``dense_mlp`` kind, then the ``moe`` kind, each with GQA or, where
+``kv_lora_rank`` is set, MLA) and xLSTM (``arch_type="ssm"`` with
+``slstm_every``, the ``mlstm`` and ``slstm`` kinds).
 
 The model is an ordered list of homogeneous :class:`BlockStack`\\ s.  Where
 the reference stacks a stack's layers on a leading axis and runs them under
 ``lax.scan``, a port stack keeps them in an ``nn.ModuleList`` and loops;
-``convert.py`` maps the one onto the other.  A stack's per-layer sliding
-windows (gemma3's local:global pattern) ride in ``meta["window"]`` as ints
-and reach the attention kernels as a runtime argument; the xLSTM kinds have
-no meta.
+``convert.py`` maps the one onto the other.  An ``attn_mlp`` stack's
+per-layer sliding windows (gemma3's local:global pattern) ride in
+``meta["window"]`` as ints, the MoE kinds take ``cfg.sliding_window``; each
+layer holds its own and hands it to the attention kernels as a runtime
+argument; the xLSTM kinds have no meta.
 
 A stack's decode cache is a dict of tensors with the layer axis first, the
-reference's layout: {"k", "v"} of (n, B, max_seq, Hkv, D) for ``attn_mlp``,
-the mixers' recurrent state for ``mlstm`` and ``slstm``
+reference's layout: {"k", "v"} of (n, B, max_seq, Hkv, D) for ``attn_mlp``
+(and the GQA ``dense_mlp``/``moe`` kinds), {"latent", "k_rope"} for the MLA
+ones, the mixers' recurrent state for ``mlstm`` and ``slstm``
 (``xlstm.init_*_cache``); layer i updates its slice in place.  A stack
 splits at the split-learning cut by slicing its layer list
 (:func:`slice_stack`), which shares the layers.
 
+A decoder layer's forward returns (x, aux): a ``moe`` layer its router's
+auxiliary loss, the others None; :func:`run_stack` sums them (the
+reference's ``run_stack``).  An xLSTM block returns x.
+
 The batched round's cluster-stacked LM (``model.StackedModel``) builds its
-stacks of :class:`StackedAttnMLPLayer`\\ s and :class:`StackedXLSTMBlock`\\ s
-by :func:`build_stacked_stacks` and runs them through the same
-:func:`run_stack`.
+stacks of :class:`DecoderLayer`\\ s of stacked parts and
+:class:`StackedXLSTMBlock`\\ s by :func:`build_stacked_stacks` and runs them
+through the same :func:`run_stack` (a stacked ``moe`` layer's aux is (n,),
+one a slot).
 """
 from __future__ import annotations
 
@@ -32,14 +41,14 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from . import xlstm
-from .attention import GQA, AttnConfig, StackedGQA, init_kv_cache
+from .attention import (GQA, MLA, AttnConfig, MLAConfig, StackedGQA, StackedMLA,
+                        init_kv_cache, init_mla_cache)
 from .blocks import DTYPES, RMSNorm, StackedRMSNorm, StackedSwiGLU, SwiGLU
 from .config import ModelConfig
+from .moe import MoE, MoEConfig, StackedMoE
 
 #: where each unported arch_type comes: its ROADMAP.md Queue A item and slice
 UNPORTED = {
-    "vlm": (7, "the vlm slice (the patch prefix on the dense stack)"),
-    "moe": (8, "the MLA/MoE slice"),
     "ssm": (9, "the SSM slice (Mamba2, slstm_every = 0; xLSTM is ported)"),
     "hybrid": (9, "the SSM slice"),
     "encdec": (10, "the encdec slice"),
@@ -55,7 +64,8 @@ def not_ported(arch_type: str) -> NotImplementedError:
         where = "no slice: unknown arch_type"
     return NotImplementedError(
         f"arch_type {arch_type!r} is not ported yet: {where}; "
-        f"the port builds arch_type='dense' and xLSTM (arch_type='ssm' with slstm_every)")
+        f"the port builds arch_type 'dense', 'vlm', 'moe' and xLSTM (arch_type='ssm' "
+        f"with slstm_every)")
 
 
 def attn_cfg(cfg: ModelConfig) -> AttnConfig:
@@ -67,52 +77,64 @@ def attn_cfg(cfg: ModelConfig) -> AttnConfig:
         qkv_bias=cfg.qkv_bias, qk_norm=cfg.qk_norm)
 
 
+def mla_cfg(cfg: ModelConfig) -> MLAConfig:
+    return MLAConfig(d_model=cfg.d_model, n_heads=cfg.n_heads, head_dim=cfg.resolved_head_dim,
+                     kv_lora_rank=cfg.kv_lora_rank, rope_dim=cfg.rope_dim,
+                     rope_theta=cfg.rope_theta, q_chunk=cfg.q_chunk)
+
+
+def moe_cfg(cfg: ModelConfig) -> MoEConfig:
+    """The MoE's widths; ``"moe_shard"`` (the reference's shard-local
+    dispatch over a mesh) gives a config that ``model.build_plan`` and
+    ``moe.moe_forward`` refuse."""
+    shard = "moe_shard" in cfg.optimizations
+    return MoEConfig(d_model=cfg.d_model, d_expert=cfg.d_expert, n_experts=cfg.n_experts,
+                     top_k=cfg.top_k, n_shared=cfg.n_shared_experts,
+                     capacity_factor=cfg.capacity_factor, shard=shard,
+                     shard_groups=16 if shard else 0)
+
+
 def xlstm_cfg(cfg: ModelConfig) -> xlstm.XLSTMConfig:
     return xlstm.XLSTMConfig(
         d_model=cfg.d_model, n_heads=cfg.n_heads, chunk=cfg.ssm_chunk,
         state_dtype=("bfloat16" if "mlstm_bf16_state" in cfg.optimizations else "float32"))
 
 
-class AttnMLPLayer(nn.Module):
-    """Pre-norm decoder layer: ``x + attn(ln1(x))``, then ``x + mlp(ln2(x))``."""
+class DecoderLayer(nn.Module):
+    """Pre-norm decoder layer of the ``attn_mlp``, ``dense_mlp`` and ``moe``
+    kinds: ``x + attn(ln1(x))``, then ``x + ffn(ln2(x))``.  The attention
+    is GQA, or MLA where ``kv_lora_rank`` is set, at the layer's
+    ``window``; the FFN a SwiGLU (registered as ``mlp``) or a MoE
+    (``moe``).  Built by :func:`_layer` from plain parts or, for the
+    cluster-stacked LM, from stacked ones (a leading slot axis on x and on
+    every parameter).  ``forward`` returns (x, aux): the MoE's router loss
+    ((n,) stacked), else None."""
 
-    def __init__(self, cfg: ModelConfig, device=None):
+    def __init__(self, ln1: nn.Module, attn: nn.Module, ln2: nn.Module, ffn: nn.Module,
+                 window: int):
         super().__init__()
-        kw = dict(dtype=DTYPES[cfg.dtype], device=device)
-        self.ln1 = RMSNorm(cfg.d_model, **kw)
-        self.attn = GQA(attn_cfg(cfg), **kw)
-        self.ln2 = RMSNorm(cfg.d_model, **kw)
-        self.mlp = SwiGLU(cfg.d_model, cfg.d_ff, **kw)
+        self.window = window
+        self.ln1, self.attn, self.ln2 = ln1, attn, ln2
+        self.routed = isinstance(ffn, (MoE, StackedMoE))
+        self.add_module("moe" if self.routed else "mlp", ffn)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
-        for mod in (self.ln1, self.attn, self.ln2, self.mlp):
+        for mod in self.children():
             mod.reset_parameters(generator)
 
-    def forward(self, x: torch.Tensor, positions: torch.Tensor, window: int) -> torch.Tensor:
-        x = x + self.attn(self.ln1(x), positions, window)
-        return x + self.mlp(self.ln2(x))
+    def _ffn(self, x: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        if self.routed:
+            out, aux = self.moe(self.ln2(x))
+            return x + out, aux
+        return x + self.mlp(self.ln2(x)), None
 
-    def decode(self, x: torch.Tensor, cache: Dict[str, torch.Tensor], index: int,
-               window: int) -> torch.Tensor:
-        x = x + self.attn.decode(self.ln1(x), cache, index, window)
-        return x + self.mlp(self.ln2(x))
+    def forward(self, x: torch.Tensor, positions: torch.Tensor
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        return self._ffn(x + self.attn(self.ln1(x), positions, self.window))
 
-
-class StackedAttnMLPLayer(nn.Module):
-    """n slots' :class:`AttnMLPLayer` (the same parameters, each with a
-    leading slot axis): x (n, B, S, d_model)."""
-
-    def __init__(self, cfg: ModelConfig, n: int, device=None):
-        super().__init__()
-        kw = dict(dtype=DTYPES[cfg.dtype], device=device)
-        self.ln1 = StackedRMSNorm(n, cfg.d_model, **kw)
-        self.attn = StackedGQA(attn_cfg(cfg), n, **kw)
-        self.ln2 = StackedRMSNorm(n, cfg.d_model, **kw)
-        self.mlp = StackedSwiGLU(n, cfg.d_model, cfg.d_ff, **kw)
-
-    def forward(self, x: torch.Tensor, positions: torch.Tensor, window: int) -> torch.Tensor:
-        x = x + self.attn(self.ln1(x), positions, window)
-        return x + self.mlp(self.ln2(x))
+    def decode(self, x: torch.Tensor, cache: Dict[str, torch.Tensor], index: int
+               ) -> torch.Tensor:
+        return self._ffn(x + self.attn.decode(self.ln1(x), cache, index, self.window))[0]
 
 
 class XLSTMBlock(nn.Module):
@@ -172,51 +194,70 @@ def _layer_windows(cfg: ModelConfig) -> Tuple[int, ...]:
     return (cfg.sliding_window,) * cfg.n_layers
 
 
-def _layer(cfg: ModelConfig, kind: str, device) -> nn.Module:
-    return AttnMLPLayer(cfg, device) if kind == "attn_mlp" else XLSTMBlock(cfg, kind, device)
+XLSTM_KINDS = ("mlstm", "slstm")
+
+
+def _layer(cfg: ModelConfig, kind: str, window: int, device, n: Optional[int] = None
+           ) -> nn.Module:
+    """A layer of ``kind`` (at ``window``, for the attention kinds); with
+    ``n``, its cluster-stacked form of n slots."""
+    if kind in XLSTM_KINDS:
+        return (XLSTMBlock(cfg, kind, device) if n is None
+                else StackedXLSTMBlock(cfg, kind, n, device))
+    kw = dict(dtype=DTYPES[cfg.dtype], device=device)
+    d = cfg.d_model
+    if n is None:
+        norm = lambda: RMSNorm(d, **kw)                                 # noqa: E731
+        attn = MLA(mla_cfg(cfg), **kw) if cfg.kv_lora_rank else GQA(attn_cfg(cfg), **kw)
+        ffn = MoE(moe_cfg(cfg), **kw) if kind == "moe" else SwiGLU(d, cfg.d_ff, **kw)
+    else:
+        norm = lambda: StackedRMSNorm(n, d, **kw)                       # noqa: E731
+        attn = (StackedMLA(mla_cfg(cfg), n, **kw) if cfg.kv_lora_rank
+                else StackedGQA(attn_cfg(cfg), n, **kw))
+        ffn = (StackedMoE(moe_cfg(cfg), n, **kw) if kind == "moe"
+               else StackedSwiGLU(n, d, cfg.d_ff, **kw))
+    return DecoderLayer(norm(), attn, norm(), ffn, window)
+
+
+def _stack_windows(cfg: ModelConfig, sp) -> Tuple[int, ...]:
+    """Each layer's window: the plan's (``attn_mlp``), else the config's."""
+    return tuple(sp.meta.get("window", (cfg.sliding_window,) * sp.n))
 
 
 def build_stacks(cfg: ModelConfig, plan, device=None) -> List[BlockStack]:
     """The stacks of ``plan`` (``model.build_plan(cfg)``), parameters
     allocated uninitialised on ``device``."""
-    return [BlockStack(sp.kind, [_layer(cfg, sp.kind, device) for _ in range(sp.n)], sp.meta)
+    return [BlockStack(sp.kind, [_layer(cfg, sp.kind, w, device)
+                                 for w in _stack_windows(cfg, sp)], sp.meta)
             for sp in plan]
-
-
-def _stacked_layer(cfg: ModelConfig, kind: str, n: int, device) -> nn.Module:
-    if kind == "attn_mlp":
-        return StackedAttnMLPLayer(cfg, n, device)
-    return StackedXLSTMBlock(cfg, kind, n, device)
 
 
 def build_stacked_stacks(cfg: ModelConfig, plan, n: int, device=None) -> List[BlockStack]:
     """The stacks of ``plan`` with n slots a layer (zeroed parameters on
-    ``device``): ``attn_mlp``, ``mlstm`` and ``slstm`` stacks."""
-    return [BlockStack(sp.kind, [_stacked_layer(cfg, sp.kind, n, device) for _ in range(sp.n)],
-                       sp.meta) for sp in plan]
-
-
-def _layer_args(stack: BlockStack, *head) -> List[tuple]:
-    """Each layer's arguments after x (and its cache): ``head`` and the
-    layer's window for an ``attn_mlp`` stack, nothing for the xLSTM kinds."""
-    if stack.kind == "attn_mlp":
-        return [(*head, window) for window in stack.meta["window"]]
-    return [()] * stack.n
+    ``device``): ``attn_mlp``, ``dense_mlp``, ``moe``, ``mlstm`` and
+    ``slstm`` stacks."""
+    return [BlockStack(sp.kind, [_layer(cfg, sp.kind, w, device, n)
+                                 for w in _stack_windows(cfg, sp)], sp.meta)
+            for sp in plan]
 
 
 def run_stack(stack: BlockStack, x: torch.Tensor, positions: torch.Tensor,
               remat: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (x, aux_loss_sum); a dense stack has no auxiliary loss.  With
+    """Returns (x, aux_loss_sum): a ``moe`` stack sums its layers' router
+    losses (each (n,) in a stacked model), the other kinds have none.  With
     ``remat`` (``cfg.remat``) each layer is checkpointed when a gradient is
     being recorded: its activations are recomputed in the backward, as the
     reference's ``jax.checkpoint`` of the scanned layer body does."""
     ckpt = remat and torch.is_grad_enabled()
-    for layer, args in zip(stack.layers, _layer_args(stack, positions)):
-        if ckpt:
-            x = checkpoint(layer, x, *args, use_reentrant=False)
-        else:
-            x = layer(x, *args)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    xlstm_kind = stack.kind in XLSTM_KINDS
+    args = () if xlstm_kind else (positions,)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for layer in stack.layers:
+        y = checkpoint(layer, x, *args, use_reentrant=False) if ckpt else layer(x, *args)
+        x, a = (y, None) if xlstm_kind else y
+        if a is not None:
+            aux = aux + a
+    return x, aux
 
 
 def slice_stack(stack: BlockStack, lo: int, hi: int) -> BlockStack:
@@ -229,12 +270,15 @@ def slice_stack(stack: BlockStack, lo: int, hi: int) -> BlockStack:
 
 def init_stack_cache(cfg: ModelConfig, stack: BlockStack, batch: int, max_seq: int,
                      dtype: torch.dtype, device=None) -> Dict[str, torch.Tensor]:
-    """A stack's zeroed decode cache: the KV cache in ``dtype``, or the
-    xLSTM kinds' recurrent state (f32, independent of ``max_seq``)."""
+    """A stack's zeroed decode cache: the KV cache in ``dtype`` (an MLA
+    stack's latent and rope key), or the xLSTM kinds' recurrent state (f32,
+    independent of ``max_seq``)."""
     if stack.kind == "mlstm":
         return xlstm.init_mlstm_cache(batch, xlstm_cfg(cfg), device, stack.n)
     if stack.kind == "slstm":
         return xlstm.init_slstm_cache(batch, xlstm_cfg(cfg), device, stack.n)
+    if stack.kind in ("dense_mlp", "moe") and cfg.kv_lora_rank:
+        return init_mla_cache(stack.n, batch, max_seq, mla_cfg(cfg), dtype, device)
     return init_kv_cache(stack.n, batch, max_seq, attn_cfg(cfg), dtype, device)
 
 
@@ -242,12 +286,12 @@ def decode_stack(stack: BlockStack, x: torch.Tensor, cache: Dict[str, torch.Tens
                  index: int) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One decode step through a stack.  x: (B, 1, d_model); the cache is
     written in place and returned."""
-    for i, (layer, args) in enumerate(zip(stack.layers, _layer_args(stack, index))):
+    args = () if stack.kind in XLSTM_KINDS else (index,)
+    for i, layer in enumerate(stack.layers):
         x = layer.decode(x, {name: t[i] for name, t in cache.items()}, *args)
     return x, cache
 
 
-__all__ = ["AttnMLPLayer", "BlockStack", "StackedAttnMLPLayer", "StackedXLSTMBlock",
-           "XLSTMBlock", "attn_cfg",
+__all__ = ["BlockStack", "DecoderLayer", "StackedXLSTMBlock", "XLSTMBlock", "attn_cfg",
            "build_stacked_stacks", "build_stacks", "decode_stack", "init_stack_cache",
-           "not_ported", "run_stack", "slice_stack", "xlstm_cfg"]
+           "mla_cfg", "moe_cfg", "not_ported", "run_stack", "slice_stack", "xlstm_cfg"]

@@ -249,3 +249,130 @@ def test_backward_launcher_refuses_cpu_tensors():
     lse = torch.zeros((1, 4, 8))
     with pytest.raises(ValueError, match="CUDA"):
         tfa.flash_attention_bwd(q, kv, kv, q, q, lse)
+
+
+# B5's non-causal mode.  (B, Sq, Sk, H, Hkv, D, window): Sq = Sk, Sq < Sk,
+# Sq > Sk, with and without a window; the Sq > Sk windowed cases hold rows
+# with no live key (a query at or past Sk + window - 1)
+NON_CAUSAL_CASES = {
+    "sq_eq_sk": (2, 128, 128, 4, 2, 64, 0),
+    "sq_eq_sk_window16": (1, 128, 128, 4, 1, 32, 16),
+    "sq_lt_sk": (1, 64, 128, 4, 2, 32, 0),
+    "sq_lt_sk_window8": (1, 64, 128, 2, 2, 64, 8),
+    "sq_gt_sk": (1, 256, 128, 4, 2, 32, 0),
+    "sq_gt_sk_window16": (1, 256, 128, 2, 1, 64, 16),
+    "dead_tiles_window16": (1, 384, 128, 2, 1, 32, 16),
+    "dead_suffix_window16": (1, 512, 256, 2, 2, 32, 16),
+}
+
+
+@pytest.mark.parametrize("case", sorted(NON_CAUSAL_CASES))
+def test_flash_attention_non_causal_matches_pallas(case):
+    b, sq, sk, h, hkv, d, win = NON_CAUSAL_CASES[case]
+    q, k, v = _qkv(20, b, sq, sk, h, hkv, d)
+    want = jops.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=False,
+                                window=win, interpret=True)
+    got = tops.flash_attention(_t(q), _t(k), _t(v), causal=False, window=win)
+    assert got.shape == (b, sq, h, d)
+    np.testing.assert_allclose(_np(got), np.asarray(want), atol=ATOL["float32"])
+    live_rows = min(sq, sk + win - 1) if win else sq
+    oracle = _heads_last(ref.mha_reference(_heads_first(q), _heads_first(k), _heads_first(v),
+                                           causal=False, window=win), b)
+    np.testing.assert_allclose(_np(got)[:, :live_rows], np.asarray(oracle)[:, :live_rows],
+                               atol=ATOL["float32"])
+
+
+def test_non_causal_bf16_matches_pallas():
+    b, sq, sk, h, hkv, d, win = NON_CAUSAL_CASES["dead_suffix_window16"]
+    q, k, v = _qkv(21, b, sq, sk, h, hkv, d)
+    jq, jk, jv = (jnp.asarray(x).astype(jnp.bfloat16) for x in (q, k, v))
+    want = jops.flash_attention(jq, jk, jv, causal=False, window=win, interpret=True)
+    got = tops.flash_attention(_t(jq, "bfloat16"), _t(jk, "bfloat16"), _t(jv, "bfloat16"),
+                               causal=False, window=win)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(_np(got), np.asarray(want, np.float32), atol=ATOL["bfloat16"],
+                               rtol=ATOL["bfloat16"])
+
+
+def test_rows_with_no_live_key_follow_the_pallas_kernel_not_the_oracle():
+    """A row with no live key: the Pallas kernel gives the mean of v over the
+    keys of the 128-key tiles its 128-query tile finds live (each masked
+    score -1e30 against a running max of -1e30 weighs exp(0) = 1), or 0 where
+    it finds none; ``ref.mha_reference`` gives the mean over all Sk keys.
+    The port follows the kernel (``dead_row_begin``)."""
+    b, sq, sk, h, hkv, d, win = NON_CAUSAL_CASES["dead_suffix_window16"]
+    q, k, v = _qkv(22, b, sq, sk, h, hkv, d)
+    pallas = np.asarray(jops.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                             causal=False, window=win, interpret=True))
+    oracle = np.asarray(_heads_last(ref.mha_reference(
+        _heads_first(q), _heads_first(k), _heads_first(v), causal=False, window=win), b))
+    got = _np(tops.flash_attention(_t(q), _t(k), _t(v), causal=False, window=win))
+    vh = np.repeat(v, h // hkv, axis=2)
+    first_dead = sk + win - 1
+    assert [tfa.dead_row_begin(i, sq, sk, win) for i in (first_dead, 383, 384, 511)] == \
+        [128, 128, 256, 256]
+    # rows 271..383: the tile of keys 128..255 is live; rows 384..511: none
+    np.testing.assert_allclose(pallas[:, first_dead:384], np.broadcast_to(
+        vh[:, 128:].mean(axis=1, keepdims=True), pallas[:, first_dead:384].shape), atol=1e-5)
+    np.testing.assert_array_equal(pallas[:, 384:], 0.0)
+    np.testing.assert_allclose(oracle[:, first_dead:], np.broadcast_to(
+        vh.mean(axis=1, keepdims=True), oracle[:, first_dead:].shape), atol=1e-5)
+    np.testing.assert_allclose(got[:, first_dead:], pallas[:, first_dead:], atol=ATOL["float32"])
+    assert np.abs(got[:, first_dead:] - oracle[:, first_dead:]).max() > 1e-2
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_tile_live_is_the_reference_block_live(causal):
+    """``_tile_live`` over a grid of (64-query, 64-key) tiles equals the
+    Pallas kernel's ``block_live`` at those blocks, causal and not, with
+    and without a window."""
+    sq, sk, bq, bk = 512, 384, 64, 64
+    for window in (0, 1, 16, 100, 300):
+        for qi in range(sq // bq):
+            for kj in range(sk // bk):
+                want = (not causal) or (qi * bq + bq - 1 >= kj * bk)
+                if window > 0:
+                    want = want and (kj * bk + bk - 1 > qi * bq - window)
+                got = tfa._tile_live(qi * bq, qi * bq + bq - 1, kj * bk, kj * bk + bk - 1,
+                                     sq, sk, window, causal)
+                assert got == want, (qi, kj, window)
+
+
+def test_non_causal_gradient_refused_on_the_card_path():
+    """A call that needs a gradient with ``causal=False`` off the CPU raises,
+    naming Queue A item 10 (meta tensors take the card's branch and launch
+    nothing); without a gradient it reaches the launcher, which accepts Sq >
+    Sk only when not causal."""
+    meta = torch.device("meta")
+    q = torch.zeros((1, 16, 4, 64), device=meta, requires_grad=True)
+    kv = torch.zeros((1, 8, 2, 64), device=meta)
+    with pytest.raises(NotImplementedError, match="Queue A item 10"):
+        tops.flash_attention(q, kv, kv, causal=False)
+    with pytest.raises(NotImplementedError, match="Queue A item 10"):
+        tfa.FlashAttention.apply(q, kv, kv, 0, False)
+    with pytest.raises(ValueError, match="Sq <= Sk when causal"):
+        tfa._check_launch(q, kv, 0)
+    tfa._check_launch(q, kv, 0, causal=False)
+    with pytest.raises(ValueError, match="CUDA"):
+        with torch.no_grad():
+            tops.flash_attention(q, kv, kv, causal=False)
+
+
+def test_non_causal_cpu_path_is_differentiable():
+    """The CPU path trains through the plain version with ``causal=False``:
+    its gradients match ``jax.grad`` of the oracle (Sq > Sk, a window, no
+    dead row)."""
+    b, sq, sk, h, hkv, d, win = 1, 40, 30, 4, 2, 32, 16
+    q, k, v = _qkv(23, b, sq, sk, h, hkv, d)
+    g = np.random.default_rng(24).normal(size=(b, sq, h, d)).astype(np.float32)
+
+    def jloss(q_, k_, v_):
+        out = _heads_last(ref.mha_reference(_heads_first(q_), _heads_first(k_),
+                                            _heads_first(v_), causal=False, window=win), b)
+        return jnp.sum(out * g)
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    tq, tk, tv = (_t(x).requires_grad_() for x in (q, k, v))
+    loss = torch.sum(tops.flash_attention(tq, tk, tv, causal=False, window=win) * _t(g))
+    for a, w in zip(torch.autograd.grad(loss, (tq, tk, tv)), want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(w), atol=GRAD_ATOL)

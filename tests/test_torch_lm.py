@@ -51,12 +51,16 @@ CASES = {
     "gemma3-12b": lambda: _smoke("gemma3-12b"),
     "qwen3-8b-gqa": lambda: _smoke("qwen3-8b", n_kv_heads=2, qkv_bias=True),
 }
-# the archs the port does not build: all but dense and xLSTM (ssm with
-# slstm_every, tests/test_torch_xlstm.py)
+# the archs that are not dense and not xLSTM (ssm with slstm_every,
+# tests/test_torch_xlstm.py): the vlm and the MoEs, ported since the vlm and
+# MLA/MoE slice (tests/test_torch_vlm.py, tests/test_torch_moe.py), and the
+# ones still to come
 NON_DENSE = [a for a in jconfigs.list_archs()
              if jconfigs.get_config(a).arch_type != "dense"
              and not (jconfigs.get_config(a).arch_type == "ssm"
                       and jconfigs.get_config(a).slstm_every)]
+NEWLY_PORTED = [a for a in NON_DENSE if jconfigs.get_config(a).arch_type in ("vlm", "moe")]
+STILL_UNPORTED = [a for a in NON_DENSE if a not in NEWLY_PORTED]
 
 
 def _np_tree(tree):
@@ -175,12 +179,34 @@ def test_serve_loop_tokens_equal_reference(pair):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
-@pytest.mark.parametrize("arch", NON_DENSE)
+@pytest.mark.parametrize("arch", STILL_UNPORTED)
 def test_build_model_names_the_slice_of_other_archs(arch):
-    item = {"vlm": 7, "moe": 8, "ssm": 9, "hybrid": 9, "encdec": 10, "audio": 10}[
+    item = {"ssm": 9, "hybrid": 9, "encdec": 10, "audio": 10}[
         tconfigs.get_config(arch).arch_type]
     with pytest.raises(NotImplementedError, match=f"Queue A item {item}, the "):
         build_model(tconfigs.get_smoke_config(arch), "cpu")
+
+
+@pytest.mark.parametrize("arch", NEWLY_PORTED)
+def test_build_model_of_the_vlm_and_moe_archs_matches_reference_loss(arch):
+    """The archs of the vlm and MLA/MoE slice build on the CPU, and their
+    smoke configs' loss (a vlm's with patches, a MoE's with its router
+    losses) matches the reference's from the reference's init."""
+    cfg = jconfigs.get_smoke_config(arch)
+    jmodel = jax_build_model(cfg)
+    params = jax.jit(jmodel.init)(jax.random.PRNGKey(1))
+    tmodel = lm_from_reference(_port_cfg(cfg), _np_tree(params))
+    rng = np.random.default_rng(2)
+    batch = {name: rng.integers(0, cfg.vocab, size=(B, S)).astype(np.int32)
+             for name in ("tokens", "labels")}
+    if cfg.arch_type == "vlm":
+        batch["patches"] = rng.normal(size=(B, cfg.n_prefix_tokens, cfg.d_model)
+                                      ).astype(np.float32)
+    want, _ = jmodel.loss(params, {k: jnp.asarray(v) for k, v in batch.items()})
+    with torch.no_grad():
+        got, metrics = tmodel.loss({k: torch.from_numpy(v) for k, v in batch.items()})
+    assert (float(metrics["aux_loss"]) > 0) == (cfg.arch_type == "moe")
+    np.testing.assert_allclose(float(got), float(want), atol=1e-5)
 
 
 def test_build_model_needs_the_card_unless_asked_for_the_cpu(monkeypatch):
