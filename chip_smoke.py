@@ -52,8 +52,14 @@ from the repository root.  Phases, in order; any failure exits non-zero:
      Sq may exceed Sk, a row with no live key takes the reference kernel's
      value) on both forward routes, f32 and bf16, at ``NONCAUSAL_SHAPES``
      (self, Sq < Sk, Sq > Sk, windows, dead rows), timed at (4, 512, 32/8,
-     128) beside SDPA's ``is_causal=False``, a call that needs its gradient
-     refused (Queue A item 10); B4 (fused cross-entropy) forward
+     128) beside SDPA's ``is_causal=False``; its backward on both routes,
+     f32 and bf16, at ``NONCAUSAL_BWD_SHAPES`` (SeamlessM4T's encoder and
+     cross-attention (4, 256, 16/16, 64), Sq < Sk, Sq > Sk, a window with
+     every row live, head dim 80) against autograd of the plain version
+     within the causal backward's bounds, bit-identical run to run, once
+     through ``ops.flash_attention``, a call with a row that sees no key
+     refused, timed at the encoder's shape beside SDPA's backward with
+     ``is_causal=False``; B4 (fused cross-entropy) forward
      within atol 1e-5 (f32) and 3e-2 (bf16) of its plain version, loss and
      lse, on both routes wherever it takes the tensor cores (both timed),
      and its backward (dh, dW) and B5's
@@ -86,7 +92,12 @@ from the repository root.  Phases, in order; any failure exits non-zero:
      both routes timed at the prefill shape and at T 4,096 (eager,
      replayed in turn, L2-cold), beside the plain autograd's backward, the
      dR product and the saving forward; SDPA's forward and
-     backward timed at B5's batched-LM shapes; the wgmma routes' libraries hold HGMMA and UTMALDG
+     backward timed at B5's batched-LM shapes; B4, B5 (both modes, forward
+     and backward) and B6 in bf16 at the shapes phases 12-17 hand them
+     (``SLICE_ATTN``, ``SLICE_NONCAUSAL``, ``SLICE_DECODE``,
+     ``SLICE_XENT``), each within the bounds above and tagged with its
+     path, and every bf16 call of phases 15-17 logged and held against that
+     list (``_ShapeLog``); the wgmma routes' libraries hold HGMMA and UTMALDG
      instructions in their SASS (cuobjdump), B6's tensor-core library HMMA
      and LDGSTS (mma.sync, cp.async), the f32-FMA ones none of the four;
   2. the sequential main path at full width: the CIFAR-10 split CNN (convs
@@ -236,7 +247,29 @@ from the repository root.  Phases, in order; any failure exits non-zero:
      protocol, no wire and int8 under ``loss_plus_distance``, each on the
      sequential and the batched engine (the cluster-stacked MoE, a slot
      routed as its plain model) from one init: decisions equal, launches as
-     the rounds' structure predicts, seconds a round and peak memory.
+     the rounds' structure predicts, seconds a round and peak memory;
+ 15. Mamba2 and the hybrid: Zamba2-1.2B (38 Mamba2 layers and 6 shared
+     attention blocks, 1,204,036,480 parameters) served at full width and
+     depth (a 4 x 512 prefill, 6 B5 launches, profiled with the SSD chunk
+     scan's share of the busy time; the serve loop, 6 B6 launches a step,
+     against a text prefill within ZAMBA2_BF16_REL), trained at full depth
+     (4 x 512, train_4k's ssm_chunk 512 and remat, three SGD steps: 12 B5
+     forwards, 6 backwards, B4 on its tensor-core route each way a step),
+     and at 4 Mamba2 layers in f32 its loss, every gradient and prefill
+     logits on the card against the CPU's;
+ 16. the Pigeon-SL round over ``from_lm`` at Zamba2-1.2B's width, 13 Mamba2
+     layers with the published cut at 10 (a shared block on each side),
+     phase 8's task and runs (no wire, int8, int8 under
+     ``loss_plus_distance``) on both engines from one init: decisions
+     equal, launches as the rounds' structure predicts;
+ 17. the encoder-decoder: SeamlessM4T-medium (12 encoder and 12 decoder
+     layers, 977,758,208 parameters) served at full width and depth (4 x
+     256 frame embeddings drawn from a seed, a 4 x 256 prefill, the serve
+     loop on their memory: 12 B6 and 12 non-causal B5 launches with Sq = 1
+     a step), trained on 4 x (256 frames + 256 tokens) with remat (48
+     non-causal and 24 causal B5 forwards, 24 and 12 backwards, B4 on its
+     f32-FMA route at vocab 256,206, a step), and at 2 + 2 layers in f32
+     against the CPU.
 
 The last lines are one JSON object per kernel set (``{"kernels": [...]}``),
 the card's ``nvidia-smi`` name and power limit, and
@@ -326,12 +359,22 @@ ATTN_ATOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # B5's non-causal mode: (B, Sq, Sk, H, Hkv, D, window): self-attention at
 # the serve shape's heads (timed), a cross shape with Sq < Sk and one with
 # Sq > Sk, windows (keys ahead of the query live) with rows that see no key
-# (Sq > Sk + window - 1), head dims 64/80/256, ragged S
+# (Sq > Sk + window - 1), head dims 64/80/256, ragged S, and SeamlessM4T's
+# decode step (one query against 256 frames of memory, 16/16 heads of 64)
 NONCAUSAL_SHAPES = ((4, 512, 512, 32, 8, 128, 0), (2, 384, 640, 16, 4, 128, 0),
                     (2, 640, 256, 16, 4, 64, 0), (2, 512, 256, 8, 2, 128, 64),
                     (1, 200, 130, 4, 1, 256, 16), (1, 37, 5, 4, 2, 80, 0),
-                    (1, 300, 300, 8, 8, 64, 32))
+                    (1, 300, 300, 8, 8, 64, 32), (4, 1, 256, 16, 16, 64, 0))
 NONCAUSAL_TIMED = 4             # the first four are timed
+# B5's non-causal backward: (B, Sq, Sk, H, Hkv, D, window): SeamlessM4T's
+# encoder self-attention (16 heads of 64, 256 frames; timed) and its
+# decoder's cross-attention (256 tokens against 256 frames) share a shape;
+# then an Sq < Sk and an Sq > Sk edge (GQA, head dim 128), a window with
+# every row live (Sq < Sk + window), head dim 80 (the f32-FMA route) with
+# ragged S
+NONCAUSAL_BWD_SHAPES = ((4, 256, 256, 16, 16, 64, 0), (2, 100, 300, 8, 2, 128, 0),
+                        (2, 300, 130, 8, 4, 128, 0), (1, 200, 160, 8, 4, 64, 48),
+                        (1, 37, 50, 4, 2, 80, 0))
 # at DECODE_LONG a typical |out| is about sqrt(e / 32,768) = 0.009 (N(0, 1)
 # inputs over 32k live keys), under the bf16 atol itself: there the bf16
 # bound is this share of the call's largest |plain| value (~5 bf16 ulps of it)
@@ -460,6 +503,46 @@ DSV2_F32_LAYERS, QMOE_F32_LAYERS, MOE_F32_TOKENS = 3, 2, 128
 SLICE_PROMPT, SLICE_NEW = 32, 32
 MOE_ROUND_LAYERS, MOE_ROUND_CUT = 6, 3
 MOE_ROUND_RUNS = ((None, "argmin"), ("int8", "loss_plus_distance"))
+# phases 15-17.  Zamba2-1.2B (configs/zamba2_1_2b.py, arXiv:2411.15242; 38
+# Mamba2 layers, a shared attention block after every 6 of them: 32 heads of
+# 64, all KV heads; 1,204,036,480 parameters by the reference's layers, each
+# of the 6 blocks with its own): served at full width and depth, its prefill
+# 4 x 512 (the decode settings keep ssm_chunk 256, which must divide the
+# sequence), the serve loop as phase 12's; trained at full depth on 4 x 512
+# under train_4k's settings (ssm_chunk 512, remat); its f32 check at 4 Mamba2
+# layers with attn_every 2 (Mamba2 2, a block, Mamba2 2) on 1 x 128 tokens.
+# The round over it at ZAMBA2_ROUND_LAYERS Mamba2 layers (Mamba2 6, a block,
+# 6, a block, 1) with the published cut at 10: the client holds Mamba2 6, a
+# block and Mamba2 3, the AP Mamba2 3, a block and Mamba2 1.
+# SeamlessM4T-medium (configs/seamless_m4t_medium.py, arXiv:2308.11596; 12
+# encoder and 12 decoder layers, 16 heads of 64, vocab 256,206; 977,758,208
+# parameters): served at full width and depth, 4 x 256 frame embeddings
+# drawn from a seed, a 4 x 256 prefill, the serve loop on their memory (Sk
+# 256); trained on 4 x (256 frames + 256 tokens), remat; its f32 check at 2 +
+# 2 layers on 1 x (64 frames + 128 tokens)
+ZAMBA2_ARCH, ZAMBA2_PARAMS, ZAMBA2_PROMPT = "zamba2-1.2b", 1_204_036_480, 512
+ZAMBA2_F32 = dict(n_layers=4, attn_every=2)
+ZAMBA2_ROUND_LAYERS, ZAMBA2_ROUND_CUT = 13, 10
+SEAMLESS_ARCH, SEAMLESS_PARAMS = "seamless-m4t-medium", 977_758_208
+SEAMLESS_FRAMES, SEAMLESS_TOKENS = 256, 256
+SEAMLESS_F32 = dict(n_layers=2, n_enc_layers=2)
+SEAMLESS_F32_FRAMES = 64
+SLICE_F32_TOKENS = 128
+# the range chip_smoke opens around each SSD chunk (models/ssm.py::_ssd_chunk)
+# while it profiles a Zamba2 path: the kernels launched within it are the
+# SSD's share of the busy time
+SSD_RANGE = "mamba2.ssd_chunk"
+# Zamba2's bf16 prefill vs decode logits: the two paths round Mamba2 at
+# different points (the prefill's causal convolution four bf16 products and
+# sums a position, the decode's one product over the window; the projections
+# of a sequence and of one token), and at random init that compounds over
+# 38 layers more than the dense layers' rounding does (SERVE_BF16_REL): on
+# the CPU at 38 layers, d 256 and 512, each bf16 path lay 0.040-0.062 of
+# max |logit| from the same weights' f32 logits and the two 0.042-0.059
+# from each other (the f32 paths 2e-6 apart).  The bound holds two such
+# errors with a margin; phase 15's f32 check holds the two paths within
+# SERVE_F32_REL
+ZAMBA2_BF16_REL = 0.2
 # bf16 prefill vs decode logits of a MoE differ by more than rounding: a
 # token whose k-th and (k+1)-th router probabilities lie within the two
 # paths' roundings of each other takes another expert on the other path,
@@ -472,25 +555,68 @@ MOE_ROUND_RUNS = ((None, "argmin"), ("int8", "loss_plus_distance"))
 # a cut depth, card against CPU: the summation order only, and every
 # routing id and kept pair equal
 SLICE_F32_REL = 1e-3
+# f32 gradients, card against CPU (phases 15 and 17), each leaf on its own
+# scale within TRAIN_F32_REL, but for Mamba2's A_log: its gradient sums
+# dt * A * (...) over every position, head dim and state entry of its head,
+# terms that mostly cancel, so the sum keeps the rounding of the large ones.
+# A float64 copy of the model on the CPU (_F64) is the third witness: on the
+# CPU at d 256, 4 Mamba2 layers and 128 tokens, f32 against it read
+# 4.5e-5-6.8e-5 at A_log, 1.2e-5 at dt_bias and under 2.6e-6 elsewhere; at
+# full width on an H100 80GB HBM3 (700 W) the card against the CPU read
+# 1.31e-4 at one A_log and under 1e-5 elsewhere.  So A_log alone is held at
+# A_LOG_GRAD_REL, card against CPU and card against float64
+A_LOG_GRAD_REL = 1e-3
 # phase 1 at the slice's own shapes (_phase_slice_shapes), bf16: B5 forward
 # and backward at InternVL2-26B's heads (48 query, 8 KV of 128) at its
 # prefill's 480 and its train step's 512 positions, and at Qwen3-30B-A3B's
-# (32 and 4) at its 480; B6 at both head layouts over the serve loops'
-# 64-slot caches (B 4, SLICE_PROMPT + SLICE_NEW) at the first, middle and
-# last index; B4 forward and backward at InternVL2-26B's train head (4 x
-# 256 text tokens: the loss drops the 256 patch positions; d 6,144, vocab
-# 92,553 on the f32-FMA route), the same at 2,048 rows, and at
-# DeepSeek-V2-Lite's (4 x 512 tokens, d 2,048, vocab 102,400, tensor cores).
-# Each names the path whose launches it stands for (None: on no path)
+# (32 and 4) at its 480; at Zamba2-1.2B's shared blocks (32/32 of 64) at its
+# prefill's and train step's 4 x 512, the serve loop's text prefill (4 x
+# SLICE_PROMPT) and the round's 1, 4, 8 (the batched engine's R * B folded
+# sequences, a backward too) and 16 sequences of 512; at SeamlessM4T-
+# medium's decoder (16/16 of 64), causal, at 4 x 256 and 4 x SLICE_PROMPT;
+# B5 non-causal at SeamlessM4T's encoder and cross-attention (4 x 256 against
+# 256 frames, forward and backward), the loop's text prefill against them
+# (Sq SLICE_PROMPT) and its decode steps' cross-attention (Sq 1); B6 at the
+# four head layouts over the serve loops' 64-slot caches (B 4, SLICE_PROMPT
+# + SLICE_NEW) at the first, middle and last index; B4 forward and backward
+# at InternVL2-26B's train head (4 x 256 text tokens: the loss drops the 256
+# patch positions; d 6,144, vocab 92,553 on the f32-FMA route), the same at
+# 2,048 rows, DeepSeek-V2-Lite's (4 x 512 tokens, d 2,048, vocab 102,400,
+# tensor cores), Zamba2's train head (4 x 512, d 2,048, vocab 32,000,
+# tensor cores) and its round's evaluation heads (4,096 and 512 rows, the
+# forward only on the path), and SeamlessM4T's (4 x 256 text tokens, d
+# 1,024, vocab 256,206 on the f32-FMA route).  Each names the path whose
+# launches it stands for (None: on no path), forward and backward apart
 SLICE_ATTN = (((4, 480, 48, 8, 128, 0), "vlm_prefill", None),
               ((4, 512, 48, 8, 128, 0), "vlm_train", "vlm_train"),
-              ((4, 480, 32, 4, 128, 0), "qmoe_prefill", None))
-SLICE_DECODE = tuple(((4, SLICE_PROMPT + SLICE_NEW, h, hkv, 128, 0, i), path)
-                     for h, hkv, path in ((48, 8, "vlm_serve_loop"), (32, 4, "qmoe_loop"))
+              ((4, 480, 32, 4, 128, 0), "qmoe_prefill", None),
+              ((4, ZAMBA2_PROMPT, 32, 32, 64, 0), "zamba2_prefill", "zamba2_train"),
+              ((4, SLICE_PROMPT, 32, 32, 64, 0), "zamba2_serve_loop", None),
+              ((1, 512, 32, 32, 64, 0), "zamba2_round_sequential_None_argmin", None),
+              ((8, 512, 32, 32, 64, 0), "zamba2_round_batched_None_argmin",
+               "zamba2_round_batched_None_argmin"),
+              ((16, 512, 32, 32, 64, 0), "zamba2_round_batched_None_argmin", None),
+              ((4, SEAMLESS_TOKENS, 16, 16, 64, 0), "seamless_prefill", "seamless_train"),
+              ((4, SLICE_PROMPT, 16, 16, 64, 0), "seamless_serve_loop", None))
+SLICE_NONCAUSAL = (((4, SEAMLESS_TOKENS, SEAMLESS_FRAMES, 16, 16, 64, 0), "seamless_prefill",
+                    "seamless_train"),
+                   ((4, SLICE_PROMPT, SEAMLESS_FRAMES, 16, 16, 64, 0), "seamless_serve_loop",
+                    None),
+                   ((4, 1, SEAMLESS_FRAMES, 16, 16, 64, 0), "seamless_serve_loop", None))
+SLICE_DECODE = tuple(((4, SLICE_PROMPT + SLICE_NEW, h, hkv, d, 0, i), path)
+                     for h, hkv, d, path in ((48, 8, 128, "vlm_serve_loop"),
+                                             (32, 4, 128, "qmoe_loop"),
+                                             (32, 32, 64, "zamba2_serve_loop"),
+                                             (16, 16, 64, "seamless_serve_loop"))
                      for i in (0, (SLICE_PROMPT + SLICE_NEW) // 2 - 1,
                                SLICE_PROMPT + SLICE_NEW - 1))
-SLICE_XENT = (((1024, 6144, 92553), "vlm_train"), ((2048, 6144, 92553), None),
-              ((2048, 2048, 102400), "dsv2_train"))
+SLICE_XENT = (((1024, 6144, 92553), "vlm_train", "vlm_train"),
+              ((2048, 6144, 92553), None, None),
+              ((2048, 2048, 102400), "dsv2_train", "dsv2_train"),
+              ((2048, 2048, 32000), "zamba2_train", "zamba2_train"),
+              ((4096, 2048, 32000), "zamba2_round_sequential_None_argmin", None),
+              ((512, 2048, 32000), "zamba2_round_batched_None_argmin", None),
+              ((4 * SEAMLESS_TOKENS, 1024, 256206), "seamless_train", "seamless_train"))
 # B5's backward: the train shape (B 4, S 512, Qwen3-8B's heads), then GQA
 # group 8, the forward's edge shapes (MQA, group 1, windows, head dims
 # 64/80/256, ragged S, S = 1)
@@ -590,14 +716,16 @@ def _time_us(fn, *args, reps: int = 200, samples: int = 15, warmup: int = 10) ->
     return times[len(times) // 2]
 
 
-def _graph_times_us(fns, reps: int = 100, samples: int = 15):
+def _graph_times_us(fns, reps: int = 100, samples: int = 15, stream=None):
     """Device time per call of each of ``fns``: ``reps`` calls of each
     captured in a CUDA graph of its own, so the host's per-call cost drops
     out, and the graphs replayed in turn ``samples`` times, so a change in
     the card's speed during the run falls on all of them alike.  The sorted
-    per-call times of each."""
+    per-call times of each.  ``stream``: the stream to warm up and capture
+    on (an autograd backward runs on its forward's stream, so a backward
+    is captured on the stream its forward ran on)."""
     import torch
-    side = torch.cuda.Stream()
+    side = stream or torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for fn in fns:
@@ -607,7 +735,7 @@ def _graph_times_us(fns, reps: int = 100, samples: int = 15):
     graphs = []
     for fn in fns:
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
+        with torch.cuda.graph(graph, stream=stream):
             for _ in range(reps):
                 fn()
         graph.replay()
@@ -757,6 +885,7 @@ def phase_kernels():
     results.update(_phase_attention())
     results["flash_attention"]["non_causal"] = _phase_attention_non_causal()
     results.update(_phase_attention_bwd())
+    results["flash_attention_bwd"]["non_causal"] = _phase_attention_bwd_non_causal()
     for name, t in _phase_lm_batched_shapes().items():
         results[name]["lm_batched"] = t
     for name, cases in _phase_slice_shapes().items():
@@ -876,12 +1005,14 @@ def _phase_lm_batched_shapes() -> dict:
 
 
 def _phase_slice_shapes() -> dict:
-    """Phases 12-14's own shapes in phase 1, bf16, each on the route its
+    """Phases 12-17's own shapes in phase 1, bf16, each on the route its
     path takes: B5's forward within ATTN_ATOL of the plain version and its
-    backward within GRAD_REL of autograd of it (SLICE_ATTN); B6 within
-    ATTN_ATOL (SLICE_DECODE); B4's loss and lse within XENT_ATOL and its
-    backward within GRAD_REL, on _xent_grad_err's four scales
-    (SLICE_XENT).  Each with its route, its error and one eager time."""
+    backward within GRAD_REL of autograd of it, causal (SLICE_ATTN) and not
+    (SLICE_NONCAUSAL); B6 within ATTN_ATOL (SLICE_DECODE); B4's loss and
+    lse within XENT_ATOL and its backward within GRAD_REL, on
+    _xent_grad_err's four scales (SLICE_XENT).  Each with its route, the
+    counter its path's launches fall under, its error, one eager time and
+    its ``_ShapeLog`` key."""
     import torch
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
@@ -891,21 +1022,42 @@ def _phase_slice_shapes() -> dict:
     out = {name: [] for name in ("flash_attention", "flash_attention_bwd", "decode_attention",
                                  "fused_xent", "fused_xent_bwd")}
 
-    def note(name, shape, path, route, err, us, rel=False):
-        out[name].append(dict(shape=list(shape), path=path, route=route, kernel_us=us,
+    def note(name, shape, path, route, err, us, key, rel=False, causal=True):
+        counter = (name + ("_tc" if route == "tensor_cores" else "")
+                   + ("" if causal else "_noncausal"))
+        out[name].append(dict(shape=list(shape), path=path, route=route, counter=counter,
+                              kernel_us=us, key=key, causal=causal,
                               **{"max_rel_err" if rel else "max_abs_err": err}))
 
-    for i, (shape, path, bwd_path) in enumerate(SLICE_ATTN):
-        (q, k, v), kw = _attention_args("flash_attention", shape, "bfloat16", seed=300 + i)
+    def draw(shape, seed):
+        b, sq, sk, h, hkv, d, _ = shape
+        g = torch.Generator(device=DEVICE).manual_seed(seed)
+        return tuple(torch.randn(dims, generator=g, device=DEVICE).to(torch.bfloat16)
+                     for dims in ((b, sq, h, d), (b, sk, hkv, d), (b, sk, hkv, d)))
+
+    cases = ([(shape, True, path, bwd_path, 300 + i)
+              for i, (shape, path, bwd_path) in enumerate(SLICE_ATTN)]
+             + [(shape, False, path, bwd_path, 340 + i)
+                for i, (shape, path, bwd_path) in enumerate(SLICE_NONCAUSAL)])
+    for shape, causal, path, bwd_path, seed in cases:
+        if causal:
+            (q, k, v), kw = _attention_args("flash_attention", shape, "bfloat16", seed=seed)
+            b, s, h, hkv, d, window = shape
+            key = (b, s, s, h, hkv, d, window, True)
+        else:
+            q, k, v = draw(shape, seed)
+            kw = dict(window=shape[6], causal=False)
+            key = (*shape, False)
+        what = f"{'' if causal else 'non-causal '}bf16 {shape}"
         with torch.inference_mode():
             got, lse = fa.flash_attention(q, k, v, **kw)
             want = fa.flash_attention_plain(q, k, v, **kw)
         err = float((got.float() - want.float()).abs().max())
-        check(err <= ATTN_ATOL["bfloat16"], f"flash_attention bf16 {shape}: max |kernel - "
+        check(err <= ATTN_ATOL["bfloat16"], f"flash_attention {what}: max |kernel - "
                                             f"plain| {err:.3e} > {ATTN_ATOL['bfloat16']}")
         note("flash_attention", shape, path, fa.attention_route(q, k, v), err,
-             _time_us(lambda: fa.flash_attention(q, k, v, **kw), **few))
-        g = torch.Generator(device=DEVICE).manual_seed(310 + i)
+             _time_us(lambda: fa.flash_attention(q, k, v, **kw), **few), key, causal=causal)
+        g = torch.Generator(device=DEVICE).manual_seed(seed + 10)
         dout = torch.randn(q.shape, generator=g, device=DEVICE).to(q.dtype)
         qq, kk, vv = (x.clone().requires_grad_() for x in (q, k, v))
         ref = torch.autograd.grad(fa.flash_attention_plain(qq, kk, vv, **kw), (qq, kk, vv),
@@ -913,12 +1065,12 @@ def _phase_slice_shapes() -> dict:
         mine = fa.flash_attention_bwd(q, k, v, got, dout, lse, **kw)
         scale = max(float(r.abs().max()) for r in ref)
         err = max(_rel_err(a, r, scale) for a, r in zip(mine, ref))
-        check(err <= GRAD_REL["bfloat16"], f"flash_attention_bwd bf16 {shape}: rel err "
+        check(err <= GRAD_REL["bfloat16"], f"flash_attention_bwd {what}: rel err "
                                            f"{err:.3e} > {GRAD_REL['bfloat16']}")
         note("flash_attention_bwd", shape, bwd_path, fa.attention_bwd_route(q, k, v, got, dout),
              err,
              _time_us(lambda: fa.flash_attention_bwd(q, k, v, got, dout, lse, **kw), **few),
-             rel=True)
+             key, rel=True, causal=causal)
         del q, k, v, qq, kk, vv, ref, mine
     for i, (shape, path) in enumerate(SLICE_DECODE):
         args, kw = _attention_args("decode_attention", shape, "bfloat16", seed=320 + i)
@@ -929,8 +1081,8 @@ def _phase_slice_shapes() -> dict:
         check(err <= ATTN_ATOL["bfloat16"], f"decode_attention bf16 {shape}: max |kernel - "
                                             f"plain| {err:.3e} > {ATTN_ATOL['bfloat16']}")
         note("decode_attention", shape, path, da.decode_route(*args[:3]), err,
-             _time_us(lambda: da.decode_attention(*args, **kw), **few))
-    for i, (shape, path) in enumerate(SLICE_XENT):
+             _time_us(lambda: da.decode_attention(*args, **kw), **few), tuple(shape[:6]))
+    for i, (shape, path, bwd_path) in enumerate(SLICE_XENT):
         h, w, labels, gup = _xent_args(shape, "bfloat16", seed=330 + i)
         hh, ww = h.clone().requires_grad_(), w.clone().requires_grad_()
         ref = fx.fused_xent_plain(hh, ww, labels)
@@ -943,22 +1095,76 @@ def _phase_slice_shapes() -> dict:
               f"fused_xent bf16 {shape}: max |kernel - plain| {err:.3e} > "
               f"{XENT_ATOL['bfloat16']}")
         note("fused_xent", shape, path, fx.xent_route(h, w), err,
-             _time_us(lambda: fx.fused_xent(h, w, labels), **few))
+             _time_us(lambda: fx.fused_xent(h, w, labels), **few), tuple(shape))
         dh, dw = fx.fused_xent_bwd(h, w, labels, lse, gup)
         err = _xent_grad_err(dh, dw, ref_dh, ref_dw, labels)
         check(dh.dtype == h.dtype and dw.dtype == w.dtype and err <= GRAD_REL["bfloat16"],
               f"fused_xent_bwd bf16 {shape}: rel err {err:.3e} > {GRAD_REL['bfloat16']}")
-        note("fused_xent_bwd", shape, path, fx.xent_bwd_route(h, w), err,
-             _time_us(lambda: fx.fused_xent_bwd(h, w, labels, lse, gup), **few), rel=True)
+        note("fused_xent_bwd", shape, bwd_path, fx.xent_bwd_route(h, w), err,
+             _time_us(lambda: fx.fused_xent_bwd(h, w, labels, lse, gup), **few), tuple(shape),
+             rel=True)
         del h, w, hh, ww, ref, ref_dh, ref_dw, dh, dw
         torch.cuda.empty_cache()
     for name, cases in out.items():
         log(f"phase1 {name} at the slice's shapes (bf16): " + "; ".join(
-            f"{t['shape']} ({t['path'] or 'on no path'}) {t['route']} "
-            f"route, {'rel' if 'max_rel_err' in t else 'abs'} err "
+            f"{t['shape']}{'' if t['causal'] else ' non-causal'} ({t['path'] or 'on no path'}) "
+            f"{t['route']} route, {'rel' if 'max_rel_err' in t else 'abs'} err "
             f"{t.get('max_rel_err', t.get('max_abs_err')):.3e}, kernel_us {t['kernel_us']:.1f}"
             for t in cases))
     return out
+
+
+class _ShapeLog:
+    """Within the block, the key of every bf16 call on the card to B4's, B5's
+    and B6's launchers, by launcher: (B, Sq, Sk, H, Hkv, D, window, causal)
+    for B5 both ways, (B, S, H, Hkv, D, window) for B6 (any index), (T, D,
+    V) for B4 both ways; what ``_phase_slice_shapes`` checked is held
+    against it (``_check_shape_log``)."""
+
+    def __enter__(self):
+        import torch
+        from repro_torch.kernels import decode_attention as da
+        from repro_torch.kernels import flash_attention as fa
+        from repro_torch.kernels import fused_xent as fx
+
+        def attention(q, k, *_, causal=True, window=0, **__):
+            return (*q.shape[:2], k.shape[1], q.shape[2], k.shape[2], q.shape[3], window,
+                    causal)
+
+        def decode(q, k, *_, window=0, **__):
+            return (q.shape[0], k.shape[1], q.shape[2], k.shape[2], q.shape[3], window)
+
+        def xent(h, w, *_, **__):
+            return (h.shape[0], *w.shape)
+
+        launchers = ((fa, "flash_attention", attention), (fa, "flash_attention_bwd", attention),
+                     (da, "decode_attention", decode), (fx, "fused_xent", xent),
+                     (fx, "fused_xent_bwd", xent))
+        self.seen = {name: set() for _, name, _ in launchers}
+        self.saved = [(module, name, getattr(module, name)) for module, name, _ in launchers]
+        for (module, name, key), (_, _, fn) in zip(launchers, self.saved):
+            def logged(*args, _fn=fn, _key=key, _seen=self.seen[name], **kw):
+                if args[0].is_cuda and args[0].dtype == torch.bfloat16:
+                    _seen.add(_key(*args, **kw))
+                return _fn(*args, **kw)
+            setattr(module, name, logged)
+        return self
+
+    def __exit__(self, *exc):
+        for module, name, fn in self.saved:
+            setattr(module, name, fn)
+
+
+def _check_shape_log(label: str, log_: _ShapeLog, slice_shapes: dict) -> None:
+    """Fail unless every key in ``log_`` was checked in phase 1 at the
+    slice's shapes (``_phase_slice_shapes``)."""
+    missing = {name: sorted(keys - {tuple(t["key"]) for t in slice_shapes[name]})
+               for name, keys in log_.seen.items()}
+    check(not any(missing.values()),
+          f"{label}: bf16 calls at shapes phase 1 did not hold against the plain versions: "
+          f"{ {n: m for n, m in missing.items() if m} }")
+    log(f"{label}: every bf16 call to B4, B5 and B6 at a shape phase 1 checked: "
+        f"{ {n: len(k) for n, k in log_.seen.items()} } distinct shapes")
 
 
 def _phase_replica_kernels() -> dict:
@@ -1494,11 +1700,10 @@ def _phase_attention_non_causal():
     on both forward routes against the plain version at
     :data:`NONCAUSAL_SHAPES`, f32 and bf16, bit-identical run to run; timed
     at the self shape beside SDPA with ``is_causal=False`` (eager, replayed
-    in turn with the f32-FMA route, L2-cold); a call that needs a gradient
-    raises (its backward comes with the encoder, Queue A item 10)."""
+    in turn with the f32-FMA route, L2-cold).  Its backward:
+    :func:`_phase_attention_bwd_non_causal`."""
     import torch
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ops
 
     def draw(shape, dtype, seed):
         b, sq, sk, h, hkv, d, _ = shape
@@ -1537,16 +1742,6 @@ def _phase_attention_non_causal():
     log(f"phase1 flash_attention non-causal: within atol {ATTN_ATOL} of plain at "
         f"{list(NONCAUSAL_SHAPES)} (Sq = Sk, Sq < Sk, Sq > Sk, windows, rows with no live "
         f"key) on every route, bit-identical run to run; max_abs_err {max_err}")
-
-    # a call that needs a gradient is refused, naming the item that adds it
-    q, k, v = draw(NONCAUSAL_SHAPES[-1], "bfloat16", 299)
-    q.requires_grad_(True)
-    try:
-        ops.flash_attention(q, k, v, causal=False)
-        fail("flash_attention non-causal with a gradient did not raise")
-    except NotImplementedError as e:
-        check("Queue A item 10" in str(e), f"the refusal does not name item 10: {e}")
-    del q, k, v
 
     timings = [_non_causal_timing(shape, draw(shape, "bfloat16", 250 + i))
                for i, shape in enumerate(NONCAUSAL_SHAPES[:NONCAUSAL_TIMED])]
@@ -1923,6 +2118,157 @@ def _phase_attention_bwd():
     return {"flash_attention_bwd": dict(shape=list(shape), dtype="bfloat16",
                                         max_abs_err=main_abs, max_rel_err=main_err,
                                         **timing)}
+
+
+def _phase_attention_bwd_non_causal():
+    """B5's backward in non-causal mode (dq, dk, dv) against autograd of the
+    plain version (``causal=False``) at :data:`NONCAUSAL_BWD_SHAPES`, f32
+    and bf16, on both routes wherever a shape takes the tensor cores,
+    within GRAD_REL, bit-identical run to run; once through
+    ``ops.flash_attention`` (``FlashAttention``: one non-causal forward and
+    one backward launch); a call with a row that sees no key refused (by
+    ``ops.flash_attention`` and by the launcher); timed at SeamlessM4T's
+    encoder shape in bf16, eager, replayed and L2-cold, beside the plain
+    autograd's backward, SDPA's backward with ``is_causal=False`` (eager,
+    and replayed in turn with the kernel; a yardstick the port never calls)
+    and the bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+
+    def draw(shape, dtype, seed):
+        b, sq, sk, h, hkv, d, _ = shape
+        g = torch.Generator(device=DEVICE).manual_seed(seed)
+        dt = getattr(torch, dtype)
+        return tuple(torch.randn(dims, generator=g, device=DEVICE).to(dt)
+                     for dims in ((b, sq, h, d), (b, sk, hkv, d), (b, sk, hkv, d),
+                                  (b, sq, h, d)))
+
+    errs, routes = {}, {}
+    for dtype in ("float32", "bfloat16"):
+        for i, shape in enumerate(NONCAUSAL_BWD_SHAPES):
+            q, k, v, dout = draw(shape, dtype, 400 + i)
+            window = shape[6]
+            check(not fa.has_dead_rows(shape[1], shape[2], window, False),
+                  f"{shape}: a row with no key")
+            out, lse = fa.flash_attention(q, k, v, causal=False, window=window)
+            qq, kk, vv = (x.clone().requires_grad_() for x in (q, k, v))
+            ref = torch.autograd.grad(
+                fa.flash_attention_plain(qq, kk, vv, causal=False, window=window),
+                (qq, kk, vv), grad_outputs=dout)
+            scale = max(float(r.abs().max()) for r in ref)
+            route = fa.attention_bwd_route(q, k, v, out, dout)
+            routes.setdefault(route, []).append((dtype, shape))
+            for how in [route] + ([fa.F32_FMA] if route == fa.TENSOR_CORES else []):
+                d1 = fa.flash_attention_bwd(q, k, v, out, dout, lse, causal=False,
+                                            window=window, route=how)
+                d2 = fa.flash_attention_bwd(q, k, v, out, dout, lse, causal=False,
+                                            window=window, route=how)
+                torch.cuda.synchronize()
+                what = f"flash_attention_bwd non-causal ({how}) {dtype} {shape}"
+                check(all(torch.equal(a, b) for a, b in zip(d1, d2)), f"{what}: two runs differ")
+                err = max(_rel_err(a, r, scale) for a, r in zip(d1, ref))
+                check(all(a.dtype == q.dtype and a.shape == r.shape for a, r in zip(d1, ref))
+                      and all(bool(torch.isfinite(a).all()) for a in d1)
+                      and err <= GRAD_REL[dtype],
+                      f"{what}: rel err {err:.3e} > {GRAD_REL[dtype]}")
+                key = f"{how} {dtype}"
+                errs[key] = max(errs.get(key, 0.0), err)
+                if i == 0 and dtype == "bfloat16" and how == route:
+                    main_err = err
+                    main_abs = max(float((a.float() - r.float()).abs().max())
+                                   for a, r in zip(d1, ref))
+            del q, k, v, dout, out, lse, qq, kk, vv, ref
+    log(f"phase1 flash_attention_bwd non-causal: dq, dk, dv within rel {GRAD_REL} of "
+        f"autograd of the plain version at {list(NONCAUSAL_BWD_SHAPES)} (Seamless's encoder "
+        f"and cross-attention, Sq < Sk, Sq > Sk, a window with every row live, head dim 80), "
+        f"bit-identical run to run; routes {routes}; max rel err {errs}")
+
+    # through the autograd.Function: one non-causal launch each way
+    q, k, v, dout = draw(NONCAUSAL_BWD_SHAPES[0], "bfloat16", 450)
+    qq, kk, vv = (x.clone().requires_grad_() for x in (q, k, v))
+    build.reset_launches()
+    got = torch.autograd.grad(ops.flash_attention(qq, kk, vv, causal=False), (qq, kk, vv),
+                              grad_outputs=dout)
+    torch.cuda.synchronize()
+    want = want_launches(flash_attention_tc_noncausal=1, flash_attention_bwd_tc_noncausal=1)
+    check(dict(build.LAUNCHES) == want,
+          f"ops.flash_attention non-causal with a gradient launched {build.LAUNCHES}")
+    out, lse = fa.flash_attention(q, k, v, causal=False)
+    direct = fa.flash_attention_bwd(q, k, v, out, dout, lse, causal=False)
+    check(all(torch.equal(a, b) for a, b in zip(got, direct)),
+          "ops.flash_attention's non-causal gradient differs from the launcher's")
+
+    # a row with no live key: refused by both entry points
+    dead = (1, 200, 100, 4, 2, 64, 64)
+    dq_, dk_, dv_, dd = draw(dead, "bfloat16", 460)
+    for call in (lambda: ops.flash_attention(dq_.clone().requires_grad_(), dk_, dv_,
+                                             causal=False, window=64),
+                 lambda: fa.flash_attention_bwd(dq_, dk_, dv_, dq_, dd, torch.zeros(
+                     (1, 4, 200), device=DEVICE), causal=False, window=64)):
+        try:
+            call()
+            fail(f"flash_attention_bwd non-causal at {dead} (rows 163-199 see no key) did "
+                 f"not raise")
+        except NotImplementedError as e:
+            check("sees no key" in str(e), f"the dead-row refusal says: {e}")
+    log(f"phase1 flash_attention_bwd non-causal: a call with a gradient at {dead} (Sq >= Sk "
+        f"+ window) refused by ops.flash_attention and the launcher")
+
+    shape = NONCAUSAL_BWD_SHAPES[0]
+    b, sq, sk, h, hkv, d, window = shape
+    plain_out = fa.flash_attention_plain(qq, kk, vv, causal=False)
+    # SDPA's leaves, forward and grad_outputs on a stream of their own, where
+    # its backward then runs and is captured for the replayed time (a node
+    # of its graph on the legacy stream would make the capture wait on it)
+    lib_stream = torch.cuda.Stream()
+    lib_stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(lib_stream):
+        ql, kl, vl = (x.clone().requires_grad_() for x in (q, k, v))
+        dl = dout.transpose(1, 2).contiguous()
+        qt, kt, vt = (x.transpose(1, 2) for x in (ql, kl, vl))
+        lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=False, enable_gqa=True)
+        lib_ref = torch.autograd.grad(lib_out, (ql, kl, vl), grad_outputs=dl, retain_graph=True)
+    torch.cuda.current_stream().wait_stream(lib_stream)
+    scale = max(float(r.abs().max()) for r in lib_ref)
+    check(max(_rel_err(a, r, scale) for a, r in zip(direct, lib_ref)) <= GRAD_REL["bfloat16"],
+          "flash_attention_bwd non-causal: SDPA's backward disagrees with the kernel")
+    call = lambda: fa.flash_attention_bwd(q, k, v, out, dout, lse, causal=False)  # noqa: E731
+    old = lambda: fa.flash_attention_bwd(q, k, v, out, dout, lse, causal=False,  # noqa: E731
+                                         route=fa.F32_FMA)
+    plain = lambda: torch.autograd.grad(plain_out, (qq, kk, vv), grad_outputs=dout,  # noqa: E731
+                                        retain_graph=True)
+    lib = lambda: torch.autograd.grad(lib_out, (ql, kl, vl), grad_outputs=dl,  # noqa: E731
+                                      retain_graph=True)
+    dev, lib_dev = _graph_times_us([call, lib], reps=20, samples=9, stream=lib_stream)
+    pairs = sq * sk
+    n_ops = 10 * d * pairs * b * h
+    n_bytes = 2 * (4 * b * sq * h * d + 4 * b * sk * hkv * d) + 4 * b * h * sq
+    bytes_us = n_bytes / HBM_BYTES_PER_S * 1e6
+    ops_us = n_ops / BF16_OPS_PER_S * 1e6
+    timing = dict(kernel_us=_time_us(call, reps=20, samples=5), kernel_dev_us=_median(dev),
+                  kernel_cold_us=_cold_time_us(call, reps=10),
+                  plain_us=_time_us(plain, reps=5, samples=3),
+                  library_us=_time_us(lib, reps=20, samples=5),
+                  library_dev_us=_median(lib_dev),
+                  bound_us=max(bytes_us, ops_us),
+                  bound_by="bytes" if bytes_us >= ops_us else "operations",
+                  f32_fma_route=dict(kernel_us=_time_us(old, reps=5, samples=3),
+                                     kernel_dev_us=_graph_time_us(old, reps=5, samples=3),
+                                     kernel_cold_us=_cold_time_us(old, reps=5)))
+    log(f"phase1 flash_attention_bwd non-causal at {shape} bf16: kernel_us="
+        f"{timing['kernel_us']:.2f} plain_us={timing['plain_us']:.1f} sdpa_backward_us="
+        f"{timing['library_us']:.2f} (eager); bound_us={timing['bound_us']:.3f} "
+        f"({timing['bound_by']}; {n_ops / 1e9:.3f} GFLOP, {n_bytes / 1e6:.2f} MB); replayed "
+        f"in turn (L2 warm): kernel_us={timing['kernel_dev_us']:.2f} ({dev[0]:.2f}-"
+        f"{dev[-1]:.2f}), SDPA's backward {timing['library_dev_us']:.2f} ({lib_dev[0]:.2f}-"
+        f"{lib_dev[-1]:.2f}); L2 cold: {timing['kernel_cold_us']:.2f}; the f32-FMA route "
+        f"{timing['f32_fma_route']['kernel_us']:.1f} eager, "
+        f"{timing['f32_fma_route']['kernel_dev_us']:.1f} replayed")
+    return dict(shape=list(shape), dtype="bfloat16", max_abs_err=main_abs,
+                max_rel_err=main_err, max_rel_err_by_route=errs, **timing)
 
 
 def _slstm_args(shape, dtype: str, seed: int):
@@ -2947,10 +3293,12 @@ def phase_cpu_vs_card():
             f"{runs[a].rounds[-1]['val_losses']} vs {runs[b].rounds[-1]['val_losses']}")
 
 
-def _serve(model, prompts, new_tokens: int):
+def _serve(model, prompts, new_tokens: int, frames=None):
     """The serve path on ``model``: the prefill step's last-position logits,
-    then the reference serve loop.  Returns (prefill logits, greedy tokens,
-    the loop's logits at the prompt's last position, prefill s, loop s)."""
+    then the reference serve loop (an encoder-decoder's prefill takes
+    ``frames``, its loop their encoding, computed once before it).  Returns
+    (prefill logits, greedy tokens, the loop's logits at the prompt's last
+    position, prefill s, loop s)."""
     import torch
     from repro_torch.launch.serve import greedy_decode
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
@@ -2958,12 +3306,17 @@ def _serve(model, prompts, new_tokens: int):
     b, p = prompts.shape
     cache = model.init_cache(b, p + new_tokens)
     sync = torch.cuda.synchronize if prompts.is_cuda else (lambda: None)
+    batch = {"tokens": prompts} if frames is None else {"tokens": prompts, "frames": frames}
     sync()
     t0 = time.perf_counter()
-    prefill = make_prefill_step(model)({"tokens": prompts})
+    prefill = make_prefill_step(model)(batch)
     sync()
     t1 = time.perf_counter()
-    gen, last = greedy_decode(make_serve_step(model), cache, prompts, new_tokens)
+    memory = None
+    if frames is not None:
+        with torch.inference_mode():
+            memory = model.encode(batch)
+    gen, last = greedy_decode(make_serve_step(model), cache, prompts, new_tokens, memory)
     sync()
     return prefill, gen, last, t1 - t0, time.perf_counter() - t1
 
@@ -3073,6 +3426,24 @@ def _train_batch(b: int, s: int, seed: int = 0):
             "labels": torch.from_numpy(data.y[0]).to(DEVICE)}
 
 
+class _F64:
+    """Within the block every cast the port spells ``torch.float32`` (the f32
+    compute of Mamba2's SSD and state, the norms, rope, the plain attention
+    and loss) casts to float64 instead, so that a float64 copy of a model
+    on the CPU computes its loss and gradients in float64 throughout: the
+    third witness beside the card's and the CPU's f32."""
+
+    def __enter__(self):
+        import torch
+        self.saved = torch.float32
+        torch.float32 = torch.float64
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+        torch.float32 = self.saved
+
+
 class _PlainPath:
     """Within the block, the attention, the loss and the sLSTM scan of CUDA
     tensors that need a gradient take the plain versions through autograd
@@ -3085,7 +3456,8 @@ class _PlainPath:
         from repro_torch.kernels import slstm_scan as ss
         self.saved = (fa.FlashAttention.apply, fx.FusedXent.apply, ss.SlstmScan.apply)
         fa.FlashAttention.apply = staticmethod(
-            lambda q, k, v, window: fa.flash_attention_plain(q, k, v, window=window))
+            lambda q, k, v, window, causal=True: fa.flash_attention_plain(
+                q, k, v, causal=causal, window=window))
         fx.FusedXent.apply = staticmethod(fx.fused_xent_plain)
         ss.SlstmScan.apply = staticmethod(
             lambda pre, r, n_heads, *_: ss.slstm_scan_plain(pre, r, n_heads))
@@ -3292,6 +3664,19 @@ def phase_train():
     return train
 
 
+def _attn_layers(cfg):
+    """(the attention layers of ``cfg``'s plan, those on the client's side of
+    the cut): every layer of the dense and MoE kinds, a hybrid's
+    ``shared_attn`` blocks (each one layer toward the cut)."""
+    from repro_torch.models import build_plan
+    from repro_torch.models.model import split_plans
+    kinds = ("attn_mlp", "dense_mlp", "moe", "shared_attn")
+    plan = build_plan(cfg)
+    client = split_plans(cfg, plan)[0]
+    return (sum(sp.n for sp in plan if sp.kind in kinds),
+            sum(sp.n for sp in client if sp.kind in kinds))
+
+
 def _round_launches(cfg, pcfg, hist, quant, n_test, stats=False):
     """The kernel launches a sequential run_pigeon over from_lm makes, from
     the round structure: each client step runs the client's and the AP's
@@ -3304,8 +3689,7 @@ def _round_launches(cfg, pcfg, hist, quant, n_test, stats=False):
     steps collect none).  bf16 forwards and backwards of B4 and B5 count on
     the tensor-core routes."""
     import math
-    n = cfg.n_layers
-    cut = min(cfg.cut_layer, n)
+    n, cut = _attn_layers(cfg)
     fwd = 2 if cfg.remat else 1
     m_bar = pcfg.M // pcfg.R
     steps = vals = handoffs = evals = main = 0
@@ -3426,8 +3810,7 @@ def _batched_round_launches(cfg, pcfg, hist, quant, n_test, stats=False):
     one call each; under a policy that scores message statistics the main
     steps' uplinks go through B3."""
     import math
-    n = cfg.n_layers
-    cut = min(cfg.cut_layer, n)
+    n, cut = _attn_layers(cfg)
     fwd = 2 if cfg.remat else 1
     steps = (pcfg.M // pcfg.R) * pcfg.E
     b5f, b5b, b4f, b4b, b1, b2, b3 = cut, 0, 0, 0, 0, 0, 0
@@ -3668,12 +4051,16 @@ def _phase_splitfed_lm(cfg, data):
                 sequential_peak_gb=runs["sequential"][3])
 
 
-def _profile_report(name: str, fn, wall_us: float, steps: int, shares=None) -> None:
+def _profile_report(name: str, fn, wall_us: float, steps: int, shares=None, ranges=None,
+                    record=None) -> None:
     """Run ``fn`` once under torch.profiler and log the device busy share
     against the unprofiled wall time, the launches, the top device kernels
     and the top host ops; ``shares`` {label: name fragments} adds the share
-    of the busy time taken by the kernels whose names hold a fragment.
-    Returns the device kernels' profiler events."""
+    of the busy time taken by the kernels whose names hold a fragment,
+    ``ranges`` {label: a ``record_function`` name} the share of the device
+    time of the kernels launched within those ranges; ``record`` (a dict)
+    gets each share and the idle share.  Returns the device kernels'
+    profiler events."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -3686,7 +4073,11 @@ def _profile_report(name: str, fn, wall_us: float, steps: int, shares=None) -> N
         return float(getattr(ev, "self_device_time_total", 0.0)
                      or getattr(ev, "self_cuda_time_total", 0.0))
 
-    kernels = [ev for ev in events if str(ev.device_type).endswith("CUDA")]
+    # a record_function range also appears as a device-side annotation
+    # spanning its kernels: it is no kernel of its own
+    annotations = set((ranges or {}).values())
+    kernels = [ev for ev in events if str(ev.device_type).endswith("CUDA")
+               and ev.key not in annotations]
     busy_us = sum(dev_us(ev) for ev in kernels)
     launches = sum(ev.count for ev in kernels)
     log(f"{name}: wall {wall_us / 1e3:.2f} ms ({wall_us / steps:.0f} us/step over "
@@ -3697,12 +4088,29 @@ def _profile_report(name: str, fn, wall_us: float, steps: int, shares=None) -> N
     else:
         log(f"{name} device busy {busy_us / 1e3:.2f} ms of the {wall_us / 1e3:.2f} ms "
             f"unprofiled wall: idle share {1.0 - busy_us / wall_us:.3f}")
+    if record is not None:
+        record.update(busy_ms=busy_us / 1e3,
+                      idle_share=1.0 - busy_us / wall_us if busy_us else None)
     for ev in sorted(kernels, key=dev_us, reverse=True)[:8]:
         log(f"  kernel {dev_us(ev) / 1e3:8.3f} ms x{ev.count:5d}  {ev.key[:90]}")
     for label, frags in (shares or {}).items():
         part = sum(dev_us(ev) for ev in kernels if any(f in ev.key for f in frags))
         log(f"  share {label}: {part / 1e3:.3f} ms, "
             f"{part / busy_us if busy_us else float('nan'):.3f} of the busy time")
+        if record is not None:
+            record[label] = part / busy_us if busy_us else None
+    for label, range_name in (ranges or {}).items():
+        # the kernels the host ops within each range launched (a range's
+        # device-side annotation also spans the gaps between them)
+        part = sum(float(getattr(ev, "device_time_total", 0.0)
+                         or getattr(ev, "cuda_time_total", 0.0))
+                   for ev in prof.events()
+                   if ev.name == range_name and not str(ev.device_type).endswith("CUDA"))
+        log(f"  share {label} (the kernels launched within the {range_name!r} ranges): "
+            f"{part / 1e3:.3f} ms, {part / busy_us if busy_us else float('nan'):.3f} of the "
+            f"busy time")
+        if record is not None:
+            record[label] = part / busy_us if busy_us else None
     host = [ev for ev in events if not str(ev.device_type).endswith("CUDA")]
     for ev in sorted(host, key=lambda ev: ev.self_cpu_time_total, reverse=True)[:8]:
         log(f"  host   {ev.self_cpu_time_total / 1e3:8.3f} ms x{ev.count:5d}  {ev.key[:90]}")
@@ -4367,12 +4775,41 @@ def _agreement(pre, last):
 
 def _attn_launches(cfg, prefills: int = 0, decode_steps: int = 0) -> dict:
     """The launches of ``prefills`` bf16 prefills and ``decode_steps`` decode
-    steps of ``cfg``: B5 a layer a prefill and B6 a layer a step where the
-    attention is GQA; none for MLA (plain PyTorch, 192/128-wide heads)."""
+    steps of ``cfg``: B5 an attention layer a prefill and B6 one a step
+    where the attention is GQA (a hybrid's shared blocks; an
+    encoder-decoder's decoder layers, whose cross-attention is B5
+    non-causal, Sq = 1 in decode, as is each encoder layer's prefill); none
+    for MLA (plain PyTorch, 192/128-wide heads)."""
     if cfg.kv_lora_rank:
         return want_launches()
-    return want_launches(flash_attention_tc=cfg.n_layers * prefills,
-                         decode_attention_tc=cfg.n_layers * decode_steps)
+    if cfg.arch_type in ("audio", "encdec"):
+        n_enc = cfg.n_enc_layers or cfg.n_layers
+        return want_launches(
+            flash_attention_tc=cfg.n_layers * prefills,
+            flash_attention_tc_noncausal=(n_enc + cfg.n_layers) * prefills
+            + cfg.n_layers * decode_steps,
+            decode_attention_tc=cfg.n_layers * decode_steps)
+    n = _attn_layers(cfg)[0]
+    return want_launches(flash_attention_tc=n * prefills, decode_attention_tc=n * decode_steps)
+
+
+def _train_attn_launches(cfg, tc: bool = True) -> dict:
+    """B5's launches in one loss and gradient of ``cfg`` on its bf16 (``tc``)
+    or f32 routes: a forward an attention layer (two under remat, which
+    recomputes it) and a backward; an encoder-decoder's encoder layers and
+    decoder cross-attention non-causal, its decoder self-attention causal;
+    none for MLA."""
+    if cfg.kv_lora_rank:
+        return {}
+    fwd = 2 if cfg.remat else 1
+    fa = "flash_attention" + ("_tc" if tc else "")
+    bwd = "flash_attention_bwd" + ("_tc" if tc else "")
+    if cfg.arch_type in ("audio", "encdec"):
+        nc = (cfg.n_enc_layers or cfg.n_layers) + cfg.n_layers
+        return {fa: cfg.n_layers * fwd, bwd: cfg.n_layers, f"{fa}_noncausal": nc * fwd,
+                f"{bwd}_noncausal": nc}
+    n = _attn_layers(cfg)[0]
+    return {fa: n * fwd, bwd: n}
 
 
 def _xent_route(model) -> str:
@@ -4407,15 +4844,18 @@ def _draw_model(label: str, cfg, seed: int = 0, want_params=None):
     return model
 
 
-def _slice_serve(label: str, model, prefill_batch: dict, shares: dict) -> dict:
+def _slice_serve(label: str, model, prefill_batch: dict, shares: dict, ranges=None,
+                 rel_bound: float = SERVE_BF16_REL) -> dict:
     """The serve path of one of the slice's models: the bf16 prefill step on
     ``prefill_batch`` (warm, timed, launches counted, profiled), then the
     reference serve loop over a text prompt of SLICE_PROMPT tokens and
     SLICE_NEW greedy tokens (launches counted), its prompt logits held
-    against a text prefill's within SERVE_BF16_REL.  For a MoE that prefill
-    is rerun with its routing pinned to the loop's (_Routing; see
-    SLICE_F32_REL's note), and the unpinned prefill's routing flips and
-    dropped pairs are reported beside its gap."""
+    against a text prefill's within ``rel_bound``.  For a MoE
+    that prefill is rerun with its routing pinned to the loop's (_Routing;
+    see SLICE_F32_REL's note), and the unpinned prefill's routing flips and
+    dropped pairs are reported beside its gap.  An encoder-decoder's batch
+    holds its frames: the text prefill takes them, the loop their encoding
+    (one more encoder pass); ``ranges`` goes to the prefill's profile."""
     import torch
     from repro_torch.kernels import build
     from repro_torch.launch.serve import make_prompts
@@ -4438,15 +4878,21 @@ def _slice_serve(label: str, model, prefill_batch: dict, shares: dict) -> dict:
           f"{label} prefill: logits {tuple(logits.shape)} not finite or misshapen")
     positions = prefill_batch["tokens"].shape[1] + (
         prefill_batch["patches"].shape[1] if "patches" in prefill_batch else 0)
-    _profile_report(f"{label} {cfg.name} prefill (B {b} x {positions} positions, bf16)",
-                    lambda: prefill(prefill_batch), prefill_s * 1e6, 1, shares=shares)
+    frames = prefill_batch.get("frames")
+    record = {}
+    _profile_report(f"{label} {cfg.name} prefill (B {b} x {positions} positions"
+                    f"{'' if frames is None else f' + {frames.shape[1]} frames'}, bf16)",
+                    lambda: prefill(prefill_batch), prefill_s * 1e6, 1, shares=shares,
+                    ranges=ranges, record=record)
     prompts = torch.from_numpy(make_prompts(1, cfg.vocab, b, SLICE_PROMPT)).to(DEVICE)
     build.reset_launches()
     with _Routing() as routing:
-        pre, gen, last, _, loop_s = _serve(model, prompts, SLICE_NEW)
+        pre, gen, last, _, loop_s = _serve(model, prompts, SLICE_NEW, frames)
     loop_launches = dict(build.LAUNCHES)
     steps = SLICE_PROMPT + SLICE_NEW
     want = _attn_launches(cfg, prefills=1, decode_steps=steps)
+    if frames is not None:              # the loop's memory: one more encoder pass
+        want["flash_attention_tc_noncausal"] += cfg.n_enc_layers or cfg.n_layers
     check(loop_launches == want, f"{label} serve loop: launches {loop_launches}, want {want}")
     check(gen.shape == (b, SLICE_NEW) and int(gen.min()) >= 0 and int(gen.max()) < cfg.vocab,
           f"{label}: generated tokens {tuple(gen.shape)}")
@@ -4477,28 +4923,34 @@ def _slice_serve(label: str, model, prefill_batch: dict, shares: dict) -> dict:
                f"capacity {drops}; pinned to the loop's routing, every pair kept")
         rel, argmax = _agreement(pinned_pre, last)
         out.update(rel=rel, argmax=argmax)
-    check(rel <= SERVE_BF16_REL, f"{label}: text prefill vs decode logits differ by {rel:.3e} "
-                                 f"of max |logit| > {SERVE_BF16_REL}")
+    check(rel <= rel_bound, f"{label}: text prefill vs decode logits differ by {rel:.3e} "
+                            f"of max |logit| > {rel_bound}")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     ms_step = loop_s / steps * 1e3
     log(f"{label} prefill (B {b} x {positions} positions, warm): {prefill_s:.4f} s, "
         f"launches {prefill_launches}; serve loop {steps} steps ({SLICE_PROMPT} prompt + "
         f"{SLICE_NEW} greedy) in {loop_s:.3f} s: {ms_step:.3f} ms/step, "
         f"{b * steps / loop_s:.1f} tokens/s; text prefill vs decode logits max |diff| / "
-        f"max |logit| {rel:.4e} (bound {SERVE_BF16_REL}), argmax agreement {argmax:.3f}"
+        f"max |logit| {rel:.4e} (bound {rel_bound}), argmax agreement {argmax:.3f}"
         f"{moe}; peak device memory {peak_gb:.2f} GB; greedy tokens[0] {gen[0].tolist()}")
     return dict(prefill_launches=prefill_launches, loop_launches=loop_launches,
                 prefill_s=prefill_s, ms_per_step=ms_step, tokens_per_s=b * steps / loop_s,
-                peak_gb=peak_gb, **out)
+                peak_gb=peak_gb, prefill_profile=record, **out)
 
 
-def _f32_against_cpu(label: str, cfg, batch: dict, seed: int) -> dict:
+def _f32_against_cpu(label: str, cfg, batch: dict, seed: int, grads: bool = False) -> dict:
     """At full width and a cut depth in f32: the model drawn on the card,
-    its loss, prefill logits and (for a MoE) every layer's routing ids and
-    kept pairs on the card against the same weights and batch on the CPU
-    (plain versions; ids and pairs equal); the card's text prefill against
-    its decode loop; then the kernel path's loss and every gradient against
-    the plain path's on the card (``_kernel_vs_plain``)."""
+    its loss, prefill logits, (for a MoE) every layer's routing ids and
+    kept pairs and (``grads``) every gradient on the card against the same
+    weights and batch on the CPU (plain versions; ids and pairs equal,
+    gradients within TRAIN_F32_REL but Mamba2's A_log, within
+    A_LOG_GRAD_REL of the CPU's and of a float64 copy's on the CPU, beside
+    which a Mamba2 model's every leaf is reported); the card's text prefill against its
+    decode loop (an encoder-decoder's with the batch's frames); then the
+    kernel path's loss and every gradient against the plain path's on the
+    card (``_kernel_vs_plain``)."""
+    import copy
+
     import torch
     from repro_torch.launch.steps import make_prefill_step
 
@@ -4506,16 +4958,54 @@ def _f32_against_cpu(label: str, cfg, batch: dict, seed: int) -> dict:
 
     def run(m, dev):
         bt = {k: v.to(dev) for k, v in batch.items()}
-        with torch.no_grad(), _Routing() as routing:
-            loss = float(m.loss(bt)[0])
-            logits = make_prefill_step(m)(bt).cpu()
-        return loss, logits, [x.cpu() for x in routing.ids], [x.cpu() for x in routing.kept]
+        with torch.set_grad_enabled(grads), _Routing() as routing:
+            loss = m.loss(bt)[0]
+            g = [x.cpu() for x in torch.autograd.grad(loss, list(m.parameters()))] \
+                if grads else []
+            with torch.no_grad():
+                logits = make_prefill_step(m)(bt).cpu()
+        return (float(loss), logits, [x.cpu() for x in routing.ids],
+                [x.cpu() for x in routing.kept], g)
 
-    loss_c, logits_c, ids_c, kept_c = run(model, DEVICE)
+    loss_c, logits_c, ids_c, kept_c, grads_c = run(model, DEVICE)
     cpu = model.to("cpu")
-    loss_h, logits_h, ids_h, kept_h = run(cpu, "cpu")
+    loss_h, logits_h, ids_h, kept_h, grads_h = run(cpu, "cpu")
+    loose = {n for n, _ in cpu.named_parameters() if grads and n.rsplit(".", 1)[-1] == "A_log"}
+    if loose:
+        wide = copy.deepcopy(cpu).to(torch.float64)
+        with _F64():
+            grads_w = torch.autograd.grad(
+                wide.loss({k: v.to("cpu") for k, v in batch.items()})[0],
+                list(wide.parameters()))
+        del wide
     model = cpu.to(DEVICE)
     del cpu
+    names = [n for n, _ in model.named_parameters()]
+    grad_rels = {n: _rel_err(a, r) for n, a, r in zip(names, grads_c, grads_h)}
+    tight = max(((v, n) for n, v in grad_rels.items() if n not in loose), default=(0.0, "none"))
+    worst_loose = max(((grad_rels[n], n) for n in loose), default=(0.0, "none"))
+    three = sorted(grad_rels.items(), key=lambda x: -x[1])[:3]
+    check(tight[0] <= TRAIN_F32_REL,
+          f"{label}: card vs CPU gradient {tight} > {TRAIN_F32_REL}, the three worst {three}")
+    witness, f64 = "", {}
+    if loose:
+        card_w = {n: _rel_err(a, r) for n, a, r in zip(names, grads_c, grads_w)}
+        cpu_w = {n: _rel_err(a, r) for n, a, r in zip(names, grads_h, grads_w)}
+        for n in loose:
+            check(grad_rels[n] <= A_LOG_GRAD_REL and card_w[n] <= A_LOG_GRAD_REL,
+                  f"{label}: {n} card vs CPU {grad_rels[n]:.3e}, card vs float64 "
+                  f"{card_w[n]:.3e} > {A_LOG_GRAD_REL}")
+        rest = [n for n in names if n not in loose]
+        f64 = dict(f32_grad_rel_card_vs_f64=max(card_w[n] for n in rest),
+                   f32_grad_rel_cpu_vs_f64=max(cpu_w[n] for n in rest),
+                   a_log_rels={n: [grad_rels[n], card_w[n], cpu_w[n]] for n in sorted(loose)})
+        witness = (
+            f"; against a float64 copy on the CPU, outside A_log: the card "
+            f"{f64['f32_grad_rel_card_vs_f64']:.3e}, the CPU "
+            f"{f64['f32_grad_rel_cpu_vs_f64']:.3e} at worst"
+            + "; A_log by layer (card vs CPU / card vs float64 / CPU vs float64): "
+            + ", ".join(f"{n.split('.mixer')[0]} {a:.3e} / {b:.3e} / {c:.3e}"
+                        for n, (a, b, c) in f64["a_log_rels"].items()))
     loss_rel = abs(loss_c - loss_h) / abs(loss_h)
     logit_rel = float((logits_c - logits_h).abs().max()) / float(logits_h.abs().max())
     same = [float((a == b).float().mean()) for a, b in zip(ids_c, ids_h)]
@@ -4528,7 +5018,8 @@ def _f32_against_cpu(label: str, cfg, batch: dict, seed: int) -> dict:
           f"{label}: card vs CPU routing ids equal by MoE call {same}; dropped pairs card "
           f"{[int((~k).sum()) for k in kept_c]}, CPU {drops}")
     text = batch["tokens"][:, :8].to(DEVICE)
-    pre, _, last, _, _ = _serve(model, text, 1)
+    frames = batch["frames"].to(DEVICE) if "frames" in batch else None
+    pre, _, last, _, _ = _serve(model, text, 1, frames)
     rel, argmax = _agreement(pre, last)
     check(rel <= SERVE_F32_REL, f"{label}: f32 prefill vs decode logits differ by {rel:.3e}")
     log(f"{label} {cfg.name} f32, {cfg.n_layers} layers, full width: card vs CPU loss "
@@ -4536,19 +5027,22 @@ def _f32_against_cpu(label: str, cfg, batch: dict, seed: int) -> dict:
         f"{logit_rel:.3e} (bound {SLICE_F32_REL}); routing ids and kept pairs equal at each "
         f"of {len(ids_c)} MoE calls (the loss's, then the prefill's), (token, k) pairs "
         f"dropped past capacity {drops}; text prefill vs decode on the card rel {rel:.3e} "
-        f"(bound {SERVE_F32_REL}), argmax agreement {argmax:.3f}")
-    attn = 0 if cfg.kv_lora_rank else cfg.n_layers
-    grads = _kernel_vs_plain(
+        f"(bound {SERVE_F32_REL}), argmax agreement {argmax:.3f}"
+        + (f"; every gradient card vs CPU within rel {TRAIN_F32_REL}"
+           + (f" but A_log's (within {A_LOG_GRAD_REL}: {worst_loose[0]:.3e})" if loose else "")
+           + f", the worst {tight[0]:.3e} ({tight[1]}){witness}" if grads else ""))
+    kernel = _kernel_vs_plain(
         f"{label} {cfg.name} f32, {cfg.n_layers} layers, full width, gradients", model,
         {k: v.to(DEVICE) for k, v in batch.items()},
-        want_launches(flash_attention=attn * (2 if cfg.remat else 1), flash_attention_bwd=attn,
-                      fused_xent=1, fused_xent_bwd=1))
+        want_launches(**_train_attn_launches(cfg, tc=False), fused_xent=1, fused_xent_bwd=1))
     del model
     torch.cuda.empty_cache()
     return dict(f32_loss_rel=loss_rel, f32_logit_rel=logit_rel, f32_drops=drops,
-                f32_decode_rel=rel, f32_kernel_vs_plain_loss_rel=grads["f32_loss_rel"],
-                f32_grad_rel=grads["f32_grad_rel"], f32_launches=grads["f32_launches"],
-                f32_route_flips=grads["f32_route_flips"])
+                f32_decode_rel=rel, f32_kernel_vs_plain_loss_rel=kernel["f32_loss_rel"],
+                f32_grad_rel=kernel["f32_grad_rel"], f32_launches=kernel["f32_launches"],
+                f32_route_flips=kernel["f32_route_flips"],
+                **({"f32_grad_rel_card_vs_cpu": tight[0],
+                    "f32_a_log_rel_card_vs_cpu": worst_loose[0], **f64} if grads else {}))
 
 
 def phase_vlm():
@@ -4755,6 +5249,247 @@ def phase_moe_round():
     return out
 
 
+class _SSDRange:
+    """Within the block, every Mamba2 SSD chunk (``models/ssm.py::
+    _ssd_chunk``) runs inside a ``record_function`` range named
+    :data:`SSD_RANGE`, which ``_profile_report``'s ``ranges`` reads."""
+
+    def __enter__(self):
+        from torch.profiler import record_function
+        from repro_torch.models import ssm
+        self.saved = chunk = ssm._ssd_chunk
+
+        def ranged(*args):
+            with record_function(SSD_RANGE):
+                return chunk(*args)
+
+        ssm._ssd_chunk = ranged
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import ssm
+        ssm._ssd_chunk = self.saved
+
+
+def _count_params(label: str, model, want: int) -> int:
+    """All of ``model``'s parameters, held against ``want`` (the reference's
+    count of the same layers)."""
+    n = sum(p.numel() for p in model.parameters())
+    check(n == want, f"{label}: {n:,} parameters, want {want:,}")
+    return n
+
+
+def phase_zamba2():
+    """Phase 15: Zamba2-1.2B (Mamba2 and shared attention blocks).  Served
+    at full width and depth (38 Mamba2 layers and 6 blocks, bf16): a 4 x 512
+    prefill, 6 B5 launches, profiled with the SSD's share of the busy time;
+    the serve loop (6 B6 launches a step) against a text prefill.  Trained
+    at full depth under train_4k's settings (ssm_chunk 512, remat) on 4 x
+    512, three SGD steps (12 B5 forwards, 6 backwards, B4 on its
+    tensor-core route each way a step), profiled.  At 4 Mamba2 layers in
+    f32, the card's loss, gradients and prefill logits against the CPU's."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import make_prompts, serve_config
+    from repro_torch.launch.shapes import SHAPES, shape_settings
+    from repro_torch.launch.steps import make_train_step
+
+    t_phase = time.perf_counter()
+    cfg = serve_config(ZAMBA2_ARCH, full=True)
+    model = _draw_model("phase15", cfg, 0)
+    _count_params("phase15", model, ZAMBA2_PARAMS)
+    check(sum(sp.kind == "shared_attn" for sp in model.plan) == 6
+          and sum(sp.n for sp in model.plan if sp.kind == "mamba") == 38,
+          f"phase15: plan {[(sp.kind, sp.n) for sp in model.plan]}")
+    prompts = torch.from_numpy(make_prompts(0, cfg.vocab, SERVE_BATCH, ZAMBA2_PROMPT))
+    with _SSDRange():
+        serve = _slice_serve("phase15", model, {"tokens": prompts.to(DEVICE)},
+                             shares={"B5 forward": ("flash_fwd_tc_kernel",),
+                                     "bf16 products (cuBLAS)": ("nvjet", "gemm", "bf16")},
+                             ranges={"the SSD chunk scan (plain PyTorch)": SSD_RANGE},
+                             rel_bound=ZAMBA2_BF16_REL)
+    del model
+    torch.cuda.empty_cache()
+
+    tcfg = dataclasses.replace(get_config(ZAMBA2_ARCH), **shape_settings(SHAPES["train_4k"]))
+    model = _draw_model("phase15 train", tcfg, 1)
+    batch = _train_batch(TRAIN_BATCH, TRAIN_SEQ)
+    step = make_train_step(model, TRAIN_LR)
+    check(_xent_route(model) == "tensor_cores", "phase15: B4 should take the tensor cores at "
+                                                "vocab 32,000")
+    per_step = want_launches(**_train_attn_launches(tcfg), fused_xent_tc=1, fused_xent_bwd_tc=1)
+    train, wall_us = _three_steps("phase15 train", step, batch, per_step)
+    record = {}
+    with _SSDRange():
+        _profile_report(f"phase15 {tcfg.name} train step ({tcfg.n_layers} Mamba2 layers, B "
+                        f"{TRAIN_BATCH} x {TRAIN_SEQ}, bf16, remat, ssm_chunk {tcfg.ssm_chunk})",
+                        lambda: step(batch), wall_us, 1,
+                        shares={"B5 forward": ("flash_fwd_tc_kernel",),
+                                "B5 backward": ("flash_bwd_dkdv_tc_kernel",
+                                                "flash_bwd_dq_tc_kernel",
+                                                "flash_bwd_delta_kernel"),
+                                "B4": ("xent_fwd_tc_kernel", "xent_combine_kernel",
+                                       "xent_bwd_tc_kernel")},
+                        ranges={"the SSD chunk scan (plain PyTorch)": SSD_RANGE},
+                        record=record)
+    train["profile"] = record
+    del model, step, batch
+    torch.cuda.empty_cache()
+
+    fcfg = dataclasses.replace(get_config(ZAMBA2_ARCH), **ZAMBA2_F32)
+    rng = torch.Generator().manual_seed(9)
+    small = {name: torch.randint(0, TRAIN_VOCAB, (1, SLICE_F32_TOKENS), generator=rng)
+             for name in ("tokens", "labels")}
+    f32 = _f32_against_cpu("phase15 f32", fcfg, small, 10, grads=True)
+    out = dict(serve=serve, train=train, **f32, seconds=time.perf_counter() - t_phase)
+    log(f"phase15 took {out['seconds']:.1f} s")
+    return out
+
+
+def phase_zamba2_round():
+    """Phase 16: the Pigeon-SL round over from_lm at Zamba2-1.2B's full
+    width, depth cut to ZAMBA2_ROUND_LAYERS Mamba2 layers with the published
+    cut at 10 (each half holds a shared block), phase 8's task, protocol
+    and runs (no wire, int8, int8 under loss_plus_distance), each on the
+    sequential and the batched engine (the cluster-stacked Zamba2: Mamba2 a
+    call a slot, the shared blocks through B5 over the folded slots) from
+    one init: decisions equal, launches as the rounds' structure predicts
+    (B1 once a batched round, on the bf16 route), seconds a round and peak
+    memory."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import LABEL_FLIP, Attack, ProtocolConfig, from_lm
+    from repro_torch.data import build_lm_task
+    from repro_torch.launch.shapes import SHAPES, shape_settings
+    from repro_torch.models import build_model
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config(ZAMBA2_ARCH), n_layers=ZAMBA2_ROUND_LAYERS,
+                              cut_layer=ZAMBA2_ROUND_CUT, **shape_settings(SHAPES["train_4k"]))
+    data = build_lm_task(**ROUND_TASK)
+    model = build_model(cfg, DEVICE)
+    client, ap, _ = model.split_plans()
+    check([(p.kind, p.n) for p in client] == [("mamba", 6), ("shared_attn", 1), ("mamba", 3)]
+          and [(p.kind, p.n) for p in ap] == [("mamba", 3), ("shared_attn", 1), ("mamba", 1)],
+          f"phase16: the cut gives {client} | {ap}")
+    n_params = sum(x.numel() for x in model.parameters())
+    log(f"phase16 {cfg.name}: {cfg.n_layers} Mamba2 layers (cut {cfg.cut_layer}) "
+        f"{[(sp.kind, sp.n) for sp in model.plan]}, client {[(p.kind, p.n) for p in client]}, "
+        f"AP {[(p.kind, p.n) for p in ap]}, {cfg.dtype}, remat={cfg.remat}: {n_params:,} "
+        f"parameters ({n_params * 2 / 1e9:.2f} GB a copy)")
+    pcfg = ProtocolConfig(M=4, N=1, T=2, E=2, B=4, lr=1e-3)
+    out = {}
+    for quant, selection in ROUND_RUNS:
+        hists = {}
+        for engine in ("sequential", "batched"):
+            key = f"{engine}_{quant}_{selection}"
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            name = f"phase16 round {engine} quant={quant} selection={selection}"
+            hist, launches, seconds = _run(name, from_lm(model), data, pcfg, malicious={0},
+                                           attack=Attack(LABEL_FLIP), plus=True,
+                                           selection=selection, quant=quant, engine=engine,
+                                           device=DEVICE)
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            count = _batched_round_launches if engine == "batched" else _round_launches
+            want = count(cfg, pcfg, hist, quant, data.x_test.shape[0],
+                         stats=selection != "argmin")
+            check(launches == want, f"{name}: launches {launches}, want {want}")
+            log(f"{name}: {seconds / pcfg.T:.2f} s/round (init and first-call set-up "
+                f"included); peak device memory {peak_gb:.2f} GB")
+            hists[engine] = hist
+            out[key] = dict(launches=launches, s_per_round=seconds / pcfg.T, peak_gb=peak_gb)
+        for rb, rs in zip(hists["batched"].rounds, hists["sequential"].rounds):
+            for k in ROUND_DECISIONS:
+                check(rb[k] == rs[k], f"phase16 quant={quant} round {rb['round']}: {k} "
+                                      f"batched={rb[k]} sequential={rs[k]}")
+        gap = _round_float_gap(hists["batched"], hists["sequential"])
+        out[f"batched_{quant}_{selection}"]["float_gap"] = gap
+        log(f"phase16 quant={quant} selection={selection}: decisions equal on both engines; "
+            f"largest float gap {gap:.3e}")
+    del model
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase16 took {out['seconds']:.1f} s")
+    return out
+
+
+def phase_seamless():
+    """Phase 17: SeamlessM4T-medium (the encoder-decoder).  Served at full
+    width and depth (12 + 12 layers, bf16): 4 x 256 frame embeddings drawn
+    from a seed, a 4 x 256 prefill with them (the encoder's 12 layers and
+    the decoder's cross-attention through B5 non-causal, its
+    self-attention causal), profiled; the serve loop on their memory (Sk
+    256: per step 12 B6 and 12 non-causal B5 launches with Sq = 1) against a
+    text prefill.  Trained on 4 x (256 frames + 256 tokens), remat, three
+    SGD steps: per step 48 non-causal and 24 causal B5 forwards, 24 and 12
+    backwards, B4 on its f32-FMA route (vocab 256,206 is no multiple of 8)
+    each way.  At 2 + 2 layers in f32, the card's loss, gradients and
+    prefill logits against the CPU's."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import make_prompts, serve_config
+    from repro_torch.launch.shapes import SHAPES, shape_settings
+    from repro_torch.launch.steps import make_train_step
+
+    t_phase = time.perf_counter()
+    cfg = serve_config(SEAMLESS_ARCH, full=True)
+    model = _draw_model("phase17", cfg, 0)
+    _count_params("phase17", model, SEAMLESS_PARAMS)
+    g = torch.Generator(device=DEVICE).manual_seed(11)
+    frames = torch.randn((SERVE_BATCH, SEAMLESS_FRAMES, cfg.d_model), generator=g,
+                         device=DEVICE).to(model.dtype)
+    tokens = torch.from_numpy(make_prompts(0, cfg.vocab, SERVE_BATCH, SEAMLESS_TOKENS))
+    b5 = ("flash_fwd_tc_kernel",)
+    serve = _slice_serve("phase17", model, {"tokens": tokens.to(DEVICE), "frames": frames},
+                         shares={"B5 forward (both modes)": b5,
+                                 "bf16 products (cuBLAS)": ("nvjet", "gemm", "bf16")})
+    del model, frames
+    torch.cuda.empty_cache()
+
+    tcfg = dataclasses.replace(get_config(SEAMLESS_ARCH), **shape_settings(SHAPES["train_4k"]))
+    model = _draw_model("phase17 train", tcfg, 1)
+    batch = _train_batch(TRAIN_BATCH, SEAMLESS_TOKENS)
+    batch["frames"] = torch.randn((TRAIN_BATCH, SEAMLESS_FRAMES, tcfg.d_model), generator=g,
+                                  device=DEVICE).to(model.dtype)
+    step = make_train_step(model, TRAIN_LR)
+    check(_xent_route(model) == "f32_fma", "phase17: B4 should take its f32-FMA route at "
+                                           "vocab 256,206")
+    per_step = want_launches(**_train_attn_launches(tcfg), fused_xent=1, fused_xent_bwd=1)
+    train, wall_us = _three_steps("phase17 train", step, batch, per_step)
+    record = {}
+    _profile_report(f"phase17 {tcfg.name} train step (12 + 12 layers, B {TRAIN_BATCH} x "
+                    f"({SEAMLESS_FRAMES} frames + {SEAMLESS_TOKENS} tokens), bf16, remat)",
+                    lambda: step(batch), wall_us, 1,
+                    shares={"B5 forward (both modes)": b5,
+                            "B5 backward (both modes)": ("flash_bwd_dkdv_tc_kernel",
+                                                         "flash_bwd_dq_tc_kernel",
+                                                         "flash_bwd_delta_kernel"),
+                            "B4 (f32-FMA route)": ("xent_fwd_kernel", "xent_combine_kernel",
+                                                   "xent_grad"),
+                            "f32 products (SIMT SGEMM)": ("sgemm",)},
+                    record=record)
+    train["profile"] = record
+    del model, step, batch
+    torch.cuda.empty_cache()
+
+    fcfg = dataclasses.replace(get_config(SEAMLESS_ARCH), **SEAMLESS_F32)
+    rng = torch.Generator().manual_seed(12)
+    small = {name: torch.randint(0, TRAIN_VOCAB, (1, SLICE_F32_TOKENS), generator=rng)
+             for name in ("tokens", "labels")}
+    small["frames"] = torch.randn((1, SEAMLESS_F32_FRAMES, fcfg.d_model), generator=rng)
+    f32 = _f32_against_cpu("phase17 f32", fcfg, small, 13, grads=True)
+    out = dict(serve=serve, train=train, **f32, seconds=time.perf_counter() - t_phase)
+    log(f"phase17 took {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> None:
     if not (ROOT / "src" / "repro_torch").is_dir():
         fail(f"no src/repro_torch next to {Path(__file__).name}: run it from a "
@@ -4823,6 +5558,12 @@ def main() -> None:
     vlm = phase("12", phase_vlm)
     moe = phase("13", phase_moe)
     moe_rounds = phase("14", phase_moe_round)
+    with _ShapeLog() as shapes:
+        zamba2 = phase("15", phase_zamba2)
+        zamba2_rounds = phase("16", phase_zamba2_round)
+        seamless = phase("17", phase_seamless)
+    _check_shape_log("phases 15-17", shapes,
+                     {name: kernels[name]["slice_shapes"] for name in shapes.seen})
 
     sources = {"quant_dequant": ("src/repro/kernels/quant_exchange.py:85",
                                  "src/repro_torch/kernels/csrc/quant_exchange.cu"),
@@ -4886,7 +5627,15 @@ def main() -> None:
                   for what in ("prefill", "loop")},
                "dsv2_train": moe["dsv2_train"]["launches"],
                **{f"moe_round_{q}": r["launches"] for q, r in moe_rounds.items()
-                  if isinstance(r, dict)}}
+                  if isinstance(r, dict)},
+               "zamba2_prefill": zamba2["serve"]["prefill_launches"],
+               "zamba2_serve_loop": zamba2["serve"]["loop_launches"],
+               "zamba2_train": zamba2["train"]["launches"],
+               **{f"zamba2_round_{q}": r["launches"] for q, r in zamba2_rounds.items()
+                  if isinstance(r, dict)},
+               "seamless_prefill": seamless["serve"]["prefill_launches"],
+               "seamless_serve_loop": seamless["serve"]["loop_launches"],
+               "seamless_train": seamless["train"]["launches"]}
     # B5's and B4's forwards and backwards and B6: the entry is the
     # tensor-core route, which the bf16 paths take; the f32-FMA route it
     # replaced (its library and counter) rides beside it
@@ -5019,12 +5768,12 @@ def main() -> None:
                 library_ms=ms(lb.get("library_us")),
                 library_device_ms=ms(lb.get("library_dev_us")))
         if "slice_shapes" in k:
-            # phases 12-14's own shapes (phase 1), with the launches of the
+            # phases 12-17's own shapes (phase 1), with the launches of the
             # path each comes from
             entry["slice_shapes"] = [dict(
                 shape=t["shape"], path=t["path"], route=t["route"],
-                launches=None if t["path"] is None else by_path[t["path"]][
-                    key if t["route"] == "tensor_cores" else name],
+                **({} if t["causal"] else {"causal": False}),
+                launches=None if t["path"] is None else by_path[t["path"]][t["counter"]],
                 **{e: t[e] for e in ("max_abs_err", "max_rel_err") if e in t},
                 ms=ms(t["kernel_us"])) for t in k["slice_shapes"]]
         if "lm_message" in k:
@@ -5036,12 +5785,37 @@ def main() -> None:
                 device_ms_l2_cold=ms(lm["kernel_cold_us"]), plain_ms=ms(lm["plain_us"]),
                 plain_device_ms=ms(lm["plain_dev_us"]), bound_ms=ms(lm["bound_us"]),
                 bound_by=lm["bound_by"])
-        if "non_causal" in k:
-            # B5's non-causal mode (phase 1 only: no path of the port calls
-            # it before the encoder-decoder slice)
+        if "non_causal" in k and name == "flash_attention_bwd":
+            # B5's backward in non-causal mode (phase 1's checks), its
+            # launches on SeamlessM4T's train step (the encoder and the
+            # cross-attention)
             nc = k["non_causal"]
+            nkey = f"{key}_noncausal"
             entry["non_causal"] = dict(
-                shape=nc["shape"], launches=0, max_abs_err=nc["max_abs_err"],
+                name=f"{name} (non-causal)", shape=nc["shape"], route="cuda",
+                source=sources[name][1], replaces=sources[name][0],
+                launches=by_path["seamless_train"][nkey],
+                launches_by_path={path: counts[nkey] for path, counts in by_path.items()},
+                max_abs_err=nc["max_abs_err"], max_rel_err=nc["max_rel_err"],
+                max_rel_err_by_route=nc["max_rel_err_by_route"], ms=ms(nc["kernel_us"]),
+                device_ms_l2_warm=ms(nc["kernel_dev_us"]),
+                device_ms_l2_cold=ms(nc["kernel_cold_us"]), plain_ms=ms(nc["plain_us"]),
+                bound_ms=ms(nc["bound_us"]), bound_by=nc["bound_by"],
+                library_ms=ms(nc["library_us"]), library_device_ms=ms(nc["library_dev_us"]),
+                f32_fma_route=dict(ms=ms(nc["f32_fma_route"]["kernel_us"]),
+                                   device_ms_l2_warm=ms(nc["f32_fma_route"]["kernel_dev_us"]),
+                                   device_ms_l2_cold=ms(nc["f32_fma_route"]["kernel_cold_us"])))
+        elif "non_causal" in k:
+            # B5's non-causal mode (phase 1's checks), its launches on
+            # SeamlessM4T's prefill (the encoder and the cross-attention)
+            nc = k["non_causal"]
+            nkey = f"{key}_noncausal"
+            entry["non_causal"] = dict(
+                name=f"{name} (non-causal)", shape=nc["shape"], route="cuda",
+                source=sources[name][1], replaces=sources[name][0],
+                launches=by_path["seamless_prefill"][nkey],
+                launches_by_path={path: counts[nkey] for path, counts in by_path.items()},
+                max_abs_err=nc["max_abs_err"],
                 max_abs_err_by_route=nc["max_abs_err_by_route"], ms=ms(nc["kernel_us"]),
                 device_ms_l2_warm=ms(nc["kernel_dev_us"]),
                 device_ms_l2_cold=ms(nc["kernel_cold_us"]), plain_ms=ms(nc["plain_us"]),
@@ -5079,7 +5853,9 @@ def main() -> None:
         f"phase6 serve {serve}; phase7 train {train}; "
         f"phase8 rounds {rounds}; phase8b batched LM {batched_lm}; phase9 xlstm {xlstm}; "
         f"phase10 xlstm train {xlstm_train}; phase11 xlstm rounds {xlstm_rounds}; "
-        f"phase12 vlm {vlm}; phase13 moe {moe}; phase14 moe rounds {moe_rounds}")
+        f"phase12 vlm {vlm}; phase13 moe {moe}; phase14 moe rounds {moe_rounds}; "
+        f"phase15 zamba2 {zamba2}; phase16 zamba2 rounds {zamba2_rounds}; "
+        f"phase17 seamless {seamless}")
     log(f"phase seconds {seconds}; {time.perf_counter() - t0:.1f} s since the build began")
     log(json.dumps({"kernels": entries}))
     log(card)

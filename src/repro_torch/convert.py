@@ -30,7 +30,13 @@ A MoE's stacks hold ``dense_mlp`` layers (the dense layout above) and
 dense one.  An xLSTM model's stacks hold ``{"ln": {"scale"}, "mixer": {...}}`` the same
 way: an mLSTM layer's mixer ``up``, ``wq``, ``wk``, ``wv``, ``w_if`` (+ ``b``),
 ``out_norm`` and ``down``; an sLSTM layer's ``w_in`` (+ ``b``), the bare
-array ``r`` (n, H, dh, 4dh), ``out_norm`` and ``down``.
+array ``r`` (n, H, dh, 4dh), ``out_norm`` and ``down``.  A Mamba2 layer's mixer
+holds ``in_proj``, ``conv_w`` (n, K, C), ``conv_b``, ``A_log``, ``dt_bias``,
+``D``, ``out_norm`` and ``out_proj``; the hybrid's ``shared_attn`` stack is
+``{"ln", "attn"}`` with no layer axis on its leaves.  An encoder-decoder's
+stacks hold ``dec_cross`` layers (``ln1``, ``self_attn``, ``ln_x``,
+``cross_attn``, ``ln2``, ``mlp``) and its tree an ``"encoder"``:
+``{"stacks": ({"ln1", "attn", "ln2", "mlp"},), "norm": {"scale"}}``.
 
 A stack's leaves carry the layer axis first; :func:`lm_from_reference` maps
 it onto the stack's ``nn.ModuleList`` (a layer's parameter names are the
@@ -133,50 +139,73 @@ def _leaf(tree: Tree, path: str):
     return tree
 
 
+def _load_stack(stack, tree: Tree) -> None:
+    """A stack's reference subtree into its layers: each leaf's layer axis
+    onto the layer list (a ``shared_attn`` block's leaves have none)."""
+    names = sorted(name for name, _ in stack.layers[0].named_parameters())
+    if sorted(_paths(tree)) != names:
+        raise ValueError(f"stack leaves {sorted(_paths(tree))} != {names}")
+    for name in names:
+        leaf = _tensor(_leaf(tree, name))
+        if stack.kind == "shared_attn":
+            leaf = leaf[None]
+        if leaf.shape[0] != stack.n:
+            raise ValueError(f"{name}: {leaf.shape[0]} layers in the tree, {stack.n} "
+                             f"in the stack")
+        for layer, value in zip(stack.layers, leaf):
+            layer.get_parameter(name).copy_(value)
+
+
 @torch.no_grad()
 def lm_from_reference(cfg: ModelConfig, params: Tree) -> Model:
-    """The reference's LM parameter pytree (dense, vlm, MoE or xLSTM) -> the
-    port's :class:`Model`, on the CPU."""
+    """The reference's LM parameter pytree (any family) -> the port's
+    :class:`Model`, on the CPU."""
     model = build_model(cfg, "cpu")
     if len(params["stacks"]) != len(model.stacks):
         raise ValueError(f"{len(params['stacks'])} stacks in the tree, {len(model.stacks)} "
                          f"in {cfg.name}")
+    if ("encoder" in params) != (model.encoder is not None):
+        raise ValueError(f"the tree's encoder and {cfg.name}'s disagree")
     model.embedding.copy_(_tensor(params["embed"]))
     for stack, tree in zip(model.stacks, params["stacks"]):
-        names = sorted(name for name, _ in stack.layers[0].named_parameters())
-        if sorted(_paths(tree)) != names:
-            raise ValueError(f"stack leaves {sorted(_paths(tree))} != {names}")
-        for name in names:
-            leaf = _tensor(_leaf(tree, name))
-            if leaf.shape[0] != stack.n:
-                raise ValueError(f"{name}: {leaf.shape[0]} layers in the tree, {stack.n} "
-                                 f"in the stack")
-            for layer, value in zip(stack.layers, leaf):
-                layer.get_parameter(name).copy_(value)
+        _load_stack(stack, tree)
     model.final_norm.scale.copy_(_tensor(params["final_norm"]["scale"]))
     model.head.w.copy_(_tensor(params["head"]["w"]))
+    if model.encoder is not None:
+        _load_stack(model.encoder.stacks[0], params["encoder"]["stacks"][0])
+        model.encoder.norm.scale.copy_(_tensor(params["encoder"]["norm"]["scale"]))
     return model
+
+
+def _arr(t: torch.Tensor) -> np.ndarray:
+    return t.detach().to("cpu", torch.float32).numpy().copy()
+
+
+def _stack_tree(stack) -> Tree:
+    """A stack's layers -> its reference subtree (the layer axis first, none
+    for a ``shared_attn`` block)."""
+    tree: Tree = {}
+    for name, _ in stack.layers[0].named_parameters():
+        *parents, last = name.split(".")
+        node = tree
+        for key in parents:
+            node = node.setdefault(key, {})
+        leaves = [_arr(layer.get_parameter(name)) for layer in stack.layers]
+        node[last] = leaves[0] if stack.kind == "shared_attn" else np.stack(leaves)
+    return tree
 
 
 def lm_to_reference(model: Model) -> Tree:
     """The port's :class:`Model` -> the reference's parameter pytree (numpy
     f32)."""
-    def arr(t: torch.Tensor) -> np.ndarray:
-        return t.detach().to("cpu", torch.float32).numpy().copy()
-
-    stacks = []
-    for stack in model.stacks:
-        tree: Tree = {}
-        for name, _ in stack.layers[0].named_parameters():
-            *parents, last = name.split(".")
-            node = tree
-            for key in parents:
-                node = node.setdefault(key, {})
-            node[last] = np.stack([arr(layer.get_parameter(name)) for layer in stack.layers])
-        stacks.append(tree)
-    return {"embed": arr(model.embedding), "stacks": tuple(stacks),
-            "final_norm": {"scale": arr(model.final_norm.scale)},
-            "head": {"w": arr(model.head.w)}}
+    tree = {"embed": _arr(model.embedding),
+            "stacks": tuple(_stack_tree(stack) for stack in model.stacks),
+            "final_norm": {"scale": _arr(model.final_norm.scale)},
+            "head": {"w": _arr(model.head.w)}}
+    if model.encoder is not None:
+        tree["encoder"] = {"stacks": (_stack_tree(model.encoder.stacks[0]),),
+                           "norm": {"scale": _arr(model.encoder.norm.scale)}}
+    return tree
 
 
 @torch.no_grad()
@@ -224,6 +253,8 @@ def lm_split_from_reference(cfg: ModelConfig, gamma: Tree, phi: Tree
             ci += 1; ai += 1
     params = {"embed": gamma["embed"], "stacks": tuple(stacks),
               "final_norm": phi["final_norm"], "head": phi["head"]}
+    if "encoder" in gamma:
+        params["encoder"] = gamma["encoder"]
     return lm_from_reference(cfg, params).split_params()
 
 
@@ -242,8 +273,10 @@ def lm_split_to_reference(model: Model, gamma: ClientLM, phi: APLM) -> Tuple[Tre
         else:
             client.append(_slice_tree(st, 0, take))
             ap.append(_slice_tree(st, take, total))
-    return ({"embed": tree["embed"], "stacks": tuple(client)},
-            {"stacks": tuple(ap), "final_norm": tree["final_norm"], "head": tree["head"]})
+    gamma = {"embed": tree["embed"], "stacks": tuple(client)}
+    if "encoder" in tree:
+        gamma["encoder"] = tree["encoder"]
+    return gamma, {"stacks": tuple(ap), "final_norm": tree["final_norm"], "head": tree["head"]}
 
 
 __all__ = ["from_reference", "lm_from_reference", "lm_slot_to_reference",

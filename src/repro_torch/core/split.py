@@ -86,6 +86,13 @@ def from_cnn(cfg) -> SplitModule:
     )
 
 
+#: why no Pigeon-SL round runs over an encoder-decoder
+ENCDEC_ROUND = ("from_lm takes no encoder-decoder (arch_type 'audio'/'encdec'): the "
+                "reference's from_lm sends tokens only, so its encode finds no 'frames', and "
+                "no Pigeon-SL round over an encoder-decoder exists to port; serve or train "
+                "one through launch.serve and launch.steps.make_train_step")
+
+
 def from_lm(model) -> SplitModule:
     """Adapt a ``repro_torch.models.Model`` (token batches) to the
     SplitModule interface: x = tokens (B, S); y = labels (B, S).  gamma and
@@ -95,10 +102,14 @@ def from_lm(model) -> SplitModule:
     model built on the card is drawn there (a CPU draw of an 8 B model takes
     minutes), one built on the CPU on the CPU, so runs on either device from
     one template start alike.  The cluster-stacked form is the
-    ``models.StackedModel`` of the model's config (dense, vlm, MoE or
-    xLSTM): x (R, B, S) tokens, y (R, B, S) labels, a shared (D_o, S) label
-    set broadcast to every slot."""
+    ``models.StackedModel`` of the model's config (any family but the
+    encoder-decoder): x (R, B, S) tokens, y (R, B, S) labels, a shared (D_o, S) label
+    set broadcast to every slot.  An encoder-decoder raises
+    :data:`ENCDEC_ROUND`."""
     from ..models.model import StackedModel
+    from ..models.transformer import ENCDEC
+    if model.cfg.arch_type in ENCDEC:
+        raise ValueError(ENCDEC_ROUND)
 
     def make(r: int, replicas: int = 1):
         return StackedModel(model.cfg, model.plan, replicas * r).split_params()

@@ -68,15 +68,15 @@ SOURCES: Dict[str, Dict[str, Tuple]] = {
     },
     "flash_attention_bwd": {
         # q, k, v, out, dout, lse, delta, dq, dk, dv, b, sq, sk, h, hkv, d,
-        # window, scale, dtype, stream
+        # window, causal, scale, dtype, stream
         "repro_flash_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                      _I, _I, _I, _I, _F, _I, _P),
+                                      _I, _I, _I, _I, _I, _F, _I, _P),
     },
     "flash_attention_bwd_tc": {
         # q, k, v, out, dout, lse, delta, dq, dk, dv, b, sq, sk, h, hkv, d,
-        # window, scale, stream
+        # window, causal, scale, stream
         "repro_flash_attention_bwd_tc": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                         _I, _I, _I, _I, _I, _F, _P),
+                                         _I, _I, _I, _I, _I, _I, _F, _P),
     },
     "fused_xent": {
         # h, w, labels, part, picked, loss, lse, t, d, v, panels_per_block,
@@ -154,13 +154,17 @@ BUILD_SECONDS: Dict[str, float] = {}
 #: scan) and ``slstm_scan_bwd`` (the step route, T reverse step kernels) a
 #: call each; B1 counts
 #: ``tamper_check_sums`` (f32 inputs) and ``tamper_check_sums_bf16`` (its
-#: bf16 route)
+#: bf16 route); B5's forward and backward count a non-causal call under
+#: their name with ``_noncausal`` (``flash_attention_tc_noncausal``, ...)
 LAUNCHES: Dict[str, int] = {"quant_dequant": 0, "quant_dequant_stats": 0,
                             "tamper_check_sums": 0, "tamper_check_sums_bf16": 0,
                             "fused_xent": 0, "fused_xent_tc": 0,
                             "fused_xent_bwd": 0, "fused_xent_bwd_tc": 0,
                             "flash_attention": 0, "flash_attention_tc": 0,
                             "flash_attention_bwd": 0, "flash_attention_bwd_tc": 0,
+                            "flash_attention_noncausal": 0, "flash_attention_tc_noncausal": 0,
+                            "flash_attention_bwd_noncausal": 0,
+                            "flash_attention_bwd_tc_noncausal": 0,
                             "decode_attention": 0, "decode_attention_tc": 0,
                             "slstm_scan": 0, "slstm_scan_persistent": 0,
                             "slstm_scan_bwd": 0, "slstm_scan_bwd_persistent": 0}

@@ -1,28 +1,33 @@
-// The backward of causal GQA flash attention (B5) for Hopper (sm_90a),
-// bound to Python through a plain C interface (ctypes).
+// The backward of GQA flash attention (B5), causal or not, for Hopper
+// (sm_90a), bound to Python through a plain C interface (ctypes).
 //
 // The JAX package has no backward kernel: its training path differentiates
 // the attention through XLA.  The port runs the forward through the B5 kernel
 // (csrc/flash_attention.cu), so its gradient is a kernel too, written in the
 // FlashAttention-2 manner against the forward's conventions: q, out, dout
 // (B, Sq, H, D); k, v (B, Sk, Hkv, D); query head h reads KV head
-// h / (H / Hkv); query i sees key j where j <= i and, with a window,
-// i - j < window; scores scaled by 1/sqrt(D); lse (B, H, Sq) f32 is the
-// forward's log-sum-exp of the scaled scores.  Three kernels:
+// h / (H / Hkv); query i sees key j where j <= i (causal) and, with a
+// window, i - j < window; with causal = 0 (a runtime argument, the forward's
+// flag) only the window masks, keys ahead of the query stay live and Sq may
+// exceed Sk; scores scaled by 1/sqrt(D); lse (B, H, Sq) f32 is the forward's
+// log-sum-exp of the scaled scores.  Three kernels:
 //
 //   * delta_kernel: delta[b, h, i] = sum_d dout * out (f32), a warp a row.
 //   * dkdv_kernel: one block per (batch, KV head, tile of BKV keys).  It
 //     loops over the group's query heads and the query tiles that can see
-//     its keys ([k0, Sq) causal, cut at k0 + BKV - 1 + window with a
-//     window), recomputes P = exp(S * scale - lse) and dS = P (dP - delta),
+//     its keys ([k0, Sq) causal, [0, Sq) not, cut at k0 + BKV - 1 + window
+//     with a window), recomputes P = exp(S * scale - lse) and dS = P (dP - delta),
 //     and accumulates dV += P^T dO and dK += dS^T Q * scale in registers.
-//     Key tiles no query sees (keys >= Sq) write zeros.
+//     Causal, key tiles no query sees (keys >= Sq) write zeros; not causal,
+//     query 0 sees every key.
 //   * dq_kernel: one block per (batch, query head, tile of query rows); it
-//     walks the key tiles its rows can see, as the forward does, and
-//     accumulates dQ += dS K * scale.
+//     walks the key tiles its rows can see, as the forward does (up to its
+//     last row causal, to Sk not; from its first row - window + 1 with a
+//     window), and accumulates dQ += dS K * scale.
 //
 // Masked entries are -inf scores, so P is exactly 0 there (lse is finite:
-// every row sees its own key).  Every sum runs in a fixed order, the GQA sum
+// every row sees a key; the caller refuses a non-causal call with a row that
+// sees none).  Every sum runs in a fixed order, the GQA sum
 // over a group's heads included, with no atomics: the bits repeat from run
 // to run.  f32 or bf16 in and out, every product in f32 FMA (no tensor
 // cores); tails masked, no divisibility needed; the window is a runtime
@@ -79,8 +84,8 @@ template <int D> struct Tile {
   static constexpr int kSmemQ = (2 * BQR * LD + 2 * BK * LD + BQR * LPK + 2 * BQR) * 4;
 };
 
-__device__ __forceinline__ bool live(int qi, int key, int sq, int sk, int window) {
-  return qi < sq && key < sk && key <= qi && (window <= 0 || qi - key < window);
+__device__ __forceinline__ bool live(int qi, int key, int sq, int sk, int window, bool causal) {
+  return qi < sq && key < sk && (!causal || key <= qi) && (window <= 0 || qi - key < window);
 }
 
 // Rows [r0, r0 + rows) of a (B, S, heads, D) tensor at (b, head) into
@@ -125,7 +130,7 @@ __global__ void __launch_bounds__(kThreads)
 dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
             const T* __restrict__ dout, const float* __restrict__ lse,
             const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv, int sq,
-            int sk, int h, int hkv, int window, float scale) {
+            int sk, int h, int hkv, int window, int causal, float scale) {
   using C = Tile<D>;
   extern __shared__ float smem[];
   float* qs = smem;                      // BQ x LD
@@ -154,12 +159,13 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
 #pragma unroll
     for (int c = 0; c < C::DC; ++c) adk[a][c] = adv[a][c] = 0.f;
 
+  const int q_begin = causal ? k0 : 0;
   const int q_end = window > 0 ? min(sq, k0 + C::BKV - 1 + window) : sq;
   for (int hh = 0; hh < group; ++hh) {
     const int head = kvh * group + hh;
     const float* lse_h = lse + (static_cast<int64_t>(b) * h + head) * sq;
     const float* dlt_h = delta + (static_cast<int64_t>(b) * h + head) * sq;
-    for (int qt = k0; qt < q_end; qt += C::BQ) {
+    for (int qt = q_begin; qt < q_end; qt += C::BQ) {
       __syncthreads();                   // the previous step's readers are done
       load_rows<T, D>(qs, q, b, sq, h, head, qt, C::BQ);
       load_rows<T, D>(dos, dout, b, sq, h, head, qt, C::BQ);
@@ -203,7 +209,7 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
         for (int n = 0; n < C::TNQ; ++n) {
           const int jr = ty * C::TK + a;
           const int ic = tx + 8 * n;
-          const float p = live(qt + ic, k0 + jr, sq, sk, window)
+          const float p = live(qt + ic, k0 + jr, sq, sk, window, causal)
                               ? expf(s[a][n] * scale - lse_s[ic]) : 0.f;
           pt[jr * C::LPQ + ic] = p;
           dst[jr * C::LPQ + ic] = p * (dp[a][n] - dlt_s[ic]);
@@ -251,7 +257,7 @@ __global__ void __launch_bounds__(kThreads)
 dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
           const T* __restrict__ dout, const float* __restrict__ lse,
           const float* __restrict__ delta, T* __restrict__ dq, int sq, int sk, int h, int hkv,
-          int window, float scale) {
+          int window, int causal, float scale) {
   using C = Tile<D>;
   extern __shared__ float smem[];
   float* qs = smem;                        // BQR x LD
@@ -286,7 +292,7 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
 #pragma unroll
     for (int c = 0; c < C::DC; ++c) acc[i][c] = 0.f;
 
-  const int k_end = min(sk, q0 + C::BQR);
+  const int k_end = causal ? min(sk, q0 + C::BQR) : sk;
   const int k_begin = window > 0 ? max(0, q0 - window + 1) : 0;
   for (int kt = k_begin; kt < k_end; kt += C::BK) {
     __syncthreads();                     // the previous tile's readers are done
@@ -326,7 +332,7 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
       for (int n = 0; n < C::TN; ++n) {
         const int r = ty * C::TM + i;
         const int jc = tx + 8 * n;
-        const float p = live(q0 + r, kt + jc, sq, sk, window)
+        const float p = live(q0 + r, kt + jc, sq, sk, window, causal)
                             ? expf(s[i][n] * scale - lse_s[r]) : 0.f;
         dss[r * C::LPK + jc] = p * (dp[i][n] - dlt_s[r]);
       }
@@ -369,7 +375,7 @@ cudaError_t allow_smem(K kernel, int bytes, bool* done) {
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const void* out, const void* dout,
            const float* lse, float* delta, void* dq, void* dk, void* dv, int b, int sq, int sk,
-           int h, int hkv, int window, float scale, cudaStream_t stream) {
+           int h, int hkv, int window, int causal, float scale, cudaStream_t stream) {
   using C = Tile<D>;
   static bool kv_done = false, q_done = false;
   cudaError_t err = allow_smem(dkdv_kernel<T, D>, C::kSmemKV, &kv_done);
@@ -385,26 +391,26 @@ int launch(const void* q, const void* k, const void* v, const void* out, const v
                       stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), sq,
-      sk, h, hkv, window, scale);
+      sk, h, hkv, window, causal, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   dq_kernel<T, D><<<dim3((sq + C::BQR - 1) / C::BQR, h, b), kThreads, C::kSmemQ, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), lse, delta, static_cast<T*>(dq), sq, sk, h, hkv, window,
-      scale);
+      causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int dispatch(int d, const void* q, const void* k, const void* v, const void* out,
              const void* dout, const float* lse, float* delta, void* dq, void* dk, void* dv,
-             int b, int sq, int sk, int h, int hkv, int window, float scale,
+             int b, int sq, int sk, int h, int hkv, int window, int causal, float scale,
              cudaStream_t s) {
   switch (d) {
 #define REPRO_CASE(D)                                                                     \
   case D:                                                                                 \
     return launch<T, D>(q, k, v, out, dout, lse, delta, dq, dk, dv, b, sq, sk, h, hkv,   \
-                        window, scale, s);
+                        window, causal, scale, s);
     REPRO_CASE(32)
     REPRO_CASE(64)
     REPRO_CASE(80)
@@ -421,22 +427,25 @@ int dispatch(int d, const void* q, const void* k, const void* v, const void* out
 // cudaError_t (0 = launched).  The caller validates devices, dtypes, shapes
 // and contiguity, and allocates delta (B, H, Sq) f32 scratch and dq (B, Sq,
 // H, D), dk and dv (B, Sk, Hkv, D) in the inputs' dtype.  dtype: 0 = f32,
-// 1 = bf16.  head_dim one of 32, 64, 80, 128, 256; 1 <= Sq <= Sk.
+// 1 = bf16.  head_dim one of 32, 64, 80, 128, 256; Sq, Sk >= 1, Sq <= Sk
+// when causal; not causal, every row must see a key (Sq < Sk + window with a
+// window), which the caller checks.
 extern "C" int repro_flash_attention_bwd(const void* q, const void* k, const void* v,
                                          const void* out, const void* dout, const float* lse,
                                          float* delta, void* dq, void* dk, void* dv, int b,
                                          int sq, int sk, int h, int hkv, int d, int window,
-                                         float scale, int dtype, void* stream) {
-  if (b <= 0 || b > 65535 || sq <= 0 || sq > sk || h <= 0 || h > 65535 || hkv <= 0 ||
-      h % hkv != 0 || window < 0) {
+                                         int causal, float scale, int dtype, void* stream) {
+  if (b <= 0 || b > 65535 || sq <= 0 || sk <= 0 || (causal && sq > sk) || h <= 0 ||
+      h > 65535 || hkv <= 0 || h % hkv != 0 || window < 0 ||
+      (!causal && window > 0 && sq >= sk + window)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return dispatch<float>(d, q, k, v, out, dout, lse, delta, dq, dk, dv, b, sq, sk, h, hkv,
-                           window, scale, s);
+                           window, causal, scale, s);
   if (dtype == 1)
     return dispatch<__nv_bfloat16>(d, q, k, v, out, dout, lse, delta, dq, dk, dv, b, sq, sk,
-                                   h, hkv, window, scale, s);
+                                   h, hkv, window, causal, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

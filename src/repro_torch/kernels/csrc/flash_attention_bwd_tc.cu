@@ -1,5 +1,5 @@
-// The backward of causal GQA flash attention (B5) on Hopper's tensor cores
-// (sm_90a): the bf16 route, bound to Python through a plain C interface
+// The backward of GQA flash attention (B5), causal or not, on Hopper's
+// tensor cores (sm_90a): the bf16 route, bound to Python through a plain C interface
 // (ctypes).  flash_attention_bwd.cu keeps the f32-FMA route (f32, head dims
 // 32, 80 and 256, tensors TMA cannot read).
 //
@@ -7,8 +7,10 @@
 // attend (src/repro/models/attention.py:82) through XLA.  Conventions of the
 // forward (flash_attention_tc.cu): q, out, dout (B, Sq, H, D); k, v (B, Sk,
 // Hkv, D), bf16 in the model's own layout; query head h reads KV head
-// h / (H / Hkv); query i sees key j where j <= i and, with window > 0,
-// i - j < window; scores scaled by 1/sqrt(D); lse (B, H, Sq) f32 the
+// h / (H / Hkv); query i sees key j where j <= i (causal) and, with
+// window > 0, i - j < window; with causal = 0 (a runtime argument, the
+// forward's flag) only the window masks, keys ahead of the query stay live
+// and Sq may exceed Sk; scores scaled by 1/sqrt(D); lse (B, H, Sq) f32 the
 // forward's log-sum-exp.  D is 64 or 128.  Three kernels, the f32-FMA
 // route's structure:
 //
@@ -17,7 +19,8 @@
 //   * flash_bwd_dkdv_tc_kernel: one block per (KV head, batch, 128-key
 //     tile), two warpgroups of 64 keys.  K and V stay in shared memory; the
 //     block walks the group's query heads, then the 64-query tiles that can
-//     see its keys ([k0, Sq), cut at k0 + 127 + window with a window); Q and
+//     see its keys ([k0, Sq) causal, [0, Sq) not, cut at k0 + 127 + window
+//     with a window); Q and
 //     dO tiles arrive by TMA into a two-stage ring, an mbarrier a stage;
 //     each tile's lse and delta are read through the read-only cache into
 //     registers (16 queries a thread).  A warpgroup, a tile:
@@ -30,11 +33,13 @@
 //                         forward does so with P); dO the MN-major B operand
 //                         (the transpose bit);
 //       dK  += dS^T Q     RS, Q MN-major.  dK is scaled once at the end.
-//     Key tiles no query sees (keys >= Sq) write zeros.
+//     Causal, key tiles no query sees (keys >= Sq) write zeros; not causal,
+//     query 0 sees every key.
 //   * flash_bwd_dq_tc_kernel: one block per (query head, batch, 128 query
 //     rows), two warpgroups of 64 rows.  Q and dO stay in shared memory; the
 //     block walks the live key range [max(0, q0 - window + 1), min(Sk,
-//     q0 + 128)) in 64-key tiles as the forward does, K and V by TMA into a
+//     q0 + 128)) (to Sk when not causal) in 64-key tiles as the forward
+//     does, K and V by TMA into a
 //     two-stage ring.  S = Q K^T (SS), dP = dO V^T (SS, V K-major), dS as
 //     above, dQ += dS K (RS, K MN-major), scaled at the end.
 //
@@ -50,7 +55,9 @@
 // the last key tile one or two.  The grid puts the tile index in its
 // slowest dimension, heaviest first (key tile 0 first; the dQ kernel's last
 // query tile first), so the blocks with the most work start in the first
-// wave and the light ones fill in behind them.
+// wave and the light ones fill in behind them.  Not causal, every tile
+// walks the whole other sequence (a window cuts every tile alike but at the
+// ends), so the blocks are equal and the order changes nothing.
 //
 // What bounds it on this card, at the training shape (B 4, S 512, H 32,
 // Hkv 8, D 128, causal): the function needs 10 D flops per live (query,
@@ -115,8 +122,8 @@ __device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
                                     ~static_cast<uintptr_t>(1023));
 }
 
-__device__ __forceinline__ bool live(int qi, int key, int sq, int sk, int window) {
-  return qi < sq && key < sk && key <= qi && (window <= 0 || qi - key < window);
+__device__ __forceinline__ bool live(int qi, int key, int sq, int sk, int window, bool causal) {
+  return qi < sq && key < sk && (!causal || key <= qi) && (window <= 0 || qi - key < window);
 }
 
 // Rows (row, row + 8) of an (S, ., D) slice at `base` (row step `step`
@@ -171,7 +178,7 @@ flash_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap tq,
                          const __grid_constant__ CUtensorMap tdo, const float* __restrict__ lse,
                          const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
                          __nv_bfloat16* __restrict__ dv, int sq, int sk, int h, int hkv,
-                         int window, float scale, float scale_log2) {
+                         int window, int causal, float scale, float scale_log2) {
   using C = BwdTile<D>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* ks = align_1024(smem_raw);        // [box][BKV rows of 128 bytes]
@@ -189,13 +196,14 @@ flash_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap tq,
   const int b = blockIdx.y;
   const int k0 = blockIdx.z * BKV;
   const int group = h / hkv;
+  const int q_begin = causal ? k0 : 0;
   const int q_end = window > 0 ? min(sq, k0 + BKV - 1 + window) : sq;
-  const int n_qt = q_end > k0 ? (q_end - k0 + BQ - 1) / BQ : 0;
+  const int n_qt = q_end > q_begin ? (q_end - q_begin + BQ - 1) / BQ : 0;
   const int n_tiles = group * n_qt;
 
   auto load_q = [&](int i, int stage) {
     const int head = kvh * group + i / n_qt;
-    const int qt = k0 + (i % n_qt) * BQ;
+    const int qt = q_begin + (i % n_qt) * BQ;
     uint64_t* bar = &bars[1 + stage];
     sm90::mbar_arrive_expect_tx(bar, 2 * C::kQStage);
 #pragma unroll
@@ -233,10 +241,10 @@ flash_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap tq,
   for (int i = 0; i < n_tiles; ++i) {
     const int stage = i & 1;
     const int head = kvh * group + i / n_qt;
-    const int qt = k0 + (i % n_qt) * BQ;
+    const int qt = q_begin + (i % n_qt) * BQ;
     sm90::mbar_wait(&bars[1 + stage], (i >> 1) & 1);
     const int qmax = min(qt + BQ - 1, sq - 1);
-    const bool seen = kw0 < sk && kw0 <= qmax && (window <= 0 || qt - kmax < window);
+    const bool seen = kw0 < sk && (!causal || kw0 <= qmax) && (window <= 0 || qt - kmax < window);
     if (seen) {
       const uint8_t* q_st = qs + stage * C::kQStage;
       const uint8_t* do_st = dos + stage * C::kQStage;
@@ -280,7 +288,7 @@ flash_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
           for (int half = 0; half < 2; ++half) {
             const int idx = 4 * j8 + 2 * half + c;
-            const float sc = live(qi, key0 + 8 * half, sq, sk, window)
+            const float sc = live(qi, key0 + 8 * half, sq, sk, window, causal)
                                  ? fmaf(st[idx], scale_log2, -l2) : -INFINITY;
             const float p = exp2f(sc);                 // exactly 0 where masked
             st[idx] = p;
@@ -322,7 +330,8 @@ flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tv,
                        const __grid_constant__ CUtensorMap tdo, const float* __restrict__ lse,
                        const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq, int sq,
-                       int sk, int h, int hkv, int window, float scale, float scale_log2) {
+                       int sk, int h, int hkv, int window, int causal, float scale,
+                       float scale_log2) {
   using C = BwdTile<D>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* qs = align_1024(smem_raw);        // [box][BQR rows of 128 bytes]
@@ -340,9 +349,9 @@ flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tq,
   const int b = blockIdx.y;
   const int q0 = (gridDim.z - 1 - blockIdx.z) * BQR;     // the heaviest tile first
   const int kvh = head / (h / hkv);
-  const int k_end = min(sk, q0 + BQR);
+  const int k_end = causal ? min(sk, q0 + BQR) : sk;
   const int k_begin = window > 0 ? max(0, q0 - window + 1) : 0;
-  const int n_tiles = (k_end - k_begin + BK - 1) / BK;
+  const int n_tiles = k_end > k_begin ? (k_end - k_begin + BK - 1) / BK : 0;
 
   auto load_kv = [&](int i, int stage) {
     const int kt = k_begin + i * BK;
@@ -368,7 +377,7 @@ flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tq,
       sm90::tma_load_4d(qs + j * BQR * 128, &tq, &bars[0], 64 * j, head, q0, b);
       sm90::tma_load_4d(dos + j * BQR * 128, &tdo, &bars[0], 64 * j, head, q0, b);
     }
-    load_kv(0, 0);
+    if (n_tiles > 0) load_kv(0, 0);
     if (n_tiles > 1) load_kv(1, 1);
   }
 
@@ -392,7 +401,7 @@ flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tq,
     const int kt = k_begin + i * BK;
     sm90::mbar_wait(&bars[1 + stage], (i >> 1) & 1);
     const int kmax = min(kt + BK - 1, sk - 1);
-    const bool seen = qw0 < sq && kt <= qmax && (window <= 0 || qw0 - kmax < window);
+    const bool seen = qw0 < sq && (!causal || kt <= qmax) && (window <= 0 || qw0 - kmax < window);
     if (seen) {
       const uint8_t* k_st = ks + stage * C::kKStage;
       const uint8_t* v_st = vs + stage * C::kKStage;
@@ -430,7 +439,7 @@ flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
           for (int c = 0; c < 2; ++c) {
             const int idx = 4 * j8 + 2 * half + c;
-            const float sc = live(row, kt + 8 * j8 + 2 * quad + c, sq, sk, window)
+            const float sc = live(row, kt + 8 * j8 + 2 * quad + c, sq, sk, window, causal)
                                  ? fmaf(s[idx], scale_log2, -l2[half]) : -INFINITY;
             s[idx] = exp2f(sc) * (dp[idx] - dl[half]);   // dS, exactly 0 where masked
           }
@@ -469,7 +478,7 @@ int encode_bshd(CUtensorMap* map, const void* base, int b, int s, int heads, int
 template <int D>
 int launch(const void* q, const void* k, const void* v, const void* out, const void* dout,
            const float* lse, float* delta, void* dq, void* dk, void* dv, int b, int sq, int sk,
-           int h, int hkv, int window, float scale, cudaStream_t stream) {
+           int h, int hkv, int window, int causal, float scale, cudaStream_t stream) {
   using C = BwdTile<D>;
   // the dK/dV kernel reads Q and dO in BQ-row tiles, K and V in BKV rows;
   // the dQ kernel Q and dO in BQR rows, K and V in BK-row tiles
@@ -505,12 +514,12 @@ int launch(const void* q, const void* k, const void* v, const void* out, const v
   const float scale_log2 = scale * kLog2e;
   dkdv<<<dim3(hkv, b, (sk + BKV - 1) / BKV), kThreads, C::kSmemKV, stream>>>(
       q_kv, k_kv, v_kv, do_kv, lse, delta, static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), sq, sk, h, hkv, window, scale, scale_log2);
+      static_cast<__nv_bfloat16*>(dv), sq, sk, h, hkv, window, causal, scale, scale_log2);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   dqk<<<dim3(h, b, (sq + BQR - 1) / BQR), kThreads, C::kSmemQ, stream>>>(
       q_q, k_q, v_q, do_q, lse, delta, static_cast<__nv_bfloat16*>(dq), sq, sk, h, hkv, window,
-      scale, scale_log2);
+      causal, scale, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -521,22 +530,25 @@ int launch(const void* q, const void* k, const void* v, const void* out, const v
 // strides and alignment (bf16, contiguous, 16-byte aligned base addresses,
 // which with D % 8 == 0 makes every stride TMA needs a multiple of 16 bytes)
 // and allocates delta (B, H, Sq) f32 scratch, dq (B, Sq, H, D) and dk, dv
-// (B, Sk, Hkv, D) bf16.  head_dim 64 or 128; 1 <= Sq <= Sk.
+// (B, Sk, Hkv, D) bf16.  head_dim 64 or 128; Sq, Sk >= 1, Sq <= Sk when
+// causal; not causal, every row must see a key (Sq < Sk + window with a
+// window), which the caller checks.
 extern "C" int repro_flash_attention_bwd_tc(const void* q, const void* k, const void* v,
                                             const void* out, const void* dout, const float* lse,
                                             float* delta, void* dq, void* dk, void* dv, int b,
                                             int sq, int sk, int h, int hkv, int d, int window,
-                                            float scale, void* stream) {
-  if (b <= 0 || b > 65535 || sq <= 0 || sq > sk || h <= 0 || hkv <= 0 || h % hkv != 0 ||
-      window < 0 || (sk + BKV - 1) / BKV > 65535 || (sq + BQR - 1) / BQR > 65535) {
+                                            int causal, float scale, void* stream) {
+  if (b <= 0 || b > 65535 || sq <= 0 || sk <= 0 || (causal && sq > sk) || h <= 0 || hkv <= 0 ||
+      h % hkv != 0 || window < 0 || (!causal && window > 0 && sq >= sk + window) ||
+      (sk + BKV - 1) / BKV > 65535 || (sq + BQR - 1) / BQR > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 64: return launch<64>(q, k, v, out, dout, lse, delta, dq, dk, dv, b, sq, sk, h, hkv,
-                               window, scale, s);
+                               window, causal, scale, s);
     case 128: return launch<128>(q, k, v, out, dout, lse, delta, dq, dk, dv, b, sq, sk, h, hkv,
-                                 window, scale, s);
+                                 window, causal, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -28,8 +28,8 @@ oracle's (:func:`dead_row_begin`).
     loads; bf16, head_dim in :data:`TC_BWD_HEAD_DIMS`, 16-byte aligned) or
     ``f32_fma`` (``csrc/flash_attention_bwd.cu``; everything else).
   * :class:`FlashAttention` — the ``autograd.Function`` over the two, the
-    path of a CUDA call that needs a gradient (causal only: the backward's
-    non-causal form comes with the encoder, ROADMAP.md Queue A item 10).
+    path of a CUDA call that needs a gradient, causal or not (a non-causal
+    call with a row that sees no key is refused: :data:`DEAD_ROW_BACKWARD`).
   * :func:`flash_attention_plain` — what ``repro/kernels/ref.py::
     mha_reference`` computes: the scores materialised in f32, GQA by
     repeating the KV heads, masked with -1e30, softmax in f32.  The CPU
@@ -39,9 +39,11 @@ oracle's (:func:`dead_row_begin`).
 
 ``kernels/ops.py`` picks between them by the tensor's device and by
 whether a gradient is needed.  The launchers count their launches by route
-in ``build.LAUNCHES`` (``flash_attention`` and ``flash_attention_bwd`` the
-f32-FMA kernels, ``flash_attention_tc`` and ``flash_attention_bwd_tc`` the
-tensor-core ones); the launchers themselves record no graph.
+and mode in ``build.LAUNCHES`` (``flash_attention`` and
+``flash_attention_bwd`` the f32-FMA kernels, ``flash_attention_tc`` and
+``flash_attention_bwd_tc`` the tensor-core ones, each with ``_noncausal``
+for a call with ``causal=False``); the launchers themselves record no
+graph.
 """
 from __future__ import annotations
 
@@ -109,32 +111,33 @@ def _tile_live(q0: int, q1: int, k0: int, k1: int, sq: int, sk: int, window: int
             and (window <= 0 or q0 - k1 < window))
 
 
-def bwd_tc_walks(sq: int, sk: int, window: int = 0):
+def bwd_tc_walks(sq: int, sk: int, window: int = 0, causal: bool = True):
     """The tile walks of the backward's tensor-core kernels, per head, as
     they compute them: ``(dkdv, dq)``, each {(block, warpgroup): [(first
     query, first key) of each tile the warpgroup computes]}.  dK/dV: block
     ``k0`` (:data:`BWD_KEYS` keys, a warpgroup's 64 from ``k0 + 64 wg``)
-    walks the :data:`BWD_QUERIES`-query tiles from ``k0`` to Sq (to ``k0 +
-    BWD_KEYS - 1 + window`` with a window).  dQ: block ``q0``
+    walks the :data:`BWD_QUERIES`-query tiles from ``k0`` (causal) or 0 to
+    Sq (to ``k0 + BWD_KEYS - 1 + window`` with a window).  dQ: block ``q0``
     (:data:`DQ_ROWS` rows, 64 a warpgroup) walks :data:`DQ_KEYS`-key tiles
     from ``max(0, q0 - window + 1)`` (0 without a window) to ``min(Sk, q0 +
-    DQ_ROWS)``.  A warpgroup skips a tile with no live pair."""
+    DQ_ROWS)`` (causal) or Sk.  A warpgroup skips a tile with no live
+    pair."""
     dkdv, dq = {}, {}
     for k0 in range(0, sk, BWD_KEYS):
         q_end = min(sq, k0 + BWD_KEYS - 1 + window) if window > 0 else sq
         for wg in range(BWD_KEYS // WG_ROWS):
             kw0 = k0 + WG_ROWS * wg
-            dkdv[k0, wg] = [(qt, kw0) for qt in range(k0, q_end, BWD_QUERIES)
+            dkdv[k0, wg] = [(qt, kw0) for qt in range(k0 if causal else 0, q_end, BWD_QUERIES)
                             if _tile_live(qt, qt + BWD_QUERIES - 1, kw0, kw0 + WG_ROWS - 1,
-                                          sq, sk, window)]
+                                          sq, sk, window, causal)]
     for q0 in range(0, sq, DQ_ROWS):
         k_begin = max(0, q0 - window + 1) if window > 0 else 0
-        k_end = min(sk, q0 + DQ_ROWS)
+        k_end = min(sk, q0 + DQ_ROWS) if causal else sk
         for wg in range(DQ_ROWS // WG_ROWS):
             qw0 = q0 + WG_ROWS * wg
             dq[q0, wg] = [(qw0, kt) for kt in range(k_begin, k_end, DQ_KEYS)
                           if _tile_live(qw0, qw0 + WG_ROWS - 1, kt, kt + DQ_KEYS - 1,
-                                        sq, sk, window)]
+                                        sq, sk, window, causal)]
     return dkdv, dq
 
 
@@ -245,6 +248,28 @@ def _check_launch(q: torch.Tensor, k: torch.Tensor, window: int, causal: bool = 
                          f"{sq}, Sk {sk}, window {window}, causal {causal}")
 
 
+#: why a non-causal call with a row that sees no key has no gradient here
+DEAD_ROW_BACKWARD = (
+    "B5's backward takes no query row that sees no key: with causal=False and a window, the "
+    "rows at or past Sk + window - 1 (Sq >= Sk + window) take the reference kernel's suffix "
+    "mean of v (dead_row_begin), which the backward kernels do not differentiate; no path of "
+    "the repository makes such a call.  Call it under torch.no_grad(), or on the CPU")
+
+
+def has_dead_rows(sq: int, sk: int, window: int, causal: bool) -> bool:
+    """Whether some query row sees no key: not causal, a window, and Sq >=
+    Sk + window (causal, every row sees its own key)."""
+    return not causal and window > 0 and sq >= sk + window
+
+
+def check_differentiable(q: torch.Tensor, k: torch.Tensor, window: int, causal: bool) -> None:
+    """Raise :data:`DEAD_ROW_BACKWARD` where a call has a row with no live
+    key: the kernels' backward covers every other call."""
+    if has_dead_rows(q.shape[1], k.shape[1], window, causal):
+        raise NotImplementedError(f"{DEAD_ROW_BACKWARD} (Sq {q.shape[1]}, Sk {k.shape[1]}, "
+                                  f"window {window})")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0, route: Optional[str] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -266,28 +291,32 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     chosen = attention_route(q, k, v)
     if route not in (None, chosen, F32_FMA):
         raise ValueError(f"route {route!r}: these tensors take {chosen!r} or {F32_FMA!r}")
+    mode = "" if causal else "_noncausal"
     if (route or chosen) == TENSOR_CORES:
         err = load("flash_attention_tc").repro_flash_attention_tc(*args, stream)
-        record_launch(err, "flash_attention_tc")
+        record_launch(err, "flash_attention_tc" + mode)
     else:
         err = load("flash_attention").repro_flash_attention(*args, DTYPE_CODES[q.dtype],
                                                             stream)
-        record_launch(err, "flash_attention")
+        record_launch(err, "flash_attention" + mode)
     return out, lse
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         out: torch.Tensor, dout: torch.Tensor, lse: torch.Tensor, *,
-                        window: int = 0, route: Optional[str] = None
+                        causal: bool = True, window: int = 0, route: Optional[str] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch the backward kernels, by :func:`attention_bwd_route`
     (``route=F32_FMA`` forces the f32-FMA kernels, to time them beside the
     others): the forward's q, k, v, out and lse and the output's gradient
-    ``dout`` -> (dq, dk, dv) in q's dtype."""
+    ``dout`` -> (dq, dk, dv) in q's dtype.  ``causal`` is the forward's (a
+    runtime argument of both kernels); a non-causal call with a row that
+    sees no key raises :data:`DEAD_ROW_BACKWARD`."""
     from .build import load, record_launch
     check_cuda_inputs("flash_attention_bwd", q, k, v, out, dout)
     check_shapes(q, k, v)
-    _check_launch(q, k, window)
+    _check_launch(q, k, window, causal)
+    check_differentiable(q, k, window, causal)
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     if out.shape != q.shape or dout.shape != q.shape:
@@ -302,50 +331,45 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b,
-            sq, sk, h, hkv, d, window, 1.0 / math.sqrt(d))
+            sq, sk, h, hkv, d, window, int(causal), 1.0 / math.sqrt(d))
     chosen = attention_bwd_route(q, k, v, out, dout)
     if route not in (None, chosen, F32_FMA):
         raise ValueError(f"route {route!r}: these tensors take {chosen!r} or {F32_FMA!r}")
+    mode = "" if causal else "_noncausal"
     if (route or chosen) == TENSOR_CORES:
         err = load("flash_attention_bwd_tc").repro_flash_attention_bwd_tc(*args, stream)
-        record_launch(err, "flash_attention_bwd_tc")
+        record_launch(err, "flash_attention_bwd_tc" + mode)
     else:
         err = load("flash_attention_bwd").repro_flash_attention_bwd(
             *args, DTYPE_CODES[q.dtype], stream)
-        record_launch(err, "flash_attention_bwd")
+        record_launch(err, "flash_attention_bwd" + mode)
     return dq, dk, dv
-
-
-#: why a CUDA call that needs a gradient must be causal
-NON_CAUSAL_BACKWARD = ("B5's backward is causal only: its non-causal form comes with the "
-                       "encoder-decoder slice, ROADMAP.md Queue A item 10 (the reference op "
-                       "has no VJP of its own); call it under torch.no_grad(), or on the CPU")
 
 
 class FlashAttention(torch.autograd.Function):
     """Attention of CUDA tensors through the B5 kernels, with its backward:
-    ``FlashAttention.apply(q, k, v, window)`` -> (B, Sq, H, D).  Causal
-    only (``causal=False`` raises :data:`NON_CAUSAL_BACKWARD`)."""
+    ``FlashAttention.apply(q, k, v, window, causal)`` -> (B, Sq, H, D).  A
+    non-causal call with a row that sees no key raises
+    :data:`DEAD_ROW_BACKWARD`."""
 
     @staticmethod
     def forward(ctx, q, k, v, window, causal=True):
-        if not causal:
-            raise NotImplementedError(NON_CAUSAL_BACKWARD)
-        out, lse = flash_attention(q, k, v, window=window)
+        check_differentiable(q, k, window, causal)
+        out, lse = flash_attention(q, k, v, causal=causal, window=window)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.window = window
+        ctx.window, ctx.causal = window, causal
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, out, dout.contiguous(), lse,
-                                         window=ctx.window)
+                                         causal=ctx.causal, window=ctx.window)
         return dq, dk, dv, None, None
 
 
-__all__ = ["F32_FMA", "FlashAttention", "HEAD_DIMS", "NEG_INF", "NON_CAUSAL_BACKWARD",
+__all__ = ["DEAD_ROW_BACKWARD", "F32_FMA", "FlashAttention", "HEAD_DIMS", "NEG_INF",
            "REF_BLOCK", "TC_BWD_HEAD_DIMS", "TC_HEAD_DIMS", "TENSOR_CORES", "attend_plain",
            "attention_bwd_route", "attention_route", "bwd_tc_walks", "causal_mask",
-           "dead_row_begin", "flash_attention", "flash_attention_bwd",
-           "flash_attention_plain", "tma_ok"]
+           "check_differentiable", "dead_row_begin", "flash_attention", "flash_attention_bwd",
+           "flash_attention_plain", "has_dead_rows", "tma_ok"]

@@ -76,16 +76,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (then only the window masks, and Sq may exceed Sk).  q (B, Sq, H, D); k,
     v (B, Sk, Hkv, D), GQA when Hkv < H; ``window > 0`` a sliding window.
     Returns (B, Sq, H, D), differentiable: on CUDA tensors that need a
-    gradient through the B5 forward and backward kernels (causal only: a
-    non-causal call that needs a gradient raises
-    ``flash_attention.NON_CAUSAL_BACKWARD``; the CPU path differentiates
-    both)."""
+    gradient through the B5 forward and backward kernels, causal or not (a
+    non-causal call with a row that sees no key raises
+    ``flash_attention.DEAD_ROW_BACKWARD``; the CPU path differentiates
+    every call)."""
     if q.device.type == "cpu":
         return _fa.flash_attention_plain(q, k, v, causal=causal, window=window)
     if _needs_grad(q, k, v):
-        if not causal:
-            raise NotImplementedError(_fa.NON_CAUSAL_BACKWARD)
-        return _fa.FlashAttention.apply(q, k, v, window)
+        return _fa.FlashAttention.apply(q, k, v, window, causal)
     return _fa.flash_attention(q, k, v, causal=causal, window=window)[0]
 
 

@@ -10,10 +10,13 @@ its weights drawn on the card.  As in the reference, the prompt is stepped
 through the decode path one position at a time, then ``--new-tokens``
 tokens are decoded greedily.  ``--trace PATH`` writes a JSONL telemetry
 trace: a provenance stamp and one span a decode step, fenced on the step's
-outputs.  Every ported arch serves: the dense family, xLSTM, the vlm
+outputs.  Every arch serves: the dense family, xLSTM, the vlm
 (``internvl2-26b``: the loop steps text tokens only, as the reference's
-does) and the MoEs (``deepseek-v2-lite-16b`` on its MLA latent cache,
-``qwen3-moe-30b-a3b``).
+does), the MoEs (``deepseek-v2-lite-16b`` on its MLA latent cache,
+``qwen3-moe-30b-a3b``), Zamba2 (``zamba2-1.2b``: Mamba2's recurrent state
+and the shared attention's KV cache) and the encoder-decoder
+(``seamless-m4t-medium``: each step's cross-attention reads a memory, the
+reference's ``0.1 * ones((batch, 8, d_model))``).
 """
 from __future__ import annotations
 
@@ -30,6 +33,7 @@ from ..configs import get_config, get_smoke_config, list_archs
 from ..data import make_markov_tokens
 from ..models import build_model
 from ..models.config import ModelConfig
+from ..models.transformer import ENCDEC
 from .shapes import SHAPES, shape_settings
 from ..telemetry import Telemetry
 from .steps import instrument_step, make_serve_step
@@ -57,22 +61,24 @@ def make_prompts(seed: int, vocab: int, batch: int, prompt_len: int) -> np.ndarr
 
 
 @torch.inference_mode()
-def greedy_decode(serve_step: Callable, cache, prompts: torch.Tensor, new_tokens: int
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+def greedy_decode(serve_step: Callable, cache, prompts: torch.Tensor, new_tokens: int,
+                  memory: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The reference's serve loop: step the prompt (B, P) through
     ``serve_step`` at positions 0..P-1, then decode ``new_tokens`` tokens
-    greedily.  Returns (generated (B, new_tokens) on the device, the logits
-    (B, 1, V) of the prompt's last position)."""
+    greedily; an encoder-decoder's ``memory`` goes to every step.  Returns
+    (generated (B, new_tokens) on the device, the logits (B, 1, V) of the
+    prompt's last position)."""
+    extra = () if memory is None else (memory,)
     prompt_len = prompts.shape[1]
     logits = None
     for i in range(prompt_len):
-        logits, cache = serve_step(cache, prompts[:, i:i + 1], i)
+        logits, cache = serve_step(cache, prompts[:, i:i + 1], i, *extra)
     prompt_logits = logits
     generated = []
     for j in range(new_tokens):
         tok = torch.argmax(logits[:, -1, :], dim=-1)[:, None].to(torch.int32)
         generated.append(tok)
-        logits, cache = serve_step(cache, tok, prompt_len + j)
+        logits, cache = serve_step(cache, tok, prompt_len + j, *extra)
     return torch.cat(generated, dim=1), prompt_logits
 
 
@@ -97,6 +103,11 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     max_seq = args.prompt_len + args.new_tokens
     cache = model.init_cache(args.batch, max_seq)
     prompts = make_prompts(args.seed, cfg.vocab, args.batch, args.prompt_len)
+    memory = None
+    if cfg.arch_type in ENCDEC:
+        # the reference's stand-in for the encoder's output
+        memory = torch.full((args.batch, 8, cfg.d_model), 0.1, dtype=model.dtype,
+                            device=device)
     tel = None
     if args.trace:
         tel = Telemetry(jsonl=args.trace).session(
@@ -107,7 +118,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     t0 = time.perf_counter()
     try:
         gen, _ = greedy_decode(step, cache, torch.from_numpy(prompts).to(device),
-                               args.new_tokens)
+                               args.new_tokens, memory)
         gen = gen.cpu().numpy()              # waits for the device
     finally:
         if tel is not None:

@@ -9,8 +9,11 @@
                                           (R,) losses.
   * ``prefill_step(batch)``             — full-sequence forward, last-token
                                           logits (B, 1, V) f32.
-  * ``serve_step(cache, tokens, index)`` — ONE new token against the KV
-                                          cache -> (logits f32, cache).
+  * ``serve_step(cache, tokens, index, memory=None)`` — ONE new token
+                                          against the KV cache (an
+                                          encoder-decoder's cross-attention
+                                          over ``memory``) -> (logits f32,
+                                          cache).
   * ``pigeon_round_step(batches, val_batch)`` — the paper's global round over
                                           R cluster slots of a
                                           ``StackedModel``: every slot's
@@ -48,6 +51,7 @@ from ..kernels import ops as kops
 from ..models.blocks import DTYPES
 from ..models.config import ModelConfig
 from ..models.model import Model, StackedModel, build_plan
+from ..models.transformer import ENCDEC
 from .shapes import SHAPES, InputShape, shape_settings
 
 
@@ -90,6 +94,9 @@ def make_train_step(model: nn.Module, lr: float = 1e-3,
 
 
 def make_prefill_step(model: Model) -> Callable:
+    """``prefill_step(batch)`` -> the last position's logits (B, 1, V) f32;
+    an encoder-decoder's batch carries its ``frames``, which the forward
+    encodes."""
     @torch.inference_mode()
     def prefill_step(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         h, _ = model.forward(batch)
@@ -117,8 +124,11 @@ def instrument_step(fn: Callable, telemetry, name: str) -> Callable:
 
 
 def make_serve_step(model: Model) -> Callable:
-    def serve_step(cache, tokens: torch.Tensor, index: int):
-        logits, cache = model.decode_step(cache, tokens, index)
+    """``serve_step(cache, tokens, index, memory=None)`` -> (logits f32,
+    cache); ``memory`` is an encoder-decoder's encoder output."""
+    def serve_step(cache, tokens: torch.Tensor, index: int,
+                   memory: Optional[torch.Tensor] = None):
+        logits, cache = model.decode_step(cache, tokens, index, memory)
         return logits.to(torch.float32), cache
     return serve_step
 
@@ -262,7 +272,7 @@ def batch_struct(cfg: ModelConfig, shape: InputShape, cluster_dim: int = 0
         return {"patches": _meta(lead + (b, npx, cfg.d_model), dt),
                 "tokens": _meta(lead + (b, s - npx), torch.int32),
                 "labels": _meta(lead + (b, s - npx), torch.int32)}
-    if cfg.arch_type in ("audio", "encdec"):
+    if cfg.arch_type in ENCDEC:
         s_half = s // 2
         return {"frames": _meta(lead + (b, s_half, cfg.d_model), dt),
                 "tokens": _meta(lead + (b, s_half), torch.int32),
@@ -272,10 +282,16 @@ def batch_struct(cfg: ModelConfig, shape: InputShape, cluster_dim: int = 0
 
 
 def decode_structs(cfg: ModelConfig, model: Model, shape: InputShape):
-    """(tokens, index, cache) of ``serve_step`` as meta tensors; ``model``
-    lives on the meta device."""
+    """(tokens, index, cache, memory) of ``serve_step`` as meta tensors;
+    ``model`` lives on the meta device.  ``memory`` is an
+    encoder-decoder's (B, min(4,096, S // 8), d_model) encoder output, None
+    for the other families (the reference's)."""
     b, s = shape.global_batch, shape.seq_len
-    return _meta((b, 1), torch.int32), _meta((), torch.int32), model.init_cache(b, s)
+    memory = None
+    if cfg.arch_type in ENCDEC:
+        memory = _meta((b, min(4096, s // 8), cfg.d_model), DTYPES[cfg.dtype])
+    return (_meta((b, 1), torch.int32), _meta((), torch.int32), model.init_cache(b, s),
+            memory)
 
 
 @dataclasses.dataclass
@@ -299,7 +315,9 @@ def input_specs(cfg: ModelConfig, shape_name: str, *, pigeon_clusters: int = 0,
     round over an R-slot :class:`StackedModel`; ``pigeon_batch_split``
     gives each slot global_batch / R, ``pigeon_plus`` the Pigeon-SL+
     round, ``pigeon_shardmap`` raises), prefill or decode.  ``selection``
-    names the round's policy, ``quant`` the train steps' wire."""
+    names the round's policy, ``quant`` the train steps' wire.  A decode
+    step's arguments are (cache, tokens, index), and an encoder-decoder's
+    memory after them."""
     shape = SHAPES[shape_name]
     cfg = apply_shape_settings(cfg, shape)
     if optimizations:
@@ -334,8 +352,9 @@ def input_specs(cfg: ModelConfig, shape_name: str, *, pigeon_clusters: int = 0,
                             (batch_struct(cfg, shape),), model)
     if shape.kind == "prefill":
         return LoweringSpec(make_prefill_step(model), (batch_struct(cfg, shape),), model)
-    tokens, index, cache = decode_structs(cfg, model, shape)
-    return LoweringSpec(make_serve_step(model), (cache, tokens, index), model)
+    tokens, index, cache, memory = decode_structs(cfg, model, shape)
+    args = (cache, tokens, index) + (() if memory is None else (memory,))
+    return LoweringSpec(make_serve_step(model), args, model)
 
 
 __all__ = ["LoweringSpec", "apply_shape_settings", "batch_struct", "decode_structs",

@@ -15,11 +15,13 @@
 The reference's ``repro/launch/train.py``, with the same flags, on the CUDA
 card by default (``--device cpu`` asks for the CPU).  An ``--arch`` runs its
 reduced config (``reduce_config``), as the reference does, on either
-engine (``--engine batched``: the cluster-stacked LM, dense, vlm, MoE or
-xLSTM; an xLSTM trains through B7 and its backward on the card; a vlm's
-round takes tokens only, as the reference's ``from_lm`` does; a MoE such as
-``deepseek-v2-lite-16b`` (MLA) or ``qwen3-moe-30b-a3b`` routes each slot as
-its plain model does).
+engine (``--engine batched``: the cluster-stacked LM, dense, vlm, MoE,
+xLSTM or Zamba2; an xLSTM trains through B7 and its backward on the card; a
+vlm's round takes tokens only, as the reference's ``from_lm`` does; a MoE
+such as ``deepseek-v2-lite-16b`` (MLA) or ``qwen3-moe-30b-a3b`` routes each
+slot as its plain model does).  An encoder-decoder
+(``seamless-m4t-medium``) raises ``core.split.ENCDEC_ROUND``: no Pigeon-SL
+round over one exists in the reference.
 ``--protocol vanilla`` runs vanilla SL, ``sfl`` clustered SplitFed (either
 engine).  ``--trace`` writes a JSONL
 telemetry trace (spans, per-round records, a provenance stamp with the

@@ -15,6 +15,13 @@ folded into the batch axis for the norms' arithmetic, the rotary embedding
 and B5, which then takes all n slots' attention in one launch a layer (and
 its backward in one more).
 
+The encoder-decoder's attention runs B5 non-causal (``causal=False``):
+:meth:`GQA.encode` is the encoder's bidirectional self-attention (rope on
+0..S-1, no qk-norm, as the reference's ``_encdec_enc_layer``) and
+:func:`gqa_cross_forward` the decoder's cross-attention over the encoder's
+memory (no rope, no qk-norm, any Sq and Sk; in decode too, Sq = 1), each
+differentiable through B5's non-causal backward on the card.
+
 The decode cache of a layer is a pair of (B, max_seq, Hkv, D) tensors; a
 step writes the new token's key and value in place at ``index`` (the
 reference's ``dynamic_update_slice``, without copying the cache).
@@ -99,6 +106,19 @@ class GQA(nn.Module):
         out = ops.flash_attention(q, k, v, window=window)
         return self.wo(out.reshape(b, s, cfg.n_heads * cfg.head_dim))
 
+    def encode(self, x: torch.Tensor) -> torch.Tensor:
+        """The encoder's bidirectional self-attention over x (B, S, d_model):
+        rope on positions 0..S-1, no qk-norm even where the config sets it,
+        every key live (B5 non-causal)."""
+        cfg = self.cfg
+        b, s, _ = x.shape
+        pos = torch.arange(s, device=x.device)
+        q = apply_rope(self.wq(x).view(b, s, cfg.n_heads, cfg.head_dim), pos, cfg.rope_theta)
+        k = apply_rope(self.wk(x).view(b, s, cfg.n_kv_heads, cfg.head_dim), pos, cfg.rope_theta)
+        v = self.wv(x).view(b, s, cfg.n_kv_heads, cfg.head_dim)
+        out = ops.flash_attention(q, k, v, causal=False)
+        return self.wo(out.reshape(b, s, cfg.n_heads * cfg.head_dim))
+
     def decode(self, x: torch.Tensor, cache: Dict[str, torch.Tensor], index: int,
                window: int) -> torch.Tensor:
         """One decode step: x (B, 1, d_model) is the token at position
@@ -113,6 +133,21 @@ class GQA(nn.Module):
         cache["v"][:, index] = v_new[:, 0].to(cache["v"].dtype)
         out = ops.decode_attention(q, cache["k"], cache["v"], index, window=window)
         return self.wo(out.reshape(b, 1, cfg.n_heads * cfg.head_dim))
+
+
+def gqa_cross_forward(attn: GQA, x: torch.Tensor, memory: torch.Tensor) -> torch.Tensor:
+    """The reference's ``gqa_cross_forward``: x (B, Sq, d_model) attends to
+    every position of ``memory`` (B, Sk, d_model), which gives K and V, with
+    ``attn``'s projections; no rope, no qk-norm; B5 non-causal, any Sq and
+    Sk."""
+    cfg = attn.cfg
+    b, sq, _ = x.shape
+    sk = memory.shape[1]
+    q = attn.wq(x).view(b, sq, cfg.n_heads, cfg.head_dim)
+    k = attn.wk(memory).view(b, sk, cfg.n_kv_heads, cfg.head_dim)
+    v = attn.wv(memory).view(b, sk, cfg.n_kv_heads, cfg.head_dim)
+    out = ops.flash_attention(q, k, v, causal=False)
+    return attn.wo(out.reshape(b, sq, cfg.n_heads * cfg.head_dim))
 
 
 class StackedGQA(nn.Module):
@@ -318,4 +353,5 @@ def init_mla_cache(layers: int, batch: int, max_seq: int, cfg: MLAConfig,
 
 
 __all__ = ["AttnConfig", "GQA", "MLA", "MLAConfig", "MLAWeights", "StackedGQA",
-           "StackedMLA", "init_kv_cache", "init_mla_cache", "mla_decode", "mla_forward"]
+           "StackedMLA", "gqa_cross_forward", "init_kv_cache", "init_mla_cache", "mla_decode",
+           "mla_forward"]

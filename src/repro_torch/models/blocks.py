@@ -3,6 +3,8 @@ split CNNs), and the dense decoder's layers (``repro/models/blocks.py``):
 embedding init, :class:`Linear`, :class:`RMSNorm`, :class:`SwiGLU` and the
 rotary embedding; and their cluster-stacked forms for the batched round
 (:class:`StackedLinear`, :class:`StackedRMSNorm`, :class:`StackedSwiGLU`).
+:class:`LayerNorm` and :class:`GeluMLP` (the reference's ``layernorm`` and
+``gelu_mlp``) complete the module; no model of the reference calls them.
 
 The decoder's modules allocate their parameters uninitialised on the
 device and dtype they are given; ``reset_parameters(generator)`` draws them
@@ -104,6 +106,50 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.T
     return (y * scale.to(torch.float32)).to(x.dtype)
 
 
+class LayerNorm(nn.Module):
+    """Layer norm over the last axis, computed in f32 with the biased
+    variance (``jnp.var``) and cast back to the input's dtype (eps 1e-5);
+    the scale starts at 1, the bias at 0."""
+
+    def __init__(self, dim: int, *, dtype: torch.dtype = torch.float32, device=None,
+                 eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.empty((dim,), dtype=dtype, device=device))
+        self.bias = nn.Parameter(torch.empty((dim,), dtype=dtype, device=device))
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        self.scale.fill_(1.0)
+        self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.to(torch.float32)
+        mu = torch.mean(xf, dim=-1, keepdim=True)
+        var = torch.var(xf, dim=-1, keepdim=True, correction=0)
+        y = (xf - mu) * torch.rsqrt(var + self.eps)
+        return (y * self.scale.to(torch.float32) + self.bias.to(torch.float32)).to(x.dtype)
+
+
+class GeluMLP(nn.Module):
+    """``down(gelu(up(x)))`` with biases; GELU's tanh approximation, the
+    default of ``jax.nn.gelu``."""
+
+    def __init__(self, d_model: int, d_ff: int, *, dtype: torch.dtype = torch.float32,
+                 device=None):
+        super().__init__()
+        kw = dict(dtype=dtype, device=device)
+        self.up = Linear(d_model, d_ff, bias=True, **kw)
+        self.down = Linear(d_ff, d_model, bias=True, **kw)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        self.up.reset_parameters(generator)
+        self.down.reset_parameters(generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.down(F.gelu(self.up(x), approximate="tanh"))
+
+
 class SwiGLU(nn.Module):
     """``down(silu(gate(x)) * up(x))``."""
 
@@ -199,6 +245,6 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0
     return out.to(x.dtype)
 
 
-__all__ = ["DTYPES", "Linear", "RMSNorm", "StackedLinear", "StackedRMSNorm", "StackedSwiGLU",
-           "SwiGLU", "apply_rope", "cross_entropy", "cross_entropy_stacked", "dense_init",
-           "embed_init", "rms_norm", "rope_frequencies"]
+__all__ = ["DTYPES", "GeluMLP", "LayerNorm", "Linear", "RMSNorm", "StackedLinear",
+           "StackedRMSNorm", "StackedSwiGLU", "SwiGLU", "apply_rope", "cross_entropy",
+           "cross_entropy_stacked", "dense_init", "embed_init", "rms_norm", "rope_frequencies"]

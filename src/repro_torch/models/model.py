@@ -1,6 +1,7 @@
-"""Top-level LM: the reference's ``repro/models/model.py`` for the dense
-family, the vlm, MoE (with GQA or MLA) and xLSTM, as an ``nn.Module`` that
-holds its parameters.
+"""Top-level LM: the reference's ``repro/models/model.py`` for every
+architecture family (the dense family, the vlm, MoE with GQA or MLA, xLSTM,
+Mamba2, the Zamba2 hybrid and the encoder-decoder), as an ``nn.Module``
+that holds its parameters.
 
 A vlm (``arch_type="vlm"``, the dense stack) takes ``batch["patches"]`` (B,
 P, d_model), the stubbed vision tower's patch embeddings: they go before
@@ -10,6 +11,15 @@ P prefix positions before the head.  Without patches it is the dense LM
 (the serve loop and the LM round take tokens only, as the reference's do).
 A MoE's loss adds every ``moe`` layer's router loss; the client's half drops
 its own (the reference's ``client_forward``), the AP's adds its own.
+
+An encoder-decoder (``arch_type="encdec"``/``"audio"``) takes
+``batch["frames"]`` (B, F, d_model), the stubbed modality frontend's frame
+embeddings: :meth:`Model.encode` runs them through :class:`Encoder`
+(``n_enc_layers`` bidirectional layers and a norm: the reference's
+``params["encoder"]``), and every decoder layer's cross-attention reads
+that memory.  The client's half holds the encoder and sends ``[x, memory]``
+concatenated along the sequence as its cut message; the AP's splits it
+again at the token count.  ``decode_step`` takes the memory.
 
 ``build_model(cfg, device)`` allocates the parameters uninitialised on the
 device (the card unless ``device="cpu"``); :meth:`Model.init` draws them
@@ -46,15 +56,16 @@ Each slot's products run on views of the stacked weights, one a slot; the
 parameter-free work (the norms' arithmetic, rotary, SiLU, attention, the
 mLSTM's chunked einsums) runs over all slots at once, the slot axis folded
 into the batch axis; the sLSTM's scan (B7) runs once a slot, each with its
-own R; MLA and the MoE run a call a slot (``StackedMLA``, ``StackedMoE``),
-so that each slot routes and drops as its plain model does.  Dense, vlm
-(tokens only), MoE and xLSTM plans stack; a MoE slot's loss carries its
-own router loss.
+own R; MLA, the MoE and Mamba2 run a call a slot (``StackedMLA``,
+``StackedMoE``, ``StackedMamba2``), so that each slot routes and drops as
+its plain model does.  Every plan but the encoder-decoder's stacks (a vlm
+on tokens only); a MoE slot's loss carries its own router loss.
 
 Forward, loss and the split view are differentiable: the attention runs
-through B5 and its backward, the loss through B4 (``ops.
-fused_cross_entropy``, forward and backward), the sLSTM's scan through B7
-and its backward (``ops.slstm_scan``) on the card.  ``cfg.remat``
+through B5 and its backward (non-causal for the encoder and the
+cross-attention), the loss through B4 (``ops.fused_cross_entropy``, forward
+and backward), the sLSTM's scan through B7 and its backward
+(``ops.slstm_scan``) on the card; Mamba2's SSD is plain PyTorch.  ``cfg.remat``
 checkpoints each layer.  The serve path (``decode_step``, the prefill step)
 runs under ``torch.inference_mode()``.
 """
@@ -62,7 +73,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, List, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -107,14 +118,40 @@ def _text_positions(cfg: ModelConfig, h: torch.Tensor, batch: Batch) -> torch.Te
     return h
 
 
-def _run_stacks(cfg: ModelConfig, stacks: Sequence[tfm.BlockStack], x: torch.Tensor
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+def _run_stacks(cfg: ModelConfig, stacks: Sequence[tfm.BlockStack], x: torch.Tensor,
+                memory: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     positions = torch.arange(x.shape[1], device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for stack in stacks:
-        x, a = tfm.run_stack(stack, x, positions, cfg.remat)
+        x, a = tfm.run_stack(stack, x, positions, cfg.remat, memory)
         aux = aux + a
     return x, aux
+
+
+class Encoder(nn.Module):
+    """The encoder-decoder's encoder, the reference's ``params["encoder"]``:
+    ``stacks`` (one ``enc`` stack of ``n_enc_layers`` layers, or
+    ``n_layers``) and a final ``norm``.  ``forward(frames)`` -> the memory
+    (B, F, d_model) in the model's dtype."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        n = cfg.n_enc_layers or cfg.n_layers
+        self.stacks = nn.ModuleList([tfm.BlockStack(
+            "enc", [tfm.EncoderLayer(cfg, device) for _ in range(n)])])
+        self.norm = RMSNorm(cfg.d_model, dtype=DTYPES[cfg.dtype], device=device)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        for layer in self.stacks[0].layers:
+            layer.reset_parameters(generator)
+        self.norm.reset_parameters()
+
+    def forward(self, frames: torch.Tensor) -> torch.Tensor:
+        x = frames.to(self.norm.scale.dtype)
+        positions = torch.arange(x.shape[1], device=x.device)
+        x, _ = tfm.run_stack(self.stacks[0], x, positions, self.cfg.remat)
+        return self.norm(x)
 
 
 def _lm_loss(head: Linear, h: torch.Tensor, aux: torch.Tensor, batch: Batch
@@ -127,18 +164,25 @@ def _lm_loss(head: Linear, h: torch.Tensor, aux: torch.Tensor, batch: Batch
 
 class ClientLM(nn.Module):
     """gamma, the client's half: the embedding and the first
-    ``cfg.cut_layer`` layers.  ``forward(batch)`` -> cut-layer activations
-    (B, S, d_model), the split-learning "smashed data"."""
+    ``cfg.cut_layer`` layers (and an encoder-decoder's encoder).
+    ``forward(batch)`` -> cut-layer activations (B, S, d_model), the
+    split-learning "smashed data"; an encoder-decoder's are (B, S + F,
+    d_model), the memory after the tokens."""
 
     def __init__(self, cfg: ModelConfig, embedding: nn.Parameter,
-                 stacks: Sequence[tfm.BlockStack]):
+                 stacks: Sequence[tfm.BlockStack], encoder: Optional[Encoder] = None):
         super().__init__()
         self.cfg = cfg
         self.embedding = embedding
         self.stacks = nn.ModuleList(stacks)
+        self.encoder = encoder
 
     def forward(self, batch: Batch) -> torch.Tensor:
-        return _run_stacks(self.cfg, self.stacks, _embed(self.cfg, self.embedding, batch))[0]
+        x = _embed(self.cfg, self.embedding, batch)
+        if self.encoder is None:
+            return _run_stacks(self.cfg, self.stacks, x)[0]
+        memory = self.encoder(batch["frames"])
+        return torch.cat([_run_stacks(self.cfg, self.stacks, x, memory)[0], memory], dim=1)
 
 
 class APLM(nn.Module):
@@ -155,7 +199,11 @@ class APLM(nn.Module):
 
     def forward(self, acts: torch.Tensor, batch: Batch
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        x, aux = _run_stacks(self.cfg, self.stacks, acts)
+        memory = None
+        if self.cfg.arch_type in tfm.ENCDEC:
+            s_dec = batch["tokens"].shape[1]
+            acts, memory = acts[:, :s_dec], acts[:, s_dec:]
+        x, aux = _run_stacks(self.cfg, self.stacks, acts, memory)
         h = _text_positions(self.cfg, self.final_norm(x), batch)
         return _lm_loss(self.head, h, aux, batch)
 
@@ -171,6 +219,7 @@ class Model(nn.Module):
         self.stacks = nn.ModuleList(tfm.build_stacks(cfg, plan, device))
         self.final_norm = RMSNorm(cfg.d_model, dtype=dt, device=device)
         self.head = Linear(cfg.d_model, cfg.vocab, dtype=dt, device=device)
+        self.encoder = Encoder(cfg, device) if cfg.arch_type in tfm.ENCDEC else None
 
     @property
     def device(self) -> torch.device:
@@ -193,6 +242,8 @@ class Model(nn.Module):
                 layer.reset_parameters(generator)
         self.final_norm.reset_parameters()
         self.head.w.copy_(embed_init(generator, cfg.d_model, cfg.vocab))
+        if self.encoder is not None:
+            self.encoder.reset_parameters(generator)
         return self
 
     # -- embedding ----------------------------------------------------------
@@ -201,10 +252,17 @@ class Model(nn.Module):
         x = _embed(self.cfg, self.embedding, batch)
         return x, torch.arange(x.shape[1], device=x.device)
 
+    def encode(self, batch: Batch) -> torch.Tensor:
+        """An encoder-decoder's encoder pass over ``batch["frames"]`` (B, F,
+        d_model), the precomputed frame embeddings: the memory (B, F,
+        d_model), each layer checkpointed under ``cfg.remat``."""
+        return self.encoder(batch["frames"])
+
     # -- forward / loss -------------------------------------------------------
     def forward(self, batch: Batch) -> Tuple[torch.Tensor, torch.Tensor]:
         """Full forward to final hidden states.  Returns (hidden, aux)."""
-        x, aux = _run_stacks(self.cfg, self.stacks, self.embed(batch)[0])
+        memory = self.encode(batch) if self.encoder is not None else None
+        x, aux = _run_stacks(self.cfg, self.stacks, self.embed(batch)[0], memory)
         return self.final_norm(x), aux
 
     def logits(self, batch: Batch) -> torch.Tensor:
@@ -228,7 +286,7 @@ class Model(nn.Module):
         """(gamma, phi): the client's and the AP's halves, sharing this
         model's parameters (a cut stack is sliced, its layers shared)."""
         client_stacks, ap_stacks = _split_stacks(self.cfg, self.plan, self.stacks)
-        return (ClientLM(self.cfg, self.embedding, client_stacks),
+        return (ClientLM(self.cfg, self.embedding, client_stacks, self.encoder),
                 APLM(self.cfg, ap_stacks, self.final_norm, self.head))
 
     def merge_params(self, gamma: ClientLM, phi: APLM) -> "Model":
@@ -251,35 +309,41 @@ class Model(nn.Module):
         model.stacks = nn.ModuleList(stacks)
         model.final_norm = phi.final_norm
         model.head = phi.head
+        model.encoder = gamma.encoder
         return model
 
     def client_forward(self, gamma: ClientLM, batch: Batch) -> torch.Tensor:
         """Client-side NN g(x, gamma): embedding + first cut_layer blocks ->
-        cut-layer activations (B, S, d_model)."""
+        cut-layer activations (B, S, d_model); an encoder-decoder's with the
+        memory after them, (B, S + F, d_model)."""
         return gamma(batch)
 
     def ap_forward(self, phi: APLM, acts: torch.Tensor, batch: Batch
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """AP-side NN h(a, phi): remaining blocks + head -> (loss, metrics),
-        the cross-entropy through B4."""
+        the cross-entropy through B4; an encoder-decoder's ``acts`` are split
+        at ``batch["tokens"]``'s length into x and the memory."""
         return phi(acts, batch)
 
     # -- decode -----------------------------------------------------------------
     def init_cache(self, batch_size: int, max_seq: int) -> Cache:
         """Zeroed decode caches, one per stack: KV caches in the model's
-        dtype, the xLSTM kinds' recurrent state in f32."""
+        dtype, the mixer kinds' recurrent state in f32 (Mamba2's
+        convolution inputs in the model's dtype)."""
         return tuple(tfm.init_stack_cache(self.cfg, stack, batch_size, max_seq, self.dtype,
                                           self.device)
                      for stack in self.stacks)
 
     @torch.inference_mode()
-    def decode_step(self, cache: Cache, tokens: torch.Tensor, index: int
-                    ) -> Tuple[torch.Tensor, Cache]:
-        """tokens: (B, 1) int; index: the tokens' position (host int).
-        Writes the cache in place; returns (logits (B, 1, V), cache)."""
+    def decode_step(self, cache: Cache, tokens: torch.Tensor, index: int,
+                    memory: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Cache]:
+        """tokens: (B, 1) int; index: the tokens' position (host int); an
+        encoder-decoder's ``memory`` (B, F, d_model), which its
+        cross-attention reads.  Writes the cache in place; returns (logits
+        (B, 1, V), cache)."""
         x = _embed_tokens(self.cfg, self.embedding, tokens)
         for stack, c in zip(self.stacks, cache):
-            x, _ = tfm.decode_stack(stack, x, c, index)
+            x, _ = tfm.decode_stack(stack, x, c, index, memory)
         return self.head(self.final_norm(x)), cache
 
 
@@ -395,9 +459,9 @@ class StackedAPLM(nn.Module):
 
 
 class StackedModel(nn.Module):
-    """n slots of one :class:`Model`, dense, vlm, MoE or xLSTM (see the
-    module docstring): ``parameters()`` follow :class:`Model`'s order with a
-    leading slot axis each.  Built zeroed on ``device`` (None: the current
+    """n slots of one :class:`Model`, of any family but the encoder-decoder
+    (see the module docstring): ``parameters()`` follow :class:`Model`'s
+    order with a leading slot axis each.  Built zeroed on ``device`` (None: the current
     default device); :meth:`load_slot` writes a plain model into a slot."""
 
     def __init__(self, cfg: ModelConfig, plan: List[StackPlan], n: int, device=None):
@@ -475,16 +539,37 @@ def build_plan(cfg: ModelConfig) -> List[StackPlan]:
     ``attn_mlp`` stack with each layer's sliding window (0 = global) for
     the dense family and the vlm; for a MoE, ``first_dense`` layers of the
     ``dense_mlp`` kind, then the ``moe`` kind; for xLSTM, ``slstm_every -
-    1`` mLSTM blocks then one sLSTM block, repeated over ``n_layers``."""
-    if cfg.arch_type in ("dense", "vlm"):
+    1`` mLSTM blocks then one sLSTM block, repeated over ``n_layers``; for
+    Mamba2 (``ssm`` without ``slstm_every``) one ``mamba`` stack; for the
+    hybrid, ``attn_every`` Mamba2 layers then one ``shared_attn`` block,
+    repeated over ``n_layers`` Mamba2 layers (no block after the last);
+    for the encoder-decoder one ``dec_cross`` stack (the encoder is
+    :class:`Encoder`, outside the plan)."""
+    at = cfg.arch_type
+    if at in ("dense", "vlm"):
         return [StackPlan("attn_mlp", cfg.n_layers, {"window": tfm._layer_windows(cfg)})]
-    if cfg.arch_type == "moe":
+    if at == "moe":
         check_config(tfm.moe_cfg(cfg))          # "moe_shard" is multi-card
         plan = [StackPlan("dense_mlp", cfg.first_dense, {})] if cfg.first_dense else []
         return plan + [StackPlan("moe", cfg.n_layers - cfg.first_dense, {})]
-    if cfg.arch_type != "ssm" or not cfg.slstm_every:
-        raise tfm.not_ported(cfg.arch_type)
-    plan: List[StackPlan] = []
+    if at in tfm.ENCDEC:
+        return [StackPlan("dec_cross", cfg.n_layers, {})]
+    if at == "ssm" and not cfg.slstm_every:
+        return [StackPlan("mamba", cfg.n_layers, {})]
+    if at == "hybrid":
+        period = cfg.attn_every or cfg.n_layers
+        plan: List[StackPlan] = []
+        remaining = cfg.n_layers
+        while remaining > 0:
+            n_m = min(period, remaining)
+            plan.append(StackPlan("mamba", n_m, {}))
+            remaining -= n_m
+            if remaining > 0:
+                plan.append(StackPlan("shared_attn", 1, {}))
+        return plan
+    if at != "ssm":
+        raise tfm.not_ported(at)
+    plan = []
     remaining = cfg.n_layers
     while remaining > 0:
         n_m = min(cfg.slstm_every - 1, remaining)
@@ -504,6 +589,6 @@ def build_model(cfg: ModelConfig, device: DeviceLike = None) -> Model:
     return Model(cfg, plan, resolve_device(device))
 
 
-__all__ = ["APLM", "ClientLM", "Model", "StackPlan", "StackedAPLM",
+__all__ = ["APLM", "ClientLM", "Encoder", "Model", "StackPlan", "StackedAPLM",
            "StackedClientLM", "StackedModel", "build_model", "build_plan",
            "build_stacked_model", "split_plans"]

@@ -1,36 +1,50 @@
-"""Decoder assembly: the reference's ``repro/models/transformer.py`` for the
-dense family and the vlm (``arch_type="dense"``/``"vlm"``, the ``attn_mlp``
-stack kind), MoE (``arch_type="moe"``: ``first_dense`` layers of the
+"""Decoder and encoder assembly: the reference's
+``repro/models/transformer.py`` for every architecture family: the dense
+family and the vlm (``arch_type="dense"``/``"vlm"``, the ``attn_mlp`` stack
+kind), MoE (``arch_type="moe"``: ``first_dense`` layers of the
 ``dense_mlp`` kind, then the ``moe`` kind, each with GQA or, where
-``kv_lora_rank`` is set, MLA) and xLSTM (``arch_type="ssm"`` with
-``slstm_every``, the ``mlstm`` and ``slstm`` kinds).
+``kv_lora_rank`` is set, MLA), xLSTM (``arch_type="ssm"`` with
+``slstm_every``, the ``mlstm`` and ``slstm`` kinds), Mamba2 (``ssm``
+without it, the ``mamba`` kind), the Zamba2 hybrid (``arch_type="hybrid"``:
+``mamba`` stacks with a ``shared_attn`` block between them) and the
+encoder-decoder (``arch_type="encdec"``/``"audio"``: the ``enc`` kind in
+``model.Encoder``, the ``dec_cross`` kind in the decoder).
 
 The model is an ordered list of homogeneous :class:`BlockStack`\\ s.  Where
 the reference stacks a stack's layers on a leading axis and runs them under
 ``lax.scan``, a port stack keeps them in an ``nn.ModuleList`` and loops;
 ``convert.py`` maps the one onto the other.  An ``attn_mlp`` stack's
 per-layer sliding windows (gemma3's local:global pattern) ride in
-``meta["window"]`` as ints, the MoE kinds take ``cfg.sliding_window``; each
-layer holds its own and hands it to the attention kernels as a runtime
-argument; the xLSTM kinds have no meta.
+``meta["window"]`` as ints, the MoE kinds and ``dec_cross`` take
+``cfg.sliding_window``; each layer holds its own and hands it to the
+attention kernels as a runtime argument; ``shared_attn`` attends over every
+earlier position; the mixer kinds have no meta.  A ``shared_attn`` stack is
+one block whose parameters and cache carry no layer axis in the reference
+(every other kind's do); it counts as one layer toward the cut.
 
 A stack's decode cache is a dict of tensors with the layer axis first, the
 reference's layout: {"k", "v"} of (n, B, max_seq, Hkv, D) for ``attn_mlp``
-(and the GQA ``dense_mlp``/``moe`` kinds), {"latent", "k_rope"} for the MLA
-ones, the mixers' recurrent state for ``mlstm`` and ``slstm``
-(``xlstm.init_*_cache``); layer i updates its slice in place.  A stack
+(and the GQA ``dense_mlp``/``moe`` and the decoder's self-attention in
+``dec_cross``), {"latent", "k_rope"} for the MLA ones, the mixers'
+recurrent state for ``mlstm``, ``slstm`` and ``mamba``
+(``xlstm.init_*_cache``, ``ssm.init_ssm_cache``); layer i updates its slice
+in place.  A ``shared_attn`` cache is one (B, max_seq, Hkv, D) pair.  A stack
 splits at the split-learning cut by slicing its layer list
 (:func:`slice_stack`), which shares the layers.
 
 A decoder layer's forward returns (x, aux): a ``moe`` layer its router's
 auxiliary loss, the others None; :func:`run_stack` sums them (the
-reference's ``run_stack``).  An xLSTM block returns x.
+reference's ``run_stack``).  The other kinds return x.  A ``dec_cross``
+layer also takes the encoder's memory, which its cross-attention reads (B5
+non-causal, in decode too: the reference recomputes the memory's K and V
+every step).
 
 The batched round's cluster-stacked LM (``model.StackedModel``) builds its
-stacks of :class:`DecoderLayer`\\ s of stacked parts and
-:class:`StackedXLSTMBlock`\\ s by :func:`build_stacked_stacks` and runs them
-through the same :func:`run_stack` (a stacked ``moe`` layer's aux is (n,),
-one a slot).
+stacks of :class:`DecoderLayer`\\ s and :class:`AttnBlock`\\ s of stacked
+parts and :class:`StackedMixerBlock`\\ s by :func:`build_stacked_stacks`
+and runs them through the same :func:`run_stack` (a stacked ``moe`` layer's
+aux is (n,), one a slot).  The encoder-decoder has no stacked form: no
+Pigeon-SL round over one exists in the reference.
 """
 from __future__ import annotations
 
@@ -40,32 +54,22 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from . import xlstm
+from . import ssm, xlstm
 from .attention import (GQA, MLA, AttnConfig, MLAConfig, StackedGQA, StackedMLA,
-                        init_kv_cache, init_mla_cache)
+                        gqa_cross_forward, init_kv_cache, init_mla_cache)
 from .blocks import DTYPES, RMSNorm, StackedRMSNorm, StackedSwiGLU, SwiGLU
 from .config import ModelConfig
 from .moe import MoE, MoEConfig, StackedMoE
 
-#: where each unported arch_type comes: its ROADMAP.md Queue A item and slice
-UNPORTED = {
-    "ssm": (9, "the SSM slice (Mamba2, slstm_every = 0; xLSTM is ported)"),
-    "hybrid": (9, "the SSM slice"),
-    "encdec": (10, "the encdec slice"),
-    "audio": (10, "the encdec slice"),
-}
+#: the encoder-decoder's arch_types
+ENCDEC = ("encdec", "audio")
 
 
 def not_ported(arch_type: str) -> NotImplementedError:
-    if arch_type in UNPORTED:
-        item, where = UNPORTED[arch_type]
-        where = f"ROADMAP.md Queue A item {item}, {where}"
-    else:
-        where = "no slice: unknown arch_type"
+    """The refusal of an arch_type the reference does not have."""
     return NotImplementedError(
-        f"arch_type {arch_type!r} is not ported yet: {where}; "
-        f"the port builds arch_type 'dense', 'vlm', 'moe' and xLSTM (arch_type='ssm' "
-        f"with slstm_every)")
+        f"unknown arch_type {arch_type!r}: the port builds arch_type 'dense', 'vlm', 'moe', "
+        f"'ssm' (xLSTM or Mamba2), 'hybrid', 'encdec' and 'audio'")
 
 
 def attn_cfg(cfg: ModelConfig) -> AttnConfig:
@@ -98,6 +102,10 @@ def xlstm_cfg(cfg: ModelConfig) -> xlstm.XLSTMConfig:
     return xlstm.XLSTMConfig(
         d_model=cfg.d_model, n_heads=cfg.n_heads, chunk=cfg.ssm_chunk,
         state_dtype=("bfloat16" if "mlstm_bf16_state" in cfg.optimizations else "float32"))
+
+
+def ssm_cfg(cfg: ModelConfig) -> ssm.SSMConfig:
+    return ssm.SSMConfig(d_model=cfg.d_model, d_state=cfg.ssm_state, chunk=cfg.ssm_chunk)
 
 
 class DecoderLayer(nn.Module):
@@ -137,16 +145,22 @@ class DecoderLayer(nn.Module):
         return self._ffn(x + self.attn.decode(self.ln1(x), cache, index, self.window))[0]
 
 
-class XLSTMBlock(nn.Module):
-    """Pre-norm xLSTM block of kind ``mlstm`` or ``slstm``: ``x + mixer(ln(x))``."""
+#: the mixer kinds: (mixer, its stacked form, its config)
+MIXERS = {"mlstm": (xlstm.MLSTM, xlstm.StackedMLSTM, xlstm_cfg),
+          "slstm": (xlstm.SLSTM, xlstm.StackedSLSTM, xlstm_cfg),
+          "mamba": (ssm.Mamba2, ssm.StackedMamba2, ssm_cfg)}
 
-    MIXERS = {"mlstm": xlstm.MLSTM, "slstm": xlstm.SLSTM}
+
+class MixerBlock(nn.Module):
+    """Pre-norm block of a mixer kind (``mlstm``, ``slstm``, ``mamba``):
+    ``x + mixer(ln(x))``."""
 
     def __init__(self, cfg: ModelConfig, kind: str, device=None):
         super().__init__()
         kw = dict(dtype=DTYPES[cfg.dtype], device=device)
+        mixer, _, mixer_cfg = MIXERS[kind]
         self.ln = RMSNorm(cfg.d_model, **kw)
-        self.mixer = self.MIXERS[kind](xlstm_cfg(cfg), **kw)
+        self.mixer = mixer(mixer_cfg(cfg), **kw)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         self.ln.reset_parameters()
@@ -159,20 +173,96 @@ class XLSTMBlock(nn.Module):
         return x + self.mixer.decode(self.ln(x), cache)
 
 
-class StackedXLSTMBlock(nn.Module):
-    """n slots' :class:`XLSTMBlock` (the same parameters, each with a
+class StackedMixerBlock(nn.Module):
+    """n slots' :class:`MixerBlock` (the same parameters, each with a
     leading slot axis): x (n, B, S, d_model)."""
-
-    MIXERS = {"mlstm": xlstm.StackedMLSTM, "slstm": xlstm.StackedSLSTM}
 
     def __init__(self, cfg: ModelConfig, kind: str, n: int, device=None):
         super().__init__()
         kw = dict(dtype=DTYPES[cfg.dtype], device=device)
+        _, stacked, mixer_cfg = MIXERS[kind]
         self.ln = StackedRMSNorm(n, cfg.d_model, **kw)
-        self.mixer = self.MIXERS[kind](xlstm_cfg(cfg), n, **kw)
+        self.mixer = stacked(mixer_cfg(cfg), n, **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return x + self.mixer(self.ln(x))
+
+
+class AttnBlock(nn.Module):
+    """Zamba2's shared attention block (``shared_attn``): ``x + attn(ln(x))``,
+    GQA over every earlier position (window 0).  Built from plain parts or,
+    for the cluster-stacked LM, from stacked ones."""
+
+    def __init__(self, ln: nn.Module, attn: nn.Module):
+        super().__init__()
+        self.ln, self.attn = ln, attn
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        self.ln.reset_parameters()
+        self.attn.reset_parameters(generator)
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+        return x + self.attn(self.ln(x), positions, 0)
+
+    def decode(self, x: torch.Tensor, cache: Dict[str, torch.Tensor], index: int
+               ) -> torch.Tensor:
+        return x + self.attn.decode(self.ln(x), cache, index, 0)
+
+
+class EncoderLayer(nn.Module):
+    """The encoder's bidirectional layer (``enc``): ``x + attn(ln1(x))`` over
+    every position (rope on 0..S-1, no qk-norm even where the config sets
+    it; B5 non-causal), then ``x + mlp(ln2(x))``."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        kw = dict(dtype=DTYPES[cfg.dtype], device=device)
+        self.ln1 = RMSNorm(cfg.d_model, **kw)
+        self.attn = GQA(attn_cfg(cfg), **kw)
+        self.ln2 = RMSNorm(cfg.d_model, **kw)
+        self.mlp = SwiGLU(cfg.d_model, cfg.d_ff, **kw)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        for mod in self.children():
+            mod.reset_parameters(generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x + self.attn.encode(self.ln1(x))
+        return x + self.mlp(self.ln2(x))
+
+
+class CrossDecoderLayer(nn.Module):
+    """The encoder-decoder's decoder layer (``dec_cross``): causal
+    self-attention, cross-attention over the encoder's memory, SwiGLU, each
+    pre-norm (``ln1``, ``ln_x``, ``ln2``)."""
+
+    def __init__(self, cfg: ModelConfig, window: int, device=None):
+        super().__init__()
+        kw = dict(dtype=DTYPES[cfg.dtype], device=device)
+        self.window = window
+        self.ln1 = RMSNorm(cfg.d_model, **kw)
+        self.self_attn = GQA(attn_cfg(cfg), **kw)
+        self.ln_x = RMSNorm(cfg.d_model, **kw)
+        self.cross_attn = GQA(attn_cfg(cfg), **kw)
+        self.ln2 = RMSNorm(cfg.d_model, **kw)
+        self.mlp = SwiGLU(cfg.d_model, cfg.d_ff, **kw)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        for mod in self.children():
+            mod.reset_parameters(generator)
+
+    def _tail(self, x: torch.Tensor, memory: torch.Tensor) -> torch.Tensor:
+        x = x + gqa_cross_forward(self.cross_attn, self.ln_x(x), memory)
+        return x + self.mlp(self.ln2(x))
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor, memory: torch.Tensor
+                ) -> torch.Tensor:
+        return self._tail(x + self.self_attn(self.ln1(x), positions, self.window), memory)
+
+    def decode(self, x: torch.Tensor, cache: Dict[str, torch.Tensor], index: int,
+               memory: torch.Tensor) -> torch.Tensor:
+        return self._tail(x + self.self_attn.decode(self.ln1(x), cache, index, self.window),
+                          memory)
 
 
 class BlockStack(nn.Module):
@@ -194,18 +284,30 @@ def _layer_windows(cfg: ModelConfig) -> Tuple[int, ...]:
     return (cfg.sliding_window,) * cfg.n_layers
 
 
-XLSTM_KINDS = ("mlstm", "slstm")
+#: the kinds whose layers take x alone
+X_ONLY_KINDS = tuple(MIXERS) + ("enc",)
 
 
 def _layer(cfg: ModelConfig, kind: str, window: int, device, n: Optional[int] = None
            ) -> nn.Module:
     """A layer of ``kind`` (at ``window``, for the attention kinds); with
     ``n``, its cluster-stacked form of n slots."""
-    if kind in XLSTM_KINDS:
-        return (XLSTMBlock(cfg, kind, device) if n is None
-                else StackedXLSTMBlock(cfg, kind, n, device))
+    if kind in MIXERS:
+        return (MixerBlock(cfg, kind, device) if n is None
+                else StackedMixerBlock(cfg, kind, n, device))
+    if kind in ("enc", "dec_cross"):
+        if n is not None:
+            raise NotImplementedError(
+                "the encoder-decoder has no cluster-stacked form: the reference's from_lm "
+                "sends tokens only, so no Pigeon-SL round over an encoder-decoder exists")
+        return EncoderLayer(cfg, device) if kind == "enc" else CrossDecoderLayer(cfg, window,
+                                                                                   device)
     kw = dict(dtype=DTYPES[cfg.dtype], device=device)
     d = cfg.d_model
+    if kind == "shared_attn":
+        if n is None:
+            return AttnBlock(RMSNorm(d, **kw), GQA(attn_cfg(cfg), **kw))
+        return AttnBlock(StackedRMSNorm(n, d, **kw), StackedGQA(attn_cfg(cfg), n, **kw))
     if n is None:
         norm = lambda: RMSNorm(d, **kw)                                 # noqa: E731
         attn = MLA(mla_cfg(cfg), **kw) if cfg.kv_lora_rank else GQA(attn_cfg(cfg), **kw)
@@ -234,27 +336,33 @@ def build_stacks(cfg: ModelConfig, plan, device=None) -> List[BlockStack]:
 
 def build_stacked_stacks(cfg: ModelConfig, plan, n: int, device=None) -> List[BlockStack]:
     """The stacks of ``plan`` with n slots a layer (zeroed parameters on
-    ``device``): ``attn_mlp``, ``dense_mlp``, ``moe``, ``mlstm`` and
-    ``slstm`` stacks."""
+    ``device``): every kind but the encoder-decoder's."""
     return [BlockStack(sp.kind, [_layer(cfg, sp.kind, w, device, n)
                                  for w in _stack_windows(cfg, sp)], sp.meta)
             for sp in plan]
 
 
+def _layer_args(stack: BlockStack, positions: torch.Tensor, memory) -> tuple:
+    if stack.kind in X_ONLY_KINDS:
+        return ()
+    return (positions, memory) if stack.kind == "dec_cross" else (positions,)
+
+
 def run_stack(stack: BlockStack, x: torch.Tensor, positions: torch.Tensor,
-              remat: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+              remat: bool = False, memory: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (x, aux_loss_sum): a ``moe`` stack sums its layers' router
-    losses (each (n,) in a stacked model), the other kinds have none.  With
-    ``remat`` (``cfg.remat``) each layer is checkpointed when a gradient is
-    being recorded: its activations are recomputed in the backward, as the
+    losses (each (n,) in a stacked model), the other kinds have none; a
+    ``dec_cross`` stack reads the encoder's ``memory``.  With ``remat``
+    (``cfg.remat``) each layer is checkpointed when a gradient is being
+    recorded: its activations are recomputed in the backward, as the
     reference's ``jax.checkpoint`` of the scanned layer body does."""
     ckpt = remat and torch.is_grad_enabled()
-    xlstm_kind = stack.kind in XLSTM_KINDS
-    args = () if xlstm_kind else (positions,)
+    args = _layer_args(stack, positions, memory)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer in stack.layers:
         y = checkpoint(layer, x, *args, use_reentrant=False) if ckpt else layer(x, *args)
-        x, a = (y, None) if xlstm_kind else y
+        x, a = y if isinstance(y, tuple) else (y, None)
         if a is not None:
             aux = aux + a
     return x, aux
@@ -271,8 +379,14 @@ def slice_stack(stack: BlockStack, lo: int, hi: int) -> BlockStack:
 def init_stack_cache(cfg: ModelConfig, stack: BlockStack, batch: int, max_seq: int,
                      dtype: torch.dtype, device=None) -> Dict[str, torch.Tensor]:
     """A stack's zeroed decode cache: the KV cache in ``dtype`` (an MLA
-    stack's latent and rope key), or the xLSTM kinds' recurrent state (f32,
-    independent of ``max_seq``)."""
+    stack's latent and rope key; a ``shared_attn`` block's without a layer
+    axis), or the mixer kinds' recurrent state (f32, and Mamba2's
+    convolution inputs in ``dtype``; independent of ``max_seq``)."""
+    if stack.kind == "mamba":
+        return ssm.init_ssm_cache(batch, ssm_cfg(cfg), dtype, device, stack.n)
+    if stack.kind == "shared_attn":
+        return {name: t[0] for name, t in init_kv_cache(1, batch, max_seq, attn_cfg(cfg),
+                                                         dtype, device).items()}
     if stack.kind == "mlstm":
         return xlstm.init_mlstm_cache(batch, xlstm_cfg(cfg), device, stack.n)
     if stack.kind == "slstm":
@@ -283,15 +397,22 @@ def init_stack_cache(cfg: ModelConfig, stack: BlockStack, batch: int, max_seq: i
 
 
 def decode_stack(stack: BlockStack, x: torch.Tensor, cache: Dict[str, torch.Tensor],
-                 index: int) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+                 index: int, memory: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One decode step through a stack.  x: (B, 1, d_model); the cache is
-    written in place and returned."""
-    args = () if stack.kind in XLSTM_KINDS else (index,)
+    written in place and returned; a ``dec_cross`` stack reads the
+    encoder's ``memory``."""
+    if stack.kind == "shared_attn":
+        return stack.layers[0].decode(x, cache, index), cache
+    args = (() if stack.kind in MIXERS else (index, memory) if stack.kind == "dec_cross"
+            else (index,))
     for i, layer in enumerate(stack.layers):
         x = layer.decode(x, {name: t[i] for name, t in cache.items()}, *args)
     return x, cache
 
 
-__all__ = ["BlockStack", "DecoderLayer", "StackedXLSTMBlock", "XLSTMBlock", "attn_cfg",
-           "build_stacked_stacks", "build_stacks", "decode_stack", "init_stack_cache",
-           "mla_cfg", "moe_cfg", "not_ported", "run_stack", "slice_stack", "xlstm_cfg"]
+__all__ = ["AttnBlock", "BlockStack", "CrossDecoderLayer", "DecoderLayer", "ENCDEC",
+           "EncoderLayer", "MIXERS", "MixerBlock", "StackedMixerBlock",
+           "attn_cfg", "build_stacked_stacks", "build_stacks", "decode_stack",
+           "init_stack_cache", "mla_cfg", "moe_cfg", "not_ported", "run_stack", "slice_stack",
+           "ssm_cfg", "xlstm_cfg"]

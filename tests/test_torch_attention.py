@@ -339,17 +339,28 @@ def test_tile_live_is_the_reference_block_live(causal):
 
 
 def test_non_causal_gradient_refused_on_the_card_path():
-    """A call that needs a gradient with ``causal=False`` off the CPU raises,
-    naming Queue A item 10 (meta tensors take the card's branch and launch
-    nothing); without a gradient it reaches the launcher, which accepts Sq >
-    Sk only when not causal."""
+    """Off the CPU, a non-causal call that needs a gradient and has a row
+    that sees no key (a window, Sq >= Sk + window) raises, saying so (meta
+    tensors take the card's branch and launch nothing), and so do
+    ``FlashAttention`` and the backward's launcher; a call without such a
+    row goes through ``FlashAttention`` to the forward's launcher (which
+    refuses a meta tensor), with or without a gradient; the launcher
+    accepts Sq > Sk only when not causal."""
     meta = torch.device("meta")
     q = torch.zeros((1, 16, 4, 64), device=meta, requires_grad=True)
     kv = torch.zeros((1, 8, 2, 64), device=meta)
-    with pytest.raises(NotImplementedError, match="Queue A item 10"):
-        tops.flash_attention(q, kv, kv, causal=False)
-    with pytest.raises(NotImplementedError, match="Queue A item 10"):
-        tfa.FlashAttention.apply(q, kv, kv, 0, False)
+    # Sq 16, Sk 8: at window 8 query 15 sees no key, at window 9 each sees one
+    assert tfa.has_dead_rows(16, 8, 8, False) and not tfa.has_dead_rows(16, 8, 9, False)
+    assert not tfa.has_dead_rows(16, 8, 0, False) and not tfa.has_dead_rows(8, 8, 1, True)
+    with pytest.raises(NotImplementedError, match="sees no key"):
+        tops.flash_attention(q, kv, kv, causal=False, window=8)
+    with pytest.raises(NotImplementedError, match="sees no key"):
+        tfa.FlashAttention.apply(q, kv, kv, 4, False)
+    with pytest.raises(NotImplementedError, match="sees no key"):
+        tfa.check_differentiable(q, kv, 8, False)
+    for window in (0, 9):
+        with pytest.raises(ValueError, match="CUDA"):
+            tops.flash_attention(q, kv, kv, causal=False, window=window)
     with pytest.raises(ValueError, match="Sq <= Sk when causal"):
         tfa._check_launch(q, kv, 0)
     tfa._check_launch(q, kv, 0, causal=False)

@@ -219,14 +219,16 @@ def _bf16(x):
     return x.to(torch.bfloat16).float()
 
 
-def _live(qi, kj, sq, sk, window):
+def _live(qi, kj, sq, sk, window, causal=True):
     """(len(qi), len(kj)) mask of live pairs."""
     diff = qi[:, None] - kj[None, :]
-    m = (qi[:, None] < sq) & (kj[None, :] < sk) & (diff >= 0)
+    m = (qi[:, None] < sq) & (kj[None, :] < sk)
+    if causal:
+        m = m & (diff >= 0)
     return m & (diff < window) if window > 0 else m
 
 
-def _bwd_tc_emulation(q, k, v, out, dout, lse, window):
+def _bwd_tc_emulation(q, k, v, out, dout, lse, window, causal=True):
     """dq, dk, dv (bf16) as the tensor-core kernels compute them: the walks
     of ``bwd_tc_walks``, f32 products of bf16 operands, P^T and dS^T (dK/dV)
     and dS (dQ) rounded to bf16 before the register-operand products, the
@@ -238,7 +240,7 @@ def _bwd_tc_emulation(q, k, v, out, dout, lse, window):
     qf, kf, vf, of, gf = (x.float() for x in (q, k, v, out, dout))
     delta = (of * gf).sum(-1).transpose(1, 2)                      # (B, H, Sq)
     lse2 = lse * LOG2E
-    dkdv_walk, dq_walk = tfa.bwd_tc_walks(sq, sk, window)
+    dkdv_walk, dq_walk = tfa.bwd_tc_walks(sq, sk, window, causal)
     # heads as (B, Hkv, group, S, D); queries of head kvh * group + hh
     qh = qf.view(b, sq, hkv, group, d).permute(0, 2, 3, 1, 4)
     gh = gf.view(b, sq, hkv, group, d).permute(0, 2, 3, 1, 4)
@@ -253,7 +255,7 @@ def _bwd_tc_emulation(q, k, v, out, dout, lse, window):
         for hh in range(group):
             for qt, _ in tiles:
                 qi = torch.arange(qt, min(sq, qt + 64))
-                live = _live(qi, keys, sq, sk, window).T               # (keys, queries)
+                live = _live(qi, keys, sq, sk, window, causal).T       # (keys, queries)
                 st = kh[:, :, keys] @ qh[:, :, hh, qi].transpose(-1, -2)
                 sc = torch.where(live, st * scale * LOG2E - lh[:, :, hh, qi][:, :, None, :],
                                  torch.tensor(-math.inf))
@@ -271,7 +273,7 @@ def _bwd_tc_emulation(q, k, v, out, dout, lse, window):
         for qw0, kt in tiles:
             qi = torch.arange(qw0, min(sq, qw0 + 64))
             keys = torch.arange(kt, min(sk, kt + 64))
-            live = _live(qi, keys, sq, sk, window)
+            live = _live(qi, keys, sq, sk, window, causal)
             s = qa[:, :, qi] @ ka[:, :, keys].transpose(-1, -2)
             sc = torch.where(live, s * scale * LOG2E - lse2[:, :, qi][..., None],
                              torch.tensor(-math.inf))
@@ -347,6 +349,72 @@ def test_walks_visit_every_live_pair_once(sq, sk, window):
         # the blocks of the grid: one per 128 keys (dK/dV) or query rows (dQ)
         blocks = {blk for blk, _ in walk}
         assert blocks == set(range(0, sk if rows_are_keys else sq, 128))
+
+
+@pytest.mark.parametrize("sq,sk,window", [(256, 256, 0), (256, 384, 0), (300, 130, 0),
+                                          (200, 257, 5), (129, 64, 70), (64, 200, 16)])
+def test_non_causal_walks_visit_every_live_pair_once(sq, sk, window):
+    """The walks with ``causal=False`` (the dK/dV kernel's queries from 0,
+    the dQ kernel's keys to Sk): every live pair (only the window masks;
+    no row without a key) once, no dead tile."""
+    assert not tfa.has_dead_rows(sq, sk, window, False)
+    qi, kj = np.arange(sq), np.arange(sk)
+    diff = qi[:, None] - kj[None, :]
+    live = (diff < window) if window > 0 else np.ones((sq, sk), dtype=bool)
+    for walk in tfa.bwd_tc_walks(sq, sk, window, causal=False):
+        count = np.zeros((sq, sk), dtype=np.int64)
+        for tiles in walk.values():
+            for q0, k0 in tiles:
+                tile = np.zeros_like(count)
+                tile[q0:q0 + 64, k0:k0 + 64] = 1
+                hit = tile.astype(bool) & live
+                assert hit.any(), f"a dead tile walked: queries {q0}, keys {k0}"
+                count += hit
+        np.testing.assert_array_equal(count, live.astype(np.int64))
+
+
+# (B, Sq, Sk, H, Hkv, D, window), not causal: Sq = Sk, Sq < Sk, Sq > Sk, a
+# window with every row live
+NON_CAUSAL_CASES = {"self_group2": (1, 130, 130, 4, 2, 64, 0),
+                    "sq70_sk133": (1, 70, 133, 4, 1, 128, 0),
+                    "sq150_sk64_group1": (1, 150, 64, 2, 2, 64, 0),
+                    "window40_sq100_sk70": (1, 100, 70, 4, 2, 64, 40)}
+
+
+@pytest.mark.parametrize("case", sorted(NON_CAUSAL_CASES))
+def test_b5_tensor_core_tile_walk_non_causal_matches_jax_grad(case):
+    """The tensor-core backward's numerics over its non-causal walks against
+    ``jax.grad`` of the reference's ``attend`` under an all-true mask (a
+    window's mask with one) and autograd of the plain version."""
+    b, sq, sk, h, hkv, d, window = NON_CAUSAL_CASES[case]
+    rng = np.random.default_rng(sq * 3 + sk)
+    q, k, v, dout = (torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(torch.bfloat16)
+                     for s in ((b, sq, h, d), (b, sk, hkv, d), (b, sk, hkv, d), (b, sq, h, d)))
+    out = tfa.flash_attention_plain(q, k, v, causal=False, window=window)
+    mask = tfa.causal_mask(torch.arange(sq), torch.arange(sk), window, causal=False)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(),
+                          k.float().repeat_interleave(h // hkv, dim=2)) / math.sqrt(d)
+    lse = torch.logsumexp(torch.where(mask, scores, torch.tensor(-math.inf)), dim=-1)
+    got = _bwd_tc_emulation(q, k, v, out, dout, lse, window, causal=False)
+
+    jmask = jnp.asarray(mask.numpy())
+
+    def jloss(q_, k_, v_):
+        o = jattn.attend(q_, jattn._repeat_kv(k_, h // hkv), jattn._repeat_kv(v_, h // hkv),
+                         jmask, 1.0 / math.sqrt(d))
+        return jnp.sum(o * jnp.asarray(dout.float().numpy()))
+
+    jgrads = jax.grad(jloss, argnums=(0, 1, 2))(*(jnp.asarray(x.float().numpy())
+                                                  for x in (q, k, v)))
+    tq, tk, tv = (x.clone().requires_grad_() for x in (q, k, v))
+    plain = torch.autograd.grad(tfa.flash_attention_plain(tq, tk, tv, causal=False,
+                                                          window=window),
+                                (tq, tk, tv), grad_outputs=dout)
+    for want in ([torch.tensor(np.asarray(x)) for x in jgrads], plain):
+        scale = max(float(r.abs().max()) for r in want)
+        errs = [_rel_err(a, r, scale) for a, r in zip(got, want)]
+        assert all(a.shape == r.shape for a, r in zip(got, want))
+        assert 0.0 < max(errs) <= GRAD_REL, errs
 
 
 # ---------------------------------------------------------------------------

@@ -54,13 +54,14 @@ CASES = {
 # the archs that are not dense and not xLSTM (ssm with slstm_every,
 # tests/test_torch_xlstm.py): the vlm and the MoEs, ported since the vlm and
 # MLA/MoE slice (tests/test_torch_vlm.py, tests/test_torch_moe.py), and the
-# ones still to come
+# hybrid and the encoder-decoder, ported last (tests/test_torch_hybrid.py,
+# tests/test_torch_encdec.py)
 NON_DENSE = [a for a in jconfigs.list_archs()
              if jconfigs.get_config(a).arch_type != "dense"
              and not (jconfigs.get_config(a).arch_type == "ssm"
                       and jconfigs.get_config(a).slstm_every)]
 NEWLY_PORTED = [a for a in NON_DENSE if jconfigs.get_config(a).arch_type in ("vlm", "moe")]
-STILL_UNPORTED = [a for a in NON_DENSE if a not in NEWLY_PORTED]
+LAST_PORTED = [a for a in NON_DENSE if a not in NEWLY_PORTED]
 
 
 def _np_tree(tree):
@@ -179,12 +180,28 @@ def test_serve_loop_tokens_equal_reference(pair):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
-@pytest.mark.parametrize("arch", STILL_UNPORTED)
+@pytest.mark.parametrize("arch", LAST_PORTED)
 def test_build_model_names_the_slice_of_other_archs(arch):
-    item = {"ssm": 9, "hybrid": 9, "encdec": 10, "audio": 10}[
-        tconfigs.get_config(arch).arch_type]
-    with pytest.raises(NotImplementedError, match=f"Queue A item {item}, the "):
-        build_model(tconfigs.get_smoke_config(arch), "cpu")
+    """Every arch_type is ported: the hybrid and the encoder-decoder build
+    on the CPU and their smoke loss (the encoder-decoder's with frames)
+    matches the reference's; only an unknown arch_type is refused."""
+    assert tconfigs.get_config(arch).arch_type in ("hybrid", "audio")
+    cfg = jconfigs.get_smoke_config(arch)
+    jmodel = jax_build_model(cfg)
+    params = jax.jit(jmodel.init)(jax.random.PRNGKey(1))
+    tmodel = lm_from_reference(_port_cfg(cfg), _np_tree(params))
+    rng = np.random.default_rng(3)
+    batch = {name: rng.integers(0, cfg.vocab, size=(B, S)).astype(np.int32)
+             for name in ("tokens", "labels")}
+    if cfg.arch_type == "audio":
+        batch["frames"] = rng.normal(size=(B, 8, cfg.d_model)).astype(np.float32)
+    want, _ = jmodel.loss(params, {k: jnp.asarray(v) for k, v in batch.items()})
+    with torch.no_grad():
+        got, _ = tmodel.loss({k: torch.from_numpy(v) for k, v in batch.items()})
+    np.testing.assert_allclose(float(got), float(want), atol=1e-5)
+    with pytest.raises(NotImplementedError, match="unknown arch_type 'rnn'"):
+        build_model(dataclasses.replace(tconfigs.get_smoke_config(arch), arch_type="rnn"),
+                    "cpu")
 
 
 @pytest.mark.parametrize("arch", NEWLY_PORTED)

@@ -486,9 +486,24 @@ def test_serve_cli_on_the_cpu(capsys):
 
 
 def test_mamba_still_names_the_ssm_slice():
+    """``arch_type="ssm"`` without ``slstm_every`` is Mamba2, ported with the
+    SSM slice (``tests/test_torch_ssm.py``): xLSTM's smoke config with
+    ``slstm_every = 0`` builds one ``mamba`` stack, the reference's plan,
+    and its loss matches the reference's from the reference's init."""
+    jcfg = dataclasses.replace(jconfigs.get_smoke_config("xlstm-1.3b"), slstm_every=0)
     cfg = dataclasses.replace(tconfigs.get_smoke_config("xlstm-1.3b"), slstm_every=0)
-    with pytest.raises(NotImplementedError, match="Queue A item 9, the SSM slice"):
-        build_model(cfg, "cpu")
+    assert [(sp.kind, sp.n) for sp in build_model(cfg, "cpu").plan] == \
+        [(sp.kind, sp.n) for sp in jax_build_plan(jcfg)] == [("mamba", cfg.n_layers)]
+    jmodel = jax_build_model(jcfg)
+    params = jax.jit(jmodel.init)(jax.random.PRNGKey(4))
+    tmodel = lm_from_reference(cfg, jax.tree.map(np.asarray, params))
+    rng = np.random.default_rng(5)
+    batch = {k: rng.integers(0, cfg.vocab, size=(B, S)).astype(np.int32)
+             for k in ("tokens", "labels")}
+    want, _ = jmodel.loss(params, {k: jnp.asarray(v) for k, v in batch.items()})
+    with torch.no_grad():
+        got, _ = tmodel.loss({k: torch.from_numpy(v) for k, v in batch.items()})
+    np.testing.assert_allclose(float(got), float(want), atol=1e-5)
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
 """The Pigeon-SL round over an xLSTM: the cluster-stacked xLSTM
-(``models.StackedModel`` of an xLSTM plan: ``StackedXLSTMBlock``,
+(``models.StackedModel`` of an xLSTM plan: ``StackedMixerBlock``,
 ``StackedMLSTM``, ``StackedSLSTM``) slot by slot against the plain model,
 its conversion to and from the reference's parameter trees, ``run_pigeon``
 over ``from_lm`` of a tiny xLSTM on both engines against the reference's
