@@ -269,7 +269,22 @@ from the repository root.  Phases, in order; any failure exits non-zero:
      a step), trained on 4 x (256 frames + 256 tokens) with remat (48
      non-causal and 24 causal B5 forwards, 24 and 12 backwards, B4 on its
      f32-FMA route at vocab 256,206, a step), and at 2 + 2 layers in f32
-     against the CPU.
+     against the CPU;
+ 18. the analysis layer on the card: (a) every ``repro_torch.analysis``
+     program cell on CUDA tensors under ``set_sync_debug_mode("error")``,
+     zero findings, each cell's and each driver cell's launches by kernel
+     against the pinned ``@cuda`` rows of ``analysis/torch/budgets/``;
+     (b) ``clip_by_global_norm`` and ``adamw(warmup_cosine(...),
+     weight_decay > 0)`` three steps on SeamlessM4T-medium's gradients at
+     full width, against the CPU on a sample of leaves with the largest
+     (the updates within one bf16 ulp, m, v and the global norm within
+     rtol 1e-5), its device time and the memory m and v add; (c) the dry
+     run of that train step on the meta device: argument bytes equal to the
+     card's parameters and batch, its temp-bytes estimate beside the card's
+     peak, and the step's mfu.  Every train phase's warm step prints its
+     mfu (``roofline.model_flops_for`` over the step's seconds at 989e12
+     bf16 FLOP/s; nothing gates on it).  The kernels' bounds come from
+     ``repro_torch.launch.roofline``.
 
 The last lines are one JSON object per kernel set (``{"kernels": [...]}``),
 the card's ``nvidia-smi`` name and power limit, and
@@ -288,8 +303,6 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 DEVICE = "cuda"                 # where phases 1, 4 (LM) and 6 run the card's side
 
-HBM_BYTES_PER_S = 3.35e12       # H100 SXM memory rate (NVIDIA data sheet)
-F32_OPS_PER_S = 67e12           # H100 SXM f32 rate outside the tensor cores
 # the batched round's messages: R = 5 clusters of (B, d_c) = (64, 256)
 BATCHED_MESSAGES = (5, 64, 256)
 TIMED_SHAPE = (64, 256)         # (B, d_c) of the CIFAR cut layer at B = 64
@@ -336,7 +349,6 @@ STATS_RTOL = 1e-5
 TAMPER_RTOL = 1e-5
 TAMPER_TOL = 1e-4               # ProtocolConfig.tamper_tol
 
-BF16_OPS_PER_S = 989e12         # H100 SXM dense bf16 tensor-core rate
 # attention: (B, S, H, Hkv, D, window) for B5, (..., index) for B6; the serve
 # path's shapes first (Qwen3-8B: 32 query and 8 KV heads of 128; a 480-token
 # prompt, a 512-position cache), then MQA, groups 1, windows, head dims
@@ -808,6 +820,7 @@ def _message(shape, seed: int):
 def phase_kernels():
     import torch
     from repro_torch.kernels import quant_exchange as qx
+    from repro_torch.launch import roofline as rl
 
     results = {}
     for name, kernel, plain in (
@@ -853,17 +866,12 @@ def phase_kernels():
             kernel_dev_us = _graph_time_us(kernel, x, "int8", **few)
             plain_dev_us = _graph_time_us(plain, x, "int8", **few)
             kernel_cold_us = _cold_time_us(kernel, x, "int8", reps=10 if few else 50)
-            msgs = rows // n if stats else 1
-            # each input read once, each output written once
-            n_bytes = 4 * rows * d + 4 * rows * d + 4 * rows + (8 * msgs if stats else 0)
-            # per element: divide, round, clamp, multiply (+ 5 for the stats)
-            n_ops = rows * d * (4 + (5 if stats else 0))
-            bytes_us = n_bytes / HBM_BYTES_PER_S * 1e6
-            ops_us = n_ops / F32_OPS_PER_S * 1e6
+            bound_us, bound_by = rl.bound_us(
+                rl.quant_dequant_stats_work(rows, d, rows // n) if stats
+                else rl.quant_dequant_work(rows, d))
             timing = dict(kernel_us=kernel_us, plain_us=plain_us,
                           kernel_dev_us=kernel_dev_us, plain_dev_us=plain_dev_us,
-                          kernel_cold_us=kernel_cold_us, bound_us=max(bytes_us, ops_us),
-                          bound_by="bytes" if bytes_us >= ops_us else "operations")
+                          kernel_cold_us=kernel_cold_us, bound_us=bound_us, bound_by=bound_by)
             if shape == main_shape:
                 results[name] = dict(max_abs_err=max_err, shape=list(shape), **timing)
             if shape == LM_MESSAGE:
@@ -895,17 +903,6 @@ def phase_kernels():
     return results
 
 
-def _wire_bound(rows: int, d: int, msgs: int, stats: bool):
-    """(bound µs, what bounds it) of one B2 (or, with ``stats``, B3) call:
-    the message read once, the dequantized message and the row scales
-    written once (and two stats a message); 4 operations an element (divide,
-    round, clamp, multiply), 5 more for the stats."""
-    n_bytes = 4 * rows * d + 4 * rows * d + 4 * rows + (8 * msgs if stats else 0)
-    bytes_us = n_bytes / HBM_BYTES_PER_S * 1e6
-    ops_us = rows * d * (4 + (5 if stats else 0)) / F32_OPS_PER_S * 1e6
-    return max(bytes_us, ops_us), "bytes" if bytes_us >= ops_us else "operations"
-
-
 def _phase_lm_batched_shapes() -> dict:
     """Phase 8b's new shapes in phase 1: B2 on the batched LM round's R * B
     = 8 wide rows and B3 on its R = 2 messages (int8, bit-equal to the plain
@@ -917,6 +914,7 @@ def _phase_lm_batched_shapes() -> dict:
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import quant_exchange as qx
+    from repro_torch.launch import roofline as rl
 
     few = dict(reps=10, samples=5)
     out = {}
@@ -934,8 +932,8 @@ def _phase_lm_batched_shapes() -> dict:
                   f"{name} at {shape}: stats {got[2].tolist()} vs {want[2].tolist()}")
         d = shape[-1]
         rows = x.numel() // d
-        bound, by = _wire_bound(rows, d, rows // shape[-2] if len(shape) == 3 else 1,
-                                len(got) == 3)
+        bound, by = rl.bound_us(rl.quant_dequant_stats_work(rows, d, rows // shape[-2])
+                                if len(got) == 3 else rl.quant_dequant_work(rows, d))
         out[name] = dict(shape=list(shape), kernel_us=_time_us(kernel, x, "int8", **few),
                          kernel_dev_us=_graph_time_us(kernel, x, "int8", **few),
                          kernel_cold_us=_cold_time_us(kernel, x, "int8", reps=10),
@@ -950,7 +948,7 @@ def _phase_lm_batched_shapes() -> dict:
     check(err <= ATTN_ATOL["bfloat16"], f"flash_attention at {LM_BATCHED_ATTN}: {err:.3e}")
     call = lambda: fa.flash_attention(q, k, v, **kw)          # noqa: E731
     lib = _attention_library("flash_attention", (q, k, v), window)
-    bound, by = _attention_bound_us("flash_attention", LM_BATCHED_ATTN, "bfloat16")
+    bound, by = rl.bound_us(rl.flash_attention_work(b, s, s, h, hkv, d, window))
     with torch.inference_mode():
         check(float((lib().transpose(1, 2).float() - want.float()).abs().max())
               <= ATTN_ATOL["bfloat16"], f"SDPA at {LM_BATCHED_ATTN} disagrees with the plain "
@@ -981,18 +979,14 @@ def _phase_lm_batched_shapes() -> dict:
                                           grad_outputs=dout.transpose(1, 2), retain_graph=True)
     check(max(_rel_err(a, r, scale) for a, r in zip(lib_bwd(), ref)) <= GRAD_REL["bfloat16"],
           f"SDPA's backward at {LM_BATCHED_ATTN} disagrees with the plain autograd")
-    pairs = s * (s + 1) // 2
-    n_bytes = 2 * (4 * b * s * h * d + 4 * b * s * hkv * d) + 4 * b * h * s
-    bytes_us = n_bytes / HBM_BYTES_PER_S * 1e6
-    ops_us = 10 * d * pairs * b * h / BF16_OPS_PER_S * 1e6
+    bound, by = rl.bound_us(rl.flash_attention_bwd_work(b, s, s, h, hkv, d, window))
     out["flash_attention_bwd"] = dict(
         shape=list(LM_BATCHED_ATTN), max_rel_err=err, kernel_us=_time_us(call, **few),
         kernel_dev_us=_graph_time_us(call, **few), kernel_cold_us=_cold_time_us(call, reps=10),
         plain_us=_time_us(lambda: torch.autograd.grad(plain_out, (qq, kk, vv),
                                                       grad_outputs=dout, retain_graph=True),
                           reps=3, samples=3),
-        library_us=_time_us(lib_bwd, reps=5, samples=5),
-        bound_us=max(bytes_us, ops_us), bound_by="bytes" if bytes_us >= ops_us else "operations")
+        library_us=_time_us(lib_bwd, reps=5, samples=5), bound_us=bound, bound_by=by)
     for name, t in out.items():
         lib_us = ("none" if "library_us" not in t else f"{t['library_us']:.3f} eager" + (
             f", {t['library_dev_us']:.3f} replayed" if "library_dev_us" in t else ""))
@@ -1178,6 +1172,7 @@ def _phase_replica_kernels() -> dict:
     import torch
     from repro_torch.kernels import quant_exchange as qx
     from repro_torch.kernels import tamper_check as tc
+    from repro_torch.launch import roofline as rl
 
     out = {"tamper_check_sums": [], "quant_dequant": [], "quant_dequant_stats": []}
     ref, _ = _activations(REPLICA_TAMPER, seed=11)
@@ -1188,11 +1183,9 @@ def _phase_replica_kernels() -> dict:
           f"tamper {REPLICA_TAMPER}: identical inputs give a nonzero numerator")
     r, n, d = REPLICA_TAMPER
     t = _tamper_timing(tc.tamper_check_sums, ref, ref, plain=tc.tamper_check_sums_plain)
-    bytes_us = (r * n * d * 4 + r * 13) / HBM_BYTES_PER_S * 1e6
-    ops_us = 5 * r * n * d / F32_OPS_PER_S * 1e6
+    bound_us, bound_by = rl.bound_us(rl.tamper_check_work(r, n, d, aliased=True))
     t.update(shape=list(REPLICA_TAMPER), call="aliased (ref, ref)", max_abs_err=err,
-             bound_us=max(bytes_us, ops_us),
-             bound_by="bytes" if bytes_us >= ops_us else "operations")
+             bound_us=bound_us, bound_by=bound_by)
     out["tamper_check_sums"].append(t)
     for name, kernel, plain, shapes in (
             ("quant_dequant", qx.quant_dequant, qx.quant_dequant_plain, REPLICA_ROWS),
@@ -1214,8 +1207,9 @@ def _phase_replica_kernels() -> dict:
                 max_err = max([max_err] + [float((p - q).abs().max())
                                            for p, q in zip(out1, ref_out)])
             rows = x.numel() // shape[-1]
-            bound_us, bound_by = _wire_bound(rows, shape[-1], shape[0] if len(shape) == 3
-                                             else 1, len(shape) == 3)
+            bound_us, bound_by = rl.bound_us(
+                rl.quant_dequant_stats_work(rows, shape[-1], shape[0]) if len(shape) == 3
+                else rl.quant_dequant_work(rows, shape[-1]))
             t = dict(shape=list(shape), max_abs_err=max_err,
                      kernel_us=_time_us(kernel, x, "int8"), plain_us=_time_us(plain, x, "int8"),
                      kernel_dev_us=_graph_time_us(kernel, x, "int8"),
@@ -1327,6 +1321,7 @@ def _phase_tamper():
     import torch
     from repro_torch.kernels import build, ops
     from repro_torch.kernels import tamper_check as tc
+    from repro_torch.launch import roofline as rl
 
     max_err = 0.0
     for i, shape in enumerate(TAMPER_SHAPES):
@@ -1394,10 +1389,7 @@ def _phase_tamper():
     for label, t, n_in in (("aliased", timing, 1), ("distinct", distinct, 2)):
         # the inputs read once, the sums, distances and verdicts written; 5
         # flops an element
-        bytes_us = (n_in * r * n * d * 4 + r * 13) / HBM_BYTES_PER_S * 1e6
-        ops_us = 5 * r * n * d / F32_OPS_PER_S * 1e6
-        t.update(bound_us=max(bytes_us, ops_us),
-                 bound_by="bytes" if bytes_us >= ops_us else "operations")
+        t["bound_us"], t["bound_by"] = rl.bound_us(rl.tamper_check_work(r, n, d, n_in == 1))
         # a read of the same bytes (a yardstick of the timers, not B1)
         t["calibration"] = _tamper_timing(calibration, torch.ones(n_in * r * n * d,
                                                                   device=DEVICE))
@@ -1429,6 +1421,7 @@ def _phase_tamper_bf16():
     bytes."""
     import torch
     from repro_torch.kernels import tamper_check as tc
+    from repro_torch.launch import roofline as rl
 
     key = "tamper_check_sums_bf16"
     max_err = 0.0
@@ -1469,10 +1462,8 @@ def _phase_tamper_bf16():
                call="aliased (ref, ref)")
     for label, other, n_in in (("aliased", ref, 1), ("distinct", recv, 2)):
         t = _tamper_timing(tc.tamper_check_sums, ref, other, plain=tc.tamper_check_sums_plain)
-        bytes_us = (n_in * numel * 2 + shape[0] * 13) / HBM_BYTES_PER_S * 1e6
-        ops_us = 5 * numel / F32_OPS_PER_S * 1e6
-        t.update(bound_us=max(bytes_us, ops_us),
-                 bound_by="bytes" if bytes_us >= ops_us else "operations",
+        bound_us, bound_by = rl.bound_us(rl.tamper_check_work(*shape, n_in == 1, elt=2))
+        t.update(bound_us=bound_us, bound_by=bound_by,
                  calibration=_tamper_timing(calibration, torch.ones(
                      n_in * numel, dtype=torch.bfloat16, device=DEVICE)))
         log(f"phase1 tamper_check_sums bf16 at {shape} {label}: kernel_us="
@@ -1519,27 +1510,6 @@ def _attention_library(name: str, args, window: int):
                                                   enable_gqa=True)
 
 
-def _attention_bound_us(name: str, shape, dtype: str):
-    """(bound in us, what sets it): each input read once, the output written
-    once, over 3.35 TB/s; 4 * D flops per live (query, key) pair and head
-    (scores and values), over the dtype's peak (bf16 tensor cores; f32 FMA
-    units, TF32 off)."""
-    from repro_torch.kernels.decode_attention import live_range
-    b, s, h, hkv, d, window = shape[:6]
-    elt = 4 if dtype == "float32" else 2
-    if name == "flash_attention":
-        pairs = sum(min(i + 1, window) if window else i + 1 for i in range(s))
-        n_bytes = elt * (2 * b * s * h * d + 2 * b * s * hkv * d)
-    else:
-        begin, end = live_range(shape[6], window)
-        pairs = end - begin
-        n_bytes = elt * (2 * b * h * d + 2 * b * pairs * hkv * d)
-    n_ops = 4 * d * pairs * b * h
-    bytes_us = n_bytes / HBM_BYTES_PER_S * 1e6
-    ops_us = n_ops / (F32_OPS_PER_S if dtype == "float32" else BF16_OPS_PER_S) * 1e6
-    return max(bytes_us, ops_us), ("bytes" if bytes_us >= ops_us else "operations")
-
-
 def _attention_timing(name: str, kernel, plain, shape, long: bool, old=None):
     """Times of one B5/B6 call at ``shape`` in bf16: the kernel eager,
     graph-replayed (L2 warm) and L2-cold; with ``old``, the same of the
@@ -1548,6 +1518,7 @@ def _attention_timing(name: str, kernel, plain, shape, long: bool, old=None):
     held against the replayed SDPA, like for like: the kernel's, SDPA's and
     the f32-FMA route's graphs are replayed in turn); the bound."""
     import torch
+    from repro_torch.launch import roofline as rl
     args, kw = _attention_args(name, shape, "bfloat16", seed=99)
     lib = _attention_library(name, args, kw["window"])
     if lib is not None:
@@ -1574,7 +1545,10 @@ def _attention_timing(name: str, kernel, plain, shape, long: bool, old=None):
                       plain_dev_us=None if long else _graph_time_us(plain_call),
                       library_us=None if lib is None else _time_us(lib, **few),
                       library_dev_us=None if lib is None else _median(dev[lib]))
-        timing["bound_us"], timing["bound_by"] = _attention_bound_us(name, shape, "bfloat16")
+        b, s, h, hkv, d, window = shape[:6]
+        timing["bound_us"], timing["bound_by"] = rl.bound_us(
+            rl.flash_attention_work(b, s, s, h, hkv, d, window) if name == "flash_attention"
+            else rl.decode_attention_work(b, s, h, hkv, d, window, shape[6]))
         if old is not None:
             timing["f32_fma_route"] = dict(
                 kernel_us=_time_us(old_call, **few), kernel_dev_us=_median(dev[old_call]),
@@ -1759,6 +1733,7 @@ def _non_causal_timing(shape, qkv) -> dict:
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import roofline as rl
 
     b, sq, sk, h, hkv, d, window = shape
     q, k, v = qkv
@@ -1788,13 +1763,8 @@ def _non_causal_timing(shape, qkv) -> dict:
             library_dev_us=None if lib is None else _median(dev[lib]),
             f32_fma_route=dict(kernel_us=_time_us(old), kernel_dev_us=_median(dev[old]),
                                kernel_cold_us=_cold_time_us(old, reps=10)))
-    pairs = sum(sk - max(0, i - window + 1) if window else sk for i in range(sq)
-                if not window or i - window + 1 < sk)
-    n_bytes = 2 * (2 * b * sq * h * d + 2 * b * sk * hkv * d)
-    n_ops = 4 * b * h * pairs * d
-    bytes_us, ops_us = n_bytes / HBM_BYTES_PER_S * 1e6, n_ops / BF16_OPS_PER_S * 1e6
-    timing.update(bound_us=max(bytes_us, ops_us),
-                  bound_by="bytes" if bytes_us >= ops_us else "operations")
+    timing["bound_us"], timing["bound_by"] = rl.bound_us(
+        rl.flash_attention_work(b, sq, sk, h, hkv, d, window, causal=False))
     sdpa = ("none (a window)" if lib is None else
             f"{timing['library_us']:.3f} eager, {timing['library_dev_us']:.3f} replayed "
             f"({dev[lib][0]:.3f}-{dev[lib][-1]:.3f})")
@@ -1874,6 +1844,7 @@ def _phase_xent():
     bf16, bit-identical run to run; timed at the train shape in bf16."""
     import torch
     from repro_torch.kernels import fused_xent as fx
+    from repro_torch.launch import roofline as rl
 
     fwd_err, bwd_err, mutant_err, routes, bwd_routes = {}, {}, {}, {}, {}
     for dtype in ("float32", "bfloat16"):
@@ -1963,24 +1934,22 @@ def _phase_xent():
     old_route = {"fused_xent": lambda: fx.fused_xent(h, w, labels, route=fx.F32_FMA),
                  "fused_xent_bwd": lambda: fx.fused_xent_bwd(h, w, labels, lse, gup,
                                                              route=fx.F32_FMA)}
-    for name, call, plain, lib, n_bytes, n_ops in (
+    for name, call, plain, lib, work in (
             ("fused_xent", lambda: fx.fused_xent(h, w, labels),
              lambda: fx.fused_xent_plain(h, w, labels),
              lambda: F.cross_entropy(h @ w, labels.long(), reduction="none"),
-             elt * (t * d + d * v) + 4 * t * 3, 2 * t * d * v),
+             rl.fused_xent_work(t, d, v, elt)),
             ("fused_xent_bwd", lambda: fx.fused_xent_bwd(h, w, labels, lse, gup),
              lambda: torch.autograd.grad(plain_loss, (hh, ww), retain_graph=True),
              lambda: torch.autograd.grad(lib_loss, (hh, ww), retain_graph=True),
-             2 * elt * (t * d + d * v) + 4 * t * 3, 3 * 2 * t * d * v)):
-        bytes_us = n_bytes / HBM_BYTES_PER_S * 1e6
-        ops_us = n_ops / BF16_OPS_PER_S * 1e6
+             rl.fused_xent_bwd_work(t, d, v, elt))):
+        n_bytes, n_ops = work.bytes, work.ops
+        bound_us, bound_by = rl.bound_us(work)
         timing = dict(kernel_us=_time_us(call, **few),
                       kernel_dev_us=_graph_time_us(call, **few),
                       kernel_cold_us=_cold_time_us(call, reps=3),
                       plain_us=_time_us(plain, **few), plain_dev_us=None,
-                      library_us=_time_us(lib, **few),
-                      bound_us=max(bytes_us, ops_us),
-                      bound_by="bytes" if bytes_us >= ops_us else "operations")
+                      library_us=_time_us(lib, **few), bound_us=bound_us, bound_by=bound_by)
         # the f32-FMA route it replaced, in the same call; the tensor cores
         # must beat it (by over 5x predicted: a kernel that silently lost
         # its tensor cores fails here)
@@ -2019,6 +1988,7 @@ def _phase_attention_bwd():
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import roofline as rl
 
     def grads_of(shape, dtype, seed):
         args, kw = _attention_args("flash_attention", shape, dtype, seed)
@@ -2078,12 +2048,10 @@ def _phase_attention_bwd():
     lib = lambda: torch.autograd.grad(lib_out, (qq, kk, vv),  # noqa: E731
                                       grad_outputs=dout.transpose(1, 2), retain_graph=True)
     b, s, h, hkv, d, _ = shape
-    pairs = s * (s + 1) // 2
-    n_ops = 10 * d * pairs * b * h
     # q, out, dout, dq (B, S, H, D); k, v, dk, dv (B, S, Hkv, D); lse
-    n_bytes = 2 * (4 * b * s * h * d + 4 * b * s * hkv * d) + 4 * b * h * s
-    bytes_us = n_bytes / HBM_BYTES_PER_S * 1e6
-    ops_us = n_ops / BF16_OPS_PER_S * 1e6
+    work = rl.flash_attention_bwd_work(b, s, s, h, hkv, d, window)
+    n_ops, n_bytes = work.ops, work.bytes
+    bound_us, bound_by = rl.bound_us(work)
     old = lambda: fa.flash_attention_bwd(q, k, v, out, dout, lse, window=window,  # noqa: E731
                                          route=fa.F32_FMA)
     timing = dict(kernel_us=_time_us(call, reps=20, samples=5),
@@ -2091,14 +2059,13 @@ def _phase_attention_bwd():
                   kernel_cold_us=_cold_time_us(call, reps=10),
                   plain_us=_time_us(plain, reps=5, samples=3), plain_dev_us=None,
                   library_us=_time_us(lib, reps=20, samples=5),
-                  bound_us=max(bytes_us, ops_us),
-                  bound_by="bytes" if bytes_us >= ops_us else "operations",
+                  bound_us=bound_us, bound_by=bound_by,
                   f32_fma_route=dict(kernel_us=_time_us(old, reps=5, samples=3),
                                      kernel_dev_us=_graph_time_us(old, reps=5, samples=3),
                                      kernel_cold_us=_cold_time_us(old, reps=5)))
     # this design's own bound: S and dP recomputed in the dQ pass (14 D
-    # flops a live pair and head)
-    own_us = 14 * d * pairs * b * h / BF16_OPS_PER_S * 1e6
+    # flops a live pair and head, against the 10 of the least work)
+    own_us = 14 / 10 * n_ops / rl.BF16_OPS_PER_S * 1e6
     old_t = timing["f32_fma_route"]
     log(f"phase1 flash_attention_bwd at {shape} bf16, the f32-FMA route (redesigned): "
         f"kernel_us={old_t['kernel_us']:.1f}; graph-replayed device time: kernel_us="
@@ -2137,6 +2104,7 @@ def _phase_attention_bwd_non_causal():
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
+    from repro_torch.launch import roofline as rl
 
     def draw(shape, dtype, seed):
         b, sq, sk, h, hkv, d, _ = shape
@@ -2243,18 +2211,14 @@ def _phase_attention_bwd_non_causal():
     lib = lambda: torch.autograd.grad(lib_out, (ql, kl, vl), grad_outputs=dl,  # noqa: E731
                                       retain_graph=True)
     dev, lib_dev = _graph_times_us([call, lib], reps=20, samples=9, stream=lib_stream)
-    pairs = sq * sk
-    n_ops = 10 * d * pairs * b * h
-    n_bytes = 2 * (4 * b * sq * h * d + 4 * b * sk * hkv * d) + 4 * b * h * sq
-    bytes_us = n_bytes / HBM_BYTES_PER_S * 1e6
-    ops_us = n_ops / BF16_OPS_PER_S * 1e6
+    work = rl.flash_attention_bwd_work(b, sq, sk, h, hkv, d, causal=False)
+    n_ops, n_bytes = work.ops, work.bytes
+    bound_us, bound_by = rl.bound_us(work)
     timing = dict(kernel_us=_time_us(call, reps=20, samples=5), kernel_dev_us=_median(dev),
                   kernel_cold_us=_cold_time_us(call, reps=10),
                   plain_us=_time_us(plain, reps=5, samples=3),
                   library_us=_time_us(lib, reps=20, samples=5),
-                  library_dev_us=_median(lib_dev),
-                  bound_us=max(bytes_us, ops_us),
-                  bound_by="bytes" if bytes_us >= ops_us else "operations",
+                  library_dev_us=_median(lib_dev), bound_us=bound_us, bound_by=bound_by,
                   f32_fma_route=dict(kernel_us=_time_us(old, reps=5, samples=3),
                                      kernel_dev_us=_graph_time_us(old, reps=5, samples=3),
                                      kernel_cold_us=_cold_time_us(old, reps=5)))
@@ -2287,20 +2251,6 @@ def _slstm_args(shape, dtype: str, seed: int):
     return pre, r, h
 
 
-def _slstm_bound_us(shape, dtype: str):
-    """(bound in us, what sets it): pre read once, out written once and r
-    read once, over 3.35 TB/s; 2 * dh flops per (step, row, gate column),
-    over the f32 FMA rate (h is an f32 state)."""
-    t, b, d, h = shape
-    dh = d // h
-    elt = 4 if dtype == "float32" else 2
-    n_bytes = elt * (t * b * 4 * d + t * b * d + h * dh * 4 * dh)
-    n_ops = 2 * t * b * 4 * d * dh
-    bytes_us = n_bytes / HBM_BYTES_PER_S * 1e6
-    ops_us = n_ops / F32_OPS_PER_S * 1e6
-    return max(bytes_us, ops_us), ("bytes" if bytes_us >= ops_us else "operations")
-
-
 def _slstm_timing(shape, long: bool):
     """Times of one B7 call at ``shape`` in bf16 on both routes (the
     persistent kernel and the step kernel): eager, graph-replayed in turn
@@ -2308,6 +2258,7 @@ def _slstm_timing(shape, long: bool):
     a step (the scan's dependency chain)."""
     import torch
     from repro_torch.kernels import slstm_scan as ss
+    from repro_torch.launch import roofline as rl
     pre, r, h = _slstm_args(shape, "bfloat16", seed=99)
     check(ss.slstm_route(pre, r) == ss.PERSISTENT, f"slstm_scan {shape}: the timed shape "
                                                    f"takes {ss.slstm_route(pre, r)!r}")
@@ -2323,7 +2274,7 @@ def _slstm_timing(shape, long: bool):
                       plain_dev_us=None, library_us=None)
         old = dict(kernel_us=_time_us(step, **eager), kernel_dev_us=_median(replays[1]),
                    kernel_cold_us=_cold_time_us(step, reps=5))
-    timing["bound_us"], timing["bound_by"] = _slstm_bound_us(shape, "bfloat16")
+    timing["bound_us"], timing["bound_by"] = rl.bound_us(rl.slstm_scan_work(*shape))
     t = shape[0]
     timing["step_us"] = timing["kernel_dev_us"] / t
     old["step_us"] = old["kernel_dev_us"] / t
@@ -2383,20 +2334,6 @@ def _phase_slstm():
                 **main, long_context=_slstm_timing(SLSTM_LONG, long=True))
 
 
-def _slstm_bwd_bound_us(shape):
-    """(bound in us, what sets it) of B7's backward: dout (bf16), z and the
-    state (f32) read once, dz (f32) written once, r read once, over 3.35
-    TB/s; the per-step product with R^T, 2 * dh flops per (step, row, gate
-    column), over the f32 FMA rate."""
-    t, b, d, h = shape
-    dh = d // h
-    n_bytes = 2 * t * b * d + 4 * t * b * 4 * d + 4 * 4 * t * b * d + 4 * t * b * 4 * d \
-        + 2 * h * dh * 4 * dh
-    bytes_us = n_bytes / HBM_BYTES_PER_S * 1e6
-    ops_us = 2 * t * b * 4 * d * dh / F32_OPS_PER_S * 1e6
-    return max(bytes_us, ops_us), ("bytes" if bytes_us >= ops_us else "operations")
-
-
 def _slstm_bwd_timing(shape, long: bool):
     """Times of one B7 backward call at ``shape`` in bf16, from the
     persistent forward's saves, on both routes (the persistent kernel and
@@ -2406,6 +2343,7 @@ def _slstm_bwd_timing(shape, long: bool):
     without saves."""
     import torch
     from repro_torch.kernels import slstm_scan as ss
+    from repro_torch.launch import roofline as rl
     pre, r, h = _slstm_args(shape, "bfloat16", seed=99)
     g = torch.Generator(device=DEVICE).manual_seed(98)
     dout = torch.randn(shape[:3], generator=g, device=DEVICE).to(pre.dtype)
@@ -2436,7 +2374,7 @@ def _slstm_bwd_timing(shape, long: bool):
         plain = lambda: torch.autograd.grad(plain_out, (pp, rr),                  # noqa: E731
                                             grad_outputs=dout, retain_graph=True)
         timing["plain_us"] = _time_us(plain, reps=1, samples=3, warmup=1)
-    timing["bound_us"], timing["bound_by"] = _slstm_bwd_bound_us(shape)
+    timing["bound_us"], timing["bound_by"] = rl.bound_us(rl.slstm_scan_bwd_work(*shape))
     t = shape[0]
     timing["step_us"] = timing["kernel_dev_us"] / t
     old["step_us"] = old["kernel_dev_us"] / t
@@ -3520,12 +3458,32 @@ def _flips(a, b) -> int:
     return int((torch.sort(a.cpu(), -1)[0] != torch.sort(b.cpu(), -1)[0]).any(-1).sum())
 
 
-def _three_steps(label: str, step, batch, per_step: dict):
+def _step_positions(batch) -> int:
+    """The positions a train step processes: tokens, and a vlm's patches or
+    an encoder-decoder's frames (the dry run's tokens of a step)."""
+    return batch["tokens"].numel() + sum(
+        batch[k].shape[0] * batch[k].shape[1] for k in ("patches", "frames") if k in batch)
+
+
+def _active_params(model) -> int:
+    """The model's parameters a token runs through as the model is built:
+    all of them, or a MoE's active count of its config (top-k and the
+    shared experts)."""
+    if model.cfg.arch_type == "moe":
+        return model.cfg.active_param_count()
+    return sum(p.numel() for p in model.parameters())
+
+
+def _three_steps(label: str, step, batch, per_step: dict, model):
     """Three calls of a train ``step`` on ``batch``, each with the launches
     ``per_step``; the loss finite and falling; then two more timed for the
-    profile's wall.  Returns (figures, the faster of the two walls in us)."""
+    profile's wall.  The warm step's ``mfu`` (printed, nothing gates on it):
+    ``roofline.model_flops_for("train", active params of ``model``,
+    positions)`` over the warm step's seconds at the card's 989e12 bf16
+    FLOP/s.  Returns (figures, the faster of the two walls in us)."""
     import torch
     from repro_torch.kernels import build
+    from repro_torch.launch import roofline as rl
     losses, secs = [], []
     for i in range(3):
         torch.cuda.synchronize()
@@ -3543,9 +3501,14 @@ def _three_steps(label: str, step, batch, per_step: dict):
     check(losses[1] < losses[0] and losses[2] < losses[1], f"{label}: loss not falling {losses}")
     warm = min(secs[1:])
     tokens = batch["tokens"].numel()
+    active, positions = _active_params(model), _step_positions(batch)
+    model_flops = rl.model_flops_for("train", active, positions)
+    mfu = rl.mfu(model_flops, warm)
     log(f"{label} losses {losses}; seconds per step {[round(x, 4) for x in secs]} (the first "
         f"with set-up); warm {warm:.4f} s, {tokens / warm:.1f} tokens/s; peak device memory "
         f"{peak_gb:.2f} GB; launches a step {launches}")
+    log(f"{label} mfu {mfu:.4f}: 6 x {active:,} active parameters x {positions:,} positions "
+        f"= {model_flops:.4e} FLOP in the warm step's {warm:.4f} s at 989e12 bf16 FLOP/s")
     walls = []
     for _ in range(2):
         torch.cuda.synchronize()
@@ -3554,7 +3517,8 @@ def _three_steps(label: str, step, batch, per_step: dict):
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     return dict(launches=launches, losses=losses, seconds=secs, warm_s=warm,
-                tokens_per_s=tokens / warm, peak_gb=peak_gb), min(walls) * 1e6
+                tokens_per_s=tokens / warm, peak_gb=peak_gb, mfu=mfu,
+                model_flops=model_flops), min(walls) * 1e6
 
 
 def _kernel_vs_plain(label: str, model, batch, want: dict) -> dict:
@@ -3633,7 +3597,7 @@ def phase_train():
     per_step = want_launches(flash_attention_tc=cfg.n_layers * (2 if cfg.remat else 1),
                              flash_attention_bwd_tc=cfg.n_layers, fused_xent_tc=1,
                              fused_xent_bwd_tc=1)
-    train, wall_us = _three_steps("phase7", step, batch, per_step)
+    train, wall_us = _three_steps("phase7", step, batch, per_step, model)
     _profile_report(f"phase7 {cfg.name} train step (B {b}, S {s}, bf16, remat)",
                     lambda: step(batch), wall_us, 1,
                     shares={"B4 forward": ("xent_fwd_tc_kernel", "xent_combine_kernel"),
@@ -4613,7 +4577,7 @@ def phase_xlstm_train():
     per_step = want_launches(slstm_scan_persistent=n_s * (2 if cfg.remat else 1),
                              slstm_scan_bwd_persistent=n_s, fused_xent_tc=1,
                              fused_xent_bwd_tc=1)
-    train, wall_us = _three_steps("phase10", step, batch, per_step)
+    train, wall_us = _three_steps("phase10", step, batch, per_step, model)
     kernels = _profile_report(
         f"phase10 {cfg.name} train step (B {b}, S {s}, bf16, remat)", lambda: step(batch),
         wall_us, 1, shares={"B7 forward (slstm_scan_persistent)": ("slstm_scan_persistent",),
@@ -5086,7 +5050,7 @@ def phase_vlm():
     per_step = want_launches(flash_attention_tc=tcfg.n_layers * 2,
                              flash_attention_bwd_tc=tcfg.n_layers,
                              **{xent: 1, xent.replace("xent", "xent_bwd"): 1})
-    train, wall_us = _three_steps("phase12 train", step, batch, per_step)
+    train, wall_us = _three_steps("phase12 train", step, batch, per_step, model)
     _profile_report(f"phase12 {tcfg.name} train step ({tcfg.n_layers} layers, B "
                     f"{TRAIN_BATCH} x ({npx} patches + {TRAIN_SEQ - npx} tokens), bf16, remat)",
                     lambda: step(batch), wall_us, 1,
@@ -5148,7 +5112,8 @@ def phase_moe():
     step = make_train_step(model, TRAIN_LR)
     with _Routing() as routing:
         train, wall_us = _three_steps("phase13 dsv2 train", step, batch,
-                                      want_launches(fused_xent_tc=1, fused_xent_bwd_tc=1))
+                                      want_launches(fused_xent_tc=1, fused_xent_bwd_tc=1),
+                                      model)
     # the first step's forward: its MoE calls come first, layer by layer
     n_moe = sum(sp.n for sp in model.plan if sp.kind == "moe")
     drops = [int((~k).sum()) for k in routing.kept[:n_moe]]
@@ -5320,7 +5285,7 @@ def phase_zamba2():
     check(_xent_route(model) == "tensor_cores", "phase15: B4 should take the tensor cores at "
                                                 "vocab 32,000")
     per_step = want_launches(**_train_attn_launches(tcfg), fused_xent_tc=1, fused_xent_bwd_tc=1)
-    train, wall_us = _three_steps("phase15 train", step, batch, per_step)
+    train, wall_us = _three_steps("phase15 train", step, batch, per_step, model)
     record = {}
     with _SSDRange():
         _profile_report(f"phase15 {tcfg.name} train step ({tcfg.n_layers} Mamba2 layers, B "
@@ -5462,7 +5427,7 @@ def phase_seamless():
     check(_xent_route(model) == "f32_fma", "phase17: B4 should take its f32-FMA route at "
                                            "vocab 256,206")
     per_step = want_launches(**_train_attn_launches(tcfg), fused_xent=1, fused_xent_bwd=1)
-    train, wall_us = _three_steps("phase17 train", step, batch, per_step)
+    train, wall_us = _three_steps("phase17 train", step, batch, per_step, model)
     record = {}
     _profile_report(f"phase17 {tcfg.name} train step (12 + 12 layers, B {TRAIN_BATCH} x "
                     f"({SEAMLESS_FRAMES} frames + {SEAMLESS_TOKENS} tokens), bf16, remat)",
@@ -5487,6 +5452,224 @@ def phase_seamless():
     f32 = _f32_against_cpu("phase17 f32", fcfg, small, 13, grads=True)
     out = dict(serve=serve, train=train, **f32, seconds=time.perf_counter() - t_phase)
     log(f"phase17 took {out['seconds']:.1f} s")
+    return out
+
+
+#: phase 18b: AdamW under a warmup-cosine schedule with weight decay, after
+#: the global-norm clip, three steps on one train step's gradients
+OPT_LR, OPT_WARMUP, OPT_TOTAL, OPT_WD, OPT_CLIP, OPT_STEPS = 3e-4, 2, 100, 0.1, 1.0, 3
+#: the leaves held against the CPU: the largest and a few small ones
+OPT_SAMPLE = 6
+#: the card's optimizer against the CPU's: each bf16 update within one bf16
+#: ulp of the larger (2**-7 of |u|, the f32 updates rounded apart), m, v and
+#: the global norm within rtol 1e-5 (the sums' order differs)
+OPT_UPDATE_REL, OPT_STATE_RTOL = 2.0 ** -7, 1e-5
+
+
+def _phase_audit() -> dict:
+    """Phase 18a: every ``analysis.programs`` cell on CUDA tensors, each
+    entry under ``set_sync_debug_mode("error")`` (``program_audit``): no
+    float64, no host read, the carry in place, the pinned fetch; zero
+    findings.  Each cell's launches by kernel (``build.LAUNCHES`` deltas)
+    against the ``@cuda`` rows of ``analysis/torch/budgets/programs.json``,
+    the driver cells' against ``compile_counts.json``'s; a repeat driver
+    cell builds no library again."""
+    from repro_torch.analysis import budgets
+    from repro_torch.analysis.programs import build_context, select_cells
+
+    ctx = build_context(DEVICE)
+    compiles, findings = budgets.measure_compile_counts(ctx)
+    programs, audit_findings = budgets.measure_program_budgets(ctx, select_cells())
+    findings += audit_findings
+    check(not findings, "phase18a: " + "; ".join(f.located() for f in findings))
+    out = {}
+    for filename, rows, fields in (
+            (budgets.PROGRAMS_FILE, programs, ("launches", "host_transfers", "fetch_leaves",
+                                              "carried_in_place", "kernel_entries")),
+            (budgets.COMPILES_FILE, compiles, ("launches",))):
+        pinned = budgets.load_budget(budgets.budget_path(str(ROOT), filename))["cells"]
+        for key, row in rows.items():
+            want = pinned.get(key)
+            check(want is not None, f"phase18a: no pinned row {key} in {filename}")
+            for field in fields:
+                check(row[field] == want[field], f"phase18a {key}: {field} {row[field]}, "
+                                                 f"pinned {want[field]}")
+            extra = (f"; aten ops {row['aten_ops']} (pinned {want['aten_ops']})"
+                     if "aten_ops" in row else f"; library builds {row['library_builds']}")
+            log(f"phase18a {key}: launches {row['launches']}{extra}")
+            out[key] = row
+    return out
+
+
+def _phase_optimizer_and_dryrun() -> dict:
+    """Phases 18b and 18c on SeamlessM4T-medium at phase 17's train shape
+    (full width and depth, bf16, remat; 4 x (256 frames + 256 tokens)).
+
+    18c: the dry run (``launch/dryrun.py::analyze``) of the train step on
+    the meta device at this shape: its argument bytes equal the card's
+    bytes of the parameters and the batch; its temp-bytes estimate beside
+    the peak the card allocates over one train step; its FLOPs and the
+    step's mfu.
+
+    18b: one train step's gradients (B4 and B5 forward and backward),
+    then ``clip_by_global_norm`` and ``adamw(warmup_cosine(...),
+    weight_decay > 0)`` for three steps on the card under
+    ``set_sync_debug_mode("error")``, against the same optimizer on the CPU
+    for a sample of leaves that includes the largest: the updates, m, v and
+    the global norm (OPT_UPDATE_REL, OPT_STATE_RTOL).  The optimizer step's
+    device time (CUDA events) and the memory m and v add."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import roofline as rl
+    from repro_torch.launch.shapes import SHAPES, InputShape, shape_settings
+    from repro_torch.launch.steps import LoweringSpec, batch_struct, make_train_step
+    from repro_torch.models.model import Model, build_plan
+    from repro_torch.optim import adamw, apply_updates, clip_by_global_norm, warmup_cosine
+
+    tcfg = dataclasses.replace(get_config(SEAMLESS_ARCH), **shape_settings(SHAPES["train_4k"]))
+    shape = InputShape("phase17_train", SEAMLESS_FRAMES + SEAMLESS_TOKENS, TRAIN_BATCH, "train")
+    meta_model = Model(tcfg, build_plan(tcfg), torch.device("meta"))
+    meta_batch = batch_struct(tcfg, shape)
+    spec = LoweringSpec(make_train_step(meta_model, TRAIN_LR), (meta_batch,), meta_model)
+    positions = _step_positions(meta_batch)
+    dry = dryrun.analyze(spec, spec.args, "train", positions, tcfg.active_param_count())
+
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    model = _draw_model("phase18", tcfg, 1)
+    g = torch.Generator(device=DEVICE).manual_seed(18)
+    batch = {k: (torch.randn(v.shape, generator=g, device=DEVICE).to(v.dtype)
+                 if v.is_floating_point() else
+                 torch.randint(0, TRAIN_VOCAB, v.shape, generator=g, device=DEVICE,
+                               dtype=v.dtype)) for k, v in meta_batch.items()}
+    torch.cuda.synchronize()
+    allocated = torch.cuda.memory_allocated() - before
+    state = list(model.parameters()) + list(model.buffers()) + list(batch.values())
+    card_bytes = sum(t.untyped_storage().nbytes() for t in state)
+    arg_bytes = dry["memory"]["argument_bytes"]
+    check(arg_bytes == card_bytes, f"phase18c: the dry run's argument bytes {arg_bytes:,} "
+                                   f"!= the card's {card_bytes:,} (parameters and batch)")
+    step = make_train_step(model, TRAIN_LR)
+    step(batch)                                 # warm: the first call's set-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    step(batch)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    temp = dry["memory"]["temp_bytes"]
+    mfu = rl.mfu(dry["roofline"]["model_flops"], step_s)
+    log(f"phase18c {tcfg.name} train step at {TRAIN_BATCH} x ({SEAMLESS_FRAMES} frames + "
+        f"{SEAMLESS_TOKENS} tokens): argument bytes {arg_bytes:,} (dry run) = {card_bytes:,} "
+        f"(the card's parameters and batch; allocator {allocated:,}); temp bytes "
+        f"{temp:,} (dry run) beside the card's peak over one step {peak:,} "
+        f"({temp / peak:.3f}x); dry-run FLOPs {dry['ops']['flops']:.4e} (products "
+        f"{dry['ops']['product_flops']:.4e}, kernels {dry['ops']['kernel_flops']:.4e}), "
+        f"bytes {dry['ops']['bytes']:.4e}, roofline compute {dry['roofline']['compute_s']:.4e} "
+        f"s, memory {dry['roofline']['memory_s']:.4e} s ({dry['roofline']['dominant']}); "
+        f"model FLOPs {dry['roofline']['model_flops']:.4e}; measured step {step_s:.4f} s, "
+        f"mfu {mfu:.4f}")
+
+    # 18b
+    params = dict(model.named_parameters())
+    loss = model.loss(batch)[0]
+    grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+    del loss
+    names = sorted(params, key=lambda n: -params[n].numel())
+    # the largest leaf first, then leaves spread over the sizes down to the
+    # smallest
+    sample = list(dict.fromkeys(names[(len(names) - 1) * i // (OPT_SAMPLE - 1)]
+                                for i in range(OPT_SAMPLE)))
+    opt = adamw(warmup_cosine(OPT_LR, OPT_WARMUP, OPT_TOTAL), weight_decay=OPT_WD)
+    torch.cuda.synchronize()
+    before_state = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    opt_state = opt.init(params)
+    torch.cuda.synchronize()
+    mv_bytes = torch.cuda.memory_allocated() - before_state
+    cpu_params = {n: params[n].detach().to("cpu", copy=True) for n in sample}
+    cpu_grads = {n: t.cpu() for n, t in grads.items()}
+    card, times = [], []
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    for _ in range(OPT_STEPS):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        events[0].record()
+        clipped, gnorm = clip_by_global_norm(grads, OPT_CLIP)
+        updates, opt_state = opt.update(clipped, opt_state, params)
+        apply_updates(params, updates)
+        events[1].record()
+        torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        times.append(events[0].elapsed_time(events[1]))
+        card.append(dict(gnorm=gnorm.cpu(), **{f"{k}/{n}": t[n].detach().cpu() for n in sample
+                                                for k, t in (("u", updates), ("m", opt_state["m"]),
+                                                             ("v", opt_state["v"]))}))
+        del clipped, updates
+    peak_opt = torch.cuda.max_memory_allocated() - before_state
+
+    # the CPU: the clip over every gradient, the optimizer on the sample
+    t_cpu = time.perf_counter()
+    cpu_opt = adamw(warmup_cosine(OPT_LR, OPT_WARMUP, OPT_TOTAL), weight_decay=OPT_WD)
+    cpu_state = cpu_opt.init(cpu_params)
+    errs = dict(u=0.0, m=0.0, v=0.0, gnorm=0.0)
+    clipped, gnorm = clip_by_global_norm(cpu_grads, OPT_CLIP)     # the same every step
+    sub = {n: clipped[n] for n in sample}
+    del clipped, cpu_grads
+    for i in range(OPT_STEPS):
+        updates, cpu_state = cpu_opt.update(sub, cpu_state, cpu_params)
+        apply_updates(cpu_params, updates)
+        errs["gnorm"] = max(errs["gnorm"], float(abs(card[i]["gnorm"] - gnorm) / gnorm))
+        check(errs["gnorm"] <= OPT_STATE_RTOL, f"phase18b step {i}: gnorm {card[i]['gnorm']} "
+                                               f"vs the CPU's {gnorm}")
+        for n in sample:
+            for k, want in (("m", cpu_state["m"][n]), ("v", cpu_state["v"][n])):
+                got = card[i][f"{k}/{n}"]
+                rel = float(((got - want).abs() / want.abs().clamp_min(1e-30)).max())
+                errs[k] = max(errs[k], rel)
+                check(torch.allclose(got, want, rtol=OPT_STATE_RTOL, atol=0),
+                      f"phase18b step {i} {k} of {n}: rel err {rel:.3e}")
+            got, want = card[i][f"u/{n}"].float(), updates[n].float()
+            gap = (got - want).abs()
+            bound = OPT_UPDATE_REL * torch.maximum(got.abs(), want.abs())
+            errs["u"] = max(errs["u"], float((gap / want.abs().clamp_min(1e-30)).max()))
+            check(bool((gap <= bound).all()), f"phase18b step {i} update of {n}: "
+                                              f"{int((gap > bound).sum())} beyond one bf16 ulp")
+    cpu_s = time.perf_counter() - t_cpu
+    log(f"phase18b adamw (warmup_cosine({OPT_LR}, {OPT_WARMUP}, {OPT_TOTAL}), weight_decay "
+        f"{OPT_WD}) after clip_by_global_norm({OPT_CLIP}), {OPT_STEPS} steps on "
+        f"{len(params)} leaves ({sum(p.numel() for p in params.values()):,} parameters) under "
+        f"sync-debug 'error': against the CPU on {sample} ({params[names[0]].numel():,} "
+        f"elements the largest): max rel err update {errs['u']:.3e} (bound one bf16 ulp), "
+        f"m {errs['m']:.3e}, v {errs['v']:.3e}, gnorm {errs['gnorm']:.3e} (rtol "
+        f"{OPT_STATE_RTOL}); optimizer step device ms {[round(t, 3) for t in times]}; "
+        f"m and v add {mv_bytes:,} bytes, the step's peak over them {peak_opt:,}")
+    del model, params, grads, opt_state, step, batch
+    torch.cuda.empty_cache()
+    return dict(dryrun=dict(argument_bytes=arg_bytes, card_bytes=card_bytes,
+                            allocator_bytes=allocated, temp_bytes=temp, card_peak_bytes=peak,
+                            flops=dry["ops"]["flops"], model_flops=dry["roofline"]["model_flops"],
+                            step_s=step_s, mfu=mfu),
+                optimizer=dict(errors=errs, device_ms=times, mv_bytes=mv_bytes,
+                               peak_bytes=peak_opt, sample=sample, cpu_s=cpu_s))
+
+
+def phase_analysis() -> dict:
+    """Phase 18: the auditor on the card (18a), the optimizer at full width
+    (18b) and the dry run against the card (18c)."""
+    t0 = time.perf_counter()
+    out = dict(audit=_phase_audit())
+    t1 = time.perf_counter()
+    out.update(_phase_optimizer_and_dryrun())
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase18 took {out['seconds']:.1f} s (18a {t1 - t0:.1f} s, 18b and 18c "
+        f"{out['seconds'] - (t1 - t0):.1f} s, of them the CPU's optimizer "
+        f"{out['optimizer']['cpu_s']:.1f} s)")
     return out
 
 
@@ -5564,6 +5747,7 @@ def main() -> None:
         seamless = phase("17", phase_seamless)
     _check_shape_log("phases 15-17", shapes,
                      {name: kernels[name]["slice_shapes"] for name in shapes.seen})
+    analysis = phase("18", phase_analysis)
 
     sources = {"quant_dequant": ("src/repro/kernels/quant_exchange.py:85",
                                  "src/repro_torch/kernels/csrc/quant_exchange.cu"),
@@ -5855,7 +6039,7 @@ def main() -> None:
         f"phase10 xlstm train {xlstm_train}; phase11 xlstm rounds {xlstm_rounds}; "
         f"phase12 vlm {vlm}; phase13 moe {moe}; phase14 moe rounds {moe_rounds}; "
         f"phase15 zamba2 {zamba2}; phase16 zamba2 rounds {zamba2_rounds}; "
-        f"phase17 seamless {seamless}")
+        f"phase17 seamless {seamless}; phase18 analysis {analysis}")
     log(f"phase seconds {seconds}; {time.perf_counter() - t0:.1f} s since the build began")
     log(json.dumps({"kernels": entries}))
     log(card)

@@ -158,9 +158,7 @@ def train_round_batched(module: SplitModule, theta, clusters, data: ClientData,
     losses, stats = aux if with_stats else (aux, None)
     _account_turns(meter, pcfg, clusters, d_c, _count_params(theta[0]))
 
-    losses = losses.cpu().numpy()
-    vlosses = vlosses.cpu().numpy()
-    stats = None if stats is None else stats.cpu().numpy()
+    losses, vlosses, stats = _fetch_together(losses, vlosses, stats)  # one host sync
     results = []
     for r, cluster in enumerate(clusters):
         res = dict(vloss=float(vlosses[r]), cluster=cluster,
@@ -206,6 +204,21 @@ def pigeon_round_accept(module: SplitModule, theta, clusters, data: ClientData,
         account_handoff_recheck(meter, pcfg, int(x0.shape[0]), d_c,
                                 visited_candidates(detections, accepted))
     return theta, _record(vlosses, tlosses, selected, detections, accepted)
+
+
+def _fetch_together(*tensors):
+    """The f32 tensors (None skipped) read back in one transfer: numpy arrays
+    of their shapes, bit-equal to reading each alone."""
+    live = [t for t in tensors if t is not None]
+    flat = torch.cat([t.reshape(-1).to(torch.float32) for t in live]).cpu().numpy()
+    out, at = [], 0
+    for t in tensors:
+        if t is None:
+            out.append(None)
+            continue
+        out.append(flat[at:at + t.numel()].reshape(tuple(t.shape)))
+        at += t.numel()
+    return out
 
 
 def _record(vlosses, tlosses, selected, detections, accepted) -> Dict[str, Any]:
@@ -337,8 +350,7 @@ def splitfed_round_batched(module: SplitModule, theta, clusters, data: ClientDat
             module, pcfg.lr, with_stats, quant=pcfg.comm.quant).candidates(
             theta, payload, (x0, y0))
         sp.fence(vlosses)
-    vlosses = vlosses.cpu().numpy()
-    stats = aux[1].cpu().numpy() if with_stats else None
+    vlosses, stats = _fetch_together(vlosses, aux[1] if with_stats else None)
     results = []
     for r, cluster in enumerate(clusters):
         res = dict(vloss=float(vlosses[r]), cluster=cluster,

@@ -52,6 +52,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from .observe import entry, is_meta
+
 NEG_INF = -1e30
 #: head dims the kernels are built for
 HEAD_DIMS = (32, 64, 80, 128, 256)
@@ -346,16 +348,36 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq, dk, dv
 
 
+def flash_attention_meta(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The meta rule of the forward: (out, lse) of the kernel's shapes and
+    dtypes on the ``meta`` device, empty; nothing launches and nothing is
+    computed (``launch/dryrun.py`` traces a step at full size so)."""
+    check_shapes(q, k, v)
+    b, sq, h, _ = q.shape
+    return torch.empty_like(q), torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+
+
+def flash_attention_bwd_meta(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+                             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The meta rule of the backward: empty (dq, dk, dv)."""
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
 class FlashAttention(torch.autograd.Function):
     """Attention of CUDA tensors through the B5 kernels, with its backward:
     ``FlashAttention.apply(q, k, v, window, causal)`` -> (B, Sq, H, D).  A
     non-causal call with a row that sees no key raises
-    :data:`DEAD_ROW_BACKWARD`."""
+    :data:`DEAD_ROW_BACKWARD`.  Meta tensors take the meta rule both
+    ways."""
 
     @staticmethod
     def forward(ctx, q, k, v, window, causal=True):
         check_differentiable(q, k, window, causal)
-        out, lse = flash_attention(q, k, v, causal=causal, window=window)
+        if is_meta(q, k, v):
+            out, lse = flash_attention_meta(q, k, v)
+        else:
+            out, lse = flash_attention(q, k, v, causal=causal, window=window)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.window, ctx.causal = window, causal
         return out
@@ -363,8 +385,12 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout.contiguous(), lse,
-                                         causal=ctx.causal, window=ctx.window)
+        with entry("flash_attention_bwd", q, k, v, window=ctx.window, causal=ctx.causal):
+            if is_meta(q, k, v):
+                dq, dk, dv = flash_attention_bwd_meta(q, k, v)
+            else:
+                dq, dk, dv = flash_attention_bwd(q, k, v, out, dout.contiguous(), lse,
+                                                 causal=ctx.causal, window=ctx.window)
         return dq, dk, dv, None, None
 
 
@@ -372,4 +398,4 @@ __all__ = ["DEAD_ROW_BACKWARD", "F32_FMA", "FlashAttention", "HEAD_DIMS", "NEG_I
            "REF_BLOCK", "TC_BWD_HEAD_DIMS", "TC_HEAD_DIMS", "TENSOR_CORES", "attend_plain",
            "attention_bwd_route", "attention_route", "bwd_tc_walks", "causal_mask",
            "check_differentiable", "dead_row_begin", "flash_attention", "flash_attention_bwd",
-           "flash_attention_plain", "has_dead_rows", "tma_ok"]
+           "flash_attention_bwd_meta", "flash_attention_meta", "flash_attention_plain", "has_dead_rows", "tma_ok"]

@@ -47,6 +47,7 @@ from typing import Optional, Tuple
 import torch
 
 from .flash_attention import DTYPE_CODES, F32_FMA, TENSOR_CORES, tma_ok
+from .observe import entry, is_meta
 
 #: logits a backward chunk holds: f32 on the f32-FMA route, bf16 dlogits on
 #: the tensor cores' (chunk rows = CHUNK_BYTES // (4 V), or // (2 V))
@@ -282,24 +283,49 @@ def fused_xent_bwd(hidden: torch.Tensor, weights: torch.Tensor, labels: torch.Te
     return dh, dw
 
 
+def fused_xent_meta(hidden: torch.Tensor, weights: torch.Tensor, labels: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The meta rule of the forward: empty (loss, lse), (T,) f32 each, on the
+    ``meta`` device; nothing launches and nothing is computed."""
+    check_shapes(hidden, weights, labels)
+    t = hidden.shape[0]
+    f32 = dict(dtype=torch.float32, device=hidden.device)
+    return torch.empty((t,), **f32), torch.empty((t,), **f32)
+
+
+def fused_xent_bwd_meta(hidden: torch.Tensor, weights: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The meta rule of the backward: empty (dh, dW)."""
+    return torch.empty_like(hidden), torch.empty_like(weights)
+
+
 class FusedXent(torch.autograd.Function):
     """Per-token loss of CUDA tensors through the B4 kernels, with its
-    backward: ``FusedXent.apply(hidden, weights, labels)`` -> (T,) f32."""
+    backward: ``FusedXent.apply(hidden, weights, labels)`` -> (T,) f32.
+    Meta tensors take the meta rule both ways."""
 
     @staticmethod
     def forward(ctx, hidden, weights, labels):
-        loss, lse = fused_xent(hidden, weights, labels)
+        if is_meta(hidden, weights):
+            loss, lse = fused_xent_meta(hidden, weights, labels)
+        else:
+            loss, lse = fused_xent(hidden, weights, labels)
         ctx.save_for_backward(hidden, weights, labels, lse)
         return loss
 
     @staticmethod
     def backward(ctx, g):
         hidden, weights, labels, lse = ctx.saved_tensors
-        dh, dw = fused_xent_bwd(hidden, weights, labels, lse,
-                                g.to(torch.float32).contiguous())
+        with entry("fused_xent_bwd", hidden, weights):
+            if is_meta(hidden, weights):
+                dh, dw = fused_xent_bwd_meta(hidden, weights)
+            else:
+                dh, dw = fused_xent_bwd(hidden, weights, labels, lse,
+                                        g.to(torch.float32).contiguous())
         return dh, dw, None
 
 
 __all__ = ["CHUNK_BYTES", "FusedXent", "check_shapes", "chunk_rows",
-           "fused_xent", "fused_xent_bwd", "fused_xent_plain", "xent_backward",
+           "fused_xent", "fused_xent_bwd", "fused_xent_bwd_meta", "fused_xent_meta",
+           "fused_xent_plain", "xent_backward",
            "xent_backward_tc", "xent_bwd_route", "xent_route", "xent_splits"]

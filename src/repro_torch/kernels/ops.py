@@ -2,7 +2,14 @@
 
 A CPU tensor takes the plain PyTorch version; a CUDA tensor takes the CUDA
 kernel, or the launcher raises (there is no fallback from the kernel to the
-plain version).
+plain version).  A tensor on the ``meta`` device takes the meta rule: empty
+tensors of the kernel's output shapes and dtypes, forward and backward (the
+``autograd.Function``s carry the same branch), with no launch and no plain
+arithmetic, so that ``launch/dryrun.py`` traces a step at full size.
+
+Every entry runs inside ``observe.entry``: an op counter
+(``launch/op_analysis.py``) counts it as one operation of the kernel's work
+(``launch/roofline.py``), whatever implements it.
 """
 from __future__ import annotations
 
@@ -17,19 +24,28 @@ from . import fused_xent as _fx
 from . import quant_exchange as _qx
 from . import slstm_scan as _ss
 from . import tamper_check as _tc
+from .observe import entry, is_meta
 
 
 def _needs_grad(*tensors: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
+def _empty(shape, dtype: torch.dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
 def quant_roundtrip(x: torch.Tensor, fmt: str) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-row symmetric quantize->dequantize of an (N, D) f32 message.
     Returns (dequantized (N, D) f32, per-row scales (N,) f32) — the message a
     receiver reconstructs from ``1 byte/element + 4 bytes/row``."""
-    if x.device.type == "cpu":
-        return _qx.quant_dequant_plain(x, fmt)
-    return _qx.quant_dequant(x, fmt)
+    with entry("quant_roundtrip", x, fmt=fmt):
+        if x.device.type == "cpu":
+            return _qx.quant_dequant_plain(x, fmt)
+        if is_meta(x):
+            _qx.check_format(fmt)
+            return torch.empty_like(x), _empty(x.shape[:-1], torch.float32)
+        return _qx.quant_dequant(x, fmt)
 
 
 def quant_roundtrip_stats(x: torch.Tensor, fmt: str
@@ -37,9 +53,14 @@ def quant_roundtrip_stats(x: torch.Tensor, fmt: str
     """:func:`quant_roundtrip` fused with the message statistics of the
     *dequantized* message (``core.split.message_stats``).  Returns
     (deq, scales, stats (2,))."""
-    if x.device.type == "cpu":
-        return _qx.quant_dequant_stats_plain(x, fmt)
-    return _qx.quant_dequant_stats(x, fmt)
+    with entry("quant_roundtrip_stats", x, fmt=fmt):
+        if x.device.type == "cpu":
+            return _qx.quant_dequant_stats_plain(x, fmt)
+        if is_meta(x):
+            _qx.check_format(fmt)
+            return (torch.empty_like(x), _empty(x.shape[:-1], torch.float32),
+                    _empty(x.shape[:-2] + (2,), torch.float32))
+        return _qx.quant_dequant_stats(x, fmt)
 
 
 def largest_divisor(n: int, cap: int) -> int:
@@ -63,11 +84,15 @@ def tamper_verdict(ref: torch.Tensor, recv: torch.Tensor, tol: float
     """The fused cascade's verify stage: (passed ``distance <= tol`` (R,)
     bool, distances (R,)) for ref/recv (R, N, D); on CUDA tensors both come
     out of one launch of B1."""
-    if ref.device.type == "cpu":
-        dists = _tc.tamper_distance_plain(ref, recv)
-        return dists <= tol, dists
-    _, dists, passed = _tc.tamper_check(ref, recv, tol)
-    return passed, dists
+    with entry("tamper_verdict", ref, recv):
+        if ref.device.type == "cpu":
+            dists = _tc.tamper_distance_plain(ref, recv)
+            return dists <= tol, dists
+        if is_meta(ref, recv):
+            lead = ref.shape[:-2]
+            return _empty(lead, torch.bool), _empty(lead, torch.float32)
+        _, dists, passed = _tc.tamper_check(ref, recv, tol)
+        return passed, dists
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -80,11 +105,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     non-causal call with a row that sees no key raises
     ``flash_attention.DEAD_ROW_BACKWARD``; the CPU path differentiates
     every call)."""
-    if q.device.type == "cpu":
-        return _fa.flash_attention_plain(q, k, v, causal=causal, window=window)
-    if _needs_grad(q, k, v):
-        return _fa.FlashAttention.apply(q, k, v, window, causal)
-    return _fa.flash_attention(q, k, v, causal=causal, window=window)[0]
+    with entry("flash_attention", q, k, v, window=window, causal=causal):
+        if q.device.type == "cpu":
+            return _fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+        if _needs_grad(q, k, v):
+            return _fa.FlashAttention.apply(q, k, v, window, causal)
+        if is_meta(q, k, v):
+            return _fa.flash_attention_meta(q, k, v)[0]
+        return _fa.flash_attention(q, k, v, causal=causal, window=window)[0]
 
 
 def fused_cross_entropy(hidden: torch.Tensor, weights: torch.Tensor, labels: torch.Tensor,
@@ -97,14 +125,17 @@ def fused_cross_entropy(hidden: torch.Tensor, weights: torch.Tensor, labels: tor
     forward and backward kernels."""
     h2 = hidden.reshape(-1, hidden.shape[-1])
     l2 = labels.reshape(-1)
-    if hidden.device.type == "cpu":
-        per_tok = _fx.fused_xent_plain(h2, weights, l2)
-    else:
-        l2 = l2.to(torch.int32).contiguous()
-        if _needs_grad(hidden, weights):
-            per_tok = _fx.FusedXent.apply(h2.contiguous(), weights, l2)
+    with entry("fused_xent", h2, weights):
+        if hidden.device.type == "cpu":
+            per_tok = _fx.fused_xent_plain(h2, weights, l2)
         else:
-            per_tok = _fx.fused_xent(h2.contiguous(), weights, l2)[0]
+            l2 = l2.to(torch.int32).contiguous()
+            if _needs_grad(hidden, weights):
+                per_tok = _fx.FusedXent.apply(h2.contiguous(), weights, l2)
+            elif is_meta(hidden, weights):
+                per_tok = _fx.fused_xent_meta(h2, weights, l2)[0]
+            else:
+                per_tok = _fx.fused_xent(h2.contiguous(), weights, l2)[0]
     if mask is None:
         return torch.mean(per_tok)
     m = mask.reshape(-1).to(torch.float32)
@@ -151,9 +182,13 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     S, Hkv, D); ``index`` the new token's position: a host int, or a 0-d
     int32 tensor on q's device, as the reference takes it (read on the
     device by the kernels).  Returns (B, 1, H, D)."""
-    if q.device.type == "cpu":
-        return _da.decode_attention_plain(q, k, v, index, window=window)
-    return _da.decode_attention(q, k, v, index, window=window)
+    with entry("decode_attention", q, k, v, index=index, window=window):
+        if q.device.type == "cpu":
+            return _da.decode_attention_plain(q, k, v, index, window=window)
+        if is_meta(q, k, v):
+            _da.check_shapes(q, k, v)
+            return torch.empty_like(q)
+        return _da.decode_attention(q, k, v, index, window=window)
 
 
 def slstm_scan(pre: torch.Tensor, r: torch.Tensor, n_heads: int) -> torch.Tensor:
@@ -166,12 +201,16 @@ def slstm_scan(pre: torch.Tensor, r: torch.Tensor, n_heads: int) -> torch.Tensor
     reverse-scan kernel (by ``slstm_scan.slstm_bwd_route``:
     ``csrc/slstm_scan_bwd_persistent.cu`` or the step route
     ``csrc/slstm_scan_bwd.cu``) and the dR product."""
-    if pre.device.type == "cpu":
-        return _ss.slstm_scan_plain(pre, r, n_heads)
-    pre, r = pre.contiguous(), r.contiguous()
-    if _needs_grad(pre, r):
-        return _ss.SlstmScan.apply(pre, r, n_heads, _ss.slstm_scan_saving, _ss.slstm_scan_bwd)
-    return _ss.slstm_scan(pre, r, n_heads)
+    with entry("slstm_scan", pre, r, n_heads=n_heads):
+        if pre.device.type == "cpu":
+            return _ss.slstm_scan_plain(pre, r, n_heads)
+        pre, r = pre.contiguous(), r.contiguous()
+        if _needs_grad(pre, r):
+            return _ss.SlstmScan.apply(pre, r, n_heads, _ss.slstm_scan_saving,
+                                       _ss.slstm_scan_bwd)
+        if is_meta(pre, r):
+            return _ss.slstm_scan_meta(pre, r, n_heads)
+        return _ss.slstm_scan(pre, r, n_heads)
 
 
 __all__ = ["decode_attention", "flash_attention", "fused_cross_entropy", "largest_divisor",

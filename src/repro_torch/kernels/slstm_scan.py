@@ -65,6 +65,7 @@ import torch
 import torch.nn.functional as F
 
 from .flash_attention import DTYPE_CODES
+from .observe import entry, is_meta
 
 #: the running max's start, the reference kernel's (the model's decode
 #: cache starts at -inf; both make f = 0 at t = 0)
@@ -235,6 +236,23 @@ def slstm_scan_bwd_plain(dout: torch.Tensor, r: torch.Tensor, z: torch.Tensor,
     return dz
 
 
+def slstm_scan_meta(pre: torch.Tensor, r: torch.Tensor, n_heads: int, save: bool = False):
+    """The meta rule of the forward: empty h (T, B, d) in pre's dtype (and,
+    with ``save``, z (T, B, 4d) and the state (4, T, B, d), f32) on the
+    ``meta`` device; nothing launches and nothing is computed."""
+    t, b, d = check_shapes(pre, r, n_heads)
+    out = torch.empty((t, b, d), dtype=pre.dtype, device=pre.device)
+    if not save:
+        return out
+    f32 = dict(dtype=torch.float32, device=pre.device)
+    return out, torch.empty((t, b, 4 * d), **f32), torch.empty((4, t, b, d), **f32)
+
+
+def slstm_scan_bwd_meta(z: torch.Tensor) -> torch.Tensor:
+    """The meta rule of the backward: empty dz (T, B, 4d) f32."""
+    return torch.empty_like(z, dtype=torch.float32)
+
+
 class SlstmScan(torch.autograd.Function):
     """The scan with its backward: ``SlstmScan.apply(pre, r, n_heads, scan,
     scan_bwd)``.  ``scan(pre, r, n_heads)`` is the forward that saves, ->
@@ -244,11 +262,15 @@ class SlstmScan(torch.autograd.Function):
     :func:`slstm_scan_bwd_plain`).  The backward casts dz to pre's dtype
     for dpre and computes dR by :func:`recurrent_weight_grad` in f32, cast
     to r's dtype.  z and the state go through ``save_for_backward``, so a
-    checkpointed layer drops them until its recomputation."""
+    checkpointed layer drops them until its recomputation.  Meta tensors
+    take the meta rule both ways."""
 
     @staticmethod
     def forward(ctx, pre, r, n_heads, scan, scan_bwd):
-        out, z, state = scan(pre, r, n_heads)
+        if is_meta(pre, r):
+            out, z, state = slstm_scan_meta(pre, r, n_heads, save=True)
+        else:
+            out, z, state = scan(pre, r, n_heads)
         ctx.save_for_backward(r, z, state)
         ctx.n_heads, ctx.scan_bwd, ctx.pre_dtype = n_heads, scan_bwd, pre.dtype
         return out
@@ -256,7 +278,11 @@ class SlstmScan(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         r, z, state = ctx.saved_tensors
-        dz = ctx.scan_bwd(dout.contiguous(), r, z, state, ctx.n_heads)
+        with entry("slstm_scan_bwd", dout, r, n_heads=ctx.n_heads):
+            if is_meta(dout, r, z):
+                dz = slstm_scan_bwd_meta(z)
+            else:
+                dz = ctx.scan_bwd(dout.contiguous(), r, z, state, ctx.n_heads)
         dpre = dz.to(ctx.pre_dtype) if ctx.needs_input_grad[0] else None
         dr = (recurrent_weight_grad(state[0], dz, ctx.n_heads).to(r.dtype)
               if ctx.needs_input_grad[1] else None)
@@ -487,5 +513,5 @@ __all__ = ["M_INIT", "MAX_D", "PERSISTENT", "STEP", "SlstmScan", "check_saved",
            "persistent_bwd_span", "persistent_plan", "persistent_rows", "persistent_smem",
            "recurrent", "recurrent_grad", "recurrent_weight_grad",
            "slstm_bwd_route", "slstm_gates", "slstm_route", "slstm_scan", "slstm_scan_bwd",
-           "slstm_scan_bwd_plain", "slstm_scan_plain", "slstm_scan_saving",
+           "slstm_scan_bwd_meta", "slstm_scan_bwd_plain", "slstm_scan_meta", "slstm_scan_plain", "slstm_scan_saving",
            "slstm_scan_saving_plain"]

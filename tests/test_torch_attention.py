@@ -338,14 +338,18 @@ def test_tile_live_is_the_reference_block_live(causal):
                 assert got == want, (qi, kj, window)
 
 
-def test_non_causal_gradient_refused_on_the_card_path():
+def test_non_causal_gradient_refused_on_the_card_path(monkeypatch):
     """Off the CPU, a non-causal call that needs a gradient and has a row
     that sees no key (a window, Sq >= Sk + window) raises, saying so (meta
     tensors take the card's branch and launch nothing), and so do
     ``FlashAttention`` and the backward's launcher; a call without such a
     row goes through ``FlashAttention`` to the forward's launcher (which
     refuses a meta tensor), with or without a gradient; the launcher
-    accepts Sq > Sk only when not causal."""
+    accepts Sq > Sk only when not causal.  With the meta rule switched off,
+    meta tensors stand for a card's (with it, a call without a dead row
+    gets an empty output of the kernel's shape)."""
+    for module in (tops, tfa):
+        monkeypatch.setattr(module, "is_meta", lambda *tensors: False)
     meta = torch.device("meta")
     q = torch.zeros((1, 16, 4, 64), device=meta, requires_grad=True)
     kv = torch.zeros((1, 8, 2, 64), device=meta)

@@ -159,6 +159,7 @@ NOT_YET_PORTED = {
     "data": set(),
     "telemetry": set(),
     "checkpoint": set(),
+    "optim": set(),
 }
 
 

@@ -256,9 +256,12 @@ def test_backward_launcher_refuses_an_unknown_route(route):
 def test_ops_sends_a_gradient_through_the_function_off_the_cpu(monkeypatch):
     """On a tensor off the CPU that needs a gradient, ``ops.slstm_scan``
     takes ``SlstmScan`` with the kernels: the saving forward's launcher
-    refuses a tensor that is not on the card (no plain fallback)."""
+    refuses a tensor that is not on the card (no plain fallback).  Meta
+    tensors stand for a card's with the meta rule switched off."""
     pre = torch.empty((4, 2, 64), device="meta", requires_grad=True)
     r = torch.empty((2, 8, 32), device="meta")
+    for module in (tops, tss):
+        monkeypatch.setattr(module, "is_meta", lambda *tensors: False)
     calls = []
     real = tss.SlstmScan.apply
 

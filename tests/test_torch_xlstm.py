@@ -157,12 +157,17 @@ def test_scan_first_step_and_minus_inf_input_gate():
     np.testing.assert_array_equal(got[0, :, :3], 0.0)
 
 
-def test_scan_dispatch_raises_off_the_cpu():
+def test_scan_dispatch_raises_off_the_cpu(monkeypatch):
     """A tensor off the CPU takes the kernels or raises: with a gradient the
     saving forward of B7's autograd Function, without one the plain
-    launcher; both refuse a tensor that is not on the card."""
+    launcher; both refuse a tensor that is not on the card.  Meta tensors
+    stand for a card's with the meta rule switched off (with it, they get
+    empty outputs of the kernel's shapes, ``tests/test_torch_dryrun.py``)."""
     pre = torch.empty((4, 2, 64), device="meta", requires_grad=True)
     r = torch.empty((2, 8, 32), device="meta")
+    assert tops.slstm_scan(pre, r, 2).shape == (4, 2, 16)
+    for module in (tops, tss):
+        monkeypatch.setattr(module, "is_meta", lambda *tensors: False)
     with pytest.raises(ValueError, match="CUDA"):
         tops.slstm_scan(pre, r, 2)
     with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
