@@ -123,11 +123,11 @@ from the repository root.  Phases, in order; any failure exits non-zero:
      equal across its runs and its selections on both engines, seconds a
      round;
   2d. multi-round execution on the batched main path (2b's configuration,
-     T = 5, eval_every 5): block 1 and 4, each with prefetch 0 and 1, under
+     T = 4, eval_every 4): block 1 and 4, each with prefetch 0 and 1, under
      the main path's cuDNN (the same decisions; the losses' spread and
      test_acc printed), then the four under deterministic cuDNN
-     (decisions and test_acc equal, losses within rtol 1e-6); 800 B2, 800
-     B3 and 5 B1 launches in each, ``RoundRunner.accept_block`` under
+     (decisions and test_acc equal, losses within rtol 1e-6); 640 B2, 640
+     B3 and 4 B1 launches in each, ``RoundRunner.accept_block`` under
      sync-debug "error", one ``block.fetch`` span a block; seconds a round,
      span totals, peak memory; resume (T = 2 in blocks of 2, resumed to 4,
      equal to the uninterrupted run); ``launch.train --trace --profile-dir``
@@ -143,6 +143,16 @@ from the repository root.  Phases, in order; any failure exits non-zero:
      fetch span a block; seconds a round and peak memory beside the solo
      runs' (the bit-equal float fields reported); phase 1 holds B1 at (10, 3000, 256) aliased, B2 at (960,
      256) and (640, 256) and B3 at (15, 64, 256) and (10, 64, 256);
+  2f. the sharded placement (the cluster axis over an NCCL group of every
+     visible card: in this process as a group of one where one card is
+     visible, one spawned rank a card where more are): 2b's run through
+     ``placement="sharded"`` (the sharded ``RoundRunner.accept`` under
+     sync-debug "error") against 2b's History (decisions and comm exactly,
+     val_losses within rtol 1e-5), SplitFed against 2c's batched run the
+     same way, a 2-seed sweep (block 2) and a 2-job pool (block 2, prefetch
+     1) against 2e's (losses within rtol 1e-4); every rank's History rank
+     0's; B1, B2 and B3 launched as 2b's structure gives them; the NCCL
+     version, the world size and s/round beside 2b's;
   3. the MNIST split CNN at Table II sizes, fp8-e4m3 wire, argmin, gradient
      attack;
   4. the same tiny runs on the CPU and on the card, from the same init, on
@@ -193,6 +203,14 @@ from the repository root.  Phases, in order; any failure exits non-zero:
      slot bit-equal to the winner, launches as predicted, seconds a round);
      batched SplitFed over the LM at 4 layers (cut 3: its 4 lanes at 12
      layers would not fit), decisions equal to the sequential run;
+  8c. the launch layer's round over the sharded placement: 8b's 2-slot
+     step at 12 layers through ``make_pigeon_round_step_shardmap`` on an
+     NCCL group of every visible card (both slots on one card, one a rank
+     on more), int8 and a block of 2, from 8b's inits: sel equal to
+     ``make_pigeon_round_step``'s on the same inits and batches, vlosses
+     within rtol 1e-5, every slot the winner, launches as the step's
+     structure gives a rank's slots; seconds and peak memory beside the
+     one-card step's;
   9. the xLSTM serve path: xLSTM-1.3B at full width, depth cut to
      XLSTM_SERVE_LAYERS (16 of 48 blocks: (mLSTM 7, sLSTM 1) x 2, bf16,
      drawn on the card) prefills 4 prompts of 512 tokens through
@@ -672,15 +690,33 @@ def phase_sass() -> dict:
     TMA loads (UTMALDG), B6's tensor-core route tensor-core products (HMMA or
     HGMMA) and asynchronous copies (LDGSTS or UTMALDG), the f32-FMA routes
     none of the four."""
+    import os
     import shutil
+    import tempfile
 
     from repro_torch.kernels import build
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    counts = {}
-    for name in build.SOURCES:
-        sass = subprocess.run([tool, "--dump-sass", str(build.library_path(name))],
-                              capture_output=True, text=True, timeout=300, check=True).stdout
-        counts[name] = {op: len(re.findall(rf"\b{op}\b", sass)) for op in SASS_OPS}
+    # one cuobjdump a library, all started together, each writing a file
+    # (a pipe would stall a dump until its turn to be read)
+    counts, procs = {}, {}
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
+        try:
+            for name in build.SOURCES:
+                with open(os.path.join(tmp, name + ".sass"), "w") as out:
+                    procs[name] = subprocess.Popen(
+                        [tool, "--dump-sass", str(build.library_path(name))], stdout=out,
+                        stderr=subprocess.STDOUT)
+            for name, proc in procs.items():
+                code = proc.wait(timeout=300)
+                with open(os.path.join(tmp, name + ".sass")) as f:
+                    sass = f.read()
+                check(code == 0, f"phase0: cuobjdump {name} exited {code}: {sass[-500:]}")
+                counts[name] = {op: len(re.findall(rf"\b{op}\b", sass)) for op in SASS_OPS}
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
     for name in TC_LIBRARIES:
         check(counts[name]["HGMMA"] and counts[name]["UTMALDG"],
               f"phase0: {name}'s SASS lacks wgmma or TMA: {counts[name]}")
@@ -707,13 +743,39 @@ def card_line() -> str:
 # phase 1: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
+#: the longest a timing sample runs (µs): a slower function takes fewer reps
+SAMPLE_US = 20_000.0
+
+
+def _one_call_us(fn, stream=None) -> float:
+    """One call of ``fn`` by CUDA events on ``stream`` (the current one)."""
+    import torch
+    stream = stream or torch.cuda.current_stream()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with torch.cuda.stream(stream):
+        start.record(stream)
+        fn()
+        end.record(stream)
+    end.synchronize()
+    return start.elapsed_time(end) * 1e3
+
+
+def _fit_reps(reps: int, call_us: float) -> int:
+    """``reps``, cut so that ``reps`` calls of ``call_us`` take at most
+    SAMPLE_US (at least one call)."""
+    return max(1, min(reps, int(SAMPLE_US / max(call_us, 1e-3))))
+
+
 def _time_us(fn, *args, reps: int = 200, samples: int = 15, warmup: int = 10) -> float:
     """Median over ``samples`` of the mean time of ``reps`` back-to-back
-    calls, by CUDA events (after ``warmup`` calls)."""
+    calls, by CUDA events (after ``warmup`` calls, at most ``reps``; a
+    function slower than SAMPLE_US / ``reps`` takes fewer reps)."""
     import torch
-    for _ in range(warmup):
+    for _ in range(min(warmup, reps)):
         fn(*args)
     torch.cuda.synchronize()
+    reps = _fit_reps(reps, _one_call_us(lambda: fn(*args)))
     times = []
     for _ in range(samples):
         start = torch.cuda.Event(enable_timing=True)
@@ -731,8 +793,9 @@ def _time_us(fn, *args, reps: int = 200, samples: int = 15, warmup: int = 10) ->
 def _graph_times_us(fns, reps: int = 100, samples: int = 15, stream=None):
     """Device time per call of each of ``fns``: ``reps`` calls of each
     captured in a CUDA graph of its own, so the host's per-call cost drops
-    out, and the graphs replayed in turn ``samples`` times, so a change in
-    the card's speed during the run falls on all of them alike.  The sorted
+    out (fewer where the slowest call of ``fns`` is over SAMPLE_US /
+    ``reps``), and the graphs replayed in turn ``samples`` times, so a change
+    in the card's speed during the run falls on all of them alike.  The sorted
     per-call times of each.  ``stream``: the stream to warm up and capture
     on (an autograd backward runs on its forward's stream, so a backward
     is captured on the stream its forward ran on)."""
@@ -743,6 +806,7 @@ def _graph_times_us(fns, reps: int = 100, samples: int = 15, stream=None):
         for fn in fns:
             for _ in range(3):
                 fn()
+    reps = _fit_reps(reps, max(_one_call_us(fn, side) for fn in fns))
     torch.cuda.current_stream().wait_stream(side)
     graphs = []
     for fn in fns:
@@ -2628,7 +2692,7 @@ def phase_cifar_batched(main, seq_hist, seq_s_per_round):
     log(f"phase2b seconds_per_round={seconds / pcfg.T:.3f} (batched) vs "
         f"{seq_s_per_round:.3f} (sequential, phase2); Python-issued client steps "
         f"a round: {m_bar * pcfg.E} vs {pcfg.M * pcfg.E}")
-    return launches, seconds / pcfg.T
+    return launches, seconds / pcfg.T, hist
 
 
 def phase_baselines(main):
@@ -2708,12 +2772,12 @@ def phase_baselines(main):
     log(f"phase2c cifar seconds_per_round: "
         f"{ {n: round(v['seconds_per_round'], 3) for n, v in out.items()} }; SplitFed's comm "
         f"equal across its runs, its selections equal on both engines")
-    return out
+    return out, hists["splitfed_batched"]
 
 
 #: phase 2d's four runs of the batched engine: (block, prefetch)
 MULTIROUND_RUNS = ((1, 0), (1, 1), (4, 0), (4, 1))
-MULTIROUND_T = 5                 # eval_every 5: rounds 0 and 4 are sync rounds
+MULTIROUND_T = 4                 # eval_every 4: rounds 0 and 3 are sync rounds
 MULTIROUND_RTOL = 1e-6           # floats across the runs under deterministic cuDNN
 
 
@@ -2764,7 +2828,7 @@ class _deterministic_cudnn:
 
 def phase_multiround(main):
     """Phase 2d: multi-round execution on the batched main path (phase 2b's
-    configuration, T = 5, eval_every = 5).  Four runs — block 1 and 4, each
+    configuration, T = 4, eval_every = 4).  Four runs — block 1 and 4, each
     with prefetch 0 and 1 — under the main path's cuDNN settings: each makes T*M_bar*E B2 and B3 launches and T B1
     launches, every RoundRunner.accept_block runs under sync-debug "error",
     a block run makes one block.fetch span a block, and all make the same
@@ -2981,9 +3045,10 @@ def _replica_compare(solo, hist):
     return diffs, worst, acc, equal
 
 
-def _sweep_pool_pass(main, label: str, sweep_blocks, tmp: str) -> dict:
+def _sweep_pool_pass(main, label: str, sweep_blocks, tmp: str):
     """One pass of phase 2e (see :func:`phase_sweep_pool`); ``label`` names
-    the cuDNN mode in the log."""
+    the cuDNN mode in the log.  Returns (the figures, the sweep's and the
+    pool's Histories, which phase 2f holds its sharded runs against)."""
     import dataclasses
     import os
 
@@ -2996,7 +3061,7 @@ def _sweep_pool_pass(main, label: str, sweep_blocks, tmp: str) -> dict:
 
     data, cfg, module, pcfg, kw = main
     m_bar = pcfg.M // pcfg.R
-    out, found = {}, []
+    out, found, kept = {}, [], {}
 
     def timed(name, fn, want):
         sink = MemorySink()
@@ -3058,16 +3123,12 @@ def _sweep_pool_pass(main, label: str, sweep_blocks, tmp: str) -> dict:
             f"runs {3 * out['solo_seconds_per_round']:.3f} s a round); peak "
             f"{rec['peak_gb']:.2f} GB; launches {rec['launches']}; spans {rec['spans']}")
         out[f"sweep_block{block}"] = rec
+        kept[f"sweep_block{block}"] = dict(zip(SWEEP_SEEDS, hists))
 
     # the pool against each job's solo run; job1 checkpoints
     def spec(i):
-        bad = {0, 1, 2, 3} if i % 2 == 0 else {4, 5, 6, 7}
-        return JobSpec(name=f"job{i}", module=module, data=data,
-                       pcfg=dataclasses.replace(pcfg, seed=i, T=POOL_T[i], eval_every=POOL_T[i]),
-                       malicious=bad, attack=Attack(LABEL_FLIP), quant=kw["quant"],
-                       selection=kw["selection"],
-                       **(dict(checkpoint_path=os.path.join(tmp, f"job{i}{label.strip()}"),
-                               checkpoint_every=2) if i == 1 else {}))
+        return _pool_spec(main, i, **(dict(checkpoint_path=os.path.join(
+            tmp, f"job{i}{label.strip()}"), checkpoint_every=2) if i == 1 else {}))
 
     specs = [spec(i) for i in range(len(POOL_T))]
     STRICT.clear()
@@ -3104,6 +3165,7 @@ def _sweep_pool_pass(main, label: str, sweep_blocks, tmp: str) -> dict:
         f"block 2/prefetch 1 {rec['solo_seconds_per_round']:.3f} s a round); peak "
         f"{rec['peak_gb']:.2f} GB; launches {rec['launches']}; spans {rec['spans']}")
     out["pool"] = rec
+    kept["pool"] = pooled
 
     # job1's checkpoint (round 1) resumed under run_pigeon to T = 3
     cont = dataclasses.replace(specs[1].pcfg, T=3, eval_every=3)
@@ -3124,11 +3186,26 @@ def _sweep_pool_pass(main, label: str, sweep_blocks, tmp: str) -> dict:
                                       f"{REPLICA_ACC_TOL}")
     out["largest_gap"] = dict(losses=max(w for _, _, w, _ in found),
                               test_acc=max(a for _, _, _, a in found))
-    return out
+    return out, kept
 
 
 #: RoundRunner entries phase 2e ran under sync-debug "error", by name
 STRICT: dict = {}
+
+
+def _pool_spec(main, i: int, **extra):
+    """Job i of phase 2e's pool (and of 2f's): seed i, T = POOL_T[i], label
+    flip on clients 0-3 or 4-7, the main path's wire and policy."""
+    import dataclasses
+
+    from repro_torch.core import LABEL_FLIP, Attack
+    from repro_torch.core.jobs import JobSpec
+    data, _, module, pcfg, kw = main
+    bad = {0, 1, 2, 3} if i % 2 == 0 else {4, 5, 6, 7}
+    return JobSpec(name=f"job{i}", module=module, data=data,
+                   pcfg=dataclasses.replace(pcfg, seed=i, T=POOL_T[i], eval_every=POOL_T[i]),
+                   malicious=bad, attack=Attack(LABEL_FLIP), quant=kw["quant"],
+                   selection=kw["selection"], **extra)
 
 
 def phase_sweep_pool(main):
@@ -3170,7 +3247,7 @@ def phase_sweep_pool(main):
         setattr(RoundRunner, name, strict(name))
     try:
         with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
-            out = _sweep_pool_pass(main, "", (1, 2), tmp)
+            out, kept = _sweep_pool_pass(main, "", (1, 2), tmp)
     finally:
         for name, fn in originals.items():
             setattr(RoundRunner, name, fn)
@@ -3181,7 +3258,200 @@ def phase_sweep_pool(main):
         f"{3 * out['solo_seconds_per_round']:.3f}; pool s a job-round "
         f"{out['pool']['seconds_per_job_round']:.3f} vs solo "
         f"{out['pool']['solo_seconds_per_round']:.3f}")
+    return out, kept
+
+
+#: phase 2f: the sharded placement's tolerance against the vmap runs of
+#: phases 2b and 2c (the same slots on one card; a rank's slice elsewhere),
+#: the sweep's seeds and the pool's jobs
+SHARDED_RTOL = 1e-5
+SHARDED_SWEEP_SEEDS = (0, 1)
+SHARDED_POOL_JOBS = 2
+SHARDED_DEADLINE_S = 900.0
+
+
+def _on_every_card(target, *args):
+    """``target(*args)`` on every visible card as one NCCL group: in this
+    process as a group of one where one card is visible, else one spawned
+    rank a card (``launch/mesh.py::spawn``; each rank builds its own
+    inputs).  Returns the ranks' results in rank order."""
+    import torch
+    from repro_torch.launch.mesh import group_of_one, spawn
+    n = torch.cuda.device_count()
+    if n == 1:
+        with group_of_one("nccl"):
+            return [target(*args)]
+    torch.cuda.empty_cache()
+    return spawn(target, n, "nccl", SHARDED_DEADLINE_S)
+
+
+def _timed_run(fn):
+    """``fn()`` with the launch counts reset just before it: (result,
+    launches, seconds)."""
+    import torch
+    from repro_torch.kernels import build
+    torch.cuda.synchronize()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    result = fn()
+    torch.cuda.synchronize()
+    return result, dict(build.LAUNCHES), time.perf_counter() - t0
+
+
+def _sharded_cifar_rank(main=None) -> dict:
+    """Phase 2f's runs on this rank of the group (see :func:`phase_sharded`):
+    the Histories' rounds, the launches and the seconds of each."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import run_pigeon_sweep, run_splitfed
+    from repro_torch.core.jobs import run_job_pool
+    from repro_torch.core.runner import RoundRunner
+
+    main = main or _cifar_main_path()
+    data, cfg, module, pcfg, kw = main
+    out = dict(rank=dist.get_rank(), world=dist.get_world_size(),
+               nccl=".".join(map(str, torch.cuda.nccl.version())))
+    accept, steps = RoundRunner.accept, []
+    # rank 0 trains in every mesh; a rank outside one waits on rank 0's
+    # results (host reads of their shapes), so it runs without the mode
+    strict = "error" if out["rank"] == 0 else 0
+
+    def strict_accept(self, params, inputs, val):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode(strict)
+        try:
+            result = accept(self, params, inputs, val)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        steps.append(time.perf_counter() - t0)
+        return result
+
+    RoundRunner.accept = strict_accept
+    try:
+        hist, launches, seconds = _run("phase2f cifar sharded", module, data, pcfg,
+                                       engine="batched", placement="sharded", **kw)
+    finally:
+        RoundRunner.accept = accept
+    out["pigeon"] = dict(rounds=hist.rounds, launches=launches, s_per_round=seconds / pcfg.T,
+                         step_seconds=steps)
+    base = dict(malicious=kw["malicious"], attack=kw["attack"], quant="int8",
+                device=kw["device"])
+    hist, launches, seconds = _run("phase2f cifar splitfed sharded", module, data, pcfg,
+                                   driver=run_splitfed, engine="batched",
+                                   placement="sharded", **base)
+    out["splitfed"] = dict(rounds=hist.rounds, launches=launches,
+                           s_per_round=seconds / pcfg.T)
+    sweep_cfg = dataclasses.replace(pcfg, T=SWEEP_T, eval_every=SWEEP_T)
+    hists, launches, seconds = _timed_run(lambda: run_pigeon_sweep(
+        module, data, sweep_cfg, seeds=SHARDED_SWEEP_SEEDS, block=2, placement="sharded",
+        **kw))
+    out["sweep"] = dict(rounds={s: h.rounds for s, h in zip(SHARDED_SWEEP_SEEDS, hists)},
+                        launches=launches, s_per_round=seconds / SWEEP_T)
+    specs = [_pool_spec(main, i) for i in range(SHARDED_POOL_JOBS)]
+    pooled, launches, seconds = _timed_run(lambda: run_job_pool(
+        specs, block=2, prefetch=1, placement="sharded", device=kw["device"]))
+    job_rounds = sum(sp.pcfg.T for sp in specs)
+    out["pool"] = dict(rounds={k: h.rounds for k, h in pooled.items()}, launches=launches,
+                       s_per_job_round=seconds / job_rounds)
     return out
+
+
+def phase_sharded(main, b_per_round, hists):
+    """Phase 2f: the sharded placement (the cluster axis over an NCCL group
+    of every visible card: in this process as a group of one on one card,
+    one spawned rank a card elsewhere) on the main path: phase 2b's CIFAR
+    Table II run (``RoundRunner.accept`` under sync-debug "error" on rank
+    0, a rank of every mesh) held against 2b's History (decisions and comm exactly, val_losses within
+    SHARDED_RTOL), SplitFed against 2c's batched run the same way, a 2-seed
+    sweep (block 2) and a 2-job pool (block 2, prefetch 1) against 2e's
+    replicas and jobs (decisions exactly, losses within REPLICA_RTOL);
+    every rank's History equal to rank 0's; each run's B1, B2 and B3
+    launches as the round's structure gives them on a rank that trains
+    (rank 0); seconds a round beside 2b's.  ``hists``: 2b's, 2c's batched
+    SplitFed's and 2e's Histories."""
+    import numpy as np
+
+    data, cfg, module, pcfg, kw = main
+    ranks = _on_every_card(_sharded_cifar_rank, *(() if _cards() > 1 else (main,)))
+    got = ranks[0]
+    for r in ranks[1:]:
+        for run in ("pigeon", "splitfed", "sweep", "pool"):
+            check(r[run]["rounds"] == got[run]["rounds"],
+                  f"phase2f {run}: rank {r['rank']}'s History differs from rank 0's")
+    m_bar = pcfg.M // pcfg.R
+    wire = pcfg.T * m_bar * pcfg.E
+    check(got["pigeon"]["launches"] == want_launches(quant_dequant=wire,
+                                                     quant_dequant_stats=wire,
+                                                     tamper_check_sums=pcfg.T),
+          f"phase2f pigeon: launches {got['pigeon']['launches']}, want {wire} of each wire "
+          f"kernel and {pcfg.T} tamper checks")
+    check(len(got["pigeon"]["step_seconds"]) == pcfg.T,
+          f"phase2f: {len(got['pigeon']['step_seconds'])} sharded accepts, want {pcfg.T}")
+    check(got["splitfed"]["launches"] == want_launches(quant_dequant=2 * pcfg.T * pcfg.E),
+          f"phase2f splitfed: launches {got['splitfed']['launches']}")
+    sweep_wire = SWEEP_T * m_bar * pcfg.E
+    check(got["sweep"]["launches"] == want_launches(quant_dequant=sweep_wire,
+                                                    quant_dequant_stats=sweep_wire),
+          f"phase2f sweep: launches {got['sweep']['launches']}")
+    pool_rounds = max(POOL_T[:SHARDED_POOL_JOBS])
+    check(got["pool"]["launches"] == want_launches(
+        quant_dequant=pool_rounds * m_bar * pcfg.E,
+        quant_dequant_stats=pool_rounds * m_bar * pcfg.E, tamper_check_sums=pool_rounds),
+          f"phase2f pool: launches {got['pool']['launches']}")
+
+    def held(name, want_rounds, got_rounds, keys, rtol):
+        worst = 0.0
+        check(len(want_rounds) == len(got_rounds), f"phase2f {name}: round counts differ")
+        for rw, rg in zip(want_rounds, got_rounds):
+            for k in keys:
+                if k in rw:
+                    check(rg[k] == rw[k], f"phase2f {name} round {rw['round']}: {k} "
+                                          f"{rg[k]} != {rw[k]}")
+            a, b = np.asarray(rw["val_losses"], float), np.asarray(rg["val_losses"], float)
+            worst = max(worst, float(np.max(np.abs(a - b) / np.abs(a))))
+        check(worst <= rtol, f"phase2f {name}: val_losses {worst!r} apart > rtol {rtol}")
+        log(f"phase2f {name}: decisions equal; val_losses' largest relative gap {worst!r} "
+            f"(bound {rtol}); bit-equal: {want_rounds == got_rounds}")
+        return worst
+
+    gaps = dict(
+        pigeon=held("run_pigeon vs 2b", hists["b"].rounds, got["pigeon"]["rounds"],
+                    MULTIROUND_DECISIONS + ("clusters", "comm"), SHARDED_RTOL),
+        splitfed=held("run_splitfed vs 2c", hists["splitfed"].rounds,
+                      got["splitfed"]["rounds"], ("selected", "selected_honest", "comm"),
+                      SHARDED_RTOL))
+    for seed in SHARDED_SWEEP_SEEDS:
+        gaps[f"sweep seed {seed}"] = held(
+            f"sweep seed {seed} vs 2e", hists["sweep_block2"][seed].rounds,
+            got["sweep"]["rounds"][seed], MULTIROUND_DECISIONS + ("clusters", "comm"),
+            REPLICA_RTOL)
+    for job, rounds in got["pool"]["rounds"].items():
+        gaps[f"pool {job}"] = held(f"pool {job} vs 2e", hists["pool"][job].rounds, rounds,
+                                   MULTIROUND_DECISIONS + ("clusters", "comm"), REPLICA_RTOL)
+    out = dict(world=got["world"], nccl=got["nccl"], gaps=gaps,
+               s_per_round=got["pigeon"]["s_per_round"], s_per_round_2b=b_per_round,
+               accept_seconds=got["pigeon"]["step_seconds"],
+               splitfed_s_per_round=got["splitfed"]["s_per_round"],
+               sweep_s_per_round=got["sweep"]["s_per_round"],
+               pool_s_per_job_round=got["pool"]["s_per_job_round"],
+               launches=got["pigeon"]["launches"])
+    log(f"phase2f: NCCL {got['nccl']}, world {got['world']}; run_pigeon sharded "
+        f"{out['s_per_round']:.3f} s/round vs 2b's {b_per_round:.3f} (vmap); sharded accept "
+        f"seconds {[round(x, 3) for x in out['accept_seconds']]}; SplitFed "
+        f"{out['splitfed_s_per_round']:.3f} s/round; sweep {out['sweep_s_per_round']:.3f} s a "
+        f"round; pool {out['pool_s_per_job_round']:.3f} s a job-round; launches on the path "
+        f"(B1 tamper_check_sums, B2 quant_dequant, B3 quant_dequant_stats) "
+        f"{got['pigeon']['launches']}; {card_line()}")
+    return out
+
+
+def _cards() -> int:
+    import torch
+    return torch.cuda.device_count()
 
 
 def phase_mnist():
@@ -3956,6 +4226,139 @@ def _phase_round_steps(cfg):
         out[label] = dict(s_per_round=seconds / k, peak_gb=peak_gb, launches=launches)
     del stacked
     torch.cuda.empty_cache()
+    return out
+
+
+#: phase 8c: the round step's runs (label, make_pigeon_round_step kwargs,
+#: rounds) and its tolerance against the one-card step
+SHARDMAP_RUNS = (("int8", dict(quant="int8"), 1), ("block2", dict(block=2), 2))
+SHARDMAP_RTOL = 1e-5
+
+
+def _lm_step_inputs(k: int, seed: int):
+    """``k`` rounds of (R, B, S) batches of build_lm_task tokens for phase
+    8b's and 8c's 2-slot steps."""
+    import torch
+    r, b, s = 2, TRAIN_BATCH, TRAIN_SEQ
+    parts = [_train_batch(b, s, seed=seed + i) for i in range(k * r)]
+    out = {name: torch.stack([p[name] for p in parts]).view(k, r, b, s)
+           for name in ("tokens", "labels")}
+    return out if k > 1 else {name: v[0] for name, v in out.items()}
+
+
+def _load_slots(stacked, cfg, slots) -> None:
+    """Slot i of ``stacked`` holds the init of seed ``slots[i]``, drawn on
+    the card (phase 8b's inits)."""
+    import torch
+    from repro_torch.models import build_model
+    plain = build_model(cfg, DEVICE)
+    for i, seed in enumerate(slots):
+        stacked.load_slot(i, plain.init(torch.Generator(device=DEVICE).manual_seed(seed)))
+    del plain
+    torch.cuda.empty_cache()
+
+
+def _round_cfg():
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.shapes import SHAPES, shape_settings
+    return dataclasses.replace(get_config("qwen3-8b"), n_layers=ROUND_LAYERS,
+                               **shape_settings(SHAPES["train_4k"]))
+
+
+def _shardmap_rank(reference=None) -> dict:
+    """Phase 8c on this rank (see :func:`phase_round_sharded`): each run's
+    step on this rank's slots of the 2-slot model, from phase 8b's inits:
+    vlosses, sel, seconds, peak memory, launches; with ``reference`` (one
+    card) each run's one-card step first, on the same inits and batches."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.runner import cluster_mesh
+    from repro_torch.launch.steps import make_pigeon_round_step, make_pigeon_round_step_shardmap
+    from repro_torch.models import build_stacked_model
+
+    cfg, r = _round_cfg(), 2
+    mesh = cluster_mesh(r)
+    n = r // mesh.size
+    lo = mesh.coord("pod") * n
+    stacked = build_stacked_model(cfg, n, device=DEVICE)
+    val = _train_batch(8, TRAIN_SEQ, seed=90)
+    out = dict(rank=dist.get_rank(), world=dist.get_world_size(), slots=n,
+               member=mesh.member)
+    for i, (label, kw, k) in enumerate(SHARDMAP_RUNS):
+        inputs = _lm_step_inputs(k, seed=100 + 10 * i)
+        for which in (("vmap", "sharded") if reference else ("sharded",)):
+            _load_slots(stacked, cfg, range(lo, lo + n))
+            step = (make_pigeon_round_step(stacked, TRAIN_LR, **kw) if which == "vmap"
+                    else make_pigeon_round_step_shardmap(stacked, mesh, TRAIN_LR, **kw))
+            torch.cuda.reset_peak_memory_stats()
+            (vlosses, sel), launches, seconds = _timed_run(lambda: step(inputs, val))
+            out[f"{label} {which}"] = dict(
+                vlosses=vlosses.reshape(k, r).tolist(), sel=sel.reshape(k).tolist(),
+                launches=launches, seconds=seconds,
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                slots_equal=all(torch.equal(p[0], p[i]) for p in stacked.parameters()
+                                for i in range(1, n)))
+            # a second call on the same inputs, timed alone: the group's
+            # communicators and the kernels are set up by then
+            out[f"{label} {which}"]["warm_seconds"] = _timed_run(lambda: step(inputs, val))[2]
+    del stacked
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_round_sharded(batched_lm):
+    """Phase 8c: phase 8b's launch-layer round (Qwen3-8B's width at 12
+    layers, R = 2 slots from 8b's inits, train_4k's settings) through
+    ``make_pigeon_round_step_shardmap`` over an NCCL group of every visible
+    card (a group of one on one card: both slots on this rank; one slot a
+    rank on two or more), int8 (block 1) and argmin in a block of 2: sel
+    equal to ``make_pigeon_round_step``'s on the same inits and batches,
+    vlosses within SHARDMAP_RTOL, every slot of every rank the winner, the
+    launches the step's structure gives a rank's slots; seconds and peak
+    memory beside 8b's steps'."""
+    import numpy as np
+
+    cfg = _round_cfg()
+    if _cards() == 1:
+        ranks = _on_every_card(_shardmap_rank, True)
+        ref = ranks[0]
+    else:
+        from repro_torch.launch.mesh import group_of_one
+        ranks = _on_every_card(_shardmap_rank)
+        with group_of_one("nccl"):        # the one-card step, after the ranks are done
+            ref = _shardmap_rank(True)
+    out = dict(world=ranks[0]["world"], runs={},
+               launches=ranks[0][f"{SHARDMAP_RUNS[0][0]} sharded"]["launches"])
+    for label, kw, k in SHARDMAP_RUNS:
+        want = ref[f"{label} vmap"]
+        for res in ranks:
+            got = res[f"{label} sharded"]
+            name = f"phase8c {label} rank {res['rank']}"
+            check(got["sel"] == want["sel"], f"{name}: sel {got['sel']} != {want['sel']}")
+            gap = float(np.max(np.abs(np.asarray(got["vlosses"]) - np.asarray(want["vlosses"]))
+                               / np.abs(np.asarray(want["vlosses"]))))
+            check(gap <= SHARDMAP_RTOL, f"{name}: vlosses {got['vlosses']} vs "
+                                        f"{want['vlosses']} ({gap!r} > {SHARDMAP_RTOL})")
+            check(got["slots_equal"], f"{name}: the slots differ after the winner's "
+                                      f"all-reduce")
+            want_l = (_step_launches(cfg, res["slots"], k, kw.get("quant")) if res["member"]
+                      else want_launches())
+            check(got["launches"] == want_l, f"{name}: launches {got['launches']}, want {want_l}")
+            log(f"{name}: sel {got['sel']} (one-card step {want['sel']}); vlosses "
+                f"{got['vlosses']} (largest relative gap {gap!r}); {got['seconds'] / k:.3f} s "
+                f"a round (first call included; one-card step {want['seconds'] / k:.3f}); "
+                f"warm second call {got['warm_seconds'] / k:.3f} s a round (one-card step "
+                f"{want['warm_seconds'] / k:.3f}); "
+                f"peak {got['peak_gb']:.2f} GB (one-card step {want['peak_gb']:.2f}; 8b's "
+                f"steps {batched_lm['round_steps']['int8']['peak_gb']:.2f}); launches "
+                f"{got['launches']}; {card_line()}")
+            out["runs"][f"{label} rank {res['rank']}"] = dict(
+                gap=gap, s_per_round=got["seconds"] / k, peak_gb=got["peak_gb"],
+                warm_s_per_round=got["warm_seconds"] / k,
+                vmap_s_per_round=want["seconds"] / k,
+                vmap_warm_s_per_round=want["warm_seconds"] / k, vmap_peak_gb=want["peak_gb"])
     return out
 
 
@@ -5479,6 +5882,7 @@ def _phase_audit() -> dict:
 
     ctx = build_context(DEVICE)
     compiles, findings = budgets.measure_compile_counts(ctx)
+    # each sharded cell runs in a group of one rank, closed after it
     programs, audit_findings = budgets.measure_program_budgets(ctx, select_cells())
     findings += audit_findings
     check(not findings, "phase18a: " + "; ".join(f.located() for f in findings))
@@ -5719,10 +6123,14 @@ def main() -> None:
     torch.cuda.reset_peak_memory_stats()    # phase 5's peak: the protocol phases only
     main_path = phase("2 data", _cifar_main_path)
     seq_hist, seq_launches, s_per_round = phase("2", phase_cifar, main_path)
-    launches, b_per_round = phase("2b", phase_cifar_batched, main_path, seq_hist, s_per_round)
-    baselines = phase("2c", phase_baselines, main_path)
+    launches, b_per_round, b_hist = phase("2b", phase_cifar_batched, main_path, seq_hist,
+                                          s_per_round)
+    baselines, sfl_hist = phase("2c", phase_baselines, main_path)
     multiround = phase("2d", phase_multiround, main_path)
-    sweep_pool = phase("2e", phase_sweep_pool, main_path)
+    sweep_pool, replica_hists = phase("2e", phase_sweep_pool, main_path)
+    sharded = phase("2f", phase_sharded, main_path, b_per_round,
+                    dict(b=b_hist, splitfed=sfl_hist, **replica_hists))
+    del b_hist, sfl_hist, replica_hists
     phase("3", phase_mnist)
     phase("4", phase_cpu_vs_card)
     phase("4 lm", phase_lm_cpu_vs_card)
@@ -5734,6 +6142,7 @@ def main() -> None:
     train = phase("7", phase_train)
     rounds, round_hists = phase("8", phase_round)
     batched_lm = phase("8b", phase_round_batched, round_hists)
+    shardmap = phase("8c", phase_round_sharded, batched_lm)
     del round_hists
     xlstm = phase("9", phase_xlstm)
     xlstm_train = phase("10", phase_xlstm_train)
@@ -5791,6 +6200,7 @@ def main() -> None:
                **{name: b["launches"] for name, b in baselines.items()},
                "sweep": sweep_pool["sweep_block2"]["launches"],
                "pool": sweep_pool["pool"]["launches"],
+               "sharded": sharded["launches"],
                "serve": serve["launches"],
                "train": train["launches"],
                **{f"round_{q}": r["launches"] for q, r in rounds.items()},
@@ -5799,6 +6209,7 @@ def main() -> None:
                **{f"round_step_{q}": r["launches"]
                   for q, r in batched_lm["round_steps"].items()},
                "splitfed_lm_batched": batched_lm["splitfed"]["launches"],
+               "round_step_sharded_int8": shardmap["launches"],
                "xlstm_prefill": xlstm["prefill_launches"],
                "xlstm_decode": xlstm["loop_launches"],
                "xlstm_train": xlstm_train["launches"],
@@ -6034,8 +6445,10 @@ def main() -> None:
     log(f"phase2 seconds_per_round={s_per_round:.3f}; phase2b (batched) "
         f"seconds_per_round={b_per_round:.3f}; phase2c baselines {baselines}; "
         f"phase2d multiround {multiround}; phase2e sweep and pool {sweep_pool}; "
+        f"phase2f sharded {sharded}; "
         f"phase6 serve {serve}; phase7 train {train}; "
-        f"phase8 rounds {rounds}; phase8b batched LM {batched_lm}; phase9 xlstm {xlstm}; "
+        f"phase8 rounds {rounds}; phase8b batched LM {batched_lm}; phase8c sharded LM "
+        f"step {shardmap}; phase9 xlstm {xlstm}; "
         f"phase10 xlstm train {xlstm_train}; phase11 xlstm rounds {xlstm_rounds}; "
         f"phase12 vlm {vlm}; phase13 moe {moe}; phase14 moe rounds {moe_rounds}; "
         f"phase15 zamba2 {zamba2}; phase16 zamba2 rounds {zamba2_rounds}; "

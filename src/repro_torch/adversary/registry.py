@@ -80,6 +80,21 @@ class AttackVec:
         """The ``(R,)`` lanes of client position ``j`` of every cluster."""
         return self._map(lambda a: a[:, j], lambda h: h[:, j])
 
+    def rows(self, index: slice) -> "AttackVec":
+        """The lanes of rows ``index`` of the leading axis (views): a
+        rank's clusters of a round."""
+        return self._map(lambda a: a[index], lambda h: h[index])
+
+    def block(self, n_lanes: int, lanes: slice, clusters: slice) -> "AttackVec":
+        """The lanes of replicas ``lanes`` x clusters ``clusters`` of an
+        ``(L * R, ...)`` replica grid (``L = n_lanes``, replica-major), in
+        the same order: a rank's block of the sweep's or the pool's grid,
+        cut on the lanes' device (no index crosses from the host)."""
+        def cut(a):
+            grid = a.reshape((n_lanes, -1) + tuple(a.shape[1:]))[lanes, clusters]
+            return grid.reshape((-1,) + tuple(a.shape[1:]))
+        return self._map(cut, cut)
+
     def flat(self) -> "AttackVec":
         """The ``(R * M_bar,)`` lanes of a round's grid, cluster-major: one
         lane a client (SplitFed trains every client at once)."""

@@ -26,6 +26,7 @@ warnings (operation counts drift across torch versions).
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 from typing import Any, Callable, Dict, List, Tuple
@@ -196,16 +197,22 @@ def measure_compile_counts(ctx) -> Tuple[Dict[str, Dict[str, Any]], List[Finding
 
 
 def measure_program_budgets(ctx, cells) -> Tuple[Dict[str, Dict[str, Any]], List[Finding]]:
-    """Audit every program cell; returns (budget rows, invariant findings)."""
+    """Audit every program cell; returns (budget rows, invariant findings).
+    A sharded cell runs in a process group of one rank (gloo on the CPU,
+    NCCL on the card), closed after the cell unless one was already up."""
+    from ..launch.mesh import group_of_one
     from .program_audit import audit_fn
     rows: Dict[str, Dict[str, Any]] = {}
     findings: List[Finding] = []
     device = ctx.device.type
+    backend = "nccl" if device == "cuda" else "gloo"
     for cell in cells:
-        fn, args, carry = cell.realize(ctx)
         key = cell_key(cell.name, device)
-        audit = audit_fn(fn, args, name=key, carry_argnums=carry,
-                         expected_fetch_leaves=cell.fetch_leaves(ctx))
+        with (group_of_one(backend) if cell.placement == "sharded"
+              else contextlib.nullcontext()):
+            fn, args, carry = cell.realize(ctx)
+            audit = audit_fn(fn, args, name=key, carry_argnums=carry,
+                             expected_fetch_leaves=cell.fetch_leaves(ctx))
         findings.extend(audit.findings)
         rows[key] = audit.budget_row()
     return rows, findings

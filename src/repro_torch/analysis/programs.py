@@ -11,9 +11,12 @@ entry the drivers run.
 
 The reference's placements are ``vmap`` and ``sharded``; the port's
 cluster axis is written out in the stacked model, its single-card
-counterpart of the vmap placement, so its cells are named ``@batched``.
-The ``@sharded`` cells (:data:`SHARDED_CELLS`) have no counterpart on one
-card: each names :data:`~repro_torch.core.protocol.MULTI_CARD_SLICE`.
+counterpart of the vmap placement, so those cells are named ``@batched``.
+The ``@sharded`` cells (:data:`SHARDED_CELLS`) run the same entries under
+``placement="sharded"`` in this process as a group of one rank (gloo on
+the CPU, NCCL on the card; started by the cell when no group is), so the
+audit holds the sharded bodies, their collectives included, to the same
+invariants.
 """
 from __future__ import annotations
 
@@ -24,17 +27,15 @@ from typing import Any, Callable, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..core.protocol import MULTI_CARD_SLICE
-
 SEED = 0
 BLOCK_K = 2
 SWEEP_SEEDS = (0, 1)
 POOL_LANES = 2
 
-#: the reference's sharded cells: none has a counterpart on one card
-SHARDED_CELLS = {name: MULTI_CARD_SLICE for name in (
-    "pigeon/accept@sharded", "pigeon/accept_block@sharded", "pigeon/round@sharded",
-    "pigeon/pool_accept_block@sharded", "sweep/sweep@sharded")}
+#: the reference's sharded cells, each run in-process as a group of one rank
+SHARDED_CELLS = ("pigeon/accept@sharded", "pigeon/accept_block@sharded",
+                 "pigeon/round@sharded", "pigeon/pool_accept_block@sharded",
+                 "sweep/sweep@sharded")
 
 
 @dataclasses.dataclass
@@ -99,18 +100,18 @@ def build_context(device="cpu") -> TinyContext:
 class ProgramCell:
     """One audited program: a runner entry, or a kernel."""
     name: str                       # e.g. "pigeon/accept@batched"
-    placement: str                  # "batched" | "kernel"
+    placement: str                  # "batched" | "sharded" | "kernel"
     realize: Callable[[TinyContext], Tuple[Callable, tuple, Tuple[int, ...]]]
     #        ctx -> (fn, args, carry_argnums)
     fetch_leaves: Callable[[TinyContext], int]
 
 
-def _pigeon_runner(ctx: TinyContext, selection: str = "argmin"):
+def _pigeon_runner(ctx: TinyContext, selection: str = "argmin", placement: str = "vmap"):
     from ..core.runner import protocol_accept_runner
     from ..selection import resolve_policy
     return protocol_accept_runner(ctx.module, ctx.pcfg.lr, resolve_policy(selection),
                                   ctx.pcfg.tamper_check, ctx.pcfg.tamper_tol,
-                                  quant=ctx.pcfg.comm.quant)
+                                  quant=ctx.pcfg.comm.quant, placement=placement)
 
 
 def _splitfed_runner(ctx: TinyContext):
@@ -120,12 +121,20 @@ def _splitfed_runner(ctx: TinyContext):
                                   quant=ctx.pcfg.comm.quant)
 
 
-def _sweep_runner(ctx: TinyContext):
+def _sweep_runner(ctx: TinyContext, placement: str = "vmap"):
     from ..core.runner import protocol_runner
     from ..selection import resolve_policy
     policy = resolve_policy("argmin")
     return protocol_runner(ctx.module, ctx.pcfg.lr, policy.needs_message_stats, policy,
-                           ctx.pcfg.comm.quant)
+                           ctx.pcfg.comm.quant, placement=placement)
+
+
+def _sharded(runner_of):
+    """The sharded form of a cell's runner (audited inside a group of one
+    rank, :func:`~repro_torch.analysis.budgets.measure_program_budgets`)."""
+    def runner(ctx: TinyContext):
+        return runner_of(ctx, placement="sharded")
+    return runner
 
 
 def _theta(ctx):
@@ -206,6 +215,21 @@ CELLS: List[ProgramCell] = [
     ProgramCell("sweep/sweep_block@batched", "batched",
                 _entry_cell(_sweep_runner, "sweep_block", _sweep_block_args), lambda c: 3),
     # the wire kernels (B2, B3): (deq, scales) and (deq, scales, stats)
+    # the sharded placement, a group of one rank: the same entries with their
+    # all-gathers and masked all-reduces
+    ProgramCell("pigeon/accept@sharded", "sharded",
+                _entry_cell(_sharded(_pigeon_runner), "accept", _round_args), lambda c: 1),
+    ProgramCell("pigeon/accept_block@sharded", "sharded",
+                _entry_cell(_sharded(_pigeon_runner), "accept_block", _block_args),
+                lambda c: 1),
+    ProgramCell("pigeon/round@sharded", "sharded",
+                _entry_cell(_sharded(_pigeon_runner), "round", _round_args, carry=False),
+                lambda c: _theta_leaves(c) + 2),
+    ProgramCell("pigeon/pool_accept_block@sharded", "sharded",
+                _entry_cell(_sharded(_pigeon_runner), "pool_accept_block",
+                            _pool_block_args), lambda c: 1),
+    ProgramCell("sweep/sweep@sharded", "sharded",
+                _entry_cell(_sharded(_sweep_runner), "sweep", _sweep_args), lambda c: 3),
     ProgramCell("kernels/quant_roundtrip@int8", "kernel", _quant_cell(stats=False),
                 lambda c: 2),
     ProgramCell("kernels/quant_roundtrip_stats@int8", "kernel", _quant_cell(stats=True),
@@ -218,7 +242,7 @@ REFERENCE_NAMES = {c.name: c.name.replace("@batched", "@vmap")
                    for c in CELLS}
 
 
-def select_cells(placements: Tuple[str, ...] = ("batched", "kernel"),
+def select_cells(placements: Tuple[str, ...] = ("batched", "sharded", "kernel"),
                  names: Optional[Tuple[str, ...]] = None) -> List[ProgramCell]:
     cells = [c for c in CELLS if c.placement in placements]
     if names:

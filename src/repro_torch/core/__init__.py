@@ -19,9 +19,10 @@ from .jobs import JobPool, JobSpec, run_job_pool
 from .protocol import (ENGINES, PLACEMENTS, ClientData, CommMeter, History,
                        ProtocolConfig, check_block, evaluate, run_pigeon, run_pigeon_plus,
                        run_splitfed, run_vanilla_sl, train_cluster)
-from .runner import (RoundRunner, RoundSpec, VerifyConfig, cluster_map, onehot_select,
-                     protocol_accept_runner, protocol_round_spec, protocol_runner,
-                     select_map, sweep_map)
+from .runner import (RoundRunner, RoundSpec, VerifyConfig, check_partial_auto_backend,
+                     cluster_map, cluster_mesh, onehot_select, protocol_accept_runner,
+                     protocol_round_spec, protocol_runner, select_map, sweep_map,
+                     sweep_mesh)
 from .split import (SplitModule, client_update, client_update_stats, from_cnn, from_lm,
                     message_stats, sgd_update, sl_minibatch_grads, sl_minibatch_grads_vec)
 from .validation import (check_handoff, handoff_activations, select_cluster,
@@ -42,6 +43,7 @@ __all__ = [
     "run_pigeon_sweep", "train_round_batched", "onehot_select",
     "PLACEMENTS", "RoundRunner", "RoundSpec", "VerifyConfig", "cluster_map",
     "select_map", "sweep_map", "protocol_round_spec", "protocol_runner",
+    "cluster_mesh", "sweep_mesh", "check_partial_auto_backend",
     "protocol_accept_runner", "JobSpec", "JobPool", "run_job_pool",
     "SelectionPolicy", "MedianOfMeansPolicy", "LossPlusDistancePolicy",
     "TrimmedPolicy", "resolve_policy", "selection_policies",

@@ -33,6 +33,12 @@ in lockstep, each seed's streams those of its solo ``run_pigeon(engine=
 "batched")``, trained as one stacked program of S * R slots
 (``RoundRunner.sweep``, the replica form), each seed selecting its own
 winner; one fetch a round or a block.
+
+Every driver entry takes ``placement``: ``"vmap"`` (the stacked round on
+this card) or ``"sharded"`` (the cluster axis over the ranks of a process
+group, ``runner.RoundRunner``).  Under the sharded placement every rank
+assembles the whole round as the vmap path does, so the streams stay in
+step, and the runner keeps the rank's clusters of it.
 """
 from __future__ import annotations
 
@@ -139,21 +145,23 @@ def train_round_batched(module: SplitModule, theta, clusters, data: ClientData,
                         rng: np.random.Generator, seed_gen: torch.Generator,
                         meter: CommMeter, d_c: int, x0: torch.Tensor,
                         y0: torch.Tensor, with_stats: bool = False, prefetched=None,
-                        telemetry=None) -> List[Dict[str, Any]]:
+                        telemetry=None, placement: str = "vmap") -> List[Dict[str, Any]]:
     """All R candidates of round t in one stacked pass, selection left to
     the host selector (``selection.select_host``, the param-tamper path; the
     default path is :func:`pigeon_round_accept`).  Each result holds a view
     into the stacked candidates; ``protocol.res_params`` / ``res_vacts``
     take out only the ones the selector visits.  ``prefetched`` is the
     round's payload when the round feeder assembled it (the streams are
-    then already consumed, in this order)."""
+    then already consumed, in this order).  ``placement="sharded"``: each
+    rank trains its slice and the candidates are all-gathered, so the host
+    selector runs alike on every rank."""
     tel = NULL_SESSION if telemetry is None else telemetry
     payload = _payload(prefetched, tel, t, rng, seed_gen, data, clusters, pcfg, tm,
                        x0.device)
     with tel.span("round.step", round=t) as sp:
         (gs, ps), aux, vlosses, vacts = protocol_runner(
-            module, pcfg.lr, with_stats, quant=pcfg.comm.quant).candidates(
-            theta, payload, (x0, y0))
+            module, pcfg.lr, with_stats, quant=pcfg.comm.quant,
+            placement=placement).candidates(theta, payload, (x0, y0))
         sp.fence(vlosses)
     losses, stats = aux if with_stats else (aux, None)
     _account_turns(meter, pcfg, clusters, d_c, _count_params(theta[0]))
@@ -174,7 +182,8 @@ def pigeon_round_accept(module: SplitModule, theta, clusters, data: ClientData,
                         pcfg: ProtocolConfig, tm: ThreatModel, t: int,
                         rng: np.random.Generator, seed_gen: torch.Generator,
                         meter: CommMeter, d_c: int, x0: torch.Tensor,
-                        y0: torch.Tensor, policy, prefetched=None, telemetry=None):
+                        y0: torch.Tensor, policy, prefetched=None, telemetry=None,
+                        placement: str = "vmap"):
     """The default batched round: training, validation and the whole
     acceptance cascade (policy score -> rank -> handoff verify -> commit) on
     the device, then the round's one fetch.  Returns ``(theta', record)``,
@@ -182,7 +191,7 @@ def pigeon_round_accept(module: SplitModule, theta, clusters, data: ClientData,
     History fields (val_losses / train_losses / selected / detections /
     accepted).  Only for threat models without handoff (param-tamper)
     attacks: those draw noise per visited candidate on the host.
-    ``prefetched`` as in :func:`train_round_batched`."""
+    ``prefetched`` and ``placement`` as in :func:`train_round_batched`."""
     from ..selection import unpack_fetch
     if tm.has_param_tamper:
         raise ValueError("param-tamper threat models must use the host "
@@ -192,7 +201,7 @@ def pigeon_round_accept(module: SplitModule, theta, clusters, data: ClientData,
                        x0.device)
     runner = protocol_accept_runner(module, pcfg.lr, policy,
                                     pcfg.tamper_check, pcfg.tamper_tol,
-                                    quant=pcfg.comm.quant)
+                                    quant=pcfg.comm.quant, placement=placement)
     with tel.span("round.step", round=t) as sp:
         theta, fetch = runner.accept(theta, payload, (x0, y0))
         sp.fence(fetch)
@@ -313,18 +322,22 @@ def splitfed_round_spec(module: SplitModule, lr: float, with_stats: bool = False
 
 
 def splitfed_runner(module: SplitModule, lr: float, with_stats: bool = False,
-                    quant=None) -> RoundRunner:
+                    quant=None, *, placement: str = "vmap") -> RoundRunner:
     """The candidates runner of SplitFed's host-selected batched path."""
-    return RoundRunner(splitfed_round_spec(module, lr, with_stats, quant))
+    return RoundRunner(splitfed_round_spec(module, lr, with_stats, quant),
+                       placement=placement)
 
 
-def splitfed_accept_runner(module: SplitModule, lr: float, select, quant=None
-                           ) -> RoundRunner:
+def splitfed_accept_runner(module: SplitModule, lr: float, select, quant=None, *,
+                           placement: str = "vmap") -> RoundRunner:
     """SplitFed's fused-selection runner: the policy cascade with the verify
-    stage off (no chained handoff to tamper with)."""
+    stage off (no chained handoff to tamper with).  Under the sharded
+    placement each rank trains its clusters' clients and FedAvg stays the
+    ``combine`` hook inside them."""
     spec = splitfed_round_spec(module, lr, with_stats=select.needs_message_stats,
                                quant=quant)
-    return RoundRunner(spec, select=select, verify=VerifyConfig(enabled=False))
+    return RoundRunner(spec, select=select, verify=VerifyConfig(enabled=False),
+                       placement=placement)
 
 
 #: SplitFed's payload is the Pigeon round's: the batches in the sequential
@@ -338,7 +351,7 @@ def splitfed_round_batched(module: SplitModule, theta, clusters, data: ClientDat
                            rng: np.random.Generator, seed_gen: torch.Generator,
                            x0: torch.Tensor, y0: torch.Tensor,
                            with_stats: bool = False, prefetched=None,
-                           telemetry=None) -> List[Dict[str, Any]]:
+                           telemetry=None, placement: str = "vmap") -> List[Dict[str, Any]]:
     """Batched SplitFed round, selection left to the caller (the host
     path).  Each result holds a view into the stacked cluster models;
     ``protocol.res_params`` takes out only the selected one."""
@@ -347,8 +360,8 @@ def splitfed_round_batched(module: SplitModule, theta, clusters, data: ClientDat
                        x0.device)
     with tel.span("round.step", round=t) as sp:
         (g_avg, p_avg), aux, vlosses, vacts = splitfed_runner(
-            module, pcfg.lr, with_stats, quant=pcfg.comm.quant).candidates(
-            theta, payload, (x0, y0))
+            module, pcfg.lr, with_stats, quant=pcfg.comm.quant,
+            placement=placement).candidates(theta, payload, (x0, y0))
         sp.fence(vlosses)
     vlosses, stats = _fetch_together(vlosses, aux[1] if with_stats else None)
     results = []
@@ -365,7 +378,7 @@ def splitfed_round_accept(module: SplitModule, theta, clusters, data: ClientData
                           pcfg: ProtocolConfig, tm: ThreatModel, t: int,
                           rng: np.random.Generator, seed_gen: torch.Generator,
                           x0: torch.Tensor, y0: torch.Tensor, policy,
-                          prefetched=None, telemetry=None):
+                          prefetched=None, telemetry=None, placement: str = "vmap"):
     """SplitFed's default batched round: FedAvg per cluster and the policy
     selection cascade on the device, then the round's one fetch.  Returns
     ``(theta', record)`` like :func:`pigeon_round_accept` (``detections``
@@ -374,7 +387,8 @@ def splitfed_round_accept(module: SplitModule, theta, clusters, data: ClientData
     tel = NULL_SESSION if telemetry is None else telemetry
     payload = _payload(prefetched, tel, t, rng, seed_gen, data, clusters, pcfg, tm,
                        x0.device)
-    runner = splitfed_accept_runner(module, pcfg.lr, policy, quant=pcfg.comm.quant)
+    runner = splitfed_accept_runner(module, pcfg.lr, policy, quant=pcfg.comm.quant,
+                                    placement=placement)
     with tel.span("round.step", round=t) as sp:
         theta, fetch = runner.accept(theta, payload, (x0, y0))
         sp.fence(fetch)
@@ -456,7 +470,7 @@ def _block_accept(runner, theta, clusters_k, t0: int, block, x0, y0, tel):
 
 def pigeon_block_accept(module: SplitModule, theta, clusters_k, pcfg: ProtocolConfig,
                         tm: ThreatModel, t0: int, block, x0: torch.Tensor,
-                        y0: torch.Tensor, policy, telemetry=None):
+                        y0: torch.Tensor, policy, telemetry=None, placement: str = "vmap"):
     """K consecutive fused acceptance rounds with one ``(K, 2R+3)`` fetch,
     the block form of :func:`pigeon_round_accept`: ``(theta', records)``,
     one History record a round.  No CommMeter accounting here: the driver
@@ -466,17 +480,19 @@ def pigeon_block_accept(module: SplitModule, theta, clusters_k, pcfg: ProtocolCo
         raise ValueError("param-tamper threat models must use the host "
                          "selection cascade")
     runner = protocol_accept_runner(module, pcfg.lr, policy, pcfg.tamper_check,
-                                    pcfg.tamper_tol, quant=pcfg.comm.quant)
+                                    pcfg.tamper_tol, quant=pcfg.comm.quant,
+                                    placement=placement)
     return _block_accept(runner, theta, clusters_k, t0, block, x0, y0,
                          NULL_SESSION if telemetry is None else telemetry)
 
 
 def splitfed_block_accept(module: SplitModule, theta, clusters_k, pcfg: ProtocolConfig,
                           t0: int, block, x0: torch.Tensor, y0: torch.Tensor, policy,
-                          telemetry=None):
+                          telemetry=None, placement: str = "vmap"):
     """SplitFed's round block: K FedAvg and selection-cascade rounds, one
     fetch — the block form of :func:`splitfed_round_accept`."""
-    runner = splitfed_accept_runner(module, pcfg.lr, policy, quant=pcfg.comm.quant)
+    runner = splitfed_accept_runner(module, pcfg.lr, policy, quant=pcfg.comm.quant,
+                                    placement=placement)
     return _block_accept(runner, theta, clusters_k, t0, block, x0, y0,
                          NULL_SESSION if telemetry is None else telemetry)
 
@@ -486,7 +502,7 @@ def splitfed_block_accept(module: SplitModule, theta, clusters_k, pcfg: Protocol
 # ---------------------------------------------------------------------------
 
 def sweep_round(module: SplitModule, lr: float, thetas, inputs, val, policy=None,
-                quant: Optional[str] = None):
+                quant: Optional[str] = None, placement: str = "vmap"):
     """One global round of S independent protocol replicas through
     ``RoundRunner.sweep``: per seed the cluster-parallel round, the
     policy's selection and the winner's carry, all S * R clusters as one
@@ -495,7 +511,8 @@ def sweep_round(module: SplitModule, lr: float, thetas, inputs, val, policy=None
     (``runner.protocol_round_spec``).  Returns ``(thetas, train_aux (S, R,
     ...), vlosses (S, R), sels (S,))``, on the device."""
     with_stats = policy is not None and policy.needs_message_stats
-    return protocol_runner(module, lr, with_stats, policy, quant).sweep(thetas, inputs, val)
+    return protocol_runner(module, lr, with_stats, policy, quant,
+                           placement=placement).sweep(thetas, inputs, val)
 
 
 @torch.no_grad()
@@ -557,15 +574,18 @@ def run_pigeon_sweep(module: SplitModule, data: ClientData, pcfg: ProtocolConfig
 
     * ``block`` — up to ``block`` rounds through ``RoundRunner.sweep_block``
       with one fetch; blocks end at eval rounds.
-    * ``placement`` — ``"vmap"`` (one card); ``device``, ``quant``,
-      ``threat_model``, ``telemetry`` as in ``run_pigeon``.  Param-tamper
-      threat models raise: the handoff check is not modelled here."""
+    * ``placement`` — ``"vmap"`` (one card) or ``"sharded"`` (the S x R
+      replica grid over a ``(seed, pod)`` mesh of the process group's
+      ranks, ``runner.sweep_mesh``; every rank returns every seed's
+      History).  ``device``, ``quant``, ``threat_model``, ``telemetry`` as
+      in ``run_pigeon``.  Param-tamper threat models raise: the handoff
+      check is not modelled here."""
     from ..data.pipeline import plan_blocks
     from ..selection import resolve_policy
     from ..telemetry import resolve_telemetry
     from .comm import CommConfig
-    from .protocol import (_check_engine, _eval_round, _run_state, check_block, cut_width,
-                           replayed_meter)
+    from .protocol import (_check_engine, _eval_round, _run_state, _writes, check_block,
+                           cut_width, replayed_meter)
 
     _check_engine("batched", placement)
     _stacked(module)                     # raises for a model with no stacked form
@@ -592,12 +612,13 @@ def run_pigeon_sweep(module: SplitModule, data: ClientData, pcfg: ProtocolConfig
     d_cl = _count_params(thetas[0][0])
     d_c = cut_width(module, thetas[0][0], x0)
     hists = [History() for _ in seeds]
-    tel = resolve_telemetry(telemetry if telemetry is not None else pcfg.telemetry,
+    tel = resolve_telemetry((telemetry if telemetry is not None else pcfg.telemetry)
+                            if _writes(placement) else None,
                             run="sweep", placement=placement, block=block, T=pcfg.T,
                             M=pcfg.M, R=pcfg.R, seeds=list(seeds), selection=policy.name,
                             device=str(dev))
     runner = protocol_runner(module, pcfg.lr, policy.needs_message_stats, policy,
-                             pcfg.comm.quant)
+                             pcfg.comm.quant, placement=placement)
     segments = plan_blocks(0, pcfg.T, block, lambda t: _eval_round(t, pcfg))
     kind = "block" if block > 1 else "round"
     carried = dict(detections=0, accepted=True)       # the winner always carries
@@ -647,7 +668,7 @@ def run_pigeon_sweep(module: SplitModule, data: ClientData, pcfg: ProtocolConfig
                         rec["test_acc"] = float(accs[j])
                     hists[j].rounds.append(rec)
                     tel.record_round(t, rec, seed=seed)
-                if verbose:
+                if verbose and _writes(placement):
                     acc_str = "" if accs is None else " acc=" + "/".join(
                         f"{a:.3f}" for a in accs)
                     print(f"[sweep] t={t:3d} sel={sels_k[i].tolist()}{acc_str}")

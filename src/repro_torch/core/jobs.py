@@ -249,12 +249,14 @@ def pool_rounds(block) -> List[Tuple]:
     return [(xs[:, i], ys[:, i], avec, seeds[:, i]) for i, avec in enumerate(avecs)]
 
 
-def _replay_lane_rounds(st: _JobState, clusters_k, records, t0: int, snap, tel) -> None:
+def _replay_lane_rounds(st: _JobState, clusters_k, records, t0: int, snap, tel,
+                        writes: bool = True) -> None:
     """One lane's rows of the pool's fetch as History records, CommMeter
     charges, evaluations, checkpoints and telemetry round events — the solo
     block path's replay, so the records are the solo run's.  An eval or
     checkpoint round is the lane's last round of the block (``plan_pool``),
-    so ``st.theta`` is then that round's theta."""
+    so ``st.theta`` is then that round's theta.  ``writes`` False (a rank
+    other than 0 under the sharded placement) skips the checkpoints."""
     from ..checkpoint import job_checkpoint_metadata, save_checkpoint
     pcfg, spec = st.pcfg, st.spec
     for i, sel in enumerate(records):
@@ -267,7 +269,7 @@ def _replay_lane_rounds(st: _JobState, clusters_k, records, t0: int, snap, tel) 
                                            spec.data.x_test, spec.data.y_test,
                                            pcfg.eval_batch)
         st.hist.rounds.append(rec)
-        if st.ckpt_due(t):
+        if st.ckpt_due(t) and writes:
             with tel.span("round.checkpoint", round=t, job=spec.name):
                 save_checkpoint(spec.checkpoint_path, st.theta,
                                 job_checkpoint_metadata(t, snap, job=spec.name))
@@ -275,8 +277,9 @@ def _replay_lane_rounds(st: _JobState, clusters_k, records, t0: int, snap, tel) 
 
 
 def _run_bucket(states: List[_JobState], block: int, lanes: Optional[int], prefetch: int,
-                tel, dev: torch.device) -> None:
+                tel, dev: torch.device, placement: str = "vmap") -> None:
     """One bucket's jobs through its shared pool program."""
+    from .protocol import _writes
     from ..checkpoint import protocol_state_metadata
     from ..data.pipeline import DeviceStager, RoundFeeder
     from .engine import _batch_specs, _record, assemble_block
@@ -290,7 +293,8 @@ def _run_bucket(states: List[_JobState], block: int, lanes: Optional[int], prefe
     pcfg0, data0 = st0.pcfg, st0.spec.data
     runner = protocol_accept_runner(st0.spec.module, pcfg0.lr, st0.policy,
                                     pcfg0.tamper_check, pcfg0.tamper_tol,
-                                    quant=pcfg0.comm.quant)
+                                    quant=pcfg0.comm.quant, placement=placement)
+    writes = _writes(placement)
     m_bar = pcfg0.M // pcfg0.R
     stager = _stager(dev, prefetch)
 
@@ -367,7 +371,8 @@ def _run_bucket(states: List[_JobState], block: int, lanes: Optional[int], prefe
                 clusters_k, snap = per_lane[lane]
                 records = [_record(*row) for row in unpack_block_fetch(fetched[lane],
                                                                       st.pcfg.R)]
-                _replay_lane_rounds(st, clusters_k, records, plan.t0s[lane], snap, tel)
+                _replay_lane_rounds(st, clusters_k, records, plan.t0s[lane], snap, tel,
+                                    writes)
                 st.t = plan.t0s[lane] + plan.k
                 jobs_done += st.t >= st.pcfg.T
             t0s = {states[j].spec.name: plan.t0s[lane]
@@ -394,11 +399,18 @@ def run_job_pool(specs: Sequence[JobSpec], *, block: int = 1, placement: str = "
     * ``prefetch`` — assemble pool block b+1 on the round feeder's thread
       while block b runs (the schedule is fixed up front, so every job's
       streams keep their order).
-    * ``placement`` — ``"vmap"`` (one card); ``device`` as in
-      ``run_pigeon``."""
+    * ``placement`` — ``"vmap"`` (one card) or ``"sharded"``: a bucket's
+      lanes over the ranks of the process group (``runner.cluster_mesh`` of
+      the lane count), each rank running its lanes with no cross-lane
+      collective; the fetches and the lanes' thetas are all-gathered after
+      each block, so every rank returns every job's History.  Only rank 0
+      writes checkpoints and telemetry.  ``device`` as in ``run_pigeon``."""
+    from .protocol import _writes
     pool = JobPool(specs, block=block, placement=placement)
     dev = resolve_device(device)
-    tel = resolve_telemetry(telemetry, verbose=verbose, run="pool", jobs=len(specs),
+    writes = _writes(placement)
+    tel = resolve_telemetry(telemetry if writes else None, verbose=verbose and writes,
+                            run="pool", jobs=len(specs),
                             block=block, placement=placement, lanes=lanes or 0,
                             buckets=len(pool.buckets()), device=str(dev))
     states: Dict[int, _JobState] = {}
@@ -406,7 +418,8 @@ def run_job_pool(specs: Sequence[JobSpec], *, block: int = 1, placement: str = "
         for bucket in pool.buckets():
             for i in bucket:
                 states[i] = _init_job(pool.specs[i], *pool.resolved(i), dev)
-            _run_bucket([states[i] for i in bucket], block, lanes, prefetch, tel, dev)
+            _run_bucket([states[i] for i in bucket], block, lanes, prefetch, tel, dev,
+                        placement)
     finally:
         tel.close()
     return {pool.specs[i].name: states[i].hist for i in sorted(states)}

@@ -47,19 +47,15 @@ from ..selection import host_score_context, resolve_policy, score_and_rank, sele
 from ..telemetry import NULL_SESSION, Telemetry, resolve_telemetry
 from .clustering import cluster_is_honest, make_clusters
 from .comm import FLOAT_BYTES, CommConfig, message_bytes
+from .runner import PLACEMENTS, require_group
 from .split import SplitModule, client_update, client_update_stats
 from .validation import validation_loss
 
 #: where the parts of the reference the port does not run yet will come from
-MULTI_CARD_SLICE = ("a multi-card slice (the cluster axis over several cards "
-                    "with torch.distributed)")
+MULTI_CARD_SLICE = ("the next multi-card slice (the data and model axes: tensor and "
+                    "expert parallelism over several cards)")
 
 ENGINES = ("sequential", "batched")
-PLACEMENTS = ("vmap", "sharded")
-
-
-def _not_ported(what: str, where: str):
-    raise NotImplementedError(f"{what} is not ported yet; it comes with {where}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -360,8 +356,8 @@ def _noise_generators(init_gen: torch.Generator, device: torch.device
 
 
 def _check_engine(engine: str, placement: str = "vmap", prefetch: int = 0) -> None:
-    """Validate the execution knobs as the reference does, then refuse the
-    placement the port does not run."""
+    """Validate the execution knobs as the reference does; the sharded
+    placement also needs a process group (``launch/mesh.py``)."""
     if engine not in ENGINES:
         raise ValueError(f"engine={engine!r} must be one of {ENGINES}")
     if placement not in PLACEMENTS:
@@ -373,7 +369,28 @@ def _check_engine(engine: str, placement: str = "vmap", prefetch: int = 0) -> No
         raise ValueError(f"prefetch={prefetch} requires engine='batched' "
                          f"(the sequential engine assembles per client turn)")
     if placement == "sharded":
-        _not_ported('placement="sharded"', MULTI_CARD_SLICE)
+        require_group()
+
+
+def _writes(placement: str) -> bool:
+    """Whether this process writes a run's checkpoints and telemetry: on
+    one card always; under the sharded placement the group's rank 0 only
+    (every rank computes the same History)."""
+    if placement != "sharded":
+        return True
+    import torch.distributed as dist
+    return dist.get_rank() == 0
+
+
+@torch.no_grad()
+def _broadcast_theta(theta) -> None:
+    """Rank 0's theta on every rank, in place: after work every rank did
+    alike (Pigeon-SL+'s sub-rounds under the sharded placement), so that no
+    rank can drift from another by a bit."""
+    import torch.distributed as dist
+    for half in theta:
+        for p in half.parameters():
+            dist.broadcast(p.data, 0)
 
 
 def check_block(block: int, engine: str = "batched", *, plus: bool = False,
@@ -566,7 +583,15 @@ def run_pigeon(module: SplitModule, data: ClientData, pcfg: ProtocolConfig,
       except for param-tamper threat models, which take the host cascade,
       as does ``_force_host_selection``).  Both select the same clusters and
       count bit-identical messages.
-    * ``placement`` — batched engine only: ``"vmap"`` (one card).
+    * ``placement`` — batched engine only: ``"vmap"`` (one card) or
+      ``"sharded"``: the cluster axis over the ranks of a
+      ``torch.distributed`` process group (``launch/mesh.py``; one process
+      a card, every rank calling with the same arguments and returning the
+      same History).  Each rank trains R / d clusters of the mesh
+      (``runner.cluster_mesh``); the features are all-gathered and the
+      winner all-reduced.  Pigeon-SL+'s sub-rounds run on every rank alike
+      (rank 0's theta broadcast after them); only rank 0 writes
+      checkpoints and telemetry, every rank reads on ``resume``.
     * ``device`` — the CUDA card by default (raises without one); ``"cpu"``
       on request.
     * ``quant`` — cut-layer wire format shorthand (``"int8"`` /
@@ -624,8 +649,10 @@ def run_pigeon(module: SplitModule, data: ClientData, pcfg: ProtocolConfig,
     d_cl = _count_params(theta[0])
     d_c = cut_width(module, theta[0], x0)
     hist = History()
+    writes = _writes(placement)
     tel = resolve_telemetry(
-        telemetry if telemetry is not None else pcfg.telemetry, verbose=verbose,
+        (telemetry if telemetry is not None else pcfg.telemetry) if writes else None,
+        verbose=verbose and writes,
         run=f"pigeon{'+' if plus else ''}", engine=engine, placement=placement,
         prefetch=prefetch, block=block, T=pcfg.T, M=pcfg.M, R=pcfg.R,
         selection=policy.name, fused_selection=fused, device=str(dev))
@@ -640,7 +667,7 @@ def run_pigeon(module: SplitModule, data: ClientData, pcfg: ProtocolConfig,
                 if checkpoint_path is not None else None)
 
     def _checkpoint(t: int, snap) -> None:
-        if _ckpt_due(t):
+        if _ckpt_due(t) and writes:
             from ..checkpoint import job_checkpoint_metadata, save_checkpoint
             with tel.span("round.checkpoint", round=t):
                 save_checkpoint(checkpoint_path, theta, job_checkpoint_metadata(
@@ -678,7 +705,7 @@ def run_pigeon(module: SplitModule, data: ClientData, pcfg: ProtocolConfig,
                     clusters_k, payload, snap = feeder.get(b)
                 theta, records = pigeon_block_accept(module, theta, clusters_k, pcfg, tm,
                                                      t0, payload, x0, y0, policy,
-                                                     telemetry=tel)
+                                                     telemetry=tel, placement=placement)
                 for i, sel in enumerate(records):
                     t, clusters = t0 + i, clusters_k[i]
                     meter = replayed_meter(pcfg, clusters, sel, d_o, d_c, d_cl)
@@ -733,13 +760,14 @@ def run_pigeon(module: SplitModule, data: ClientData, pcfg: ProtocolConfig,
             if fused:
                 theta, sel = pigeon_round_accept(
                     module, theta, clusters, data, pcfg, tm, t, rng, seed_gen,
-                    meter, d_c, x0, y0, policy, prefetched=prefetched, telemetry=tel)
+                    meter, d_c, x0, y0, policy, prefetched=prefetched, telemetry=tel,
+                    placement=placement)
             else:
                 if engine == "batched":
                     results = train_round_batched(
                         module, theta, clusters, data, pcfg, tm, t, rng, seed_gen, meter,
                         d_c, x0, y0, with_stats=policy.needs_message_stats,
-                        prefetched=prefetched, telemetry=tel)
+                        prefetched=prefetched, telemetry=tel, placement=placement)
                 else:
                     results = _train_round(module, theta, clusters, data, pcfg, tm, t,
                                            rng, seed_gen, meter, d_c, x0, y0,
@@ -783,6 +811,8 @@ def run_pigeon(module: SplitModule, data: ClientData, pcfg: ProtocolConfig,
                                                     rng, seeds, meter, d_c)
                         theta = (g, p)
                         account_param_transfer(meter, _count_params(g))  # subround handoff
+                    if placement == "sharded":
+                        _broadcast_theta(theta)
 
             rec = _pigeon_record(t, clusters, tm, meter, sel)
             _evaluate_into(rec, module, theta, data, pcfg, t, tel)
@@ -920,8 +950,9 @@ def run_splitfed(module: SplitModule, data: ClientData, pcfg: ProtocolConfig,
       one fetch a round; ``_force_host_selection`` keeps the batched
       training and selects on the host instead).  Both engines select the
       same clusters and count bit-identical messages.
-    * ``device``, ``quant``, ``selection``, ``telemetry``, ``verbose`` — as
-      :func:`run_pigeon`.
+    * ``device``, ``quant``, ``selection``, ``telemetry``, ``verbose``,
+      ``placement`` — as :func:`run_pigeon` (sharded: each rank trains its
+      clusters' clients, FedAvg staying inside them).
     * ``prefetch``, ``block`` — as :func:`run_pigeon`.  SplitFed's sampling
       never depends on the previous round's selection, so the feeder runs at
       full depth and blocks chain under every threat model; blocks end only
@@ -948,8 +979,10 @@ def run_splitfed(module: SplitModule, data: ClientData, pcfg: ProtocolConfig,
     d_cl = _count_params(theta[0])
     d_c = cut_width(module, theta[0], x0)
     hist = History()
+    writes = _writes(placement)
     tel = resolve_telemetry(
-        telemetry if telemetry is not None else pcfg.telemetry, verbose=verbose,
+        (telemetry if telemetry is not None else pcfg.telemetry) if writes else None,
+        verbose=verbose and writes,
         run="sfl", engine=engine, placement=placement, prefetch=prefetch, block=block,
         T=pcfg.T, M=pcfg.M, R=pcfg.R, selection=policy.name, fused_selection=fused,
         device=str(dev))
@@ -988,7 +1021,7 @@ def run_splitfed(module: SplitModule, data: ClientData, pcfg: ProtocolConfig,
                     clusters_k, payload = feeder.get(b)
                 theta, records = splitfed_block_accept(module, theta, clusters_k, pcfg,
                                                        t0, payload, x0, y0, policy,
-                                                       telemetry=tel)
+                                                       telemetry=tel, placement=placement)
                 for i, sel in enumerate(records):
                     rec = _record(t0 + i, clusters_k[i], sel["selected"],
                                   sel["val_losses"])
@@ -1028,13 +1061,15 @@ def run_splitfed(module: SplitModule, data: ClientData, pcfg: ProtocolConfig,
             if fused:
                 theta, sel = splitfed_round_accept(module, theta, clusters, data, pcfg,
                                                    tm, t, rng, seed_gen, x0, y0, policy,
-                                                   prefetched=prefetched, telemetry=tel)
+                                                   prefetched=prefetched, telemetry=tel,
+                                                   placement=placement)
                 selected, val_losses = sel["selected"], sel["val_losses"]
             else:
                 if engine == "batched":
                     results = splitfed_round_batched(
                         module, theta, clusters, data, pcfg, tm, t, rng, seed_gen, x0, y0,
-                        policy.needs_message_stats, prefetched=prefetched, telemetry=tel)
+                        policy.needs_message_stats, prefetched=prefetched, telemetry=tel,
+                        placement=placement)
                 else:
                     with tel.span("round.step", round=t):
                         results = _splitfed_round(module, theta, clusters, data, pcfg, tm,

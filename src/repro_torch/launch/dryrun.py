@@ -25,9 +25,12 @@ A record holds the reference's keys:
 
 A decode step takes a host index (the port's serve loop does): the dry run
 decodes the last position, S - 1, where every key of the cache is live.
-The sharded placements (``--mesh multi``, ``--opt pigeon_shardmap``,
-``--opt moe_shard``) and the HLO dump (``--save-hlo``) have no counterpart on
-one card and raise.
+The production mesh (``--mesh multi``: the pod axis with its data and
+model axes), ``--opt pigeon_shardmap`` over it, ``--opt moe_shard`` and the
+HLO dump (``--save-hlo``) raise: the data and model axes come with the next
+multi-card slice (the pod axis alone runs, on the ranks of a process group:
+``launch/steps.py::make_pigeon_round_step_shardmap``), and PyTorch compiles
+no HLO.
 """
 from __future__ import annotations
 
@@ -48,8 +51,10 @@ from .steps import input_specs
 
 #: why an option raises
 NOT_PORTED = {
-    "mesh": f"--mesh multi: the pod axis over several cards comes with {MULTI_CARD_SLICE}",
-    "pigeon_shardmap": f"--opt pigeon_shardmap comes with {MULTI_CARD_SLICE}",
+    "mesh": f"--mesh multi: the production mesh's data and model axes come with "
+            f"{MULTI_CARD_SLICE}",
+    "pigeon_shardmap": f"--opt pigeon_shardmap: the round over the production mesh's data "
+                       f"and model axes comes with {MULTI_CARD_SLICE}",
     "moe_shard": f"--opt moe_shard comes with {MULTI_CARD_SLICE}",
     "save_hlo": ("--save-hlo: PyTorch runs eagerly and compiles no HLO; the op counter "
                  "(launch/op_analysis.py) measures what the HLO analysis read"),

@@ -44,8 +44,8 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from ..core.protocol import MULTI_CARD_SLICE, _not_ported
-from ..core.runner import RoundRunner, RoundSpec, check_policy
+from ..core.runner import (CLUSTER_AXIS, RoundRunner, RoundSpec, check_partial_auto_backend,
+                           check_policy, cluster_mesh)
 from ..core.split import sgd_update
 from ..kernels import ops as kops
 from ..models.blocks import DTYPES
@@ -180,7 +180,10 @@ def launch_round_spec(model: StackedModel, lr: float = 1e-3,
         return params.loss(_every_slot(params, val_batch)), losses, None
 
     return RoundSpec(train_cluster, validate, validate_sharded=validate_sharded,
-                     train_summary=lambda aux: aux)
+                     train_summary=lambda aux: aux,
+                     lead=lambda batches: (batches["tokens"].shape[0],),
+                     take=lambda batches, lanes, clusters: {
+                         name: v[clusters] for name, v in batches.items()})
 
 
 def make_pigeon_round_step(model: StackedModel, lr: float = 1e-3,
@@ -197,13 +200,21 @@ def make_pigeon_round_step(model: StackedModel, lr: float = 1e-3,
     ``block > 1`` returns the round-block step: ``batches`` lead with the K
     rounds' axis (K, R, B, S), and the step runs K rounds, each from the
     winner of the one before, returning ``(vlosses (K, R), sels (K,))``."""
+    return _round_steps(model, lr, selection, quant, block)
+
+
+def _round_steps(model: StackedModel, lr: float, selection: str, quant: Optional[str],
+                 block: int, **placement) -> Callable:
+    """The round step (or, with ``block > 1``, the round-block step) over
+    ``model`` through a RoundRunner of ``placement`` (its keyword
+    arguments)."""
     from ..selection import resolve_policy
     if block < 1:
         raise ValueError(f"block={block} must be >= 1")
     policy = resolve_policy(selection)
     spec = launch_round_spec(model, lr, quant=quant)
     check_policy(spec, policy)
-    runner = RoundRunner(spec, select=policy, params_stacked=True)
+    runner = RoundRunner(spec, select=policy, params_stacked=True, **placement)
 
     def round_step(batches, val_batch):
         _, vlosses, sel = runner.round(model, batches, val_batch)
@@ -242,11 +253,26 @@ def make_pigeon_plus_round_step(model: StackedModel, lr: float = 1e-3,
 
 
 def make_pigeon_round_step_shardmap(model: StackedModel, mesh=None, lr: float = 1e-3,
-                                    **kwargs) -> Callable:
-    """The reference's cluster axis over a device mesh: no single-card
-    counterpart."""
-    _not_ported("make_pigeon_round_step_shardmap (the cluster axis over a mesh)",
-                MULTI_CARD_SLICE)
+                                    selection: str = "argmin", quant: Optional[str] = None,
+                                    block: int = 1) -> Callable:
+    """The Pigeon-SL round with the cluster axis over the ranks of the
+    process group (``placement="sharded"``, ``mesh`` a ``("pod",)``
+    :class:`~repro_torch.core.runner.ClusterMesh`, by default
+    ``cluster_mesh(R)`` at each call): ``round_step(batches, val_batch) ->
+    (vlosses (R,), sel)``, the arguments :func:`make_pigeon_round_step`'s,
+    the same on every rank.  ``model`` is this rank's ``StackedModel`` of
+    R / d slots; each rank trains and validates its slice of ``batches``,
+    the R losses are all-gathered, every rank picks the winner alike, and
+    one masked f32 all-reduce a parameter puts the winner into every slot
+    of every rank.  ``block > 1`` as in :func:`make_pigeon_round_step`.
+
+    A mesh with other axes of size > 1 (the reference's data and model
+    axes) raises (:func:`~repro_torch.core.runner.check_partial_auto_backend`).
+    The reference's ``for_execution`` switch (lowering or running) has no
+    counterpart: the port always runs."""
+    if mesh is not None:
+        check_partial_auto_backend(mesh, (CLUSTER_AXIS,))
+    return _round_steps(model, lr, selection, quant, block, placement="sharded", mesh=mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -314,7 +340,9 @@ def input_specs(cfg: ModelConfig, shape_name: str, *, pigeon_clusters: int = 0,
     input shape): train (or, with ``pigeon_clusters`` R, the Pigeon-SL
     round over an R-slot :class:`StackedModel`; ``pigeon_batch_split``
     gives each slot global_batch / R, ``pigeon_plus`` the Pigeon-SL+
-    round, ``pigeon_shardmap`` raises), prefill or decode.  ``selection``
+    round, ``pigeon_shardmap`` the round with the cluster axis over the
+    process group's ranks: the model then holds R / d slots, d the
+    ``cluster_mesh(R)`` size), prefill or decode.  ``selection``
     names the round's policy, ``quant`` the train steps' wire.  A decode
     step's arguments are (cache, tokens, index), and an encoder-decoder's
     memory after them."""
@@ -342,7 +370,11 @@ def input_specs(cfg: ModelConfig, shape_name: str, *, pigeon_clusters: int = 0,
             return LoweringSpec(make_pigeon_plus_round_step(model, lr, quant=quant),
                                 (batches, val_batch, plus_batches), model)
         if "pigeon_shardmap" in cfg.optimizations:
-            make_pigeon_round_step_shardmap(model, lr=lr, selection=selection, quant=quant)
+            mesh = cluster_mesh(r)
+            model = StackedModel(cfg, plan, r // mesh.size, _META)
+            fn = make_pigeon_round_step_shardmap(model, mesh, lr, selection=selection,
+                                                 quant=quant)
+            return LoweringSpec(fn, (batches, val_batch), model)
         fn = make_pigeon_round_step(model, lr, selection=selection, quant=quant)
         return LoweringSpec(fn, (batches, val_batch), model)
 

@@ -391,6 +391,11 @@ def reference_ctx():
                 if f.name not in static_fields}
 
     shapes = jax.eval_shape(arrays)
+    # the trace filled the reference's AttackVec memo with tracers: drop
+    # them, or a later reference run in this process (another test file on
+    # the same worker) reads a leaked tracer
+    from repro.adversary.registry import _attack_vec_grid_cached
+    _attack_vec_grid_cached.cache_clear()
     return rp, rp.TinyContext(**static, **shapes)
 
 
@@ -406,12 +411,13 @@ def test_fetch_leaves_match_reference(port_ctx, reference_ctx, name):
 
 
 def test_sharded_cells_name_their_slice():
+    """The reference's sharded cells are the port's, real cells each (run
+    in-process as a group of one rank, audited above)."""
     from repro.analysis import programs as rp
 
-    from repro_torch.analysis.programs import SHARDED_CELLS
-    from repro_torch.core.protocol import MULTI_CARD_SLICE
+    from repro_torch.analysis.programs import CELLS, SHARDED_CELLS
     assert set(SHARDED_CELLS) == {c.name for c in rp.CELLS if c.placement == "sharded"}
-    assert set(SHARDED_CELLS.values()) == {MULTI_CARD_SLICE}
+    assert set(SHARDED_CELLS) == {c.name for c in CELLS if c.placement == "sharded"}
 
 
 # ---------------------------------------------------------------------------

@@ -213,15 +213,17 @@ def test_minibatches_and_select_cluster_bit_equal():
 
 
 def test_baselines_refuse_what_is_not_ported(port, capsys):
-    """The sharded placement still raises; SplitFed's prefetch, block,
+    """SplitFed's sharded placement (a group of one here;
+    ``tests/test_torch_sharded.py`` holds 2 to 4 ranks), prefetch, block,
     telemetry and verbose, and vanilla SL's telemetry and verbose, run and
     leave the History as it was."""
+    from repro_torch.launch.mesh import group_of_one
     from repro_torch.telemetry import MemorySink, Telemetry
     data, module, pcfg = port
-    with pytest.raises(NotImplementedError):
-        tcore.run_splitfed(module, data, pcfg, device="cpu", engine="batched",
-                           placement="sharded")
     plain = tcore.run_splitfed(module, data, pcfg, device="cpu", engine="batched")
+    with group_of_one("gloo"):
+        assert tcore.run_splitfed(module, data, pcfg, device="cpu", engine="batched",
+                                  placement="sharded").rounds == plain.rounds
     for kw in (dict(prefetch=1), dict(block=2), dict(telemetry=Telemetry(sinks=(MemorySink(),))),
                dict(verbose=True)):
         assert tcore.run_splitfed(module, data, pcfg, device="cpu", engine="batched",

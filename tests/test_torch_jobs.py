@@ -377,5 +377,11 @@ def test_pool_validation_errors(port):
     with pytest.raises(ValueError, match="param-tamper"):
         tjobs.validate_job(dataclasses.replace(base, malicious={1},
                                                attack=tcore.Attack(tcore.PARAM_TAMPER)))
-    with pytest.raises(NotImplementedError, match="multi-card"):
-        tjobs.run_job_pool([base], placement="sharded", device="cpu")
+    # the sharded placement runs in a process group: a group of one is the
+    # vmap run (tests/test_torch_sharded.py holds 2 to 4 ranks)
+    from repro_torch.launch.mesh import group_of_one
+    specs = _specs(port, n=2, t=2)
+    want = tjobs.run_job_pool(specs, device="cpu")
+    with group_of_one("gloo"):
+        got = tjobs.run_job_pool(specs, placement="sharded", device="cpu")
+    assert {k: h.rounds for k, h in got.items()} == {k: h.rounds for k, h in want.items()}

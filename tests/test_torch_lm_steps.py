@@ -271,7 +271,7 @@ def test_round_step_matches_reference(case, inits):
 
 def test_round_step_rejects_what_the_reference_rejects(inits):
     """The launch spec has no message statistics, so ``loss_plus_distance``
-    raises when the step is built (the reference when its step is traced); a block needs K rounds of batches; the mesh program raises."""
+    raises when the step is built (the reference when its step is traced); a block needs K rounds of batches; the mesh program runs."""
     model = lm_stack_from_reference(ModelConfig(**TINY), inits["trees"])
     with pytest.raises(ValueError, match="transmitted-message statistics"):
         tsteps.make_pigeon_round_step(model, LR, selection="loss_plus_distance")
@@ -285,8 +285,18 @@ def test_round_step_rejects_what_the_reference_rejects(inits):
     with pytest.raises(ValueError, match="rounds of batches"):
         tsteps.make_pigeon_round_step(model, LR, block=3)(_torch(inits["batches"]),
                                                           _torch(_val(inits)))
-    with pytest.raises(NotImplementedError, match="multi-card slice"):
-        tsteps.make_pigeon_round_step_shardmap(model, None, LR)
+    # the mesh program runs in a process group: a group of one is the round
+    # step (tests/test_torch_sharded.py holds two ranks against the
+    # reference's shardmap step)
+    from repro_torch.launch.mesh import group_of_one
+    twin = lm_stack_from_reference(ModelConfig(**TINY), inits["trees"])
+    batches, val = _torch({k: v[0] for k, v in inits["batches"].items()}), _torch(_val(inits))
+    want = tsteps.make_pigeon_round_step(model, LR)(batches, val)
+    with group_of_one("gloo"):
+        got = tsteps.make_pigeon_round_step_shardmap(twin, None, LR)(batches, val)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    for a, b in zip(twin.parameters(), model.parameters()):
+        assert torch.equal(a, b)
 
 
 def test_protocol_layout_round_broadcasts_the_argmin(inits):
@@ -368,8 +378,8 @@ def test_input_specs_give_the_reference_shapes(arch, shape):
     """Every kind of step for the ported arch types, the xLSTM round over a
     cluster-stacked xLSTM among them: the argument shapes and dtypes of the
     reference's ``input_specs`` (its batch and val structs; the decode
-    step's tokens, index and cache), as meta tensors.  ``pigeon_shardmap``
-    raises."""
+    step's tokens, index and cache), as meta tensors; ``pigeon_shardmap``
+    the round's arguments over a group's ranks."""
     from repro.configs import get_config as jget_config
     from repro.launch.shapes import SHAPES as JSHAPES
     cfg = tconfigs.get_config(arch)
@@ -400,5 +410,11 @@ def test_input_specs_give_the_reference_shapes(arch, shape):
             {k: tuple(v.shape) for k, v in w.items()}
         assert all(v.device.type == "meta" and v.dtype == torch.int32 for v in got.values())
     if shape == "pigeon":
-        with pytest.raises(NotImplementedError, match="multi-card slice"):
-            tsteps.input_specs(cfg, name, optimizations=("pigeon_shardmap",), **kw)
+        # the mesh round in a group of one: the same arguments, R slots a rank
+        from repro_torch.launch.mesh import group_of_one
+        with group_of_one("gloo"):
+            mspec = tsteps.input_specs(cfg, name, optimizations=("pigeon_shardmap",), **kw)
+        assert [{k: tuple(v.shape) for k, v in a.items()} for a in mspec.args] == \
+            [{k: tuple(v.shape) for k, v in a.items()} for a in spec.args]
+        assert all(p.device.type == "meta" and p.shape[0] == 2
+                   for p in mspec.model.parameters())

@@ -129,17 +129,21 @@ def test_policies_score_and_rank_like_reference(seed):
 
 
 def test_unported_paths_raise(port, tmp_path):
-    """The sharded placement still raises, for ``run_pigeon`` and the
-    sweep; prefetch, block, checkpointing and telemetry run and leave the
-    History as it was."""
+    """The sharded placement runs in a process group (here a group of one,
+    ``tests/test_torch_sharded.py`` holds 2 to 4 ranks) and, like prefetch,
+    block, checkpointing and telemetry, leaves the History as it was, for
+    ``run_pigeon`` and the sweep."""
+    from repro_torch.launch.mesh import group_of_one
     data, module, pcfg = port
-    with pytest.raises(NotImplementedError):
-        tcore.run_pigeon(module, data, pcfg, device="cpu", engine="batched",
-                         placement="sharded")
-    with pytest.raises(NotImplementedError):
-        tcore.run_pigeon_sweep(module, data, pcfg, placement="sharded", device="cpu")
-    from repro_torch.telemetry import MemorySink
     plain = tcore.run_pigeon(module, data, pcfg, device="cpu", engine="batched")
+    sweep = tcore.run_pigeon_sweep(module, data, pcfg, seeds=(0, 1), device="cpu")
+    with group_of_one("gloo"):
+        assert tcore.run_pigeon(module, data, pcfg, device="cpu", engine="batched",
+                                placement="sharded").rounds == plain.rounds
+        got = tcore.run_pigeon_sweep(module, data, pcfg, seeds=(0, 1), placement="sharded",
+                                     device="cpu")
+    assert [h.rounds for h in got] == [h.rounds for h in sweep]
+    from repro_torch.telemetry import MemorySink
     for kw in (dict(prefetch=1), dict(block=2), dict(checkpoint_path=str(tmp_path / "ckpt")),
                dict(telemetry=tcore.Telemetry(sinks=(MemorySink(),)))):
         assert tcore.run_pigeon(module, data, pcfg, device="cpu", engine="batched",
@@ -148,12 +152,12 @@ def test_unported_paths_raise(port, tmp_path):
 
 
 #: names of the reference's package surfaces the port does not carry: the
-#: mesh placements (no single-card counterpart), the compile cache (none:
-#: PyTorch runs eagerly), the jitted round and the vmapped client update (the
-#: stacked model writes the cluster axis out instead)
+#: compile cache (none: PyTorch runs eagerly), the jitted round and the
+#: vmapped client update (the stacked model writes the cluster axis out
+#: instead)
 NOT_YET_PORTED = {
-    "core": {"batched_round", "client_update_vec", "cluster_mesh", "sweep_mesh",
-             "check_partial_auto_backend", "enable_compile_cache", "compile_cache_stats"},
+    "core": {"batched_round", "client_update_vec", "enable_compile_cache",
+             "compile_cache_stats"},
     "core.attacks": set(),
     "selection": set(),
     "data": set(),

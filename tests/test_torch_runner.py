@@ -303,7 +303,14 @@ def test_median_of_means_and_policy_scores_match_reference(seed):
 
 
 def test_runner_refuses_unported_entries():
-    with pytest.raises(NotImplementedError, match="multi-card"):
+    """The sharded placement passes the knob check in a process group (and
+    raises without one), and its ``accept_block`` in a group of one equals
+    the vmap placement's; the layouts each entry refuses raise."""
+    from repro_torch.launch.mesh import group_of_one
+    assert not torch.distributed.is_initialized()
+    with pytest.raises(RuntimeError, match="process group"):
+        tprotocol._check_engine("batched", placement="sharded")
+    with group_of_one("gloo"):
         tprotocol._check_engine("batched", placement="sharded")
     with pytest.raises(ValueError):
         tprotocol._check_engine("batched", placement="mesh")
@@ -342,6 +349,16 @@ def test_runner_refuses_unported_entries():
         assert torch.equal(fetch, fetches[i])
     assert torch.equal(theta[0].weight, twin[0].weight)
     assert torch.equal(theta[0].weight, torch.tensor([[-0.5, -0.25]]))
+    sharded = trunner.RoundRunner(
+        trunner.RoundSpec(train, validate, lead=lambda s: (s.shape[0],),
+                          take=lambda s, lanes, clusters: s[clusters]),
+        verify=trunner.VerifyConfig(enabled=False), placement="sharded")
+    with group_of_one("gloo"):
+        with torch.no_grad():
+            twin[0].weight.copy_(torch.tensor([[0.75, 1.0]]))
+        committed, got = sharded.accept_block(twin, block, None)
+    assert committed[0] is twin[0] and torch.equal(got, fetches)
+    assert torch.equal(twin[0].weight, theta[0].weight)
 
     # sweep and pool_accept_block run, on the replica form: L thetas in L *
     # R slots, each replica selecting among its own R rows

@@ -209,5 +209,12 @@ def test_sweep_refusals(port):
     with pytest.raises(ValueError, match="param-tamper"):
         tcore.run_pigeon_sweep(module, data, pcfg, malicious={1},
                                attack=tcore.Attack(tcore.PARAM_TAMPER), device="cpu")
-    with pytest.raises(NotImplementedError, match="multi-card"):
-        tcore.run_pigeon_sweep(module, data, pcfg, placement="sharded", device="cpu")
+    # the sharded placement runs in a process group: a group of one is the
+    # vmap run (tests/test_torch_sharded.py holds 2 to 4 ranks)
+    from repro_torch.launch.mesh import group_of_one
+    want = [h.rounds for h in tcore.run_pigeon_sweep(module, data, pcfg, seeds=SEEDS,
+                                                     device="cpu")]
+    with group_of_one("gloo"):
+        got = tcore.run_pigeon_sweep(module, data, pcfg, seeds=SEEDS, placement="sharded",
+                                     device="cpu")
+    assert [h.rounds for h in got] == want
