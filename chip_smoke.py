@@ -302,7 +302,19 @@ from the repository root.  Phases, in order; any failure exits non-zero:
      peak, and the step's mfu.  Every train phase's warm step prints its
      mfu (``roofline.model_flops_for`` over the step's seconds at 989e12
      bf16 FLOP/s; nothing gates on it).  The kernels' bounds come from
-     ``repro_torch.launch.roofline``.
+     ``repro_torch.launch.roofline``;
+ 19. the data and model axes (``models/parallel.py``, ``launch/mesh.py``):
+     Qwen3-8B at full width and 12 layers through the parallel model on an
+     NCCL group of every visible card (prefill, the serve loop over the
+     KV-sharded cache, a train step): on one card the group of one bit-equal
+     to the plain model (logits, tokens, loss, every updated parameter), on
+     n cards meshes (1, n) and (2, n / 2) within phase 6's bf16 bound of the
+     one-card run; Qwen3-30B-A3B at full depth with ``moe_shard`` (phase
+     13's weights on one card: a 4 x 512 prefill through the 16-group
+     local dispatch, pairs dropped a group; experts over every card on n);
+     8c's 2-slot int8 round step over (pod, data, model); B4 on a
+     vocab-parallel panel (2,048 x 4,096 x 37,984) against its plain
+     versions, on the tensor cores; on one card two gloo ranks on it tried.
 
 The last lines are one JSON object per kernel set (``{"kernels": [...]}``),
 the card's ``nvidia-smi`` name and power limit, and
@@ -3685,19 +3697,20 @@ class _Routing:
     in call order) a layer takes the pinned ids, weighted by its own router
     probabilities renormalised over them (as ``moe.route`` weights its
     top-k); with ``keep_all`` an expert's capacity is the call's token
-    count, so no pair is dropped."""
+    count, so no pair is dropped.  ``groups`` the dispatch groups of each
+    call (16 under ``moe_shard``'s local dispatch, else 1)."""
 
     def __init__(self, pin=None, keep_all: bool = False):
         self.pin, self.keep_all = pin, keep_all
-        self.own, self.ids, self.kept = [], [], []
+        self.own, self.ids, self.kept, self.groups = [], [], [], []
 
     def __enter__(self):
         import torch
         from repro_torch.models import moe
-        self.saved = route, dispatch, _ = moe.route, moe.dispatch, moe.capacity
+        self.saved = route, dispatch, _ = moe.route, moe.dispatch_groups, moe.capacity
 
-        def routed(router, cfg, x_flat):
-            weights, ids, aux = route(router, cfg, x_flat)
+        def routed(router, cfg, x_flat, par=None):
+            weights, ids, aux = route(router, cfg, x_flat, par)
             self.own.append(ids)
             if self.pin is not None:
                 ids = self.pin[len(self.ids)].to(ids.device)
@@ -3707,19 +3720,20 @@ class _Routing:
             self.ids.append(ids)
             return weights, ids, aux
 
-        def dispatched(ids, cfg, cap):
-            slot, keep = dispatch(ids, cfg, cap)
-            self.kept.append(keep)
+        def dispatched(ids, cfg, groups, cap, offset=None):
+            slot, keep = dispatch(ids, cfg, groups, cap, offset)
+            self.kept.append(keep.reshape(-1))
+            self.groups.append(groups)
             return slot, keep
 
-        moe.route, moe.dispatch = routed, dispatched
+        moe.route, moe.dispatch_groups = routed, dispatched
         if self.keep_all:
             moe.capacity = lambda n_tokens, cfg: n_tokens
         return self
 
     def __exit__(self, *exc):
         from repro_torch.models import moe
-        moe.route, moe.dispatch, moe.capacity = self.saved
+        moe.route, moe.dispatch_groups, moe.capacity = self.saved
 
 
 def _flips(a, b) -> int:
@@ -5505,6 +5519,8 @@ def phase_moe():
             shares["B5 forward"] = ("flash_fwd_tc_kernel",)
         out[label] = _slice_serve(f"phase13 {label}", model, {"tokens": prompts.to(DEVICE)},
                                   shares)
+        if label == "qmoe":
+            out["qmoe_moe_shard"] = _moe_shard_prefill(model)
         del model
         torch.cuda.empty_cache()
 
@@ -5861,8 +5877,13 @@ def phase_seamless():
 #: phase 18b: AdamW under a warmup-cosine schedule with weight decay, after
 #: the global-norm clip, three steps on one train step's gradients
 OPT_LR, OPT_WARMUP, OPT_TOTAL, OPT_WD, OPT_CLIP, OPT_STEPS = 3e-4, 2, 100, 0.1, 1.0, 3
-#: the leaves held against the CPU: the largest and a few small ones
+#: the leaves held against the CPU: the largest and a few small ones, each
+#: on its first rows along dim 0, up to OPT_CPU_ELEMS elements (AdamW acts
+#: element by element, so rows of a leaf check it as the whole leaf does;
+#: with whole leaves, the largest 262,354,944 elements, the CPU's part took
+#: 42.4-55.8 s a run on the H100 hosts)
 OPT_SAMPLE = 6
+OPT_CPU_ELEMS = 1 << 22
 #: the card's optimizer against the CPU's: each bf16 update within one bf16
 #: ulp of the larger (2**-7 of |u|, the f32 updates rounded apart), m, v and
 #: the global norm within rtol 1e-5 (the sums' order differs)
@@ -5996,7 +6017,11 @@ def _phase_optimizer_and_dryrun() -> dict:
     opt_state = opt.init(params)
     torch.cuda.synchronize()
     mv_bytes = torch.cuda.memory_allocated() - before_state
-    cpu_params = {n: params[n].detach().to("cpu", copy=True) for n in sample}
+    def rows(t):
+        """``t``'s first rows, up to OPT_CPU_ELEMS elements."""
+        return t[:max(1, OPT_CPU_ELEMS // (t.numel() // t.shape[0]))] if t.dim() else t
+
+    cpu_params = {n: rows(params[n].detach()).to("cpu", copy=True) for n in sample}
     cpu_grads = {n: t.cpu() for n, t in grads.items()}
     card, times = [], []
     events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
@@ -6011,7 +6036,8 @@ def _phase_optimizer_and_dryrun() -> dict:
         torch.cuda.set_sync_debug_mode(0)
         torch.cuda.synchronize()
         times.append(events[0].elapsed_time(events[1]))
-        card.append(dict(gnorm=gnorm.cpu(), **{f"{k}/{n}": t[n].detach().cpu() for n in sample
+        card.append(dict(gnorm=gnorm.cpu(), **{f"{k}/{n}": rows(t[n].detach()).cpu()
+                                                for n in sample
                                                 for k, t in (("u", updates), ("m", opt_state["m"]),
                                                              ("v", opt_state["v"]))}))
         del clipped, updates
@@ -6023,7 +6049,7 @@ def _phase_optimizer_and_dryrun() -> dict:
     cpu_state = cpu_opt.init(cpu_params)
     errs = dict(u=0.0, m=0.0, v=0.0, gnorm=0.0)
     clipped, gnorm = clip_by_global_norm(cpu_grads, OPT_CLIP)     # the same every step
-    sub = {n: clipped[n] for n in sample}
+    sub = {n: rows(clipped[n]) for n in sample}
     del clipped, cpu_grads
     for i in range(OPT_STEPS):
         updates, cpu_state = cpu_opt.update(sub, cpu_state, cpu_params)
@@ -6048,9 +6074,9 @@ def _phase_optimizer_and_dryrun() -> dict:
     log(f"phase18b adamw (warmup_cosine({OPT_LR}, {OPT_WARMUP}, {OPT_TOTAL}), weight_decay "
         f"{OPT_WD}) after clip_by_global_norm({OPT_CLIP}), {OPT_STEPS} steps on "
         f"{len(params)} leaves ({sum(p.numel() for p in params.values()):,} parameters) under "
-        f"sync-debug 'error': against the CPU on {sample} ({params[names[0]].numel():,} "
-        f"elements the largest): max rel err update {errs['u']:.3e} (bound one bf16 ulp), "
-        f"m {errs['m']:.3e}, v {errs['v']:.3e}, gnorm {errs['gnorm']:.3e} (rtol "
+        f"sync-debug 'error': against the CPU on {sample}, each on its first rows up to "
+        f"{OPT_CPU_ELEMS:,} elements ({params[names[0]].numel():,} the largest leaf): max "
+        f"rel err update {errs['u']:.3e} (bound one bf16 ulp), m {errs['m']:.3e}, v {errs['v']:.3e}, gnorm {errs['gnorm']:.3e} (rtol "
         f"{OPT_STATE_RTOL}); optimizer step device ms {[round(t, 3) for t in times]}; "
         f"m and v add {mv_bytes:,} bytes, the step's peak over them {peak_opt:,}")
     del model, params, grads, opt_state, step, batch
@@ -6074,6 +6100,559 @@ def phase_analysis() -> dict:
     log(f"phase18 took {out['seconds']:.1f} s (18a {t1 - t0:.1f} s, 18b and 18c "
         f"{out['seconds'] - (t1 - t0):.1f} s, of them the CPU's optimizer "
         f"{out['optimizer']['cpu_s']:.1f} s)")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 19: the data and model axes (tensor and expert parallelism)
+# ---------------------------------------------------------------------------
+
+TP_LAYERS = 12                  # phase 19's Qwen3-8B depth (phase 6's SERVE_LAYERS)
+TP_PROMPT, TP_NEW = 32, 8       # its serve loop: prompt steps, then greedy tokens
+TP_MOE_BATCH = (4, 512)         # 2,048 tokens: the least that takes moe_shard's local
+                                # dispatch at E = 128 (16 x 128)
+TP_DEADLINE_S = 600.0
+TP_PANEL_CHECK_M = (2, 4, 16)   # B4's panels whose route is checked: 151,936 / m columns
+TP_SAMPLE = 16384               # elements of each whole parameter a train step's update is
+                                # compared on (seeded positions, the same in every run)
+# a parallel train step against the one-card step: each leaf's update
+# (W' - W) against the one-card run's, |dW_n - dW_1| / |dW_1| over the
+# leaf's sample, the largest over leaves (bf16: the SGD step moves a
+# weight by about one rounding step, so a gradient rounded differently
+# moves some weights by one step more or less); the per-token losses, the
+# largest difference over the spread of the one-card run's per-token
+# losses around their mean.  Both bounds sit between the largest sound
+# reading and the planted faults' readings, which the phase takes again
+# and checks on every run (on an H100 80GB HBM3 at 700 W: updates 0.217-
+# 0.241 over gloo (1, 2) and NCCL (1, 4), (2, 2), a skipped data
+# reduction 0.929; per-token losses 0.0125-0.0137, rows one token out of
+# place 1.42).
+TP_UPDATE_REL = 0.5
+TP_TOKEN_REL = 0.1
+
+
+def _nccl_version() -> str:
+    import torch
+    v = torch.cuda.nccl.version()
+    return ".".join(map(str, v)) if isinstance(v, tuple) else str(v)
+
+
+def _moe_shard_prefill(model) -> dict:
+    """Phase 13's Qwen3-30B-A3B (the same weights) with its MoE layers on
+    ``moe_shard``'s local dispatch (16 groups): a TP_MOE_BATCH prefill, its
+    logits finite, B5's launches, 16 groups a layer, the pairs dropped a
+    group and layer, each layer's routing ids and kept pairs; the layers
+    back on the global dispatch after."""
+    import torch
+    from repro_torch.launch.serve import make_prompts
+    from repro_torch.launch.steps import make_prefill_step
+    cfg = model.cfg
+    layers = [layer for stack in model.stacks for layer in stack.layers
+              if getattr(layer, "routed", False)]
+    saved = [layer.moe.cfg for layer in layers]
+    b, s = TP_MOE_BATCH
+    tokens = torch.from_numpy(make_prompts(1, cfg.vocab, b, s)).to(DEVICE)
+    try:
+        for layer in layers:
+            layer.moe.cfg = layer.moe.cfg._replace(shard=True, shard_groups=16)
+        torch.cuda.reset_peak_memory_stats()
+        with _Routing() as routing:
+            logits, launches, seconds = _timed_run(
+                lambda: make_prefill_step(model)({"tokens": tokens}))
+    finally:
+        for layer, c in zip(layers, saved):
+            layer.moe.cfg = c
+    check(routing.groups == [16] * len(layers), f"phase13 qmoe moe_shard: dispatch groups "
+                                                 f"{set(routing.groups)}, want 16 a layer")
+    check(bool(torch.isfinite(logits).all()) and logits.shape == (b, 1, cfg.vocab),
+          f"phase13 qmoe moe_shard: logits {tuple(logits.shape)} not finite or misshapen")
+    check(launches == _attn_launches(cfg, prefills=1),
+          f"phase13 qmoe moe_shard: launches {launches}")
+    drops = [[int(g) for g in (~k.view(16, -1)).sum(dim=1)] for k in routing.kept]
+    per_layer = [sum(d) for d in drops]
+    log(f"phase13 qmoe moe_shard prefill (B {b} x {s}, 16 groups of {b * s // 16} tokens, "
+        f"capacity {_capacity(cfg, b * s // 16)} an expert a group): {seconds:.3f} s, peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, launches {launches}; (token, k) "
+        f"pairs dropped by layer {per_layer} of {b * s * cfg.top_k}; by group in layer 0 "
+        f"{drops[0]}; {card_line()}")
+    return dict(logits=logits.float().cpu().numpy(), groups=routing.groups, drops=drops,
+                drops_by_layer=per_layer, seconds=seconds, launches=launches,
+                ids=[i.cpu().numpy() for i in routing.ids],
+                kept=[k.cpu().numpy() for k in routing.kept])
+
+
+def _tp_cfg():
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.shapes import SHAPES, shape_settings
+    return dataclasses.replace(get_config("qwen3-8b"), n_layers=TP_LAYERS,
+                               **shape_settings(SHAPES["train_4k"]))
+
+
+def _tp_meshes(n: int):
+    """Phase 19's (data, model) meshes over n cards: (1, n) and (2, n / 2)."""
+    return [(1, n)] + ([(2, n // 2)] if n >= 4 and n % 2 == 0 else [])
+
+
+def _leaf_samples(model) -> dict:
+    """{name: f32 numpy array}: TP_SAMPLE elements of each whole parameter
+    at seeded positions (the same for every model of these shapes), the
+    whole leaf where it is smaller; a parallel model's leaves gathered over
+    ``model`` one at a time."""
+    import torch
+    from repro_torch.launch.shardings import gather_param
+    out = {}
+    for name, p in model.named_parameters():
+        whole = gather_param(p, model.par).reshape(-1)
+        n = whole.numel()
+        if n > TP_SAMPLE:
+            idx = torch.randint(n, (TP_SAMPLE,), generator=torch.Generator().manual_seed(n))
+            whole = whole[idx.to(whole.device)]
+        out[name] = whole.float().cpu().numpy()
+    return out
+
+
+class _TokenLosses:
+    """Within the block, the per-token losses (T,) f32 each call of the
+    loss path's B4 entry (``ops._xent_per_token``) returns, in call order."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        self.saved, self.seen = ops._xent_per_token, []
+
+        def recorded(*args, **kw):
+            out = self.saved(*args, **kw)
+            self.seen.append(out.detach())
+            return out
+
+        ops._xent_per_token = recorded
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+        ops._xent_per_token = self.saved
+
+
+def _train_update(model, batch, lr) -> tuple:
+    """One train step of ``model`` on ``batch``: (loss, launches, seconds,
+    the collectives it made, its per-token losses (numpy), each leaf's
+    sampled update (after - before, :func:`_leaf_samples`))."""
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.parallel import collective_totals, reset_collectives
+    before = _leaf_samples(model)
+    step = make_train_step(model, lr)
+    reset_collectives()
+    with _TokenLosses() as tl:
+        loss, launches, seconds = _timed_run(lambda: step(batch))
+    coll = collective_totals()
+    check(len(tl.seen) == 1, f"phase19: the train step's loss path ran {len(tl.seen)} times")
+    after = _leaf_samples(model)
+    update = {name: after[name] - before[name] for name in before}
+    return loss, launches, seconds, coll, tl.seen[0].float().cpu().numpy(), update
+
+
+def _tp_dense_run(model) -> dict:
+    """Phase 19's dense run on this rank: the prefill step on the train
+    batch's tokens, the serve loop (TP_PROMPT prompt steps, TP_NEW greedy
+    tokens) over the KV-sharded cache, one train step; launches, seconds,
+    the collectives of each, peak memory, the step's per-token losses (this
+    data rank's rows) and each leaf's sampled update."""
+    import torch
+    from repro_torch.launch.serve import greedy_decode, make_prompts
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models.parallel import collective_totals, reset_collectives
+    cfg, par = model.cfg, model.par
+    batch = _train_batch(TRAIN_BATCH, TRAIN_SEQ)
+    prompts = torch.from_numpy(make_prompts(0, cfg.vocab, SERVE_BATCH, TP_PROMPT)).to(DEVICE)
+    torch.cuda.reset_peak_memory_stats()
+    reset_collectives()
+    prefill, prefill_l, prefill_s = _timed_run(
+        lambda: make_prefill_step(model)({"tokens": batch["tokens"]}))
+    coll = dict(prefill=collective_totals())
+    reset_collectives()
+    (gen, last), serve_l, serve_s = _timed_run(lambda: greedy_decode(
+        make_serve_step(model), model.init_cache(SERVE_BATCH, TP_PROMPT + TP_NEW), prompts,
+        TP_NEW))
+    coll["serve"] = collective_totals()
+    loss, train_l, train_s, coll["train"], tokens, update = _train_update(model, batch,
+                                                                         TRAIN_LR)
+    return dict(prefill=prefill.float().cpu().numpy(), last=last.float().cpu().numpy(),
+                gen=gen.cpu().numpy(), loss=float(loss), tokens=tokens, update=update,
+                rows=(par.data_rank, par.data_size),
+                launches=dict(prefill=prefill_l, serve=serve_l, train=train_l),
+                seconds=dict(prefill=prefill_s, serve=serve_s, train=train_s),
+                collectives=coll, peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
+def _tp_moe_run(cfg, pin) -> dict:
+    """Qwen3-30B-A3B at full width and depth with ``moe_shard`` on this
+    rank's part of the parallel model: a TP_MOE_BATCH prefill with each
+    layer's routing pinned to ``pin`` (the one-card run's ids), its logits,
+    the dispatch groups, the kept pairs and the pairs dropped a group and
+    layer."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.serve import make_prompts
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import build_model
+    mesh = make_mesh((1, dist.get_world_size()), ("data", "model"))
+    model = build_model(cfg, DEVICE, mesh).init(torch.Generator(device=DEVICE).manual_seed(0))
+    b, s = TP_MOE_BATCH
+    tokens = torch.from_numpy(make_prompts(1, cfg.vocab, b, s)).to(DEVICE)
+    torch.cuda.reset_peak_memory_stats()
+    with _Routing(pin=[torch.from_numpy(ids) for ids in pin]) as routing:
+        logits, launches, seconds = _timed_run(lambda: make_prefill_step(model)({"tokens": tokens}))
+    drops = [[int(g) for g in (~k.view(16, -1)).sum(dim=1)] for k in routing.kept]
+    out = dict(logits=logits.float().cpu().numpy(), launches=launches, seconds=seconds,
+               groups=routing.groups, drops=drops, kept=[k.cpu().numpy() for k in routing.kept],
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tp_round_rank(dims) -> dict:
+    """8c's 2-slot int8 round step over (pod, data, model) = ``dims`` on this
+    rank: the slots over ``pod``, each pod's model parallel over its
+    ``data`` and ``model`` ranks (phase 8b's inits, 8c's batches)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import make_pigeon_round_step_shardmap
+    from repro_torch.models import build_model, build_stacked_model
+    cfg = _round_cfg()
+    mesh = make_mesh(dims, ("pod", "data", "model"))
+    n = 2 // dims[0]
+    lo = mesh.coord("pod") * n
+    stacked = build_stacked_model(cfg, n, device=DEVICE, mesh=mesh)
+    plain = build_model(cfg, DEVICE, mesh)
+    for i, seed in enumerate(range(lo, lo + n)):
+        stacked.load_slot(i, plain.init(torch.Generator(device=DEVICE).manual_seed(seed)))
+    del plain
+    torch.cuda.empty_cache()
+    inputs, val = _lm_step_inputs(1, seed=100), _train_batch(8, TRAIN_SEQ, seed=90)
+    step = make_pigeon_round_step_shardmap(stacked, mesh, TRAIN_LR, quant="int8")
+    torch.cuda.reset_peak_memory_stats()
+    (vlosses, sel), launches, seconds = _timed_run(lambda: step(inputs, val))
+    out = dict(vlosses=vlosses.tolist(), sel=int(sel), launches=launches, seconds=seconds,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9, rank=dist.get_rank())
+    del stacked
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tp_rank(dims_list, moe_cfg=None, pin=None, round_dims=None) -> dict:
+    """Phase 19 on one rank of an NCCL group of every card: the dense runs
+    over each (data, model) mesh of ``dims_list``, the MoE prefill with
+    experts over every rank (routing pinned to ``pin``), the round step
+    over ``round_dims``."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+    out = dict(rank=dist.get_rank(), world=dist.get_world_size(),
+               nccl=_nccl_version(), runs={})
+    for dims in dims_list:
+        mesh = make_mesh(dims, ("data", "model"))
+        model = build_model(_tp_cfg(), DEVICE, mesh).init(
+            torch.Generator(device=DEVICE).manual_seed(0))
+        out["runs"][tuple(dims)] = _tp_dense_run(model)
+        del model
+        torch.cuda.empty_cache()
+    if moe_cfg is not None:
+        out["moe"] = _tp_moe_run(moe_cfg, pin)
+    if round_dims is not None:
+        out["round"] = _tp_round_rank(round_dims)
+    return out
+
+
+def _tp_gloo_rank() -> dict:
+    """Two gloo ranks on one card: the dense run over (1, 2)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+    torch.cuda.set_device(0)
+    mesh = make_mesh((1, 2), ("data", "model"))
+    model = build_model(_tp_cfg(), DEVICE, mesh).init(
+        torch.Generator(device=DEVICE).manual_seed(0))
+    return dict(_tp_dense_run(model), rank=dist.get_rank())
+
+
+def _update_gap(got: dict, want: dict) -> tuple:
+    """(gap, leaf): the largest over leaves of |dW_got - dW_want| /
+    |dW_want| over each leaf's sample (inf where the one-card update is
+    zero and the other is not)."""
+    import numpy as np
+    gaps = {}
+    for name, w in want.items():
+        num, den = float(np.linalg.norm(got[name] - w)), float(np.linalg.norm(w))
+        gaps[name] = num / den if den > 0 else (0.0 if num == 0 else float("inf"))
+    leaf = max(gaps, key=gaps.get)
+    return gaps[leaf], leaf
+
+
+def _token_gap(got, rows, want) -> float:
+    """The largest difference of a data rank's per-token losses ``got``
+    (its ``rows`` = (data rank, data size) of the batch) from the one-card
+    run's ``want``, over the spread of ``want`` around its mean."""
+    import numpy as np
+    d, size = rows
+    t = want.size // size
+    spread = float(np.abs(want - want.mean()).max())
+    return float(np.abs(got - want[d * t:(d + 1) * t]).max()) / spread
+
+
+def _tp_compare(label: str, got: dict, want: dict) -> dict:
+    """A parallel run against the one-card run: prefill and decode logits
+    within SERVE_BF16_REL of the largest logit, the per-token losses within
+    TP_TOKEN_REL, each leaf's update within TP_UPDATE_REL, the greedy
+    tokens of the same shape."""
+    import numpy as np
+    gaps = {key: float(np.abs(got[key] - want[key]).max() / np.abs(want[key]).max())
+            for key in ("prefill", "last")}
+    gaps["tokens"] = _token_gap(got["tokens"], got["rows"], want["tokens"])
+    gaps["update"], gaps["update_leaf"] = _update_gap(got["update"], want["update"])
+    bounds = dict(prefill=SERVE_BF16_REL, last=SERVE_BF16_REL, tokens=TP_TOKEN_REL,
+                  update=TP_UPDATE_REL)
+    for key, bound in bounds.items():
+        check(gaps[key] <= bound, f"{label}: {key} differs from the one-card run by "
+                                  f"{gaps[key]:.3e} > {bound} ({gaps['update_leaf']})")
+    check(got["gen"].shape == want["gen"].shape, f"{label}: tokens misshapen")
+    return gaps
+
+
+def _tp_faults(cfg, one: dict) -> dict:
+    """The readings of planted faults against the one-card run, which the
+    bounds of :func:`_tp_compare` must catch: the update a rank of a data
+    axis of 2 makes when the gradients' all-reduce is skipped (the plain
+    model's step on half the batch at half the rate: its loss is half its
+    rows' mean), and the per-token losses of rows one token out of place.
+    (No update at all reads 1 by definition.)"""
+    import numpy as np
+    import torch
+    from repro_torch.models import build_model
+    plain = build_model(cfg, DEVICE).init(torch.Generator(device=DEVICE).manual_seed(0))
+    batch = _train_batch(TRAIN_BATCH, TRAIN_SEQ)
+    half = {k: v[:TRAIN_BATCH // 2] for k, v in batch.items()}
+    *_, update = _train_update(plain, half, TRAIN_LR / 2)
+    del plain
+    torch.cuda.empty_cache()
+    skipped, leaf = _update_gap(update, one["update"])
+    shifted = _token_gap(np.roll(one["tokens"], 1), (0, 1), one["tokens"])
+    check(skipped > TP_UPDATE_REL and shifted > TP_TOKEN_REL,
+          f"phase19: the bounds do not catch the planted faults: a skipped data reduction "
+          f"reads {skipped:.3e} ({leaf}) against {TP_UPDATE_REL}, rows one token out of "
+          f"place {shifted:.3e} against {TP_TOKEN_REL}")
+    return dict(skipped_data_reduction=skipped, skipped_leaf=leaf, rows_shifted=shifted)
+
+
+def _xent_panel(m: int) -> dict:
+    """B4 on a rank's vocab-parallel panel at the train shape, bf16: the
+    panel (D, 151,936 / m) of rank 1 with the labels shifted by its offset
+    (most fall outside it and pick 0), forward (loss, lse) and backward
+    (with the whole vocab's lse) against the plain versions, the
+    tensor-core route checked there and at every m of TP_PANEL_CHECK_M,
+    timed beside the plain panel and its bound."""
+    import torch
+    from repro_torch.kernels import fused_xent as fx
+    from repro_torch.launch import roofline as rl
+    t, d, v = XENT_SHAPES[0]
+    v_l = v // m
+    h, w, labels, gup = _xent_args(XENT_SHAPES[0], "bfloat16", seed=77)
+    labels = labels.abs() % v
+    panel = w[:, v_l:2 * v_l].contiguous()
+    local = (labels - v_l).to(torch.int32)
+    routes = {}
+    for mm in sorted(set(TP_PANEL_CHECK_M) | {m}):
+        p = panel if mm == m else torch.empty((d, v // mm), dtype=w.dtype, device=w.device)
+        routes[mm] = (fx.xent_route(h, p), fx.xent_bwd_route(h, p))
+    check(all(r == (fx.TENSOR_CORES, fx.TENSOR_CORES) for r in routes.values()),
+          f"phase19 B4 panels: routes {routes} by m, want the tensor cores")
+    loss, lse_r = fx.fused_xent(h, panel, local)
+    picked_p, lse_p = fx._panel_plain(h, panel, local)
+    err = max(float((loss - (lse_p - picked_p)).abs().max()), float((lse_r - lse_p).abs().max()))
+    check(err <= XENT_ATOL["bfloat16"], f"phase19 B4 panel: max |kernel - plain| {err:.3e}")
+    lse = torch.logsumexp(h.float() @ w.float(), dim=-1)
+    dh, dw = fx.fused_xent_bwd(h, panel, local, lse, gup)
+    ref_dh, ref_dw = fx._panel_bwd_plain(h, panel, local, lse, gup)
+    gerr = max(float((dh.float() - ref_dh.float()).abs().max() / ref_dh.float().abs().max()),
+               float((dw.float() - ref_dw.float()).abs().max() / ref_dw.float().abs().max()))
+    check(gerr <= GRAD_REL["bfloat16"], f"phase19 B4 panel backward: rel err {gerr:.3e}")
+    kernel_us = _time_us(lambda: fx.fused_xent(h, panel, local))
+    plain_us = _time_us(lambda: fx._panel_plain(h, panel, local))
+    bwd_us = _time_us(lambda: fx.fused_xent_bwd(h, panel, local, lse, gup))
+    bound_us, bound_by = rl.bound_us(rl.fused_xent_work(t, d, v_l))
+    bwd_bound_us, _ = rl.bound_us(rl.fused_xent_bwd_work(t, d, v_l))
+    log(f"phase19 B4 vocab-parallel panel ({t}, {d}, {v_l}) bf16, rank 1 of {m}: forward "
+        f"{kernel_us:.1f} us (plain {plain_us:.1f}, bound {bound_us:.1f} by {bound_by}), max "
+        f"|err| {err:.3e}; backward {bwd_us:.1f} us (bound {bwd_bound_us:.1f}), rel err "
+        f"{gerr:.3e}; routes by m {routes}; {card_line()}")
+    del h, w, panel, dh, dw, ref_dh, ref_dw
+    torch.cuda.empty_cache()
+    return dict(shape=(t, d, v_l), max_abs_err=err, max_rel_err_bwd=gerr, kernel_us=kernel_us,
+                plain_us=plain_us, bound_us=bound_us, bound_by=bound_by, bwd_us=bwd_us,
+                bwd_bound_us=bwd_bound_us)
+
+
+def _tp_want_launches(cfg) -> dict:
+    """The launches of :func:`_tp_dense_run`'s three paths on every rank:
+    B5 a layer on the local heads, B6 a layer and position, B4 forward and
+    backward once on the rank's panel."""
+    return dict(prefill=want_launches(flash_attention_tc=cfg.n_layers),
+                serve=want_launches(decode_attention_tc=cfg.n_layers * (TP_PROMPT + TP_NEW)),
+                train=want_launches(flash_attention_tc=2 * cfg.n_layers,
+                                    flash_attention_bwd_tc=cfg.n_layers, fused_xent_tc=1,
+                                    fused_xent_bwd_tc=1))
+
+
+def phase_tensor_parallel(moe_shard: dict) -> dict:
+    """Phase 19: the data and model axes.  On an NCCL group of every
+    visible card: Qwen3-8B at full width and TP_LAYERS layers (train_4k's
+    bf16 and remat) through the parallel model (``models/parallel.py``):
+    the prefill step, the serve loop over the KV-sharded cache and a train
+    step.  On one card the group of one's run is bit-equal to the plain
+    ``Model``'s from the same weights (prefill and decode logits, tokens,
+    the loss and every updated parameter), and two gloo ranks on the card
+    run over (1, 2); on n cards meshes (1, n) and (2, n / 2).  Each of
+    these is held against the one-card run by :func:`_tp_compare`, whose
+    bounds are shown to catch planted faults (:func:`_tp_faults`).
+    Qwen3-30B-A3B with ``moe_shard`` at full depth (the TP_MOE_BATCH
+    prefill, the local dispatch's 16 groups, pairs dropped a group): phase
+    13's run on one card; experts over every card on n, routing pinned to
+    the one-card ids, kept pairs equal and logits within SERVE_BF16_REL.
+    8c's 2-slot int8 round step over (pod, data, model): bit-equal to the
+    vmap step on one card, (2, 1, n / 2) against it on n.  B4's
+    vocab-parallel panel of the run that launched it (m = 2 on one card,
+    n on n) against its plain versions."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.launch.mesh import group_of_one, make_mesh, spawn
+    from repro_torch.launch.serve import serve_config
+    from repro_torch.launch.steps import make_pigeon_round_step
+    from repro_torch.models import build_model, build_stacked_model
+
+    t_phase = time.perf_counter()
+    n = _cards()
+    cfg = _tp_cfg()
+    want = _tp_want_launches(cfg)
+    out = dict(cards=n, panel=_xent_panel(2 if n == 1 else n))
+    # the one-card runs: the plain model, then the group of one's parallel model
+    plain = build_model(cfg, DEVICE).init(torch.Generator(device=DEVICE).manual_seed(0))
+    one = _tp_dense_run(plain)
+    with group_of_one("nccl"):
+        mesh = make_mesh((1, 1), ("data", "model"))
+        par = build_model(cfg, DEVICE, mesh).init(torch.Generator(device=DEVICE).manual_seed(0))
+        got = _tp_dense_run(par)
+        same = {key: bool(np.array_equal(got[key], one[key]))
+                for key in ("prefill", "last", "gen", "tokens")}
+        same["loss"] = got["loss"] == one["loss"]
+        same["params"] = all(torch.equal(a, b) for a, b in zip(par.parameters(),
+                                                               plain.parameters()))
+        check(all(same.values()), f"phase19: the group of one's parallel model is not "
+                                  f"bit-equal to the plain model: {same}")
+        check(got["launches"] == one["launches"], f"phase19: the group of one's launches "
+                                                  f"{got['launches']} != {one['launches']}")
+        del par
+    del plain
+    torch.cuda.empty_cache()
+    launches = got["launches"]
+    check(launches == want, f"phase19: launches {launches}, want {want}")
+    log(f"phase19 group of one (NCCL {_nccl_version()}): "
+        f"Qwen3-8B {cfg.n_layers} layers bf16 through the parallel model, bit-equal to the "
+        f"plain model {same}; launches {launches}; seconds {got['seconds']} (plain "
+        f"{one['seconds']}); peak {got['peak_gb']:.2f} GB (plain {one['peak_gb']:.2f}); "
+        f"loss {got['loss']:.6f}; {card_line()}")
+    out.update(group_of_one=dict(bit_equal=same, launches=launches, seconds=got["seconds"],
+                                 plain_seconds=one["seconds"], peak_gb=got["peak_gb"],
+                                 plain_peak_gb=one["peak_gb"]))
+    out["faults"] = _tp_faults(cfg, one)
+    log(f"phase19 planted faults against the one-card run: {out['faults']} (bounds: update "
+        f"{TP_UPDATE_REL}, per-token losses {TP_TOKEN_REL})")
+
+    # the 2-slot int8 round over (pod, data, model), against the vmap step
+    rcfg = _round_cfg()
+    stacked = build_stacked_model(rcfg, 2, device=DEVICE)
+    _load_slots(stacked, rcfg, range(2))
+    inputs, val = _lm_step_inputs(1, seed=100), _train_batch(8, TRAIN_SEQ, seed=90)
+    ref_vl, ref_sel = make_pigeon_round_step(stacked, TRAIN_LR, quant="int8")(inputs, val)
+    ref_round = dict(vlosses=ref_vl.tolist(), sel=int(ref_sel))
+    del stacked
+    torch.cuda.empty_cache()
+
+    moe_cfg = dataclasses.replace(serve_config("qwen3-moe-30b-a3b", full=True),
+                                  optimizations=("moe_shard",))
+    if n == 1:
+        with group_of_one("nccl"):
+            rnd = _tp_round_rank((1, 1, 1))
+        check(rnd["sel"] == ref_round["sel"] and rnd["vlosses"] == ref_round["vlosses"],
+              f"phase19 round over (pod, data, model) (1, 1, 1): {rnd['vlosses']} sel "
+              f"{rnd['sel']}, the vmap step {ref_round}")
+        out["round"] = dict(dims=(1, 1, 1), sel=rnd["sel"], vlosses=rnd["vlosses"],
+                            seconds=rnd["seconds"], peak_gb=rnd["peak_gb"],
+                            launches=rnd["launches"])
+        out["moe"] = dict(cards=1, **{k: v for k, v in moe_shard.items()
+                                      if k not in ("logits", "ids", "kept")})
+        # two gloo ranks on the one card (NCCL takes one rank a card): the
+        # only run here of the model axis above 1, B4's panel among it
+        runs = {(1, 2): spawn(_tp_gloo_rank, 2, "gloo", TP_DEADLINE_S)}
+        backend = "gloo"
+    else:
+        torch.cuda.empty_cache()
+        ranks = spawn(_tp_rank, n, "nccl", TP_DEADLINE_S,
+                      args=(_tp_meshes(n), moe_cfg, moe_shard["ids"], (2, 1, n // 2)))
+        out.update(world=ranks[0]["world"], nccl=ranks[0]["nccl"])
+        runs = {dims: [dict(res["runs"][dims], rank=res["rank"]) for res in ranks]
+                for dims in _tp_meshes(n)}
+        backend = "nccl"
+    out["runs"] = {}
+    for dims, ranks_of in runs.items():
+        for run in ranks_of:
+            label = f"phase19 {backend} {dims} rank {run['rank']}"
+            gaps = _tp_compare(label, run, one)
+            check(run["launches"] == want, f"{label}: launches {run['launches']}, want {want}")
+            log(f"{label}: gaps to the one-card run {gaps}; launches {run['launches']}; "
+                f"seconds {run['seconds']} (one card {one['seconds']}); peak "
+                f"{run['peak_gb']:.2f} GB (one card {one['peak_gb']:.2f}); collectives "
+                f"{run['collectives']}; {card_line()}")
+            out["runs"][f"{backend} {dims} rank {run['rank']}"] = dict(
+                gaps=gaps, launches=run["launches"], seconds=run["seconds"],
+                peak_gb=run["peak_gb"], collectives=run["collectives"])
+    # B4's panel entry: its launches on the first mesh's train step, rank 1
+    # (the panel _xent_panel timed), whose vocab panel is 151,936 / m wide
+    out["panel"]["launches"] = runs[next(iter(runs))][1]["launches"]["train"]["fused_xent_tc"]
+    if n > 1:
+        for res in ranks:
+            moe = res["moe"]
+            label = f"phase19 moe rank {res['rank']}"
+            gap = float(np.abs(moe["logits"] - moe_shard["logits"]).max()
+                        / np.abs(moe_shard["logits"]).max())
+            kept = all(np.array_equal(a, b) for a, b in zip(moe["kept"], moe_shard["kept"]))
+            check(bool(np.isfinite(moe["logits"]).all()) and
+                  all(g == 16 for g in moe["groups"]) and kept and gap <= SERVE_BF16_REL,
+                  f"{label}: logits gap {gap:.3e} to one card (bound {SERVE_BF16_REL}), groups "
+                  f"{set(moe['groups'])}, kept pairs equal {kept}")
+            rnd = res["round"]
+            rgap = max(abs(a - b) / abs(b) for a, b in zip(rnd["vlosses"], ref_round["vlosses"]))
+            check(rnd["sel"] == ref_round["sel"] and rgap <= SERVE_BF16_REL,
+                  f"phase19 round rank {res['rank']}: sel {rnd['sel']} (vmap {ref_round['sel']}),"
+                  f" vlosses gap {rgap:.3e}")
+            log(f"{label}: moe_shard prefill, routing pinned to one card's, gap {gap:.3e}, "
+                f"{moe['seconds']:.3f} s, peak {moe['peak_gb']:.2f} GB, launches "
+                f"{moe['launches']}, drops by layer and group {moe['drops'][:2]}...; round "
+                f"(2, 1, {n // 2}) sel {rnd['sel']} gap {rgap:.3e}, {rnd['seconds']:.3f} s, peak "
+                f"{rnd['peak_gb']:.2f} GB")
+            out[f"moe rank {res['rank']}"] = dict(gap=gap, seconds=moe["seconds"],
+                                                 peak_gb=moe["peak_gb"], drops=moe["drops"])
+            out[f"round rank {res['rank']}"] = dict(sel=rnd["sel"], gap=rgap,
+                                                   seconds=rnd["seconds"],
+                                                   peak_gb=rnd["peak_gb"])
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase19 took {out['seconds']:.1f} s")
     return out
 
 
@@ -6157,6 +6736,7 @@ def main() -> None:
     _check_shape_log("phases 15-17", shapes,
                      {name: kernels[name]["slice_shapes"] for name in shapes.seen})
     analysis = phase("18", phase_analysis)
+    tp = phase("19", phase_tensor_parallel, moe.pop("qmoe_moe_shard"))
 
     sources = {"quant_dequant": ("src/repro/kernels/quant_exchange.py:85",
                                  "src/repro_torch/kernels/csrc/quant_exchange.cu"),
@@ -6442,6 +7022,19 @@ def main() -> None:
                         device_ms_l2_warm=ms(lc[other]["kernel_dev_us"]),
                         device_ms_l2_cold=ms(lc[other]["kernel_cold_us"]))
         entries.append(entry)
+    # B4 on a vocab-parallel panel (phase 19): its launches on the train
+    # step of the run whose panel it is (one card: two gloo ranks over (1,
+    # 2); n cards: the (1, n) mesh)
+    panel = tp["panel"]
+    entries.append(dict(
+        name="fused_xent (vocab-parallel panel)", route="cuda",
+        source="src/repro_torch/kernels/csrc/fused_xent_tc.cu",
+        replaces=sources["fused_xent"][0], launches=panel["launches"],
+        shape=panel["shape"], max_abs_err=panel["max_abs_err"],
+        max_rel_err_bwd=panel["max_rel_err_bwd"], ms=ms(panel["kernel_us"]),
+        plain_ms=ms(panel["plain_us"]), bound_ms=ms(panel["bound_us"]),
+        bound_by=panel["bound_by"], library_ms=None, backward_ms=ms(panel["bwd_us"]),
+        backward_bound_ms=ms(panel["bwd_bound_us"])))
     log(f"phase2 seconds_per_round={s_per_round:.3f}; phase2b (batched) "
         f"seconds_per_round={b_per_round:.3f}; phase2c baselines {baselines}; "
         f"phase2d multiround {multiround}; phase2e sweep and pool {sweep_pool}; "
@@ -6452,7 +7045,8 @@ def main() -> None:
         f"phase10 xlstm train {xlstm_train}; phase11 xlstm rounds {xlstm_rounds}; "
         f"phase12 vlm {vlm}; phase13 moe {moe}; phase14 moe rounds {moe_rounds}; "
         f"phase15 zamba2 {zamba2}; phase16 zamba2 rounds {zamba2_rounds}; "
-        f"phase17 seamless {seamless}; phase18 analysis {analysis}")
+        f"phase17 seamless {seamless}; phase18 analysis {analysis}; phase19 tensor "
+        f"parallel {tp}")
     log(f"phase seconds {seconds}; {time.perf_counter() - t0:.1f} s since the build began")
     log(json.dumps({"kernels": entries}))
     log(card)

@@ -18,9 +18,10 @@ Two baseline files under ``analysis/torch/budgets/``:
   what the reference's compile counts catch (a retrace) has its
   counterpart in a library built again; a ``*-again`` cell must add none.
 
-Rows are keyed by device (``@cpu``, ``@cuda``), as the reference keys its
-sharded rows by device count, and each device's rows carry the torch
-version they were pinned under: a version mismatch downgrades mismatches to
+Rows are keyed by device (``@cpu``, ``@cuda``), and a sharded cell's also
+by the ranks it was measured over (``@d1``, ``@d2``: the reference's
+``@d{N}`` device count; the CPU pins both, the card one), and each
+device's rows carry the torch version they were pinned under: a version mismatch downgrades mismatches to
 warnings (operation counts drift across torch versions).
 ``--update-baselines`` merges only the cells measured in this run.
 """
@@ -47,8 +48,11 @@ def budget_meta(device: str) -> Dict[str, Any]:
     return meta
 
 
-def cell_key(name: str, device: str) -> str:
-    return f"{name}@{device}"
+def cell_key(name: str, device: str, ranks: int = 1) -> str:
+    """A row's key: the cell, then, for a sharded cell, the ranks it was
+    measured over (``@d{N}``, the reference's device-count suffix), then the
+    device."""
+    return f"{name}@d{ranks}@{device}" if "@sharded" in name else f"{name}@{device}"
 
 
 def budget_path(root: str, filename: str) -> str:
@@ -199,7 +203,8 @@ def measure_compile_counts(ctx) -> Tuple[Dict[str, Dict[str, Any]], List[Finding
 def measure_program_budgets(ctx, cells) -> Tuple[Dict[str, Dict[str, Any]], List[Finding]]:
     """Audit every program cell; returns (budget rows, invariant findings).
     A sharded cell runs in a process group of one rank (gloo on the CPU,
-    NCCL on the card), closed after the cell unless one was already up."""
+    NCCL on the card), closed after the cell unless one was already up,
+    and is keyed ``@d1`` (:func:`measure_sharded_ranks` measures more)."""
     from ..launch.mesh import group_of_one
     from .program_audit import audit_fn
     rows: Dict[str, Dict[str, Any]] = {}
@@ -218,6 +223,39 @@ def measure_program_budgets(ctx, cells) -> Tuple[Dict[str, Dict[str, Any]], List
     return rows, findings
 
 
+def _audit_rank(names: List[str], device: str, ranks: int):
+    """One spawned rank's audits of the sharded cells ``names`` (the group
+    is up): (rows, findings as tuples)."""
+    from .program_audit import audit_fn
+    from .programs import build_context, select_cells
+    torch.set_num_threads(1)
+    ctx = build_context(device)
+    rows, found = {}, []
+    for cell in select_cells(names=tuple(names)):
+        key = cell_key(cell.name, device, ranks)
+        fn, args, carry = cell.realize(ctx)
+        audit = audit_fn(fn, args, name=key, carry_argnums=carry,
+                         expected_fetch_leaves=cell.fetch_leaves(ctx))
+        rows[key] = audit.budget_row()
+        found.extend(audit.findings)
+    return rows, found
+
+
+def measure_sharded_ranks(names: List[str], device: str, ranks: int,
+                          deadline_s: float = 240.0
+                          ) -> Tuple[Dict[str, Dict[str, Any]], List[Finding]]:
+    """The sharded cells ``names`` audited over ``ranks`` spawned gloo ranks
+    on this host (the CPU): rank 0's rows, keyed ``@d{ranks}``, and every
+    rank's findings."""
+    from ..launch.mesh import spawn
+    if device != "cpu":
+        raise ValueError("the spawned ranks' audits run on the CPU (one card holds one "
+                         "rank: the card's rows are @d1)")
+    results = spawn(_audit_rank, ranks, "gloo", deadline_s, args=(list(names), device, ranks),
+                    threads=1)
+    return results[0][0], [f for _, found in results for f in found]
+
+
 __all__ = ["BUDGET_DIR", "COMPILES_FILE", "DRIVER_CELLS", "PROGRAMS_FILE", "budget_meta",
            "budget_path", "cell_key", "compare_budget", "load_budget", "measure_compile_counts",
-           "measure_program_budgets", "merge_budget"]
+           "measure_program_budgets", "measure_sharded_ranks", "merge_budget"]

@@ -42,6 +42,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--layers", default=",".join(LAYERS), help=f"comma list of {LAYERS}")
     p.add_argument("--device", default="cpu", choices=["cpu", "cuda"],
                    help="where the program and driver cells run")
+    p.add_argument("--ranks", default="1",
+                   help="comma list of the rank counts the sharded cells are measured over "
+                        "(@d1 in this process; more spawned on the CPU, e.g. 1,2)")
     p.add_argument("--root", default=None,
                    help="repo root to analyze (default: this checkout)")
     return p
@@ -54,6 +57,7 @@ def run(argv: Optional[List[str]] = None) -> int:
         return 2
     root = repo_root(args.root)
     layers = tuple(s for s in args.layers.split(",") if s)
+    ranks_list = sorted({int(n) for n in args.ranks.split(",") if n} | {1})
     for layer in layers:
         if layer not in LAYERS:
             print(f"unknown layer {layer!r} (choose from {LAYERS})", file=sys.stderr)
@@ -82,6 +86,12 @@ def run(argv: Optional[List[str]] = None) -> int:
                 rows, inv = budgets.measure_compile_counts(ctx)
             else:
                 rows, inv = budgets.measure_program_budgets(ctx, select_cells())
+                for n in ranks_list[1:]:
+                    more, more_inv = budgets.measure_sharded_ranks(
+                        [c.name for c in select_cells(placements=("sharded",))],
+                        args.device, n)
+                    rows.update(more)
+                    inv = list(inv) + list(more_inv)
             report.extend(inv)
             path = budgets.budget_path(root, filename)
             if args.update_baselines:

@@ -157,9 +157,15 @@ def _load_stack(stack, tree: Tree) -> None:
 
 
 @torch.no_grad()
-def lm_from_reference(cfg: ModelConfig, params: Tree) -> Model:
+def lm_from_reference(cfg: ModelConfig, params: Tree, mesh=None) -> Model:
     """The reference's LM parameter pytree (any family) -> the port's
-    :class:`Model`, on the CPU."""
+    :class:`Model`, on the CPU; with ``mesh`` (``launch.mesh.Mesh``) this
+    rank's part of the parallel model (``launch.shardings.shard_params``
+    of the whole tensors)."""
+    if mesh is not None:
+        from .launch.shardings import shard_params
+        whole = lm_from_reference(cfg, params)
+        return shard_params(build_model(cfg, "cpu", mesh), dict(whole.named_parameters()))
     model = build_model(cfg, "cpu")
     if len(params["stacks"]) != len(model.stacks):
         raise ValueError(f"{len(params['stacks'])} stacks in the tree, {len(model.stacks)} "
@@ -197,7 +203,15 @@ def _stack_tree(stack) -> Tree:
 
 def lm_to_reference(model: Model) -> Tree:
     """The port's :class:`Model` -> the reference's parameter pytree (numpy
-    f32)."""
+    f32); a tensor-parallel rank's part gathers the whole
+    (``launch.shardings.gather_params``, a collective)."""
+    if model.par.model_size > 1:
+        from .launch.shardings import gather_params
+        whole = build_model(model.cfg, "cpu")
+        with torch.no_grad():
+            for name, t in gather_params(model).items():
+                whole.get_parameter(name).copy_(t)
+        model = whole
     tree = {"embed": _arr(model.embedding),
             "stacks": tuple(_stack_tree(stack) for stack in model.stacks),
             "final_norm": {"scale": _arr(model.final_norm.scale)},
@@ -209,12 +223,15 @@ def lm_to_reference(model: Model) -> Tree:
 
 
 @torch.no_grad()
-def lm_stack_from_reference(cfg: ModelConfig, trees: Sequence[Tree]) -> StackedModel:
+def lm_stack_from_reference(cfg: ModelConfig, trees: Sequence[Tree], mesh=None
+                            ) -> StackedModel:
     """R reference LM parameter pytrees -> the port's
-    :class:`StackedModel`, slot r holding tree r, on the CPU."""
-    stacked = StackedModel(cfg, build_plan(cfg), len(trees), torch.device("cpu"))
+    :class:`StackedModel`, slot r holding tree r, on the CPU (with
+    ``mesh``, this rank's part of each slot)."""
+    par = None if mesh is None else mesh.parallel()
+    stacked = StackedModel(cfg, build_plan(cfg), len(trees), torch.device("cpu"), par)
     for r, tree in enumerate(trees):
-        stacked.load_slot(r, lm_from_reference(cfg, tree))
+        stacked.load_slot(r, lm_from_reference(cfg, tree, mesh))
     return stacked
 
 

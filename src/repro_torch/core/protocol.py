@@ -51,10 +51,6 @@ from .runner import PLACEMENTS, require_group
 from .split import SplitModule, client_update, client_update_stats
 from .validation import validation_loss
 
-#: where the parts of the reference the port does not run yet will come from
-MULTI_CARD_SLICE = ("the next multi-card slice (the data and model axes: tensor and "
-                    "expert parallelism over several cards)")
-
 ENGINES = ("sequential", "batched")
 
 

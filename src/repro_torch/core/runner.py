@@ -117,6 +117,17 @@ class ClusterMesh:
             stride *= d
         return (self.rank // stride) % self.dims[i]
 
+    def pod_view(self) -> "ClusterMesh":
+        """The mesh the round runner lays its cluster axis on: itself; a
+        mesh with ``data``/``model`` axes of size > 1 is a
+        ``launch.mesh.Mesh``, whose pod view is its ``pod`` group."""
+        auto = {a: d for a, d in self.shape.items()
+                if a not in (SEED_AXIS, CLUSTER_AXIS) and d > 1}
+        if auto:
+            raise ValueError(f"a mesh with the axes {auto} has a process group a slice of "
+                             f"each: build it with launch.mesh.make_mesh")
+        return self
+
     def device(self) -> torch.device:
         """Where the group's collectives take their tensors."""
         return (torch.device("cuda", torch.cuda.current_device())
@@ -255,18 +266,25 @@ def sweep_mesh(s: int, r: int, max_devices: Optional[int] = None) -> ClusterMesh
     return _mesh((SEED_AXIS, CLUSTER_AXIS), sweep_factors(s, r, n))
 
 
-def check_partial_auto_backend(mesh, manual_axes) -> None:
+#: the mesh axes the reference leaves to GSPMD ("auto"), which the port runs
+#: as data parallelism and as tensor and expert parallelism
+AUTO_AXES = ("data", "model")
+
+
+def check_partial_auto_backend(mesh, manual_axes) -> Dict[str, int]:
     """The reference runs the axes of a mesh beyond the manual ones
-    (``"data"``, ``"model"``) as GSPMD-auto tensor parallelism; the port
-    has none yet, so any such axis of size > 1 raises.  ``mesh`` is a
+    (``"data"``, ``"model"``) as GSPMD-auto; the port runs them as data and
+    tensor parallelism (``models/parallel.py``, a ``launch.mesh.Mesh``):
+    returns ``{axis: size}`` of those of size > 1.  An axis that is
+    neither manual nor one of :data:`AUTO_AXES` raises.  ``mesh`` is a
     :class:`ClusterMesh` or any object with a ``shape`` mapping."""
-    from .protocol import MULTI_CARD_SLICE
     manual = {manual_axes} if isinstance(manual_axes, str) else set(manual_axes)
-    auto = {a: n for a, n in dict(mesh.shape).items() if a not in manual and n > 1}
-    if auto:
-        raise NotImplementedError(f"mesh axes {auto} beyond the manual {sorted(manual)} "
-                                  f"need tensor parallelism, which comes with "
-                                  f"{MULTI_CARD_SLICE}")
+    auto = {a: n for a, n in dict(mesh.shape).items() if a not in manual}
+    unknown = sorted(a for a in auto if a not in AUTO_AXES)
+    if unknown:
+        raise ValueError(f"mesh axes {unknown} are neither the manual {sorted(manual)} nor "
+                         f"the auto {list(AUTO_AXES)}")
+    return {a: n for a, n in auto.items() if n > 1}
 
 
 # ---------------------------------------------------------------------------
@@ -525,11 +543,8 @@ def sweep_map(spec: RoundSpec, params, inputs, val, policy=None):
 def _gather_rows(x: torch.Tensor, mesh: ClusterMesh) -> torch.Tensor:
     """(n, ...) on each of the mesh's ranks -> (size * n, ...), rank order
     (no gradient flows through a collective)."""
-    x = x.detach().contiguous()
-    out = torch.empty((mesh.size * x.shape[0],) + tuple(x.shape[1:]), dtype=x.dtype,
-                      device=x.device)
-    dist.all_gather_into_tensor(out, x, group=mesh.group)
-    return out
+    from ..models.parallel import collective
+    return collective("all_gather", x.detach().contiguous(), mesh.group, size=mesh.size)
 
 
 def _pack(parts: Sequence[Optional[torch.Tensor]], rows: int) -> torch.Tensor:
@@ -589,13 +604,12 @@ def psum_pick(stacked_leaves, sel: torch.Tensor, lo: int, mesh: ClusterMesh):
     ``lo ..``: one masked f32 all-reduce (SUM) a leaf, cast back to the
     leaf's dtype, leaf by leaf (a generator: an LM's f32 temporary stays one
     leaf in size).  The reference's ``_psum_pick``."""
+    from ..models.parallel import collective
     mine = None
     for x in stacked_leaves:
         if mine is None:
             mine = torch.arange(lo, lo + x.shape[0], device=x.device) == sel
-        local = _slot_pick(x, mine)
-        dist.all_reduce(local, group=mesh.group)
-        yield local.to(x.dtype)
+        yield collective("all_reduce", _slot_pick(x, mine), mesh.group).to(x.dtype)
 
 
 class _Gathered(nn.Module):
@@ -650,9 +664,10 @@ class RoundRunner:
 
     def _cluster_slice(self, n: int, what: str = "R") -> Tuple[ClusterMesh, int, int]:
         """(mesh, lo, n_local): this rank's slice of the n entries the
-        cluster axis carries."""
+        cluster axis carries (over this rank's pod group where the mesh
+        has data or model axes: :meth:`ClusterMesh.pod_view`)."""
         ax = CLUSTER_AXIS
-        mesh = self.mesh if self.mesh is not None else cluster_mesh(n)
+        mesh = self.mesh.pod_view() if self.mesh is not None else cluster_mesh(n)
         d = mesh.shape[ax]
         if n % d:
             raise ValueError(f"{what}={n} not divisible by mesh axis {ax!r}={d}")

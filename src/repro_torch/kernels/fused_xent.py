@@ -325,7 +325,101 @@ class FusedXent(torch.autograd.Function):
         return dh, dw, None
 
 
-__all__ = ["CHUNK_BYTES", "FusedXent", "check_shapes", "chunk_rows",
+def _panel_plain(hidden: torch.Tensor, weights: torch.Tensor, labels: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A panel's (picked, lse), (T,) f32 each, materialising its logits:
+    the plain version of what B4 gives a vocab-parallel rank."""
+    check_shapes(hidden, weights, labels)
+    logits = hidden.to(torch.float32) @ weights.to(torch.float32)
+    return _picked(logits, labels), torch.logsumexp(logits, dim=-1)
+
+
+def _panel_bwd_plain(hidden: torch.Tensor, weights: torch.Tensor, labels: torch.Tensor,
+                     lse: torch.Tensor, g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of B4's backward on a panel, given the whole
+    vocab's ``lse``: dlogits = (exp(logits - lse) - onehot(label)) * g in
+    f32, then (dlogits W^T, h^T dlogits) in the inputs' dtypes."""
+    w32 = weights.to(torch.float32)
+    h32 = hidden.to(torch.float32)
+    logits = h32 @ w32
+    v = logits.shape[-1]
+    inside = (labels >= 0) & (labels < v)
+    onehot = torch.zeros_like(logits)
+    idx = torch.where(inside, labels, torch.zeros_like(labels)).long()
+    onehot.scatter_(1, idx[:, None], inside[:, None].to(torch.float32))
+    dl = (torch.exp(logits - lse[:, None]) - onehot) * g[:, None]
+    return (dl @ w32.t()).to(hidden.dtype), (h32.t() @ dl).to(weights.dtype)
+
+
+class VocabParallelXent(torch.autograd.Function):
+    """B4 over a vocab-parallel head: each rank holds the panel ``weights``
+    (D, V/m) of the whole (D, V) head, whose columns start at ``v0``.
+    ``VocabParallelXent.apply(hidden, weights, labels, v0, par)`` -> the
+    whole vocab's per-token loss (T,) f32 on every rank of ``par``'s model
+    axis.
+
+    Forward: B4 on the panel with the labels shifted by ``v0`` (a label
+    outside the panel picks 0: the kernels compare a column with the label
+    and never index by it), then the ranks' ``lse`` combine (an all-reduce
+    of the max, then of the sum of exp) and the picked logits sum (one
+    all-reduce).  Backward: B4's backward on the panel with the **whole**
+    ``lse`` (``fused_xent_bwd`` takes it as input), ``dW`` local, ``dh``
+    all-reduced over ``model``.  CPU tensors take the plain versions of
+    both, meta tensors the meta rules."""
+
+    @staticmethod
+    def forward(ctx, hidden, weights, labels, v0, par):
+        from ..models.parallel import collective
+        local = (labels - v0).to(torch.int32).contiguous()
+        if hidden.device.type == "cpu":
+            picked, lse_r = _panel_plain(hidden, weights, local)
+        else:
+            fwd = fused_xent_meta if is_meta(hidden, weights) else fused_xent
+            loss_r, lse_r = fwd(hidden, weights, local)
+            picked = lse_r - loss_r
+        group = par.model_group
+        mx = collective("all_reduce", lse_r.clone(), group, torch.distributed.ReduceOp.MAX)
+        se = collective("all_reduce", torch.exp(lse_r - mx), group)
+        lse = mx + torch.log(se)
+        picked = collective("all_reduce", picked.contiguous().clone(), group)
+        ctx.par = par
+        ctx.save_for_backward(hidden, weights, local, lse)
+        return lse - picked
+
+    @staticmethod
+    def backward(ctx, g):
+        from ..models.parallel import collective
+        hidden, weights, local, lse = ctx.saved_tensors
+        g = g.to(torch.float32).contiguous()
+        with entry("fused_xent_bwd", hidden, weights):
+            if hidden.device.type == "cpu":
+                dh, dw = _panel_bwd_plain(hidden, weights, local, lse, g)
+            elif is_meta(hidden, weights):
+                dh, dw = fused_xent_bwd_meta(hidden, weights)
+            else:
+                dh, dw = fused_xent_bwd(hidden, weights, local, lse.contiguous(), g)
+        dh = collective("all_reduce", dh.contiguous(), ctx.par.model_group)
+        return dh, dw, None, None, None
+
+
+def vocab_parallel_xent_plain(hidden: torch.Tensor, panels, labels: torch.Tensor
+                              ) -> torch.Tensor:
+    """The vocab-parallel combine over ``fused_xent_plain``'s panels, in one
+    process: ``panels`` the m (D, V/m) pieces of the head in rank order ->
+    the whole vocab's per-token loss (T,) f32 (what every rank of
+    :class:`VocabParallelXent` returns)."""
+    v0, picked, lses = 0, [], []
+    for w in panels:
+        p, l = _panel_plain(hidden, w, (labels - v0).to(torch.int32))
+        picked.append(p)
+        lses.append(l)
+        v0 += w.shape[1]
+    lse = torch.stack(lses)
+    mx = lse.max(dim=0).values
+    return mx + torch.log(torch.exp(lse - mx).sum(dim=0)) - torch.stack(picked).sum(dim=0)
+
+
+__all__ = ["CHUNK_BYTES", "FusedXent", "VocabParallelXent", "check_shapes", "chunk_rows",
            "fused_xent", "fused_xent_bwd", "fused_xent_bwd_meta", "fused_xent_meta",
-           "fused_xent_plain", "xent_backward",
+           "fused_xent_plain", "vocab_parallel_xent_plain", "xent_backward",
            "xent_backward_tc", "xent_bwd_route", "xent_route", "xent_splits"]

@@ -123,23 +123,53 @@ def fused_cross_entropy(hidden: torch.Tensor, weights: torch.Tensor, labels: tor
     ``sum(loss * mask) / max(sum(mask), 1)`` (``blocks.cross_entropy``).
     Differentiable: on CUDA tensors that need a gradient through the B4
     forward and backward kernels."""
-    h2 = hidden.reshape(-1, hidden.shape[-1])
-    l2 = labels.reshape(-1)
-    with entry("fused_xent", h2, weights):
-        if hidden.device.type == "cpu":
-            per_tok = _fx.fused_xent_plain(h2, weights, l2)
-        else:
-            l2 = l2.to(torch.int32).contiguous()
-            if _needs_grad(hidden, weights):
-                per_tok = _fx.FusedXent.apply(h2.contiguous(), weights, l2)
-            elif is_meta(hidden, weights):
-                per_tok = _fx.fused_xent_meta(h2, weights, l2)[0]
-            else:
-                per_tok = _fx.fused_xent(h2.contiguous(), weights, l2)[0]
+    per_tok = _xent_per_token(hidden, weights, labels)
     if mask is None:
         return torch.mean(per_tok)
     m = mask.reshape(-1).to(torch.float32)
     return torch.sum(per_tok * m) / torch.clamp_min(torch.sum(m), 1.0)
+
+
+def _xent_per_token(hidden: torch.Tensor, weights: torch.Tensor, labels: torch.Tensor,
+                    par=None) -> torch.Tensor:
+    """B4's per-token loss (T,) f32; with ``par`` of model axis > 1 over
+    the vocab-parallel panel ``weights`` (:class:`fused_xent.VocabParallelXent`)."""
+    h2 = hidden.reshape(-1, hidden.shape[-1])
+    l2 = labels.reshape(-1)
+    with entry("fused_xent", h2, weights):
+        if par is not None and par.model_size > 1:
+            v0 = par.model_rank * weights.shape[1]
+            return _fx.VocabParallelXent.apply(h2.contiguous(), weights, l2, v0, par)
+        if hidden.device.type == "cpu":
+            return _fx.fused_xent_plain(h2, weights, l2)
+        l2 = l2.to(torch.int32).contiguous()
+        if _needs_grad(hidden, weights):
+            return _fx.FusedXent.apply(h2.contiguous(), weights, l2)
+        if is_meta(hidden, weights):
+            return _fx.fused_xent_meta(h2, weights, l2)[0]
+        return _fx.fused_xent(h2.contiguous(), weights, l2)[0]
+
+
+def parallel_cross_entropy(hidden: torch.Tensor, weights: torch.Tensor, labels: torch.Tensor,
+                           mask: Optional[torch.Tensor], par) -> torch.Tensor:
+    """:func:`fused_cross_entropy` of a tensor-parallel model on one rank:
+    ``weights`` this rank's vocab panel (D, V/m) of the head, ``hidden``
+    and ``labels`` this data rank's rows.  B4 runs on the panel
+    (``VocabParallelXent``, the whole vocab's loss on every model rank);
+    the mean is the whole batch's: the sum (with a ``mask``, the masked sum
+    and the mask's count, each on its own) all-reduced over ``data``, never
+    a mean of means.  A trivial ``par`` is :func:`fused_cross_entropy`."""
+    if par is None or par.trivial:
+        return fused_cross_entropy(hidden, weights, labels, mask)
+    from ..models.parallel import reduce_from
+    per_tok = _xent_per_token(hidden, weights, labels, par)
+    if mask is None:
+        total = reduce_from(torch.sum(per_tok), par.data_group, par.data_size)
+        return total / (per_tok.numel() * par.data_size)
+    m = mask.reshape(-1).to(torch.float32)
+    num = reduce_from(torch.sum(per_tok * m), par.data_group, par.data_size)
+    den = reduce_from(torch.sum(m), par.data_group, par.data_size)
+    return num / torch.clamp_min(den, 1.0)
 
 
 class _QuantCutExchange(torch.autograd.Function):
@@ -214,5 +244,6 @@ def slstm_scan(pre: torch.Tensor, r: torch.Tensor, n_heads: int) -> torch.Tensor
 
 
 __all__ = ["decode_attention", "flash_attention", "fused_cross_entropy", "largest_divisor",
+           "parallel_cross_entropy",
            "quant_cut_exchange", "quant_roundtrip", "quant_roundtrip_stats", "slstm_scan",
            "tamper_distance", "tamper_verdict"]

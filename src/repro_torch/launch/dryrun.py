@@ -25,24 +25,32 @@ A record holds the reference's keys:
 
 A decode step takes a host index (the port's serve loop does): the dry run
 decodes the last position, S - 1, where every key of the cache is live.
-The production mesh (``--mesh multi``: the pod axis with its data and
-model axes), ``--opt pigeon_shardmap`` over it, ``--opt moe_shard`` and the
-HLO dump (``--save-hlo``) raise: the data and model axes come with the next
-multi-card slice (the pod axis alone runs, on the ranks of a process group:
-``launch/steps.py::make_pigeon_round_step_shardmap``), and PyTorch compiles
-no HLO.
+
+``--mesh single|multi|both`` runs each step over the reference's
+production meshes (``launch/mesh.py::make_production_mesh``: 16 x 16
+``data``, ``model``, or 2 x 16 x 16 with ``pod``) as rank 0 of a fake
+process group of 256 or 512 ranks (``mesh.fake_group``): the model is rank
+0's part of the parallel model (``models/parallel.py``), its collectives
+counted by kind and not run (the meta device moves nothing), the memory
+and ops a rank's, and the roofline's collective term over the link the
+mesh spans (``roofline.link_rate``).  ``--opt pigeon_shardmap`` runs the
+round over the multi-pod mesh, ``--opt moe_shard`` the MoE's shard-local
+dispatch.  The default, ``--mesh card``, is one card.  The HLO dump
+(``--save-hlo``) raises: PyTorch compiles no HLO.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import math
 import os
 import traceback
 from typing import Any, Dict, Optional, Sequence
 
 
 from ..configs import get_config, list_archs
-from ..core.protocol import MULTI_CARD_SLICE
+from ..models import parallel
 from ..telemetry import Stopwatch
 from .op_analysis import OpCounter, _tensors
 from .roofline import roofline_terms
@@ -51,26 +59,39 @@ from .steps import input_specs
 
 #: why an option raises
 NOT_PORTED = {
-    "mesh": f"--mesh multi: the production mesh's data and model axes come with "
-            f"{MULTI_CARD_SLICE}",
-    "pigeon_shardmap": f"--opt pigeon_shardmap: the round over the production mesh's data "
-                       f"and model axes comes with {MULTI_CARD_SLICE}",
-    "moe_shard": f"--opt moe_shard comes with {MULTI_CARD_SLICE}",
     "save_hlo": ("--save-hlo: PyTorch runs eagerly and compiles no HLO; the op counter "
                  "(launch/op_analysis.py) measures what the HLO analysis read"),
 }
-MULTI_CARD_OPTS = ("pigeon_shardmap", "moe_shard")
+#: --mesh -> the meshes run: None one card, False/True the reference's
+#: one-pod (16 x 16) and two-pod (2 x 16 x 16) production meshes
+MESHES = {"card": [None], "single": [False], "multi": [True], "both": [False, True]}
+MESH_NAMES = {None: "1 card", False: "16x16(data,model)", True: "2x16x16(pod,data,model)"}
 
 
 def _bytes(tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def argument_bytes(spec) -> int:
-    """The bytes the step's arguments hold on the card: the model's
-    parameters and buffers, and its tensor arguments (batch, cache)."""
+def argument_bytes(spec, mesh=None) -> int:
+    """The bytes the step's arguments hold on one card: the model's
+    parameters and buffers (a rank's shards), and its tensor arguments
+    (batch, cache) as ``launch/shardings.py`` lays them over ``mesh``
+    (a rank's rows; the cache is already a rank's)."""
     state = list(spec.model.parameters()) + list(spec.model.buffers())
-    return _bytes(state) + _bytes(_tensors(spec.args))
+    if mesh is None:
+        return _bytes(state) + _bytes(_tensors(spec.args))
+    from .shardings import batch_shardings, local_bytes
+    total = _bytes(state)
+    cluster = "pod" if getattr(spec.model, "n", 0) and "pod" in mesh.axis_names else None
+    for i, arg in enumerate(spec.args):
+        if isinstance(arg, dict):
+            lead = cluster if (i == 0 and cluster) else None
+            specs = batch_shardings(arg, mesh, cluster_axis=lead)
+            total += sum(local_bytes(t.shape, t.element_size(), specs[k], mesh)
+                         for k, t in arg.items())
+        else:
+            total += _bytes(_tensors(arg))
+    return total
 
 
 def _decode_args(shape, args):
@@ -86,48 +107,69 @@ def step_tokens(shape) -> int:
     return shape.seq_len * shape.global_batch if shape.kind != "decode" else shape.global_batch
 
 
-def analyze(spec, args, kind: str, tokens: int, active_params: int) -> Dict[str, Any]:
+def analyze(spec, args, kind: str, tokens: int, active_params: int, mesh=None,
+            chips: int = 1) -> Dict[str, Any]:
     """One call of ``spec.fn(*args)`` under the op counter: the record's
-    ``memory``, ``ops`` and ``roofline``."""
+    ``memory``, ``ops`` (with a rank's collective bytes and counts by kind,
+    ``models/parallel.py``'s counter, under the reference's keys) and
+    ``roofline``."""
+    parallel.reset_collectives()
     with OpCounter() as counter:
         out = spec.fn(*args)
+    coll = parallel.collective_totals()
     a = counter.result
     return {
-        "memory": {"argument_bytes": argument_bytes(spec),
+        "memory": {"argument_bytes": argument_bytes(spec, mesh),
                    "output_bytes": _bytes(_tensors(out)),
                    "temp_bytes": a.peak_live_bytes},
         "ops": {"flops": a.flops, "bytes": a.total_bytes,
                 "product_flops": a.product_flops, "kernel_flops": a.kernel_flops,
                 "aten_ops": a.ops, "host_transfers": dict(a.host_transfers),
                 "kernels": dict(a.kernels), "dtypes": sorted(a.dtypes),
-                "products": {k: v for k, v in sorted(a.products.items())}},
-        "roofline": roofline_terms(a.flops, a.total_bytes, 0, 1, kind, active_params,
-                                   tokens).as_dict(),
+                "products": {k: v for k, v in sorted(a.products.items())},
+                "collective_bytes_per_device": coll["bytes"],
+                "collectives_by_kind": coll["by_kind"],
+                "collective_counts": coll["counts"]},
+        "roofline": roofline_terms(a.flops, a.total_bytes, coll["bytes"], chips, kind,
+                                   active_params, tokens).as_dict(),
     }
 
 
 def run_one(arch: str, shape_name: str, pigeon_clusters: int = 0,
-            optimizations: Sequence[str] = ()) -> Dict[str, Any]:
+            optimizations: Sequence[str] = (), multi_pod: Optional[bool] = None
+            ) -> Dict[str, Any]:
+    """One record: on one card (``multi_pod`` None) or, as rank 0 of a fake
+    process group of 256 (``False``: the reference's 16 x 16 ``data``,
+    ``model`` mesh) or 512 ranks (``True``: 2 x 16 x 16 with ``pod``), on
+    the production mesh, where the multi-pod train program is the Pigeon
+    round (R = 2, a cluster a pod) as the reference's.  ``pigeon_shardmap``
+    and ``moe_shard`` name the mesh programs (on one card ``moe_shard``
+    runs its 16-group dispatch alone)."""
+    from .mesh import PRODUCTION, fake_group, make_production_mesh
     cfg = get_config(arch)
     shape = SHAPES[shape_name]
-    for opt in optimizations:
-        if opt in MULTI_CARD_OPTS:
-            raise NotImplementedError(NOT_PORTED[opt])
+    if "pigeon_shardmap" in optimizations and not multi_pod:
+        raise ValueError("--opt pigeon_shardmap runs over the multi-pod mesh (--mesh multi)")
     pigeon = pigeon_clusters if shape.kind == "train" else 0
+    if multi_pod and shape.kind == "train" and not pigeon:
+        pigeon = 2
+    chips = 1 if multi_pod is None else math.prod(PRODUCTION[multi_pod][0])
     rec: Dict[str, Any] = {
-        "arch": arch, "shape": shape_name, "mesh": "1 card", "chips": 1,
+        "arch": arch, "shape": shape_name, "mesh": MESH_NAMES[multi_pod], "chips": chips,
         "program": ("pigeon_round_step" if pigeon else
                     {"train": "train_step", "prefill": "prefill_step",
                      "decode": "serve_step"}[shape.kind])
                    + "".join(f"+{o}" for o in optimizations),
     }
+    group = (contextlib.nullcontext() if multi_pod is None else fake_group(chips))
     try:
-        with Stopwatch() as sw:
-            spec = input_specs(cfg, shape_name, pigeon_clusters=pigeon,
+        with Stopwatch() as sw, group:
+            mesh = None if multi_pod is None else make_production_mesh(multi_pod=multi_pod)
+            spec = input_specs(cfg, shape_name, mesh, pigeon_clusters=pigeon,
                                optimizations=tuple(optimizations))
             args = _decode_args(shape, spec.args) if shape.kind == "decode" else spec.args
             rec.update(analyze(spec, args, shape.kind, step_tokens(shape),
-                               cfg.active_param_count()))
+                               cfg.active_param_count(), mesh, chips))
         rec["trace_s"] = round(sw.elapsed, 2)
         rec["ok"] = True
     except Exception as e:  # noqa: BLE001 — failures are bugs; record them
@@ -142,22 +184,19 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--arch", default=None, choices=list_archs())
     ap.add_argument("--shape", default=None, choices=list(SHAPES))
     ap.add_argument("--all", action="store_true")
-    ap.add_argument("--mesh", default="single", choices=["single", "multi", "both"])
+    ap.add_argument("--mesh", default="card", choices=list(MESHES),
+                    help="card: one H100; single/multi/both: the reference's 16x16 and "
+                         "2x16x16 production meshes, as rank 0 of a fake process group")
     ap.add_argument("--pigeon-clusters", type=int, default=0,
                     help="train shapes: the Pigeon-SL round over R cluster slots")
     ap.add_argument("--out", default=None, help="merge the records into this JSON file")
     ap.add_argument("--save-hlo", default=None, metavar="DIR", help="no counterpart")
     ap.add_argument("--opt", action="append", default=[],
                     help="named optimization(s), e.g. pigeon_batch_split, pigeon_plus, "
-                         "mlstm_bf16_state (pigeon_shardmap and moe_shard raise)")
+                         "mlstm_bf16_state, moe_shard, pigeon_shardmap (over --mesh multi)")
     args = ap.parse_args(argv)
-    if args.mesh != "single":
-        raise NotImplementedError(NOT_PORTED["mesh"])
     if args.save_hlo is not None:
         raise NotImplementedError(NOT_PORTED["save_hlo"])
-    for opt in args.opt:
-        if opt in MULTI_CARD_OPTS:
-            raise NotImplementedError(NOT_PORTED[opt])
 
     archs = list_archs() if (args.all or args.arch is None) else [args.arch]
     shapes = list(SHAPES) if (args.all or args.shape is None) else [args.shape]
@@ -170,17 +209,20 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                                 "reason": reason})
                 print(f"SKIP  {arch:24s} {shape_name:12s} {reason}")
                 continue
-            rec = run_one(arch, shape_name, args.pigeon_clusters, tuple(args.opt))
-            results.append(rec)
-            if rec["ok"]:
-                r = rec["roofline"]
-                extra = (f"dom={r['dominant']:10s} c={r['compute_s']:.2e}s "
-                         f"m={r['memory_s']:.2e}s args={rec['memory']['argument_bytes']:.3e}B "
-                         f"temp={rec['memory']['temp_bytes']:.3e}B")
-            else:
-                extra = rec.get("error", "")[:120]
-            print(f"{'OK ' if rec['ok'] else 'FAIL'}  {arch:24s} {shape_name:12s} {extra}",
-                  flush=True)
+            for mp in MESHES[args.mesh]:
+                rec = run_one(arch, shape_name, args.pigeon_clusters, tuple(args.opt), mp)
+                results.append(rec)
+                if rec["ok"]:
+                    r = rec["roofline"]
+                    extra = (f"dom={r['dominant']:10s} c={r['compute_s']:.2e}s "
+                             f"m={r['memory_s']:.2e}s x={r['collective_s']:.2e}s "
+                             f"args={rec['memory']['argument_bytes']:.3e}B "
+                             f"temp={rec['memory']['temp_bytes']:.3e}B "
+                             f"coll={rec['ops']['collective_bytes_per_device']:.3e}B")
+                else:
+                    extra = rec.get("error", "")[:120]
+                print(f"{'OK ' if rec['ok'] else 'FAIL'}  {arch:24s} {shape_name:12s} "
+                      f"{rec['mesh']:24s} {extra}", flush=True)
     if args.out:
         existing = []
         if os.path.exists(args.out):

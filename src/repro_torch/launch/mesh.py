@@ -23,26 +23,31 @@ Starting a group:
     rank order.  The children are joined with a deadline and killed when it
     passes, so a hung collective fails its caller instead of hanging it.
 
-The reference's production mesh with its data and model axes (tensor and
-expert parallelism) has no counterpart yet: :func:`make_production_mesh`
-and :func:`data_axes` raise.
+The data and model axes (tensor and expert parallelism, the reference's
+``make_production_mesh``): :func:`make_mesh` lays a ``(pod,) data, model``
+mesh over the group's ranks (:class:`Mesh`: a process group a slice of
+each axis), :func:`make_production_mesh` the reference's 16 x 16 or 2 x 16
+x 16 (abstract without a group, as the dry run reads it under
+:func:`fake_group`), :func:`data_axes` its batch axes.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import datetime
+import math
 import os
 import queue as queue_mod
 import shutil
 import tempfile
 import time
 import traceback
-from typing import Any, Callable, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
 
-from ..core.protocol import MULTI_CARD_SLICE
+from ..core.runner import CLUSTER_AXIS, ClusterMesh
 
 #: seconds a collective may wait before the group raises
 GROUP_TIMEOUT_S = 120.0
@@ -198,18 +203,141 @@ def spawn(target: Callable, world: int, backend: Optional[str] = None,
         shutil.rmtree(store_dir, ignore_errors=True)
 
 
-def make_production_mesh(*, multi_pod: bool = False):
-    """The reference's ("pod",) "data", "model" production mesh: its data
-    and model axes need tensor parallelism, which the port has not yet."""
-    raise NotImplementedError(f"make_production_mesh (the data and model axes) comes with "
-                              f"{MULTI_CARD_SLICE}")
+#: the reference's production mesh: one pod of 16 x 16, or two
+PRODUCTION = {False: ((16, 16), ("data", "model")),
+              True: ((2, 16, 16), ("pod", "data", "model"))}
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Mesh(ClusterMesh):
+    """A mesh over the ranks of the default group, row-major (the last axis
+    fastest, so a ``model`` group is consecutive ranks, one host's cards),
+    with a process group a ranks' slice of each axis (``groups``; None for
+    an axis of size 1).  Built by :func:`make_mesh` (a collective); an
+    abstract mesh (no group: the dry run's shapes) has no groups.
+
+    The round runner's cluster axis is :meth:`pod_view`, a
+    :class:`~repro_torch.core.runner.ClusterMesh` over this rank's ``pod``
+    group; the parallel model's axes are :meth:`parallel`."""
+    groups: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    _subgroups: Dict[int, Any] = dataclasses.field(default_factory=dict)
+
+    def group_of(self, axis: str):
+        return self.groups.get(axis)
+
+    def parallel(self):
+        """This rank's ``models.parallel.Parallel`` view of the ``data`` and
+        ``model`` axes."""
+        from ..models.parallel import Parallel
+        shape = self.shape
+        return Parallel(model_size=shape.get("model", 1), model_rank=self._coord("model"),
+                        model_group=self.groups.get("model"),
+                        data_size=shape.get("data", 1), data_rank=self._coord("data"),
+                        data_group=self.groups.get("data"), mesh=self)
+
+    def _coord(self, axis: str) -> int:
+        return self.coord(axis) if axis in self.axis_names else 0
+
+    def model_subgroup(self, share: int):
+        """The group of the ``share`` consecutive ``model`` ranks this rank
+        is among (a KV head's ranks); a collective the first time."""
+        if share not in self._subgroups:
+            if not self.groups:
+                self._subgroups[share] = None
+            else:
+                lists = [list(range(start, start + share))
+                         for start in range(0, self.size, share)]
+                self._subgroups[share], _ = dist.new_subgroups_by_enumeration(lists)
+        return self._subgroups[share]
+
+    def pod_view(self) -> ClusterMesh:
+        """The ``("pod",)`` mesh the round runner lays its cluster axis on:
+        this rank's index along ``pod`` and the group of the ranks with its
+        ``data`` and ``model`` coordinates."""
+        if CLUSTER_AXIS not in self.axis_names:
+            return ClusterMesh((CLUSTER_AXIS,), (1,), 0, 1, None)
+        p = self.shape[CLUSTER_AXIS]
+        return ClusterMesh((CLUSTER_AXIS,), (p,), self.coord(CLUSTER_AXIS), p,
+                           self.groups.get(CLUSTER_AXIS))
+
+
+def _axis_lists(dims: Sequence[int], i: int) -> List[List[int]]:
+    """The rank lists of axis ``i``'s slices of a row-major mesh."""
+    stride = math.prod(dims[i + 1:])
+    size = math.prod(dims)
+    lists = []
+    for r in range(size):
+        if (r // stride) % dims[i] == 0:
+            lists.append([r + j * stride for j in range(dims[i])])
+    return lists
+
+
+def make_mesh(dims: Sequence[int], axes: Sequence[str]) -> Mesh:
+    """The mesh ``dims`` x ``axes`` over the ranks of the default group (a
+    collective: every rank builds the same meshes in the same order).  Its
+    size must be the group's."""
+    from ..core.runner import require_group
+    rank, world = require_group()
+    dims, axes = tuple(int(d) for d in dims), tuple(axes)
+    if len(dims) != len(axes):
+        raise ValueError(f"mesh dims {dims} and axes {axes} differ in length")
+    if math.prod(dims) != world:
+        raise ValueError(f"a mesh of {dims} ({math.prod(dims)} ranks) over a group of "
+                         f"{world}: the shapes do not match")
+    groups: Dict[str, Any] = {}
+    for i, ax in enumerate(axes):
+        if dims[i] == 1:
+            groups[ax] = None
+        elif dims[i] == world:
+            groups[ax] = dist.group.WORLD
+        else:
+            groups[ax], _ = dist.new_subgroups_by_enumeration(_axis_lists(dims, i))
+    return Mesh(axes, dims, rank, world, None, groups)
+
+
+def abstract_mesh(dims: Sequence[int], axes: Sequence[str]) -> Mesh:
+    """A mesh of shapes only (no group, no collective): what the shardings
+    read."""
+    dims = tuple(int(d) for d in dims)
+    return Mesh(tuple(axes), dims, 0, math.prod(dims), None, {})
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The reference's production mesh, ``("data", "model")`` (16, 16) or
+    ``("pod", "data", "model")`` (2, 16, 16).  With no group up it is
+    abstract (the dry run's shapes); over a group of that size it is laid
+    over its ranks; over a group of another size N the ``model`` axis takes
+    every rank, (1, N) or (1, 1, N) (a group of one gives (1, 1))."""
+    dims, axes = PRODUCTION[multi_pod]
+    if not dist.is_initialized():
+        return abstract_mesh(dims, axes)
+    world = dist.get_world_size()
+    if world != math.prod(dims):
+        dims = (1,) * (len(axes) - 1) + (world,)
+    return make_mesh(dims, axes)
 
 
 def data_axes(mesh) -> tuple:
-    """The reference's batch-carrying axes of a production mesh."""
-    raise NotImplementedError(f"data_axes (the data and model axes) comes with "
-                              f"{MULTI_CARD_SLICE}")
+    """Axis names that carry the batch dimension."""
+    return tuple(n for n in mesh.axis_names if n in ("pod", "data"))
 
 
-__all__ = ["GROUP_TIMEOUT_S", "close_group", "data_axes", "default_backend", "group_of_one",
-           "init_group", "make_production_mesh", "spawn"]
+@contextlib.contextmanager
+def fake_group(world: int, rank: int = 0):
+    """This process as rank ``rank`` of a fake process group of ``world``
+    ranks (``torch.testing``'s ``FakeStore`` and backend ``"fake"``: every
+    collective returns at once, nothing moves): the dry run's stand-in for
+    the production mesh's 256 or 512 cards.  Closed after the block."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError("fake_group needs no process group to be up")
+    dist.init_process_group("fake", store=FakeStore(), rank=rank, world_size=world)
+    try:
+        yield
+    finally:
+        close_group()
+
+
+__all__ = ["GROUP_TIMEOUT_S", "Mesh", "PRODUCTION", "abstract_mesh", "close_group",
+           "data_axes", "default_backend", "fake_group", "group_of_one", "init_group",
+           "make_mesh", "make_production_mesh", "spawn"]

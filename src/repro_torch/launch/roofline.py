@@ -5,7 +5,11 @@ with the card's constants in place of the TPU's).
 
   compute term    = FLOPs / 989e12 (dense bf16 tensor cores)
   memory term     = bytes / 3.35e12 (HBM3)
-  collective term = 0 on one card (the field is kept for the record's keys)
+  collective term = a rank's collective bytes / the link's rate a
+                    direction: NVLink 4 (450e9) where the mesh fits one
+                    node of 8 cards, else the network between nodes (50e9:
+                    one 400 Gb/s NDR InfiniBand port a card, as a DGX
+                    H100 has); 0 on one card
 
 ``model_flops_for`` is the analytic 6 N D (train) / 2 N D (prefill and
 decode) with N the active parameters, so ``useful_ratio`` catches remat and
@@ -34,6 +38,21 @@ BF16_OPS_PER_S = 989e12         # dense bf16 tensor-core FLOP/s
 F32_OPS_PER_S = 67e12           # f32 FLOP/s outside the tensor cores (TF32 off)
 HBM_BYTES_PER_S = 3.35e12       # HBM3 bytes/s
 RATES = {"bf16": BF16_OPS_PER_S, "f32": F32_OPS_PER_S}
+#: NVLink 4 on the H100 SXM: 900 GB/s a card, both directions together
+#: (NVIDIA H100 data sheet), so 450 GB/s a direction, card to card in a node
+NVLINK_BYTES_PER_S = 450e9
+#: cards a node joins all to all by NVLink (an HGX H100 8-GPU board)
+CARDS_PER_NODE = 8
+#: between nodes: one 400 Gb/s NDR InfiniBand port a card (the DGX H100's
+#: layout), 50 GB/s a direction
+NETWORK_BYTES_PER_S = 50e9
+
+
+def link_rate(chips: int) -> float:
+    """Bytes/s a direction a rank's collectives move at: NVLink within one
+    node, the network where the mesh spans nodes (more than
+    :data:`CARDS_PER_NODE` cards: the production meshes' 256 and 512)."""
+    return NVLINK_BYTES_PER_S if chips <= CARDS_PER_NODE else NETWORK_BYTES_PER_S
 
 
 @dataclasses.dataclass
@@ -67,14 +86,13 @@ def mfu(model_flops: float, seconds: float) -> float:
 def roofline_terms(per_device_flops: float, per_device_bytes: float,
                    per_device_coll_bytes: float, chips: int,
                    kind: str, active_params: int, tokens: int) -> Roofline:
-    """The three terms of one step on one card.  ``hlo_flops_global`` keeps
-    the reference's key: here it is the counted FLOPs of the step."""
-    if chips != 1 or per_device_coll_bytes:
-        from ..core.protocol import MULTI_CARD_SLICE
-        raise NotImplementedError(f"a roofline across cards comes with {MULTI_CARD_SLICE}")
+    """The three terms of one step on one of ``chips`` cards (a rank's
+    FLOPs, bytes and collective bytes; :func:`link_rate` for the last).
+    ``hlo_flops_global`` keeps the reference's key: here it is the counted
+    FLOPs of the step on one rank."""
     compute_s = per_device_flops / BF16_OPS_PER_S
     memory_s = per_device_bytes / HBM_BYTES_PER_S
-    coll_s = 0.0
+    coll_s = per_device_coll_bytes / link_rate(chips) if chips > 1 else 0.0
     dominant = max((("compute", compute_s), ("memory", memory_s), ("collective", coll_s)),
                    key=lambda kv: kv[1])[0]
     mf = model_flops_for(kind, active_params, tokens)
@@ -207,7 +225,9 @@ def slstm_scan_bwd_work(t: int, b: int, d: int, h: int) -> Work:
                 + 2 * h * dh * 4 * dh, 2 * t * b * 4 * d * dh, "f32")
 
 
-__all__ = ["BF16_OPS_PER_S", "F32_OPS_PER_S", "HBM_BYTES_PER_S", "RATES", "Roofline", "Work", "bound_us", "decode_attention_work",
+__all__ = ["BF16_OPS_PER_S", "CARDS_PER_NODE", "F32_OPS_PER_S", "HBM_BYTES_PER_S",
+           "NETWORK_BYTES_PER_S", "NVLINK_BYTES_PER_S", "RATES", "Roofline", "Work", "bound_us",
+           "decode_attention_work", "link_rate",
            "flash_attention_bwd_work", "flash_attention_work", "fused_xent_bwd_work",
            "fused_xent_work", "live_pairs", "mfu", "model_flops_for", "quant_dequant_stats_work",
            "quant_dequant_work", "roofline_terms", "slstm_scan_bwd_work", "slstm_scan_work",

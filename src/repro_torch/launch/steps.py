@@ -25,15 +25,15 @@
 The model holds its parameters, so a step takes none and updates them in
 place.  The round makers are thin adapters over
 ``core.runner.RoundRunner.round`` (``params_stacked``): this module only
-supplies the model-level binding (:func:`launch_round_spec`).  The
-reference's sharded (mesh) programs have no single-card counterpart:
-:func:`make_pigeon_round_step_shardmap` raises, as ``run_pigeon``'s
-``placement="sharded"`` does.
+supplies the model-level binding (:func:`launch_round_spec`).
+:func:`make_pigeon_round_step_shardmap` lays the cluster axis over the
+ranks of a process group, and a mesh's data and model axes over each
+pod's ranks (``models/parallel.py``).
 
 :func:`input_specs` builds one (architecture x input shape) step with its
 arguments as tensors on the ``meta`` device (shapes and dtypes, nothing
-allocated), the reference's ``ShapeDtypeStruct`` stand-ins; the shardings
-have no single-card meaning and are left out.  :func:`instrument_step`
+allocated), the reference's ``ShapeDtypeStruct`` stand-ins; with a mesh the
+model is one rank's part of the parallel model.  :func:`instrument_step`
 wraps any step so that each call emits one telemetry span.
 """
 from __future__ import annotations
@@ -51,6 +51,7 @@ from ..kernels import ops as kops
 from ..models.blocks import DTYPES
 from ..models.config import ModelConfig
 from ..models.model import Model, StackedModel, build_plan
+from ..models.parallel import all_reduce_grads, gather_from
 from ..models.transformer import ENCDEC
 from .shapes import SHAPES, InputShape, shape_settings
 
@@ -69,10 +70,16 @@ def make_train_step(model: nn.Module, lr: float = 1e-3,
     Over a :class:`StackedModel` the batch is n slots' ``(n, B, S)`` and the
     step returns the (n,) losses: each slot takes its own step (the slots
     share no parameter, so the gradient of the losses' sum is each slot's
-    own), the reference's train step under its vmap over clusters."""
+    own), the reference's train step under its vmap over clusters.
+
+    Over a parallel model (``model.par``: a mesh's data and model axes) the
+    step takes the whole batch, trains on this data rank's rows (the loss
+    is the whole batch's mean) and sums the gradients over ``data`` before
+    the update: every rank then holds its shards of the same model."""
     stacked = isinstance(model, StackedModel)
     params = list(model.parameters())
     halves = model.split_params() if quant is not None else None
+    par = model.par
 
     def loss_of(batch):
         if halves is None:
@@ -86,8 +93,8 @@ def make_train_step(model: nn.Module, lr: float = 1e-3,
         return model.ap_forward(phi, acts, batch)[0]
 
     def train_step(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        loss = loss_of(batch)
-        sgd_update(model, torch.autograd.grad(loss.sum(), params), lr)
+        loss = loss_of(par.batch_rows(batch, 1 if stacked else 0))
+        sgd_update(model, all_reduce_grads(torch.autograd.grad(loss.sum(), params), par), lr)
         return loss.detach()
 
     return train_step
@@ -96,12 +103,18 @@ def make_train_step(model: nn.Module, lr: float = 1e-3,
 def make_prefill_step(model: Model) -> Callable:
     """``prefill_step(batch)`` -> the last position's logits (B, 1, V) f32;
     an encoder-decoder's batch carries its ``frames``, which the forward
-    encodes."""
+    encodes.  A parallel model runs this data rank's rows and returns the
+    whole batch's logits (the vocab panels and the rows all-gathered)."""
+    par = model.par
+
     @torch.inference_mode()
     def prefill_step(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        h, _ = model.forward(batch)
+        h, _ = model.forward(par.batch_rows(batch))
         # last-position logits — the serving prefill output
-        return (h[:, -1:, :] @ model.head.w).to(torch.float32)
+        if par.trivial:
+            return (h[:, -1:, :] @ model.head.w).to(torch.float32)
+        logits = model.head_logits(h[:, -1:, :]).to(torch.float32)
+        return gather_from(logits, par.data_group, par.data_size, dim=0)
     return prefill_step
 
 
@@ -125,11 +138,20 @@ def instrument_step(fn: Callable, telemetry, name: str) -> Callable:
 
 def make_serve_step(model: Model) -> Callable:
     """``serve_step(cache, tokens, index, memory=None)`` -> (logits f32,
-    cache); ``memory`` is an encoder-decoder's encoder output."""
+    cache); ``memory`` is an encoder-decoder's encoder output.  A parallel
+    model's cache holds this rank's rows and KV heads
+    (``model.init_cache``); the step takes the whole batch's tokens and
+    returns the whole batch's logits."""
+    par = model.par
+
     def serve_step(cache, tokens: torch.Tensor, index: int,
                    memory: Optional[torch.Tensor] = None):
+        if par.data_size > 1:
+            tokens = par.local_rows(tokens)
+            memory = None if memory is None else par.local_rows(memory)
         logits, cache = model.decode_step(cache, tokens, index, memory)
-        return logits.to(torch.float32), cache
+        logits = gather_from(logits.to(torch.float32), par.data_group, par.data_size, dim=0)
+        return logits, cache
     return serve_step
 
 
@@ -162,22 +184,29 @@ def launch_round_spec(model: StackedModel, lr: float = 1e-3,
     def train_cluster(params, batches):
         return params, train(batches)           # (R,) train losses
 
+    par = model.par
+
+    def val_loss(params, val_batch):
+        # a parallel model validates this data rank's rows: the loss is
+        # the whole set's mean
+        return params.loss(_every_slot(params, par.batch_rows(val_batch)))
+
     @torch.no_grad()
     def validate(params, val_batch):
-        return params.loss(_every_slot(params, val_batch)), None
+        return val_loss(params, val_batch), None
 
     @torch.no_grad()
     def validate_sharded(params, val_batch, k):
         b = val_batch["tokens"].shape[0]
         kk = effective_shards(k, b)
         n = b // kk
-        losses = torch.stack([params.loss(_every_slot(
-            params, {name: v[i * n:(i + 1) * n] for name, v in val_batch.items()}))
+        losses = torch.stack([val_loss(
+            params, {name: v[i * n:(i + 1) * n] for name, v in val_batch.items()})
             for i in range(kk)], dim=-1)
         # the reported vloss stays the exact full-batch loss (a masked mean
         # of per-shard means would over-weight padding-light shards); the
         # shards feed only the median-of-means score
-        return params.loss(_every_slot(params, val_batch)), losses, None
+        return val_loss(params, val_batch), losses, None
 
     return RoundSpec(train_cluster, validate, validate_sharded=validate_sharded,
                      train_summary=lambda aux: aux,
@@ -256,22 +285,29 @@ def make_pigeon_round_step_shardmap(model: StackedModel, mesh=None, lr: float = 
                                     selection: str = "argmin", quant: Optional[str] = None,
                                     block: int = 1) -> Callable:
     """The Pigeon-SL round with the cluster axis over the ranks of the
-    process group (``placement="sharded"``, ``mesh`` a ``("pod",)``
-    :class:`~repro_torch.core.runner.ClusterMesh`, by default
-    ``cluster_mesh(R)`` at each call): ``round_step(batches, val_batch) ->
-    (vlosses (R,), sel)``, the arguments :func:`make_pigeon_round_step`'s,
-    the same on every rank.  ``model`` is this rank's ``StackedModel`` of
-    R / d slots; each rank trains and validates its slice of ``batches``,
-    the R losses are all-gathered, every rank picks the winner alike, and
-    one masked f32 all-reduce a parameter puts the winner into every slot
-    of every rank.  ``block > 1`` as in :func:`make_pigeon_round_step`.
-
-    A mesh with other axes of size > 1 (the reference's data and model
-    axes) raises (:func:`~repro_torch.core.runner.check_partial_auto_backend`).
-    The reference's ``for_execution`` switch (lowering or running) has no
+    process group (``placement="sharded"``): ``round_step(batches,
+    val_batch) -> (vlosses (R,), sel)``, the arguments
+    :func:`make_pigeon_round_step`'s, the same on every rank.  ``mesh`` is a
+    ``("pod",)`` :class:`~repro_torch.core.runner.ClusterMesh` (by default
+    ``cluster_mesh(R)`` at each call), or a ``launch.mesh.Mesh`` over
+    (``pod``, ``data``, ``model``): the slots over ``pod`` and, within a
+    pod, ``model`` the parallel model of the mesh (built with
+    ``mesh.parallel()``), each pod's training and validation batches split
+    over ``data`` (``launch.shardings.pigeon_round_shardings``).  ``model``
+    is this rank's ``StackedModel`` of R / pods slots; each pod trains and
+    validates its slice of ``batches``, the R losses are all-gathered over
+    ``pod``, every rank picks the winner alike, and one masked f32
+    all-reduce a parameter over ``pod`` puts the winner into every slot of
+    every rank.  ``block > 1`` as in :func:`make_pigeon_round_step`.  The
+    reference's ``for_execution`` switch (lowering or running) has no
     counterpart: the port always runs."""
     if mesh is not None:
-        check_partial_auto_backend(mesh, (CLUSTER_AXIS,))
+        auto = check_partial_auto_backend(mesh, (CLUSTER_AXIS,))
+        par = model.par
+        if (auto.get("model", 1), auto.get("data", 1)) != (par.model_size, par.data_size):
+            raise ValueError(f"the mesh's data and model axes {auto} are not the model's "
+                             f"(data {par.data_size}, model {par.model_size}): build it "
+                             f"with the mesh's parallel view")
     return _round_steps(model, lr, selection, quant, block, placement="sharded", mesh=mesh)
 
 
@@ -333,7 +369,7 @@ def apply_shape_settings(cfg: ModelConfig, shape: InputShape) -> ModelConfig:
     return dataclasses.replace(cfg, **shape_settings(shape))
 
 
-def input_specs(cfg: ModelConfig, shape_name: str, *, pigeon_clusters: int = 0,
+def input_specs(cfg: ModelConfig, shape_name: str, mesh=None, *, pigeon_clusters: int = 0,
                 lr: float = 1e-3, optimizations: Tuple[str, ...] = (),
                 selection: str = "argmin", quant: Optional[str] = None) -> LoweringSpec:
     """The step and its meta-tensor arguments for one (architecture x
@@ -342,20 +378,31 @@ def input_specs(cfg: ModelConfig, shape_name: str, *, pigeon_clusters: int = 0,
     gives each slot global_batch / R, ``pigeon_plus`` the Pigeon-SL+
     round, ``pigeon_shardmap`` the round with the cluster axis over the
     process group's ranks: the model then holds R / d slots, d the
-    ``cluster_mesh(R)`` size), prefill or decode.  ``selection``
-    names the round's policy, ``quant`` the train steps' wire.  A decode
-    step's arguments are (cache, tokens, index), and an encoder-decoder's
-    memory after them."""
+    ``cluster_mesh(R)`` size, or the mesh's ``pod`` axis), prefill or
+    decode.  ``selection`` names the round's policy, ``quant`` the train
+    steps' wire.  A decode step's arguments are (cache, tokens, index),
+    and an encoder-decoder's memory after them.
+
+    With ``mesh`` (``launch.mesh.Mesh``, the reference's
+    ``input_specs(cfg, shape, mesh)``) the model is this rank's part of the
+    parallel model over the mesh's data and model axes, a round's clusters
+    lie over its ``pod`` axis (the arguments stay
+    the whole batch's, as the reference's global arrays; the steps take
+    this rank's rows), and a decode's cache is laid out by
+    ``shardings.cache_shardings``: one sharded on its sequence dim (KV heads
+    the model axis does not divide) raises
+    (``shardings.check_cache_layout``)."""
     shape = SHAPES[shape_name]
     cfg = apply_shape_settings(cfg, shape)
     if optimizations:
         cfg = dataclasses.replace(
             cfg, optimizations=tuple(cfg.optimizations) + tuple(optimizations))
     plan = build_plan(cfg)
+    par = None if mesh is None else mesh.parallel()
 
     if shape.kind == "train" and pigeon_clusters:
         r = pigeon_clusters
-        model = StackedModel(cfg, plan, r, _META)
+        model = StackedModel(cfg, plan, r, _META, par)
         # "pigeon_batch_split": each cluster trains global_batch/R, so the
         # robust round costs the same tokens a step as plain data parallelism
         per_cluster_b = (shape.global_batch // r
@@ -369,21 +416,33 @@ def input_specs(cfg: ModelConfig, shape_name: str, *, pigeon_clusters: int = 0,
                 shape, global_batch=per_cluster_b), cluster_dim=r)
             return LoweringSpec(make_pigeon_plus_round_step(model, lr, quant=quant),
                                 (batches, val_batch, plus_batches), model)
-        if "pigeon_shardmap" in cfg.optimizations:
-            mesh = cluster_mesh(r)
-            model = StackedModel(cfg, plan, r // mesh.size, _META)
+        over_pods = mesh is not None and mesh.shape.get(CLUSTER_AXIS, 1) > 1
+        if "pigeon_shardmap" in cfg.optimizations or over_pods:
+            # a mesh's pod axis carries the clusters (the reference's
+            # pigeon_round_shardings): the sharded placement lays them out
+            if mesh is None:
+                mesh = cluster_mesh(r)
+            elif CLUSTER_AXIS not in mesh.axis_names:
+                raise ValueError(f"pigeon_shardmap over a mesh needs its {CLUSTER_AXIS!r} axis "
+                                 f"(the multi-pod mesh); this one is {mesh.shape}")
+            pods = mesh.shape[CLUSTER_AXIS]
+            model = StackedModel(cfg, plan, r // pods, _META, par)
             fn = make_pigeon_round_step_shardmap(model, mesh, lr, selection=selection,
                                                  quant=quant)
             return LoweringSpec(fn, (batches, val_batch), model)
         fn = make_pigeon_round_step(model, lr, selection=selection, quant=quant)
         return LoweringSpec(fn, (batches, val_batch), model)
 
-    model = Model(cfg, plan, _META)
+    model = Model(cfg, plan, _META, par)
     if shape.kind == "train":
         return LoweringSpec(make_train_step(model, lr, quant=quant),
                             (batch_struct(cfg, shape),), model)
     if shape.kind == "prefill":
         return LoweringSpec(make_prefill_step(model), (batch_struct(cfg, shape),), model)
+    if mesh is not None:
+        from .shardings import cache_shardings, check_cache_layout
+        whole = Model(cfg, plan, _META).init_cache(shape.global_batch, shape.seq_len)
+        check_cache_layout(cache_shardings(whole, mesh, shape.global_batch))
     tokens, index, cache, memory = decode_structs(cfg, model, shape)
     args = (cache, tokens, index) + (() if memory is None else (memory,))
     return LoweringSpec(make_serve_step(model), args, model)

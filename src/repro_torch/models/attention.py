@@ -49,6 +49,7 @@ from torch import nn
 from ..kernels import ops
 from ..kernels.flash_attention import NEG_INF, attend_plain, causal_mask
 from .blocks import Linear, RMSNorm, StackedLinear, StackedRMSNorm, apply_rope, rms_norm
+from .parallel import enter, heads_layout, leave, mark, optional, shared_grad
 
 
 class AttnConfig(NamedTuple):
@@ -61,13 +62,77 @@ class AttnConfig(NamedTuple):
     qk_norm: bool = False
 
 
+def _local_heads(cfg: AttnConfig, par):
+    """(this rank's AttnConfig, the Parallel view, the group of the ranks
+    that share its KV head or None, (KV pieces, this rank's piece)): with
+    ``par`` of model axis m > 1 the rank holds H/m query heads and Hkv/m KV
+    heads, or, where m exceeds the KV heads, one KV head whole, shared by
+    the m/Hkv ranks whose query heads read it (Megatron's layout; the
+    reference's rule splits inside a head there, which B5 cannot run)."""
+    par = optional(par)
+    if par.model_size == 1:
+        return cfg, par, None, (1, 0)
+    h, kv, parts, index, share = heads_layout(par, cfg.n_heads, cfg.n_kv_heads)
+    return (cfg._replace(n_heads=h, n_kv_heads=kv), par, par.kv_group(share),
+            (parts, index))
+
+
+def _mark_heads(attn: nn.Module, par, kv_layout) -> None:
+    """wq (and its bias) heads-out over ``model``, wk/wv by KV head, wo
+    heads-in."""
+    if par.model_size == 1:
+        return
+    m, r = par.model_size, par.model_rank
+    for lin, (parts, index) in ((attn.wq, (m, r)), (attn.wk, kv_layout),
+                                (attn.wv, kv_layout)):
+        mark(lin.w, -1, parts, index)
+        if lin.b is not None:
+            mark(lin.b, -1, parts, index)
+    mark(attn.wo.w, -2, m, r)
+
+
+def _kv_proj(lin: nn.Module, x: torch.Tensor, group) -> torch.Tensor:
+    """``lin(x)`` with a KV weight shared by several ranks: its gradient
+    summed over their ``group`` (``parallel.shared_grad``)."""
+    if group is None:
+        return lin(x)
+    if isinstance(lin, StackedLinear):
+        w = shared_grad(lin.w, group)
+        y = torch.stack([xi @ wi for xi, wi in zip(x, w)])
+        return y if lin.b is None else y + shared_grad(lin.b, group)[:, None, None, :]
+    y = x @ shared_grad(lin.w, group)
+    return y if lin.b is None else y + shared_grad(lin.b, group)
+
+
+def _head_norm(norm: nn.Module, x: torch.Tensor, par) -> torch.Tensor:
+    """The q/k norm over head_dim; under a model axis its scale (whole on
+    every rank, each applying it to its own heads) takes the gradient
+    summed over ``model``."""
+    if par.model_size == 1:
+        return norm(x)
+    scale = shared_grad(norm.scale, par.model_group)
+    if isinstance(norm, StackedRMSNorm):
+        xf = x.to(torch.float32)
+        y = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + norm.eps)
+        view = scale.view((scale.shape[0],) + (1,) * (x.dim() - 2) + (scale.shape[-1],))
+        return (y * view.to(torch.float32)).to(x.dtype)
+    return rms_norm(x, scale, norm.eps)
+
+
 class GQA(nn.Module):
     """Causal GQA self-attention: projections ``wq, wk, wv, wo`` (+ q/k
-    RMSNorm over head_dim when ``qk_norm``)."""
+    RMSNorm over head_dim when ``qk_norm``).  With ``par`` (``models.
+    parallel``) of model axis m > 1 the module holds this rank's heads
+    (``cfg`` is then the rank's, see :func:`_local_heads`): ``wq``,
+    ``wk``, ``wv`` column-parallel, ``wo`` row-parallel with one all-reduce
+    over ``model``; B5 and B6 run on the local heads and a cache of the
+    local KV heads."""
 
-    def __init__(self, cfg: AttnConfig, *, dtype: torch.dtype = torch.float32, device=None):
+    def __init__(self, cfg: AttnConfig, *, dtype: torch.dtype = torch.float32, device=None,
+                 par=None):
         super().__init__()
-        self.cfg = cfg
+        self.cfg, self.par, self.kv_group, kv_layout = _local_heads(cfg, par)
+        cfg = self.cfg
         kw = dict(dtype=dtype, device=device)
         hd = cfg.head_dim
         self.wq = Linear(cfg.d_model, cfg.n_heads * hd, bias=cfg.qkv_bias, **kw)
@@ -77,6 +142,7 @@ class GQA(nn.Module):
         if cfg.qk_norm:
             self.q_norm = RMSNorm(hd, **kw)
             self.k_norm = RMSNorm(hd, **kw)
+        _mark_heads(self, self.par, kv_layout)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         for mod in self.children():
@@ -89,11 +155,11 @@ class GQA(nn.Module):
         cfg = self.cfg
         b, s, _ = x.shape
         q = self.wq(x).view(b, s, cfg.n_heads, cfg.head_dim)
-        k = self.wk(x).view(b, s, cfg.n_kv_heads, cfg.head_dim)
-        v = self.wv(x).view(b, s, cfg.n_kv_heads, cfg.head_dim)
+        k = _kv_proj(self.wk, x, self.kv_group).view(b, s, cfg.n_kv_heads, cfg.head_dim)
+        v = _kv_proj(self.wv, x, self.kv_group).view(b, s, cfg.n_kv_heads, cfg.head_dim)
         if cfg.qk_norm:
-            q = self.q_norm(q)
-            k = self.k_norm(k)
+            q = _head_norm(self.q_norm, q, self.par)
+            k = _head_norm(self.k_norm, k, self.par)
         return (apply_rope(q, positions, cfg.rope_theta),
                 apply_rope(k, positions, cfg.rope_theta), v)
 
@@ -102,9 +168,9 @@ class GQA(nn.Module):
         for full attention)."""
         cfg = self.cfg
         b, s, _ = x.shape
-        q, k, v = self._project(x, positions)
+        q, k, v = self._project(enter(x, self.par), positions)
         out = ops.flash_attention(q, k, v, window=window)
-        return self.wo(out.reshape(b, s, cfg.n_heads * cfg.head_dim))
+        return leave(self.wo(out.reshape(b, s, cfg.n_heads * cfg.head_dim)), self.par)
 
     def encode(self, x: torch.Tensor) -> torch.Tensor:
         """The encoder's bidirectional self-attention over x (B, S, d_model):
@@ -128,11 +194,11 @@ class GQA(nn.Module):
         cfg = self.cfg
         b = x.shape[0]
         pos = torch.full((1,), index, dtype=torch.int64, device=x.device)
-        q, k_new, v_new = self._project(x, pos)
+        q, k_new, v_new = self._project(enter(x, self.par), pos)
         cache["k"][:, index] = k_new[:, 0].to(cache["k"].dtype)
         cache["v"][:, index] = v_new[:, 0].to(cache["v"].dtype)
         out = ops.decode_attention(q, cache["k"], cache["v"], index, window=window)
-        return self.wo(out.reshape(b, 1, cfg.n_heads * cfg.head_dim))
+        return leave(self.wo(out.reshape(b, 1, cfg.n_heads * cfg.head_dim)), self.par)
 
 
 def gqa_cross_forward(attn: GQA, x: torch.Tensor, memory: torch.Tensor) -> torch.Tensor:
@@ -155,9 +221,10 @@ class StackedGQA(nn.Module):
     axis): x (n, B, S, d_model) -> (n, B, S, d_model), causal over S."""
 
     def __init__(self, cfg: AttnConfig, n: int, *, dtype: torch.dtype = torch.float32,
-                 device=None):
+                 device=None, par=None):
         super().__init__()
-        self.cfg = cfg
+        self.cfg, self.par, self.kv_group, kv_layout = _local_heads(cfg, par)
+        cfg = self.cfg
         kw = dict(dtype=dtype, device=device)
         hd = cfg.head_dim
         self.wq = StackedLinear(n, cfg.d_model, cfg.n_heads * hd, bias=cfg.qkv_bias, **kw)
@@ -167,21 +234,23 @@ class StackedGQA(nn.Module):
         if cfg.qk_norm:
             self.q_norm = StackedRMSNorm(n, hd, **kw)
             self.k_norm = StackedRMSNorm(n, hd, **kw)
+        _mark_heads(self, self.par, kv_layout)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor, window: int) -> torch.Tensor:
         cfg = self.cfg
         n, b, s, _ = x.shape
         hd = cfg.head_dim
+        x = enter(x, self.par)
         q = self.wq(x).view(n, b, s, cfg.n_heads, hd)
-        k = self.wk(x).view(n, b, s, cfg.n_kv_heads, hd)
-        v = self.wv(x).view(n * b, s, cfg.n_kv_heads, hd)
+        k = _kv_proj(self.wk, x, self.kv_group).view(n, b, s, cfg.n_kv_heads, hd)
+        v = _kv_proj(self.wv, x, self.kv_group).view(n * b, s, cfg.n_kv_heads, hd)
         if cfg.qk_norm:
-            q = self.q_norm(q)
-            k = self.k_norm(k)
+            q = _head_norm(self.q_norm, q, self.par)
+            k = _head_norm(self.k_norm, k, self.par)
         q = apply_rope(q.view(n * b, s, cfg.n_heads, hd), positions, cfg.rope_theta)
         k = apply_rope(k.view(n * b, s, cfg.n_kv_heads, hd), positions, cfg.rope_theta)
         out = ops.flash_attention(q, k, v, window=window)
-        return self.wo(out.reshape(n, b, s, cfg.n_heads * hd))
+        return leave(self.wo(out.reshape(n, b, s, cfg.n_heads * hd)), self.par)
 
 
 def init_kv_cache(layers: int, batch: int, max_seq: int, cfg: AttnConfig,

@@ -21,6 +21,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .parallel import enter, leave, mark, optional
+
 #: ModelConfig.dtype -> torch dtype
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
@@ -150,23 +152,39 @@ class GeluMLP(nn.Module):
         return self.down(F.gelu(self.up(x), approximate="tanh"))
 
 
+def _mark_ffn(par, gate, up, down) -> None:
+    """gate/up column-parallel (ffn-out), down row-parallel (ffn-in)."""
+    if par.model_size > 1:
+        m, r = par.model_size, par.model_rank
+        mark(gate.w, -1, m, r)
+        mark(up.w, -1, m, r)
+        mark(down.w, -2, m, r)
+
+
 class SwiGLU(nn.Module):
-    """``down(silu(gate(x)) * up(x))``."""
+    """``down(silu(gate(x)) * up(x))``.  With ``par`` (``models.parallel``)
+    of model axis m > 1 the FFN width is this rank's F/m: ``gate`` and
+    ``up`` column-parallel, ``down`` row-parallel, one all-reduce over
+    ``model`` at the output."""
 
     def __init__(self, d_model: int, d_ff: int, *, dtype: torch.dtype = torch.float32,
-                 device=None):
+                 device=None, par=None):
         super().__init__()
+        self.par = par = optional(par)
         kw = dict(dtype=dtype, device=device)
-        self.gate = Linear(d_model, d_ff, **kw)
-        self.up = Linear(d_model, d_ff, **kw)
-        self.down = Linear(d_ff, d_model, **kw)
+        f = par.split(d_ff, "d_ff")
+        self.gate = Linear(d_model, f, **kw)
+        self.up = Linear(d_model, f, **kw)
+        self.down = Linear(f, d_model, **kw)
+        _mark_ffn(par, self.gate, self.up, self.down)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         for lin in (self.gate, self.up, self.down):
             lin.reset_parameters(generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.down(F.silu(self.gate(x)) * self.up(x))
+        x = enter(x, self.par)
+        return leave(self.down(F.silu(self.gate(x)) * self.up(x)), self.par)
 
 
 def _slot_view(p: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -213,18 +231,23 @@ class StackedRMSNorm(nn.Module):
 
 class StackedSwiGLU(nn.Module):
     """n slots' :class:`SwiGLU`: the products a slot, SiLU and the gate's
-    product over all slots at once."""
+    product over all slots at once; ``par`` as :class:`SwiGLU`'s (one
+    all-reduce for all slots)."""
 
     def __init__(self, n: int, d_model: int, d_ff: int, *,
-                 dtype: torch.dtype = torch.float32, device=None):
+                 dtype: torch.dtype = torch.float32, device=None, par=None):
         super().__init__()
+        self.par = par = optional(par)
         kw = dict(dtype=dtype, device=device)
-        self.gate = StackedLinear(n, d_model, d_ff, **kw)
-        self.up = StackedLinear(n, d_model, d_ff, **kw)
-        self.down = StackedLinear(n, d_ff, d_model, **kw)
+        f = par.split(d_ff, "d_ff")
+        self.gate = StackedLinear(n, d_model, f, **kw)
+        self.up = StackedLinear(n, d_model, f, **kw)
+        self.down = StackedLinear(n, f, d_model, **kw)
+        _mark_ffn(par, self.gate, self.up, self.down)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.down(F.silu(self.gate(x)) * self.up(x))
+        x = enter(x, self.par)
+        return leave(self.down(F.silu(self.gate(x)) * self.up(x)), self.par)
 
 
 def rope_frequencies(head_dim: int, theta: float = 10000.0, device=None) -> torch.Tensor:

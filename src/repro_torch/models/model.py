@@ -83,7 +83,8 @@ from ..kernels import ops
 from . import transformer as tfm
 from .blocks import DTYPES, Linear, RMSNorm, StackedLinear, StackedRMSNorm, embed_init
 from .config import ModelConfig
-from .moe import check_config
+from .parallel import (LATER_SLICE, SINGLE, Parallel, check_kinds, gather_from, mark,
+                       optional, reduce_from, vocab_embed, vocab_rows)
 
 Cache = Tuple[Dict[str, torch.Tensor], ...]
 Batch = Dict[str, torch.Tensor]
@@ -95,17 +96,20 @@ class StackPlan:
     meta: Dict[str, Any]
 
 
-def _embed_tokens(cfg: ModelConfig, table: torch.Tensor, tokens: torch.Tensor
-                  ) -> torch.Tensor:
+def _embed_tokens(cfg: ModelConfig, table: torch.Tensor, tokens: torch.Tensor,
+                  par: Parallel = SINGLE) -> torch.Tensor:
+    """The scaled lookup; under ``par``'s model axis the vocab-parallel one
+    (``table`` this rank's rows)."""
     sqrt_d = torch.tensor(math.sqrt(float(cfg.d_model)), dtype=table.dtype,
                           device=table.device)
-    return table[tokens] * sqrt_d
+    return vocab_embed(table, tokens, par) * sqrt_d
 
 
-def _embed(cfg: ModelConfig, table: torch.Tensor, batch: Batch) -> torch.Tensor:
+def _embed(cfg: ModelConfig, table: torch.Tensor, batch: Batch,
+           par: Parallel = SINGLE) -> torch.Tensor:
     """The tokens' scaled embeddings, after a vlm's patches (cast to the
     table's dtype, not scaled) when the batch holds them."""
-    x = _embed_tokens(cfg, table, batch["tokens"])
+    x = _embed_tokens(cfg, table, batch["tokens"], par)
     if cfg.arch_type == "vlm" and "patches" in batch:
         x = torch.cat([batch["patches"].to(x.dtype), x], dim=1)
     return x
@@ -154,11 +158,13 @@ class Encoder(nn.Module):
         return self.norm(x)
 
 
-def _lm_loss(head: Linear, h: torch.Tensor, aux: torch.Tensor, batch: Batch
-             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+def _lm_loss(head: Linear, h: torch.Tensor, aux: torch.Tensor, batch: Batch,
+             par: Parallel = SINGLE) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The reference's loss tail, both of its branches (full logits or
-    chunked): the mean (or masked mean) cross-entropy through B4."""
-    lm = ops.fused_cross_entropy(h, head.w, batch["labels"], batch.get("mask"))
+    chunked): the mean (or masked mean) cross-entropy through B4; under
+    ``par`` the vocab-parallel B4 and the whole batch's mean
+    (``ops.parallel_cross_entropy``)."""
+    lm = ops.parallel_cross_entropy(h, head.w, batch["labels"], batch.get("mask"), par)
     return lm + aux, {"lm_loss": lm, "aux_loss": aux}
 
 
@@ -170,15 +176,17 @@ class ClientLM(nn.Module):
     d_model), the memory after the tokens."""
 
     def __init__(self, cfg: ModelConfig, embedding: nn.Parameter,
-                 stacks: Sequence[tfm.BlockStack], encoder: Optional[Encoder] = None):
+                 stacks: Sequence[tfm.BlockStack], encoder: Optional[Encoder] = None,
+                 par: Parallel = SINGLE):
         super().__init__()
         self.cfg = cfg
+        self.par = par
         self.embedding = embedding
         self.stacks = nn.ModuleList(stacks)
         self.encoder = encoder
 
     def forward(self, batch: Batch) -> torch.Tensor:
-        x = _embed(self.cfg, self.embedding, batch)
+        x = _embed(self.cfg, self.embedding, batch, self.par)
         if self.encoder is None:
             return _run_stacks(self.cfg, self.stacks, x)[0]
         memory = self.encoder(batch["frames"])
@@ -190,9 +198,10 @@ class APLM(nn.Module):
     and the head.  ``forward(acts, batch)`` -> (loss, metrics)."""
 
     def __init__(self, cfg: ModelConfig, stacks: Sequence[tfm.BlockStack],
-                 final_norm: RMSNorm, head: Linear):
+                 final_norm: RMSNorm, head: Linear, par: Parallel = SINGLE):
         super().__init__()
         self.cfg = cfg
+        self.par = par
         self.stacks = nn.ModuleList(stacks)
         self.final_norm = final_norm
         self.head = head
@@ -205,21 +214,42 @@ class APLM(nn.Module):
             acts, memory = acts[:, :s_dec], acts[:, s_dec:]
         x, aux = _run_stacks(self.cfg, self.stacks, acts, memory)
         h = _text_positions(self.cfg, self.final_norm(x), batch)
-        return _lm_loss(self.head, h, aux, batch)
+        return _lm_loss(self.head, h, aux, batch, self.par)
+
+
+def _vocab_parallel(par: Parallel, embedding: torch.Tensor, head_w: torch.Tensor) -> None:
+    """The embedding's rows and the head's columns over ``model``."""
+    if par.model_size > 1:
+        mark(embedding, -2, par.model_size, par.model_rank)
+        mark(head_w, -1, par.model_size, par.model_rank)
 
 
 class Model(nn.Module):
-    def __init__(self, cfg: ModelConfig, plan: List[StackPlan], device=None):
+    """See the module docstring.  With ``par`` (``models.parallel``, from
+    ``launch.mesh.Mesh.parallel``) the model is one rank's part of the
+    tensor- and data-parallel model: the embedding's rows and the head's
+    columns (vocab-parallel), the attention's heads, the FFN's columns and
+    the MoE's experts over ``model`` (``launch/shardings.py`` lays the
+    whole tensors out); every entry takes this data rank's rows of a batch,
+    the loss is the whole batch's, and ``logits``/``decode_step`` return
+    the whole vocab's logits of those rows.  Only the ``attn_mlp``,
+    ``dense_mlp`` and ``moe`` kinds with GQA run at model > 1."""
+
+    def __init__(self, cfg: ModelConfig, plan: List[StackPlan], device=None,
+                 par: Optional[Parallel] = None):
         super().__init__()
         self.cfg = cfg
         self.plan = plan
+        self.par = par = optional(par)
+        check_kinds([sp.kind for sp in plan], par, bool(cfg.kv_lora_rank))
         dt = DTYPES[cfg.dtype]
-        self.embedding = nn.Parameter(torch.empty((cfg.vocab, cfg.d_model), dtype=dt,
-                                                  device=device))
-        self.stacks = nn.ModuleList(tfm.build_stacks(cfg, plan, device))
+        v = par.split(cfg.vocab, "vocab")
+        self.embedding = nn.Parameter(torch.empty((v, cfg.d_model), dtype=dt, device=device))
+        self.stacks = nn.ModuleList(tfm.build_stacks(cfg, plan, device, par))
         self.final_norm = RMSNorm(cfg.d_model, dtype=dt, device=device)
-        self.head = Linear(cfg.d_model, cfg.vocab, dtype=dt, device=device)
+        self.head = Linear(cfg.d_model, v, dtype=dt, device=device)
         self.encoder = Encoder(cfg, device) if cfg.arch_type in tfm.ENCDEC else None
+        _vocab_parallel(par, self.embedding, self.head.w)
 
     @property
     def device(self) -> torch.device:
@@ -234,8 +264,13 @@ class Model(nn.Module):
     def init(self, generator: torch.Generator) -> "Model":
         """Draw every parameter as the reference's ``Model.init`` does (in f32
         on ``generator``'s device, then cast), in a fixed order; returns the
-        model."""
+        model.  A tensor-parallel model draws the same values, one whole
+        tensor or layer at a time, and keeps its shards
+        (``launch.shardings.shard_params``): a layer's whole weights at
+        most are on the device beside its own."""
         cfg = self.cfg
+        if self.par.model_size > 1:
+            return self._init_shards(generator)
         self.embedding.copy_(embed_init(generator, cfg.vocab, cfg.d_model))
         for stack in self.stacks:
             for layer in stack.layers:
@@ -246,10 +281,27 @@ class Model(nn.Module):
             self.encoder.reset_parameters(generator)
         return self
 
+    @torch.no_grad()
+    def _init_shards(self, generator: torch.Generator) -> "Model":
+        """:meth:`init`'s draws in its order, each kept as this rank's
+        shard."""
+        from ..launch.shardings import shard_param, shard_params
+        cfg = self.cfg
+        shard_param(self.embedding, embed_init(generator, cfg.vocab, cfg.d_model))
+        for stack, sp in zip(self.stacks, self.plan):
+            for layer, window in zip(stack.layers, tfm._stack_windows(cfg, sp)):
+                whole = tfm._layer(cfg, sp.kind, window, self.device)
+                whole.reset_parameters(generator)
+                shard_params(layer, dict(whole.named_parameters()))
+                del whole
+        self.final_norm.reset_parameters()
+        shard_param(self.head.w, embed_init(generator, cfg.d_model, cfg.vocab))
+        return self
+
     # -- embedding ----------------------------------------------------------
     def embed(self, batch: Batch) -> Tuple[torch.Tensor, torch.Tensor]:
         """Returns (x, positions); a vlm's patches lead x."""
-        x = _embed(self.cfg, self.embedding, batch)
+        x = _embed(self.cfg, self.embedding, batch, self.par)
         return x, torch.arange(x.shape[1], device=x.device)
 
     def encode(self, batch: Batch) -> torch.Tensor:
@@ -267,14 +319,19 @@ class Model(nn.Module):
 
     def logits(self, batch: Batch) -> torch.Tensor:
         h, _ = self.forward(batch)
-        return self.head(h)
+        return self.head_logits(h)
+
+    def head_logits(self, h: torch.Tensor) -> torch.Tensor:
+        """``h @ head.w``: the whole vocab's logits (under a model axis the
+        ranks' panels all-gathered)."""
+        return gather_from(self.head(h), self.par.model_group, self.par.model_size)
 
     def loss(self, batch: Batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """(loss, {"lm_loss", "aux_loss"}) of ``batch`` {"tokens", "labels",
         optional "mask", a vlm's optional "patches"}; the cross-entropy
         through B4, over the text positions."""
         h, aux = self.forward(batch)
-        return _lm_loss(self.head, _text_positions(self.cfg, h, batch), aux, batch)
+        return _lm_loss(self.head, _text_positions(self.cfg, h, batch), aux, batch, self.par)
 
     # -- split-learning view ------------------------------------------------
     def split_plans(self) -> Tuple[List[StackPlan], List[StackPlan], List[Tuple[int, int, int]]]:
@@ -286,8 +343,8 @@ class Model(nn.Module):
         """(gamma, phi): the client's and the AP's halves, sharing this
         model's parameters (a cut stack is sliced, its layers shared)."""
         client_stacks, ap_stacks = _split_stacks(self.cfg, self.plan, self.stacks)
-        return (ClientLM(self.cfg, self.embedding, client_stacks, self.encoder),
-                APLM(self.cfg, ap_stacks, self.final_norm, self.head))
+        return (ClientLM(self.cfg, self.embedding, client_stacks, self.encoder, self.par),
+                APLM(self.cfg, ap_stacks, self.final_norm, self.head, self.par))
 
     def merge_params(self, gamma: ClientLM, phi: APLM) -> "Model":
         """The model whose parameters are gamma's and phi's (shared, not
@@ -304,7 +361,7 @@ class Model(nn.Module):
                 meta = {k: tuple(c.meta[k]) + tuple(a.meta[k]) for k in c.meta}
                 stacks.append(tfm.BlockStack(c.kind, [*c.layers, *a.layers], meta))
                 ci += 1; ai += 1
-        model = Model(self.cfg, self.plan, device="meta")    # a shell: nothing allocated
+        model = Model(self.cfg, self.plan, "meta", self.par)  # a shell: nothing allocated
         model.embedding = gamma.embedding
         model.stacks = nn.ModuleList(stacks)
         model.final_norm = phi.final_norm
@@ -329,8 +386,19 @@ class Model(nn.Module):
     def init_cache(self, batch_size: int, max_seq: int) -> Cache:
         """Zeroed decode caches, one per stack: KV caches in the model's
         dtype, the mixer kinds' recurrent state in f32 (Mamba2's
-        convolution inputs in the model's dtype)."""
-        return tuple(tfm.init_stack_cache(self.cfg, stack, batch_size, max_seq, self.dtype,
+        convolution inputs in the model's dtype).  A parallel model's
+        holds this data rank's rows of ``batch_size`` (the whole batch's)
+        and its KV heads."""
+        m = self.par.model_size
+        if m > 1 and self.cfg.n_kv_heads % m:
+            raise NotImplementedError(
+                f"a decode cache of {self.cfg.n_kv_heads} KV heads over a model axis of {m}: "
+                f"the reference's rule shards it on its sequence dim, which comes with "
+                f"{LATER_SLICE}")
+        rows = batch_size
+        if self.par.data_size > 1:
+            rows = self.par.local_rows(torch.empty((batch_size, 0), device="meta")).shape[0]
+        return tuple(tfm.init_stack_cache(self.cfg, stack, rows, max_seq, self.dtype,
                                           self.device)
                      for stack in self.stacks)
 
@@ -341,10 +409,10 @@ class Model(nn.Module):
         encoder-decoder's ``memory`` (B, F, d_model), which its
         cross-attention reads.  Writes the cache in place; returns (logits
         (B, 1, V), cache)."""
-        x = _embed_tokens(self.cfg, self.embedding, tokens)
+        x = _embed_tokens(self.cfg, self.embedding, tokens, self.par)
         for stack, c in zip(self.stacks, cache):
             x, _ = tfm.decode_stack(stack, x, c, index, memory)
-        return self.head(self.final_norm(x)), cache
+        return self.head_logits(self.final_norm(x)), cache
 
 
 def _slice_meta(meta: Dict[str, Any], lo: int, hi: int) -> Dict[str, Any]:
@@ -405,22 +473,25 @@ def _run_stacked(cfg: ModelConfig, stacks: Sequence[tfm.BlockStack], x: torch.Te
 
 
 def _slot_losses(head: StackedLinear, h: torch.Tensor, aux: torch.Tensor,
-                 labels: torch.Tensor, mask=None) -> torch.Tensor:
+                 labels: torch.Tensor, mask=None, par: Parallel = SINGLE) -> torch.Tensor:
     """Each slot's :func:`_lm_loss` (B4 once a slot, each with its own
     head): (n,) f32.  ``labels`` (and ``mask``) are (n, B, S), or (B, S)
     shared by every slot."""
     labels = labels.expand(h.shape[:-1])
     masks = [None] * h.shape[0] if mask is None else mask.expand(h.shape[:-1])
-    return torch.stack([ops.fused_cross_entropy(hi, wi, li, mi) + ai
+    return torch.stack([ops.parallel_cross_entropy(hi, wi, li, mi, par) + ai
                         for hi, wi, li, mi, ai in zip(h, head.w, labels, masks,
                                                       aux.expand(h.shape[0]))])
 
 
-def _embed_slots(cfg: ModelConfig, tables: torch.Tensor, tokens: torch.Tensor
-                 ) -> torch.Tensor:
+def _embed_slots(cfg: ModelConfig, tables: torch.Tensor, tokens: torch.Tensor,
+                 par: Parallel = SINGLE) -> torch.Tensor:
     """:func:`_embed_tokens` a slot: the lookup in each slot's own table
-    (and its gradient into that table alone), the scale over all slots."""
-    x = torch.stack([table[t] for table, t in zip(tables, tokens)])
+    (and its gradient into that table alone), the scale over all slots;
+    under a model axis each slot's masked lookup in its rows, then one
+    all-reduce for all slots."""
+    x = torch.stack([vocab_rows(table, t, par) for table, t in zip(tables, tokens)])
+    x = reduce_from(x, par.model_group, par.model_size)
     return x * torch.tensor(math.sqrt(float(cfg.d_model)), dtype=x.dtype, device=x.device)
 
 
@@ -429,15 +500,16 @@ class StackedClientLM(nn.Module):
     stacked layers.  ``forward(tokens (n, B, S))`` -> (n, B, S, D)."""
 
     def __init__(self, cfg: ModelConfig, embedding: nn.Parameter,
-                 stacks: Sequence[tfm.BlockStack]):
+                 stacks: Sequence[tfm.BlockStack], par: Parallel = SINGLE):
         super().__init__()
         self.cfg = cfg
+        self.par = par
         self.embedding = embedding
         self.stacks = nn.ModuleList(stacks)
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         return _run_stacked(self.cfg, self.stacks,
-                            _embed_slots(self.cfg, self.embedding, tokens))[0]
+                            _embed_slots(self.cfg, self.embedding, tokens, self.par))[0]
 
 
 class StackedAPLM(nn.Module):
@@ -446,35 +518,43 @@ class StackedAPLM(nn.Module):
     losses (n,) f32."""
 
     def __init__(self, cfg: ModelConfig, stacks: Sequence[tfm.BlockStack],
-                 final_norm: StackedRMSNorm, head: StackedLinear):
+                 final_norm: StackedRMSNorm, head: StackedLinear, par: Parallel = SINGLE):
         super().__init__()
         self.cfg = cfg
+        self.par = par
         self.stacks = nn.ModuleList(stacks)
         self.final_norm = final_norm
         self.head = head
 
     def forward(self, acts: torch.Tensor, labels: torch.Tensor, mask=None) -> torch.Tensor:
         x, aux = _run_stacked(self.cfg, self.stacks, acts)
-        return _slot_losses(self.head, self.final_norm(x), aux, labels, mask)
+        return _slot_losses(self.head, self.final_norm(x), aux, labels, mask, self.par)
 
 
 class StackedModel(nn.Module):
     """n slots of one :class:`Model`, of any family but the encoder-decoder
     (see the module docstring): ``parameters()`` follow :class:`Model`'s
     order with a leading slot axis each.  Built zeroed on ``device`` (None: the current
-    default device); :meth:`load_slot` writes a plain model into a slot."""
+    default device); :meth:`load_slot` writes a plain model into a slot.  With
+    ``par`` each slot is one rank's part of the parallel model, as
+    :class:`Model`'s (a slot's plain model then has the same ``par``)."""
 
-    def __init__(self, cfg: ModelConfig, plan: List[StackPlan], n: int, device=None):
+    def __init__(self, cfg: ModelConfig, plan: List[StackPlan], n: int, device=None,
+                 par: Optional[Parallel] = None):
         super().__init__()
         self.cfg = cfg
         self.plan = plan
         self.n = n
+        self.par = par = optional(par)
+        check_kinds([sp.kind for sp in plan], par, bool(cfg.kv_lora_rank))
         dt = DTYPES[cfg.dtype]
-        self.embedding = nn.Parameter(torch.zeros((n, cfg.vocab, cfg.d_model), dtype=dt,
+        v = par.split(cfg.vocab, "vocab")
+        self.embedding = nn.Parameter(torch.zeros((n, v, cfg.d_model), dtype=dt,
                                                   device=device))
-        self.stacks = nn.ModuleList(tfm.build_stacked_stacks(cfg, plan, n, device))
+        self.stacks = nn.ModuleList(tfm.build_stacked_stacks(cfg, plan, n, device, par))
         self.final_norm = StackedRMSNorm(n, cfg.d_model, dtype=dt, device=device)
-        self.head = StackedLinear(n, cfg.d_model, cfg.vocab, dtype=dt, device=device)
+        self.head = StackedLinear(n, cfg.d_model, v, dtype=dt, device=device)
+        _vocab_parallel(par, self.embedding, self.head.w)
 
     @property
     def device(self) -> torch.device:
@@ -490,7 +570,7 @@ class StackedModel(nn.Module):
     @torch.no_grad()
     def slot_model(self, r: int) -> Model:
         """Slot ``r`` as a plain :class:`Model` (a copy, on this device)."""
-        model = Model(self.cfg, self.plan, self.device)
+        model = Model(self.cfg, self.plan, self.device, self.par)
         for p, big in zip(model.parameters(), self.parameters()):
             p.copy_(big[r])
         return model
@@ -498,8 +578,8 @@ class StackedModel(nn.Module):
     def split_params(self) -> Tuple[StackedClientLM, StackedAPLM]:
         """(gamma, phi) over all n slots, sharing this model's parameters."""
         client_stacks, ap_stacks = _split_stacks(self.cfg, self.plan, self.stacks)
-        return (StackedClientLM(self.cfg, self.embedding, client_stacks),
-                StackedAPLM(self.cfg, ap_stacks, self.final_norm, self.head))
+        return (StackedClientLM(self.cfg, self.embedding, client_stacks, self.par),
+                StackedAPLM(self.cfg, ap_stacks, self.final_norm, self.head, self.par))
 
     def client_forward(self, gamma: StackedClientLM, tokens: torch.Tensor) -> torch.Tensor:
         """tokens (n, B, S) -> cut activations (n, B, S, D)."""
@@ -515,7 +595,7 @@ class StackedModel(nn.Module):
         """tokens (n, B, S) -> (final hidden states (n, B, S, D), aux: 0, or
         (n,) for a MoE)."""
         x, aux = _run_stacked(self.cfg, self.stacks,
-                              _embed_slots(self.cfg, self.embedding, tokens))
+                              _embed_slots(self.cfg, self.embedding, tokens, self.par))
         return self.final_norm(x), aux
 
     def loss(self, batches: Batch) -> torch.Tensor:
@@ -523,15 +603,22 @@ class StackedModel(nn.Module):
         (n, B, S), optional "mask"}; "labels" and "mask" may be (B, S),
         shared by every slot."""
         h, aux = self.forward(batches["tokens"])
-        return _slot_losses(self.head, h, aux, batches["labels"], batches.get("mask"))
+        return _slot_losses(self.head, h, aux, batches["labels"], batches.get("mask"),
+                            self.par)
+
+
+def _mesh_par(mesh) -> Optional[Parallel]:
+    return None if mesh is None else mesh.parallel()
 
 
 def build_stacked_model(cfg: ModelConfig, r: int, replicas: int = 1,
-                        device: DeviceLike = None) -> StackedModel:
+                        device: DeviceLike = None, mesh=None) -> StackedModel:
     """A zeroed :class:`StackedModel` of ``replicas * r`` slots (the replica
     form's L * R, replica-major) on ``device`` (the card unless
-    ``device="cpu"``)."""
-    return StackedModel(cfg, build_plan(cfg), replicas * r, resolve_device(device))
+    ``device="cpu"``); with ``mesh`` (``launch.mesh.Mesh``) this rank's
+    part of the parallel model over its data and model axes."""
+    return StackedModel(cfg, build_plan(cfg), replicas * r, resolve_device(device),
+                        _mesh_par(mesh))
 
 
 def build_plan(cfg: ModelConfig) -> List[StackPlan]:
@@ -549,7 +636,6 @@ def build_plan(cfg: ModelConfig) -> List[StackPlan]:
     if at in ("dense", "vlm"):
         return [StackPlan("attn_mlp", cfg.n_layers, {"window": tfm._layer_windows(cfg)})]
     if at == "moe":
-        check_config(tfm.moe_cfg(cfg))          # "moe_shard" is multi-card
         plan = [StackPlan("dense_mlp", cfg.first_dense, {})] if cfg.first_dense else []
         return plan + [StackPlan("moe", cfg.n_layers - cfg.first_dense, {})]
     if at in tfm.ENCDEC:
@@ -582,11 +668,13 @@ def build_plan(cfg: ModelConfig) -> List[StackPlan]:
     return plan
 
 
-def build_model(cfg: ModelConfig, device: DeviceLike = None) -> Model:
+def build_model(cfg: ModelConfig, device: DeviceLike = None, mesh=None) -> Model:
     """The model of ``cfg`` with uninitialised parameters on ``device`` (the
-    card unless ``device="cpu"``); call :meth:`Model.init` to draw them."""
+    card unless ``device="cpu"``); call :meth:`Model.init` to draw them.
+    With ``mesh`` (``launch.mesh.Mesh``) this rank's part of the parallel
+    model over the mesh's data and model axes."""
     plan = build_plan(cfg)
-    return Model(cfg, plan, resolve_device(device))
+    return Model(cfg, plan, resolve_device(device), _mesh_par(mesh))
 
 
 __all__ = ["APLM", "ClientLM", "Encoder", "Model", "StackPlan", "StackedAPLM",

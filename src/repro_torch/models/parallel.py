@@ -1,0 +1,314 @@
+"""Tensor and data parallelism over a ``torch.distributed`` mesh: the
+collectives the port's parallel model makes, with no counterpart in the
+reference (which leaves the layout to GSPMD and the collectives to XLA).
+
+A :class:`Parallel` is one rank's view of the mesh's ``data`` and
+``model`` axes (``launch/mesh.py::Mesh.parallel``): the process group of
+each, its size and this rank's index.  The model's modules take one and
+hold the local shard of each weight (``launch/shardings.py`` lays the
+whole tensor out), Megatron's pattern:
+
+  * column-parallel products (``wq``, ``wk``, ``wv``, SwiGLU's ``gate``
+    and ``up``, the MoE's experts): the input enters through
+    :func:`copy_to` (forward identity, backward an all-reduce of the
+    input's gradient over ``model``), each rank computes its columns;
+  * row-parallel products (``wo``, ``down``): each rank's partial sum
+    leaves through :func:`reduce_from` (forward an all-reduce over
+    ``model``, backward identity), one all-reduce a block;
+  * the vocab-parallel embedding (:func:`vocab_embed`: rows over
+    ``model``, a masked lookup, then one all-reduce) and head
+    (``kernels/ops.py::parallel_cross_entropy``, B4 on each rank's panel;
+    :func:`gather_from` for logits);
+  * the ``data`` axis: each rank holds its rows of the batch; the loss
+    reduces its sums over ``data`` (:func:`reduce_from`), and the train
+    step sums the gradients over ``data`` (:func:`all_reduce_grads`).
+
+Every collective goes through :func:`collective`, which counts its calls
+and bytes by kind in :data:`COLLECTIVES` (the dry run's per-rank record).
+On the ``meta`` device it counts and moves nothing.  Under an axis of size
+1 every function here returns its input untouched and counts nothing, so a
+model built with :data:`SINGLE` computes bit for bit what the plain model
+computes.
+"""
+from __future__ import annotations
+
+import dataclasses
+from collections import defaultdict
+from typing import Any, Dict, Iterable, Optional, Sequence
+
+import torch
+import torch.distributed as dist
+
+#: calls and bytes a rank's collectives moved, by kind ("all_reduce",
+#: "all_gather", ...); :func:`reset_collectives` zeroes them
+COLLECTIVES: Dict[str, Dict[str, int]] = defaultdict(lambda: {"calls": 0, "bytes": 0})
+
+#: why a stack kind or a layout waits for a later slice at model > 1
+LATER_SLICE = ("a later multi-card slice (ROADMAP Queue A, item 14's tail): tensor "
+               "parallelism for MLA, Mamba2, mLSTM/sLSTM and the encoder-decoder, and the "
+               "sequence-sharded decode cache")
+
+
+def reset_collectives() -> Dict[str, Dict[str, int]]:
+    """Zero the counter; returns what it held."""
+    held = {k: dict(v) for k, v in COLLECTIVES.items()}
+    COLLECTIVES.clear()
+    return held
+
+
+def collective_totals() -> Dict[str, Any]:
+    """{"bytes": all kinds' bytes, "calls": ..., "by_kind": {kind: bytes},
+    "counts": {kind: calls}} of the counter."""
+    return {"bytes": sum(v["bytes"] for v in COLLECTIVES.values()),
+            "calls": sum(v["calls"] for v in COLLECTIVES.values()),
+            "by_kind": {k: v["bytes"] for k, v in sorted(COLLECTIVES.items())},
+            "counts": {k: v["calls"] for k, v in sorted(COLLECTIVES.items())}}
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def collective(kind: str, t: torch.Tensor, group, op=dist.ReduceOp.SUM,
+               size: int = 1) -> torch.Tensor:
+    """The one place a collective runs: ``kind`` "all_reduce" (in place on
+    ``t``, returned) or "all_gather" (``size`` ranks' contiguous ``t``
+    concatenated along dim 0, in rank order).  Counted by kind: the bytes a
+    rank sends (its tensor).  On the ``meta`` device nothing moves."""
+    rec = COLLECTIVES[kind]
+    rec["calls"] += 1
+    rec["bytes"] += _nbytes(t)
+    if kind == "all_reduce":
+        if t.device.type != "meta":
+            dist.all_reduce(t, op=op, group=group)
+        return t
+    if kind == "all_gather":
+        out = torch.empty((size * t.shape[0],) + tuple(t.shape[1:]), dtype=t.dtype,
+                          device=t.device)
+        if t.device.type != "meta":
+            dist.all_gather_into_tensor(out, t, group=group)
+        return out
+    raise ValueError(f"unknown collective {kind!r}")
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Parallel:
+    """One rank's ``data`` and ``model`` axes: each axis's size, this
+    rank's index along it and its process group (None at size 1).
+    ``kv_group(share)`` gives the group of the ``share`` consecutive model
+    ranks that hold one KV head whole (built collectively by the mesh)."""
+    model_size: int = 1
+    model_rank: int = 0
+    model_group: Any = None
+    data_size: int = 1
+    data_rank: int = 0
+    data_group: Any = None
+    mesh: Any = None
+
+    @property
+    def trivial(self) -> bool:
+        return self.model_size == 1 and self.data_size == 1
+
+    def kv_group(self, share: int):
+        """The group of the ``share`` model ranks that hold this rank's KV
+        head (a collective the first time, through the mesh)."""
+        if share == 1:
+            return None
+        if self.mesh is None:
+            raise ValueError("a KV head shared by several model ranks needs the mesh's "
+                             "groups (launch.mesh.make_mesh)")
+        return self.mesh.model_subgroup(share)
+
+    def local_rows(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """This data rank's rows of a global batch tensor along ``dim``."""
+        if self.data_size == 1:
+            return x
+        n = x.shape[dim]
+        if n % self.data_size:
+            raise ValueError(f"batch dim {n} not divisible by the data axis "
+                             f"{self.data_size}")
+        step = n // self.data_size
+        return x.narrow(dim, self.data_rank * step, step)
+
+    def batch_rows(self, batch: Dict[str, torch.Tensor], dim: int = 0
+                   ) -> Dict[str, torch.Tensor]:
+        return {k: self.local_rows(v, dim) for k, v in batch.items()}
+
+    def split(self, n: int, what: str) -> int:
+        """n / model_size, raising where the model axis does not divide n."""
+        if n % self.model_size:
+            raise ValueError(f"{what}={n} is not divisible by the model axis "
+                             f"{self.model_size}: the reference's rule replicates it there, "
+                             f"which the port's tensor-parallel layers do not run")
+        return n // self.model_size
+
+
+#: the trivial view: no axis, every function the identity
+SINGLE = Parallel()
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return collective("all_reduce", g.contiguous().clone(), ctx.group), None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, op):
+        return collective("all_reduce", x.contiguous().clone(), group, op)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def copy_to(x: torch.Tensor, group, size: int) -> torch.Tensor:
+    """Megatron's ``f``: identity forward, the gradient all-reduced (SUM)
+    over ``group`` backward: the input of a column-parallel product."""
+    if size == 1:
+        return x
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _CopyTo.apply(x, group)
+    return x
+
+
+def reduce_from(x: torch.Tensor, group, size: int, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """Megatron's ``g``: an all-reduce (SUM unless ``op``) over ``group``
+    forward, identity backward: the output of a row-parallel product, a
+    loss's sums over ``data``."""
+    if size == 1:
+        return x
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _ReduceFrom.apply(x, group, op)
+    return collective("all_reduce", x.contiguous().clone(), group, op)
+
+
+def enter(x: torch.Tensor, par: "Parallel") -> torch.Tensor:
+    """:func:`copy_to` over ``par``'s model axis: a block's input."""
+    return copy_to(x, par.model_group, par.model_size)
+
+
+def leave(y: torch.Tensor, par: "Parallel") -> torch.Tensor:
+    """:func:`reduce_from` over ``par``'s model axis: a block's output."""
+    return reduce_from(y, par.model_group, par.model_size)
+
+
+class _SharedGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, w, group):
+        ctx.group = group
+        return w.view_as(w)
+
+    @staticmethod
+    def backward(ctx, g):
+        return collective("all_reduce", g.contiguous().clone(), ctx.group), None
+
+
+def shared_grad(w: torch.Tensor, group) -> torch.Tensor:
+    """A weight held whole on several ranks that each use it for part of
+    the work (a KV head read by the query heads of ``share`` ranks):
+    identity forward, its gradient summed over ``group`` backward, so each
+    copy takes the whole gradient and the copies stay equal."""
+    if group is None or not (torch.is_grad_enabled() and w.requires_grad):
+        return w
+    return _SharedGrad.apply(w, group)
+
+
+def gather_from(x: torch.Tensor, group, size: int, dim: int = -1) -> torch.Tensor:
+    """The ``size`` ranks' ``x`` concatenated along ``dim`` in rank order
+    (no gradient: logits for the serve path)."""
+    if size == 1:
+        return x
+    parts = collective("all_gather", x.detach().contiguous(), group, size=size)
+    return torch.cat(parts.chunk(size, dim=0), dim=dim)
+
+
+def vocab_rows(table: torch.Tensor, tokens: torch.Tensor, par: Parallel) -> torch.Tensor:
+    """This rank's part of the vocab-parallel lookup, before its reduce:
+    the rows of ``table`` (V/m, D), this rank's rows of the whole (V, D)
+    embedding, for the tokens that fall in them, zeros for the others."""
+    if par.model_size == 1:
+        return table[tokens]
+    v_local = table.shape[0]
+    local = tokens - par.model_rank * v_local
+    inside = (local >= 0) & (local < v_local)
+    rows = table[torch.where(inside, local, torch.zeros_like(local))]
+    return rows * inside[..., None].to(rows.dtype)
+
+
+def vocab_embed(table: torch.Tensor, tokens: torch.Tensor, par: Parallel) -> torch.Tensor:
+    """The vocab-parallel lookup: :func:`vocab_rows`, then one all-reduce
+    over ``model`` sums the ranks' rows."""
+    return reduce_from(vocab_rows(table, tokens, par), par.model_group, par.model_size)
+
+
+def all_reduce_grads(grads: Sequence[torch.Tensor], par: Parallel) -> Sequence[torch.Tensor]:
+    """The gradients summed over ``data`` (in place, one all-reduce a
+    tensor), the data-parallel step's reduction."""
+    if par.data_size == 1:
+        return grads
+    for g in grads:
+        collective("all_reduce", g, par.data_group)
+    return grads
+
+
+def mark(p: torch.nn.Parameter, dim: int, parts: int, index: int) -> torch.nn.Parameter:
+    """Record on ``p`` that it is piece ``index`` of ``parts`` equal
+    pieces of the whole tensor along ``dim`` (negative, counted from the
+    end, so a stacked slot axis is transparent): what
+    ``launch/shardings.py::shard_params`` and ``gather_params`` read."""
+    p.tp_layout = (dim, parts, index)
+    return p
+
+
+def layout(p: torch.Tensor):
+    """``(dim, parts, index)`` of a marked parameter, None if replicated."""
+    return getattr(p, "tp_layout", None)
+
+
+def heads_layout(par: Parallel, n_heads: int, n_kv_heads: int):
+    """(local query heads, local KV heads, KV pieces, this rank's KV piece,
+    share): the query heads split evenly over ``model``; the KV heads too
+    where the axis divides them, else each KV head held whole on the
+    ``share = m / Hkv`` ranks whose query heads read it."""
+    m = par.model_size
+    h_local = par.split(n_heads, "n_heads")
+    if n_kv_heads % m == 0:
+        return h_local, n_kv_heads // m, m, par.model_rank, 1
+    if m % n_kv_heads:
+        raise ValueError(f"n_kv_heads={n_kv_heads} and the model axis {m} divide neither "
+                         f"way: {LATER_SLICE}")
+    share = m // n_kv_heads
+    return h_local, 1, n_kv_heads, par.model_rank // share, share
+
+
+def check_kinds(kinds: Iterable[str], par: Parallel, mla: bool) -> None:
+    """Raise where the model axis exceeds 1 for a stack kind whose rules
+    split a dim a later op reads whole."""
+    if par.model_size == 1:
+        return
+    bad = sorted({k for k in kinds if k not in ("attn_mlp", "dense_mlp", "moe")})
+    if mla:
+        bad.append("MLA attention")
+    if bad:
+        raise NotImplementedError(
+            f"{', '.join(bad)} at model axis {par.model_size}: their rules split a dim a "
+            f"later op reads whole (MLA's latent before kv_norm, Mamba2's concatenated "
+            f"in_proj, the xLSTM mixers' heads); they run at model 1 (data-parallel) and "
+            f"come with {LATER_SLICE}")
+
+
+def optional(par: Optional[Parallel]) -> Parallel:
+    return SINGLE if par is None else par
+
+
+__all__ = ["COLLECTIVES", "LATER_SLICE", "Parallel", "SINGLE", "all_reduce_grads",
+           "check_kinds", "collective", "collective_totals", "copy_to", "enter",
+           "gather_from", "heads_layout", "layout", "leave", "mark", "optional",
+           "reduce_from", "reset_collectives", "shared_grad", "vocab_embed", "vocab_rows"]

@@ -88,9 +88,8 @@ def mla_cfg(cfg: ModelConfig) -> MLAConfig:
 
 
 def moe_cfg(cfg: ModelConfig) -> MoEConfig:
-    """The MoE's widths; ``"moe_shard"`` (the reference's shard-local
-    dispatch over a mesh) gives a config that ``model.build_plan`` and
-    ``moe.moe_forward`` refuse."""
+    """The MoE's widths; ``"moe_shard"`` sets the reference's shard-local
+    dispatch (``shard``, 16 groups), on one card or over a mesh."""
     shard = "moe_shard" in cfg.optimizations
     return MoEConfig(d_model=cfg.d_model, d_expert=cfg.d_expert, n_experts=cfg.n_experts,
                      top_k=cfg.top_k, n_shared=cfg.n_shared_experts,
@@ -288,10 +287,13 @@ def _layer_windows(cfg: ModelConfig) -> Tuple[int, ...]:
 X_ONLY_KINDS = tuple(MIXERS) + ("enc",)
 
 
-def _layer(cfg: ModelConfig, kind: str, window: int, device, n: Optional[int] = None
-           ) -> nn.Module:
+def _layer(cfg: ModelConfig, kind: str, window: int, device, n: Optional[int] = None,
+           par=None) -> nn.Module:
     """A layer of ``kind`` (at ``window``, for the attention kinds); with
-    ``n``, its cluster-stacked form of n slots."""
+    ``n``, its cluster-stacked form of n slots; with ``par``
+    (``models.parallel``), the attention, SwiGLU and MoE parts of the
+    ``attn_mlp``, ``dense_mlp`` and ``moe`` kinds hold this rank's shards
+    (:func:`parallel.check_kinds` refuses the other kinds at model > 1)."""
     if kind in MIXERS:
         return (MixerBlock(cfg, kind, device) if n is None
                 else StackedMixerBlock(cfg, kind, n, device))
@@ -308,16 +310,17 @@ def _layer(cfg: ModelConfig, kind: str, window: int, device, n: Optional[int] = 
         if n is None:
             return AttnBlock(RMSNorm(d, **kw), GQA(attn_cfg(cfg), **kw))
         return AttnBlock(StackedRMSNorm(n, d, **kw), StackedGQA(attn_cfg(cfg), n, **kw))
+    pw = dict(kw, par=par)
     if n is None:
         norm = lambda: RMSNorm(d, **kw)                                 # noqa: E731
-        attn = MLA(mla_cfg(cfg), **kw) if cfg.kv_lora_rank else GQA(attn_cfg(cfg), **kw)
-        ffn = MoE(moe_cfg(cfg), **kw) if kind == "moe" else SwiGLU(d, cfg.d_ff, **kw)
+        attn = MLA(mla_cfg(cfg), **kw) if cfg.kv_lora_rank else GQA(attn_cfg(cfg), **pw)
+        ffn = MoE(moe_cfg(cfg), **pw) if kind == "moe" else SwiGLU(d, cfg.d_ff, **pw)
     else:
         norm = lambda: StackedRMSNorm(n, d, **kw)                       # noqa: E731
         attn = (StackedMLA(mla_cfg(cfg), n, **kw) if cfg.kv_lora_rank
-                else StackedGQA(attn_cfg(cfg), n, **kw))
-        ffn = (StackedMoE(moe_cfg(cfg), n, **kw) if kind == "moe"
-               else StackedSwiGLU(n, d, cfg.d_ff, **kw))
+                else StackedGQA(attn_cfg(cfg), n, **pw))
+        ffn = (StackedMoE(moe_cfg(cfg), n, **pw) if kind == "moe"
+               else StackedSwiGLU(n, d, cfg.d_ff, **pw))
     return DecoderLayer(norm(), attn, norm(), ffn, window)
 
 
@@ -326,18 +329,20 @@ def _stack_windows(cfg: ModelConfig, sp) -> Tuple[int, ...]:
     return tuple(sp.meta.get("window", (cfg.sliding_window,) * sp.n))
 
 
-def build_stacks(cfg: ModelConfig, plan, device=None) -> List[BlockStack]:
+def build_stacks(cfg: ModelConfig, plan, device=None, par=None) -> List[BlockStack]:
     """The stacks of ``plan`` (``model.build_plan(cfg)``), parameters
-    allocated uninitialised on ``device``."""
-    return [BlockStack(sp.kind, [_layer(cfg, sp.kind, w, device)
+    allocated uninitialised on ``device`` (this rank's shards under
+    ``par``)."""
+    return [BlockStack(sp.kind, [_layer(cfg, sp.kind, w, device, par=par)
                                  for w in _stack_windows(cfg, sp)], sp.meta)
             for sp in plan]
 
 
-def build_stacked_stacks(cfg: ModelConfig, plan, n: int, device=None) -> List[BlockStack]:
+def build_stacked_stacks(cfg: ModelConfig, plan, n: int, device=None,
+                         par=None) -> List[BlockStack]:
     """The stacks of ``plan`` with n slots a layer (zeroed parameters on
     ``device``): every kind but the encoder-decoder's."""
-    return [BlockStack(sp.kind, [_layer(cfg, sp.kind, w, device, n)
+    return [BlockStack(sp.kind, [_layer(cfg, sp.kind, w, device, n, par)
                                  for w in _stack_windows(cfg, sp)], sp.meta)
             for sp in plan]
 
@@ -381,7 +386,9 @@ def init_stack_cache(cfg: ModelConfig, stack: BlockStack, batch: int, max_seq: i
     """A stack's zeroed decode cache: the KV cache in ``dtype`` (an MLA
     stack's latent and rope key; a ``shared_attn`` block's without a layer
     axis), or the mixer kinds' recurrent state (f32, and Mamba2's
-    convolution inputs in ``dtype``; independent of ``max_seq``)."""
+    convolution inputs in ``dtype``; independent of ``max_seq``).  A
+    tensor-parallel GQA stack's cache holds the rank's KV heads (the
+    attention's own config)."""
     if stack.kind == "mamba":
         return ssm.init_ssm_cache(batch, ssm_cfg(cfg), dtype, device, stack.n)
     if stack.kind == "shared_attn":
@@ -393,7 +400,9 @@ def init_stack_cache(cfg: ModelConfig, stack: BlockStack, batch: int, max_seq: i
         return xlstm.init_slstm_cache(batch, xlstm_cfg(cfg), device, stack.n)
     if stack.kind in ("dense_mlp", "moe") and cfg.kv_lora_rank:
         return init_mla_cache(stack.n, batch, max_seq, mla_cfg(cfg), dtype, device)
-    return init_kv_cache(stack.n, batch, max_seq, attn_cfg(cfg), dtype, device)
+    acfg = (stack.layers[0].attn.cfg if stack.kind in ("attn_mlp", "dense_mlp", "moe")
+            else attn_cfg(cfg))
+    return init_kv_cache(stack.n, batch, max_seq, acfg, dtype, device)
 
 
 def decode_stack(stack: BlockStack, x: torch.Tensor, cache: Dict[str, torch.Tensor],

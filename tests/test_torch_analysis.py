@@ -373,6 +373,27 @@ def test_program_cell_audits_clean_on_cpu(port_ctx, pinned_programs, name):
     assert [f.message for f in fs if f.severity == "error"] == []
 
 
+def test_sharded_cells_over_two_ranks_match_their_pinned_rows():
+    """The sharded cells audited over two spawned gloo ranks (keyed
+    ``@d2``, the reference's device-count suffix) audit clean, hold each
+    rank's half of the clusters, and equal their pinned CPU rows, beside
+    the ``@d1`` rows of a group of one."""
+    from repro_torch.analysis.budgets import (PROGRAMS_FILE, budget_path, cell_key,
+                                              compare_budget, load_budget,
+                                              measure_sharded_ranks)
+    from repro_torch.analysis.programs import SHARDED_CELLS
+    rows, findings = measure_sharded_ranks(list(SHARDED_CELLS), "cpu", 2)
+    assert findings == []
+    assert set(rows) == {cell_key(n, "cpu", 2) for n in SHARDED_CELLS}
+    assert all(k.endswith("@d2@cpu") for k in rows)
+    pinned = load_budget(budget_path(ROOT, PROGRAMS_FILE))["cells"]
+    for name in SHARDED_CELLS:
+        assert cell_key(name, "cpu") == f"{name}@d1@cpu" and cell_key(name, "cpu") in pinned
+        assert rows[cell_key(name, "cpu", 2)]["host_transfers"] == 0
+    fs, _ = compare_budget(budget_path(ROOT, PROGRAMS_FILE), rows, "program-budget", "cpu")
+    assert [f.message for f in fs if f.severity == "error"] == []
+
+
 @pytest.fixture(scope="module")
 def reference_ctx():
     """The reference's tiny context with its arrays abstract
@@ -450,7 +471,7 @@ def test_budget_roundtrip_mismatch_and_version(tmp_path):
 
 def test_checked_in_budgets_cover_every_cell():
     from repro_torch.analysis.budgets import (COMPILES_FILE, DRIVER_CELLS, PROGRAMS_FILE,
-                                              budget_path, load_budget)
+                                              budget_path, cell_key, load_budget)
     compiles = load_budget(budget_path(ROOT, COMPILES_FILE))["cells"]
     for name, _ in DRIVER_CELLS:
         row = compiles[f"{name}@cpu"]
@@ -458,7 +479,7 @@ def test_checked_in_budgets_cover_every_cell():
             assert row["library_builds"] == 0
     programs = load_budget(budget_path(ROOT, PROGRAMS_FILE))["cells"]
     for name in _cell_names():
-        assert programs[f"{name}@cpu"]["host_transfers"] == 0
+        assert programs[cell_key(name, "cpu")]["host_transfers"] == 0
 
 
 def test_cli_check_exits_zero_on_cpu(tmp_path):

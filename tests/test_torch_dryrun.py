@@ -17,7 +17,6 @@ import torch
 from _torch_threads import one_thread  # noqa: F401
 
 from repro_torch.configs import get_config, get_smoke_config, list_archs
-from repro_torch.core.protocol import MULTI_CARD_SLICE
 from repro_torch.kernels import ops
 from repro_torch.launch import dryrun, roofline
 from repro_torch.launch.op_analysis import OpCounter
@@ -40,8 +39,14 @@ def test_roofline_terms_math():
     assert set(rl.as_dict()) == {"compute_s", "memory_s", "collective_s", "dominant",
                                  "model_flops", "hlo_flops_global", "useful_ratio"}
     assert roofline.mfu(989e12, 2.0) == pytest.approx(0.5)
-    with pytest.raises(NotImplementedError, match="multi-card"):
-        roofline.roofline_terms(1, 1, 0, 4, "train", 1, 1)
+    # the collective term across cards: NVLink within a node of 8, the
+    # network where the mesh spans nodes (once refused as multi-card)
+    rl4 = roofline.roofline_terms(1, 1, 450e9, 4, "train", 1, 1)
+    assert rl4.collective_s == pytest.approx(1.0) and rl4.dominant == "collective"
+    rl256 = roofline.roofline_terms(1, 1, 50e9, 256, "train", 1, 1)
+    assert rl256.collective_s == pytest.approx(1.0)
+    assert roofline.link_rate(8) == roofline.NVLINK_BYTES_PER_S
+    assert roofline.link_rate(16) == roofline.NETWORK_BYTES_PER_S
 
 
 @pytest.mark.parametrize("arch", list_archs())
@@ -243,9 +248,26 @@ def test_dry_run_cli_records_and_refuses(tmp_path):
     assert set(ok["memory"]) == {"argument_bytes", "output_bytes", "temp_bytes"}
     assert ok["roofline"]["collective_s"] == 0.0 and ok["ops"]["kernels"]["decode_attention"] > 0
     assert next(r for r in recs if r["arch"] == "qwen3-8b")["skipped"]
-    for argv in (["--mesh", "multi"], ["--opt", "pigeon_shardmap"], ["--opt", "moe_shard"]):
-        with pytest.raises(NotImplementedError, match=MULTI_CARD_SLICE.split(" (")[0]):
-            dryrun.main(["--arch", "qwen3-8b", "--shape", "train_4k"] + argv)
+    # the production meshes (once refused): rank 0 of a fake group of 256
+    # and 512 ranks, each record with a rank's collectives by kind
+    dryrun.main(["--arch", "qwen3-8b", "--shape", "train_4k", "--mesh", "both",
+                 "--out", str(out)])
+    dryrun.main(["--arch", "qwen3-moe-30b-a3b", "--shape", "train_4k", "--mesh", "single",
+                 "--opt", "moe_shard", "--out", str(out)])
+    recs = {(r["arch"], r.get("mesh"), r.get("program")): r for r in json.load(open(out))}
+    single = recs[("qwen3-8b", "16x16(data,model)", "train_step")]
+    multi = recs[("qwen3-8b", "2x16x16(pod,data,model)", "pigeon_round_step")]
+    moe = recs[("qwen3-moe-30b-a3b", "16x16(data,model)", "train_step+moe_shard")]
+    for rec, chips in ((single, 256), (multi, 512), (moe, 256)):
+        assert rec["ok"], rec.get("error")
+        assert rec["chips"] == chips and rec["roofline"]["collective_s"] > 0
+        ops = rec["ops"]
+        assert ops["collectives_by_kind"]["all_reduce"] > 0
+        assert ops["collective_bytes_per_device"] == sum(ops["collectives_by_kind"].values())
+    assert multi["ops"]["collective_counts"]["all_gather"] >= 1     # the pod's losses
+    assert not torch.distributed.is_initialized()
+    with pytest.raises(ValueError, match="--mesh multi"):
+        dryrun.main(["--arch", "qwen3-8b", "--shape", "train_4k", "--opt", "pigeon_shardmap"])
     with pytest.raises(NotImplementedError, match="HLO"):
         dryrun.main(["--arch", "qwen3-8b", "--save-hlo", str(tmp_path)])
 

@@ -18,7 +18,7 @@ JAX reference on the CPU.
     decode logits (atol 2e-4) and greedy tokens, ``convert``'s round trips.
   * The cluster-stacked forms slot by slot bit-equal to their plain models.
   * ``input_specs`` on the meta device against the reference's shapes;
-    ``"moe_shard"`` (multi-card) raises.
+    ``"moe_shard"`` (the 16-group dispatch) against the reference's loss.
 
 ``tests/test_torch_moe_round.py`` holds the Pigeon-SL round over a tiny
 DeepSeek-V2-Lite and the entry points."""
@@ -394,7 +394,30 @@ def test_input_specs_give_the_reference_shapes(arch, shape):
 
 
 def test_moe_shard_is_multi_card():
-    cfg = dataclasses.replace(tconfigs.get_smoke_config("deepseek-v2-lite-16b"),
-                              optimizations=("moe_shard",))
-    with pytest.raises(NotImplementedError, match="multi-card slice"):
-        build_model(cfg, "cpu")
+    """``"moe_shard"`` (once refused as multi-card) builds and runs on one
+    card: the smoke DeepSeek-V2-Lite at a batch that takes the reference's
+    16-group dispatch (T = 64 = 16 E) gives the reference's loss and router
+    loss, the reference run under a one-device (data, model) mesh, as its
+    sharding constraints need."""
+    from jax.sharding import Mesh
+    jcfg = dataclasses.replace(jconfigs.get_smoke_config("deepseek-v2-lite-16b"),
+                               optimizations=("moe_shard",))
+    cfg = _port_cfg(jcfg)
+    assert tmoe.local_dispatch_taken(tmoe.MoEConfig(
+        cfg.d_model, cfg.d_expert, cfg.n_experts, cfg.top_k, shard_groups=16), 64)
+    jmodel = jax_build_model(jcfg)
+    params = jax.jit(jmodel.init)(jax.random.PRNGKey(0))
+    tmodel = lm_from_reference(cfg, _np_tree(params))
+    assert all(stack.layers[-1].moe.cfg.shard_groups == 16 for stack in tmodel.stacks
+               if stack.kind == "moe")
+    rng = np.random.default_rng(5)
+    tokens = rng.integers(0, cfg.vocab, size=(4, 16)).astype(np.int32)
+    labels = rng.integers(0, cfg.vocab, size=(4, 16)).astype(np.int32)
+    with Mesh(np.array(jax.devices()[:1]).reshape(1, 1), ("data", "model")):
+        jl, jmet = jax.jit(jmodel.loss)(params, {"tokens": jnp.asarray(tokens),
+                                                 "labels": jnp.asarray(labels)})
+    with torch.no_grad():
+        tl, tmet = tmodel.loss({"tokens": torch.from_numpy(tokens).long(),
+                                "labels": torch.from_numpy(labels).long()})
+    np.testing.assert_allclose(float(tl), float(jl), rtol=1e-5)
+    np.testing.assert_allclose(float(tmet["aux_loss"]), float(jmet["aux_loss"]), rtol=1e-5)

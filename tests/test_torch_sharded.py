@@ -211,8 +211,11 @@ def test_meshes_match_reference(sharded_runs):
 
 def test_indivisible_mesh_and_model_axes_raise():
     """An explicit mesh that does not divide R raises ``ValueError`` before
-    any collective; a data or model axis > 1 raises (tensor parallelism is
-    the next slice); the sharded placement needs a process group."""
+    any collective; a data or model axis > 1 (once refused) is taken as
+    data and tensor parallelism: the runner and the shardmap step accept
+    it, and the step refuses a model whose parallel view is not the mesh's;
+    an axis neither manual nor data/model raises; the sharded placement
+    needs a process group."""
     import repro_torch.core as tcore
     from repro_torch.core.runner import ClusterMesh, RoundRunner, protocol_round_spec
     from repro_torch.data import build_image_task
@@ -227,15 +230,22 @@ def test_indivisible_mesh_and_model_axes_raise():
         RoundRunner(spec, placement="sharded", mesh=ClusterMesh(
             ("seed", "pod"), (1, 3), 0, 3)).sweep(None, (None, None, None,
                                                          np.zeros((2, 4, 1))), None)
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_stacked_model
+    plain = build_stacked_model(get_smoke_config("qwen3-8b"), 1, device="cpu")
     for axes, dims in ((("pod", "data"), (1, 2)), (("pod", "model"), (2, 2))):
         mesh = ClusterMesh(axes, dims, 0, 4)
-        with pytest.raises(NotImplementedError, match="tensor parallelism"):
-            tcore.check_partial_auto_backend(mesh, ("pod",))
-        with pytest.raises(NotImplementedError, match="tensor parallelism"):
-            RoundRunner(spec, placement="sharded", mesh=mesh)
-        with pytest.raises(NotImplementedError, match="tensor parallelism"):
-            make_pigeon_round_step_shardmap(None, mesh)
-    tcore.check_partial_auto_backend(ClusterMesh(("pod", "data"), (4, 1), 0, 4), ("pod",))
+        assert tcore.check_partial_auto_backend(mesh, ("pod",)) == {axes[1]: 2}
+        RoundRunner(spec, placement="sharded", mesh=mesh)
+        with pytest.raises(ValueError, match="make_mesh"):
+            mesh.pod_view()
+        with pytest.raises(ValueError, match="not the model's"):
+            make_pigeon_round_step_shardmap(plain, mesh)
+    with pytest.raises(ValueError, match="neither the manual"):
+        tcore.check_partial_auto_backend(ClusterMesh(("pod", "expert"), (2, 2), 0, 4),
+                                         ("pod",))
+    assert tcore.check_partial_auto_backend(
+        ClusterMesh(("pod", "data"), (4, 1), 0, 4), ("pod",)) == {}
     assert not torch.distributed.is_initialized()
     with pytest.raises(RuntimeError, match="process group"):
         tcore.cluster_mesh(4)

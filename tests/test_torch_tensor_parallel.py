@@ -1,0 +1,246 @@
+"""The port's data and model axes (``models/parallel.py``, the parallel
+model of ``launch/mesh.py::make_mesh``) against the reference on the CPU.
+
+The port's runs come from one gloo group a world size (2 and 4 ranks, one
+intra-op thread a rank, ``tests/_tp_ranks.py``) at niceness ``NICE``, as
+``tests/test_torch_sharded.py``'s.  The reference's are its one-device
+``jit`` runs in this process: GSPMD changes the layout, not the function,
+so the reference's one device computes what its (2, 4) host mesh computes.
+
+  * the smoke Qwen3-8B over meshes (data 1, model 2), (1, 4) and (2, 2):
+    the loss, every gradient, the train step's loss and updated
+    parameters, the prefill logits, and the serve loop (8 prompt steps and
+    8 greedy tokens over the KV-sharded cache); the loss and logits within
+    rtol 1e-5, gradients and parameters within rtol 1e-4 (each of a
+    tensor's elements against its largest);
+  * the same config with 2 KV heads at model 4: each KV head held whole on
+    the two ranks whose query heads read it; its decode cache (the
+    reference's rule shards it on its sequence dim) refused;
+  * the smoke Qwen3-30B-A3B with ``moe_shard`` (T = 64 = 16 E: the
+    shard-local dispatch) at (1, 2), (1, 4) and (2, 2), experts over
+    ``model``, whole groups a data rank, the same way;
+  * ``_moe_forward_local_dispatch`` on one device against the reference's,
+    at a batch that takes it and one that does not: routing ids and kept
+    pairs exactly, outputs within rtol 1e-5;
+  * the round step over (pod 2, data 1, model 2) on 4 ranks against the
+    reference's ``make_pigeon_round_step`` (vmap) on the same inits:
+    ``sel`` exactly, vlosses within rtol 1e-5;
+  * a group of one's parallel model bit-equal to the plain model.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.sharding import Mesh
+
+import _tp_ranks as ranks
+from repro import configs as jconfigs
+from repro.launch import steps as jsteps
+from repro.models import build_model as jbuild_model
+from repro.models import moe as jmoe
+from repro_torch.models import moe as tmoe
+from _torch_threads import one_thread  # noqa: F401
+
+DEADLINE_S = 300.0
+NICE = 10
+LOSS_RTOL, GRAD_RTOL = 1e-5, 1e-4
+LM_CASES = [(case, dims) for world in ranks.WORLDS for case, dims in ranks.WORLDS[world]
+            if case != "round"]
+
+
+def _jcfg(case):
+    arch, over, opts = ranks.ARCHS[case]
+    return dataclasses.replace(jconfigs.get_smoke_config(arch), optimizations=opts, **over)
+
+
+def _np(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+def _close(got, want, rtol, what):
+    """Each element within ``rtol`` of the tensor's largest magnitude."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    scale = max(float(np.abs(want).max()), 1e-30)
+    np.testing.assert_allclose(got, want, rtol=rtol, atol=rtol * scale, err_msg=what)
+
+
+def _serve_loop(jm, params, prompts, new):
+    cache = jm.init_cache(prompts.shape[0], prompts.shape[1] + new)
+    step = jax.jit(jm.decode_step)
+    for i in range(prompts.shape[1]):
+        logits, cache = step(params, cache, jnp.asarray(prompts[:, i:i + 1]), i)
+    prompt_logits = np.asarray(logits)
+    out = []
+    for j in range(new):
+        tok = jnp.argmax(logits[:, -1, :], axis=-1)[:, None].astype(jnp.int32)
+        out.append(np.asarray(tok))
+        logits, cache = step(params, cache, tok, prompts.shape[1] + j)
+    return np.concatenate(out, axis=1), prompt_logits
+
+
+def _reference_lm(case):
+    """The reference's init, batch and one-device results for ``case``."""
+    cfg = _jcfg(case)
+    jm = jbuild_model(cfg)
+    params = jax.jit(jm.init)(jax.random.PRNGKey(3))
+    rng = np.random.default_rng(7)
+    batch = {k: rng.integers(0, cfg.vocab, (ranks.B, ranks.S)).astype(np.int32)
+             for k in ("tokens", "labels")}
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    # moe_shard's constraints need an ambient mesh: one device's
+    with Mesh(np.array(jax.devices()[:1]).reshape(1, 1), ("data", "model")):
+        (loss, _), grads = jax.jit(jax.value_and_grad(jm.loss, has_aux=True))(params, jb)
+        updated, step_loss = jax.jit(jsteps.make_train_step(jm, ranks.LR))(params, jb)
+        prefill = jax.jit(jsteps.make_prefill_step(jm))(params, jb)
+        tokens, prompt_logits = _serve_loop(jm, params, batch["tokens"][:, :ranks.PROMPT],
+                                            ranks.NEW)
+    want = dict(loss=float(loss), grads=_np(grads), step_loss=float(step_loss),
+                updated=_np(updated), prefill=np.asarray(prefill), tokens=tokens,
+                prompt_logits=prompt_logits)
+    return dict(params=_np(params), batch=batch), want
+
+
+def _reference_round():
+    cfg = _jcfg("dense")
+    jm = jbuild_model(cfg)
+    trees = [_np(jax.jit(jm.init)(jax.random.PRNGKey(s))) for s in (0, 1)]
+    rng = np.random.default_rng(9)
+    batches = {k: rng.integers(0, cfg.vocab, (2, 4, ranks.S)).astype(np.int32)
+               for k in ("tokens", "labels")}
+    val = {k: rng.integers(0, cfg.vocab, (4, ranks.S)).astype(np.int32)
+           for k in ("tokens", "labels")}
+    stacked = jax.tree.map(lambda *xs: jnp.stack(xs), *trees)
+    new, vl, sel = jax.jit(jsteps.make_pigeon_round_step(jm, ranks.LR))(
+        stacked, {k: jnp.asarray(v) for k, v in batches.items()},
+        {k: jnp.asarray(v) for k, v in val.items()})
+    want = dict(vlosses=np.asarray(vl), sel=np.asarray(sel),
+                slot0=jax.tree.map(lambda x: np.asarray(x[0]), new))
+    return dict(trees=trees, batches=batches, val=val), want
+
+
+@pytest.fixture(scope="module")
+def runs():
+    """(reference, port {world: [rank results]}): the reference's runs,
+    then the port's two groups one after the other."""
+    from repro_torch.launch.mesh import spawn
+    inputs, want = {}, {}
+    for case in ranks.ARCHS:
+        inputs[case], want[case] = _reference_lm(case)
+    inputs["round"], want["round"] = _reference_round()
+    port = {w: spawn(ranks.run_world, w, "gloo", DEADLINE_S, args=(w, inputs, NICE),
+                     threads=1)
+            for w in ranks.WORLDS}
+    return want, port
+
+
+def _results(port, case, dims):
+    world = next(w for w, cases in ranks.WORLDS.items() if (case, dims) in cases)
+    return [r[(case, dims)] for r in port[world]]
+
+
+def _assert_tree(got, want, rtol, what):
+    assert jax.tree.structure(got) == jax.tree.structure(want), what
+    for (path, a), b in zip(jax.tree_util.tree_leaves_with_path(got), jax.tree.leaves(want)):
+        _close(a, b, rtol, f"{what} {jax.tree_util.keystr(path)}")
+
+
+@pytest.mark.parametrize("case,dims", LM_CASES)
+def test_loss_gradients_and_step_match_reference(runs, case, dims):
+    want, port = runs
+    w = want[case]
+    for rank, got in enumerate(_results(port, case, dims)):
+        what = f"{case} {dims} rank {rank}"
+        _close(got["loss"], w["loss"], LOSS_RTOL, what + " loss")
+        _close(got["step_loss"], w["step_loss"], LOSS_RTOL, what + " step loss")
+        _assert_tree(got["grads"], w["grads"], GRAD_RTOL, what + " grad")
+        _assert_tree(got["updated"], w["updated"], GRAD_RTOL, what + " updated")
+
+
+@pytest.mark.parametrize("case,dims", LM_CASES)
+def test_prefill_and_serve_loop_match_reference(runs, case, dims):
+    want, port = runs
+    w = want[case]
+    for rank, got in enumerate(_results(port, case, dims)):
+        what = f"{case} {dims} rank {rank}"
+        _close(got["prefill"], w["prefill"], LOSS_RTOL, what + " prefill")
+        if case == "dense_kv2":
+            assert "sequence-sharded decode cache" in got["decode_refused"]
+            continue
+        _close(got["prompt_logits"], w["prompt_logits"], LOSS_RTOL, what + " decode")
+        np.testing.assert_array_equal(got["tokens"], w["tokens"], err_msg=what)
+        heads = _jcfg(case).n_kv_heads // dims[1]
+        assert got["cache_heads"] == heads, what
+
+
+def test_round_step_over_pod_data_model_matches_reference(runs):
+    want, port = runs
+    w = want["round"]
+    for got in _results(port, "round", (2, 1, 2)):
+        assert got["sel"].tolist() == w["sel"].tolist(), got["rank"]
+        _close(got["vlosses"], w["vlosses"], LOSS_RTOL, f"rank {got['rank']} vlosses")
+        _assert_tree(got["slot0"], w["slot0"], GRAD_RTOL, f"rank {got['rank']} winner")
+
+
+def _local_dispatch_pair(t_tokens, **kw):
+    jcfg = jmoe.MoEConfig(**{**dict(d_model=32, d_expert=16, n_experts=4, top_k=2,
+                                    shard_groups=16), **kw})
+    p = jmoe.moe_init(jax.random.PRNGKey(2), jcfg)
+    w = tmoe.MoEWeights(*(torch.from_numpy(np.array(p[n]))
+                          for n in ("router", "gate", "up", "down")))
+    x = np.random.default_rng(t_tokens).normal(size=(t_tokens // 16, 16, 32)).astype(np.float32)
+    return jcfg, tmoe.MoEConfig(**{**jcfg._asdict(), "shard": True}), p, w, x
+
+
+@pytest.mark.parametrize("t_tokens,cf", [(64, 1.25), (512, 0.25), (32, 1.25)])
+def test_local_dispatch_matches_reference(t_tokens, cf):
+    """The 16-group dispatch where T >= 16 E (and with a tight capacity),
+    the global one where T < 16 E: ids and kept pairs exactly, outputs
+    within rtol 1e-5."""
+    jcfg, tcfg, p, w, x = _local_dispatch_pair(t_tokens, capacity_factor=cf)
+    taken = tmoe.local_dispatch_taken(tcfg, t_tokens)
+    assert taken == (t_tokens >= 16 * 4)
+    jids = np.asarray(jmoe.route(p, jcfg, jnp.asarray(x.reshape(-1, 32)))[1])
+    _, tids, _ = tmoe.route(w.router, tcfg, torch.from_numpy(x).reshape(-1, 32))
+    np.testing.assert_array_equal(tids.numpy(), jids)
+    groups = 16 if taken else 1
+    cap = tmoe.capacity(t_tokens // groups, tcfg)
+    _, keep = tmoe.dispatch_groups(tids, tcfg, groups, cap)
+    flat = jids.reshape(groups, -1)
+    onehot = np.eye(4, dtype=np.int64)[flat]
+    slot = np.take_along_axis(np.cumsum(onehot, axis=1) - 1, flat[..., None], 2)[..., 0]
+    np.testing.assert_array_equal(keep.numpy(), slot < cap)
+    if cf < 1:
+        assert (slot >= cap).any()
+    if taken:
+        jout, _ = jmoe._moe_forward_local_dispatch(p, jcfg, jnp.asarray(x))
+    else:
+        jout, _ = jmoe.moe_forward(p, jcfg, jnp.asarray(x))
+    tout, _ = tmoe.moe_forward(w, tcfg, torch.from_numpy(x))
+    _close(tout.numpy(), np.asarray(jout), LOSS_RTOL, "moe out")
+
+
+def test_group_of_one_is_bit_equal_to_the_plain_model():
+    """A (1, 1) mesh's parallel model: loss, gradients, prefill and decode
+    logits bit for bit the plain model's."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import group_of_one, make_mesh
+    from repro_torch.launch.shardings import shard_params
+    from repro_torch.models import build_model
+    cfg = get_smoke_config("qwen3-8b")
+    plain = build_model(cfg, "cpu").init(torch.Generator().manual_seed(0))
+    batch = {k: torch.randint(0, cfg.vocab, (2, 8), generator=torch.Generator().manual_seed(i))
+             for i, k in enumerate(("tokens", "labels"))}
+    with group_of_one("gloo"):
+        par_model = shard_params(build_model(cfg, "cpu", make_mesh((1, 1), ("data", "model"))),
+                                 dict(plain.named_parameters()))
+        for m in (plain, par_model):
+            loss, _ = m.loss(batch)
+            m.grads = torch.autograd.grad(loss, list(m.parameters()))
+            m.out = (loss.detach(), steps.make_prefill_step(m)(batch),
+                     steps.make_serve_step(m)(m.init_cache(2, 4), batch["tokens"][:, :1], 0)[0])
+    for a, b in zip(plain.grads + plain.out, par_model.grads + par_model.out):
+        assert torch.equal(a, b)
