@@ -397,6 +397,16 @@ DECODE_SHAPES = ((4, 512, 32, 8, 128, 0, 479), (4, 512, 32, 8, 128, 0, 511),
 # 8 of its 128 sequences
 FLASH_LONG = (1, 8192, 32, 8, 128, 0)
 DECODE_LONG = (8, 32768, 32, 8, 128, 0, 32767)
+# B6's partial mode (a rank's panel of a sequence-sharded cache): each
+# shape's cache split into each G of PARTIAL_SPLITS panels (the last padded
+# with zeros, as Model.init_cache pads it): phase 19's batch-1 decode
+# (Qwen3-8B's heads, TP_PROMPT + TP_NEW positions, the main path's shape),
+# phase 6's serve shape, the 32k shape, Gemma3-12B's head dim 256 with its
+# 1,024-token window and H2O-Danube's head dim 80 with its 4,096 (both on
+# the f32-FMA route); 16 panels leave some with no live key at every shape
+PARTIAL_SHAPES = ((1, 40, 32, 8, 128, 0, 39), (4, 512, 32, 8, 128, 0, 479), DECODE_LONG,
+                  (2, 4096, 16, 8, 256, 1024, 4000), (2, 4096, 32, 8, 80, 4096, 3000))
+PARTIAL_SPLITS = (2, 16)
 ATTN_ATOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # B5's non-causal mode: (B, Sq, Sk, H, Hkv, D, window): self-attention at
 # the serve shape's heads (timed), a cross shape with Sq < Sk and one with
@@ -967,6 +977,7 @@ def phase_kernels():
         results[name]["replica_shapes"] = shapes
     results.update(_phase_xent())
     results.update(_phase_attention())
+    results["decode_attention"]["partial"] = _phase_decode_partial()
     results["flash_attention"]["non_causal"] = _phase_attention_non_causal()
     results.update(_phase_attention_bwd())
     results["flash_attention_bwd"]["non_causal"] = _phase_attention_bwd_non_causal()
@@ -1742,6 +1753,171 @@ def _phase_attention():
         results[name] = dict(max_abs_err=main_err, max_abs_err_by_route=max_err, **main,
                              long_context=long_context)
     return results
+
+
+def _panels(t, g: int):
+    """(G, ...) panels of a (B, S, Hkv, D) cache: S cut into G panels of
+    ceil(S / G) positions, the last padded with zeros."""
+    import torch
+    length = -(-t.shape[1] // g)
+    pad = g * length - t.shape[1]
+    if pad:
+        t = torch.cat([t, t.new_zeros((t.shape[0], pad) + tuple(t.shape[2:]))], dim=1)
+    return [t[:, i * length:(i + 1) * length] for i in range(g)], length
+
+
+def _partial_timing(shape, g: int) -> dict:
+    """B6's partial mode on the panel of ``shape``'s G-panel split that holds
+    its index, bf16: eager, replayed (the f32-FMA route's graph replayed in
+    turn where the tensor cores take it) and L2-cold; the plain partial
+    eager (and replayed but at the 32k shape); the bound of the panel's
+    live bytes."""
+    import torch
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.launch import roofline as rl
+    (q, k, v, index), kw = _attention_args("decode_attention", shape, "bfloat16", seed=98)
+    ks, length = _panels(k, g)
+    vs, _ = _panels(v, g)
+    p = index // length
+    kp, vp = ks[p].contiguous(), vs[p].contiguous()
+    base, window = p * length, kw["window"]
+    route = da.decode_route(q, kp, vp)
+    call = lambda: da.decode_attention_partial(q, kp, vp, index, base=base,   # noqa: E731
+                                               window=window)
+    old = (None if route != da.TENSOR_CORES else lambda: da.decode_attention_partial(  # noqa: E731
+        q, kp, vp, index, base=base, window=window, route=da.F32_FMA))
+    plain = lambda: da.decode_attention_partial_plain(q, kp, vp, index, base=base,  # noqa: E731
+                                                      window=window)
+    long = shape == DECODE_LONG
+    with torch.inference_mode():
+        fns = [fn for fn in (call, old) if fn is not None]
+        dev = dict(zip(fns, _graph_times_us(fns, **(dict(reps=5, samples=9) if long else {}))))
+        b, _, h, d = q.shape
+        bound_us, bound_by = rl.bound_us(rl.decode_attention_partial_work(
+            b, length, h, kp.shape[2], d, base, window, index))
+        out = dict(shape=list(shape), panels=g, panel=p, route=route,
+                   kernel_us=_time_us(call, **(dict(reps=5, samples=5) if long else {})),
+                   kernel_dev_us=_median(dev[call]),
+                   kernel_cold_us=_cold_time_us(call, reps=5 if long else 50),
+                   plain_us=_time_us(plain, **(dict(reps=2, samples=3) if long else {})),
+                   plain_dev_us=None if long else _graph_time_us(plain),
+                   bound_us=bound_us, bound_by=bound_by, library_us=None,
+                   live_keys=da.panel_keys(index, base, length, window))
+        if old is not None:
+            out["f32_fma_route"] = dict(kernel_dev_us=_median(dev[old]))
+    log(f"phase1 decode_attention (partial) at {shape}, panel {p} of {g} ({out['live_keys']} "
+        f"live keys), bf16, {route}: kernel_us={out['kernel_us']:.3f}, replayed "
+        f"{out['kernel_dev_us']:.3f}, L2 cold {out['kernel_cold_us']:.3f}"
+        + (f", the f32-FMA route replayed {out['f32_fma_route']['kernel_dev_us']:.3f}"
+           if old is not None else "")
+        + f"; plain_us={out['plain_us']:.3f}; bound_us={bound_us:.4f} ({bound_by}); library: "
+          f"none (no PyTorch call returns the lse); {card_line()}")
+    return out
+
+
+def _phase_decode_partial() -> dict:
+    """B6's partial mode (``decode_attention_partial``, both kernels) against
+    its plain version over every panel of PARTIAL_SHAPES split into each G
+    of PARTIAL_SPLITS, f32 and bf16, on every route a panel takes (the
+    tensor cores and, beside them, the f32-FMA route) and both index forms:
+    out within ATTN_ATOL, lse within ATTN_ATOL where finite and -inf where
+    the plain version's is; a panel with no live key exactly out 0, lse
+    -inf, no NaN; bit-identical run to run; the panels combined
+    (``combine_partials``) equal to the one-call B6 on the same route
+    within ATTN_ATOL (LONG_BF16_REL of the largest |plain| at the 32k
+    shape in bf16).  Timed at the main path's panel, the serve shape's
+    (2 panels), the 32k shape's (16) and head dim 256's (2)."""
+    import torch
+    from repro_torch.kernels import decode_attention as da
+    max_err, empties, routes = {}, 0, {}
+    for i, shape in enumerate(PARTIAL_SHAPES):
+        for dtype in ("float32", "bfloat16"):
+            (q, k, v, index), kw = _attention_args("decode_attention", shape, dtype, seed=i)
+            window = kw["window"]
+            with torch.inference_mode():
+                whole_plain = da.decode_attention_plain(q, k, v, index, window=window)
+            bound = ATTN_ATOL[dtype]
+            if shape == DECODE_LONG and dtype == "bfloat16":
+                bound = LONG_BF16_REL * float(whole_plain.float().abs().max())
+            for g in PARTIAL_SPLITS:
+                ks, length = _panels(k, g)
+                vs, _ = _panels(v, g)
+                ks = [t.contiguous() for t in ks]
+                vs = [t.contiguous() for t in vs]
+                chosen = da.decode_route(q, ks[0], vs[0])
+                routes.setdefault(chosen, set()).add((dtype, tuple(shape), g))
+                calls = [chosen] + ([da.F32_FMA] if chosen == da.TENSOR_CORES else [])
+                with torch.inference_mode():
+                    plains = [da.decode_attention_partial_plain(
+                        q, kp, vp, index, base=j * length, window=window)
+                        for j, (kp, vp) in enumerate(zip(ks, vs))]
+                for route in calls:
+                    with torch.inference_mode():
+                        one = da.decode_attention(q, k, v, index, window=window, route=route)
+                    for dev_index in (False, True):
+                        idx = (torch.tensor(index, dtype=torch.int32, device=q.device)
+                               if dev_index else index)
+                        what = (f"decode_attention (partial, {route}"
+                                f"{', device index' if dev_index else ''}) {dtype} {shape} "
+                                f"G {g}")
+                        outs, lses = [], []
+                        for j, (kp, vp) in enumerate(zip(ks, vs)):
+                            with torch.inference_mode():
+                                o1, l1 = da.decode_attention_partial(
+                                    q, kp, vp, idx, base=j * length, window=window, route=route)
+                                o2, l2 = da.decode_attention_partial(
+                                    q, kp, vp, idx, base=j * length, window=window, route=route)
+                            torch.cuda.synchronize()
+                            po, pl = plains[j]
+                            check(torch.equal(o1, o2) and torch.equal(l1, l2),
+                                  f"{what} panel {j}: two runs differ")
+                            check(o1.shape == po.shape and l1.shape == pl.shape and
+                                  o1.dtype == torch.float32 and l1.dtype == torch.float32,
+                                  f"{what} panel {j}: shapes {o1.shape} {l1.shape}")
+                            check(bool(torch.isfinite(o1).all()) and not bool(l1.isnan().any()),
+                                  f"{what} panel {j}: out not finite or lse NaN")
+                            empty = bool(torch.isneginf(pl).all())
+                            if empty:
+                                empties += 1
+                                check(bool((o1 == 0).all()) and bool(torch.isneginf(l1).all()),
+                                      f"{what} panel {j}: a panel with no live key gives out "
+                                      f"{float(o1.abs().max()):.3e}, lse {l1.flatten()[:4]}")
+                            check(torch.equal(torch.isneginf(l1), torch.isneginf(pl)),
+                                  f"{what} panel {j}: lse -inf where the plain one is not")
+                            fin = torch.isfinite(pl)
+                            err = max(float((o1 - po).abs().max()),
+                                      float((l1[fin] - pl[fin]).abs().max()) if fin.any()
+                                      else 0.0)
+                            check(err <= ATTN_ATOL[dtype], f"{what} panel {j}: max |kernel - "
+                                                           f"plain| {err:.3e}")
+                            key = f"{route} {dtype}"
+                            max_err[key] = max(max_err.get(key, 0.0), err)
+                            outs.append(o1)
+                            lses.append(l1)
+                        got = da.combine_partials(torch.stack(outs), torch.stack(lses), q.dtype)
+                        cerr = float((got.float() - one.float()).abs().max())
+                        check(got.shape == one.shape and cerr <= bound,
+                              f"{what}: the combined panels differ from the one-call B6 by "
+                              f"{cerr:.3e} > {bound:.3e}")
+                        key = f"combined {route} {dtype}"
+                        max_err[key] = max(max_err.get(key, 0.0), cerr)
+                del outs, lses, plains, ks, vs
+            del q, k, v, whole_plain
+        torch.cuda.empty_cache()
+    for route, cases in routes.items():
+        log(f"phase1 decode_attention (partial): {route} route takes {sorted(cases)}")
+    check(empties > 0, "phase1 decode_attention (partial): no panel without a live key ran")
+    log(f"phase1 decode_attention (partial): every panel of {list(PARTIAL_SHAPES)} split into "
+        f"{list(PARTIAL_SPLITS)} within atol {ATTN_ATOL} of the plain partial on every route "
+        f"and index form, {empties} panels with no live key exactly (0, -inf), the combined "
+        f"panels within the same of the one-call B6; max_abs_err {max_err}")
+    timed = [_partial_timing(shape, g) for shape, g in
+             ((PARTIAL_SHAPES[0], 2), (PARTIAL_SHAPES[1], 2), (DECODE_LONG, 16),
+              (PARTIAL_SHAPES[3], 2))]
+    main = timed[0]
+    return dict(max_abs_err=max(v for key, v in max_err.items()
+                                if key.startswith(main["route"])),
+                max_abs_err_by_route=max_err, empty_panels=empties, **main, timed=timed[1:])
 
 
 def _phase_attention_non_causal():
@@ -6129,6 +6305,10 @@ TP_SAMPLE = 16384               # elements of each whole parameter a train step'
 # place 1.42).
 TP_UPDATE_REL = 0.5
 TP_TOKEN_REL = 0.1
+# InternVL2-26B at full width (vocab 92,553, which no model axis of 2 or
+# more divides: the embedding and the head whole on every rank) and this
+# depth, over (1, 2) on one card and (1, n) on n
+TP_VLM_LAYERS = 4
 
 
 def _nccl_version() -> str:
@@ -6188,6 +6368,21 @@ def _tp_cfg():
     from repro_torch.launch.shapes import SHAPES, shape_settings
     return dataclasses.replace(get_config("qwen3-8b"), n_layers=TP_LAYERS,
                                **shape_settings(SHAPES["train_4k"]))
+
+
+def _tp_vlm_cfg():
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.shapes import SHAPES, shape_settings
+    return dataclasses.replace(get_config(VLM_ARCH), n_layers=TP_VLM_LAYERS,
+                               **shape_settings(SHAPES["train_4k"]))
+
+
+def _tp_decode1_meshes(n: int):
+    """Phase 19's batch-1 decodes over n cards: (n, 1) and (2, n / 2), the
+    cache's sequence over the data ranks (and the model ranks beside)."""
+    return [(n, 1)] + ([(2, n // 2)] if n >= 4 and n % 2 == 0 else [])
 
 
 def _tp_meshes(n: int):
@@ -6285,6 +6480,51 @@ def _tp_dense_run(model) -> dict:
                 collectives=coll, peak_gb=torch.cuda.max_memory_allocated() / 1e9)
 
 
+def _tp_decode1_run(model) -> dict:
+    """The batch-1 serve loop (TP_PROMPT prompt steps, TP_NEW greedy
+    tokens): on a parallel model over data ranks the cache's panels span
+    them (every rank holds the row; B6's partial mode a layer and step, the
+    partials all-gathered and combined).  Its logits, tokens, launches,
+    seconds, collectives, panels and cache bytes."""
+    import torch
+    from repro_torch.launch.serve import greedy_decode, make_prompts
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models.parallel import collective_totals, reset_collectives
+    prompts = torch.from_numpy(make_prompts(2, model.cfg.vocab, 1, TP_PROMPT)).to(DEVICE)
+    cache = model.init_cache(1, TP_PROMPT + TP_NEW)
+    reset_collectives()
+    (gen, last), launches, seconds = _timed_run(
+        lambda: greedy_decode(make_serve_step(model), cache, prompts, TP_NEW))
+    return dict(last=last.float().cpu().numpy(), gen=gen.cpu().numpy(), launches=launches,
+                seconds=seconds, collectives=collective_totals(),
+                panels=(cache.panels.count, cache.panels.length, cache.panels.rows_whole),
+                cache_bytes=sum(t.numel() * t.element_size() for c in cache
+                                for t in c.values()))
+
+
+def _tp_decode1_compare(label: str, got: dict, want: dict, layers: int) -> dict:
+    """A batch-1 decode over data ranks against the one-card loop: the
+    prompt's last logits within SERVE_BF16_REL of the largest, the tokens
+    of the same shape (their agreement reported), B6's partial mode on every
+    layer and step and the one-call B6 on none."""
+    import numpy as np
+    gap = float(np.abs(got["last"] - want["last"]).max() / np.abs(want["last"]).max())
+    steps = TP_PROMPT + TP_NEW
+    check(gap <= SERVE_BF16_REL, f"{label}: logits differ from the one-card loop by "
+                                 f"{gap:.3e} > {SERVE_BF16_REL}")
+    check(got["gen"].shape == want["gen"].shape, f"{label}: tokens misshapen")
+    check(got["panels"][2] and got["panels"][0] > 1, f"{label}: panels {got['panels']}")
+    check(got["launches"] == want_launches(decode_attention_partial_tc=layers * steps),
+          f"{label}: launches {got['launches']}, want B6's partial mode "
+          f"{layers * steps} times")
+    # the greedy tokens follow the first one, the argmax of these logits:
+    # where its top two sit closer than the gap, a flip is bf16 rounding
+    top = np.sort(want["last"].reshape(-1))
+    return dict(gap=gap, tokens_equal=int((got["gen"] == want["gen"]).sum()),
+                tokens=int(want["gen"].size),
+                top2_margin=float((top[-1] - top[-2]) / np.abs(want["last"]).max()))
+
+
 def _tp_moe_run(cfg, pin) -> dict:
     """Qwen3-30B-A3B at full width and depth with ``moe_shard`` on this
     rank's part of the parallel model: a TP_MOE_BATCH prefill with each
@@ -6343,11 +6583,13 @@ def _tp_round_rank(dims) -> dict:
     return out
 
 
-def _tp_rank(dims_list, moe_cfg=None, pin=None, round_dims=None) -> dict:
+def _tp_rank(dims_list, moe_cfg=None, pin=None, round_dims=None, decode1_dims=(),
+             vlm_dims=None) -> dict:
     """Phase 19 on one rank of an NCCL group of every card: the dense runs
-    over each (data, model) mesh of ``dims_list``, the MoE prefill with
-    experts over every rank (routing pinned to ``pin``), the round step
-    over ``round_dims``."""
+    over each (data, model) mesh of ``dims_list``, the batch-1 decodes
+    over each of ``decode1_dims``, InternVL2-26B's run over ``vlm_dims``,
+    the MoE prefill with experts over every rank (routing pinned to
+    ``pin``), the round step over ``round_dims``."""
     import torch
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_mesh
@@ -6361,6 +6603,16 @@ def _tp_rank(dims_list, moe_cfg=None, pin=None, round_dims=None) -> dict:
         out["runs"][tuple(dims)] = _tp_dense_run(model)
         del model
         torch.cuda.empty_cache()
+    out["decode1"] = {}
+    for dims in decode1_dims:
+        mesh = make_mesh(dims, ("data", "model"))
+        model = build_model(_tp_cfg(), DEVICE, mesh).init(
+            torch.Generator(device=DEVICE).manual_seed(0))
+        out["decode1"][tuple(dims)] = _tp_decode1_run(model)
+        del model
+        torch.cuda.empty_cache()
+    if vlm_dims is not None:
+        out["vlm"] = _tp_vlm_rank(vlm_dims)
     if moe_cfg is not None:
         out["moe"] = _tp_moe_run(moe_cfg, pin)
     if round_dims is not None:
@@ -6368,8 +6620,28 @@ def _tp_rank(dims_list, moe_cfg=None, pin=None, round_dims=None) -> dict:
     return out
 
 
+def _tp_vlm_rank(dims) -> dict:
+    """InternVL2-26B (TP_VLM_LAYERS layers, full width) on this rank of a
+    (data, model) = ``dims`` mesh: its vocab whole on every rank (plain B4
+    over the whole head, no gather of logits), the rest tensor-parallel;
+    :func:`_tp_dense_run`'s prefill, serve loop and train step."""
+    import torch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+    model = build_model(_tp_vlm_cfg(), DEVICE, make_mesh(dims, ("data", "model"))).init(
+        torch.Generator(device=DEVICE).manual_seed(0))
+    check(model.vocab_par.model_size == 1 and model.embedding.shape[0] == model.cfg.vocab,
+          f"phase19 vlm {dims}: the vocab of {model.cfg.vocab} is not held whole")
+    out = _tp_dense_run(model)
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
 def _tp_gloo_rank() -> dict:
-    """Two gloo ranks on one card: the dense run over (1, 2)."""
+    """Two gloo ranks on one card: the dense run over (1, 2), the batch-1
+    decode over (2, 1) (the cache's sequence over the two data ranks) and
+    InternVL2-26B over (1, 2) (its vocab whole)."""
     import torch
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_mesh
@@ -6378,7 +6650,16 @@ def _tp_gloo_rank() -> dict:
     mesh = make_mesh((1, 2), ("data", "model"))
     model = build_model(_tp_cfg(), DEVICE, mesh).init(
         torch.Generator(device=DEVICE).manual_seed(0))
-    return dict(_tp_dense_run(model), rank=dist.get_rank())
+    out = dict(_tp_dense_run(model), rank=dist.get_rank())
+    del model
+    torch.cuda.empty_cache()
+    model = build_model(_tp_cfg(), DEVICE, make_mesh((2, 1), ("data", "model"))).init(
+        torch.Generator(device=DEVICE).manual_seed(0))
+    out["decode1"] = {(2, 1): _tp_decode1_run(model)}
+    del model
+    torch.cuda.empty_cache()
+    out["vlm"] = _tp_vlm_rank((1, 2))
+    return out
 
 
 def _update_gap(got: dict, want: dict) -> tuple:
@@ -6497,15 +6778,29 @@ def _xent_panel(m: int) -> dict:
                 bwd_bound_us=bwd_bound_us)
 
 
-def _tp_want_launches(cfg) -> dict:
+def _tp_want_launches(cfg, xent: str = "fused_xent_tc",
+                      xent_bwd: str = "fused_xent_bwd_tc") -> dict:
     """The launches of :func:`_tp_dense_run`'s three paths on every rank:
     B5 a layer on the local heads, B6 a layer and position, B4 forward and
-    backward once on the rank's panel."""
+    backward once on the rank's panel (or, a vocab held whole, on the whole
+    head, on the route its width takes: ``xent``, ``xent_bwd``)."""
     return dict(prefill=want_launches(flash_attention_tc=cfg.n_layers),
                 serve=want_launches(decode_attention_tc=cfg.n_layers * (TP_PROMPT + TP_NEW)),
                 train=want_launches(flash_attention_tc=2 * cfg.n_layers,
-                                    flash_attention_bwd_tc=cfg.n_layers, fused_xent_tc=1,
-                                    fused_xent_bwd_tc=1))
+                                    flash_attention_bwd_tc=cfg.n_layers, **{xent: 1},
+                                    **{xent_bwd: 1}))
+
+
+def _tp_vlm_want(vcfg) -> dict:
+    """:func:`_tp_want_launches` of InternVL2's run: B4 over the whole
+    92,553-column head takes the f32-FMA routes (V not a multiple of 8)."""
+    import torch
+    from repro_torch.kernels import fused_xent as fx
+    h = torch.empty((8, vcfg.d_model), dtype=torch.bfloat16, device=DEVICE)
+    w = torch.empty((vcfg.d_model, vcfg.vocab), dtype=torch.bfloat16, device=DEVICE)
+    names = {fx.TENSOR_CORES: "_tc", fx.F32_FMA: ""}
+    return _tp_want_launches(vcfg, "fused_xent" + names[fx.xent_route(h, w)],
+                             "fused_xent_bwd" + names[fx.xent_bwd_route(h, w)])
 
 
 def phase_tensor_parallel(moe_shard: dict) -> dict:
@@ -6526,7 +6821,16 @@ def phase_tensor_parallel(moe_shard: dict) -> dict:
     8c's 2-slot int8 round step over (pod, data, model): bit-equal to the
     vmap step on one card, (2, 1, n / 2) against it on n.  B4's
     vocab-parallel panel of the run that launched it (m = 2 on one card,
-    n on n) against its plain versions."""
+    n on n) against its plain versions.  The sequence-sharded decode cache
+    and the whole vocab: a batch-1 serve loop of the same Qwen3-8B over (2,
+    1) on one card (two gloo ranks; (n, 1) and (2, n / 2) on n), its
+    cache's sequence over the data ranks, against the one-card loop;
+    InternVL2-26B at full width and TP_VLM_LAYERS layers over (1, 2) ((1,
+    n) on n), its vocab of 92,553 whole, by :func:`_tp_compare` against
+    its one-card run.  Qwen2.5-14B's whole attention (40 heads) and a KV
+    head's sequence split over the model ranks that share it need a model
+    axis of 16 (40 and 8 divide by 4): the CPU tests and phase 1's panels
+    hold them."""
     import dataclasses
 
     import numpy as np
@@ -6543,7 +6847,11 @@ def phase_tensor_parallel(moe_shard: dict) -> dict:
     out = dict(cards=n, panel=_xent_panel(2 if n == 1 else n))
     # the one-card runs: the plain model, then the group of one's parallel model
     plain = build_model(cfg, DEVICE).init(torch.Generator(device=DEVICE).manual_seed(0))
+    one_b1 = _tp_decode1_run(plain)           # before the dense run's train step
     one = _tp_dense_run(plain)
+    check(one_b1["launches"] == want_launches(
+        decode_attention_tc=cfg.n_layers * (TP_PROMPT + TP_NEW)),
+        f"phase19 one-card batch-1 loop: launches {one_b1['launches']}")
     with group_of_one("nccl"):
         mesh = make_mesh((1, 1), ("data", "model"))
         par = build_model(cfg, DEVICE, mesh).init(torch.Generator(device=DEVICE).manual_seed(0))
@@ -6559,6 +6867,15 @@ def phase_tensor_parallel(moe_shard: dict) -> dict:
                                                   f"{got['launches']} != {one['launches']}")
         del par
     del plain
+    torch.cuda.empty_cache()
+    # InternVL2-26B on one card: what its parallel runs (vocab whole) are held to
+    vcfg = _tp_vlm_cfg()
+    plain_vlm = build_model(vcfg, DEVICE).init(torch.Generator(device=DEVICE).manual_seed(0))
+    one_vlm = _tp_dense_run(plain_vlm)
+    vlm_want = _tp_vlm_want(vcfg)
+    check(one_vlm["launches"] == vlm_want, f"phase19 one-card vlm: launches "
+                                           f"{one_vlm['launches']}, want {vlm_want}")
+    del plain_vlm
     torch.cuda.empty_cache()
     launches = got["launches"]
     check(launches == want, f"phase19: launches {launches}, want {want}")
@@ -6599,16 +6916,51 @@ def phase_tensor_parallel(moe_shard: dict) -> dict:
                                       if k not in ("logits", "ids", "kept")})
         # two gloo ranks on the one card (NCCL takes one rank a card): the
         # only run here of the model axis above 1, B4's panel among it
-        runs = {(1, 2): spawn(_tp_gloo_rank, 2, "gloo", TP_DEADLINE_S)}
+        ranks = spawn(_tp_gloo_rank, 2, "gloo", TP_DEADLINE_S)
+        runs = {(1, 2): ranks}
+        vlm_dims = (1, 2)
         backend = "gloo"
     else:
         torch.cuda.empty_cache()
+        vlm_dims = (1, n)
         ranks = spawn(_tp_rank, n, "nccl", TP_DEADLINE_S,
-                      args=(_tp_meshes(n), moe_cfg, moe_shard["ids"], (2, 1, n // 2)))
+                      args=(_tp_meshes(n), moe_cfg, moe_shard["ids"], (2, 1, n // 2),
+                            _tp_decode1_meshes(n), vlm_dims))
         out.update(world=ranks[0]["world"], nccl=ranks[0]["nccl"])
         runs = {dims: [dict(res["runs"][dims], rank=res["rank"]) for res in ranks]
                 for dims in _tp_meshes(n)}
         backend = "nccl"
+    # the batch-1 decodes (the sequence-sharded cache over the data ranks)
+    # and InternVL2's whole vocab, against their one-card runs
+    for res in ranks:
+        for dims, d1 in res["decode1"].items():
+            label = f"phase19 {backend} batch-1 decode {dims} rank {res['rank']}"
+            gaps = _tp_decode1_compare(label, d1, one_b1, cfg.n_layers)
+            log(f"{label}: {gaps}; panels (count, positions, rows whole) {d1['panels']}, "
+                f"cache {d1['cache_bytes'] / 1e9:.4f} GB (one card "
+                f"{TP_PROMPT + TP_NEW} positions); launches {d1['launches']}; "
+                f"{d1['seconds']:.3f} s (one card {one_b1['seconds']:.3f}); collectives "
+                f"{d1['collectives']}; {card_line()}")
+            out[f"decode1 {backend} {dims} rank {res['rank']}"] = dict(
+                gaps, panels=d1["panels"], seconds=d1["seconds"], launches=d1["launches"],
+                collectives=d1["collectives"])
+        label = f"phase19 {backend} vlm {vlm_dims} rank {res['rank']}"
+        vlm = res["vlm"]
+        gaps = _tp_compare(label, vlm, one_vlm)
+        check(vlm["launches"] == vlm_want, f"{label}: launches {vlm['launches']}, want "
+                                           f"{vlm_want}")
+        log(f"{label}: InternVL2-26B at {vcfg.n_layers} layers, vocab {vcfg.vocab} whole: gaps "
+            f"to the one-card run {gaps}; launches {vlm['launches']}; seconds "
+            f"{vlm['seconds']} (one card {one_vlm['seconds']}); peak {vlm['peak_gb']:.2f} GB "
+            f"(one card {one_vlm['peak_gb']:.2f}); collectives {vlm['collectives']}; "
+            f"{card_line()}")
+        out[f"vlm {backend} {vlm_dims} rank {res['rank']}"] = dict(
+            gaps=gaps, launches=vlm["launches"], seconds=vlm["seconds"],
+            peak_gb=vlm["peak_gb"], collectives=vlm["collectives"])
+    # B6's partial mode on the main path: the first batch-1 decode, rank 0
+    first = next(iter(ranks[0]["decode1"]))
+    out["partial_launches"] = ranks[0]["decode1"][first]["launches"]
+    out["partial_path"] = f"{backend} batch-1 decode {first}"
     out["runs"] = {}
     for dims, ranks_of in runs.items():
         for run in ranks_of:
@@ -7035,6 +7387,29 @@ def main() -> None:
         plain_ms=ms(panel["plain_us"]), bound_ms=ms(panel["bound_us"]),
         bound_by=panel["bound_by"], library_ms=None, backward_ms=ms(panel["bwd_us"]),
         backward_bound_ms=ms(panel["bwd_bound_us"])))
+    # B6's partial mode (phase 1's panels; the main path's shape is phase
+    # 19's batch-1 decode, a panel of 20 positions), its launches on that
+    # decode's run (one card: two gloo ranks over (2, 1); n cards: (n, 1))
+    part = kernels["decode_attention"]["partial"]
+
+    def panel_times(t):
+        return dict(ms=ms(t["kernel_us"]), device_ms_l2_warm=ms(t["kernel_dev_us"]),
+                    device_ms_l2_cold=ms(t["kernel_cold_us"]), plain_ms=ms(t["plain_us"]),
+                    plain_device_ms=ms(t["plain_dev_us"]), bound_ms=ms(t["bound_us"]),
+                    bound_by=t["bound_by"], library_ms=None)
+    entries.append(dict(
+        name="decode_attention (partial)", route="cuda",
+        source="src/repro_torch/kernels/csrc/decode_attention_tc.cu",
+        replaces=sources["decode_attention"][0],
+        launches=tp["partial_launches"]["decode_attention_partial_tc"],
+        launches_path=tp["partial_path"], shape=part["shape"], panels=part["panels"],
+        live_keys=part["live_keys"], max_abs_err=part["max_abs_err"],
+        max_abs_err_by_route=part["max_abs_err_by_route"], empty_panels=part["empty_panels"],
+        **panel_times(part),
+        f32_fma_route=dict(source="src/repro_torch/kernels/csrc/decode_attention.cu",
+                           device_ms_l2_warm=ms(part["f32_fma_route"]["kernel_dev_us"])),
+        timed=[dict(shape=t["shape"], panels=t["panels"], panel=t["panel"], route=t["route"],
+                    live_keys=t["live_keys"], **panel_times(t)) for t in part["timed"]]))
     log(f"phase2 seconds_per_round={s_per_round:.3f}; phase2b (batched) "
         f"seconds_per_round={b_per_round:.3f}; phase2c baselines {baselines}; "
         f"phase2d multiround {multiround}; phase2e sweep and pool {sweep_pool}; "

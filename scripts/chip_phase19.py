@@ -4,9 +4,11 @@ visible card.
 It builds the kernels, draws Qwen3-30B-A3B at full width and depth (phase
 13's weights) for the ``moe_shard`` prefill, frees it and runs
 ``chip_smoke.phase_tensor_parallel``: on one card the group of one, the
-planted faults and two gloo ranks over (1, 2); on n cards the NCCL meshes
-(1, n) and (2, n / 2), the MoE's experts over n cards and the round over
-(2, 1, n / 2).  A failed check is printed and the run goes on, so every
+planted faults and two gloo ranks over (1, 2), a batch-1 decode over (2,
+1) (the cache's sequence over the data ranks) and InternVL2-26B over (1,
+2) (its vocab whole); on n cards the NCCL meshes (1, n) and (2, n / 2),
+the batch-1 decodes over (n, 1) and (2, n / 2), InternVL2-26B over (1, n),
+the MoE's experts over n cards and the round over (2, 1, n / 2).  A failed check is printed and the run goes on, so every
 reading prints; the exit code is 1 if any check failed.
 
 Run from the repository root on a machine with CUDA cards:

@@ -228,7 +228,7 @@ def lm_stack_from_reference(cfg: ModelConfig, trees: Sequence[Tree], mesh=None
     """R reference LM parameter pytrees -> the port's
     :class:`StackedModel`, slot r holding tree r, on the CPU (with
     ``mesh``, this rank's part of each slot)."""
-    par = None if mesh is None else mesh.parallel()
+    par = None if mesh is None else mesh.parallel("pod")
     stacked = StackedModel(cfg, build_plan(cfg), len(trees), torch.device("cpu"), par)
     for r, tree in enumerate(trees):
         stacked.load_slot(r, lm_from_reference(cfg, tree, mesh))

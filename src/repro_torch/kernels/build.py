@@ -99,12 +99,20 @@ SOURCES: Dict[str, Dict[str, Tuple]] = {
         # chunk, splits, scale, dtype, stream
         "repro_decode_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                                    _I, _F, _I, _P),
+        # q, k, v, out, lse, ws, index_dev, index_host, base, b, s, h, hkv, d,
+        # window, chunk, splits, scale, dtype, stream
+        "repro_decode_attention_partial": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                           _I, _I, _I, _I, _F, _I, _P),
     },
     "decode_attention_tc": {
         # q, k, v, out, index_dev, index_host, b, s, h, hkv, d, window, chunk,
         # splits, scale, stream
         "repro_decode_attention_tc": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                                       _I, _F, _P),
+        # q, k, v, out, lse, index_dev, index_host, base, b, s, h, hkv, d,
+        # window, chunk, splits, scale, stream
+        "repro_decode_attention_tc_partial": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                              _I, _I, _I, _I, _F, _P),
         # d, splits, out (int*)
         "repro_decode_attention_tc_clusters": (_I, _I, _P),
         # out (int*): the tile and cluster constants
@@ -155,7 +163,9 @@ BUILD_SECONDS: Dict[str, float] = {}
 #: call each; B1 counts
 #: ``tamper_check_sums`` (f32 inputs) and ``tamper_check_sums_bf16`` (its
 #: bf16 route); B5's forward and backward count a non-causal call under
-#: their name with ``_noncausal`` (``flash_attention_tc_noncausal``, ...)
+#: their name with ``_noncausal`` (``flash_attention_tc_noncausal``, ...);
+#: B6's partial mode (a panel of a sequence-sharded cache) counts
+#: ``decode_attention_partial`` and ``decode_attention_partial_tc``
 LAUNCHES: Dict[str, int] = {"quant_dequant": 0, "quant_dequant_stats": 0,
                             "tamper_check_sums": 0, "tamper_check_sums_bf16": 0,
                             "fused_xent": 0, "fused_xent_tc": 0,
@@ -166,6 +176,7 @@ LAUNCHES: Dict[str, int] = {"quant_dequant": 0, "quant_dequant_stats": 0,
                             "flash_attention_bwd_noncausal": 0,
                             "flash_attention_bwd_tc_noncausal": 0,
                             "decode_attention": 0, "decode_attention_tc": 0,
+                            "decode_attention_partial": 0, "decode_attention_partial_tc": 0,
                             "slstm_scan": 0, "slstm_scan_persistent": 0,
                             "slstm_scan_bwd": 0, "slstm_scan_bwd_persistent": 0}
 

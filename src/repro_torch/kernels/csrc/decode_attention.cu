@@ -35,6 +35,18 @@
 // cache length (device index) alone, so the bits repeat from run to run.  A
 // split past the live range leaves (m, l, acc) = (-1e30, 0, 0), which the
 // combine weighs by exp(-1e30 - M) = 0.  The window is a runtime argument.
+//
+// The partial mode (repro_decode_attention_partial) runs the same two
+// passes over one panel of a sequence-sharded cache: k and v hold the
+// positions [base, base + s), `index` stays the absolute position, and a key
+// at base + j is live iff base + j <= index and, with a window,
+// index - (base + j) < window; `index` may lie before, inside or past the
+// panel.  The combine then writes the panel's own (out, lse): out in f32,
+// normalised by the panel's l, and lse = m + log l.  A panel with no live
+// key (every split left at m = -1e30, l = 0) writes out = 0 and
+// lse = -1e30 + log 0 = -inf, with no NaN: the caller's combine over the
+// panels (decode_attention.py::combine_partials) weighs it by
+// exp(-inf - M) = 0.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -79,8 +91,8 @@ template <typename T, int D>
 __global__ void __launch_bounds__(kMaxHeads * 32)
 decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, float* __restrict__ ws,
-                      const int* __restrict__ index_dev, int index_host, int s, int h,
-                      int hkv, int head_chunks, int window, int chunk, int splits,
+                      const int* __restrict__ index_dev, int index_host, int base, int s,
+                      int h, int hkv, int head_chunks, int window, int chunk, int splits,
                       float scale) {
   using C = Shape<D>;
   extern __shared__ float smem[];
@@ -109,7 +121,8 @@ decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ k,
     qs[i] = h0 + i / D < h_end ? to_f32(qb[i]) : 0.f;
   }
 
-  const int index = index_dev != nullptr ? __ldg(index_dev) : index_host;
+  // the position in this panel's coordinates: negative before it, >= s past it
+  const int index = (index_dev != nullptr ? __ldg(index_dev) : index_host) - base;
   const int k_end = min(index + 1, s);
   const int k_begin = window > 0 ? max(0, index - window + 1) : 0;
   const int lo = k_begin + split * chunk;
@@ -169,32 +182,39 @@ decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T>
+// out (B, 1, H, D) in TO; with `lse` (B, H) also the log-sum-exp of the
+// scaled scores, and out normalised by its own sum (the partial mode).
+template <typename TO>
 __global__ void __launch_bounds__(kCombineThreads)
-decode_combine_kernel(const float* __restrict__ ws, T* __restrict__ out, int h, int d,
-                      int splits) {
+decode_combine_kernel(const float* __restrict__ ws, TO* __restrict__ out,
+                      float* __restrict__ lse, int h, int d, int splits) {
   const int head = blockIdx.x;
   const int b = blockIdx.y;
   const float* w = ws + (static_cast<int64_t>(b) * h + head) * splits * (d + 2);
   float big = kNegBig;
   for (int i = 0; i < splits; ++i) big = fmaxf(big, w[i * (d + 2)]);
-  float denom = 0.f;
-  for (int i = 0; i < splits; ++i) denom += w[i * (d + 2) + 1] * expf(w[i * (d + 2)] - big);
-  denom = fmaxf(denom, 1e-30f);
-  T* o = out + (static_cast<int64_t>(b) * h + head) * d;
+  float total = 0.f;
+  for (int i = 0; i < splits; ++i) total += w[i * (d + 2) + 1] * expf(w[i * (d + 2)] - big);
+  if (lse != nullptr && threadIdx.x == 0) {
+    lse[static_cast<int64_t>(b) * h + head] = big + logf(total);   // -inf with no live key
+  }
+  const float denom = fmaxf(total, 1e-30f);
+  TO* o = out + (static_cast<int64_t>(b) * h + head) * d;
   for (int c = threadIdx.x; c < d; c += kCombineThreads) {
     float acc = 0.f;
     for (int i = 0; i < splits; ++i) {
       acc += w[i * (d + 2) + 2 + c] * expf(w[i * (d + 2)] - big);
     }
-    o[c] = from_f32<T>(acc / denom);
+    o[c] = from_f32<TO>(acc / denom);
   }
 }
 
+// `lse` null: out in T (the whole cache); else out in f32 and lse (the
+// partial mode over the panel that starts at `base`).
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* out, float* ws,
-           const int* index_dev, int index_host, int b, int s, int h, int hkv, int window,
-           int chunk, int splits, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out, float* lse, float* ws,
+           const int* index_dev, int index_host, int base, int b, int s, int h, int hkv,
+           int window, int chunk, int splits, float scale, cudaStream_t stream) {
   using C = Shape<D>;
   auto kernel = decode_partial_kernel<T, D>;
   // Raise the dynamic shared memory cap once, on the first call (before any
@@ -213,22 +233,27 @@ int launch(const void* q, const void* k, const void* v, void* out, float* ws,
   const int smem = (heads * D + kKeyTile * C::LD + kKeyTile * D) * 4;
   kernel<<<grid, heads * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), ws,
-      index_dev, index_host, s, h, hkv, head_chunks, window, chunk, splits, scale);
+      index_dev, index_host, base, s, h, hkv, head_chunks, window, chunk, splits, scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  decode_combine_kernel<T><<<dim3(h, b), kCombineThreads, 0, stream>>>(
-      ws, static_cast<T*>(out), h, D, splits);
+  if (lse == nullptr) {
+    decode_combine_kernel<T><<<dim3(h, b), kCombineThreads, 0, stream>>>(
+        ws, static_cast<T*>(out), nullptr, h, D, splits);
+  } else {
+    decode_combine_kernel<float><<<dim3(h, b), kCombineThreads, 0, stream>>>(
+        ws, static_cast<float*>(out), lse, h, D, splits);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int dispatch(int d, const void* q, const void* k, const void* v, void* out, float* ws,
-             const int* index_dev, int index_host, int b, int s, int h, int hkv, int window,
-             int chunk, int splits, float scale, cudaStream_t stream) {
+int dispatch(int d, const void* q, const void* k, const void* v, void* out, float* lse,
+             float* ws, const int* index_dev, int index_host, int base, int b, int s, int h,
+             int hkv, int window, int chunk, int splits, float scale, cudaStream_t stream) {
 #define REPRO_DECODE_CASE(D)                                                               \
   case D:                                                                                  \
-    return launch<T, D>(q, k, v, out, ws, index_dev, index_host, b, s, h, hkv, window,     \
-                        chunk, splits, scale, stream);
+    return launch<T, D>(q, k, v, out, lse, ws, index_dev, index_host, base, b, s, h, hkv,  \
+                        window, chunk, splits, scale, stream);
   switch (d) {
     REPRO_DECODE_CASE(32)
     REPRO_DECODE_CASE(64)
@@ -238,6 +263,26 @@ int dispatch(int d, const void* q, const void* k, const void* v, void* out, floa
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef REPRO_DECODE_CASE
+}
+
+int check_args(int b, int s, int h, int hkv, int window, int chunk, int splits) {
+  return b <= 0 || b > 65535 || s <= 0 || h <= 0 || h > 65535 || hkv <= 0 || h % hkv != 0 ||
+         window < 0 || chunk <= 0 || splits <= 0 || splits > 65535;
+}
+
+int run(const void* q, const void* k, const void* v, void* out, float* lse, float* ws,
+        const int* index_dev, int index_host, int base, int b, int s, int h, int hkv, int d,
+        int window, int chunk, int splits, float scale, int dtype, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    return dispatch<float>(d, q, k, v, out, lse, ws, index_dev, index_host, base, b, s, h, hkv,
+                           window, chunk, splits, scale, st);
+  }
+  if (dtype == 1) {
+    return dispatch<__nv_bfloat16>(d, q, k, v, out, lse, ws, index_dev, index_host, base, b,
+                                   s, h, hkv, window, chunk, splits, scale, st);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -253,19 +298,27 @@ extern "C" int repro_decode_attention(const void* q, const void* k, const void* 
                                       float* ws, const int* index_dev, int index_host, int b,
                                       int s, int h, int hkv, int d, int window, int chunk,
                                       int splits, float scale, int dtype, void* stream) {
-  if (b <= 0 || b > 65535 || s <= 0 || h <= 0 || h > 65535 || hkv <= 0 || h % hkv != 0 ||
-      window < 0 || chunk <= 0 || splits <= 0 || splits > 65535 ||
+  if (check_args(b, s, h, hkv, window, chunk, splits) ||
       (index_dev == nullptr && (index_host < 0 || index_host >= s))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    return dispatch<float>(d, q, k, v, out, ws, index_dev, index_host, b, s, h, hkv, window,
-                           chunk, splits, scale, st);
+  return run(q, k, v, out, nullptr, ws, index_dev, index_host, 0, b, s, h, hkv, d, window,
+             chunk, splits, scale, dtype, stream);
+}
+
+// The partial mode over a panel: k and v (B, s, Hkv, D) hold the absolute
+// positions [base, base + s); `index` (host or device) is absolute and may
+// lie anywhere; out (B, 1, H, D) f32 and lse (B, H) f32.  The split covers
+// the panel's live keys (host index) or min(s, window) keys (device index).
+extern "C" int repro_decode_attention_partial(const void* q, const void* k, const void* v,
+                                              float* out, float* lse, float* ws,
+                                              const int* index_dev, int index_host, int base,
+                                              int b, int s, int h, int hkv, int d, int window,
+                                              int chunk, int splits, float scale, int dtype,
+                                              void* stream) {
+  if (check_args(b, s, h, hkv, window, chunk, splits) || base < 0 || lse == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (dtype == 1) {
-    return dispatch<__nv_bfloat16>(d, q, k, v, out, ws, index_dev, index_host, b, s, h, hkv,
-                                   window, chunk, splits, scale, st);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return run(q, k, v, out, lse, ws, index_dev, index_host, base, b, s, h, hkv, d, window,
+             chunk, splits, scale, dtype, stream);
 }

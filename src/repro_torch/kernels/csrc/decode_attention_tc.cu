@@ -52,6 +52,15 @@
 // cache length (device index) alone.  With a device index a block past the
 // live range loads nothing and leaves (m, l, acc) = (-1e30, 0, 0), which
 // the combine weighs by exp(-1e30 - M) = 0.
+//
+// The partial mode (repro_decode_attention_tc_partial, `lse` non-null) runs
+// the same kernel over one panel of a sequence-sharded cache: k and v hold
+// the positions [base, base + s), `index` stays absolute (before, inside or
+// past the panel), and the cluster's combine writes the panel's own
+// (out, lse): out in f32 normalised by the panel's l, lse = m + log l.  A
+// panel with no live key loads nothing and writes out = 0 and
+// lse = -1e30 + log 0 = -inf, with no NaN, for the combine over the panels
+// (decode_attention.py::combine_partials) to weigh by 0.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -147,9 +156,10 @@ __device__ __forceinline__ uint32_t tile_addr(uint32_t base, int r, int c) {
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 decode_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
-                 const int* __restrict__ index_dev, int index_host, int s, int h, int hkv,
-                 int head_chunks, int window, int chunk, float scale) {
+                 const __nv_bfloat16* __restrict__ v, void* __restrict__ out,
+                 float* __restrict__ lse, const int* __restrict__ index_dev, int index_host,
+                 int base, int s, int h, int hkv, int head_chunks, int window, int chunk,
+                 float scale) {
   using C = Cfg<D>;
   extern __shared__ __align__(128) unsigned char smem[];
   float* part = reinterpret_cast<float*>(smem);                  // after the loop
@@ -170,7 +180,8 @@ decode_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   const int rows = min(kRows, kvh * group + group - h0);    // live query heads
   const int b = blockIdx.z;
 
-  const int index = index_dev != nullptr ? __ldg(index_dev) : index_host;
+  // the position in this panel's coordinates: negative before it, >= s past it
+  const int index = (index_dev != nullptr ? __ldg(index_dev) : index_host) - base;
   const int end = min(index + 1, s);
   const int begin = window > 0 ? max(0, index - window + 1) : 0;
   const int lo = begin + rank * chunk;
@@ -378,7 +389,7 @@ decode_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   // the cluster's states combined in rank order; block `rank` writes
   // outputs rank * kThreads + tid, + splits * kThreads, ...  Each output's
   // loads from the peers are issued together, then summed in rank order.
-  __nv_bfloat16* ob = out + (static_cast<int64_t>(b) * h + h0) * D;
+  const int64_t o0 = (static_cast<int64_t>(b) * h + h0) * D;
   for (int i = rank * kThreads + tid; i < rows * D; i += splits * kThreads) {
     const int r = i / D;
     const int d = i - r * D;
@@ -406,7 +417,13 @@ decode_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
         a += pa[p] * c;
       }
     }
-    ob[r * D + d] = __float2bfloat16_rn(a / fmaxf(l, 1e-30f));
+    const float o = a / fmaxf(l, 1e-30f);
+    if (lse == nullptr) {
+      static_cast<__nv_bfloat16*>(out)[o0 + r * D + d] = __float2bfloat16_rn(o);
+    } else {
+      static_cast<float*>(out)[o0 + r * D + d] = o;
+      if (d == 0) lse[static_cast<int64_t>(b) * h + h0 + r] = big + logf(l);  // -inf: no key
+    }
   }
   cluster.sync();                     // no block leaves while a peer reads its state
 }
@@ -451,9 +468,9 @@ template <int D> int max_clusters(int splits, int* out) {
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* out, const int* index_dev,
-           int index_host, int b, int s, int h, int hkv, int window, int chunk, int splits,
-           float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out, float* lse,
+           const int* index_dev, int index_host, int base, int b, int s, int h, int hkv,
+           int window, int chunk, int splits, float scale, cudaStream_t stream) {
   const int err = configure<D>();
   if (err != 0) return err;
   const int group = h / hkv;
@@ -463,9 +480,8 @@ int launch(const void* q, const void* k, const void* v, void* out, const int* in
       launch_config<D>(splits, dim3(splits, hkv * head_chunks, b), stream, attr);
   const cudaError_t e = cudaLaunchKernelEx(
       &cfg, decode_tc_kernel<D>, static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k), static_cast<const __nv_bfloat16*>(v),
-      static_cast<__nv_bfloat16*>(out), index_dev, index_host, s, h, hkv, head_chunks, window,
-      chunk, scale);
+      static_cast<const __nv_bfloat16*>(k), static_cast<const __nv_bfloat16*>(v), out, lse,
+      index_dev, index_host, base, s, h, hkv, head_chunks, window, chunk, scale);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
@@ -500,20 +516,51 @@ extern "C" int repro_decode_attention_tc_clusters(int d, int splits, int* out) {
   }
 }
 
+namespace {
+
+int check_args(int b, int s, int h, int hkv, int window, int chunk, int splits) {
+  return b <= 0 || b > 65535 || s <= 0 || h <= 0 || hkv <= 0 || h % hkv != 0 ||
+         hkv * ((h / hkv + kRows - 1) / kRows) > 65535 || window < 0 || chunk <= 0 ||
+         chunk % kTileKeys != 0 || splits <= 0 || splits > kMaxSplits;
+}
+
+int run(const void* q, const void* k, const void* v, void* out, float* lse,
+        const int* index_dev, int index_host, int base, int b, int s, int h, int hkv, int d,
+        int window, int chunk, int splits, float scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 64: return launch<64>(q, k, v, out, lse, index_dev, index_host, base, b, s, h, hkv, window, chunk, splits, scale, st);
+    case 128: return launch<128>(q, k, v, out, lse, index_dev, index_host, base, b, s, h, hkv, window, chunk, splits, scale, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace
+
 extern "C" int repro_decode_attention_tc(const void* q, const void* k, const void* v,
                                          void* out, const int* index_dev, int index_host,
                                          int b, int s, int h, int hkv, int d, int window,
                                          int chunk, int splits, float scale, void* stream) {
-  if (b <= 0 || b > 65535 || s <= 0 || h <= 0 || hkv <= 0 || h % hkv != 0 ||
-      hkv * ((h / hkv + kRows - 1) / kRows) > 65535 || window < 0 || chunk <= 0 ||
-      chunk % kTileKeys != 0 || splits <= 0 || splits > kMaxSplits ||
+  if (check_args(b, s, h, hkv, window, chunk, splits) ||
       (index_dev == nullptr && (index_host < 0 || index_host >= s))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (d) {
-    case 64: return launch<64>(q, k, v, out, index_dev, index_host, b, s, h, hkv, window, chunk, splits, scale, st);
-    case 128: return launch<128>(q, k, v, out, index_dev, index_host, b, s, h, hkv, window, chunk, splits, scale, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  return run(q, k, v, out, nullptr, index_dev, index_host, 0, b, s, h, hkv, d, window, chunk,
+             splits, scale, stream);
+}
+
+// The partial mode over a panel: k and v (B, s, Hkv, D) hold the absolute
+// positions [base, base + s); `index` (host or device) is absolute and may
+// lie anywhere; out (B, 1, H, D) f32 and lse (B, H) f32.  The split covers
+// the panel's live keys (host index) or min(s, window) keys (device index).
+extern "C" int repro_decode_attention_tc_partial(const void* q, const void* k, const void* v,
+                                                 float* out, float* lse, const int* index_dev,
+                                                 int index_host, int base, int b, int s, int h,
+                                                 int hkv, int d, int window, int chunk,
+                                                 int splits, float scale, void* stream) {
+  if (check_args(b, s, h, hkv, window, chunk, splits) || base < 0 || lse == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+  return run(q, k, v, out, lse, index_dev, index_host, base, b, s, h, hkv, d, window, chunk,
+             splits, scale, stream);
 }

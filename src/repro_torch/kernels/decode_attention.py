@@ -21,6 +21,17 @@ replays advances it without the host).
     decode_attention_reference`` computes (f32 scores over the whole cache,
     masked with -1e30, softmax in f32).
 
+The partial mode is the reference docstring's flash-decoding schedule over
+a sequence-sharded cache (``models/parallel.py::Panels``): each rank holds
+one panel k, v (B, S_local, Hkv, D) of the absolute positions [base, base +
+S_local), and :func:`decode_attention_partial` (both kernels, a mode of
+each) or :func:`decode_attention_partial_plain` give the panel's (out f32
+(B, 1, H, D) normalised by its own softmax sum, lse f32 (B, 1, H) = m + log
+l); ``index`` stays absolute and may lie before, inside or past the panel.
+A panel with no live key gives out = 0 and lse = -inf, with no NaN.
+:func:`combine_partials` merges G panels' partials into the one-call
+result (the ranks all-gather them first, ``parallel.combine_panels``).
+
 ``kernels/ops.py`` picks between them by the tensor's device.  The launcher
 counts its launches by route in ``build.LAUNCHES`` (``decode_attention`` the
 f32-FMA kernel, ``decode_attention_tc`` the tensor-core one).
@@ -72,6 +83,46 @@ def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, in
     mask = causal_mask(_index_positions(index, q.device),
                        torch.arange(k.shape[1], device=q.device), window)
     return attend_plain(q, k, v, mask)
+
+
+def decode_attention_partial_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                   index: Index, *, base: int, window: int = 0
+                                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`decode_attention_partial`: (out f32 (B, 1,
+    H, D) normalised by the panel's own sum, lse f32 (B, 1, H)), f32 scores
+    over the panel; out = 0 and lse = -inf where no key is live."""
+    check_shapes(q, k, v)
+    groups = q.shape[2] // k.shape[2]
+    kf = k.to(torch.float32).repeat_interleave(groups, dim=2)
+    vf = v.to(torch.float32).repeat_interleave(groups, dim=2)
+    sc = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32), kf) * (1.0 / math.sqrt(q.shape[-1]))
+    pos = base + torch.arange(k.shape[1], device=q.device)
+    idx = _index_positions(index, q.device)
+    live = (pos <= idx) & ((idx - pos < window) if window > 0 else True)
+    sc = torch.where(live, sc, torch.full((), -math.inf, device=sc.device))
+    m = sc.amax(dim=-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, torch.zeros((), device=m.device))
+    p = torch.exp(sc - m)                                   # exactly 0 where masked
+    l = p.sum(dim=-1)                                       # (B, H, 1)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, vf) / torch.clamp_min(l, 1e-30).permute(0, 2, 1)[
+        ..., None]
+    lse = (m[..., 0] + torch.log(l)).permute(0, 2, 1)       # -inf with no live key
+    return out, lse
+
+
+def combine_partials(outs: torch.Tensor, lses: torch.Tensor,
+                     dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """G panels' partials -> the attention over all of them: outs (G, B, 1,
+    H, D) f32, lses (G, B, 1, H) f32 -> (B, 1, H, D) in ``dtype`` (f32 by
+    default).  Each panel weighs exp(lse_g - M), M the largest lse; an empty
+    panel (lse -inf) weighs 0, so with one live panel the result is its out
+    exactly.  Sums over G in panel order, the same on every rank."""
+    big = lses.amax(dim=0)
+    big = torch.where(torch.isfinite(big), big, torch.zeros((), device=big.device))
+    w = torch.exp(lses - big)                               # (G, B, 1, H)
+    num = (w[..., None] * outs).sum(dim=0)
+    out = num / torch.clamp_min(w.sum(dim=0), 1e-30)[..., None]
+    return out if dtype is None else out.to(dtype)
 
 
 @functools.lru_cache(maxsize=None)
@@ -144,15 +195,16 @@ def decode_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     return F32_FMA
 
 
-def _check_index(index: Index, s: int, q: torch.Tensor) -> Tuple[Optional[int], int]:
-    """(device pointer or None, host index) of a valid ``index``."""
+def _check_index(index: Index, s: Optional[int], q: torch.Tensor) -> Tuple[Optional[int], int]:
+    """(device pointer or None, host index) of a valid ``index`` (``s``
+    None: a panel's, any position)."""
     if isinstance(index, torch.Tensor):
         if index.dim() != 0 or index.dtype != torch.int32 or index.device != q.device:
             raise ValueError(f"a tensor index must be a 0-d int32 tensor on {q.device}, "
                              f"got {tuple(index.shape)} {index.dtype} on {index.device}")
         return index.data_ptr(), 0
     index = int(index)
-    if not 0 <= index < s:
+    if s is not None and not 0 <= index < s:
         raise ValueError(f"the decode_attention kernels take 0 <= index < S; got index "
                          f"{index}, S {s}")
     return None, index
@@ -209,5 +261,65 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, index: I
     return out
 
 
-__all__ = ["TC_HEAD_DIMS", "decode_attention", "decode_attention_plain", "decode_route",
-           "decode_splits", "decode_tc_splits", "live_range", "span"]
+def panel_keys(index: int, base: int, s: int, window: int) -> int:
+    """How many rows of the panel [base, base + s) the token at the
+    absolute ``index`` sees (0 for a panel before its window or past it)."""
+    begin, end = live_range(index, window)
+    return max(0, min(end, base + s) - max(begin, base))
+
+
+def decode_attention_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, index: Index,
+                             *, base: int, window: int = 0, route: Optional[str] = None
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch a decode-attention kernel in its partial mode over one panel
+    (k, v (B, S_local, Hkv, D) holding the positions [base, base +
+    S_local)), by :func:`decode_route` as :func:`decode_attention`:
+    (out f32 (B, 1, H, D), lse f32 (B, 1, H)).  ``index`` is absolute, a
+    host int (any position: the split covers the panel's live keys) or a
+    0-d int32 tensor on the card (the split covers min(S_local, window)
+    keys).  A panel with no live key still launches, and the kernel writes
+    its out = 0 and lse = -inf."""
+    from .build import check_constants, device_limits, load, record_launch
+    check_cuda_inputs("decode_attention_partial", q, k, v)
+    check_shapes(q, k, v)
+    b, one, h, d = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    if one != 1 or window < 0 or base < 0:
+        raise ValueError(f"the decode_attention kernels take one query, window >= 0 and a "
+                         f"panel base >= 0; got q {tuple(q.shape)}, window {window}, base {base}")
+    index_ptr, index_host = _check_index(index, None, q)
+    n_keys = span(s, window) if index_ptr is not None else panel_keys(index_host, base, s, window)
+    n_keys = max(n_keys, 1)
+    chosen = decode_route(q, k, v)
+    if route not in (None, chosen, F32_FMA):
+        raise ValueError(f"route {route!r}: these tensors take {chosen!r} or {F32_FMA!r}")
+    out = torch.empty((b, 1, h, d), dtype=torch.float32, device=q.device)
+    lse = torch.empty((b, 1, h), dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    scale = 1.0 / math.sqrt(d)
+    if (route or chosen) == TENSOR_CORES:
+        lib = load("decode_attention_tc")
+        check_constants("decode_attention_tc", _TC_CONSTANTS)
+        clusters = b * hkv * -(-(h // hkv) // TC_HEADS)
+        chunk, splits = decode_tc_splits(n_keys, clusters, device_limits(q.device.index)[0],
+                                         functools.partial(_tc_clusters, q.device.index, d))
+        err = lib.repro_decode_attention_tc_partial(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(), index_ptr,
+            index_host, base, b, s, h, hkv, d, window, chunk, splits, scale, stream)
+        record_launch(err, "decode_attention_partial_tc")
+        return out, lse
+    head_chunks = -(-(h // hkv) // HEADS_PER_BLOCK)
+    chunk, splits = decode_splits(n_keys, b * hkv * head_chunks,
+                                  device_limits(q.device.index)[0])
+    ws = torch.empty((b, h, splits, d + 2), dtype=torch.float32, device=q.device)
+    err = load("decode_attention").repro_decode_attention_partial(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(), ws.data_ptr(),
+        index_ptr, index_host, base, b, s, h, hkv, d, window, chunk, splits, scale,
+        DTYPE_CODES[q.dtype], stream)
+    record_launch(err, "decode_attention_partial")
+    return out, lse
+
+
+__all__ = ["TC_HEAD_DIMS", "combine_partials", "decode_attention", "decode_attention_partial",
+           "decode_attention_partial_plain", "decode_attention_plain", "decode_route",
+           "decode_splits", "decode_tc_splits", "live_range", "panel_keys", "span"]

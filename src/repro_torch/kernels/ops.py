@@ -221,6 +221,25 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return _da.decode_attention(q, k, v, index, window=window)
 
 
+def decode_attention_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             index: Union[int, torch.Tensor], *, base: int, window: int = 0
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B6's partial mode over one panel of a sequence-sharded cache: k, v
+    (B, S_local, Hkv, D) hold the absolute positions [base, base +
+    S_local); ``index`` is absolute (before, inside or past the panel).
+    Returns (out f32 (B, 1, H, D) normalised by the panel's own softmax
+    sum, lse f32 (B, 1, H)); a panel with no live key gives out 0 and lse
+    -inf.  ``decode_attention.combine_partials`` merges G panels'."""
+    with entry("decode_attention_partial", q, k, v, index=index, base=base, window=window):
+        if q.device.type == "cpu":
+            return _da.decode_attention_partial_plain(q, k, v, index, base=base, window=window)
+        if is_meta(q, k, v):
+            _da.check_shapes(q, k, v)
+            b, _, h, d = q.shape
+            return _empty((b, 1, h, d), torch.float32), _empty((b, 1, h), torch.float32)
+        return _da.decode_attention_partial(q, k, v, index, base=base, window=window)
+
+
 def slstm_scan(pre: torch.Tensor, r: torch.Tensor, n_heads: int) -> torch.Tensor:
     """The sLSTM time scan (B7): pre (T, B, 4d) input pre-activations, r
     (H, dh, 4dh) recurrent weights -> hidden states (T, B, d) in pre's
@@ -243,7 +262,7 @@ def slstm_scan(pre: torch.Tensor, r: torch.Tensor, n_heads: int) -> torch.Tensor
         return _ss.slstm_scan(pre, r, n_heads)
 
 
-__all__ = ["decode_attention", "flash_attention", "fused_cross_entropy", "largest_divisor",
+__all__ = ["decode_attention", "decode_attention_partial", "flash_attention", "fused_cross_entropy", "largest_divisor",
            "parallel_cross_entropy",
            "quant_cut_exchange", "quant_roundtrip", "quant_roundtrip_stats", "slstm_scan",
            "tamper_distance", "tamper_verdict"]

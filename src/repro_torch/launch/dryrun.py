@@ -6,6 +6,7 @@ mesh).
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-8b --shape train_4k
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--out PATH] [--pigeon-clusters R]
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh both [--seq-shard-cache]
 
 Each step comes from ``launch/steps.py::input_specs`` (the model and its
 arguments on the meta device: shapes and dtypes, nothing allocated) and runs
@@ -25,6 +26,11 @@ A record holds the reference's keys:
 
 A decode step takes a host index (the port's serve loop does): the dry run
 decodes the last position, S - 1, where every key of the cache is live.
+Its cache is a rank's part of the reference's layout (``Model.init_cache``):
+where several ranks hold the same KV heads (8 KV heads at model 16, or a
+whole attention block) they split its sequence, and under
+``--seq-shard-cache`` or a global batch of 1 (``long_500k``) the data axes
+split it too; the record's name then ends in ``+seq_shard_cache``.
 
 ``--mesh single|multi|both`` runs each step over the reference's
 production meshes (``launch/mesh.py::make_production_mesh``: 16 x 16
@@ -136,15 +142,16 @@ def analyze(spec, args, kind: str, tokens: int, active_params: int, mesh=None,
 
 
 def run_one(arch: str, shape_name: str, pigeon_clusters: int = 0,
-            optimizations: Sequence[str] = (), multi_pod: Optional[bool] = None
-            ) -> Dict[str, Any]:
+            optimizations: Sequence[str] = (), multi_pod: Optional[bool] = None,
+            seq_shard_cache: bool = False) -> Dict[str, Any]:
     """One record: on one card (``multi_pod`` None) or, as rank 0 of a fake
     process group of 256 (``False``: the reference's 16 x 16 ``data``,
     ``model`` mesh) or 512 ranks (``True``: 2 x 16 x 16 with ``pod``), on
     the production mesh, where the multi-pod train program is the Pigeon
     round (R = 2, a cluster a pod) as the reference's.  ``pigeon_shardmap``
     and ``moe_shard`` name the mesh programs (on one card ``moe_shard``
-    runs its 16-group dispatch alone)."""
+    runs its 16-group dispatch alone); ``seq_shard_cache`` the reference's
+    flash-decoding cache layout (decode shapes)."""
     from .mesh import PRODUCTION, fake_group, make_production_mesh
     cfg = get_config(arch)
     shape = SHAPES[shape_name]
@@ -159,13 +166,15 @@ def run_one(arch: str, shape_name: str, pigeon_clusters: int = 0,
         "program": ("pigeon_round_step" if pigeon else
                     {"train": "train_step", "prefill": "prefill_step",
                      "decode": "serve_step"}[shape.kind])
-                   + "".join(f"+{o}" for o in optimizations),
+                   + "".join(f"+{o}" for o in optimizations)
+                   + ("+seq_shard_cache" if seq_shard_cache else ""),
     }
     group = (contextlib.nullcontext() if multi_pod is None else fake_group(chips))
     try:
         with Stopwatch() as sw, group:
             mesh = None if multi_pod is None else make_production_mesh(multi_pod=multi_pod)
             spec = input_specs(cfg, shape_name, mesh, pigeon_clusters=pigeon,
+                               seq_shard_cache=seq_shard_cache,
                                optimizations=tuple(optimizations))
             args = _decode_args(shape, spec.args) if shape.kind == "decode" else spec.args
             rec.update(analyze(spec, args, shape.kind, step_tokens(shape),
@@ -189,6 +198,9 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                          "2x16x16 production meshes, as rank 0 of a fake process group")
     ap.add_argument("--pigeon-clusters", type=int, default=0,
                     help="train shapes: the Pigeon-SL round over R cluster slots")
+    ap.add_argument("--seq-shard-cache", action="store_true",
+                    help="decode shapes: the cache's sequence over the data axes too (the "
+                         "reference's flash-decoding layout; a batch of 1 takes it anyway)")
     ap.add_argument("--out", default=None, help="merge the records into this JSON file")
     ap.add_argument("--save-hlo", default=None, metavar="DIR", help="no counterpart")
     ap.add_argument("--opt", action="append", default=[],
@@ -210,7 +222,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                 print(f"SKIP  {arch:24s} {shape_name:12s} {reason}")
                 continue
             for mp in MESHES[args.mesh]:
-                rec = run_one(arch, shape_name, args.pigeon_clusters, tuple(args.opt), mp)
+                rec = run_one(arch, shape_name, args.pigeon_clusters, tuple(args.opt), mp,
+                              args.seq_shard_cache)
                 results.append(rec)
                 if rec["ok"]:
                     r = rec["roofline"]

@@ -220,23 +220,49 @@ class Mesh(ClusterMesh):
     :class:`~repro_torch.core.runner.ClusterMesh` over this rank's ``pod``
     group; the parallel model's axes are :meth:`parallel`."""
     groups: Dict[str, Any] = dataclasses.field(default_factory=dict)
-    _subgroups: Dict[int, Any] = dataclasses.field(default_factory=dict)
+    _subgroups: Dict[Any, Any] = dataclasses.field(default_factory=dict)
 
     def group_of(self, axis: str):
         return self.groups.get(axis)
 
-    def parallel(self):
-        """This rank's ``models.parallel.Parallel`` view of the ``data`` and
-        ``model`` axes."""
+    def parallel(self, cluster_axis: Optional[str] = None):
+        """This rank's ``models.parallel.Parallel`` view of the batch and
+        ``model`` axes: the data axis spans ``pod`` and ``data`` (the
+        reference's ``batch_shardings``), less ``cluster_axis`` where the
+        round lays its clusters on it (a ``StackedModel``'s view)."""
         from ..models.parallel import Parallel
         shape = self.shape
+        axes = batch_axes(self, cluster_axis)
+        size, rank = 1, 0
+        for ax in axes:
+            size, rank = size * shape[ax], rank * shape[ax] + self.coord(ax)
         return Parallel(model_size=shape.get("model", 1), model_rank=self._coord("model"),
-                        model_group=self.groups.get("model"),
-                        data_size=shape.get("data", 1), data_rank=self._coord("data"),
-                        data_group=self.groups.get("data"), mesh=self)
+                        model_group=self.groups.get("model"), data_size=size, data_rank=rank,
+                        data_group=self._group_over(axes), mesh=self,
+                        data_axes=axes or ("data",))
 
     def _coord(self, axis: str) -> int:
         return self.coord(axis) if axis in self.axis_names else 0
+
+    def _group_over(self, axes: Sequence[str]):
+        """The group over ``axes`` (None where they span one rank)."""
+        live = [ax for ax in axes if self.shape[ax] > 1]
+        if not live:
+            return None
+        return self.groups.get(live[0] if len(live) == 1 else ",".join(live))
+
+    def panel_group(self, share: int, axes: Sequence[str] = ()):
+        """The group of the ranks that split one set of KV heads' sequence
+        (``models.parallel.cache_panels``): the ``share`` consecutive
+        ``model`` ranks that hold them, times every coordinate of ``axes``;
+        a collective the first time, None on an abstract mesh."""
+        key = (share, tuple(axes))
+        if key not in self._subgroups:
+            self._subgroups[key] = None
+            if self.groups:
+                self._subgroups[key], _ = dist.new_subgroups_by_enumeration(
+                    _partition(self.dims, self.axis_names, axes, share))
+        return self._subgroups[key]
 
     def model_subgroup(self, share: int):
         """The group of the ``share`` consecutive ``model`` ranks this rank
@@ -272,6 +298,23 @@ def _axis_lists(dims: Sequence[int], i: int) -> List[List[int]]:
     return lists
 
 
+def _partition(dims: Sequence[int], axes: Sequence[str], over: Sequence[str],
+               share: int = 1) -> List[List[int]]:
+    """The rank lists of a row-major mesh whose members differ only along
+    the axes ``over`` (and, with ``share`` > 1, within a block of ``share``
+    consecutive ``model`` coordinates), each in rank order."""
+    classes: Dict[tuple, List[int]] = {}
+    for r in range(math.prod(dims)):
+        coords, rest = [], r
+        for d in reversed(dims):
+            coords.append(rest % d)
+            rest //= d
+        key = tuple(c // share if ax == "model" else c
+                    for ax, c in zip(axes, reversed(coords)) if ax not in over)
+        classes.setdefault(key, []).append(r)
+    return list(classes.values())
+
+
 def make_mesh(dims: Sequence[int], axes: Sequence[str]) -> Mesh:
     """The mesh ``dims`` x ``axes`` over the ranks of the default group (a
     collective: every rank builds the same meshes in the same order).  Its
@@ -292,6 +335,13 @@ def make_mesh(dims: Sequence[int], axes: Sequence[str]) -> Mesh:
             groups[ax] = dist.group.WORLD
         else:
             groups[ax], _ = dist.new_subgroups_by_enumeration(_axis_lists(dims, i))
+    over = [ax for ax, d in zip(axes, dims) if ax in ("pod", "data") and d > 1]
+    if len(over) == 2:
+        # a plain model's batch axes: pod and data together
+        both = math.prod(d for ax, d in zip(axes, dims) if ax in over)
+        groups[",".join(over)] = (dist.group.WORLD if both == world else
+                                  dist.new_subgroups_by_enumeration(
+                                      _partition(dims, axes, over))[0])
     return Mesh(axes, dims, rank, world, None, groups)
 
 
@@ -322,6 +372,11 @@ def data_axes(mesh) -> tuple:
     return tuple(n for n in mesh.axis_names if n in ("pod", "data"))
 
 
+def batch_axes(mesh, cluster_axis: Optional[str] = None) -> tuple:
+    """:func:`data_axes` less the round's ``cluster_axis``."""
+    return tuple(n for n in data_axes(mesh) if n != cluster_axis)
+
+
 @contextlib.contextmanager
 def fake_group(world: int, rank: int = 0):
     """This process as rank ``rank`` of a fake process group of ``world``
@@ -338,6 +393,6 @@ def fake_group(world: int, rank: int = 0):
         close_group()
 
 
-__all__ = ["GROUP_TIMEOUT_S", "Mesh", "PRODUCTION", "abstract_mesh", "close_group",
-           "data_axes", "default_backend", "fake_group", "group_of_one", "init_group",
-           "make_mesh", "make_production_mesh", "spawn"]
+__all__ = ["GROUP_TIMEOUT_S", "Mesh", "PRODUCTION", "abstract_mesh", "batch_axes",
+           "close_group", "data_axes", "default_backend", "fake_group", "group_of_one",
+           "init_group", "make_mesh", "make_production_mesh", "spawn"]

@@ -136,6 +136,13 @@ def kernel_work(name: str, operands, config) -> roofline.Work:
         return roofline.decode_attention_work(
             q.shape[0], k.shape[1], q.shape[2], k.shape[2], q.shape[3], config.get("window", 0),
             None if isinstance(index, torch.Tensor) else int(index), _dtype_name(q))
+    if name == "decode_attention_partial":
+        q, k, _ = operands
+        index = config.get("index")
+        return roofline.decode_attention_partial_work(
+            q.shape[0], k.shape[1], q.shape[2], k.shape[2], q.shape[3], config["base"],
+            config.get("window", 0), None if isinstance(index, torch.Tensor) else int(index),
+            _dtype_name(q))
     if name == "slstm_scan":
         pre, _ = operands
         t, b, d4 = pre.shape

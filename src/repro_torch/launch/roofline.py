@@ -207,6 +207,22 @@ def decode_attention_work(b: int, s: int, h: int, hkv: int, d: int, window: int 
                 4 * d * pairs * b * h, _rate(dtype))
 
 
+def decode_attention_partial_work(b: int, s: int, h: int, hkv: int, d: int, base: int,
+                                  window: int = 0, index: Optional[int] = None,
+                                  dtype: str = "bfloat16") -> Work:
+    """B6's partial mode over the panel [base, base + s): q read once, out
+    (B, H, D) and lse (B, H) written once in f32, the panel's live keys' k
+    and v once; 4 D operations a live key and head.  ``index`` None (a
+    position on the device) counts the span a split covers."""
+    if index is None:
+        pairs = min(s, window) if window > 0 else s
+    else:
+        begin = max(0, index - window + 1) if window > 0 else 0
+        pairs = max(0, min(index + 1, base + s) - max(begin, base))
+    return Work(_elt(dtype) * (b * h * d + 2 * b * pairs * hkv * d) + 4 * (b * h * d + b * h),
+                4 * d * pairs * b * h, _rate(dtype))
+
+
 def slstm_scan_work(t: int, b: int, d: int, h: int, dtype: str = "bfloat16") -> Work:
     """B7 forward: pre (T, B, 4d) read once, the output (T, B, d) written
     once, R read once; 2 dh operations a (step, row, gate column) on the f32
@@ -227,7 +243,7 @@ def slstm_scan_bwd_work(t: int, b: int, d: int, h: int) -> Work:
 
 __all__ = ["BF16_OPS_PER_S", "CARDS_PER_NODE", "F32_OPS_PER_S", "HBM_BYTES_PER_S",
            "NETWORK_BYTES_PER_S", "NVLINK_BYTES_PER_S", "RATES", "Roofline", "Work", "bound_us",
-           "decode_attention_work", "link_rate",
+           "decode_attention_partial_work", "decode_attention_work", "link_rate",
            "flash_attention_bwd_work", "flash_attention_work", "fused_xent_bwd_work",
            "fused_xent_work", "live_pairs", "mfu", "model_flops_for", "quant_dequant_stats_work",
            "quant_dequant_work", "roofline_terms", "slstm_scan_bwd_work", "slstm_scan_work",

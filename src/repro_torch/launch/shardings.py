@@ -26,7 +26,10 @@ local shard and records its layout on it (``parallel.mark``):
 :func:`gather_params` puts the whole back together.  Where the model axis
 exceeds a GQA model's KV heads the reference's rule splits inside a head;
 the port holds each KV head whole on the ranks whose query heads read it,
-while :func:`param_shardings` still returns the reference's spec.
+and where the axis does not divide the query heads (Qwen2.5-14B's 40 at
+16, which the reference splits mid-head) the attention block whole on each
+model rank, while :func:`param_shardings` still returns the reference's
+spec.
 """
 from __future__ import annotations
 
@@ -175,7 +178,11 @@ def cache_shardings(cache_shape, mesh, batch: int, seq_shard: bool = False
     the kv-heads dim over "model" when divisible, else the cache sequence
     over "model".  ``seq_shard=True`` (long-context flash-decoding layout)
     shards the *sequence* dim of attention caches over the data axes
-    instead.  The port runs only the head layout (:func:`check_cache_layout`)."""
+    instead.  The port's ``Model.init_cache`` holds a rank's part of this
+    layout: where the spec puts ``model`` on the sequence, the ranks that
+    hold the same KV heads split it; under ``seq_shard`` the data ranks
+    too (and the model ranks keep their KV heads, so a rank holds no more
+    than this spec gives it)."""
     shape_of = mesh.shape
     dp = tuple(n for n in mesh.axis_names if n in ("pod", "data"))
     dp_size = int(math.prod([shape_of[a] for a in dp]))
@@ -205,22 +212,6 @@ def cache_shardings(cache_shape, mesh, batch: int, seq_shard: bool = False
         return tuple(spec)
 
     return {name: one(name, tuple(shape)) for name, shape in shapes.items()}
-
-
-def check_cache_layout(specs: Dict[str, Spec]) -> None:
-    """The port decodes on a cache sharded by batch and KV heads; a cache
-    sharded on its sequence dim (``seq_shard``, or KV heads the model axis
-    does not divide) waits for a later slice."""
-    from ..models.parallel import LATER_SLICE
-    for name, spec in specs.items():
-        last = name.split("/")[-1]
-        if last not in ("k", "v"):
-            continue
-        bdim = 1 if len(spec) == 5 else 0
-        if spec[bdim + 1] is not None:
-            raise NotImplementedError(
-                f"cache {name} sharded on its sequence dim ({spec}): the sequence-sharded "
-                f"decode cache comes with {LATER_SLICE}")
 
 
 def replicated(mesh) -> Spec:
@@ -319,7 +310,7 @@ def gather_params(model: nn.Module) -> Dict[str, torch.Tensor]:
     return {name: gather_param(p, par) for name, p in model.named_parameters()}
 
 
-__all__ = ["batch_shardings", "cache_paths", "cache_shardings", "check_cache_layout",
+__all__ = ["batch_shardings", "cache_paths", "cache_shardings",
            "gather_param", "gather_params", "local_bytes", "param_shapes", "param_shardings",
            "pigeon_round_shardings", "pigeon_sweep_shardings", "replicated",
            "shard_param", "shard_params", "whole_shape"]

@@ -141,16 +141,22 @@ def make_serve_step(model: Model) -> Callable:
     cache); ``memory`` is an encoder-decoder's encoder output.  A parallel
     model's cache holds this rank's rows and KV heads
     (``model.init_cache``); the step takes the whole batch's tokens and
-    returns the whole batch's logits."""
+    returns the whole batch's logits.  Where the cache's panels span the
+    data axis (``seq_shard`` or a batch of 1) every data rank holds every
+    row: the step then splits no rows and gathers no logits over ``data``."""
     par = model.par
 
     def serve_step(cache, tokens: torch.Tensor, index: int,
                    memory: Optional[torch.Tensor] = None):
-        if par.data_size > 1:
+        panels = getattr(cache, "panels", None)
+        split = par.data_size > 1 and not (panels is not None and panels.rows_whole)
+        if split:
             tokens = par.local_rows(tokens)
             memory = None if memory is None else par.local_rows(memory)
         logits, cache = model.decode_step(cache, tokens, index, memory)
-        logits = gather_from(logits.to(torch.float32), par.data_group, par.data_size, dim=0)
+        logits = logits.to(torch.float32)
+        if split:
+            logits = gather_from(logits, par.data_group, par.data_size, dim=0)
         return logits, cache
     return serve_step
 
@@ -292,7 +298,7 @@ def make_pigeon_round_step_shardmap(model: StackedModel, mesh=None, lr: float = 
     ``cluster_mesh(R)`` at each call), or a ``launch.mesh.Mesh`` over
     (``pod``, ``data``, ``model``): the slots over ``pod`` and, within a
     pod, ``model`` the parallel model of the mesh (built with
-    ``mesh.parallel()``), each pod's training and validation batches split
+    ``mesh.parallel("pod")``), each pod's training and validation batches split
     over ``data`` (``launch.shardings.pigeon_round_shardings``).  ``model``
     is this rank's ``StackedModel`` of R / pods slots; each pod trains and
     validates its slice of ``batches``, the R losses are all-gathered over
@@ -343,17 +349,19 @@ def batch_struct(cfg: ModelConfig, shape: InputShape, cluster_dim: int = 0
             "labels": _meta(lead + (b, s), torch.int32)}
 
 
-def decode_structs(cfg: ModelConfig, model: Model, shape: InputShape):
+def decode_structs(cfg: ModelConfig, model: Model, shape: InputShape,
+                   seq_shard: bool = False):
     """(tokens, index, cache, memory) of ``serve_step`` as meta tensors;
-    ``model`` lives on the meta device.  ``memory`` is an
+    ``model`` lives on the meta device, its cache laid out by
+    ``model.init_cache(..., seq_shard)``.  ``memory`` is an
     encoder-decoder's (B, min(4,096, S // 8), d_model) encoder output, None
     for the other families (the reference's)."""
     b, s = shape.global_batch, shape.seq_len
     memory = None
     if cfg.arch_type in ENCDEC:
         memory = _meta((b, min(4096, s // 8), cfg.d_model), DTYPES[cfg.dtype])
-    return (_meta((b, 1), torch.int32), _meta((), torch.int32), model.init_cache(b, s),
-            memory)
+    return (_meta((b, 1), torch.int32), _meta((), torch.int32),
+            model.init_cache(b, s, seq_shard), memory)
 
 
 @dataclasses.dataclass
@@ -370,8 +378,9 @@ def apply_shape_settings(cfg: ModelConfig, shape: InputShape) -> ModelConfig:
 
 
 def input_specs(cfg: ModelConfig, shape_name: str, mesh=None, *, pigeon_clusters: int = 0,
-                lr: float = 1e-3, optimizations: Tuple[str, ...] = (),
-                selection: str = "argmin", quant: Optional[str] = None) -> LoweringSpec:
+                seq_shard_cache: bool = False, lr: float = 1e-3,
+                optimizations: Tuple[str, ...] = (), selection: str = "argmin",
+                quant: Optional[str] = None) -> LoweringSpec:
     """The step and its meta-tensor arguments for one (architecture x
     input shape): train (or, with ``pigeon_clusters`` R, the Pigeon-SL
     round over an R-slot :class:`StackedModel`; ``pigeon_batch_split``
@@ -388,20 +397,21 @@ def input_specs(cfg: ModelConfig, shape_name: str, mesh=None, *, pigeon_clusters
     parallel model over the mesh's data and model axes, a round's clusters
     lie over its ``pod`` axis (the arguments stay
     the whole batch's, as the reference's global arrays; the steps take
-    this rank's rows), and a decode's cache is laid out by
-    ``shardings.cache_shardings``: one sharded on its sequence dim (KV heads
-    the model axis does not divide) raises
-    (``shardings.check_cache_layout``)."""
+    this rank's rows), and a decode's cache is this rank's part of the
+    reference's ``cache_shardings(seq_shard=seq_shard_cache or global_batch
+    == 1)`` layout (``Model.init_cache``): its sequence split over the ranks
+    that hold the same KV heads, and under ``seq_shard`` over the data
+    axes too."""
     shape = SHAPES[shape_name]
     cfg = apply_shape_settings(cfg, shape)
     if optimizations:
         cfg = dataclasses.replace(
             cfg, optimizations=tuple(cfg.optimizations) + tuple(optimizations))
     plan = build_plan(cfg)
-    par = None if mesh is None else mesh.parallel()
 
     if shape.kind == "train" and pigeon_clusters:
         r = pigeon_clusters
+        par = None if mesh is None else mesh.parallel(CLUSTER_AXIS)
         model = StackedModel(cfg, plan, r, _META, par)
         # "pigeon_batch_split": each cluster trains global_batch/R, so the
         # robust round costs the same tokens a step as plain data parallelism
@@ -433,17 +443,14 @@ def input_specs(cfg: ModelConfig, shape_name: str, mesh=None, *, pigeon_clusters
         fn = make_pigeon_round_step(model, lr, selection=selection, quant=quant)
         return LoweringSpec(fn, (batches, val_batch), model)
 
-    model = Model(cfg, plan, _META, par)
+    model = Model(cfg, plan, _META, None if mesh is None else mesh.parallel())
     if shape.kind == "train":
         return LoweringSpec(make_train_step(model, lr, quant=quant),
                             (batch_struct(cfg, shape),), model)
     if shape.kind == "prefill":
         return LoweringSpec(make_prefill_step(model), (batch_struct(cfg, shape),), model)
-    if mesh is not None:
-        from .shardings import cache_shardings, check_cache_layout
-        whole = Model(cfg, plan, _META).init_cache(shape.global_batch, shape.seq_len)
-        check_cache_layout(cache_shardings(whole, mesh, shape.global_batch))
-    tokens, index, cache, memory = decode_structs(cfg, model, shape)
+    seq_shard = seq_shard_cache or shape.global_batch == 1
+    tokens, index, cache, memory = decode_structs(cfg, model, shape, seq_shard)
     args = (cache, tokens, index) + (() if memory is None else (memory,))
     return LoweringSpec(make_serve_step(model), args, model)
 

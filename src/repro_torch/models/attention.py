@@ -24,7 +24,20 @@ differentiable through B5's non-causal backward on the card.
 
 The decode cache of a layer is a pair of (B, max_seq, Hkv, D) tensors; a
 step writes the new token's key and value in place at ``index`` (the
-reference's ``dynamic_update_slice``, without copying the cache).
+reference's ``dynamic_update_slice``, without copying the cache).  Under a
+sequence-sharded cache (``parallel.Panels``: the ranks that hold the same
+KV heads split their positions) a rank holds (B, S / G, Hkv_local, D): the
+rank whose panel holds ``index`` writes the token, every rank runs B6's
+partial mode over its panel (for all the query heads of its KV heads, the
+ranks that split them all-gathering their ``q`` first) and the panels'
+partials combine over the panel group (``parallel.combine_panels``).
+
+Where the model axis does not divide the query heads (Qwen2.5-14B's 40 at
+16), or it and the KV heads divide neither way, the block runs whole on
+each model rank (``parallel.heads_layout`` gives None): every weight
+replicated, no ``enter``/``leave``, no ``shared_grad``, its gradient the
+rank's own; its decode cache holds every KV head, split over the whole
+model axis.
 
 MLA (DeepSeek-V2's multi-head latent attention; the reference's
 ``mla_init``, ``mla_forward``, ``init_mla_cache``, ``mla_decode``) stays
@@ -41,7 +54,7 @@ call a slot, on views of its stacked weights) both call.
 from __future__ import annotations
 
 import math
-from typing import Dict, NamedTuple, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -49,7 +62,8 @@ from torch import nn
 from ..kernels import ops
 from ..kernels.flash_attention import NEG_INF, attend_plain, causal_mask
 from .blocks import Linear, RMSNorm, StackedLinear, StackedRMSNorm, apply_rope, rms_norm
-from .parallel import enter, heads_layout, leave, mark, optional, shared_grad
+from .parallel import (Panels, combine_panels, enter, gather_from, heads_layout, leave, mark,
+                       optional, shared_grad)
 
 
 class AttnConfig(NamedTuple):
@@ -62,19 +76,40 @@ class AttnConfig(NamedTuple):
     qk_norm: bool = False
 
 
-def _local_heads(cfg: AttnConfig, par):
-    """(this rank's AttnConfig, the Parallel view, the group of the ranks
-    that share its KV head or None, (KV pieces, this rank's piece)): with
-    ``par`` of model axis m > 1 the rank holds H/m query heads and Hkv/m KV
-    heads, or, where m exceeds the KV heads, one KV head whole, shared by
-    the m/Hkv ranks whose query heads read it (Megatron's layout; the
-    reference's rule splits inside a head there, which B5 cannot run)."""
+class HeadLayout(NamedTuple):
+    """A rank's part of a GQA block: ``cfg`` its heads, ``par`` the view its
+    products run under (model axis 1 where the block is whole), ``kv_group``
+    the ranks whose shared KV weights' gradients sum (None), ``kv_layout``
+    (KV pieces, this rank's piece), ``share`` the model ranks that hold this
+    rank's KV heads (they split the heads' decode cache on its sequence),
+    ``split_q`` whether those ranks split the KV heads' query heads among
+    them, and ``q_slot`` this rank's place among them."""
+    cfg: AttnConfig
+    par: Any
+    kv_group: Any = None
+    kv_layout: Tuple[int, int] = (1, 0)
+    share: int = 1
+    split_q: bool = False
+    q_slot: int = 0
+
+
+def _local_heads(cfg: AttnConfig, par) -> HeadLayout:
+    """This rank's :class:`HeadLayout`: with ``par`` of model axis m > 1 the
+    rank holds H/m query heads and Hkv/m KV heads, or, where m exceeds the
+    KV heads, one KV head whole, shared by the m/Hkv ranks whose query heads
+    read it (Megatron's layout; the reference's rule splits inside a head
+    there, which B5 cannot run); where the axis does not divide the query
+    heads the block whole (``parallel.heads_layout`` None), its cache split
+    over all m model ranks."""
     par = optional(par)
     if par.model_size == 1:
-        return cfg, par, None, (1, 0)
-    h, kv, parts, index, share = heads_layout(par, cfg.n_heads, cfg.n_kv_heads)
-    return (cfg._replace(n_heads=h, n_kv_heads=kv), par, par.kv_group(share),
-            (parts, index))
+        return HeadLayout(cfg, par)
+    lay = heads_layout(par, cfg.n_heads, cfg.n_kv_heads)
+    if lay is None:
+        return HeadLayout(cfg, par.whole(), share=par.model_size)
+    h, kv, parts, index, share = lay
+    return HeadLayout(cfg._replace(n_heads=h, n_kv_heads=kv), par, par.kv_group(share),
+                      (parts, index), share, share > 1, par.model_rank % share)
 
 
 def _mark_heads(attn: nn.Module, par, kv_layout) -> None:
@@ -131,7 +166,8 @@ class GQA(nn.Module):
     def __init__(self, cfg: AttnConfig, *, dtype: torch.dtype = torch.float32, device=None,
                  par=None):
         super().__init__()
-        self.cfg, self.par, self.kv_group, kv_layout = _local_heads(cfg, par)
+        self.heads = _local_heads(cfg, par)
+        self.cfg, self.par, self.kv_group, kv_layout = self.heads[:4]
         cfg = self.cfg
         kw = dict(dtype=dtype, device=device)
         hd = cfg.head_dim
@@ -186,19 +222,41 @@ class GQA(nn.Module):
         return self.wo(out.reshape(b, s, cfg.n_heads * cfg.head_dim))
 
     def decode(self, x: torch.Tensor, cache: Dict[str, torch.Tensor], index: int,
-               window: int) -> torch.Tensor:
+               window: int, panels: Optional[Panels] = None) -> torch.Tensor:
         """One decode step: x (B, 1, d_model) is the token at position
         ``index`` (host int).  Writes its key and value into ``cache`` ((B,
         max_seq, Hkv, D) tensors) in place and attends over positions <=
-        ``index``."""
+        ``index``; under ``panels`` (a sequence-sharded cache, this rank's
+        panel (B, S / G, Hkv, D)) the rank whose panel holds ``index``
+        writes, and the panels' partials combine."""
         cfg = self.cfg
         b = x.shape[0]
         pos = torch.full((1,), index, dtype=torch.int64, device=x.device)
         q, k_new, v_new = self._project(enter(x, self.par), pos)
-        cache["k"][:, index] = k_new[:, 0].to(cache["k"].dtype)
-        cache["v"][:, index] = v_new[:, 0].to(cache["v"].dtype)
-        out = ops.decode_attention(q, cache["k"], cache["v"], index, window=window)
+        if panels is None or panels.count == 1:
+            cache["k"][:, index] = k_new[:, 0].to(cache["k"].dtype)
+            cache["v"][:, index] = v_new[:, 0].to(cache["v"].dtype)
+            out = ops.decode_attention(q, cache["k"], cache["v"], index, window=window)
+        else:
+            if panels.holds(index):
+                cache["k"][:, index - panels.base] = k_new[:, 0].to(cache["k"].dtype)
+                cache["v"][:, index - panels.base] = v_new[:, 0].to(cache["v"].dtype)
+            out = self._panel_attention(q, cache, index, window, panels)
         return leave(self.wo(out.reshape(b, 1, cfg.n_heads * cfg.head_dim)), self.par)
+
+    def _panel_attention(self, q: torch.Tensor, cache: Dict[str, torch.Tensor], index: int,
+                         window: int, panels: Panels) -> torch.Tensor:
+        """B6's partial mode over this rank's panel for every query head of
+        its KV heads (the ranks that split them all-gather ``q``), the
+        panels combined; returns this rank's heads (B, 1, H_local, D)."""
+        lay = self.heads
+        h = q.shape[2]
+        if lay.split_q:
+            q = gather_from(q, lay.kv_group, lay.share, dim=2)
+        out, lse = ops.decode_attention_partial(q, cache["k"], cache["v"], index,
+                                                base=panels.base, window=window)
+        out = combine_panels(out, lse, panels, q.dtype)
+        return out[:, :, lay.q_slot * h:(lay.q_slot + 1) * h] if lay.split_q else out
 
 
 def gqa_cross_forward(attn: GQA, x: torch.Tensor, memory: torch.Tensor) -> torch.Tensor:
@@ -223,7 +281,8 @@ class StackedGQA(nn.Module):
     def __init__(self, cfg: AttnConfig, n: int, *, dtype: torch.dtype = torch.float32,
                  device=None, par=None):
         super().__init__()
-        self.cfg, self.par, self.kv_group, kv_layout = _local_heads(cfg, par)
+        self.heads = _local_heads(cfg, par)
+        self.cfg, self.par, self.kv_group, kv_layout = self.heads[:4]
         cfg = self.cfg
         kw = dict(dtype=dtype, device=device)
         hd = cfg.head_dim
@@ -379,7 +438,9 @@ class MLA(nn.Module):
         return mla_forward(self.weights(), self.cfg, x, positions)
 
     def decode(self, x: torch.Tensor, cache: Dict[str, torch.Tensor], index: int,
-               window: int = 0) -> torch.Tensor:
+               window: int = 0, panels: Optional[Panels] = None) -> torch.Tensor:
+        """``panels`` is whole here: ``init_cache`` refuses an MLA cache
+        over several (item 14.3)."""
         _no_window(window)
         return mla_decode(self.weights(), self.cfg, x, cache, index)
 
@@ -421,6 +482,6 @@ def init_mla_cache(layers: int, batch: int, max_seq: int, cfg: MLAConfig,
                                   device=device)}
 
 
-__all__ = ["AttnConfig", "GQA", "MLA", "MLAConfig", "MLAWeights", "StackedGQA",
+__all__ = ["AttnConfig", "GQA", "HeadLayout", "MLA", "MLAConfig", "MLAWeights", "StackedGQA",
            "StackedMLA", "gqa_cross_forward", "init_kv_cache", "init_mla_cache", "mla_decode",
            "mla_forward"]

@@ -165,14 +165,15 @@ class SwiGLU(nn.Module):
     """``down(silu(gate(x)) * up(x))``.  With ``par`` (``models.parallel``)
     of model axis m > 1 the FFN width is this rank's F/m: ``gate`` and
     ``up`` column-parallel, ``down`` row-parallel, one all-reduce over
-    ``model`` at the output."""
+    ``model`` at the output; where m does not divide F the FFN runs whole
+    on each model rank (``Parallel.over``)."""
 
     def __init__(self, d_model: int, d_ff: int, *, dtype: torch.dtype = torch.float32,
                  device=None, par=None):
         super().__init__()
-        self.par = par = optional(par)
+        self.par = par = optional(par).over(d_ff)
         kw = dict(dtype=dtype, device=device)
-        f = par.split(d_ff, "d_ff")
+        f = d_ff // par.model_size
         self.gate = Linear(d_model, f, **kw)
         self.up = Linear(d_model, f, **kw)
         self.down = Linear(f, d_model, **kw)
@@ -237,9 +238,9 @@ class StackedSwiGLU(nn.Module):
     def __init__(self, n: int, d_model: int, d_ff: int, *,
                  dtype: torch.dtype = torch.float32, device=None, par=None):
         super().__init__()
-        self.par = par = optional(par)
+        self.par = par = optional(par).over(d_ff)
         kw = dict(dtype=dtype, device=device)
-        f = par.split(d_ff, "d_ff")
+        f = d_ff // par.model_size
         self.gate = StackedLinear(n, d_model, f, **kw)
         self.up = StackedLinear(n, d_model, f, **kw)
         self.down = StackedLinear(n, f, d_model, **kw)

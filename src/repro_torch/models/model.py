@@ -37,7 +37,8 @@ pytree become methods:
                                           parameters
   * ``client_forward(gamma, batch)``    — cut-layer activations (B, S, D)
   * ``ap_forward(phi, acts, batch)``    — loss from cut activations
-  * ``init_cache(batch_size, max_seq)`` — zeroed decode cache
+  * ``init_cache(batch_size, max_seq, seq_shard=False)`` — zeroed decode
+                                          cache (a :class:`DecodeCache`)
   * ``decode_step(cache, tokens, i)``   — one-token decode -> (logits, cache)
 
 The batched round's form of it is :class:`StackedModel`
@@ -83,11 +84,20 @@ from ..kernels import ops
 from . import transformer as tfm
 from .blocks import DTYPES, Linear, RMSNorm, StackedLinear, StackedRMSNorm, embed_init
 from .config import ModelConfig
-from .parallel import (LATER_SLICE, SINGLE, Parallel, check_kinds, gather_from, mark,
-                       optional, reduce_from, vocab_embed, vocab_rows)
+from .parallel import (SINGLE, Panels, Parallel, cache_panels, check_kinds, gather_from,
+                       mark, optional, reduce_from, vocab_embed, vocab_rows)
 
 Cache = Tuple[Dict[str, torch.Tensor], ...]
 Batch = Dict[str, torch.Tensor]
+
+
+class DecodeCache(tuple):
+    """A model's decode caches, one a stack (a tuple), with ``panels``, the
+    layout of their sequence on this rank (``parallel.Panels``; count 1:
+    the whole sequence), which :meth:`Model.decode_step` and the serve step
+    read with no host read on the step."""
+    panels: Panels = Panels()
+
 
 @dataclasses.dataclass
 class StackPlan:
@@ -218,7 +228,9 @@ class APLM(nn.Module):
 
 
 def _vocab_parallel(par: Parallel, embedding: torch.Tensor, head_w: torch.Tensor) -> None:
-    """The embedding's rows and the head's columns over ``model``."""
+    """The embedding's rows and the head's columns over ``model`` (``par``
+    the vocab's view: model axis 1 where the axis does not divide the
+    vocab, both then whole on each rank)."""
     if par.model_size > 1:
         mark(embedding, -2, par.model_size, par.model_rank)
         mark(head_w, -1, par.model_size, par.model_rank)
@@ -232,8 +244,11 @@ class Model(nn.Module):
     the MoE's experts over ``model`` (``launch/shardings.py`` lays the
     whole tensors out); every entry takes this data rank's rows of a batch,
     the loss is the whole batch's, and ``logits``/``decode_step`` return
-    the whole vocab's logits of those rows.  Only the ``attn_mlp``,
-    ``dense_mlp`` and ``moe`` kinds with GQA run at model > 1."""
+    the whole vocab's logits of those rows.  A vocab the model axis does
+    not divide (``vocab_par``, ``Parallel.over``) is held whole: the lookup
+    ``table[tokens]``, plain B4 over the whole head, no gather of logits.
+    Only the ``attn_mlp``, ``dense_mlp`` and ``moe`` kinds with GQA run at
+    model > 1."""
 
     def __init__(self, cfg: ModelConfig, plan: List[StackPlan], device=None,
                  par: Optional[Parallel] = None):
@@ -243,13 +258,14 @@ class Model(nn.Module):
         self.par = par = optional(par)
         check_kinds([sp.kind for sp in plan], par, bool(cfg.kv_lora_rank))
         dt = DTYPES[cfg.dtype]
-        v = par.split(cfg.vocab, "vocab")
+        self.vocab_par = vp = par.over(cfg.vocab)
+        v = cfg.vocab // vp.model_size
         self.embedding = nn.Parameter(torch.empty((v, cfg.d_model), dtype=dt, device=device))
         self.stacks = nn.ModuleList(tfm.build_stacks(cfg, plan, device, par))
         self.final_norm = RMSNorm(cfg.d_model, dtype=dt, device=device)
         self.head = Linear(cfg.d_model, v, dtype=dt, device=device)
         self.encoder = Encoder(cfg, device) if cfg.arch_type in tfm.ENCDEC else None
-        _vocab_parallel(par, self.embedding, self.head.w)
+        _vocab_parallel(vp, self.embedding, self.head.w)
 
     @property
     def device(self) -> torch.device:
@@ -301,7 +317,7 @@ class Model(nn.Module):
     # -- embedding ----------------------------------------------------------
     def embed(self, batch: Batch) -> Tuple[torch.Tensor, torch.Tensor]:
         """Returns (x, positions); a vlm's patches lead x."""
-        x = _embed(self.cfg, self.embedding, batch, self.par)
+        x = _embed(self.cfg, self.embedding, batch, self.vocab_par)
         return x, torch.arange(x.shape[1], device=x.device)
 
     def encode(self, batch: Batch) -> torch.Tensor:
@@ -324,14 +340,15 @@ class Model(nn.Module):
     def head_logits(self, h: torch.Tensor) -> torch.Tensor:
         """``h @ head.w``: the whole vocab's logits (under a model axis the
         ranks' panels all-gathered)."""
-        return gather_from(self.head(h), self.par.model_group, self.par.model_size)
+        return gather_from(self.head(h), self.vocab_par.model_group, self.vocab_par.model_size)
 
     def loss(self, batch: Batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """(loss, {"lm_loss", "aux_loss"}) of ``batch`` {"tokens", "labels",
         optional "mask", a vlm's optional "patches"}; the cross-entropy
         through B4, over the text positions."""
         h, aux = self.forward(batch)
-        return _lm_loss(self.head, _text_positions(self.cfg, h, batch), aux, batch, self.par)
+        return _lm_loss(self.head, _text_positions(self.cfg, h, batch), aux, batch,
+                        self.vocab_par)
 
     # -- split-learning view ------------------------------------------------
     def split_plans(self) -> Tuple[List[StackPlan], List[StackPlan], List[Tuple[int, int, int]]]:
@@ -343,8 +360,8 @@ class Model(nn.Module):
         """(gamma, phi): the client's and the AP's halves, sharing this
         model's parameters (a cut stack is sliced, its layers shared)."""
         client_stacks, ap_stacks = _split_stacks(self.cfg, self.plan, self.stacks)
-        return (ClientLM(self.cfg, self.embedding, client_stacks, self.encoder, self.par),
-                APLM(self.cfg, ap_stacks, self.final_norm, self.head, self.par))
+        return (ClientLM(self.cfg, self.embedding, client_stacks, self.encoder, self.vocab_par),
+                APLM(self.cfg, ap_stacks, self.final_norm, self.head, self.vocab_par))
 
     def merge_params(self, gamma: ClientLM, phi: APLM) -> "Model":
         """The model whose parameters are gamma's and phi's (shared, not
@@ -383,24 +400,38 @@ class Model(nn.Module):
         return phi(acts, batch)
 
     # -- decode -----------------------------------------------------------------
-    def init_cache(self, batch_size: int, max_seq: int) -> Cache:
+    def kv_share(self) -> int:
+        """How many model ranks hold this rank's KV heads: 1, m / Hkv where
+        they share a KV head, m where the attention block is whole (those
+        ranks split the decode cache's sequence)."""
+        for stack in self.stacks:
+            attn = getattr(stack.layers[0], "attn", None)
+            if stack.kind in ("attn_mlp", "dense_mlp", "moe") and hasattr(attn, "heads"):
+                return attn.heads.share
+        return 1
+
+    def init_cache(self, batch_size: int, max_seq: int, seq_shard: bool = False
+                   ) -> DecodeCache:
         """Zeroed decode caches, one per stack: KV caches in the model's
         dtype, the mixer kinds' recurrent state in f32 (Mamba2's
         convolution inputs in the model's dtype).  A parallel model's
         holds this data rank's rows of ``batch_size`` (the whole batch's)
-        and its KV heads."""
-        m = self.par.model_size
-        if m > 1 and self.cfg.n_kv_heads % m:
-            raise NotImplementedError(
-                f"a decode cache of {self.cfg.n_kv_heads} KV heads over a model axis of {m}: "
-                f"the reference's rule shards it on its sequence dim, which comes with "
-                f"{LATER_SLICE}")
+        and its KV heads; where several ranks hold the same KV heads, this
+        rank's panel of their sequence (``parallel.cache_panels``): the
+        model ranks that share them, and with ``seq_shard`` (or a batch of
+        1, the reference's ``input_specs``) the data ranks too, each of
+        which then holds every row.  The layout rides on the cache
+        (``DecodeCache.panels``)."""
+        par = self.par
+        panels = cache_panels(par, self.kv_share(), max_seq, seq_shard or batch_size == 1)
         rows = batch_size
-        if self.par.data_size > 1:
-            rows = self.par.local_rows(torch.empty((batch_size, 0), device="meta")).shape[0]
-        return tuple(tfm.init_stack_cache(self.cfg, stack, rows, max_seq, self.dtype,
-                                          self.device)
-                     for stack in self.stacks)
+        if par.data_size > 1 and not panels.rows_whole:
+            rows = par.local_rows(torch.empty((batch_size, 0), device="meta")).shape[0]
+        cache = DecodeCache(tfm.init_stack_cache(self.cfg, stack, rows, max_seq, self.dtype,
+                                                 self.device, panels)
+                            for stack in self.stacks)
+        cache.panels = panels
+        return cache
 
     @torch.inference_mode()
     def decode_step(self, cache: Cache, tokens: torch.Tensor, index: int,
@@ -408,10 +439,15 @@ class Model(nn.Module):
         """tokens: (B, 1) int; index: the tokens' position (host int); an
         encoder-decoder's ``memory`` (B, F, d_model), which its
         cross-attention reads.  Writes the cache in place; returns (logits
-        (B, 1, V), cache)."""
-        x = _embed_tokens(self.cfg, self.embedding, tokens, self.par)
+        (B, 1, V), cache).  The cache's sequence layout is its ``panels``
+        (:meth:`init_cache`)."""
+        panels = getattr(cache, "panels", None)
+        if panels is None and self.kv_share() > 1:
+            raise ValueError("this rank's KV heads are shared: decode on a cache from "
+                             "init_cache, which carries its sequence panels")
+        x = _embed_tokens(self.cfg, self.embedding, tokens, self.vocab_par)
         for stack, c in zip(self.stacks, cache):
-            x, _ = tfm.decode_stack(stack, x, c, index, memory)
+            x, _ = tfm.decode_stack(stack, x, c, index, memory, panels)
         return self.head_logits(self.final_norm(x)), cache
 
 
@@ -548,13 +584,14 @@ class StackedModel(nn.Module):
         self.par = par = optional(par)
         check_kinds([sp.kind for sp in plan], par, bool(cfg.kv_lora_rank))
         dt = DTYPES[cfg.dtype]
-        v = par.split(cfg.vocab, "vocab")
+        self.vocab_par = vp = par.over(cfg.vocab)
+        v = cfg.vocab // vp.model_size
         self.embedding = nn.Parameter(torch.zeros((n, v, cfg.d_model), dtype=dt,
                                                   device=device))
         self.stacks = nn.ModuleList(tfm.build_stacked_stacks(cfg, plan, n, device, par))
         self.final_norm = StackedRMSNorm(n, cfg.d_model, dtype=dt, device=device)
         self.head = StackedLinear(n, cfg.d_model, v, dtype=dt, device=device)
-        _vocab_parallel(par, self.embedding, self.head.w)
+        _vocab_parallel(vp, self.embedding, self.head.w)
 
     @property
     def device(self) -> torch.device:
@@ -578,8 +615,8 @@ class StackedModel(nn.Module):
     def split_params(self) -> Tuple[StackedClientLM, StackedAPLM]:
         """(gamma, phi) over all n slots, sharing this model's parameters."""
         client_stacks, ap_stacks = _split_stacks(self.cfg, self.plan, self.stacks)
-        return (StackedClientLM(self.cfg, self.embedding, client_stacks, self.par),
-                StackedAPLM(self.cfg, ap_stacks, self.final_norm, self.head, self.par))
+        return (StackedClientLM(self.cfg, self.embedding, client_stacks, self.vocab_par),
+                StackedAPLM(self.cfg, ap_stacks, self.final_norm, self.head, self.vocab_par))
 
     def client_forward(self, gamma: StackedClientLM, tokens: torch.Tensor) -> torch.Tensor:
         """tokens (n, B, S) -> cut activations (n, B, S, D)."""
@@ -595,7 +632,7 @@ class StackedModel(nn.Module):
         """tokens (n, B, S) -> (final hidden states (n, B, S, D), aux: 0, or
         (n,) for a MoE)."""
         x, aux = _run_stacked(self.cfg, self.stacks,
-                              _embed_slots(self.cfg, self.embedding, tokens, self.par))
+                              _embed_slots(self.cfg, self.embedding, tokens, self.vocab_par))
         return self.final_norm(x), aux
 
     def loss(self, batches: Batch) -> torch.Tensor:
@@ -604,11 +641,11 @@ class StackedModel(nn.Module):
         shared by every slot."""
         h, aux = self.forward(batches["tokens"])
         return _slot_losses(self.head, h, aux, batches["labels"], batches.get("mask"),
-                            self.par)
+                            self.vocab_par)
 
 
-def _mesh_par(mesh) -> Optional[Parallel]:
-    return None if mesh is None else mesh.parallel()
+def _mesh_par(mesh, cluster_axis: Optional[str] = None) -> Optional[Parallel]:
+    return None if mesh is None else mesh.parallel(cluster_axis)
 
 
 def build_stacked_model(cfg: ModelConfig, r: int, replicas: int = 1,
@@ -618,7 +655,7 @@ def build_stacked_model(cfg: ModelConfig, r: int, replicas: int = 1,
     ``device="cpu"``); with ``mesh`` (``launch.mesh.Mesh``) this rank's
     part of the parallel model over its data and model axes."""
     return StackedModel(cfg, build_plan(cfg), replicas * r, resolve_device(device),
-                        _mesh_par(mesh))
+                        _mesh_par(mesh, "pod"))
 
 
 def build_plan(cfg: ModelConfig) -> List[StackPlan]:
@@ -677,6 +714,6 @@ def build_model(cfg: ModelConfig, device: DeviceLike = None, mesh=None) -> Model
     return Model(cfg, plan, resolve_device(device), _mesh_par(mesh))
 
 
-__all__ = ["APLM", "ClientLM", "Encoder", "Model", "StackPlan", "StackedAPLM",
+__all__ = ["APLM", "ClientLM", "DecodeCache", "Encoder", "Model", "StackPlan", "StackedAPLM",
            "StackedClientLM", "StackedModel", "build_model", "build_plan",
            "build_stacked_model", "split_plans"]

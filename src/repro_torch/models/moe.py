@@ -246,6 +246,14 @@ def moe_forward_reference(w: MoEWeights, cfg: MoEConfig, x: torch.Tensor
     return out.view(b, s, d), aux
 
 
+def _moe_view(cfg: MoEConfig, par):
+    """The view a MoE block runs under: expert-parallel where the model
+    axis divides the experts and the shared expert's width, else whole on
+    each model rank (``Parallel.over``)."""
+    dims = (cfg.n_experts,) + ((cfg.n_shared * cfg.d_expert,) if cfg.n_shared else ())
+    return optional(par).over(*dims)
+
+
 def _mark_experts(par, *banks) -> None:
     """The banks expert-parallel over ``model`` (dim -3; the shared
     SwiGLU marks its own columns)."""
@@ -259,15 +267,16 @@ class MoE(nn.Module):
     SwiGLU (``n_shared * d_expert`` wide).  ``forward(x)`` -> (out, aux).
     With ``par`` of model axis m > 1 the banks hold this rank's E/m
     experts and the shared SwiGLU its F/m columns (see
-    :func:`moe_forward`)."""
+    :func:`moe_forward`); where m does not divide both, the block runs
+    whole on each model rank."""
 
     def __init__(self, cfg: MoEConfig, *, dtype: torch.dtype = torch.float32, device=None,
                  par=None):
         super().__init__()
         self.cfg = cfg
-        self.par = par = optional(par)
+        self.par = par = _moe_view(cfg, par)
         kw = dict(dtype=dtype, device=device)
-        e, d, f = par.split(cfg.n_experts, "n_experts"), cfg.d_model, cfg.d_expert
+        e, d, f = cfg.n_experts // par.model_size, cfg.d_model, cfg.d_expert
         self.router = nn.Parameter(torch.empty((d, cfg.n_experts), **kw))
         self.gate = nn.Parameter(torch.empty((e, d, f), **kw))
         self.up = nn.Parameter(torch.empty((e, d, f), **kw))
@@ -305,9 +314,9 @@ class StackedMoE(nn.Module):
                  device=None, par=None):
         super().__init__()
         self.cfg = cfg
-        self.par = par = optional(par)
+        self.par = par = _moe_view(cfg, par)
         kw = dict(dtype=dtype, device=device)
-        e, d, f = par.split(cfg.n_experts, "n_experts"), cfg.d_model, cfg.d_expert
+        e, d, f = cfg.n_experts // par.model_size, cfg.d_model, cfg.d_expert
         self.router = nn.Parameter(torch.zeros((n, d, cfg.n_experts), **kw))
         self.gate = nn.Parameter(torch.zeros((n, e, d, f), **kw))
         self.up = nn.Parameter(torch.zeros((n, e, d, f), **kw))

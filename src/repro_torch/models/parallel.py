@@ -19,9 +19,24 @@ whole tensor out), Megatron's pattern:
     ``model``, a masked lookup, then one all-reduce) and head
     (``kernels/ops.py::parallel_cross_entropy``, B4 on each rank's panel;
     :func:`gather_from` for logits);
-  * the ``data`` axis: each rank holds its rows of the batch; the loss
+  * the ``data`` axis (a mesh's batch axes: ``data``, and ``pod`` where it
+    carries no clusters): each rank holds its rows of the batch; the loss
     reduces its sums over ``data`` (:func:`reduce_from`), and the train
     step sums the gradients over ``data`` (:func:`all_reduce_grads`).
+
+Where the model axis does not divide a layer's dim (:meth:`Parallel.divides`,
+the reference's rule: Qwen2.5-14B's 40 heads or InternVL2-26B's vocab of
+92,553 at 16), the layer runs whole on each model rank (:meth:`Parallel.over`
+gives it a view of model axis 1): its weights are replicated, it makes no
+model collective, and its gradient is not summed over ``model`` (every rank
+computes it whole from the same input).
+
+A decode cache whose KV heads several ranks hold is sharded on its sequence
+(:class:`Panels`): the ranks that hold the same KV heads split those heads'
+positions among them (the model ranks that share a KV head, or every model
+rank for a whole attention block) and, under ``seq_shard`` or a batch of 1,
+the data ranks too.  Each rank runs B6's partial mode over its panel and
+:func:`combine_panels` merges the partials with one all-gather.
 
 Every collective goes through :func:`collective`, which counts its calls
 and bytes by kind in :data:`COLLECTIVES` (the dry run's per-rank record).
@@ -34,7 +49,7 @@ from __future__ import annotations
 
 import dataclasses
 from collections import defaultdict
-from typing import Any, Dict, Iterable, Optional, Sequence
+from typing import Any, Dict, Iterable, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -44,9 +59,10 @@ import torch.distributed as dist
 COLLECTIVES: Dict[str, Dict[str, int]] = defaultdict(lambda: {"calls": 0, "bytes": 0})
 
 #: why a stack kind or a layout waits for a later slice at model > 1
-LATER_SLICE = ("a later multi-card slice (ROADMAP Queue A, item 14's tail): tensor "
-               "parallelism for MLA, Mamba2, mLSTM/sLSTM and the encoder-decoder, and the "
-               "sequence-sharded decode cache")
+LATER_SLICE = ("a later multi-card slice (ROADMAP Queue A, items 14.3-14.7): tensor "
+               "parallelism for MLA and its latent cache (14.3), Mamba2 and Zamba2's shared "
+               "block (14.4), mLSTM/sLSTM (14.5) and the encoder-decoder (14.6), and the "
+               "sharded xLSTM, Zamba2 and DeepSeek rounds over several ranks (14.7)")
 
 
 def reset_collectives() -> Dict[str, Dict[str, int]]:
@@ -96,7 +112,9 @@ class Parallel:
     """One rank's ``data`` and ``model`` axes: each axis's size, this
     rank's index along it and its process group (None at size 1).
     ``kv_group(share)`` gives the group of the ``share`` consecutive model
-    ranks that hold one KV head whole (built collectively by the mesh)."""
+    ranks that hold one KV head whole (built collectively by the mesh).
+    ``data_axes`` names the mesh axes the data axis spans (``("data",)``,
+    or ``("pod", "data")`` where ``pod`` carries no clusters)."""
     model_size: int = 1
     model_rank: int = 0
     model_group: Any = None
@@ -104,6 +122,7 @@ class Parallel:
     data_rank: int = 0
     data_group: Any = None
     mesh: Any = None
+    data_axes: Tuple[str, ...] = ("data",)
 
     @property
     def trivial(self) -> bool:
@@ -134,13 +153,24 @@ class Parallel:
                    ) -> Dict[str, torch.Tensor]:
         return {k: self.local_rows(v, dim) for k, v in batch.items()}
 
-    def split(self, n: int, what: str) -> int:
-        """n / model_size, raising where the model axis does not divide n."""
-        if n % self.model_size:
-            raise ValueError(f"{what}={n} is not divisible by the model axis "
-                             f"{self.model_size}: the reference's rule replicates it there, "
-                             f"which the port's tensor-parallel layers do not run")
-        return n // self.model_size
+    def divides(self, n: int) -> bool:
+        """Whether the model axis splits a dim of ``n`` (heads, vocab rows,
+        FFN columns, experts) into equal pieces: the reference's rule
+        (``shardings._spec_for_leaf``: n % m == 0 and n >= m)."""
+        return n % self.model_size == 0 and n >= self.model_size
+
+    def over(self, *dims: int) -> "Parallel":
+        """The view a layer with these dims runs under: this one where the
+        model axis divides every dim, else the whole view (model axis 1,
+        the same data axis): the layer held whole on each model rank, no
+        model collective, its gradient not summed over ``model``."""
+        if self.model_size == 1 or all(self.divides(n) for n in dims):
+            return self
+        return self.whole()
+
+    def whole(self) -> "Parallel":
+        """This view with a model axis of 1 (the data axis kept)."""
+        return dataclasses.replace(self, model_size=1, model_rank=0, model_group=None)
 
 
 #: the trivial view: no axis, every function the identity
@@ -276,16 +306,71 @@ def heads_layout(par: Parallel, n_heads: int, n_kv_heads: int):
     """(local query heads, local KV heads, KV pieces, this rank's KV piece,
     share): the query heads split evenly over ``model``; the KV heads too
     where the axis divides them, else each KV head held whole on the
-    ``share = m / Hkv`` ranks whose query heads read it."""
+    ``share = m / Hkv`` ranks whose query heads read it.  None where the
+    block runs whole on each model rank: the axis does not divide the
+    query heads, or it and the KV heads divide neither way."""
     m = par.model_size
-    h_local = par.split(n_heads, "n_heads")
+    if not par.divides(n_heads):
+        return None
     if n_kv_heads % m == 0:
-        return h_local, n_kv_heads // m, m, par.model_rank, 1
+        return n_heads // m, n_kv_heads // m, m, par.model_rank, 1
     if m % n_kv_heads:
-        raise ValueError(f"n_kv_heads={n_kv_heads} and the model axis {m} divide neither "
-                         f"way: {LATER_SLICE}")
+        return None
     share = m // n_kv_heads
-    return h_local, 1, n_kv_heads, par.model_rank // share, share
+    return n_heads // m, 1, n_kv_heads, par.model_rank // share, share
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Panels:
+    """A decode cache's sequence layout on this rank: ``count`` panels of
+    ``length`` positions, this rank holding panel ``index`` (the absolute
+    positions [base, base + length)); ``group`` the ``count`` ranks'
+    process group (group rank = panel index; None on an abstract mesh);
+    ``rows_whole`` where every data rank holds the whole batch (the panels
+    span the data axis: ``seq_shard`` or a batch of 1).  ``count`` 1: the
+    whole sequence here."""
+    count: int = 1
+    index: int = 0
+    length: int = 0
+    group: Any = None
+    rows_whole: bool = False
+
+    @property
+    def base(self) -> int:
+        return self.index * self.length
+
+    def holds(self, position: int) -> bool:
+        return 0 <= position - self.base < self.length
+
+
+def cache_panels(par: Parallel, share: int, max_seq: int, seq_shard: bool) -> Panels:
+    """The panels of a decode cache of ``max_seq`` positions whose KV heads
+    ``share`` model ranks hold (1: the rank's own; m / Hkv: a shared KV
+    head; m: a whole attention block): those ranks split the sequence, and
+    with ``seq_shard`` the data ranks too (the panel group is then the
+    product, ordered by data rank, then model rank, as the global ranks
+    are).  Each panel holds ceil(max_seq / count) positions."""
+    over_data = seq_shard and par.data_size > 1
+    count = share * (par.data_size if over_data else 1)
+    index = (par.data_rank * share if over_data else 0) + par.model_rank % share
+    group = None
+    if count > 1 and par.mesh is not None:
+        group = par.mesh.panel_group(share, par.data_axes if over_data else ())
+    return Panels(count, index, -(-max_seq // count), group, over_data)
+
+
+def combine_panels(out: torch.Tensor, lse: torch.Tensor, panels: Panels,
+                   dtype: torch.dtype) -> torch.Tensor:
+    """The attention over every panel from this rank's partial (out f32
+    (B, 1, H, D), lse f32 (B, 1, H): ``kernels.ops.decode_attention_partial``):
+    one all-gather of the packed pair over the panel group, then
+    ``combine_partials`` in panel order on every rank, so that the ranks'
+    results are bit-equal -> (B, 1, H, D) in ``dtype``."""
+    from ..kernels.decode_attention import combine_partials
+    packed = torch.cat([out, lse[..., None]], dim=-1).contiguous()
+    every = collective("all_gather", packed, panels.group, size=panels.count)
+    every = every.view((panels.count,) + tuple(packed.shape))
+    return combine_partials(every[..., :-1], every[..., -1], dtype)
 
 
 def check_kinds(kinds: Iterable[str], par: Parallel, mla: bool) -> None:
@@ -300,15 +385,16 @@ def check_kinds(kinds: Iterable[str], par: Parallel, mla: bool) -> None:
         raise NotImplementedError(
             f"{', '.join(bad)} at model axis {par.model_size}: their rules split a dim a "
             f"later op reads whole (MLA's latent before kv_norm, Mamba2's concatenated "
-            f"in_proj, the xLSTM mixers' heads); they run at model 1 (data-parallel) and "
-            f"come with {LATER_SLICE}")
+            f"in_proj, the xLSTM mixers' heads, the decoder's cross-attention); they run at "
+            f"model 1 (data-parallel) and come with {LATER_SLICE}")
 
 
 def optional(par: Optional[Parallel]) -> Parallel:
     return SINGLE if par is None else par
 
 
-__all__ = ["COLLECTIVES", "LATER_SLICE", "Parallel", "SINGLE", "all_reduce_grads",
-           "check_kinds", "collective", "collective_totals", "copy_to", "enter",
-           "gather_from", "heads_layout", "layout", "leave", "mark", "optional",
-           "reduce_from", "reset_collectives", "shared_grad", "vocab_embed", "vocab_rows"]
+__all__ = ["COLLECTIVES", "LATER_SLICE", "Panels", "Parallel", "SINGLE", "all_reduce_grads",
+           "cache_panels", "check_kinds", "collective", "collective_totals", "combine_panels",
+           "copy_to", "enter", "gather_from", "heads_layout", "layout", "leave", "mark",
+           "optional", "reduce_from", "reset_collectives", "shared_grad", "vocab_embed",
+           "vocab_rows"]

@@ -60,6 +60,7 @@ from .attention import (GQA, MLA, AttnConfig, MLAConfig, StackedGQA, StackedMLA,
 from .blocks import DTYPES, RMSNorm, StackedRMSNorm, StackedSwiGLU, SwiGLU
 from .config import ModelConfig
 from .moe import MoE, MoEConfig, StackedMoE
+from .parallel import LATER_SLICE, Panels
 
 #: the encoder-decoder's arch_types
 ENCDEC = ("encdec", "audio")
@@ -139,9 +140,10 @@ class DecoderLayer(nn.Module):
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         return self._ffn(x + self.attn(self.ln1(x), positions, self.window))
 
-    def decode(self, x: torch.Tensor, cache: Dict[str, torch.Tensor], index: int
-               ) -> torch.Tensor:
-        return self._ffn(x + self.attn.decode(self.ln1(x), cache, index, self.window))[0]
+    def decode(self, x: torch.Tensor, cache: Dict[str, torch.Tensor], index: int,
+               panels: Optional[Panels] = None) -> torch.Tensor:
+        return self._ffn(x + self.attn.decode(self.ln1(x), cache, index, self.window,
+                                              panels))[0]
 
 
 #: the mixer kinds: (mixer, its stacked form, its config)
@@ -203,9 +205,9 @@ class AttnBlock(nn.Module):
     def forward(self, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
         return x + self.attn(self.ln(x), positions, 0)
 
-    def decode(self, x: torch.Tensor, cache: Dict[str, torch.Tensor], index: int
-               ) -> torch.Tensor:
-        return x + self.attn.decode(self.ln(x), cache, index, 0)
+    def decode(self, x: torch.Tensor, cache: Dict[str, torch.Tensor], index: int,
+               panels: Optional[Panels] = None) -> torch.Tensor:
+        return x + self.attn.decode(self.ln(x), cache, index, 0, panels)
 
 
 class EncoderLayer(nn.Module):
@@ -259,9 +261,9 @@ class CrossDecoderLayer(nn.Module):
         return self._tail(x + self.self_attn(self.ln1(x), positions, self.window), memory)
 
     def decode(self, x: torch.Tensor, cache: Dict[str, torch.Tensor], index: int,
-               memory: torch.Tensor) -> torch.Tensor:
-        return self._tail(x + self.self_attn.decode(self.ln1(x), cache, index, self.window),
-                          memory)
+               memory: torch.Tensor, panels: Optional[Panels] = None) -> torch.Tensor:
+        return self._tail(x + self.self_attn.decode(self.ln1(x), cache, index, self.window,
+                                                    panels), memory)
 
 
 class BlockStack(nn.Module):
@@ -382,13 +384,20 @@ def slice_stack(stack: BlockStack, lo: int, hi: int) -> BlockStack:
 
 
 def init_stack_cache(cfg: ModelConfig, stack: BlockStack, batch: int, max_seq: int,
-                     dtype: torch.dtype, device=None) -> Dict[str, torch.Tensor]:
+                     dtype: torch.dtype, device=None, panels: Optional[Panels] = None
+                     ) -> Dict[str, torch.Tensor]:
     """A stack's zeroed decode cache: the KV cache in ``dtype`` (an MLA
     stack's latent and rope key; a ``shared_attn`` block's without a layer
     axis), or the mixer kinds' recurrent state (f32, and Mamba2's
     convolution inputs in ``dtype``; independent of ``max_seq``).  A
     tensor-parallel GQA stack's cache holds the rank's KV heads (the
-    attention's own config)."""
+    attention's own config); under ``panels`` (a sequence-sharded cache) a
+    KV cache holds this rank's panel of ``panels.length`` positions."""
+    if panels is not None and panels.count > 1:
+        if stack.kind in ("dense_mlp", "moe") and cfg.kv_lora_rank:
+            raise NotImplementedError(f"MLA's latent cache over {panels.count} sequence "
+                                      f"panels: {LATER_SLICE}")
+        max_seq = panels.length
     if stack.kind == "mamba":
         return ssm.init_ssm_cache(batch, ssm_cfg(cfg), dtype, device, stack.n)
     if stack.kind == "shared_attn":
@@ -406,15 +415,17 @@ def init_stack_cache(cfg: ModelConfig, stack: BlockStack, batch: int, max_seq: i
 
 
 def decode_stack(stack: BlockStack, x: torch.Tensor, cache: Dict[str, torch.Tensor],
-                 index: int, memory: Optional[torch.Tensor] = None
+                 index: int, memory: Optional[torch.Tensor] = None,
+                 panels: Optional[Panels] = None
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One decode step through a stack.  x: (B, 1, d_model); the cache is
     written in place and returned; a ``dec_cross`` stack reads the
-    encoder's ``memory``."""
+    encoder's ``memory``; the attention kinds' caches lie over ``panels``
+    (None: the whole sequence here)."""
     if stack.kind == "shared_attn":
-        return stack.layers[0].decode(x, cache, index), cache
-    args = (() if stack.kind in MIXERS else (index, memory) if stack.kind == "dec_cross"
-            else (index,))
+        return stack.layers[0].decode(x, cache, index, panels), cache
+    args = (() if stack.kind in MIXERS else (index, memory, panels)
+            if stack.kind == "dec_cross" else (index, panels))
     for i, layer in enumerate(stack.layers):
         x = layer.decode(x, {name: t[i] for name, t in cache.items()}, *args)
     return x, cache

@@ -7,15 +7,27 @@ import dataclasses
 import numpy as np
 import torch
 
-#: the smoke configs' cases: (config overrides, optimizations)
+#: the smoke configs' cases: (config overrides, optimizations).
+#: "dense_kv2" has fewer KV heads than model 4 (a KV head on 2 ranks, its
+#: cache's sequence split between them), "heads6" query heads model 4 does
+#: not divide (the attention block whole on each rank, its cache split
+#: over the model axis), "vocab513" a vocab it does not divide (the
+#: embedding and the head whole), "dense_kv1" one KV head (a batch-1
+#: cache over (2, 2): the panels span data and model)
 ARCHS = {"dense": ("qwen3-8b", {}, ()),
          "dense_kv2": ("qwen3-8b", {"n_kv_heads": 2}, ()),
+         "dense_kv1": ("qwen3-8b", {"n_kv_heads": 1}, ()),
+         "heads6": ("qwen3-8b", {"n_heads": 6, "n_kv_heads": 2}, ()),
+         "vocab513": ("qwen3-8b", {"vocab": 513}, ()),
          "moe": ("qwen3-moe-30b-a3b", {}, ("moe_shard",))}
 #: world -> [(case, mesh dims over ("data", "model"))]; "round" runs over
-#: ("pod", "data", "model")
+#: ("pod", "data", "model"); a "decode1" case is a batch-1 serve loop (the
+#: cache's sequence over the data ranks too)
 WORLDS = {2: [("dense", (1, 2)), ("moe", (1, 2))],
           4: [("dense", (1, 4)), ("dense", (2, 2)), ("dense_kv2", (1, 4)),
-              ("moe", (1, 4)), ("moe", (2, 2)), ("round", (2, 1, 2))]}
+              ("heads6", (1, 4)), ("vocab513", (1, 4)), ("vocab513", (2, 2)),
+              ("moe", (1, 4)), ("moe", (2, 2)), ("round", (2, 1, 2)),
+              ("decode1", "dense", (4, 1)), ("decode1", "dense_kv1", (2, 2))]}
 LR = 0.1
 B, S, PROMPT, NEW = 4, 16, 8, 8
 
@@ -40,7 +52,7 @@ def _lm_case(case: str, dims, inputs):
     from repro_torch.convert import lm_from_reference, lm_to_reference
     from repro_torch.launch import serve, steps
     from repro_torch.launch.mesh import make_mesh
-    from repro_torch.models.parallel import all_reduce_grads
+    from repro_torch.models.parallel import all_reduce_grads, collective, layout
     cfg = config(case)
     mesh = make_mesh(dims, ("data", "model"))
     model = lm_from_reference(cfg, inputs["params"], mesh)
@@ -53,6 +65,14 @@ def _lm_case(case: str, dims, inputs):
         for p, g in zip(gmodel.parameters(), grads):
             p.copy_(g)
     out = dict(loss=float(loss.detach()), grads=lm_to_reference(gmodel))
+    if case == "heads6":
+        # a planted fault: the whole attention block's gradients summed over
+        # model, as if each rank held a shard (the comparison must fail)
+        with torch.no_grad():
+            for name, p in gmodel.named_parameters():
+                if ".attn." in name and layout(p) is None:
+                    collective("all_reduce", p.data, par.model_group)
+        out["planted_grads"] = lm_to_reference(gmodel)
     with torch.no_grad():
         out["prefill"] = steps.make_prefill_step(model)(batch).numpy()
     out["step_loss"] = float(steps.make_train_step(model, LR)(batch))
@@ -67,7 +87,27 @@ def _lm_case(case: str, dims, inputs):
     tokens, logits = serve.greedy_decode(steps.make_serve_step(model), cache, prompts, NEW)
     out["tokens"], out["prompt_logits"] = tokens.numpy(), logits.numpy()
     out["cache_heads"] = int(cache[0]["k"].shape[-2])
+    out["cache_positions"] = int(cache[0]["k"].shape[-3])
+    out["panels"] = cache.panels.count
     return out
+
+
+def _decode1(case: str, dims, inputs):
+    """The batch-1 serve loop (``inputs["prompt"]`` (1, PROMPT), NEW greedy
+    tokens) of this rank's part of the model: the cache's panels span the
+    data ranks (every rank holds the row) and the model ranks that share a
+    KV head."""
+    from repro_torch.convert import lm_from_reference
+    from repro_torch.launch import serve, steps
+    from repro_torch.launch.mesh import make_mesh
+    cfg = config(case)
+    model = lm_from_reference(cfg, inputs["params"], make_mesh(dims, ("data", "model")))
+    cache = model.init_cache(1, PROMPT + NEW)
+    tokens, logits = serve.greedy_decode(steps.make_serve_step(model), cache,
+                                         torch.from_numpy(inputs["prompt"]).long(), NEW)
+    return dict(tokens=tokens.numpy(), prompt_logits=logits.numpy(), panels=cache.panels.count,
+                rows_whole=cache.panels.rows_whole,
+                cache_shape=tuple(cache[0]["k"].shape))
 
 
 def _round(dims, inputs):
@@ -94,9 +134,12 @@ def run_world(world: int, inputs, nice: int = 0):
     import os
     os.nice(nice)
     out = {}
-    for case, dims in WORLDS[world]:
+    for case, *rest in WORLDS[world]:
         if case == "round":
-            out[(case, dims)] = _round(dims, inputs["round"])
+            out[(case, rest[0])] = _round(rest[0], inputs["round"])
+        elif case == "decode1":
+            name, dims = rest
+            out[(case, name, dims)] = _decode1(name, dims, inputs[("decode1", name)])
         else:
-            out[(case, dims)] = _lm_case(case, dims, inputs[case])
+            out[(case, rest[0])] = _lm_case(case, rest[0], inputs[case])
     return out

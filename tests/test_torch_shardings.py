@@ -12,7 +12,12 @@ vocab-parallel plain version against ``fused_xent_plain``.
     ``pigeon_round_shardings`` and ``pigeon_sweep_shardings``.
   * ``make_production_mesh`` has the reference's shapes, ``data_axes`` its
     names; ``shard_params`` and ``gather_params`` (a group of one) round
-    trip; the sequence-sharded cache raises with its later slice.
+    trip.
+  * Each decode arch's ``init_cache`` at ``decode_32k`` and ``long_500k``
+    on the abstract 16 x 16 and 2 x 16 x 16 meshes: a rank's bytes equal
+    ``local_bytes`` of the reference's ``cache_shardings`` spec where the
+    model ranks that share a KV head split its sequence, and no more where
+    the data ranks split it too (a batch of 1, the reference's seq_shard).
   * ``vocab_parallel_xent_plain`` over m panels (labels in every panel) and
     the single-process ``VocabParallelXent`` equal ``fused_xent_plain`` on
     the whole head, forward and gradients.
@@ -115,19 +120,43 @@ def test_stacked_model_leaves_lead_with_the_slot_axis(ref_shapes):
                                          for k, s in ref_shapes["qwen3-moe-30b-a3b"][0].items()}
 
 
+def _gqa_archs():
+    """The archs whose parallel model builds at a model axis > 1 (GQA,
+    kinds ``attn_mlp``/``dense_mlp``/``moe``)."""
+    return [arch for arch in ARCHS
+            if not get_config(arch).kv_lora_rank and {sp.kind for sp in build_plan(
+                get_config(arch))} <= {"attn_mlp", "dense_mlp", "moe"}]
+
+
+#: the production cells whose layers the port holds whole where the
+#: reference shards them: Qwen2.5-14B's attention (40 heads at 16: the
+#: reference splits wq's 5,120 columns inside a head) and InternVL2-26B's
+#: vocab (92,553 at 16: both replicate it), with its 8 KV heads each on 2
+#: ranks
+WHOLE_LAYER_CELLS = [("qwen2.5-14b", 16), ("internvl2-26b", 16)]
+
+
 def _tp_cases():
-    """(arch, m) of every arch whose parallel model builds at model axis m
-    (GQA, kinds ``attn_mlp``/``dense_mlp``/``moe``) with m dividing its
-    heads, KV heads and vocab."""
+    """(arch, m) of every GQA arch with m dividing its heads, KV heads and
+    vocab, and :data:`WHOLE_LAYER_CELLS`."""
     cases = []
-    for arch in ARCHS:
+    for arch in _gqa_archs():
         cfg = get_config(arch)
-        if cfg.kv_lora_rank or not {sp.kind for sp in build_plan(cfg)} <= {
-                "attn_mlp", "dense_mlp", "moe"}:
-            continue
         cases += [(arch, m) for m in MODEL_SIZES[1:]
                   if not (cfg.n_heads % m or cfg.n_kv_heads % m or cfg.vocab % m)]
-    return cases
+    return cases + WHOLE_LAYER_CELLS
+
+
+def _documented_layout(cfg, m, path, spec_layout):
+    """The port's layout of a leaf where it departs from the spec: an
+    attention block whose query heads m does not divide held whole
+    (replicated); a KV head held whole on the m / Hkv ranks whose query
+    heads read it (Hkv pieces); else the spec's."""
+    if "/attn/" in path and cfg.n_heads % m:
+        return None
+    if "/attn/w" in path and path.split("/")[-2] in ("wk", "wv") and cfg.n_kv_heads % m:
+        return (-1, cfg.n_kv_heads)
+    return spec_layout
 
 
 @pytest.mark.parametrize("arch,m", _tp_cases())
@@ -135,11 +164,13 @@ def test_parallel_layout_is_the_param_shardings_spec(arch, m):
     """Each parameter's recorded layout (``parallel.mark``: what
     ``shard_params``/``gather_params`` read) puts the model axis on the dim
     ``param_shardings``' spec gives it, in m pieces, and a replicated leaf
-    is replicated in both, leaf for leaf."""
-    from repro_torch.models.parallel import Parallel, layout
+    is replicated in both, leaf for leaf, but for the documented whole
+    layers and shared KV heads (:func:`_documented_layout`)."""
+    from repro_torch.models.parallel import layout
     cfg = get_config(arch)
-    model = Model(cfg, build_plan(cfg), META, par=Parallel(model_size=m))
-    specs = tsh.param_shardings(model, tmesh.abstract_mesh((1, m), ("data", "model")))
+    mesh = tmesh.abstract_mesh((1, m), ("data", "model"))
+    model = Model(cfg, build_plan(cfg), META, par=mesh.parallel())
+    specs = tsh.param_shardings(model, mesh)
     leaves = {"embed": model.embedding, "final_norm/scale": model.final_norm.scale,
               "head/w": model.head.w}
     for i, stack in enumerate(model.stacks):
@@ -148,7 +179,8 @@ def test_parallel_layout_is_the_param_shardings_spec(arch, m):
     assert sorted(leaves) == sorted(specs)
     for path, p in leaves.items():
         spec = specs[path]
-        want = (spec.index("model") - len(spec), m) if "model" in spec else None
+        want = _documented_layout(
+            cfg, m, path, (spec.index("model") - len(spec), m) if "model" in spec else None)
         lay = layout(p)
         assert (lay and lay[:2]) == want, path
 
@@ -224,7 +256,10 @@ def test_fake_group_lays_the_production_mesh_over_512_ranks():
     with tmesh.fake_group(512):
         mesh = tmesh.make_production_mesh(multi_pod=True)
         par = mesh.parallel()
-        assert (par.model_size, par.data_size, par.model_rank) == (16, 16, 0)
+        assert (par.model_size, par.data_size, par.model_rank) == (16, 32, 0)
+        assert par.data_axes == ("pod", "data")
+        stacked = mesh.parallel("pod")
+        assert (stacked.data_size, stacked.data_axes) == (16, ("data",))
         assert mesh.pod_view().shape == {"pod": 2}
     assert not torch.distributed.is_initialized()
 
@@ -241,17 +276,52 @@ def test_shard_and_gather_params_round_trip():
         assert torch.equal(back[name], p.detach()), name
 
 
-def test_sequence_sharded_cache_raises():
-    cfg = get_config("qwen3-8b")
-    cache = _meta_model(cfg).init_cache(16, 64)
-    mesh = tmesh.abstract_mesh((16, 16), ("data", "model"))
-    with pytest.raises(NotImplementedError, match="sequence-sharded decode cache"):
-        tsh.check_cache_layout(tsh.cache_shardings(cache, mesh, 16))
-    tsh.check_cache_layout(tsh.cache_shardings(cache, tmesh.abstract_mesh(
-        (2, 8), ("data", "model")), 16))
-    with pytest.raises(NotImplementedError, match="sequence-sharded decode cache"):
-        tsh.check_cache_layout(tsh.cache_shardings(cache, tmesh.abstract_mesh(
-            (2, 8), ("data", "model")), 16, seq_shard=True))
+def _cache_cells():
+    """(arch, shape, multi_pod) of every GQA arch's decode shapes on both
+    production meshes."""
+    from repro_torch.launch.shapes import applicable
+    return [(arch, shape, multi) for arch in _gqa_archs()
+            for shape in ("decode_32k", "long_500k") if applicable(arch, shape)[0]
+            for multi in (False, True)]
+
+
+def _nbytes(cache) -> int:
+    return sum(t.numel() * t.element_size() for c in cache for t in c.values())
+
+
+@pytest.mark.parametrize("arch,shape,multi", _cache_cells())
+def test_sequence_sharded_cache_holds_the_reference_spec_bytes(arch, shape, multi):
+    """A rank's decode cache on the abstract production mesh against
+    ``local_bytes`` of the reference's spec (``cache_shardings`` with
+    ``seq_shard`` at a batch of 1, as the reference's ``input_specs``):
+    equal where the model ranks that share a KV head split its sequence
+    (the spec's ``model`` on the sequence, ``decode_32k``), no more where
+    the data ranks split it too (``long_500k``: the spec replicates the KV
+    heads over ``model``, the port keeps a rank's own)."""
+    from repro_torch.launch.mesh import PRODUCTION
+    from repro_torch.launch.steps import SHAPES, apply_shape_settings
+    sh = SHAPES[shape]
+    cfg = apply_shape_settings(get_config(arch), sh)
+    dims, axes = PRODUCTION[multi]
+    mesh = tmesh.abstract_mesh(dims, axes)
+    seq_shard = sh.global_batch == 1
+    cache = Model(cfg, build_plan(cfg), META, mesh.parallel()).init_cache(
+        sh.global_batch, sh.seq_len, seq_shard)
+    whole = Model(cfg, build_plan(cfg), META).init_cache(sh.global_batch, sh.seq_len)
+    specs = tsh.cache_shardings(whole, mesh, sh.global_batch, seq_shard)
+    want = sum(tsh.local_bytes(t.shape, t.element_size(), specs[name], mesh)
+               for name, t in ((f"{i}/{k}", t) for i, c in enumerate(whole)
+                               for k, t in c.items()))
+    got = _nbytes(cache)
+    assert cache.panels.rows_whole == seq_shard
+    if seq_shard:
+        # the reference's layout: the KV caches' sequence over the data axes
+        data = tuple(a for a in axes if a != "model")
+        assert {spec[2] for name, spec in specs.items() if name.endswith(("/k", "/v"))} == {
+            data if len(data) > 1 else data[0]}
+        assert got <= want
+    else:
+        assert got == want, (got, want)
 
 
 @pytest.mark.parametrize("m", [2, 4, 8])

@@ -4,8 +4,11 @@ model of ``launch/mesh.py::make_mesh``) against the reference on the CPU.
 The port's runs come from one gloo group a world size (2 and 4 ranks, one
 intra-op thread a rank, ``tests/_tp_ranks.py``) at niceness ``NICE``, as
 ``tests/test_torch_sharded.py``'s.  The reference's are its one-device
-``jit`` runs in this process: GSPMD changes the layout, not the function,
-so the reference's one device computes what its (2, 4) host mesh computes.
+``jit`` runs in this process (GSPMD changes the layout, not the function)
+and, for the dense_kv2 decode, the heads6 train step and the batch-1
+decode, its ``jit`` over an 8-device (2, 4) host mesh with its own
+``param_shardings``/``cache_shardings(seq_shard=...)`` as ``in_shardings``,
+in a subprocess (``tests/_tp_oracle.py``).
 
   * the smoke Qwen3-8B over meshes (data 1, model 2), (1, 4) and (2, 2):
     the loss, every gradient, the train step's loss and updated
@@ -14,8 +17,15 @@ so the reference's one device computes what its (2, 4) host mesh computes.
     rtol 1e-5, gradients and parameters within rtol 1e-4 (each of a
     tensor's elements against its largest);
   * the same config with 2 KV heads at model 4: each KV head held whole on
-    the two ranks whose query heads read it; its decode cache (the
-    reference's rule shards it on its sequence dim) refused;
+    the two ranks whose query heads read it, its decode cache's sequence
+    split between them (B6's partial mode, the partials combined);
+  * 6 query heads at model 4 (the attention block whole on each rank, its
+    cache split over the four) and a vocab of 513 at (1, 4) and (2, 2) (the
+    embedding and the head whole): the same checks, and a planted sum over
+    ``model`` of the whole attention's gradients fails the gradient check;
+  * batch-1 serve loops at (4, 1) and, with one KV head, (2, 2): the
+    cache's sequence over the data ranks (and the model ranks), every rank
+    holding the row: tokens equal, logits within rtol 1e-5;
   * the smoke Qwen3-30B-A3B with ``moe_shard`` (T = 64 = 16 E: the
     shard-local dispatch) at (1, 2), (1, 4) and (2, 2), experts over
     ``model``, whole groups a data rank, the same way;
@@ -28,6 +38,10 @@ so the reference's one device computes what its (2, 4) host mesh computes.
   * a group of one's parallel model bit-equal to the plain model.
 """
 import dataclasses
+import os
+import pickle
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -47,8 +61,11 @@ from _torch_threads import one_thread  # noqa: F401
 DEADLINE_S = 300.0
 NICE = 10
 LOSS_RTOL, GRAD_RTOL = 1e-5, 1e-4
-LM_CASES = [(case, dims) for world in ranks.WORLDS for case, dims in ranks.WORLDS[world]
-            if case != "round"]
+LM_CASES = [(case, rest[0]) for world in ranks.WORLDS for case, *rest in ranks.WORLDS[world]
+            if case not in ("round", "decode1")]
+DECODE1_CASES = [tuple(rest) for world in ranks.WORLDS for case, *rest in ranks.WORLDS[world]
+                 if case == "decode1"]
+ORACLE_DIR = os.path.dirname(os.path.abspath(__file__))
 
 
 def _jcfg(case):
@@ -103,6 +120,17 @@ def _reference_lm(case):
     return dict(params=_np(params), batch=batch), want
 
 
+def _reference_decode1(case):
+    """The reference's init, prompt and one-device batch-1 serve loop."""
+    jm = jbuild_model(_jcfg(case))
+    params = jax.jit(jm.init)(jax.random.PRNGKey(5))
+    prompt = np.random.default_rng(11).integers(0, _jcfg(case).vocab, (1, ranks.PROMPT)
+                                                ).astype(np.int32)
+    tokens, prompt_logits = _serve_loop(jm, params, prompt, ranks.NEW)
+    return dict(params=_np(params), prompt=prompt), dict(tokens=tokens,
+                                                         prompt_logits=prompt_logits)
+
+
 def _reference_round():
     cfg = _jcfg("dense")
     jm = jbuild_model(cfg)
@@ -122,23 +150,75 @@ def _reference_round():
 
 
 @pytest.fixture(scope="module")
-def runs():
+def reference():
+    """(inputs, want): the reference's one-device runs of every case."""
+    inputs, want = {}, {}
+    for case in sorted({case for case, _ in LM_CASES}):
+        inputs[case], want[case] = _reference_lm(case)
+    for case, _ in DECODE1_CASES:
+        inputs[("decode1", case)], want[("decode1", case)] = _reference_decode1(case)
+    inputs["round"], want["round"] = _reference_round()
+    return inputs, want
+
+
+@pytest.fixture(scope="module")
+def runs(reference):
     """(reference, port {world: [rank results]}): the reference's runs,
     then the port's two groups one after the other."""
     from repro_torch.launch.mesh import spawn
-    inputs, want = {}, {}
-    for case in ranks.ARCHS:
-        inputs[case], want[case] = _reference_lm(case)
-    inputs["round"], want["round"] = _reference_round()
+    inputs, want = reference
     port = {w: spawn(ranks.run_world, w, "gloo", DEADLINE_S, args=(w, inputs, NICE),
                      threads=1)
             for w in ranks.WORLDS}
     return want, port
 
 
-def _results(port, case, dims):
-    world = next(w for w, cases in ranks.WORLDS.items() if (case, dims) in cases)
-    return [r[(case, dims)] for r in port[world]]
+@pytest.fixture(scope="module")
+def oracle(reference, runs, tmp_path_factory):
+    """The reference's runs over an 8-device host mesh (``_tp_oracle.py``),
+    in a subprocess after the port's groups, so one of them loads the CPU
+    at a time."""
+    import _tp_oracle
+    inputs, _ = reference
+    out_dir = tmp_path_factory.mktemp("tp_oracle")
+    path, result = str(out_dir / "inputs.pkl"), str(out_dir / "oracle.pkl")
+    feed = {"dense_kv2": dict(params=inputs["dense_kv2"]["params"],
+                              prompts=inputs["dense_kv2"]["batch"]["tokens"][:, :ranks.PROMPT],
+                              new=ranks.NEW),
+            "heads6": dict(params=inputs["heads6"]["params"], batch=inputs["heads6"]["batch"]),
+            "decode1": dict(params=inputs[("decode1", "dense")]["params"],
+                            prompts=inputs[("decode1", "dense")]["prompt"], new=ranks.NEW)}
+    assert set(feed) == set(_tp_oracle.CASES)
+    with open(path, "wb") as f:
+        pickle.dump(feed, f)
+    flags = os.environ.get("XLA_FLAGS", "")
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               PYTHONPATH=os.pathsep.join([os.path.join(os.path.dirname(ORACLE_DIR), "src"),
+                                           os.environ.get("PYTHONPATH", "")]),
+               XLA_FLAGS=(flags + " --xla_force_host_platform_device_count=8").strip())
+    done = subprocess.run(["nice", "-n", str(NICE), sys.executable,
+                           os.path.join(ORACLE_DIR, "_tp_oracle.py"), path, result],
+                          env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                          timeout=DEADLINE_S)
+    assert done.returncode == 0, done.stdout
+    with open(result, "rb") as f:
+        return pickle.load(f)
+
+
+def _results(port, case, *key):
+    world = next(w for w, cases in ranks.WORLDS.items() if (case, *key) in cases)
+    return [r[(case, *key)] for r in port[world]]
+
+
+def _kv_layout(cfg, m):
+    """(KV heads a rank's cache holds, model ranks that split its sequence):
+    its own share, a KV head shared by m / Hkv ranks, or the whole block's
+    every KV head over all m."""
+    if cfg.n_heads % m == 0 and cfg.n_kv_heads % m == 0:
+        return cfg.n_kv_heads // m, 1
+    if cfg.n_heads % m == 0 and m % cfg.n_kv_heads == 0:
+        return 1, m // cfg.n_kv_heads
+    return cfg.n_kv_heads, m
 
 
 def _assert_tree(got, want, rtol, what):
@@ -166,13 +246,66 @@ def test_prefill_and_serve_loop_match_reference(runs, case, dims):
     for rank, got in enumerate(_results(port, case, dims)):
         what = f"{case} {dims} rank {rank}"
         _close(got["prefill"], w["prefill"], LOSS_RTOL, what + " prefill")
-        if case == "dense_kv2":
-            assert "sequence-sharded decode cache" in got["decode_refused"]
-            continue
         _close(got["prompt_logits"], w["prompt_logits"], LOSS_RTOL, what + " decode")
         np.testing.assert_array_equal(got["tokens"], w["tokens"], err_msg=what)
-        heads = _jcfg(case).n_kv_heads // dims[1]
-        assert got["cache_heads"] == heads, what
+        heads, panels = _kv_layout(_jcfg(case), dims[1])
+        assert (got["cache_heads"], got["panels"]) == (heads, panels), what
+        assert got["cache_positions"] == -(-(ranks.PROMPT + ranks.NEW) // panels), what
+
+
+@pytest.mark.parametrize("case,dims", DECODE1_CASES)
+def test_batch_one_decode_over_the_data_ranks_matches_reference(runs, case, dims):
+    """A batch-1 cache: its sequence over the data ranks too (the
+    reference's seq_shard layout), every data rank holding the row."""
+    want, port = runs
+    w = want[("decode1", case)]
+    heads, share = _kv_layout(_jcfg(case), dims[1])
+    for rank, got in enumerate(_results(port, "decode1", case, dims)):
+        what = f"decode1 {case} {dims} rank {rank}"
+        assert got["rows_whole"] and got["panels"] == dims[0] * share, what
+        assert got["cache_shape"] == (_jcfg(case).n_layers, 1,
+                                      -(-(ranks.PROMPT + ranks.NEW) // got["panels"]), heads,
+                                      _jcfg(case).head_dim), what
+        _close(got["prompt_logits"], w["prompt_logits"], LOSS_RTOL, what + " decode")
+        np.testing.assert_array_equal(got["tokens"], w["tokens"], err_msg=what)
+
+
+def test_planted_model_sum_of_a_whole_attention_gradient_is_caught(runs):
+    """The whole attention block's gradient summed over ``model`` (what
+    treating its replicated weights as shards would do) fails the gradient
+    comparison that the sound gradient passes."""
+    want, port = runs
+    for rank, got in enumerate(_results(port, "heads6", (1, 4))):
+        _assert_tree(got["grads"], want["heads6"]["grads"], GRAD_RTOL, f"rank {rank} grad")
+        with pytest.raises(AssertionError):
+            _assert_tree(got["planted_grads"], want["heads6"]["grads"], GRAD_RTOL,
+                         f"rank {rank} planted grad")
+
+
+@pytest.mark.parametrize("case", ["dense_kv2", "heads6", "decode1"])
+def test_reference_over_an_eight_device_mesh_matches_the_port(runs, oracle, case):
+    """The reference's jit over a (2, 4) host mesh with its own shardings:
+    the dense_kv2 serve loop (its cache's sequence over ``model``), the
+    heads6 train step (``wq`` split inside a head), the batch-1 serve loop
+    (its cache's sequence over ``data``) against the port's ranks."""
+    want, port = runs
+    got_all = (_results(port, "decode1", "dense", (4, 1)) if case == "decode1"
+               else _results(port, case, (1, 4)))
+    o = oracle[case]
+    if case == "heads6":          # 384 columns over 4: 1.5 heads a rank
+        assert o["param_specs"]["stacks/0/attn/wq/w"][-1] == "model"
+    else:                         # the sequence over model, or over data
+        assert o["cache_specs"]["0/k"][2] == ("model" if case == "dense_kv2" else "data")
+    for rank, got in enumerate(got_all):
+        what = f"{case} rank {rank} against the 8-device reference"
+        if case == "heads6":
+            _close(got["loss"], o["loss"], LOSS_RTOL, what + " loss")
+            _close(got["step_loss"], o["step_loss"], LOSS_RTOL, what + " step loss")
+            _assert_tree(got["grads"], o["grads"], GRAD_RTOL, what + " grad")
+            _assert_tree(got["updated"], o["updated"], GRAD_RTOL, what + " updated")
+        else:
+            _close(got["prompt_logits"], o["prompt_logits"], LOSS_RTOL, what + " decode")
+            np.testing.assert_array_equal(got["tokens"], o["tokens"], err_msg=what)
 
 
 def test_round_step_over_pod_data_model_matches_reference(runs):
