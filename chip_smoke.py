@@ -6309,8 +6309,19 @@ TP_TOKEN_REL = 0.1
 # more divides: the embedding and the head whole on every rank) and this
 # depth, over (1, 2) on one card and (1, n) on n
 TP_VLM_LAYERS = 4
-
-
+# the last layer kinds at full width (train_4k's bf16 and remat) and cut
+# depth, over (1, 2) on one card and (1, n) on n: DeepSeek-V2-Lite's one
+# dense and one MoE layer (MLA: its latent cache split on its sequence over
+# the model ranks), Zamba2's two Mamba2 layers with the shared block between
+# them, xLSTM's mLSTM and sLSTM blocks, SeamlessM4T's two encoder and two
+# decoder layers; a TP_FAM_BATCH x TP_FAM_SEQ train batch (and the prefill
+# on its tokens; an encoder-decoder's TP_FAM_FRAMES frames a row), the serve
+# loop of TP_PROMPT + TP_NEW steps over SERVE_BATCH rows
+TP_FAMILIES = {"deepseek-v2-lite-16b": dict(n_layers=2),
+               "zamba2-1.2b": dict(n_layers=2, attn_every=1),
+               "xlstm-1.3b": dict(n_layers=2, slstm_every=2),
+               "seamless-m4t-medium": dict(n_layers=2, n_enc_layers=2)}
+TP_FAM_BATCH, TP_FAM_SEQ, TP_FAM_FRAMES = 2, 256, 64
 def _nccl_version() -> str:
     import torch
     v = torch.cuda.nccl.version()
@@ -6447,28 +6458,38 @@ def _train_update(model, batch, lr) -> tuple:
     return loss, launches, seconds, coll, tl.seen[0].float().cpu().numpy(), update
 
 
-def _tp_dense_run(model) -> dict:
-    """Phase 19's dense run on this rank: the prefill step on the train
-    batch's tokens, the serve loop (TP_PROMPT prompt steps, TP_NEW greedy
-    tokens) over the KV-sharded cache, one train step; launches, seconds,
-    the collectives of each, peak memory, the step's per-token losses (this
-    data rank's rows) and each leaf's sampled update."""
+def _tp_dense_run(model, shape=(TRAIN_BATCH, TRAIN_SEQ), frames: int = 0) -> dict:
+    """Phase 19's run of a model on this rank: the prefill step on the
+    train batch's tokens, the serve loop (TP_PROMPT prompt steps, TP_NEW
+    greedy tokens) over the KV-sharded cache, one train step on a ``shape``
+    batch; launches, seconds, the collectives of each, peak memory, the
+    step's per-token losses (this data rank's rows) and each leaf's sampled
+    update.  An encoder-decoder's batches carry ``frames`` frames a row
+    drawn from a seed (the serve loop their memory)."""
     import torch
     from repro_torch.launch.serve import greedy_decode, make_prompts
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
     from repro_torch.models.parallel import collective_totals, reset_collectives
     cfg, par = model.cfg, model.par
-    batch = _train_batch(TRAIN_BATCH, TRAIN_SEQ)
+    batch = _train_batch(*shape)
     prompts = torch.from_numpy(make_prompts(0, cfg.vocab, SERVE_BATCH, TP_PROMPT)).to(DEVICE)
+    memory = None
+    if frames:
+        g = torch.Generator(device=DEVICE).manual_seed(11)
+        batch["frames"], serve_frames = (
+            torch.randn((b, frames, cfg.d_model), generator=g, device=DEVICE).to(model.dtype)
+            for b in (shape[0], SERVE_BATCH))
+        with torch.inference_mode():
+            memory = model.encode({"frames": serve_frames})
     torch.cuda.reset_peak_memory_stats()
     reset_collectives()
     prefill, prefill_l, prefill_s = _timed_run(
-        lambda: make_prefill_step(model)({"tokens": batch["tokens"]}))
+        lambda: make_prefill_step(model)({k: v for k, v in batch.items() if k != "labels"}))
     coll = dict(prefill=collective_totals())
     reset_collectives()
     (gen, last), serve_l, serve_s = _timed_run(lambda: greedy_decode(
         make_serve_step(model), model.init_cache(SERVE_BATCH, TP_PROMPT + TP_NEW), prompts,
-        TP_NEW))
+        TP_NEW, memory))
     coll["serve"] = collective_totals()
     loss, train_l, train_s, coll["train"], tokens, update = _train_update(model, batch,
                                                                          TRAIN_LR)
@@ -6583,13 +6604,46 @@ def _tp_round_rank(dims) -> dict:
     return out
 
 
+def _tp_family_cfg(arch: str):
+    """``arch`` at full width, train_4k's settings and TP_FAMILIES' depth."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.shapes import SHAPES, shape_settings
+    return dataclasses.replace(get_config(arch), **TP_FAMILIES[arch],
+                               **shape_settings(SHAPES["train_4k"]))
+
+
+def _tp_family_run(arch: str, mesh=None) -> dict:
+    """:func:`_tp_dense_run` of ``arch``'s TP_FAMILIES model on this rank's
+    part of ``mesh`` (None: one card), drawn from seed 0."""
+    import torch
+    from repro_torch.models import build_model
+    cfg = _tp_family_cfg(arch)
+    model = build_model(cfg, DEVICE, mesh).init(torch.Generator(device=DEVICE).manual_seed(0))
+    out = _tp_dense_run(model, (TP_FAM_BATCH, TP_FAM_SEQ),
+                        TP_FAM_FRAMES if cfg.arch_type in ("audio", "encdec") else 0)
+    out["cache_panels"] = model.kv_share()
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tp_families_rank(dims) -> dict:
+    """Every TP_FAMILIES model's run over (data, model) = ``dims``."""
+    from repro_torch.launch.mesh import make_mesh
+    return {arch: _tp_family_run(arch, make_mesh(dims, ("data", "model")))
+            for arch in TP_FAMILIES}
+
+
 def _tp_rank(dims_list, moe_cfg=None, pin=None, round_dims=None, decode1_dims=(),
-             vlm_dims=None) -> dict:
+             vlm_dims=None, fam_dims=None) -> dict:
     """Phase 19 on one rank of an NCCL group of every card: the dense runs
     over each (data, model) mesh of ``dims_list``, the batch-1 decodes
     over each of ``decode1_dims``, InternVL2-26B's run over ``vlm_dims``,
-    the MoE prefill with experts over every rank (routing pinned to
-    ``pin``), the round step over ``round_dims``."""
+    the last layer kinds' runs over ``fam_dims``, the MoE prefill with
+    experts over every rank (routing pinned to ``pin``), the round step
+    over ``round_dims``."""
     import torch
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_mesh
@@ -6613,6 +6667,8 @@ def _tp_rank(dims_list, moe_cfg=None, pin=None, round_dims=None, decode1_dims=()
         torch.cuda.empty_cache()
     if vlm_dims is not None:
         out["vlm"] = _tp_vlm_rank(vlm_dims)
+    if fam_dims is not None:
+        out["families"] = _tp_families_rank(fam_dims)
     if moe_cfg is not None:
         out["moe"] = _tp_moe_run(moe_cfg, pin)
     if round_dims is not None:
@@ -6640,8 +6696,9 @@ def _tp_vlm_rank(dims) -> dict:
 
 def _tp_gloo_rank() -> dict:
     """Two gloo ranks on one card: the dense run over (1, 2), the batch-1
-    decode over (2, 1) (the cache's sequence over the two data ranks) and
-    InternVL2-26B over (1, 2) (its vocab whole)."""
+    decode over (2, 1) (the cache's sequence over the two data ranks),
+    InternVL2-26B over (1, 2) (its vocab whole) and the last layer kinds
+    over (1, 2)."""
     import torch
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_mesh
@@ -6659,6 +6716,7 @@ def _tp_gloo_rank() -> dict:
     del model
     torch.cuda.empty_cache()
     out["vlm"] = _tp_vlm_rank((1, 2))
+    out["families"] = _tp_families_rank((1, 2))
     return out
 
 
@@ -6778,6 +6836,69 @@ def _xent_panel(m: int) -> dict:
                 bwd_bound_us=bwd_bound_us)
 
 
+def _tp_family_want(arch: str) -> dict:
+    """The launches of :func:`_tp_family_run`'s three paths, from the plan
+    of ``arch``'s TP_FAMILIES model: causal B5 once a self-attention layer
+    (the shared block's, the decoder's) in the prefill, once more under
+    remat in the train step and its backward once; non-causal B5 the same
+    an encoder layer and a cross-attention, and once a cross-attention and
+    position in the serve loop; B6 once a self-attention layer and
+    position; B7 as causal B5, an sLSTM layer (its decode step is plain);
+    B4 forward and backward once, on the route the head's width takes.
+    MLA's attention and Mamba2's SSD are plain PyTorch, as in the
+    reference: they launch none."""
+    import torch
+    from repro_torch.kernels import fused_xent as fx
+    from repro_torch.models.model import build_plan
+    cfg = _tp_family_cfg(arch)
+    plan = build_plan(cfg)
+
+    def layers(*kinds):
+        return sum(sp.n for sp in plan if sp.kind in kinds)
+
+    fwd = 2 if cfg.remat else 1
+    attn, cross, slstm = layers("shared_attn", "dec_cross"), layers("dec_cross"), layers("slstm")
+    noncausal = cross + (cfg.n_enc_layers if cfg.arch_type in ("audio", "encdec") else 0)
+    positions = TP_PROMPT + TP_NEW
+    h = torch.empty((8, cfg.d_model), dtype=torch.bfloat16, device=DEVICE)
+    w = torch.empty((cfg.d_model, cfg.vocab), dtype=torch.bfloat16, device=DEVICE)
+    names = {fx.TENSOR_CORES: "_tc", fx.F32_FMA: ""}
+    xent = {"fused_xent" + names[fx.xent_route(h, w)]: 1,
+            "fused_xent_bwd" + names[fx.xent_bwd_route(h, w)]: 1}
+    return dict(
+        prefill=want_launches(flash_attention_tc=attn, flash_attention_tc_noncausal=noncausal,
+                              slstm_scan_persistent=slstm),
+        serve=want_launches(decode_attention_tc=attn * positions,
+                            flash_attention_tc_noncausal=cross * positions),
+        train=want_launches(flash_attention_tc=fwd * attn, flash_attention_bwd_tc=attn,
+                            flash_attention_tc_noncausal=fwd * noncausal,
+                            flash_attention_bwd_tc_noncausal=noncausal,
+                            slstm_scan_persistent=fwd * slstm, slstm_scan_bwd_persistent=slstm,
+                            **xent))
+
+
+def _tp_family_compare(label: str, arch: str, got: dict, want: dict) -> dict:
+    """A family's parallel run against its one-card run: :func:`_tp_compare`'s
+    bounds, the same launches on every path (every kernel on the rank's
+    shard of the work)."""
+    gaps = _tp_compare(label, got, want)
+    launched = _launched(got["launches"])
+    check(got["launches"] == want["launches"], f"{label}: launches {launched}, the one-card "
+                                               f"run's {_launched(want['launches'])}")
+    log(f"{label}: {arch} at {_tp_family_cfg(arch).n_layers} layers, full width: gaps to the "
+        f"one-card run {gaps}; launches {launched}; seconds {got['seconds']} (one card "
+        f"{want['seconds']}); peak {got['peak_gb']:.2f} GB (one card {want['peak_gb']:.2f}); "
+        f"cache panels {got['cache_panels']}; collectives {got['collectives']}; {card_line()}")
+    return dict(gaps=gaps, launches=launched, seconds=got["seconds"],
+                peak_gb=got["peak_gb"], panels=got["cache_panels"],
+                collectives=got["collectives"])
+
+
+def _launched(launches: dict) -> dict:
+    """A run's launch counts by path, the kernels it launched only."""
+    return {path: {k: v for k, v in counts.items() if v} for path, counts in launches.items()}
+
+
 def _tp_want_launches(cfg, xent: str = "fused_xent_tc",
                       xent_bwd: str = "fused_xent_bwd_tc") -> dict:
     """The launches of :func:`_tp_dense_run`'s three paths on every rank:
@@ -6877,6 +6998,16 @@ def phase_tensor_parallel(moe_shard: dict) -> dict:
                                            f"{one_vlm['launches']}, want {vlm_want}")
     del plain_vlm
     torch.cuda.empty_cache()
+    # the last layer kinds on one card: what their parallel runs are held to
+    one_fam = {arch: _tp_family_run(arch) for arch in TP_FAMILIES}
+    for arch, fam in one_fam.items():
+        fam_want = _tp_family_want(arch)
+        check(fam["launches"] == fam_want, f"phase19 one-card {arch}: launches "
+                                           f"{_launched(fam['launches'])}, want "
+                                           f"{_launched(fam_want)}")
+        log(f"phase19 one-card {arch} ({_tp_family_cfg(arch).n_layers} layers): launches "
+            f"{_launched(fam['launches'])}; seconds {fam['seconds']}; peak "
+            f"{fam['peak_gb']:.2f} GB")
     launches = got["launches"]
     check(launches == want, f"phase19: launches {launches}, want {want}")
     log(f"phase19 group of one (NCCL {_nccl_version()}): "
@@ -6925,7 +7056,7 @@ def phase_tensor_parallel(moe_shard: dict) -> dict:
         vlm_dims = (1, n)
         ranks = spawn(_tp_rank, n, "nccl", TP_DEADLINE_S,
                       args=(_tp_meshes(n), moe_cfg, moe_shard["ids"], (2, 1, n // 2),
-                            _tp_decode1_meshes(n), vlm_dims))
+                            _tp_decode1_meshes(n), vlm_dims, vlm_dims))
         out.update(world=ranks[0]["world"], nccl=ranks[0]["nccl"])
         runs = {dims: [dict(res["runs"][dims], rank=res["rank"]) for res in ranks]
                 for dims in _tp_meshes(n)}
@@ -6957,6 +7088,11 @@ def phase_tensor_parallel(moe_shard: dict) -> dict:
         out[f"vlm {backend} {vlm_dims} rank {res['rank']}"] = dict(
             gaps=gaps, launches=vlm["launches"], seconds=vlm["seconds"],
             peak_gb=vlm["peak_gb"], collectives=vlm["collectives"])
+        # the last layer kinds over (1, 2) ((1, n) on n cards), vlm_dims'
+        for arch, fam in res["families"].items():
+            label = f"phase19 {backend} {arch} {vlm_dims} rank {res['rank']}"
+            out[f"family {arch} {backend} {vlm_dims} rank {res['rank']}"] = \
+                _tp_family_compare(label, arch, fam, one_fam[arch])
     # B6's partial mode on the main path: the first batch-1 decode, rank 0
     first = next(iter(ranks[0]["decode1"]))
     out["partial_launches"] = ranks[0]["decode1"][first]["launches"]

@@ -5,10 +5,13 @@ It builds the kernels, draws Qwen3-30B-A3B at full width and depth (phase
 13's weights) for the ``moe_shard`` prefill, frees it and runs
 ``chip_smoke.phase_tensor_parallel``: on one card the group of one, the
 planted faults and two gloo ranks over (1, 2), a batch-1 decode over (2,
-1) (the cache's sequence over the data ranks) and InternVL2-26B over (1,
-2) (its vocab whole); on n cards the NCCL meshes (1, n) and (2, n / 2),
-the batch-1 decodes over (n, 1) and (2, n / 2), InternVL2-26B over (1, n),
-the MoE's experts over n cards and the round over (2, 1, n / 2).  A failed check is printed and the run goes on, so every
+1) (the cache's sequence over the data ranks), InternVL2-26B over (1,
+2) (its vocab whole) and the last layer kinds over (1, 2) (DeepSeek-V2-Lite's
+MLA and MoE, Zamba2's Mamba2 and shared block, xLSTM's mLSTM and sLSTM,
+SeamlessM4T's encoder and decoder, each at full width and cut depth); on n
+cards the NCCL meshes (1, n) and (2, n / 2), the batch-1 decodes over (n,
+1) and (2, n / 2), InternVL2-26B and the last layer kinds over (1, n), the
+MoE's experts over n cards and the round over (2, 1, n / 2).  A failed check is printed and the run goes on, so every
 reading prints; the exit code is 1 if any check failed.
 
 Run from the repository root on a machine with CUDA cards:
@@ -57,6 +60,7 @@ def main() -> int:
     cs.log("P19 " + json.dumps({k: v for k, v in out.items()
                                 if k in ("panel", "faults", "runs", "group_of_one")
                                 or "rank" in k}, default=str))
+    cs.log(f"phase 19 took {out['seconds']:.1f} s")
     cs.log(f"FAILS {len(FAILS)}")
     for msg in FAILS:
         cs.log(" - " + msg[:600])

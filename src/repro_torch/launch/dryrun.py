@@ -100,6 +100,19 @@ def argument_bytes(spec, mesh=None) -> int:
     return total
 
 
+def param_bytes_record(model, mesh) -> Dict[str, Any]:
+    """The parameters' bytes a rank holds against ``local_bytes`` of the
+    reference's ``param_shardings`` spec (``launch/shardings.py::
+    param_bytes``): the totals and, by reference path, the leaves where the
+    port departs from the spec."""
+    from .shardings import param_bytes
+    cluster = "pod" if getattr(model, "n", 0) and "pod" in mesh.axis_names else None
+    rows = param_bytes(model, mesh, cluster)
+    return {"held": sum(h for h, _ in rows.values()),
+            "spec": sum(s for _, s in rows.values()),
+            "departures": {path: [h, s] for path, (h, s) in rows.items() if h != s}}
+
+
 def _decode_args(shape, args):
     """A decode step's arguments with the meta index replaced by the host
     index S - 1."""
@@ -124,10 +137,13 @@ def analyze(spec, args, kind: str, tokens: int, active_params: int, mesh=None,
         out = spec.fn(*args)
     coll = parallel.collective_totals()
     a = counter.result
+    memory = {"argument_bytes": argument_bytes(spec, mesh),
+              "output_bytes": _bytes(_tensors(out)),
+              "temp_bytes": a.peak_live_bytes}
+    if mesh is not None:
+        memory["param_bytes"] = param_bytes_record(spec.model, mesh)
     return {
-        "memory": {"argument_bytes": argument_bytes(spec, mesh),
-                   "output_bytes": _bytes(_tensors(out)),
-                   "temp_bytes": a.peak_live_bytes},
+        "memory": memory,
         "ops": {"flops": a.flops, "bytes": a.total_bytes,
                 "product_flops": a.product_flops, "kernel_flops": a.kernel_flops,
                 "aten_ops": a.ops, "host_transfers": dict(a.host_transfers),

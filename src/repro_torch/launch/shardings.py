@@ -1,6 +1,7 @@
 """Sharding rules: parameters, batches and decode caches over a mesh's
 ``pod``, ``data`` and ``model`` axes (the reference's
-``repro/launch/shardings.py``, its rule table copied as it is).
+``repro/launch/shardings.py``, its rule table copied as it is into
+``models/parallel.py``, which derives each parameter's layout from it).
 
 Strategy, the reference's:
   * batch dims over ("pod", "data"), or over the data axes left beside a
@@ -21,72 +22,26 @@ stack's leaves with their layer axis first) and shape, as ``convert.py``
 joins them (:func:`param_shapes`), so the specs compare leaf for leaf.
 
 The port's parallel model (``models/parallel.py``) holds each parameter's
-local shard and records its layout on it (``parallel.mark``):
-:func:`shard_params` takes each rank's shard out of the whole tensors and
-:func:`gather_params` puts the whole back together.  Where the model axis
-exceeds a GQA model's KV heads the reference's rule splits inside a head;
-the port holds each KV head whole on the ranks whose query heads read it,
-and where the axis does not divide the query heads (Qwen2.5-14B's 40 at
-16, which the reference splits mid-head) the attention block whole on each
-model rank, while :func:`param_shardings` still returns the reference's
-spec.
+local shard and records its layout on it (``parallel.mark_by_rule``: the
+spec's, or a named departure): :func:`shard_params` takes each rank's
+shard out of the whole tensors (a sectioned layout section by section) and
+:func:`gather_params` puts the whole back together.  The departures: a KV
+head held whole on the ranks whose query heads read it where the axis
+exceeds the KV heads, a layer whole where the axis does not divide its
+heads (Qwen2.5-14B's attention, xLSTM-1.3B's mixers at 16), MLA's
+``w_dkv`` whole, Mamba2's and the mLSTM's concatenated projections cut by
+sections, the sLSTM whole; :func:`param_shardings` still returns the
+reference's spec, and :func:`param_bytes` a rank's bytes beside it.
 """
 from __future__ import annotations
 
 import math
-import re
 from typing import Any, Dict, Iterator, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
-from ..models.parallel import collective, layout
-
-Spec = Tuple[Any, ...]
-
-# leaf-name patterns -> which logical dim gets the "model" axis.
-# dims are indexed from the END of the shape so stacked leading dims are
-# transparent ("-1" = last dim, "-2" = second-to-last).
-_RULES = [
-    (r"embed$", -2),                    # (V, D) shard vocab rows
-    (r"head/w$", -1),                   # (D, V) shard vocab cols
-    (r"(wq|wk|wv)/w$", -1),             # (D, H*hd) shard heads-out
-    (r"(wq|wk|wv)/b$", -1),
-    (r"wo/w$", -2),                     # (H*hd, D) shard heads-in
-    (r"(gate|up)/w$", -1),              # (D, F) shard ffn-out
-    (r"down/w$", -2),                   # (F, D) shard ffn-in
-    (r"moe/(gate|up)$", -3),            # (E, D, F) expert parallel
-    (r"moe/down$", -3),                 # (E, F, D) expert parallel
-    (r"shared/(gate|up)/w$", -1),
-    (r"shared/down/w$", -2),
-    (r"in_proj/w$", -1),                # mamba (D, d_in_proj)
-    (r"out_proj/w$", -2),               # mamba (di, D)
-    (r"w_dkv/w$", -1),                  # MLA down-proj
-    (r"(w_uk|w_uv)/w$", -1),            # MLA up-proj (rank, H*hd)
-    (r"w_if/w$", -1),
-    (r"r$", None),                      # slstm recurrent: replicate
-]
-
-
-def _spec_for_leaf(path: str, shape: Tuple[int, ...], model_size: int,
-                   model_axis: str = "model", cluster_axis: Optional[str] = None,
-                   cluster_dim: bool = False) -> Spec:
-    """cluster_dim: the leaf carries a leading cluster-replica dim (sharded
-    over cluster_axis); the name rules then apply to the remaining dims."""
-    ndim = len(shape)
-    lead = 1 if (cluster_dim and cluster_axis is not None) else 0
-    spec = [None] * ndim
-    for pat, dim in _RULES:
-        if re.search(pat, path):
-            if dim is not None:
-                d = ndim + dim
-                if lead <= d < ndim and shape[d] % model_size == 0 and shape[d] >= model_size:
-                    spec[d] = model_axis
-            break
-    if lead:
-        spec[0] = cluster_axis
-    return tuple(spec)
-
+from ..models.parallel import _RULES, Spec, _spec_for_leaf, collective, layout  # noqa: F401
 
 # ---------------------------------------------------------------------------
 # the reference's leaf paths of the port's models
@@ -97,34 +52,64 @@ def whole_shape(p: torch.Tensor) -> Tuple[int, ...]:
     shape = list(p.shape)
     lay = layout(p)
     if lay is not None:
-        dim, parts, _ = lay
-        shape[dim] *= parts
+        shape[lay.dim] = lay.whole_size(shape[lay.dim])
     return tuple(shape)
 
 
-def _stack_leaves(stack, prefix: str, slots: int) -> Iterator[Tuple[str, Tuple[int, ...]]]:
+def _stack_leaves(stack, prefix: str, slots: int
+                  ) -> Iterator[Tuple[str, Tuple[int, ...], int]]:
+    """(reference path, whole shape, the bytes this rank holds) of each of
+    a stack's leaves."""
+    layers = 1 if stack.kind == "shared_attn" else stack.n
     for name, p in stack.layers[0].named_parameters():
         shape = whole_shape(p)
         if stack.kind != "shared_attn":
             shape = (shape[:1] + (stack.n,) + shape[1:]) if slots else (stack.n,) + shape
-        yield f"{prefix}/{name.replace('.', '/')}", shape
+        yield f"{prefix}/{name.replace('.', '/')}", shape, p.numel() * p.element_size() * layers
+
+
+def _leaves(model: nn.Module) -> Iterator[Tuple[str, Tuple[int, ...], int]]:
+    """(reference path, whole shape, the bytes this rank holds) of each of
+    a port ``Model``'s or ``StackedModel``'s leaves (a stacked model's lead
+    with the slot axis, the reference's cluster dim)."""
+    slots = getattr(model, "n", 0) if hasattr(model, "load_slot") else 0
+
+    def one(path, p):
+        return path, whole_shape(p), p.numel() * p.element_size()
+
+    yield one("embed", model.embedding)
+    for i, stack in enumerate(model.stacks):
+        yield from _stack_leaves(stack, f"stacks/{i}", slots)
+    yield one("final_norm/scale", model.final_norm.scale)
+    yield one("head/w", model.head.w)
+    enc = getattr(model, "encoder", None)
+    if enc is not None:
+        yield from _stack_leaves(enc.stacks[0], "encoder/stacks/0", 0)
+        yield one("encoder/norm/scale", enc.norm.scale)
 
 
 def param_shapes(model: nn.Module) -> Dict[str, Tuple[int, ...]]:
     """{reference path: whole shape} of a port ``Model`` or
     ``StackedModel`` (whose leaves lead with the slot axis, the reference's
     cluster dim), parameter by parameter in the reference's layout."""
-    slots = getattr(model, "n", 0) if hasattr(model, "load_slot") else 0
-    out = {"embed": whole_shape(model.embedding)}
-    for i, stack in enumerate(model.stacks):
-        out.update(_stack_leaves(stack, f"stacks/{i}", slots))
-    out["final_norm/scale"] = whole_shape(model.final_norm.scale)
-    out["head/w"] = whole_shape(model.head.w)
-    enc = getattr(model, "encoder", None)
-    if enc is not None:
-        out.update(_stack_leaves(enc.stacks[0], "encoder/stacks/0", 0))
-        out["encoder/norm/scale"] = whole_shape(enc.norm.scale)
-    return out
+    return {path: shape for path, shape, _ in _leaves(model)}
+
+
+def param_bytes(model: nn.Module, mesh, cluster_axis: Optional[str] = None
+                ) -> Dict[str, Tuple[int, int]]:
+    """{reference path: (the bytes this rank holds, ``local_bytes`` of
+    :func:`param_shardings`' spec)} of a port model over ``mesh``; where
+    they differ the port departs from the reference's layout (a whole
+    layer, a shared KV head, a sectioned or whole projection).  Over
+    ``cluster_axis`` the model is this rank's share of the slots (the
+    sharded round), and the spec's slot dim is all of them."""
+    pods = mesh.shape[cluster_axis] if cluster_axis is not None else 1
+    leaves = [(path, (shape[0] * pods,) + shape[1:] if pods > 1 else shape, held)
+              for path, shape, held in _leaves(model)]
+    specs = param_shardings({path: shape for path, shape, _ in leaves}, mesh, cluster_axis)
+    elt = model.embedding.element_size()
+    return {path: (held, local_bytes(shape, elt, specs[path], mesh))
+            for path, shape, held in leaves}
 
 
 def _shapes(tree) -> Dict[str, Tuple[int, ...]]:
@@ -265,11 +250,22 @@ def local_bytes(shape: Sequence[int], elt: int, spec: Spec, mesh) -> int:
 # the whole tensors and each rank's shards
 # ---------------------------------------------------------------------------
 
+def _piece(whole: torch.Tensor, lay) -> torch.Tensor:
+    """Piece ``lay.index`` of ``whole`` under the layout ``lay``
+    (``parallel.Layout``): a contiguous chunk, or each section's chunk (a
+    whole section as it is) concatenated."""
+    if lay.sections is None:
+        return whole.chunk(lay.parts, dim=lay.dim)[lay.index]
+    sections = whole.split([n for n, _ in lay.sections], dim=lay.dim)
+    return torch.cat([t.chunk(lay.parts, dim=lay.dim)[lay.index] if split else t
+                      for t, (_, split) in zip(sections, lay.sections)], dim=lay.dim)
+
+
 @torch.no_grad()
 def shard_param(p: torch.Tensor, whole: torch.Tensor, name: str = "") -> None:
     """Copy ``p``'s shard (its layout, ``parallel.mark``) out of ``whole``."""
     lay = layout(p)
-    piece = whole if lay is None else whole.chunk(lay[1], dim=lay[0])[lay[2]]
+    piece = whole if lay is None else _piece(whole, lay)
     if piece.shape != p.shape:
         raise ValueError(f"{name}: shard {tuple(piece.shape)} for a parameter "
                          f"{tuple(p.shape)}")
@@ -293,15 +289,20 @@ def gather_param(p: torch.Tensor, par=None) -> torch.Tensor:
     """The whole tensor of one parameter of this rank's part of the
     parallel model (``par`` its view of the mesh), on every rank: a sharded
     parameter's pieces all-gathered over ``model`` (a KV head held by
-    several ranks taken once); a replicated one as it is."""
+    several ranks taken once, a whole section from the first rank); a
+    replicated one as it is."""
     lay = layout(p)
     if lay is None or par is None or par.model_size == 1:
         return p.detach().clone()
-    dim, parts, _ = lay
     every = collective("all_gather", p.detach().contiguous(), par.model_group,
                        size=par.model_size).chunk(par.model_size, dim=0)
-    share = par.model_size // parts
-    return torch.cat([every[j * share] for j in range(parts)], dim=dim)
+    share = par.model_size // lay.parts
+    pieces = [every[j * share] for j in range(lay.parts)]
+    if lay.sections is None:
+        return torch.cat(pieces, dim=lay.dim)
+    cut = [t.split(lay.local_sizes(), dim=lay.dim) for t in pieces]
+    return torch.cat([torch.cat([c[i] for c in cut], dim=lay.dim) if split else cut[0][i]
+                      for i, (_, split) in enumerate(lay.sections)], dim=lay.dim)
 
 
 def gather_params(model: nn.Module) -> Dict[str, torch.Tensor]:
@@ -311,6 +312,7 @@ def gather_params(model: nn.Module) -> Dict[str, torch.Tensor]:
 
 
 __all__ = ["batch_shardings", "cache_paths", "cache_shardings",
-           "gather_param", "gather_params", "local_bytes", "param_shapes", "param_shardings",
+           "gather_param", "gather_params", "local_bytes", "param_bytes", "param_shapes",
+           "param_shardings",
            "pigeon_round_shardings", "pigeon_sweep_shardings", "replicated",
            "shard_param", "shard_params", "whole_shape"]

@@ -62,8 +62,8 @@ from torch import nn
 from ..kernels import ops
 from ..kernels.flash_attention import NEG_INF, attend_plain, causal_mask
 from .blocks import Linear, RMSNorm, StackedLinear, StackedRMSNorm, apply_rope, rms_norm
-from .parallel import (Panels, combine_panels, enter, gather_from, heads_layout, leave, mark,
-                       optional, shared_grad)
+from .parallel import (Layout, Panels, combine_panels, enter, gather_from, heads_layout, leave,
+                       mark_by_rule, optional, shared_grad)
 
 
 class AttnConfig(NamedTuple):
@@ -113,17 +113,14 @@ def _local_heads(cfg: AttnConfig, par) -> HeadLayout:
 
 
 def _mark_heads(attn: nn.Module, par, kv_layout) -> None:
-    """wq (and its bias) heads-out over ``model``, wk/wv by KV head, wo
-    heads-in."""
-    if par.model_size == 1:
-        return
-    m, r = par.model_size, par.model_rank
-    for lin, (parts, index) in ((attn.wq, (m, r)), (attn.wk, kv_layout),
-                                (attn.wv, kv_layout)):
-        mark(lin.w, -1, parts, index)
-        if lin.b is not None:
-            mark(lin.b, -1, parts, index)
-    mark(attn.wo.w, -2, m, r)
+    """The spec's layout (``wq`` and its bias heads-out, ``wo`` heads-in),
+    but ``wk``/``wv`` by KV head where the model ranks share one (the spec
+    splits inside a head there)."""
+    parts, index = kv_layout
+    shared = parts != par.model_size
+    departures = {f"{lin}.{leaf}": Layout(-1, parts, index)
+                  for lin in ("wk", "wv") for leaf in ("w", "b") if shared}
+    mark_by_rule(attn, par, departures=departures)
 
 
 def _kv_proj(lin: nn.Module, x: torch.Tensor, group) -> torch.Tensor:
@@ -131,12 +128,12 @@ def _kv_proj(lin: nn.Module, x: torch.Tensor, group) -> torch.Tensor:
     summed over their ``group`` (``parallel.shared_grad``)."""
     if group is None:
         return lin(x)
-    if isinstance(lin, StackedLinear):
-        w = shared_grad(lin.w, group)
-        y = torch.stack([xi @ wi for xi, wi in zip(x, w)])
-        return y if lin.b is None else y + shared_grad(lin.b, group)[:, None, None, :]
-    y = x @ shared_grad(lin.w, group)
-    return y if lin.b is None else y + shared_grad(lin.b, group)
+    return lin(x, shared_grad(lin.w, group), None if lin.b is None else shared_grad(lin.b, group))
+
+
+def _heads(y: torch.Tensor, h: int, cfg: AttnConfig) -> torch.Tensor:
+    """A projection (..., S, h D) as (folded batch, S, h, D)."""
+    return y.reshape(-1, y.shape[-2], h, cfg.head_dim)
 
 
 def _head_norm(norm: nn.Module, x: torch.Tensor, par) -> torch.Tensor:
@@ -209,17 +206,21 @@ class GQA(nn.Module):
         return leave(self.wo(out.reshape(b, s, cfg.n_heads * cfg.head_dim)), self.par)
 
     def encode(self, x: torch.Tensor) -> torch.Tensor:
-        """The encoder's bidirectional self-attention over x (B, S, d_model):
-        rope on positions 0..S-1, no qk-norm even where the config sets it,
+        """The encoder's bidirectional self-attention over x (..., S,
+        d_model) (a stacked form's slot axis folded into the batch): rope
+        on positions 0..S-1, no qk-norm even where the config sets it,
         every key live (B5 non-causal)."""
         cfg = self.cfg
-        b, s, _ = x.shape
+        s = x.shape[-2]
+        x = enter(x, self.par)
         pos = torch.arange(s, device=x.device)
-        q = apply_rope(self.wq(x).view(b, s, cfg.n_heads, cfg.head_dim), pos, cfg.rope_theta)
-        k = apply_rope(self.wk(x).view(b, s, cfg.n_kv_heads, cfg.head_dim), pos, cfg.rope_theta)
-        v = self.wv(x).view(b, s, cfg.n_kv_heads, cfg.head_dim)
-        out = ops.flash_attention(q, k, v, causal=False)
-        return self.wo(out.reshape(b, s, cfg.n_heads * cfg.head_dim))
+        q = _heads(self.wq(x), cfg.n_heads, cfg)
+        k = _heads(_kv_proj(self.wk, x, self.kv_group), cfg.n_kv_heads, cfg)
+        v = _heads(_kv_proj(self.wv, x, self.kv_group), cfg.n_kv_heads, cfg)
+        out = ops.flash_attention(apply_rope(q, pos, cfg.rope_theta),
+                                  apply_rope(k, pos, cfg.rope_theta), v, causal=False)
+        return leave(self.wo(out.reshape(x.shape[:-1] + (cfg.n_heads * cfg.head_dim,))),
+                     self.par)
 
     def decode(self, x: torch.Tensor, cache: Dict[str, torch.Tensor], index: int,
                window: int, panels: Optional[Panels] = None) -> torch.Tensor:
@@ -259,24 +260,28 @@ class GQA(nn.Module):
         return out[:, :, lay.q_slot * h:(lay.q_slot + 1) * h] if lay.split_q else out
 
 
-def gqa_cross_forward(attn: GQA, x: torch.Tensor, memory: torch.Tensor) -> torch.Tensor:
-    """The reference's ``gqa_cross_forward``: x (B, Sq, d_model) attends to
-    every position of ``memory`` (B, Sk, d_model), which gives K and V, with
-    ``attn``'s projections; no rope, no qk-norm; B5 non-causal, any Sq and
-    Sk."""
-    cfg = attn.cfg
-    b, sq, _ = x.shape
-    sk = memory.shape[1]
-    q = attn.wq(x).view(b, sq, cfg.n_heads, cfg.head_dim)
-    k = attn.wk(memory).view(b, sk, cfg.n_kv_heads, cfg.head_dim)
-    v = attn.wv(memory).view(b, sk, cfg.n_kv_heads, cfg.head_dim)
+def gqa_cross_forward(attn: nn.Module, x: torch.Tensor, memory: torch.Tensor) -> torch.Tensor:
+    """The reference's ``gqa_cross_forward``: x (..., Sq, d_model) attends
+    to every position of ``memory`` (..., Sk, d_model), which gives K and V,
+    with ``attn``'s projections (a :class:`GQA`, or a :class:`StackedGQA`
+    over n slots' x and memory); no rope, no qk-norm; B5 non-causal, any Sq
+    and Sk.  Under a model axis ``attn`` holds this rank's heads: x and the
+    memory (whole on every rank) enter, K and V are the rank's heads of
+    the memory, ``wo``'s partial sums leave."""
+    cfg, par = attn.cfg, attn.par
+    x, memory = enter(x, par), enter(memory, par)
+    q = _heads(attn.wq(x), cfg.n_heads, cfg)
+    k = _heads(_kv_proj(attn.wk, memory, attn.kv_group), cfg.n_kv_heads, cfg)
+    v = _heads(_kv_proj(attn.wv, memory, attn.kv_group), cfg.n_kv_heads, cfg)
     out = ops.flash_attention(q, k, v, causal=False)
-    return attn.wo(out.reshape(b, sq, cfg.n_heads * cfg.head_dim))
+    return leave(attn.wo(out.reshape(x.shape[:-1] + (cfg.n_heads * cfg.head_dim,))), par)
 
 
 class StackedGQA(nn.Module):
     """n slots' :class:`GQA` (the same parameters, each with a leading slot
-    axis): x (n, B, S, d_model) -> (n, B, S, d_model), causal over S."""
+    axis): x (n, B, S, d_model) -> (n, B, S, d_model), causal over S, or
+    (``encode``, :func:`gqa_cross_forward`) the encoder-decoder's
+    non-causal forms."""
 
     def __init__(self, cfg: AttnConfig, n: int, *, dtype: torch.dtype = torch.float32,
                  device=None, par=None):
@@ -310,6 +315,8 @@ class StackedGQA(nn.Module):
         k = apply_rope(k.view(n * b, s, cfg.n_kv_heads, hd), positions, cfg.rope_theta)
         out = ops.flash_attention(q, k, v, window=window)
         return leave(self.wo(out.reshape(n, b, s, cfg.n_heads * hd)), self.par)
+
+    encode = GQA.encode
 
 
 def init_kv_cache(layers: int, batch: int, max_seq: int, cfg: AttnConfig,
@@ -371,12 +378,10 @@ def mla_forward(w: MLAWeights, cfg: MLAConfig, x: torch.Tensor, positions: torch
     return out.reshape(b, s, h * hd) @ w.wo
 
 
-def mla_decode(w: MLAWeights, cfg: MLAConfig, x: torch.Tensor,
-               cache: Dict[str, torch.Tensor], index: int) -> torch.Tensor:
-    """One decode step: x (B, 1, d_model) at position ``index`` (host int).
-    Writes the token's latent and rope key into ``cache`` ({"latent" (B,
-    max_seq, rank), "k_rope" (B, max_seq, rd)}) in place, and scores the
-    absorbed form over positions <= ``index``."""
+def _mla_query(w: MLAWeights, cfg: MLAConfig, x: torch.Tensor, index: int):
+    """A decode step's absorbed query and the token's cache entries: x (B,
+    1, d_model) at ``index`` -> (q_lat (B, 1, H, rank), q_r (B, 1, H, rd)
+    roped, the normalised latent (B, 1, rank), the roped k_rope (B, rd))."""
     b = x.shape[0]
     h, hd, rd, rank = cfg.n_heads, cfg.head_dim, cfg.rope_dim, cfg.kv_lora_rank
     pos = torch.full((1,), index, dtype=torch.int64, device=x.device)
@@ -385,20 +390,60 @@ def mla_decode(w: MLAWeights, cfg: MLAConfig, x: torch.Tensor,
     dkv = x @ w.w_dkv
     latent_new = rms_norm(dkv[..., :rank], w.kv_norm)
     k_rope_new = apply_rope(dkv[..., rank:].reshape(b, 1, 1, rd), pos, cfg.rope_theta)
-    latent, k_rope = cache["latent"], cache["k_rope"]
-    latent[:, index] = latent_new[:, 0].to(latent.dtype)
-    k_rope[:, index] = k_rope_new.reshape(b, rd).to(k_rope.dtype)
     q_lat = torch.einsum("bqhd,rhd->bqhr", q_c, w.w_uk.view(rank, h, hd))
+    return q_lat, q_r, latent_new, k_rope_new.reshape(b, rd)
+
+
+def _mla_out(w: MLAWeights, cfg: MLAConfig, ctx: torch.Tensor) -> torch.Tensor:
+    """The latent context (B, 1, H, rank) through ``w_uv`` and ``wo``."""
+    b, h, hd, rank = ctx.shape[0], cfg.n_heads, cfg.head_dim, cfg.kv_lora_rank
+    out = torch.einsum("bqhr,rhd->bqhd", ctx, w.w_uv.view(rank, h, hd))
+    return out.reshape(b, 1, h * hd) @ w.wo
+
+
+def _mla_scores(q_lat, q_r, latent, k_rope, cfg: MLAConfig) -> torch.Tensor:
+    """The absorbed scores (B, H, 1, S) in f32, scaled by 1/sqrt(hd + rd)."""
     scores = (torch.einsum("bqhr,bkr->bhqk", q_lat, latent)
               + torch.einsum("bqhd,bkd->bhqk", q_r, k_rope))
-    scores = scores.to(torch.float32) * (1.0 / math.sqrt(hd + rd))
+    return scores.to(torch.float32) * (1.0 / math.sqrt(cfg.head_dim + cfg.rope_dim))
+
+
+def mla_decode(w: MLAWeights, cfg: MLAConfig, x: torch.Tensor,
+               cache: Dict[str, torch.Tensor], index: int) -> torch.Tensor:
+    """One decode step: x (B, 1, d_model) at position ``index`` (host int).
+    Writes the token's latent and rope key into ``cache`` ({"latent" (B,
+    max_seq, rank), "k_rope" (B, max_seq, rd)}) in place, and scores the
+    absorbed form over positions <= ``index``."""
+    q_lat, q_r, latent_new, k_rope_new = _mla_query(w, cfg, x, index)
+    latent, k_rope = cache["latent"], cache["k_rope"]
+    latent[:, index] = latent_new[:, 0].to(latent.dtype)
+    k_rope[:, index] = k_rope_new.to(k_rope.dtype)
+    scores = _mla_scores(q_lat, q_r, latent, k_rope, cfg)
     valid = torch.arange(latent.shape[1], device=x.device) <= index
     scores = torch.where(valid[None, None, None], scores,
                          torch.full((), NEG_INF, device=x.device))
     probs = torch.softmax(scores, dim=-1).to(latent.dtype)
-    ctx = torch.einsum("bhqk,bkr->bqhr", probs, latent)
-    out = torch.einsum("bqhr,rhd->bqhd", ctx, w.w_uv.view(rank, h, hd))
-    return out.reshape(b, 1, h * hd) @ w.wo
+    return _mla_out(w, cfg, torch.einsum("bhqk,bkr->bqhr", probs, latent))
+
+
+def mla_decode_partial(q_lat: torch.Tensor, q_r: torch.Tensor, latent: torch.Tensor,
+                       k_rope: torch.Tensor, index: int, base: int, cfg: MLAConfig
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The absorbed attention over one panel of a sequence-sharded latent
+    cache: latent (B, S_local, rank) and k_rope (B, S_local, rd) hold the
+    absolute positions [base, base + S_local), ``index`` is absolute.
+    Returns (the latent context f32 (B, 1, H, rank) normalised by the
+    panel's own softmax sum, lse f32 (B, 1, H)); a panel with no live key
+    gives 0 and -inf (``decode_attention.combine_partials`` merges G
+    panels', as it does B6's)."""
+    scores = _mla_scores(q_lat, q_r, latent, k_rope, cfg)           # (B, H, 1, S)
+    live = base + torch.arange(latent.shape[1], device=latent.device) <= index
+    scores = scores.masked_fill(~live[None, None, None], float("-inf"))
+    lse = torch.logsumexp(scores, dim=-1)                              # (B, H, 1)
+    safe = torch.where(torch.isfinite(lse), lse, torch.zeros((), device=lse.device))
+    probs = torch.exp(scores - safe[..., None])
+    ctx = torch.einsum("bhqk,bkr->bqhr", probs, latent.to(torch.float32))
+    return ctx, lse.transpose(1, 2)
 
 
 def _no_window(window: int) -> None:
@@ -407,14 +452,45 @@ def _no_window(window: int) -> None:
         raise ValueError(f"MLA takes no sliding window (got {window})")
 
 
+def _mla_layout(cfg: MLAConfig, par):
+    """(this rank's config, the view its products run under): H/m heads
+    where the model axis divides the heads, else the block whole."""
+    par = optional(par).over(cfg.n_heads)
+    return cfg._replace(n_heads=cfg.n_heads // par.model_size), par
+
+
+def _mark_mla(attn: nn.Module, par) -> None:
+    """The spec's layout (``wq``, ``w_uk``, ``w_uv`` heads-out, ``wo``
+    heads-in, ``kv_norm`` replicated), but ``w_dkv`` whole on every rank:
+    the spec cuts its rank + rope columns across the latent and the rope
+    key, and ``kv_norm`` reads the latent whole."""
+    mark_by_rule(attn, par, departures={"w_dkv.w": None})
+
+
+def _mla_weights(attn: nn.Module) -> MLAWeights:
+    """The layer's weights, the shared ``w_dkv`` and ``kv_norm`` taking
+    their gradient summed over ``model`` (each rank's heads read the whole
+    latent)."""
+    group = attn.par.model_group
+    return MLAWeights(attn.wq.w, shared_grad(attn.w_dkv.w, group),
+                      shared_grad(attn.kv_norm.scale, group), attn.w_uk.w, attn.w_uv.w,
+                      attn.wo.w)
+
+
 class MLA(nn.Module):
     """Multi-head latent attention: ``wq``, the joint KV compression
     ``w_dkv`` (latent and the shared rope key), ``kv_norm`` on the latent,
-    the up-projections ``w_uk``, ``w_uv`` and ``wo``."""
+    the up-projections ``w_uk``, ``w_uv`` and ``wo``.  With ``par`` of
+    model axis m > 1 the module holds H/m heads (``cfg`` is then the
+    rank's): ``wq``, ``w_uk``, ``w_uv`` column-parallel, ``wo``
+    row-parallel, ``w_dkv`` and ``kv_norm`` whole; where m does not divide
+    the heads, the block whole.  Its decode cache, which has no head axis,
+    is split on its sequence over the model ranks (``parallel.Panels``)."""
 
-    def __init__(self, cfg: MLAConfig, *, dtype: torch.dtype = torch.float32, device=None):
+    def __init__(self, cfg: MLAConfig, *, dtype: torch.dtype = torch.float32, device=None,
+                 par=None):
         super().__init__()
-        self.cfg = cfg
+        self.cfg, self.par = cfg, par = _mla_layout(cfg, par)
         kw = dict(dtype=dtype, device=device)
         h, hd, rd, rank = cfg.n_heads, cfg.head_dim, cfg.rope_dim, cfg.kv_lora_rank
         self.wq = Linear(cfg.d_model, h * (hd + rd), **kw)
@@ -423,37 +499,58 @@ class MLA(nn.Module):
         self.w_uk = Linear(rank, h * hd, **kw)
         self.w_uv = Linear(rank, h * hd, **kw)
         self.wo = Linear(h * hd, cfg.d_model, **kw)
+        _mark_mla(self, par)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         for mod in self.children():
             mod.reset_parameters(generator)
 
     def weights(self) -> MLAWeights:
-        return MLAWeights(self.wq.w, self.w_dkv.w, self.kv_norm.scale, self.w_uk.w,
-                          self.w_uv.w, self.wo.w)
+        return _mla_weights(self)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor, window: int = 0
                 ) -> torch.Tensor:
         _no_window(window)
-        return mla_forward(self.weights(), self.cfg, x, positions)
+        return leave(mla_forward(self.weights(), self.cfg, enter(x, self.par), positions),
+                     self.par)
 
     def decode(self, x: torch.Tensor, cache: Dict[str, torch.Tensor], index: int,
                window: int = 0, panels: Optional[Panels] = None) -> torch.Tensor:
-        """``panels`` is whole here: ``init_cache`` refuses an MLA cache
-        over several (item 14.3)."""
+        """One decode step (:func:`mla_decode`); under ``panels`` (the latent
+        cache split on its sequence: this rank's panel) the rank whose panel
+        holds ``index`` writes the token, the model ranks all-gather their
+        heads' ``q_lat`` and ``q_r``, each scores every head over its panel
+        (:func:`mla_decode_partial`), the panels' partials combine
+        (``parallel.combine_panels``) and each rank keeps its heads for
+        ``w_uv``, ``wo`` and the reduce over ``model``."""
         _no_window(window)
-        return mla_decode(self.weights(), self.cfg, x, cache, index)
+        w = self.weights()
+        if panels is None or panels.count == 1:
+            return leave(mla_decode(w, self.cfg, x, cache, index), self.par)
+        q_lat, q_r, latent_new, k_rope_new = _mla_query(w, self.cfg, x, index)
+        latent, k_rope = cache["latent"], cache["k_rope"]
+        if panels.holds(index):
+            latent[:, index - panels.base] = latent_new[:, 0].to(latent.dtype)
+            k_rope[:, index - panels.base] = k_rope_new.to(k_rope.dtype)
+        par, h, rank = self.par, self.cfg.n_heads, self.cfg.kv_lora_rank
+        q = gather_from(torch.cat([q_lat, q_r.to(q_lat.dtype)], dim=-1), par.model_group,
+                        par.model_size, dim=2)
+        ctx, lse = mla_decode_partial(q[..., :rank], q[..., rank:], latent, k_rope, index,
+                                      panels.base, self.cfg)
+        ctx = combine_panels(ctx, lse, panels, latent.dtype)
+        ctx = ctx[:, :, par.model_rank * h:(par.model_rank + 1) * h]
+        return leave(_mla_out(w, self.cfg, ctx), par)
 
 
 class StackedMLA(nn.Module):
     """n slots' :class:`MLA` (the same parameters, each with a leading slot
     axis): x (n, B, S, d_model), one :func:`mla_forward` a slot over views
-    of the stacked weights."""
+    of the stacked weights; ``par`` as :class:`MLA`'s."""
 
     def __init__(self, cfg: MLAConfig, n: int, *, dtype: torch.dtype = torch.float32,
-                 device=None):
+                 device=None, par=None):
         super().__init__()
-        self.cfg = cfg
+        self.cfg, self.par = cfg, par = _mla_layout(cfg, par)
         kw = dict(dtype=dtype, device=device)
         h, hd, rd, rank = cfg.n_heads, cfg.head_dim, cfg.rope_dim, cfg.kv_lora_rank
         self.wq = StackedLinear(n, cfg.d_model, h * (hd + rd), **kw)
@@ -462,13 +559,15 @@ class StackedMLA(nn.Module):
         self.w_uk = StackedLinear(n, rank, h * hd, **kw)
         self.w_uv = StackedLinear(n, rank, h * hd, **kw)
         self.wo = StackedLinear(n, h * hd, cfg.d_model, **kw)
+        _mark_mla(self, par)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor, window: int = 0
                 ) -> torch.Tensor:
         _no_window(window)
-        return torch.stack([mla_forward(MLAWeights(
-            self.wq.w[r], self.w_dkv.w[r], self.kv_norm.scale[r], self.w_uk.w[r],
-            self.w_uv.w[r], self.wo.w[r]), self.cfg, xr, positions) for r, xr in enumerate(x)])
+        w = _mla_weights(self)
+        x = enter(x, self.par)
+        return leave(torch.stack([mla_forward(MLAWeights(*(t[r] for t in w)), self.cfg, xr,
+                                              positions) for r, xr in enumerate(x)]), self.par)
 
 
 def init_mla_cache(layers: int, batch: int, max_seq: int, cfg: MLAConfig,

@@ -21,7 +21,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .parallel import enter, leave, mark, optional
+from . import parallel
+from .parallel import enter, leave, mark_by_rule, optional
 
 #: ModelConfig.dtype -> torch dtype
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -77,19 +78,27 @@ class Linear(nn.Module):
         if self.b is not None:
             self.b.zero_()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = x @ self.w
-        return y if self.b is None else y + self.b
+    def forward(self, x: torch.Tensor, w: Optional[torch.Tensor] = None,
+                b: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``x @ w (+ b)``; ``w`` and ``b`` in the parameters' places (views
+        of them through one of ``models.parallel``'s gradient functions)."""
+        y = x @ (self.w if w is None else w)
+        b = self.b if b is None else b
+        return y if b is None else y + b
 
 
 class RMSNorm(nn.Module):
     """Root-mean-square norm over the last axis, computed in f32 and cast
-    back to the input's dtype (eps 1e-6); the scale starts at 1."""
+    back to the input's dtype (eps 1e-6); the scale starts at 1.  With
+    ``par`` the axis is split over its model axis (this rank's ``dim``
+    columns and scale): the mean of squares is the ranks' sums, all-reduced
+    (:func:`_mean_square`)."""
 
     def __init__(self, dim: int, *, dtype: torch.dtype = torch.float32, device=None,
-                 eps: float = 1e-6):
+                 eps: float = 1e-6, par=None):
         super().__init__()
         self.eps = eps
+        self.par = optional(par)
         self.scale = nn.Parameter(torch.empty((dim,), dtype=dtype, device=device))
 
     @torch.no_grad()
@@ -97,14 +106,25 @@ class RMSNorm(nn.Module):
         self.scale.fill_(1.0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return rms_norm(x, self.scale, self.eps)
+        return rms_norm(x, self.scale, self.eps, self.par)
 
 
-def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """:class:`RMSNorm` as a function of its scale."""
+def _mean_square(xf: torch.Tensor, par) -> torch.Tensor:
+    """The mean of squares over the last axis of f32 ``xf``; where ``par``'s
+    model axis splits that axis, the local sums of squares summed over it
+    (``parallel.sum_over``: one all-reduce of a (..., 1) tensor) over the
+    whole width."""
+    if par is None or par.model_size == 1:
+        return torch.mean(xf * xf, dim=-1, keepdim=True)
+    total = parallel.sum_over(torch.sum(xf * xf, dim=-1, keepdim=True), par)
+    return total / (xf.shape[-1] * par.model_size)
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6, par=None
+             ) -> torch.Tensor:
+    """:class:`RMSNorm` as a function of its scale (and ``par``)."""
     xf = x.to(torch.float32)
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
-    y = xf * torch.rsqrt(var + eps)
+    y = xf * torch.rsqrt(_mean_square(xf, par) + eps)
     return (y * scale.to(torch.float32)).to(x.dtype)
 
 
@@ -152,15 +172,6 @@ class GeluMLP(nn.Module):
         return self.down(F.gelu(self.up(x), approximate="tanh"))
 
 
-def _mark_ffn(par, gate, up, down) -> None:
-    """gate/up column-parallel (ffn-out), down row-parallel (ffn-in)."""
-    if par.model_size > 1:
-        m, r = par.model_size, par.model_rank
-        mark(gate.w, -1, m, r)
-        mark(up.w, -1, m, r)
-        mark(down.w, -2, m, r)
-
-
 class SwiGLU(nn.Module):
     """``down(silu(gate(x)) * up(x))``.  With ``par`` (``models.parallel``)
     of model axis m > 1 the FFN width is this rank's F/m: ``gate`` and
@@ -177,7 +188,7 @@ class SwiGLU(nn.Module):
         self.gate = Linear(d_model, f, **kw)
         self.up = Linear(d_model, f, **kw)
         self.down = Linear(f, d_model, **kw)
-        _mark_ffn(par, self.gate, self.up, self.down)
+        mark_by_rule(self, par)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         for lin in (self.gate, self.up, self.down):
@@ -206,27 +217,31 @@ class StackedLinear(nn.Module):
         self.b = (nn.Parameter(torch.zeros((n, d_out), dtype=dtype, device=device))
                   if bias else None)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.b is None:
-            return torch.stack([xi @ wi for xi, wi in zip(x, self.w)])
-        return torch.stack([xi @ wi + bi for xi, wi, bi in zip(x, self.w, self.b)])
+    def forward(self, x: torch.Tensor, w: Optional[torch.Tensor] = None,
+                b: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``w`` and ``b`` as :class:`Linear`'s."""
+        w = self.w if w is None else w
+        b = self.b if b is None else b
+        if b is None:
+            return torch.stack([xi @ wi for xi, wi in zip(x, w)])
+        return torch.stack([xi @ wi + bi for xi, wi, bi in zip(x, w, b)])
 
 
 class StackedRMSNorm(nn.Module):
     """n slots' :class:`RMSNorm`: scale (n, dim) over x (n, ..., dim).  The
     normalisation runs over all slots at once, each slot then scaled by its
-    own row."""
+    own row; ``par`` as :class:`RMSNorm`'s."""
 
     def __init__(self, n: int, dim: int, *, dtype: torch.dtype = torch.float32,
-                 device=None, eps: float = 1e-6):
+                 device=None, eps: float = 1e-6, par=None):
         super().__init__()
         self.eps = eps
+        self.par = optional(par)
         self.scale = nn.Parameter(torch.zeros((n, dim), dtype=dtype, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.to(torch.float32)
-        var = torch.mean(xf * xf, dim=-1, keepdim=True)
-        y = xf * torch.rsqrt(var + self.eps)
+        y = xf * torch.rsqrt(_mean_square(xf, self.par) + self.eps)
         return (y * _slot_view(self.scale, x).to(torch.float32)).to(x.dtype)
 
 
@@ -244,7 +259,7 @@ class StackedSwiGLU(nn.Module):
         self.gate = StackedLinear(n, d_model, f, **kw)
         self.up = StackedLinear(n, d_model, f, **kw)
         self.down = StackedLinear(n, f, d_model, **kw)
-        _mark_ffn(par, self.gate, self.up, self.down)
+        mark_by_rule(self, par)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = enter(x, self.par)

@@ -59,8 +59,10 @@ mLSTM's chunked einsums) runs over all slots at once, the slot axis folded
 into the batch axis; the sLSTM's scan (B7) runs once a slot, each with its
 own R; MLA, the MoE and Mamba2 run a call a slot (``StackedMLA``,
 ``StackedMoE``, ``StackedMamba2``), so that each slot routes and drops as
-its plain model does.  Every plan but the encoder-decoder's stacks (a vlm
-on tokens only); a MoE slot's loss carries its own router loss.
+its plain model does.  Every plan stacks (a vlm on tokens only; an
+encoder-decoder's slots each encode their own ``frames``, for the launch
+layer's round step: ``core.split.from_lm`` takes no encoder-decoder); a
+MoE slot's loss carries its own router loss.
 
 Forward, loss and the split view are differentiable: the attention runs
 through B5 and its backward (non-causal for the encoder and the
@@ -84,8 +86,9 @@ from ..kernels import ops
 from . import transformer as tfm
 from .blocks import DTYPES, Linear, RMSNorm, StackedLinear, StackedRMSNorm, embed_init
 from .config import ModelConfig
-from .parallel import (SINGLE, Panels, Parallel, cache_panels, check_kinds, gather_from,
-                       mark, optional, reduce_from, vocab_embed, vocab_rows)
+from .attention import MLA
+from .parallel import (SINGLE, Panels, Parallel, cache_panels, gather_from, mark,
+                       optional, reduce_from, vocab_embed, vocab_rows)
 
 Cache = Tuple[Dict[str, torch.Tensor], ...]
 Batch = Dict[str, torch.Tensor]
@@ -146,15 +149,20 @@ class Encoder(nn.Module):
     """The encoder-decoder's encoder, the reference's ``params["encoder"]``:
     ``stacks`` (one ``enc`` stack of ``n_enc_layers`` layers, or
     ``n_layers``) and a final ``norm``.  ``forward(frames)`` -> the memory
-    (B, F, d_model) in the model's dtype."""
+    (B, F, d_model) in the model's dtype, whole on every rank (each layer's
+    output leaves with its all-reduce under ``par``'s model axis).  With
+    ``n`` the cluster-stacked form: frames (n, B, F, d_model)."""
 
-    def __init__(self, cfg: ModelConfig, device=None):
+    def __init__(self, cfg: ModelConfig, device=None, par: Optional[Parallel] = None,
+                 n: Optional[int] = None):
         super().__init__()
         self.cfg = cfg
-        n = cfg.n_enc_layers or cfg.n_layers
+        layers = cfg.n_enc_layers or cfg.n_layers
         self.stacks = nn.ModuleList([tfm.BlockStack(
-            "enc", [tfm.EncoderLayer(cfg, device) for _ in range(n)])])
-        self.norm = RMSNorm(cfg.d_model, dtype=DTYPES[cfg.dtype], device=device)
+            "enc", [tfm.EncoderLayer(cfg, device, par, n) for _ in range(layers)])])
+        kw = dict(dtype=DTYPES[cfg.dtype], device=device)
+        self.norm = (RMSNorm(cfg.d_model, **kw) if n is None
+                     else StackedRMSNorm(n, cfg.d_model, **kw))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         for layer in self.stacks[0].layers:
@@ -163,7 +171,7 @@ class Encoder(nn.Module):
 
     def forward(self, frames: torch.Tensor) -> torch.Tensor:
         x = frames.to(self.norm.scale.dtype)
-        positions = torch.arange(x.shape[1], device=x.device)
+        positions = torch.arange(x.shape[-2], device=x.device)
         x, _ = tfm.run_stack(self.stacks[0], x, positions, self.cfg.remat)
         return self.norm(x)
 
@@ -228,9 +236,9 @@ class APLM(nn.Module):
 
 
 def _vocab_parallel(par: Parallel, embedding: torch.Tensor, head_w: torch.Tensor) -> None:
-    """The embedding's rows and the head's columns over ``model`` (``par``
-    the vocab's view: model axis 1 where the axis does not divide the
-    vocab, both then whole on each rank)."""
+    """The embedding's rows and the head's columns over ``model`` (the
+    spec's; ``par`` the vocab's view: model axis 1 where the axis does not
+    divide the vocab, both then whole on each rank)."""
     if par.model_size > 1:
         mark(embedding, -2, par.model_size, par.model_rank)
         mark(head_w, -1, par.model_size, par.model_rank)
@@ -247,8 +255,11 @@ class Model(nn.Module):
     the whole vocab's logits of those rows.  A vocab the model axis does
     not divide (``vocab_par``, ``Parallel.over``) is held whole: the lookup
     ``table[tokens]``, plain B4 over the whole head, no gather of logits.
-    Only the ``attn_mlp``, ``dense_mlp`` and ``moe`` kinds with GQA run at
-    model > 1."""
+    Every kind runs at model > 1 (``transformer._layer``): GQA's and MLA's
+    heads, Mamba2's and the mLSTM's heads (sectioned ``in_proj``/``up``,
+    ``out_norm`` over the split width), the encoder's and the decoder's
+    attention and SwiGLU; the sLSTM, and a layer whose dim the axis does not
+    divide, whole on each model rank."""
 
     def __init__(self, cfg: ModelConfig, plan: List[StackPlan], device=None,
                  par: Optional[Parallel] = None):
@@ -256,7 +267,6 @@ class Model(nn.Module):
         self.cfg = cfg
         self.plan = plan
         self.par = par = optional(par)
-        check_kinds([sp.kind for sp in plan], par, bool(cfg.kv_lora_rank))
         dt = DTYPES[cfg.dtype]
         self.vocab_par = vp = par.over(cfg.vocab)
         v = cfg.vocab // vp.model_size
@@ -264,7 +274,7 @@ class Model(nn.Module):
         self.stacks = nn.ModuleList(tfm.build_stacks(cfg, plan, device, par))
         self.final_norm = RMSNorm(cfg.d_model, dtype=dt, device=device)
         self.head = Linear(cfg.d_model, v, dtype=dt, device=device)
-        self.encoder = Encoder(cfg, device) if cfg.arch_type in tfm.ENCDEC else None
+        self.encoder = Encoder(cfg, device, par) if cfg.arch_type in tfm.ENCDEC else None
         _vocab_parallel(vp, self.embedding, self.head.w)
 
     @property
@@ -312,6 +322,13 @@ class Model(nn.Module):
                 del whole
         self.final_norm.reset_parameters()
         shard_param(self.head.w, embed_init(generator, cfg.d_model, cfg.vocab))
+        if self.encoder is not None:
+            for layer in self.encoder.stacks[0].layers:
+                whole = tfm.EncoderLayer(cfg, self.device)
+                whole.reset_parameters(generator)
+                shard_params(layer, dict(whole.named_parameters()))
+                del whole
+            self.encoder.norm.reset_parameters()
         return self
 
     # -- embedding ----------------------------------------------------------
@@ -402,11 +419,14 @@ class Model(nn.Module):
     # -- decode -----------------------------------------------------------------
     def kv_share(self) -> int:
         """How many model ranks hold this rank's KV heads: 1, m / Hkv where
-        they share a KV head, m where the attention block is whole (those
-        ranks split the decode cache's sequence)."""
+        they share a KV head, m where the attention block is whole or, for
+        MLA, always (its latent cache has no head axis); those ranks split
+        the decode cache's sequence.  1 for a model with no KV cache."""
         for stack in self.stacks:
-            attn = getattr(stack.layers[0], "attn", None)
-            if stack.kind in ("attn_mlp", "dense_mlp", "moe") and hasattr(attn, "heads"):
+            attn = tfm._attention(stack)
+            if isinstance(attn, MLA):
+                return self.par.model_size
+            if attn is not None:
                 return attn.heads.share
         return 1
 
@@ -496,14 +516,15 @@ def _split_stacks(cfg: ModelConfig, plan: Sequence[StackPlan],
 # the cluster-stacked LM (the batched round's form)
 # ---------------------------------------------------------------------------
 
-def _run_stacked(cfg: ModelConfig, stacks: Sequence[tfm.BlockStack], x: torch.Tensor
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """:func:`_run_stacks` over n slots' activations (n, B, S, D); the aux
-    is a scalar 0, or (n,) where a ``moe`` stack ran."""
+def _run_stacked(cfg: ModelConfig, stacks: Sequence[tfm.BlockStack], x: torch.Tensor,
+                 memory: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`_run_stacks` over n slots' activations (n, B, S, D) (and an
+    encoder-decoder's memories (n, B, F, D)); the aux is a scalar 0, or
+    (n,) where a ``moe`` stack ran."""
     positions = torch.arange(x.shape[2], device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for stack in stacks:
-        x, a = tfm.run_stack(stack, x, positions, cfg.remat)
+        x, a = tfm.run_stack(stack, x, positions, cfg.remat, memory)
         aux = aux + a
     return x, aux
 
@@ -568,8 +589,8 @@ class StackedAPLM(nn.Module):
 
 
 class StackedModel(nn.Module):
-    """n slots of one :class:`Model`, of any family but the encoder-decoder
-    (see the module docstring): ``parameters()`` follow :class:`Model`'s
+    """n slots of one :class:`Model`, of any family (see the module
+    docstring): ``parameters()`` follow :class:`Model`'s
     order with a leading slot axis each.  Built zeroed on ``device`` (None: the current
     default device); :meth:`load_slot` writes a plain model into a slot.  With
     ``par`` each slot is one rank's part of the parallel model, as
@@ -582,7 +603,6 @@ class StackedModel(nn.Module):
         self.plan = plan
         self.n = n
         self.par = par = optional(par)
-        check_kinds([sp.kind for sp in plan], par, bool(cfg.kv_lora_rank))
         dt = DTYPES[cfg.dtype]
         self.vocab_par = vp = par.over(cfg.vocab)
         v = cfg.vocab // vp.model_size
@@ -591,6 +611,7 @@ class StackedModel(nn.Module):
         self.stacks = nn.ModuleList(tfm.build_stacked_stacks(cfg, plan, n, device, par))
         self.final_norm = StackedRMSNorm(n, cfg.d_model, dtype=dt, device=device)
         self.head = StackedLinear(n, cfg.d_model, v, dtype=dt, device=device)
+        self.encoder = Encoder(cfg, device, par, n) if cfg.arch_type in tfm.ENCDEC else None
         _vocab_parallel(vp, self.embedding, self.head.w)
 
     @property
@@ -613,7 +634,12 @@ class StackedModel(nn.Module):
         return model
 
     def split_params(self) -> Tuple[StackedClientLM, StackedAPLM]:
-        """(gamma, phi) over all n slots, sharing this model's parameters."""
+        """(gamma, phi) over all n slots, sharing this model's parameters;
+        an encoder-decoder's slots are not split (``core.split.from_lm``
+        takes none: its cut message carries the memory)."""
+        if self.encoder is not None:
+            raise ValueError("a stacked encoder-decoder trains whole (its round step, "
+                             "quant=None): from_lm takes no encoder-decoder to split")
         client_stacks, ap_stacks = _split_stacks(self.cfg, self.plan, self.stacks)
         return (StackedClientLM(self.cfg, self.embedding, client_stacks, self.vocab_par),
                 StackedAPLM(self.cfg, ap_stacks, self.final_norm, self.head, self.vocab_par))
@@ -628,18 +654,21 @@ class StackedModel(nn.Module):
         ``labels`` (n, B, S), or (B, S) shared by every slot."""
         return phi(acts, labels, mask)
 
-    def forward(self, tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """tokens (n, B, S) -> (final hidden states (n, B, S, D), aux: 0, or
-        (n,) for a MoE)."""
+    def forward(self, tokens: torch.Tensor, frames: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """tokens (n, B, S) (an encoder-decoder's frames (n, B, F, D)) ->
+        (final hidden states (n, B, S, D), aux: 0, or (n,) for a MoE)."""
+        memory = None if self.encoder is None else self.encoder(frames)
         x, aux = _run_stacked(self.cfg, self.stacks,
-                              _embed_slots(self.cfg, self.embedding, tokens, self.vocab_par))
+                              _embed_slots(self.cfg, self.embedding, tokens, self.vocab_par),
+                              memory)
         return self.final_norm(x), aux
 
     def loss(self, batches: Batch) -> torch.Tensor:
         """Per-slot LM losses (n,) f32 of ``batches`` {"tokens", "labels"
-        (n, B, S), optional "mask"}; "labels" and "mask" may be (B, S),
-        shared by every slot."""
-        h, aux = self.forward(batches["tokens"])
+        (n, B, S), optional "mask", an encoder-decoder's "frames"}; "labels"
+        and "mask" may be (B, S), shared by every slot."""
+        h, aux = self.forward(batches["tokens"], batches.get("frames"))
         return _slot_losses(self.head, h, aux, batches["labels"], batches.get("mask"),
                             self.vocab_par)
 

@@ -42,7 +42,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .blocks import SwiGLU, dense_init
-from .parallel import collective, enter, leave, mark, optional, reduce_from
+from .parallel import collective, enter, leave, mark_by_rule, optional, reduce_from
 
 
 class MoEConfig(NamedTuple):
@@ -254,14 +254,6 @@ def _moe_view(cfg: MoEConfig, par):
     return optional(par).over(*dims)
 
 
-def _mark_experts(par, *banks) -> None:
-    """The banks expert-parallel over ``model`` (dim -3; the shared
-    SwiGLU marks its own columns)."""
-    if par.model_size > 1:
-        for p in banks:
-            mark(p, -3, par.model_size, par.model_rank)
-
-
 class MoE(nn.Module):
     """The routed experts (router, gate, up, down) and the optional shared
     SwiGLU (``n_shared * d_expert`` wide).  ``forward(x)`` -> (out, aux).
@@ -282,7 +274,7 @@ class MoE(nn.Module):
         self.up = nn.Parameter(torch.empty((e, d, f), **kw))
         self.down = nn.Parameter(torch.empty((e, f, d), **kw))
         self.shared = SwiGLU(d, cfg.n_shared * f, par=par, **kw) if cfg.n_shared else None
-        _mark_experts(par, self.gate, self.up, self.down)
+        mark_by_rule(self, par, prefix="moe/")
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -326,7 +318,7 @@ class StackedMoE(nn.Module):
             self.shared = StackedSwiGLU(n, d, cfg.n_shared * f, par=par, **kw)
         else:
             self.shared = None
-        _mark_experts(par, self.gate, self.up, self.down)
+        mark_by_rule(self, par, prefix="moe/")
 
     def slot_weights(self, r: int) -> MoEWeights:
         shared = (None if self.shared is None else

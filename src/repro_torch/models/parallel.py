@@ -24,19 +24,31 @@ whole tensor out), Megatron's pattern:
     reduces its sums over ``data`` (:func:`reduce_from`), and the train
     step sums the gradients over ``data`` (:func:`all_reduce_grads`).
 
+A projection whose output concatenates sections (Mamba2's ``in_proj``
+[z, x, B, C, dt], the mLSTM's ``up`` [x_inner, z] and ``w_if`` [i, f]) has
+a sectioned :class:`Layout`: each section is split by heads or held whole.
+A weight (or section) every rank holds whole and uses for its own heads
+(MLA's ``w_dkv`` and ``kv_norm``, Mamba2's B and C, the mLSTM's x_inner)
+takes its gradient summed over ``model`` (:func:`shared_grad`,
+:func:`shared_sections`); a norm over a width the ranks split (Mamba2's
+and the mLSTM's ``out_norm``) all-reduces its sums of squares both ways
+(:func:`sum_over`, ``blocks.rms_norm``).
+
 Where the model axis does not divide a layer's dim (:meth:`Parallel.divides`,
-the reference's rule: Qwen2.5-14B's 40 heads or InternVL2-26B's vocab of
-92,553 at 16), the layer runs whole on each model rank (:meth:`Parallel.over`
-gives it a view of model axis 1): its weights are replicated, it makes no
-model collective, and its gradient is not summed over ``model`` (every rank
-computes it whole from the same input).
+the reference's rule: Qwen2.5-14B's 40 heads, InternVL2-26B's vocab of
+92,553 or xLSTM-1.3B's 4 heads at 16), the layer runs whole on each model
+rank (:meth:`Parallel.over` gives it a view of model axis 1): its weights
+are replicated, it makes no model collective, and its gradient is not
+summed over ``model`` (every rank computes it whole from the same input).
+The sLSTM always runs so: its recurrence couples every head.
 
 A decode cache whose KV heads several ranks hold is sharded on its sequence
 (:class:`Panels`): the ranks that hold the same KV heads split those heads'
 positions among them (the model ranks that share a KV head, or every model
-rank for a whole attention block) and, under ``seq_shard`` or a batch of 1,
-the data ranks too.  Each rank runs B6's partial mode over its panel and
-:func:`combine_panels` merges the partials with one all-gather.
+rank for a whole attention block or MLA's latent cache, which has no head
+axis) and, under ``seq_shard`` or a batch of 1, the data ranks too.  Each
+rank runs B6's partial mode (MLA: its plain absorbed partial) over its
+panel and :func:`combine_panels` merges the partials with one all-gather.
 
 Every collective goes through :func:`collective`, which counts its calls
 and bytes by kind in :data:`COLLECTIVES` (the dry run's per-rank record).
@@ -48,8 +60,9 @@ computes.
 from __future__ import annotations
 
 import dataclasses
+import re
 from collections import defaultdict
-from typing import Any, Dict, Iterable, Optional, Sequence, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -57,13 +70,6 @@ import torch.distributed as dist
 #: calls and bytes a rank's collectives moved, by kind ("all_reduce",
 #: "all_gather", ...); :func:`reset_collectives` zeroes them
 COLLECTIVES: Dict[str, Dict[str, int]] = defaultdict(lambda: {"calls": 0, "bytes": 0})
-
-#: why a stack kind or a layout waits for a later slice at model > 1
-LATER_SLICE = ("a later multi-card slice (ROADMAP Queue A, items 14.3-14.7): tensor "
-               "parallelism for MLA and its latent cache (14.3), Mamba2 and Zamba2's shared "
-               "block (14.4), mLSTM/sLSTM (14.5) and the encoder-decoder (14.6), and the "
-               "sharded xLSTM, Zamba2 and DeepSeek rounds over several ranks (14.7)")
-
 
 def reset_collectives() -> Dict[str, Dict[str, int]]:
     """Zero the counter; returns what it held."""
@@ -288,18 +294,172 @@ def all_reduce_grads(grads: Sequence[torch.Tensor], par: Parallel) -> Sequence[t
     return grads
 
 
-def mark(p: torch.nn.Parameter, dim: int, parts: int, index: int) -> torch.nn.Parameter:
-    """Record on ``p`` that it is piece ``index`` of ``parts`` equal
-    pieces of the whole tensor along ``dim`` (negative, counted from the
-    end, so a stacked slot axis is transparent): what
+class Layout(NamedTuple):
+    """A parameter's piece of the whole tensor: piece ``index`` of ``parts``
+    along ``dim`` (negative, counted from the end, so a stacked slot axis is
+    transparent).  ``sections`` None: ``parts`` equal contiguous pieces.
+    Else the whole dim is the concatenation of sections ((whole size,
+    split), ...), each either cut in ``parts`` equal pieces (``split``) or
+    held whole on every rank; the piece is the sections' pieces
+    concatenated in order (Mamba2's ``in_proj`` [z, x, B, C, dt], the
+    mLSTM's ``up`` [x_inner, z] and ``w_if`` [i, f])."""
+    dim: int
+    parts: int
+    index: int
+    sections: Optional[Tuple[Tuple[int, bool], ...]] = None
+
+    def local_sizes(self) -> Tuple[int, ...]:
+        """Each section's size in a piece."""
+        return tuple(n // self.parts if split else n for n, split in self.sections)
+
+    def whole_size(self, local: int) -> int:
+        """The whole dim of a piece ``local`` wide."""
+        if self.sections is None:
+            return local * self.parts
+        return sum(n for n, _ in self.sections)
+
+
+#: a sharding spec: one entry a dim, an axis name, a tuple of them or None
+#: (the reference's ``PartitionSpec``)
+Spec = Tuple[Any, ...]
+
+#: the reference's sharding rules (``repro/launch/shardings.py``, its table
+#: copied as it is; ``launch/shardings.py`` lays whole tensors out by them)
+# leaf-name patterns -> which logical dim gets the "model" axis.
+# dims are indexed from the END of the shape so stacked leading dims are
+# transparent ("-1" = last dim, "-2" = second-to-last).
+_RULES = [
+    (r"embed$", -2),                    # (V, D) shard vocab rows
+    (r"head/w$", -1),                   # (D, V) shard vocab cols
+    (r"(wq|wk|wv)/w$", -1),             # (D, H*hd) shard heads-out
+    (r"(wq|wk|wv)/b$", -1),
+    (r"wo/w$", -2),                     # (H*hd, D) shard heads-in
+    (r"(gate|up)/w$", -1),              # (D, F) shard ffn-out
+    (r"down/w$", -2),                   # (F, D) shard ffn-in
+    (r"moe/(gate|up)$", -3),            # (E, D, F) expert parallel
+    (r"moe/down$", -3),                 # (E, F, D) expert parallel
+    (r"shared/(gate|up)/w$", -1),
+    (r"shared/down/w$", -2),
+    (r"in_proj/w$", -1),                # mamba (D, d_in_proj)
+    (r"out_proj/w$", -2),               # mamba (di, D)
+    (r"w_dkv/w$", -1),                  # MLA down-proj
+    (r"(w_uk|w_uv)/w$", -1),            # MLA up-proj (rank, H*hd)
+    (r"w_if/w$", -1),
+    (r"r$", None),                      # slstm recurrent: replicate
+]
+
+
+def _spec_for_leaf(path: str, shape: Tuple[int, ...], model_size: int,
+                   model_axis: str = "model", cluster_axis: Optional[str] = None,
+                   cluster_dim: bool = False) -> Spec:
+    """cluster_dim: the leaf carries a leading cluster-replica dim (sharded
+    over cluster_axis); the name rules then apply to the remaining dims."""
+    ndim = len(shape)
+    lead = 1 if (cluster_dim and cluster_axis is not None) else 0
+    spec = [None] * ndim
+    for pat, dim in _RULES:
+        if re.search(pat, path):
+            if dim is not None:
+                d = ndim + dim
+                if lead <= d < ndim and shape[d] % model_size == 0 and shape[d] >= model_size:
+                    spec[d] = model_axis
+            break
+    if lead:
+        spec[0] = cluster_axis
+    return tuple(spec)
+
+
+def mark(p: torch.nn.Parameter, dim: int, parts: int, index: int,
+         sections: Optional[Sequence[Tuple[int, bool]]] = None) -> torch.nn.Parameter:
+    """Record on ``p`` its :class:`Layout`: what
     ``launch/shardings.py::shard_params`` and ``gather_params`` read."""
-    p.tp_layout = (dim, parts, index)
+    p.tp_layout = Layout(dim, parts, index, None if sections is None else tuple(sections))
     return p
 
 
-def layout(p: torch.Tensor):
-    """``(dim, parts, index)`` of a marked parameter, None if replicated."""
+def layout(p: torch.Tensor) -> Optional[Layout]:
+    """The :class:`Layout` of a marked parameter, None if replicated."""
     return getattr(p, "tp_layout", None)
+
+
+def mark_by_rule(module: torch.nn.Module, par: "Parallel", prefix: str = "",
+                 departures: Optional[Dict[str, Optional[Layout]]] = None) -> None:
+    """Record the layout of each of ``module``'s parameters under ``par``,
+    derived from the reference's spec (:func:`_spec_for_leaf`) of its path
+    ``prefix + name``: piece ``par.model_rank`` of m along the dim its rule puts ``model`` on
+    (the whole dim, m pieces of this one, always divides), replicated where
+    the rule replicates; but where ``departures`` names the parameter, its
+    :class:`Layout` there (None: held whole).  Nothing under a model axis
+    of 1."""
+    if par.model_size == 1:
+        return
+    departures = departures or {}
+    for name, p in module.named_parameters():
+        if name in departures:
+            if departures[name] is not None:
+                p.tp_layout = departures[name]
+            continue
+        spec = _spec_for_leaf(prefix + name.replace(".", "/"), tuple(p.shape), 1)
+        if "model" in spec:
+            mark(p, spec.index("model") - len(spec), par.model_size, par.model_rank)
+
+
+class _SharedSections(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, w, group, dim, spans):
+        ctx.group, ctx.dim, ctx.spans = group, dim, spans
+        return w.view_as(w)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        pieces = [g.narrow(ctx.dim, lo, n) for lo, n in ctx.spans]
+        flat = collective("all_reduce", torch.cat([p.reshape(-1) for p in pieces]), ctx.group)
+        for p, part in zip(pieces, flat.split([p.numel() for p in pieces])):
+            p.copy_(part.view_as(p))
+        return g, None, None, None
+
+
+def shared_sections(w: torch.Tensor, group) -> torch.Tensor:
+    """A sectioned parameter (:class:`Layout`) whose whole sections every
+    rank holds and uses for its part of the work (Mamba2's B and C
+    columns, the mLSTM's ``x_inner``): identity forward; backward, the
+    gradient of those sections summed over ``group`` in one all-reduce
+    (the split sections' stay the rank's own), so the copies stay equal."""
+    lay = layout(w)
+    if (group is None or lay is None or lay.sections is None
+            or not (torch.is_grad_enabled() and w.requires_grad)):
+        return w
+    spans, lo = [], 0
+    for (_, split), n in zip(lay.sections, lay.local_sizes()):
+        if not split:
+            spans.append((lo, n))
+        lo += n
+    dim = lay.dim % w.dim()
+    return _SharedSections.apply(w, group, dim, tuple(spans))
+
+
+class _SumOver(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return collective("all_reduce", x.contiguous().clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return collective("all_reduce", g.contiguous().clone(), ctx.group), None
+
+
+def sum_over(x: torch.Tensor, par: "Parallel") -> torch.Tensor:
+    """The sum over ``par``'s model axis of a partial sum that every rank
+    then reads for its own part (an RMS norm's sum of squares over a dim
+    the ranks split): an all-reduce forward and, since each rank's result
+    feeds only its own columns, an all-reduce of the gradient backward."""
+    if par.model_size == 1:
+        return x
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _SumOver.apply(x, par.model_group)
+    return collective("all_reduce", x.contiguous().clone(), par.model_group)
 
 
 def heads_layout(par: Parallel, n_heads: int, n_kv_heads: int):
@@ -373,28 +533,13 @@ def combine_panels(out: torch.Tensor, lse: torch.Tensor, panels: Panels,
     return combine_partials(every[..., :-1], every[..., -1], dtype)
 
 
-def check_kinds(kinds: Iterable[str], par: Parallel, mla: bool) -> None:
-    """Raise where the model axis exceeds 1 for a stack kind whose rules
-    split a dim a later op reads whole."""
-    if par.model_size == 1:
-        return
-    bad = sorted({k for k in kinds if k not in ("attn_mlp", "dense_mlp", "moe")})
-    if mla:
-        bad.append("MLA attention")
-    if bad:
-        raise NotImplementedError(
-            f"{', '.join(bad)} at model axis {par.model_size}: their rules split a dim a "
-            f"later op reads whole (MLA's latent before kv_norm, Mamba2's concatenated "
-            f"in_proj, the xLSTM mixers' heads, the decoder's cross-attention); they run at "
-            f"model 1 (data-parallel) and come with {LATER_SLICE}")
-
-
 def optional(par: Optional[Parallel]) -> Parallel:
     return SINGLE if par is None else par
 
 
-__all__ = ["COLLECTIVES", "LATER_SLICE", "Panels", "Parallel", "SINGLE", "all_reduce_grads",
-           "cache_panels", "check_kinds", "collective", "collective_totals", "combine_panels",
-           "copy_to", "enter", "gather_from", "heads_layout", "layout", "leave", "mark",
-           "optional", "reduce_from", "reset_collectives", "shared_grad", "vocab_embed",
-           "vocab_rows"]
+__all__ = ["COLLECTIVES", "Layout", "Panels", "Parallel", "SINGLE", "all_reduce_grads",
+           "cache_panels", "collective", "collective_totals", "combine_panels", "copy_to",
+           "enter", "gather_from", "heads_layout", "layout", "leave", "mark", "mark_by_rule",
+           "optional",
+           "reduce_from", "reset_collectives", "shared_grad", "shared_sections", "sum_over",
+           "vocab_embed", "vocab_rows"]

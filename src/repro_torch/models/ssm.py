@@ -21,6 +21,20 @@ of the weights (:class:`Mamba2Weights`), which :class:`Mamba2` and the
 cluster-stacked :class:`StackedMamba2` (a call a slot, on views of its
 stacked weights) both call.  A decode cache is {"state" (B, H, P, N) f32,
 "conv" (B, K-1, C) in the model's dtype}; ``decode`` writes it in place.
+
+Under a model axis m > 1 that divides the SSD heads (``par``,
+``models/parallel.py``) a rank holds H/m heads: ``in_proj``'s z, x and dt
+sections split by heads and its B and C sections whole (a sectioned
+``parallel.Layout``: the reference's spec cuts the concatenated columns
+straight across the sections), the convolution over the rank's x channels
+and the whole B and C (``conv_w``/``conv_b`` sectioned alike), ``A_log``,
+``dt_bias``, ``D`` and ``out_norm`` by heads, ``out_proj`` row-parallel.
+The whole B and C sections take their gradient summed over ``model``
+(``parallel.shared_sections``), ``out_norm``'s mean of squares is the
+ranks' sums all-reduced (``blocks.rms_norm``), and the output leaves with
+one all-reduce.  The decode cache holds the rank's heads and its
+convolution channels.  The functions read the local widths off the
+weights.
 """
 from __future__ import annotations
 
@@ -31,6 +45,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .blocks import Linear, RMSNorm, StackedLinear, StackedRMSNorm, rms_norm
+from .parallel import SINGLE, Layout, enter, leave, mark_by_rule, optional, shared_sections
 
 Cache = Dict[str, torch.Tensor]
 
@@ -50,10 +65,6 @@ class SSMConfig(NamedTuple):
     @property
     def n_heads(self) -> int:
         return self.d_inner // self.head_dim
-
-    @property
-    def conv_dim(self) -> int:
-        return self.d_inner + 2 * self.d_state
 
 
 class Mamba2Weights(NamedTuple):
@@ -108,15 +119,23 @@ def _ssd_chunk(state: torch.Tensor, x: torch.Tensor, dt: torch.Tensor, bm: torch
     return new_state, y_intra + y_state
 
 
-def _out(w: Mamba2Weights, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
-    return rms_norm(y * F.silu(z), w.out_norm) @ w.out_proj
+def _out(w: Mamba2Weights, y: torch.Tensor, z: torch.Tensor, par) -> torch.Tensor:
+    return rms_norm(y * F.silu(z), w.out_norm, par=par) @ w.out_proj
 
 
-def mamba2_forward(w: Mamba2Weights, cfg: SSMConfig, u: torch.Tensor) -> torch.Tensor:
-    """The chunked SSD forward: u (B, S, d_model) -> (B, S, d_model).  The
-    chunk, ``min(cfg.chunk, S)``, must divide S."""
+def _widths(w: Mamba2Weights, cfg: SSMConfig):
+    """(di, N, H, P) of these weights: the rank's heads and inner width."""
+    h = w.A_log.shape[-1]
+    return h * cfg.head_dim, cfg.d_state, h, cfg.head_dim
+
+
+def mamba2_forward(w: Mamba2Weights, cfg: SSMConfig, u: torch.Tensor, par=SINGLE
+                   ) -> torch.Tensor:
+    """The chunked SSD forward: u (B, S, d_model) -> (B, S, d_model) (the
+    rank's partial sum under ``par``).  The chunk, ``min(cfg.chunk, S)``,
+    must divide S."""
     b, s, _ = u.shape
-    di, st, h, pd = cfg.d_inner, cfg.d_state, cfg.n_heads, cfg.head_dim
+    di, st, h, pd = _widths(w, cfg)
     z, xbc, dt_raw = torch.split(u @ w.in_proj, [di, di + 2 * st, h], dim=-1)
     xbc = _depthwise_conv(xbc, w.conv_w, w.conv_b)
     x, bm, cm = torch.split(xbc, [di, st, st], dim=-1)
@@ -135,25 +154,28 @@ def mamba2_forward(w: Mamba2Weights, cfg: SSMConfig, u: torch.Tensor) -> torch.T
         ys.append(y)
     y = ys[0] if len(ys) == 1 else torch.cat(ys, dim=1)
     y = y + x_h * w.D.to(torch.float32)[None, None, :, None]
-    return _out(w, y.reshape(b, s, di).to(u.dtype), z)
+    return _out(w, y.reshape(b, s, di).to(u.dtype), z, par)
 
 
 def init_ssm_cache(batch: int, cfg: SSMConfig, dtype: torch.dtype, device=None,
-                   n: int = 1) -> Cache:
+                   n: int = 1, parts: int = 1) -> Cache:
     """Zeroed decode cache of ``n`` layers: the state (n, B, H, P, N) f32 and
-    the convolution's last K-1 inputs (n, B, K-1, C) in ``dtype``."""
-    return {"state": torch.zeros((n, batch, cfg.n_heads, cfg.head_dim, cfg.d_state),
+    the convolution's last K-1 inputs (n, B, K-1, C) in ``dtype``; with
+    ``parts`` (the model axis the heads split over) a rank's H / parts heads
+    and di / parts + 2 N channels."""
+    return {"state": torch.zeros((n, batch, cfg.n_heads // parts, cfg.head_dim, cfg.d_state),
                                  dtype=torch.float32, device=device),
-            "conv": torch.zeros((n, batch, cfg.conv_kernel - 1, cfg.conv_dim), dtype=dtype,
+            "conv": torch.zeros((n, batch, cfg.conv_kernel - 1,
+                                 cfg.d_inner // parts + 2 * cfg.d_state), dtype=dtype,
                                 device=device)}
 
 
-def mamba2_decode(w: Mamba2Weights, cfg: SSMConfig, u: torch.Tensor, cache: Cache
-                  ) -> torch.Tensor:
+def mamba2_decode(w: Mamba2Weights, cfg: SSMConfig, u: torch.Tensor, cache: Cache,
+                  par=SINGLE) -> torch.Tensor:
     """One decode step: u (B, 1, d_model) -> (B, 1, d_model); the cache
     {"state", "conv"} of this layer is written in place."""
     b = u.shape[0]
-    di, st, h, pd = cfg.d_inner, cfg.d_state, cfg.n_heads, cfg.head_dim
+    di, st, h, pd = _widths(w, cfg)
     z, xbc_new, dt_raw = torch.split(u[:, 0] @ w.in_proj, [di, di + 2 * st, h], dim=-1)
     window = torch.cat([cache["conv"], xbc_new[:, None, :]], dim=1)         # (B,K,C)
     xbc = F.silu(torch.einsum("bkc,kc->bc", window, w.conv_w) + w.conv_b)
@@ -167,28 +189,61 @@ def mamba2_decode(w: Mamba2Weights, cfg: SSMConfig, u: torch.Tensor, cache: Cach
     y = y + x_h * w.D.to(torch.float32)[None, :, None]
     cache["state"].copy_(state)
     cache["conv"].copy_(window[:, 1:])
-    return _out(w, y.reshape(b, di).to(u.dtype), z)[:, None, :]
+    return _out(w, y.reshape(b, di).to(u.dtype), z, par)[:, None, :]
+
+
+def _mark_mamba(mixer: nn.Module, cfg: SSMConfig, par) -> None:
+    """The heads over ``model``: the spec's ``out_proj`` (heads-in), but
+    ``in_proj`` by sections [z, x by heads, B, C whole, dt by heads] (the
+    spec cuts the concatenation straight across), ``conv_w``/``conv_b`` [x
+    by heads, B, C whole] and ``A_log``, ``dt_bias``, ``D``, ``out_norm``
+    by heads (the spec replicates them)."""
+    m, r = par.model_size, par.model_rank
+    di, st, h = cfg.d_inner, cfg.d_state, cfg.n_heads
+    xbc = ((di, True), (st, False), (st, False))
+    departures = {"in_proj.w": Layout(-1, m, r, ((di, True),) + xbc + ((h, True),)),
+                  "conv_w": Layout(-1, m, r, xbc), "conv_b": Layout(-1, m, r, xbc)}
+    departures.update({name: Layout(-1, m, r)
+                       for name in ("A_log", "dt_bias", "D", "out_norm.scale")})
+    mark_by_rule(mixer, par, departures=departures)
+
+
+def _mamba_weights(mixer: nn.Module) -> Mamba2Weights:
+    """The mixer's weights, the whole B and C sections of ``in_proj``,
+    ``conv_w`` and ``conv_b`` taking their gradient summed over
+    ``model``."""
+    group = mixer.par.model_group
+    return Mamba2Weights(shared_sections(mixer.in_proj.w, group),
+                         shared_sections(mixer.conv_w, group),
+                         shared_sections(mixer.conv_b, group), mixer.A_log, mixer.dt_bias,
+                         mixer.D, mixer.out_norm.scale, mixer.out_proj.w)
 
 
 class Mamba2(nn.Module):
     """The Mamba2 mixer: ``in_proj`` to [z, x, B, C, dt], the causal
     depthwise convolution over [x, B, C] (``conv_w``, ``conv_b``), the SSD
     with ``A_log``, ``dt_bias`` and the skip ``D``, ``out_norm`` on the
-    z-gated output and ``out_proj``."""
+    z-gated output and ``out_proj``; with ``par`` this rank's heads (see
+    the module docstring)."""
 
-    def __init__(self, cfg: SSMConfig, *, dtype: torch.dtype = torch.float32, device=None):
+    def __init__(self, cfg: SSMConfig, *, dtype: torch.dtype = torch.float32, device=None,
+                 par=None):
         super().__init__()
         self.cfg = cfg
+        self.par = par = optional(par).over(cfg.n_heads)
         kw = dict(dtype=dtype, device=device)
-        h, c = cfg.n_heads, cfg.conv_dim
-        self.in_proj = Linear(cfg.d_model, cfg.d_inner + c + h, **kw)
+        m = par.model_size
+        h, di = cfg.n_heads // m, cfg.d_inner // m
+        c = di + 2 * cfg.d_state
+        self.in_proj = Linear(cfg.d_model, di + c + h, **kw)
         self.conv_w = nn.Parameter(torch.empty((cfg.conv_kernel, c), **kw))
         self.conv_b = nn.Parameter(torch.empty((c,), **kw))
         self.A_log = nn.Parameter(torch.empty((h,), **kw))
         self.dt_bias = nn.Parameter(torch.empty((h,), **kw))
         self.D = nn.Parameter(torch.empty((h,), **kw))
-        self.out_norm = RMSNorm(cfg.d_inner, **kw)
-        self.out_proj = Linear(cfg.d_inner, cfg.d_model, **kw)
+        self.out_norm = RMSNorm(di, par=par, **kw)
+        self.out_proj = Linear(di, cfg.d_model, **kw)
+        _mark_mamba(self, cfg, par)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -198,7 +253,7 @@ class Mamba2(nn.Module):
         conv = torch.randn(self.conv_w.shape, generator=generator, device=generator.device)
         self.conv_w.copy_(conv * 0.1)
         self.conv_b.zero_()
-        h = self.cfg.n_heads
+        h = self.A_log.shape[0]
         self.A_log.copy_(torch.log(torch.linspace(1.0, 16.0, h, device=self.A_log.device)))
         self.dt_bias.zero_()
         self.D.fill_(1.0)
@@ -206,42 +261,46 @@ class Mamba2(nn.Module):
         self.out_proj.reset_parameters(generator)
 
     def weights(self) -> Mamba2Weights:
-        return Mamba2Weights(self.in_proj.w, self.conv_w, self.conv_b, self.A_log,
-                             self.dt_bias, self.D, self.out_norm.scale, self.out_proj.w)
+        return _mamba_weights(self)
 
     def forward(self, u: torch.Tensor) -> torch.Tensor:
-        return mamba2_forward(self.weights(), self.cfg, u)
+        par = self.par
+        return leave(mamba2_forward(self.weights(), self.cfg, enter(u, par), par), par)
 
     def decode(self, u: torch.Tensor, cache: Cache) -> torch.Tensor:
-        return mamba2_decode(self.weights(), self.cfg, u, cache)
+        return leave(mamba2_decode(self.weights(), self.cfg, u, cache, self.par), self.par)
 
 
 class StackedMamba2(nn.Module):
     """n slots' :class:`Mamba2` (the same parameters, each with a leading
     slot axis): u (n, B, S, d_model), one :func:`mamba2_forward` a slot over
     views of the stacked weights, so that a slot computes what its plain
-    mixer computes."""
+    mixer computes; ``par`` as :class:`Mamba2`'s."""
 
     def __init__(self, cfg: SSMConfig, n: int, *, dtype: torch.dtype = torch.float32,
-                 device=None):
+                 device=None, par=None):
         super().__init__()
         self.cfg = cfg
+        self.par = par = optional(par).over(cfg.n_heads)
         kw = dict(dtype=dtype, device=device)
-        h, c = cfg.n_heads, cfg.conv_dim
-        self.in_proj = StackedLinear(n, cfg.d_model, cfg.d_inner + c + h, **kw)
+        m = par.model_size
+        h, di = cfg.n_heads // m, cfg.d_inner // m
+        c = di + 2 * cfg.d_state
+        self.in_proj = StackedLinear(n, cfg.d_model, di + c + h, **kw)
         self.conv_w = nn.Parameter(torch.zeros((n, cfg.conv_kernel, c), **kw))
         self.conv_b = nn.Parameter(torch.zeros((n, c), **kw))
         self.A_log = nn.Parameter(torch.zeros((n, h), **kw))
         self.dt_bias = nn.Parameter(torch.zeros((n, h), **kw))
         self.D = nn.Parameter(torch.zeros((n, h), **kw))
-        self.out_norm = StackedRMSNorm(n, cfg.d_inner, **kw)
-        self.out_proj = StackedLinear(n, cfg.d_inner, cfg.d_model, **kw)
+        self.out_norm = StackedRMSNorm(n, di, par=par, **kw)
+        self.out_proj = StackedLinear(n, di, cfg.d_model, **kw)
+        _mark_mamba(self, cfg, par)
 
     def forward(self, u: torch.Tensor) -> torch.Tensor:
-        return torch.stack([mamba2_forward(Mamba2Weights(
-            self.in_proj.w[r], self.conv_w[r], self.conv_b[r], self.A_log[r], self.dt_bias[r],
-            self.D[r], self.out_norm.scale[r], self.out_proj.w[r]), self.cfg, ur)
-            for r, ur in enumerate(u)])
+        par, w = self.par, _mamba_weights(self)
+        u = enter(u, par)
+        return leave(torch.stack([mamba2_forward(Mamba2Weights(*(t[r] for t in w)), self.cfg,
+                                                 ur, par) for r, ur in enumerate(u)]), par)
 
 
 def mamba2_forward_reference(mixer: Mamba2, u: torch.Tensor) -> torch.Tensor:

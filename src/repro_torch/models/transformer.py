@@ -43,8 +43,9 @@ The batched round's cluster-stacked LM (``model.StackedModel``) builds its
 stacks of :class:`DecoderLayer`\\ s and :class:`AttnBlock`\\ s of stacked
 parts and :class:`StackedMixerBlock`\\ s by :func:`build_stacked_stacks`
 and runs them through the same :func:`run_stack` (a stacked ``moe`` layer's
-aux is (n,), one a slot).  The encoder-decoder has no stacked form: no
-Pigeon-SL round over one exists in the reference.
+aux is (n,), one a slot), the encoder-decoder's layers too (the launch
+round step over its slots; ``core.split.from_lm`` takes no
+encoder-decoder, as the reference's sends tokens only).
 """
 from __future__ import annotations
 
@@ -60,7 +61,7 @@ from .attention import (GQA, MLA, AttnConfig, MLAConfig, StackedGQA, StackedMLA,
 from .blocks import DTYPES, RMSNorm, StackedRMSNorm, StackedSwiGLU, SwiGLU
 from .config import ModelConfig
 from .moe import MoE, MoEConfig, StackedMoE
-from .parallel import LATER_SLICE, Panels
+from .parallel import Panels
 
 #: the encoder-decoder's arch_types
 ENCDEC = ("encdec", "audio")
@@ -152,16 +153,26 @@ MIXERS = {"mlstm": (xlstm.MLSTM, xlstm.StackedMLSTM, xlstm_cfg),
           "mamba": (ssm.Mamba2, ssm.StackedMamba2, ssm_cfg)}
 
 
+#: the mixer kinds whose heads split over ``model``; the sLSTM's recurrence
+#: couples its heads, so it runs whole on each model rank
+SPLIT_MIXERS = ("mlstm", "mamba")
+
+
+def _mixer_kw(kind: str, par) -> Dict[str, Any]:
+    return {"par": par} if kind in SPLIT_MIXERS else {}
+
+
 class MixerBlock(nn.Module):
     """Pre-norm block of a mixer kind (``mlstm``, ``slstm``, ``mamba``):
-    ``x + mixer(ln(x))``."""
+    ``x + mixer(ln(x))``; with ``par`` an mLSTM's or Mamba2's heads over
+    ``model``."""
 
-    def __init__(self, cfg: ModelConfig, kind: str, device=None):
+    def __init__(self, cfg: ModelConfig, kind: str, device=None, par=None):
         super().__init__()
         kw = dict(dtype=DTYPES[cfg.dtype], device=device)
         mixer, _, mixer_cfg = MIXERS[kind]
         self.ln = RMSNorm(cfg.d_model, **kw)
-        self.mixer = mixer(mixer_cfg(cfg), **kw)
+        self.mixer = mixer(mixer_cfg(cfg), **kw, **_mixer_kw(kind, par))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         self.ln.reset_parameters()
@@ -176,14 +187,15 @@ class MixerBlock(nn.Module):
 
 class StackedMixerBlock(nn.Module):
     """n slots' :class:`MixerBlock` (the same parameters, each with a
-    leading slot axis): x (n, B, S, d_model)."""
+    leading slot axis): x (n, B, S, d_model); ``par`` as
+    :class:`MixerBlock`'s."""
 
-    def __init__(self, cfg: ModelConfig, kind: str, n: int, device=None):
+    def __init__(self, cfg: ModelConfig, kind: str, n: int, device=None, par=None):
         super().__init__()
         kw = dict(dtype=DTYPES[cfg.dtype], device=device)
         _, stacked, mixer_cfg = MIXERS[kind]
         self.ln = StackedRMSNorm(n, cfg.d_model, **kw)
-        self.mixer = stacked(mixer_cfg(cfg), n, **kw)
+        self.mixer = stacked(mixer_cfg(cfg), n, **kw, **_mixer_kw(kind, par))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return x + self.mixer(self.ln(x))
@@ -210,18 +222,32 @@ class AttnBlock(nn.Module):
         return x + self.attn.decode(self.ln(x), cache, index, 0, panels)
 
 
+def _parts(cfg: ModelConfig, device, par, n: Optional[int]):
+    """Makers of a layer's norm, GQA and SwiGLU (with ``par``): plain, or
+    of n slots."""
+    kw = dict(dtype=DTYPES[cfg.dtype], device=device)
+    d, acfg = cfg.d_model, attn_cfg(cfg)
+    if n is None:
+        return (lambda: RMSNorm(d, **kw), lambda: GQA(acfg, **kw, par=par),
+                lambda: SwiGLU(d, cfg.d_ff, **kw, par=par))
+    return (lambda: StackedRMSNorm(n, d, **kw), lambda: StackedGQA(acfg, n, **kw, par=par),
+            lambda: StackedSwiGLU(n, d, cfg.d_ff, **kw, par=par))
+
+
 class EncoderLayer(nn.Module):
     """The encoder's bidirectional layer (``enc``): ``x + attn(ln1(x))`` over
     every position (rope on 0..S-1, no qk-norm even where the config sets
-    it; B5 non-causal), then ``x + mlp(ln2(x))``."""
+    it; B5 non-causal), then ``x + mlp(ln2(x))``; with ``par`` the
+    attention's heads and the SwiGLU's columns over ``model``; with ``n``
+    its cluster-stacked form (x (n, B, S, d_model))."""
 
-    def __init__(self, cfg: ModelConfig, device=None):
+    def __init__(self, cfg: ModelConfig, device=None, par=None, n: Optional[int] = None):
         super().__init__()
-        kw = dict(dtype=DTYPES[cfg.dtype], device=device)
-        self.ln1 = RMSNorm(cfg.d_model, **kw)
-        self.attn = GQA(attn_cfg(cfg), **kw)
-        self.ln2 = RMSNorm(cfg.d_model, **kw)
-        self.mlp = SwiGLU(cfg.d_model, cfg.d_ff, **kw)
+        norm, attn, mlp = _parts(cfg, device, par, n)
+        self.ln1 = norm()
+        self.attn = attn()
+        self.ln2 = norm()
+        self.mlp = mlp()
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         for mod in self.children():
@@ -235,18 +261,23 @@ class EncoderLayer(nn.Module):
 class CrossDecoderLayer(nn.Module):
     """The encoder-decoder's decoder layer (``dec_cross``): causal
     self-attention, cross-attention over the encoder's memory, SwiGLU, each
-    pre-norm (``ln1``, ``ln_x``, ``ln2``)."""
+    pre-norm (``ln1``, ``ln_x``, ``ln2``); with ``par`` each attention's
+    heads (the cross-attention's K and V the rank's heads of the memory,
+    which is whole on every rank) and the SwiGLU's columns over
+    ``model``; with ``n`` its cluster-stacked form (x and the memory
+    (n, B, S, d_model))."""
 
-    def __init__(self, cfg: ModelConfig, window: int, device=None):
+    def __init__(self, cfg: ModelConfig, window: int, device=None, par=None,
+                 n: Optional[int] = None):
         super().__init__()
-        kw = dict(dtype=DTYPES[cfg.dtype], device=device)
+        norm, attn, mlp = _parts(cfg, device, par, n)
         self.window = window
-        self.ln1 = RMSNorm(cfg.d_model, **kw)
-        self.self_attn = GQA(attn_cfg(cfg), **kw)
-        self.ln_x = RMSNorm(cfg.d_model, **kw)
-        self.cross_attn = GQA(attn_cfg(cfg), **kw)
-        self.ln2 = RMSNorm(cfg.d_model, **kw)
-        self.mlp = SwiGLU(cfg.d_model, cfg.d_ff, **kw)
+        self.ln1 = norm()
+        self.self_attn = attn()
+        self.ln_x = norm()
+        self.cross_attn = attn()
+        self.ln2 = norm()
+        self.mlp = mlp()
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         for mod in self.children():
@@ -293,36 +324,30 @@ def _layer(cfg: ModelConfig, kind: str, window: int, device, n: Optional[int] = 
            par=None) -> nn.Module:
     """A layer of ``kind`` (at ``window``, for the attention kinds); with
     ``n``, its cluster-stacked form of n slots; with ``par``
-    (``models.parallel``), the attention, SwiGLU and MoE parts of the
-    ``attn_mlp``, ``dense_mlp`` and ``moe`` kinds hold this rank's shards
-    (:func:`parallel.check_kinds` refuses the other kinds at model > 1)."""
+    (``models.parallel``), this rank's shards of every kind: the GQA and
+    MLA heads, the SwiGLU's columns and the MoE's experts of the
+    ``attn_mlp``, ``dense_mlp``, ``moe``, ``shared_attn``, ``enc`` and
+    ``dec_cross`` kinds, the mLSTM's and Mamba2's heads; the sLSTM, and any
+    layer whose dim the model axis does not divide, whole on each rank."""
     if kind in MIXERS:
-        return (MixerBlock(cfg, kind, device) if n is None
-                else StackedMixerBlock(cfg, kind, n, device))
+        return (MixerBlock(cfg, kind, device, par) if n is None
+                else StackedMixerBlock(cfg, kind, n, device, par))
     if kind in ("enc", "dec_cross"):
-        if n is not None:
-            raise NotImplementedError(
-                "the encoder-decoder has no cluster-stacked form: the reference's from_lm "
-                "sends tokens only, so no Pigeon-SL round over an encoder-decoder exists")
-        return EncoderLayer(cfg, device) if kind == "enc" else CrossDecoderLayer(cfg, window,
-                                                                                   device)
-    kw = dict(dtype=DTYPES[cfg.dtype], device=device)
-    d = cfg.d_model
+        return (EncoderLayer(cfg, device, par, n) if kind == "enc"
+                else CrossDecoderLayer(cfg, window, device, par, n))
+    norm, gqa, swiglu = _parts(cfg, device, par, n)
     if kind == "shared_attn":
-        if n is None:
-            return AttnBlock(RMSNorm(d, **kw), GQA(attn_cfg(cfg), **kw))
-        return AttnBlock(StackedRMSNorm(n, d, **kw), StackedGQA(attn_cfg(cfg), n, **kw))
-    pw = dict(kw, par=par)
-    if n is None:
-        norm = lambda: RMSNorm(d, **kw)                                 # noqa: E731
-        attn = MLA(mla_cfg(cfg), **kw) if cfg.kv_lora_rank else GQA(attn_cfg(cfg), **pw)
-        ffn = MoE(moe_cfg(cfg), **pw) if kind == "moe" else SwiGLU(d, cfg.d_ff, **pw)
+        return AttnBlock(norm(), gqa())
+    pw = dict(dtype=DTYPES[cfg.dtype], device=device, par=par)
+    slots = () if n is None else (n,)
+    if cfg.kv_lora_rank:
+        attn = (MLA if n is None else StackedMLA)(mla_cfg(cfg), *slots, **pw)
     else:
-        norm = lambda: StackedRMSNorm(n, d, **kw)                       # noqa: E731
-        attn = (StackedMLA(mla_cfg(cfg), n, **kw) if cfg.kv_lora_rank
-                else StackedGQA(attn_cfg(cfg), n, **pw))
-        ffn = (StackedMoE(moe_cfg(cfg), n, **pw) if kind == "moe"
-               else StackedSwiGLU(n, d, cfg.d_ff, **pw))
+        attn = gqa()
+    if kind == "moe":
+        ffn = (MoE if n is None else StackedMoE)(moe_cfg(cfg), *slots, **pw)
+    else:
+        ffn = swiglu()
     return DecoderLayer(norm(), attn, norm(), ffn, window)
 
 
@@ -343,7 +368,7 @@ def build_stacks(cfg: ModelConfig, plan, device=None, par=None) -> List[BlockSta
 def build_stacked_stacks(cfg: ModelConfig, plan, n: int, device=None,
                          par=None) -> List[BlockStack]:
     """The stacks of ``plan`` with n slots a layer (zeroed parameters on
-    ``device``): every kind but the encoder-decoder's."""
+    ``device``)."""
     return [BlockStack(sp.kind, [_layer(cfg, sp.kind, w, device, n, par)
                                  for w in _stack_windows(cfg, sp)], sp.meta)
             for sp in plan]
@@ -383,6 +408,13 @@ def slice_stack(stack: BlockStack, lo: int, hi: int) -> BlockStack:
     return BlockStack(stack.kind, list(stack.layers[lo:hi]), meta)
 
 
+def _attention(stack: BlockStack) -> Optional[nn.Module]:
+    """The attention of a stack's layers whose decode cache is a KV or
+    latent cache (the decoder's self-attention), None for a mixer."""
+    layer = stack.layers[0]
+    return getattr(layer, "self_attn", getattr(layer, "attn", None))
+
+
 def init_stack_cache(cfg: ModelConfig, stack: BlockStack, batch: int, max_seq: int,
                      dtype: torch.dtype, device=None, panels: Optional[Panels] = None
                      ) -> Dict[str, torch.Tensor]:
@@ -390,28 +422,27 @@ def init_stack_cache(cfg: ModelConfig, stack: BlockStack, batch: int, max_seq: i
     stack's latent and rope key; a ``shared_attn`` block's without a layer
     axis), or the mixer kinds' recurrent state (f32, and Mamba2's
     convolution inputs in ``dtype``; independent of ``max_seq``).  A
-    tensor-parallel GQA stack's cache holds the rank's KV heads (the
-    attention's own config); under ``panels`` (a sequence-sharded cache) a
-    KV cache holds this rank's panel of ``panels.length`` positions."""
+    tensor-parallel stack's cache holds the rank's heads (the attention's
+    or the mixer's own); under ``panels`` (a sequence-sharded cache) a KV
+    or latent cache holds this rank's panel of ``panels.length``
+    positions."""
     if panels is not None and panels.count > 1:
-        if stack.kind in ("dense_mlp", "moe") and cfg.kv_lora_rank:
-            raise NotImplementedError(f"MLA's latent cache over {panels.count} sequence "
-                                      f"panels: {LATER_SLICE}")
         max_seq = panels.length
-    if stack.kind == "mamba":
-        return ssm.init_ssm_cache(batch, ssm_cfg(cfg), dtype, device, stack.n)
-    if stack.kind == "shared_attn":
-        return {name: t[0] for name, t in init_kv_cache(1, batch, max_seq, attn_cfg(cfg),
-                                                         dtype, device).items()}
-    if stack.kind == "mlstm":
-        return xlstm.init_mlstm_cache(batch, xlstm_cfg(cfg), device, stack.n)
-    if stack.kind == "slstm":
+    if stack.kind in MIXERS:
+        mixer = stack.layers[0].mixer
+        parts = mixer.par.model_size if stack.kind in SPLIT_MIXERS else 1
+        if stack.kind == "mamba":
+            return ssm.init_ssm_cache(batch, ssm_cfg(cfg), dtype, device, stack.n, parts)
+        if stack.kind == "mlstm":
+            return xlstm.init_mlstm_cache(batch, xlstm_cfg(cfg), device, stack.n, parts)
         return xlstm.init_slstm_cache(batch, xlstm_cfg(cfg), device, stack.n)
-    if stack.kind in ("dense_mlp", "moe") and cfg.kv_lora_rank:
-        return init_mla_cache(stack.n, batch, max_seq, mla_cfg(cfg), dtype, device)
-    acfg = (stack.layers[0].attn.cfg if stack.kind in ("attn_mlp", "dense_mlp", "moe")
-            else attn_cfg(cfg))
-    return init_kv_cache(stack.n, batch, max_seq, acfg, dtype, device)
+    attn = _attention(stack)
+    if isinstance(attn, MLA):
+        return init_mla_cache(stack.n, batch, max_seq, attn.cfg, dtype, device)
+    cache = init_kv_cache(stack.n, batch, max_seq, attn.cfg, dtype, device)
+    if stack.kind == "shared_attn":
+        return {name: t[0] for name, t in cache.items()}
+    return cache
 
 
 def decode_stack(stack: BlockStack, x: torch.Tensor, cache: Dict[str, torch.Tensor],
@@ -432,7 +463,7 @@ def decode_stack(stack: BlockStack, x: torch.Tensor, cache: Dict[str, torch.Tens
 
 
 __all__ = ["AttnBlock", "BlockStack", "CrossDecoderLayer", "DecoderLayer", "ENCDEC",
-           "EncoderLayer", "MIXERS", "MixerBlock", "StackedMixerBlock",
+           "EncoderLayer", "MIXERS", "MixerBlock", "SPLIT_MIXERS", "StackedMixerBlock",
            "attn_cfg", "build_stacked_stacks", "build_stacks", "decode_stack",
            "init_stack_cache", "mla_cfg", "moe_cfg", "not_ported", "run_stack", "slice_stack",
            "ssm_cfg", "xlstm_cfg"]

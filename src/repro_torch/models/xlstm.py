@@ -21,6 +21,19 @@ round trains: x (n, B, S, d_model).  Their products run one a slot
 (``StackedLinear``); the mLSTM's chunked einsums, which hold no weights,
 run over the folded n * B batch, and the sLSTM's scan (B7, forward and
 backward) once a slot, each slot with its own R.
+
+Under a model axis m > 1 that divides the heads (``par``,
+``models/parallel.py``) an mLSTM holds H/m heads: ``up``'s x_inner
+section whole (``wq``, ``wk`` and ``wv`` read every column of it; its
+gradient summed over ``model`` by ``parallel.shared_sections``) and its z
+section by heads, ``wq``/``wk``/``wv`` heads-out, ``w_if``'s [i, f]
+sections by heads, ``out_norm`` by heads with its mean of squares
+all-reduced (``blocks.rms_norm``), ``down`` row-parallel; its decode
+state holds the rank's heads.  Where m does not divide the heads
+(xLSTM-1.3B's 4 at 16) the mLSTM is whole on each model rank.  The sLSTM is
+always whole on each model rank: B7's gate layout feeds gate j of every
+unit from head j's R (``kernels/slstm_scan.py``), so its recurrence couples
+every head and no split of heads computes it.
 """
 from __future__ import annotations
 
@@ -34,6 +47,7 @@ from torch import nn
 from ..kernels import ops
 from ..kernels.slstm_scan import recurrent, slstm_gates
 from .blocks import Linear, RMSNorm, StackedLinear, StackedRMSNorm
+from .parallel import Layout, enter, leave, mark_by_rule, optional, shared_sections
 
 Cache = Dict[str, torch.Tensor]
 STATE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -109,33 +123,61 @@ def _mlstm_chunk(carry: Tuple[torch.Tensor, torch.Tensor, torch.Tensor],
     return (C_out, n_out, m_out), h
 
 
-def init_mlstm_cache(batch: int, cfg: XLSTMConfig, device=None, n: int = 1) -> Cache:
+def init_mlstm_cache(batch: int, cfg: XLSTMConfig, device=None, n: int = 1,
+                     parts: int = 1) -> Cache:
     """Zeroed decode state of ``n`` layers: C (n, B, H, D, D), n (n, B, H,
-    D), m (n, B, H) = -inf, all f32 (index 0 for one layer)."""
-    h, pd = cfg.n_heads, cfg.head_dim
+    D), m (n, B, H) = -inf, all f32 (index 0 for one layer); with ``parts``
+    (the model axis the heads split over) a rank's H / parts heads."""
+    h, pd = cfg.n_heads // parts, cfg.head_dim
     kw = dict(dtype=torch.float32, device=device)
     return {"C": torch.zeros((n, batch, h, pd, pd), **kw),
             "n": torch.zeros((n, batch, h, pd), **kw),
             "m": torch.full((n, batch, h), float("-inf"), **kw)}
 
 
+def _mlstm_parts(mixer: nn.Module, cfg: XLSTMConfig, par) -> None:
+    """The mixer's view, its local heads ``h`` and inner width ``di``, and
+    its layout over ``model`` (see the module docstring)."""
+    mixer.par = par = optional(par).over(cfg.n_heads)
+    m = par.model_size
+    mixer.h, mixer.di = cfg.n_heads // m, cfg.d_inner // m
+
+
+def _mark_mlstm(mixer: nn.Module, cfg: XLSTMConfig) -> None:
+    """The heads over ``model``: the spec's ``wq``/``wk``/``wv`` (heads-out)
+    and ``down`` (heads-in), but ``up`` by sections [x_inner whole, z by
+    heads] (the spec cuts across them), ``w_if`` and its bias [i, f] by
+    heads (the spec cuts ``w_if`` across, replicates the bias) and
+    ``out_norm`` by heads (replicated in the spec)."""
+    par = mixer.par
+    m, r, di, h = par.model_size, par.model_rank, cfg.d_inner, cfg.n_heads
+    gates = Layout(-1, m, r, ((h, True), (h, True)))
+    mark_by_rule(mixer, par, departures={
+        "up.w": Layout(-1, m, r, ((di, False), (di, True))), "w_if.w": gates,
+        "w_if.b": gates, "out_norm.scale": Layout(-1, m, r)})
+
+
 class MLSTM(nn.Module):
     """The mLSTM mixer: ``up`` to [x_inner, z gate], ``wq, wk, wv`` over
     x_inner, input/forget gate pre-activations ``w_if`` (+ bias), the
-    output norm and ``down``."""
+    output norm and ``down``; with ``par`` this rank's heads (see the module
+    docstring)."""
 
-    def __init__(self, cfg: XLSTMConfig, *, dtype: torch.dtype = torch.float32, device=None):
+    def __init__(self, cfg: XLSTMConfig, *, dtype: torch.dtype = torch.float32, device=None,
+                 par=None):
         super().__init__()
         self.cfg = cfg
-        di = cfg.d_inner
+        _mlstm_parts(self, cfg, par)
+        di, dl = cfg.d_inner, self.di
         kw = dict(dtype=dtype, device=device)
-        self.up = Linear(cfg.d_model, 2 * di, **kw)
-        self.wq = Linear(di, di, **kw)
-        self.wk = Linear(di, di, **kw)
-        self.wv = Linear(di, di, **kw)
-        self.w_if = Linear(di, 2 * cfg.n_heads, bias=True, **kw)
-        self.out_norm = RMSNorm(di, **kw)
-        self.down = Linear(di, cfg.d_model, **kw)
+        self.up = Linear(cfg.d_model, di + dl, **kw)
+        self.wq = Linear(di, dl, **kw)
+        self.wk = Linear(di, dl, **kw)
+        self.wv = Linear(di, dl, **kw)
+        self.w_if = Linear(di, 2 * self.h, bias=True, **kw)
+        self.out_norm = RMSNorm(dl, par=self.par, **kw)
+        self.down = Linear(dl, cfg.d_model, **kw)
+        _mark_mlstm(self, cfg)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """The reference's ``mlstm_init``, drawn in its order."""
@@ -146,17 +188,18 @@ class MLSTM(nn.Module):
 
     def _project(self, x: torch.Tensor):
         """x (..., d_model) -> (q, k, v (..., H, D) f32, li, lf (..., H) f32,
-        the z gate in x's dtype)."""
+        the z gate in x's dtype); the rank's heads under ``par``."""
         cfg = self.cfg
-        xi, z = torch.chunk(self.up(x), 2, dim=-1)
-        heads = x.shape[:-1] + (cfg.n_heads, cfg.head_dim)
+        xi, z = torch.split(self.up(x, shared_sections(self.up.w, self.par.model_group)),
+                            [cfg.d_inner, self.di], dim=-1)
+        heads = x.shape[:-1] + (self.h, cfg.head_dim)
         q, k, v = (lin(xi).reshape(heads).to(torch.float32) for lin in (self.wq, self.wk,
                                                                           self.wv))
         li, lf_raw = torch.chunk(self.w_if(xi).to(torch.float32), 2, dim=-1)
         return q, k, v, li, F.logsigmoid(lf_raw), z
 
     def _out(self, hval: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
-        return self.down(self.out_norm(hval) * F.silu(z))
+        return leave(self.down(self.out_norm(hval) * F.silu(z)), self.par)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """The reference's ``mlstm_forward``: x (..., S, d_model) -> (..., S,
@@ -165,7 +208,7 @@ class MLSTM(nn.Module):
         reference asserts; padding would change the result)."""
         cfg = self.cfg
         lead, s = x.shape[:-2], x.shape[-2]
-        q, k, v, li, lf, z = self._project(x)
+        q, k, v, li, lf, z = self._project(enter(x, self.par))
         qn = min(cfg.chunk, s)
         if s % qn:
             raise ValueError(f"mlstm_forward: the sequence length {s} is not a multiple of "
@@ -174,7 +217,7 @@ class MLSTM(nn.Module):
                            for t in (q, k, v, li, lf))
         b = q.shape[0]
         sdt = STATE_DTYPES[cfg.state_dtype]
-        h, pd = cfg.n_heads, cfg.head_dim
+        h, pd = self.h, cfg.head_dim
         carry = (torch.zeros((b, h, pd, pd), dtype=torch.float32, device=x.device),
                  torch.zeros((b, h, pd), dtype=torch.float32, device=x.device),
                  torch.full((b, h), float("-inf"), dtype=torch.float32, device=x.device))
@@ -185,7 +228,7 @@ class MLSTM(nn.Module):
             carry, hc = _mlstm_chunk(carry, q[:, part], k[:, part], v[:, part], lf[:, part],
                                      li[:, part], scale, sdt)
             hs.append(hc)
-        out = torch.cat(hs, dim=1).reshape(lead + (s, cfg.d_inner)).to(x.dtype)
+        out = torch.cat(hs, dim=1).reshape(lead + (s, self.di)).to(x.dtype)
         return self._out(out, z)
 
     def decode(self, x: torch.Tensor, cache: Cache) -> torch.Tensor:
@@ -194,7 +237,7 @@ class MLSTM(nn.Module):
         place."""
         cfg = self.cfg
         b = x.shape[0]
-        hh, pd = cfg.n_heads, cfg.head_dim
+        hh, pd = self.h, cfg.head_dim
         q, k, v, li, lf, z = self._project(x[:, 0])
         ks = k * (1.0 / math.sqrt(pd))
         m_prev = cache["m"]
@@ -208,7 +251,7 @@ class MLSTM(nn.Module):
         m_prev.copy_(m_new)
         num = torch.bmm(q.reshape(-1, 1, pd), C).reshape(b, hh, pd)
         den = torch.maximum(torch.einsum("bhd,bhd->bh", q, n).abs(), torch.exp(-m_new))
-        hval = (num / den[..., None]).reshape(b, cfg.d_inner).to(x.dtype)
+        hval = (num / den[..., None]).reshape(b, self.di).to(x.dtype)
         return self._out(hval, z)[:, None, :]
 
 
@@ -216,21 +259,23 @@ class StackedMLSTM(nn.Module):
     """n slots' :class:`MLSTM` (the same parameters, each with a leading
     slot axis): x (n, B, S, d_model).  The projections run a product a slot;
     the chunked einsums over the folded n * B batch (:meth:`MLSTM.forward`
-    folds the leading axes)."""
+    folds the leading axes); ``par`` as :class:`MLSTM`'s."""
 
     def __init__(self, cfg: XLSTMConfig, n: int, *, dtype: torch.dtype = torch.float32,
-                 device=None):
+                 device=None, par=None):
         super().__init__()
         self.cfg = cfg
-        di = cfg.d_inner
+        _mlstm_parts(self, cfg, par)
+        di, dl = cfg.d_inner, self.di
         kw = dict(dtype=dtype, device=device)
-        self.up = StackedLinear(n, cfg.d_model, 2 * di, **kw)
-        self.wq = StackedLinear(n, di, di, **kw)
-        self.wk = StackedLinear(n, di, di, **kw)
-        self.wv = StackedLinear(n, di, di, **kw)
-        self.w_if = StackedLinear(n, di, 2 * cfg.n_heads, bias=True, **kw)
-        self.out_norm = StackedRMSNorm(n, di, **kw)
-        self.down = StackedLinear(n, di, cfg.d_model, **kw)
+        self.up = StackedLinear(n, cfg.d_model, di + dl, **kw)
+        self.wq = StackedLinear(n, di, dl, **kw)
+        self.wk = StackedLinear(n, di, dl, **kw)
+        self.wv = StackedLinear(n, di, dl, **kw)
+        self.w_if = StackedLinear(n, di, 2 * self.h, bias=True, **kw)
+        self.out_norm = StackedRMSNorm(n, dl, par=self.par, **kw)
+        self.down = StackedLinear(n, dl, cfg.d_model, **kw)
+        _mark_mlstm(self, cfg)
 
     _project = MLSTM._project
     _out = MLSTM._out

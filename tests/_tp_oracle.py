@@ -25,10 +25,15 @@ import numpy as np
 #: case -> (kind, smoke arch, config overrides, seq_shard): the dense_kv2
 #: decode (8 positions a model rank at 2 KV heads over 4), the train step
 #: of query heads model 4 does not divide (the reference splits inside a
-#: head), the batch-1 decode under the reference's seq_shard layout
+#: head), the batch-1 decode under the reference's seq_shard layout, the
+#: MLA serve loop (its latent's sequence over model), the Zamba2 and xLSTM
+#: train steps (in_proj's and up's columns cut across their sections)
 CASES = {"dense_kv2": ("serve", "qwen3-8b", {"n_kv_heads": 2}, False),
          "heads6": ("train", "qwen3-8b", {"n_heads": 6, "n_kv_heads": 2}, False),
-         "decode1": ("serve", "qwen3-8b", {}, True)}
+         "decode1": ("serve", "qwen3-8b", {}, True),
+         "mla": ("serve", "deepseek-v2-lite-16b", {}, False),
+         "zamba2": ("train", "zamba2-1.2b", {"attn_every": 1}, False),
+         "xlstm": ("train", "xlstm-1.3b", {}, False)}
 MESH = ((2, 4), ("data", "model"))
 LR = 0.1
 

@@ -13,21 +13,45 @@ import torch
 #: not divide (the attention block whole on each rank, its cache split
 #: over the model axis), "vocab513" a vocab it does not divide (the
 #: embedding and the head whole), "dense_kv1" one KV head (a batch-1
-#: cache over (2, 2): the panels span data and model)
+#: cache over (2, 2): the panels span data and model).  The last layer
+#: kinds: "mla" DeepSeek-V2-Lite's (4 heads, rank 64, 4 experts: its
+#: latent cache split on its sequence over every model rank), "zamba2"
+#: (8 SSD heads, d_state 16; attn_every 1 puts the shared block between
+#: its two Mamba2 layers), "xlstm" (4 heads: an mLSTM split by heads, an
+#: sLSTM whole), "xlstm_heads2" (2 heads at model 4: both mixers whole),
+#: "seamless" (the encoder and the cross-attending decoder)
 ARCHS = {"dense": ("qwen3-8b", {}, ()),
          "dense_kv2": ("qwen3-8b", {"n_kv_heads": 2}, ()),
          "dense_kv1": ("qwen3-8b", {"n_kv_heads": 1}, ()),
          "heads6": ("qwen3-8b", {"n_heads": 6, "n_kv_heads": 2}, ()),
          "vocab513": ("qwen3-8b", {"vocab": 513}, ()),
-         "moe": ("qwen3-moe-30b-a3b", {}, ("moe_shard",))}
+         "moe": ("qwen3-moe-30b-a3b", {}, ("moe_shard",)),
+         "mla": ("deepseek-v2-lite-16b", {}, ()),
+         "zamba2": ("zamba2-1.2b", {"attn_every": 1}, ()),
+         "xlstm": ("xlstm-1.3b", {}, ()),
+         "xlstm_heads2": ("xlstm-1.3b", {"n_heads": 2}, ()),
+         "seamless": ("seamless-m4t-medium", {}, ())}
+#: the last layer kinds' archs, at (1, 2), (1, 4) and (2, 2)
+FAMILIES = ("mla", "zamba2", "xlstm", "seamless")
+#: the round step over (pod, data, model): the dense stack and the
+#: stacked forms of the last layer kinds (the encoder-decoder has no
+#: Pigeon-SL protocol round)
+ROUND_CASES = ("dense", "mla", "zamba2", "xlstm")
+#: an encoder-decoder's frames a batch row (its memory's length)
+FRAMES = 12
 #: world -> [(case, mesh dims over ("data", "model"))]; "round" runs over
 #: ("pod", "data", "model"); a "decode1" case is a batch-1 serve loop (the
 #: cache's sequence over the data ranks too)
-WORLDS = {2: [("dense", (1, 2)), ("moe", (1, 2))],
+WORLDS = {2: [("dense", (1, 2)), ("moe", (1, 2))] + [(f, (1, 2)) for f in FAMILIES],
           4: [("dense", (1, 4)), ("dense", (2, 2)), ("dense_kv2", (1, 4)),
               ("heads6", (1, 4)), ("vocab513", (1, 4)), ("vocab513", (2, 2)),
-              ("moe", (1, 4)), ("moe", (2, 2)), ("round", (2, 1, 2)),
-              ("decode1", "dense", (4, 1)), ("decode1", "dense_kv1", (2, 2))]}
+              ("moe", (1, 4)), ("moe", (2, 2)),
+              ("decode1", "dense", (4, 1)), ("decode1", "dense_kv1", (2, 2)),
+              ("decode1", "mla", (2, 2)), ("xlstm_heads2", (1, 4))]
+             + [(f, dims) for f in FAMILIES for dims in ((1, 4), (2, 2))]
+             + [("round", f, (2, 1, 2)) for f in ROUND_CASES]}
+#: the case whose planted fault skips out_norm's sum-of-squares all-reduce
+NORM_FAULT = ("zamba2", (1, 2))
 LR = 0.1
 B, S, PROMPT, NEW = 4, 16, 8, 8
 
@@ -57,7 +81,8 @@ def _lm_case(case: str, dims, inputs):
     mesh = make_mesh(dims, ("data", "model"))
     model = lm_from_reference(cfg, inputs["params"], mesh)
     par = model.par
-    batch = {k: torch.from_numpy(v).long() for k, v in inputs["batch"].items()}
+    batch = {k: torch.from_numpy(v).long() if k != "frames" else torch.from_numpy(v)
+             for k, v in inputs["batch"].items()}
     loss, _ = model.loss(par.batch_rows(batch))
     grads = all_reduce_grads(torch.autograd.grad(loss, list(model.parameters())), par)
     gmodel = lm_from_reference(cfg, inputs["params"], mesh)
@@ -73,23 +98,47 @@ def _lm_case(case: str, dims, inputs):
                 if ".attn." in name and layout(p) is None:
                     collective("all_reduce", p.data, par.model_group)
         out["planted_grads"] = lm_to_reference(gmodel)
+    if (case, dims) == NORM_FAULT:
+        out.update(_norm_fault(cfg, inputs, mesh, batch))
     with torch.no_grad():
         out["prefill"] = steps.make_prefill_step(model)(batch).numpy()
     out["step_loss"] = float(steps.make_train_step(model, LR)(batch))
     out["updated"] = lm_to_reference(model)
     model = lm_from_reference(cfg, inputs["params"], mesh)
     prompts = torch.from_numpy(inputs["batch"]["tokens"][:, :PROMPT]).long()
-    try:
-        cache = model.init_cache(B, PROMPT + NEW)
-    except NotImplementedError as e:
-        out["decode_refused"] = str(e)
-        return out
-    tokens, logits = serve.greedy_decode(steps.make_serve_step(model), cache, prompts, NEW)
+    cache = model.init_cache(B, PROMPT + NEW)
+    memory = None if "memory" not in inputs else torch.from_numpy(inputs["memory"])
+    tokens, logits = serve.greedy_decode(steps.make_serve_step(model), cache, prompts, NEW,
+                                         memory)
     out["tokens"], out["prompt_logits"] = tokens.numpy(), logits.numpy()
-    out["cache_heads"] = int(cache[0]["k"].shape[-2])
-    out["cache_positions"] = int(cache[0]["k"].shape[-3])
+    out["cache_shapes"] = {f"{i}/{k}": tuple(t.shape) for i, c in enumerate(cache)
+                           for k, t in c.items()}
     out["panels"] = cache.panels.count
     return out
+
+
+def _norm_fault(cfg, inputs, mesh, batch):
+    """A planted fault: ``out_norm``'s sum of squares left unreduced over
+    ``model`` (each rank normalising by its own heads' mean): the
+    gradients and the prefill logits, which the comparisons must fail."""
+    from repro_torch.convert import lm_from_reference, lm_to_reference
+    from repro_torch.launch import steps
+    from repro_torch.models import parallel
+    from repro_torch.models.parallel import all_reduce_grads
+    saved = parallel.sum_over
+    parallel.sum_over = lambda x, par: x
+    try:
+        model = lm_from_reference(cfg, inputs["params"], mesh)
+        loss, _ = model.loss(model.par.batch_rows(batch))
+        grads = all_reduce_grads(torch.autograd.grad(loss, list(model.parameters())),
+                                 model.par)
+        with torch.no_grad():
+            prefill = steps.make_prefill_step(model)(batch).numpy()
+            for p, g in zip(model.parameters(), grads):
+                p.copy_(g)
+    finally:
+        parallel.sum_over = saved
+    return dict(planted_norm_grads=lm_to_reference(model), planted_norm_prefill=prefill)
 
 
 def _decode1(case: str, dims, inputs):
@@ -107,10 +156,10 @@ def _decode1(case: str, dims, inputs):
                                          torch.from_numpy(inputs["prompt"]).long(), NEW)
     return dict(tokens=tokens.numpy(), prompt_logits=logits.numpy(), panels=cache.panels.count,
                 rows_whole=cache.panels.rows_whole,
-                cache_shape=tuple(cache[0]["k"].shape))
+                cache_shape=tuple(next(iter(cache[0].values())).shape))
 
 
-def _round(dims, inputs):
+def _round(case, dims, inputs):
     """The round step over (pod, data, model): a slot a pod, the parallel
     model within it."""
     import torch.distributed as dist
@@ -118,7 +167,7 @@ def _round(dims, inputs):
     from repro_torch.convert import lm_slot_to_reference, lm_stack_from_reference
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.steps import make_pigeon_round_step_shardmap
-    cfg = config("dense")
+    cfg = config(case)
     mesh = make_mesh(dims, ("pod", "data", "model"))
     pod = mesh.coord("pod")
     model = lm_stack_from_reference(cfg, [inputs["trees"][pod]], mesh)
@@ -136,7 +185,8 @@ def run_world(world: int, inputs, nice: int = 0):
     out = {}
     for case, *rest in WORLDS[world]:
         if case == "round":
-            out[(case, rest[0])] = _round(rest[0], inputs["round"])
+            name, dims = rest
+            out[(case, name, dims)] = _round(name, dims, inputs[("round", name)])
         elif case == "decode1":
             name, dims = rest
             out[(case, name, dims)] = _decode1(name, dims, inputs[("decode1", name)])

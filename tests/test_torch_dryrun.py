@@ -285,11 +285,6 @@ def test_decode_dry_run_uses_the_last_position():
     assert np.isfinite(rec["roofline"]["useful_ratio"])
 
 
-#: the arch families whose production-mesh cells still raise, each naming
-#: its item of ROADMAP Queue A (14.3-14.7)
-LATER = {"deepseek-v2-lite-16b", "zamba2-1.2b", "xlstm-1.3b", "seamless-m4t-medium"}
-
-
 @pytest.fixture(scope="module")
 def production_cells():
     """Every applicable (arch, shape) on both production meshes, as
@@ -299,27 +294,87 @@ def production_cells():
             for shape in SHAPES if applicable(arch, shape)[0] for mp in (False, True)]
 
 
-def test_production_meshes_pass_40_of_68_cells(production_cells):
-    """40 of the 68 cells pass: every decode cell of a GQA arch (the
-    sequence-sharded cache) and Qwen2.5-14B's and InternVL2-26B's (their
-    whole attention and vocab); the 28 others raise, each naming items
-    14.3-14.7."""
+def _kv_layers(cfg) -> int:
+    """The layers whose decode step runs B6 (a GQA KV cache): MLA's
+    absorbed decode and the mixers run none."""
+    from repro_torch.models.model import build_plan
+    if cfg.kv_lora_rank:
+        return 0
+    return sum(sp.n for sp in build_plan(cfg)
+               if sp.kind in ("attn_mlp", "dense_mlp", "moe", "dec_cross", "shared_attn"))
+
+
+def _panelled(cfg, shape, m: int = 16) -> bool:
+    """Whether a rank's decode cache is a panel of the sequence at model m
+    (the reference's ``cache_shardings``): a batch of 1 (its sequence over
+    the data axes), MLA's latent (no head axis), a KV head that several
+    model ranks share or heads that m does not divide (the block whole)."""
+    return (shape.global_batch == 1 or bool(cfg.kv_lora_rank)
+            or cfg.n_heads % m != 0 or cfg.n_kv_heads % m != 0)
+
+
+def _departing(arch: str, m: int = 16) -> set:
+    """The leaves (reference paths) whose layout at model m departs from
+    the reference's spec, as ``test_torch_shardings._documented_layout``
+    names them."""
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.launch import shardings as tsh
+    from repro_torch.models.model import Model, build_plan
+    from test_torch_shardings import _documented_layout, _leaves
+    cfg = get_config(arch)
+    plan = build_plan(cfg)
+    mesh = tmesh.abstract_mesh((1, m), ("data", "model"))
+    specs = tsh.param_shardings(Model(cfg, plan, torch.device("meta"), par=mesh.parallel()),
+                                mesh)
+    out = set()
+    for path, spec in specs.items():
+        want = (spec.index("model") - len(spec), m, None) if "model" in spec else None
+        if _documented_layout(cfg, plan, m, path, want) != want:
+            out.add(path)
+    return out
+
+
+def test_production_meshes_pass_every_cell(production_cells):
+    """Every one of the 68 cells passes, every layer kind at model 16: the
+    sequence-sharded caches, the whole layers, MLA, Mamba2 and the shared
+    block, mLSTM/sLSTM and the encoder-decoder.  A decode cell runs B6 once
+    a GQA layer: its partial mode, with an all-gather of the partials a
+    layer, where the rank's cache is a panel of the sequence, else the
+    whole-cache kernel; MLA's absorbed decode gathers the heads' queries
+    and the partials a layer.  Every cell records the parameters' bytes a
+    rank beside the reference spec's, departing only on the leaves
+    ``_documented_layout`` names."""
     ok = [r for r in production_cells if r["ok"]]
-    bad = [r for r in production_cells if not r["ok"]]
-    assert (len(production_cells), len(ok), len(bad)) == (68, 40, 28)
-    assert {r["arch"] for r in bad} == LATER and not {r["arch"] for r in ok} & LATER
-    for r in bad:
-        assert "NotImplementedError" in r["error"] and "14.3-14.7" in r["error"], r["error"]
+    assert (len(production_cells), len(ok)) == (68, 68), [
+        (r["arch"], r["shape"], r["mesh"], r["error"]) for r in production_cells if not r["ok"]]
+    departing = {arch: _departing(arch) for arch in {r["arch"] for r in ok}}
     for r in ok:
-        assert r["memory"]["argument_bytes"] > 0, (r["arch"], r["shape"])
+        cell = (r["arch"], r["shape"], r["mesh"])
+        assert r["memory"]["argument_bytes"] > 0, cell
         assert sum(r["ops"]["collectives_by_kind"].values()) == \
-            r["ops"]["collective_bytes_per_device"] > 0, (r["arch"], r["shape"])
-        if SHAPES[r["shape"]].kind == "decode":
-            # B6's partial mode a layer on every panel, one all-gather of the
-            # partials a layer
-            cfg = get_config(r["arch"])
-            assert r["ops"]["kernels"]["decode_attention_partial"] == cfg.n_layers
-            assert r["ops"]["collective_counts"]["all_gather"] >= cfg.n_layers
+            r["ops"]["collective_bytes_per_device"] > 0, cell
+        pb = r["memory"]["param_bytes"]
+        assert pb["held"] > 0 and pb["spec"] > 0, cell
+        assert set(pb["departures"]) <= departing[r["arch"]], cell
+        if r["arch"] == "xlstm-1.3b":
+            # its 4 heads at 16: the mixers whole
+            assert (round(pb["held"] / 1e9, 3), round(pb["spec"] / 1e9, 3)) == \
+                (6.673, 0.680), cell
+        shape = SHAPES[r["shape"]]
+        if shape.kind != "decode":
+            continue
+        cfg = get_config(r["arch"])
+        kernels, gathers = r["ops"]["kernels"], r["ops"]["collective_counts"].get("all_gather", 0)
+        kv = _kv_layers(cfg)
+        if cfg.kv_lora_rank:
+            assert "decode_attention" not in kernels and "decode_attention_partial" not in kernels
+            assert gathers >= 2 * cfg.n_layers, cell
+        elif _panelled(cfg, shape):
+            assert kernels.get("decode_attention_partial", 0) == kv, cell
+            assert "decode_attention" not in kernels and gathers >= kv, cell
+        else:
+            assert kernels.get("decode_attention", 0) == kv, cell
+            assert "decode_attention_partial" not in kernels, cell
 
 
 def test_seq_shard_cache_record(tmp_path):

@@ -193,14 +193,54 @@ def pair():
 
 
 def test_plan_parameters_and_no_stacked_form():
+    """The plan and parameter count; the protocol's stacked form
+    (``from_lm``'s) is refused, while the launch round step's
+    ``StackedModel`` holds every slot's encoder and refuses a split (the
+    cut message carries the memory)."""
     cfg = tconfigs.get_config(ARCH)
     model = Model(cfg, build_plan(cfg), "meta")
     assert [(sp.kind, sp.n) for sp in model.plan] == [("dec_cross", 12)]
     assert model.encoder.stacks[0].kind == "enc" and model.encoder.stacks[0].n == 12
     assert sum(p.numel() for p in model.parameters()) == SEAMLESS_PARAMS
     assert all(build_plan(tconfigs.get_config(a)) for a in tconfigs.list_archs())
-    with pytest.raises(NotImplementedError, match="no Pigeon-SL round"):
-        build_stacked_model(tconfigs.get_smoke_config(ARCH), 2, device="cpu")
+    with pytest.raises(ValueError, match="no Pigeon-SL round"):
+        from_lm(build_model(tconfigs.get_smoke_config(ARCH), "cpu"))
+    stacked = build_stacked_model(tconfigs.get_smoke_config(ARCH), 2, device="cpu")
+    assert stacked.encoder.stacks[0].n == 2
+    with pytest.raises(ValueError, match="from_lm takes no encoder-decoder"):
+        stacked.split_params()
+
+
+def test_stacked_round_step_matches_reference():
+    """The launch layer's round step over two slots of the smoke
+    SeamlessM4T-medium (each slot encoding its own frames) against the
+    reference's ``make_pigeon_round_step`` (its vmap over the slots) from
+    the same two inits: ``sel`` exactly, the validation losses and the
+    winner's parameters within the module's tolerances."""
+    from repro_torch.convert import lm_slot_to_reference, lm_stack_from_reference
+    cfg = _smoke_cfg()
+    jm = jax_build_model(cfg)
+    trees = [_np_tree(jax.jit(jm.init)(jax.random.PRNGKey(s))) for s in (0, 1)]
+    rng = np.random.default_rng(9)
+    batches = {k: rng.integers(0, cfg.vocab, (2, B, S)).astype(np.int32)
+               for k in ("tokens", "labels")}
+    batches["frames"] = rng.normal(size=(2, B, FRAMES, cfg.d_model)).astype(np.float32)
+    val = {k: rng.integers(0, cfg.vocab, (B, S)).astype(np.int32) for k in ("tokens", "labels")}
+    val["frames"] = rng.normal(size=(B, FRAMES, cfg.d_model)).astype(np.float32)
+    stacked = jax.tree.map(lambda *xs: jnp.stack(xs), *trees)
+    new, vl, sel = jax.jit(jsteps.make_pigeon_round_step(jm, 0.1))(
+        stacked, {k: jnp.asarray(v) for k, v in batches.items()},
+        {k: jnp.asarray(v) for k, v in val.items()})
+    tcfg = ModelConfig(**dataclasses.asdict(cfg))
+    model = lm_stack_from_reference(tcfg, trees)
+    tvl, tsel = tsteps.make_pigeon_round_step(model, 0.1)(
+        {k: torch.from_numpy(v) for k, v in batches.items()},
+        {k: torch.from_numpy(v) for k, v in val.items()})
+    assert int(tsel) == int(sel)
+    _close(tvl.numpy(), np.asarray(vl))
+    got, want = lm_slot_to_reference(model, 0), jax.tree.map(lambda x: np.asarray(x[0]), new)
+    for a, b in zip(jax.tree.leaves(got), jax.tree.leaves(want)):
+        _close(a, b)
 
 
 def test_encoder_matches_reference(pair):

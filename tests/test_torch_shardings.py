@@ -120,69 +120,125 @@ def test_stacked_model_leaves_lead_with_the_slot_axis(ref_shapes):
                                          for k, s in ref_shapes["qwen3-moe-30b-a3b"][0].items()}
 
 
-def _gqa_archs():
-    """The archs whose parallel model builds at a model axis > 1 (GQA,
-    kinds ``attn_mlp``/``dense_mlp``/``moe``)."""
-    return [arch for arch in ARCHS
-            if not get_config(arch).kv_lora_rank and {sp.kind for sp in build_plan(
-                get_config(arch))} <= {"attn_mlp", "dense_mlp", "moe"}]
-
-
-#: the production cells whose layers the port holds whole where the
-#: reference shards them: Qwen2.5-14B's attention (40 heads at 16: the
-#: reference splits wq's 5,120 columns inside a head) and InternVL2-26B's
-#: vocab (92,553 at 16: both replicate it), with its 8 KV heads each on 2
-#: ranks
-WHOLE_LAYER_CELLS = [("qwen2.5-14b", 16), ("internvl2-26b", 16)]
-
-
 def _tp_cases():
-    """(arch, m) of every GQA arch with m dividing its heads, KV heads and
-    vocab, and :data:`WHOLE_LAYER_CELLS`."""
-    cases = []
-    for arch in _gqa_archs():
-        cfg = get_config(arch)
-        cases += [(arch, m) for m in MODEL_SIZES[1:]
-                  if not (cfg.n_heads % m or cfg.n_kv_heads % m or cfg.vocab % m)]
-    return cases + WHOLE_LAYER_CELLS
+    """(arch, m) of every arch at every model axis above 1: the documented
+    departures (:func:`_documented_layout`) where m does not divide a
+    dim."""
+    return [(arch, m) for arch in ARCHS for m in MODEL_SIZES[1:]]
 
 
-def _documented_layout(cfg, m, path, spec_layout):
-    """The port's layout of a leaf where it departs from the spec: an
-    attention block whose query heads m does not divide held whole
-    (replicated); a KV head held whole on the m / Hkv ranks whose query
-    heads read it (Hkv pieces); else the spec's."""
-    if "/attn/" in path and cfg.n_heads % m:
+def _documented_layout(cfg, plan, m, path, spec_layout):
+    """The port's layout of a leaf, (dim, parts, sections), where it departs
+    from the reference's spec, else the spec's (``spec_layout``):
+
+      * an attention block whose query heads m does not divide: whole
+        (replicated; the spec splits ``wq`` inside a head);
+      * a KV head held whole on the m / Hkv ranks whose query heads read it
+        (Hkv pieces);
+      * MLA's ``w_dkv`` whole (the spec cuts its 576 columns across the
+        latent and the rope key; ``kv_norm`` reads the latent whole);
+      * Mamba2 by heads: ``in_proj`` by sections [z, x by heads, B, C
+        whole, dt by heads] (the spec cuts the concatenation straight
+        across), ``conv_w``/``conv_b`` [x by heads, B, C whole] and
+        ``A_log``, ``dt_bias``, ``D``, ``out_norm`` by heads (the spec
+        replicates them);
+      * the mLSTM by heads: ``up`` [x_inner whole, z by heads] (the spec
+        cuts across), ``w_if`` (and its bias, which the spec replicates)
+        [i, f] by heads, ``out_norm`` by heads; where m does not divide the
+        heads, the mLSTM whole (the spec splits ``up``, ``wq``/``wk``/``wv``
+        inside a head and ``down``'s rows);
+      * the sLSTM whole (the spec splits ``down``'s rows): its recurrence
+        couples every head."""
+    parts = path.split("/")
+    leaf = parts[-2] if parts[-1] in ("w", "b", "scale") else parts[-1]
+    kind = plan[int(parts[1])].kind if parts[0] == "stacks" else "enc"
+    if kind in ("mamba", "mlstm", "slstm"):
+        di, h = 2 * cfg.d_model, (2 * cfg.d_model // 64 if kind == "mamba" else cfg.n_heads)
+        if kind == "slstm" or h % m:
+            return None
+        if kind == "mamba":
+            xbc = ((di, True), (cfg.ssm_state, False), (cfg.ssm_state, False))
+            sections = {"in_proj": ((di, True),) + xbc + ((h, True),), "conv_w": xbc,
+                        "conv_b": xbc}
+            if leaf in sections:
+                return (-1, m, sections[leaf])
+            if leaf in ("A_log", "dt_bias", "D", "out_norm"):
+                return (-1, m, None)
+        else:
+            sections = {"up": ((di, False), (di, True)), "w_if": ((h, True), (h, True))}
+            if leaf in sections:
+                return (-1, m, sections[leaf])
+            if leaf == "out_norm":
+                return (-1, m, None)
+        return spec_layout
+    attn = any(a in parts for a in ("attn", "self_attn", "cross_attn"))
+    if attn and cfg.n_heads % m:
         return None
-    if "/attn/w" in path and path.split("/")[-2] in ("wk", "wv") and cfg.n_kv_heads % m:
-        return (-1, cfg.n_kv_heads)
+    if attn and leaf == "w_dkv":
+        return None
+    if attn and not cfg.kv_lora_rank and leaf in ("wk", "wv") and cfg.n_kv_heads % m:
+        return (-1, cfg.n_kv_heads, None)
     return spec_layout
+
+
+def _leaves(model):
+    """{reference path: parameter} of a port ``Model``: each stack's first
+    layer, and an encoder-decoder's encoder."""
+    leaves = {"embed": model.embedding, "final_norm/scale": model.final_norm.scale,
+              "head/w": model.head.w}
+    stacks = [(f"stacks/{i}", stack) for i, stack in enumerate(model.stacks)]
+    if model.encoder is not None:
+        stacks.append(("encoder/stacks/0", model.encoder.stacks[0]))
+        leaves["encoder/norm/scale"] = model.encoder.norm.scale
+    for prefix, stack in stacks:
+        for name, p in stack.layers[0].named_parameters():
+            leaves[f"{prefix}/{name.replace('.', '/')}"] = p
+    return leaves
 
 
 @pytest.mark.parametrize("arch,m", _tp_cases())
 def test_parallel_layout_is_the_param_shardings_spec(arch, m):
     """Each parameter's recorded layout (``parallel.mark``: what
     ``shard_params``/``gather_params`` read) puts the model axis on the dim
-    ``param_shardings``' spec gives it, in m pieces, and a replicated leaf
-    is replicated in both, leaf for leaf, but for the documented whole
-    layers and shared KV heads (:func:`_documented_layout`)."""
+    ``param_shardings``' spec gives it, in m contiguous pieces, and a
+    replicated leaf is replicated in both, leaf for leaf, but for the
+    documented departures (:func:`_documented_layout`)."""
     from repro_torch.models.parallel import layout
     cfg = get_config(arch)
+    plan = build_plan(cfg)
     mesh = tmesh.abstract_mesh((1, m), ("data", "model"))
-    model = Model(cfg, build_plan(cfg), META, par=mesh.parallel())
+    model = Model(cfg, plan, META, par=mesh.parallel())
     specs = tsh.param_shardings(model, mesh)
-    leaves = {"embed": model.embedding, "final_norm/scale": model.final_norm.scale,
-              "head/w": model.head.w}
-    for i, stack in enumerate(model.stacks):
-        for name, p in stack.layers[0].named_parameters():
-            leaves[f"stacks/{i}/{name.replace('.', '/')}"] = p
+    leaves = _leaves(model)
     assert sorted(leaves) == sorted(specs)
     for path, p in leaves.items():
         spec = specs[path]
         want = _documented_layout(
-            cfg, m, path, (spec.index("model") - len(spec), m) if "model" in spec else None)
+            cfg, plan, m, path,
+            (spec.index("model") - len(spec), m, None) if "model" in spec else None)
         lay = layout(p)
-        assert (lay and lay[:2]) == want, path
+        assert (lay and (lay.dim, lay.parts, lay.sections)) == want, path
+
+
+def test_sectioned_layout_cuts_each_section():
+    """``shard_param`` cuts each section of a sectioned leaf (a split
+    section in m pieces, a whole one as it is) and ``whole_shape`` gives
+    the whole leaf back: Mamba2's ``in_proj`` at m 4, piece by piece equal
+    to the reference's sections cut by heads."""
+    from repro_torch.models import parallel
+    whole = torch.arange(2 * 22, dtype=torch.float32).view(2, 22)  # [z 8, x 8, B 2, C 2, dt 2]
+    sections = ((8, True), (8, True), (2, False), (2, False), (2, True))
+    got = []
+    for r in range(2):
+        p = torch.empty((2, 4 + 4 + 2 + 2 + 1))
+        parallel.mark(p, -1, 2, r, sections)
+        tsh.shard_param(p, whole)
+        assert tsh.whole_shape(p) == (2, 22)
+        got.append(p)
+        z, x, b, c, dt = whole.split([8, 8, 2, 2, 2], dim=-1)
+        want = torch.cat([z[:, 4 * r:4 * r + 4], x[:, 4 * r:4 * r + 4], b, c, dt[:, r:r + 1]],
+                         dim=-1)
+        assert torch.equal(p, want)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -277,27 +333,28 @@ def test_shard_and_gather_params_round_trip():
 
 
 def _cache_cells():
-    """(arch, shape, multi_pod) of every GQA arch's decode shapes on both
+    """(arch, shape, multi_pod) of every arch's decode shapes on both
     production meshes."""
     from repro_torch.launch.shapes import applicable
-    return [(arch, shape, multi) for arch in _gqa_archs()
+    return [(arch, shape, multi) for arch in ARCHS
             for shape in ("decode_32k", "long_500k") if applicable(arch, shape)[0]
             for multi in (False, True)]
-
-
-def _nbytes(cache) -> int:
-    return sum(t.numel() * t.element_size() for c in cache for t in c.values())
 
 
 @pytest.mark.parametrize("arch,shape,multi", _cache_cells())
 def test_sequence_sharded_cache_holds_the_reference_spec_bytes(arch, shape, multi):
     """A rank's decode cache on the abstract production mesh against
     ``local_bytes`` of the reference's spec (``cache_shardings`` with
-    ``seq_shard`` at a batch of 1, as the reference's ``input_specs``):
-    equal where the model ranks that share a KV head split its sequence
-    (the spec's ``model`` on the sequence, ``decode_32k``), no more where
-    the data ranks split it too (``long_500k``: the spec replicates the KV
-    heads over ``model``, the port keeps a rank's own)."""
+    ``seq_shard`` at a batch of 1, as the reference's ``input_specs``),
+    leaf by leaf: equal where the model ranks that share a KV head (or
+    MLA's latent, which has no head axis) split its sequence (the spec's
+    ``model`` on the sequence, ``decode_32k``), no more where the data
+    ranks split it too (``long_500k``: the spec replicates the KV heads
+    over ``model``, the port keeps a rank's own).  Two documented
+    departures: Mamba2's convolution inputs hold the rank's x channels and
+    the whole B and C (the spec replicates them over ``model``: fewer
+    bytes), and the sLSTM's state is whole on each model rank (the spec
+    splits its d over ``model``)."""
     from repro_torch.launch.mesh import PRODUCTION
     from repro_torch.launch.steps import SHAPES, apply_shape_settings
     sh = SHAPES[shape]
@@ -305,23 +362,35 @@ def test_sequence_sharded_cache_holds_the_reference_spec_bytes(arch, shape, mult
     dims, axes = PRODUCTION[multi]
     mesh = tmesh.abstract_mesh(dims, axes)
     seq_shard = sh.global_batch == 1
-    cache = Model(cfg, build_plan(cfg), META, mesh.parallel()).init_cache(
+    plan = build_plan(cfg)
+    cache = Model(cfg, plan, META, mesh.parallel()).init_cache(
         sh.global_batch, sh.seq_len, seq_shard)
-    whole = Model(cfg, build_plan(cfg), META).init_cache(sh.global_batch, sh.seq_len)
+    whole = Model(cfg, plan, META).init_cache(sh.global_batch, sh.seq_len)
     specs = tsh.cache_shardings(whole, mesh, sh.global_batch, seq_shard)
-    want = sum(tsh.local_bytes(t.shape, t.element_size(), specs[name], mesh)
-               for name, t in ((f"{i}/{k}", t) for i, c in enumerate(whole)
-                               for k, t in c.items()))
-    got = _nbytes(cache)
     assert cache.panels.rows_whole == seq_shard
+    attention = ("k", "v", "latent", "k_rope")
     if seq_shard:
-        # the reference's layout: the KV caches' sequence over the data axes
+        # the reference's layout: the attention caches' sequence over the data axes
         data = tuple(a for a in axes if a != "model")
-        assert {spec[2] for name, spec in specs.items() if name.endswith(("/k", "/v"))} == {
-            data if len(data) > 1 else data[0]}
-        assert got <= want
-    else:
-        assert got == want, (got, want)
+        seq = {name: spec[len(spec) - (2 if name.endswith(("latent", "k_rope")) else 3)]
+               for name, spec in specs.items() if name.split("/")[-1] in attention}
+        assert set(seq.values()) <= {data if len(data) > 1 else data[0]}, seq
+    for i, (sp, c, w) in enumerate(zip(plan, cache, whole)):
+        for name, t in w.items():
+            want = tsh.local_bytes(t.shape, t.element_size(), specs[f"{i}/{name}"], mesh)
+            got = c[name].numel() * c[name].element_size()
+            what = (arch, shape, multi, f"{i}/{name}", got, want)
+            if sp.kind == "mamba" and name == "conv":
+                assert got < want, what
+            elif sp.kind == "slstm":
+                whole_over_model = tuple(None if a == "model" else a
+                                         for a in specs[f"{i}/{name}"])
+                assert got == tsh.local_bytes(t.shape, t.element_size(), whole_over_model,
+                                              mesh), what
+            elif seq_shard and name in attention:
+                assert got <= want, what
+            else:
+                assert got == want, what
 
 
 @pytest.mark.parametrize("m", [2, 4, 8])

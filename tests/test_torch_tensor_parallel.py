@@ -63,6 +63,8 @@ NICE = 10
 LOSS_RTOL, GRAD_RTOL = 1e-5, 1e-4
 LM_CASES = [(case, rest[0]) for world in ranks.WORLDS for case, *rest in ranks.WORLDS[world]
             if case not in ("round", "decode1")]
+ROUND_CASES = [tuple(rest) for world in ranks.WORLDS for case, *rest in ranks.WORLDS[world]
+               if case == "round"]
 DECODE1_CASES = [tuple(rest) for world in ranks.WORLDS for case, *rest in ranks.WORLDS[world]
                  if case == "decode1"]
 ORACLE_DIR = os.path.dirname(os.path.abspath(__file__))
@@ -84,17 +86,17 @@ def _close(got, want, rtol, what):
     np.testing.assert_allclose(got, want, rtol=rtol, atol=rtol * scale, err_msg=what)
 
 
-def _serve_loop(jm, params, prompts, new):
+def _serve_loop(jm, params, prompts, new, memory=None):
     cache = jm.init_cache(prompts.shape[0], prompts.shape[1] + new)
     step = jax.jit(jm.decode_step)
     for i in range(prompts.shape[1]):
-        logits, cache = step(params, cache, jnp.asarray(prompts[:, i:i + 1]), i)
+        logits, cache = step(params, cache, jnp.asarray(prompts[:, i:i + 1]), i, memory)
     prompt_logits = np.asarray(logits)
     out = []
     for j in range(new):
         tok = jnp.argmax(logits[:, -1, :], axis=-1)[:, None].astype(jnp.int32)
         out.append(np.asarray(tok))
-        logits, cache = step(params, cache, tok, prompts.shape[1] + j)
+        logits, cache = step(params, cache, tok, prompts.shape[1] + j, memory)
     return np.concatenate(out, axis=1), prompt_logits
 
 
@@ -106,18 +108,26 @@ def _reference_lm(case):
     rng = np.random.default_rng(7)
     batch = {k: rng.integers(0, cfg.vocab, (ranks.B, ranks.S)).astype(np.int32)
              for k in ("tokens", "labels")}
+    if cfg.arch_type in ("encdec", "audio"):
+        batch["frames"] = rng.normal(size=(ranks.B, ranks.FRAMES, cfg.d_model)
+                                     ).astype(np.float32)
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    inputs = dict(batch=batch)
     # moe_shard's constraints need an ambient mesh: one device's
     with Mesh(np.array(jax.devices()[:1]).reshape(1, 1), ("data", "model")):
         (loss, _), grads = jax.jit(jax.value_and_grad(jm.loss, has_aux=True))(params, jb)
         updated, step_loss = jax.jit(jsteps.make_train_step(jm, ranks.LR))(params, jb)
         prefill = jax.jit(jsteps.make_prefill_step(jm))(params, jb)
+        memory = None
+        if "frames" in batch:       # the serve loop reads the encoder's memory of the frames
+            memory = jax.jit(jm.encode)(params, jb)
+            inputs["memory"] = np.asarray(memory)
         tokens, prompt_logits = _serve_loop(jm, params, batch["tokens"][:, :ranks.PROMPT],
-                                            ranks.NEW)
+                                            ranks.NEW, memory)
     want = dict(loss=float(loss), grads=_np(grads), step_loss=float(step_loss),
                 updated=_np(updated), prefill=np.asarray(prefill), tokens=tokens,
                 prompt_logits=prompt_logits)
-    return dict(params=_np(params), batch=batch), want
+    return dict(params=_np(params), **inputs), want
 
 
 def _reference_decode1(case):
@@ -131,8 +141,8 @@ def _reference_decode1(case):
                                                          prompt_logits=prompt_logits)
 
 
-def _reference_round():
-    cfg = _jcfg("dense")
+def _reference_round(case):
+    cfg = _jcfg(case)
     jm = jbuild_model(cfg)
     trees = [_np(jax.jit(jm.init)(jax.random.PRNGKey(s))) for s in (0, 1)]
     rng = np.random.default_rng(9)
@@ -157,7 +167,8 @@ def reference():
         inputs[case], want[case] = _reference_lm(case)
     for case, _ in DECODE1_CASES:
         inputs[("decode1", case)], want[("decode1", case)] = _reference_decode1(case)
-    inputs["round"], want["round"] = _reference_round()
+    for case, _ in ROUND_CASES:
+        inputs[("round", case)], want[("round", case)] = _reference_round(case)
     return inputs, want
 
 
@@ -187,7 +198,12 @@ def oracle(reference, runs, tmp_path_factory):
                               new=ranks.NEW),
             "heads6": dict(params=inputs["heads6"]["params"], batch=inputs["heads6"]["batch"]),
             "decode1": dict(params=inputs[("decode1", "dense")]["params"],
-                            prompts=inputs[("decode1", "dense")]["prompt"], new=ranks.NEW)}
+                            prompts=inputs[("decode1", "dense")]["prompt"], new=ranks.NEW),
+            "mla": dict(params=inputs["mla"]["params"],
+                        prompts=inputs["mla"]["batch"]["tokens"][:, :ranks.PROMPT],
+                        new=ranks.NEW),
+            "zamba2": dict(params=inputs["zamba2"]["params"], batch=inputs["zamba2"]["batch"]),
+            "xlstm": dict(params=inputs["xlstm"]["params"], batch=inputs["xlstm"]["batch"])}
     assert set(feed) == set(_tp_oracle.CASES)
     with open(path, "wb") as f:
         pickle.dump(feed, f)
@@ -213,12 +229,61 @@ def _results(port, case, *key):
 def _kv_layout(cfg, m):
     """(KV heads a rank's cache holds, model ranks that split its sequence):
     its own share, a KV head shared by m / Hkv ranks, or the whole block's
-    every KV head over all m."""
+    every KV head over all m; MLA's latent (no head axis) over all m."""
+    if cfg.kv_lora_rank:
+        return None, m
     if cfg.n_heads % m == 0 and cfg.n_kv_heads % m == 0:
         return cfg.n_kv_heads // m, 1
     if cfg.n_heads % m == 0 and m % cfg.n_kv_heads == 0:
         return 1, m // cfg.n_kv_heads
     return cfg.n_kv_heads, m
+
+
+def _split(n, m):
+    """A dim of n over a model axis of m: split where m divides it."""
+    return n // m if n % m == 0 and n >= m else n
+
+
+def _cache_shapes(case, dims, batch, max_seq):
+    """{"stack/name": shape} of a rank's decode cache at (data, model) =
+    ``dims``: the rows over ``data`` (all of them where the panels span the
+    data ranks: a batch of 1), an attention cache's sequence over its
+    panels and its heads as :func:`_kv_layout` gives them, Mamba2's and the
+    mLSTM's heads over ``model`` where it divides them (Mamba2's
+    convolution holds the rank's x channels and the whole B and C), the
+    sLSTM's state whole."""
+    from repro_torch.models.model import build_plan
+    cfg = _jcfg(case)
+    data, m = dims
+    plan = build_plan(cfg)
+    heads, share = _kv_layout(cfg, m)
+    if all(sp.kind in ("mamba", "mlstm", "slstm") for sp in plan):
+        share = 1                         # no attention cache: no panels
+    panels = share * (data if batch == 1 else 1)
+    rows = batch if batch == 1 else batch // data
+    seq = -(-max_seq // panels)
+    hd = cfg.resolved_head_dim
+    out = {}
+    for i, sp in enumerate(plan):
+        lead = () if sp.kind == "shared_attn" else (sp.n,)
+        if sp.kind == "mamba":
+            di, st = 2 * cfg.d_model, cfg.ssm_state
+            h = _split(di // 64, m)
+            out.update({f"{i}/state": lead + (rows, h, 64, st),
+                        f"{i}/conv": lead + (rows, 3, h * 64 + 2 * st)})
+        elif sp.kind == "mlstm":
+            h = _split(cfg.n_heads, m)
+            d = 2 * cfg.d_model // cfg.n_heads
+            out.update({f"{i}/C": lead + (rows, h, d, d), f"{i}/n": lead + (rows, h, d),
+                        f"{i}/m": lead + (rows, h)})
+        elif sp.kind == "slstm":
+            out.update({f"{i}/{k}": lead + (rows, cfg.d_model) for k in ("c", "n", "h", "m")})
+        elif cfg.kv_lora_rank:
+            out.update({f"{i}/latent": lead + (rows, seq, cfg.kv_lora_rank),
+                        f"{i}/k_rope": lead + (rows, seq, cfg.rope_dim)})
+        else:
+            out.update({f"{i}/{k}": lead + (rows, seq, heads, hd) for k in ("k", "v")})
+    return out, panels
 
 
 def _assert_tree(got, want, rtol, what):
@@ -248,9 +313,8 @@ def test_prefill_and_serve_loop_match_reference(runs, case, dims):
         _close(got["prefill"], w["prefill"], LOSS_RTOL, what + " prefill")
         _close(got["prompt_logits"], w["prompt_logits"], LOSS_RTOL, what + " decode")
         np.testing.assert_array_equal(got["tokens"], w["tokens"], err_msg=what)
-        heads, panels = _kv_layout(_jcfg(case), dims[1])
-        assert (got["cache_heads"], got["panels"]) == (heads, panels), what
-        assert got["cache_positions"] == -(-(ranks.PROMPT + ranks.NEW) // panels), what
+        shapes, panels = _cache_shapes(case, dims, ranks.B, ranks.PROMPT + ranks.NEW)
+        assert (got["cache_shapes"], got["panels"]) == (shapes, panels), what
 
 
 @pytest.mark.parametrize("case,dims", DECODE1_CASES)
@@ -259,13 +323,11 @@ def test_batch_one_decode_over_the_data_ranks_matches_reference(runs, case, dims
     reference's seq_shard layout), every data rank holding the row."""
     want, port = runs
     w = want[("decode1", case)]
-    heads, share = _kv_layout(_jcfg(case), dims[1])
+    shapes, panels = _cache_shapes(case, dims, 1, ranks.PROMPT + ranks.NEW)
     for rank, got in enumerate(_results(port, "decode1", case, dims)):
         what = f"decode1 {case} {dims} rank {rank}"
-        assert got["rows_whole"] and got["panels"] == dims[0] * share, what
-        assert got["cache_shape"] == (_jcfg(case).n_layers, 1,
-                                      -(-(ranks.PROMPT + ranks.NEW) // got["panels"]), heads,
-                                      _jcfg(case).head_dim), what
+        assert got["rows_whole"] and got["panels"] == panels, what
+        assert got["cache_shape"] == next(iter(shapes.values())), what
         _close(got["prompt_logits"], w["prompt_logits"], LOSS_RTOL, what + " decode")
         np.testing.assert_array_equal(got["tokens"], w["tokens"], err_msg=what)
 
@@ -282,23 +344,56 @@ def test_planted_model_sum_of_a_whole_attention_gradient_is_caught(runs):
                          f"rank {rank} planted grad")
 
 
-@pytest.mark.parametrize("case", ["dense_kv2", "heads6", "decode1"])
+def test_planted_unreduced_out_norm_is_caught(runs):
+    """Mamba2's ``out_norm`` with each rank's sum of squares left unreduced
+    over ``model`` (each normalising by its own heads' mean) fails the
+    gradient and the prefill comparisons that the sound run passes."""
+    want, port = runs
+    case, dims = ranks.NORM_FAULT
+    w = want[case]
+    for rank, got in enumerate(_results(port, case, dims)):
+        _assert_tree(got["grads"], w["grads"], GRAD_RTOL, f"rank {rank} grad")
+        _close(got["prefill"], w["prefill"], LOSS_RTOL, f"rank {rank} prefill")
+        with pytest.raises(AssertionError):
+            _assert_tree(got["planted_norm_grads"], w["grads"], GRAD_RTOL,
+                         f"rank {rank} planted grad")
+        with pytest.raises(AssertionError):
+            _close(got["planted_norm_prefill"], w["prefill"], LOSS_RTOL,
+                   f"rank {rank} planted prefill")
+
+
+#: oracle case -> (the port's results it is held against, the spec entry
+#: that shows the reference's layout: (leaf, dim, axis))
+ORACLE_CASES = {
+    "dense_kv2": (("dense_kv2", (1, 4)), ("cache_specs", "0/k", 2, "model")),
+    # 384 columns over 4: 1.5 heads a rank
+    "heads6": (("heads6", (1, 4)), ("param_specs", "stacks/0/attn/wq/w", -1, "model")),
+    "decode1": (("decode1", "dense", (4, 1)), ("cache_specs", "0/k", 2, "data")),
+    # the latent's sequence over model
+    "mla": (("mla", (1, 4)), ("cache_specs", "1/latent", 2, "model")),
+    # in_proj's 1,096 columns cut straight across [z, x, B, C, dt]
+    "zamba2": (("zamba2", (1, 4)), ("param_specs", "stacks/0/mixer/in_proj/w", -1, "model")),
+    # up's columns cut across [x_inner, z]
+    "xlstm": (("xlstm", (1, 4)), ("param_specs", "stacks/0/mixer/up/w", -1, "model")),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ORACLE_CASES))
 def test_reference_over_an_eight_device_mesh_matches_the_port(runs, oracle, case):
     """The reference's jit over a (2, 4) host mesh with its own shardings:
-    the dense_kv2 serve loop (its cache's sequence over ``model``), the
-    heads6 train step (``wq`` split inside a head), the batch-1 serve loop
-    (its cache's sequence over ``data``) against the port's ranks."""
+    the dense_kv2 and MLA serve loops (their caches' sequence over
+    ``model``), the heads6 train step (``wq`` split inside a head), the
+    batch-1 serve loop (its cache's sequence over ``data``), the Zamba2 and
+    xLSTM train steps (``in_proj`` and ``up`` cut across their sections)
+    against the port's ranks."""
     want, port = runs
-    got_all = (_results(port, "decode1", "dense", (4, 1)) if case == "decode1"
-               else _results(port, case, (1, 4)))
+    key, (specs, leaf, dim, axis) = ORACLE_CASES[case]
+    got_all = _results(port, *key)
     o = oracle[case]
-    if case == "heads6":          # 384 columns over 4: 1.5 heads a rank
-        assert o["param_specs"]["stacks/0/attn/wq/w"][-1] == "model"
-    else:                         # the sequence over model, or over data
-        assert o["cache_specs"]["0/k"][2] == ("model" if case == "dense_kv2" else "data")
+    assert o[specs][leaf][dim] == axis
     for rank, got in enumerate(got_all):
         what = f"{case} rank {rank} against the 8-device reference"
-        if case == "heads6":
+        if "loss" in o:
             _close(got["loss"], o["loss"], LOSS_RTOL, what + " loss")
             _close(got["step_loss"], o["step_loss"], LOSS_RTOL, what + " step loss")
             _assert_tree(got["grads"], o["grads"], GRAD_RTOL, what + " grad")
@@ -308,10 +403,14 @@ def test_reference_over_an_eight_device_mesh_matches_the_port(runs, oracle, case
             np.testing.assert_array_equal(got["tokens"], o["tokens"], err_msg=what)
 
 
-def test_round_step_over_pod_data_model_matches_reference(runs):
+@pytest.mark.parametrize("case,dims", ROUND_CASES)
+def test_round_step_over_pod_data_model_matches_reference(runs, case, dims):
+    """The round step over (pod 2, data 1, model 2): the dense stack and
+    the stacked MLA and MoE, Mamba2 and shared block, mLSTM and sLSTM, a
+    slot a pod, each slot's model parallel over its 2 model ranks."""
     want, port = runs
-    w = want["round"]
-    for got in _results(port, "round", (2, 1, 2)):
+    w = want[("round", case)]
+    for got in _results(port, "round", case, dims):
         assert got["sel"].tolist() == w["sel"].tolist(), got["rank"]
         _close(got["vlosses"], w["vlosses"], LOSS_RTOL, f"rank {got['rank']} vlosses")
         _assert_tree(got["slot0"], w["slot0"], GRAD_RTOL, f"rank {got['rank']} winner")
