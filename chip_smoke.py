@@ -165,12 +165,12 @@ from the repository root.  Phases, in order; any failure exits non-zero:
   5. where the time goes (torch.profiler): one CIFAR client turn of the
      sequential engine and one batched CIFAR round step — device busy
      share, launches, the top kernels and the host ops;
-  6. the serve path: Qwen3-8B at full width, depth cut to SERVE_LAYERS (12
+  6. the serve path: Qwen3-8B at full width, depth cut to SERVE_LAYERS (6
      of 36 layers, bf16, weights drawn on the card from a seed) prefills 4
-     prompts of 480 tokens through ``make_prefill_step`` (12 B5 launches,
+     prompts of 480 tokens through ``make_prefill_step`` (6 B5 launches,
      all on the tensor-core route), then runs the
      reference serve loop through ``make_serve_step`` (the prompt stepped,
-     then 32 greedy tokens: 512 steps, 6,144 B6 launches, all on the
+     then 32 greedy tokens: 512 steps, 3,072 B6 launches, all on the
      tensor-core route); prefill and
      decode logits at the prompt's last position agree (bf16 bound, and at
      f32 with 4 layers a tight one); prefill seconds, ms per decode step,
@@ -185,7 +185,7 @@ from the repository root.  Phases, in order; any failure exits non-zero:
      shares; at 4 layers in f32 the kernel path (the f32-FMA routes) holds
      its loss and every gradient within rel 1e-4 of the plain path's;
   8. the Pigeon-SL round over ``from_lm`` at Qwen3-8B's width, depth cut
-     to 12 layers (9 client + 3 AP): ``run_pigeon`` (argmin, label flip on
+     to 6 layers (3 client + 3 AP): ``run_pigeon`` (argmin, label flip on
      client 0, Pigeon-SL+, T = 2) without the wire and with int8 through
      B2, then with int8 and ``selection="loss_plus_distance"`` (B3 on its
      wide path for every client step's uplink); finite losses, the
@@ -199,12 +199,12 @@ from the repository root.  Phases, in order; any failure exits non-zero:
      predicts (B5 over both slots in one launch a layer, B4 a slot, one B1
      a round on the bf16 route), seconds a round and peak memory; the
      launch layer's ``make_pigeon_round_step`` on a 2-slot stacked model at
-     12 layers (block 1, block 2, Pigeon-SL+, int8: sel the argmin, every
+     6 layers (block 1, block 2, Pigeon-SL+, int8: sel the argmin, every
      slot bit-equal to the winner, launches as predicted, seconds a round);
      batched SplitFed over the LM at 4 layers (cut 3: its 4 lanes at 12
      layers would not fit), decisions equal to the sequential run;
   8c. the launch layer's round over the sharded placement: 8b's 2-slot
-     step at 12 layers through ``make_pigeon_round_step_shardmap`` on an
+     step at 6 layers through ``make_pigeon_round_step_shardmap`` on an
      NCCL group of every visible card (both slots on one card, one a rank
      on more), int8 and a block of 2, from 8b's inits: sel equal to
      ``make_pigeon_round_step``'s on the same inits and batches, vlosses
@@ -212,10 +212,10 @@ from the repository root.  Phases, in order; any failure exits non-zero:
      structure gives a rank's slots; seconds and peak memory beside the
      one-card step's;
   9. the xLSTM serve path: xLSTM-1.3B at full width, depth cut to
-     XLSTM_SERVE_LAYERS (16 of 48 blocks: (mLSTM 7, sLSTM 1) x 2, bf16,
-     drawn on the card) prefills 4 prompts of 512 tokens through
-     ``make_prefill_step`` (2 B7 launches on the persistent route: 2
-     persistent kernels and no step kernel in the profile), then runs the
+     XLSTM_SERVE_LAYERS (8 of 48 blocks: (mLSTM 7, sLSTM 1), bf16, drawn on
+     the card) prefills 4 prompts of 512 tokens through
+     ``make_prefill_step`` (1 B7 launch on the persistent route: 1
+     persistent kernel and no step kernel in the profile), then runs the
      reference serve
      loop through ``make_serve_step`` (544 steps, no kernel of the port);
      the same weights widened to f32 and served again: prefill and decode
@@ -304,7 +304,7 @@ from the repository root.  Phases, in order; any failure exits non-zero:
      bf16 FLOP/s; nothing gates on it).  The kernels' bounds come from
      ``repro_torch.launch.roofline``;
  19. the data and model axes (``models/parallel.py``, ``launch/mesh.py``):
-     Qwen3-8B at full width and 12 layers through the parallel model on an
+     Qwen3-8B at full width and 6 layers through the parallel model on an
      NCCL group of every visible card (prefill, the serve loop over the
      KV-sharded cache, a train step): on one card the group of one bit-equal
      to the plain model (logits, tokens, loss, every updated parameter), on
@@ -314,7 +314,29 @@ from the repository root.  Phases, in order; any failure exits non-zero:
      local dispatch, pairs dropped a group; experts over every card on n);
      8c's 2-slot int8 round step over (pod, data, model); B4 on a
      vocab-parallel panel (2,048 x 4,096 x 37,984) against its plain
-     versions, on the tensor cores; on one card two gloo ranks on it tried.
+     versions, on the tensor cores; on one card two gloo ranks on it tried;
+ 20. the three dense configurations no earlier phase ran (DENSE_FAMILIES):
+     Gemma3-12B (head dim 256, the 5:1 local:global windows of 1,024,
+     vocab 262,144), H2O-Danube-1.8B (head dim 80, a 4,096 window) and
+     Qwen2.5-14B (40 query heads over 8, QKV bias), each at full width and
+     depth in bf16 with weights drawn on the card (parameter counts and
+     bytes beside the card's name and power limit): a prefill whose prompt
+     outruns the window (2 x 2,048, 1 x 6,144, 4 x 480), the decode cache
+     given the prefill's keys and values, the serve loop from the prompt's
+     last position through 16 greedy tokens, its logits there against the
+     prefill's; launches per counter and route as ``_dense_want`` plans
+     them from the config (Gemma3's B5 forward on the tensor cores, its
+     backward and B6 on the f32-FMA routes; Danube's every B5 and B6 on
+     them); prefill and decode profiled with each route's share; a train
+     step at train_4k cut to 4 x 512 (full depth), its mfu, peak and
+     profile; a few layers in f32 (Gemma3's a local and a global one) the
+     kernel path against the plain path; the Pigeon-SL round over Danube
+     at full depth (cut 6) on both engines, decisions equal.  Every bf16
+     B4, B5 and B6 call of the phase at a shape phase 1 checked
+     (``_ShapeLog``);
+ and then ``examples_torch/quickstart.py`` and ``serve_decode.py`` on the
+ card, each a subprocess, together: a non-zero exit fails the run.  Phase 0
+ also prints the kernel-library cache's figures (``compile_cache_stats``).
 
 The last lines are one JSON object per kernel set (``{"kernels": [...]}``),
 the card's ``nvidia-smi`` name and power limit, and
@@ -431,11 +453,11 @@ NONCAUSAL_BWD_SHAPES = ((4, 256, 256, 16, 16, 64, 0), (2, 100, 300, 8, 2, 128, 0
 # inputs over 32k live keys), under the bf16 atol itself: there the bf16
 # bound is this share of the call's largest |plain| value (~5 bf16 ulps of it)
 LONG_BF16_REL = 2e-2
-# phase 6: Qwen3-8B served at B = 4, 480 prompt tokens, 32 new ones, at 12
+# phase 6: Qwen3-8B served at B = 4, 480 prompt tokens, 32 new ones, at 6
 # of its 36 layers (the serve loop steps every prompt token, so its time
 # grows with depth and the whole script must stay within its time limit)
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 480, 32
-SERVE_LAYERS = 12
+SERVE_LAYERS = 6
 # prefill vs decode logits at the prompt's last position, the largest
 # difference relative to the largest |logit|.  bf16: each path rounds every
 # activation to 8 significant bits (2^-9 = 2e-3 relative) at different
@@ -456,10 +478,11 @@ GRAD_REL = {"float32": 1e-4, "bfloat16": 3e-2}
 # phases 7 and 8: Qwen3-8B trained at B 4 x S 512 (the train_4k settings,
 # the sequence cut from 4,096), tokens of build_lm_task's vocabulary 2,048
 # (the head stays 151,936 wide); SGD lr 0.1 moves bf16 weights (a smaller
-# step rounds away in bf16); the round's depth cut to 12 layers
+# step rounds away in bf16); the round's depth cut to 6 layers for the time
+# limit, its cut at 3 (3 client + 3 AP; the published cut, 9, needs more)
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_VOCAB, TRAIN_LR = 4, 512, 2048, 0.1
 TRAIN_F32_REL = 1e-4
-ROUND_LAYERS = 12
+ROUND_LAYERS, ROUND_CUT = 6, 3
 # phases 8 and 8b: (quant, selection) of the three runs, and the task
 ROUND_RUNS = ((None, "argmin"), ("int8", "argmin"), ("int8", "loss_plus_distance"))
 ROUND_TASK = dict(vocab=TRAIN_VOCAB, seq_len=TRAIN_SEQ, m_clients=4, d_m=16, d_o=8, n_test=8)
@@ -500,12 +523,12 @@ SLSTM_BWD_ROUTES = dict(SLSTM_ROUTES)
 # ulps at |h| <= 1 (2 * 2^-8); f32 by the dot products' summation order
 SLSTM_ATOL = {"float32": 1e-4, "bfloat16": 8e-3}
 # phase 9: xLSTM-1.3B served at B 4, 512-token prompts (two mLSTM chunks of
-# 256), 32 new tokens, at 16 of its 48 blocks (two (mLSTM 7, sLSTM 1)
-# units; the serve loop steps every prompt token, so its time grows with
-# depth and the whole script must stay within its time limit); phase 10
+# 256), 32 new tokens, at 8 of its 48 blocks (one (mLSTM 7, sLSTM 1) unit;
+# the serve loop steps every prompt token, so its time grows with depth and
+# the whole script must stay within its time limit); phase 10
 # holds the full model's 3,529,644,368 parameters (the reference's layer
 # count).  Prefill vs decode logits at the prompt's last position.  The
-# tight check runs the same weights widened to f32 (2 B7 launches): the
+# tight check runs the same weights widened to f32 (1 B7 launch): the
 # chunked and the recurrent form of the same f32 math, 1e-3.  In bf16 the
 # rounding does not stay a random walk as in Qwen3-8B (SERVE_BF16_REL): at
 # this random init the blocks compound it, stack after stack, so at 48
@@ -520,7 +543,7 @@ SLSTM_ATOL = {"float32": 1e-4, "bfloat16": 8e-3}
 # prefill takes prefill_32k's settings (ssm_chunk 2,048) at full depth (one
 # call: 6 B7 launches), its 32 x 32,768 tokens cut to 4 x 2,048.
 XLSTM_BATCH, XLSTM_PROMPT, XLSTM_NEW = 4, 512, 32
-XLSTM_SERVE_LAYERS = 16
+XLSTM_SERVE_LAYERS = 8
 XLSTM_PARAMS = 3_529_644_368
 XLSTM_BF16_REL = 0.6
 XLSTM_F32_REL = 1e-3
@@ -545,7 +568,7 @@ XLSTM_ROUND_RUNS = ((None, "argmin"), ("int8", "loss_plus_distance"))
 # 128 tokens.  The serve loops step a SLICE_PROMPT-token text prompt and
 # decode SLICE_NEW greedy tokens.  The round over DeepSeek at 6 layers
 # (1 dense + 5 MoE; cut 3): 3,424,649,216 parameters besides the norms,
-# phase 8's 12-layer Qwen3-8B's size.
+# a 12-layer Qwen3-8B's size.
 VLM_ARCH, VLM_PARAMS, VLM_TEXT = "internvl2-26b", 19_860_664_320, 224
 VLM_TRAIN_LAYERS = 24
 VLM_F32_LAYERS, VLM_F32_PATCHES, VLM_F32_TEXT = 2, 64, 32
@@ -618,6 +641,35 @@ SLICE_F32_REL = 1e-3
 # 1.31e-4 at one A_log and under 1e-5 elsewhere.  So A_log alone is held at
 # A_LOG_GRAD_REL, card against CPU and card against float64
 A_LOG_GRAD_REL = 1e-3
+# phase 20: the three dense configurations no earlier phase ran on the card,
+# each served at full width and depth in bf16 with weights drawn on the card:
+# Gemma3-12B (configs/gemma3_12b.py; hf:google/gemma-3-1b-pt's family card,
+# 12B: 48 layers, d 3,840, 16 query and 8 KV heads of 256, qk-norm, a
+# 1,024-token window on 5 layers of every 6, vocab 262,144), H2O-Danube-1.8B
+# (arXiv:2401.16818: 24 layers, d 2,560, 32/8 heads of 80, a 4,096 window,
+# vocab 32,000) and Qwen2.5-14B (hf:Qwen/Qwen2.5-0.5B's family card, 14B: 48
+# layers, d 5,120, 40/8 heads of 128, a GQA group of 5, QKV bias, vocab
+# 152,064).  The prompts (batch, length) outrun the windows, so the windows
+# cut keys in the prefill and in decode: Gemma3 2 x 2,048, Danube 1 x 6,144,
+# Qwen2.5 phase 6's 4 x 480.  The reference's serve loop steps every prompt
+# position (2,064 and 6,160 decode steps of 48 and 24 layers: past the
+# script's time limit), so the decode cache takes the prefill's keys and
+# values of the prompt's first positions (_KVCapture) and the loop steps
+# the last prompt position, then DENSE_NEW greedy tokens.  Trained at
+# train_4k cut to TRAIN_BATCH x TRAIN_SEQ at train_layers (full depth:
+# Qwen2.5-14B's theta and gradient are 59 GB); the f32 kernel path against
+# the plain path at f32_layers (Gemma3's 6: five local layers and the first
+# global one) on 1 x f32_tokens (past the window: Gemma3 1,280, Danube
+# 4,352).  The round over Danube at full depth with its published cut at 6
+DENSE_FAMILIES = {
+    "gemma3-12b": dict(label="gemma3", params=12_771_655_680, serve=(2, 2048),
+                       train_layers=48, f32_layers=6, f32_tokens=1280),
+    "h2o-danube-1.8b": dict(label="danube", params=1_831_075_840, serve=(1, 6144),
+                            train_layers=24, f32_layers=2, f32_tokens=4352),
+    "qwen2.5-14b": dict(label="qwen25", params=14_769_192_960, serve=(4, 480),
+                        train_layers=48, f32_layers=2, f32_tokens=128)}
+DENSE_NEW = 16
+DANUBE_ARCH = "h2o-danube-1.8b"
 # phase 1 at the slice's own shapes (_phase_slice_shapes), bf16: B5 forward
 # and backward at InternVL2-26B's heads (48 query, 8 KV of 128) at its
 # prefill's 480 and its train step's 512 positions, and at Qwen3-30B-A3B's
@@ -669,6 +721,39 @@ SLICE_XENT = (((1024, 6144, 92553), "vlm_train", "vlm_train"),
               ((4096, 2048, 32000), "zamba2_round_sequential_None_argmin", None),
               ((512, 2048, 32000), "zamba2_round_batched_None_argmin", None),
               ((4 * SEAMLESS_TOKENS, 1024, 256206), "seamless_train", "seamless_train"))
+# phase 20's own shapes (DENSE_FAMILIES), bf16: B5 forward at each prefill
+# (Gemma3's 2 x 2,048 under its 1,024 window and its global layers' none,
+# Danube's 1 x 6,144 under its 4,096, Qwen2.5's 4 x 480 at its 40/8 heads)
+# and, with its backward, at each train step's TRAIN_BATCH x TRAIN_SEQ; the
+# Danube round's 1, 8 (the batched engine's R * B folded sequences, a
+# backward too) and 16 sequences of TRAIN_SEQ; B6 over each serve loop's
+# cache (prompt + DENSE_NEW positions) at the loop's first and last index;
+# B4 forward and backward at each train head (TRAIN_BATCH x TRAIN_SEQ rows:
+# d 3,840 x vocab 262,144, d 2,560 x 32,000, d 5,120 x 152,064) and the
+# Danube round's evaluation heads (4,096 and 512 rows, the forward only)
+SLICE_ATTN += (((2, 2048, 16, 8, 256, 1024), "gemma3_prefill", None),
+               ((2, 2048, 16, 8, 256, 0), "gemma3_prefill", None),
+               ((TRAIN_BATCH, TRAIN_SEQ, 16, 8, 256, 1024), "gemma3_train", "gemma3_train"),
+               ((TRAIN_BATCH, TRAIN_SEQ, 16, 8, 256, 0), "gemma3_train", "gemma3_train"),
+               ((1, 6144, 32, 8, 80, 4096), "danube_prefill", None),
+               ((TRAIN_BATCH, TRAIN_SEQ, 32, 8, 80, 4096), "danube_train", "danube_train"),
+               ((1, TRAIN_SEQ, 32, 8, 80, 4096), "danube_round_sequential", None),
+               ((8, TRAIN_SEQ, 32, 8, 80, 4096), "danube_round_batched", "danube_round_batched"),
+               ((16, TRAIN_SEQ, 32, 8, 80, 4096), "danube_round_batched", None),
+               ((4, 480, 40, 8, 128, 0), "qwen25_prefill", None),
+               ((TRAIN_BATCH, TRAIN_SEQ, 40, 8, 128, 0), "qwen25_train", "qwen25_train"))
+SLICE_DECODE += tuple(((b, p + DENSE_NEW, h, hkv, d, w, i), path)
+                      for b, p, h, hkv, d, w, path in (
+                          (2, 2048, 16, 8, 256, 1024, "gemma3_loop"),
+                          (2, 2048, 16, 8, 256, 0, "gemma3_loop"),
+                          (1, 6144, 32, 8, 80, 4096, "danube_loop"),
+                          (4, 480, 40, 8, 128, 0, "qwen25_loop"))
+                      for i in (p - 1, p + DENSE_NEW - 1))
+SLICE_XENT += (((TRAIN_BATCH * TRAIN_SEQ, 3840, 262144), "gemma3_train", "gemma3_train"),
+               ((TRAIN_BATCH * TRAIN_SEQ, 2560, 32000), "danube_train", "danube_train"),
+               ((4096, 2560, 32000), "danube_round_sequential", None),
+               ((512, 2560, 32000), "danube_round_batched", None),
+               ((TRAIN_BATCH * TRAIN_SEQ, 5120, 152064), "qwen25_train", "qwen25_train"))
 # B5's backward: the train shape (B 4, S 512, Qwen3-8B's heads), then GQA
 # group 8, the forward's edge shapes (MQA, group 1, windows, head dims
 # 64/80/256, ragged S, S = 1)
@@ -1085,30 +1170,76 @@ def _phase_lm_batched_shapes() -> dict:
     return out
 
 
-def _phase_slice_shapes() -> dict:
-    """Phases 12-17's own shapes in phase 1, bf16, each on the route its
-    path takes: B5's forward within ATTN_ATOL of the plain version and its
-    backward within GRAD_REL of autograd of it, causal (SLICE_ATTN) and not
-    (SLICE_NONCAUSAL); B6 within ATTN_ATOL (SLICE_DECODE); B4's loss and
-    lse within XENT_ATOL and its backward within GRAD_REL, on
-    _xent_grad_err's four scales (SLICE_XENT).  Each with its route, the
-    counter its path's launches fall under, its error, one eager time and
-    its ``_ShapeLog`` key."""
+def _sdpa(q, k, v, window: int, index=None):
+    """The one PyTorch call that computes B5's (``index`` None) or B6's
+    function on these tensors, for the record: ``scaled_dot_product_attention``
+    over (B, H, S, D) views with GQA, causal where no window applies, else
+    with an explicit boolean mask (query i sees key j where j <= i and i - j
+    < window); for B6 the query at ``index`` over the cache's keys up to
+    it."""
     import torch
+    import torch.nn.functional as F
+    if index is not None:
+        k, v = k[:, :index + 1], v[:, :index + 1]
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    if not window:
+        return lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=index is None,
+                                                      enable_gqa=True)
+    rows = (torch.arange(q.shape[1], device=q.device) if index is None
+            else torch.full((1,), index, device=q.device))
+    cols = torch.arange(k.shape[1], device=q.device)
+    mask = (cols[None, :] <= rows[:, None]) & (rows[:, None] - cols[None, :] < window)
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                  enable_gqa=True)
+
+
+def _dense_path(path) -> bool:
+    """Whether ``path`` is one of phase 20's (DENSE_FAMILIES' labels)."""
+    return path is not None and path.split("_")[0] in {
+        fam["label"] for fam in DENSE_FAMILIES.values()}
+
+
+def _phase_slice_shapes() -> dict:
+    """Phases 12-17's and 20's own shapes in phase 1, bf16, each on the
+    route its path takes: B5's forward within ATTN_ATOL of the plain
+    version and its backward within GRAD_REL of autograd of it, causal
+    (SLICE_ATTN) and not (SLICE_NONCAUSAL); B6 within ATTN_ATOL
+    (SLICE_DECODE); B4's loss and lse within XENT_ATOL and its backward
+    within GRAD_REL, on _xent_grad_err's four scales (SLICE_XENT).  Each
+    with its route, the counter its path's launches fall under, its error,
+    one eager time and its ``_ShapeLog`` key; phase 20's rows also with
+    the plain version's eager time (a backward's: autograd's backward of
+    it), the bound (``launch/roofline.py``) and the library call's
+    (``_sdpa``, its backward through autograd; B4's
+    ``F.cross_entropy(h @ W)``, and through autograd)."""
+    import torch
+    import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import fused_xent as fx
+    from repro_torch.launch import roofline as rl
 
     few = dict(reps=3, samples=3)
     out = {name: [] for name in ("flash_attention", "flash_attention_bwd", "decode_attention",
                                  "fused_xent", "fused_xent_bwd")}
 
-    def note(name, shape, path, route, err, us, key, rel=False, causal=True):
+    def note(name, shape, path, route, err, us, key, rel=False, causal=True, extra=None):
         counter = (name + ("_tc" if route == "tensor_cores" else "")
                    + ("" if causal else "_noncausal"))
         out[name].append(dict(shape=list(shape), path=path, route=route, counter=counter,
                               kernel_us=us, key=key, causal=causal,
-                              **{"max_rel_err" if rel else "max_abs_err": err}))
+                              **{"max_rel_err" if rel else "max_abs_err": err},
+                              **(extra or {})))
+
+    once = dict(reps=1, samples=3, warmup=1)
+
+    def yardsticks(work, plain, lib):
+        """Phase 20's figures beside a row's kernel time: the plain
+        version's and the library call's eager times (the median of three
+        single calls) and the bound."""
+        bound_us, bound_by = rl.bound_us(work)
+        return dict(plain_us=_time_us(plain, **once), bound_us=bound_us, bound_by=bound_by,
+                    library_us=None if lib is None else _time_us(lib, **once))
 
     def draw(shape, seed):
         b, sq, sk, h, hkv, d, _ = shape
@@ -1136,23 +1267,44 @@ def _phase_slice_shapes() -> dict:
         err = float((got.float() - want.float()).abs().max())
         check(err <= ATTN_ATOL["bfloat16"], f"flash_attention {what}: max |kernel - "
                                             f"plain| {err:.3e} > {ATTN_ATOL['bfloat16']}")
+        extra = None
+        if _dense_path(path):
+            with torch.inference_mode():
+                extra = yardsticks(rl.flash_attention_work(b, s, s, h, hkv, d, window),
+                                   lambda: fa.flash_attention_plain(q, k, v, **kw),
+                                   _sdpa(q, k, v, window))
         note("flash_attention", shape, path, fa.attention_route(q, k, v), err,
-             _time_us(lambda: fa.flash_attention(q, k, v, **kw), **few), key, causal=causal)
+             _time_us(lambda: fa.flash_attention(q, k, v, **kw), **few), key, causal=causal,
+             extra=extra)
         g = torch.Generator(device=DEVICE).manual_seed(seed + 10)
         dout = torch.randn(q.shape, generator=g, device=DEVICE).to(q.dtype)
         qq, kk, vv = (x.clone().requires_grad_() for x in (q, k, v))
-        ref = torch.autograd.grad(fa.flash_attention_plain(qq, kk, vv, **kw), (qq, kk, vv),
-                                  grad_outputs=dout)
+        timed = _dense_path(bwd_path)
+        plain_out = fa.flash_attention_plain(qq, kk, vv, **kw)
+        ref = torch.autograd.grad(plain_out, (qq, kk, vv), grad_outputs=dout,
+                                  retain_graph=timed)
         mine = fa.flash_attention_bwd(q, k, v, got, dout, lse, **kw)
         scale = max(float(r.abs().max()) for r in ref)
         err = max(_rel_err(a, r, scale) for a, r in zip(mine, ref))
         check(err <= GRAD_REL["bfloat16"], f"flash_attention_bwd {what}: rel err "
                                            f"{err:.3e} > {GRAD_REL['bfloat16']}")
+        extra = None
+        if timed:
+            lib_out = _sdpa(qq, kk, vv, window)()
+            extra = yardsticks(
+                rl.flash_attention_bwd_work(b, s, s, h, hkv, d, window),
+                lambda: torch.autograd.grad(plain_out, (qq, kk, vv), grad_outputs=dout,
+                                            retain_graph=True),
+                lambda: torch.autograd.grad(lib_out, (qq, kk, vv),
+                                            grad_outputs=dout.transpose(1, 2),
+                                            retain_graph=True))
+            del lib_out
         note("flash_attention_bwd", shape, bwd_path, fa.attention_bwd_route(q, k, v, got, dout),
              err,
              _time_us(lambda: fa.flash_attention_bwd(q, k, v, got, dout, lse, **kw), **few),
-             key, rel=True, causal=causal)
-        del q, k, v, qq, kk, vv, ref, mine
+             key, rel=True, causal=causal, extra=extra)
+        del q, k, v, qq, kk, vv, ref, mine, plain_out
+        torch.cuda.empty_cache()
     for i, (shape, path) in enumerate(SLICE_DECODE):
         args, kw = _attention_args("decode_attention", shape, "bfloat16", seed=320 + i)
         with torch.inference_mode():
@@ -1161,13 +1313,23 @@ def _phase_slice_shapes() -> dict:
         err = float((got.float() - want.float()).abs().max())
         check(err <= ATTN_ATOL["bfloat16"], f"decode_attention bf16 {shape}: max |kernel - "
                                             f"plain| {err:.3e} > {ATTN_ATOL['bfloat16']}")
+        extra = None
+        if _dense_path(path):
+            b, s, h, hkv, d, window, index = shape
+            with torch.inference_mode():
+                extra = yardsticks(rl.decode_attention_work(b, s, h, hkv, d, window, index),
+                                   lambda: da.decode_attention_plain(*args, **kw),
+                                   _sdpa(*args[:3], window, index=index))
         note("decode_attention", shape, path, da.decode_route(*args[:3]), err,
-             _time_us(lambda: da.decode_attention(*args, **kw), **few), tuple(shape[:6]))
+             _time_us(lambda: da.decode_attention(*args, **kw), **few), tuple(shape[:6]),
+             extra=extra)
     for i, (shape, path, bwd_path) in enumerate(SLICE_XENT):
         h, w, labels, gup = _xent_args(shape, "bfloat16", seed=330 + i)
         hh, ww = h.clone().requires_grad_(), w.clone().requires_grad_()
+        timed = _dense_path(bwd_path)
         ref = fx.fused_xent_plain(hh, ww, labels)
-        ref_dh, ref_dw = torch.autograd.grad((ref * gup).sum(), (hh, ww))
+        plain_loss = (ref * gup).sum()
+        ref_dh, ref_dw = torch.autograd.grad(plain_loss, (hh, ww), retain_graph=timed)
         with torch.no_grad():
             ref_lse = torch.logsumexp(h.float() @ w.float(), dim=-1)
         loss, lse = fx.fused_xent(h, w, labels)
@@ -1175,22 +1337,42 @@ def _phase_slice_shapes() -> dict:
         check(bool(torch.isfinite(loss).all()) and err <= XENT_ATOL["bfloat16"],
               f"fused_xent bf16 {shape}: max |kernel - plain| {err:.3e} > "
               f"{XENT_ATOL['bfloat16']}")
+        # the yardstick takes in-range labels only
+        in_range = labels.long().abs() % shape[2]
+        extra = None
+        if _dense_path(path):
+            with torch.no_grad():
+                extra = yardsticks(rl.fused_xent_work(*shape),
+                                   lambda: fx.fused_xent_plain(h, w, labels),
+                                   lambda: F.cross_entropy(h @ w, in_range, reduction="none"))
         note("fused_xent", shape, path, fx.xent_route(h, w), err,
-             _time_us(lambda: fx.fused_xent(h, w, labels), **few), tuple(shape))
+             _time_us(lambda: fx.fused_xent(h, w, labels), **few), tuple(shape), extra=extra)
         dh, dw = fx.fused_xent_bwd(h, w, labels, lse, gup)
         err = _xent_grad_err(dh, dw, ref_dh, ref_dw, labels)
         check(dh.dtype == h.dtype and dw.dtype == w.dtype and err <= GRAD_REL["bfloat16"],
               f"fused_xent_bwd bf16 {shape}: rel err {err:.3e} > {GRAD_REL['bfloat16']}")
+        extra = None
+        if timed:
+            lib_loss = (F.cross_entropy(hh @ ww, in_range, reduction="none") * gup).sum()
+            extra = yardsticks(
+                rl.fused_xent_bwd_work(*shape),
+                lambda: torch.autograd.grad(plain_loss, (hh, ww), retain_graph=True),
+                lambda: torch.autograd.grad(lib_loss, (hh, ww), retain_graph=True))
+            del lib_loss
         note("fused_xent_bwd", shape, bwd_path, fx.xent_bwd_route(h, w), err,
              _time_us(lambda: fx.fused_xent_bwd(h, w, labels, lse, gup), **few), tuple(shape),
-             rel=True)
-        del h, w, hh, ww, ref, ref_dh, ref_dw, dh, dw
+             rel=True, extra=extra)
+        del h, w, hh, ww, ref, plain_loss, ref_dh, ref_dw, dh, dw
         torch.cuda.empty_cache()
     for name, cases in out.items():
         log(f"phase1 {name} at the slice's shapes (bf16): " + "; ".join(
             f"{t['shape']}{'' if t['causal'] else ' non-causal'} ({t['path'] or 'on no path'}) "
             f"{t['route']} route, {'rel' if 'max_rel_err' in t else 'abs'} err "
             f"{t.get('max_rel_err', t.get('max_abs_err')):.3e}, kernel_us {t['kernel_us']:.1f}"
+            + ("" if "bound_us" not in t else
+               f", plain_us {t['plain_us']:.1f}, bound_us {t['bound_us']:.2f} "
+               f"({t['bound_by']}), library_us "
+               + ("none" if t["library_us"] is None else f"{t['library_us']:.1f}"))
             for t in cases))
     return out
 
@@ -1222,10 +1404,11 @@ class _ShapeLog:
                      (da, "decode_attention", decode), (fx, "fused_xent", xent),
                      (fx, "fused_xent_bwd", xent))
         self.seen = {name: set() for _, name, _ in launchers}
+        device = torch.device(DEVICE).type
         self.saved = [(module, name, getattr(module, name)) for module, name, _ in launchers]
         for (module, name, key), (_, _, fn) in zip(launchers, self.saved):
             def logged(*args, _fn=fn, _key=key, _seen=self.seen[name], **kw):
-                if args[0].is_cuda and args[0].dtype == torch.bfloat16:
+                if args[0].device.type == device and args[0].dtype == torch.bfloat16:
                     _seen.add(_key(*args, **kw))
                 return _fn(*args, **kw)
             setattr(module, name, logged)
@@ -4110,8 +4293,8 @@ def _round_launches(cfg, pcfg, hist, quant, n_test, stats=False):
     width is read once.  The int8 wire quantizes each step's two messages;
     under a policy that scores message statistics the uplink of each step
     of the round's R clusters goes through B3 (the Pigeon-SL+ sub-rounds'
-    steps collect none).  bf16 forwards and backwards of B4 and B5 count on
-    the tensor-core routes."""
+    steps collect none).  B4's and B5's forwards and backwards count under
+    the routes ``cfg``'s tensors take (``_kernel_counters``)."""
     import math
     n, cut = _attn_layers(cfg)
     fwd = 2 if cfg.remat else 1
@@ -4123,19 +4306,19 @@ def _round_launches(cfg, pcfg, hist, quant, n_test, stats=False):
         vals += pcfg.R
         handoffs += r["detections"] + int(r["accepted"])
         evals += math.ceil(n_test / pcfg.eval_batch) if "test_acc" in r else 0
-    tc = "_tc" if cfg.dtype == "bfloat16" else ""
+    names = _kernel_counters(cfg)
     stats_launches = main if quant and stats else 0
     return want_launches(**{
-        "fused_xent" + tc: steps + vals, "fused_xent_bwd" + tc: steps,
-        "flash_attention" + tc: steps * fwd * n + vals * n + handoffs * cut + evals * n + cut,
-        "flash_attention_bwd" + tc: steps * n,
+        names["fused_xent"]: steps + vals, names["fused_xent_bwd"]: steps,
+        names["flash_attention"]: steps * fwd * n + vals * n + handoffs * cut + evals * n + cut,
+        names["flash_attention_bwd"]: steps * n,
         "quant_dequant": 2 * steps - stats_launches if quant else 0,
         "quant_dequant_stats": stats_launches})
 
 
 def phase_round():
     """The Pigeon-SL round over from_lm at Qwen3-8B's full width, depth cut
-    to 12 layers (9 client + 3 AP), the train_4k settings (bf16, remat):
+    to ROUND_LAYERS (3 client + 3 AP), the train_4k settings (bf16, remat):
     run_pigeon(argmin, label flip on client 0, Pigeon-SL+) without the wire
     and with int8 through B2, then with int8 under loss_plus_distance (B3 on
     its wide path).  Finite losses, the selection the policy's scores give
@@ -4156,7 +4339,7 @@ def phase_round():
     from repro_torch.selection import selector
 
     cfg = dataclasses.replace(get_config("qwen3-8b"), n_layers=ROUND_LAYERS,
-                              **shape_settings(SHAPES["train_4k"]))
+                              cut_layer=ROUND_CUT, **shape_settings(SHAPES["train_4k"]))
     t0 = time.perf_counter()
     data = build_lm_task(**ROUND_TASK)
     log(f"phase8 data: build_lm_task({ROUND_TASK}) in {time.perf_counter() - t0:.1f} s")
@@ -4249,10 +4432,10 @@ def _batched_round_launches(cfg, pcfg, hist, quant, n_test, stats=False):
         if quant:
             b2 += (1 if stats else 2) * steps + 2 * sub * steps
             b3 += steps if stats else 0
-    tc = "_tc" if cfg.dtype == "bfloat16" else ""
+    names = _kernel_counters(cfg)
     return want_launches(**{
-        "fused_xent" + tc: b4f, "fused_xent_bwd" + tc: b4b,
-        "flash_attention" + tc: b5f, "flash_attention_bwd" + tc: b5b,
+        names["fused_xent"]: b4f, names["fused_xent_bwd"]: b4b,
+        names["flash_attention"]: b5f, names["flash_attention_bwd"]: b5b,
         "tamper_check_sums" + ("_bf16" if cfg.dtype == "bfloat16" else ""): b1,
         "quant_dequant": b2, "quant_dequant_stats": b3})
 
@@ -4274,7 +4457,7 @@ def _round_float_gap(got, want) -> float:
 
 def phase_round_batched(seq_hists):
     """Phase 8b: the batched engine over from_lm at phase 8's configuration
-    (Qwen3-8B's width, 12 layers: 9 client + 3 AP, train_4k settings; M 4,
+    (Qwen3-8B's width, ROUND_LAYERS: 3 client + 3 AP, train_4k settings; M 4,
     N 1, T 2, E 2, B 4, label flip on client 0, Pigeon-SL+): run_pigeon(
     engine="batched") with no wire, int8, and int8 under loss_plus_distance,
     each from phase 8's init.  Its decisions equal phase 8's sequential
@@ -4296,7 +4479,7 @@ def phase_round_batched(seq_hists):
 
     t_phase = time.perf_counter()
     cfg = dataclasses.replace(get_config("qwen3-8b"), n_layers=ROUND_LAYERS,
-                              **shape_settings(SHAPES["train_4k"]))
+                              cut_layer=ROUND_CUT, **shape_settings(SHAPES["train_4k"]))
     data = build_lm_task(**ROUND_TASK)
     model = build_model(cfg, DEVICE)
     pcfg = ProtocolConfig(M=4, N=1, T=2, E=2, B=4, lr=1e-3)
@@ -4454,7 +4637,7 @@ def _round_cfg():
     from repro_torch.configs import get_config
     from repro_torch.launch.shapes import SHAPES, shape_settings
     return dataclasses.replace(get_config("qwen3-8b"), n_layers=ROUND_LAYERS,
-                               **shape_settings(SHAPES["train_4k"]))
+                               cut_layer=ROUND_CUT, **shape_settings(SHAPES["train_4k"]))
 
 
 def _shardmap_rank(reference=None) -> dict:
@@ -5369,6 +5552,32 @@ def _train_attn_launches(cfg, tc: bool = True) -> dict:
     return {fa: n * fwd, bwd: n}
 
 
+def _kernel_counters(cfg) -> dict:
+    """The counters that B5's forward and backward, B6 and B4's forward and
+    backward add to on ``cfg``'s tensors: each route function's choice on
+    meta tensors of the config's dtype, heads, head dim, width and vocab (a
+    model's tensors are contiguous and aligned, so these decide)."""
+    import torch
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused_xent as fx
+    dtype = getattr(torch, cfg.dtype)
+
+    def meta(*shape):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    d = cfg.resolved_head_dim
+    q, kv = meta(1, 1, cfg.n_heads, d), meta(1, 1, cfg.n_kv_heads, d)
+    h, w = meta(8, cfg.d_model), meta(cfg.d_model, cfg.vocab)
+    tc = {fa.TENSOR_CORES: "_tc", fa.F32_FMA: ""}
+    return dict(
+        flash_attention="flash_attention" + tc[fa.attention_route(q, kv, kv)],
+        flash_attention_bwd="flash_attention_bwd" + tc[fa.attention_bwd_route(q, kv, kv, q, q)],
+        decode_attention="decode_attention" + tc[da.decode_route(q, kv, kv)],
+        fused_xent="fused_xent" + tc[fx.xent_route(h, w)],
+        fused_xent_bwd="fused_xent_bwd" + tc[fx.xent_bwd_route(h, w)])
+
+
 def _xent_route(model) -> str:
     """The route B4 takes over ``model``'s head for a (T, d_model) hidden in
     the model's dtype (``fused_xent.xent_route``)."""
@@ -5380,7 +5589,8 @@ def _xent_route(model) -> str:
 
 def _draw_model(label: str, cfg, seed: int = 0, want_params=None):
     """``cfg``'s model drawn on the card from ``seed``; its parameter count
-    held against ``want_params``."""
+    held against ``want_params``: the analytic count (``param_count``), which
+    leaves out the norms' scales and Qwen2.5's QKV biases."""
     import torch
     from repro_torch.models import build_model
     torch.cuda.empty_cache()
@@ -5389,11 +5599,12 @@ def _draw_model(label: str, cfg, seed: int = 0, want_params=None):
     model = build_model(cfg, DEVICE).init(torch.Generator(device=DEVICE).manual_seed(seed))
     torch.cuda.synchronize()
     n_params = sum(x.numel() for x in model.parameters())
-    norms = sum(x.numel() for n, x in model.named_parameters() if n.endswith("scale"))
+    norms = sum(x.numel() for n, x in model.named_parameters()
+                if n.endswith("scale") or n.endswith(("wq.b", "wk.b", "wv.b")))
     if want_params is not None:
         check(n_params - norms == want_params == cfg.param_count(),
-              f"{label}: {n_params - norms:,} parameters besides the norms, want "
-              f"{want_params:,} (param_count {cfg.param_count():,})")
+              f"{label}: {n_params - norms:,} parameters besides the norms and QKV biases, "
+              f"want {want_params:,} (param_count {cfg.param_count():,})")
     log(f"{label} {cfg.name}: {cfg.n_layers} layers {[(sp.kind, sp.n) for sp in model.plan]}, "
         f"d {cfg.d_model}, {cfg.dtype}: {n_params:,} parameters "
         f"({n_params * model.embedding.element_size() / 1e9:.2f} GB), drawn on the card in "
@@ -5744,7 +5955,7 @@ def _capacity(cfg, tokens: int) -> int:
 
 def phase_moe_round():
     """Phase 14: the Pigeon-SL round over from_lm at DeepSeek-V2-Lite's full
-    width, depth cut to MOE_ROUND_LAYERS (theta about phase 8's 12-layer
+    width, depth cut to MOE_ROUND_LAYERS (theta about a 12-layer
     Qwen3-8B; R = 2 candidates and gradients), phase 8's task and protocol
     (M 4, N 1, T 2, E 2, B 4, label flip on client 0, Pigeon-SL+): no wire,
     and int8 under loss_plus_distance, each on the sequential and the
@@ -6283,7 +6494,7 @@ def phase_analysis() -> dict:
 # phase 19: the data and model axes (tensor and expert parallelism)
 # ---------------------------------------------------------------------------
 
-TP_LAYERS = 12                  # phase 19's Qwen3-8B depth (phase 6's SERVE_LAYERS)
+TP_LAYERS = 6                   # phase 19's Qwen3-8B depth (phase 6's SERVE_LAYERS)
 TP_PROMPT, TP_NEW = 32, 8       # its serve loop: prompt steps, then greedy tokens
 TP_MOE_BATCH = (4, 512)         # 2,048 tokens: the least that takes moe_shard's local
                                 # dispatch at E = 128 (16 x 128)
@@ -7144,6 +7355,341 @@ def phase_tensor_parallel(moe_shard: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 20: Gemma3-12B, H2O-Danube-1.8B and Qwen2.5-14B
+# ---------------------------------------------------------------------------
+
+#: the kernels each counter's route launches (profiler name fragments)
+ROUTE_KERNELS = {"flash_attention": ("flash_fwd_kernel",),
+                 "flash_attention_tc": ("flash_fwd_tc_kernel",),
+                 "flash_attention_bwd": ("delta_kernel", "dkdv_kernel", "dq_kernel"),
+                 "flash_attention_bwd_tc": ("flash_bwd_dkdv_tc_kernel", "flash_bwd_dq_tc_kernel",
+                                            "flash_bwd_delta_kernel"),
+                 "decode_attention": ("decode_partial_kernel", "decode_combine_kernel"),
+                 "decode_attention_tc": ("decode_tc_kernel",),
+                 "fused_xent": ("xent_fwd_kernel", "xent_combine_kernel", "xent_grad"),
+                 "fused_xent_tc": ("xent_fwd_tc_kernel", "xent_combine_kernel"),
+                 "fused_xent_bwd": ("xent_grad",),
+                 "fused_xent_bwd_tc": ("xent_bwd_tc_kernel",)}
+
+
+def _route_shares(launches: dict) -> dict:
+    """``_profile_report``'s shares of the kernels a path launched, by
+    counter (the route in its name)."""
+    return {f"{name} ({'tensor cores' if '_tc' in name else 'f32-FMA route'})":
+            ROUTE_KERNELS[name] for name, n in launches.items() if n}
+
+
+def _fma_profile(name: str, fn, wall_us: float, launches: dict) -> dict:
+    """``_profile_report`` of one call of a phase 20 path that launched an
+    f32-FMA route (each route's share of the busy time, the idle share);
+    an empty record, and no profile, for a path on the tensor cores only
+    (the script's time limit)."""
+    record = {}
+    if any(n and "_tc" not in counter for counter, n in launches.items()):
+        _profile_report(name, fn, wall_us, 1, shares=_route_shares(launches), record=record)
+    return record
+
+
+class _KVCapture:
+    """Within the block, the keys and values of every ``ops.flash_attention``
+    call in call order (a prefill's, layer by layer): what the reference's
+    serve loop writes into the decode cache as it steps the prompt.
+    ``fill(cache, n)`` writes their first ``n`` positions into the cache's
+    layers, in order."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        self.saved, self.kv = ops.flash_attention, []
+
+        def captured(q, k, v, **kw):
+            self.kv.append((k, v))
+            return self.saved(q, k, v, **kw)
+
+        ops.flash_attention = captured
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+        ops.flash_attention = self.saved
+
+    def fill(self, cache, n: int) -> None:
+        layers = sum(c["k"].shape[0] for c in cache)
+        check(len(self.kv) == layers, f"_KVCapture: {len(self.kv)} attention calls for "
+                                      f"{layers} cached layers")
+        kv = iter(self.kv)
+        for c in cache:
+            for i in range(c["k"].shape[0]):
+                k, v = next(kv)
+                c["k"][i, :, :n] = k[:, :n]
+                c["v"][i, :, :n] = v[:, :n]
+
+
+def _dense_want(cfg, decode_steps: int = 0) -> dict:
+    """The launches of phase 20's paths over a dense ``cfg``, per counter and
+    route (``_kernel_counters``): the prefill B5's forward once a layer;
+    ``decode_steps`` of the serve loop B6 once a layer and step; a train
+    step (a loss and its gradient) B5's forward once a layer (twice under
+    remat, which recomputes it) and its backward once, B4's forward and
+    backward once."""
+    names = _kernel_counters(cfg)
+    n, fwd = cfg.n_layers, 2 if cfg.remat else 1
+    return dict(prefill=want_launches(**{names["flash_attention"]: n}),
+                serve=want_launches(**{names["decode_attention"]: n * decode_steps}),
+                train=want_launches(**{names["flash_attention"]: fwd * n,
+                                       names["flash_attention_bwd"]: n,
+                                       names["fused_xent"]: 1, names["fused_xent_bwd"]: 1}))
+
+
+def _dense_serve(arch: str, fam: dict) -> dict:
+    """Phase 20's serve path of ``arch`` at full width and depth, bf16: the
+    weights drawn on the card (the parameter count held against the
+    config's), a (batch, prompt) prefill (``fam["serve"]``; warm, timed,
+    launches as ``_dense_want`` plans, ``_fma_profile``), the decode cache given
+    the prefill's keys and values of the prompt's first positions
+    (``_KVCapture``), then the serve loop from the prompt's last position
+    through DENSE_NEW greedy tokens (launches as planned): its logits at
+    the prompt's last position against the prefill's within
+    SERVE_BF16_REL; one warm decode step profiled (``_fma_profile``); the
+    peak memory."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.launch.serve import greedy_decode, make_prompts, serve_config
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+
+    label = f"phase20 {fam['label']}"
+    cfg = serve_config(arch, full=True)
+    model = _draw_model(label, cfg, 0, fam["params"])
+    n_params = sum(x.numel() for x in model.parameters())
+    log(f"{label} {cfg.name}: {n_params:,} parameters, {n_params * 2 / 1e9:.2f} GB of bf16 "
+        f"weights; {card_line()}")
+    b, p = fam["serve"]
+    steps = 1 + DENSE_NEW
+    plan = _dense_want(cfg, steps)
+    prompts = torch.from_numpy(make_prompts(0, cfg.vocab, b, p)).to(DEVICE)
+    prefill = make_prefill_step(model)
+    with _KVCapture() as kv:                    # the warm-up: not counted
+        prefill({"tokens": prompts})
+    torch.cuda.synchronize()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    logits = prefill({"tokens": prompts})
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    prefill_launches = dict(build.LAUNCHES)
+    check(prefill_launches == plan["prefill"],
+          f"{label} prefill: launches {_launched({0: prefill_launches})[0]}, want "
+          f"{_launched({0: plan['prefill']})[0]}")
+    check(logits.shape == (b, 1, cfg.vocab) and bool(torch.isfinite(logits).all()),
+          f"{label} prefill: logits {tuple(logits.shape)} not finite or misshapen")
+    prefill_profile = _fma_profile(f"{label} {cfg.name} prefill (B {b} x {p}, bf16)",
+                                   lambda: prefill({"tokens": prompts}), prefill_s * 1e6,
+                                   prefill_launches)
+
+    cache = model.init_cache(b, p + DENSE_NEW)
+    kv.fill(cache, p - 1)
+    del kv
+    serve_step = make_serve_step(model)
+
+    def from_last(c, tok, i):
+        return serve_step(c, tok, p - 1 + i)
+
+    torch.cuda.synchronize()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    gen, last = greedy_decode(from_last, cache, prompts[:, -1:], DENSE_NEW)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    loop_launches = dict(build.LAUNCHES)
+    check(loop_launches == plan["serve"],
+          f"{label} serve loop: launches {_launched({0: loop_launches})[0]}, want "
+          f"{_launched({0: plan['serve']})[0]}")
+    check(gen.shape == (b, DENSE_NEW) and int(gen.min()) >= 0 and int(gen.max()) < cfg.vocab,
+          f"{label}: generated tokens {tuple(gen.shape)}")
+    rel, argmax = _agreement(logits, last)
+    check(rel <= SERVE_BF16_REL, f"{label}: prefill vs decode logits at position {p - 1} "
+                                 f"differ by {rel:.3e} of max |logit| > {SERVE_BF16_REL}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ms_step = loop_s / steps * 1e3
+    windows = sorted({w for sp in model.plan for w in sp.meta.get("window", ())})
+    log(f"{label} prefill (B {b} x {p} tokens, windows {windows}, warm): {prefill_s:.4f} s, "
+        f"launches {_launched({0: prefill_launches})[0]}; serve loop from position {p - 1}: "
+        f"{steps} steps (1 prompt + {DENSE_NEW} greedy) in {loop_s:.3f} s: {ms_step:.3f} "
+        f"ms/step, {b * steps / loop_s:.1f} tokens/s, launches "
+        f"{_launched({0: loop_launches})[0]}; prefill vs decode logits max |diff| / max "
+        f"|logit| {rel:.4e} (bound {SERVE_BF16_REL}), argmax agreement {argmax:.3f}; peak "
+        f"device memory {peak_gb:.2f} GB; greedy tokens[0] {gen[0].tolist()}; {card_line()}")
+    tok = gen[:, -1:].contiguous()
+    decode_profile = _fma_profile(
+        f"{label} {cfg.name} decode step (B {b}, index {p + DENSE_NEW - 1}, bf16)",
+        lambda: serve_step(cache, tok, p + DENSE_NEW - 1)[0], ms_step * 1e3, loop_launches)
+    del model, cache, serve_step, prefill
+    torch.cuda.empty_cache()
+    return dict(params=n_params, prefill_launches=prefill_launches,
+                loop_launches=loop_launches, prefill_s=prefill_s, ms_per_step=ms_step,
+                tokens_per_s=b * steps / loop_s, peak_gb=peak_gb, rel=rel, argmax=argmax,
+                prefill_profile=prefill_profile, decode_profile=decode_profile)
+
+
+def _dense_train(arch: str, fam: dict) -> dict:
+    """Phase 20's train path of ``arch`` at full width, ``fam["train_layers"]``
+    layers, train_4k's settings (bf16, remat) on TRAIN_BATCH x TRAIN_SEQ:
+    ``_three_steps`` with the launches ``_dense_want`` plans, its mfu and
+    peak, one step profiled (``_fma_profile``); then at
+    ``fam["f32_layers"]`` in f32 on 1 x ``fam["f32_tokens"]`` tokens the
+    kernel path's loss and every gradient against the plain path's
+    (``_kernel_vs_plain``, the f32-FMA routes)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.shapes import SHAPES, shape_settings
+    from repro_torch.launch.steps import make_train_step
+
+    label = f"phase20 {fam['label']}"
+    tcfg = dataclasses.replace(get_config(arch), n_layers=fam["train_layers"],
+                               **shape_settings(SHAPES["train_4k"]))
+    model = _draw_model(f"{label} train", tcfg, 1)
+    batch = _train_batch(TRAIN_BATCH, TRAIN_SEQ)
+    step = make_train_step(model, TRAIN_LR)
+    plan = _dense_want(tcfg)["train"]
+    train, wall_us = _three_steps(f"{label} train", step, batch, plan, model)
+    profile = _fma_profile(f"{label} {tcfg.name} train step ({tcfg.n_layers} layers, B "
+                           f"{TRAIN_BATCH} x {TRAIN_SEQ}, bf16, remat)", lambda: step(batch),
+                           wall_us, plan)
+    log(f"{label} train: {tcfg.n_layers} of {get_config(arch).n_layers} layers; peak "
+        f"{train['peak_gb']:.2f} GB; mfu {train['mfu']:.4f}; {card_line()}")
+    train.update(layers=tcfg.n_layers, profile=profile)
+    del model, step, batch
+    torch.cuda.empty_cache()
+
+    fcfg = dataclasses.replace(get_config(arch), n_layers=fam["f32_layers"])
+    model = _draw_model(f"{label} f32", fcfg, 5)
+    rng = torch.Generator().manual_seed(6)
+    small = {name: torch.randint(0, TRAIN_VOCAB, (1, fam["f32_tokens"]),
+                                 generator=rng).to(DEVICE) for name in ("tokens", "labels")}
+    windows = sorted(set(model.plan[0].meta["window"]))
+    f32 = _kernel_vs_plain(f"{label} {fcfg.name} f32, {fcfg.n_layers} layers (windows "
+                           f"{windows}), full width, 1 x {fam['f32_tokens']} tokens", model,
+                           small, _dense_want(fcfg)["train"])
+    train.update({k: v for k, v in f32.items() if k != "f32_grad_rels"})
+    del model
+    torch.cuda.empty_cache()
+    return train
+
+
+def _danube_round() -> dict:
+    """The Pigeon-SL round over from_lm at H2O-Danube-1.8B's full width and
+    depth (24 layers, its published cut at 6; train_4k's bf16 and remat),
+    phase 8's task and protocol (M 4, N 1, T 2, E 2, B 4, label flip on
+    client 0, Pigeon-SL+, no wire), on the sequential and the batched
+    engine from one init: decisions equal, launches as the rounds'
+    structure predicts on the routes Danube's tensors take (B4 on the
+    tensor cores; B5 both ways at head dim 80 on the f32-FMA routes; B1
+    once a batched round), seconds a round and peak memory."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import LABEL_FLIP, Attack, ProtocolConfig, from_lm
+    from repro_torch.data import build_lm_task
+    from repro_torch.launch.shapes import SHAPES, shape_settings
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_config(DANUBE_ARCH), **shape_settings(SHAPES["train_4k"]))
+    data = build_lm_task(**ROUND_TASK)
+    model = build_model(cfg, DEVICE)
+    n_params = sum(x.numel() for x in model.parameters())
+    log(f"phase20 danube round {cfg.name}: {cfg.n_layers} layers (cut {cfg.cut_layer}), "
+        f"{cfg.dtype}, remat={cfg.remat}: {n_params:,} parameters ({n_params * 2 / 1e9:.2f} "
+        f"GB a copy); routes {_kernel_counters(cfg)}")
+    pcfg = ProtocolConfig(M=4, N=1, T=2, E=2, B=4, lr=1e-3)
+    out, hists = {}, {}
+    for engine in ("sequential", "batched"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        name = f"phase20 danube round {engine}"
+        hist, launches, seconds = _run(name, from_lm(model), data, pcfg, malicious={0},
+                                       attack=Attack(LABEL_FLIP), plus=True, engine=engine,
+                                       device=DEVICE)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        count = _batched_round_launches if engine == "batched" else _round_launches
+        want = count(cfg, pcfg, hist, None, data.x_test.shape[0])
+        check(launches == want, f"{name}: launches {_launched({0: launches})[0]}, want "
+                                f"{_launched({0: want})[0]}")
+        log(f"{name}: {seconds / pcfg.T:.2f} s/round (init and first-call set-up "
+            f"included); peak device memory {peak_gb:.2f} GB; launches "
+            f"{_launched({0: launches})[0]}")
+        hists[engine] = hist
+        out[engine] = dict(launches=launches, s_per_round=seconds / pcfg.T, peak_gb=peak_gb)
+    for rb, rs in zip(hists["batched"].rounds, hists["sequential"].rounds):
+        for k in ROUND_DECISIONS:
+            check(rb[k] == rs[k], f"phase20 danube round {rb['round']}: {k} "
+                                  f"batched={rb[k]} sequential={rs[k]}")
+    out["batched"]["float_gap"] = gap = _round_float_gap(hists["batched"], hists["sequential"])
+    log(f"phase20 danube round: decisions equal on both engines "
+        f"({[r['selected'] for r in hists['batched'].rounds]} selected); largest float gap "
+        f"{gap:.3e}; {card_line()}")
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_dense_families() -> dict:
+    """Phase 20: Gemma3-12B, H2O-Danube-1.8B and Qwen2.5-14B (DENSE_FAMILIES)
+    at full width: each served at full depth (``_dense_serve``), trained at
+    its train_layers and held in f32 against the plain path
+    (``_dense_train``); the Pigeon-SL round over Danube at full depth on
+    both engines (``_danube_round``).  ``main`` runs it inside a
+    ``_ShapeLog``: every bf16 B4, B5 and B6 call at a shape phase 1
+    checked."""
+    t_phase = time.perf_counter()
+    out = {}
+    for arch, fam in DENSE_FAMILIES.items():
+        out[fam["label"]] = dict(serve=_dense_serve(arch, fam), train=_dense_train(arch, fam))
+    out["danube_round"] = _danube_round()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase20 took {out['seconds']:.1f} s")
+    return out
+
+
+EXAMPLES = ("quickstart", "serve_decode")
+EXAMPLES_DEADLINE_S = 300.0
+
+
+def phase_examples() -> dict:
+    """The port's examples ``EXAMPLES`` (``examples_torch/``) on the card, each
+    a subprocess of its own, started together; a non-zero exit (or one past
+    EXAMPLES_DEADLINE_S) fails the run.  Their last lines and seconds."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    args = [] if DEVICE == "cuda" else ["--device", DEVICE]
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen([sys.executable, str(ROOT / "examples_torch" / f"{name}.py"),
+                                     *args], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+             for name in EXAMPLES}
+    out = {}
+    try:
+        for name, proc in procs.items():
+            text, _ = proc.communicate(timeout=max(1.0, EXAMPLES_DEADLINE_S
+                                                   - (time.perf_counter() - t0)))
+            lines = text.strip().splitlines()
+            check(proc.returncode == 0, f"examples_torch/{name}.py exited {proc.returncode}: "
+                                        + "\n".join(lines[-20:]))
+            out[name] = dict(seconds=time.perf_counter() - t0, tail=lines[-4:])
+            log(f"examples_torch/{name}.py: exit 0 within {out[name]['seconds']:.1f} s; "
+                + " | ".join(lines[-4:]))
+    except subprocess.TimeoutExpired:
+        fail(f"the examples ran past {EXAMPLES_DEADLINE_S} s")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return out
+
+
 def main() -> None:
     if not (ROOT / "src" / "repro_torch").is_dir():
         fail(f"no src/repro_torch next to {Path(__file__).name}: run it from a "
@@ -7167,6 +7713,8 @@ def main() -> None:
     t0 = time.perf_counter()
     logs = build_all()
     log(f"phase0: built {sorted(logs)} in {time.perf_counter() - t0:.1f} s")
+    from repro_torch.core import compile_cache_stats
+    log(f"phase0: kernel-library cache {compile_cache_stats()}")
     for name, text in logs.items():
         regs = [int(n) for n in re.findall(r"Used (\d+) registers", text)]
         spills = sum(int(n) for n in re.findall(r"(\d+) bytes spill stores", text))
@@ -7225,6 +7773,11 @@ def main() -> None:
                      {name: kernels[name]["slice_shapes"] for name in shapes.seen})
     analysis = phase("18", phase_analysis)
     tp = phase("19", phase_tensor_parallel, moe.pop("qmoe_moe_shard"))
+    with _ShapeLog() as shapes:
+        dense = phase("20", phase_dense_families)
+    _check_shape_log("phase 20", shapes,
+                     {name: kernels[name]["slice_shapes"] for name in shapes.seen})
+    examples = phase("examples", phase_examples)
 
     sources = {"quant_dequant": ("src/repro/kernels/quant_exchange.py:85",
                                  "src/repro_torch/kernels/csrc/quant_exchange.cu"),
@@ -7298,7 +7851,13 @@ def main() -> None:
                   if isinstance(r, dict)},
                "seamless_prefill": seamless["serve"]["prefill_launches"],
                "seamless_serve_loop": seamless["serve"]["loop_launches"],
-               "seamless_train": seamless["train"]["launches"]}
+               "seamless_train": seamless["train"]["launches"],
+               **{f"{fam['label']}_{what}": dense[fam["label"]]["serve"][f"{what}_launches"]
+                  for fam in DENSE_FAMILIES.values() for what in ("prefill", "loop")},
+               **{f"{fam['label']}_train": dense[fam["label"]]["train"]["launches"]
+                  for fam in DENSE_FAMILIES.values()},
+               **{f"danube_round_{engine}": dense["danube_round"][engine]["launches"]
+                  for engine in ("sequential", "batched")}}
     # B5's and B4's forwards and backwards and B6: the entry is the
     # tensor-core route, which the bf16 paths take; the f32-FMA route it
     # replaced (its library and counter) rides beside it
@@ -7431,14 +7990,18 @@ def main() -> None:
                 library_ms=ms(lb.get("library_us")),
                 library_device_ms=ms(lb.get("library_dev_us")))
         if "slice_shapes" in k:
-            # phases 12-17's own shapes (phase 1), with the launches of the
-            # path each comes from
+            # phases 12-17's and 20's own shapes (phase 1), with the launches
+            # of the path each comes from; phase 20's with their yardsticks
             entry["slice_shapes"] = [dict(
                 shape=t["shape"], path=t["path"], route=t["route"],
                 **({} if t["causal"] else {"causal": False}),
                 launches=None if t["path"] is None else by_path[t["path"]][t["counter"]],
                 **{e: t[e] for e in ("max_abs_err", "max_rel_err") if e in t},
-                ms=ms(t["kernel_us"])) for t in k["slice_shapes"]]
+                ms=ms(t["kernel_us"]),
+                **({} if "bound_us" not in t else dict(
+                    plain_ms=ms(t["plain_us"]), bound_ms=ms(t["bound_us"]),
+                    bound_by=t["bound_by"], library_ms=ms(t["library_us"]))))
+                for t in k["slice_shapes"]]
         if "lm_message" in k:
             # the LM round's cut message (B3's wide path)
             lm = k["lm_message"]
@@ -7557,7 +8120,7 @@ def main() -> None:
         f"phase12 vlm {vlm}; phase13 moe {moe}; phase14 moe rounds {moe_rounds}; "
         f"phase15 zamba2 {zamba2}; phase16 zamba2 rounds {zamba2_rounds}; "
         f"phase17 seamless {seamless}; phase18 analysis {analysis}; phase19 tensor "
-        f"parallel {tp}")
+        f"parallel {tp}; phase20 dense families {dense}; examples {examples}")
     log(f"phase seconds {seconds}; {time.perf_counter() - t0:.1f} s since the build began")
     log(json.dumps({"kernels": entries}))
     log(card)

@@ -13,6 +13,7 @@ from ..telemetry import Telemetry
 from .attacks import (ACTIVATION, GRADIENT, HONEST, KINDS, LABEL_FLIP, NONE, PARAM_TAMPER,
                       Attack, AttackVec, attack_vec, attack_vec_for_clusters)
 from .clustering import cluster_is_honest, has_honest_cluster, make_clusters
+from .compile_cache import compile_cache_stats, enable_compile_cache
 from .comm import QUANT_FORMATS, CommConfig, fp8_supported, message_bytes, resolve_quant
 from .engine import run_pigeon_sweep, train_round_batched
 from .jobs import JobPool, JobSpec, run_job_pool
@@ -50,4 +51,5 @@ __all__ = [
     "SplitModule", "client_update", "client_update_stats", "from_cnn", "from_lm",
     "message_stats", "sgd_update", "sl_minibatch_grads", "sl_minibatch_grads_vec",
     "check_handoff", "handoff_activations", "select_cluster", "validation_loss",
+    "enable_compile_cache", "compile_cache_stats",
 ]

@@ -3,11 +3,15 @@
 Each ``csrc/*.cu`` file has a plain C interface and compiles with ``nvcc``
 into its own shared library, loaded with ``ctypes`` (no PyTorch headers, so
 a build takes seconds).  Libraries go to ``build/repro_torch_kernels/`` at
-the repository root, named by a hash of the source, the ``csrc/*.cuh``
-headers it includes and the flags, so an edited source or header is rebuilt
-and an unchanged one is reused.  Nothing builds at import time: :func:`load`
+the repository root, or to the directory :func:`set_build_dir` names (the
+persistent cache of ``core/compile_cache.py``), named by a hash of the
+source, the ``csrc/*.cuh`` headers it includes and the flags, so an edited
+source or header is rebuilt, an unchanged one is reused, and processes and
+hosts can share one directory.  Nothing builds at import time: :func:`load`
 builds on first use, and :func:`build_all` starts one ``nvcc`` per source at
-once (what ``chip_smoke.py`` times).
+once (what ``chip_smoke.py`` times).  :data:`CACHE` counts, once a library
+a process, the libraries found in the directory (hits) and those ``nvcc``
+built (misses).
 
 Every launcher reports its launch through :func:`record_launch`, which raises
 on a CUDA error and otherwise adds one to the launcher's count in
@@ -27,7 +31,9 @@ from pathlib import Path
 from typing import Dict, Set, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+DEFAULT_BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+#: where the libraries go (:func:`set_build_dir`)
+BUILD_DIR = DEFAULT_BUILD_DIR
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -152,6 +158,12 @@ _STARTED: Dict[str, float] = {}
 #: library in place); a library built before is not listed
 BUILD_SECONDS: Dict[str, float] = {}
 
+#: the first lookup of each library in this process (:func:`load` or
+#: :func:`build_all`): ``hits`` found it in :data:`BUILD_DIR`, ``misses``
+#: built it with ``nvcc``
+CACHE: Dict[str, int] = {"hits": 0, "misses": 0}
+_LOOKED_UP: Set[str] = set()
+
 #: kernel launches per launcher; reset with :func:`reset_launches`.  B5's and
 #: B4's forwards and backwards and B6 count by route: ``flash_attention``,
 #: ``fused_xent``, their ``_bwd`` and ``decode_attention`` the f32-FMA
@@ -235,6 +247,24 @@ def library_path(name: str, csrc: Path = CSRC) -> Path:
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
+def set_build_dir(path) -> None:
+    """Put the libraries in ``path`` (made if missing) from now on; a
+    library already loaded stays loaded."""
+    global BUILD_DIR
+    BUILD_DIR = Path(path)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+
+
+def _look_up(name: str) -> bool:
+    """Whether ``name``'s library is in :data:`BUILD_DIR`; the first lookup
+    of a name in this process counts a hit or a miss in :data:`CACHE`."""
+    found = library_path(name).exists()
+    if name not in _LOOKED_UP:
+        _LOOKED_UP.add(name)
+        CACHE["hits" if found else "misses"] += 1
+    return found
+
+
 def _tmp_path(name: str) -> Path:
     return library_path(name).with_suffix(f".{os.getpid()}.tmp")
 
@@ -264,8 +294,7 @@ def build_all() -> Dict[str, str]:
     started together.  Returns {name: compiler log} (ptxas register and
     shared-memory report) for every source, built now or before."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {name: _start(name) for name in SOURCES
-             if not library_path(name).exists()}
+    procs = {name: _start(name) for name in SOURCES if not _look_up(name)}
     try:
         for name, proc in procs.items():
             _finish(name, proc)
@@ -283,7 +312,7 @@ def load(name: str) -> ctypes.CDLL:
     lib = _LOADED.get(name)
     if lib is not None:
         return lib
-    if not library_path(name).exists():
+    if not _look_up(name):
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         _finish(name, _start(name))
     lib = ctypes.CDLL(str(library_path(name)))
@@ -312,5 +341,6 @@ def check_constants(name: str, expected: Dict[str, int]) -> None:
     _CHECKED.add(name)
 
 
-__all__ = ["BUILD_DIR", "BUILD_SECONDS", "LAUNCHES", "SOURCES", "build_all", "check_constants",
-           "device_limits", "library_path", "load", "record_launch", "reset_launches"]
+__all__ = ["BUILD_DIR", "BUILD_SECONDS", "CACHE", "DEFAULT_BUILD_DIR", "LAUNCHES", "SOURCES",
+           "build_all", "check_constants", "device_limits", "library_path", "load",
+           "record_launch", "reset_launches", "set_build_dir"]

@@ -27,9 +27,10 @@ engine).  ``--trace`` writes a JSONL
 telemetry trace (spans, per-round records, a provenance stamp with the
 card's name and power limit), ``--profile-dir`` a ``torch.profiler`` trace
 of round 1, and ``--block K`` runs K rounds a fetch (the batched engine by
-default then; ``pigeon+`` and ``param_tamper`` force 1).  ``--compile-cache``
-raises: JAX's persistent compilation cache has no counterpart (PyTorch runs
-eagerly and the kernels are built once into ``build/``).
+default then; ``pigeon+`` and ``param_tamper`` force 1).  ``--compile-cache
+DIR`` (or ``REPRO_COMPILE_CACHE``) puts the kernel libraries in DIR, the
+persistent cache of ``core/compile_cache.py``: a library built there by one
+run is loaded by the next.
 """
 from __future__ import annotations
 
@@ -41,18 +42,11 @@ import torch
 
 from .. import resolve_device
 from ..configs import get_smoke_config, list_archs
-from ..core import (HONEST, Attack, ProtocolConfig, from_cnn, from_lm, run_pigeon,
-                    run_splitfed, run_vanilla_sl)
+from ..core import (HONEST, Attack, ProtocolConfig, enable_compile_cache, from_cnn,
+                    from_lm, run_pigeon, run_splitfed, run_vanilla_sl)
 from ..data import build_image_task, build_lm_task
 from ..models import build_model
 from ..telemetry import Stopwatch, Telemetry
-
-#: why an option raises
-NOT_PORTED = {
-    "compile_cache": ("--compile-cache: JAX's persistent compilation cache has no "
-                      "counterpart (PyTorch runs eagerly; the kernels build once into "
-                      "build/)"),
-}
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
@@ -92,11 +86,11 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                          "(pigeon/sfl on the batched engine; pigeon+ and "
                          "param_tamper force 1)")
     ap.add_argument("--compile-cache", default=None, metavar="DIR",
-                    help="JAX's persistent compilation cache (no counterpart)")
+                    help="directory of the persistent kernel-library cache "
+                         "(default: REPRO_COMPILE_CACHE, else build/repro_torch_kernels)")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    if args.compile_cache is not None:
-        raise NotImplementedError(NOT_PORTED["compile_cache"])
+    enable_compile_cache(args.compile_cache)   # no-op when DIR and the env are unset
     device = resolve_device(args.device)
     engine = args.engine or ("batched" if args.block > 1 else "sequential")
 

@@ -8,7 +8,8 @@ block, and the CommMeter accounting), so recording adds no device sync.
 event; ``jit_cache_stats`` is the port's counterpart of the reference's
 compiled-program census: PyTorch runs eagerly, so what the port has to
 report is its kernel libraries — the ones loaded, the seconds each build in
-this process took — and a snapshot of the launch counters.
+this process took, the persistent cache's directory, entries, hits and
+misses (``core/compile_cache.py``) — and a snapshot of the launch counters.
 """
 from __future__ import annotations
 
@@ -71,12 +72,16 @@ def pool_gauges(t0s: Dict[str, int], k: int, lanes: int,
 
 def jit_cache_stats() -> Dict[str, Any]:
     """The port's kernel libraries: ``libraries`` (loaded in this process),
-    ``build_seconds`` (each build this process ran) and ``launches`` (a
-    snapshot of ``kernels.build.LAUNCHES``).  Host-side only."""
+    ``build_seconds`` (each build this process ran), ``launches`` (a
+    snapshot of ``kernels.build.LAUNCHES``) and ``persistent_cache_*`` (the
+    library directory, its entries, this process's hits and misses, from
+    :func:`repro_torch.core.compile_cache.compile_cache_stats`).  Host-side
+    only."""
+    from ..core.compile_cache import compile_cache_stats
     from ..kernels import build
     return {"libraries": sorted(build._LOADED),
             "build_seconds": {k: round(v, 6) for k, v in build.BUILD_SECONDS.items()},
-            "launches": dict(build.LAUNCHES)}
+            "launches": dict(build.LAUNCHES), **compile_cache_stats()}
 
 
 __all__ = ["MetricsRegistry", "jit_cache_stats", "pool_gauges", "round_gauges"]

@@ -152,12 +152,10 @@ def test_unported_paths_raise(port, tmp_path):
 
 
 #: names of the reference's package surfaces the port does not carry: the
-#: compile cache (none: PyTorch runs eagerly), the jitted round and the
-#: vmapped client update (the stacked model writes the cluster axis out
-#: instead)
+#: jitted round and the vmapped client update (the stacked model writes the
+#: cluster axis out instead)
 NOT_YET_PORTED = {
-    "core": {"batched_round", "client_update_vec", "enable_compile_cache",
-             "compile_cache_stats"},
+    "core": {"batched_round", "client_update_vec"},
     "core.attacks": set(),
     "selection": set(),
     "data": set(),

@@ -221,7 +221,9 @@ def test_provenance_stamp_keys():
 
 def test_jit_cache_stats_reports_the_kernel_libraries():
     stats = jit_cache_stats()
-    assert set(stats) == {"libraries", "build_seconds", "launches"}
+    assert set(stats) == {"libraries", "build_seconds", "launches", "persistent_cache_dir",
+                          "persistent_cache_entries", "persistent_cache_hits",
+                          "persistent_cache_misses"}
     assert "tamper_check_sums" in stats["launches"]
 
 
@@ -295,7 +297,9 @@ def test_trace_jsonl_from_a_three_round_run(port, tmp_path):
     assert evs[-1]["event"] == "run_end"
     rounds = [e for e in evs if e["event"] == "round"]
     assert [r["t"] for r in rounds] == [0, 1, 2]
-    assert set(rounds[0]["jit"]) == {"libraries", "build_seconds", "launches"}
+    assert set(rounds[0]["jit"]) == {"libraries", "build_seconds", "launches",
+                                     "persistent_cache_dir", "persistent_cache_entries",
+                                     "persistent_cache_hits", "persistent_cache_misses"}
 
 
 def assert_history_identical(h_on, h_off):
