@@ -96,8 +96,10 @@ from the repository root.  Phases, in order; any failure exits non-zero:
      and backward) and B6 in bf16 at the shapes phases 12-17 hand them
      (``SLICE_ATTN``, ``SLICE_NONCAUSAL``, ``SLICE_DECODE``,
      ``SLICE_XENT``), each within the bounds above and tagged with its
-     path, and every bf16 call of phases 15-17 logged and held against that
-     list (``_ShapeLog``); the wgmma routes' libraries hold HGMMA and UTMALDG
+     path, phase 20's B5 rows both ways also replayed beside the f32-FMA
+     route (the tensor cores checked faster at each), and every bf16 call
+     of phases 15-17 and 20 logged and held against that list
+     (``_ShapeLog``); the wgmma routes' libraries hold HGMMA and UTMALDG
      instructions in their SASS (cuobjdump), B6's tensor-core library HMMA
      and LDGSTS (mma.sync, cp.async), the f32-FMA ones none of the four;
   2. the sequential main path at full width: the CIFAR-10 split CNN (convs
@@ -325,11 +327,12 @@ from the repository root.  Phases, in order; any failure exits non-zero:
      given the prefill's keys and values, the serve loop from the prompt's
      last position through 16 greedy tokens, its logits there against the
      prefill's; launches per counter and route as ``_dense_want`` plans
-     them from the config (Gemma3's B5 forward on the tensor cores, its
-     backward and B6 on the f32-FMA routes; Danube's every B5 and B6 on
-     them); prefill and decode profiled with each route's share; a train
-     step at train_4k cut to 4 x 512 (full depth), its mfu, peak and
-     profile; a few layers in f32 (Gemma3's a local and a global one) the
+     them from the config (B5 both ways on the tensor cores at every head
+     dim, 80 and 256 too; B6 at Gemma3's and Danube's on the f32-FMA
+     route); prefill and decode profiled with each route's share where an
+     f32-FMA route runs, and Danube's prefill and both train steps always
+     (``B5_PROFILED``: B5's share by route); a train step at train_4k cut
+     to 4 x 512 (full depth), its mfu, peak and profile; a few layers in f32 (Gemma3's a local and a global one) the
      kernel path against the plain path; the Pigeon-SL round over Danube
      at full depth (cut 6) on both engines, decisions equal.  Every bf16
      B4, B5 and B6 call of the phase at a shape phase 1 checked
@@ -404,11 +407,14 @@ TAMPER_TOL = 1e-4               # ProtocolConfig.tamper_tol
 # attention: (B, S, H, Hkv, D, window) for B5, (..., index) for B6; the serve
 # path's shapes first (Qwen3-8B: 32 query and 8 KV heads of 128; a 480-token
 # prompt, a 512-position cache), then MQA, groups 1, windows, head dims
-# 64/80/256 and ragged S; B6's last three take windows on the tensor-core
-# route (bf16 at head dims 128 and 64, a window wider than the live range)
+# 64/80/256 and ragged S, S = 1; then head dim 80 (the padded depth) with a
+# window over a ragged S and GQA group 4, and head dim 256 (the backward's
+# 64-key blocks) with group 2 over a ragged S (ATTN_BWD_SHAPES takes them
+# too); B6's last three take windows on the tensor-core route (bf16 at head
+# dims 128 and 64, a window wider than the live range)
 FLASH_SHAPES = ((4, 480, 32, 8, 128, 0), (2, 128, 8, 1, 64, 0), (2, 96, 4, 4, 64, 0),
                 (1, 480, 8, 2, 128, 64), (2, 37, 4, 2, 80, 0), (1, 300, 16, 8, 256, 128),
-                (1, 1, 4, 2, 64, 0))
+                (1, 1, 4, 2, 64, 0), (1, 299, 8, 2, 80, 96), (2, 130, 8, 4, 256, 0))
 DECODE_SHAPES = ((4, 512, 32, 8, 128, 0, 479), (4, 512, 32, 8, 128, 0, 511),
                  (2, 300, 8, 1, 64, 0, 0), (2, 256, 4, 4, 64, 0, 255),
                  (1, 1000, 4, 2, 80, 100, 999), (2, 257, 16, 8, 256, 1024, 200),
@@ -434,21 +440,23 @@ ATTN_ATOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # the serve shape's heads (timed), a cross shape with Sq < Sk and one with
 # Sq > Sk, windows (keys ahead of the query live) with rows that see no key
 # (Sq > Sk + window - 1), head dims 64/80/256, ragged S, and SeamlessM4T's
-# decode step (one query against 256 frames of memory, 16/16 heads of 64)
+# decode step (one query against 256 frames of memory, 16/16 heads of 64);
+# last, head dim 80 with Sq < Sk, GQA group 4, ragged
 NONCAUSAL_SHAPES = ((4, 512, 512, 32, 8, 128, 0), (2, 384, 640, 16, 4, 128, 0),
                     (2, 640, 256, 16, 4, 64, 0), (2, 512, 256, 8, 2, 128, 64),
                     (1, 200, 130, 4, 1, 256, 16), (1, 37, 5, 4, 2, 80, 0),
-                    (1, 300, 300, 8, 8, 64, 32), (4, 1, 256, 16, 16, 64, 0))
+                    (1, 300, 300, 8, 8, 64, 32), (4, 1, 256, 16, 16, 64, 0),
+                    (2, 70, 133, 8, 2, 80, 0))
 NONCAUSAL_TIMED = 4             # the first four are timed
 # B5's non-causal backward: (B, Sq, Sk, H, Hkv, D, window): SeamlessM4T's
 # encoder self-attention (16 heads of 64, 256 frames; timed) and its
 # decoder's cross-attention (256 tokens against 256 frames) share a shape;
 # then an Sq < Sk and an Sq > Sk edge (GQA, head dim 128), a window with
-# every row live (Sq < Sk + window), head dim 80 (the f32-FMA route) with
-# ragged S
+# every row live (Sq < Sk + window), head dim 80 (the padded depth) with
+# ragged S, head dim 256 (64-key blocks) with Sq > Sk and a window
 NONCAUSAL_BWD_SHAPES = ((4, 256, 256, 16, 16, 64, 0), (2, 100, 300, 8, 2, 128, 0),
                         (2, 300, 130, 8, 4, 128, 0), (1, 200, 160, 8, 4, 64, 48),
-                        (1, 37, 50, 4, 2, 80, 0))
+                        (1, 37, 50, 4, 2, 80, 0), (1, 150, 100, 4, 2, 256, 64))
 # at DECODE_LONG a typical |out| is about sqrt(e / 32,768) = 0.009 (N(0, 1)
 # inputs over 32k live keys), under the bf16 atol itself: there the bf16
 # bound is this share of the call's largest |plain| value (~5 bf16 ulps of it)
@@ -1211,7 +1219,10 @@ def _phase_slice_shapes() -> dict:
     the plain version's eager time (a backward's: autograd's backward of
     it), the bound (``launch/roofline.py``) and the library call's
     (``_sdpa``, its backward through autograd; B4's
-    ``F.cross_entropy(h @ W)``, and through autograd)."""
+    ``F.cross_entropy(h @ W)``, and through autograd) and the kernel's
+    replayed device time; phase 20's B5 rows, both ways, also with the
+    f32-FMA route's eager and replayed times beside it (``beside_fma``),
+    the tensor cores checked faster."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as da
@@ -1233,13 +1244,27 @@ def _phase_slice_shapes() -> dict:
 
     once = dict(reps=1, samples=3, warmup=1)
 
-    def yardsticks(work, plain, lib):
+    def yardsticks(work, plain, lib, call=None):
         """Phase 20's figures beside a row's kernel time: the plain
         version's and the library call's eager times (the median of three
-        single calls) and the bound."""
+        single calls), the bound and, given the kernel's ``call``, its
+        replayed device time."""
         bound_us, bound_by = rl.bound_us(work)
-        return dict(plain_us=_time_us(plain, **once), bound_us=bound_us, bound_by=bound_by,
-                    library_us=None if lib is None else _time_us(lib, **once))
+        out = dict(plain_us=_time_us(plain, **once), bound_us=bound_us, bound_by=bound_by,
+                   library_us=None if lib is None else _time_us(lib, **once))
+        if call is not None:
+            out["kernel_dev_us"] = _median(_graph_times_us([call], reps=3, samples=3)[0])
+        return out
+
+    def beside_fma(call, old, what):
+        """The kernel's replayed device time and the f32-FMA route's eager
+        and replayed ones (the two graphs replayed in turn); fails unless
+        the tensor cores' is the shorter."""
+        dev, fma_dev = map(_median, _graph_times_us([call, old], reps=3, samples=3))
+        check(dev < fma_dev, f"{what}: the tensor-core route ({dev:.1f} us replayed) is not "
+                             f"faster than the f32-FMA route ({fma_dev:.1f} us)")
+        return dict(kernel_dev_us=dev,
+                    f32_fma_route=dict(kernel_us=_time_us(old, **once), kernel_dev_us=fma_dev))
 
     def draw(shape, seed):
         b, sq, sk, h, hkv, d, _ = shape
@@ -1273,6 +1298,10 @@ def _phase_slice_shapes() -> dict:
                 extra = yardsticks(rl.flash_attention_work(b, s, s, h, hkv, d, window),
                                    lambda: fa.flash_attention_plain(q, k, v, **kw),
                                    _sdpa(q, k, v, window))
+                extra.update(beside_fma(lambda: fa.flash_attention(q, k, v, **kw),
+                                        lambda: fa.flash_attention(q, k, v, **kw,
+                                                                   route=fa.F32_FMA),
+                                        f"flash_attention {what}"))
         note("flash_attention", shape, path, fa.attention_route(q, k, v), err,
              _time_us(lambda: fa.flash_attention(q, k, v, **kw), **few), key, causal=causal,
              extra=extra)
@@ -1299,6 +1328,10 @@ def _phase_slice_shapes() -> dict:
                                             grad_outputs=dout.transpose(1, 2),
                                             retain_graph=True))
             del lib_out
+            extra.update(beside_fma(
+                lambda: fa.flash_attention_bwd(q, k, v, got, dout, lse, **kw),
+                lambda: fa.flash_attention_bwd(q, k, v, got, dout, lse, **kw, route=fa.F32_FMA),
+                f"flash_attention_bwd {what}"))
         note("flash_attention_bwd", shape, bwd_path, fa.attention_bwd_route(q, k, v, got, dout),
              err,
              _time_us(lambda: fa.flash_attention_bwd(q, k, v, got, dout, lse, **kw), **few),
@@ -1319,7 +1352,8 @@ def _phase_slice_shapes() -> dict:
             with torch.inference_mode():
                 extra = yardsticks(rl.decode_attention_work(b, s, h, hkv, d, window, index),
                                    lambda: da.decode_attention_plain(*args, **kw),
-                                   _sdpa(*args[:3], window, index=index))
+                                   _sdpa(*args[:3], window, index=index),
+                                   lambda: da.decode_attention(*args, **kw))
         note("decode_attention", shape, path, da.decode_route(*args[:3]), err,
              _time_us(lambda: da.decode_attention(*args, **kw), **few), tuple(shape[:6]),
              extra=extra)
@@ -1344,7 +1378,8 @@ def _phase_slice_shapes() -> dict:
             with torch.no_grad():
                 extra = yardsticks(rl.fused_xent_work(*shape),
                                    lambda: fx.fused_xent_plain(h, w, labels),
-                                   lambda: F.cross_entropy(h @ w, in_range, reduction="none"))
+                                   lambda: F.cross_entropy(h @ w, in_range, reduction="none"),
+                                   lambda: fx.fused_xent(h, w, labels))
         note("fused_xent", shape, path, fx.xent_route(h, w), err,
              _time_us(lambda: fx.fused_xent(h, w, labels), **few), tuple(shape), extra=extra)
         dh, dw = fx.fused_xent_bwd(h, w, labels, lse, gup)
@@ -1357,7 +1392,8 @@ def _phase_slice_shapes() -> dict:
             extra = yardsticks(
                 rl.fused_xent_bwd_work(*shape),
                 lambda: torch.autograd.grad(plain_loss, (hh, ww), retain_graph=True),
-                lambda: torch.autograd.grad(lib_loss, (hh, ww), retain_graph=True))
+                lambda: torch.autograd.grad(lib_loss, (hh, ww), retain_graph=True),
+                lambda: fx.fused_xent_bwd(h, w, labels, lse, gup))
             del lib_loss
         note("fused_xent_bwd", shape, bwd_path, fx.xent_bwd_route(h, w), err,
              _time_us(lambda: fx.fused_xent_bwd(h, w, labels, lse, gup), **few), tuple(shape),
@@ -1373,6 +1409,11 @@ def _phase_slice_shapes() -> dict:
                f", plain_us {t['plain_us']:.1f}, bound_us {t['bound_us']:.2f} "
                f"({t['bound_by']}), library_us "
                + ("none" if t["library_us"] is None else f"{t['library_us']:.1f}"))
+            + ("" if "kernel_dev_us" not in t else
+               f", kernel replayed {t['kernel_dev_us']:.1f} us")
+            + ("" if "f32_fma_route" not in t else
+               f", the f32-FMA route {t['f32_fma_route']['kernel_us']:.1f} eager / "
+               f"{t['f32_fma_route']['kernel_dev_us']:.1f} replayed")
             for t in cases))
     return out
 
@@ -7380,13 +7421,19 @@ def _route_shares(launches: dict) -> dict:
             ROUTE_KERNELS[name] for name, n in launches.items() if n}
 
 
-def _fma_profile(name: str, fn, wall_us: float, launches: dict) -> dict:
+#: phase 20's paths profiled whatever routes they take (label, path): where
+#: B5 at head dims 80 and 256 moved from the f32-FMA routes to the tensor
+#: cores, its share of the busy time by route
+B5_PROFILED = {("danube", "prefill"), ("gemma3", "train"), ("danube", "train")}
+
+
+def _fma_profile(name: str, fn, wall_us: float, launches: dict, always: bool = False) -> dict:
     """``_profile_report`` of one call of a phase 20 path that launched an
-    f32-FMA route (each route's share of the busy time, the idle share);
-    an empty record, and no profile, for a path on the tensor cores only
-    (the script's time limit)."""
+    f32-FMA route, or of any with ``always`` (each route's share of the busy
+    time, the idle share); an empty record, and no profile, for another path
+    on the tensor cores only (the script's time limit)."""
     record = {}
-    if any(n and "_tc" not in counter for counter, n in launches.items()):
+    if always or any(n and "_tc" not in counter for counter, n in launches.items()):
         _profile_report(name, fn, wall_us, 1, shares=_route_shares(launches), record=record)
     return record
 
@@ -7484,7 +7531,8 @@ def _dense_serve(arch: str, fam: dict) -> dict:
           f"{label} prefill: logits {tuple(logits.shape)} not finite or misshapen")
     prefill_profile = _fma_profile(f"{label} {cfg.name} prefill (B {b} x {p}, bf16)",
                                    lambda: prefill({"tokens": prompts}), prefill_s * 1e6,
-                                   prefill_launches)
+                                   prefill_launches,
+                                   always=(fam["label"], "prefill") in B5_PROFILED)
 
     cache = model.init_cache(b, p + DENSE_NEW)
     kv.fill(cache, p - 1)
@@ -7556,7 +7604,7 @@ def _dense_train(arch: str, fam: dict) -> dict:
     train, wall_us = _three_steps(f"{label} train", step, batch, plan, model)
     profile = _fma_profile(f"{label} {tcfg.name} train step ({tcfg.n_layers} layers, B "
                            f"{TRAIN_BATCH} x {TRAIN_SEQ}, bf16, remat)", lambda: step(batch),
-                           wall_us, plan)
+                           wall_us, plan, always=(fam["label"], "train") in B5_PROFILED)
     log(f"{label} train: {tcfg.n_layers} of {get_config(arch).n_layers} layers; peak "
         f"{train['peak_gb']:.2f} GB; mfu {train['mfu']:.4f}; {card_line()}")
     train.update(layers=tcfg.n_layers, profile=profile)
@@ -7584,9 +7632,9 @@ def _danube_round() -> dict:
     phase 8's task and protocol (M 4, N 1, T 2, E 2, B 4, label flip on
     client 0, Pigeon-SL+, no wire), on the sequential and the batched
     engine from one init: decisions equal, launches as the rounds'
-    structure predicts on the routes Danube's tensors take (B4 on the
-    tensor cores; B5 both ways at head dim 80 on the f32-FMA routes; B1
-    once a batched round), seconds a round and peak memory."""
+    structure predicts on the routes Danube's tensors take (B4 and, at
+    head dim 80, B5 both ways on the tensor cores; B1 once a batched
+    round), seconds a round and peak memory."""
     import dataclasses
 
     import torch

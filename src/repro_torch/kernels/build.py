@@ -83,6 +83,9 @@ SOURCES: Dict[str, Dict[str, Tuple]] = {
         # window, causal, scale, stream
         "repro_flash_attention_bwd_tc": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                          _I, _I, _I, _I, _I, _I, _F, _P),
+        # out (int*): each head dim's tiles (kernels/flash_attention.py::
+        # bwd_tc_constants)
+        "repro_flash_attention_bwd_tc_constants": (_P,),
     },
     "fused_xent": {
         # h, w, labels, part, picked, loss, lse, t, d, v, panels_per_block,

@@ -1,7 +1,7 @@
 // The backward of GQA flash attention (B5), causal or not, on Hopper's
 // tensor cores (sm_90a): the bf16 route, bound to Python through a plain C interface
-// (ctypes).  flash_attention_bwd.cu keeps the f32-FMA route (f32, head dims
-// 32, 80 and 256, tensors TMA cannot read).
+// (ctypes).  flash_attention_bwd.cu keeps the f32-FMA route (f32, head dim
+// 32, tensors TMA cannot read).
 //
 // The JAX package has no backward kernel: its training path differentiates
 // attend (src/repro/models/attention.py:82) through XLA.  Conventions of the
@@ -11,17 +11,17 @@
 // window > 0, i - j < window; with causal = 0 (a runtime argument, the
 // forward's flag) only the window masks, keys ahead of the query stay live
 // and Sq may exceed Sk; scores scaled by 1/sqrt(D); lse (B, H, Sq) f32 the
-// forward's log-sum-exp.  D is 64 or 128.  Three kernels, the f32-FMA
-// route's structure:
+// forward's log-sum-exp.  D is 64, 80, 128 or 256.  Three kernels, the
+// f32-FMA route's structure:
 //
 //   * flash_bwd_delta_kernel: delta[b, h, i] = sum_d dout * out (f32), a
 //     warp a row, bf16 pairs, a fixed order.
 //   * flash_bwd_dkdv_tc_kernel: one block per (KV head, batch, 128-key
-//     tile), two warpgroups of 64 keys.  K and V stay in shared memory; the
-//     block walks the group's query heads, then the 64-query tiles that can
-//     see its keys ([k0, Sq) causal, [0, Sq) not, cut at k0 + 127 + window
-//     with a window); Q and
-//     dO tiles arrive by TMA into a two-stage ring, an mbarrier a stage;
+//     tile), two warpgroups of 64 keys (at D 256 64-key tiles, below).  K
+//     and V stay in shared memory; the block walks the group's query heads,
+//     then the 64-query tiles that can see its keys ([k0, Sq) causal, [0,
+//     Sq) not, cut at k0 + 127 + window with a window); Q and dO tiles
+//     arrive by TMA into a two-stage ring, an mbarrier a stage;
 //     each tile's lse and delta are read through the read-only cache into
 //     registers (16 queries a thread).  A warpgroup, a tile:
 //       S^T  = K Q^T      wgmma SS m64n64k16, K and Q both K-major;
@@ -36,7 +36,8 @@
 //     Causal, key tiles no query sees (keys >= Sq) write zeros; not causal,
 //     query 0 sees every key.
 //   * flash_bwd_dq_tc_kernel: one block per (query head, batch, 128 query
-//     rows), two warpgroups of 64 rows.  Q and dO stay in shared memory; the
+//     rows), two warpgroups of 64 rows (at D 256 64 rows, below).  Q and dO
+//     stay in shared memory; the
 //     block walks the live key range [max(0, q0 - window + 1), min(Sk,
 //     q0 + 128)) (to Sk when not causal) in 64-key tiles as the forward
 //     does, K and V by TMA into a
@@ -66,6 +67,41 @@
 // in; dq, dk, dv out): 25.1 us at 3.35 TB/s, so bytes bound the function.
 // This design recomputes S and dP in the dQ kernel to stay free of atomics:
 // 14 D flops per pair, 30.1 GFLOP, 30.4 us, its own bound.
+//
+// Head dim 80 (H2O-Danube-1.8B): the D 128 kernels at a padded depth DP =
+// 128, as the forward does (flash_attention_tc.cu).  The tensor maps keep
+// their real dim 0 of 80, so TMA fills columns 80-127 of every box with
+// zeros and still delivers whole boxes (the expected bytes are DP's).  S^T,
+// dP^T (and S, dP) run over the real depth, 5 steps of 16; dV += P^T dO,
+// dK += dS^T Q and dQ += dS K run at N = 128 on zero columns past 80, and
+// every store, step and base address uses the real D: a store of 128
+// columns would write into the next head's.  Shared memory and registers
+// are the D 128 kernels'.  Work: 8 * 80 + 6 * 128 flops a pair and head
+// (S^T, dP^T, S, dP over 80; dV, dK, dQ over 128) against 14 * 80 at an
+// unpadded depth: 1.26x.
+//
+// Head dim 256 (Gemma3-12B).  The D 128 layout does not fit: a warpgroup's
+// dK and dV for 64 keys x 256 columns are 256 f32 a thread (the cap is
+// 255), and 128 resident keys of K and V plus two stages of 64 queries of Q
+// and dO are 262,144 + 1,088 bytes of shared memory (the cap is 232,448).
+// So at D 256 both kernels hold 64 keys (dK/dV) or 64 rows (dQ) a block,
+// and the two warpgroups split D instead of the rows: warpgroup w owns
+// columns [128 w, 128 w + 128) of dK and dV (of dQ).  Each computes the
+// whole 64 x 64 S^T and dP^T (S and dP) over the 256-deep product itself,
+// so no P^T or dS^T crosses shared memory and no named barrier is needed;
+// the price is those two products twice: 8 * 256 + 4 * 256 (dK/dV) and
+// 8 * 256 + 2 * 256 (dQ) flops a pair and head, 22 D against 14 D, 1.57x
+// (about 48 us of tensor-core time at Gemma3's train shape, (4, 512, 16/8,
+// 256) causal).  Budgets a block:
+//   registers a thread: dK and dV 64 + 64 f32 (dQ 64), S^T and dP^T 32 + 32,
+//     their bf16 A fragments 16 + 16: the D 128 kernels' own count;
+//   shared memory: K and V (Q and dO) resident, 2 x 64 rows x 512 bytes =
+//     65,536; a two-stage ring of 64-row Q and dO (K and V) tiles, 2 x 2 x
+//     32,768 = 131,072; three mbarriers and the 1,024-byte alignment slack:
+//     197,696 bytes of 232,448.
+// Both warpgroups walk the same tiles (kernels/flash_attention.py::
+// bwd_tc_walks with the tiles of bwd_tc_tiles(256)), each over its own
+// columns: every (pair, column) is still summed once, in a fixed order.
 
 #include "sm90.cuh"
 
@@ -77,14 +113,18 @@ using sm90::desc_sw128;
 using sm90::smem_u32;
 
 constexpr int kThreads = 256;       // two consumer warpgroups
-constexpr int BKV = 128;            // dK/dV: keys a block (64 a warpgroup)
 constexpr int BQ = 64;              // dK/dV: queries a step
-constexpr int BQR = 128;            // dQ: query rows a block (64 a warpgroup)
 constexpr int BK = 64;              // dQ: keys a step
 constexpr float kLog2e = 1.4426950408889634f;
 
 template <int D> struct BwdTile {
-  static constexpr int NB = D / 64;                // 64-column boxes along D
+  static constexpr int DP = sm90::box_depth(D);    // depth in shared memory
+  static constexpr bool kSplit = DP == 256;        // the warpgroups split D, not the rows
+  static constexpr int NB = DP / 64;               // 64-column boxes along DP
+  static constexpr int BKV = kSplit ? 64 : 128;    // dK/dV: keys a block
+  static constexpr int BQR = kSplit ? 64 : 128;    // dQ: query rows a block
+  static constexpr int NA = kSplit ? DP / 2 : DP;  // accumulator columns a warpgroup owns
+  static constexpr int kStore = kSplit ? NA : D;   // of them, the columns it stores
   // dK/dV: K and V resident, a two-stage ring of Q and dO tiles
   static constexpr int kKVBytes = NB * BKV * 128;
   static constexpr int kQStage = NB * BQ * 128;
@@ -93,6 +133,11 @@ template <int D> struct BwdTile {
   static constexpr int kQBytes = NB * BQR * 128;
   static constexpr int kKStage = NB * BK * 128;
   static constexpr int kSmemQ = 2 * kQBytes + 4 * kKStage + 64 + 1024;
+  static_assert(kSmemKV <= 232448 && kSmemQ <= 232448, "over the block's shared memory");
+  // the first row (key or query) and the first accumulator column of
+  // warpgroup wg
+  __device__ static int row0(int wg) { return kSplit ? 0 : 64 * wg; }
+  __device__ static int col0(int wg) { return kSplit ? NA * wg : 0; }
 };
 
 template <int N>
@@ -127,17 +172,18 @@ __device__ __forceinline__ bool live(int qi, int key, int sq, int sk, int window
 }
 
 // Rows (row, row + 8) of an (S, ., D) slice at `base` (row step `step`
-// elements) from a thread's m64nD fragment, times `mul`, as bf16 pairs.
-template <int D>
+// elements) from a thread's m64nN fragment, its first NS columns, times
+// `mul`, as bf16 pairs.
+template <int N, int NS>
 __device__ __forceinline__ void store_rows(__nv_bfloat16* base, int64_t step, int row, int rows,
-                                           int quad, const float (&acc)[D / 2], float mul) {
+                                           int quad, const float (&acc)[N / 2], float mul) {
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int r = row + 8 * half;
     if (r >= rows) continue;
     __nv_bfloat16* dst = base + static_cast<int64_t>(r) * step + 2 * quad;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < NS / 8; ++j)
       *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) = __floats2bfloat162_rn(
           acc[4 * j + 2 * half] * mul, acc[4 * j + 2 * half + 1] * mul);
   }
@@ -181,6 +227,7 @@ flash_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap tq,
                          int window, int causal, float scale, float scale_log2) {
   using C = BwdTile<D>;
   extern __shared__ uint8_t smem_raw[];
+  constexpr int BKV = C::BKV;
   uint8_t* ks = align_1024(smem_raw);        // [box][BKV rows of 128 bytes]
   uint8_t* vs = ks + C::kKVBytes;
   uint8_t* qs = vs + C::kKVBytes;            // [stage][box][BQ rows of 128 bytes]
@@ -230,10 +277,11 @@ flash_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap tq,
     if (n_tiles > 1) load_q(1, 1);
   }
 
-  const int kw0 = k0 + 64 * wg;              // this warpgroup's first key
+  const int kw0 = k0 + C::row0(wg);          // this warpgroup's first key
   const int kmax = min(kw0 + 63, sk - 1);
   const int key0 = kw0 + 16 * warp + (lane >> 2);   // this thread's keys: key0, key0 + 8
-  float dv_acc[D / 2], dk_acc[D / 2];
+  const int box0 = C::col0(wg) / 64;         // the box of its first dK/dV column
+  float dv_acc[C::NA / 2], dk_acc[C::NA / 2];
   zero(dv_acc);
   zero(dk_acc);
 
@@ -256,14 +304,14 @@ flash_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap tq,
       sm90::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
-        const int off = (kk >> 2) * BKV * 128 + wg * 64 * 128 + (kk & 3) * 32;
+        const int off = (kk >> 2) * BKV * 128 + C::row0(wg) * 128 + (kk & 3) * 32;
         const int boff = (kk >> 2) * BQ * 128 + (kk & 3) * 32;
         sm90::wgmma_ss_n64<0>(st, desc_sw128(smem_u32(ks + off), 16, 1024),
                               desc_sw128(smem_u32(q_st + boff), 16, 1024), 1);
       }
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
-        const int off = (kk >> 2) * BKV * 128 + wg * 64 * 128 + (kk & 3) * 32;
+        const int off = (kk >> 2) * BKV * 128 + C::row0(wg) * 128 + (kk & 3) * 32;
         const int boff = (kk >> 2) * BQ * 128 + (kk & 3) * 32;
         sm90::wgmma_ss_n64<0>(dpt, desc_sw128(smem_u32(vs + off), 16, 1024),
                               desc_sw128(smem_u32(do_st + boff), 16, 1024), 1);
@@ -304,10 +352,12 @@ flash_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap tq,
       sm90::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BQ / 16; ++kk)
-        mma_rs<D>(dv_acc, pa[kk], desc_sw128(smem_u32(do_st + kk * 16 * 128), BQ * 128, 1024));
+        mma_rs<C::NA>(dv_acc, pa[kk], desc_sw128(smem_u32(do_st + box0 * BQ * 128 +
+                                                          kk * 16 * 128), BQ * 128, 1024));
 #pragma unroll
       for (int kk = 0; kk < BQ / 16; ++kk)
-        mma_rs<D>(dk_acc, dsa[kk], desc_sw128(smem_u32(q_st + kk * 16 * 128), BQ * 128, 1024));
+        mma_rs<C::NA>(dk_acc, dsa[kk], desc_sw128(smem_u32(q_st + box0 * BQ * 128 +
+                                                           kk * 16 * 128), BQ * 128, 1024));
       sm90::wgmma_commit();
       sm90::wgmma_wait<0>();
       sm90::fence_operands(dv_acc);
@@ -318,9 +368,10 @@ flash_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap tq,
   }
 
   const int64_t step = static_cast<int64_t>(hkv) * D;
-  const int64_t base = (static_cast<int64_t>(b) * sk) * step + static_cast<int64_t>(kvh) * D;
-  store_rows<D>(dk + base, step, key0, sk, quad, dk_acc, scale);
-  store_rows<D>(dv + base, step, key0, sk, quad, dv_acc, 1.f);
+  const int64_t base = (static_cast<int64_t>(b) * sk) * step + static_cast<int64_t>(kvh) * D +
+                       C::col0(wg);
+  store_rows<C::NA, C::kStore>(dk + base, step, key0, sk, quad, dk_acc, scale);
+  store_rows<C::NA, C::kStore>(dv + base, step, key0, sk, quad, dv_acc, 1.f);
 }
 
 template <int D>
@@ -334,6 +385,7 @@ flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tq,
                        float scale_log2) {
   using C = BwdTile<D>;
   extern __shared__ uint8_t smem_raw[];
+  constexpr int BQR = C::BQR;
   uint8_t* qs = align_1024(smem_raw);        // [box][BQR rows of 128 bytes]
   uint8_t* dos = qs + C::kQBytes;
   uint8_t* ks = dos + C::kQBytes;            // [stage][box][BK rows of 128 bytes]
@@ -381,7 +433,7 @@ flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tq,
     if (n_tiles > 1) load_kv(1, 1);
   }
 
-  const int qw0 = q0 + 64 * wg;              // this warpgroup's first row
+  const int qw0 = q0 + C::row0(wg);          // this warpgroup's first row
   const int qmax = min(qw0 + 63, sq - 1);
   const int row0 = qw0 + 16 * warp + (lane >> 2);  // this thread's rows: row0, row0 + 8
   float l2[2], dl[2];
@@ -392,7 +444,8 @@ flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tq,
     l2[half] = row < sq ? lse[at] * kLog2e : 0.f;
     dl[half] = row < sq ? delta[at] : 0.f;
   }
-  float dq_acc[D / 2];
+  const int box0 = C::col0(wg) / 64;         // the box of its first dQ column
+  float dq_acc[C::NA / 2];
   zero(dq_acc);
 
   sm90::mbar_wait(&bars[0], 0);
@@ -413,14 +466,14 @@ flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tq,
       sm90::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
-        const int off = (kk >> 2) * BQR * 128 + wg * 64 * 128 + (kk & 3) * 32;
+        const int off = (kk >> 2) * BQR * 128 + C::row0(wg) * 128 + (kk & 3) * 32;
         const int boff = (kk >> 2) * BK * 128 + (kk & 3) * 32;
         sm90::wgmma_ss_n64<0>(s, desc_sw128(smem_u32(qs + off), 16, 1024),
                               desc_sw128(smem_u32(k_st + boff), 16, 1024), 1);
       }
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
-        const int off = (kk >> 2) * BQR * 128 + wg * 64 * 128 + (kk & 3) * 32;
+        const int off = (kk >> 2) * BQR * 128 + C::row0(wg) * 128 + (kk & 3) * 32;
         const int boff = (kk >> 2) * BK * 128 + (kk & 3) * 32;
         sm90::wgmma_ss_n64<0>(dp, desc_sw128(smem_u32(dos + off), 16, 1024),
                               desc_sw128(smem_u32(v_st + boff), 16, 1024), 1);
@@ -451,7 +504,8 @@ flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tq,
       sm90::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk)
-        mma_rs<D>(dq_acc, dsa[kk], desc_sw128(smem_u32(k_st + kk * 16 * 128), BK * 128, 1024));
+        mma_rs<C::NA>(dq_acc, dsa[kk], desc_sw128(smem_u32(k_st + box0 * BK * 128 +
+                                                           kk * 16 * 128), BK * 128, 1024));
       sm90::wgmma_commit();
       sm90::wgmma_wait<0>();
       sm90::fence_operands(dq_acc);
@@ -461,8 +515,9 @@ flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tq,
   }
 
   const int64_t step = static_cast<int64_t>(h) * D;
-  store_rows<D>(dq + (static_cast<int64_t>(b) * sq) * step + static_cast<int64_t>(head) * D, step,
-                row0, sq, quad, dq_acc, scale);
+  store_rows<C::NA, C::kStore>(dq + (static_cast<int64_t>(b) * sq) * step +
+                                   static_cast<int64_t>(head) * D + C::col0(wg),
+                               step, row0, sq, quad, dq_acc, scale);
 }
 
 // The 4-D map (D, heads, S, B) of a (B, S, heads, D) bf16 tensor, read in
@@ -480,15 +535,18 @@ int launch(const void* q, const void* k, const void* v, const void* out, const v
            const float* lse, float* delta, void* dq, void* dk, void* dv, int b, int sq, int sk,
            int h, int hkv, int window, int causal, float scale, cudaStream_t stream) {
   using C = BwdTile<D>;
+  if ((sk + C::BKV - 1) / C::BKV > 65535 || (sq + C::BQR - 1) / C::BQR > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
   // the dK/dV kernel reads Q and dO in BQ-row tiles, K and V in BKV rows;
-  // the dQ kernel Q and dO in BQR rows, K and V in BK-row tiles
+  // the dQ kernel Q and dO in BQR rows, K and V in BK-row tiles; every map
+  // over the real D (TMA fills a padded box's columns past it with zeros)
   CUtensorMap q_kv, do_kv, k_kv, v_kv, q_q, do_q, k_q, v_q;
   int err = encode_bshd(&q_kv, q, b, sq, h, D, BQ);
   if (err == 0) err = encode_bshd(&do_kv, dout, b, sq, h, D, BQ);
-  if (err == 0) err = encode_bshd(&k_kv, k, b, sk, hkv, D, BKV);
-  if (err == 0) err = encode_bshd(&v_kv, v, b, sk, hkv, D, BKV);
-  if (err == 0) err = encode_bshd(&q_q, q, b, sq, h, D, BQR);
-  if (err == 0) err = encode_bshd(&do_q, dout, b, sq, h, D, BQR);
+  if (err == 0) err = encode_bshd(&k_kv, k, b, sk, hkv, D, C::BKV);
+  if (err == 0) err = encode_bshd(&v_kv, v, b, sk, hkv, D, C::BKV);
+  if (err == 0) err = encode_bshd(&q_q, q, b, sq, h, D, C::BQR);
+  if (err == 0) err = encode_bshd(&do_q, dout, b, sq, h, D, C::BQR);
   if (err == 0) err = encode_bshd(&k_q, k, b, sk, hkv, D, BK);
   if (err == 0) err = encode_bshd(&v_q, v, b, sk, hkv, D, BK);
   if (err != 0) return err;
@@ -512,12 +570,12 @@ int launch(const void* q, const void* k, const void* v, const void* out, const v
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   const float scale_log2 = scale * kLog2e;
-  dkdv<<<dim3(hkv, b, (sk + BKV - 1) / BKV), kThreads, C::kSmemKV, stream>>>(
+  dkdv<<<dim3(hkv, b, (sk + C::BKV - 1) / C::BKV), kThreads, C::kSmemKV, stream>>>(
       q_kv, k_kv, v_kv, do_kv, lse, delta, static_cast<__nv_bfloat16*>(dk),
       static_cast<__nv_bfloat16*>(dv), sq, sk, h, hkv, window, causal, scale, scale_log2);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  dqk<<<dim3(h, b, (sq + BQR - 1) / BQR), kThreads, C::kSmemQ, stream>>>(
+  dqk<<<dim3(h, b, (sq + C::BQR - 1) / C::BQR), kThreads, C::kSmemQ, stream>>>(
       q_q, k_q, v_q, do_q, lse, delta, static_cast<__nv_bfloat16*>(dq), sq, sk, h, hkv, window,
       causal, scale, scale_log2);
   return static_cast<int>(cudaGetLastError());
@@ -530,8 +588,8 @@ int launch(const void* q, const void* k, const void* v, const void* out, const v
 // strides and alignment (bf16, contiguous, 16-byte aligned base addresses,
 // which with D % 8 == 0 makes every stride TMA needs a multiple of 16 bytes)
 // and allocates delta (B, H, Sq) f32 scratch, dq (B, Sq, H, D) and dk, dv
-// (B, Sk, Hkv, D) bf16.  head_dim 64 or 128; Sq, Sk >= 1, Sq <= Sk when
-// causal; not causal, every row must see a key (Sq < Sk + window with a
+// (B, Sk, Hkv, D) bf16.  head_dim 64, 80, 128 or 256; Sq, Sk >= 1, Sq <= Sk
+// when causal; not causal, every row must see a key (Sq < Sk + window with a
 // window), which the caller checks.
 extern "C" int repro_flash_attention_bwd_tc(const void* q, const void* k, const void* v,
                                             const void* out, const void* dout, const float* lse,
@@ -539,16 +597,35 @@ extern "C" int repro_flash_attention_bwd_tc(const void* q, const void* k, const 
                                             int sq, int sk, int h, int hkv, int d, int window,
                                             int causal, float scale, void* stream) {
   if (b <= 0 || b > 65535 || sq <= 0 || sk <= 0 || (causal && sq > sk) || h <= 0 || hkv <= 0 ||
-      h % hkv != 0 || window < 0 || (!causal && window > 0 && sq >= sk + window) ||
-      (sk + BKV - 1) / BKV > 65535 || (sq + BQR - 1) / BQR > 65535) {
+      h % hkv != 0 || window < 0 || (!causal && window > 0 && sq >= sk + window)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 64: return launch<64>(q, k, v, out, dout, lse, delta, dq, dk, dv, b, sq, sk, h, hkv,
                                window, causal, scale, s);
+    case 80: return launch<80>(q, k, v, out, dout, lse, delta, dq, dk, dv, b, sq, sk, h, hkv,
+                               window, causal, scale, s);
     case 128: return launch<128>(q, k, v, out, dout, lse, delta, dq, dk, dv, b, sq, sk, h, hkv,
+                                 window, causal, scale, s);
+    case 256: return launch<256>(q, k, v, out, dout, lse, delta, dq, dk, dv, b, sq, sk, h, hkv,
                                  window, causal, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The tiles of each head dim, which kernels/flash_attention.py::
+// bwd_tc_tiles copies (build.check_constants holds them equal): for D 64,
+// 80, 128, 256 in turn, DP, keys a dK/dV block, rows a dQ block and whether
+// the warpgroups split D; then BQ and BK.
+extern "C" int repro_flash_attention_bwd_tc_constants(int* out) {
+  const int tiles[4][4] = {
+      {BwdTile<64>::DP, BwdTile<64>::BKV, BwdTile<64>::BQR, BwdTile<64>::kSplit},
+      {BwdTile<80>::DP, BwdTile<80>::BKV, BwdTile<80>::BQR, BwdTile<80>::kSplit},
+      {BwdTile<128>::DP, BwdTile<128>::BKV, BwdTile<128>::BQR, BwdTile<128>::kSplit},
+      {BwdTile<256>::DP, BwdTile<256>::BKV, BwdTile<256>::BQR, BwdTile<256>::kSplit}};
+  for (int i = 0; i < 16; ++i) out[i] = tiles[i / 4][i % 4];
+  out[16] = BQ;
+  out[17] = BK;
+  return 0;
 }

@@ -7,7 +7,8 @@
 // q (B, Sq, H, D), k and v (B, Sk, Hkv, D), out (B, Sq, H, D), all bf16 in
 // the model's own layout; lse (B, H, Sq) f32, the rows' log-sum-exp of the
 // scaled scores, which flash_attention_bwd.cu reads unchanged.  Query head h
-// of batch b reads KV head h / (H / Hkv) of batch b.  D is 64, 128 or 256.
+// of batch b reads KV head h / (H / Hkv) of batch b.  D is 64, 80, 128 or
+// 256.
 //
 // What bounds it on this card: operations.  At one 8k prompt of Qwen3-8B
 // (1, 8192, 32/8 heads, D 128) the function needs 550 GFLOP of products
@@ -33,6 +34,19 @@
 //     fragment layout.  V is the MN-major B operand (the transpose bit).
 //     The row sum l is taken over the f32 probabilities.
 //   * out = O / max(l, 1e-30) in bf16; lse = m * ln 2 + log(max(l, 1e-30)).
+//
+// Head dim 80 (H2O-Danube-1.8B) is not a whole number of 64-column boxes.
+// The kernel holds it at a padded depth DP = 128 while the tensor maps keep
+// their real dim 0 of 80: the second box of each row lies partly outside
+// the tensor, and TMA fills its columns 80-127 with zeros.  It still
+// delivers the whole box, so a stage's expected bytes are those of DP.
+// S = Q K^T runs over the real depth (5 steps of 16); O += P V runs at
+// N = DP = 128, the D 128 kernel's product: wgmma's MN-major operand comes in
+// whole 64-column swizzle atoms, and N = 80 would end inside the second.
+// V's zero columns give O's columns 80-127 = 0, which are never stored.
+// Every global address (the output's row step and columns, the dead rows'
+// v) uses the real D.  This costs 1.3x the products of D 80 (2 * 80 + 2 *
+// 128 flops a pair and head instead of 4 * 80), all on the tensor cores.
 //
 // Semantics of the f32 route, kept:
 //   * causal (key <= query) and, with window > 0, query - key < window;
@@ -93,6 +107,8 @@ __device__ __forceinline__ void mma_rs(float (&d)[N / 2], const uint32_t (&a)[4]
   else sm90::wgmma_rs_n256<kTransB>(d, a, b, 1);
 }
 
+// D: the head's real depth; DP: the depth in shared memory and in O's
+// fragment (sm90::box_depth: 80 is held at 128).
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
@@ -100,7 +116,8 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
                     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
                     float* __restrict__ lse, int sq, int sk, int h, int hkv, int window,
                     int causal, float scale_log2) {
-  using C = TcTile<D>;
+  constexpr int DP = sm90::box_depth(D);
+  using C = TcTile<DP>;
   constexpr int BK = C::BK;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* qs = reinterpret_cast<uint8_t*>(
@@ -151,9 +168,9 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
   // this thread's two query rows (the accumulator fragment's rows)
   const int wg_first = q0 + 64 * wg;
   const int row0 = wg_first + 16 * warp + (lane >> 2);
-  float o[D / 2];
+  float o[DP / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
   float m[2] = {kNegBig, kNegBig};
   float l[2] = {0.f, 0.f};
 
@@ -221,7 +238,7 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
         l[half] = l[half] * alpha + rs;
         m[half] = m_new;
 #pragma unroll
-        for (int j = 0; j < D / 8; ++j) {
+        for (int j = 0; j < DP / 8; ++j) {
           o[4 * j + 2 * half] *= alpha;
           o[4 * j + 2 * half + 1] *= alpha;
         }
@@ -242,7 +259,7 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
       for (int kk = 0; kk < BK / 16; ++kk) {
         const uint64_t db = desc_sw128(smem_u32(vs + stage * C::kKVBytes + kk * 16 * 128),
                                        BK * 128, 1024);
-        mma_rs<D, 1>(o, pa[kk], db);
+        mma_rs<DP, 1>(o, pa[kk], db);
       }
       sm90::wgmma_commit();
       sm90::wgmma_wait<0>();
@@ -302,7 +319,7 @@ int encode_bshd(CUtensorMap* map, const void* base, int b, int s, int heads, int
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* out, float* lse, int b, int sq,
            int sk, int h, int hkv, int window, int causal, float scale, cudaStream_t stream) {
-  using C = TcTile<D>;
+  using C = TcTile<sm90::box_depth(D)>;
   CUtensorMap tq, tk, tv;
   int err = encode_bshd(&tq, q, b, sq, h, D, BQ);
   if (err == 0) err = encode_bshd(&tk, k, b, sk, hkv, D, C::BK);
@@ -332,7 +349,7 @@ int launch(const void* q, const void* k, const void* v, void* out, float* lse, i
 // and alignment (bf16, contiguous, 16-byte aligned base addresses, which
 // with D % 8 == 0 makes every stride TMA needs a multiple of 16 bytes) and
 // allocates `out` (B, Sq, H, D) bf16 and `lse` (B, H, Sq) f32.  head_dim
-// one of 64, 128, 256; causal 1 (1 <= Sq <= Sk) or 0 (any Sq, Sk >= 1).
+// one of 64, 80, 128, 256; causal 1 (1 <= Sq <= Sk) or 0 (any Sq, Sk >= 1).
 extern "C" int repro_flash_attention_tc(const void* q, const void* k, const void* v, void* out,
                                         float* lse, int b, int sq, int sk, int h, int hkv,
                                         int d, int window, int causal, float scale,
@@ -344,6 +361,7 @@ extern "C" int repro_flash_attention_tc(const void* q, const void* k, const void
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 64: return launch<64>(q, k, v, out, lse, b, sq, sk, h, hkv, window, causal, scale, s);
+    case 80: return launch<80>(q, k, v, out, lse, b, sq, sk, h, hkv, window, causal, scale, s);
     case 128: return launch<128>(q, k, v, out, lse, b, sq, sk, h, hkv, window, causal, scale, s);
     case 256: return launch<256>(q, k, v, out, lse, b, sq, sk, h, hkv, window, causal, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);

@@ -9,7 +9,8 @@
 //   * wgmma: the shared-memory matrix descriptor of a 128-byte-swizzled
 //     tile, fence / commit_group / wait_group, and m64nNk16 bf16 -> f32
 //     products with A from shared memory or from registers;
-//   * bf16 packing of an f32 pair into the A-fragment register.
+//   * bf16 packing of an f32 pair into the A-fragment register;
+//   * the depth in whole boxes at which a kernel holds a row (box_depth).
 //
 // Layout conventions.  A TMA box of 64 bf16 columns (128 bytes) by R rows
 // lands in shared memory as R rows of 128 bytes, with the 16-byte chunks of
@@ -168,6 +169,12 @@ __device__ __forceinline__ void fence_operands(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
+
+// The depth, in whole 64-column (128-byte) boxes, at which a kernel holds a
+// row of d bf16 columns in shared memory: a box that reaches past the row's
+// last column arrives zero-filled from TMA and whole, so its bytes count in
+// full (head dim 80 is held at 128).
+__host__ __device__ constexpr int box_depth(int d) { return (d + 63) / 64 * 64; }
 
 // An f32 pair as one bf16x2 register, lo in the low half (the lower column).
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {

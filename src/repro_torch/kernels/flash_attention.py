@@ -17,16 +17,19 @@ oracle's (:func:`dead_row_begin`).
     when causal)
     by the route :func:`attention_route` picks: ``tensor_cores``
     (``csrc/flash_attention_tc.cu``: wgmma with TMA loads; bf16, head_dim in
-    :data:`TC_HEAD_DIMS`, 16-byte aligned) or ``f32_fma``
-    (``csrc/flash_attention.cu``: every product in f32 FMA, no tensor cores;
-    everything else).  Returns the output and the rows' log-sum-exp (B, H,
+    :data:`TC_HEAD_DIMS`, 80 held at a depth of 128 (:data:`TC_DEPTH`),
+    16-byte aligned) or ``f32_fma`` (``csrc/flash_attention.cu``: every
+    product in f32 FMA, no tensor cores; f32, head dim 32, a misaligned
+    view).  Returns the output and the rows' log-sum-exp (B, H,
     Sq) f32, which the backward reads.
   * :func:`flash_attention_bwd` — launches the backward kernels, (dq, dk,
     dv) from the forward's inputs, output and lse and the output's
     gradient, by the route :func:`attention_bwd_route` picks:
     ``tensor_cores`` (``csrc/flash_attention_bwd_tc.cu``: wgmma with TMA
-    loads; bf16, head_dim in :data:`TC_BWD_HEAD_DIMS`, 16-byte aligned) or
-    ``f32_fma`` (``csrc/flash_attention_bwd.cu``; everything else).
+    loads; bf16, head_dim in :data:`TC_BWD_HEAD_DIMS`, 16-byte aligned; the
+    tiles of :func:`bwd_tc_tiles`) or ``f32_fma``
+    (``csrc/flash_attention_bwd.cu``; f32, head dim 32, a misaligned
+    view).
   * :class:`FlashAttention` — the ``autograd.Function`` over the two, the
     path of a CUDA call that needs a gradient, causal or not (a non-causal
     call with a row that sees no key is refused: :data:`DEAD_ROW_BACKWARD`).
@@ -48,7 +51,7 @@ graph.
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -57,19 +60,22 @@ from .observe import entry, is_meta
 NEG_INF = -1e30
 #: head dims the kernels are built for
 HEAD_DIMS = (32, 64, 80, 128, 256)
-#: head dims of the tensor-core route: whole 64-column (128-byte) TMA boxes
-TC_HEAD_DIMS = (64, 128, 256)
+#: head dims of the tensor-core route (a head in whole 64-column, 128-byte
+#: TMA boxes; 32 would fill half of one)
+TC_HEAD_DIMS = (64, 80, 128, 256)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-#: head dims of the backward's tensor-core route: at 256 the dK and dV
-#: accumulators of a warpgroup's 64 keys (256 f32 a thread) overflow the
-#: registers, so D 256 stays on the f32-FMA route
-TC_BWD_HEAD_DIMS = (64, 128)
+#: head dims of the backward's tensor-core route: the forward's (at 256 the
+#: two warpgroups split D, :func:`bwd_tc_tiles`)
+TC_BWD_HEAD_DIMS = TC_HEAD_DIMS
+#: the depth the tensor-core kernels hold a head at in shared memory, whole
+#: 64-column boxes (``sm90::box_depth``): 80 is padded to two, whose columns
+#: past 80 TMA fills with zeros (the tensor maps keep the real D; every
+#: store uses it)
+TC_DEPTH = {d: -(-d // 64) * 64 for d in TC_HEAD_DIMS}
 #: the routes (see :func:`attention_route`, :func:`attention_bwd_route`)
 TENSOR_CORES, F32_FMA = "tensor_cores", "f32_fma"
-#: tiles of the backward's tensor-core kernels: the dK/dV kernel's keys a
-#: block and queries a step, the dQ kernel's query rows a block and keys a
-#: step; a warpgroup owns 64 keys or rows (csrc/flash_attention_bwd_tc.cu)
-BWD_KEYS, BWD_QUERIES, DQ_ROWS, DQ_KEYS, WG_ROWS = 128, 64, 128, 64, 64
+#: a warpgroup's rows (keys or queries) in the backward's tensor-core kernels
+WG_ROWS = 64
 
 
 def tma_ok(t: torch.Tensor) -> bool:
@@ -82,8 +88,8 @@ def tma_ok(t: torch.Tensor) -> bool:
 def attention_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     """The forward's route for these tensors: :data:`TENSOR_CORES` for bf16
     at a head_dim of :data:`TC_HEAD_DIMS` that TMA can read, else
-    :data:`F32_FMA` (f32 keeps exact f32 products; head dims 32 and 80 do
-    not fill a 128-byte box; a misaligned view is not a TMA tensor)."""
+    :data:`F32_FMA` (f32 keeps exact f32 products; head dim 32 fills half a
+    128-byte box; a misaligned view is not a TMA tensor)."""
     if (q.dtype == torch.bfloat16 and q.shape[-1] in TC_HEAD_DIMS
             and all(tma_ok(t) for t in (q, k, v))):
         return TENSOR_CORES
@@ -94,9 +100,8 @@ def attention_bwd_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         out: torch.Tensor, dout: torch.Tensor) -> str:
     """The backward's route: :data:`TENSOR_CORES` for bf16 at a head_dim of
     :data:`TC_BWD_HEAD_DIMS` where TMA can read q, k, v, out and dout, else
-    :data:`F32_FMA` (f32 keeps exact f32 products; head dims 32 and 80 do
-    not fill a 128-byte box, and 256 does not fit the registers; a
-    misaligned view is not a TMA tensor)."""
+    :data:`F32_FMA` (f32 keeps exact f32 products; head dim 32 fills half a
+    128-byte box; a misaligned view is not a TMA tensor)."""
     if (q.dtype == torch.bfloat16 and q.shape[-1] in TC_BWD_HEAD_DIMS
             and all(tma_ok(t) for t in (q, k, v, out, dout))):
         return TENSOR_CORES
@@ -113,32 +118,84 @@ def _tile_live(q0: int, q1: int, k0: int, k1: int, sq: int, sk: int, window: int
             and (window <= 0 or q0 - k1 < window))
 
 
-def bwd_tc_walks(sq: int, sk: int, window: int = 0, causal: bool = True):
-    """The tile walks of the backward's tensor-core kernels, per head, as
-    they compute them: ``(dkdv, dq)``, each {(block, warpgroup): [(first
-    query, first key) of each tile the warpgroup computes]}.  dK/dV: block
-    ``k0`` (:data:`BWD_KEYS` keys, a warpgroup's 64 from ``k0 + 64 wg``)
-    walks the :data:`BWD_QUERIES`-query tiles from ``k0`` (causal) or 0 to
-    Sq (to ``k0 + BWD_KEYS - 1 + window`` with a window).  dQ: block ``q0``
-    (:data:`DQ_ROWS` rows, 64 a warpgroup) walks :data:`DQ_KEYS`-key tiles
-    from ``max(0, q0 - window + 1)`` (0 without a window) to ``min(Sk, q0 +
-    DQ_ROWS)`` (causal) or Sk.  A warpgroup skips a tile with no live
-    pair."""
+class BwdTiles(NamedTuple):
+    """The tiles of the backward's tensor-core kernels at one head dim
+    (``BwdTile<D>`` in csrc/flash_attention_bwd_tc.cu): the depth held in
+    shared memory, the dK/dV kernel's keys a block and queries a step, the
+    dQ kernel's query rows a block and keys a step, and whether the two
+    warpgroups split D (each owning ``depth // 2`` columns of the same 64
+    keys or rows) rather than the rows (64 each, the same columns)."""
+    depth: int
+    keys: int
+    queries: int
+    rows: int
+    key_step: int
+    split: bool
+
+    def cols(self, wg: int) -> slice:
+        """The columns of dK, dV (or dQ) at the padded depth that warpgroup
+        ``wg`` sums."""
+        half = self.depth // 2
+        return slice(wg * half, (wg + 1) * half) if self.split else slice(0, self.depth)
+
+    def row0(self, wg: int) -> int:
+        """Warpgroup ``wg``'s first key (dK/dV) or row (dQ) in its block."""
+        return 0 if self.split else WG_ROWS * wg
+
+
+def bwd_tc_tiles(d: int) -> BwdTiles:
+    """The backward's tensor-core tiles at head dim ``d``: 128 keys (rows) a
+    block, 64 a warpgroup, up to a depth of 128; at 256 (whose dK and dV of
+    64 keys x 256 columns fit neither a thread's registers nor, at 128 keys,
+    shared memory) 64 keys (rows) a block, the warpgroups splitting D."""
+    depth = TC_DEPTH[d]
+    split = depth == 256
+    block = 64 if split else 128
+    return BwdTiles(depth, block, 64, block, 64, split)
+
+
+def bwd_tc_constants() -> dict:
+    """What ``repro_flash_attention_bwd_tc_constants`` writes, from
+    :func:`bwd_tc_tiles` (``build.check_constants`` holds the two equal on
+    the card's first launch)."""
+    out = {}
+    for d in TC_BWD_HEAD_DIMS:
+        t = bwd_tc_tiles(d)
+        out.update({f"DP{d}": t.depth, f"BKV{d}": t.keys, f"BQR{d}": t.rows,
+                    f"kSplit{d}": int(t.split)})
+    t = bwd_tc_tiles(64)
+    return {**out, "BQ": t.queries, "BK": t.key_step}
+
+
+def bwd_tc_walks(sq: int, sk: int, window: int = 0, causal: bool = True, d: int = 128):
+    """The tile walks of the backward's tensor-core kernels at head dim
+    ``d``, per head, as they compute them: ``(dkdv, dq)``, each {(block,
+    warpgroup): [(first query, first key) of each tile the warpgroup
+    computes]}, with ``t = bwd_tc_tiles(d)``.  dK/dV: block ``k0`` (``t.keys``
+    keys; a warpgroup's 64 from ``k0 + t.row0(wg)``) walks the
+    ``t.queries``-query tiles from ``k0`` (causal) or 0 to Sq (to ``k0 +
+    t.keys - 1 + window`` with a window).  dQ: block ``q0`` (``t.rows``
+    rows, 64 a warpgroup) walks ``t.key_step``-key tiles from ``max(0, q0 -
+    window + 1)`` (0 without a window) to ``min(Sk, q0 + t.rows)`` (causal)
+    or Sk.  A warpgroup skips a tile with no live pair.  Where the
+    warpgroups split D, both walk the same tiles, each over its own
+    columns (``t.cols``)."""
+    t = bwd_tc_tiles(d)
     dkdv, dq = {}, {}
-    for k0 in range(0, sk, BWD_KEYS):
-        q_end = min(sq, k0 + BWD_KEYS - 1 + window) if window > 0 else sq
-        for wg in range(BWD_KEYS // WG_ROWS):
-            kw0 = k0 + WG_ROWS * wg
-            dkdv[k0, wg] = [(qt, kw0) for qt in range(k0 if causal else 0, q_end, BWD_QUERIES)
-                            if _tile_live(qt, qt + BWD_QUERIES - 1, kw0, kw0 + WG_ROWS - 1,
+    for k0 in range(0, sk, t.keys):
+        q_end = min(sq, k0 + t.keys - 1 + window) if window > 0 else sq
+        for wg in range(2):
+            kw0 = k0 + t.row0(wg)
+            dkdv[k0, wg] = [(qt, kw0) for qt in range(k0 if causal else 0, q_end, t.queries)
+                            if _tile_live(qt, qt + t.queries - 1, kw0, kw0 + WG_ROWS - 1,
                                           sq, sk, window, causal)]
-    for q0 in range(0, sq, DQ_ROWS):
+    for q0 in range(0, sq, t.rows):
         k_begin = max(0, q0 - window + 1) if window > 0 else 0
-        k_end = min(sk, q0 + DQ_ROWS) if causal else sk
-        for wg in range(DQ_ROWS // WG_ROWS):
-            qw0 = q0 + WG_ROWS * wg
-            dq[q0, wg] = [(qw0, kt) for kt in range(k_begin, k_end, DQ_KEYS)
-                          if _tile_live(qw0, qw0 + WG_ROWS - 1, kt, kt + DQ_KEYS - 1,
+        k_end = min(sk, q0 + t.rows) if causal else sk
+        for wg in range(2):
+            qw0 = q0 + t.row0(wg)
+            dq[q0, wg] = [(qw0, kt) for kt in range(k_begin, k_end, t.key_step)
+                          if _tile_live(qw0, qw0 + WG_ROWS - 1, kt, kt + t.key_step - 1,
                                         sq, sk, window, causal)]
     return dkdv, dq
 
@@ -314,7 +371,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``dout`` -> (dq, dk, dv) in q's dtype.  ``causal`` is the forward's (a
     runtime argument of both kernels); a non-causal call with a row that
     sees no key raises :data:`DEAD_ROW_BACKWARD`."""
-    from .build import load, record_launch
+    from .build import check_constants, load, record_launch
     check_cuda_inputs("flash_attention_bwd", q, k, v, out, dout)
     check_shapes(q, k, v)
     _check_launch(q, k, window, causal)
@@ -339,6 +396,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"route {route!r}: these tensors take {chosen!r} or {F32_FMA!r}")
     mode = "" if causal else "_noncausal"
     if (route or chosen) == TENSOR_CORES:
+        check_constants("flash_attention_bwd_tc", bwd_tc_constants())
         err = load("flash_attention_bwd_tc").repro_flash_attention_bwd_tc(*args, stream)
         record_launch(err, "flash_attention_bwd_tc" + mode)
     else:
@@ -394,8 +452,9 @@ class FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
-__all__ = ["DEAD_ROW_BACKWARD", "F32_FMA", "FlashAttention", "HEAD_DIMS", "NEG_INF",
-           "REF_BLOCK", "TC_BWD_HEAD_DIMS", "TC_HEAD_DIMS", "TENSOR_CORES", "attend_plain",
-           "attention_bwd_route", "attention_route", "bwd_tc_walks", "causal_mask",
+__all__ = ["BwdTiles", "DEAD_ROW_BACKWARD", "F32_FMA", "FlashAttention", "HEAD_DIMS", "NEG_INF",
+           "REF_BLOCK", "TC_BWD_HEAD_DIMS", "TC_DEPTH", "TC_HEAD_DIMS", "TENSOR_CORES",
+           "WG_ROWS", "attend_plain", "attention_bwd_route", "attention_route", "bwd_tc_constants",
+           "bwd_tc_tiles", "bwd_tc_walks", "causal_mask",
            "check_differentiable", "dead_row_begin", "flash_attention", "flash_attention_bwd",
            "flash_attention_bwd_meta", "flash_attention_meta", "flash_attention_plain", "has_dead_rows", "tma_ok"]

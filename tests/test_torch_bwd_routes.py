@@ -1,9 +1,9 @@
 """The tensor-core routes of B4's and B5's backwards, on the CPU.
 
   * The route choosers (``attention_bwd_route``, ``xent_bwd_route``):
-    Qwen3-8B's train shapes in bf16 take the tensor cores; f32, head dims
-    32, 80 and 256, a vocab of 151,937 and a misaligned view take the
-    f32-FMA route.
+    Qwen3-8B's train shapes and head dims 64, 80 and 256 in bf16 take the
+    tensor cores; f32, head dim 32, a vocab of 151,937 and a misaligned
+    view take the f32-FMA route.
   * B4: a plain emulation of the tensor-core backward's numerics (bf16
     inputs, f32 logits, dlogits rounded to bf16 panel by panel, bf16
     products with f32 accumulation, bf16 dW summed over chunks), run
@@ -13,14 +13,19 @@
   * B5: a plain emulation of the tensor-core backward's tile walk (64-key
     warpgroup tiles against 64-query tiles for dK/dV, 64-row warpgroups
     against 64-key tiles for dQ, P^T and dS^T rounded to bf16 before the
-    register-operand products, the GQA sum in head order) against
-    ``jax.grad`` of the reference's ``attend`` and autograd of
-    ``flash_attention_plain``, within the same bound.
+    register-operand products, the GQA sum in head order; head dim 80 at
+    the padded depth of 128, zero columns cut; head dim 256 on 64-key
+    blocks, each warpgroup over its 128 columns) against ``jax.grad`` of
+    the reference's ``attend`` and autograd of ``flash_attention_plain``,
+    within the same bound.
   * The walks the kernels take (``flash_attention.bwd_tc_walks``) visit
-    every live (query, key) pair exactly once and no dead tile.
+    every live (query, key) pair exactly once and no dead tile, at the
+    tiles of head dims 128 and 256 (each warpgroup of a D 256 block once
+    over its columns); the tiles (``bwd_tc_tiles``) equal the source's.
   * The backward launchers refuse CPU tensors on either route.
 """
 import math
+import re
 
 import jax
 import jax.numpy as jnp
@@ -82,8 +87,8 @@ ATTN_BWD_ROUTES = {
                             tfa.TENSOR_CORES),
     "d64_mqa_bf16": ((2, 128, 8, 64), (2, 128, 1, 64), torch.bfloat16, tfa.TENSOR_CORES),
     "qwen3_8b_train_f32": ((4, 512, 32, 128), (4, 512, 8, 128), torch.float32, tfa.F32_FMA),
-    "d256_bf16": ((1, 300, 16, 256), (1, 300, 8, 256), torch.bfloat16, tfa.F32_FMA),
-    "d80_bf16": ((2, 37, 4, 80), (2, 37, 2, 80), torch.bfloat16, tfa.F32_FMA),
+    "d256_bf16": ((1, 300, 16, 256), (1, 300, 8, 256), torch.bfloat16, tfa.TENSOR_CORES),
+    "d80_bf16": ((2, 37, 4, 80), (2, 37, 2, 80), torch.bfloat16, tfa.TENSOR_CORES),
     "d32_bf16": ((1, 256, 2, 32), (1, 256, 2, 32), torch.bfloat16, tfa.F32_FMA),
 }
 
@@ -230,28 +235,34 @@ def _live(qi, kj, sq, sk, window, causal=True):
 
 def _bwd_tc_emulation(q, k, v, out, dout, lse, window, causal=True):
     """dq, dk, dv (bf16) as the tensor-core kernels compute them: the walks
-    of ``bwd_tc_walks``, f32 products of bf16 operands, P^T and dS^T (dK/dV)
-    and dS (dQ) rounded to bf16 before the register-operand products, the
-    GQA sum over a group's heads in head order, the scale applied once."""
+    of ``bwd_tc_walks`` at the tiles of ``bwd_tc_tiles(D)``, Q, K, V and dO
+    at the padded depth (zero columns past D: TMA's fill), f32 products of
+    bf16 operands, P^T and dS^T (dK/dV) and dS (dQ) rounded to bf16 before
+    the register-operand products, each warpgroup's product over its own
+    columns, the GQA sum over a group's heads in head order, the scale
+    applied once; the padded columns come out 0 and are cut."""
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     group = h // hkv
+    t = tfa.bwd_tc_tiles(d)
+    dp = t.depth
     scale = 1.0 / math.sqrt(d)
-    qf, kf, vf, of, gf = (x.float() for x in (q, k, v, out, dout))
-    delta = (of * gf).sum(-1).transpose(1, 2)                      # (B, H, Sq)
+    delta = (out.float() * dout.float()).sum(-1).transpose(1, 2)   # (B, H, Sq)
+    qf, kf, vf, gf = (torch.nn.functional.pad(x.float(), (0, dp - d)) for x in (q, k, v, dout))
     lse2 = lse * LOG2E
-    dkdv_walk, dq_walk = tfa.bwd_tc_walks(sq, sk, window, causal)
-    # heads as (B, Hkv, group, S, D); queries of head kvh * group + hh
-    qh = qf.view(b, sq, hkv, group, d).permute(0, 2, 3, 1, 4)
-    gh = gf.view(b, sq, hkv, group, d).permute(0, 2, 3, 1, 4)
+    dkdv_walk, dq_walk = tfa.bwd_tc_walks(sq, sk, window, causal, d=d)
+    # heads as (B, Hkv, group, S, DP); queries of head kvh * group + hh
+    qh = qf.view(b, sq, hkv, group, dp).permute(0, 2, 3, 1, 4)
+    gh = gf.view(b, sq, hkv, group, dp).permute(0, 2, 3, 1, 4)
     lh, dh_ = lse2.view(b, hkv, group, sq), delta.view(b, hkv, group, sq)
-    kh, vh = kf.permute(0, 2, 1, 3), vf.permute(0, 2, 1, 3)        # (B, Hkv, Sk, D)
-    dk = torch.zeros((b, hkv, sk, d))
-    dv = torch.zeros((b, hkv, sk, d))
+    kh, vh = kf.permute(0, 2, 1, 3), vf.permute(0, 2, 1, 3)        # (B, Hkv, Sk, DP)
+    dk = torch.zeros((b, hkv, sk, dp))
+    dv = torch.zeros((b, hkv, sk, dp))
     for (k0, wg), tiles in dkdv_walk.items():
         if not tiles:                           # keys past Sk, or seen by no query
             continue
-        keys = torch.arange(k0 + 64 * wg, min(sk, k0 + 64 * wg + 64))
+        kw0, cols = tiles[0][1], t.cols(wg)
+        keys = torch.arange(kw0, min(sk, kw0 + 64))
         for hh in range(group):
             for qt, _ in tiles:
                 qi = torch.arange(qt, min(sq, qt + 64))
@@ -262,14 +273,15 @@ def _bwd_tc_emulation(q, k, v, out, dout, lse, window, causal=True):
                 pt = torch.exp2(sc)
                 dpt = vh[:, :, keys] @ gh[:, :, hh, qi].transpose(-1, -2)
                 dst = pt * (dpt - dh_[:, :, hh, qi][:, :, None, :])
-                dv[:, :, keys] += _bf16(pt) @ gh[:, :, hh, qi]
-                dk[:, :, keys] += _bf16(dst) @ qh[:, :, hh, qi]
+                dv[:, :, keys, cols] += _bf16(pt) @ gh[:, :, hh, qi][..., cols]
+                dk[:, :, keys, cols] += _bf16(dst) @ qh[:, :, hh, qi][..., cols]
     # dQ: every query head against its KV head
-    qa, ga = qf.permute(0, 2, 1, 3), gf.permute(0, 2, 1, 3)        # (B, H, Sq, D)
+    qa, ga = qf.permute(0, 2, 1, 3), gf.permute(0, 2, 1, 3)        # (B, H, Sq, DP)
     ka = kh.repeat_interleave(group, dim=1)
     va = vh.repeat_interleave(group, dim=1)
-    dq = torch.zeros((b, h, sq, d))
-    for (_, _), tiles in dq_walk.items():
+    dq = torch.zeros((b, h, sq, dp))
+    for (_, wg), tiles in dq_walk.items():
+        cols = t.cols(wg)
         for qw0, kt in tiles:
             qi = torch.arange(qw0, min(sq, qw0 + 64))
             keys = torch.arange(kt, min(sk, kt + 64))
@@ -279,17 +291,23 @@ def _bwd_tc_emulation(q, k, v, out, dout, lse, window, causal=True):
                              torch.tensor(-math.inf))
             dp = ga[:, :, qi] @ va[:, :, keys].transpose(-1, -2)
             ds = torch.exp2(sc) * (dp - delta[:, :, qi][..., None])
-            dq[:, :, qi] += _bf16(ds) @ ka[:, :, keys]
-    return ((dq * scale).permute(0, 2, 1, 3).to(torch.bfloat16),
-            (dk * scale).permute(0, 2, 1, 3).to(torch.bfloat16),
-            dv.permute(0, 2, 1, 3).to(torch.bfloat16))
+            dq[:, :, qi, cols] += _bf16(ds) @ ka[:, :, keys][..., cols]
+    for x in (dq, dk, dv):
+        assert not x[..., d:].any()             # zero columns in, zero columns out
+    return ((dq[..., :d] * scale).permute(0, 2, 1, 3).to(torch.bfloat16),
+            (dk[..., :d] * scale).permute(0, 2, 1, 3).to(torch.bfloat16),
+            dv[..., :d].permute(0, 2, 1, 3).to(torch.bfloat16))
 
 
-# (B, Sq, Sk, H, Hkv, D, window): GQA group 4 and 1, a window, ragged S, Sq < Sk
+# (B, Sq, Sk, H, Hkv, D, window): GQA group 4 and 1, a window, ragged S, Sq < Sk;
+# head dim 80 (the padded depth) with a window and a ragged S, head dim 256
+# (64-key blocks, D split between the warpgroups) with GQA group 2 and a window
 ATTN_CASES = {"group4": (2, 150, 150, 8, 2, 64, 0),
               "group1_window48": (1, 200, 200, 2, 2, 128, 48),
               "mqa_window40_ragged": (2, 97, 97, 4, 1, 64, 40),
-              "group4_sq70_sk133": (1, 70, 133, 4, 1, 128, 0)}
+              "group4_sq70_sk133": (1, 70, 133, 4, 1, 128, 0),
+              "d80_window40_ragged": (2, 131, 131, 4, 2, 80, 40),
+              "d256_group2_window48": (1, 150, 150, 4, 2, 256, 48)}
 
 
 @pytest.mark.parametrize("case", sorted(ATTN_CASES))
@@ -329,31 +347,51 @@ def test_b5_tensor_core_tile_walk_matches_jax_grad(case):
 # the walks
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("sq,sk,window", [(512, 512, 0), (480, 480, 64), (37, 37, 0),
-                                          (1, 1, 0), (70, 133, 0), (300, 300, 128),
-                                          (200, 257, 5), (129, 129, 1)])
-def test_walks_visit_every_live_pair_once(sq, sk, window):
+def _walk_counts(walk, live, d):
+    """Each column group's count of visits to every (query, key) pair: one
+    count for a walk whose warpgroups split the rows, one a warpgroup for a
+    walk whose warpgroups split D.  Fails on a tile with no live pair."""
+    split = tfa.bwd_tc_tiles(d).split
+    counts = [np.zeros(live.shape, dtype=np.int64) for _ in range(2 if split else 1)]
+    for (_, wg), tiles in walk.items():
+        for q0, k0 in tiles:
+            tile = np.zeros(live.shape, dtype=bool)
+            tile[q0:q0 + 64, k0:k0 + 64] = True
+            hit = tile & live
+            assert hit.any(), f"a dead tile walked: queries {q0}, keys {k0}"
+            counts[wg if split else 0] += hit
+    return counts
+
+
+def _by_head_dim(shapes):
+    """``shapes`` at head dim 128 (ids unchanged) and at 256, whose walk has
+    64-key (64-row) blocks and both warpgroups on the same tiles."""
+    return ([pytest.param(*s, 128, id="-".join(map(str, s))) for s in shapes]
+            + [pytest.param(*s, 256, id="d256-" + "-".join(map(str, s))) for s in shapes])
+
+
+@pytest.mark.parametrize("sq,sk,window,d", _by_head_dim(
+    [(512, 512, 0), (480, 480, 64), (37, 37, 0), (1, 1, 0), (70, 133, 0), (300, 300, 128),
+     (200, 257, 5), (129, 129, 1)]))
+def test_walks_visit_every_live_pair_once(sq, sk, window, d):
     qi, kj = np.arange(sq), np.arange(sk)
     diff = qi[:, None] - kj[None, :]
     live = (diff >= 0) & ((diff < window) if window > 0 else True)
-    for walk, rows_are_keys in zip(tfa.bwd_tc_walks(sq, sk, window), (True, False)):
-        count = np.zeros((sq, sk), dtype=np.int64)
-        for tiles in walk.values():
-            for q0, k0 in tiles:
-                tile = np.zeros_like(count)
-                tile[q0:q0 + 64, k0:k0 + 64] = 1
-                hit = tile.astype(bool) & live
-                assert hit.any(), f"a dead tile walked: queries {q0}, keys {k0}"
-                count += hit
-        np.testing.assert_array_equal(count, live.astype(np.int64))
-        # the blocks of the grid: one per 128 keys (dK/dV) or query rows (dQ)
+    t = tfa.bwd_tc_tiles(d)
+    for walk, rows_are_keys in zip(tfa.bwd_tc_walks(sq, sk, window, d=d), (True, False)):
+        for count in _walk_counts(walk, live, d):
+            np.testing.assert_array_equal(count, live.astype(np.int64))
+        # the blocks of the grid: one per t.keys keys (dK/dV) or t.rows
+        # query rows (dQ): 128, or 64 at D 256
         blocks = {blk for blk, _ in walk}
-        assert blocks == set(range(0, sk if rows_are_keys else sq, 128))
+        step = t.keys if rows_are_keys else t.rows
+        assert step == (64 if d == 256 else 128)
+        assert blocks == set(range(0, sk if rows_are_keys else sq, step))
 
 
-@pytest.mark.parametrize("sq,sk,window", [(256, 256, 0), (256, 384, 0), (300, 130, 0),
-                                          (200, 257, 5), (129, 64, 70), (64, 200, 16)])
-def test_non_causal_walks_visit_every_live_pair_once(sq, sk, window):
+@pytest.mark.parametrize("sq,sk,window,d", _by_head_dim(
+    [(256, 256, 0), (256, 384, 0), (300, 130, 0), (200, 257, 5), (129, 64, 70), (64, 200, 16)]))
+def test_non_causal_walks_visit_every_live_pair_once(sq, sk, window, d):
     """The walks with ``causal=False`` (the dK/dV kernel's queries from 0,
     the dQ kernel's keys to Sk): every live pair (only the window masks;
     no row without a key) once, no dead tile."""
@@ -361,16 +399,37 @@ def test_non_causal_walks_visit_every_live_pair_once(sq, sk, window):
     qi, kj = np.arange(sq), np.arange(sk)
     diff = qi[:, None] - kj[None, :]
     live = (diff < window) if window > 0 else np.ones((sq, sk), dtype=bool)
-    for walk in tfa.bwd_tc_walks(sq, sk, window, causal=False):
-        count = np.zeros((sq, sk), dtype=np.int64)
-        for tiles in walk.values():
-            for q0, k0 in tiles:
-                tile = np.zeros_like(count)
-                tile[q0:q0 + 64, k0:k0 + 64] = 1
-                hit = tile.astype(bool) & live
-                assert hit.any(), f"a dead tile walked: queries {q0}, keys {k0}"
-                count += hit
-        np.testing.assert_array_equal(count, live.astype(np.int64))
+    for walk in tfa.bwd_tc_walks(sq, sk, window, causal=False, d=d):
+        for count in _walk_counts(walk, live, d):
+            np.testing.assert_array_equal(count, live.astype(np.int64))
+
+
+def test_bwd_tiles_equal_the_source():
+    """``bwd_tc_tiles`` against ``BwdTile<D>``'s lines in the source (the
+    launcher also checks them against the library on the card's first
+    launch), ``TC_DEPTH`` against ``sm90::box_depth``, and both kernels'
+    dispatch takes every head dim of the route."""
+    text = (tbuild.CSRC / "flash_attention_bwd_tc.cu").read_text()
+    box = int(re.search(r"box_depth\(int d\) \{ return \(d \+ 63\) / (\d+) \* \1; \}",
+                        (tbuild.CSRC / "sm90.cuh").read_text()).group(1))
+    assert "DP = sm90::box_depth(D);" in text
+    split_at = int(re.search(r"kSplit = DP == (\d+);", text).group(1))
+    bkv = [int(x) for x in re.search(r"BKV = kSplit \? (\d+) : (\d+);", text).groups()]
+    bqr = [int(x) for x in re.search(r"BQR = kSplit \? (\d+) : (\d+);", text).groups()]
+    bq = int(re.search(r"constexpr int BQ = (\d+);", text).group(1))
+    bk = int(re.search(r"constexpr int BK = (\d+);", text).group(1))
+    fwd = (tbuild.CSRC / "flash_attention_tc.cu").read_text()
+    assert "DP = sm90::box_depth(D);" in fwd
+    for d in tfa.TC_BWD_HEAD_DIMS:
+        dp = -(-d // box) * box
+        split = dp == split_at
+        assert tfa.bwd_tc_tiles(d) == (dp, bkv[0 if split else 1], bq, bqr[0 if split else 1],
+                                       bk, split), d
+        assert tfa.TC_DEPTH[d] == dp
+        assert re.search(rf"case {d}: return launch<{d}>", text), d
+        assert re.search(rf"case {d}: return launch<{d}>", fwd), d
+    consts = tfa.bwd_tc_constants()
+    assert list(consts)[-2:] == ["BQ", "BK"] and len(consts) == 4 * 4 + 2
 
 
 # (B, Sq, Sk, H, Hkv, D, window), not causal: Sq = Sk, Sq < Sk, Sq > Sk, a

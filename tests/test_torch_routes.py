@@ -8,15 +8,18 @@
     stats within rtol 1e-5 (two f32 summation orders over up to 80,000
     terms).
   * The route choosers of B5's and B4's forwards (``attention_route``,
-    ``xent_route``): Qwen3-8B's serve and train shapes in bf16 take the
-    tensor cores; f32, head dims 32 and 80, a vocab of 151,937 and a
-    misaligned view take the f32-FMA kernel.
+    ``xent_route``): Qwen3-8B's serve and train shapes and head dims 64, 80
+    and 256 in bf16 take the tensor cores; f32, head dim 32, a vocab of
+    151,937 and a misaligned view take the f32-FMA kernel.
   * The tolerance argument for B5's tensor-core route: a plain emulation of
     its numerics (128-row query blocks, 128- or 64-key tiles, the online
-    softmax in base 2, P rounded to bf16 before P V, f32 accumulation) stays
-    within the card's bf16 bound (``chip_smoke.ATTN_ATOL``, 2e-2) of
-    ``flash_attention_plain``, and its log-sum-exp within 1e-4 of the exact
-    one.
+    softmax in base 2, P rounded to bf16 before P V, f32 accumulation; head
+    dim 80 at the padded depth of 128, zero columns in Q, K and V, the
+    output cut to 80), causal or not, stays within the card's bf16 bound
+    (``chip_smoke.ATTN_ATOL``, 2e-2) of ``flash_attention_plain`` and of
+    the reference's ``ref.mha_reference``, and its log-sum-exp within 1e-4
+    of the exact one.  The store of a padded fragment at head dim 80 leaves
+    the next head's columns alone.
   * ``build.library_path`` hashes the headers a source includes.
 """
 import math
@@ -28,6 +31,7 @@ import pytest
 import torch
 
 from repro.kernels import ops as jops
+from repro.kernels import ref as jref
 from repro_torch.kernels import build as tbuild
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import fused_xent as tfx
@@ -125,7 +129,7 @@ ATTN_ROUTES = {
     "d256_bf16": ((1, 300, 16, 256), (1, 300, 8, 256), torch.bfloat16, tfa.TENSOR_CORES),
     "qwen3_8b_serve_f32": ((4, 480, 32, 128), (4, 480, 8, 128), torch.float32,
                            tfa.F32_FMA),
-    "d80_bf16": ((2, 37, 4, 80), (2, 37, 2, 80), torch.bfloat16, tfa.F32_FMA),
+    "d80_bf16": ((2, 37, 4, 80), (2, 37, 2, 80), torch.bfloat16, tfa.TENSOR_CORES),
     "d32_bf16": ((1, 256, 2, 32), (1, 256, 2, 32), torch.bfloat16, tfa.F32_FMA),
 }
 
@@ -181,32 +185,42 @@ def test_tensor_core_forward_grid_covers_every_panel(t, v, sms):
     assert nsplit <= 65535
 
 
-def _tc_emulation(q, k, v, window):
-    """B5's tensor-core numerics in plain PyTorch: 128-row query blocks,
-    key tiles of 128 (D <= 128) or 64, each tile's scores in f32 scaled
-    into base 2, the running max from -1e30, masked scores -inf, P rounded
-    to bf16 for P V with f32 accumulation and l summed over the f32 P.
-    Returns (out bf16 (B, Sq, H, D), lse (B, H, Sq) f32)."""
+def _pad(x, depth):
+    """``x`` with zero columns up to ``depth``: what TMA delivers of a box
+    that reaches past the head's last column."""
+    return torch.nn.functional.pad(x, (0, depth - x.shape[-1]))
+
+
+def _tc_emulation(q, k, v, window, causal=True):
+    """B5's tensor-core numerics in plain PyTorch: the head held at its
+    padded depth (``TC_DEPTH``: 80 as 128, zero columns in Q, K and V; the
+    scale 1/sqrt of the real D), 128-row query blocks, key tiles of 128
+    (depth <= 128) or 64, each tile's scores in f32 scaled into base 2, the
+    running max from -1e30, masked scores -inf, P rounded to bf16 for P V
+    with f32 accumulation and l summed over the f32 P; the output's padded
+    columns come out 0 and are cut.  Returns (out bf16 (B, Sq, H, D), lse
+    (B, H, Sq) f32)."""
     b, sq, h, d = q.shape
     sk, groups = k.shape[1], h // k.shape[2]
-    bk = 128 if d <= 128 else 64
-    qf = q.float().transpose(1, 2)                                   # (B, H, S, D)
-    kf = k.float().repeat_interleave(groups, dim=2).transpose(1, 2)
-    vf = v.float().repeat_interleave(groups, dim=2).transpose(1, 2)
+    dp = tfa.TC_DEPTH[d]
+    bk = 128 if dp <= 128 else 64
+    qf = _pad(q, dp).float().transpose(1, 2)                         # (B, H, S, DP)
+    kf = _pad(k, dp).float().repeat_interleave(groups, dim=2).transpose(1, 2)
+    vf = _pad(v, dp).float().repeat_interleave(groups, dim=2).transpose(1, 2)
     scale2 = (1.0 / math.sqrt(d)) * math.log2(math.e)
-    out = torch.empty((b, h, sq, d))
+    out = torch.empty((b, h, sq, dp))
     lse = torch.empty((b, h, sq))
     for q0 in range(0, sq, 128):
         rows = torch.arange(q0, min(sq, q0 + 128))
         m = torch.full((b, h, rows.numel()), -1e30)
         l = torch.zeros_like(m)
-        acc = torch.zeros((b, h, rows.numel(), d))
-        k_end = min(sk, q0 + 128)
+        acc = torch.zeros((b, h, rows.numel(), dp))
+        k_end = min(sk, q0 + 128) if causal else sk
         k_begin = max(0, q0 - window + 1) if window else 0
         for kt in range(k_begin, k_end, bk):
             keys = torch.arange(kt, min(kt + bk, k_end))
             s = qf[:, :, rows] @ kf[:, :, keys].transpose(-1, -2)
-            live = tfa.causal_mask(rows, keys, window)
+            live = tfa.causal_mask(rows, keys, window, causal)
             s = torch.where(live, s * scale2, torch.tensor(-math.inf))
             m_new = torch.maximum(m, s.amax(-1))
             alpha = torch.exp2(m - m_new)
@@ -217,32 +231,93 @@ def _tc_emulation(q, k, v, window):
         denom = torch.clamp_min(l, 1e-30)
         out[:, :, rows] = acc / denom[..., None]
         lse[:, :, rows] = m * math.log(2.0) + torch.log(denom)
-    return out.transpose(1, 2).to(torch.bfloat16), lse
+    assert not out[..., d:].any()                # V's zero columns: O's are 0
+    return out[..., :d].transpose(1, 2).to(torch.bfloat16), lse
 
 
-# (B, S, H, Hkv, D, window): the serve shape with B and H cut, a window, D 64
-# and 256 (64-key tiles), ragged S
-TC_CASES = {"serve_cut": (2, 480, 8, 2, 128, 0), "window64": (1, 300, 4, 2, 128, 64),
-            "d64_mqa": (2, 200, 4, 1, 64, 0), "d256_window": (1, 300, 4, 2, 256, 128),
-            "s37": (2, 37, 4, 2, 64, 0)}
+# (B, Sq, Sk, H, Hkv, D, window, causal): the serve shape with B and H cut, a
+# window, D 64 and 256 (64-key tiles), ragged S; D 80 (H2O-Danube's heads at
+# the padded depth) with GQA, its window and a ragged S, and not causal with
+# Sq != Sk
+TC_CASES = {"serve_cut": (2, 480, 480, 8, 2, 128, 0, True),
+            "window64": (1, 300, 300, 4, 2, 128, 64, True),
+            "d64_mqa": (2, 200, 200, 4, 1, 64, 0, True),
+            "d256_window": (1, 300, 300, 4, 2, 256, 128, True),
+            "s37": (2, 37, 37, 4, 2, 64, 0, True),
+            "d80_group4_window96_s299": (1, 299, 299, 8, 2, 80, 96, True),
+            "d80_non_causal_sq70_sk133": (2, 70, 133, 4, 2, 80, 0, False)}
 
 
 @pytest.mark.parametrize("case", sorted(TC_CASES))
 def test_tensor_core_numerics_stay_within_the_bf16_bound(case):
-    b, s, h, hkv, d, window = TC_CASES[case]
+    b, sq, sk, h, hkv, d, window, causal = TC_CASES[case]
     rng = np.random.default_rng(3)
     q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(torch.bfloat16)
-               for shape in ((b, s, h, d), (b, s, hkv, d), (b, s, hkv, d)))
-    got, lse = _tc_emulation(q, k, v, window)
-    want = tfa.flash_attention_plain(q, k, v, window=window)
+               for shape in ((b, sq, h, d), (b, sk, hkv, d), (b, sk, hkv, d)))
+    assert tfa.attention_route(q, k, v) == tfa.TENSOR_CORES
+    assert not tfa.has_dead_rows(sq, sk, window, causal)
+    got, lse = _tc_emulation(q, k, v, window, causal)
+    want = tfa.flash_attention_plain(q, k, v, window=window, causal=causal)
     err = float((got.float() - want.float()).abs().max())
     assert 0.0 < err <= ATTN_BF16_ATOL, err
+    # the reference's oracle on the same bf16 values, in f32
+    flat = [jnp.asarray(x.float().transpose(1, 2).reshape(-1, x.shape[1], d).numpy())
+            for x in (q, k, v)]
+    jwant = np.asarray(jref.mha_reference(*flat, causal=causal, window=window))
+    got_flat = got.float().transpose(1, 2).reshape(-1, sq, d).numpy()
+    assert float(np.abs(got_flat - jwant).max()) <= ATTN_BF16_ATOL
     # the exact log-sum-exp of the scaled scores, which the backward reads
-    mask = tfa.causal_mask(torch.arange(s), torch.arange(s), window)
+    mask = tfa.causal_mask(torch.arange(sq), torch.arange(sk), window, causal)
     kf = k.float().repeat_interleave(h // hkv, dim=2)
     scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) / math.sqrt(d)
     exact = torch.logsumexp(torch.where(mask, scores, torch.tensor(-math.inf)), dim=-1)
     assert float((lse - exact).abs().max()) <= 1e-4
+
+
+def _store_rows(out, h, head, frag, d, width=None):
+    """The tensor-core kernels' epilogue on a flat (B * S * H * D) bf16
+    output: head ``head``'s rows of a padded (B, S, DP) accumulator written
+    at the row step H * D from the head's base, columns ``8 j + 2 quad + c``
+    for j < ``width`` / 8 (``store_rows<N, NS>``'s NS and the forward's
+    store loop: the real D; a write past the buffer's end is dropped)."""
+    b, s, _ = frag.shape
+    for bi in range(b):
+        for r in range(s):
+            base = (bi * s + r) * h * d + head * d
+            for j in range((width or d) // 8):
+                for quad in range(4):
+                    for c in range(2):
+                        col = 8 * j + 2 * quad + c
+                        if base + col < out.numel():
+                            out[base + col] = frag[bi, r, col]
+
+
+def test_a_head_dim_80_store_leaves_the_next_heads_columns_alone():
+    """At head dim 80 the kernels accumulate 128 columns (the padded depth;
+    columns 80-127 are 0): their stores write 80 of them at the real row
+    step, so a sentinel in every other head's columns survives the stores of
+    heads 1 and 2 of 3.  Stored at the padded width, head 1's row would
+    zero head 2's first 48 columns and head 2's the next row's head 0."""
+    b, s, h, d = 2, 5, 3, 80
+    dp = tfa.TC_DEPTH[d]
+    assert dp == 128
+    rng = np.random.default_rng(7)
+    frag = torch.zeros((b, s, dp), dtype=torch.bfloat16)
+    frag[..., :d] = torch.from_numpy(rng.normal(size=(b, s, d)).astype(np.float32)).to(
+        torch.bfloat16)
+    sentinel = -7.5
+    out = torch.full((b * s * h * d,), sentinel, dtype=torch.bfloat16)
+    _store_rows(out, h, 1, frag, d)
+    view = out.view(b, s, h, d)
+    assert torch.equal(view[:, :, 1], frag[..., :d])
+    assert bool((view[:, :, (0, 2)] == sentinel).all())
+    _store_rows(out, h, 2, frag, d)
+    assert torch.equal(view[:, :, 2], frag[..., :d])
+    assert bool((view[:, :, 0] == sentinel).all())
+    # the fault the real D guards against: the padded width
+    bad = torch.full((b * s * h * d,), sentinel, dtype=torch.bfloat16)
+    _store_rows(bad, h, 1, frag, d, width=dp)
+    assert bool((bad.view(b, s, h, d)[:, :, 2, :dp - d] == 0).all())
 
 
 def test_library_path_follows_the_included_headers(tmp_path, monkeypatch):
