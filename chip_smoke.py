@@ -327,11 +327,11 @@ from the repository root.  Phases, in order; any failure exits non-zero:
      given the prefill's keys and values, the serve loop from the prompt's
      last position through 16 greedy tokens, its logits there against the
      prefill's; launches per counter and route as ``_dense_want`` plans
-     them from the config (B5 both ways on the tensor cores at every head
-     dim, 80 and 256 too; B6 at Gemma3's and Danube's on the f32-FMA
-     route); prefill and decode profiled with each route's share where an
-     f32-FMA route runs, and Danube's prefill and both train steps always
-     (``B5_PROFILED``: B5's share by route); a train step at train_4k cut
+     them from the config (B5 both ways and B6 on the tensor cores at
+     every head dim, 80 and 256 too); prefill and decode profiled with
+     each route's share where an f32-FMA route runs, and Danube's prefill,
+     both train steps and both decode steps always (``ALWAYS_PROFILED``:
+     B5's and B6's shares by route); a train step at train_4k cut
      to 4 x 512 (full depth), its mfu, peak and profile; a few layers in f32 (Gemma3's a local and a global one) the
      kernel path against the plain path; the Pigeon-SL round over Danube
      at full depth (cut 6) on both engines, decisions equal.  Every bf16
@@ -431,7 +431,8 @@ DECODE_LONG = (8, 32768, 32, 8, 128, 0, 32767)
 # (Qwen3-8B's heads, TP_PROMPT + TP_NEW positions, the main path's shape),
 # phase 6's serve shape, the 32k shape, Gemma3-12B's head dim 256 with its
 # 1,024-token window and H2O-Danube's head dim 80 with its 4,096 (both on
-# the f32-FMA route); 16 panels leave some with no live key at every shape
+# the tensor cores, the f32-FMA route beside them); 16 panels leave some
+# with no live key at every shape
 PARTIAL_SHAPES = ((1, 40, 32, 8, 128, 0, 39), (4, 512, 32, 8, 128, 0, 479), DECODE_LONG,
                   (2, 4096, 16, 8, 256, 1024, 4000), (2, 4096, 32, 8, 80, 4096, 3000))
 PARTIAL_SPLITS = (2, 16)
@@ -1201,6 +1202,12 @@ def _sdpa(q, k, v, window: int, index=None):
                                                   enable_gqa=True)
 
 
+#: B4's rows on the f32-FMA route (a vocab not a multiple of 8) that phase 1
+#: times beside the yardsticks of phase 20's rows: InternVL2-26B's and
+#: SeamlessM4T's train heads
+XENT_TIMED = {"vlm_train", "seamless_train"}
+
+
 def _dense_path(path) -> bool:
     """Whether ``path`` is one of phase 20's (DENSE_FAMILIES' labels)."""
     return path is not None and path.split("_")[0] in {
@@ -1220,9 +1227,11 @@ def _phase_slice_shapes() -> dict:
     it), the bound (``launch/roofline.py``) and the library call's
     (``_sdpa``, its backward through autograd; B4's
     ``F.cross_entropy(h @ W)``, and through autograd) and the kernel's
-    replayed device time; phase 20's B5 rows, both ways, also with the
-    f32-FMA route's eager and replayed times beside it (``beside_fma``),
-    the tensor cores checked faster."""
+    replayed device time (B4's also at XENT_TIMED's heads); phase 20's B5
+    rows, both ways, and B6 rows also with the f32-FMA route's eager and
+    replayed times beside it (``beside_fma``), the tensor cores checked
+    faster; every B6 row bit-identical run to run, phase 20's also timed
+    with the L2 cold."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as da
@@ -1256,11 +1265,11 @@ def _phase_slice_shapes() -> dict:
             out["kernel_dev_us"] = _median(_graph_times_us([call], reps=3, samples=3)[0])
         return out
 
-    def beside_fma(call, old, what):
+    def beside_fma(call, old, what, reps=3, samples=3):
         """The kernel's replayed device time and the f32-FMA route's eager
-        and replayed ones (the two graphs replayed in turn); fails unless
-        the tensor cores' is the shorter."""
-        dev, fma_dev = map(_median, _graph_times_us([call, old], reps=3, samples=3))
+        and replayed ones (the two graphs of ``reps`` calls replayed in turn
+        ``samples`` times); fails unless the tensor cores' is the shorter."""
+        dev, fma_dev = map(_median, _graph_times_us([call, old], reps=reps, samples=samples))
         check(dev < fma_dev, f"{what}: the tensor-core route ({dev:.1f} us replayed) is not "
                              f"faster than the f32-FMA route ({fma_dev:.1f} us)")
         return dict(kernel_dev_us=dev,
@@ -1342,25 +1351,33 @@ def _phase_slice_shapes() -> dict:
         args, kw = _attention_args("decode_attention", shape, "bfloat16", seed=320 + i)
         with torch.inference_mode():
             got = da.decode_attention(*args, **kw)
+            again = da.decode_attention(*args, **kw)
             want = da.decode_attention_plain(*args, **kw)
+        check(torch.equal(got, again), f"decode_attention bf16 {shape}: two runs differ")
         err = float((got.float() - want.float()).abs().max())
         check(err <= ATTN_ATOL["bfloat16"], f"decode_attention bf16 {shape}: max |kernel - "
                                             f"plain| {err:.3e} > {ATTN_ATOL['bfloat16']}")
         extra = None
         if _dense_path(path):
             b, s, h, hkv, d, window, index = shape
+            call = lambda: da.decode_attention(*args, **kw)   # noqa: E731
             with torch.inference_mode():
                 extra = yardsticks(rl.decode_attention_work(b, s, h, hkv, d, window, index),
                                    lambda: da.decode_attention_plain(*args, **kw),
-                                   _sdpa(*args[:3], window, index=index),
-                                   lambda: da.decode_attention(*args, **kw))
+                                   _sdpa(*args[:3], window, index=index))
+                # 50 calls a graph: a graph's own launch cost would weigh on
+                # a few calls of a 10 us kernel
+                extra.update(beside_fma(call,
+                                        lambda: da.decode_attention(*args, **kw, route=da.F32_FMA),
+                                        f"decode_attention bf16 {shape}", reps=50, samples=9))
+                extra["kernel_cold_us"] = _cold_time_us(call, reps=20)
         note("decode_attention", shape, path, da.decode_route(*args[:3]), err,
              _time_us(lambda: da.decode_attention(*args, **kw), **few), tuple(shape[:6]),
              extra=extra)
     for i, (shape, path, bwd_path) in enumerate(SLICE_XENT):
         h, w, labels, gup = _xent_args(shape, "bfloat16", seed=330 + i)
         hh, ww = h.clone().requires_grad_(), w.clone().requires_grad_()
-        timed = _dense_path(bwd_path)
+        timed = _dense_path(bwd_path) or bwd_path in XENT_TIMED
         ref = fx.fused_xent_plain(hh, ww, labels)
         plain_loss = (ref * gup).sum()
         ref_dh, ref_dw = torch.autograd.grad(plain_loss, (hh, ww), retain_graph=timed)
@@ -1374,7 +1391,7 @@ def _phase_slice_shapes() -> dict:
         # the yardstick takes in-range labels only
         in_range = labels.long().abs() % shape[2]
         extra = None
-        if _dense_path(path):
+        if _dense_path(path) or path in XENT_TIMED:
             with torch.no_grad():
                 extra = yardsticks(rl.fused_xent_work(*shape),
                                    lambda: fx.fused_xent_plain(h, w, labels),
@@ -1411,6 +1428,7 @@ def _phase_slice_shapes() -> dict:
                + ("none" if t["library_us"] is None else f"{t['library_us']:.1f}"))
             + ("" if "kernel_dev_us" not in t else
                f", kernel replayed {t['kernel_dev_us']:.1f} us")
+            + ("" if "kernel_cold_us" not in t else f", L2 cold {t['kernel_cold_us']:.1f} us")
             + ("" if "f32_fma_route" not in t else
                f", the f32-FMA route {t['f32_fma_route']['kernel_us']:.1f} eager / "
                f"{t['f32_fma_route']['kernel_dev_us']:.1f} replayed")
@@ -1961,6 +1979,12 @@ def _phase_attention():
         log(f"phase1 {name}: within atol {ATTN_ATOL} of plain at {list(shapes)} in f32 "
             f"and bf16 on every route{' and index form' if name == 'decode_attention' else ''}, "
             f"bit-identical run to run; max_abs_err {max_err}")
+        if name == "decode_attention":
+            dev = torch.cuda.current_device()
+            resident = {d: [da._tc_clusters(dev, d, n) for n in range(1, 9)]
+                        for d in da.TC_HEAD_DIMS}
+            log(f"phase1 {name}: clusters the card holds at once "
+                f"(cudaOccupancyMaxActiveClusters) at splits 1-8, by head dim: {resident}")
         if long_shape in shapes:
             log(f"phase1 {name} at {long_shape} bf16: max |kernel - plain| by route "
                 f"{long_errs}, the bound {LONG_BF16_REL} x max |plain|")
@@ -2050,7 +2074,7 @@ def _phase_decode_partial() -> dict:
     (``combine_partials``) equal to the one-call B6 on the same route
     within ATTN_ATOL (LONG_BF16_REL of the largest |plain| at the 32k
     shape in bf16).  Timed at the main path's panel, the serve shape's
-    (2 panels), the 32k shape's (16) and head dim 256's (2)."""
+    (2 panels), the 32k shape's (16), head dim 256's and 80's (2)."""
     import torch
     from repro_torch.kernels import decode_attention as da
     max_err, empties, routes = {}, 0, {}
@@ -2137,7 +2161,7 @@ def _phase_decode_partial() -> dict:
         f"panels within the same of the one-call B6; max_abs_err {max_err}")
     timed = [_partial_timing(shape, g) for shape, g in
              ((PARTIAL_SHAPES[0], 2), (PARTIAL_SHAPES[1], 2), (DECODE_LONG, 16),
-              (PARTIAL_SHAPES[3], 2))]
+              (PARTIAL_SHAPES[3], 2), (PARTIAL_SHAPES[4], 2))]
     main = timed[0]
     return dict(max_abs_err=max(v for key, v in max_err.items()
                                 if key.startswith(main["route"])),
@@ -7422,9 +7446,10 @@ def _route_shares(launches: dict) -> dict:
 
 
 #: phase 20's paths profiled whatever routes they take (label, path): where
-#: B5 at head dims 80 and 256 moved from the f32-FMA routes to the tensor
-#: cores, its share of the busy time by route
-B5_PROFILED = {("danube", "prefill"), ("gemma3", "train"), ("danube", "train")}
+#: B5 and B6 at head dims 80 and 256 moved from the f32-FMA routes to the
+#: tensor cores, each kernel's share of the busy time by route
+ALWAYS_PROFILED = {("danube", "prefill"), ("gemma3", "train"), ("danube", "train"),
+                   ("gemma3", "decode"), ("danube", "decode")}
 
 
 def _fma_profile(name: str, fn, wall_us: float, launches: dict, always: bool = False) -> dict:
@@ -7532,7 +7557,7 @@ def _dense_serve(arch: str, fam: dict) -> dict:
     prefill_profile = _fma_profile(f"{label} {cfg.name} prefill (B {b} x {p}, bf16)",
                                    lambda: prefill({"tokens": prompts}), prefill_s * 1e6,
                                    prefill_launches,
-                                   always=(fam["label"], "prefill") in B5_PROFILED)
+                                   always=(fam["label"], "prefill") in ALWAYS_PROFILED)
 
     cache = model.init_cache(b, p + DENSE_NEW)
     kv.fill(cache, p - 1)
@@ -7570,7 +7595,8 @@ def _dense_serve(arch: str, fam: dict) -> dict:
     tok = gen[:, -1:].contiguous()
     decode_profile = _fma_profile(
         f"{label} {cfg.name} decode step (B {b}, index {p + DENSE_NEW - 1}, bf16)",
-        lambda: serve_step(cache, tok, p + DENSE_NEW - 1)[0], ms_step * 1e3, loop_launches)
+        lambda: serve_step(cache, tok, p + DENSE_NEW - 1)[0], ms_step * 1e3, loop_launches,
+        always=(fam["label"], "decode") in ALWAYS_PROFILED)
     del model, cache, serve_step, prefill
     torch.cuda.empty_cache()
     return dict(params=n_params, prefill_launches=prefill_launches,
@@ -7604,7 +7630,7 @@ def _dense_train(arch: str, fam: dict) -> dict:
     train, wall_us = _three_steps(f"{label} train", step, batch, plan, model)
     profile = _fma_profile(f"{label} {tcfg.name} train step ({tcfg.n_layers} layers, B "
                            f"{TRAIN_BATCH} x {TRAIN_SEQ}, bf16, remat)", lambda: step(batch),
-                           wall_us, plan, always=(fam["label"], "train") in B5_PROFILED)
+                           wall_us, plan, always=(fam["label"], "train") in ALWAYS_PROFILED)
     log(f"{label} train: {tcfg.n_layers} of {get_config(arch).n_layers} layers; peak "
         f"{train['peak_gb']:.2f} GB; mfu {train['mfu']:.4f}; {card_line()}")
     train.update(layers=tcfg.n_layers, profile=profile)
@@ -7738,6 +7764,23 @@ def phase_examples() -> dict:
     return out
 
 
+def _ptxas_by_head_dim(text: str) -> dict:
+    """{head dim: (registers, bytes of spill stores)} of each
+    ``decode_tc_kernel<D>`` in a ptxas -v log."""
+    out, d = {}, None
+    for line in text.splitlines():
+        entry = re.search(r"Compiling entry function '[^']*decode_tc_kernelILi(\d+)E", line)
+        if "Compiling entry function" in line:
+            d = int(entry.group(1)) if entry else None
+        spill = re.search(r"(\d+) bytes spill stores", line)
+        regs = re.search(r"Used (\d+) registers", line)
+        if d is not None and spill:
+            out[d] = (out.get(d, (0, 0))[0], int(spill.group(1)))
+        if d is not None and regs:
+            out[d] = (int(regs.group(1)), out.get(d, (0, 0))[1])
+    return out
+
+
 def main() -> None:
     if not (ROOT / "src" / "repro_torch").is_dir():
         fail(f"no src/repro_torch next to {Path(__file__).name}: run it from a "
@@ -7771,6 +7814,9 @@ def main() -> None:
         for line in text.splitlines():
             if "C7517" in line or "C7508" in line:
                 log(f"  ptxas {name}: {line.strip()[:160]}")
+        if name == "decode_attention_tc":
+            log(f"  ptxas {name} by head dim (registers, bytes of spill stores): "
+                f"{_ptxas_by_head_dim(text)}")
     sass = phase_sass()
 
     seconds = {"build": round(time.perf_counter() - t0, 1)}

@@ -16,8 +16,8 @@
 // D 128, 512 live keys, bf16) the kernel must move 8.4 MB: 2.5 us at
 // 3.35 TB/s.  The design reads each K and V row once per KV head and splits
 // the key range across blocks to cover the 132 SMs.  This is the f32-FMA
-// route of B6 (f32, head dims 32, 80 and 256, rows TMA cannot read);
-// decode_attention_tc.cu takes bf16 at head dims 64 and 128:
+// route of B6 (f32, head dim 32, misaligned views);
+// decode_attention_tc.cu takes bf16 at head dims 64, 80, 128 and 256:
 //
 //   * pass 1: a grid of (splits, Hkv * head chunks, B).  A block takes one
 //     KV head, up to 8 of its H / Hkv query heads (one warp each) and one

@@ -2,9 +2,9 @@
 // cores (sm_90a), bound to Python through a plain C interface (ctypes).
 //
 // Replaces the TPU kernel of src/repro/kernels/decode_attention.py:
-//   decode_attention (_decode_kernel) -> decode_tc_kernel (bf16, head_dim 64
-//   or 128, 16-byte aligned rows; decode_attention.cu is the f32-FMA route
-//   for everything else)
+//   decode_attention (_decode_kernel) -> decode_tc_kernel (bf16, head_dim 64,
+//   80, 128 or 256, 16-byte aligned rows; decode_attention.cu is the f32-FMA
+//   route for everything else: f32, head dim 32, misaligned views)
 // q (B, 1, H, D), the cache's k and v (B, S, Hkv, D), out (B, 1, H, D), in
 // the model's own layout.  The new token at position `index` attends to the
 // cache positions k_pos <= index, and with a window only to
@@ -23,18 +23,24 @@
 //   * a thread-block cluster of `splits` (<= 8) blocks takes one (batch, KV
 //     head, 16 query heads of its group); block `rank` takes the contiguous
 //     chunk [begin + rank * chunk, + chunk) of the live keys [begin, end);
-//   * a block streams its chunk through a ring of kStages (3 at D 128, 4 at
-//     D 64) stages of 64 keys of K and V, bf16, by 16-byte cp.async copies
-//     (LDGSTS): 32 KB a stage at D 128, two stages in flight behind the one
-//     being computed.  The launcher sizes the split so that an SM holds at
-//     most one block (decode_attention.py::decode_tc_splits: one streaming
-//     block an SM reads faster than two).  The rows are stored
-//     with their 16-byte chunks XOR-swizzled by row % 8, so ldmatrix reads
-//     them without bank conflicts;
+//   * a block streams its chunk through a ring of kStages (3 at D 128 and
+//     256, 4 at D 64 and 80) stages of 64 keys of K and V, bf16, by 16-byte
+//     cp.async copies (LDGSTS): 32 KB a stage at D 128, 64 KB at D 256,
+//     two or three stages in flight behind the one being computed.  The
+//     launcher sizes the split so that an SM holds at most one block
+//     (decode_attention.py::decode_tc_splits: one streaming block an SM
+//     reads faster than two).  The rows are stored with their 16-byte
+//     chunks XOR-swizzled by row % 8, so ldmatrix reads them without bank
+//     conflicts; at D 80, whose 10-chunk rows the swizzle would carry into
+//     the next row, they lie 176 bytes apart instead (see tile_addr);
 //   * each of the 4 warps takes 16 keys of every stage: S = Q K^T on
 //     mma.sync.m16n8k16 (bf16 in, f32 accumulate) with the group's query
 //     heads on M (padded to 16: the rows are wasted, the bound is bytes)
-//     and q held in registers as A fragments for the whole chunk; an online
+//     and q held in registers as A fragments for the whole chunk (at D 256
+//     in shared memory, 8 KB read by ldmatrix each step: its 128
+//     accumulator registers a thread leave no room for 64 more of q; two
+//     warpgroups splitting the accumulator, S computed by both, ran
+//     slower on an H100); an online
 //     softmax over its keys (running max from -1e30, so a masked score, -inf,
 //     contributes exactly 0); then O += P V on the same instruction, with P
 //     taken from the S accumulator as the A fragment (FA2's register layout:
@@ -78,11 +84,25 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kRows = 16;           // query heads a block: the mma's M
 constexpr int kMaxSplits = 8;       // blocks a cluster (the portable maximum)
 constexpr float kNegBig = -1e30f;   // the reference's NEG_INF: the running max's start
+// the ring's stages at each head dim
+constexpr int kStages64 = 4;
+constexpr int kStages80 = 4;
+constexpr int kStages128 = 3;
+constexpr int kStages256 = 3;
+// D 80's stage row, in elements: 176 bytes, unswizzled (see tile_addr)
+constexpr int kPitch80 = 88;
 
 template <int D> struct Cfg {
-  static constexpr int kStages = D == 64 ? 4 : 3;
+  static_assert(D == 64 || D == 80 || D == 128 || D == 256, "head dims 64, 80, 128, 256");
+  static constexpr int kStages =
+      D == 64 ? kStages64 : D == 80 ? kStages80 : D == 128 ? kStages128 : kStages256;
+  static constexpr bool kSwizzle = D != 80;
+  static constexpr int kPitch = kSwizzle ? D : kPitch80;      // elements a stage row
+  // D 256: q's fragments from shared memory at each step, so that its 128
+  // accumulator registers a thread fit beside the rest (no spill)
+  static constexpr bool kQShared = D == 256;
   static constexpr int kChunks = D / 8;                        // 16-byte chunks a row
-  static constexpr int kTileBytes = kTileKeys * D * 2;         // K or V of one stage
+  static constexpr int kTileBytes = kTileKeys * kPitch * 2;    // K or V of one stage
   static constexpr int kRingBytes = kStages * 2 * kTileBytes;
   // a row of a state: m, l, 6 floats of padding, acc[D].  The stride D + 8
   // puts the 8 rows a half-warp writes in distinct banks (float2 stores)
@@ -90,7 +110,10 @@ template <int D> struct Cfg {
   static constexpr int kStateFloats = kRows * kStride;
   static constexpr int kPartBytes = kWarps * kStateFloats * 4; // the warps' states
   static constexpr int kLoopBytes = kRingBytes > kPartBytes ? kRingBytes : kPartBytes;
-  static constexpr int kSmem = kLoopBytes + kStateFloats * 4;
+  static constexpr int kQBytes = kQShared ? kRows * D * 2 : 0;
+  static constexpr int kSmem = kLoopBytes + kStateFloats * 4 + kQBytes;
+  static_assert(kSmem <= 232448, "more shared memory than a block may hold");
+  static_assert(D % 16 == 0, "whole k16 steps of S and x4 ldmatrix steps of P V");
 };
 
 // ---------------------------------------------------------------------------
@@ -143,10 +166,20 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&p);
 }
 
-// The shared address of 16-byte chunk `c` of row `r` of a swizzled tile.
+// The shared address of 16-byte chunk `c` of row `r` of a stage's K or V.
+// At D 64, 128 and 256 a row holds 8, 16 or 32 chunks and the chunk index
+// is XORed with r % 8, which stays inside the row.  At D 80 a row holds 10
+// chunks, and that XOR would carry chunks 8-9 into the next row; its rows
+// are instead kPitch80 elements (176 bytes = 11 chunks) apart, unswizzled:
+// the 8 rows an ldmatrix phase reads at one chunk lie 11 chunks apart, in
+// the 8 distinct 16-byte bank groups (11 r mod 8).
 template <int D>
 __device__ __forceinline__ uint32_t tile_addr(uint32_t base, int r, int c) {
-  return base + r * (D * 2) + ((c ^ (r & 7)) << 4);
+  if constexpr (Cfg<D>::kSwizzle) {
+    return base + r * (D * 2) + ((c ^ (r & 7)) << 4);
+  } else {
+    return base + r * (Cfg<D>::kPitch * 2) + (c << 4);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -164,6 +197,7 @@ decode_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   extern __shared__ __align__(128) unsigned char smem[];
   float* part = reinterpret_cast<float*>(smem);                  // after the loop
   float* state = reinterpret_cast<float*>(smem + C::kLoopBytes); // kRows x kStride
+  unsigned char* qsm = smem + C::kLoopBytes + C::kStateFloats * 4;   // kQShared: q
   const uint32_t ring = smem_u32(smem);
 
   cg::cluster_group cluster = cg::this_cluster();
@@ -192,10 +226,20 @@ decode_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   const __nv_bfloat16* kb = k + (static_cast<int64_t>(b) * s * hkv + kvh) * D;
   const __nv_bfloat16* vb = v + (static_cast<int64_t>(b) * s * hkv + kvh) * D;
 
-  // q as A fragments for every 16-wide step of D, zero in the padding rows
-  uint32_t qa[D / 16][4];
-  {
-    const __nv_bfloat16* qb = q + (static_cast<int64_t>(b) * h + h0) * D;
+  // q as A fragments for every 16-wide step of D, zero in the padding rows:
+  // in registers for the whole chunk, or (kQShared) its 16 rows in shared
+  // memory, swizzled as a stage's rows, for ldmatrix at each step
+  [[maybe_unused]] uint32_t qa[C::kQShared ? 1 : D / 16][4];
+  const __nv_bfloat16* qb = q + (static_cast<int64_t>(b) * h + h0) * D;
+  if constexpr (C::kQShared) {
+    for (int i = tid; i < kRows * C::kChunks; i += kThreads) {
+      const int r = i / C::kChunks;
+      const int c = i - r * C::kChunks;
+      const uint4 val = r < rows ? *reinterpret_cast<const uint4*>(qb + r * D + c * 8)
+                                 : make_uint4(0u, 0u, 0u, 0u);
+      *reinterpret_cast<uint4*>(qsm + r * (D * 2) + ((c ^ (r & 7)) << 4)) = val;
+    }
+  } else {
     const uint32_t* q0 = reinterpret_cast<const uint32_t*>(qb + g * D);
     const uint32_t* q8 = reinterpret_cast<const uint32_t*>(qb + (g + 8) * D);
 #pragma unroll
@@ -239,6 +283,9 @@ decode_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   // ldmatrix lane roles: lane l addresses row l % 8 of matrix l / 8
   const int mat = lane >> 3;
   const int mrow = lane & 7;
+  // kQShared: this lane's row of q for ldmatrix (the A fragment's matrices
+  // (rows 0-7, k 0-7), (rows 8-15, k 0-7), (rows 0-7, k 8-15), (8-15, 8-15))
+  [[maybe_unused]] const uint32_t qrow = smem_u32(qsm) + ((mat & 1) * 8 + mrow) * (D * 2);
   for (int t = 0; t < n_tiles; ++t) {
     cp_async_wait<C::kStages - 2>();
     __syncthreads();                  // tile t landed; tile t - 1's slot is free
@@ -259,8 +306,15 @@ decode_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
       // (keys 8-15, d 8-15) of this warp's keys and this 16-wide step
       uint32_t kf[4];
       ldmatrix_x4(tile_addr<D>(ks, kw + (mat >> 1) * 8 + mrow, kstep * 2 + (mat & 1)), kf);
-      mma_bf16(sc[0], qa[kstep], kf[0], kf[1]);
-      mma_bf16(sc[1], qa[kstep], kf[2], kf[3]);
+      if constexpr (C::kQShared) {
+        uint32_t a[4];
+        ldmatrix_x4(qrow + (((kstep * 2 + (mat >> 1)) ^ mrow) << 4), a);
+        mma_bf16(sc[0], a, kf[0], kf[1]);
+        mma_bf16(sc[1], a, kf[2], kf[3]);
+      } else {
+        mma_bf16(sc[0], qa[kstep], kf[0], kf[1]);
+        mma_bf16(sc[1], qa[kstep], kf[2], kf[3]);
+      }
     }
 
     // the online softmax over these 16 keys
@@ -492,18 +546,25 @@ int launch(const void* q, const void* k, const void* v, void* out, float* lse,
 // launched).  The caller validates devices, dtypes (bf16), shapes,
 // contiguity and 16-byte alignment, and picks the split: `splits` (1-8)
 // blocks of `chunk` keys (a multiple of 64) that cover the live keys, or,
-// with `index_dev`, every live range the cache length allows.  head_dim 64
-// or 128.
+// with `index_dev`, every live range the cache length allows.  head_dim 64,
+// 80, 128 or 256.
 // *out <- how many clusters of `splits` (1-8) blocks the card holds at once
 // at head_dim d (cudaOccupancyMaxActiveClusters); the caller sizes the split
 // so that a launch's clusters fit in one wave.  A cluster is never shrunk to
 // fit by the kernel itself: the split, and so the bits, would change.
-// out[0..2] <- kTileKeys, kRows, kMaxSplits: decode_attention.py's split
-// policy keeps copies of them and checks them against these on first use.
+// out[0..7] <- kTileKeys, kRows, kMaxSplits, kStages64, kStages80,
+// kStages128, kStages256, kPitch80: decode_attention.py keeps
+// copies of them (its split policy; the CPU tests' models of the layout)
+// and checks them against these on first use.
 extern "C" int repro_decode_attention_tc_constants(int* out) {
   out[0] = kTileKeys;
   out[1] = kRows;
   out[2] = kMaxSplits;
+  out[3] = kStages64;
+  out[4] = kStages80;
+  out[5] = kStages128;
+  out[6] = kStages256;
+  out[7] = kPitch80;
   return 0;
 }
 
@@ -511,7 +572,9 @@ extern "C" int repro_decode_attention_tc_clusters(int d, int splits, int* out) {
   if (splits <= 0 || splits > kMaxSplits) return static_cast<int>(cudaErrorInvalidValue);
   switch (d) {
     case 64: return max_clusters<64>(splits, out);
+    case 80: return max_clusters<80>(splits, out);
     case 128: return max_clusters<128>(splits, out);
+    case 256: return max_clusters<256>(splits, out);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -530,7 +593,9 @@ int run(const void* q, const void* k, const void* v, void* out, float* lse,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 64: return launch<64>(q, k, v, out, lse, index_dev, index_host, base, b, s, h, hkv, window, chunk, splits, scale, st);
+    case 80: return launch<80>(q, k, v, out, lse, index_dev, index_host, base, b, s, h, hkv, window, chunk, splits, scale, st);
     case 128: return launch<128>(q, k, v, out, lse, index_dev, index_host, base, b, s, h, hkv, window, chunk, splits, scale, st);
+    case 256: return launch<256>(q, k, v, out, lse, index_dev, index_host, base, b, s, h, hkv, window, chunk, splits, scale, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -16,7 +16,7 @@ replays advances it without the host).
     launch, the split-K combine inside a thread-block cluster; bf16,
     head_dim in :data:`TC_HEAD_DIMS`, 16-byte aligned) or ``f32_fma``
     (``csrc/decode_attention.cu``: f32 FMAs and a second combine launch;
-    f32, head dims 32/80/256, what the other cannot read).
+    f32, head dim 32, misaligned views).
   * :func:`decode_attention_plain` — what ``repro/kernels/ref.py::
     decode_attention_reference`` computes (f32 scores over the whole cache,
     masked with -1e30, softmax in f32).
@@ -53,17 +53,25 @@ BLOCKS_PER_SM = 4
 MIN_CHUNK = 64
 #: query heads a block of the f32-FMA kernel takes (kMaxHeads in the source)
 HEADS_PER_BLOCK = 8
-#: head dims of the tensor-core route (whole 8-column mma blocks, rows of
-#: 8 or more 16-byte chunks for the swizzle); at 256 the accumulator and q
-#: fragments (192 registers a thread) leave too little room, so 256 stays
-#: on the f32-FMA route
-TC_HEAD_DIMS = (64, 128)
+#: head dims of the tensor-core route: whole pairs of 8-column mma blocks.
+#: 64, 128 and 256 keep a stage's rows swizzled (8, 16, 32 16-byte chunks,
+#: the XOR by row % 8 inside the row); 80's 10 chunks would be carried
+#: into the next row by that XOR, so its rows lie :data:`TC_PITCH80`
+#: elements apart, unswizzled.  At 256 q's fragments come from shared
+#: memory at each step (its 16 rows, swizzled as a stage's), so that the
+#: accumulator's 128 registers a thread fit without a spill
+TC_HEAD_DIMS = (64, 80, 128, 256)
 #: the tensor-core kernel's stage (keys), query heads a block (the mma's M)
 #: and blocks a cluster: kTileKeys, kRows and kMaxSplits of
 #: csrc/decode_attention_tc.cu, which the launcher checks against the
 #: library's own on first use (:func:`build.check_constants`)
 TC_TILE_KEYS, TC_HEADS, TC_MAX_SPLITS = 64, 16, 8
-_TC_CONSTANTS = {"kTileKeys": TC_TILE_KEYS, "kRows": TC_HEADS, "kMaxSplits": TC_MAX_SPLITS}
+#: its ring's stages at each head dim and D 80's row pitch in elements
+#: (kStages64 ..., kPitch80)
+TC_STAGES = {64: 4, 80: 4, 128: 3, 256: 3}
+TC_PITCH80 = 88
+_TC_CONSTANTS = {"kTileKeys": TC_TILE_KEYS, "kRows": TC_HEADS, "kMaxSplits": TC_MAX_SPLITS,
+                 **{f"kStages{d}": n for d, n in TC_STAGES.items()}, "kPitch80": TC_PITCH80}
 
 Index = Union[int, torch.Tensor]
 
@@ -187,8 +195,8 @@ def decode_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     """The route for these tensors: :data:`TENSOR_CORES` for bf16 at a
     head_dim of :data:`TC_HEAD_DIMS` whose rows are 16-byte aligned (what
     the 16-byte cp.async copies read), else :data:`F32_FMA` (f32 keeps
-    exact f32 products; head dims 32 and 80 are not whole swizzled rows,
-    256 does not fit the registers; a misaligned view)."""
+    exact f32 products; head dim 32, whose 4-chunk rows the swizzle would
+    leave, on no path; a misaligned view)."""
     if (q.dtype == torch.bfloat16 and q.shape[-1] in TC_HEAD_DIMS
             and all(tma_ok(t) for t in (q, k, v))):
         return TENSOR_CORES

@@ -1,8 +1,15 @@
 """B6's routes and B3's reduction order, on the CPU.
 
-  * ``decode_route``: Qwen3-8B's serve and decode_32k shapes in bf16 take
-    the tensor cores (``csrc/decode_attention_tc.cu``); f32, head dims 32,
-    80 and 256 and a misaligned view take the f32-FMA kernel.
+  * ``decode_route``: Qwen3-8B's serve and decode_32k shapes, head dims 64,
+    80 and 256 in bf16 take the tensor cores
+    (``csrc/decode_attention_tc.cu``); f32, head dim 32 and a misaligned
+    view take the f32-FMA kernel.
+  * The tensor-core kernel's shared-memory layout at each head dim (a
+    Python copy of ``tile_addr`` and of ``Cfg<D>::kSmem``): every (row,
+    16-byte chunk) of a stage in a slot of its own, the 8 rows of each
+    ldmatrix phase in 8 distinct bank groups, the block's bytes within the
+    card's 232,448; the swizzle of D 64/128/256 applied at D 80 fails the
+    first check.
   * The tensor-core kernel's split: a cluster of ``splits`` blocks, block
     ``rank`` taking keys [begin + rank * chunk, + chunk) clipped to the live
     range, visits every live key exactly once, for a host index (the split
@@ -15,7 +22,8 @@
     against ``repro.kernels.decode_attention`` in interpret mode and the
     ``ref.py`` oracle within the card's bf16 bound (``chip_smoke.ATTN_ATOL``
     2e-2): GQA groups 1/4/8, MQA, 32 heads a KV head, windows, index 0 and
-    S - 1, both index forms.
+    S - 1, both index forms; head dim 80 (Danube-like: group 4, a window)
+    and 256 (Gemma3-like: group 2, a window and none).
   * B3's stats kernel's reduction order: an emulation of its layout
     (``stats_layout``: a cluster of row chunks x 256-column segment chunks,
     a warp a row, 8 columns a lane; the row maxima over the column chunks;
@@ -87,8 +95,8 @@ DECODE_ROUTES = {
     "d64_mqa_bf16": ((2, 1, 8, 64), (2, 300, 1, 64), torch.bfloat16, tfa.TENSOR_CORES),
     "qwen3_8b_serve_f32": ((4, 1, 32, 128), (4, 512, 8, 128), torch.float32, tfa.F32_FMA),
     "d32_bf16": ((1, 1, 2, 32), (1, 128, 1, 32), torch.bfloat16, tfa.F32_FMA),
-    "d80_bf16": ((1, 1, 4, 80), (1, 1000, 2, 80), torch.bfloat16, tfa.F32_FMA),
-    "d256_bf16": ((2, 1, 16, 256), (2, 257, 8, 256), torch.bfloat16, tfa.F32_FMA),
+    "d80_bf16": ((1, 1, 4, 80), (1, 1000, 2, 80), torch.bfloat16, tfa.TENSOR_CORES),
+    "d256_bf16": ((2, 1, 16, 256), (2, 257, 8, 256), torch.bfloat16, tfa.TENSOR_CORES),
 }
 
 
@@ -221,11 +229,14 @@ def _tc_decode_emulation(q, k, v, index, window, device_index):
 
 
 # (B, S, H, Hkv, D, window): the serve shape cut (group 4), groups 1 and 8,
-# MQA, 32 heads a KV head (two 16-head chunks), windows, D 64 and 128
+# MQA, 32 heads a KV head (two 16-head chunks), windows, D 64 and 128; then
+# D 80 as H2O-Danube-1.8B has it (group 4, a window) and D 256 as
+# Gemma3-12B (group 2, a window and none)
 TC_DECODE_CASES = {"serve_cut": (2, 512, 8, 2, 128, 0), "group1": (2, 256, 4, 4, 64, 0),
                    "group8": (1, 256, 16, 2, 64, 0), "mqa": (2, 384, 8, 1, 64, 0),
                    "group32": (1, 256, 32, 1, 64, 0), "window100": (1, 512, 4, 2, 128, 100),
-                   "window16": (2, 256, 8, 2, 64, 16)}
+                   "window16": (2, 256, 8, 2, 64, 16), "d80_window": (1, 384, 8, 2, 80, 200),
+                   "d256_window": (2, 256, 4, 2, 256, 96), "d256_global": (1, 384, 4, 2, 256, 0)}
 
 
 @pytest.mark.parametrize("device_index", [False, True])
@@ -248,6 +259,80 @@ def test_tc_numerics_match_the_pallas_kernel_within_the_bf16_bound(case, device_
         for want in (np.asarray(pallas, np.float32), oracle, plain.float().numpy()):
             err = float(np.abs(got.float().numpy() - want).max())
             assert err <= ATTN_BF16_ATOL, (index, err)
+
+
+SMEM_CAP = 232448              # an H100's shared memory a block may hold
+
+
+def _tc_stage_offset(d, r, c):
+    """decode_tc_kernel's ``tile_addr``: the byte offset of 16-byte chunk
+    ``c`` of row ``r`` within a stage's K (or V) tile."""
+    if d == 80:
+        return r * tda.TC_PITCH80 * 2 + c * 16
+    return r * d * 2 + ((c ^ (r & 7)) << 4)
+
+
+def _swizzled_offset(d, r, c):
+    """The swizzle of D 64/128/256, whatever the head dim."""
+    return r * d * 2 + ((c ^ (r & 7)) << 4)
+
+
+def _tc_q_offset(r, c, d=256):
+    """The byte offset of 16-byte chunk ``c`` of q's row ``r`` in shared
+    memory at D 256 (``kQShared``): swizzled as a stage's rows."""
+    return r * d * 2 + ((c ^ (r & 7)) << 4)
+
+
+def _tc_smem_bytes(d):
+    """``Cfg<D>::kSmem``: the ring of K and V stages, or the warps' states
+    after the loop (whichever is larger), then the block's state and, at
+    D 256, q's 16 rows."""
+    pitch = tda.TC_PITCH80 if d == 80 else d
+    ring = tda.TC_STAGES[d] * 2 * tda.TC_TILE_KEYS * pitch * 2
+    state = tda.TC_HEADS * (d + 8) * 4
+    q = tda.TC_HEADS * d * 2 if d == 256 else 0
+    return max(ring, 4 * state) + state + q
+
+
+def _slots_distinct(offset, d):
+    """Every (row, chunk) of a stage in a 16-byte slot of its own inside
+    the stage's rows."""
+    pitch = tda.TC_PITCH80 if d == 80 else d
+    slots = [offset(d, r, c) for r in range(tda.TC_TILE_KEYS) for c in range(d // 8)]
+    return (len(set(slots)) == len(slots) and all(o % 16 == 0 for o in slots)
+            and all(0 <= o <= tda.TC_TILE_KEYS * pitch * 2 - 16 for o in slots))
+
+
+@pytest.mark.parametrize("d", tda.TC_HEAD_DIMS)
+def test_tc_stage_layout_gives_each_chunk_a_slot_without_bank_conflicts(d):
+    assert _slots_distinct(_tc_stage_offset, d)
+    # an ldmatrix phase: 8 consecutive rows from a multiple of 8 (a warp's
+    # 16 keys are two such groups) at one chunk, for K's S and V's P V
+    for r0 in range(0, tda.TC_TILE_KEYS, 8):
+        for c in range(d // 8):
+            banks = {_tc_stage_offset(d, r0 + j, c) // 16 % 8 for j in range(8)}
+            assert len(banks) == 8, (d, r0, c, banks)
+    assert _tc_smem_bytes(d) <= SMEM_CAP, (d, _tc_smem_bytes(d))
+
+
+def test_tc_q_layout_at_head_dim_256():
+    """q's 16 rows in shared memory at D 256: a slot a chunk, and each
+    ldmatrix phase of the A fragment (rows 0-7 or 8-15 at one chunk) in 8
+    distinct bank groups; the block's bytes are the ring, the state and q
+    (221,696 of the card's 232,448)."""
+    slots = [_tc_q_offset(r, c) for r in range(tda.TC_HEADS) for c in range(256 // 8)]
+    assert len(set(slots)) == len(slots) and max(slots) == tda.TC_HEADS * 512 - 16
+    for r0 in (0, 8):
+        for c in range(256 // 8):
+            assert len({_tc_q_offset(r0 + j, c) // 16 % 8 for j in range(8)}) == 8
+    assert _tc_smem_bytes(256) == 221696
+
+
+def test_the_swizzle_would_carry_head_dim_80_into_the_next_row():
+    """At D 80 (10 chunks a row) the XOR by row % 8 sends chunks 8-9 to
+    8-15: the next row's bytes.  The unswizzled pitch is why."""
+    assert all(_slots_distinct(_swizzled_offset, d) for d in (64, 128, 256))
+    assert not _slots_distinct(_swizzled_offset, 80)
 
 
 def test_tc_emulation_ignores_the_stale_cache():
